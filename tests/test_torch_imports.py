@@ -1,0 +1,48 @@
+"""The port imports torch and never jax or ysmr_tpu, not even transitively."""
+
+import os
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = '''
+import sys
+import ysmr_tpu_torch
+from ysmr_tpu_torch.pipeline.track_bacteria import _track_loop, track_bacteria
+from ysmr_tpu_torch.ops import run_cc, run_prop
+from ysmr_tpu_torch.pipeline import detect_pixels
+from ysmr_tpu_torch.io import preproc, video
+from ysmr_tpu_torch.utils import csv_io, files, logging_utils, xlsx
+from ysmr_tpu_torch import config, native, _build
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'ysmr_tpu'))
+print(bad)
+raise SystemExit(1 if bad else 0)
+'''
+
+
+def test_port_imports_no_jax_and_no_ysmr_tpu():
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO
+    proc = subprocess.run([sys.executable, '-c', _CHECK], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_have_no_jax_imports():
+    import re
+    pat = re.compile(r'^\s*(import|from) (jax|ysmr_tpu)\b', re.M)
+    pkg = os.path.join(REPO, 'ysmr_tpu_torch')
+    hits = []
+    for root, _, names in os.walk(pkg):
+        for name in names:
+            if name.endswith('.py'):
+                with open(os.path.join(root, name)) as f:
+                    hits += ['{}: {}'.format(name, m.group(0))
+                             for m in pat.finditer(f.read())]
+    assert not hits, hits
