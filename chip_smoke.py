@@ -20,14 +20,30 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    run;
 5. the public entry point ``track_bacteria(path)`` on the bench clip
    written as MJPG (needs cv2), rows held against the committed reference
-   list ``bench_data/bench_clip_list.csv.gz``.
+   list ``bench_data/bench_clip_list.csv.gz``;
+6. the dense path's kernels (hull, sweep, assign) against their plain
+   PyTorch versions on the card, outputs bit-equal: hull and sweep on the
+   tables of the dense scene's first batch and on seeded random tables,
+   assign at 4096x4096 and 16384x16384 with K = 2 and 3 (invalid rows and
+   columns, exact ties); median ms of each;
+7. the dense path at full width on ``cuda``: the dense scene (150 frames
+   of 1228x922, 3000 rods, seed 125; bench.py ``measure_dense_e2e``) in
+   memory through the stage-1 loop (stage split), then written as MJPG
+   through ``track_bacteria(path)``: every kernel launched, the track
+   count within 2899 +- 10, no dropped registration, id agreement against
+   ``bench_data/dense_clip_list.csv.gz`` printed;
+8. ``cuda`` against ``cpu`` on the dense scene's first batch (64 frames)
+   at dense capacities: TRACK_ID and POSITION_T identical, the other
+   columns within the stated tolerance.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last two lines are the ``kernels`` JSON record and the result JSON.
+The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
+card name and power limit, and the result JSON.
 """
 
 import configparser
 import json
+import logging
 import os
 import queue
 import shutil
@@ -44,8 +60,11 @@ import torch
 from ysmr_tpu_torch import _build, native
 from ysmr_tpu_torch.config import default_config_dict, get_configs
 from ysmr_tpu_torch.io.preproc import HostPreprocessor
-from ysmr_tpu_torch.ops import run_cc
+from ysmr_tpu_torch.ops import assignment, labeling, run_cc
+from ysmr_tpu_torch.ops.assign import row_min_argmin
+from ysmr_tpu_torch.ops.hull import hull_edge_vectors
 from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
+from ysmr_tpu_torch.ops.sweep import sweep_extents
 from ysmr_tpu_torch.pipeline.track_bacteria import _track_loop, track_bacteria
 from ysmr_tpu_torch.utils.csv_io import save_list
 
@@ -56,6 +75,13 @@ N_FRAMES = 630
 N_BUGS = 200
 SEED = 123
 MAX_ITERS = 64
+DENSE_FRAMES = 150
+DENSE_BUGS = 3000
+DENSE_SEED = SEED + 2
+DENSE_TRACKS = 2899          # tracks of bench_data/dense_clip_list.csv.gz
+#: positions of the device tracker, cuda against cpu: a few float32 ulps
+#: of a 1228-px coordinate (tests/test_torch_tracker.py)
+POS_TOL = 1e-4
 
 
 def log(*args):
@@ -79,6 +105,18 @@ def bench_settings():
         'max detections per frame': 512, 'max track slots': 1024,
         'max bounding box height': 64, 'frame batch size': 64,
         'max foreground pixels per frame': 8192,
+    })
+    return settings
+
+
+def dense_settings():
+    """bench.py measure_dense_e2e's capacities: above the 1024-detection
+    gate, so the device measures and tracks."""
+    settings = bench_settings()
+    settings.update({
+        'minimal frame count': 32, 'max detections per frame': 4096,
+        'max track slots': 4096, 'max bounding box height': 48,
+        'max foreground pixels per frame': 131072, 'frame batch size': 64,
     })
     return settings
 
@@ -334,9 +372,9 @@ def phase_main_path(scene, settings):
     return launches
 
 
-def make_clip(path, n_frames):
-    """bench.py make_clip: the bench scene written as an MJPG AVI."""
-    scene = BenchScene()
+def make_clip(path, n_frames, scene=None):
+    """bench.py make_clip: a scene written as an MJPG AVI."""
+    scene = scene or BenchScene()
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'MJPG'), FPS,
                              (W, H))
     if not writer.isOpened():
@@ -383,6 +421,291 @@ def phase_clip(settings):
                                    N_FRAMES / elapsed))
 
 
+def kernel_record(name, source, replaces, launches, err, ms, plain_ms):
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': launches, 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain_ms}
+
+
+def max_abs_err(got, want):
+    """Largest |kernel - plain| over a kernel's outputs (bools as 0/1)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise SystemExit('kernel output shape or type differs')
+        diff = (g.double() - w.double()).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    return err
+
+
+def check_equal(name, kernel, plain, args, reps=10, plain_reps=5):
+    """Kernel against its plain version on the same card tensors: every
+    output bit-equal; median ms of each."""
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit('{}: kernel != plain (max |diff| {})'.format(
+            name, max_abs_err(got, want)))
+    err = max_abs_err(got, want)
+    ms = cuda_ms(lambda: kernel(*args), reps=reps)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=plain_reps)
+    log('kernel check {}: bit-equal, ms kernel {:.4f} plain {:.4f}'.format(
+        name, ms, plain_ms))
+    return err, ms, plain_ms
+
+
+def dense_first_batch(scene, settings):
+    """The dense scene's first 64 frames: host threshold and run wire."""
+    pre = HostPreprocessor(settings, FPS,
+                           max_fg=settings['max foreground pixels per frame'])
+    t = settings['frame batch size']
+    packed = np.zeros((t, pre.max_fg), np.uint32)
+    counts = np.zeros(t, np.int32)
+    for i in range(t):
+        tab = pre(scene.frame(i))
+        packed[i], counts[i] = tab['px_packed'], tab['count']
+    return encode(packed, counts, W, None)
+
+
+def dense_tables(runs, rc, settings, dev):
+    """Hull and sweep inputs at the shapes the dense path gives them:
+    (T * max_det, max_bh) row tables and (T * max_det, K) directions."""
+    max_det = settings['max detections per frame']
+    max_bh = settings['max bounding box height']
+    cc = run_cc.run_cc_components(
+        torch.from_numpy(runs.view(np.int32)).to(dev),
+        torch.from_numpy(rc).to(dev), w=W, double_threshold=True,
+        sorted_runs=True)
+    n = cc['n_components']
+    comp_rev = torch.where(cc['s_comp'] >= 0,
+                           n[:, None] - 1 - cc['s_comp'],
+                           torch.full_like(cc['s_comp'], -1))
+    tabs = labeling.component_stats_runs(
+        cc['s_start'], cc['s_len'], comp_rev, w=W, h=H, max_det=max_det,
+        max_bh=max_bh, cv2_centers=True)
+    abs_y = (tabs['min_y'][:, None] + torch.arange(
+        max_bh, dtype=torch.int32, device=dev)[None, :]).contiguous()
+    hull_args = (tabs['row_min_x'], tabs['row_max_x'], tabs['row_valid'],
+                 abs_y)
+    d = tabs['edge_dx'].shape[0]
+    one = torch.ones((d, 1), dtype=torch.float32, device=dev)
+    sweep_args = (tabs['points'].contiguous(),
+                  tabs['points_valid'].contiguous(),
+                  torch.cat([tabs['edge_dx'], one], 1).contiguous(),
+                  torch.cat([tabs['edge_dy'], one * 0], 1).contiguous())
+    log('dense batch: T={} components {} of {} slots, rows/component {}, '
+        'directions {}, points {}'.format(
+            runs.shape[0], int(n.clamp(max=max_det).sum()), d, max_bh,
+            sweep_args[2].shape[1], sweep_args[0].shape[1]))
+    return hull_args, sweep_args
+
+
+def random_row_tables(rng, d, r, dev):
+    """Seeded random row-extreme tables with empty components, short
+    components and padding rows."""
+    n_rows = rng.integers(1, r + 1, size=d)
+    valid = np.arange(r)[None, :] < n_rows[:, None]
+    empty = rng.random(d) < 0.15
+    valid[empty] = False
+    min_y = np.where(empty, 1 << 30, rng.integers(0, 900, size=d))
+    abs_y = (min_y[:, None] + np.arange(r)).astype(np.int32)
+    cx = rng.integers(0, 1200, size=(d, 1))
+    half = rng.integers(0, 30, size=(d, r))
+    jitter = rng.integers(-5, 6, size=(d, r))
+    lo = (cx + jitter - half).astype(np.int32)
+    hi = np.maximum(lo, (cx + jitter + half).astype(np.int32))
+    big = 1 << 30
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        np.where(valid, lo, big).astype(np.int32),
+        np.where(valid, hi, -big).astype(np.int32), valid, abs_y))
+
+
+def assign_inputs(rng, r, c, k, dev):
+    """Tracker rows and detections with invalid rows and columns, exact
+    distance ties and exact zeros."""
+    obj = rng.uniform(0, 1228, (r, k)).astype(np.float32)
+    det = rng.uniform(0, 1228, (c, k)).astype(np.float32)
+    ov = rng.random(r) < 0.6
+    dv = rng.random(c) < 0.6
+    det[1::7] = det[0::7][:len(det[1::7])]       # duplicated detections
+    dv[:8] = True
+    obj[::5] = det[rng.integers(0, c, len(obj[::5]))]
+    return tuple(torch.from_numpy(a).to(dev) for a in (obj, ov, det, dv))
+
+
+def phase_dense_kernels(scene, settings, dev):
+    runs, rc = dense_first_batch(scene, settings)
+    hull_args, sweep_args = dense_tables(runs, rc, settings, dev)
+    rng = np.random.default_rng(SEED)
+    out = {}
+    hull = [check_equal('hull dense batch', hull_edge_vectors,
+                        labeling.hull_edge_vectors_plain, hull_args, reps=20)]
+    for d, r in ((4096, 48), (16384, 96)):
+        hull.append(check_equal(
+            'hull random D={} R={}'.format(d, r), hull_edge_vectors,
+            labeling.hull_edge_vectors_plain,
+            random_row_tables(rng, d, r, dev)))
+    out['hull'] = (max(h[0] for h in hull),) + hull[0][1:]
+    sweep = [check_equal('sweep dense batch', sweep_extents,
+                         labeling.sweep_extents_plain, sweep_args, reps=20)]
+    for d, p, k in ((4096, 96, 95), (4096, 192, 191)):
+        pts = torch.from_numpy(rng.integers(0, 1228, (d, p, 2)).astype(
+            np.float32)).to(dev)
+        valid = torch.from_numpy(rng.random((d, p)) < 0.5).to(dev)
+        valid[:7] = False
+        dx = torch.from_numpy(rng.integers(1, 90, (d, k)).astype(
+            np.float32)).to(dev)
+        dy = torch.from_numpy(rng.integers(0, 96, (d, k)).astype(
+            np.float32)).to(dev)
+        sweep.append(check_equal(
+            'sweep random D={} P={} K={}'.format(d, p, k), sweep_extents,
+            labeling.sweep_extents_plain, (pts, valid, dx, dy)))
+    out['sweep'] = (max(x[0] for x in sweep),) + sweep[0][1:]
+    assign = []
+    for n in (4096, 16384):
+        for k in (2, 3):
+            assign.append(check_equal(
+                'assign {}x{} K={}'.format(n, n, k), row_min_argmin,
+                assignment.row_min_argmin_plain,
+                assign_inputs(rng, n, n, k, dev), reps=10,
+                plain_reps=3 if n > 4096 else 5))
+    out['assign'] = (max(a[0] for a in assign),) + assign[0][1:]
+    return out
+
+
+class WarningCounter(logging.Handler):
+    """Counts the pipeline's log records that contain a phrase."""
+
+    def __init__(self, phrase):
+        super().__init__(logging.WARNING)
+        self.phrase = phrase
+        self.count = 0
+
+    def emit(self, record):
+        if self.phrase in record.getMessage():
+            self.count += 1
+
+
+KERNELS = (propagate_min_fused, hull_edge_vectors, sweep_extents,
+           row_min_argmin)
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def phase_dense_path(scene, frames, settings):
+    """The dense path on cuda: in memory for the stage split, then the
+    MJPG clip through track_bacteria(path) with every kernel counted."""
+    _, _, stats = run_loop(frames, settings, 'cuda', 'dense_mem')
+    per = {k: round(v / stats['frames'] * 1e3, 4)
+           for k, v in stats['stage_s'].items()}
+    log('dense in memory (cuda): tracks {} frames {} fps {:.2f}, '
+        'dropped registrations {}'.format(stats['tracks'], stats['frames'],
+                                          stats['fps'],
+                                          stats['dropped_registrations']))
+    log('dense stage split cuda (ms/frame): {}'.format(json.dumps(per)))
+    t0 = time.perf_counter()
+    clip = make_clip(os.path.join(WORK, 'dense_clip.avi'), DENSE_FRAMES,
+                     scene)
+    log('dense clip written in {:.1f} s'.format(time.perf_counter() - t0))
+    folder = os.path.join(WORK, 'dense_clip')
+    os.makedirs(folder, exist_ok=True)
+    dropped = WarningCounter('registrations dropped')
+    logging.getLogger('ysmr').addHandler(dropped)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = track_bacteria(clip, settings=dict(settings), result_folder=folder)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in KERNELS}
+    logging.getLogger('ysmr').removeHandler(dropped)
+    if res is None:
+        raise SystemExit('dense track_bacteria(path) returned None')
+    df = res[0]
+    tracks = int(df['TRACK_ID'].nunique())
+    ref = pd.read_csv(os.path.join(REPO, 'bench_data',
+                                   'dense_clip_list.csv.gz'))
+    ref = ref.sort_values(['TRACK_ID', 'POSITION_T'], kind='stable')
+    # id agreement: the share of the reference's (TRACK_ID, POSITION_T)
+    # rows that the port emits too, and of its tracks that the port
+    # reproduces frame for frame under the same id
+    keys = ['TRACK_ID', 'POSITION_T']
+    both = ref[keys + ['POSITION_X', 'POSITION_Y']].merge(
+        df[keys + ['POSITION_X', 'POSITION_Y']], on=keys,
+        suffixes=('_ref', ''))
+    row_agree = both.shape[0] / ref.shape[0]
+    ref_frames = ref.groupby('TRACK_ID')['POSITION_T'].apply(tuple)
+    our_frames = df.groupby('TRACK_ID')['POSITION_T'].apply(tuple)
+    same_tracks = int((ref_frames == our_frames.reindex(
+        ref_frames.index)).sum())
+    shift = np.hypot(both['POSITION_X'] - both['POSITION_X_ref'],
+                     both['POSITION_Y'] - both['POSITION_Y_ref'])
+    agreement = ('{:.4f} of reference rows, {} of {} tracks identical in '
+                 'frames, position |diff| on shared rows median {:.2e} max '
+                 '{:.2e} px'.format(row_agree, same_tracks, len(ref_frames),
+                                    float(shift.median()),
+                                    float(shift.max())))
+    log('dense clip via track_bacteria(path) on cuda: rows {} (reference '
+        '{}), tracks {} (reference {}), id agreement {}, {:.2f} fps end to '
+        'end (decode included), kernel launches {}, dropped-registration '
+        'warnings {}'.format(df.shape[0], ref.shape[0], tracks,
+                             ref['TRACK_ID'].nunique(), agreement,
+                             DENSE_FRAMES / elapsed, json.dumps(launches),
+                             dropped.count))
+    if not np.isfinite(df[['POSITION_X', 'POSITION_Y', 'WIDTH', 'HEIGHT',
+                           'DEGREES_ANGLE']].to_numpy()).all():
+        raise SystemExit('dense clip: non-finite values in the rows')
+    if abs(tracks - DENSE_TRACKS) > 10:
+        raise SystemExit('dense clip: {} tracks, outside {} +- 10'.format(
+            tracks, DENSE_TRACKS))
+    if dropped.count:
+        raise SystemExit('dense clip: registrations were dropped')
+    if min(launches.values()) <= 0:
+        raise SystemExit('dense clip: a kernel was never launched: {}'.format(
+            launches))
+    return launches
+
+
+def phase_dense_cuda_vs_cpu(frames, settings):
+    """The dense scene's first batch at dense capacities through the
+    stage-1 loop on cuda and on cpu."""
+    first = frames[:settings['frame batch size']]
+    (cres, _, cstats) = run_loop(first, settings, 'cuda', 'dense_cuda')
+    t0 = time.perf_counter()
+    (pres, _, pstats) = run_loop(first, settings, 'cpu', 'dense_cpu')
+    cpu_s = time.perf_counter() - t0
+    a, b = cres[0], pres[0]
+    if a.shape != b.shape:
+        raise SystemExit('dense first batch: {} rows on cuda, {} on '
+                         'cpu'.format(a.shape[0], b.shape[0]))
+    for col in ('TRACK_ID', 'POSITION_T'):
+        if not np.array_equal(a[col].to_numpy(), b[col].to_numpy()):
+            raise SystemExit('dense first batch: {} differs between cuda '
+                             'and cpu'.format(col))
+    same = np.ones(a.shape[0], bool)
+    worst = {}
+    for col, tol in (('POSITION_X', POS_TOL), ('POSITION_Y', POS_TOL),
+                     ('WIDTH', 0.0), ('HEIGHT', 0.0),
+                     ('DEGREES_ANGLE', 0.0)):
+        x, y = a[col].to_numpy(float), b[col].to_numpy(float)
+        diff = np.abs(x - y)
+        worst[col] = float(diff.max()) if diff.size else 0.0
+        same &= x == y
+        if not (diff <= tol).all():
+            raise SystemExit('dense first batch: {} differs by {} (tolerance '
+                             '{})'.format(col, worst[col], tol))
+    log('dense first batch cuda vs cpu: {} rows, {} tracks, TRACK_ID and '
+        'POSITION_T identical, {} of {} rows byte-identical, max |diff| {}; '
+        'cpu loop {:.1f} s, dropped registrations cuda {} cpu {}'.format(
+            a.shape[0], cstats['tracks'], int(same.sum()), a.shape[0],
+            json.dumps(worst), cpu_s, cstats['dropped_registrations'],
+            pstats['dropped_registrations']))
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -395,14 +718,30 @@ def main():
         err, ms, plain_ms = phase_kernel(scene, settings, dev)
         launches = phase_main_path(scene, settings)
         phase_clip(settings)
+        dsettings = dense_settings()
+        dscene = BenchScene(seed=DENSE_SEED, n_bugs=DENSE_BUGS)
+        checks = phase_dense_kernels(dscene, dsettings, dev)
+        t0 = time.perf_counter()
+        dframes = [dscene.frame(t) for t in range(DENSE_FRAMES)]
+        log('dense scene: {} frames of {}x{}, {} rods, drawn in {:.1f} '
+            's'.format(DENSE_FRAMES, W, H, DENSE_BUGS,
+                       time.perf_counter() - t0))
+        dense_launches = phase_dense_path(dscene, dframes, dsettings)
+        phase_dense_cuda_vs_cpu(dframes, dsettings)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({'kernels': [{
-        'name': 'propagate_min_fused', 'route': 'cuda',
-        'source': 'ysmr_tpu_torch/csrc/run_prop.cu',
-        'replaces': 'ysmr_tpu/ops/pallas_run_prop.py:189',
-        'launches': launches, 'max_abs_err': err, 'ms': ms,
-        'plain_ms': plain_ms}]}))
+    records = [kernel_record(
+        'propagate_min_fused', 'ysmr_tpu_torch/csrc/run_prop.cu',
+        'ysmr_tpu/ops/pallas_run_prop.py:189', launches, err, ms, plain_ms)]
+    for name, src, rep in (
+            ('hull_edge_vectors', 'hull.cu', 'pallas_hull.py:107'),
+            ('sweep_extents', 'sweep.cu', 'pallas_sweep.py:63'),
+            ('row_min_argmin', 'assign.cu', 'pallas_assign.py:100')):
+        key = name.split('_')[0] if name != 'row_min_argmin' else 'assign'
+        records.append(kernel_record(
+            name, 'ysmr_tpu_torch/csrc/' + src, 'ysmr_tpu/ops/' + rep,
+            dense_launches[name], *checks[key]))
+    print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

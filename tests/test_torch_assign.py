@@ -1,0 +1,192 @@
+"""Per-row nearest detection and greedy matching of the PyTorch port
+(ysmr_tpu_torch/ops/assignment.py and the kernel wrapper ops/assign.py)
+against the JAX package on the same numpy inputs.
+
+Tolerance: none. The port's distance reproduces XLA's contracted
+``sqrtf(fmaf(dz, dz, fmaf(dy, dy, dx*dx)))`` exactly, so row minima,
+argmin columns and matches are bit-equal to the jitted
+``pairwise_distances`` + min/argmin that ``ysmr_tpu`` runs on the CPU.
+The Pallas kernel in interpret mode does not give those bits (it sums two
+rounded squares), so it is held only on its argmin columns away from
+near ties.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ysmr_tpu.ops import assignment as jasg
+from ysmr_tpu.ops.pallas_assign import row_min_argmin as jrow_pallas
+from ysmr_tpu_torch.ops import assignment as asg
+from ysmr_tpu_torch.ops.assign import row_min_argmin
+from ysmr_tpu_torch.ops.ds import fma_f32
+
+torch.set_num_threads(1)
+
+_JIT_DIST = jax.jit(jasg.pairwise_distances)
+
+
+def _jax_min_argmin(obj, ov, det, dv):
+    m = _JIT_DIST(obj, ov, det, dv)
+    return (np.asarray(jnp.min(m, axis=1)),
+            np.asarray(jnp.argmin(m, axis=1)).astype(np.int32))
+
+
+def _inputs(rng, r, c, k):
+    obj = rng.uniform(0, 1228, (r, k)).astype(np.float32)
+    det = rng.uniform(0, 1228, (c, k)).astype(np.float32)
+    ov = rng.random(r) < 0.8
+    dv = rng.random(c) < 0.8
+    ov[0] = False
+    dv[:2] = False
+    if c > 6:
+        det[4] = det[5]       # an exact distance tie: the first column wins
+        dv[4] = dv[5] = True
+        obj[1] = det[6]       # an exact zero distance
+        ov[1] = dv[6] = True
+    return obj, ov, det, dv
+
+
+def test_fma_f32_is_exact():
+    """fma_f32 equals the correctly rounded a*b + c, including float64
+    sums that land exactly halfway between two float32 values."""
+    rng = np.random.default_rng(0)
+    a = rng.uniform(-1e3, 1e3, 20000).astype(np.float32)
+    b = rng.uniform(-1e3, 1e3, 20000).astype(np.float32)
+    c = rng.uniform(-1e6, 1e6, 20000).astype(np.float32)
+    # midpoint cases: c = 1 + 2^-24 style sums with a tiny product
+    a[:100] = np.float32(2.0 ** -30)
+    b[:100] = np.float32(1.0) + np.float32(2.0 ** -23) * rng.integers(
+        1, 8, 100).astype(np.float32)
+    c[:100] = np.float32(1.0) + np.float32(2.0 ** -23) * rng.integers(
+        0, 8, 100).astype(np.float32)
+    from fractions import Fraction
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c)).numpy()
+    for i in range(0, 20000, 97):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + \
+            Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        # round the exact rational to float32, ties to even
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo,
+                 np.nextafter(lo, np.float32(np.inf))]
+        errs = [abs(Fraction(float(x)) - exact) for x in cands]
+        best = min(errs)
+        ties = [x for x, e in zip(cands, errs) if e == best]
+        want = ties[0] if len(ties) == 1 else \
+            [x for x in ties if not (x.view(np.int32) & 1)][0]
+        assert got[i] == want, (i, a[i], b[i], c[i])
+    for i in range(100):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + \
+            Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo,
+                 np.nextafter(lo, np.float32(np.inf))]
+        errs = [abs(Fraction(float(x)) - exact) for x in cands]
+        assert abs(Fraction(float(got[i])) - exact) == min(errs), i
+
+
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('r,c', [(40, 17), (128, 96), (64, 3)])
+def test_row_min_argmin_bit_equal_to_jitted_xla(k, r, c):
+    obj, ov, det, dv = _inputs(np.random.default_rng(r + c + k), r, c, k)
+    ref_min, ref_arg = _jax_min_argmin(obj, ov, det, dv)
+    got_min, got_arg = row_min_argmin(torch.from_numpy(obj),
+                                      torch.from_numpy(ov),
+                                      torch.from_numpy(det),
+                                      torch.from_numpy(dv))
+    np.testing.assert_array_equal(got_min.numpy(), ref_min)
+    np.testing.assert_array_equal(got_arg.numpy(), ref_arg)
+    # the full matrix of the port equals XLA's too
+    np.testing.assert_array_equal(
+        asg.pairwise_distances(torch.from_numpy(obj), torch.from_numpy(ov),
+                               torch.from_numpy(det),
+                               torch.from_numpy(dv)).numpy(),
+        np.asarray(_JIT_DIST(obj, ov, det, dv)))
+
+
+@pytest.mark.parametrize('k', [2, 3])
+def test_argmin_agrees_with_pallas_interpret(k):
+    """The Pallas kernel rounds its distances differently, but its argmin
+    columns agree wherever the row's two best distances are apart."""
+    obj, ov, det, dv = _inputs(np.random.default_rng(9), 128, 96, k)
+    p_min, p_arg = jrow_pallas(obj, ov, det, dv, interpret=True)
+    got_min, got_arg = row_min_argmin(torch.from_numpy(obj),
+                                      torch.from_numpy(ov),
+                                      torch.from_numpy(det),
+                                      torch.from_numpy(dv))
+    m = np.asarray(_JIT_DIST(obj, ov, det, dv))
+    second = np.sort(m, axis=1)[:, 1]
+    clear = (second - got_min.numpy()) > 1e-3
+    np.testing.assert_array_equal(got_arg.numpy()[clear],
+                                  np.asarray(p_arg)[clear])
+    np.testing.assert_allclose(got_min.numpy(), np.asarray(p_min),
+                               rtol=1e-6)
+
+
+def test_all_invalid_rows_and_columns():
+    obj = np.zeros((8, 2), np.float32)
+    det = np.zeros((4, 2), np.float32)
+    for ov, dv in ((np.zeros(8, bool), np.ones(4, bool)),
+                   (np.ones(8, bool), np.zeros(4, bool))):
+        m, a = row_min_argmin(torch.from_numpy(obj), torch.from_numpy(ov),
+                              torch.from_numpy(det), torch.from_numpy(dv))
+        assert (m.numpy() == np.float32(asg.BIG)).all()
+        assert (a.numpy() == 0).all()
+
+
+@pytest.mark.parametrize('seed', [1, 2, 3])
+def test_greedy_assign_matches_jax(seed):
+    """Matches and consumed columns from the same candidates, contested
+    columns and invalid rows included."""
+    rng = np.random.default_rng(seed)
+    r, c = 50, 30
+    obj = rng.uniform(0, 60, (r, 2)).astype(np.float32)
+    det = rng.uniform(0, 60, (c, 2)).astype(np.float32)
+    ov = rng.random(r) < 0.7
+    dv = rng.random(c) < 0.8
+    ref = jasg.greedy_assign(_JIT_DIST(obj, ov, det, dv), jnp.asarray(ov),
+                             jnp.asarray(dv))
+    row_min, cand = row_min_argmin(torch.from_numpy(obj),
+                                   torch.from_numpy(ov),
+                                   torch.from_numpy(det),
+                                   torch.from_numpy(dv))
+    got = asg.greedy_assign_from_candidates(row_min, cand,
+                                            torch.from_numpy(ov),
+                                            torch.from_numpy(dv))
+    np.testing.assert_array_equal(got['row_to_col'].numpy(),
+                                  np.asarray(ref['row_to_col']))
+    np.testing.assert_array_equal(got['col_matched'].numpy(),
+                                  np.asarray(ref['col_matched']))
+    full = asg.greedy_assign(
+        asg.pairwise_distances(torch.from_numpy(obj), torch.from_numpy(ov),
+                               torch.from_numpy(det), torch.from_numpy(dv)),
+        torch.from_numpy(ov), torch.from_numpy(dv))
+    np.testing.assert_array_equal(full['row_to_col'].numpy(),
+                                  got['row_to_col'].numpy())
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_cuda():
+    """The assign kernel against its plain version on the card, bit for
+    bit, K = 2 and 3, with invalid rows and columns and exact ties; one
+    launch counted per call. Runs on a machine with an NVIDIA GPU (see
+    README)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    dev = torch.device('cuda')
+    for k in (2, 3):
+        for r, c in ((1000, 1500), (3, 700), (513, 1)):
+            obj, ov, det, dv = _inputs(np.random.default_rng(r * k), r, c, k)
+            args = [torch.from_numpy(a) for a in (obj, ov, det, dv)]
+            plain = row_min_argmin(*args)
+            before = row_min_argmin.launches
+            got = row_min_argmin(*(a.to(dev) for a in args))
+            torch.cuda.synchronize()
+            assert row_min_argmin.launches == before + 1
+            np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                          plain[0].numpy())
+            np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                          plain[1].numpy())

@@ -98,7 +98,7 @@ def test_host_thresholded_frames_match_jax(mode_val):
 
 @pytest.mark.parametrize('kwargs', [
     {'use_run_cc': False}, {'include_luminosity': True},
-    {'skip_rect': False}, {'det_px_as_runs': False}])
+    {'return_det_px': False}, {'det_px_as_runs': False}])
 def test_unported_branches_raise(kwargs):
     args = dict(KW)
     args.update(kwargs)

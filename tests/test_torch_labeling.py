@@ -1,0 +1,299 @@
+"""Device stats, hull edges and the exact rect of the PyTorch port
+(ysmr_tpu_torch/ops/labeling.py, the kernel wrappers ops/hull.py and
+ops/sweep.py, and the device-rect branch of pipeline/detect_pixels.py)
+against the JAX package on the same numpy inputs.
+
+Tolerances and why:
+- integer tables, hull edge vectors and flags, sweep extents: bit-equal
+  (both compute the same correctly rounded float32 quotients, and every
+  projection is an exact float32 integer);
+- edge angles: float32 atan2 of JAX's XLA and the port's float64-rounded
+  atan2 differ by at most one ulp;
+- rect W/H and angle: bit-equal (the port forms XLA's contracted
+  ``degrees(a) - 90`` fma exactly, ``ds.fma_f32``);
+- rect centers: 1e-4 px, because XLA:CPU may contract the double-single
+  center arithmetic into fmas that PyTorch does not form (measured equal
+  on these inputs);
+- cv2 centers: bit-equal (their arithmetic is written to be
+  contraction-proof).
+"""
+
+import cv2
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_pallas_hull import _random_tables
+from ysmr_tpu import native as jnative
+from ysmr_tpu.ops import labeling as jlb
+from ysmr_tpu.ops import run_cc as jrcc
+from ysmr_tpu.ops.pallas_hull import hull_edge_vectors as jhull_pallas
+from ysmr_tpu.ops.pallas_sweep import sweep_extents as jsweep_pallas
+from ysmr_tpu.pipeline.detect_pixels import detect_from_pixels as jdetect
+from ysmr_tpu_torch.ops import labeling as lb
+from ysmr_tpu_torch.ops import run_cc as trcc
+from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+from ysmr_tpu_torch.ops.sweep import sweep_extents
+from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
+
+torch.set_num_threads(1)
+
+H, W, MAX_BH = 96, 128, 16
+
+
+def _t(a):
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy())
+
+
+def blob_wire(seed, t=3, f=4096, n=14):
+    """Run wires of frames with rotated rods and ellipses (markers on the
+    brighter half of the blobs), as the host threshold would give them."""
+    rng = np.random.default_rng(seed)
+    packed = np.zeros((t, f), np.uint32)
+    counts = np.zeros(t, np.int32)
+    for k in range(t):
+        img = np.zeros((H, W), np.uint8)
+        for _ in range(n):
+            c = (int(rng.integers(6, W - 6)), int(rng.integers(6, H - 6)))
+            ax = (int(rng.integers(1, 7)), int(rng.integers(1, 4)))
+            cv2.ellipse(img, c, ax, float(rng.uniform(0, 180)), 0, 360,
+                        int(rng.choice([120, 220])), -1)
+        yy, xx = np.nonzero(img)
+        lin = (yy * W + xx).astype(np.uint32)
+        mk = (img[yy, xx] > 150).astype(np.uint32)
+        packed[k, :len(lin)] = lin | (mk << 31)
+        counts[k] = len(lin)
+    runs = np.zeros((t, f), np.uint32)
+    rcnt = np.zeros(t, np.int32)
+    assert jnative.encode_runs_numpy(packed, counts, runs, rcnt, w=W) > 0
+    return runs[:, :1024], rcnt
+
+
+def _ulps(a, b):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64) -
+                  b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize('double_threshold', [True, False])
+def test_sorted_run_tables_match_jax(double_threshold):
+    runs, rcnt = blob_wire(1)
+    ref = jrcc.run_cc_components(runs, rcnt, w=W,
+                                 double_threshold=double_threshold)
+    got = trcc.run_cc_components(_t(runs), _t(rcnt), w=W,
+                                 double_threshold=double_threshold,
+                                 sorted_runs=True)
+    for key in ('s_start', 's_len', 's_comp', 'n_px', 'n_components'):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
+
+
+def _jax_stats(runs, rcnt, max_det):
+    ref = jrcc.run_cc_components(runs, rcnt, w=W, double_threshold=True)
+    n = np.asarray(ref['n_components'])
+    s_comp = np.asarray(ref['s_comp'])
+    comp_rev = np.where(s_comp >= 0, n[:, None] - 1 - s_comp, -1)
+    per = [jlb.component_stats_runs(
+        jnp.asarray(ref['s_start'][i]), jnp.asarray(ref['s_len'][i]),
+        jnp.asarray(comp_rev[i]), w=W, h=H, max_det=max_det, max_bh=MAX_BH,
+        cv2_centers=True) for i in range(runs.shape[0])]
+    return {k: np.concatenate([np.asarray(p[k]) for p in per])
+            for k in per[0]}, comp_rev, ref
+
+
+@pytest.mark.parametrize('max_det', [64, 8])
+def test_component_stats_runs_match_jax(max_det):
+    """Row tables, counts, candidate points, hull edges and strict corners
+    of every component (max_det 8 drops the components beyond it)."""
+    runs, rcnt = blob_wire(2)
+    ref, comp_rev, jcc = _jax_stats(runs, rcnt, max_det)
+    got = lb.component_stats_runs(
+        _t(np.asarray(jcc['s_start'])), _t(np.asarray(jcc['s_len'])),
+        _t(comp_rev.astype(np.int32)), w=W, h=H, max_det=max_det,
+        max_bh=MAX_BH, cv2_centers=True)
+    for key in ('count', 'min_y', 'points', 'points_valid', 'edge_dx',
+                'edge_dy', 'edge_valid', 'row_min_x', 'row_max_x',
+                'row_valid', 'corner_l', 'corner_r'):
+        np.testing.assert_array_equal(got[key].numpy(), ref[key],
+                                      err_msg=key)
+    assert _ulps(got['edge_angles'].numpy(), ref['edge_angles']).max() <= 1
+    assert (got['count'].numpy() > 0).sum() > 10
+
+
+@pytest.mark.parametrize('d,r,seed', [(40, 12, 0), (64, 16, 1), (5, 8, 2)])
+def test_hull_plain_bit_equal_to_xla_and_pallas(d, r, seed):
+    """The plain version of the hull kernel against the XLA slope matrix
+    (JAX labeling._hull_edge_data) and the Pallas kernel in interpret mode:
+    edge vectors where the edge flag is set, all flags, and the finished
+    candidates."""
+    rng = np.random.default_rng(seed)
+    row_min, row_max, valid, abs_y = _random_tables(rng, d, r)
+    got = hull_edge_vectors(_t(row_min), _t(row_max), _t(valid), _t(abs_y))
+    got = [g.numpy() for g in got]
+    pal = [np.asarray(a) for a in jhull_pallas(
+        jnp.asarray(row_min), jnp.asarray(row_max), jnp.asarray(valid),
+        jnp.asarray(abs_y), interpret=True)]
+    for i, (g, p) in enumerate(zip(got, pal)):
+        if g.dtype == np.float32:
+            flag = pal[2] if i < 2 else pal[5]
+            p = np.where(flag, p, 0.0)
+        np.testing.assert_array_equal(g, p, err_msg=str(i))
+    ref = [np.asarray(a) for a in jlb._hull_edge_data(
+        jnp.asarray(row_min), jnp.asarray(row_max), jnp.asarray(valid),
+        jnp.asarray(abs_y))]
+    out = [o.numpy() for o in lb._hull_edge_data(
+        _t(row_min), _t(row_max), _t(valid), _t(abs_y))]
+    for i in (0, 1, 3, 4, 5):
+        np.testing.assert_array_equal(out[i], ref[i], err_msg=str(i))
+    assert _ulps(out[2], ref[2]).max() <= 1
+
+
+def test_hull_collinear_runs_bit_equal():
+    """Collinear chains: the farthest endpoint wins the tie in both."""
+    r = 12
+    valid = np.ones((3, r), bool)
+    abs_y = np.tile(np.arange(r, dtype=np.int32), (3, 1)) + 7
+    row_min = np.stack([
+        np.full(r, 100, np.int32),
+        (100 + 2 * np.arange(r)).astype(np.int32),
+        np.where(np.arange(r) < 6, 100 + 3 * np.arange(r),
+                 118 - np.arange(r)).astype(np.int32)])
+    row_max = row_min + 5
+    ref = [np.asarray(a) for a in jlb._hull_edge_data(
+        jnp.asarray(row_min), jnp.asarray(row_max), jnp.asarray(valid),
+        jnp.asarray(abs_y))]
+    out = [o.numpy() for o in lb._hull_edge_data(
+        _t(row_min), _t(row_max), _t(valid), _t(abs_y))]
+    for i in (0, 1, 3, 4, 5):
+        np.testing.assert_array_equal(out[i], ref[i], err_msg=str(i))
+
+
+def _xla_sweep(pts, valid, dx, dy):
+    big = jnp.float32(3.0e38)
+    px = pts[..., 0][:, None, :]
+    py = pts[..., 1][:, None, :]
+    pu = px * dx[:, :, None] + py * dy[:, :, None]
+    pv = py * dx[:, :, None] - px * dy[:, :, None]
+    vm = valid[:, None, :]
+    return jax.jit(lambda: (
+        jnp.min(jnp.where(vm, pu, big), axis=-1),
+        jnp.max(jnp.where(vm, pu, -big), axis=-1),
+        jnp.min(jnp.where(vm, pv, big), axis=-1),
+        jnp.max(jnp.where(vm, pv, -big), axis=-1)))()
+
+
+@pytest.mark.parametrize('d,p,k', [(40, 12, 7), (64, 32, 31), (8, 2, 1)])
+def test_sweep_plain_bit_equal_to_xla_and_pallas(d, p, k):
+    """Integer points and integer directions (the min_area_rect inputs):
+    the plain version equals the XLA sweep and the Pallas kernel in
+    interpret mode bit for bit, including an all-invalid component."""
+    rng = np.random.default_rng(42)
+    pts = rng.integers(0, 1228, (d, p, 2)).astype(np.float32)
+    valid = rng.random((d, p)) < 0.7
+    valid[0] = False
+    dx = rng.integers(1, 60, (d, k)).astype(np.float32)
+    dy = rng.integers(0, 48, (d, k)).astype(np.float32)
+    got = sweep_extents(_t(pts), _t(valid), _t(dx), _t(dy))
+    ref = _xla_sweep(jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(dx),
+                     jnp.asarray(dy))
+    pal = jsweep_pallas(jnp.asarray(pts), jnp.asarray(valid),
+                        jnp.asarray(dx), jnp.asarray(dy), interpret=True)
+    for g, r, q in zip(got, ref, pal):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(q))
+
+
+def test_min_area_rect_matches_jax():
+    runs, rcnt = blob_wire(3)
+    ref, comp_rev, jcc = _jax_stats(runs, rcnt, 64)
+    jrect = jlb.min_area_rect(
+        jnp.asarray(ref['points']), jnp.asarray(ref['points_valid']),
+        edge_angles=jnp.asarray(ref['edge_angles']),
+        edge_valid=jnp.asarray(ref['edge_valid']),
+        edge_dx=jnp.asarray(ref['edge_dx']),
+        edge_dy=jnp.asarray(ref['edge_dy']))
+    got = lb.min_area_rect(
+        _t(ref['points']), _t(ref['points_valid']),
+        edge_angles=_t(ref['edge_angles']), edge_valid=_t(ref['edge_valid']),
+        edge_dx=_t(ref['edge_dx']), edge_dy=_t(ref['edge_dy']))
+    ok = ref['count'] > 0
+    for key in ('w', 'h'):
+        np.testing.assert_array_equal(got[key].numpy()[ok],
+                                      np.asarray(jrect[key])[ok], err_msg=key)
+    np.testing.assert_array_equal(got['angle_deg'].numpy()[ok],
+                                  np.asarray(jrect['angle_deg'])[ok])
+    for key in ('cx', 'cy'):
+        np.testing.assert_allclose(got[key].numpy()[ok],
+                                   np.asarray(jrect[key])[ok], atol=1e-4,
+                                   rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize('cv2_centers', [True, False])
+@pytest.mark.parametrize('max_det', [64, 8])
+def test_detect_device_rects_match_jax(cv2_centers, max_det):
+    """detect_from_pixels without skip_rect (the device-tracker input) on
+    the same run wire: validity and counts equal, W/H/angle equal, centers
+    bit-equal with cv2 centers and within 1e-4 px without."""
+    runs, rcnt = blob_wire(4)
+    fv = np.ones(runs.shape[0], bool)
+    fv[-1] = False
+    kw = dict(h=H, w=W, double_threshold=True, max_det=max_det,
+              max_bh=MAX_BH, cc_iters=64, use_run_cc=True,
+              cv2_centers=cv2_centers)
+    ref = jdetect(None, None, rcnt, None, fv, px_runs=runs, run_counts=rcnt,
+                  expanded_f=4096, use_pallas=False, **kw)
+    got = detect_from_pixels(None, None, None, None, _t(fv), px_runs=_t(runs),
+                             run_counts=_t(rcnt), expanded_f=4096, **kw)
+    for key in ('det_valid', 'n_components'):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
+    np.testing.assert_array_equal(got['det_info'].numpy(),
+                                  np.asarray(ref['det_info']))
+    if cv2_centers:
+        np.testing.assert_array_equal(got['det_xy'].numpy(),
+                                      np.asarray(ref['det_xy']))
+    else:
+        np.testing.assert_allclose(got['det_xy'].numpy(),
+                                   np.asarray(ref['det_xy']), atol=1e-4,
+                                   rtol=0)
+    assert got['det_valid'].numpy()[:-1].sum() > 10
+
+
+@pytest.mark.cuda
+def test_hull_and_sweep_kernels_match_plain_on_cuda():
+    """The hull and sweep kernels against their plain versions on the
+    card, bit for bit, one launch counted per call. Runs on a machine with
+    an NVIDIA GPU (see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(5)
+    for d, r in ((300, 48), (7, 8), (1000, 16)):
+        tabs = [_t(a) for a in _random_tables(rng, d, r)]
+        plain = hull_edge_vectors(*tabs)
+        before = hull_edge_vectors.launches
+        got = hull_edge_vectors(*(a.to(dev) for a in tabs))
+        torch.cuda.synchronize()
+        assert hull_edge_vectors.launches == before + 1
+        for g, p in zip(got, plain):
+            np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
+    for d, p, k in ((300, 96, 95), (9, 2, 1), (500, 32, 31)):
+        pts = _t(rng.integers(0, 1228, (d, p, 2)).astype(np.float32))
+        valid = _t(rng.random((d, p)) < 0.6)
+        valid[0] = False
+        dx = _t(rng.integers(1, 60, (d, k)).astype(np.float32))
+        dy = _t(rng.integers(0, 48, (d, k)).astype(np.float32))
+        plain = sweep_extents(pts, valid, dx, dy)
+        before = sweep_extents.launches
+        got = sweep_extents(pts.to(dev), valid.to(dev), dx.to(dev),
+                            dy.to(dev))
+        torch.cuda.synchronize()
+        assert sweep_extents.launches == before + 1
+        for g, q in zip(got, plain):
+            np.testing.assert_array_equal(g.cpu().numpy(), q.numpy())

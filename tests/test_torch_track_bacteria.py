@@ -1,10 +1,17 @@
 """Stage 1 of the PyTorch port against the JAX package, end to end on the
 CPU: the same synthetic clip and settings through both track_bacteria
-functions must give byte-identical ``_list.csv`` files.
+functions.
+
+- Host-rect path (the default below the capacity gate): byte-identical
+  ``_list.csv`` files.
+- Device-tracker path (``'cv2 exact rects': False``, the path of dense
+  scenes): identical TRACK_ID, POSITION_T, WIDTH, HEIGHT and
+  DEGREES_ANGLE; positions within 1e-4 px, the double-single GSFF
+  tolerance of tests/test_torch_tracker.py (without GSFF they are equal).
 
 The JAX side runs the same path as the port (pixels mode, runs wire, run
-CC, cv2-exact host rects, float64 host tracker); on the CPU it only turns
-run CC on when asked, hence ``'run cc': 'on'``.
+CC); on the CPU it only turns run CC on when asked, hence
+``'run cc': 'on'``.
 """
 
 import os
@@ -33,8 +40,9 @@ CLIPS = {
 }
 
 
-def _run_both(tmp_path, clip):
+def _run_both(tmp_path, clip, **more):
     video_kw, overrides = CLIPS[clip]
+    overrides = {**overrides, **more}
     video = make_synthetic_video(str(tmp_path / 'clip.avi'),
                                  n_frames=N_FRAMES, **video_kw)
     settings = _make_settings(tmp_path, **overrides)
@@ -61,6 +69,43 @@ def test_list_csv_byte_identical_to_jax(tmp_path, clip):
     pd.testing.assert_frame_equal(tres[0], jres[0])
     assert tres[1:4] == jres[1:4]
     assert os.path.basename(tres[4]) == os.path.basename(jres[4])
+
+
+@pytest.mark.parametrize('clip', sorted(CLIPS))
+def test_device_tracker_rows_match_jax(tmp_path, clip):
+    out = _run_both(tmp_path, clip, **{'cv2 exact rects': False})
+    (jres, _), (tres, _) = out['jax'], out['torch']
+    jdf, tdf = jres[0], tres[0]
+    assert jdf.shape == tdf.shape and jdf.shape[0] > 100
+    for col in ('TRACK_ID', 'POSITION_T', 'WIDTH', 'HEIGHT',
+                'DEGREES_ANGLE'):
+        np.testing.assert_array_equal(tdf[col].to_numpy(),
+                                      jdf[col].to_numpy(), err_msg=col)
+    tol = 0 if CLIPS[clip][1].get('disable gsff') else 1e-4
+    for col in ('POSITION_X', 'POSITION_Y'):
+        np.testing.assert_allclose(tdf[col].to_numpy(), jdf[col].to_numpy(),
+                                   atol=tol, rtol=0, err_msg=col)
+    assert tres[1:4] == jres[1:4]
+
+
+def test_slice_gate_and_unported_settings(tmp_path):
+    """The capacity gate picks the path; settings outside the slice raise
+    and name their ROADMAP item."""
+    from ysmr_tpu_torch.pipeline.track_bacteria import (check_slice_settings,
+                                                        use_host_rects)
+    settings = _make_settings(tmp_path)
+    assert use_host_rects(settings)
+    assert not use_host_rects({**settings, 'cv2 exact rects': False})
+    assert not use_host_rects({**settings,
+                               'max detections per frame': 4096})
+    check_slice_settings({**settings, 'max detections per frame': 4096,
+                          'cv2 exact rects': False})
+    for extra in ({'compact emissions readback': True},
+                  {'include luminosity in tracking calculation': True},
+                  {'transfer mode': 'frames'},
+                  {'display video analysis': True}):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            check_slice_settings({**settings, **extra})
 
 
 def test_track_loop_with_in_memory_reader(tmp_path):

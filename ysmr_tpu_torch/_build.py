@@ -7,8 +7,9 @@ so a changed source rebuilds and an unchanged one is loaded as it is.
 Nothing is written into ``native/``. A failed build raises with the
 compiler's output.
 
-CUDA (``csrc/*.cu``): ``nvcc`` into a shared library with a plain C
-interface, loaded with ctypes (a few seconds per build; a build through
+CUDA (``csrc/*.cu``): one ``nvcc`` per source, all started together,
+then one link into a shared library with a plain C interface, loaded with
+ctypes (a few seconds per build; a build through
 ``torch.utils.cpp_extension`` compiles PyTorch's headers and takes
 minutes). Every pointer and the stream travel as ``c_void_p``.
 """
@@ -29,7 +30,7 @@ NATIVE_DIR = os.path.join(_REPO, 'native')
 NATIVE_LIBRARY = os.path.join(NATIVE_DIR, 'libysmr_native.so')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _KERNELS = None
 
@@ -130,13 +131,35 @@ def load_kernels():
     nvcc = _nvcc()
 
     def steps(tmp, out):
-        return _run([nvcc] + NVCC_FLAGS + ['-o', out] + units, tmp)
+        objs = [os.path.join(tmp, os.path.basename(u) + '.o') for u in units]
+        procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ['-c', '-o', o, u],
+                                  cwd=tmp, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for u, o in zip(units, objs)]
+        log = ''
+        failed = []
+        for u, proc in zip(units, procs):
+            text = proc.communicate()[0]
+            log += '{}:\n{}'.format(os.path.basename(u), text)
+            if proc.returncode != 0:
+                failed.append(os.path.basename(u))
+        if failed:
+            raise RuntimeError('build failed ({}):\n{}'.format(
+                ', '.join(failed), log))
+        return log + _run([nvcc] + NVCC_FLAGS[:2] + ['-shared', '-o', out] +
+                          objs, tmp)
 
     path, log = _build_once('libysmr_kernels', sources, NVCC_FLAGS, steps)
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ysmr_run_prop.restype = ci
     lib.ysmr_run_prop.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.ysmr_hull_edges.restype = ci
+    lib.ysmr_hull_edges.argtypes = [vp] * 12 + [ci, ci, ci, vp]
+    lib.ysmr_sweep_extents.restype = ci
+    lib.ysmr_sweep_extents.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
+    lib.ysmr_row_min_argmin.restype = ci
+    lib.ysmr_row_min_argmin.argtypes = [vp] * 6 + [ci, ci, ci, ci, vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

@@ -1,0 +1,61 @@
+"""Wrapper of the hand-written CUDA kernel for the per-row nearest
+detection of the tracker.
+
+Counterpart of ``ysmr_tpu/ops/pallas_assign.py::row_min_argmin``. The
+kernel (``csrc/assign.cu``) runs one thread per tracker row; its source
+notes the design, the distance's rounding order and what bounds it. The
+plain PyTorch version is ``ops/assignment.py::row_min_argmin_plain``.
+
+A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
+or the call raises. Nothing falls back from the kernel to the plain
+version.
+"""
+
+import torch
+
+from ysmr_tpu_torch import _build
+from ysmr_tpu_torch.ops.assignment import row_min_argmin_plain
+
+
+def row_min_argmin(obj_xy, obj_valid, det_xy, det_valid):
+    """Per-row minimum distance and its first minimal column (contract of
+    ``assignment.row_min_argmin_plain``).
+
+    :param obj_xy: (R, K) float32, K in (2, 3); obj_valid (R,) bool
+    :param det_xy: (C, K) float32; det_valid (C,) bool
+    :return: (row_min (R,) float32, cand_col (R,) int32)
+    """
+    if obj_xy.device.type == 'cpu':
+        return row_min_argmin_plain(obj_xy, obj_valid, det_xy, det_valid)
+    if obj_xy.device.type != 'cuda':
+        raise ValueError('row_min_argmin: unsupported device {}'.format(
+            obj_xy.device))
+    if obj_xy.dim() != 2 or obj_xy.shape[1] not in (2, 3):
+        raise ValueError('row_min_argmin: obj_xy must be (R, K), K in 2, 3')
+    r, k = obj_xy.shape
+    c = det_xy.shape[0]
+    for name, a, shape, dtype in (
+            ('obj_xy', obj_xy, (r, k), torch.float32),
+            ('obj_valid', obj_valid, (r,), torch.bool),
+            ('det_xy', det_xy, (c, k), torch.float32),
+            ('det_valid', det_valid, (c,), torch.bool)):
+        if tuple(a.shape) != shape or a.dtype != dtype or \
+                a.device != obj_xy.device or not a.is_contiguous():
+            raise ValueError('row_min_argmin: {} must be a contiguous {} {} '
+                             'tensor on {}'.format(name, shape, dtype,
+                                                   obj_xy.device))
+    row_min = torch.empty(r, dtype=torch.float32, device=obj_xy.device)
+    cand = torch.empty(r, dtype=torch.int32, device=obj_xy.device)
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(obj_xy.device).cuda_stream
+    rc = lib.ysmr_row_min_argmin(
+        obj_xy.data_ptr(), obj_valid.data_ptr(), det_xy.data_ptr(),
+        det_valid.data_ptr(), row_min.data_ptr(), cand.data_ptr(), r, c, k,
+        obj_xy.device.index, stream)
+    _build.check(lib, rc, 'assign kernel launch')
+    row_min_argmin.launches += 1
+    return row_min, cand
+
+
+#: kernel launches since the count was last set to 0
+row_min_argmin.launches = 0

@@ -1,12 +1,34 @@
-# Copied from ysmr_tpu/ops/gsff.py (the float64 filter-bank parameters only).
-"""Gaussian-Sum FIR filter-bank parameters for the native float64 tracker.
+# Host parameters copied from ysmr_tpu/ops/gsff.py; the filter step ported.
+"""Batched Gaussian-Sum FIR filter bank over padded track slots (PyTorch).
 
-Copied from ``ysmr_tpu/ops/gsff.py`` (``generate_n_i``, ``compute_lsf_gain``
-and ``GSFFParams`` without its device-side double-single gain arrays). The
-filter itself runs in ``native/tracker64.cpp`` on the host.
+Counterpart of ``ysmr_tpu/ops/gsff.py``, whose docstring derives the
+vectorised filter from the reference's per-object GaussianSumFIR
+(gsff.py:28-347): log-space weights, estimates recomputed from the
+measurement ring, and double-single arithmetic (``ops/ds.py``) for the
+ring, the estimates and the emitted positions. ``generate_n_i``,
+``compute_lsf_gain`` and ``GSFFParams`` are host numpy, copied; the
+float64 gains also feed the native float64 tracker
+(``native/tracker64.cpp``).
+
+Numerics: the few transcendentals (``exp``, ``log``) run in float64 and
+round to float32, so the CPU and CUDA give the same bits (library float32
+versions differ by an ulp); the three-filter sums are written out as adds
+in the JAX module's order, never ``torch.sum``, whose association differs
+between devices.
 """
 
 import numpy as np
+import torch
+
+from ysmr_tpu_torch.ops.ds import (add as _ds_add, dot_tree as _ds_dot_tree,
+                                   mul as _ds_mul, sub as _ds_sub)
+
+LIKELIHOOD_MINIMUM = 1e-20
+NEG_INF = float(np.float32(-1e30))
+#: float32(log(likelihood minimum)), as the JAX module rounds it
+_LOG_LIK_MIN = float(np.float32(np.log(LIKELIHOOD_MINIMUM)))
+
+_F32 = torch.float32
 
 
 def generate_n_i(n_min=0, n_max=30, n_f=3):
@@ -61,3 +83,189 @@ class GSFFParams:
         #: float64 right-aligned gains, consumed directly by the native f64
         #: host tracker (native/tracker64.cpp)
         self.gains_f64 = gains
+        # double-single representation: stacked (hi, lo) f32 pair carrying
+        # the full float64 coefficients (lo = residual after f32 rounding)
+        g_hi = gains.astype(np.float32)
+        g_lo = (gains - g_hi.astype(np.float64)).astype(np.float32)
+        #: (2, n_f, 2, 2*n_max) float32 numpy; ``gains_on`` moves it
+        self.gains_ds = np.stack([g_hi, g_lo])
+
+    def gains_on(self, device):
+        """The double-single gain pair as a tensor on ``device``."""
+        return torch.from_numpy(self.gains_ds).to(device)
+
+
+def init_state(params, max_slots, device):
+    """Fresh per-slot GSFF state (weights kept as logs); ``buf_lo`` and
+    ``pred_lo`` are the lo halves of the double-single measurement ring and
+    last prediction."""
+    def zeros(*shape, dtype=_F32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        'buf': zeros(max_slots, params.buf_len, 2),
+        'buf_lo': zeros(max_slots, params.buf_len, 2),
+        'len': zeros(max_slots, dtype=torch.int32),
+        'mode': zeros(max_slots, dtype=torch.int32),
+        'log_w': torch.full((max_slots, params.n_f), NEG_INF, dtype=_F32,
+                            device=device),
+        'pred_lo': zeros(max_slots, 2),
+    }
+
+
+def register_slots(state, n_i0, register_mask, measurements):
+    """Initialise newly-registered slots with their first measurement
+    (reference: previous_measurements = [m] * n_i[0], gsff.py:279-281; the
+    whole ring is filled with m). Takes the first horizon ``n_i0``
+    (``params.n_i[0]``) where the JAX function takes the bank, so the
+    tracker's frame step calls it directly."""
+    m = measurements.to(_F32)
+    reg = register_mask[:, None, None]
+    zero = torch.zeros((), dtype=_F32, device=m.device)
+    return {
+        'buf': torch.where(reg, m[:, None, :].expand_as(state['buf']),
+                           state['buf']),
+        'buf_lo': torch.where(reg, zero, state['buf_lo']),
+        'len': torch.where(register_mask,
+                           torch.full_like(state['len'], n_i0),
+                           state['len']),
+        'mode': torch.where(register_mask, torch.zeros_like(state['mode']),
+                            state['mode']),
+        'log_w': torch.where(register_mask[:, None],
+                             torch.full_like(state['log_w'], NEG_INF),
+                             state['log_w']),
+        'pred_lo': torch.where(register_mask[:, None], zero,
+                               state['pred_lo']),
+    }
+
+
+def _ds_estimates(gains_h, gains_l, center_h, center_l, buf_h, buf_l):
+    """LS estimates ``center + gains @ (window - center)`` in double-single.
+
+    :param gains_h, gains_l: (n_f, 2, 2*n_max)
+    :param center_h, center_l: (S, 2)
+    :param buf_h, buf_l: (S, n_max+1, 2) rings (oldest first)
+    :return: (x_h, x_l) of shape (S, n_f, 2)
+    """
+    s = buf_h.shape[0]
+    w2 = gains_h.shape[-1]
+    win_h, win_l = _ds_sub(buf_h[:, 1:, :], buf_l[:, 1:, :],
+                           center_h[:, None, :], center_l[:, None, :])
+    win_h = win_h.reshape(s, 1, 1, w2)
+    win_l = win_l.reshape(s, 1, 1, w2)
+    dot_h, dot_l = _ds_dot_tree(gains_h[None], gains_l[None], win_h, win_l)
+    return _ds_add(center_h[:, None, :], center_l[:, None, :], dot_h, dot_l)
+
+
+def _exp(x):
+    return torch.exp(x.double()).to(_F32)
+
+
+def _log(x):
+    return torch.log(x.double()).to(_F32)
+
+
+def _sum_filters(a):
+    """Sum over the filter axis (axis 1) as left-to-right adds."""
+    acc = a[:, 0]
+    for i in range(1, a.shape[1]):
+        acc = acc + a[:, i]
+    return acc
+
+
+def _step(gains, n_i, n_f, state, measurements, active, measurements_lo=None):
+    """One correct+predict step for all slots.
+
+    :param gains: (2, n_f, 2, 2*n_max) double-single gain pair
+    :param n_i: the filter horizons (list of ints or an int32 tensor)
+    :param measurements: (S, 2) float32 — matched detection position or the
+        previous prediction (hi half) for disappeared-but-alive slots
+    :param measurements_lo: (S, 2) float32 or None — lo half of the
+        measurement (nonzero only for coasting slots)
+    :param active: (S,) bool — slots participating this frame
+    :return: (new_state, corrected (S, 2), predicted (S, 2))
+    """
+    buf, length, mode, log_w = (state['buf'], state['len'], state['mode'],
+                                state['log_w'])
+    buf_lo = state['buf_lo']
+    n_max = buf.shape[1] - 1
+    dev = buf.device
+    m = measurements.to(_F32)
+    ml = torch.zeros_like(m) if measurements_lo is None \
+        else measurements_lo.to(_F32)
+    gains_h, gains_l = gains[0], gains[1]
+    n_i_t = torch.as_tensor(n_i, dtype=torch.int32, device=dev)
+
+    # (a) mode growth: while mode < n_f and len >= n_i[mode]
+    new_mode = mode
+    for _ in range(n_f):
+        can_grow = (new_mode < n_f) & \
+            (length >= n_i_t[torch.clamp(new_mode, 0, n_f - 1).long()])
+        new_mode = new_mode + can_grow.to(torch.int32)
+    grew = new_mode > mode
+    filt_idx = torch.arange(n_f, dtype=torch.int32, device=dev)
+    filt_active = filt_idx[None, :] < new_mode[:, None]  # (S, n_f)
+    neg = torch.full_like(log_w, NEG_INF)
+
+    # (b) weights: uniform 1/mode on transition
+    uniform = -_log(torch.clamp(new_mode, min=1).to(_F32))[:, None]
+    lw_in = torch.where(grew[:, None], uniform, log_w)
+    lw_in = torch.where(filt_active, lw_in, neg)
+
+    # (c) pre-append LS estimates (window = last n_max ring entries)
+    x_pre_h, x_pre_l = _ds_estimates(gains_h, gains_l, buf[:, -1, :],
+                                     buf_lo[:, -1, :], buf, buf_lo)
+
+    # (d) log likelihoods vs the new measurement, floored at the log of the
+    # reference's likelihood minimum
+    diff_h, diff_l = _ds_sub(m[:, None, :], ml[:, None, :], x_pre_h, x_pre_l)
+    sq = diff_h * diff_h + 2.0 * diff_h * diff_l             # (S, n_f, 2)
+    d2 = sq[..., 0] + sq[..., 1]
+    log_lik = torch.clamp(-0.5 * d2, min=_LOG_LIK_MIN)
+
+    # (e) weight update w_i <- lik_i * w_i / sum in log space
+    lw = torch.where(filt_active, lw_in + log_lik, neg)
+    lw_max = lw.amax(dim=1, keepdim=True)
+    lse = lw_max + _log(_sum_filters(_exp(lw - lw_max)))[:, None]
+    lw_new = torch.where(filt_active, lw - lse, neg)
+    w_new = torch.where(filt_active, _exp(lw_new), torch.zeros_like(lw_new))
+
+    # (f) corrected output: weighted pre-append estimates
+    zero_w = torch.zeros_like(w_new)[:, :, None]
+    cw_h, cw_l = _ds_mul(x_pre_h, x_pre_l, w_new[:, :, None], zero_w)
+    corr_h, corr_l = cw_h[:, 0, :], cw_l[:, 0, :]
+    for i in range(1, n_f):
+        corr_h, corr_l = _ds_add(corr_h, corr_l, cw_h[:, i, :], cw_l[:, i, :])
+    corrected = corr_h + corr_l
+
+    # (g) append measurement, recompute estimates, predict
+    buf_new = torch.cat([buf[:, 1:, :], m[:, None, :]], dim=1)
+    buf_lo_new = torch.cat([buf_lo[:, 1:, :], ml[:, None, :]], dim=1)
+    x_post_h, x_post_l = _ds_estimates(gains_h, gains_l, m, ml,
+                                       buf_new, buf_lo_new)
+    pw_h, pw_l = _ds_mul(x_post_h, x_post_l, w_new[:, :, None], zero_w)
+    pred_h, pred_l = pw_h[:, 0, :], pw_l[:, 0, :]
+    for i in range(1, n_f):
+        pred_h, pred_l = _ds_add(pred_h, pred_l, pw_h[:, i, :], pw_l[:, i, :])
+
+    act = active
+    out_state = {
+        'buf': torch.where(act[:, None, None], buf_new, buf),
+        'buf_lo': torch.where(act[:, None, None], buf_lo_new, buf_lo),
+        'len': torch.where(act, torch.clamp(length + 1, max=n_max + 1),
+                           length),
+        'mode': torch.where(act, new_mode, mode),
+        'log_w': torch.where(act[:, None], lw_new, log_w),
+        'pred_lo': torch.where(act[:, None], pred_l, state['pred_lo']),
+    }
+    zero2 = torch.zeros_like(corrected)
+    corrected = torch.where(act[:, None], corrected, zero2)
+    predicted = torch.where(act[:, None], pred_h, zero2)
+    return out_state, corrected, predicted
+
+
+def step(params, gains, state, measurements, active, measurements_lo=None):
+    """``_step`` with the bank's static parameters; ``gains`` is
+    ``params.gains_on(device)``."""
+    return _step(gains, params.n_i, params.n_f, state, measurements, active,
+                 measurements_lo)

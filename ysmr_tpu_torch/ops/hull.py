@@ -1,0 +1,67 @@
+"""Wrapper of the hand-written CUDA kernel for the hull-edge candidates.
+
+Counterpart of ``ysmr_tpu/ops/pallas_hull.py::hull_edge_vectors``. The
+kernel (``csrc/hull.cu``) runs one thread per (component, bbox row); its
+source notes the design and what bounds it. The plain PyTorch version is
+``ops/labeling.py::hull_edge_vectors_plain``.
+
+A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
+or the call raises. Nothing falls back from the kernel to the plain
+version.
+"""
+
+import torch
+
+from ysmr_tpu_torch import _build
+from ysmr_tpu_torch.ops.labeling import hull_edge_vectors_plain
+
+
+def hull_edge_vectors(row_min_x, row_max_x, row_valid, abs_y):
+    """Outgoing hull-edge vectors and chain flags per row-extreme point
+    (contract of ``labeling.hull_edge_vectors_plain``).
+
+    :param row_min_x, row_max_x, abs_y: (D, R) int32, contiguous
+    :param row_valid: (D, R) bool
+    :return: (dx_l, dy_l, edge_l, dx_r, dy_r, edge_r, corner_l, corner_r),
+        (D, R) float32 vectors and bool flags
+    """
+    if row_min_x.device.type == 'cpu':
+        return hull_edge_vectors_plain(row_min_x, row_max_x, row_valid,
+                                       abs_y)
+    if row_min_x.device.type != 'cuda':
+        raise ValueError('hull_edge_vectors: unsupported device {}'.format(
+            row_min_x.device))
+    if row_min_x.dim() != 2:
+        raise ValueError('hull_edge_vectors: tables must be (D, R)')
+    for name, a, dtype in (('row_min_x', row_min_x, torch.int32),
+                           ('row_max_x', row_max_x, torch.int32),
+                           ('abs_y', abs_y, torch.int32),
+                           ('row_valid', row_valid, torch.bool)):
+        if a.shape != row_min_x.shape or a.dtype != dtype or \
+                a.device != row_min_x.device or not a.is_contiguous():
+            raise ValueError('hull_edge_vectors: {} must be a contiguous '
+                             '(D, R) {} tensor on {}'.format(
+                                 name, dtype, row_min_x.device))
+    d, r = row_min_x.shape
+    if d * r >= 1 << 31:
+        raise ValueError('hull_edge_vectors: D * R too large')
+    vec = [torch.empty((d, r), dtype=torch.float32, device=row_min_x.device)
+           for _ in range(4)]
+    flags = [torch.empty((d, r), dtype=torch.bool, device=row_min_x.device)
+             for _ in range(4)]
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(row_min_x.device).cuda_stream
+    rc = lib.ysmr_hull_edges(
+        row_min_x.data_ptr(), row_max_x.data_ptr(), row_valid.data_ptr(),
+        abs_y.data_ptr(), vec[0].data_ptr(), vec[1].data_ptr(),
+        flags[0].data_ptr(), vec[2].data_ptr(), vec[3].data_ptr(),
+        flags[1].data_ptr(), flags[2].data_ptr(), flags[3].data_ptr(), d, r,
+        row_min_x.device.index, stream)
+    _build.check(lib, rc, 'hull kernel launch')
+    hull_edge_vectors.launches += 1
+    return (vec[0], vec[1], flags[0], vec[2], vec[3], flags[1], flags[2],
+            flags[3])
+
+
+#: kernel launches since the count was last set to 0
+hull_edge_vectors.launches = 0

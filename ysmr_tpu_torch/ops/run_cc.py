@@ -197,22 +197,25 @@ def label_runs(px_runs, run_counts, *, w, connectivity=8, max_iters=64):
 
 
 def run_cc_components(px_runs, run_counts, *, w, double_threshold,
-                      max_iters=64):
+                      max_iters=64, sorted_runs=False):
     """Full detect labeling on run tables: reconstruction + 8-conn CC.
 
     Optional marker reconstruction (4-connected, keep mask components that
     contain a marker) -> stable compaction of surviving runs -> 8-connected
     components -> ascending raster-rank component ids.
 
+    :param sorted_runs: also build the component-sorted run tables that
+        only the device rect path reads (the host-rect path skips their
+        sort)
     :return: dict with
         ``run_comp`` (T, R) int32 — ascending component id per ORIGINAL
         wire run (-1 = dropped by reconstruction / invalid),
         ``n_components`` (T,) int32, ``n_px`` (T,) int32 kept pixels per
         frame, and ``cc_steps`` (T,) int32 — the larger step count of the
-        two propagations (converged <=> cc_steps < max_iters). The
-        component-sorted run tables of the JAX version (``s_start``,
-        ``s_len``, ``s_comp``) feed only the device rect path and are not
-        built here.
+        two propagations (converged <=> cc_steps < max_iters); with
+        ``sorted_runs`` also ``s_start, s_len, s_comp`` (T, R) int32, the
+        kept runs ordered by (component id, linear start), padding slots
+        with len 0 and component -1 at the end.
     """
     geo = _prepare(px_runs, run_counts, w=w)
     t, r = geo['rows'].shape
@@ -260,6 +263,7 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
                 'key_m': geo['key_m']}
     else:
         # valid runs are a prefix, so the compaction is the identity
+        c_rows, c_xs = geo['rows'], geo['xs']
         c_len, c_orig = geo['lens'], iota.long()
         c_valid = geo['valid']
         geo8 = geo
@@ -282,5 +286,18 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
     n_px = torch.where(c_valid, c_len, torch.zeros_like(c_len)).sum(
         dim=1, dtype=_I32)
     cc_steps = steps8 if steps4 is None else torch.maximum(steps4, steps8)
-    return {'run_comp': run_comp, 'n_components': n_components,
-            'n_px': n_px, 'cc_steps': cc_steps}
+    out = {'run_comp': run_comp, 'n_components': n_components,
+           'n_px': n_px, 'cc_steps': cc_steps}
+    if sorted_runs:
+        # components contiguous, linear start ascending within: one stable
+        # sort of the combined key (component rank, start < 2^26); the JAX
+        # version sorts by the two keys
+        c_start = c_xs + c_rows * w
+        skey = torch.where(c_valid, asc, torch.full_like(asc, 1 << 30))
+        order = torch.sort(skey.long() * (1 << 26) + c_start, dim=1,
+                           stable=True).indices
+        c_len_v = torch.where(c_valid, c_len, torch.zeros_like(c_len))
+        out.update(s_start=torch.gather(c_start, 1, order),
+                   s_len=torch.gather(c_len_v, 1, order),
+                   s_comp=torch.gather(comp_c, 1, order))
+    return out

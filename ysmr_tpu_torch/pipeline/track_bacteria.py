@@ -1,21 +1,30 @@
 """track_bacteria(): video -> _list.csv, stage 1 of the PyTorch port.
 
 Counterpart of ``ysmr_tpu/pipeline/track_bacteria.py::track_bacteria`` in
-its default configuration, the one whose rows are identical to YSMR's:
+pixels mode, on both of its stage-1 paths. Common to both:
 
 1. host decode and host threshold (native library, in the reader's
    threads): per frame a packed uint32 pixel wire;
 2. the run-length wire (native ``encode_runs_batch``);
 3. on the device, run-graph connected components (``ops/run_cc.py``, with
-   the CUDA kernel ``csrc/run_prop.cu``): one detection index per run;
-4. that index, the component count and the propagation step count come
-   back in one pinned int16 buffer (``non_blocking`` copy plus a CUDA
-   event), one batch in flight: the host measures batch i - 1 while the
-   device labels batch i;
-5. cv2-exact rects (``native/cv2_exact.cpp``) and the float64 tracker
-   (``native/tracker64.cpp``) on the host;
-6. ``_list.csv``, appended every ``list save length interval`` rows and
+   the CUDA kernel ``csrc/run_prop.cu``);
+4. one batch in flight: the host finishes batch i - 1 while the device
+   works on batch i; each batch comes back in one pinned buffer
+   (``non_blocking`` copy plus a CUDA event);
+5. ``_list.csv``, appended every ``list save length interval`` rows and
    rewritten sorted at the end.
+
+The host-rect path (the default up to ``cv2 exact rects max detections``,
+1024, detections per frame; its rows are identical to YSMR's) reads back
+one detection index per run and measures cv2-exact rects
+(``native/cv2_exact.cpp``) and tracks in float64 (``native/tracker64.cpp``)
+on the host. The device-tracker path (denser scenes, or ``cv2 exact
+rects = False``) measures on the device (``detect_pixels``: row tables,
+the hull and sweep kernels ``csrc/hull.cu`` and ``csrc/sweep.cu``, the
+exact rect, cv2's f32 centers) and tracks there (``pipeline/tracker.py``,
+double-single GSFF, the kernel ``csrc/assign.cu``); the padded emissions
+come back and ``ReferenceOrderRenumberer`` rewrites their ids into the
+reference's registration order.
 
 Same contract as the JAX entry point: writes ``_list.csv`` and returns
 ``(df, fps, frame_height, frame_width, csv_path)``, or None on the errors
@@ -39,6 +48,7 @@ from ysmr_tpu_torch.io.preproc import HostPreprocessor
 from ysmr_tpu_torch.io.video import BatchedVideoReader, VideoReadError
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.gsff import GSFFParams
+from ysmr_tpu_torch.pipeline import tracker as trk
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
 from ysmr_tpu_torch.utils.csv_io import (finalize_sorted_list, save_list,
                                          sort_list)
@@ -48,6 +58,35 @@ from ysmr_tpu_torch.utils.logging_utils import get_loggers
 
 def _next_pow2(n):
     return 1 << max(int(n) - 1, 1).bit_length()
+
+
+# Copied from ysmr_tpu/pipeline/track_bacteria.py (_compact_emissions),
+# without the luminosity column (not ported).
+def _compact_emissions(emissions, batch_start, frame_offset_valid):
+    """(T, S) padded emissions -> column arrays sorted by (frame, id)."""
+    mask = np.asarray(emissions['mask'])
+    ids = np.asarray(emissions['ids'])
+    pos = np.asarray(emissions['pos'])
+    info = np.asarray(emissions['info'])
+    t_len, s = mask.shape
+    frames = np.broadcast_to(np.arange(t_len)[:, None], (t_len, s))
+    valid_t = frame_offset_valid[:, None] & mask
+    sel = np.nonzero(valid_t)
+    if sel[0].size == 0:
+        return None
+    f = frames[sel] + batch_start
+    i = ids[sel]
+    order = np.lexsort((i, f))
+    out = {
+        'TRACK_ID': i[order],
+        'POSITION_T': f[order],
+        'POSITION_X': pos[sel][order][:, 0].astype(np.float64),
+        'POSITION_Y': pos[sel][order][:, 1].astype(np.float64),
+        'WIDTH': info[sel][order][:, 0].astype(np.float64),
+        'HEIGHT': info[sel][order][:, 1].astype(np.float64),
+        'DEGREES_ANGLE': info[sel][order][:, 2].astype(np.float64),
+    }
+    return out
 
 
 def resolve_device(device):
@@ -84,12 +123,18 @@ def check_slice_settings(settings, frame_height=None, frame_width=None):
         unported("'include luminosity in tracking calculation'", 10)
     if settings['display video analysis']:
         unported("'display video analysis'", 13)
-    if not settings.get('cv2 exact rects', True):
-        unported("'cv2 exact rects = False' (the device tracker)", 9)
-    if settings['max detections per frame'] > int(
-            settings.get('cv2 exact rects max detections', 1024) or 0):
-        unported("'max detections per frame' above 'cv2 exact rects max "
-                 "detections' (the device tracker)", 9)
+    if bool(settings.get('compact emissions readback', False)):
+        unported("'compact emissions readback = True'", 9)
+    if bool(settings.get('shard dense assignment across devices', False)):
+        # as in the JAX loop, it engages only with several devices and a
+        # slots x detections matrix at or above the threshold
+        n_dev = torch.cuda.device_count()
+        slots = settings['max track slots']
+        if n_dev > 1 and slots % n_dev == 0 and \
+                slots * settings['max detections per frame'] >= int(
+                    settings.get('dense assignment shard threshold',
+                                 1 << 21)):
+            unported("'shard dense assignment across devices'", 12)
     if str(settings.get('wire format', 'auto')).lower() == 'pixels':
         unported("'wire format = pixels'", 10)
     if str(settings.get('run cc', 'auto')).lower() == 'off':
@@ -97,6 +142,16 @@ def check_slice_settings(settings, frame_height=None, frame_width=None):
     if frame_height is not None and frame_width is not None and \
             frame_height * frame_width >= 1 << 26:
         unported('Frames of 2^26 pixels or more (the pixel wire)', 10)
+
+
+def use_host_rects(settings):
+    """The JAX loop's gate (``track_bacteria.py:398-406``): host rects and
+    the float64 host tracker up to ``cv2 exact rects max detections``
+    detections per frame, unless ``cv2 exact rects`` is off; the device
+    rects and tracker above it."""
+    cap = int(settings.get('cv2 exact rects max detections', 1024) or 0)
+    return settings['max detections per frame'] <= cap and \
+        bool(settings.get('cv2 exact rects', True))
 
 
 def resolve_batch_size(settings, device):
@@ -214,6 +269,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     double_threshold = pp.resolve_detection_rule(settings)[0] == \
         'adaptive_double'
     max_det = settings['max detections per frame']
+    max_bh = settings.get('max bounding box height', 96)
     cc_iters = settings['connected components max iterations']
     batch_size = reader.batch_size
     on_cuda = device.type == 'cuda'
@@ -222,8 +278,24 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                         n_min=settings['minimum horizon size'],
                         n_max=settings['maximum horizon size'],
                         n_f=settings['number of LSFFs']) if use_gsff else None
-    tracker = native_mod.Tracker64(dims=2, max_disappeared=float(fps_of_file),
-                                   gsff_params=params)
+    host_rects = use_host_rects(settings)
+    max_slots = settings['max track slots']
+    if host_rects:
+        tracker = native_mod.Tracker64(
+            dims=2, max_disappeared=float(fps_of_file), gsff_params=params)
+    else:
+        state = trk.init_tracker_state(max_slots, device, dims=2,
+                                       use_gsff=use_gsff, gsff_params=params)
+        tracker_kwargs = dict(max_disappeared=float(fps_of_file),
+                              use_gsff=use_gsff)
+        if use_gsff:
+            tracker_kwargs.update(trk.gsff_kwargs(params, device))
+        # device ids rewritten into the reference's registration order
+        renumberer = trk.ReferenceOrderRenumberer()
+        use_cv2_centers = str(settings.get('cv2 exact centers', 'auto')
+                              ).strip().lower() != 'off'
+    logger.debug('Stage-1 path: %s', 'host rects + float64 tracker'
+                 if host_rects else 'device rects + device tracker')
     runs_buf = runs_cnt = None
     runs_bucket = 512
     # the tracker's detection-slot width: small first, raised once to
@@ -248,63 +320,46 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         # the buffers are reused next batch while this batch is in flight
         return runs_buf[:, :runs_bucket].copy(), runs_cnt.copy()
 
-    def stage_detect(data, count, start, frame_valid):
-        """Launch one batch's device labeling and the async readback of
-        its per-run detection indices; returns the staged batch."""
+    def upload(data, frame_valid):
+        """Encode one batch's runs and start their upload."""
         counts_np = np.asarray(data['count'])
         runs_np, rc_np = encode_wire_runs(data['px_packed'], counts_np)
-        if on_cuda:
-            t_start = torch.cuda.Event(enable_timing=True)
-            t_start.record()
         px_runs = torch.from_numpy(runs_np.view(np.int32)).to(
             device, non_blocking=True)
         run_counts = torch.from_numpy(rc_np).to(device, non_blocking=True)
         fv = torch.from_numpy(frame_valid).to(device, non_blocking=True)
-        tables = detect_from_pixels(
-            None, None, None, None, fv, h=frame_height, w=frame_width,
-            double_threshold=double_threshold, max_det=max_det,
-            max_bh=settings.get('max bounding box height', 96),
-            cc_iters=cc_iters, px_runs=px_runs, run_counts=run_counts,
-            expanded_f=data['px_packed'].shape[1], use_run_cc=True,
-            return_det_px=True, skip_rect=True, det_px_as_runs=True)
-        bucket = min(runs_np.shape[1],
-                     max(64, _next_pow2(int(rc_np.max()) if count else 1)))
-        # one int16 buffer per batch: the per-run indices, then the
-        # component count (clamped; only '> max_det' is read) and the
-        # propagation step count as two extra columns
-        fused = torch.cat(
-            [tables['det_run_idx'][:, :bucket],
-             tables['n_components'].clamp(max=32767)[:, None].to(torch.int16),
-             tables['cc_steps'][:, None].to(torch.int16)], dim=1)
-        host = torch.empty(fused.shape, dtype=torch.int16, pin_memory=on_cuda)
+        return counts_np, runs_np, rc_np, px_runs, run_counts, fv
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def to_host(fused, staged):
+        """One pinned non-blocking copy of the batch's fused buffer and the
+        event that marks its arrival."""
+        host = torch.empty(fused.shape, dtype=fused.dtype, pin_memory=on_cuda)
         host.copy_(fused, non_blocking=on_cuda)
-        staged = {'host': host, 'runs': runs_np, 'run_counts': rc_np,
-                  'packed': data['px_packed'], 'counts': counts_np,
-                  'start': start, 'frame_valid': frame_valid,
-                  'f_bucket': min(data['px_packed'].shape[1], max(
-                      256, _next_pow2(int(counts_np.max()) if count else 1)))}
+        staged['host'] = host
         if on_cuda:
-            staged['t_start'] = t_start
-            staged['done'] = torch.cuda.Event(enable_timing=True)
-            staged['done'].record()
+            staged['done'] = event()
         return staged
 
-    def finish_detect(staged):
-        """Wait for a staged batch, measure its rects on the host and track
-        them; returns the batch's rows (column arrays) or None."""
-        nonlocal trk_d, overflow_warned, capped_frames
+    def wait_host(staged):
+        """Wait for a staged batch's readback; returns its host buffer."""
         t_a = time.perf_counter()
         if on_cuda:
             staged['done'].synchronize()
-            stage_t['device_span'] += staged['t_start'].elapsed_time(
+            marks = staged['marks'] + [('readback', staged['done'])]
+            stage_t['device_span'] += marks[0][1].elapsed_time(
                 staged['done']) / 1e3
-        fused = staged['host'].numpy()
-        det_run = fused[:, :-2]
-        n_comp = fused[:, -2].astype(np.int32)
-        steps = fused[:, -1].astype(np.int32)
-        fv = staged['frame_valid']
-        t_b = time.perf_counter()
-        stage_t['det_wait'] += t_b - t_a
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                stage_t['device_' + name] += a.elapsed_time(b) / 1e3
+        stage_t['det_wait'] += time.perf_counter() - t_a
+        return staged['host'].numpy()
+
+    def check_counts(n_comp, steps, fv):
+        nonlocal overflow_warned, capped_frames
         capped = int((steps[fv] >= cc_iters).sum())
         if capped:
             capped_frames += capped
@@ -318,6 +373,50 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                 'Frame(s) with more than %s detections; extra components '
                 "dropped. Raise 'max detections per frame' in [TPU "
                 'SETTINGS].', max_det)
+
+    def stage_detect(data, count, start, frame_valid):
+        """Host-rect path: launch one batch's device labeling and the async
+        readback of its per-run detection indices; returns the staged
+        batch."""
+        marks = [('start', event())] if on_cuda else []
+        counts_np, runs_np, rc_np, px_runs, run_counts, fv = upload(
+            data, frame_valid)
+        tables = detect_from_pixels(
+            None, None, None, None, fv, h=frame_height, w=frame_width,
+            double_threshold=double_threshold, max_det=max_det,
+            max_bh=max_bh, cc_iters=cc_iters, px_runs=px_runs,
+            run_counts=run_counts, expanded_f=data['px_packed'].shape[1],
+            use_run_cc=True, return_det_px=True, skip_rect=True,
+            det_px_as_runs=True)
+        if on_cuda:
+            marks.append(('detect', event()))
+        bucket = min(runs_np.shape[1],
+                     max(64, _next_pow2(int(rc_np.max()) if count else 1)))
+        # one int16 buffer per batch: the per-run indices, then the
+        # component count (clamped; only '> max_det' is read) and the
+        # propagation step count as two extra columns
+        fused = torch.cat(
+            [tables['det_run_idx'][:, :bucket],
+             tables['n_components'].clamp(max=32767)[:, None].to(torch.int16),
+             tables['cc_steps'][:, None].to(torch.int16)], dim=1)
+        return to_host(fused, {
+            'runs': runs_np, 'run_counts': rc_np, 'marks': marks,
+            'packed': data['px_packed'], 'counts': counts_np,
+            'start': start, 'frame_valid': frame_valid,
+            'f_bucket': min(data['px_packed'].shape[1], max(
+                256, _next_pow2(int(counts_np.max()) if count else 1)))})
+
+    def finish_detect(staged):
+        """Host-rect path: wait for a staged batch, measure its rects on the
+        host and track them; returns the batch's rows (column arrays) or
+        None."""
+        nonlocal trk_d
+        fused = wait_host(staged)
+        t_b = time.perf_counter()
+        det_run = fused[:, :-2]
+        n_comp = fused[:, -2].astype(np.int32)
+        fv = staged['frame_valid']
+        check_counts(n_comp, fused[:, -1].astype(np.int32), fv)
         det_px = native_mod.expand_run_det(staged['runs'],
                                            staged['run_counts'], det_run,
                                            staged['f_bucket'])
@@ -337,6 +436,64 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         stage_t['tracker'] += time.perf_counter() - t_c
         return out if len(out['TRACK_ID']) else None
 
+    def stage_track(data, count, start, frame_valid):
+        """Device-tracker path: launch one batch's labeling, device rects
+        and tracker scan, and the async readback of its padded emissions
+        in one int32 buffer; returns the staged batch."""
+        nonlocal state
+        marks = [('start', event())] if on_cuda else []
+        _, _, _, px_runs, run_counts, fv = upload(data, frame_valid)
+        tables = detect_from_pixels(
+            None, None, None, None, fv, h=frame_height, w=frame_width,
+            double_threshold=double_threshold, max_det=max_det,
+            max_bh=max_bh, cc_iters=cc_iters, px_runs=px_runs,
+            run_counts=run_counts, expanded_f=data['px_packed'].shape[1],
+            use_run_cc=True, cv2_centers=use_cv2_centers)
+        if on_cuda:
+            marks.append(('detect', event()))
+        state, em = trk.run_tracker_scan(
+            state, tables['det_xy'], tables['det_info'], tables['det_valid'],
+            **tracker_kwargs)
+        if on_cuda:
+            marks.append(('track', event()))
+        # per slot [mask, id, det_col, x, y, w, h, angle] (floats as their
+        # int32 bits), then per frame [n_det, n_components, cc_steps]
+        t_len = em['mask'].shape[0]
+        slots = torch.cat(
+            [em['mask'][..., None].to(torch.int32), em['ids'][..., None],
+             em['det_col'][..., None], em['pos'].view(torch.int32),
+             em['info'].view(torch.int32)], dim=2)
+        frames = torch.stack([em['n_det'], tables['n_components'],
+                              tables['cc_steps']], dim=1).to(torch.int32)
+        fused = torch.cat([slots.reshape(-1), frames.reshape(-1)])
+        return to_host(fused, {'marks': marks, 'start': start,
+                               'frame_valid': frame_valid, 't': t_len,
+                               'k': em['pos'].shape[2]})
+
+    def finish_track(staged):
+        """Device-tracker path: wait for a staged batch's emissions and turn
+        them into rows (ids renumbered); returns the rows or None."""
+        buf = wait_host(staged)
+        t_b = time.perf_counter()
+        t_len, k = staged['t'], staged['k']
+        width = 3 + k + 3
+        n_slot = (buf.shape[0] - 3 * t_len) // (t_len * width)
+        slots = buf[:t_len * n_slot * width].reshape(t_len, n_slot, width)
+        frames = buf[t_len * n_slot * width:].reshape(t_len, 3)
+        fv = staged['frame_valid']
+        check_counts(frames[:, 1], frames[:, 2], fv)
+        mask = slots[:, :, 0] > 0
+        ids = renumberer.observe_batch(mask, slots[:, :, 1], slots[:, :, 2],
+                                       frames[:, 0], fv)
+        floats = np.ascontiguousarray(slots[:, :, 3:]).view(np.float32)
+        out = _compact_emissions(
+            {'mask': mask, 'ids': ids, 'pos': floats[:, :, :k],
+             'info': floats[:, :, k:]}, staged['start'], fv)
+        stage_t['emit_rows'] += time.perf_counter() - t_b
+        return out
+
+    stage, finish = (stage_detect, finish_detect) if host_rects else \
+        (stage_track, finish_track)
     pending = []  # accumulated column arrays awaiting flush
     # every part, kept for the in-memory final sort — bounded: beyond ~16M
     # rows the final sort falls back to the CSV round-trip
@@ -348,7 +505,9 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     error_during_read = False
     frames_processed = 0
     stage_t = {'wait_batch': 0.0, 'dispatch': 0.0, 'det_wait': 0.0,
-               'rects': 0.0, 'tracker': 0.0, 'csv': 0.0, 'device_span': 0.0}
+               'rects': 0.0, 'tracker': 0.0, 'emit_rows': 0.0, 'csv': 0.0,
+               'device_span': 0.0, 'device_detect': 0.0,
+               'device_track': 0.0, 'device_readback': 0.0}
 
     def flush():
         nonlocal pending, pending_rows
@@ -391,18 +550,18 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
             count = batch['count']
             frame_valid = np.zeros((batch_size,), bool)
             frame_valid[:count] = True
-            staged = stage_detect(batch['frames'], count, batch['start'],
-                                  frame_valid)
+            staged = stage(batch['frames'], count, batch['start'],
+                           frame_valid)
             stage_t['dispatch'] += time.perf_counter() - t1
             frames_processed += count
             if in_flight is not None:
-                collect(finish_detect(in_flight))
+                collect(finish(in_flight))
             in_flight = staged
     except VideoReadError:
         logger.critical('Error during read with file %s', video_path)
         error_during_read = settings['stop evaluation on error']
     if in_flight is not None and not error_during_read:
-        collect(finish_detect(in_flight))
+        collect(finish(in_flight))
     flush()
     preprocess = getattr(reader, 'preprocess', None)
     if preprocess is not None and preprocess.overflowed:
@@ -420,11 +579,21 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
             logger.error('Error restoring %s: %r', list_name,
                          file_removal_error.args)
 
+    # the float64 host tracker has no slot cap, so nothing can be dropped
+    # there
+    dropped = 0 if host_rects else int(state['dropped_registrations'])
+    if dropped:
+        logger.warning('%s registrations dropped (track slot capacity %s '
+                       "reached); raise 'max track slots' in [TPU SETTINGS].",
+                       dropped, max_slots)
     if stats is not None:
         stats.update({'frames': frames_processed,
                       'capped_frames': capped_frames, 'device': str(device),
+                      'host_rects': host_rects,
+                      'dropped_registrations': dropped,
                       'stage_s': dict(stage_t)})
-    last_object_id = tracker.next_id - 1
+    last_object_id = (tracker.next_id if host_rects
+                      else int(state['next_id'])) - 1
     if last_object_id < 0:
         logger.warning('Did not track any objects. File: %s', video_path)
         return None

@@ -1,0 +1,299 @@
+"""Device-resident centroid tracker over padded slot tables (PyTorch).
+
+Counterpart of ``ysmr_tpu/pipeline/tracker.py``, whose docstring sets out
+how the reference's ``CentroidTracker`` (tracker.py:27-230) maps onto a
+slot table: rows in ascending-id order, the greedy first-come match
+(``ops/assignment.py``), ageing and deregistration, registration in
+ascending column order, and the GSFF correct/predict block.
+
+``lax.scan`` becomes a Python loop over the frames of a batch; the frame
+step's shapes are static. The per-row nearest detection goes through
+``ops/assign.py::row_min_argmin`` (the CUDA kernel on a CUDA tensor, the
+plain matrix on a CPU one). ``ReferenceOrderRenumberer`` is host numpy,
+copied from the JAX module.
+
+Not ported: ``compact_emissions_device`` (the opt-in single-buffer
+readback) and the sharded assignment (ROADMAP Queue 1).
+"""
+
+import numpy as np
+import torch
+
+from ysmr_tpu_torch.ops import assignment as asg
+from ysmr_tpu_torch.ops import gsff as gsff_ops
+from ysmr_tpu_torch.ops.assign import row_min_argmin
+
+INT_MAX = 2 ** 31 - 1
+
+
+# Copied from ysmr_tpu/pipeline/tracker.py (ReferenceOrderRenumberer).
+class ReferenceOrderRenumberer:
+    """Rewrites device-tracker TRACK_IDs into the reference's numbering.
+
+    The reference registers unmatched detections by iterating
+    ``set(range(n_det)).difference(used_cols)`` (reference tracker.py:73-91)
+    — the slot order of CPython's small-int hash table, which deviates from
+    ascending once indices wrap the table. The device scan registers the
+    same detections in ascending column order (a fixed, compiler-friendly
+    rule) and additionally emits which detection column each slot consumed
+    (``det_col``) plus the per-frame detection count (``n_det``). This
+    helper replays every frame's registrations through the real CPython set
+    machinery at readback and accumulates an id remap — the renumbered ids
+    are exact by construction, with zero device-side cost beyond the two
+    extra emission columns. Batches must be observed in frame order.
+
+    Scope: the remap makes REGISTRATION order exact. After a permuted
+    registration block, the device's distance-matrix row order (ascending
+    device id) no longer equals the reference's OrderedDict insertion
+    order (ascending renumbered id), so greedy matching can still diverge
+    from the reference on EXACT distance ties in later frames — the same
+    class of residual as the documented near-tie greedy flips. Id-level
+    exactness therefore does not imply match-level exactness; the float64
+    host tracker (native/tracker64.cpp) remains the bit-exact path.
+    """
+
+    def __init__(self):
+        self._remap = np.arange(0, dtype=np.int64)
+        self._seen_max = -1
+
+    def _grow(self, n):
+        if n > self._remap.shape[0]:
+            old = self._remap
+            self._remap = np.arange(max(n, 2 * old.shape[0]), dtype=np.int64)
+            self._remap[:old.shape[0]] = old
+
+    def observe_batch(self, mask, ids, det_col, n_det, frame_valid):
+        """Fold one batch's padded emissions into the remap; returns the
+        remapped ids (same shape as ``ids``, entries under ``mask`` valid).
+        """
+        mask = np.asarray(mask)
+        ids = np.asarray(ids)
+        det_col = np.asarray(det_col)
+        n_det = np.asarray(n_det)
+        live_ids = np.where(mask, ids, -1)
+        self._grow(int(live_ids.max(initial=-1)) + 1)
+        frame_max = live_ids.max(axis=1, initial=-1)
+        # only frames that registered something need the set replay
+        for t in np.nonzero(frame_valid & (frame_max > self._seen_max))[0]:
+            row_live = mask[t]
+            row_ids = ids[t][row_live]
+            row_cols = det_col[t][row_live]
+            # _seen_max moves inside this loop; the nonzero() pre-filter
+            # used its entry value, so re-check per frame
+            fresh = row_ids > self._seen_max
+            if not fresh.any():
+                continue
+            used_cols = set(
+                int(c) for c in row_cols[~fresh] if c >= 0)
+            # the real CPython iteration order the reference registers in
+            order = list(set(range(int(n_det[t]))).difference(used_cols))
+            rank = {d: i for i, d in enumerate(order)}
+            new_ids = np.sort(row_ids[fresh])
+            # ascending device ids correspond to ascending detection columns
+            new_cols = np.sort(row_cols[fresh])
+            base = int(new_ids[0])
+            for j, d in enumerate(new_cols):
+                # rank defaults to j if a column is unexpectedly absent
+                # (capacity drops break reference parity anyway)
+                self._remap[new_ids[j]] = base + rank.get(int(d), j)
+            self._seen_max = int(frame_max[t]) \
+                if frame_max[t] > self._seen_max else self._seen_max
+        out = self._remap[np.clip(ids, 0, self._remap.shape[0] - 1)]
+        return np.where(mask, out, ids).astype(ids.dtype)
+
+
+def init_tracker_state(max_slots, device, dims=2, use_gsff=False,
+                       gsff_params=None):
+    """Fresh tracker state (a dict of tensors on ``device``). ``dims`` is 2
+    or 3 (with luminosity)."""
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    state = {
+        'active': zeros(max_slots, dtype=torch.bool),
+        'ids': zeros(max_slots, dtype=torch.int32),
+        'pos': zeros(max_slots, dims),
+        'info': zeros(max_slots, 3),
+        'disappeared': zeros(max_slots, dtype=torch.int32),
+        'next_id': zeros(dtype=torch.int32),
+        'dropped_registrations': zeros(dtype=torch.int32),
+    }
+    if use_gsff:
+        state['gsff'] = gsff_ops.init_state(gsff_params, max_slots, device)
+    return state
+
+
+def gsff_kwargs(params, device):
+    """The GSFF keyword arguments of ``run_tracker_scan`` for a bank."""
+    return {'gsff_gains': params.gains_on(device),
+            'gsff_n_i': torch.tensor(params.n_i, dtype=torch.int32,
+                                     device=device),
+            'gsff_n_f': params.n_f, 'gsff_n_i0': params.n_i[0]}
+
+
+def tracker_state_from_numpy(state, device, gsff_params=None):
+    """A ``ysmr_tpu`` tracker state (the ``init_tracker_state`` pytree as
+    numpy arrays, GSFF sub-state included) as this module's state on
+    ``device``, plus the GSFF keyword arguments of ``run_tracker_scan``
+    built from ``gsff_params`` (empty without a bank).
+
+    :return: (state, tracker keyword arguments)
+    """
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.from_numpy(np.array(v, copy=True)).to(device)
+
+    out = conv(dict(state))
+    extra = gsff_kwargs(gsff_params, device) if gsff_params is not None \
+        else {}
+    return out, extra
+
+
+def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
+                          max_disappeared, use_gsff, gsff_gains, gsff_n_i,
+                          gsff_n_f, gsff_n_i0):
+    """One frame of CentroidTracker.update semantics over the slot table."""
+    active = state['active']
+    ids = state['ids']
+    pos = state['pos']
+    info = state['info']
+    disappeared = state['disappeared']
+    next_id = state['next_id']
+    s = active.shape[0]
+    c = det_valid.shape[0]
+    dev = active.device
+    i32 = torch.int32
+
+    n_obj = active.sum(dtype=i32)
+    n_det = det_valid.sum(dtype=i32)
+    has_det = n_det > 0
+
+    # rows = active slots in ascending-id order
+    sortkey = torch.where(active, ids, torch.full_like(ids, INT_MAX))
+    perm = torch.argsort(sortkey, stable=True)       # row -> slot
+    row_valid = active[perm]
+    row_min, cand_col = row_min_argmin(pos[perm].contiguous(), row_valid,
+                                       det_xy, det_valid)
+    res = asg.greedy_assign_from_candidates(row_min, cand_col, row_valid,
+                                            det_valid)
+    slot_to_col = torch.full((s,), -1, dtype=torch.long, device=dev)
+    slot_to_col.scatter_(0, perm, res['row_to_col'])
+    col_matched = res['col_matched']
+
+    matched = has_det & (slot_to_col >= 0)
+    col_idx = torch.clamp(slot_to_col, 0, c - 1)
+    pos_new = torch.where(matched[:, None], det_xy[col_idx], pos)
+    info_new = torch.where(matched[:, None], det_info[col_idx], info)
+    zero_i = torch.zeros_like(disappeared)
+    dis_new = torch.where(matched, zero_i, disappeared)
+
+    # ageing: all active slots when the frame is empty; unmatched active
+    # slots when rows >= cols
+    age_mask = torch.where(has_det, active & ~matched & (n_obj >= n_det),
+                           active)
+    dis_new = dis_new + age_mask.to(i32)
+    info_new = torch.where(age_mask[:, None], torch.zeros_like(info_new),
+                           info_new)
+    dereg = age_mask & (dis_new.to(torch.float32) > max_disappeared)
+    active_new = active & ~dereg
+
+    # registration: unmatched detections when cols > rows, in ascending
+    # column order (the host renumbers into the reference's set order)
+    do_register = has_det & (n_det > n_obj)
+    unmatched_col = det_valid & ~col_matched & do_register
+    col_rank = torch.cumsum(unmatched_col.to(i32), 0, dtype=i32) - 1
+    n_new = unmatched_col.sum(dtype=i32)
+    free = ~active_new
+    free_rank = torch.cumsum(free.to(i32), 0, dtype=i32) - 1
+    # col_of_rank[k] = the column holding the k-th registration (slot c is
+    # the dump of the JAX scatter's mode='drop')
+    col_of_rank = torch.zeros(c + 1, dtype=i32, device=dev)
+    col_of_rank.scatter_(0, torch.where(unmatched_col, col_rank,
+                                        torch.full_like(col_rank, c)).long(),
+                         torch.arange(c, dtype=i32, device=dev))
+    reg_slot = free & (free_rank < n_new)
+    reg_col = col_of_rank[torch.clamp(free_rank, 0, c - 1).long()]
+    n_registered = reg_slot.sum(dtype=i32)
+    dropped = state['dropped_registrations'] + (n_new - n_registered)
+
+    active_new = active_new | reg_slot
+    ids_new = torch.where(reg_slot, next_id + free_rank, ids)
+    reg_col_l = reg_col.long()
+    pos_new = torch.where(reg_slot[:, None], det_xy[reg_col_l], pos_new)
+    info_new = torch.where(reg_slot[:, None], det_info[reg_col_l], info_new)
+    dis_new = torch.where(reg_slot, zero_i, dis_new)
+    next_id_new = next_id + n_new
+
+    new_state = {
+        'active': active_new,
+        'ids': ids_new,
+        'pos': pos_new,
+        'info': info_new,
+        'disappeared': dis_new,
+        'next_id': next_id_new,
+        'dropped_registrations': dropped,
+    }
+
+    if use_gsff:
+        g = state['gsff']
+        m = pos_new[:, :2].to(torch.float32)
+        # a coasting slot (active, unmatched, not newly registered) feeds its
+        # own stored prediction back, with the lo half re-attached
+        coasting = active_new & ~matched & ~reg_slot
+        m_lo = torch.where(coasting[:, None], g['pred_lo'],
+                           torch.zeros_like(g['pred_lo']))
+        # fresh state for newly-registered slots: the ring filled with m
+        gstate = gsff_ops.register_slots(g, gsff_n_i0, reg_slot, m)
+        gstate, corrected, predicted = gsff_ops._step(
+            gsff_gains, gsff_n_i, gsff_n_f, gstate, m, active_new,
+            measurements_lo=m_lo)
+        emit_pos = torch.where(active_new[:, None],
+                               torch.cat([corrected, pos_new[:, 2:]], dim=1),
+                               pos_new)
+        stored_pos = torch.where(active_new[:, None],
+                                 torch.cat([predicted, pos_new[:, 2:]], dim=1),
+                                 pos_new)
+        new_state['gsff'] = gstate
+        new_state['pos'] = stored_pos
+    else:
+        emit_pos = pos_new
+
+    neg1 = torch.full_like(slot_to_col, -1)
+    emission = {
+        'mask': active_new,
+        'ids': torch.where(active_new, ids_new, torch.zeros_like(ids_new)),
+        'pos': emit_pos,
+        'info': info_new,
+        # the detection column each live slot consumed this frame (-1 while
+        # coasting) and the frame's detection count, for the renumberer
+        'det_col': torch.where(matched, slot_to_col,
+                               torch.where(reg_slot, reg_col_l,
+                                           neg1)).to(i32),
+        'n_det': n_det,
+    }
+    return new_state, emission
+
+
+def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
+                     use_gsff=False, gsff_gains=None, gsff_n_i=None,
+                     gsff_n_f=3, gsff_n_i0=10):
+    """Run the tracker over a batch of frames.
+
+    :param state: tracker state (carried between batches)
+    :param det_xy: (T, C, K) float32 detection positions
+    :param det_info: (T, C, 3) float32 (w, h, angle) per detection
+    :param det_valid: (T, C) bool
+    :return: (new_state, emissions) — emissions are (T, S) padded tensors
+        (``n_det`` (T,))
+    """
+    frames = []
+    for t in range(det_xy.shape[0]):
+        state, em = _tracker_frame_update(
+            state, det_xy[t], det_info[t], det_valid[t],
+            max_disappeared=max_disappeared, use_gsff=use_gsff,
+            gsff_gains=gsff_gains, gsff_n_i=gsff_n_i, gsff_n_f=gsff_n_f,
+            gsff_n_i0=gsff_n_i0)
+        frames.append(em)
+    emissions = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    return state, emissions
