@@ -34,7 +34,25 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    ``bench_data/dense_clip_list.csv.gz`` printed;
 8. ``cuda`` against ``cpu`` on the dense scene's first batch (64 frames)
    at dense capacities: TRACK_ID and POSITION_T identical, the other
-   columns within the stated tolerance.
+   columns within the stated tolerance;
+9. the frames-mode kernels (whole-frame labeling, 4- and 8-connected, and
+   the marker reconstruction) against their plain PyTorch versions on the
+   card, bit-equal: on the bench scene's first 64 frames thresholded by
+   the port's device preprocess at 1228x922, and on seeded random blob
+   masks with an all-background frame and a serpentine component far
+   longer than 64 propagation steps (held to scipy, and to the plain
+   version only where that converged); median ms of each;
+10. frames mode (``transfer mode = frames``) at full width on ``cuda``:
+   the bench scene in memory (stage split, frames/s), whose ``_list.csv``
+   must be byte-identical to the pixels-mode device path's without cv2
+   centers on the same frames; the dense scene in memory (stage split);
+   the MJPG bench clip through ``track_bacteria(path)``; the MJPG dense
+   clip through ``track_bacteria(path)`` (2899 +- 10 tracks, no dropped
+   registration; the reference list is the clip's, so the gate is held on
+   the clip), with every kernel of the path launched in each clip run;
+11. ``cuda`` against ``cpu`` in frames mode on the bench scene's first 16
+   frames (a 64-frame batch takes over a minute on the cpu): TRACK_ID and
+   POSITION_T identical, the other columns within the stated tolerance.
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
@@ -60,11 +78,13 @@ import torch
 from ysmr_tpu_torch import _build, native
 from ysmr_tpu_torch.config import default_config_dict, get_configs
 from ysmr_tpu_torch.io.preproc import HostPreprocessor
-from ysmr_tpu_torch.ops import assignment, labeling, run_cc
+from ysmr_tpu_torch.ops import assignment, cc, labeling, run_cc
+from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.assign import row_min_argmin
 from ysmr_tpu_torch.ops.hull import hull_edge_vectors
 from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
 from ysmr_tpu_torch.ops.sweep import sweep_extents
+from ysmr_tpu_torch.pipeline import detect
 from ysmr_tpu_torch.pipeline.track_bacteria import _track_loop, track_bacteria
 from ysmr_tpu_torch.utils.csv_io import save_list
 
@@ -146,7 +166,9 @@ class BenchScene:
 
 class MemoryReader:
     """Batches of host-thresholded frames from memory, with the attributes
-    and the background prefetch of io.video.BatchedVideoReader."""
+    and the background prefetch of io.video.BatchedVideoReader; with no
+    ``preprocess``, batches of BGR frames (frames mode; gray to BGR is
+    exact, the gray of (g, g, g) is g)."""
 
     def __init__(self, frames, preprocess, batch_size, prefetch=3):
         self.frames = frames
@@ -160,6 +182,13 @@ class MemoryReader:
     def _batches(self):
         bs = self.batch_size
         for s in range(0, len(self.frames), bs):
+            if self.preprocess is None:
+                chunk = self.frames[s:s + bs]
+                batch = np.zeros((bs, self.height, self.width, 3), np.uint8)
+                for i, f in enumerate(chunk):
+                    batch[i] = cv2.cvtColor(f, cv2.COLOR_GRAY2BGR)
+                yield {'frames': batch, 'start': s, 'count': len(chunk)}
+                continue
             tabs = [self.preprocess(f) for f in self.frames[s:s + bs]]
             fcap = tabs[0]['px_packed'].shape[0]
             batch = {'count': np.zeros(bs, np.int32),
@@ -278,7 +307,8 @@ def phase_build():
                                            os.path.relpath(lib.build_path,
                                                            REPO)))
     for line in lib.build_log.splitlines():
-        if 'registers' in line or 'spill' in line:
+        if 'registers' in line or 'spill' in line or \
+                'Compiling entry' in line:
             log('  ptxas: ' + line.strip())
 
 
@@ -318,8 +348,9 @@ def phase_kernel(scene, settings, dev):
 
 
 def run_loop(scene_frames, settings, device, name):
-    pre = HostPreprocessor(settings, FPS,
-                           max_fg=settings['max foreground pixels per frame'])
+    pre = None if settings.get('transfer mode') == 'frames' else \
+        HostPreprocessor(settings, FPS,
+                         max_fg=settings['max foreground pixels per frame'])
     reader = MemoryReader(scene_frames, pre, settings['frame batch size'])
     folder = os.path.join(WORK, name)
     os.makedirs(folder, exist_ok=True)
@@ -369,7 +400,7 @@ def phase_main_path(scene, settings):
     log('stage split cpu (ms/frame): {}'.format(json.dumps(
         {k: round(v / cpu_stats['frames'] * 1e3, 4)
          for k, v in cpu_stats['stage_s'].items()})))
-    return launches
+    return launches, frames
 
 
 def make_clip(path, n_frames, scene=None):
@@ -678,14 +709,259 @@ def phase_dense_cuda_vs_cpu(frames, settings):
     t0 = time.perf_counter()
     (pres, _, pstats) = run_loop(first, settings, 'cpu', 'dense_cpu')
     cpu_s = time.perf_counter() - t0
-    a, b = cres[0], pres[0]
+    same, worst = compare_rows('dense first batch', cres[0], pres[0])
+    log('dense first batch cuda vs cpu: {} rows, {} tracks, TRACK_ID and '
+        'POSITION_T identical, {} of {} rows byte-identical, max |diff| {}; '
+        'cpu loop {:.1f} s, dropped registrations cuda {} cpu {}'.format(
+            cres[0].shape[0], cstats['tracks'], same, cres[0].shape[0],
+            json.dumps(worst), cpu_s, cstats['dropped_registrations'],
+            pstats['dropped_registrations']))
+
+
+FRAMES = {'transfer mode': 'frames'}
+CC_KERNELS = (cc.label_components_whole_frame, cc.binary_reconstruct)
+FRAMES_KERNELS = CC_KERNELS + (hull_edge_vectors, sweep_extents,
+                               row_min_argmin)
+
+
+def bench_masks(scene, settings, dev, t=64):
+    """Mask and markers of the bench scene's first ``t`` frames through
+    the port's device preprocess (BGR upload, gray, blur, thresholds)."""
+    bgr = np.stack([cv2.cvtColor(scene.frame(i), cv2.COLOR_GRAY2BGR)
+                    for i in range(t)])
+    cfg = detect.DetectorConfig(settings)
+    blurred = detect.prepare_batch(torch.from_numpy(bgr).to(dev))
+    return pp.detect_masks(blurred, cfg.mode, cfg.offset, cfg.double_delta,
+                           cfg.white_on_dark)
+
+
+def snake_mask(h, w):
+    """One serpentine component: rows joined at alternating ends, its
+    geodesic diameter about h * w / 2 steps."""
+    m = np.zeros((h, w), bool)
+    for y in range(0, h, 2):
+        m[y, 1:w - 1] = True
+        if y + 1 < h:
+            m[y + 1, w - 2 if (y // 2) % 2 == 0 else 1] = True
+    return m
+
+
+def random_blob_masks(rng, t):
+    """Seeded blob masks at 1228x922: rods and ellipses of many sizes,
+    frame t - 2 all background, frame t - 1 the serpentine; markers on a
+    random tenth of the blobs' pixels."""
+    masks = np.zeros((t, H, W), np.uint8)
+    for i in range(t - 2):
+        for _ in range(int(rng.integers(50, 400))):
+            c = (int(rng.integers(0, W)), int(rng.integers(0, H)))
+            ax = (int(rng.integers(1, 40)), int(rng.integers(1, 12)))
+            cv2.ellipse(masks[i], c, ax, float(rng.uniform(0, 180)), 0, 360,
+                        1, -1)
+    masks = masks > 0
+    masks[t - 1] = snake_mask(H, W)
+    markers = masks & (rng.random(masks.shape) < 0.1)
+    return masks, markers
+
+
+def scipy_min_index_labels(mask, connectivity):
+    """scipy.ndimage.label as the minimum linear index of each component,
+    h * w on the background."""
+    from scipy import ndimage
+    h, w = mask.shape
+    structure = np.ones((3, 3), bool) if connectivity == 8 else None
+    lab, n = ndimage.label(mask, structure=structure)
+    uniq, first = np.unique(lab.reshape(-1), return_index=True)
+    min_idx = np.full(n + 1, h * w, np.int32)
+    min_idx[uniq] = first
+    min_idx[0] = h * w
+    return min_idx[lab]
+
+
+def check_cc(name, mask, marker, scipy_frames=()):
+    """Both cc kernels against their plain versions on the same card
+    tensors: labels (4- and 8-connected) and the reconstruction bit-equal
+    on every frame whose plain labeling converged; frames in
+    ``scipy_frames`` also against scipy. Returns {kernel: (err, ms,
+    plain_ms)} and the frames where the plain version did not converge."""
+    from scipy import ndimage
+    out, unconverged = {}, set()
+    steps4 = None
+    for conn in (4, 8):
+        got = cc.label_components_whole_frame(mask, conn, MAX_ITERS)
+        plain, steps = labeling.label_components(mask, conn, MAX_ITERS)
+        torch.cuda.synchronize()
+        conv = steps < MAX_ITERS
+        unconverged |= set(torch.nonzero(~conv).flatten().tolist())
+        if conn == 4:
+            steps4 = steps
+        if not torch.equal(got[conv], plain[conv]):
+            raise SystemExit('{} {}-conn: labeling kernel != plain'.format(
+                name, conn))
+        for i in scipy_frames:
+            if not np.array_equal(got[i].cpu().numpy(), scipy_min_index_labels(
+                    mask[i].cpu().numpy(), conn)):
+                raise SystemExit('{} {}-conn: frame {} != scipy'.format(
+                    name, conn, i))
+        ms = cuda_ms(lambda: cc.label_components_whole_frame(mask, conn,
+                                                             MAX_ITERS))
+        plain_ms = cuda_ms(lambda: labeling.label_components(mask, conn,
+                                                             MAX_ITERS),
+                           reps=3)
+        out['label{}'.format(conn)] = (0.0, ms, plain_ms)
+        log('kernel check {} label {}-conn: T={} bit-equal on {} of {} '
+            'frames (plain steps max {}), ms kernel {:.4f} plain {:.4f}'
+            .format(name, conn, mask.shape[0], int(conv.sum()),
+                    mask.shape[0], int(steps.max()), ms, plain_ms))
+    got = cc.binary_reconstruct(mask, marker, MAX_ITERS)
+    plain = labeling.propagate_markers(mask, marker, MAX_ITERS)
+    torch.cuda.synchronize()
+    conv = steps4 < MAX_ITERS
+    if not torch.equal(got[conv], plain[conv]):
+        raise SystemExit('{}: reconstruction kernel != plain'.format(name))
+    for i in scipy_frames:
+        m, k = mask[i].cpu().numpy(), marker[i].cpu().numpy()
+        if not np.array_equal(got[i].cpu().numpy(),
+                              ndimage.binary_propagation(k & m, mask=m)):
+            raise SystemExit('{}: reconstruction frame {} != scipy'.format(
+                name, i))
+    ms = cuda_ms(lambda: cc.binary_reconstruct(mask, marker, MAX_ITERS))
+    plain_ms = cuda_ms(lambda: labeling.propagate_markers(
+        mask, marker, MAX_ITERS), reps=3)
+    out['reconstruct'] = (0.0, ms, plain_ms)
+    log('kernel check {} reconstruct: bit-equal on {} of {} frames, kept {} '
+        'of {} mask pixels, ms kernel {:.4f} plain {:.4f}'.format(
+            name, int(conv.sum()), mask.shape[0], int(got.sum()),
+            int(mask.sum()), ms, plain_ms))
+    return out, unconverged
+
+
+def phase_cc_kernels(scene, settings, dev):
+    mask, marker = bench_masks(scene, settings, dev)
+    log('bench batch thresholded on the card: T={} {}x{}, mask pixels {}, '
+        'marker pixels {}'.format(mask.shape[0], W, H, int(mask.sum()),
+                                  int(marker.sum())))
+    main, unconv = check_cc('bench', mask, marker & mask)
+    if unconv:
+        raise SystemExit('bench batch: plain labeling did not converge on '
+                         'frames {}'.format(sorted(unconv)))
+    rng = np.random.default_rng(SEED)
+    t = 8
+    masks, markers = random_blob_masks(rng, t)
+    _, unconv = check_cc('random blobs', torch.from_numpy(masks).to(dev),
+                         torch.from_numpy(markers).to(dev),
+                         scipy_frames=range(t))
+    if len(unconv) > t // 2:
+        raise SystemExit('random blobs: plain labeling did not converge on '
+                         'frames {}'.format(sorted(unconv)))
+    log('random blobs: every frame held to scipy; frames {} (the serpentine '
+        'is frame {}, {} px in one component) did not converge in the plain '
+        'version in {} steps and are held to scipy only'.format(
+            sorted(unconv), t - 1, int(masks[t - 1].sum()), MAX_ITERS))
+    return {'label_components_whole_frame': main['label8'],
+            'binary_reconstruct': main['reconstruct']}
+
+
+def reset_frames_launches():
+    for k in FRAMES_KERNELS:
+        k.launches = 0
+
+
+def frames_launches(what):
+    launches = {k.__name__: k.launches for k in FRAMES_KERNELS}
+    if min(launches.values()) <= 0:
+        raise SystemExit('{}: a kernel of the frames path was never '
+                         'launched: {}'.format(what, launches))
+    return launches
+
+
+def phase_frames_path(frames, settings, dframes, dsettings):
+    """Frames mode on cuda: the bench scene in memory against the
+    pixels-mode device path without cv2 centers, the dense scene in memory
+    (stage split), then both MJPG clips through track_bacteria(path)."""
+    fsettings = {**settings, **FRAMES}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, fbytes, stats = run_loop(frames, fsettings, 'cuda', 'frames_mem')
+    torch.cuda.synchronize()
+    log('frames mode bench scene in memory (cuda): rows {} tracks {} frames '
+        '{} fps {:.2f} ({:.1f} s)'.format(
+            fbytes.count(b'\n') - 1, stats['tracks'], stats['frames'],
+            stats['fps'], time.perf_counter() - t0))
+    log('frames stage split cuda (ms/frame): {}'.format(json.dumps(
+        {k: round(v / stats['frames'] * 1e3, 4)
+         for k, v in stats['stage_s'].items()})))
+    pixels = {**settings, 'cv2 exact rects': False, 'cv2 exact centers': 'off'}
+    _, pbytes, pstats = run_loop(frames, pixels, 'cuda', 'pixels_mem')
+    if fbytes != pbytes:
+        raise SystemExit('frames mode _list.csv differs from the pixels-mode '
+                         'device path without cv2 centers')
+    if not np.isfinite(res[0][['POSITION_X', 'POSITION_Y', 'WIDTH', 'HEIGHT',
+                               'DEGREES_ANGLE']].to_numpy()).all():
+        raise SystemExit('frames mode: non-finite values in the rows')
+    log('frames mode _list.csv byte-identical to the pixels-mode device path '
+        'without cv2 centers ({} rows; pixels fps {:.2f})'.format(
+            fbytes.count(b'\n') - 1, pstats['fps']))
+    _, _, stats = run_loop(dframes, {**dsettings, **FRAMES}, 'cuda',
+                           'frames_dense_mem')
+    log('frames mode dense scene in memory (cuda): tracks {} frames {} fps '
+        '{:.2f}, dropped registrations {}; stage split (ms/frame): {}'.format(
+            stats['tracks'], stats['frames'], stats['fps'],
+            stats['dropped_registrations'], json.dumps(
+                {k: round(v / stats['frames'] * 1e3, 4)
+                 for k, v in stats['stage_s'].items()})))
+    out = {}
+    for name, clip, sets, n_frames in (
+            ('bench', 'bench_clip.avi', fsettings, N_FRAMES),
+            ('dense', 'dense_clip.avi', {**dsettings, **FRAMES},
+             DENSE_FRAMES)):
+        folder = os.path.join(WORK, 'frames_' + name)
+        os.makedirs(folder, exist_ok=True)
+        dropped = WarningCounter('registrations dropped')
+        logging.getLogger('ysmr').addHandler(dropped)
+        torch.cuda.synchronize()
+        reset_frames_launches()
+        t0 = time.perf_counter()
+        res = track_bacteria(os.path.join(WORK, clip), settings=dict(sets),
+                             result_folder=folder)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = frames_launches('frames {} clip'.format(name))
+        logging.getLogger('ysmr').removeHandler(dropped)
+        if res is None:
+            raise SystemExit('frames {} clip: track_bacteria(path) returned '
+                             'None'.format(name))
+        df = res[0]
+        tracks = int(df['TRACK_ID'].nunique())
+        log('frames mode {} clip via track_bacteria(path) on cuda: rows {}, '
+            'tracks {}, {:.2f} fps end to end (decode included), kernel '
+            'launches {}, dropped-registration warnings {}'.format(
+                name, df.shape[0], tracks, n_frames / elapsed,
+                json.dumps(launches), dropped.count))
+        if not np.isfinite(df[['POSITION_X', 'POSITION_Y', 'WIDTH', 'HEIGHT',
+                               'DEGREES_ANGLE']].to_numpy()).all():
+            raise SystemExit('frames {} clip: non-finite values'.format(name))
+        if name == 'dense':
+            if abs(tracks - DENSE_TRACKS) > 10:
+                raise SystemExit('frames dense clip: {} tracks, outside {} '
+                                 '+- 10'.format(tracks, DENSE_TRACKS))
+            if dropped.count:
+                raise SystemExit('frames dense clip: registrations were '
+                                 'dropped')
+        out[name] = launches
+    return out
+
+
+def compare_rows(what, a, b):
+    """TRACK_ID and POSITION_T identical, positions within POS_TOL and the
+    rect columns equal; returns (byte-identical rows, max |diff| per
+    column)."""
     if a.shape != b.shape:
-        raise SystemExit('dense first batch: {} rows on cuda, {} on '
-                         'cpu'.format(a.shape[0], b.shape[0]))
+        raise SystemExit('{}: {} rows on cuda, {} on cpu'.format(
+            what, a.shape[0], b.shape[0]))
     for col in ('TRACK_ID', 'POSITION_T'):
         if not np.array_equal(a[col].to_numpy(), b[col].to_numpy()):
-            raise SystemExit('dense first batch: {} differs between cuda '
-                             'and cpu'.format(col))
+            raise SystemExit('{}: {} differs between cuda and cpu'.format(
+                what, col))
     same = np.ones(a.shape[0], bool)
     worst = {}
     for col, tol in (('POSITION_X', POS_TOL), ('POSITION_Y', POS_TOL),
@@ -696,14 +972,32 @@ def phase_dense_cuda_vs_cpu(frames, settings):
         worst[col] = float(diff.max()) if diff.size else 0.0
         same &= x == y
         if not (diff <= tol).all():
-            raise SystemExit('dense first batch: {} differs by {} (tolerance '
-                             '{})'.format(col, worst[col], tol))
-    log('dense first batch cuda vs cpu: {} rows, {} tracks, TRACK_ID and '
+            raise SystemExit('{}: {} differs by {} (tolerance {})'.format(
+                what, col, worst[col], tol))
+    return int(same.sum()), worst
+
+
+#: frames of the frames-mode cuda-vs-cpu check: on the H100 machine's CPU a
+#: 64-frame batch took 73.7 s (over a minute), 16 frames take a quarter
+FRAMES_CPU_FRAMES = 16
+
+
+def phase_frames_cuda_vs_cpu(frames, settings):
+    """Frames mode on the bench scene's first 16 frames (one batch of 16)
+    on cuda and on cpu."""
+    fsettings = {**settings, **FRAMES, 'frame batch size': FRAMES_CPU_FRAMES}
+    first = frames[:FRAMES_CPU_FRAMES]
+    cres, _, cstats = run_loop(first, fsettings, 'cuda', 'frames_cuda')
+    t0 = time.perf_counter()
+    pres, _, _ = run_loop(first, fsettings, 'cpu', 'frames_cpu')
+    cpu_s = time.perf_counter() - t0
+    same, worst = compare_rows('frames first frames', cres[0], pres[0])
+    log('frames mode cuda vs cpu on the first {} frames (a 64-frame batch '
+        'takes over a minute on the cpu): {} rows, {} tracks, TRACK_ID and '
         'POSITION_T identical, {} of {} rows byte-identical, max |diff| {}; '
-        'cpu loop {:.1f} s, dropped registrations cuda {} cpu {}'.format(
-            a.shape[0], cstats['tracks'], int(same.sum()), a.shape[0],
-            json.dumps(worst), cpu_s, cstats['dropped_registrations'],
-            pstats['dropped_registrations']))
+        'cpu loop {:.1f} s'.format(
+            len(first), cres[0].shape[0], cstats['tracks'], same,
+            cres[0].shape[0], json.dumps(worst), cpu_s))
 
 
 def main():
@@ -716,7 +1010,7 @@ def main():
         scene = BenchScene()
         phase_build()
         err, ms, plain_ms = phase_kernel(scene, settings, dev)
-        launches = phase_main_path(scene, settings)
+        launches, frames = phase_main_path(scene, settings)
         phase_clip(settings)
         dsettings = dense_settings()
         dscene = BenchScene(seed=DENSE_SEED, n_bugs=DENSE_BUGS)
@@ -728,6 +1022,9 @@ def main():
                        time.perf_counter() - t0))
         dense_launches = phase_dense_path(dscene, dframes, dsettings)
         phase_dense_cuda_vs_cpu(dframes, dsettings)
+        cc_checks = phase_cc_kernels(scene, settings, dev)
+        frames_runs = phase_frames_path(frames, settings, dframes, dsettings)
+        phase_frames_cuda_vs_cpu(frames, settings)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -741,6 +1038,12 @@ def main():
         records.append(kernel_record(
             name, 'ysmr_tpu_torch/csrc/' + src, 'ysmr_tpu/ops/' + rep,
             dense_launches[name], *checks[key]))
+    for name, line in (('label_components_whole_frame', 229),
+                       ('binary_reconstruct', 295)):
+        records.append(kernel_record(
+            name, 'ysmr_tpu_torch/csrc/cc.cu',
+            'ysmr_tpu/ops/pallas_cc.py:{}'.format(line),
+            frames_runs['bench'][name], *cc_checks[name]))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

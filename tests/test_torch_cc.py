@@ -1,0 +1,217 @@
+"""Whole-frame labeling, marker reconstruction and compaction of the PyTorch
+port (ysmr_tpu_torch/ops/labeling.py, the kernel wrappers of ops/cc.py)
+against the JAX package and scipy on the same numpy masks.
+
+Tolerances: none. Labels are integers (the minimum linear index of each
+component), reconstructions and row tables are exact, and every case
+asserts that the plain labeling converged, so the step cap plays no part.
+The Pallas kernels run in interpret mode, as tests/test_pallas_cc.py runs
+them. The CUDA kernels are held to their plain versions and to scipy in the
+``cuda``-marked tests, which skip without a GPU.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from scipy import ndimage
+
+from test_labeling import _random_blobs
+from test_pallas_cc import _random_pixel_scene
+from ysmr_tpu.ops import labeling as jlb
+from ysmr_tpu.ops import pallas_cc
+from ysmr_tpu_torch.ops import cc
+from ysmr_tpu_torch.ops import labeling as lb
+
+torch.set_num_threads(1)
+
+MAX_ITERS = 64
+
+
+def _masks(seed, t=3, h=96, w=128):
+    rng = np.random.default_rng(seed)
+    return np.stack([_random_blobs(rng, h=h, w=w) for _ in range(t)])
+
+
+def scipy_min_index_labels(mask, connectivity):
+    """Labels with the port's semantics from scipy.ndimage.label: the
+    minimum linear index of each component, h*w on the background."""
+    h, w = mask.shape
+    structure = np.ones((3, 3), bool) if connectivity == 8 else None
+    lab, n = ndimage.label(mask, structure=structure)
+    uniq, first = np.unique(lab.reshape(-1), return_index=True)
+    min_idx = np.full(n + 1, h * w, np.int32)
+    min_idx[uniq] = first
+    min_idx[0] = h * w
+    return min_idx[lab]
+
+
+def snake_mask(h, w):
+    """One serpentine component: rows joined at alternating ends, a
+    geodesic diameter far above 64 steps."""
+    m = np.zeros((h, w), bool)
+    for y in range(0, h, 2):
+        m[y, 1:w - 1] = True
+        if y + 1 < h:
+            m[y + 1, w - 2 if (y // 2) % 2 == 0 else 1] = True
+    return m
+
+
+@pytest.mark.parametrize('connectivity', [4, 8])
+def test_label_components_matches_jax_and_pallas(connectivity):
+    masks = _masks(0)
+    labels, steps = lb.label_components(torch.from_numpy(masks),
+                                        connectivity=connectivity,
+                                        max_iters=MAX_ITERS)
+    assert labels.dtype == torch.int32
+    assert int(steps.max()) < MAX_ITERS          # converged
+    ours = labels.numpy()
+    pallas = np.asarray(pallas_cc.label_components_whole_frame(
+        masks, connectivity=connectivity, max_iters=MAX_ITERS,
+        interpret=True))
+    np.testing.assert_array_equal(ours, pallas)
+    for i in range(len(masks)):
+        np.testing.assert_array_equal(ours[i], np.asarray(
+            jlb.label_components(masks[i], connectivity=connectivity,
+                                 max_iters=MAX_ITERS)))
+        np.testing.assert_array_equal(
+            ours[i], scipy_min_index_labels(masks[i], connectivity))
+
+
+def test_label_components_steps_and_cap():
+    """Per-frame step counts: an empty frame takes none, and a serpentine
+    frame that needs more than the cap reports the cap and keeps the JAX
+    function's partial labels."""
+    h, w = 40, 48
+    masks = np.stack([np.zeros((h, w), bool), snake_mask(h, w),
+                      _random_blobs(np.random.default_rng(3), h=h, w=w)])
+    labels, steps = lb.label_components(torch.from_numpy(masks),
+                                        connectivity=4, max_iters=4)
+    assert steps.tolist()[0] == 0 and steps.tolist()[1] == 4
+    for i in range(3):
+        np.testing.assert_array_equal(labels.numpy()[i], np.asarray(
+            jlb.label_components(masks[i], connectivity=4, max_iters=4)))
+    assert (labels.numpy()[0] == h * w).all()
+
+
+def test_reconstruction_matches_scipy_and_pallas(rng):
+    """The 33-frame batch of tests/test_pallas_cc.py (two bit planes of the
+    TPU kernel, an all-background last frame)."""
+    t, h, w = 33, 60, 150
+    mask = np.zeros((t, h, w), bool)
+    marker = np.zeros((t, h, w), bool)
+    for i in range(t - 1):
+        m, k, *_ = _random_pixel_scene(rng, h, w)
+        mask[i], marker[i] = m, k & m
+    _, steps = lb.label_components(torch.from_numpy(mask), connectivity=4,
+                                   max_iters=MAX_ITERS)
+    assert int(steps.max()) < MAX_ITERS
+    ours = cc.binary_reconstruct(torch.from_numpy(mask),
+                                 torch.from_numpy(marker),
+                                 max_iters=MAX_ITERS).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(
+        pallas_cc.binary_reconstruct(mask, marker, max_iters=MAX_ITERS,
+                                     interpret=True)))
+    for i in range(t):
+        np.testing.assert_array_equal(
+            ours[i], ndimage.binary_propagation(marker[i], mask=mask[i]))
+    assert ours[:-1].any() and not ours[-1].any()
+
+
+def test_propagate_markers_matches_jax():
+    masks = _masks(4)
+    markers = masks & (np.random.default_rng(5).random(masks.shape) < 0.02)
+    ours = lb.propagate_markers(torch.from_numpy(masks),
+                                torch.from_numpy(markers))
+    for i in range(len(masks)):
+        np.testing.assert_array_equal(ours.numpy()[i], np.asarray(
+            jlb.propagate_markers(masks[i], markers[i])))
+
+
+@pytest.mark.parametrize('max_det', [64, 5])
+def test_compact_labels_matches_jax(max_det):
+    """Reverse raster ids, the overflow bucket beyond capacity."""
+    masks = _masks(1)
+    labels = lb.label_components(torch.from_numpy(masks))[0]
+    comp, n = lb.compact_labels(labels, torch.from_numpy(masks),
+                                max_det=max_det)
+    jfn = jax.jit(jlb.compact_labels, static_argnames=('max_det',))
+    for i in range(len(masks)):
+        jc, jn = jfn(labels.numpy()[i], masks[i], max_det=max_det)
+        np.testing.assert_array_equal(comp.numpy()[i], np.asarray(jc))
+        assert int(n[i]) == int(jn)
+    assert int(n.max()) > 5
+
+
+@pytest.mark.parametrize('max_det,max_bh', [(32, 16), (6, 4)])
+def test_component_tables_match_jax(max_det, max_bh):
+    """Row tables, candidate points and hull-edge candidates of every
+    non-empty component, including components beyond capacity and taller
+    than max_bh."""
+    masks = _masks(2)
+    masks[1, 10:60, 40:44] = True            # taller than max_bh
+    tm = torch.from_numpy(masks)
+    comp, n = lb.compact_labels(lb.label_components(tm)[0], tm,
+                                max_det=max_det)
+    ours = lb.component_tables(comp, tm, max_det=max_det, max_bh=max_bh)
+    valid = ours['count'].numpy() > 0
+    assert valid.any()
+    assert (max_det == 6) == bool((n > max_det).any())
+    jfn = jax.jit(jlb.component_tables, static_argnames=('max_det', 'max_bh'))
+    for i in range(len(masks)):
+        ref = jfn(comp.numpy()[i], masks[i], max_det=max_det, max_bh=max_bh)
+        sl = slice(i * max_det, (i + 1) * max_det)
+        v = valid[sl]
+        np.testing.assert_array_equal(v, np.asarray(ref['count']) > 0)
+        for key in ('count', 'min_y', 'points_valid', 'edge_dx', 'edge_dy',
+                    'edge_valid'):
+            np.testing.assert_array_equal(ours[key].numpy()[sl][v],
+                                          np.asarray(ref[key])[v], key)
+        pv = ours['points_valid'].numpy()[sl][v]
+        np.testing.assert_array_equal(ours['points'].numpy()[sl][v][pv],
+                                      np.asarray(ref['points'])[v][pv])
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+def test_cc_kernels_match_plain_and_scipy_on_cuda():
+    """Both kernels against their plain versions on the card, bit for bit,
+    one launch counted per call; the serpentine frame (beyond the plain
+    version's cap) against scipy only. Runs on a machine with an NVIDIA
+    GPU (see README)."""
+    dev = _cuda()
+    h, w = 96, 128
+    masks = np.concatenate([_masks(6, t=4, h=h, w=w),
+                            np.zeros((1, h, w), bool),
+                            snake_mask(h, w)[None]])
+    markers = masks & (np.random.default_rng(7).random(masks.shape) < 0.01)
+    tm, tk = torch.from_numpy(masks), torch.from_numpy(markers)
+    for conn in (4, 8):
+        plain, steps = lb.label_components(tm.to(dev), connectivity=conn)
+        before = cc.label_components_whole_frame.launches
+        got = cc.label_components_whole_frame(tm.to(dev), connectivity=conn)
+        torch.cuda.synchronize()
+        assert cc.label_components_whole_frame.launches == before + 1
+        conv = (steps < MAX_ITERS).cpu().numpy()
+        assert conv[:5].all()
+        np.testing.assert_array_equal(got.cpu().numpy()[conv],
+                                      plain.cpu().numpy()[conv])
+        for i in range(len(masks)):
+            np.testing.assert_array_equal(
+                got.cpu().numpy()[i], scipy_min_index_labels(masks[i], conn))
+    before = cc.binary_reconstruct.launches
+    got = cc.binary_reconstruct(tm.to(dev), tk.to(dev))
+    torch.cuda.synchronize()
+    assert cc.binary_reconstruct.launches == before + 1
+    plain = lb.propagate_markers(tm.to(dev), tk.to(dev))
+    np.testing.assert_array_equal(got.cpu().numpy()[:5],
+                                  plain.cpu().numpy()[:5])
+    for i in range(len(masks)):
+        np.testing.assert_array_equal(
+            got.cpu().numpy()[i],
+            ndimage.binary_propagation(markers[i], mask=masks[i]))

@@ -7,8 +7,8 @@ Tolerances and why:
 - integer tables, hull edge vectors and flags, sweep extents: bit-equal
   (both compute the same correctly rounded float32 quotients, and every
   projection is an exact float32 integer);
-- edge angles: float32 atan2 of JAX's XLA and the port's float64-rounded
-  atan2 differ by at most one ulp;
+- edge angles: bit-equal (XLA:CPU's float32 atan2 is glibc's fdlibm
+  ``atan2f``, which the port spells out in float32 operations);
 - rect W/H and angle: bit-equal (the port forms XLA's contracted
   ``degrees(a) - 90`` fma exactly, ``ds.fma_f32``);
 - rect centers: 1e-4 px, because XLA:CPU may contract the double-single
@@ -122,7 +122,7 @@ def test_component_stats_runs_match_jax(max_det):
                 'row_valid', 'corner_l', 'corner_r'):
         np.testing.assert_array_equal(got[key].numpy(), ref[key],
                                       err_msg=key)
-    assert _ulps(got['edge_angles'].numpy(), ref['edge_angles']).max() <= 1
+    assert _ulps(got['edge_angles'].numpy(), ref['edge_angles']).max() == 0
     assert (got['count'].numpy() > 0).sum() > 10
 
 
@@ -151,7 +151,7 @@ def test_hull_plain_bit_equal_to_xla_and_pallas(d, r, seed):
         _t(row_min), _t(row_max), _t(valid), _t(abs_y))]
     for i in (0, 1, 3, 4, 5):
         np.testing.assert_array_equal(out[i], ref[i], err_msg=str(i))
-    assert _ulps(out[2], ref[2]).max() <= 1
+    assert _ulps(out[2], ref[2]).max() == 0
 
 
 def test_hull_collinear_runs_bit_equal():

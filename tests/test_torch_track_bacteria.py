@@ -12,6 +12,19 @@ functions.
 The JAX side runs the same path as the port (pixels mode, runs wire, run
 CC); on the CPU it only turns run CC on when asked, hence
 ``'run cc': 'on'``.
+
+Frames mode (``'transfer mode': 'frames'``: device preprocess, whole-frame
+labeling, device rects without the cv2-center override, device tracker)
+against JAX frames mode: identical TRACK_ID, POSITION_T, WIDTH, HEIGHT and
+DEGREES_ANGLE (the detections are bit-equal, tests/test_torch_detect.py);
+positions within 2e-4 px with GSFF and equal without. The GSFF tolerance
+is the tracker's double-single residue on exact (not cv2) centers:
+measured 1.37e-4 px, nine float32 ulps of a 219 px coordinate, on one row
+of the adaptive_double clip, the other rows within 1e-4 px; the two
+packages' pixels modes without cv2 centers differ on that row by the same
+amount, so the residue is the tracker's, not frames mode's. Frames
+mode also gives the same ``_list.csv`` bytes as the port's pixels mode on
+the device-rect path without cv2 centers, as the two JAX modes do.
 """
 
 import os
@@ -40,18 +53,18 @@ CLIPS = {
 }
 
 
-def _run_both(tmp_path, clip, **more):
+def _run_both(tmp_path, clip, runs=None, **more):
     video_kw, overrides = CLIPS[clip]
     overrides = {**overrides, **more}
     video = make_synthetic_video(str(tmp_path / 'clip.avi'),
                                  n_frames=N_FRAMES, **video_kw)
     settings = _make_settings(tmp_path, **overrides)
     out = {}
-    for name, fn, extra in (('jax', jtrack, {'run cc': 'on'}),
-                            ('torch', track_bacteria, {})):
+    for name, fn, extra in runs or (('jax', jtrack, {'run cc': 'on'}),
+                                    ('torch', track_bacteria, {})):
         folder = str(tmp_path / name)
         os.makedirs(folder)
-        kw = {'device': 'cpu'} if name == 'torch' else {}
+        kw = {'device': 'cpu'} if name.startswith('torch') else {}
         res = fn(video, settings={**settings, **extra}, result_folder=folder,
                  **kw)
         assert res is not None, name
@@ -88,6 +101,39 @@ def test_device_tracker_rows_match_jax(tmp_path, clip):
     assert tres[1:4] == jres[1:4]
 
 
+FRAMES = {'transfer mode': 'frames'}
+
+
+@pytest.mark.parametrize('clip', sorted(CLIPS))
+def test_frames_mode_rows_match_jax(tmp_path, clip):
+    out = _run_both(tmp_path, clip, runs=(('jax', jtrack, FRAMES),
+                                          ('torch', track_bacteria, FRAMES)))
+    (jres, _), (tres, _) = out['jax'], out['torch']
+    jdf, tdf = jres[0], tres[0]
+    assert jdf.shape == tdf.shape and jdf.shape[0] > 100
+    for col in ('TRACK_ID', 'POSITION_T', 'WIDTH', 'HEIGHT',
+                'DEGREES_ANGLE'):
+        np.testing.assert_array_equal(tdf[col].to_numpy(),
+                                      jdf[col].to_numpy(), err_msg=col)
+    tol = 0 if CLIPS[clip][1].get('disable gsff') else 2e-4
+    for col in ('POSITION_X', 'POSITION_Y'):
+        np.testing.assert_allclose(tdf[col].to_numpy(), jdf[col].to_numpy(),
+                                   atol=tol, rtol=0, err_msg=col)
+    assert tres[1:4] == jres[1:4]
+
+
+@pytest.mark.parametrize('clip', sorted(CLIPS))
+def test_frames_mode_equals_pixels_mode_without_cv2_centers(tmp_path, clip):
+    pixels = {'cv2 exact rects': False, 'cv2 exact centers': 'off'}
+    out = _run_both(tmp_path, clip, runs=(
+        ('torch_frames', track_bacteria, FRAMES),
+        ('torch_pixels', track_bacteria, pixels)))
+    (fres, fbytes), (pres, pbytes) = out['torch_frames'], out['torch_pixels']
+    assert fbytes.count(b'\n') > 100
+    assert fbytes == pbytes
+    assert fres[1:4] == pres[1:4]
+
+
 def test_slice_gate_and_unported_settings(tmp_path):
     """The capacity gate picks the path; settings outside the slice raise
     and name their ROADMAP item."""
@@ -100,9 +146,13 @@ def test_slice_gate_and_unported_settings(tmp_path):
                                'max detections per frame': 4096})
     check_slice_settings({**settings, 'max detections per frame': 4096,
                           'cv2 exact rects': False})
+    # frames mode is ported and always takes the device tracker
+    check_slice_settings({**settings, **FRAMES})
+    assert not use_host_rects({**settings, **FRAMES})
     for extra in ({'compact emissions readback': True},
                   {'include luminosity in tracking calculation': True},
-                  {'transfer mode': 'frames'},
+                  {**FRAMES, 'include luminosity in tracking calculation':
+                   True},
                   {'display video analysis': True}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             check_slice_settings({**settings, **extra})

@@ -160,6 +160,10 @@ def load_kernels():
     lib.ysmr_sweep_extents.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
     lib.ysmr_row_min_argmin.restype = ci
     lib.ysmr_row_min_argmin.argtypes = [vp] * 6 + [ci, ci, ci, ci, vp]
+    lib.ysmr_cc_label.restype = ci
+    lib.ysmr_cc_label.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.ysmr_cc_reconstruct.restype = ci
+    lib.ysmr_cc_reconstruct.argtypes = [vp] * 5 + [ci, ci, ci, ci, vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

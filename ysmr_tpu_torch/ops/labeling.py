@@ -1,16 +1,34 @@
-"""Per-component stats, hull edges and the exact minimum-area rectangle.
+"""Connected components, per-component stats, hull edges and the exact
+minimum-area rectangle.
 
-Counterpart of the run-table path of ``ysmr_tpu/ops/labeling.py``:
-``component_stats_runs`` -> ``_stats_tail_from_tables`` ->
-``_hull_edge_data`` -> ``min_area_rect`` (the integer edge-vector branch,
-``_min_area_rect_exact``). The JAX module's docstring sets out why the
-per-row x extremes span the convex hull and why the rectangle is exact.
+Counterpart of two paths of ``ysmr_tpu/ops/labeling.py``:
+
+- the run-table path: ``component_stats_runs`` ->
+  ``_stats_tail_from_tables`` -> ``_hull_edge_data`` -> ``min_area_rect``
+  (the integer edge-vector branch, ``_min_area_rect_exact``);
+- the image path of frames mode: ``label_components`` (min-label
+  propagation with pointer jumping), ``propagate_markers``,
+  ``compact_labels`` and ``component_tables`` (the unsorted branch of
+  ``component_stats``), which feed the same stats tail.
+
+The JAX module's docstring sets out why the per-row x extremes span the
+convex hull and why the rectangle is exact.
 
 Differences from the JAX module, all of representation:
 
-- Functions take a whole batch: the run tables are (T, R) and the
-  per-component tables (T*D, ...), components of every frame flattened
-  into the leading axis (the JAX pipeline ``vmap``s one frame at a time).
+- Functions take a whole batch: images are (T, H, W), run tables (T, R)
+  and the per-component tables (T*D, ...), components of every frame
+  flattened into the leading axis (the JAX pipeline ``vmap``s one frame at
+  a time). A batched ``while_loop`` under ``vmap`` keeps a converged
+  frame's labels, and one more propagation step leaves them as they are,
+  so iterating the whole batch until no frame changes gives the same
+  labels.
+- ``label_components`` and ``propagate_markers`` are the plain versions of
+  the kernels ``csrc/cc.cu`` (wrapper ``ops/cc.py``); ``label_components``
+  also returns per-frame step counts.
+- ``component_tables`` reduces over the foreground pixels only
+  (``nonzero``, one host sync per batch); the background rows of the JAX
+  reduction go to a slot that is never read.
 - ``.at[idx].min/max(mode='drop')`` onto deliberately out-of-range indices
   becomes ``scatter_reduce_`` into a buffer whose last slot is a dump
   that is never read.
@@ -19,11 +37,16 @@ Differences from the JAX module, all of representation:
   ``csrc/hull.cu`` and ``csrc/sweep.cu`` (wrappers ``ops/hull.py`` and
   ``ops/sweep.py``); they run over chunks of the non-empty components so
   the (D, R, R) and (D, K, P) tensors stay small at dense capacities.
-- ``arctan2`` runs in float64 and rounds to float32, so the CPU and CUDA
-  give the same bits (library float32 ``atan2`` differs by an ulp).
+- The hull-edge ``arctan2`` is fdlibm's float32 ``atan2f``, spelt out in
+  float32 tensor operations: XLA:CPU's float32 atan2 is the C library's
+  ``atan2f``, and glibc's is fdlibm's (equal on 189,700 tested inputs). A
+  correctly rounded atan2 differs from it in about one input in six, and
+  after ``degrees(a) - 90`` still in a few rect angles. The spelt-out
+  version gives the same bits on the CPU and CUDA.
 
 Not ported: the float angle sweep of ``min_area_rect`` (every production
-caller passes integer edge vectors) and the pixel-table and image paths.
+caller passes integer edge vectors), the pixel-table path and
+``label_components_table``.
 """
 
 import math
@@ -55,6 +78,156 @@ def _chunks(n, per_item):
     step = max(1, _CHUNK_ELEMS // max(per_item, 1))
     for s in range(0, n, step):
         yield s, min(n, s + step)
+
+
+def _neighbor_min(lab, invalid, connectivity):
+    """Min label over the 4- or 8-neighbourhood of (T, H, W) labels, the
+    frame edges padded with ``invalid``."""
+    t, h, w = lab.shape
+    pad = torch.full((t, h + 2, w + 2), invalid, dtype=lab.dtype,
+                     device=lab.device)
+    pad[:, 1:h + 1, 1:w + 1] = lab
+    if connectivity == 8:
+        # separable 3x3 min: every pixel of the block is an 8-neighbour
+        hmin = torch.minimum(pad[:, :, 1:w + 1],
+                             torch.minimum(pad[:, :, 0:w], pad[:, :, 2:w + 2]))
+        return torch.minimum(hmin[:, 0:h], torch.minimum(hmin[:, 1:h + 1],
+                                                         hmin[:, 2:h + 2]))
+    up = pad[:, 0:h, 1:w + 1]
+    down = pad[:, 2:h + 2, 1:w + 1]
+    left = pad[:, 1:h + 1, 0:w]
+    right = pad[:, 1:h + 1, 2:w + 2]
+    return torch.minimum(torch.minimum(up, down), torch.minimum(left, right))
+
+
+def label_components(mask, connectivity=8, max_iters=64):
+    """Connected-component labels by min-label propagation with one
+    pointer-jumping hop per step (``ysmr_tpu/ops/labeling.py::
+    label_components``, ``jump_every=1``, as its frames-mode CPU path
+    calls it). Plain version of the ``csrc/cc.cu`` labeling kernel.
+
+    :param mask: (T, H, W) bool
+    :param connectivity: 4 or 8
+    :param max_iters: at most this many propagation steps
+    :return: (labels, steps): (T, H, W) int32 labels, the minimum linear
+        index of the pixel's component (H*W on the background); (T,) int32
+        the number of steps that changed a frame's labels (the frame
+        converged iff steps < max_iters)
+    """
+    t, h, w = mask.shape
+    n = h * w
+    dev = mask.device
+    idx = torch.arange(n, dtype=_I32, device=dev).view(1, h, w)
+    inv = torch.full((), n, dtype=_I32, device=dev)
+    lab = torch.where(mask, idx, inv)
+    steps = torch.zeros(t, dtype=_I32, device=dev)
+    for _ in range(max_iters):
+        neigh = _neighbor_min(lab, n, connectivity)
+        new = torch.where(mask, torch.minimum(lab, neigh), inv)
+        flat = new.view(t, n)
+        hop = torch.gather(flat, 1, flat.clamp(0, n - 1).long())
+        new = torch.where(mask, torch.minimum(new, hop.view(t, h, w)), inv)
+        changed = (new != lab).view(t, n).any(dim=1)
+        if not bool(changed.any()):
+            break
+        steps += changed.to(_I32)
+        lab = new
+    return lab, steps
+
+
+def propagate_markers(mask, markers, max_iters=64):
+    """``scipy.ndimage.binary_propagation(markers, mask=mask)`` for markers
+    inside the mask (``ysmr_tpu/ops/labeling.py::propagate_markers`` with
+    its default 4-connectivity): keeps the 4-connected components of
+    ``mask`` that hold a pixel of ``markers & mask``. Plain version of the
+    ``csrc/cc.cu`` reconstruction kernel.
+
+    :param mask, markers: (T, H, W) bool
+    :return: (T, H, W) bool
+    """
+    t, h, w = mask.shape
+    n = h * w
+    labels = label_components(mask, connectivity=4, max_iters=max_iters)[0]
+    flat = labels.reshape(t, n).long()
+    marked = torch.zeros((t, n + 1), dtype=_I32, device=mask.device)
+    marked.scatter_reduce_(1, flat.clamp(0, n),
+                           (markers & mask).reshape(t, n).to(_I32), 'amax')
+    kept = torch.gather(marked, 1, flat.clamp(0, n - 1)) > 0
+    return kept.view(t, h, w) & mask
+
+
+def compact_labels(labels, mask, max_det, reverse=True):
+    """Root labels -> dense component ids (``ysmr_tpu/ops/labeling.py::
+    compact_labels``). With ``reverse`` the ids run in reverse raster order
+    of each component's first pixel, cv2's findContours order, which fixes
+    detection order and so TRACK_ID order.
+
+    :param labels: (T, H, W) int32 from ``label_components``
+    :param mask: (T, H, W) bool
+    :return: (comp (T, H, W) int32 in [0, max_det], max_det for the
+        background and for components beyond capacity; n_components (T,)
+        int32)
+    """
+    t, h, w = labels.shape
+    n = h * w
+    flat = labels.reshape(t, n)
+    m = mask.reshape(t, n)
+    idx = torch.arange(n, dtype=_I32, device=labels.device)[None, :]
+    is_root = (flat == idx) & m
+    rank = torch.cumsum(is_root.to(_I32), dim=1, dtype=_I32) - 1
+    n_components = rank[:, -1] + 1
+    root_rank = torch.where(is_root, rank, torch.zeros_like(rank))
+    comp = torch.gather(root_rank, 1, flat.clamp(0, n - 1).long())
+    if reverse:
+        comp = n_components[:, None] - 1 - comp
+    comp = torch.where(m, torch.clamp(comp, max=max_det),
+                       torch.full_like(comp, max_det))
+    return comp.view(t, h, w), n_components
+
+
+def component_tables(comp, mask, *, max_det, max_bh):
+    """Per-component row tables of the image path and the stats tail
+    (``ysmr_tpu/ops/labeling.py::component_tables`` without luminosity:
+    the unsorted branch of ``component_stats``).
+
+    A component's bbox rows are counted from its minimum y; rows beyond
+    ``max_bh - 1`` share the last row. The reductions run over the
+    foreground pixels only.
+
+    :param comp: (T, H, W) int32 dense ids from ``compact_labels``
+    :param mask: (T, H, W) bool
+    :return: the ``_stats_tail_from_tables`` dict over (T*max_det, ...)
+    """
+    t, h, w = comp.shape
+    n = h * w
+    dev = comp.device
+    fg = torch.nonzero(mask.reshape(-1)).flatten()
+    frame = torch.div(fg, n, rounding_mode='floor')
+    lin = (fg - frame * n).to(_I32)
+    ys = torch.div(lin, w, rounding_mode='floor')
+    xs = lin - ys * w
+    seg = comp.reshape(-1)[fg].long()
+    nseg = max_det + 1                  # the overflow bucket max_det included
+    key = frame * nseg + seg
+    min_y = torch.full((t * nseg,), BIG_I, dtype=_I32, device=dev)
+    min_y.scatter_reduce_(0, key, ys, 'amin')
+    rel_y = torch.clamp(ys - min_y[key], 0, max_bh - 1)
+    nrow = max_det * max_bh + 1         # the last slot is the dump
+    rkey = torch.where(seg < max_det, seg * max_bh + rel_y,
+                       torch.full_like(seg, nrow - 1)) + frame * nrow
+
+    def scatter(reduce, init):
+        buf = torch.full((t * nrow,), init, dtype=_I32, device=dev)
+        buf.scatter_reduce_(0, rkey, xs, reduce)
+        return buf.view(t, nrow)[:, :nrow - 1].reshape(t * max_det, max_bh)
+
+    row_min_x = scatter('amin', BIG_I)
+    row_max_x = scatter('amax', -BIG_I)
+    row_valid = row_min_x < BIG_I
+    min_y = min_y.view(t, nseg)[:, :max_det].reshape(-1)
+    min_y = torch.where(row_valid[:, 0], min_y, torch.full_like(min_y, BIG_I))
+    return _stats_tail_from_tables(row_min_x, row_max_x, row_valid, min_y,
+                                   max_bh=max_bh)
 
 
 def component_stats_runs(s_start, s_len, s_comp, *, w, h, max_det, max_bh,
@@ -147,9 +320,64 @@ def _fold_edge_vector(dx, dy):
     return dx, dy
 
 
+# fdlibm's float atanf (glibc sysdeps/ieee754/flt-32/s_atanf.c): atan of
+# the breakpoints 0.5, 1, 1.5, inf split hi + lo, and the odd polynomial
+_ATAN_HI = np.array([4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01,
+                     1.5707962513e+00], np.float32)
+_ATAN_LO = np.array([5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08,
+                     7.5497894159e-08], np.float32)
+_ATAN_T = np.array([3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01,
+                    -1.1111110449e-01, 9.0908870101e-02, -7.6918758452e-02,
+                    6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02,
+                    -3.6531571299e-02, 1.6285819933e-02], np.float32)
+_PI_O_2 = np.float32(1.5707963705e+00)
+_PI_LO = np.float32(-8.7422776573e-08)
+
+
+def _atanf(x):
+    """fdlibm's float32 atanf for finite x >= 0, one float32 rounding per
+    operation in the C order (no fma)."""
+    def c(v):
+        return torch.tensor(np.float32(v), dtype=_F32, device=x.device)
+
+    one, ix = c(1.0), x.view(_I32)
+    # argument reduction around the breakpoints (7/16, 11/16, 19/16, 39/16)
+    red = [(x * c(2.0) - one) / (c(2.0) + x), (x - one) / (x + one),
+           (x - c(1.5)) / (one + c(1.5) * x), -one / x]
+    bounds = (0x3ee00000, 0x3f300000, 0x3f980000, 0x401c0000)
+    xr = x
+    idx = torch.full_like(ix, -1)
+    for i, (lo, r) in enumerate(zip(bounds, red)):
+        sel = ix >= lo
+        xr = torch.where(sel, r, xr)
+        idx = torch.where(sel, torch.full_like(ix, i), idx)
+    z = xr * xr
+    w = z * z
+    t = [c(v) for v in _ATAN_T]
+    s1 = z * (t[0] + w * (t[2] + w * (t[4] + w * (t[6] + w * (t[8] +
+                                                              w * t[10])))))
+    s2 = w * (t[1] + w * (t[3] + w * (t[5] + w * (t[7] + w * t[9]))))
+    small = xr - xr * (s1 + s2)
+    ii = idx.clamp(min=0).long()
+    hi = torch.from_numpy(_ATAN_HI).to(x.device)[ii]
+    lo = torch.from_numpy(_ATAN_LO).to(x.device)[ii]
+    big = hi - ((xr * (s1 + s2) - lo) - xr)
+    out = torch.where(idx < 0, small, big)
+    out = torch.where(ix < 0x31000000, x, out)         # |x| < 2^-29
+    return torch.where(ix >= 0x4c000000, c(_ATAN_HI[3]) + c(_ATAN_LO[3]),
+                       out)                            # |x| >= 2^25
+
+
 def _atan2_f32(y, x):
-    """float32 atan2 through float64, the same bits on every device."""
-    return torch.atan2(y.double(), x.double()).to(_F32)
+    """fdlibm's float32 atan2f (glibc sysdeps/ieee754/flt-32/e_atan2f.c)
+    for finite y >= 0 and x > 0, the folded edge vectors; XLA:CPU's float32
+    atan2 gives these bits."""
+    k = (y.view(_I32) - x.view(_I32)) >> 23
+    z = torch.where(k > 60, torch.tensor(_PI_O_2 + np.float32(0.5) * _PI_LO,
+                                         device=x.device),
+                    _atanf((y / x).abs()))
+    z = torch.where(x == 1.0, _atanf(y), z)
+    return torch.where(y == 0.0, y, z)
 
 
 def _edge_vector_finish(dx_e, dy_e, has_edge, r):

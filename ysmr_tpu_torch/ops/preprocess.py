@@ -1,15 +1,207 @@
-# Copied from ysmr_tpu/ops/preprocess.py (the host helpers only).
-"""Host-side threshold helpers of the detection settings (numpy only).
+# The host helpers (MovingAverageThreshold, detect_mode_from_settings,
+# resolve_detection_rule, effective_threshold_offset, combine_mean_std) are
+# copied from ysmr_tpu/ops/preprocess.py.
+"""Frame preprocessing: grayscale, blur and the three threshold modes.
 
-Copied from ``ysmr_tpu/ops/preprocess.py`` (``MovingAverageThreshold``,
-``detect_mode_from_settings``, ``resolve_detection_rule``,
-``effective_threshold_offset``), unchanged. The device stencils of that
-module belong to frames mode and are not ported yet.
+Counterpart of ``ysmr_tpu/ops/preprocess.py``: the device half of frames
+mode (``bgr_to_gray``, ``blur3``, ``adaptive_gaussian_mean``,
+``adaptive_threshold``, ``global_threshold``, ``frame_mean_std_sums``,
+``detect_masks``) as plain PyTorch on (T, H, W) tensors of any device, and
+the host helpers, copied unchanged. The JAX module's docstring gives the
+OpenCV recipes each function reproduces.
+
+Bits that differ by construction and what the port does about them:
+
+- The 11-tap float32 mean is spelt as the jitted JAX function computes it.
+  XLA:CPU contracts ``sum(p[i] * k[i] for i in range(11))`` into
+  ``fma(p0, k0, p1 * k1)`` followed by ``fma(p_i, k_i, acc)`` for
+  i = 2..10 (measured on 1.1 M pixels: equal in every accumulator bit);
+  the unfused products differ in about a third of the accumulators and in
+  the rounded mean of a few pixels per million. The port forms those fmas
+  exactly (``ds.fma_f32``), so the CPU and CUDA agree in every bit with
+  each other and with the jitted JAX function. No convolution routine is
+  used: its summation order (and TF32 on the GPU) would differ.
+- The integer sums of ``frame_mean_std_sums`` widen to int64 in PyTorch;
+  they are cast back to int32, the JAX types (no sum overflows).
 """
 
 import math
 
 import numpy as np
+import torch
+
+from ysmr_tpu_torch.ops import ds
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+# OpenCV 8U BGR2GRAY fixed-point coefficients at shift 15 (sum == 2^15).
+_B2Y, _G2Y, _R2Y = 3735, 19235, 9798
+
+#: frames per chunk of the adaptive mean (its float64 fma temporaries)
+_MEAN_CHUNK = 16
+
+
+def _gaussian_kernel_11():
+    """cv2.getGaussianKernel(11, 0) — sigma = 0.3*((11-1)*0.5 - 1) + 0.8 = 2.0."""
+    sigma = 0.3 * ((11 - 1) * 0.5 - 1) + 0.8
+    xs = np.arange(11) - 5
+    k = np.exp(-(xs.astype(np.float64) ** 2) / (2 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+_K11_F32 = _gaussian_kernel_11()
+
+
+def bgr_to_gray(frames_bgr):
+    """Batched OpenCV-exact BGR->gray for uint8 frames.
+
+    :param frames_bgr: (..., H, W, 3) uint8
+    :return: (..., H, W) int32 grayscale in [0, 255]
+    """
+    acc = frames_bgr[..., 0].to(_I32) * _B2Y
+    acc += frames_bgr[..., 1].to(_I32) * _G2Y
+    acc += frames_bgr[..., 2].to(_I32) * _R2Y
+    return (acc + (1 << 14)) >> 15
+
+
+def _pad_reflect1(x):
+    """One-pixel reflect-101 border on the last two axes
+    (``jnp.pad(mode='reflect')``)."""
+    x = torch.cat([x[..., :, 1:2], x, x[..., :, -2:-1]], dim=-1)
+    return torch.cat([x[..., 1:2, :], x, x[..., -2:-1, :]], dim=-2)
+
+
+def _pad_edge(x, k):
+    """``k``-pixel replicate border on the last two axes
+    (``jnp.pad(mode='edge')``)."""
+    h, w = x.shape[-2:]
+    x = torch.cat([x[..., :, :1].expand(*x.shape[:-1], k), x,
+                   x[..., :, w - 1:].expand(*x.shape[:-1], k)], dim=-1)
+    shp = x.shape[:-2]
+    return torch.cat([x[..., :1, :].expand(*shp, k, x.shape[-1]), x,
+                      x[..., h - 1:, :].expand(*shp, k, x.shape[-1])], dim=-2)
+
+
+def blur3(gray):
+    """OpenCV-exact 3x3 Gaussian blur (sigma 0) on integer grayscale:
+    separable [64,128,64] fixed point, reflect-101 border,
+    ``(acc + 2^15) >> 16``. int32 in and out, batched over leading axes."""
+    p = _pad_reflect1(gray.to(_I32))
+    h, w = p.shape[-2:]
+    tmp = p[..., :, 0:w - 2] * 64 + p[..., :, 1:w - 1] * 128 + \
+        p[..., :, 2:w] * 64
+    acc = tmp[..., 0:h - 2, :] * 64 + tmp[..., 1:h - 1, :] * 128 + \
+        tmp[..., 2:h, :] * 64
+    return (acc + (1 << 15)) >> 16
+
+
+def _taps11(p, dim, k):
+    """The 11-tap float32 sum along ``dim`` in XLA:CPU's contracted order."""
+    n = p.shape[dim] - 10
+    acc = ds.fma_f32(p.narrow(dim, 0, n), k[0], p.narrow(dim, 1, n) * k[1])
+    for i in range(2, 11):
+        acc = ds.fma_f32(p.narrow(dim, i, n), k[i], acc)
+    return acc
+
+
+def adaptive_gaussian_mean(img):
+    """The 11x11 Gaussian-weighted local mean of cv2.adaptiveThreshold:
+    float32 separable taps of ``getGaussianKernel(11, 0)``, replicate
+    border, ``floor(acc + 0.5)``. int32 (T, H, W) in and out."""
+    k = [torch.tensor(v, dtype=_F32, device=img.device) for v in _K11_F32]
+    out = []
+    for s in range(0, img.shape[0], _MEAN_CHUNK):
+        p = _pad_edge(img[s:s + _MEAN_CHUNK].to(_F32), 5)
+        acc = _taps11(_taps11(p, -1, k), -2, k)
+        out.append(torch.floor(acc + 0.5).to(_I32))
+    return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def _adaptive_rule(img, mean, c_offset, white_on_dark):
+    diff = img.to(_I32) - mean
+    if white_on_dark:
+        return diff > -int(math.ceil(c_offset))
+    return diff <= -int(math.floor(c_offset))
+
+
+def adaptive_threshold(img, c_offset, white_on_dark):
+    """cv2.adaptiveThreshold(ADAPTIVE_THRESH_GAUSSIAN_C, blockSize=11) as
+    bool. ``c_offset`` is the C parameter as the reference passes it
+    (already sign-adjusted for dark backgrounds); ``white_on_dark`` picks
+    THRESH_BINARY over BINARY_INV.
+
+    :param img: (T, H, W) int32 blurred grayscale
+    :return: (T, H, W) bool foreground mask
+    """
+    return _adaptive_rule(img, adaptive_gaussian_mean(img), c_offset,
+                          white_on_dark)
+
+
+def global_threshold(img, thresh, white_on_dark):
+    """cv2.threshold(img, T, 255, BINARY/BINARY_INV) as a bool mask.
+
+    :param thresh: a Python int or a (T,) int32 tensor of per-frame
+        thresholds (broadcast over H, W)
+    """
+    t = torch.as_tensor(thresh, dtype=_I32, device=img.device)
+    while t.dim() < img.dim():
+        t = t[..., None]
+    if white_on_dark:
+        return img > t
+    return img <= t
+
+
+def frame_mean_std_sums(gray):
+    """Exact integer sums for cv2.meanStdDev parity on uint8 grayscale:
+    per frame (sum, sumsq_hi, sumsq_lo) as int32 with
+    ``sum(x^2) = sumsq_hi * 2^16 + sumsq_lo``.
+
+    :param gray: (T, H, W) int32 in [0, 255]
+    :return: tuple of (T,) int32 tensors
+    """
+    g = gray.to(_I32)
+    total = g.sum(dim=(-2, -1)).to(_I32)
+    row_sums = (g * g).sum(dim=-1).to(_I32)   # <= W * 65025, fits int32
+    hi = (row_sums >> 16).sum(dim=-1).to(_I32)
+    lo = (row_sums & 0xFFFF).sum(dim=-1).to(_I32)
+    return total, hi, lo
+
+
+def combine_mean_std(n_pixels, total, hi, lo):
+    """Host-side float64 mean/std from frame_mean_std_sums outputs.
+
+    Matches cv2.meanStdDev: std = sqrt(E[x^2] - mean^2) (population std).
+    """
+    total = np.asarray(total, dtype=np.float64)
+    sumsq = np.asarray(hi, dtype=np.float64) * 65536.0 + np.asarray(lo, dtype=np.float64)
+    mean = total / n_pixels
+    var = sumsq / n_pixels - mean * mean
+    return mean, np.sqrt(np.maximum(var, 0.0))
+
+
+def detect_masks(blurred, mode, c_offset, double_delta, white_on_dark,
+                 global_thresholds=None):
+    """(mask, markers) for a frame batch under the configured mode.
+
+    ``mode`` is 'adaptive', 'adaptive_double' (adaptive plus the stricter
+    marker threshold; the caller reconstructs) or 'mean' (global threshold
+    per frame from ``global_thresholds``). The adaptive mean is computed
+    once for both thresholds of the double mode.
+
+    :return: (mask bool, markers bool or None)
+    """
+    if mode == 'mean':
+        if global_thresholds is None:
+            raise ValueError('mean mode requires per-frame thresholds')
+        return global_threshold(blurred, global_thresholds, white_on_dark), None
+    mean = adaptive_gaussian_mean(blurred)
+    # the reference passes C = -offset (offset already negated for dark bg)
+    mask = _adaptive_rule(blurred, mean, -c_offset, white_on_dark)
+    if mode == 'adaptive_double':
+        return mask, _adaptive_rule(blurred, mean, -(c_offset + double_delta),
+                                    white_on_dark)
+    return mask, None
 
 
 class MovingAverageThreshold:

@@ -1,0 +1,122 @@
+"""Frames-mode detection: raw BGR frames -> padded detection tables on the
+device.
+
+Counterpart of ``ysmr_tpu/pipeline/detect.py``: grayscale -> 3x3 blur ->
+threshold (one of three modes) -> marker reconstruction -> 8-connected
+labels -> compaction -> row tables -> hull -> exact rect, batched over T
+frames. The labeling and the reconstruction are the kernels of
+``csrc/cc.cu`` on a CUDA tensor (``ops/cc.py``), their plain versions on a
+CPU one; the hull and sweep kernels run inside the stats tail as on the
+run wire.
+
+Differences from the JAX module:
+
+- Plain PyTorch runs eagerly, so there is no jit; ``detect_from_blurred``
+  takes the batch's components through ``ops/labeling.py`` in one pass
+  over (T*max_det, ...) tables instead of ``vmap``ping a frame at a time.
+- No cv2-center override, as in JAX: frames mode reports the exact rect
+  center (``detect_from_blurred`` has no ``cv2_centers``).
+- Luminosity is not ported and raises (ROADMAP Queue 1 item 10), so the
+  grayscale frames and the luminosity window are not passed on.
+"""
+
+import numpy as np
+import torch
+
+from ysmr_tpu_torch.ops import cc
+from ysmr_tpu_torch.ops import labeling as lb
+from ysmr_tpu_torch.ops import preprocess as pp
+from ysmr_tpu_torch.pipeline.detect_pixels import detections_from_tables
+
+
+class DetectorConfig:
+    """Static detection parameters derived from tracking.ini settings."""
+
+    def __init__(self, settings):
+        self.mode, self.offset = pp.resolve_detection_rule(settings)
+        self.white_on_dark = settings['white bacteria on dark background']
+        self.double_delta = settings['adaptive double threshold']
+        self.max_det = settings['max detections per frame']
+        self.max_bh = settings.get('max bounding box height', 96)
+        self.cc_iters = settings['connected components max iterations']
+        self.include_luminosity = settings['include luminosity in tracking calculation']
+
+
+def prepare_batch(frames_bgr, needs_sums=False):
+    """BGR frames -> (blurred[, meanStdDev integer sums]).
+
+    Separate from :func:`detect_from_blurred` so mean-threshold mode can
+    compute per-frame thresholds on the host (the 5 s moving-average state)
+    between the two without converting again.
+
+    :param frames_bgr: (T, H, W, 3) uint8
+    """
+    gray = pp.bgr_to_gray(frames_bgr)
+    blurred = pp.blur3(gray)
+    if needs_sums:
+        return (blurred,) + pp.frame_mean_std_sums(gray)
+    return blurred
+
+
+def detect_from_blurred(blurred, frame_valid, thresholds, *, mode,
+                        white_on_dark, offset, double_delta, max_det, max_bh,
+                        cc_iters):
+    """Detection tables from preprocessed frames.
+
+    :param blurred: (T, H, W) int32
+    :param frame_valid: (T,) bool — padding frames yield no detections
+    :param thresholds: (T,) int32 per-frame global thresholds (mean mode;
+        ignored by the adaptive modes)
+    :return: dict with det_xy (T, D, 2), det_info (T, D, 3) [w, h,
+        angle_deg], det_valid (T, D), n_components (T,)
+    """
+    mask, markers = pp.detect_masks(blurred, mode, offset, double_delta,
+                                    white_on_dark, global_thresholds=thresholds)
+    fv = frame_valid[:, None, None]
+    mask = mask & fv
+    if markers is not None:
+        mask = cc.binary_reconstruct(mask, markers & fv, max_iters=cc_iters)
+    labels8 = cc.label_components_whole_frame(mask, connectivity=8,
+                                              max_iters=cc_iters)
+    comp, n_components = lb.compact_labels(labels8, mask, max_det=max_det)
+    tables = lb.component_tables(comp, mask, max_det=max_det, max_bh=max_bh)
+    out = detections_from_tables(tables, mask.shape[0], max_det=max_det,
+                                 max_bh=max_bh)
+    out['n_components'] = n_components
+    return out
+
+
+def detect_batch(frames_bgr, frame_valid, config, threshold_state=None):
+    """Full host-coordinated detection for one frame batch.
+
+    In mean-threshold mode this is the two-phase flow: device sums -> host
+    moving-average thresholds -> device detection. ``threshold_state`` is a
+    :class:`ysmr_tpu_torch.ops.preprocess.MovingAverageThreshold` carried
+    across batches.
+
+    :param frames_bgr: (T, H, W, 3) uint8 tensor
+    :param frame_valid: (T,) bool tensor on the device of ``frames_bgr``
+    """
+    if config.include_luminosity:
+        raise NotImplementedError(
+            'detect_batch: luminosity is not ported (ROADMAP Queue 1 item 10)')
+    t = frames_bgr.shape[0]
+    if config.mode == 'mean':
+        blurred, total, hi, lo = prepare_batch(frames_bgr, needs_sums=True)
+        n_pix = frames_bgr.shape[1] * frames_bgr.shape[2]
+        mean, std = pp.combine_mean_std(n_pix, total.cpu().numpy(),
+                                        hi.cpu().numpy(), lo.cpu().numpy())
+        valid_np = frame_valid.cpu().numpy()
+        thr = np.zeros((t,), np.int32)
+        for i in range(t):
+            if valid_np[i]:
+                thr[i] = threshold_state.update(mean[i], std[i])
+        thresholds = torch.from_numpy(thr).to(frames_bgr.device)
+    else:
+        blurred = prepare_batch(frames_bgr)
+        thresholds = None
+    return detect_from_blurred(
+        blurred, frame_valid, thresholds, mode=config.mode,
+        white_on_dark=config.white_on_dark, offset=config.offset,
+        double_delta=config.double_delta, max_det=config.max_det,
+        max_bh=config.max_bh, cc_iters=config.cc_iters)

@@ -113,10 +113,20 @@ def _stats_outputs_runs(s_start, s_len, s_comp, n_components, *, h, w,
     """Detect tail over component-sorted run tables (no luminosity): the
     stats, hull and exact rect of every component of the batch in one
     pass over (T*max_det, ...) tables."""
-    t = s_start.shape[0]
     tables = lb.component_stats_runs(s_start, s_len, s_comp, w=w, h=h,
                                      max_det=max_det, max_bh=max_bh,
                                      cv2_centers=cv2_centers)
+    out = detections_from_tables(tables, s_start.shape[0], max_det=max_det,
+                                 max_bh=max_bh, cv2_centers=cv2_centers)
+    out['n_components'] = n_components
+    return out
+
+
+def detections_from_tables(tables, t, *, max_det, max_bh, cv2_centers=False):
+    """The exact rect of every component of a batch from its stats tables
+    (T*max_det, ...): ``det_xy`` (T, max_det, 2), ``det_info``
+    (T, max_det, 3) [w, h, angle] float32, zero where ``det_valid``
+    (T, max_det) is False. Shared by the run wire and frames mode."""
     rect = lb.min_area_rect(tables['points'], tables['points_valid'],
                             edge_angles=tables['edge_angles'],
                             edge_valid=tables['edge_valid'],
@@ -127,11 +137,11 @@ def _stats_outputs_runs(s_start, s_len, s_comp, n_components, *, h, w,
         # center bit for bit; W/H/angle keep the exact decomposition
         rect = _cv2_center_override(rect, tables, max_bh=max_bh)
     det_valid = (tables['count'] > 0).view(t, max_det)
-    zero = torch.zeros((), dtype=torch.float32, device=s_start.device)
+    zero = torch.zeros((), dtype=torch.float32, device=det_valid.device)
     det_xy = torch.stack([rect['cx'], rect['cy']], dim=-1).view(
         t, max_det, 2)
     det_info = torch.stack([rect['w'], rect['h'], rect['angle_deg']],
                            dim=-1).view(t, max_det, 3)
     return {'det_xy': torch.where(det_valid[..., None], det_xy, zero),
             'det_info': torch.where(det_valid[..., None], det_info, zero),
-            'det_valid': det_valid, 'n_components': n_components}
+            'det_valid': det_valid}

@@ -1,7 +1,14 @@
 """track_bacteria(): video -> _list.csv, stage 1 of the PyTorch port.
 
 Counterpart of ``ysmr_tpu/pipeline/track_bacteria.py::track_bacteria`` in
-pixels mode, on both of its stage-1 paths. Common to both:
+both transfer modes. In frames mode (``transfer mode = frames``) the
+reader decodes raw BGR frames, each batch is uploaded once through a
+pinned staging buffer, and the device runs all of detection
+(``pipeline/detect.py``: gray, blur, threshold, marker reconstruction and
+8-connected labels with the kernels of ``csrc/cc.cu``, compaction, row
+tables, hull, exact rect) and the device tracker; the emissions come back
+as on the device-tracker path below. ``transfer mode = auto`` picks pixels
+mode. Pixels mode has two stage-1 paths. Common to both:
 
 1. host decode and host threshold (native library, in the reader's
    threads): per frame a packed uint32 pixel wire;
@@ -49,6 +56,7 @@ from ysmr_tpu_torch.io.video import BatchedVideoReader, VideoReadError
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.gsff import GSFFParams
 from ysmr_tpu_torch.pipeline import tracker as trk
+from ysmr_tpu_torch.pipeline.detect import DetectorConfig, detect_batch
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
 from ysmr_tpu_torch.utils.csv_io import (finalize_sorted_list, save_list,
                                          sort_list)
@@ -110,6 +118,16 @@ def _require_native():
                            '(native/libysmr_native.so or its build).')
 
 
+def resolve_transfer_mode(settings):
+    """'frames' or 'pixels'. 'auto' stays pixels: the JAX package's link
+    probe (``probe_h2d_bandwidth``) is not ported, and frames mode has no
+    host-rect path, so letting 'auto' pick frames would take the default
+    configuration off its row identity with YSMR (ROADMAP Queue 1 item 6
+    decides 'auto' with H100 numbers)."""
+    mode = str(settings.get('transfer mode', 'auto')).strip().lower()
+    return 'frames' if mode == 'frames' else 'pixels'
+
+
 def check_slice_settings(settings, frame_height=None, frame_width=None):
     """Raise NotImplementedError for settings outside the ported slice."""
     def unported(what, item):
@@ -117,8 +135,6 @@ def check_slice_settings(settings, frame_height=None, frame_width=None):
             '{} is not ported to ysmr_tpu_torch yet (ROADMAP Queue 1 item '
             '{}).'.format(what, item))
 
-    if str(settings.get('transfer mode', 'auto')).lower() == 'frames':
-        unported("'transfer mode = frames'", 11)
     if settings['include luminosity in tracking calculation']:
         unported("'include luminosity in tracking calculation'", 10)
     if settings['display video analysis']:
@@ -135,6 +151,8 @@ def check_slice_settings(settings, frame_height=None, frame_width=None):
                     settings.get('dense assignment shard threshold',
                                  1 << 21)):
             unported("'shard dense assignment across devices'", 12)
+    if resolve_transfer_mode(settings) == 'frames':
+        return      # the wire settings below belong to pixels mode
     if str(settings.get('wire format', 'auto')).lower() == 'pixels':
         unported("'wire format = pixels'", 10)
     if str(settings.get('run cc', 'auto')).lower() == 'off':
@@ -145,12 +163,13 @@ def check_slice_settings(settings, frame_height=None, frame_width=None):
 
 
 def use_host_rects(settings):
-    """The JAX loop's gate (``track_bacteria.py:398-406``): host rects and
-    the float64 host tracker up to ``cv2 exact rects max detections``
-    detections per frame, unless ``cv2 exact rects`` is off; the device
-    rects and tracker above it."""
+    """The JAX loop's gate (``track_bacteria.py:398-406``): in pixels mode,
+    host rects and the float64 host tracker up to ``cv2 exact rects max
+    detections`` detections per frame, unless ``cv2 exact rects`` is off;
+    the device rects and tracker above it and in frames mode."""
     cap = int(settings.get('cv2 exact rects max detections', 1024) or 0)
-    return settings['max detections per frame'] <= cap and \
+    return resolve_transfer_mode(settings) == 'pixels' and \
+        settings['max detections per frame'] <= cap and \
         bool(settings.get('cv2 exact rects', True))
 
 
@@ -223,9 +242,10 @@ def track_bacteria(video_path, settings=None, result_folder=None,
     if settings['verbose']:
         logger.debug('Frame height: %s, width: %s', frame_height, frame_width)
 
-    preprocess = HostPreprocessor(
-        settings, fps_of_file,
-        max_fg=settings['max foreground pixels per frame'])
+    # frames mode ships raw BGR frames: no host threshold
+    preprocess = None if resolve_transfer_mode(settings) == 'frames' else \
+        HostPreprocessor(settings, fps_of_file,
+                         max_fg=settings['max foreground pixels per frame'])
     # striped decode pays off only with spare cores; 'host decode threads'
     # = 0 opts into inline (threadless) decode
     raw_threads = int(settings.get('host decode threads', 1) or 0)
@@ -252,11 +272,13 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                 old_list=False, video_path=None, stats=None):
     """Stage 1 from an opened reader to the sorted ``_list.csv``.
 
-    ``reader`` yields ``{'frames': tables, 'start': int, 'count': int}``
-    batches of host-thresholded pixel tables (``HostPreprocessor``) and has
-    ``width``, ``height``, ``frame_count``, ``batch_size`` and
-    ``preprocess``. ``list_name`` must already hold the CSV header
-    (``save_list(first_call=True)``). When ``stats`` is a dict it receives
+    ``reader`` yields ``{'frames': payload, 'start': int, 'count': int}``
+    batches and has ``width``, ``height``, ``frame_count``, ``batch_size``
+    and ``preprocess``. The payload is a dict of host-thresholded pixel
+    tables (``HostPreprocessor``) in pixels mode, and a (T, H, W, 3) uint8
+    array of BGR frames in frames mode (``preprocess`` None). ``list_name``
+    must already hold the CSV header (``save_list(first_call=True)``).
+    When ``stats`` is a dict it receives
     the run's counts and host-clock stage times (seconds).
 
     :return: (df, fps, frame_height, frame_width, csv_path) or None
@@ -278,6 +300,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                         n_min=settings['minimum horizon size'],
                         n_max=settings['maximum horizon size'],
                         n_f=settings['number of LSFFs']) if use_gsff else None
+    frames_mode = resolve_transfer_mode(settings) == 'frames'
     host_rects = use_host_rects(settings)
     max_slots = settings['max track slots']
     if host_rects:
@@ -294,7 +317,15 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         renumberer = trk.ReferenceOrderRenumberer()
         use_cv2_centers = str(settings.get('cv2 exact centers', 'auto')
                               ).strip().lower() != 'off'
-    logger.debug('Stage-1 path: %s', 'host rects + float64 tracker'
+    if frames_mode:
+        det_config = DetectorConfig(settings)
+        # the mean mode's moving-average window carries across batches
+        threshold_state = pp.MovingAverageThreshold(
+            fps=fps_of_file, offset=det_config.offset,
+            white_on_dark=det_config.white_on_dark) \
+            if det_config.mode == 'mean' else None
+    logger.debug('Stage-1 path: %s', 'frames: device detection + device '
+                 'tracker' if frames_mode else 'host rects + float64 tracker'
                  if host_rects else 'device rects + device tracker')
     runs_buf = runs_cnt = None
     runs_bucket = 512
@@ -437,10 +468,8 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         return out if len(out['TRACK_ID']) else None
 
     def stage_track(data, count, start, frame_valid):
-        """Device-tracker path: launch one batch's labeling, device rects
-        and tracker scan, and the async readback of its padded emissions
-        in one int32 buffer; returns the staged batch."""
-        nonlocal state
+        """Device-tracker path: launch one batch's labeling and device
+        rects, then ``stage_tracker``; returns the staged batch."""
         marks = [('start', event())] if on_cuda else []
         _, _, _, px_runs, run_counts, fv = upload(data, frame_valid)
         tables = detect_from_pixels(
@@ -451,6 +480,48 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
             use_run_cc=True, cv2_centers=use_cv2_centers)
         if on_cuda:
             marks.append(('detect', event()))
+        return stage_tracker(tables, marks, start, frame_valid)
+
+    # frames mode: two pinned staging buffers, used in turns, and the
+    # event after each one's last upload
+    pinned = [None, None]
+    copied = [None, None]
+    n_uploads = 0
+
+    def upload_frames(frames_np):
+        """Start the upload of one (T, H, W, 3) uint8 batch."""
+        nonlocal n_uploads
+        if not on_cuda:
+            return torch.from_numpy(np.ascontiguousarray(frames_np))
+        k = n_uploads % 2
+        n_uploads += 1
+        if pinned[k] is None or tuple(pinned[k].shape) != frames_np.shape:
+            pinned[k] = torch.empty(frames_np.shape, dtype=torch.uint8,
+                                    pin_memory=True)
+        elif copied[k] is not None:
+            copied[k].synchronize()     # its last upload has left it
+        pinned[k].numpy()[...] = frames_np
+        frames = pinned[k].to(device, non_blocking=True)
+        copied[k] = event()
+        return frames
+
+    def stage_frames(frames_np, count, start, frame_valid):
+        """Frames mode: upload one batch of BGR frames, launch its device
+        detection, then ``stage_tracker``; returns the staged batch."""
+        marks = [('start', event())] if on_cuda else []
+        frames = upload_frames(frames_np)
+        fv = torch.from_numpy(frame_valid).to(device, non_blocking=True)
+        tables = detect_batch(frames, fv, det_config,
+                              threshold_state=threshold_state)
+        if on_cuda:
+            marks.append(('detect', event()))
+        return stage_tracker(tables, marks, start, frame_valid)
+
+    def stage_tracker(tables, marks, start, frame_valid):
+        """Launch the tracker scan over one batch's detection tables and
+        the async readback of its padded emissions in one int32 buffer;
+        returns the staged batch."""
+        nonlocal state
         state, em = trk.run_tracker_scan(
             state, tables['det_xy'], tables['det_info'], tables['det_valid'],
             **tracker_kwargs)
@@ -463,8 +534,14 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
             [em['mask'][..., None].to(torch.int32), em['ids'][..., None],
              em['det_col'][..., None], em['pos'].view(torch.int32),
              em['info'].view(torch.int32)], dim=2)
-        frames = torch.stack([em['n_det'], tables['n_components'],
-                              tables['cc_steps']], dim=1).to(torch.int32)
+        # frames mode reports no step counts (0), as the JAX one: the
+        # kernels have no cap, and the plain labeling stops at the cap
+        # without a warning, as the JAX CPU path does
+        steps = tables.get('cc_steps')
+        if steps is None:
+            steps = torch.zeros_like(tables['n_components'])
+        frames = torch.stack([em['n_det'], tables['n_components'], steps],
+                             dim=1).to(torch.int32)
         fused = torch.cat([slots.reshape(-1), frames.reshape(-1)])
         return to_host(fused, {'marks': marks, 'start': start,
                                'frame_valid': frame_valid, 't': t_len,
@@ -492,8 +569,12 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         stage_t['emit_rows'] += time.perf_counter() - t_b
         return out
 
-    stage, finish = (stage_detect, finish_detect) if host_rects else \
-        (stage_track, finish_track)
+    if frames_mode:
+        stage, finish = stage_frames, finish_track
+    elif host_rects:
+        stage, finish = stage_detect, finish_detect
+    else:
+        stage, finish = stage_track, finish_track
     pending = []  # accumulated column arrays awaiting flush
     # every part, kept for the in-memory final sort — bounded: beyond ~16M
     # rows the final sort falls back to the CSV round-trip
@@ -588,6 +669,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                        dropped, max_slots)
     if stats is not None:
         stats.update({'frames': frames_processed,
+                      'transfer_mode': 'frames' if frames_mode else 'pixels',
                       'capped_frames': capped_frames, 'device': str(device),
                       'host_rects': host_rects,
                       'dropped_registrations': dropped,
