@@ -52,10 +52,32 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    the clip), with every kernel of the path launched in each clip run;
 11. ``cuda`` against ``cpu`` in frames mode on the bench scene's first 16
    frames (a 64-frame batch takes over a minute on the cpu): TRACK_ID and
-   POSITION_T identical, the other columns within the stated tolerance.
+   POSITION_T identical, the other columns within the stated tolerance;
+12. the pixel kernel (``cc_labels_at_pixels``) against its plain version
+   (bit-equal where that converged), against the composition of the
+   reconstruction and labeling kernels with a rasterize and a gather, and
+   against scipy on every frame: the bench batch (64 x 8192, double and
+   single threshold), the dense batch (64 x 131072) and random blobs with
+   the serpentine; median ms of each and the bound;
+13. the bench scene in memory with ``wire format = pixels`` and with ``run
+   cc = off`` (the pixel-table branch): ``_list.csv`` byte-identical to
+   the run-wire path's of phase 4;
+14. luminosity on the bench MJPG clip through ``track_bacteria(path)``
+   with GSFF (host rects feeding the device tracker in 3-D), its first 64
+   frames without GSFF (the float64 tracker): ILLUMINATION against cv2's
+   recipe on 1500 sampled rows, the GSFF rows against the same
+   detections' values; the scene in memory (stage split); ``cuda`` against
+   ``cpu`` on 16 frames, byte-identical;
+15. luminosity on the dense clip (device rects and tracker), the
+   ILLUMINATION check on the first batch's detections, the scene in
+   memory (stage split), ``cuda`` against ``cpu`` on 16 frames, and the
+   dense scene with the pixel wire byte-identical to the run wire's;
+16. frames-mode luminosity on the bench scene in memory, and ``cuda``
+   against ``cpu`` on 16 frames, byte-identical.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
+The last three lines are the ``kernels`` JSON record (seven kernels, each
+with its bound and the library call where one exists), ``nvidia-smi``'s
 card name and power limit, and the result JSON.
 """
 
@@ -85,6 +107,7 @@ from ysmr_tpu_torch.ops.hull import hull_edge_vectors
 from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
 from ysmr_tpu_torch.ops.sweep import sweep_extents
 from ysmr_tpu_torch.pipeline import detect
+from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
 from ysmr_tpu_torch.pipeline.track_bacteria import _track_loop, track_bacteria
 from ysmr_tpu_torch.utils.csv_io import save_list
 
@@ -190,12 +213,17 @@ class MemoryReader:
                 yield {'frames': batch, 'start': s, 'count': len(chunk)}
                 continue
             tabs = [self.preprocess(f) for f in self.frames[s:s + bs]]
-            fcap = tabs[0]['px_packed'].shape[0]
-            batch = {'count': np.zeros(bs, np.int32),
-                     'px_packed': np.zeros((bs, fcap), np.uint32)}
-            for i, tab in enumerate(tabs):
-                batch['count'][i] = tab['count']
-                batch['px_packed'][i] = tab['px_packed']
+            # every field stacked, short batches zero-padded, as
+            # io.video.BatchedVideoReader does (the packed wire, or with
+            # luminosity the split wire and the gray frames)
+            batch = {'count': np.zeros(bs, np.int32)}
+            batch['count'][:len(tabs)] = [tab['count'] for tab in tabs]
+            for key in tabs[0]:
+                if key != 'count':
+                    first = np.asarray(tabs[0][key])
+                    batch[key] = np.zeros((bs,) + first.shape, first.dtype)
+                    for i, tab in enumerate(tabs):
+                        batch[key][i] = tab[key]
             yield {'frames': batch, 'start': s, 'count': len(tabs)}
 
     def __iter__(self):
@@ -264,11 +292,18 @@ def compare_kernel(name, runs, counts, w, connectivity, dev):
     plain_ms = cuda_ms(lambda: run_cc.propagate_min(init, win, link,
                                                     max_iters=MAX_ITERS),
                        reps=5)
+    # per sweep and run: two chain neighbours, four window endpoints, a
+    # path-halving hop and the compare
+    ops = int((steps.cpu().to(torch.int64) *
+               torch.from_numpy(counts).to(torch.int64)).sum()) * 8
+    bnd = bound([init, link] + [win[k] for k in ('lo_up', 'hi_up', 'lo_dn',
+                                                  'hi_dn', 'ok_up', 'ok_dn')],
+                [lab, steps], ops)
     log('kernel check {}: T={} R={} runs<= {} equal, steps kernel {} plain '
-        '{}, ms kernel {:.4f} plain {:.4f}'.format(
+        '{}, ms kernel {:.4f} plain {:.4f} bound {:.4f} ({})'.format(
             name, runs.shape[0], runs.shape[1], int(counts.max()), k_steps,
-            p_steps, ms, plain_ms))
-    return err, ms, plain_ms
+            p_steps, ms, plain_ms, *bnd))
+    return err, ms, plain_ms, bnd
 
 
 def encode(packed, counts, w, r):
@@ -324,7 +359,6 @@ def phase_kernel(scene, settings, dev):
     runs, rc = encode(packed, counts, W, None)
     results = [compare_kernel('bench 4-conn', runs, rc, W, 4, dev),
                compare_kernel('bench 8-conn', runs, rc, W, 8, dev)]
-    main_ms, main_plain_ms = results[0][1:]
     rng = np.random.default_rng(SEED)
     for t, h, w, r, dens in ((64, 922, 1228, 8192, 0.004),
                              (8, 700, 700, 131072, 0.3),
@@ -344,7 +378,7 @@ def phase_kernel(scene, settings, dev):
                 dev))
     if propagate_min_fused.launches <= 0:
         raise SystemExit('the kernel was never launched')
-    return max(r[0] for r in results), main_ms, main_plain_ms
+    return (max(r[0] for r in results),) + results[0][1:]
 
 
 def run_loop(scene_frames, settings, device, name):
@@ -354,9 +388,10 @@ def run_loop(scene_frames, settings, device, name):
     reader = MemoryReader(scene_frames, pre, settings['frame batch size'])
     folder = os.path.join(WORK, name)
     os.makedirs(folder, exist_ok=True)
-    _, list_name = save_list(path=os.path.join(folder, 'bench.avi'),
-                             result_folder=folder, first_call=True,
-                             rename_old_list=False)
+    _, list_name = save_list(
+        path=os.path.join(folder, 'bench.avi'), result_folder=folder,
+        first_call=True, rename_old_list=False,
+        illumination=settings['include luminosity in tracking calculation'])
     stats = {}
     res = _track_loop(reader, settings, float(FPS), list_name,
                       device=torch.device(device), stats=stats)
@@ -400,7 +435,7 @@ def phase_main_path(scene, settings):
     log('stage split cpu (ms/frame): {}'.format(json.dumps(
         {k: round(v / cpu_stats['frames'] * 1e3, 4)
          for k, v in cpu_stats['stage_s'].items()})))
-    return launches, frames
+    return launches, frames, cuda_bytes
 
 
 def make_clip(path, n_frames, scene=None):
@@ -452,10 +487,32 @@ def phase_clip(settings):
                                    N_FRAMES / elapsed))
 
 
-def kernel_record(name, source, replaces, launches, err, ms, plain_ms):
+#: NVIDIA's data-sheet peaks of one H100 SXM at 700 W: HBM bytes/s and
+#: float32 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+
+
+def bound(inputs, outputs, ops):
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its operations over the float32 rate. Returns (ms, 'bytes' or
+    'operations')."""
+    nbytes = sum(int(t.numel()) * t.element_size()
+                 for t in list(inputs) + list(outputs))
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, float(ops) / PEAK_OPS * 1e3
+    return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else
+            'operations')
+
+
+def kernel_record(name, source, replaces, launches, check, library_ms=None):
+    """One entry of the ``kernels`` line; ``check`` is (max_abs_err, ms,
+    plain_ms, (bound_ms, bound_by)) from the kernel's phase."""
+    err, ms, plain_ms, (bound_ms, bound_by) = check[:4]
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': launches, 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms}
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': library_ms}
 
 
 def max_abs_err(got, want):
@@ -469,9 +526,10 @@ def max_abs_err(got, want):
     return err
 
 
-def check_equal(name, kernel, plain, args, reps=10, plain_reps=5):
+def check_equal(name, kernel, plain, args, ops, reps=10, plain_reps=5):
     """Kernel against its plain version on the same card tensors: every
-    output bit-equal; median ms of each."""
+    output bit-equal; median ms of each and the bound of the call
+    (``ops``: its operation count)."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -481,9 +539,10 @@ def check_equal(name, kernel, plain, args, reps=10, plain_reps=5):
     err = max_abs_err(got, want)
     ms = cuda_ms(lambda: kernel(*args), reps=reps)
     plain_ms = cuda_ms(lambda: plain(*args), reps=plain_reps)
-    log('kernel check {}: bit-equal, ms kernel {:.4f} plain {:.4f}'.format(
-        name, ms, plain_ms))
-    return err, ms, plain_ms
+    bnd = bound(args, got, ops)
+    log('kernel check {}: bit-equal, ms kernel {:.4f} plain {:.4f} bound '
+        '{:.4f} ({})'.format(name, ms, plain_ms, *bnd))
+    return err, ms, plain_ms, bnd
 
 
 def dense_first_batch(scene, settings):
@@ -565,21 +624,53 @@ def assign_inputs(rng, r, c, k, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (obj, ov, det, dv))
 
 
+def hull_ops(row_valid):
+    """Slope-matrix operations of the hull call: per non-empty component
+    and chain, R x R pairs of two subtractions, a division and a compare."""
+    d_act = int(row_valid.any(dim=1).sum())
+    return d_act * row_valid.shape[1] ** 2 * 2 * 4
+
+
+def sweep_ops(valid, k):
+    """Projection operations of the sweep call: per non-empty component,
+    K directions x P points of two products, two sums, four min/max."""
+    return int(valid.any(dim=1).sum()) * k * valid.shape[1] * 8
+
+
+def assign_ops(ov, dv, k):
+    """Distance operations of the assign call over the valid pairs: K
+    differences and K products/fmas, a sqrt and a compare."""
+    return int(ov.sum()) * int(dv.sum()) * (2 * k + 2)
+
+
+def cdist_min_ms(args):
+    """Two PyTorch calls computing the row minimum and its column of the
+    assign kernel: ``torch.cdist`` then ``.min(1)``, timed on the same
+    inputs with the invalid rows and columns left out. A yardstick only
+    (two calls, so not the record's library_ms)."""
+    obj, ov, det, dv = args
+    o, d = obj[ov].contiguous(), det[dv].contiguous()
+    return cuda_ms(lambda: torch.cdist(o, d).min(1))
+
+
 def phase_dense_kernels(scene, settings, dev):
     runs, rc = dense_first_batch(scene, settings)
     hull_args, sweep_args = dense_tables(runs, rc, settings, dev)
     rng = np.random.default_rng(SEED)
     out = {}
     hull = [check_equal('hull dense batch', hull_edge_vectors,
-                        labeling.hull_edge_vectors_plain, hull_args, reps=20)]
+                        labeling.hull_edge_vectors_plain, hull_args,
+                        hull_ops(hull_args[2]), reps=20)]
     for d, r in ((4096, 48), (16384, 96)):
+        args = random_row_tables(rng, d, r, dev)
         hull.append(check_equal(
             'hull random D={} R={}'.format(d, r), hull_edge_vectors,
-            labeling.hull_edge_vectors_plain,
-            random_row_tables(rng, d, r, dev)))
+            labeling.hull_edge_vectors_plain, args, hull_ops(args[2])))
     out['hull'] = (max(h[0] for h in hull),) + hull[0][1:]
     sweep = [check_equal('sweep dense batch', sweep_extents,
-                         labeling.sweep_extents_plain, sweep_args, reps=20)]
+                         labeling.sweep_extents_plain, sweep_args,
+                         sweep_ops(sweep_args[1], sweep_args[2].shape[1]),
+                         reps=20)]
     for d, p, k in ((4096, 96, 95), (4096, 192, 191)):
         pts = torch.from_numpy(rng.integers(0, 1228, (d, p, 2)).astype(
             np.float32)).to(dev)
@@ -591,16 +682,21 @@ def phase_dense_kernels(scene, settings, dev):
             np.float32)).to(dev)
         sweep.append(check_equal(
             'sweep random D={} P={} K={}'.format(d, p, k), sweep_extents,
-            labeling.sweep_extents_plain, (pts, valid, dx, dy)))
+            labeling.sweep_extents_plain, (pts, valid, dx, dy),
+            sweep_ops(valid, k)))
     out['sweep'] = (max(x[0] for x in sweep),) + sweep[0][1:]
     assign = []
     for n in (4096, 16384):
         for k in (2, 3):
+            args = assign_inputs(rng, n, n, k, dev)
             assign.append(check_equal(
                 'assign {}x{} K={}'.format(n, n, k), row_min_argmin,
-                assignment.row_min_argmin_plain,
-                assign_inputs(rng, n, n, k, dev), reps=10,
+                assignment.row_min_argmin_plain, args,
+                assign_ops(args[1], args[3], k), reps=10,
                 plain_reps=3 if n > 4096 else 5))
+            if n == 4096:
+                log('assign {}x{} K={}: torch.cdist + .min(1) (two calls) '
+                    '{:.4f} ms'.format(n, n, k, cdist_min_ms(args)))
     out['assign'] = (max(a[0] for a in assign),) + assign[0][1:]
     return out
 
@@ -630,7 +726,7 @@ def reset_launches():
 def phase_dense_path(scene, frames, settings):
     """The dense path on cuda: in memory for the stage split, then the
     MJPG clip through track_bacteria(path) with every kernel counted."""
-    _, _, stats = run_loop(frames, settings, 'cuda', 'dense_mem')
+    _, dense_bytes, stats = run_loop(frames, settings, 'cuda', 'dense_mem')
     per = {k: round(v / stats['frames'] * 1e3, 4)
            for k, v in stats['stage_s'].items()}
     log('dense in memory (cuda): tracks {} frames {} fps {:.2f}, '
@@ -698,7 +794,7 @@ def phase_dense_path(scene, frames, settings):
     if min(launches.values()) <= 0:
         raise SystemExit('dense clip: a kernel was never launched: {}'.format(
             launches))
-    return launches
+    return launches, dense_bytes
 
 
 def phase_dense_cuda_vs_cpu(frames, settings):
@@ -730,7 +826,7 @@ def bench_masks(scene, settings, dev, t=64):
     bgr = np.stack([cv2.cvtColor(scene.frame(i), cv2.COLOR_GRAY2BGR)
                     for i in range(t)])
     cfg = detect.DetectorConfig(settings)
-    blurred = detect.prepare_batch(torch.from_numpy(bgr).to(dev))
+    blurred = detect.prepare_batch(torch.from_numpy(bgr).to(dev))[1]
     return pp.detect_masks(blurred, cfg.mode, cfg.offset, cfg.double_delta,
                            cfg.white_on_dark)
 
@@ -807,11 +903,14 @@ def check_cc(name, mask, marker, scipy_frames=()):
         plain_ms = cuda_ms(lambda: labeling.label_components(mask, conn,
                                                              MAX_ITERS),
                            reps=3)
-        out['label{}'.format(conn)] = (0.0, ms, plain_ms)
+        # init, merge and compress: a few operations per pixel
+        bnd = bound([mask], [got], 4 * mask.numel())
+        out['label{}'.format(conn)] = (0.0, ms, plain_ms, bnd)
         log('kernel check {} label {}-conn: T={} bit-equal on {} of {} '
-            'frames (plain steps max {}), ms kernel {:.4f} plain {:.4f}'
-            .format(name, conn, mask.shape[0], int(conv.sum()),
-                    mask.shape[0], int(steps.max()), ms, plain_ms))
+            'frames (plain steps max {}), ms kernel {:.4f} plain {:.4f} '
+            'bound {:.4f} ({})'.format(
+                name, conn, mask.shape[0], int(conv.sum()), mask.shape[0],
+                int(steps.max()), ms, plain_ms, *bnd))
     got = cc.binary_reconstruct(mask, marker, MAX_ITERS)
     plain = labeling.propagate_markers(mask, marker, MAX_ITERS)
     torch.cuda.synchronize()
@@ -827,11 +926,12 @@ def check_cc(name, mask, marker, scipy_frames=()):
     ms = cuda_ms(lambda: cc.binary_reconstruct(mask, marker, MAX_ITERS))
     plain_ms = cuda_ms(lambda: labeling.propagate_markers(
         mask, marker, MAX_ITERS), reps=3)
-    out['reconstruct'] = (0.0, ms, plain_ms)
+    bnd = bound([mask, marker], [got], 5 * mask.numel())
+    out['reconstruct'] = (0.0, ms, plain_ms, bnd)
     log('kernel check {} reconstruct: bit-equal on {} of {} frames, kept {} '
-        'of {} mask pixels, ms kernel {:.4f} plain {:.4f}'.format(
-            name, int(conv.sum()), mask.shape[0], int(got.sum()),
-            int(mask.sum()), ms, plain_ms))
+        'of {} mask pixels, ms kernel {:.4f} plain {:.4f} bound {:.4f} ({})'
+        .format(name, int(conv.sum()), mask.shape[0], int(got.sum()),
+                int(mask.sum()), ms, plain_ms, *bnd))
     return out, unconverged
 
 
@@ -1000,6 +1100,409 @@ def phase_frames_cuda_vs_cpu(frames, settings):
             cres[0].shape[0], json.dumps(worst), cpu_s))
 
 
+# ---- the pixel-table branch and luminosity ----
+
+LUM = {'include luminosity in tracking calculation': True}
+
+
+def packed_batch(scene, settings, t=64):
+    """The host threshold's packed pixel wire of the scene's first ``t``
+    frames (T, max_fg) and the pixel counts."""
+    pre = HostPreprocessor(settings, FPS,
+                           max_fg=settings['max foreground pixels per frame'])
+    packed = np.zeros((t, pre.max_fg), np.uint32)
+    counts = np.zeros(t, np.int32)
+    for i in range(t):
+        tab = pre(scene.frame(i))
+        packed[i], counts[i] = tab['px_packed'], tab['count']
+    return packed, counts
+
+
+def lists_from_packed(packed, counts, dev):
+    """(T, F) pixel lists on the card from the packed wire (lin | marker
+    << 31): int32 x and y, bool valid (the count prefix) and marker."""
+    lin = (packed & 0x7FFFFFFF).astype(np.int64)
+    valid = np.arange(packed.shape[1])[None, :] < counts[:, None]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        (lin % W).astype(np.int32), (lin // W).astype(np.int32), valid,
+        ((packed >> 31) > 0) & valid))
+
+
+def lists_from_masks(masks, markers, dev):
+    """Raster-order pixel lists of (T, H, W) masks; F is the next power of
+    two above the largest frame's pixel count."""
+    t = masks.shape[0]
+    f = 1 << max(int(masks.reshape(t, -1).sum(1).max()) - 1, 1).bit_length()
+    arrs = [np.zeros((t, f), np.int32), np.zeros((t, f), np.int32),
+            np.zeros((t, f), bool), np.zeros((t, f), bool)]
+    for i in range(t):
+        ys, xs = np.nonzero(masks[i])
+        n = len(ys)
+        arrs[0][i, :n], arrs[1][i, :n], arrs[2][i, :n] = xs, ys, True
+        arrs[3][i, :n] = markers[i][ys, xs]
+    return tuple(torch.from_numpy(a).to(dev) for a in arrs)
+
+
+def scipy_pixel_labels(lists, double, frames):
+    """The pixel kernel's contract from scipy, per frame: keep = valid and
+    (double threshold) 4-connected within the valid pixels to a marker
+    pixel; the label of a kept pixel the minimum linear index of its
+    8-connected component among the kept pixels, -1 elsewhere."""
+    from scipy import ndimage
+    px_x, px_y, valid, marker = (a.cpu().numpy() for a in lists)
+    for i in frames:
+        v = valid[i]
+        xs, ys, mk = px_x[i][v], px_y[i][v], marker[i][v]
+        m = np.zeros((H, W), bool)
+        m[ys, xs] = True
+        seed = np.zeros((H, W), bool)
+        seed[ys[mk], xs[mk]] = True
+        kept = ndimage.binary_propagation(seed, mask=m) if double else m
+        keep = np.zeros_like(v)
+        keep[v] = kept[ys, xs]
+        lab = np.full(v.shape, -1, np.int32)
+        lab[v] = np.where(keep[v], scipy_min_index_labels(kept, 8)[ys, xs],
+                          -1)
+        yield i, lab, keep
+
+
+def compose_5_6(lists, double):
+    """The pixel kernel's function from the whole-frame kernels: rasterize
+    the lists, reconstruction (kernel 5), 8-connected labels (kernel 6),
+    gather at the pixels."""
+    px_x, px_y, valid, marker = lists
+    t, n = px_x.shape[0], H * W
+    dev = px_x.device
+    flat = px_y.long() * W + px_x.long() + \
+        torch.arange(t, device=dev)[:, None] * n
+
+    def raster(sel):
+        img = torch.zeros(t * n + 1, dtype=torch.bool, device=dev)
+        img[torch.where(sel, flat, torch.full_like(flat, t * n))] = True
+        return img[:t * n].view(t, H, W)
+
+    mask = raster(valid)
+    if double:
+        mask = cc.binary_reconstruct(mask, raster(valid & marker))
+    lab8 = cc.label_components_whole_frame(mask, 8)
+    keep = valid & mask.reshape(-1)[flat]
+    return torch.where(keep, lab8.reshape(-1)[flat],
+                       torch.full((), -1, dtype=torch.int32,
+                                  device=dev)), keep
+
+
+def pixel_ops(lists):
+    """Operations of the pixel kernel: per valid slot and pass, a binary
+    search over about log2(w + 2) slots and a few neighbour tests."""
+    return int(lists[2].sum()) * 2 * (int(np.log2(W + 2)) + 8)
+
+
+def check_pixels(name, lists, double):
+    """The pixel kernel against its plain version (bit-equal on every frame
+    where the plain labelings converged), against kernels 5 + 6 and
+    against scipy (every frame); median ms of each and the bound. Returns
+    (err, ms, plain_ms, bound, compose_ms)."""
+    kw = dict(h=H, w=W, double_threshold=double, max_iters=MAX_ITERS)
+    lab, keep = cc.cc_labels_at_pixels(*lists, **kw)
+    p_lab, p_keep, steps = cc.cc_labels_at_pixels_plain(*lists, **kw)
+    c_lab, c_keep = compose_5_6(lists, double)
+    torch.cuda.synchronize()
+    conv = steps < MAX_ITERS
+    if not (torch.equal(lab[conv], p_lab[conv]) and
+            torch.equal(keep[conv], p_keep[conv])):
+        raise SystemExit('{}: pixel kernel != plain'.format(name))
+    if not (torch.equal(lab, c_lab) and torch.equal(keep, c_keep)):
+        raise SystemExit('{}: pixel kernel != kernels 5 + 6'.format(name))
+    lab_np, keep_np = lab.cpu().numpy(), keep.cpu().numpy()
+    for i, s_lab, s_keep in scipy_pixel_labels(lists, double,
+                                               range(lab.shape[0])):
+        if not (np.array_equal(lab_np[i], s_lab) and
+                np.array_equal(keep_np[i], s_keep)):
+            raise SystemExit('{}: frame {} != scipy'.format(name, i))
+    err = max_abs_err((lab[conv], keep[conv]), (p_lab[conv], p_keep[conv]))
+    ms = cuda_ms(lambda: cc.cc_labels_at_pixels(*lists, **kw))
+    plain_ms = cuda_ms(lambda: cc.cc_labels_at_pixels_plain(*lists, **kw),
+                       reps=3)
+    comp_ms = cuda_ms(lambda: compose_5_6(lists, double), reps=5)
+    bnd = bound(lists, (lab, keep), pixel_ops(lists))
+    log('kernel check {}: T={} F={} pixels {} kept {}, equal to scipy on '
+        'every frame, to kernels 5 + 6, and bit-equal to plain on {} of {} '
+        'frames (plain steps max {}); ms kernel {:.4f} plain {:.4f} '
+        'kernels 5+6 {:.4f} bound {:.4f} ({})'.format(
+            name, lab.shape[0], lab.shape[1], int(lists[2].sum()),
+            int(keep.sum()), int(conv.sum()), lab.shape[0],
+            int(steps.max()), ms, plain_ms, comp_ms, *bnd))
+    return err, ms, plain_ms, bnd, comp_ms
+
+
+def phase_pixel_kernel(scene, settings, dscene, dsettings, dev):
+    """Phase a: the pixel kernel on the bench batch (single and double
+    threshold), on the dense batch and on random blobs with the
+    serpentine."""
+    lists = lists_from_packed(*packed_batch(scene, settings), dev)
+    main = check_pixels('pixels bench batch double', lists, True)
+    check_pixels('pixels bench batch single', lists, False)
+    dlists = lists_from_packed(*packed_batch(dscene, dsettings), dev)
+    check_pixels('pixels dense batch double', dlists, True)
+    masks, markers = random_blob_masks(np.random.default_rng(SEED + 4), 8)
+    blists = lists_from_masks(masks, markers, dev)
+    check_pixels('pixels random blobs double', blists, True)
+    check_pixels('pixels random blobs single', blists, False)
+    return main
+
+
+def per_frame(stats):
+    return json.dumps({k: round(v / stats['frames'] * 1e3, 4)
+                       for k, v in stats['stage_s'].items()})
+
+
+def phase_pixel_wires(frames, settings, run_bytes):
+    """Phase b: the bench scene in memory with the pixel wire, then with
+    'run cc = off'; each _list.csv byte-identical to the run-wire path's."""
+    for key, extra in (('pixels', {'wire format': 'pixels'}),
+                       ('runcc_off', {'run cc': 'off'})):
+        torch.cuda.synchronize()
+        cc.cc_labels_at_pixels.launches = 0
+        _, got, stats = run_loop(frames, {**settings, **extra}, 'cuda',
+                                 'wire_' + key)
+        torch.cuda.synchronize()
+        launches = cc.cc_labels_at_pixels.launches
+        if got != run_bytes:
+            raise SystemExit('{}: _list.csv differs from the run-wire '
+                             'path'.format(extra))
+        if launches <= 0:
+            raise SystemExit('{}: the pixel kernel was never launched'.format(
+                extra))
+        log('bench scene in memory with {} (cuda): rows {} tracks {} fps '
+            '{:.2f}, byte-identical to the run-wire path; pixel kernel '
+            'launches {}; stage split (ms/frame): {}'.format(
+                json.dumps(extra), got.count(b'\n') - 1, stats['tracks'],
+                stats['fps'], launches, per_frame(stats)))
+
+
+def lum_check(what, grays, t_idx, rects, lums, n_sample, rng):
+    """ILLUMINATION against cv2's recipe (boxPoints, fillPoly, mean / 100)
+    on sampled rects of their own frames: within 1e-5 wherever cv2's
+    integer corners equal the port's. Rects reaching past the frame are
+    left out (cv2 clips the outline, the port clips by membership; a
+    documented deviation), and rects whose corners differ from cv2's (a
+    knife edge; OpenCV 5 computes two corners another way than OpenCV 4)
+    are counted and must stay under 1%."""
+    from ysmr_tpu_torch.ops.luminosity import box_points_int
+    pick = np.sort(rng.choice(len(t_idx), min(n_sample, len(t_idx)),
+                              replace=False))
+    r32 = [np.ascontiguousarray(rects[pick, k], np.float32)
+           for k in range(5)]
+    ours = box_points_int(*(torch.from_numpy(a) for a in r32)).numpy()
+    checked = border = corner = 0
+    worst = 0.0
+    for j, i in enumerate(pick):
+        box = np.intp(cv2.boxPoints(((r32[0][j], r32[1][j]),
+                                     (r32[2][j], r32[3][j]), r32[4][j])))
+        if box.min() < 0 or (box[:, 0] >= W).any() or (box[:, 1] >= H).any():
+            border += 1
+            continue
+        if sorted(map(tuple, box.tolist())) != \
+                sorted(map(tuple, ours[j].tolist())):
+            corner += 1
+            continue
+        mask = np.zeros((H, W), np.uint8)
+        cv2.fillPoly(mask, [box], 255)
+        want = cv2.mean(grays[t_idx[i]], mask)[0] / 100.0
+        worst = max(worst, abs(float(lums[i]) - want))
+        checked += 1
+    log('{}: ILLUMINATION of {} sampled rects against cv2 {} recipe: {} '
+        'checked, max |diff| {:.3e}; {} past the frame border left out; {} '
+        'with other integer corners than cv2.boxPoints'.format(
+            what, len(pick), cv2.__version__, checked, worst, border,
+            corner))
+    if worst > 1e-5 or checked < 1000 or corner > 0.01 * len(pick):
+        raise SystemExit('{}: ILLUMINATION check failed'.format(what))
+
+
+def rows_lum_check(what, df, grays, rng):
+    """lum_check on the rows of a run with measured positions (the
+    float64 tracker without GSFF); coasting rows carry no rect."""
+    rows = df[(df['WIDTH'] > 0) | (df['HEIGHT'] > 0)]
+    lum_check(what, grays, rows['POSITION_T'].to_numpy(),
+              rows[['POSITION_X', 'POSITION_Y', 'WIDTH', 'HEIGHT',
+                    'DEGREES_ANGLE']].to_numpy(), rows['ILLUMINATION']
+              .to_numpy(), 1500, rng)
+
+
+def clip_grays(path):
+    """The clip's frames as cv2 decodes them, to grayscale."""
+    cap = cv2.VideoCapture(path)
+    grays = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        grays.append(cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY))
+    cap.release()
+    return grays
+
+
+def track_clip(name, clip, settings, kernels):
+    """track_bacteria(path) on cuda with the launches of ``kernels``
+    counted from 0; returns (DataFrame, launches, frames/s)."""
+    folder = os.path.join(WORK, name)
+    os.makedirs(folder, exist_ok=True)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = track_bacteria(clip, settings=dict(settings), result_folder=folder)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    if res is None:
+        raise SystemExit('{}: track_bacteria(path) returned None'.format(
+            name))
+    df = res[0]
+    if 'ILLUMINATION' not in df or not np.isfinite(
+            df[['POSITION_X', 'POSITION_Y', 'WIDTH', 'HEIGHT',
+                'DEGREES_ANGLE', 'ILLUMINATION']].to_numpy()).all():
+        raise SystemExit('{}: missing or non-finite columns'.format(name))
+    if min(launches.values()) <= 0:
+        raise SystemExit('{}: a kernel of the path was never launched: '
+                         '{}'.format(name, launches))
+    n_frames = int(df['POSITION_T'].max()) + 1
+    return df, launches, n_frames / elapsed
+
+
+def cuda_vs_cpu(what, frames, settings, n=16):
+    """The first ``n`` frames in memory through the stage-1 loop on cuda
+    and on cpu: byte-identical _list.csv."""
+    sets = {**settings, 'frame batch size': n}
+    _, cbytes, _ = run_loop(frames[:n], sets, 'cuda', what + '_cuda')
+    t0 = time.perf_counter()
+    _, pbytes, _ = run_loop(frames[:n], sets, 'cpu', what + '_cpu')
+    if cbytes != pbytes:
+        raise SystemExit('{}: _list.csv differs between cuda and cpu'.format(
+            what))
+    log('{} cuda vs cpu on the first {} frames: {} rows byte-identical; cpu '
+        'loop {:.1f} s'.format(what, n, cbytes.count(b'\n') - 1,
+                               time.perf_counter() - t0))
+
+
+def phase_lum_bench(frames, settings):
+    """Phase c: the bench MJPG clip with luminosity and GSFF (host rects
+    feed the device tracker), then its first 64 frames without GSFF (the
+    float64 tracker in 3-D), the ILLUMINATION checks, and cuda against
+    cpu."""
+    lset = {**settings, **LUM}
+    df, launches, fps = track_clip(
+        'lum_clip', os.path.join(WORK, 'bench_clip.avi'), lset,
+        (cc.cc_labels_at_pixels, row_min_argmin))
+    log('bench clip with luminosity and GSFF via track_bacteria(path) on '
+        'cuda: rows {} tracks {} {:.2f} fps end to end (decode included), '
+        'kernel launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(),
+                                    fps, json.dumps(launches)))
+    clip64 = make_clip(os.path.join(WORK, 'bench_clip64.avi'), 64)
+    off, off_launches, off_fps = track_clip(
+        'lum_clip64', clip64, {**lset, 'disable gsff': True,
+                               'minimal frame count': 32},
+        (cc.cc_labels_at_pixels,))
+    log('its first 64 frames without GSFF (float64 tracker, dims 3): rows '
+        '{} tracks {} {:.2f} fps, kernel launches {}'.format(
+            off.shape[0], off['TRACK_ID'].nunique(), off_fps,
+            json.dumps(off_launches)))
+    rng = np.random.default_rng(SEED)
+    rows_lum_check('bench clip, GSFF off', off, clip_grays(clip64), rng)
+    # with GSFF the rows carry filtered positions; their ILLUMINATION is
+    # the measured rect's: the GSFF-off row of the same frame and rect
+    # (W, H, angle) within 3 px is the same detection, where only one is
+    keys = ['POSITION_T', 'WIDTH', 'HEIGHT', 'DEGREES_ANGLE']
+    on = df[(df['POSITION_T'] < 64) & (df['WIDTH'] > 0)].reset_index()
+    pairs = on.merge(off[off['WIDTH'] > 0], on=keys, suffixes=('', '_off'))
+    near = np.hypot(pairs['POSITION_X'] - pairs['POSITION_X_off'],
+                    pairs['POSITION_Y'] - pairs['POSITION_Y_off']) < 3.0
+    pairs = pairs[near].drop_duplicates('index', keep=False)
+    same = int((pairs['ILLUMINATION'] == pairs['ILLUMINATION_off']).sum())
+    log('bench clip, GSFF on: ILLUMINATION equal to the GSFF-off run on {} '
+        'of {} rows of the same detection'.format(same, pairs.shape[0]))
+    if pairs.shape[0] < 1000 or same != pairs.shape[0]:
+        raise SystemExit('bench clip: GSFF-on ILLUMINATION differs')
+    _, got, stats = run_loop(frames, lset, 'cuda', 'lum_mem')
+    log('bench scene with luminosity and GSFF in memory (cuda): rows {} '
+        'tracks {} fps {:.2f}; stage split (ms/frame): {}'.format(
+            got.count(b'\n') - 1, stats['tracks'], stats['fps'],
+            per_frame(stats)))
+    cuda_vs_cpu('bench luminosity', frames, lset)
+    return launches
+
+
+def phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev):
+    """Phase d: the dense clip with luminosity (device rects and tracker),
+    the ILLUMINATION check on the first batch's detections, cuda against
+    cpu, and the pixel wire without luminosity against the run wire."""
+    lset = {**dsettings, **LUM}
+    df, launches, fps = track_clip(
+        'lum_dense_clip', os.path.join(WORK, 'dense_clip.avi'), lset,
+        (cc.cc_labels_at_pixels, hull_edge_vectors, sweep_extents,
+         row_min_argmin))
+    log('dense clip with luminosity via track_bacteria(path) on cuda: rows '
+        '{} tracks {} {:.2f} fps end to end (decode included), kernel '
+        'launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(), fps,
+                             json.dumps(launches)))
+    packed, counts = packed_batch(dscene, dsettings)
+    t = len(counts)
+    gray = torch.from_numpy(np.stack(dframes[:t])).to(dev)
+    tables = detect_from_pixels(
+        None, None, torch.from_numpy(counts).to(dev), None,
+        torch.ones(t, dtype=torch.bool, device=dev),
+        px_packed=torch.from_numpy(packed.view(np.int32)).to(dev), h=H, w=W,
+        double_threshold=True, max_det=dsettings['max detections per frame'],
+        max_bh=dsettings['max bounding box height'], cc_iters=MAX_ITERS,
+        include_luminosity=True, gray_frames=gray, lum_win=48)
+    v = tables['det_valid'].cpu().numpy()
+    t_idx = np.nonzero(v)[0]
+    xy = tables['det_xy'].cpu().numpy()[v]
+    info = tables['det_info'].cpu().numpy()[v]
+    lum_check('dense first batch detections (exact centers)', dframes,
+              t_idx, np.concatenate([xy[:, :2], info], axis=1), xy[:, 2],
+              1500, np.random.default_rng(SEED))
+    _, got, stats = run_loop(dframes, lset, 'cuda', 'lum_dense_mem')
+    log('dense scene with luminosity in memory (cuda): rows {} tracks {} fps '
+        '{:.2f}; stage split (ms/frame): {}'.format(
+            got.count(b'\n') - 1, stats['tracks'], stats['fps'],
+            per_frame(stats)))
+    cuda_vs_cpu('dense luminosity', dframes, lset)
+    torch.cuda.synchronize()
+    cc.cc_labels_at_pixels.launches = 0
+    _, got, stats = run_loop(dframes, {**dsettings, 'wire format': 'pixels'},
+                             'cuda', 'dense_wire_pixels')
+    torch.cuda.synchronize()
+    if got != dense_bytes:
+        raise SystemExit('dense scene: the pixel wire _list.csv differs from '
+                         'the run wire')
+    log('dense scene in memory with the pixel wire (cuda): rows {} fps '
+        '{:.2f}, byte-identical to the run-wire path; pixel kernel launches '
+        '{}; stage split (ms/frame): {}'.format(
+            got.count(b'\n') - 1, stats['fps'],
+            cc.cc_labels_at_pixels.launches, per_frame(stats)))
+    return launches
+
+
+def phase_lum_frames(frames, settings):
+    """Phase e: frames-mode luminosity on the bench scene in memory, and
+    cuda against cpu on its first 16 frames."""
+    fset = {**settings, **FRAMES, **LUM}
+    torch.cuda.synchronize()
+    reset_frames_launches()
+    res, got, stats = run_loop(frames, fset, 'cuda', 'lum_frames')
+    torch.cuda.synchronize()
+    launches = frames_launches('frames mode with luminosity')
+    if not np.isfinite(res[0]['ILLUMINATION'].to_numpy()).all():
+        raise SystemExit('frames mode with luminosity: non-finite values')
+    log('frames mode with luminosity, bench scene in memory (cuda): rows {} '
+        'tracks {} fps {:.2f}, kernel launches {}; stage split (ms/frame): '
+        '{}'.format(got.count(b'\n') - 1, stats['tracks'], stats['fps'],
+                    json.dumps(launches), per_frame(stats)))
+    cuda_vs_cpu('frames luminosity', frames, fset)
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1009,8 +1512,8 @@ def main():
         settings = bench_settings()
         scene = BenchScene()
         phase_build()
-        err, ms, plain_ms = phase_kernel(scene, settings, dev)
-        launches, frames = phase_main_path(scene, settings)
+        run_prop_check = phase_kernel(scene, settings, dev)
+        launches, frames, run_bytes = phase_main_path(scene, settings)
         phase_clip(settings)
         dsettings = dense_settings()
         dscene = BenchScene(seed=DENSE_SEED, n_bugs=DENSE_BUGS)
@@ -1020,16 +1523,23 @@ def main():
         log('dense scene: {} frames of {}x{}, {} rods, drawn in {:.1f} '
             's'.format(DENSE_FRAMES, W, H, DENSE_BUGS,
                        time.perf_counter() - t0))
-        dense_launches = phase_dense_path(dscene, dframes, dsettings)
+        dense_launches, dense_bytes = phase_dense_path(dscene, dframes,
+                                                       dsettings)
         phase_dense_cuda_vs_cpu(dframes, dsettings)
         cc_checks = phase_cc_kernels(scene, settings, dev)
         frames_runs = phase_frames_path(frames, settings, dframes, dsettings)
         phase_frames_cuda_vs_cpu(frames, settings)
+        pixel_check = phase_pixel_kernel(scene, settings, dscene, dsettings,
+                                         dev)
+        phase_pixel_wires(frames, settings, run_bytes)
+        lum_launches = phase_lum_bench(frames, settings)
+        phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev)
+        phase_lum_frames(frames, settings)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
         'propagate_min_fused', 'ysmr_tpu_torch/csrc/run_prop.cu',
-        'ysmr_tpu/ops/pallas_run_prop.py:189', launches, err, ms, plain_ms)]
+        'ysmr_tpu/ops/pallas_run_prop.py:189', launches, run_prop_check)]
     for name, src, rep in (
             ('hull_edge_vectors', 'hull.cu', 'pallas_hull.py:107'),
             ('sweep_extents', 'sweep.cu', 'pallas_sweep.py:63'),
@@ -1037,13 +1547,17 @@ def main():
         key = name.split('_')[0] if name != 'row_min_argmin' else 'assign'
         records.append(kernel_record(
             name, 'ysmr_tpu_torch/csrc/' + src, 'ysmr_tpu/ops/' + rep,
-            dense_launches[name], *checks[key]))
+            dense_launches[name], checks[key]))
     for name, line in (('label_components_whole_frame', 229),
                        ('binary_reconstruct', 295)):
         records.append(kernel_record(
             name, 'ysmr_tpu_torch/csrc/cc.cu',
             'ysmr_tpu/ops/pallas_cc.py:{}'.format(line),
-            frames_runs['bench'][name], *cc_checks[name]))
+            frames_runs['bench'][name], cc_checks[name]))
+    records.append(kernel_record(
+        'cc_labels_at_pixels', 'ysmr_tpu_torch/csrc/cc.cu',
+        'ysmr_tpu/ops/pallas_cc.py:347',
+        lum_launches['cc_labels_at_pixels'], pixel_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

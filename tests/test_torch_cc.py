@@ -215,3 +215,125 @@ def test_cc_kernels_match_plain_and_scipy_on_cuda():
         np.testing.assert_array_equal(
             got.cpu().numpy()[i],
             ndimage.binary_propagation(markers[i], mask=masks[i]))
+
+
+def _pixel_lists(masks, markers, f):
+    """(T, F) raster-order pixel lists of (T, H, W) masks: x, y int32,
+    valid (a prefix) and marker bool."""
+    t = masks.shape[0]
+    px_x = np.zeros((t, f), np.int32)
+    px_y = np.zeros((t, f), np.int32)
+    valid = np.zeros((t, f), bool)
+    marker = np.zeros((t, f), bool)
+    for i in range(t):
+        ys, xs = np.nonzero(masks[i])
+        n = min(len(ys), f)
+        px_x[i, :n], px_y[i, :n] = xs[:n], ys[:n]
+        valid[i, :n] = True
+        marker[i, :n] = markers[i][ys[:n], xs[:n]]
+    return px_x, px_y, valid, marker
+
+
+def _scipy_pixel_labels(masks, markers, px_x, px_y, valid, double):
+    """The kernel's contract from scipy: keep = valid and (with the double
+    threshold) 4-connected to a marker pixel; labels the min-index
+    8-connected labels of the kept pixels, -1 elsewhere."""
+    lab = np.full(px_x.shape, -1, np.int32)
+    keep = np.zeros(px_x.shape, bool)
+    for i in range(masks.shape[0]):
+        m = np.zeros_like(masks[i])
+        m[px_y[i][valid[i]], px_x[i][valid[i]]] = True
+        kept = ndimage.binary_propagation(markers[i] & m, mask=m) \
+            if double else m
+        keep[i] = valid[i] & kept[px_y[i], px_x[i]]
+        lab[i] = np.where(keep[i], scipy_min_index_labels(kept, 8)[
+            px_y[i], px_x[i]], -1)
+    return lab, keep
+
+
+def _scenes(seed, t=3, h=96, w=256, f=512):
+    """The random pixel scenes of tests/test_pallas_cc.py, one per frame,
+    then an empty frame."""
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((t + 1, h, w), bool)
+    markers = np.zeros((t + 1, h, w), bool)
+    for i in range(t):
+        masks[i], markers[i], *_ = _random_pixel_scene(rng, h, w, f)
+    return masks, markers & masks
+
+
+@pytest.mark.parametrize('double', [True, False])
+def test_cc_labels_at_pixels_plain_matches_pallas_and_scipy(double):
+    """The plain version against the Pallas kernel in interpret mode and
+    against scipy, bit for bit; both labelings converged."""
+    h, w, f = 96, 256, 512
+    masks, markers = _scenes(11 if double else 12, h=h, w=w, f=f)
+    px_x, px_y, valid, marker = _pixel_lists(masks, markers, f)
+    args = [torch.from_numpy(a) for a in (px_x, px_y, valid, marker)]
+    lab, keep, steps = cc.cc_labels_at_pixels_plain(
+        *args, h=h, w=w, double_threshold=double, max_iters=MAX_ITERS)
+    assert int(steps.max()) < MAX_ITERS
+    assert lab.dtype == torch.int32 and keep.dtype == torch.bool
+    ref_lab, ref_keep = pallas_cc.cc_labels_at_pixels(
+        px_x, px_y, valid, marker, h=h, w=w, double_threshold=double,
+        max_iters=MAX_ITERS, interpret=True)
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(ref_lab))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(ref_keep))
+    s_lab, s_keep = _scipy_pixel_labels(masks, markers, px_x, px_y, valid,
+                                        double)
+    np.testing.assert_array_equal(lab.numpy(), s_lab)
+    np.testing.assert_array_equal(keep.numpy(), s_keep)
+    assert keep.numpy()[:-1].any() and not keep.numpy()[-1].any()
+    if double:
+        assert (valid & ~keep.numpy()).any()   # unmarked blobs dropped
+    # the wrapper takes the plain version for CPU tensors
+    w_lab, w_keep = cc.cc_labels_at_pixels(
+        *args, h=h, w=w, double_threshold=double, max_iters=MAX_ITERS)
+    assert torch.equal(w_lab, lab) and torch.equal(w_keep, keep)
+
+
+def test_cc_labels_at_pixels_plain_steps_and_cap():
+    """A serpentine list needs more steps than the cap: the plain version
+    reports the cap (its labels then stay split, as the TPU kernel's)."""
+    h, w, f = 40, 48, 2048
+    masks = np.stack([snake_mask(h, w), _random_blobs(
+        np.random.default_rng(3), h=h, w=w)])
+    markers = masks & (np.random.default_rng(4).random(masks.shape) < 0.05)
+    args = [torch.from_numpy(a) for a in _pixel_lists(masks, markers, f)]
+    _, _, steps = cc.cc_labels_at_pixels_plain(
+        *args, h=h, w=w, double_threshold=True, max_iters=8)
+    assert steps.tolist()[0] == 8 and steps.tolist()[1] < 8
+
+
+@pytest.mark.cuda
+def test_cc_labels_at_pixels_kernel_matches_plain_and_scipy_on_cuda():
+    """The kernel against scipy on every frame (the serpentine beyond the
+    plain version's cap included) and against the plain version where
+    that converged, single and double threshold; one launch counted per
+    call. Runs on a machine with an NVIDIA GPU (see README)."""
+    dev = _cuda()
+    h, w, f = 96, 128, 8192
+    masks = np.concatenate([_masks(8, t=4, h=h, w=w),
+                            np.zeros((1, h, w), bool),
+                            snake_mask(h, w)[None]])
+    markers = masks & (np.random.default_rng(9).random(masks.shape) < 0.01)
+    lists = _pixel_lists(masks, markers, f)
+    args = [torch.from_numpy(a).to(dev) for a in lists]
+    for double in (True, False):
+        before = cc.cc_labels_at_pixels.launches
+        lab, keep = cc.cc_labels_at_pixels(*args, h=h, w=w,
+                                           double_threshold=double)
+        torch.cuda.synchronize()
+        assert cc.cc_labels_at_pixels.launches == before + 1
+        s_lab, s_keep = _scipy_pixel_labels(masks, markers, *lists[:3],
+                                            double)
+        np.testing.assert_array_equal(lab.cpu().numpy(), s_lab)
+        np.testing.assert_array_equal(keep.cpu().numpy(), s_keep)
+        p_lab, p_keep, steps = cc.cc_labels_at_pixels_plain(
+            *args, h=h, w=w, double_threshold=double)
+        conv = (steps < MAX_ITERS).cpu().numpy()
+        assert conv[:5].all() and not conv[5]
+        np.testing.assert_array_equal(lab.cpu().numpy()[conv],
+                                      p_lab.cpu().numpy()[conv])
+        np.testing.assert_array_equal(keep.cpu().numpy()[conv],
+                                      p_keep.cpu().numpy()[conv])

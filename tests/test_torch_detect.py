@@ -5,7 +5,8 @@ frames.
 ``det_xy``, ``det_info``, ``det_valid`` and ``n_components`` are compared
 bit for bit in every threshold mode: adaptive double, single adaptive,
 mean (two batches, so the 5 s moving-average window carries over) and dark
-bacteria. The JAX side runs its CPU path (XLA labeling, no Pallas).
+bacteria, and with luminosity (the exact rect mean as the third det_xy
+column). The JAX side runs its CPU path (XLA labeling, no Pallas).
 """
 
 import cv2
@@ -41,6 +42,9 @@ CASES = {
     'dark_bacteria': {'white bacteria on dark background': False,
                       'threshold offset for detection': 10},
     'over_capacity': {'max detections per frame': 3},
+    'luminosity': {'include luminosity in tracking calculation': True},
+    'luminosity_mean': {'include luminosity in tracking calculation': True,
+                        'adaptive double threshold': -1.0},
 }
 
 
@@ -90,11 +94,3 @@ def test_detect_batch_matches_jax(case):
         assert not ours['det_valid'][count:].any()
     if state is not None:
         assert state.window == jstate.window and len(state.window) > T
-
-
-def test_detect_luminosity_raises_with_roadmap_item():
-    cfg = det.DetectorConfig(
-        {**SETTINGS, 'include luminosity in tracking calculation': True})
-    frames = torch.from_numpy(seeded_frames(1))
-    with pytest.raises(NotImplementedError, match='Queue 1 item 10'):
-        det.detect_batch(frames, torch.ones(T, dtype=torch.bool), cfg)

@@ -1,6 +1,11 @@
-"""Run-CC detection of the PyTorch port (ysmr_tpu_torch/pipeline/
-detect_pixels.py) against the JAX package's detect_from_pixels on the same
-run wire: det_run_idx, det_valid and n_components must be equal."""
+"""Detection of the PyTorch port (ysmr_tpu_torch/pipeline/detect_pixels.py)
+against the JAX package's detect_from_pixels on the same wires, bit for
+bit: the run-CC branch (det_run_idx, det_valid and n_components) and the
+pixel-table branch on each of its three wires (the run wire expanded, the
+packed pixel wire, the split wire of luminosity), with host rects
+(det_px_idx) and with device rects, with and without luminosity. The JAX
+side runs its CPU path (two whole-frame labelings); the port's plain
+cc_labels_at_pixels converges on every frame here."""
 
 import numpy as np
 import pytest
@@ -96,16 +101,86 @@ def test_host_thresholded_frames_match_jax(mode_val):
     _both(runs, rcnt, np.ones(t, bool), h, w, f, mode_val > 0, 64)
 
 
+def _wires(seed=5, h=120, w=160, t=6, f=2048):
+    rng = np.random.default_rng(seed)
+    packed, counts = _random_wire(rng, t, f, h, w)
+    runs, rcnt = _runs(packed, counts, w)
+    lin = (packed & 0x7FFFFFFF).astype(np.int64)
+    split = ((lin % w).astype(np.int16), (lin // w).astype(np.int16),
+             (packed >> 31).astype(np.uint8))
+    fv = np.ones(t, bool)
+    fv[-1] = False
+    gray = rng.integers(0, 256, (t, h, w), dtype=np.uint8)
+    return packed, counts, runs, rcnt, split, fv, gray
+
+
+def _wire_args(wire, packed, counts, runs, rcnt, split, fv, f):
+    """(jax args, jax kwargs, torch args, torch kwargs) of one wire."""
+    if wire == 'runs':
+        jargs, jkw = (None, None, counts, None, fv), dict(
+            px_runs=runs, run_counts=rcnt, expanded_f=f)
+        tkw = dict(px_runs=torch.from_numpy(runs.view(np.int32)),
+                   run_counts=torch.from_numpy(rcnt), expanded_f=f)
+    elif wire == 'packed':
+        jargs, jkw = (None, None, counts, None, fv), dict(px_packed=packed)
+        tkw = dict(px_packed=torch.from_numpy(packed.view(np.int32)))
+    else:
+        jargs, jkw, tkw = split[:2] + (counts, split[2], fv), {}, {}
+    targs = tuple(None if a is None else torch.from_numpy(a) for a in jargs)
+    return jargs, jkw, targs, tkw
+
+
+@pytest.mark.parametrize('skip_rect', [True, False])
+@pytest.mark.parametrize('wire', ['runs', 'packed', 'split'])
+def test_pixel_table_branch_matches_jax(wire, skip_rect):
+    """Every output of the pixel-table branch, single and double
+    threshold; with device rects also with the exact rect luminosity of
+    the gray frames and the pixel-mean luminosity of per-pixel gray."""
+    packed, counts, runs, rcnt, split, fv, gray = _wires()
+    h, w, f = 120, 160, 2048
+    jargs, jkw, targs, tkw = _wire_args(wire, packed, counts, runs, rcnt,
+                                        split, fv, f)
+    px_gray = np.random.default_rng(6).integers(0, 256, packed.shape)
+    for dt, lum in ((True, None), (False, None), (True, 'frames'),
+                    (True, 'pixels')):
+        kw = dict(h=h, w=w, double_threshold=dt, max_det=24, max_bh=16,
+                  cc_iters=64, return_det_px=skip_rect, skip_rect=skip_rect,
+                  cv2_centers=not skip_rect,
+                  include_luminosity=lum is not None)
+        jextra, textra = {}, {}
+        if lum == 'frames':
+            jextra['gray_frames'] = gray
+            textra['gray_frames'] = torch.from_numpy(gray)
+        elif lum == 'pixels':
+            jextra['px_gray'] = px_gray.astype(np.int32)
+            textra['px_gray'] = torch.from_numpy(px_gray)
+        ref = jdetect(*jargs, use_pallas=False, **jkw, **jextra, **kw)
+        got = detect_from_pixels(*targs, **tkw, **textra, **kw)
+        assert set(got) == set(ref) | {'cc_steps'}
+        for key in ref:
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          np.asarray(ref[key]),
+                                          err_msg='{} {} {}'.format(
+                                              key, dt, lum))
+        assert got['det_xy'].shape[-1] == (3 if lum else 2)
+        assert int(got['det_valid'].sum()) > 20
+        if lum:
+            assert (got['det_xy'][..., 2][got['det_valid']] > 0).all()
+
+
 @pytest.mark.parametrize('kwargs', [
-    {'use_run_cc': False}, {'include_luminosity': True},
-    {'return_det_px': False}, {'det_px_as_runs': False}])
+    {}, {'use_run_cc': False}, {'include_luminosity': True},
+    {'skip_rect': False}])
 def test_unported_branches_raise(kwargs):
-    args = dict(KW)
+    """``use_table`` (label_components_table) is on ROADMAP's do-not-port
+    list and raises on every branch."""
+    args = dict(KW, use_table=True)
     args.update(kwargs)
     runs = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        detect_from_pixels(None, None, None, None,
-                           torch.ones(1, dtype=torch.bool), px_runs=runs,
+        detect_from_pixels(None, None, torch.zeros(1, dtype=torch.int32),
+                           None, torch.ones(1, dtype=torch.bool),
+                           px_runs=runs,
                            run_counts=torch.zeros(1, dtype=torch.int32),
                            expanded_f=8, h=4, w=4, double_threshold=True,
                            max_det=4, **args)
@@ -142,3 +217,36 @@ def test_detect_on_cuda_equals_cpu():
         for key in ('det_run_idx', 'det_valid', 'n_components'):
             np.testing.assert_array_equal(gpu[key].cpu().numpy(),
                                           cpu[key].numpy(), err_msg=key)
+
+
+@pytest.mark.cuda
+def test_pixel_table_on_cuda_equals_cpu():
+    """The pixel-table branch on the card (the cc_labels_at_pixels kernel,
+    one launch per call) gives the CPU path's tables on each wire, with
+    host rects and with device rects and luminosity. Runs on a machine
+    with an NVIDIA GPU (see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    from ysmr_tpu_torch.ops.cc import cc_labels_at_pixels
+    packed, counts, runs, rcnt, split, fv, gray = _wires()
+    for wire in ('runs', 'packed', 'split'):
+        _, _, targs, tkw = _wire_args(wire, packed, counts, runs, rcnt,
+                                      split, fv, 2048)
+        for skip in (True, False):
+            kw = dict(h=120, w=160, double_threshold=True, max_det=24,
+                      max_bh=16, cc_iters=64, return_det_px=skip,
+                      skip_rect=skip, include_luminosity=not skip,
+                      gray_frames=None if skip else torch.from_numpy(gray),
+                      **tkw)
+            cpu = detect_from_pixels(*targs, **kw)
+            before = cc_labels_at_pixels.launches
+            gpu = detect_from_pixels(
+                *(None if a is None else a.cuda() for a in targs),
+                **{k: v.cuda() if torch.is_tensor(v) else v
+                   for k, v in kw.items()})
+            torch.cuda.synchronize()
+            assert cc_labels_at_pixels.launches == before + 1
+            for key in cpu:
+                np.testing.assert_array_equal(gpu[key].cpu().numpy(),
+                                              cpu[key].numpy(),
+                                              err_msg=(wire, skip, key))

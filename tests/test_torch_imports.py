@@ -16,7 +16,7 @@ import ysmr_tpu_torch
 from ysmr_tpu_torch.pipeline.track_bacteria import _track_loop, track_bacteria
 from ysmr_tpu_torch.ops import run_cc, run_prop, ds, labeling, hull, sweep
 from ysmr_tpu_torch.ops import assign, assignment, cv2_centers, gsff
-from ysmr_tpu_torch.ops import cc, preprocess
+from ysmr_tpu_torch.ops import cc, luminosity, preprocess
 from ysmr_tpu_torch.pipeline import tracker
 from ysmr_tpu_torch.pipeline import detect, detect_pixels
 from ysmr_tpu_torch.io import preproc, video

@@ -297,3 +297,71 @@ def test_hull_and_sweep_kernels_match_plain_on_cuda():
         assert sweep_extents.launches == before + 1
         for g, q in zip(got, plain):
             np.testing.assert_array_equal(g.cpu().numpy(), q.numpy())
+
+
+def _pixel_tables(seed, t=3, f=3072, max_det=24):
+    """(T, F) pixel tables of blob frames in shuffled order: coordinates,
+    dense ids (scipy's 8-connected components, ids past max_det as
+    overflow), activity (some pixels dropped, padding inactive) and gray
+    values."""
+    from scipy import ndimage
+    rng = np.random.default_rng(seed)
+    xs = np.zeros((t, f), np.int32)
+    ys = np.zeros((t, f), np.int32)
+    seg = np.full((t, f), max_det, np.int32)
+    active = np.zeros((t, f), bool)
+    for k in range(t):
+        img = np.zeros((H, W), np.uint8)
+        for _ in range(20):
+            c = (int(rng.integers(6, W - 6)), int(rng.integers(6, H - 6)))
+            ax = (int(rng.integers(1, 9)), int(rng.integers(1, 4)))
+            cv2.ellipse(img, c, ax, float(rng.uniform(0, 180)), 0, 360, 1, -1)
+        img[10:40, 60:63] = 1                       # taller than MAX_BH
+        lab, n = ndimage.label(img, structure=np.ones((3, 3)))
+        yy, xx = np.nonzero(lab)
+        order = rng.permutation(len(yy))[:f]
+        m = len(order)
+        xs[k, :m], ys[k, :m] = xx[order], yy[order]
+        seg[k, :m] = np.minimum(n - lab[yy, xx][order], max_det)
+        active[k, :m] = rng.random(m) < 0.97
+        xs[k, m:] = rng.integers(0, W, f - m)          # garbage padding
+        ys[k, m:] = rng.integers(0, H, f - m)
+    gray = rng.integers(0, 256, (t, f)).astype(np.int32)
+    return xs, ys, seg, active, gray
+
+
+@pytest.mark.parametrize('with_gray', [True, False])
+@pytest.mark.parametrize('max_det', [24, 6])
+def test_component_stats_matches_jax(with_gray, max_det):
+    """The segment-reduction branch of component_stats on unordered pixel
+    tables, bit for bit, including the exact count and gray sum with
+    luminosity and components taller than max_bh or beyond max_det. Empty
+    slots and rows are compared by their validity only: their "no value"
+    entries are 2^31 - 1 in JAX (an empty segment_min or segment_max) and
+    +-2^30 here, and nothing reads them."""
+    xs, ys, seg, active, gray = _pixel_tables(4, max_det=max_det)
+    got = lb.component_stats(_t(xs), _t(ys), _t(seg), _t(active),
+                             gray_vals=_t(gray) if with_gray else None,
+                             max_det=max_det, max_bh=MAX_BH,
+                             cv2_centers=True)
+    jfn = jax.jit(jlb.component_stats,
+                  static_argnames=('max_det', 'max_bh', 'cv2_centers'))
+    per = [jfn(xs[i], ys[i], seg[i], active[i],
+               gray[i] if with_gray else None, max_det=max_det,
+               max_bh=MAX_BH, cv2_centers=True) for i in range(len(xs))]
+    ref = {k: np.concatenate([np.asarray(p[k]) for p in per])
+           for k in per[0]}
+    keys = ['count', 'min_y', 'points_valid', 'edge_dx', 'edge_dy',
+            'edge_valid', 'edge_angles', 'row_valid', 'corner_l', 'corner_r']
+    assert ('lum_sum' in got) == with_gray
+    valid = ref['count'] > 0
+    np.testing.assert_array_equal(got['count'].numpy() > 0, valid)
+    for key in keys + (['lum_sum'] if with_gray else []):
+        np.testing.assert_array_equal(got[key].numpy()[valid],
+                                      ref[key][valid], err_msg=key)
+    for key, vkey in (('points', 'points_valid'), ('row_min_x', 'row_valid'),
+                      ('row_max_x', 'row_valid')):
+        v = ref[vkey]
+        np.testing.assert_array_equal(got[key].numpy()[v], ref[key][v],
+                                      err_msg=key)
+    assert valid.sum() > (8 if max_det == 24 else 5)

@@ -102,6 +102,7 @@ def test_device_tracker_rows_match_jax(tmp_path, clip):
 
 
 FRAMES = {'transfer mode': 'frames'}
+LUM = {'include luminosity in tracking calculation': True}
 
 
 @pytest.mark.parametrize('clip', sorted(CLIPS))
@@ -134,9 +135,23 @@ def test_frames_mode_equals_pixels_mode_without_cv2_centers(tmp_path, clip):
     assert fres[1:4] == pres[1:4]
 
 
+@pytest.mark.parametrize('clip', sorted(CLIPS))
+def test_pixel_table_wires_equal_run_cc(tmp_path, clip):
+    """'run cc = off' (the run wire expanded to per-pixel labels) and
+    'wire format = pixels' give the run-CC path's ``_list.csv`` bytes."""
+    out = _run_both(tmp_path, clip, runs=(
+        ('torch_runcc', track_bacteria, {}),
+        ('torch_off', track_bacteria, {'run cc': 'off'}),
+        ('torch_pixels', track_bacteria, {'wire format': 'pixels'})))
+    base = out['torch_runcc'][1]
+    assert base.count(b'\n') > 100
+    assert out['torch_off'][1] == base and out['torch_pixels'][1] == base
+
+
 def test_slice_gate_and_unported_settings(tmp_path):
-    """The capacity gate picks the path; settings outside the slice raise
-    and name their ROADMAP item."""
+    """The capacity gate picks the path; luminosity (both transfer modes),
+    the pixel wire and 'run cc = off' are ported; settings outside the
+    slice raise and name their ROADMAP item."""
     from ysmr_tpu_torch.pipeline.track_bacteria import (check_slice_settings,
                                                         use_host_rects)
     settings = _make_settings(tmp_path)
@@ -149,10 +164,12 @@ def test_slice_gate_and_unported_settings(tmp_path):
     # frames mode is ported and always takes the device tracker
     check_slice_settings({**settings, **FRAMES})
     assert not use_host_rects({**settings, **FRAMES})
+    for extra in (LUM, {**FRAMES, **LUM}, {'wire format': 'pixels'},
+                  {'run cc': 'off'}):
+        check_slice_settings({**settings, **extra})
+    assert use_host_rects({**settings, **LUM})
     for extra in ({'compact emissions readback': True},
-                  {'include luminosity in tracking calculation': True},
-                  {**FRAMES, 'include luminosity in tracking calculation':
-                   True},
+                  {'use table cc': True},
                   {'display video analysis': True}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             check_slice_settings({**settings, **extra})

@@ -41,7 +41,7 @@ def _tables(frames, max_det=8):
     return det_xy, det_info, det_valid
 
 
-def _jax_scan(tables, fps, use_gsff, max_slots, state=None):
+def _jax_scan(tables, fps, use_gsff, max_slots, state=None, dims=2):
     kwargs = dict(max_disappeared=float(fps), use_gsff=use_gsff)
     params = None
     if use_gsff:
@@ -49,18 +49,18 @@ def _jax_scan(tables, fps, use_gsff, max_slots, state=None):
         kwargs.update(gsff_gains=params.gains, gsff_n_i=params.n_i_arr,
                       gsff_n_f=params.n_f, gsff_n_i0=params.n_i[0])
     if state is None:
-        state = jtrk.init_tracker_state(max_slots, dims=2, use_gsff=use_gsff,
-                                        gsff_params=params)
+        state = jtrk.init_tracker_state(max_slots, dims=dims,
+                                        use_gsff=use_gsff, gsff_params=params)
     state, em = jtrk.run_tracker_scan(state, *tables, **kwargs)
     return jax.tree.map(np.asarray, state), jax.tree.map(np.asarray, em)
 
 
 def _port_scan(tables, fps, use_gsff, max_slots, state=None, kwargs=None,
-               device='cpu'):
+               device='cpu', dims=2):
     params = gsff.GSFFParams(fps=fps, n_min=0, n_max=30, n_f=3) \
         if use_gsff else None
     if state is None:
-        state = trk.init_tracker_state(max_slots, device, dims=2,
+        state = trk.init_tracker_state(max_slots, device, dims=dims,
                                        use_gsff=use_gsff, gsff_params=params)
         kwargs = trk.gsff_kwargs(params, device) if use_gsff else {}
     state, em = trk.run_tracker_scan(
@@ -138,6 +138,26 @@ def test_scan_matches_jax(scene, use_gsff):
     tables = _tables(frames)
     _, ref = _jax_scan(tables, fps, use_gsff, 32)
     _, got = _port_scan(tables, fps, use_gsff, 32)
+    _assert_emissions(got, ref, 1e-4 if use_gsff else 0)
+
+
+@pytest.mark.parametrize('use_gsff', [False, True])
+@pytest.mark.parametrize('scene', ['drifting', 'contested',
+                                   'gsff_disappearance'])
+def test_scan_with_luminosity_matches_jax(scene, use_gsff):
+    """dims = 3 (luminosity as the third coordinate): the matching uses
+    all three (the K = 3 assign kernel's contract), GSFF filters x and y
+    and carries the luminosity. Ids, W/H/angle and the luminosity column
+    equal JAX's; x and y equal without GSFF and within 1e-4 px with it."""
+    frames, fps = SCENES[scene]()
+    det_xy, det_info, det_valid = _tables(frames)
+    lum = np.random.default_rng(3).uniform(0.3, 2.5, det_valid.shape)
+    tables = (np.concatenate([det_xy, lum[..., None].astype(np.float32)],
+                             axis=-1), det_info, det_valid)
+    _, ref = _jax_scan(tables, fps, use_gsff, 32, dims=3)
+    _, got = _port_scan(tables, fps, use_gsff, 32, dims=3)
+    assert got['pos'].shape[-1] == 3
+    np.testing.assert_array_equal(got['pos'][..., 2], ref['pos'][..., 2])
     _assert_emissions(got, ref, 1e-4 if use_gsff else 0)
 
 

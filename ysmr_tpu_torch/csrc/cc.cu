@@ -1,6 +1,8 @@
-// Whole-frame connected components and marker reconstruction, by union-find.
+// Connected components and marker reconstruction, by union-find: over whole
+// frames, and over per-frame pixel lists (the last entry, below).
 //
-// Replaces two Pallas kernels of ysmr_tpu/ops/pallas_cc.py:
+// The whole-frame entries replace two Pallas kernels of
+// ysmr_tpu/ops/pallas_cc.py:
 //   - label_components_whole_frame (kernel _label_frame_kernel, stencil
 //     _stencil_converge): labels = the minimum linear index y*w + x of each
 //     4- or 8-connected component of the mask, h*w on the background;
@@ -43,6 +45,41 @@
 // only on foreground pixels (a few per cent of a frame); its cost is the
 // latency of the root walks and the atomics, which stay in L2 for
 // bacteria-sized components.
+//
+// The third entry, ysmr_cc_pixels, replaces cc_labels_at_pixels of the same
+// Pallas file (kernel _make_kernel): per frame a list of F foreground pixels
+// (x, y, valid, marker) in raster order; out the keep flag (with the double
+// threshold: the pixel's 4-connected component of the valid pixels holds a
+// marker pixel; without it: valid) and the label of every kept pixel, the
+// minimum linear index y*w + x of its 8-connected component among the kept
+// pixels (-1 for the others). The TPU kernel rasterizes the list into a
+// frame-sized VMEM buffer and runs the stencil there. Here the union-find
+// runs over the list itself, one thread per (frame, slot), so nothing of
+// frame size is touched:
+//   - a pixel's left neighbour is slot i - 1 when its lin is lin - 1; its
+//     upper neighbours (lin - w - 1 .. lin - w + 1) are found by a binary
+//     search over slots [i - w - 1, i): the lins in between are distinct
+//     integers of one row's span. No lin -> slot map is built, so there is
+//     none to clear: a frame-sized map would be 64 x 1,132,216 x 4 B =
+//     290 MB per 64-frame 1228x922 batch to memset (~87 us at 3.35 TB/s,
+//     over 30x the ~2.3 us the pixel lists themselves need), and resetting
+//     it at the listed positions would keep frame-sized state alive
+//     between calls;
+//   - unions link the larger root under the smaller slot with atomicMin, as
+//     above, so each root is its component's first slot, whose lin is the
+//     minimum (raster order); the labels are schedule-independent;
+//   - passes: init (lin, parent = slot, flag = 0, keep = valid), then with
+//     the double threshold merge over 4-neighbours of the valid pixels,
+//     compress with flag[root] = 1 for marker pixels, and keep = valid &
+//     flag[root] with the parents reset; then merge over the 8-neighbours
+//     of the kept pixels and a final pass that writes lin[root] or -1.
+// Contract: the valid pixels of each frame form a prefix of its list, with
+// strictly ascending lin (every wire of the pipeline gives that). The TPU
+// kernel stops after max_iters stencil steps; this one always reaches the
+// fixpoint. Bound: the lists, 15 bytes a slot (x, y int32, two bools in;
+// int32 label and bool out), ~7.9 MB per 64 x 8192 batch (~2.3 us) and
+// ~126 MB at F = 131072 (~38 us); at the bench size the six launches cost
+// more than the bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,6 +190,107 @@ unsigned blocks_for(int64_t total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
 
+// ---- pixel lists (ysmr_cc_pixels) ----
+
+__global__ void __launch_bounds__(kThreads)
+px_init(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
+        const uint8_t* __restrict__ valid, int32_t* __restrict__ lin,
+        int32_t* __restrict__ parent, uint8_t* __restrict__ flag,
+        uint8_t* __restrict__ keep, int64_t total, int f, int h, int w) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= total) return;
+  // coordinates clamped into the frame, as the TPU kernel addresses them
+  const int x = min(max(xs[idx], 0), w - 1);
+  const int y = min(max(ys[idx], 0), h - 1);
+  lin[idx] = y * w + x;
+  parent[idx] = static_cast<int32_t>(idx % f);
+  flag[idx] = 0;
+  keep[idx] = valid[idx];
+}
+
+// unites slot i with its active neighbours among the earlier slots
+template <int kConn>
+__global__ void __launch_bounds__(kThreads)
+px_merge(const uint8_t* __restrict__ active, const int32_t* __restrict__ lin,
+         int32_t* parent, int64_t total, int f, int w) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= total || !active[idx]) return;
+  const int64_t base = idx - idx % f;
+  const int32_t i = static_cast<int32_t>(idx - base);
+  const int32_t* l = lin + base;
+  const uint8_t* a = active + base;
+  int32_t* p = parent + base;
+  const int32_t v = l[i];
+  const int y = v / w;
+  const int x = v - y * w;
+  if (x > 0 && i > 0 && l[i - 1] == v - 1 && a[i - 1]) unite(p, i, i - 1);
+  if (y == 0) return;
+  const int32_t t_lo = v - w - (kConn == 8 && x > 0 ? 1 : 0);
+  const int32_t t_hi = v - w + (kConn == 8 && x + 1 < w ? 1 : 0);
+  // first slot with lin >= t_lo: at most w + 1 distinct lins lie in
+  // [t_lo, v), so it is no earlier than i - w - 1
+  int32_t lo = max(0, i - w - 1);
+  int32_t hi = i;
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (l[mid] < t_lo) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  for (int32_t j = lo; j < i && l[j] <= t_hi; ++j) {
+    if (a[j]) unite(p, i, j);
+  }
+}
+
+// 4-connected roots; flag[root] = 1 for every marker pixel
+__global__ void __launch_bounds__(kThreads)
+px_compress_mark(const uint8_t* __restrict__ valid,
+                 const uint8_t* __restrict__ marker, int32_t* parent,
+                 uint8_t* __restrict__ flag, int64_t total, int f) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= total || !valid[idx]) return;
+  const int64_t base = idx - idx % f;
+  const int32_t root = find_root(parent + base,
+                                 static_cast<int32_t>(idx - base));
+  parent[idx] = root;
+  if (marker[idx]) flag[base + root] = 1;
+}
+
+// keep = valid & flag[root]; the parents restart for the 8-connected pass
+// (each thread reads and writes only its own slot here)
+__global__ void __launch_bounds__(kThreads)
+px_keep(const uint8_t* __restrict__ valid, const uint8_t* __restrict__ flag,
+        int32_t* __restrict__ parent, uint8_t* __restrict__ keep,
+        int64_t total, int f) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= total) return;
+  const int64_t base = idx - idx % f;
+  keep[idx] = valid[idx] && flag[base + parent[idx]];
+  parent[idx] = static_cast<int32_t>(idx - base);
+}
+
+__global__ void __launch_bounds__(kThreads)
+px_final(const uint8_t* __restrict__ keep, const int32_t* __restrict__ lin,
+         const int32_t* parent, int32_t* __restrict__ labels, int64_t total,
+         int f) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= total) return;
+  if (!keep[idx]) {
+    labels[idx] = -1;
+    return;
+  }
+  const int64_t base = idx - idx % f;
+  labels[idx] = lin[base + find_root(parent + base,
+                                     static_cast<int32_t>(idx - base))];
+}
+
 // init + merge + compress on `lab`; marker/flag as in cc_compress
 cudaError_t label(const uint8_t* mask, const uint8_t* marker, int32_t* lab,
                   uint8_t* flag, int t, int h, int w, int connectivity,
@@ -209,6 +347,39 @@ int ysmr_cc_reconstruct(const void* mask, const void* marker, void* labels,
   const int64_t total = static_cast<int64_t>(t) * h * w;
   rec_keep<<<blocks_for(total), kThreads, 0, s>>>(
       m, lab, f, static_cast<uint8_t*>(out), total, h * w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// px_x, px_y: (T, F) int32; valid, marker: (T, F) uint8 (0/1); lin, parent:
+// (T, F) int32 scratch; flag: (T, F) uint8 scratch; labels: (T, F) int32
+// out; keep: (T, F) uint8 out. H * W < 2^31. Returns a cudaError_t.
+int ysmr_cc_pixels(const void* px_x, const void* px_y, const void* valid,
+                   const void* marker, void* lin, void* parent, void* flag,
+                   void* labels, void* keep, int t, int f, int h, int w,
+                   int double_threshold, int device, void* stream) {
+  if (t <= 0 || f <= 0 || h <= 0 || w <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t total = static_cast<int64_t>(t) * f;
+  const unsigned blocks = blocks_for(total);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  int32_t* l = static_cast<int32_t*>(lin);
+  int32_t* p = static_cast<int32_t*>(parent);
+  uint8_t* fl = static_cast<uint8_t*>(flag);
+  uint8_t* k = static_cast<uint8_t*>(keep);
+  px_init<<<blocks, kThreads, 0, s>>>(static_cast<const int32_t*>(px_x),
+                                      static_cast<const int32_t*>(px_y), v,
+                                      l, p, fl, k, total, f, h, w);
+  if (double_threshold) {
+    px_merge<4><<<blocks, kThreads, 0, s>>>(v, l, p, total, f, w);
+    px_compress_mark<<<blocks, kThreads, 0, s>>>(
+        v, static_cast<const uint8_t*>(marker), p, fl, total, f);
+    px_keep<<<blocks, kThreads, 0, s>>>(v, fl, p, k, total, f);
+  }
+  px_merge<8><<<blocks, kThreads, 0, s>>>(k, l, p, total, f, w);
+  px_final<<<blocks, kThreads, 0, s>>>(k, l, p, static_cast<int32_t*>(labels),
+                                       total, f);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,13 +1,15 @@
-"""Wrappers of the hand-written CUDA kernels for whole-frame connected
-components and marker reconstruction (frames mode).
+"""Wrappers of the hand-written CUDA kernels for connected components and
+marker reconstruction: over whole frames (frames mode) and over per-frame
+foreground pixel lists (the pixel-table branch of pixels mode).
 
-Counterparts of ``ysmr_tpu/ops/pallas_cc.py::label_components_whole_frame``
-and ``::binary_reconstruct``. The kernels (``csrc/cc.cu``) are union-find
-passes over one grid of T*H*W threads; the source notes the design, what
-bounds it, and where it differs from the TPU kernels (those stop after
-``max_iters`` steps; the union-find always reaches the fixpoint). The plain
-PyTorch versions are ``ops/labeling.py::label_components`` and
-``::propagate_markers``.
+Counterparts of ``ysmr_tpu/ops/pallas_cc.py::label_components_whole_frame``,
+``::binary_reconstruct`` and ``::cc_labels_at_pixels``. The kernels
+(``csrc/cc.cu``) are union-find passes, over one grid of T*H*W threads or
+of T*F list slots; the source notes the design, what bounds it, and where
+it differs from the TPU kernels (those stop after ``max_iters`` steps; the
+union-find always reaches the fixpoint). The plain PyTorch versions are
+``ops/labeling.py::label_components`` and ``::propagate_markers``, and
+``cc_labels_at_pixels_plain`` here.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the call raises. Nothing falls back from the kernel to the plain
@@ -92,6 +94,105 @@ def binary_reconstruct(mask, marker, max_iters=64):
     return out
 
 
+def cc_labels_at_pixels_plain(px_x, px_y, px_valid, px_marker, *, h, w,
+                              double_threshold, max_iters=64):
+    """Plain version of the ``cc_labels_at_pixels`` kernel: rasterize the
+    valid pixels, reconstruct the marked 4-connected components
+    (``propagate_markers``), label the kept image 8-connected
+    (``label_components``) and gather at the pixels. Each labeling stops
+    after ``max_iters`` steps, as the JAX CPU path does.
+
+    :return: (lab_fg, keep, steps): as ``cc_labels_at_pixels``, and (T,)
+        int32 the larger step count of the two labelings (the frame
+        converged iff steps < max_iters)
+    """
+    t, f = px_x.shape
+    n = h * w
+    dev = px_x.device
+    lin = (torch.clamp(px_y.to(torch.int64), 0, h - 1) * w +
+           torch.clamp(px_x.to(torch.int64), 0, w - 1))
+    flat = lin + torch.arange(t, device=dev)[:, None] * n
+
+    def raster(sel):
+        # unselected pixels go to a dump slot past the frames
+        img = torch.zeros(t * n + 1, dtype=torch.bool, device=dev)
+        img[torch.where(sel, flat, torch.full_like(flat, t * n))] = True
+        return img[:t * n].view(t, h, w)
+
+    mask = raster(px_valid)
+    steps = torch.zeros(t, dtype=torch.int32, device=dev)
+    if double_threshold:
+        lab4, steps = label_components(mask, connectivity=4,
+                                       max_iters=max_iters)
+        mask = propagate_markers(mask, raster(px_valid & px_marker),
+                                 labels=lab4)
+    lab8, steps8 = label_components(mask, connectivity=8, max_iters=max_iters)
+    keep = px_valid & mask.reshape(-1)[flat]
+    lab = torch.where(keep, lab8.reshape(-1)[flat],
+                      torch.full((), -1, dtype=torch.int32, device=dev))
+    return lab, keep, torch.maximum(steps, steps8)
+
+
+def cc_labels_at_pixels(px_x, px_y, px_valid, px_marker, *, h, w,
+                        double_threshold, max_iters=64):
+    """Component labels at per-frame foreground pixel lists, with the
+    marker keep flag (``ysmr_tpu/ops/pallas_cc.py::cc_labels_at_pixels``).
+
+    On a CUDA tensor the kernel ``ysmr_cc_pixels`` (``csrc/cc.cu``): a
+    union-find over the lists, which always reaches the fixpoint. It needs
+    the valid pixels of each frame to be a prefix of its list, in strictly
+    ascending ``y*w + x`` (raster) order, as every wire gives them. On a
+    CPU tensor ``cc_labels_at_pixels_plain``.
+
+    :param px_x, px_y: (T, F) int32 pixel coordinates
+    :param px_valid, px_marker: (T, F) bool
+    :return: (lab_fg, keep): (T, F) int32 the minimum linear index of the
+        pixel's 8-connected component among the kept pixels, -1 for the
+        others; (T, F) bool the pixel is valid and, with
+        ``double_threshold``, its 4-connected component of the valid pixels
+        holds a marker pixel
+    """
+    if px_x.device.type == 'cpu':
+        return cc_labels_at_pixels_plain(
+            px_x, px_y, px_valid, px_marker, h=h, w=w,
+            double_threshold=double_threshold, max_iters=max_iters)[:2]
+    name = 'cc_labels_at_pixels'
+    if px_x.device.type != 'cuda':
+        raise ValueError('{}: unsupported device {}'.format(name, px_x.device))
+    if px_x.dim() != 2:
+        raise ValueError('{}: pixel lists must be (T, F)'.format(name))
+    for a, dt in ((px_x, torch.int32), (px_y, torch.int32),
+                  (px_valid, torch.bool), (px_marker, torch.bool)):
+        if a.shape != px_x.shape or a.dtype != dt or \
+                a.device != px_x.device or not a.is_contiguous():
+            raise ValueError('{}: expects contiguous (T, F) int32 px_x/px_y '
+                             'and bool px_valid/px_marker on {}'.format(
+                                 name, px_x.device))
+    if h * w >= 1 << 31:
+        raise ValueError('{}: frames of 2^31 pixels or more'.format(name))
+    t, f = px_x.shape
+    dev = px_x.device
+
+    def empty(dtype):
+        return torch.empty((t, f), dtype=dtype, device=dev)
+
+    lin, parent, labels = empty(torch.int32), empty(torch.int32), \
+        empty(torch.int32)
+    flag, keep = empty(torch.uint8), empty(torch.bool)
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ysmr_cc_pixels(px_x.data_ptr(), px_y.data_ptr(),
+                            px_valid.data_ptr(), px_marker.data_ptr(),
+                            lin.data_ptr(), parent.data_ptr(),
+                            flag.data_ptr(), labels.data_ptr(),
+                            keep.data_ptr(), t, f, h, w,
+                            int(bool(double_threshold)), dev.index, stream)
+    _build.check(lib, rc, 'cc pixels kernel launch')
+    cc_labels_at_pixels.launches += 1
+    return labels, keep
+
+
 #: kernel launches since the count was last set to 0
 label_components_whole_frame.launches = 0
 binary_reconstruct.launches = 0
+cc_labels_at_pixels.launches = 0

@@ -1,7 +1,7 @@
 """Connected components, per-component stats, hull edges and the exact
 minimum-area rectangle.
 
-Counterpart of two paths of ``ysmr_tpu/ops/labeling.py``:
+Counterpart of three paths of ``ysmr_tpu/ops/labeling.py``:
 
 - the run-table path: ``component_stats_runs`` ->
   ``_stats_tail_from_tables`` -> ``_hull_edge_data`` -> ``min_area_rect``
@@ -9,7 +9,11 @@ Counterpart of two paths of ``ysmr_tpu/ops/labeling.py``:
 - the image path of frames mode: ``label_components`` (min-label
   propagation with pointer jumping), ``propagate_markers``,
   ``compact_labels`` and ``component_tables`` (the unsorted branch of
-  ``component_stats``), which feed the same stats tail.
+  ``component_stats`` over a frame's foreground), which feed the same
+  stats tail;
+- the pixel-table path of pixels mode: ``component_stats`` (its unsorted
+  branch, with the exact count and gray sum of luminosity) over (T, F)
+  pixel lists, sharing ``_row_tables`` with ``component_tables``.
 
 The JAX module's docstring sets out why the per-row x extremes span the
 convex hull and why the rectangle is exact.
@@ -28,7 +32,9 @@ Differences from the JAX module, all of representation:
   also returns per-frame step counts.
 - ``component_tables`` reduces over the foreground pixels only
   (``nonzero``, one host sync per batch); the background rows of the JAX
-  reduction go to a slot that is never read.
+  reduction go to a slot that is never read. Empty components and rows
+  hold +-2^30 where JAX's empty ``segment_min``/``segment_max`` give
+  2^31 - 1; nothing reads them.
 - ``.at[idx].min/max(mode='drop')`` onto deliberately out-of-range indices
   becomes ``scatter_reduce_`` into a buffer whose last slot is a dump
   that is never read.
@@ -45,7 +51,8 @@ Differences from the JAX module, all of representation:
   version gives the same bits on the CPU and CUDA.
 
 Not ported: the float angle sweep of ``min_area_rect`` (every production
-caller passes integer edge vectors), the pixel-table path and
+caller passes integer edge vectors), the sorted-run row tables of
+``component_stats`` (a TPU layout with the same output) and
 ``label_components_table``.
 """
 
@@ -135,7 +142,7 @@ def label_components(mask, connectivity=8, max_iters=64):
     return lab, steps
 
 
-def propagate_markers(mask, markers, max_iters=64):
+def propagate_markers(mask, markers, max_iters=64, labels=None):
     """``scipy.ndimage.binary_propagation(markers, mask=mask)`` for markers
     inside the mask (``ysmr_tpu/ops/labeling.py::propagate_markers`` with
     its default 4-connectivity): keeps the 4-connected components of
@@ -143,11 +150,15 @@ def propagate_markers(mask, markers, max_iters=64):
     ``csrc/cc.cu`` reconstruction kernel.
 
     :param mask, markers: (T, H, W) bool
+    :param labels: optional 4-connected labels of ``mask`` from
+        ``label_components``
     :return: (T, H, W) bool
     """
     t, h, w = mask.shape
     n = h * w
-    labels = label_components(mask, connectivity=4, max_iters=max_iters)[0]
+    if labels is None:
+        labels = label_components(mask, connectivity=4,
+                                  max_iters=max_iters)[0]
     flat = labels.reshape(t, n).long()
     marked = torch.zeros((t, n + 1), dtype=_I32, device=mask.device)
     marked.scatter_reduce_(1, flat.clamp(0, n),
@@ -200,13 +211,25 @@ def component_tables(comp, mask, *, max_det, max_bh):
     """
     t, h, w = comp.shape
     n = h * w
-    dev = comp.device
     fg = torch.nonzero(mask.reshape(-1)).flatten()
     frame = torch.div(fg, n, rounding_mode='floor')
     lin = (fg - frame * n).to(_I32)
     ys = torch.div(lin, w, rounding_mode='floor')
     xs = lin - ys * w
     seg = comp.reshape(-1)[fg].long()
+    return _stats_tail_from_tables(
+        *_row_tables(frame, xs, ys, seg, t, max_det=max_det, max_bh=max_bh),
+        max_bh=max_bh)
+
+
+def _row_tables(frame, xs, ys, seg, t, *, max_det, max_bh):
+    """Per-(component, bbox-row) x extremes of foreground points (the
+    segment-reduction branch of ``ysmr_tpu/ops/labeling.py::
+    component_stats``): (N,) int64 frame and component id (``max_det`` =
+    overflow or background, reduced into a slot that is never read), (N,)
+    int32 coordinates. Returns (row_min_x, row_max_x, row_valid, min_y)
+    over (T*max_det, ...)."""
+    dev = xs.device
     nseg = max_det + 1                  # the overflow bucket max_det included
     key = frame * nseg + seg
     min_y = torch.full((t * nseg,), BIG_I, dtype=_I32, device=dev)
@@ -226,8 +249,59 @@ def component_tables(comp, mask, *, max_det, max_bh):
     row_valid = row_min_x < BIG_I
     min_y = min_y.view(t, nseg)[:, :max_det].reshape(-1)
     min_y = torch.where(row_valid[:, 0], min_y, torch.full_like(min_y, BIG_I))
-    return _stats_tail_from_tables(row_min_x, row_max_x, row_valid, min_y,
-                                   max_bh=max_bh)
+    return row_min_x, row_max_x, row_valid, min_y
+
+
+def component_stats(xs, ys, seg, active, gray_vals=None, *, max_det, max_bh,
+                    cv2_centers=False):
+    """Per-component stats of (T, F) foreground-pixel tables in any order
+    (``ysmr_tpu/ops/labeling.py::component_stats``, its segment-reduction
+    branch ``sorted_runs=False``; the sorted branch is a TPU layout with the
+    same output).
+
+    :param xs, ys: (T, F) int32 coordinates
+    :param seg: (T, F) int32 dense component ids, ``max_det`` for the
+        background and beyond capacity
+    :param active: (T, F) bool
+    :param gray_vals: optional (T, F) int32 gray values; with them
+        ``count`` is the exact pixel count and ``lum_sum`` the gray sum of
+        each component (T*max_det,) int32 (without, ``count`` is the
+        row-span bound, whose only reader is the ``count > 0`` test)
+    :return: the ``_stats_tail_from_tables`` dict over (T*max_det, ...)
+    """
+    t, f = xs.shape
+    dev = xs.device
+    frame = torch.arange(t, device=dev)[:, None].expand(t, f).reshape(-1)
+    seg_a = torch.where(active, seg, torch.full_like(seg, max_det))
+    seg_a = seg_a.reshape(-1).long()
+    out = _stats_tail_from_tables(
+        *_row_tables(frame, xs.reshape(-1), ys.reshape(-1), seg_a, t,
+                     max_det=max_det, max_bh=max_bh),
+        max_bh=max_bh, cv2_centers=cv2_centers)
+    if gray_vals is not None:
+        out['count'], out['lum_sum'] = (
+            a.reshape(-1) for a in component_sums(seg, active, gray_vals,
+                                                  max_det=max_det))
+    return out
+
+
+def component_sums(seg, active, gray_vals, *, max_det):
+    """Exact pixel count and gray sum of each component of (T, F) tables
+    (``seg`` = dense id, ``max_det`` = none): two (T, max_det) int32."""
+    t = seg.shape[0]
+    dev = seg.device
+    nseg = max_det + 1
+    seg_a = torch.where(active, seg, torch.full_like(seg, max_det))
+    key = (seg_a + torch.arange(t, dtype=_I32, device=dev)[:, None] *
+           nseg).reshape(-1).long()
+
+    def seg_sum(vals):
+        buf = torch.zeros(t * nseg, dtype=_I32, device=dev)
+        buf.index_add_(0, key, vals.reshape(-1).to(_I32))
+        return buf.view(t, nseg)[:, :max_det]
+
+    return seg_sum(active), seg_sum(torch.where(active, gray_vals,
+                                                torch.zeros_like(gray_vals)))
 
 
 def component_stats_runs(s_start, s_len, s_comp, *, w, h, max_det, max_bh,

@@ -16,8 +16,8 @@ Differences from the JAX module:
   over (T*max_det, ...) tables instead of ``vmap``ping a frame at a time.
 - No cv2-center override, as in JAX: frames mode reports the exact rect
   center (``detect_from_blurred`` has no ``cv2_centers``).
-- Luminosity is not ported and raises (ROADMAP Queue 1 item 10), so the
-  grayscale frames and the luminosity window are not passed on.
+- With luminosity the third ``det_xy`` column is the exact rect mean of
+  the gray frames (``ops/luminosity.py``), at the exact rect center.
 """
 
 import numpy as np
@@ -40,10 +40,11 @@ class DetectorConfig:
         self.max_bh = settings.get('max bounding box height', 96)
         self.cc_iters = settings['connected components max iterations']
         self.include_luminosity = settings['include luminosity in tracking calculation']
+        self.lum_win = settings.get('luminosity window size', 48)
 
 
 def prepare_batch(frames_bgr, needs_sums=False):
-    """BGR frames -> (blurred[, meanStdDev integer sums]).
+    """BGR frames -> (gray, blurred[, meanStdDev integer sums]).
 
     Separate from :func:`detect_from_blurred` so mean-threshold mode can
     compute per-frame thresholds on the host (the 5 s moving-average state)
@@ -54,21 +55,22 @@ def prepare_batch(frames_bgr, needs_sums=False):
     gray = pp.bgr_to_gray(frames_bgr)
     blurred = pp.blur3(gray)
     if needs_sums:
-        return (blurred,) + pp.frame_mean_std_sums(gray)
-    return blurred
+        return (gray, blurred) + pp.frame_mean_std_sums(gray)
+    return gray, blurred
 
 
-def detect_from_blurred(blurred, frame_valid, thresholds, *, mode,
+def detect_from_blurred(gray, blurred, frame_valid, thresholds, *, mode,
                         white_on_dark, offset, double_delta, max_det, max_bh,
-                        cc_iters):
+                        cc_iters, include_luminosity=False, lum_win=48):
     """Detection tables from preprocessed frames.
 
+    :param gray: (T, H, W) gray frames (read with ``include_luminosity``)
     :param blurred: (T, H, W) int32
     :param frame_valid: (T,) bool — padding frames yield no detections
     :param thresholds: (T,) int32 per-frame global thresholds (mean mode;
         ignored by the adaptive modes)
-    :return: dict with det_xy (T, D, 2), det_info (T, D, 3) [w, h,
-        angle_deg], det_valid (T, D), n_components (T,)
+    :return: dict with det_xy (T, D, K) (K = 3 with luminosity), det_info
+        (T, D, 3) [w, h, angle_deg], det_valid (T, D), n_components (T,)
     """
     mask, markers = pp.detect_masks(blurred, mode, offset, double_delta,
                                     white_on_dark, global_thresholds=thresholds)
@@ -80,10 +82,10 @@ def detect_from_blurred(blurred, frame_valid, thresholds, *, mode,
                                               max_iters=cc_iters)
     comp, n_components = lb.compact_labels(labels8, mask, max_det=max_det)
     tables = lb.component_tables(comp, mask, max_det=max_det, max_bh=max_bh)
-    out = detections_from_tables(tables, mask.shape[0], max_det=max_det,
-                                 max_bh=max_bh)
-    out['n_components'] = n_components
-    return out
+    return detections_from_tables(
+        tables, mask.shape[0], max_det=max_det, max_bh=max_bh,
+        n_components=n_components,
+        gray_frames=gray if include_luminosity else None, lum_win=lum_win)
 
 
 def detect_batch(frames_bgr, frame_valid, config, threshold_state=None):
@@ -97,12 +99,10 @@ def detect_batch(frames_bgr, frame_valid, config, threshold_state=None):
     :param frames_bgr: (T, H, W, 3) uint8 tensor
     :param frame_valid: (T,) bool tensor on the device of ``frames_bgr``
     """
-    if config.include_luminosity:
-        raise NotImplementedError(
-            'detect_batch: luminosity is not ported (ROADMAP Queue 1 item 10)')
     t = frames_bgr.shape[0]
     if config.mode == 'mean':
-        blurred, total, hi, lo = prepare_batch(frames_bgr, needs_sums=True)
+        gray, blurred, total, hi, lo = prepare_batch(frames_bgr,
+                                                     needs_sums=True)
         n_pix = frames_bgr.shape[1] * frames_bgr.shape[2]
         mean, std = pp.combine_mean_std(n_pix, total.cpu().numpy(),
                                         hi.cpu().numpy(), lo.cpu().numpy())
@@ -113,10 +113,12 @@ def detect_batch(frames_bgr, frame_valid, config, threshold_state=None):
                 thr[i] = threshold_state.update(mean[i], std[i])
         thresholds = torch.from_numpy(thr).to(frames_bgr.device)
     else:
-        blurred = prepare_batch(frames_bgr)
+        gray, blurred = prepare_batch(frames_bgr)
         thresholds = None
     return detect_from_blurred(
-        blurred, frame_valid, thresholds, mode=config.mode,
+        gray, blurred, frame_valid, thresholds, mode=config.mode,
         white_on_dark=config.white_on_dark, offset=config.offset,
         double_delta=config.double_delta, max_det=config.max_det,
-        max_bh=config.max_bh, cc_iters=config.cc_iters)
+        max_bh=config.max_bh, cc_iters=config.cc_iters,
+        include_luminosity=config.include_luminosity,
+        lum_win=config.lum_win)

@@ -1,63 +1,226 @@
-"""Detection on the run-length wire: run-graph labels, then either one
-index per run (host rects) or the device rects.
+"""Detection from per-frame foreground-pixel wires: run-graph labels on the
+run wire, or the pixel-table branch with per-pixel labels.
 
-Counterpart of the run-CC branch of
-``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels`` (``use_run_cc``):
-the device labels components directly on the (T, R) run tables. Then
+Counterpart of ``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels``:
 
-- with ``skip_rect`` and ``det_px_as_runs`` it returns one detection index
-  per run, and the host measures the cv2-exact rects from the wire pixels
-  it already holds;
-- without ``skip_rect`` it measures on the device (``_stats_outputs_runs``:
+- the run-CC branch (``use_run_cc`` on the run wire, no luminosity): the
+  device labels components directly on the (T, R) run tables, then with
+  ``skip_rect`` and ``det_px_as_runs`` returns one detection index per run
+  (the host measures the cv2-exact rects from the wire pixels it holds),
+  and without ``skip_rect`` measures on the device (``_stats_outputs_runs``:
   row-extreme tables, hull edges, the exact minimum-area rect and, with
-  ``cv2_centers``, cv2's bit-exact f32 centers) and returns the detection
-  tables the device tracker reads.
+  ``cv2_centers``, cv2's bit-exact f32 centers);
+- the pixel-table branch (``run cc = off``, ``wire format = pixels``, and
+  luminosity, which bypasses run CC): the wire is decoded to (T, F) pixel
+  tables (the run wire expanded, the packed uint32 wire, or the split
+  int16/uint8 wire of luminosity), labelled by ``ops/cc.py::
+  cc_labels_at_pixels`` (the CUDA kernel on the card; the JAX CPU path
+  computes the same function with two whole-frame labelings), compacted to
+  dense ids in wire order, and either returned per pixel (``det_px_idx``,
+  host rects) or measured on the device (``_stats_outputs``, with the
+  exact rect luminosity or the pixel-mean luminosity).
 
-Every other branch of the JAX function raises here and names the ROADMAP
-item that ports it.
+Not ported: the sorted-run compaction of the TPU path (a layout for the
+TPU, same outputs) and ``use_table`` (ROADMAP's "do not port" list), which
+raises.
 """
 
 import torch
 
+from ysmr_tpu_torch.ops import cc
 from ysmr_tpu_torch.ops import labeling as lb
 from ysmr_tpu_torch.ops import run_cc as rcc
+from ysmr_tpu_torch.ops.luminosity import HUNDREDTH
+
+_I32 = torch.int32
 
 
 def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
                        w, double_threshold, max_det, max_bh, cc_iters,
-                       include_luminosity=False, px_runs=None,
+                       include_luminosity=False, px_gray=None, lum_win=48,
+                       gray_frames=None, use_table=False, px_packed=None,
+                       return_det_px=False, skip_rect=False, px_runs=None,
                        run_counts=None, expanded_f=None, use_run_cc=False,
-                       return_det_px=False, skip_rect=False,
                        det_px_as_runs=False, cv2_centers=False):
-    """Detection tables from the run wire (the JAX function's signature,
-    its run-CC branch).
+    """Detection tables from a batch's pixel wire (the JAX function's
+    signature, without ``use_pallas``).
 
-    :param px_runs: (T, R) int32 view of the uint32 run wire (bits 0..25
-        start ``y*w+x``, bit 26 marker, bits 27..31 length 1..31)
-    :param run_counts: (T,) int32 runs per frame
+    :param px_x, px_y: (T, F) int16/int32 pixel coordinates in raster
+        order, or None with ``px_packed`` or ``px_runs``
+    :param px_counts: (T,) int32 valid pixels per frame (the pixel-table
+        branch; unused on the run-CC branch)
+    :param px_marker: (T, F) bool/uint8 stricter-threshold membership
     :param frame_valid: (T,) bool
-    :return: dict with ``det_valid`` (T, max_det) bool, ``n_components``
-        (T,) int32 and ``cc_steps`` (T,) int32 (the frame's propagation
-        converged iff cc_steps < cc_iters); with ``skip_rect`` also
-        ``det_run_idx`` (T, R) int16 — the detection index of every run in
-        cv2's contour order (-1 = dropped, background or beyond
-        ``max_det``); without it ``det_xy`` (T, max_det, 2) and
-        ``det_info`` (T, max_det, 3) float32 (w, h, angle)
+    :param px_gray: optional (T, F) int gray values at the pixels (the
+        pixel-mean luminosity without full frames)
+    :param gray_frames: optional (T, H, W) uint8 gray frames; with
+        ``include_luminosity`` the ILLUMINATION value is the exact
+        filled-rotated-rect mean (``ops/luminosity.py``)
+    :param px_packed: optional (T, F) int32 view of the uint32 packed wire
+        (bits 0..30 ``y*w+x``, bit 31 marker)
+    :param px_runs: optional (T, R) int32 view of the uint32 run wire (bits
+        0..25 start ``y*w+x``, bit 26 marker, bits 27..31 length 1..31),
+        with ``run_counts`` (T,) and ``expanded_f`` (the pixel-table width)
+    :param return_det_px: also return ``det_px_idx`` (T, F) int16, the
+        detection index of every wire-order pixel (-1 = background, dropped
+        or beyond ``max_det``), or with ``det_px_as_runs`` on the run-CC
+        branch ``det_run_idx`` (T, R) int16, one index per run
+    :param skip_rect: return no device rects (``det_xy``/``det_info``
+        zeros; ``det_xy`` (T, max_det, 3) with the pixel-mean luminosity);
+        ignored when the exact rect luminosity needs the device rect
+    :return: dict with ``det_xy`` (T, max_det, K) (K = 3 with luminosity),
+        ``det_info`` (T, max_det, 3) [w, h, angle], ``det_valid``
+        (T, max_det), ``n_components`` (T,) int32 and ``cc_steps`` (T,)
+        int32 (the run-CC propagation's steps; 0 on the pixel-table branch,
+        whose kernel has no cap), plus ``det_px_idx`` or ``det_run_idx`` as
+        asked
     """
-    if px_runs is None or not use_run_cc:
+    if use_table:
         raise NotImplementedError(
-            'detect_from_pixels: the pixel wire and the whole-frame labeling '
-            'are not ported (ROADMAP Queue 1 item 10)')
-    if include_luminosity:
-        raise NotImplementedError(
-            'detect_from_pixels: luminosity is not ported (ROADMAP Queue 1 '
-            'item 10)')
+            'detect_from_pixels: use_table (label_components_table) is on '
+            "ROADMAP's do-not-port list")
+    if px_runs is not None and use_run_cc and not include_luminosity:
+        return _detect_run_cc(px_runs, run_counts, frame_valid, h=h, w=w,
+                              double_threshold=double_threshold,
+                              max_det=max_det, max_bh=max_bh,
+                              cc_iters=cc_iters, return_det_px=return_det_px,
+                              skip_rect=skip_rect,
+                              det_px_as_runs=det_px_as_runs,
+                              cv2_centers=cv2_centers)
+    n = h * w
+    if px_runs is not None or px_packed is not None:
+        if px_runs is not None:
+            lin_raw, px_marker = _expand_runs(px_runs, run_counts,
+                                              expanded_f, double_threshold)
+        else:
+            packed = px_packed.to(_I32)
+            lin_raw = packed & 0x7FFFFFFF
+            px_marker = packed < 0                    # bit 31
+        px_y = torch.div(lin_raw, w, rounding_mode='floor')
+        px_x = lin_raw - px_y * w
+    else:
+        px_x = px_x.to(_I32)
+        px_y = px_y.to(_I32)
+        px_marker = px_marker.to(_I32) > 0
+        lin_raw = px_y * w + px_x
+    t, f = lin_raw.shape
+    dev = lin_raw.device
+    iota_f = torch.arange(f, dtype=_I32, device=dev)[None, :]
+    valid = (iota_f < px_counts.to(_I32)[:, None]) & frame_valid[:, None]
+    lin = torch.where(valid, lin_raw, torch.full_like(lin_raw, n))
+    lab_fg, keep = cc.cc_labels_at_pixels(
+        px_x.contiguous(), px_y.contiguous(), valid.contiguous(),
+        px_marker.contiguous(), h=h, w=w, double_threshold=double_threshold,
+        max_iters=cc_iters)
+    comp, n_components = _compact_ids(lab_fg, keep, lin)
+    seg = torch.where(keep, torch.clamp(comp, max=max_det),
+                      torch.full_like(comp, max_det))
+    det_px = torch.where(keep & (comp < max_det), comp,
+                         torch.full_like(comp, -1)).to(torch.int16) \
+        if return_det_px else None
+    gray_in = px_gray.to(_I32) if px_gray is not None else \
+        torch.zeros_like(px_x)
+    exact_lum = include_luminosity and gray_frames is not None
+    if skip_rect and not exact_lum:
+        # the host measures the rects; dense ids make slot validity an
+        # iota compare
+        det_valid = torch.arange(max_det, dtype=_I32, device=dev)[None, :] < \
+            torch.clamp(n_components, max=max_det)[:, None]
+        if include_luminosity:
+            count, lum_sum = lb.component_sums(seg, keep, gray_in,
+                                               max_det=max_det)
+            lum = lum_sum.to(torch.float32) / \
+                torch.clamp(count, min=1) * HUNDREDTH
+            zero = torch.zeros_like(lum)
+            det_xy = torch.where(det_valid[..., None],
+                                 torch.stack([zero, zero, lum], dim=-1), 0.0)
+        else:
+            det_xy = torch.zeros((t, max_det, 2), dtype=torch.float32,
+                                 device=dev)
+        out = {'det_xy': det_xy,
+               'det_info': torch.zeros((t, max_det, 3), dtype=torch.float32,
+                                       device=dev),
+               'det_valid': det_valid, 'n_components': n_components}
+    else:
+        out = _stats_outputs(seg, keep, px_x, px_y, gray_in,
+                             gray_frames if exact_lum else None,
+                             n_components, h=h, w=w, max_det=max_det,
+                             max_bh=max_bh,
+                             include_luminosity=include_luminosity,
+                             lum_win=lum_win, cv2_centers=cv2_centers)
+    out['cc_steps'] = torch.zeros_like(n_components)
+    if det_px is not None:
+        out['det_px_idx'] = det_px
+    return out
+
+
+def _expand_runs(px_runs, run_counts, f, double_threshold):
+    """The run wire expanded to the (T, F) pixel table in raster order:
+    ``lin`` with no per-pixel gather (one scatter of each run's jump delta,
+    then a cumsum over the slots) and, with the double threshold, each
+    pixel's marker (run id by a start-offset scatter and cummax, then one
+    gather). Slots past a frame's pixels hold garbage, as in JAX; the
+    pixel count masks them."""
+    t, r = px_runs.shape
+    dev = px_runs.device
+    runs = px_runs.to(_I32)
+    starts = runs & 0x03FFFFFF
+    rmark = ((runs >> 26) & 1) > 0
+    lens = (runs >> 27) & 0x1F
+    iota_r = torch.arange(r, dtype=_I32, device=dev)[None, :]
+    lens = torch.where(iota_r < run_counts.to(_I32)[:, None], lens,
+                       torch.zeros_like(lens))
+    offs = torch.cumsum(lens, dim=1, dtype=_I32) - lens
+    t_off = torch.arange(t, dtype=torch.int64, device=dev)[:, None] * f
+    # runs that start past the table go to the dump slot t * f
+    flat_idx = torch.where((lens > 0) & (offs < f), offs + t_off,
+                           torch.full_like(t_off, t * f)).reshape(-1)
+    prev_end = torch.cat([torch.ones((t, 1), dtype=_I32, device=dev),
+                          (starts + lens)[:, :-1]], dim=1)
+    d = torch.ones(t * f + 1, dtype=_I32, device=dev)
+    d.index_add_(0, flat_idx, (starts - prev_end).reshape(-1))
+    lin_raw = torch.cumsum(d[:t * f].view(t, f), dim=1, dtype=_I32)
+    if not double_threshold:
+        return lin_raw, torch.zeros((t, f), dtype=torch.bool, device=dev)
+    rid = torch.zeros(t * f + 1, dtype=torch.int64, device=dev)
+    rid[flat_idx] = iota_r.expand(t, r).reshape(-1).to(torch.int64)
+    rid = torch.cummax(rid[:t * f].view(t, f), dim=1).values
+    return lin_raw, torch.gather(rmark, 1, rid)
+
+
+def _compact_ids(lab_fg, keep, lin):
+    """Dense component ids at the kept pixels, in reverse raster order of
+    each component's first pixel (cv2's contour order), ``F`` elsewhere.
+
+    The JAX function ranks the roots (the pixels whose label is their own
+    linear index) and reads the rank back through a frame-sized table; the
+    lists are sorted by ``lin`` (``h*w`` past the valid prefix), so here
+    each pixel finds its root's slot by a binary search instead.
+
+    :return: (comp (T, F) int32, n_components (T,) int32)
+    """
+    f = lab_fg.shape[1]
+    roots = keep & (lab_fg == lin)
+    rank = torch.cumsum(roots.to(_I32), dim=1, dtype=_I32) - 1
+    n_comp = roots.sum(dim=1, dtype=_I32)
+    slot = torch.searchsorted(lin, torch.where(keep, lab_fg,
+                                               torch.zeros_like(lab_fg)))
+    comp = torch.gather(rank, 1, torch.clamp(slot, max=f - 1))
+    comp = n_comp[:, None] - 1 - comp
+    return torch.where(keep, comp, torch.full_like(comp, f)), n_comp
+
+
+def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
+                   double_threshold, max_det, max_bh, cc_iters,
+                   return_det_px, skip_rect, det_px_as_runs, cv2_centers):
+    """The run-CC branch: labels on the run tables (``ops/run_cc.py``)."""
     if skip_rect and not (return_det_px and det_px_as_runs):
         raise NotImplementedError(
-            'detect_from_pixels: only the per-run detection index is ported; '
-            'the per-pixel det_px expansion is ROADMAP Queue 1 item 10')
-    rc_eff = torch.where(frame_valid, run_counts.to(torch.int32),
-                         torch.zeros_like(run_counts, dtype=torch.int32))
+            'detect_from_pixels: on the run-CC branch only the per-run '
+            'detection index is ported (det_px_from_runs is not; ROADMAP '
+            'Queue 1 item 2)')
+    rc_eff = torch.where(frame_valid, run_counts.to(_I32),
+                         torch.zeros_like(run_counts, dtype=_I32))
     cc_out = rcc.run_cc_components(px_runs, rc_eff, w=w,
                                    double_threshold=double_threshold,
                                    max_iters=cc_iters,
@@ -82,7 +245,7 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
     comp_rev = n_components[:, None] - 1 - run_comp
     det_run = torch.where((run_comp >= 0) & (comp_rev < max_det), comp_rev,
                           torch.full_like(comp_rev, -1)).to(torch.int16)
-    det_valid = torch.arange(max_det, dtype=torch.int32,
+    det_valid = torch.arange(max_det, dtype=_I32,
                              device=px_runs.device)[None, :] < \
         torch.clamp(n_components, max=max_det)[:, None]
     return {'det_run_idx': det_run, 'det_valid': det_valid,
@@ -122,26 +285,66 @@ def _stats_outputs_runs(s_start, s_len, s_comp, n_components, *, h, w,
     return out
 
 
-def detections_from_tables(tables, t, *, max_det, max_bh, cv2_centers=False):
+def _stats_outputs(seg, keep, px_x, px_y, gray_in, gray_frames,
+                   n_components, *, h, w, max_det, max_bh,
+                   include_luminosity, lum_win, cv2_centers=False):
+    """Detect tail over (T, F) pixel tables (``seg`` = dense id,
+    ``max_det`` on the background): stats, hull, exact rect and, with
+    luminosity, the exact rect mean of ``gray_frames`` or else the pixel
+    mean of ``gray_in``."""
+    exact_lum = gray_frames is not None
+    tables = lb.component_stats(
+        px_x, px_y, seg, keep,
+        gray_vals=gray_in if include_luminosity and not exact_lum else None,
+        max_det=max_det, max_bh=max_bh, cv2_centers=cv2_centers)
+    lum = None
+    if include_luminosity and not exact_lum:
+        lum = (tables['lum_sum'].to(torch.float32) /
+               torch.clamp(tables['count'], min=1) * HUNDREDTH).view(
+                   seg.shape[0], max_det)
+    return detections_from_tables(
+        tables, seg.shape[0], max_det=max_det, max_bh=max_bh,
+        cv2_centers=cv2_centers, n_components=n_components,
+        gray_frames=gray_frames, lum=lum, lum_win=lum_win)
+
+
+def detections_from_tables(tables, t, *, max_det, max_bh, cv2_centers=False,
+                           n_components=None, gray_frames=None, lum=None,
+                           lum_win=48):
     """The exact rect of every component of a batch from its stats tables
     (T*max_det, ...): ``det_xy`` (T, max_det, 2), ``det_info``
     (T, max_det, 3) [w, h, angle] float32, zero where ``det_valid``
-    (T, max_det) is False. Shared by the run wire and frames mode."""
+    (T, max_det) is False. With ``gray_frames`` (T, H, W) the third
+    ``det_xy`` column is the exact rect luminosity, taken at the exact
+    center before the cv2-center override, as in JAX; with ``lum``
+    (T, max_det) it is that. Shared by the run wire, the pixel tables and
+    frames mode."""
     rect = lb.min_area_rect(tables['points'], tables['points_valid'],
                             edge_angles=tables['edge_angles'],
                             edge_valid=tables['edge_valid'],
                             edge_dx=tables['edge_dx'],
                             edge_dy=tables['edge_dy'])
+    det_valid = (tables['count'] > 0).view(t, max_det)
+    if gray_frames is not None:
+        from ysmr_tpu_torch.ops.luminosity import rect_mean_luminosity
+        lum = rect_mean_luminosity(
+            gray_frames, *(rect[k].view(t, max_det) for k in
+                           ('cx', 'cy', 'w', 'h', 'angle_deg')),
+            det_valid, win=lum_win)
     if cv2_centers:
         # the tracker's measurement stream becomes cv2's f32 caliper
         # center bit for bit; W/H/angle keep the exact decomposition
         rect = _cv2_center_override(rect, tables, max_bh=max_bh)
-    det_valid = (tables['count'] > 0).view(t, max_det)
     zero = torch.zeros((), dtype=torch.float32, device=det_valid.device)
-    det_xy = torch.stack([rect['cx'], rect['cy']], dim=-1).view(
-        t, max_det, 2)
+    xy = [rect['cx'].view(t, max_det), rect['cy'].view(t, max_det)]
+    if lum is not None:
+        xy.append(lum)
+    det_xy = torch.stack(xy, dim=-1)
     det_info = torch.stack([rect['w'], rect['h'], rect['angle_deg']],
                            dim=-1).view(t, max_det, 3)
-    return {'det_xy': torch.where(det_valid[..., None], det_xy, zero),
-            'det_info': torch.where(det_valid[..., None], det_info, zero),
-            'det_valid': det_valid}
+    out = {'det_xy': torch.where(det_valid[..., None], det_xy, zero),
+           'det_info': torch.where(det_valid[..., None], det_info, zero),
+           'det_valid': det_valid}
+    if n_components is not None:
+        out['n_components'] = n_components
+    return out

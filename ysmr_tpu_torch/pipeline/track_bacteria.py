@@ -6,32 +6,44 @@ reader decodes raw BGR frames, each batch is uploaded once through a
 pinned staging buffer, and the device runs all of detection
 (``pipeline/detect.py``: gray, blur, threshold, marker reconstruction and
 8-connected labels with the kernels of ``csrc/cc.cu``, compaction, row
-tables, hull, exact rect) and the device tracker; the emissions come back
-as on the device-tracker path below. ``transfer mode = auto`` picks pixels
-mode. Pixels mode has two stage-1 paths. Common to both:
+tables, hull, exact rect, and with luminosity the exact rect mean) and the
+device tracker; the emissions come back as on the device-tracker path
+below. ``transfer mode = auto`` picks pixels mode. Pixels mode has two
+stage-1 paths. Common to both:
 
 1. host decode and host threshold (native library, in the reader's
-   threads): per frame a packed uint32 pixel wire;
-2. the run-length wire (native ``encode_runs_batch``);
+   threads): per frame a packed uint32 pixel wire, or with luminosity the
+   split int16/uint8 wire plus the gray frame;
+2. the run-length wire (native ``encode_runs_batch``), unless ``wire
+   format = pixels``, luminosity, or frames of 2^26 pixels or more keep the
+   pixel wire;
 3. on the device, run-graph connected components (``ops/run_cc.py``, with
-   the CUDA kernel ``csrc/run_prop.cu``);
+   the CUDA kernel ``csrc/run_prop.cu``), or with ``run cc = off``, the
+   pixel wire or luminosity the pixel-table branch (``detect_pixels``: per
+   pixel labels by the CUDA kernel ``cc_labels_at_pixels`` of
+   ``csrc/cc.cu``);
 4. one batch in flight: the host finishes batch i - 1 while the device
    works on batch i; each batch comes back in one pinned buffer
    (``non_blocking`` copy plus a CUDA event);
-5. ``_list.csv``, appended every ``list save length interval`` rows and
-   rewritten sorted at the end.
+5. ``_list.csv`` (with the ILLUMINATION column under luminosity), appended
+   every ``list save length interval`` rows and rewritten sorted at the
+   end.
 
 The host-rect path (the default up to ``cv2 exact rects max detections``,
 1024, detections per frame; its rows are identical to YSMR's) reads back
-one detection index per run and measures cv2-exact rects
-(``native/cv2_exact.cpp``) and tracks in float64 (``native/tracker64.cpp``)
-on the host. The device-tracker path (denser scenes, or ``cv2 exact
-rects = False``) measures on the device (``detect_pixels``: row tables,
-the hull and sweep kernels ``csrc/hull.cu`` and ``csrc/sweep.cu``, the
-exact rect, cv2's f32 centers) and tracks there (``pipeline/tracker.py``,
-double-single GSFF, the kernel ``csrc/assign.cu``); the padded emissions
-come back and ``ReferenceOrderRenumberer`` rewrites their ids into the
-reference's registration order.
+one detection index per run (or per pixel on the pixel-table branch) and
+measures cv2-exact rects (``native/cv2_exact.cpp``) and tracks in float64
+(``native/tracker64.cpp``) on the host. With luminosity the exact rect mean
+of each host rect is taken on the device from the uploaded gray frames;
+with luminosity and GSFF (which the float64 tracker does not run) the host
+rects feed the device tracker. The device-tracker path (denser scenes, or
+``cv2 exact rects = False``) measures on the device (``detect_pixels``:
+row tables, the hull and sweep kernels ``csrc/hull.cu`` and
+``csrc/sweep.cu``, the exact rect, cv2's f32 centers) and tracks there
+(``pipeline/tracker.py``, double-single GSFF, the kernel
+``csrc/assign.cu``); the padded emissions come back and
+``ReferenceOrderRenumberer`` rewrites their ids into the reference's
+registration order.
 
 Same contract as the JAX entry point: writes ``_list.csv`` and returns
 ``(df, fps, frame_height, frame_width, csv_path)``, or None on the errors
@@ -55,6 +67,7 @@ from ysmr_tpu_torch.io.preproc import HostPreprocessor
 from ysmr_tpu_torch.io.video import BatchedVideoReader, VideoReadError
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.gsff import GSFFParams
+from ysmr_tpu_torch.ops.luminosity import rect_mean_luminosity
 from ysmr_tpu_torch.pipeline import tracker as trk
 from ysmr_tpu_torch.pipeline.detect import DetectorConfig, detect_batch
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
@@ -68,8 +81,7 @@ def _next_pow2(n):
     return 1 << max(int(n) - 1, 1).bit_length()
 
 
-# Copied from ysmr_tpu/pipeline/track_bacteria.py (_compact_emissions),
-# without the luminosity column (not ported).
+# Copied from ysmr_tpu/pipeline/track_bacteria.py (_compact_emissions).
 def _compact_emissions(emissions, batch_start, frame_offset_valid):
     """(T, S) padded emissions -> column arrays sorted by (frame, id)."""
     mask = np.asarray(emissions['mask'])
@@ -94,6 +106,8 @@ def _compact_emissions(emissions, batch_start, frame_offset_valid):
         'HEIGHT': info[sel][order][:, 1].astype(np.float64),
         'DEGREES_ANGLE': info[sel][order][:, 2].astype(np.float64),
     }
+    if pos.shape[-1] > 2:
+        out['ILLUMINATION'] = pos[sel][order][:, 2].astype(np.float64)
     return out
 
 
@@ -128,15 +142,13 @@ def resolve_transfer_mode(settings):
     return 'frames' if mode == 'frames' else 'pixels'
 
 
-def check_slice_settings(settings, frame_height=None, frame_width=None):
+def check_slice_settings(settings):
     """Raise NotImplementedError for settings outside the ported slice."""
     def unported(what, item):
         raise NotImplementedError(
             '{} is not ported to ysmr_tpu_torch yet (ROADMAP Queue 1 item '
             '{}).'.format(what, item))
 
-    if settings['include luminosity in tracking calculation']:
-        unported("'include luminosity in tracking calculation'", 10)
     if settings['display video analysis']:
         unported("'display video analysis'", 13)
     if bool(settings.get('compact emissions readback', False)):
@@ -151,15 +163,10 @@ def check_slice_settings(settings, frame_height=None, frame_width=None):
                     settings.get('dense assignment shard threshold',
                                  1 << 21)):
             unported("'shard dense assignment across devices'", 12)
-    if resolve_transfer_mode(settings) == 'frames':
-        return      # the wire settings below belong to pixels mode
-    if str(settings.get('wire format', 'auto')).lower() == 'pixels':
-        unported("'wire format = pixels'", 10)
-    if str(settings.get('run cc', 'auto')).lower() == 'off':
-        unported("'run cc = off' (whole-frame labeling)", 11)
-    if frame_height is not None and frame_width is not None and \
-            frame_height * frame_width >= 1 << 26:
-        unported('Frames of 2^26 pixels or more (the pixel wire)', 10)
+    if bool(settings.get('use table cc', False)):
+        raise NotImplementedError(
+            "'use table cc = True' is on ROADMAP's do-not-port list (it "
+            'loses end to end on both backends).')
 
 
 def use_host_rects(settings):
@@ -238,7 +245,8 @@ def track_bacteria(video_path, settings=None, result_folder=None,
     logger.info('Starting with file %s', video_path)
     old_list, list_name = save_list(
         path=video_path, result_folder=result_folder, first_call=True,
-        rename_old_list=settings['rename previous result .csv'])
+        rename_old_list=settings['rename previous result .csv'],
+        illumination=settings['include luminosity in tracking calculation'])
     if settings['verbose']:
         logger.debug('Frame height: %s, width: %s', frame_height, frame_width)
 
@@ -286,7 +294,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     logger = logging.getLogger('ysmr').getChild(__name__)
     device = resolve_device(device)
     frame_height, frame_width = reader.height, reader.width
-    check_slice_settings(settings, frame_height, frame_width)
+    check_slice_settings(settings)
     _require_native()
     double_threshold = pp.resolve_detection_rule(settings)[0] == \
         'adaptive_double'
@@ -302,12 +310,28 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                         n_f=settings['number of LSFFs']) if use_gsff else None
     frames_mode = resolve_transfer_mode(settings) == 'frames'
     host_rects = use_host_rects(settings)
+    include_lum = bool(settings['include luminosity in tracking calculation'])
+    lum_win = settings.get('luminosity window size', 48)
+    dims = 3 if include_lum else 2
+    # the run wire: raster-order foreground pixels form horizontal runs;
+    # its 26-bit start field caps the frame size, and luminosity ships the
+    # split wire (its host threshold keeps the gray plane)
+    use_runs_wire = not frames_mode and not include_lum and \
+        str(settings.get('wire format', 'auto')).lower() != 'pixels' and \
+        frame_height * frame_width < (1 << 26)
+    # run-graph CC on the run wire unless 'run cc = off' (the kernels
+    # exist on every device of the port, so 'auto' is on)
+    use_run_cc = use_runs_wire and \
+        str(settings.get('run cc', 'auto')).lower() != 'off'
+    # the float64 host tracker runs GSFF only in 2-D: luminosity with GSFF
+    # takes the device tracker, on the host rects
+    native_tracker = host_rects and not (include_lum and use_gsff)
     max_slots = settings['max track slots']
-    if host_rects:
+    if native_tracker:
         tracker = native_mod.Tracker64(
-            dims=2, max_disappeared=float(fps_of_file), gsff_params=params)
+            dims=dims, max_disappeared=float(fps_of_file), gsff_params=params)
     else:
-        state = trk.init_tracker_state(max_slots, device, dims=2,
+        state = trk.init_tracker_state(max_slots, device, dims=dims,
                                        use_gsff=use_gsff, gsff_params=params)
         tracker_kwargs = dict(max_disappeared=float(fps_of_file),
                               use_gsff=use_gsff)
@@ -324,9 +348,12 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
             fps=fps_of_file, offset=det_config.offset,
             white_on_dark=det_config.white_on_dark) \
             if det_config.mode == 'mean' else None
-    logger.debug('Stage-1 path: %s', 'frames: device detection + device '
-                 'tracker' if frames_mode else 'host rects + float64 tracker'
-                 if host_rects else 'device rects + device tracker')
+    logger.debug('Stage-1 path: %s; wire: %s', 'frames: device detection + '
+                 'device tracker' if frames_mode else 'host rects + float64 '
+                 'tracker' if native_tracker else 'host rects + device '
+                 'tracker' if host_rects else 'device rects + device tracker',
+                 'runs, run CC' if use_run_cc else 'runs, pixel table'
+                 if use_runs_wire else 'pixels, pixel table')
     runs_buf = runs_cnt = None
     runs_bucket = 512
     # the tracker's detection-slot width: small first, raised once to
@@ -351,15 +378,43 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         # the buffers are reused next batch while this batch is in flight
         return runs_buf[:, :runs_bucket].copy(), runs_cnt.copy()
 
-    def upload(data, frame_valid):
-        """Encode one batch's runs and start their upload."""
-        counts_np = np.asarray(data['count'])
-        runs_np, rc_np = encode_wire_runs(data['px_packed'], counts_np)
-        px_runs = torch.from_numpy(runs_np.view(np.int32)).to(
+    def to_dev(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device, non_blocking=True)
-        run_counts = torch.from_numpy(rc_np).to(device, non_blocking=True)
-        fv = torch.from_numpy(frame_valid).to(device, non_blocking=True)
-        return counts_np, runs_np, rc_np, px_runs, run_counts, fv
+
+    def upload(data, frame_valid):
+        """Start the upload of one batch's wire: the run wire (encoded
+        here), the packed pixel wire, or the split wire of luminosity with
+        its gray frames. Returns (host-side dict, the wire's keyword
+        arguments of ``detect_from_pixels``)."""
+        counts_np = np.asarray(data['count'])
+        host = {'counts': counts_np, 'runs': None, 'gray': None,
+                'fcap': (data['px_packed'] if 'px_packed' in data
+                         else data['px_x']).shape[1]}
+        kw = {'px_x': None, 'px_y': None, 'px_marker': None,
+              'frame_valid': to_dev(frame_valid),
+              'px_counts': to_dev(counts_np)}
+        if use_runs_wire:
+            runs_np, rc_np = encode_wire_runs(data['px_packed'], counts_np)
+            kw.update(px_runs=to_dev(runs_np.view(np.int32)),
+                      run_counts=to_dev(rc_np), expanded_f=host['fcap'],
+                      use_run_cc=use_run_cc)
+            host.update(runs=runs_np, run_counts=rc_np)
+        elif 'px_packed' in data:
+            kw['px_packed'] = to_dev(data['px_packed'].view(np.int32))
+        else:
+            kw.update(px_x=to_dev(data['px_x']), px_y=to_dev(data['px_y']),
+                      px_marker=to_dev(data['px_marker']))
+        if include_lum:
+            host['gray'] = upload_frames(data['gray'])
+        return host, kw
+
+    def detect(kw, **more):
+        """``detect_from_pixels`` on one batch's uploaded wire."""
+        return detect_from_pixels(
+            **kw, **more, h=frame_height, w=frame_width,
+            double_threshold=double_threshold, max_det=max_det,
+            max_bh=max_bh, cc_iters=cc_iters)
 
     def event():
         ev = torch.cuda.Event(enable_timing=True)
@@ -407,50 +462,54 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
 
     def stage_detect(data, count, start, frame_valid):
         """Host-rect path: launch one batch's device labeling and the async
-        readback of its per-run detection indices; returns the staged
-        batch."""
+        readback of its detection indices (per run on the run-CC branch,
+        per pixel on the pixel table); returns the staged batch."""
         marks = [('start', event())] if on_cuda else []
-        counts_np, runs_np, rc_np, px_runs, run_counts, fv = upload(
-            data, frame_valid)
-        tables = detect_from_pixels(
-            None, None, None, None, fv, h=frame_height, w=frame_width,
-            double_threshold=double_threshold, max_det=max_det,
-            max_bh=max_bh, cc_iters=cc_iters, px_runs=px_runs,
-            run_counts=run_counts, expanded_f=data['px_packed'].shape[1],
-            use_run_cc=True, return_det_px=True, skip_rect=True,
-            det_px_as_runs=True)
+        host, kw = upload(data, frame_valid)
+        tables = detect(kw, return_det_px=True, skip_rect=True,
+                        det_px_as_runs=use_run_cc)
         if on_cuda:
             marks.append(('detect', event()))
-        bucket = min(runs_np.shape[1],
-                     max(64, _next_pow2(int(rc_np.max()) if count else 1)))
-        # one int16 buffer per batch: the per-run indices, then the
+        f_bucket = min(host['fcap'], max(
+            256, _next_pow2(int(host['counts'].max()) if count else 1)))
+        if use_run_cc:
+            det = tables['det_run_idx'][:, :min(
+                host['runs'].shape[1], max(64, _next_pow2(
+                    int(host['run_counts'].max()) if count else 1)))]
+        else:
+            det = tables['det_px_idx'][:, :f_bucket]
+        # one int16 buffer per batch: the detection indices, then the
         # component count (clamped; only '> max_det' is read) and the
         # propagation step count as two extra columns
         fused = torch.cat(
-            [tables['det_run_idx'][:, :bucket],
-             tables['n_components'].clamp(max=32767)[:, None].to(torch.int16),
+            [det, tables['n_components'].clamp(max=32767)[:, None].to(
+                torch.int16),
              tables['cc_steps'][:, None].to(torch.int16)], dim=1)
-        return to_host(fused, {
-            'runs': runs_np, 'run_counts': rc_np, 'marks': marks,
-            'packed': data['px_packed'], 'counts': counts_np,
-            'start': start, 'frame_valid': frame_valid,
-            'f_bucket': min(data['px_packed'].shape[1], max(
-                256, _next_pow2(int(counts_np.max()) if count else 1)))})
+        if 'px_packed' in data:
+            packed = data['px_packed']
+        else:       # the split wire: lin from the coordinates
+            packed = data['px_y'].astype(np.uint32) * np.uint32(
+                frame_width) + data['px_x'].astype(np.uint32)
+        return to_host(fused, dict(host, marks=marks, packed=packed,
+                                   start=start, frame_valid=frame_valid,
+                                   f_bucket=f_bucket))
 
     def finish_detect(staged):
         """Host-rect path: wait for a staged batch, measure its rects on the
-        host and track them; returns the batch's rows (column arrays) or
-        None."""
+        host (and with luminosity their exact rect means on the device) and
+        track them; returns the batch's rows (column arrays) or None."""
         nonlocal trk_d
         fused = wait_host(staged)
         t_b = time.perf_counter()
-        det_run = fused[:, :-2]
+        det = fused[:, :-2]
         n_comp = fused[:, -2].astype(np.int32)
         fv = staged['frame_valid']
         check_counts(n_comp, fused[:, -1].astype(np.int32), fv)
-        det_px = native_mod.expand_run_det(staged['runs'],
-                                           staged['run_counts'], det_run,
-                                           staged['f_bucket'])
+        if use_run_cc:
+            det = native_mod.expand_run_det(staged['runs'],
+                                            staged['run_counts'], det,
+                                            staged['f_bucket'])
+        det_px = np.ascontiguousarray(det)
         max_n = int(n_comp[fv].max()) if fv.any() else 0
         if max_n > trk_d:
             trk_d = max_det
@@ -461,23 +520,48 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         rects = np.where(rvalid[..., None], rects, np.float32(0))
         t_c = time.perf_counter()
         stage_t['rects'] += t_c - t_b
+        lum_xy = det_xy_with_rect_lum(staged['gray'], rects, rvalid) \
+            if include_lum else None
+        if not native_tracker:
+            # luminosity with GSFF: the device tracker on the host rects
+            marks = [('start', event())] if on_cuda else []
+            tables = {'det_xy': lum_xy,
+                      'det_info': to_dev(rects[..., 2:5]),
+                      'det_valid': to_dev(rvalid),
+                      'n_components': torch.from_numpy(n_comp).to(device),
+                      'cc_steps': torch.zeros(len(fv), dtype=torch.int32,
+                                              device=device)}
+            out = finish_track(stage_tracker(tables, marks, staged['start'],
+                                             fv))
+            stage_t['tracker'] += time.perf_counter() - t_c
+            return out
         t_count = int(fv.sum())
+        lum = lum_xy[..., 2].cpu().numpy()[:t_count] if include_lum \
+            else None
         out = tracker.update_batch(rects[:t_count], rvalid[:t_count],
-                                   frame0=staged['start'])
+                                   frame0=staged['start'], lum=lum)
         stage_t['tracker'] += time.perf_counter() - t_c
         return out if len(out['TRACK_ID']) else None
 
+    def det_xy_with_rect_lum(gray, rects, rvalid):
+        """(T, D, 3) [cx, cy, ILLUMINATION] on the device: the exact rect
+        mean of the gray frames at the host-measured rects, so the value
+        belongs to the row's own rect (JAX ``_det_xy_with_rect_lum``)."""
+        r = to_dev(rects)
+        lum = rect_mean_luminosity(gray, r[..., 0], r[..., 1], r[..., 2],
+                                   r[..., 3], r[..., 4], to_dev(rvalid),
+                                   win=lum_win)
+        return torch.cat([r[..., :2], lum[..., None]], dim=-1)
+
     def stage_track(data, count, start, frame_valid):
         """Device-tracker path: launch one batch's labeling and device
-        rects, then ``stage_tracker``; returns the staged batch."""
+        rects (with luminosity, the exact rect means), then
+        ``stage_tracker``; returns the staged batch."""
         marks = [('start', event())] if on_cuda else []
-        _, _, _, px_runs, run_counts, fv = upload(data, frame_valid)
-        tables = detect_from_pixels(
-            None, None, None, None, fv, h=frame_height, w=frame_width,
-            double_threshold=double_threshold, max_det=max_det,
-            max_bh=max_bh, cc_iters=cc_iters, px_runs=px_runs,
-            run_counts=run_counts, expanded_f=data['px_packed'].shape[1],
-            use_run_cc=True, cv2_centers=use_cv2_centers)
+        host, kw = upload(data, frame_valid)
+        tables = detect(kw, cv2_centers=use_cv2_centers,
+                        include_luminosity=include_lum,
+                        gray_frames=host['gray'], lum_win=lum_win)
         if on_cuda:
             marks.append(('detect', event()))
         return stage_tracker(tables, marks, start, frame_valid)
@@ -489,7 +573,8 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     n_uploads = 0
 
     def upload_frames(frames_np):
-        """Start the upload of one (T, H, W, 3) uint8 batch."""
+        """Start the upload of one uint8 batch: BGR frames (T, H, W, 3),
+        or the gray frames (T, H, W) of luminosity."""
         nonlocal n_uploads
         if not on_cuda:
             return torch.from_numpy(np.ascontiguousarray(frames_np))
@@ -597,7 +682,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         t0 = time.perf_counter()
         arrays = {k: np.concatenate([p[k] for p in pending])
                   for k in pending[0]}
-        save_list(arrays=arrays, path=list_name)
+        save_list(arrays=arrays, path=list_name, illumination=include_lum)
         pending = []
         pending_rows = 0
         stage_t['csv'] += time.perf_counter() - t0
@@ -662,7 +747,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
 
     # the float64 host tracker has no slot cap, so nothing can be dropped
     # there
-    dropped = 0 if host_rects else int(state['dropped_registrations'])
+    dropped = 0 if native_tracker else int(state['dropped_registrations'])
     if dropped:
         logger.warning('%s registrations dropped (track slot capacity %s '
                        "reached); raise 'max track slots' in [TPU SETTINGS].",
@@ -674,7 +759,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                       'host_rects': host_rects,
                       'dropped_registrations': dropped,
                       'stage_s': dict(stage_t)})
-    last_object_id = (tracker.next_id if host_rects
+    last_object_id = (tracker.next_id if native_tracker
                       else int(state['next_id'])) - 1
     if last_object_id < 0:
         logger.warning('Did not track any objects. File: %s', video_path)
@@ -684,6 +769,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     if all_parts and not error_during_read:
         # rows are still in memory: sort + rewrite without the CSV round-trip
         df_for_eval = finalize_sorted_list(all_parts, list_name,
+                                           illumination=include_lum,
                                            save_file=save_sorted)
     else:
         df_for_eval = sort_list(file_path=list_name, save_file=save_sorted)
