@@ -10,9 +10,11 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 2. build of the CUDA kernel, timed;
 3. kernel against its plain PyTorch version on the card: the run graphs of
    64 bench-sized frames (both the 4-connected marker reconstruction and
-   the 8-connected labeling) and seeded random graphs up to R = 131072
-   runs (the global-memory variant); labels must be equal, every frame
-   must converge; median ms per batch of each;
+   the 8-connected labeling), those of the dense scene's first 64 frames
+   (the run wire's R bucket, both propagations of the dense path) and
+   seeded random graphs up to R = 131072 runs (the global-memory variant);
+   labels must be equal, every frame must converge; median ms per batch
+   of each;
 4. the main path at real size: the bench scene (630 frames of 1228x922,
    200 rods, seed 123, drawn in memory) through the port's stage-1 loop on
    ``cuda`` and then on ``cpu``; the two ``_list.csv`` files must be
@@ -25,7 +27,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    PyTorch versions on the card, outputs bit-equal: hull and sweep on the
    tables of the dense scene's first batch and on seeded random tables,
    assign at 4096x4096 and 16384x16384 with K = 2 and 3 (invalid rows and
-   columns, exact ties); median ms of each;
+   columns, exact ties) and on the edge cases of its row tiles and column
+   slices (4097x4095, 1x1, 700x63, ties across slices, all rows or all
+   columns invalid); median ms of each;
 7. the dense path at full width on ``cuda``: the dense scene (150 frames
    of 1228x922, 3000 rods, seed 125; bench.py ``measure_dense_e2e``) in
    memory through the stage-1 loop (stage split), then written as MJPG
@@ -57,8 +61,10 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    (bit-equal where that converged), against the composition of the
    reconstruction and labeling kernels with a rasterize and a gather, and
    against scipy on every frame: the bench batch (64 x 8192, double and
-   single threshold), the dense batch (64 x 131072) and random blobs with
-   the serpentine; median ms of each and the bound;
+   single threshold), the dense batch (64 x 131072), random blobs with
+   the serpentine and lists that break the kernel's tiling (a run across
+   a tile boundary, a component over five tiles, an empty frame, a full
+   list, F no multiple of the tile); median ms of each and the bound;
 13. the bench scene in memory with ``wire format = pixels`` and with ``run
    cc = off`` (the pixel-table branch): ``_list.csv`` byte-identical to
    the run-wire path's of phase 4;
@@ -347,7 +353,7 @@ def phase_build():
             log('  ptxas: ' + line.strip())
 
 
-def phase_kernel(scene, settings, dev):
+def phase_kernel(scene, settings, dscene, dsettings, dev):
     pre = HostPreprocessor(settings, FPS,
                            max_fg=settings['max foreground pixels per frame'])
     t = 64
@@ -359,6 +365,12 @@ def phase_kernel(scene, settings, dev):
     runs, rc = encode(packed, counts, W, None)
     results = [compare_kernel('bench 4-conn', runs, rc, W, 4, dev),
                compare_kernel('bench 8-conn', runs, rc, W, 8, dev)]
+    # the dense path's batch: the run wire's R bucket of the dense scene's
+    # first 64 frames, both propagations of a double-threshold batch
+    druns, drc = dense_first_batch(dscene, dsettings)
+    for conn in (4, 8):
+        results.append(compare_kernel('dense batch {}-conn'.format(conn),
+                                      druns, drc, W, conn, dev))
     rng = np.random.default_rng(SEED)
     for t, h, w, r, dens in ((64, 922, 1228, 8192, 0.004),
                              (8, 700, 700, 131072, 0.3),
@@ -624,6 +636,29 @@ def assign_inputs(rng, r, c, k, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (obj, ov, det, dv))
 
 
+def assign_edge_inputs(rng, case, k, dev):
+    """Inputs that break the assign kernel's 16-row tiles and 64 column
+    slices: R and C no multiple of them (4097 x 4095), R = C = 1, C below
+    one slice set (700 x 63), exact ties between columns of different
+    slices (columns 3 and 4000, 10 and 75), all rows or all columns
+    invalid."""
+    r, c = {'4097x4095': (4097, 4095), '1x1': (1, 1),
+            '700x63': (700, 63)}.get(case, (4096, 4096))
+    obj, ov, det, dv = (a.cpu().numpy() for a in assign_inputs(rng, r, c, k,
+                                                              'cpu'))
+    if case == 'ties':
+        for row, (a, b) in enumerate(((3, 4000), (10, 75))):
+            det[b] = det[a]
+            dv[a] = dv[b] = True
+            obj[row] = det[a] + np.float32(0.25)
+            ov[row] = True
+    elif case == 'rows invalid':
+        ov[:] = False
+    elif case == 'columns invalid':
+        dv[:] = False
+    return tuple(torch.from_numpy(a).to(dev) for a in (obj, ov, det, dv))
+
+
 def hull_ops(row_valid):
     """Slope-matrix operations of the hull call: per non-empty component
     and chain, R x R pairs of two subtractions, a division and a compare."""
@@ -638,8 +673,9 @@ def sweep_ops(valid, k):
 
 
 def assign_ops(ov, dv, k):
-    """Distance operations of the assign call over the valid pairs: K
-    differences and K products/fmas, a sqrt and a compare."""
+    """Distance operations of the assign call, counted over every valid
+    pair whatever the kernel skips: K differences, K products/fmas, a sqrt
+    and a compare (the kernel takes the sqrt on few pairs)."""
     return int(ov.sum()) * int(dv.sum()) * (2 * k + 2)
 
 
@@ -697,6 +733,17 @@ def phase_dense_kernels(scene, settings, dev):
             if n == 4096:
                 log('assign {}x{} K={}: torch.cdist + .min(1) (two calls) '
                     '{:.4f} ms'.format(n, n, k, cdist_min_ms(args)))
+    for case in ('4097x4095', '1x1', '700x63', 'ties', 'rows invalid',
+                 'columns invalid'):
+        for k in (2, 3):
+            args = assign_edge_inputs(rng, case, k, dev)
+            assign.append(check_equal(
+                'assign edge case {} K={}'.format(case, k), row_min_argmin,
+                assignment.row_min_argmin_plain, args,
+                assign_ops(args[1], args[3], k), reps=3, plain_reps=1))
+            if case == 'ties' and \
+                    row_min_argmin(*args)[1][:2].tolist() != [3, 10]:
+                raise SystemExit('assign ties: the first column did not win')
     out['assign'] = (max(a[0] for a in assign),) + assign[0][1:]
     return out
 
@@ -1128,15 +1175,18 @@ def lists_from_packed(packed, counts, dev):
         ((packed >> 31) > 0) & valid))
 
 
-def lists_from_masks(masks, markers, dev):
-    """Raster-order pixel lists of (T, H, W) masks; F is the next power of
-    two above the largest frame's pixel count."""
+def lists_from_masks(masks, markers, dev, f=None):
+    """Raster-order pixel lists of (T, H, W) masks; F (by default the next
+    power of two above the largest frame's pixel count) cuts longer
+    frames."""
     t = masks.shape[0]
-    f = 1 << max(int(masks.reshape(t, -1).sum(1).max()) - 1, 1).bit_length()
+    f = f or 1 << max(int(masks.reshape(t, -1).sum(1).max()) - 1,
+                      1).bit_length()
     arrs = [np.zeros((t, f), np.int32), np.zeros((t, f), np.int32),
             np.zeros((t, f), bool), np.zeros((t, f), bool)]
     for i in range(t):
         ys, xs = np.nonzero(masks[i])
+        ys, xs = ys[:f], xs[:f]
         n = len(ys)
         arrs[0][i, :n], arrs[1][i, :n], arrs[2][i, :n] = xs, ys, True
         arrs[3][i, :n] = markers[i][ys, xs]
@@ -1192,8 +1242,10 @@ def compose_5_6(lists, double):
 
 
 def pixel_ops(lists):
-    """Operations of the pixel kernel: per valid slot and pass, a binary
-    search over about log2(w + 2) slots and a few neighbour tests."""
+    """Operations of the pixel function, a fixed count per valid slot and
+    pass: finding the upper neighbours among the about w + 2 slots before
+    it (log2(w + 2) comparisons) and a few neighbour tests. The bound is
+    the lists' bytes either way."""
     return int(lists[2].sum()) * 2 * (int(np.log2(W + 2)) + 8)
 
 
@@ -1235,6 +1287,36 @@ def check_pixels(name, lists, double):
     return err, ms, plain_ms, bnd, comp_ms
 
 
+#: list slots of the edge-case batch: no multiple of the kernel's
+#: 2048-slot tiles
+EDGE_F = 10000
+
+
+def edge_pixel_masks(rng):
+    """Frames that break the pixel kernel's tiling (2048-slot tiles with
+    the w + 1 slots before each as halo), one marker each where named:
+    0 full rows 0-2, so row 1's run crosses the tile boundary at slot
+    2048; 1 a full-width block of rows 300-307 (9824 px, five tiles) with
+    one marker, beside an unmarked blob; 2 empty; 3 exactly EDGE_F pixels
+    (a full list); 4 random ellipses cut at EDGE_F."""
+    masks = np.zeros((5, H, W), bool)
+    masks[0, :3] = True
+    masks[1, 300:308] = True
+    masks[1, 400:403, 100:141] = True
+    masks[3, :8] = True
+    masks[3, 8, :EDGE_F - 8 * W] = True
+    ell = np.zeros((H, W), np.uint8)
+    for _ in range(300):
+        cv2.ellipse(ell, (int(rng.integers(0, W)), int(rng.integers(0, H))),
+                    (int(rng.integers(1, 30)), int(rng.integers(1, 10))),
+                    float(rng.uniform(0, 180)), 0, 360, 1, -1)
+    masks[4] = ell > 0
+    markers = masks & (rng.random(masks.shape) < 0.01)
+    markers[:2] = False
+    markers[0, 1, 5] = markers[1, 303, 700] = True
+    return masks, markers
+
+
 def phase_pixel_kernel(scene, settings, dscene, dsettings, dev):
     """Phase a: the pixel kernel on the bench batch (single and double
     threshold), on the dense batch and on random blobs with the
@@ -1248,6 +1330,15 @@ def phase_pixel_kernel(scene, settings, dscene, dsettings, dev):
     blists = lists_from_masks(masks, markers, dev)
     check_pixels('pixels random blobs double', blists, True)
     check_pixels('pixels random blobs single', blists, False)
+    masks, markers = edge_pixel_masks(np.random.default_rng(SEED + 5))
+    elists = lists_from_masks(masks, markers, dev, f=EDGE_F)
+    counts = elists[2].sum(1).tolist()
+    if not (counts[2] == 0 and counts[3] == EDGE_F and
+            counts[1] > 4 * 2048 and counts[0] > 2048):
+        raise SystemExit('pixel edge lists: unexpected counts {}'.format(
+            counts))
+    check_pixels('pixels edge lists double', elists, True)
+    check_pixels('pixels edge lists single', elists, False)
     return main
 
 
@@ -1512,11 +1603,12 @@ def main():
         settings = bench_settings()
         scene = BenchScene()
         phase_build()
-        run_prop_check = phase_kernel(scene, settings, dev)
-        launches, frames, run_bytes = phase_main_path(scene, settings)
-        phase_clip(settings)
         dsettings = dense_settings()
         dscene = BenchScene(seed=DENSE_SEED, n_bugs=DENSE_BUGS)
+        run_prop_check = phase_kernel(scene, settings, dscene, dsettings,
+                                      dev)
+        launches, frames, run_bytes = phase_main_path(scene, settings)
+        phase_clip(settings)
         checks = phase_dense_kernels(dscene, dsettings, dev)
         t0 = time.perf_counter()
         dframes = [dscene.frame(t) for t in range(DENSE_FRAMES)]

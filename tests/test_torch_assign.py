@@ -88,8 +88,41 @@ def test_fma_f32_is_exact():
         assert abs(Fraction(float(got[i])) - exact) == min(errs), i
 
 
+def _edge_inputs(case, k):
+    """Inputs that break a tiling of the rows and a split of the columns:
+    ``unaligned`` R and C no multiple of the kernel's 16-row tiles or 64
+    column slices; ``one`` R = C = 1; ``narrow`` fewer columns than one
+    slice set; ``tie_far`` and ``tie_slice`` exact distance ties whose two
+    columns lie in different column slices (far apart, and 64 apart in
+    one thread's slice); ``rows_invalid`` and ``cols_invalid``."""
+    rng = np.random.default_rng(len(case) * 10 + k)
+    r, c = {'unaligned': (4097, 4095), 'one': (1, 1),
+            'narrow': (700, 63)}.get(case, (257, 1000))
+    obj, ov, det, dv = _inputs(rng, r, c, k)
+    if case.startswith('tie'):
+        pairs = ((3, 999), (10, 500), (0, 64)) if case == 'tie_far' else \
+            ((3, 67), (10, 138), (7, 71))
+        for row, (a, b) in enumerate(pairs):
+            det[b] = det[a]
+            dv[a] = dv[b] = True
+            # the duplicated detection is the row's nearest, a tie between
+            # columns a and b (the first must win)
+            obj[10 + row] = det[a] + np.float32(0.25)
+            ov[10 + row] = True
+    elif case == 'rows_invalid':
+        ov[:] = False
+    elif case == 'cols_invalid':
+        dv[:] = False
+    return obj, ov, det, dv
+
+
+EDGE_CASES = ['unaligned', 'one', 'narrow', 'tie_far', 'tie_slice',
+              'rows_invalid', 'cols_invalid']
+
+
 @pytest.mark.parametrize('k', [2, 3])
-@pytest.mark.parametrize('r,c', [(40, 17), (128, 96), (64, 3)])
+@pytest.mark.parametrize('r,c', [(40, 17), (128, 96), (64, 3), (4097, 4095),
+                                 (1, 1), (700, 63)])
 def test_row_min_argmin_bit_equal_to_jitted_xla(k, r, c):
     obj, ov, det, dv = _inputs(np.random.default_rng(r + c + k), r, c, k)
     ref_min, ref_arg = _jax_min_argmin(obj, ov, det, dv)
@@ -99,6 +132,8 @@ def test_row_min_argmin_bit_equal_to_jitted_xla(k, r, c):
                                       torch.from_numpy(dv))
     np.testing.assert_array_equal(got_min.numpy(), ref_min)
     np.testing.assert_array_equal(got_arg.numpy(), ref_arg)
+    if r * c > 1 << 16:
+        return
     # the full matrix of the port equals XLA's too
     np.testing.assert_array_equal(
         asg.pairwise_distances(torch.from_numpy(obj), torch.from_numpy(ov),
@@ -168,25 +203,45 @@ def test_greedy_assign_matches_jax(seed):
                                   got['row_to_col'].numpy())
 
 
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('case', EDGE_CASES)
+def test_row_min_argmin_edge_cases_bit_equal_to_jitted_xla(case, k):
+    """Ties across column slices and all-invalid rows or columns: row
+    minima and first minimal columns equal XLA's."""
+    obj, ov, det, dv = _edge_inputs(case, k)
+    ref_min, ref_arg = _jax_min_argmin(obj, ov, det, dv)
+    got_min, got_arg = row_min_argmin(*(torch.from_numpy(a)
+                                        for a in (obj, ov, det, dv)))
+    np.testing.assert_array_equal(got_min.numpy(), ref_min)
+    np.testing.assert_array_equal(got_arg.numpy(), ref_arg)
+    if case.startswith('tie'):
+        assert got_arg.numpy()[10:13].tolist() == \
+            ([3, 10, 0] if case == 'tie_far' else [3, 10, 7])
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_cuda():
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('case', ['mixed'] + EDGE_CASES)
+def test_kernel_matches_plain_on_cuda(case, k):
     """The assign kernel against its plain version on the card, bit for
-    bit, K = 2 and 3, with invalid rows and columns and exact ties; one
-    launch counted per call. Runs on a machine with an NVIDIA GPU (see
-    README)."""
+    bit, K = 2 and 3: invalid rows and columns and exact ties at three
+    shapes (``mixed``), and the edge cases of the row tiles and column
+    slices; one launch counted per call. Runs on a machine with an NVIDIA
+    GPU (see README)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
     dev = torch.device('cuda')
-    for k in (2, 3):
-        for r, c in ((1000, 1500), (3, 700), (513, 1)):
-            obj, ov, det, dv = _inputs(np.random.default_rng(r * k), r, c, k)
-            args = [torch.from_numpy(a) for a in (obj, ov, det, dv)]
-            plain = row_min_argmin(*args)
-            before = row_min_argmin.launches
-            got = row_min_argmin(*(a.to(dev) for a in args))
-            torch.cuda.synchronize()
-            assert row_min_argmin.launches == before + 1
-            np.testing.assert_array_equal(got[0].cpu().numpy(),
-                                          plain[0].numpy())
-            np.testing.assert_array_equal(got[1].cpu().numpy(),
-                                          plain[1].numpy())
+    inputs = [_inputs(np.random.default_rng(r * k), r, c, k)
+              for r, c in ((1000, 1500), (3, 700), (513, 1))] \
+        if case == 'mixed' else [_edge_inputs(case, k)]
+    for obj, ov, det, dv in inputs:
+        args = [torch.from_numpy(a) for a in (obj, ov, det, dv)]
+        plain = row_min_argmin(*args)
+        before = row_min_argmin.launches
+        got = row_min_argmin(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        assert row_min_argmin.launches == before + 1
+        np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                      plain[0].numpy())
+        np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                      plain[1].numpy())

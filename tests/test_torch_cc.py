@@ -305,18 +305,106 @@ def test_cc_labels_at_pixels_plain_steps_and_cap():
     assert steps.tolist()[0] == 8 and steps.tolist()[1] < 8
 
 
+def _edge_pixel_case(case):
+    """Pixel lists that break the kernel's tiling (tiles of 2048 slots with
+    a halo of the w + 1 slots before each): ``run_across_tile`` horizontal
+    runs over a tile boundary; ``wide_component`` one component over four
+    tiles (full-width rows of a 1228-px frame) beside an unmarked one;
+    ``f_unaligned`` F no multiple of the tile; ``empty_frame`` a frame with
+    no pixel between two others; ``full_list`` frames whose F slots are all
+    valid; ``wide_frame`` 9000-px rows, whose halo needs more than 48 kB of
+    shared memory. Returns (masks, markers, f)."""
+    rng = np.random.default_rng(len(case))
+    if case == 'run_across_tile':
+        # rows of 300 px: slot 2048 lies inside row 6's run
+        masks = np.zeros((2, 12, 300), bool)
+        masks[:, :10] = rng.random((2, 10, 300)) < 0.97
+        masks[1, 5:7, 240:260] = True
+        f = 4096
+    elif case == 'wide_component':
+        masks = np.zeros((2, 10, 1228), bool)
+        masks[:, 2:8] = True
+        masks[:, 9, 100:140] = True
+        masks[1, 4, 600] = False
+        f = 8192
+    elif case == 'f_unaligned':
+        masks = rng.random((3, 64, 80)) < 0.5
+        f = 3000
+    elif case == 'wide_frame':
+        masks = rng.random((2, 6, 9000)) < 0.6
+        f = 40000
+    elif case == 'empty_frame':
+        masks = _masks(22, t=3, h=96, w=128)
+        masks[1] = False
+        f = 4096
+    else:
+        masks = _masks(23, t=2, h=96, w=128)
+        masks[:, 40:, :] = True
+        f = 2500
+    markers = masks & (rng.random(masks.shape) < 0.002)
+    if case == 'wide_component':
+        markers[:, 5, 700] = True
+        markers[:, 9] = False
+    return masks, markers, f
+
+
+PIXEL_EDGE_CASES = ['run_across_tile', 'wide_component', 'f_unaligned',
+                    'empty_frame', 'full_list', 'wide_frame']
+
+
+@pytest.mark.parametrize('double', [True, False])
+@pytest.mark.parametrize('case', PIXEL_EDGE_CASES)
+def test_cc_labels_at_pixels_plain_on_edge_lists(case, double):
+    """The plain version against scipy on the lists that break the
+    kernel's tiling, on every frame where its labelings converged; the
+    cases hold what they name."""
+    masks, markers, f = _edge_pixel_case(case)
+    h, w = masks.shape[1:]
+    lists = _pixel_lists(masks, markers, f)
+    lab, keep, steps = cc.cc_labels_at_pixels_plain(
+        *(torch.from_numpy(a) for a in lists), h=h, w=w,
+        double_threshold=double, max_iters=MAX_ITERS)
+    s_lab, s_keep = _scipy_pixel_labels(masks, markers, *lists[:3], double)
+    conv = (steps < MAX_ITERS).numpy()
+    assert conv.any()
+    np.testing.assert_array_equal(lab.numpy()[conv], s_lab[conv])
+    np.testing.assert_array_equal(keep.numpy()[conv], s_keep[conv])
+    n_valid = lists[2].sum(1)
+    if case == 'run_across_tile':
+        xs, ys = lists[0][0], lists[1][0]
+        assert ys[2047] == ys[2048] and xs[2048] == xs[2047] + 1
+    elif case == 'wide_component':
+        assert (s_lab[0, :6 * w] == 2 * w).all()
+        assert n_valid.min() > 3 * 2048
+    elif case == 'f_unaligned':
+        assert f % 2048 and 2048 < n_valid.max() < f
+    elif case == 'wide_frame':
+        assert w == 9000 and n_valid.min() > 3 * 2048
+    elif case == 'empty_frame':
+        assert n_valid[1] == 0 and n_valid[0] > 0 and n_valid[2] > 0
+    else:
+        assert (n_valid == f).all()
+
+
 @pytest.mark.cuda
-def test_cc_labels_at_pixels_kernel_matches_plain_and_scipy_on_cuda():
+@pytest.mark.parametrize('case', ['blobs'] + PIXEL_EDGE_CASES)
+def test_cc_labels_at_pixels_kernel_matches_plain_and_scipy_on_cuda(case):
     """The kernel against scipy on every frame (the serpentine beyond the
     plain version's cap included) and against the plain version where
-    that converged, single and double threshold; one launch counted per
-    call. Runs on a machine with an NVIDIA GPU (see README)."""
+    that converged, single and double threshold, on random blobs and on
+    the lists that break its tiling; one launch counted per call. Runs on
+    a machine with an NVIDIA GPU (see README)."""
     dev = _cuda()
-    h, w, f = 96, 128, 8192
-    masks = np.concatenate([_masks(8, t=4, h=h, w=w),
-                            np.zeros((1, h, w), bool),
-                            snake_mask(h, w)[None]])
-    markers = masks & (np.random.default_rng(9).random(masks.shape) < 0.01)
+    if case == 'blobs':
+        h, w, f = 96, 128, 8192
+        masks = np.concatenate([_masks(8, t=4, h=h, w=w),
+                                np.zeros((1, h, w), bool),
+                                snake_mask(h, w)[None]])
+        markers = masks & (np.random.default_rng(9).random(masks.shape) <
+                           0.01)
+    else:
+        masks, markers, f = _edge_pixel_case(case)
+        h, w = masks.shape[1:]
     lists = _pixel_lists(masks, markers, f)
     args = [torch.from_numpy(a).to(dev) for a in lists]
     for double in (True, False):
@@ -332,7 +420,8 @@ def test_cc_labels_at_pixels_kernel_matches_plain_and_scipy_on_cuda():
         p_lab, p_keep, steps = cc.cc_labels_at_pixels_plain(
             *args, h=h, w=w, double_threshold=double)
         conv = (steps < MAX_ITERS).cpu().numpy()
-        assert conv[:5].all() and not conv[5]
+        if case == 'blobs':
+            assert conv[:5].all() and not conv[5]
         np.testing.assert_array_equal(lab.cpu().numpy()[conv],
                                       p_lab.cpu().numpy()[conv])
         np.testing.assert_array_equal(keep.cpu().numpy()[conv],

@@ -165,7 +165,7 @@ def load_kernels():
     lib.ysmr_cc_reconstruct.restype = ci
     lib.ysmr_cc_reconstruct.argtypes = [vp] * 5 + [ci, ci, ci, ci, vp]
     lib.ysmr_cc_pixels.restype = ci
-    lib.ysmr_cc_pixels.argtypes = [vp] * 9 + [ci] * 6 + [vp]
+    lib.ysmr_cc_pixels.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

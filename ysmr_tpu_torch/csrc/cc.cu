@@ -54,32 +54,48 @@
 // minimum linear index y*w + x of its 8-connected component among the kept
 // pixels (-1 for the others). The TPU kernel rasterizes the list into a
 // frame-sized VMEM buffer and runs the stencil there. Here the union-find
-// runs over the list itself, one thread per (frame, slot), so nothing of
-// frame size is touched:
-//   - a pixel's left neighbour is slot i - 1 when its lin is lin - 1; its
-//     upper neighbours (lin - w - 1 .. lin - w + 1) are found by a binary
-//     search over slots [i - w - 1, i): the lins in between are distinct
-//     integers of one row's span. No lin -> slot map is built, so there is
-//     none to clear: a frame-sized map would be 64 x 1,132,216 x 4 B =
-//     290 MB per 64-frame 1228x922 batch to memset (~87 us at 3.35 TB/s,
-//     over 30x the ~2.3 us the pixel lists themselves need), and resetting
-//     it at the listed positions would keep frame-sized state alive
-//     between calls;
-//   - unions link the larger root under the smaller slot with atomicMin, as
-//     above, so each root is its component's first slot, whose lin is the
-//     minimum (raster order); the labels are schedule-independent;
-//   - passes: init (lin, parent = slot, flag = 0, keep = valid), then with
-//     the double threshold merge over 4-neighbours of the valid pixels,
-//     compress with flag[root] = 1 for marker pixels, and keep = valid &
-//     flag[root] with the parents reset; then merge over the 8-neighbours
-//     of the kept pixels and a final pass that writes lin[root] or -1.
+// runs over the list itself, so nothing of frame size is touched (a
+// lin -> slot map would be 290 MB per 64-frame 1228x922 batch to clear,
+// over 30x the lists' own bytes). Design, with the double threshold a
+// memset and four launches (without it, a memset and two):
+//   - a forest over the slots of a frame is stored as distances: parent(x)
+//     = x - d[x], d = 0 at a root, so the zeroed array is the forest of
+//     singletons and needs no init pass; unions link the larger root under
+//     the smaller slot, so parents only decrease and each root is its
+//     component's first slot, whose lin is the minimum (raster order); the
+//     labels are schedule-independent;
+//   - px_merge: one block per (frame, tile of 2048 slots), of 512 threads
+//     when the tiles are few and of 256 otherwise.
+//     It stages in shared memory the lins of the tile and of its halo, the
+//     w + 1 slots before it, with their active flags: every upper neighbour
+//     (lin - w - 1 .. lin - w + 1) of a tile pixel lies there, because the
+//     lins in between are distinct integers of one row's span. The left
+//     neighbour is the previous slot when its lin is lin - 1. The first
+//     staged lin >= lin - w - 1 grows by at most one a slot along a
+//     horizontal run: the lanes of a warp take 32 consecutive slots, the
+//     lane that starts a run searches the w + 1 staged slots before it,
+//     and the run's other lanes search only the k slots after its result
+//     (k their offset in the run); no pixel searches global memory.
+//     The diagonal unions are skipped when the pixel straight above is
+//     present, and up-left when the left neighbour is (cc_merge's rule).
+//     Unions inside the tile run on a shared-memory forest of local
+//     indices; its trees then enter the frame's forest with one atomicMax a
+//     pixel, and only edges into the halo unite through global memory;
+//   - px_compress_mark: each valid slot points straight at its 4-connected
+//     root, and a marker pixel sets the root's mark bit;
+//   - px_merge over the 8-neighbours of the kept pixels (valid, with a
+//     marked root, read from the compressed 4-connected forest); it writes
+//     keep;
+//   - px_final: the lin of the 8-connected root, or -1.
 // Contract: the valid pixels of each frame form a prefix of its list, with
-// strictly ascending lin (every wire of the pipeline gives that). The TPU
-// kernel stops after max_iters stencil steps; this one always reaches the
-// fixpoint. Bound: the lists, 15 bytes a slot (x, y int32, two bools in;
-// int32 label and bool out), ~7.9 MB per 64 x 8192 batch (~2.3 us) and
-// ~126 MB at F = 131072 (~38 us); at the bench size the six launches cost
-// more than the bytes.
+// strictly ascending lin (every wire of the pipeline gives that); the tile
+// and its halo fit in shared memory (w <= 42,802). The TPU kernel stops
+// after max_iters stencil steps; this one always reaches the fixpoint.
+// Bound: the lists, 15 bytes a slot (x, y int32, two bools in; int32 label
+// and bool out), ~7.9 MB per 64 x 8192 batch (~2.3 us) and ~126 MB at
+// F = 131072 (~38 us). The kernels read more: the halo (up to 1.6x the
+// tile's lins), the forests (8 bytes a slot, one memset) and the root
+// walks; at the bench size the launches cost more than the bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -192,103 +208,359 @@ unsigned blocks_for(int64_t total) {
 
 // ---- pixel lists (ysmr_cc_pixels) ----
 
-__global__ void __launch_bounds__(kThreads)
-px_init(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
-        const uint8_t* __restrict__ valid, int32_t* __restrict__ lin,
-        int32_t* __restrict__ parent, uint8_t* __restrict__ flag,
-        uint8_t* __restrict__ keep, int64_t total, int f, int h, int w) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total) return;
-  // coordinates clamped into the frame, as the TPU kernel addresses them
-  const int x = min(max(xs[idx], 0), w - 1);
-  const int y = min(max(ys[idx], 0), h - 1);
-  lin[idx] = y * w + x;
-  parent[idx] = static_cast<int32_t>(idx % f);
-  flag[idx] = 0;
-  keep[idx] = valid[idx];
+constexpr int kTile = 2048;                      // slots per px_merge block
+// threads of a px_merge block: 512 where the tiles are few (a short list
+// per frame) and each block's latency is the call's, else 256
+constexpr int kTileThreadsFew = 512;
+constexpr int kTileThreadsMany = 256;
+constexpr int kMaxSmem = 232448;                 // a block's limit on Hopper
+constexpr int32_t kDist = 0x7fffffff;            // d[x] without the mark bit
+constexpr int32_t kMark = static_cast<int32_t>(0x80000000u);
+
+size_t merge_smem(int w) {
+  return static_cast<size_t>(kTile) * 4 +
+         static_cast<size_t>(w + 1 + kTile) * 5;
 }
 
-// unites slot i with its active neighbours among the earlier slots
-template <int kConn>
-__global__ void __launch_bounds__(kThreads)
-px_merge(const uint8_t* __restrict__ active, const int32_t* __restrict__ lin,
-         int32_t* parent, int64_t total, int f, int w) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total || !active[idx]) return;
-  const int64_t base = idx - idx % f;
-  const int32_t i = static_cast<int32_t>(idx - base);
-  const int32_t* l = lin + base;
-  const uint8_t* a = active + base;
-  int32_t* p = parent + base;
-  const int32_t v = l[i];
-  const int y = v / w;
-  const int x = v - y * w;
-  if (x > 0 && i > 0 && l[i - 1] == v - 1 && a[i - 1]) unite(p, i, i - 1);
-  if (y == 0) return;
-  const int32_t t_lo = v - w - (kConn == 8 && x > 0 ? 1 : 0);
-  const int32_t t_hi = v - w + (kConn == 8 && x + 1 < w ? 1 : 0);
-  // first slot with lin >= t_lo: at most w + 1 distinct lins lie in
-  // [t_lo, v), so it is no earlier than i - w - 1
-  int32_t lo = max(0, i - w - 1);
-  int32_t hi = i;
+// root of slot x in a distance forest (parent(x) = x - (d[x] & kDist))
+__device__ __forceinline__ int32_t px_root(const volatile int32_t* d,
+                                           int32_t x) {
+  int32_t s = d[x] & kDist;
+  while (s != 0) {
+    x -= s;
+    s = d[x] & kDist;
+  }
+  return x;
+}
+
+// unite on a distance forest without marks: link the larger root a under b
+// by raising d[a] to a - b; if a stopped being a root meanwhile, its new
+// parent still has to join b (as unite above)
+__device__ void px_unite(int32_t* d, int32_t a, int32_t b) {
+  const volatile int32_t* v = d;
+  while (true) {
+    a = px_root(v, a);
+    b = px_root(v, b);
+    if (a == b) return;
+    if (a < b) {
+      const int32_t t = a;
+      a = b;
+      b = t;
+    }
+    const int32_t old = atomicMax(d + a, a - b);
+    if (old == 0) return;
+    a -= old;
+  }
+}
+
+__device__ __forceinline__ int32_t px_lin(const int32_t* __restrict__ xs,
+                                          const int32_t* __restrict__ ys,
+                                          int64_t g, int h, int w) {
+  // coordinates clamped into the frame, as the TPU kernel addresses them
+  const int x = min(max(xs[g], 0), w - 1);
+  const int y = min(max(ys[g], 0), h - 1);
+  return y * w + x;
+}
+
+// first index in [lo, hi) whose staged lin is >= target, or hi
+__device__ __forceinline__ int32_t lower_bound(const int32_t* s_lin,
+                                               int32_t lo, int32_t hi,
+                                               int32_t target) {
   while (lo < hi) {
     const int32_t mid = (lo + hi) >> 1;
-    if (l[mid] < t_lo) {
+    if (s_lin[mid] < target) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  for (int32_t j = lo; j < i && l[j] <= t_hi; ++j) {
-    if (a[j]) unite(p, i, j);
+  return lo;
+}
+
+// Slot li = q * kBlock + tid of a tile, so the lanes of a warp hold
+// 32 consecutive slots. A lane starts a run when its slot is not the
+// right neighbour (in the same image row) of the previous slot of the
+// warp; `src` is the lane that starts the caller's run.
+struct RunLane {
+  bool in;         // li < n
+  int32_t v;       // staged lin (INT32_MAX past the tile)
+  bool start;
+  int src;
+};
+
+__device__ __forceinline__ RunLane run_lane(const int32_t* s_lin, int li,
+                                            int n, int hl, int w) {
+  const int lane = threadIdx.x & 31;
+  RunLane r;
+  r.in = li < n;
+  const int si = hl + li;
+  r.v = r.in ? s_lin[si] : INT32_MAX;
+  r.start = !r.in || lane == 0 || r.v % w == 0 || s_lin[si - 1] != r.v - 1;
+  const unsigned starts = __ballot_sync(0xffffffffu, r.start);
+  r.src = 31 - __clz(starts & (0xffffffffu >> (31 - lane)));
+  return r;
+}
+
+// The unions of the tile's active slots with their earlier neighbours:
+// into the tile on the shared forest (kHalo false), or into the halo on
+// the frame's forest `df` (kHalo true); the slots of a run within a warp
+// are linked to its first slot beforehand. The upper neighbours of a slot
+// start at the first staged lin >= lin - w - 1, which grows by at most
+// one per slot along a horizontal run: the lane that starts a run (within
+// the warp) searches the w + 1 staged slots before it, and the other
+// lanes of the run search only the k slots after that lane's result (k
+// their offset in the run), taken with a shuffle. An edge that the left
+// neighbour's own edges already imply is skipped: the pixels of a run
+// meet an upper run once, not once a pixel.
+template <int kConn, bool kHalo, int kBlock>
+__device__ void px_edges(const int32_t* s_lin, const uint8_t* s_act,
+                         int32_t* s_par, int32_t* df, int n, int hl, int t0,
+                         int s0, int w) {
+  const unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int32_t first_lin = s_lin[hl];
+  for (int q = 0; q < kTile / kBlock; ++q) {
+    const int li = q * kBlock + threadIdx.x;
+    const int si = hl + li;
+    const RunLane run = run_lane(s_lin, li, n, hl, w);
+    const bool in = run.in;
+    const int32_t v = run.v;
+    if (kHalo) {
+      // only the tile's first slot and the slots whose upper neighbours
+      // may lie before the tile (a prefix of the tile) reach the halo
+      const bool need = in && (li == 0 || v - w - 1 < first_lin);
+      if (__ballot_sync(kAll, need) == 0) return;
+    }
+    const bool run_start = run.start;
+    const int src = run.src;
+    const int32_t target = v - w - 1;
+    int32_t p = 0;
+    if (run_start && in) {
+      p = lower_bound(s_lin, max(0, si - w - 1), si, target);
+    }
+    const int32_t p_run = __shfl_sync(kAll, p, src);
+    if (!run_start) {
+      // the k upper slots after p_run are usually all below the target (a
+      // full run above): one load decides it
+      const int32_t hi = min(si, p_run + lane - src);
+      p = s_lin[hi - 1] < target ? hi : lower_bound(s_lin, p_run, hi, target);
+    }
+    if (!in || !s_act[si]) continue;
+    const int y = v / w;
+    const int x = v - y * w;
+    const bool left = x > 0 && si > 0 && s_lin[si - 1] == v - 1 &&
+                      s_act[si - 1];
+    // the neighbours to unite with, at most two: a run's later slots in the
+    // warp are linked to its first already
+    int nb0 = -1, nb1 = -1;
+    auto add = [&](int j) {
+      if (nb0 < 0) {
+        nb0 = j;
+      } else {
+        nb1 = j;
+      }
+    };
+    if (left && run_start) add(si - 1);
+    if (y > 0) {
+      // lins v - w - 1, v - w, v - w + 1 are at p, p + 1, p + 2 at most
+      // (-1: absent or inactive)
+      int j = p, up = -1, up_left = -1, up_right = -1;
+      if (j < si && s_lin[j] == target) {
+        up_left = s_act[j] ? j : -1;
+        ++j;
+      }
+      if (j < si && s_lin[j] == target + 1) {
+        up = s_act[j] ? j : -1;
+        ++j;
+      }
+      if (j < si && s_lin[j] == target + 2 && s_act[j]) up_right = j;
+      if (up >= 0) {
+        // up-left and up-right are up's horizontal neighbours, united
+        // there; with left active, left reaches up through its own up (4-
+        // and 8-connected) or its up-right (8-connected)
+        if (!left || (kConn == 4 && up_left < 0)) add(up);
+      } else if (kConn == 8) {
+        // with left active, up-left is left's upper neighbour
+        if (up_left >= 0 && x > 0 && !left) add(up_left);
+        if (up_right >= 0 && x + 1 < w) add(up_right);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int sj = e == 0 ? nb0 : nb1;
+      if (sj < 0) break;
+      if (kHalo) {
+        if (sj < hl) px_unite(df, t0 + li, s0 + sj);
+      } else if (sj >= hl) {
+        unite(s_par, li, sj - hl);
+      }
+    }
   }
 }
 
-// 4-connected roots; flag[root] = 1 for every marker pixel
-__global__ void __launch_bounds__(kThreads)
-px_compress_mark(const uint8_t* __restrict__ valid,
-                 const uint8_t* __restrict__ marker, int32_t* parent,
-                 uint8_t* __restrict__ flag, int64_t total, int f) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total || !valid[idx]) return;
-  const int64_t base = idx - idx % f;
-  const int32_t root = find_root(parent + base,
-                                 static_cast<int32_t>(idx - base));
-  parent[idx] = root;
-  if (marker[idx]) flag[base + root] = 1;
+// the slot is valid and its 4-connected root (one hop after
+// px_compress_mark) carries the mark bit
+__device__ __forceinline__ bool px_marked(const int32_t* __restrict__ dm,
+                                          int32_t j) {
+  return dm[j - (dm[j] & kDist)] < 0;
 }
 
-// keep = valid & flag[root]; the parents restart for the 8-connected pass
-// (each thread reads and writes only its own slot here)
-__global__ void __launch_bounds__(kThreads)
-px_keep(const uint8_t* __restrict__ valid, const uint8_t* __restrict__ flag,
-        int32_t* __restrict__ parent, uint8_t* __restrict__ keep,
-        int64_t total, int f) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total) return;
-  const int64_t base = idx - idx % f;
-  keep[idx] = valid[idx] && flag[base + parent[idx]];
-  parent[idx] = static_cast<int32_t>(idx - base);
-}
-
-__global__ void __launch_bounds__(kThreads)
-px_final(const uint8_t* __restrict__ keep, const int32_t* __restrict__ lin,
-         const int32_t* parent, int32_t* __restrict__ labels, int64_t total,
-         int f) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total) return;
-  if (!keep[idx]) {
-    labels[idx] = -1;
+// unions of one (tile, frame) = (blockIdx.x, blockIdx.y) over the kConn
+// neighbours among the active slots: valid ones, or with `marks` (the
+// compressed 4-connected forest) valid ones with a marked root. Writes
+// keep (when given) and zeroes d_next (when given) on the tile's slots.
+template <int kConn, int kBlock>
+__global__ void __launch_bounds__(kBlock)
+px_merge(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
+         const uint8_t* __restrict__ valid, const int32_t* __restrict__ marks,
+         int32_t* d, int32_t* __restrict__ d_next, uint8_t* __restrict__ keep,
+         int f, int h, int w) {
+  extern __shared__ int32_t smem[];
+  const int halo = w + 1;
+  int32_t* s_par = smem;                         // kTile local parents
+  int32_t* s_lin = smem + kTile;                 // halo + kTile lins
+  uint8_t* s_act = reinterpret_cast<uint8_t*>(s_lin + halo + kTile);
+  const int t0 = blockIdx.x * kTile;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * f;
+  const int n = min(kTile, f - t0);
+  const int hl = min(t0, halo);
+  const int s0 = t0 - hl;
+  if (!valid[base + t0]) {
+    // the valid slots are a prefix: nothing of this tile is active
+    if (keep != nullptr) {
+      for (int k = threadIdx.x; k < n; k += kBlock) {
+        keep[base + t0 + k] = 0;
+      }
+    }
     return;
   }
-  const int64_t base = idx - idx % f;
-  labels[idx] = lin[base + find_root(parent + base,
-                                     static_cast<int32_t>(idx - base))];
+  const int32_t* dm = marks == nullptr ? nullptr : marks + base;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < hl + n; k += kBlock) {
+    const int64_t g = base + s0 + k;
+    const bool ok = valid[g];
+    // past the valid prefix INT32_MAX keeps s_lin sorted
+    s_lin[k] = ok ? px_lin(xs, ys, g, h, w) : INT32_MAX;
+    s_act[k] = ok && (dm == nullptr || px_marked(dm, s0 + k));
+  }
+  __syncthreads();
+  for (int q = 0; q < kTile / kBlock; ++q) {
+    // each slot's parent is the first slot of its run within the warp
+    const int li = q * kBlock + threadIdx.x;
+    const RunLane run = run_lane(s_lin, li, n, hl, w);
+    if (!run.in) continue;
+    s_par[li] = s_act[hl + li] ? li - ((threadIdx.x & 31) - run.src) : li;
+    if (d_next != nullptr) d_next[base + t0 + li] = 0;
+    if (keep != nullptr) keep[base + t0 + li] = s_act[hl + li];
+  }
+  __syncthreads();
+  px_edges<kConn, false, kBlock>(s_lin, s_act, s_par, nullptr, n, hl, t0,
+                                 s0, w);
+  __syncthreads();
+  // the tile's trees into the frame's forest; a slot that another block
+  // linked meanwhile (a halo slot of a later tile) keeps the lower parent,
+  // and the other one joins it
+  int32_t* df = d + base;
+  for (int k = threadIdx.x; k < n; k += kBlock) {
+    if (!s_act[hl + k]) continue;
+    const int32_t r = find_root(s_par, k);
+    if (r == k) continue;
+    const int32_t a = t0 + k, b = t0 + r;
+    const int32_t old = atomicMax(df + a, a - b);
+    if (old != 0 && old != a - b) px_unite(df, a - old, b);
+  }
+  if (hl > 0) {
+    px_edges<kConn, true, kBlock>(s_lin, s_act, s_par, df, n, hl, t0, s0, w);
+  }
+}
+
+constexpr int kSlotsPerThread = 4;
+
+unsigned slot_blocks(int f, int t) {
+  return static_cast<unsigned>(
+      (static_cast<int64_t>(f) * t + kThreads * kSlotsPerThread - 1) /
+      (kThreads * kSlotsPerThread));
+}
+
+// px_compress_mark and px_final: thread x of block b takes the four slots
+// b * 1024 + x + 256 j (which may lie in two frames) and walks their four
+// roots in lock step, so the loads of the walks are in flight together
+
+// every valid slot points straight at its 4-connected root; a marker pixel
+// sets the root's mark bit (roots are written by the atomics only; a walk
+// that reads a slot before or after its rewrite meets an ancestor either
+// way)
+__global__ void __launch_bounds__(kThreads)
+px_compress_mark(const uint8_t* __restrict__ valid,
+                 const uint8_t* __restrict__ marker, int32_t* d,
+                 int64_t total, int f) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads *
+                        kSlotsPerThread + threadIdx.x;
+  int64_t base[4];
+  int32_t i[4], x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t idx = first + j * kThreads;
+    const bool ok = idx < total && valid[idx];
+    base[j] = idx - idx % f;
+    i[j] = static_cast<int32_t>(idx - base[j]);
+    x[j] = ok ? i[j] : -1;
+  }
+  int32_t s[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = x[j] < 0 ? 0 : d[base[j] + x[j]] & kDist;
+  while (s[0] | s[1] | s[2] | s[3]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (s[j] != 0) {
+        x[j] -= s[j];
+        s[j] = d[base[j] + x[j]] & kDist;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (x[j] < 0) continue;
+    int32_t* df = d + base[j];
+    if (x[j] != i[j]) df[i[j]] = i[j] - x[j];
+    if (marker[base[j] + i[j]]) atomicOr(df + x[j], kMark);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+px_final(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
+         const uint8_t* __restrict__ keep, const int32_t* __restrict__ d,
+         int32_t* __restrict__ labels, int64_t total, int f, int h, int w) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads *
+                        kSlotsPerThread + threadIdx.x;
+  int64_t base[4];
+  int32_t x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t idx = first + j * kThreads;
+    const bool ok = idx < total && keep[idx];
+    base[j] = idx - idx % f;
+    x[j] = ok ? static_cast<int32_t>(idx - base[j]) : -1;
+    if (idx < total && !ok) labels[idx] = -1;
+  }
+  int32_t s[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = x[j] < 0 ? 0 : d[base[j] + x[j]];
+  while (s[0] | s[1] | s[2] | s[3]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (s[j] != 0) {
+        x[j] -= s[j];
+        s[j] = d[base[j] + x[j]];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (x[j] >= 0) {
+      labels[first + j * kThreads] = px_lin(xs, ys, base[j] + x[j], h, w);
+    }
+  }
 }
 
 // init + merge + compress on `lab`; marker/flag as in cc_compress
@@ -350,36 +622,79 @@ int ysmr_cc_reconstruct(const void* mask, const void* marker, void* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
-// px_x, px_y: (T, F) int32; valid, marker: (T, F) uint8 (0/1); lin, parent:
-// (T, F) int32 scratch; flag: (T, F) uint8 scratch; labels: (T, F) int32
-// out; keep: (T, F) uint8 out. H * W < 2^31. Returns a cudaError_t.
+// px_x, px_y: (T, F) int32; valid, marker: (T, F) uint8 (0/1); forest:
+// (2, T, F) int32 scratch with the double threshold, (1, T, F) without;
+// labels: (T, F) int32 out; keep: (T, F) uint8 out. H * W < 2^31 and
+// W <= 42,802 (the tile and its halo in shared memory). Returns a
+// cudaError_t (cudaErrorInvalidValue for a wider frame).
 int ysmr_cc_pixels(const void* px_x, const void* px_y, const void* valid,
-                   const void* marker, void* lin, void* parent, void* flag,
-                   void* labels, void* keep, int t, int f, int h, int w,
-                   int double_threshold, int device, void* stream) {
+                   const void* marker, void* forest, void* labels, void* keep,
+                   int t, int f, int h, int w, int double_threshold,
+                   int device, void* stream) {
   if (t <= 0 || f <= 0 || h <= 0 || w <= 0) return 0;
+  const size_t smem = merge_smem(w);
+  if (smem > static_cast<size_t>(kMaxSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 tiles(static_cast<unsigned>((f + kTile - 1) / kTile),
+                   static_cast<unsigned>(t));
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool few = static_cast<int64_t>(tiles.x) * tiles.y < 4 * sms;
+  if (smem > 48 * 1024) {
+    const void* merges[] = {
+        reinterpret_cast<const void*>(&px_merge<4, kTileThreadsFew>),
+        reinterpret_cast<const void*>(&px_merge<8, kTileThreadsFew>),
+        reinterpret_cast<const void*>(&px_merge<4, kTileThreadsMany>),
+        reinterpret_cast<const void*>(&px_merge<8, kTileThreadsMany>)};
+    for (const void* fn : merges) {
+      err = cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t total = static_cast<int64_t>(t) * f;
-  const unsigned blocks = blocks_for(total);
+  const int32_t* xs = static_cast<const int32_t*>(px_x);
+  const int32_t* ys = static_cast<const int32_t*>(px_y);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
-  int32_t* l = static_cast<int32_t*>(lin);
-  int32_t* p = static_cast<int32_t*>(parent);
-  uint8_t* fl = static_cast<uint8_t*>(flag);
+  int32_t* d4 = static_cast<int32_t*>(forest);
+  int32_t* d8 = double_threshold ? d4 + total : d4;
   uint8_t* k = static_cast<uint8_t*>(keep);
-  px_init<<<blocks, kThreads, 0, s>>>(static_cast<const int32_t*>(px_x),
-                                      static_cast<const int32_t*>(px_y), v,
-                                      l, p, fl, k, total, f, h, w);
+  // the forest merged first starts as singletons; px_merge<4> zeroes d8
+  err = cudaMemsetAsync(d4, 0, static_cast<size_t>(total) * 4, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint8_t* mk = static_cast<const uint8_t*>(marker);
+  auto merge = [&](int conn, const int32_t* marks, int32_t* d,
+                   int32_t* d_next, uint8_t* keep_out) {
+    if (few && conn == 4) {
+      px_merge<4, kTileThreadsFew><<<tiles, kTileThreadsFew, smem, s>>>(
+          xs, ys, v, marks, d, d_next, keep_out, f, h, w);
+    } else if (few) {
+      px_merge<8, kTileThreadsFew><<<tiles, kTileThreadsFew, smem, s>>>(
+          xs, ys, v, marks, d, d_next, keep_out, f, h, w);
+    } else if (conn == 4) {
+      px_merge<4, kTileThreadsMany><<<tiles, kTileThreadsMany, smem, s>>>(
+          xs, ys, v, marks, d, d_next, keep_out, f, h, w);
+    } else {
+      px_merge<8, kTileThreadsMany><<<tiles, kTileThreadsMany, smem, s>>>(
+          xs, ys, v, marks, d, d_next, keep_out, f, h, w);
+    }
+  };
   if (double_threshold) {
-    px_merge<4><<<blocks, kThreads, 0, s>>>(v, l, p, total, f, w);
-    px_compress_mark<<<blocks, kThreads, 0, s>>>(
-        v, static_cast<const uint8_t*>(marker), p, fl, total, f);
-    px_keep<<<blocks, kThreads, 0, s>>>(v, fl, p, k, total, f);
+    merge(4, nullptr, d4, d8, nullptr);
+    px_compress_mark<<<slot_blocks(f, t), kThreads, 0, s>>>(v, mk, d4, total,
+                                                            f);
+    merge(8, d4, d8, nullptr, k);
+  } else {
+    merge(8, nullptr, d8, nullptr, k);
   }
-  px_merge<8><<<blocks, kThreads, 0, s>>>(k, l, p, total, f, w);
-  px_final<<<blocks, kThreads, 0, s>>>(k, l, p, static_cast<int32_t*>(labels),
-                                       total, f);
+  px_final<<<slot_blocks(f, t), kThreads, 0, s>>>(
+      xs, ys, k, d8, static_cast<int32_t*>(labels), total, f, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 

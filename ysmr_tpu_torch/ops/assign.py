@@ -2,9 +2,11 @@
 detection of the tracker.
 
 Counterpart of ``ysmr_tpu/ops/pallas_assign.py::row_min_argmin``. The
-kernel (``csrc/assign.cu``) runs one thread per tracker row; its source
-notes the design, the distance's rounding order and what bounds it. The
-plain PyTorch version is ``ops/assignment.py::row_min_argmin_plain``.
+kernel (``csrc/assign.cu``) is one launch: a block per tile of 16 tracker
+rows, the columns split over its threads, the partial minima merged as
+(distance bits, column) keys; its source notes the design, the
+distance's rounding order and what bounds it. The plain PyTorch version
+is ``ops/assignment.py::row_min_argmin_plain``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the call raises. Nothing falls back from the kernel to the plain
@@ -44,10 +46,13 @@ def row_min_argmin(obj_xy, obj_valid, det_xy, det_valid):
             raise ValueError('row_min_argmin: {} must be a contiguous {} {} '
                              'tensor on {}'.format(name, shape, dtype,
                                                    obj_xy.device))
-    row_min = torch.empty(r, dtype=torch.float32, device=obj_xy.device)
-    cand = torch.empty(r, dtype=torch.int32, device=obj_xy.device)
+    # both outputs in one allocation: (row_min bits, cand)
+    out = torch.empty((2, r), dtype=torch.int32, device=obj_xy.device)
+    row_min, cand = out[0].view(torch.float32), out[1]
     lib = _build.load_kernels()
-    stream = torch.cuda.current_stream(obj_xy.device).cuda_stream
+    # the raw handle of the current stream: torch.cuda.current_stream
+    # builds a Stream object on every call, once per tracker frame step
+    stream = torch._C._cuda_getCurrentRawStream(obj_xy.device.index)
     rc = lib.ysmr_row_min_argmin(
         obj_xy.data_ptr(), obj_valid.data_ptr(), det_xy.data_ptr(),
         det_valid.data_ptr(), row_min.data_ptr(), cand.data_ptr(), r, c, k,

@@ -5,9 +5,9 @@ foreground pixel lists (the pixel-table branch of pixels mode).
 Counterparts of ``ysmr_tpu/ops/pallas_cc.py::label_components_whole_frame``,
 ``::binary_reconstruct`` and ``::cc_labels_at_pixels``. The kernels
 (``csrc/cc.cu``) are union-find passes, over one grid of T*H*W threads or
-of T*F list slots; the source notes the design, what bounds it, and where
-it differs from the TPU kernels (those stop after ``max_iters`` steps; the
-union-find always reaches the fixpoint). The plain PyTorch versions are
+over tiles of the T*F list slots; the source notes the design, what
+bounds it, and where it differs from the TPU kernels (those stop after
+``max_iters`` steps; the union-find always reaches the fixpoint). The plain PyTorch versions are
 ``ops/labeling.py::label_components`` and ``::propagate_markers``, and
 ``cc_labels_at_pixels_plain`` here.
 
@@ -133,16 +133,23 @@ def cc_labels_at_pixels_plain(px_x, px_y, px_valid, px_marker, *, h, w,
     return lab, keep, torch.maximum(steps, steps8)
 
 
+#: widest frame of the pixel kernel: a 2048-slot tile and the w + 1 slots
+#: before it (int32 lin and a flag each) with the tile's int32 parents fit
+#: a Hopper block's 232,448 bytes of shared memory
+PIXEL_MAX_WIDTH = 42802
+
+
 def cc_labels_at_pixels(px_x, px_y, px_valid, px_marker, *, h, w,
                         double_threshold, max_iters=64):
     """Component labels at per-frame foreground pixel lists, with the
     marker keep flag (``ysmr_tpu/ops/pallas_cc.py::cc_labels_at_pixels``).
 
     On a CUDA tensor the kernel ``ysmr_cc_pixels`` (``csrc/cc.cu``): a
-    union-find over the lists, which always reaches the fixpoint. It needs
-    the valid pixels of each frame to be a prefix of its list, in strictly
-    ascending ``y*w + x`` (raster) order, as every wire gives them. On a
-    CPU tensor ``cc_labels_at_pixels_plain``.
+    union-find over the lists in tiles of slots, which always reaches the
+    fixpoint. It needs the valid pixels of each frame to be a prefix of
+    its list, in strictly ascending ``y*w + x`` (raster) order, as every
+    wire gives them, and ``w <= PIXEL_MAX_WIDTH``. On a CPU tensor
+    ``cc_labels_at_pixels_plain``.
 
     :param px_x, px_y: (T, F) int32 pixel coordinates
     :param px_valid, px_marker: (T, F) bool
@@ -170,21 +177,23 @@ def cc_labels_at_pixels(px_x, px_y, px_valid, px_marker, *, h, w,
                                  name, px_x.device))
     if h * w >= 1 << 31:
         raise ValueError('{}: frames of 2^31 pixels or more'.format(name))
+    if w > PIXEL_MAX_WIDTH:
+        raise ValueError('{}: frames wider than {} px (the kernel stages a '
+                         'row of slots in shared memory)'.format(
+                             name, PIXEL_MAX_WIDTH))
     t, f = px_x.shape
     dev = px_x.device
-
-    def empty(dtype):
-        return torch.empty((t, f), dtype=dtype, device=dev)
-
-    lin, parent, labels = empty(torch.int32), empty(torch.int32), \
-        empty(torch.int32)
-    flag, keep = empty(torch.uint8), empty(torch.bool)
+    # the forests over the slots: 4-connected (double threshold only) and
+    # 8-connected
+    forest = torch.empty((2 if double_threshold else 1, t, f),
+                         dtype=torch.int32, device=dev)
+    labels = torch.empty((t, f), dtype=torch.int32, device=dev)
+    keep = torch.empty((t, f), dtype=torch.bool, device=dev)
     lib = _build.load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ysmr_cc_pixels(px_x.data_ptr(), px_y.data_ptr(),
                             px_valid.data_ptr(), px_marker.data_ptr(),
-                            lin.data_ptr(), parent.data_ptr(),
-                            flag.data_ptr(), labels.data_ptr(),
+                            forest.data_ptr(), labels.data_ptr(),
                             keep.data_ptr(), t, f, h, w,
                             int(bool(double_threshold)), dev.index, stream)
     _build.check(lib, rc, 'cc pixels kernel launch')
