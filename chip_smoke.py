@@ -12,9 +12,11 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    64 bench-sized frames (both the 4-connected marker reconstruction and
    the 8-connected labeling), those of the dense scene's first 64 frames
    (the run wire's R bucket, both propagations of the dense path) and
-   seeded random graphs up to R = 131072 runs (the global-memory variant);
-   labels must be equal, every frame must converge; median ms per batch
-   of each;
+   seeded random graphs up to R = 131072 runs; labels must be equal,
+   every frame must converge, and on a random init of the kernel's
+   contract (every label names a run of its own component, random weak
+   bits) the labels must be the component-wise minimum and the plain
+   version's; median ms per batch of each;
 4. the main path at real size: the bench scene (630 frames of 1228x922,
    200 rods, seed 123, drawn in memory) through the port's stage-1 loop on
    ``cuda`` and then on ``cpu``; the two ``_list.csv`` files must be
@@ -79,7 +81,14 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    memory (stage split), ``cuda`` against ``cpu`` on 16 frames, and the
    dense scene with the pixel wire byte-identical to the run wire's;
 16. frames-mode luminosity on the bench scene in memory, and ``cuda``
-   against ``cpu`` on 16 frames, byte-identical.
+   against ``cpu`` on 16 frames, byte-identical;
+17. dense exact mode: the dense capacities with ``cv2 exact rects max
+   detections = 4096``, so the dense scene goes through run-CC on the
+   card, the host rects and the float64 tracker: in memory (stage split),
+   then the MJPG dense clip through ``track_bacteria(path)``, whose rows
+   must be those of ``bench_data/dense_clip_list.csv.gz`` (378,751 rows,
+   2899 tracks), with the run-CC kernel launched and the device rects'
+   and tracker's kernels not.
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (seven kernels, each
@@ -281,6 +290,26 @@ def graph_inputs(runs, counts, w, connectivity, device):
     return init.contiguous(), win, link
 
 
+def contract_init(comp, rng):
+    """A random init inside the kernel's contract: every run names, mod R,
+    a random run of its own component (``comp``: (T, R) component ids),
+    with a random weak bit (+ R)."""
+    t, r = comp.shape
+    order = np.lexsort((rng.random((t, r)), comp))
+    c = np.take_along_axis(comp, order, 1)
+    pos = np.broadcast_to(np.arange(r), (t, r))
+    start = np.maximum.accumulate(
+        np.where(c != np.roll(c, 1, 1), pos, 0), axis=1)
+    start[:, 0] = 0
+    same_next = (c == np.roll(c, -1, 1)) & (pos < r - 1)
+    # the next run of the component in the shuffled order, cyclically
+    target = np.where(same_next, np.roll(order, -1, 1),
+                      np.take_along_axis(order, start, 1))
+    init = np.empty((t, r), np.int32)
+    np.put_along_axis(init, order, target.astype(np.int32), 1)
+    return init + r * (rng.random((t, r)) < 0.5).astype(np.int32)
+
+
 def compare_kernel(name, runs, counts, w, connectivity, dev):
     init, win, link = graph_inputs(runs, counts, w, connectivity, dev)
     lab, steps = propagate_min_fused(init, win, link, max_iters=MAX_ITERS)
@@ -293,22 +322,40 @@ def compare_kernel(name, runs, counts, w, connectivity, dev):
         raise SystemExit('{}: kernel != plain (max |diff| {}) or not '
                          'converged (steps {} / {})'.format(
                              name, err, k_steps, p_steps))
+    # a random init of the contract: the component-wise minimum on every
+    # frame, and the plain version wherever that converged
+    r = runs.shape[1]
+    comp = ref % r
+    rinit = torch.from_numpy(contract_init(
+        comp.cpu().numpy(), np.random.default_rng(SEED + r))).to(dev)
+    rlab = propagate_min_fused(rinit, win, link, max_iters=MAX_ITERS)[0]
+    want = torch.full_like(rinit, 2 * r).scatter_reduce(
+        1, comp.long(), rinit, 'amin')
+    rref, rsteps = run_cc.propagate_min(rinit, win, link,
+                                        max_iters=MAX_ITERS)
+    conv = rsteps < MAX_ITERS
+    if not torch.equal(rlab, torch.gather(want, 1, comp.long())) or \
+            not torch.equal(rlab[conv], rref[conv]):
+        raise SystemExit('{}: kernel != plain on a random init'.format(name))
     ms = cuda_ms(lambda: propagate_min_fused(init, win, link,
                                              max_iters=MAX_ITERS))
     plain_ms = cuda_ms(lambda: run_cc.propagate_min(init, win, link,
                                                     max_iters=MAX_ITERS),
                        reps=5)
-    # per sweep and run: two chain neighbours, four window endpoints, a
-    # path-halving hop and the compare
-    ops = int((steps.cpu().to(torch.int64) *
+    # the plain version's work, whatever implements it: per sweep and run
+    # two chain neighbours, four window endpoints, a path-halving hop and
+    # the compare
+    ops = int((ref_steps.cpu().to(torch.int64) *
                torch.from_numpy(counts).to(torch.int64)).sum()) * 8
     bnd = bound([init, link] + [win[k] for k in ('lo_up', 'hi_up', 'lo_dn',
                                                   'hi_dn', 'ok_up', 'ok_dn')],
                 [lab, steps], ops)
-    log('kernel check {}: T={} R={} runs<= {} equal, steps kernel {} plain '
-        '{}, ms kernel {:.4f} plain {:.4f} bound {:.4f} ({})'.format(
-            name, runs.shape[0], runs.shape[1], int(counts.max()), k_steps,
-            p_steps, ms, plain_ms, *bnd))
+    log('kernel check {}: T={} R={} runs<= {} equal (and on a random init '
+        'of the contract, plain converged on {} of {} frames), steps kernel '
+        '{} plain {}, ms kernel {:.4f} plain {:.4f} bound {:.4f} ({})'.format(
+            name, runs.shape[0], runs.shape[1], int(counts.max()),
+            int(conv.sum()), runs.shape[0], k_steps, p_steps, ms, plain_ms,
+            *bnd))
     return err, ms, plain_ms, bnd
 
 
@@ -353,37 +400,38 @@ def phase_build():
             log('  ptxas: ' + line.strip())
 
 
-def phase_kernel(scene, settings, dscene, dsettings, dev):
-    pre = HostPreprocessor(settings, FPS,
-                           max_fg=settings['max foreground pixels per frame'])
-    t = 64
-    packed = np.zeros((t, pre.max_fg), np.uint32)
+#: the seeded random run graphs of phase 3: (T, H, W, R, density)
+RANDOM_GRAPHS = ((64, 922, 1228, 8192, 0.004), (8, 700, 700, 131072, 0.3),
+                 (16, 64, 64, 512, 0.5))
+
+
+def random_runs(rng, t, h, w, r, dens):
+    """The run wire of ``t`` seeded random frames: pixels set with
+    probability ``dens``, a third of them markers, cut at ``r`` pixels."""
+    packed = np.zeros((t, r), np.uint32)
     counts = np.zeros(t, np.int32)
     for i in range(t):
-        tab = pre(scene.frame(i))
-        packed[i], counts[i] = tab['px_packed'], tab['count']
-    runs, rc = encode(packed, counts, W, None)
+        yy, xx = np.nonzero(rng.random((h, w)) < dens)
+        lin = (yy * w + xx).astype(np.uint32)[:r]
+        mk = (rng.random(len(lin)) < 0.3).astype(np.uint32)
+        packed[i, :len(lin)] = lin | (mk << 31)
+        counts[i] = len(lin)
+    return encode(packed, counts, w, r)
+
+
+def phase_kernel(scene, settings, dscene, dsettings, dev):
+    runs, rc = first_batch_runs(scene, settings)
     results = [compare_kernel('bench 4-conn', runs, rc, W, 4, dev),
                compare_kernel('bench 8-conn', runs, rc, W, 8, dev)]
     # the dense path's batch: the run wire's R bucket of the dense scene's
     # first 64 frames, both propagations of a double-threshold batch
-    druns, drc = dense_first_batch(dscene, dsettings)
+    druns, drc = first_batch_runs(dscene, dsettings)
     for conn in (4, 8):
         results.append(compare_kernel('dense batch {}-conn'.format(conn),
                                       druns, drc, W, conn, dev))
     rng = np.random.default_rng(SEED)
-    for t, h, w, r, dens in ((64, 922, 1228, 8192, 0.004),
-                             (8, 700, 700, 131072, 0.3),
-                             (16, 64, 64, 512, 0.5)):
-        packed = np.zeros((t, r), np.uint32)
-        counts = np.zeros(t, np.int32)
-        for i in range(t):
-            yy, xx = np.nonzero(rng.random((h, w)) < dens)
-            lin = (yy * w + xx).astype(np.uint32)[:r]
-            mk = (rng.random(len(lin)) < 0.3).astype(np.uint32)
-            packed[i, :len(lin)] = lin | (mk << 31)
-            counts[i] = len(lin)
-        runs, rc = encode(packed, counts, w, r)
+    for t, h, w, r, dens in RANDOM_GRAPHS:
+        runs, rc = random_runs(rng, t, h, w, r, dens)
         for conn in (4, 8):
             results.append(compare_kernel(
                 'random {}x{} {}-conn'.format(h, w, conn), runs, rc, w, conn,
@@ -463,6 +511,27 @@ def make_clip(path, n_frames, scene=None):
     return path
 
 
+def hold_to_reference(what, ours, ref_name):
+    """Rows against a committed reference list of bench_data/, as
+    bench.py's check_row_parity holds them: the same row count, TRACK_ID
+    and POSITION_T equal, the measured columns within 1e-9."""
+    ref = pd.read_csv(os.path.join(REPO, 'bench_data', ref_name))
+    ref = ref.sort_values(['TRACK_ID', 'POSITION_T'], kind='stable')
+    if ours.shape[0] != ref.shape[0]:
+        raise SystemExit('{}: {} rows, reference {}'.format(
+            what, ours.shape[0], ref.shape[0]))
+    for col, atol in (('TRACK_ID', 0), ('POSITION_T', 0),
+                      ('POSITION_X', 1e-9), ('POSITION_Y', 1e-9),
+                      ('WIDTH', 1e-9), ('HEIGHT', 1e-9),
+                      ('DEGREES_ANGLE', 1e-9)):
+        diff = np.abs(ours[col].to_numpy(float) - ref[col].to_numpy(float))
+        if not (diff <= atol).all():
+            raise SystemExit('{}: column {} differs from the reference list '
+                             '(max {}, {} rows)'.format(
+                                 what, col, float(diff.max()),
+                                 int((diff > atol).sum())))
+
+
 def phase_clip(settings):
     """track_bacteria(path) on the bench clip, rows held against the
     committed reference list as bench.py's check_row_parity does."""
@@ -477,21 +546,7 @@ def phase_clip(settings):
     if res is None:
         raise SystemExit('track_bacteria(path) returned None')
     ours = res[0]
-    ref = pd.read_csv(os.path.join(REPO, 'bench_data',
-                                   'bench_clip_list.csv.gz'))
-    ref = ref.sort_values(['TRACK_ID', 'POSITION_T'], kind='stable')
-    if ours.shape[0] != ref.shape[0]:
-        raise SystemExit('bench clip: {} rows, reference {}'.format(
-            ours.shape[0], ref.shape[0]))
-    for col, atol in (('TRACK_ID', 0), ('POSITION_T', 0),
-                      ('POSITION_X', 1e-9), ('POSITION_Y', 1e-9),
-                      ('WIDTH', 1e-9), ('HEIGHT', 1e-9),
-                      ('DEGREES_ANGLE', 1e-9)):
-        diff = np.abs(ours[col].to_numpy(float) - ref[col].to_numpy(float))
-        if not (diff <= atol).all():
-            raise SystemExit('bench clip: column {} differs from the '
-                             'reference list (max {})'.format(
-                                 col, float(diff.max())))
+    hold_to_reference('bench clip', ours, 'bench_clip_list.csv.gz')
     log('bench clip via track_bacteria(path): {} rows, {} tracks, identical '
         'to bench_data/bench_clip_list.csv.gz; {:.2f} fps end to end '
         '(decode included)'.format(ours.shape[0],
@@ -557,17 +612,10 @@ def check_equal(name, kernel, plain, args, ops, reps=10, plain_reps=5):
     return err, ms, plain_ms, bnd
 
 
-def dense_first_batch(scene, settings):
-    """The dense scene's first 64 frames: host threshold and run wire."""
-    pre = HostPreprocessor(settings, FPS,
-                           max_fg=settings['max foreground pixels per frame'])
-    t = settings['frame batch size']
-    packed = np.zeros((t, pre.max_fg), np.uint32)
-    counts = np.zeros(t, np.int32)
-    for i in range(t):
-        tab = pre(scene.frame(i))
-        packed[i], counts[i] = tab['px_packed'], tab['count']
-    return encode(packed, counts, W, None)
+def first_batch_runs(scene, settings):
+    """A scene's first 64 frames: host threshold and run wire, cut to the
+    wire's R bucket."""
+    return encode(*packed_batch(scene, settings), W, None)
 
 
 def dense_tables(runs, rc, settings, dev):
@@ -690,7 +738,7 @@ def cdist_min_ms(args):
 
 
 def phase_dense_kernels(scene, settings, dev):
-    runs, rc = dense_first_batch(scene, settings)
+    runs, rc = first_batch_runs(scene, settings)
     hull_args, sweep_args = dense_tables(runs, rc, settings, dev)
     rng = np.random.default_rng(SEED)
     out = {}
@@ -842,6 +890,55 @@ def phase_dense_path(scene, frames, settings):
         raise SystemExit('dense clip: a kernel was never launched: {}'.format(
             launches))
     return launches, dense_bytes
+
+
+#: rows of bench_data/dense_clip_list.csv.gz
+DENSE_ROWS = 378751
+DENSE_EXACT = {'cv2 exact rects max detections': 4096}
+
+
+def phase_dense_exact(frames, settings):
+    """Dense exact mode: the dense capacities with the host-rect gate
+    raised to them, so the dense clip goes through run-CC on the card, the
+    host rects and the float64 tracker; its rows must be those of the
+    committed reference list. The scene in memory first, for the stage
+    split."""
+    exact = {**settings, **DENSE_EXACT}
+    _, _, stats = run_loop(frames, exact, 'cuda', 'dense_exact_mem')
+    log('dense exact mode in memory (cuda): tracks {} frames {} fps {:.2f}; '
+        'stage split (ms/frame): {}'.format(
+            stats['tracks'], stats['frames'], stats['fps'],
+            per_frame(stats)))
+    folder = os.path.join(WORK, 'dense_exact_clip')
+    os.makedirs(folder, exist_ok=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = track_bacteria(os.path.join(WORK, 'dense_clip.avi'),
+                         settings=dict(exact), result_folder=folder)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in KERNELS}
+    if res is None:
+        raise SystemExit('dense exact mode: track_bacteria(path) returned '
+                         'None')
+    df = res[0]
+    tracks = int(df['TRACK_ID'].nunique())
+    if df.shape[0] != DENSE_ROWS or tracks != DENSE_TRACKS:
+        raise SystemExit('dense exact mode: {} rows and {} tracks, the '
+                         'reference has {} and {}'.format(
+                             df.shape[0], tracks, DENSE_ROWS, DENSE_TRACKS))
+    hold_to_reference('dense exact mode', df, 'dense_clip_list.csv.gz')
+    if launches['propagate_min_fused'] <= 0:
+        raise SystemExit('dense exact mode: run-CC kernel never launched')
+    if any(v for k, v in launches.items() if k != 'propagate_min_fused'):
+        raise SystemExit('dense exact mode: the device rects or tracker ran: '
+                         '{}'.format(launches))
+    log('dense exact mode, dense clip via track_bacteria(path) on cuda: {} '
+        'rows, {} tracks, identical to bench_data/dense_clip_list.csv.gz; '
+        '{:.2f} fps end to end (decode included), kernel launches {}'.format(
+            df.shape[0], tracks, DENSE_FRAMES / elapsed,
+            json.dumps(launches)))
 
 
 def phase_dense_cuda_vs_cpu(frames, settings):
@@ -1627,6 +1724,7 @@ def main():
         lum_launches = phase_lum_bench(frames, settings)
         phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev)
         phase_lum_frames(frames, settings)
+        phase_dense_exact(dframes, dsettings)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(

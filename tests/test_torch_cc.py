@@ -172,10 +172,290 @@ def test_component_tables_match_jax(max_det, max_bh):
                                       np.asarray(ref['points'])[v][pv])
 
 
+# ---- the reconstruction kernel's design (csrc/cc.cu, rec_* passes),
+# emulated in sequence on Python integers ----
+
+M32 = 0xFFFFFFFF
+MARK = 1 << 31
+
+
+def _pack_words(flat):
+    """The kernel's packing: 4 bytes to a nibble by one multiplication,
+    eight nibbles to a word; pixel g in bit g % 32 of word g // 32."""
+    n_words = (len(flat) + 31) // 32
+    padded = np.zeros(n_words * 32, np.uint8)
+    padded[:len(flat)] = flat != 0
+    quads = padded.view('<u4').astype(np.uint64)
+    nibbles = ((quads * 0x01020408) & M32) >> 24
+    shifts = (np.arange(len(nibbles)) % 8 * 4).astype(np.uint64)
+    return [int(x) for x in (nibbles << shifts).reshape(-1, 8).sum(1)]
+
+
+def _unpack_words(words, total):
+    """The kernel's unpacking: a nibble to the low bits of four bytes."""
+    out = np.zeros(len(words) * 32, np.uint8)
+    for k, word in enumerate(words):
+        for q in range(8):
+            quad = ((word >> (4 * q) & 0xF) * 0x00204081) & 0x01010101
+            out[k * 32 + 4 * q:k * 32 + 4 * q + 4] = np.frombuffer(
+                int(quad).to_bytes(4, 'little'), np.uint8)
+    return out[:total]
+
+
+def _row_masks(g0, h, w):
+    row, x = divmod(g0, w)
+    start = top = b = 0
+    while b < 32:
+        n = min(32 - b, w - x)
+        if x == 0:
+            start |= 1 << b
+        if row % h == 0:
+            top |= (M32 >> (32 - n)) << b
+        b, x, row = b + n, 0, row + 1
+    return start, top & M32
+
+
+def _segment_starts(m, row_start):
+    return m & ~((m << 1) & ~row_start) & M32
+
+
+def _bits_at(words, off):
+    if off <= -32:
+        return 0
+    if off < 0:
+        return (words[0] << -off) & M32
+    j, o = off >> 5, off & 31
+    lo = words[j] if j < len(words) else 0
+    hi = words[j + 1] if j + 1 < len(words) else 0
+    return (lo >> o | hi << (32 - o)) & M32 if o else lo
+
+
+def _segment_bits(m, starts, sb):
+    stop = (~m | starts) & ~(M32 >> (31 - sb)) & M32
+    upto = M32 if stop == 0 else (1 << ((stop & -stop).bit_length() - 1)) - 1
+    return upto & ~((1 << sb) - 1)
+
+
+def _set_bits(word):
+    return [b for b in range(32) if word >> b & 1]
+
+
+def _reconstruct_emulated(mask, marker, rng):
+    """The four passes of the kernel on a (T, H, W) batch, the words of
+    each pass in shuffled order."""
+    t, h, w = mask.shape
+    total = mask.size
+    mbits = _pack_words(mask.reshape(-1))
+    kbits = [a & b for a, b in zip(_pack_words(marker.reshape(-1)), mbits)]
+    lab = {}
+    order = lambda: [int(k) for k in rng.permutation(len(mbits))]
+    for k in order():                                        # rec_pack
+        m, g0 = mbits[k], k * 32
+        if m == 0:
+            continue
+        rs = _row_masks(g0, h, w)[0]
+        starts = _segment_starts(m, rs)
+        first = g0
+        if m & 1 and not rs & 1 and mask.reshape(-1)[g0 - 1]:
+            prev = _segment_starts(mbits[k - 1], _row_masks(g0 - 32, h, w)[0])
+            first = g0 - 32 + prev.bit_length() - 1
+        for b in _set_bits(m):
+            sb = (starts & (M32 >> (31 - b))).bit_length() - 1
+            lab[g0 + b] = first if b == 0 else g0 + sb
+
+    def root(x):
+        while lab[x] & ~MARK != x:
+            x = lab[x] & ~MARK
+        return x
+
+    for k in order():                                        # rec_merge
+        m, g0 = mbits[k], k * 32
+        if m == 0:
+            continue
+        rs, top = _row_masks(g0, h, w)
+        carry = mbits[k - 1] >> 31 if k else 0
+        left = ((m << 1) | carry) & ~rs & M32
+        up = _bits_at(mbits, g0 - w) & ~top
+        up_left = _bits_at(mbits, g0 - w - 1) & ~rs
+        for b in _set_bits(m & up & ~(left & up_left)):
+            a, c = root(g0 + b), root(g0 + b - w)
+            if a != c:
+                lab[max(a, c)] = min(a, c)
+    for k in order():                                        # rec_mark
+        m, g0 = mbits[k], k * 32
+        starts = _segment_starts(m, _row_masks(g0, h, w)[0])
+        for sb in _set_bits(starts):
+            r = root(g0 + sb)
+            if r != g0 + sb:
+                lab[g0 + sb] = r
+            if kbits[k] & _segment_bits(m, starts, sb):
+                lab[r] |= MARK
+    keep = []
+    for k, m in enumerate(mbits):                            # rec_keep
+        g0, word = k * 32, 0
+        starts = _segment_starts(m, _row_masks(g0, h, w)[0])
+        for sb in _set_bits(starts):
+            v = lab[g0 + sb]
+            if v & ~MARK != g0 + sb:
+                v = lab[v]
+            if v & MARK:
+                word |= _segment_bits(m, starts, sb)
+        keep.append(word)
+    return _unpack_words(keep, total).reshape(t, h, w).astype(bool)
+
+
+PACK_WIDTHS = [1, 31, 32, 33, 1228]
+
+
+@pytest.mark.parametrize('w', PACK_WIDTHS)
+def test_bit_pack_round_trip_and_row_masks(w):
+    """The packing and unpacking multiplications are inverse to each other
+    and agree with numpy's little-endian packbits; the row masks name the
+    first pixel of every row and the first row of every frame, at widths
+    below, at and above the word and at the bench width."""
+    rng = np.random.default_rng(w)
+    h, t = 5, 3
+    flat = (rng.random(t * h * w) < 0.5).astype(np.uint8) * \
+        rng.integers(1, 256, t * h * w).astype(np.uint8)
+    words = _pack_words(flat)
+    ref = np.packbits(flat != 0, bitorder='little')
+    ref = np.concatenate([ref, np.zeros(-len(ref) % 4, np.uint8)])
+    assert words == ref.view('<u4').tolist()
+    np.testing.assert_array_equal(_unpack_words(words, len(flat)), flat != 0)
+    g = np.arange(len(words) * 32)
+    for k in range(len(words)):
+        start, top = _row_masks(k * 32, h, w)
+        sl = g[k * 32:(k + 1) * 32]
+        assert start == int(((sl % w == 0) << np.arange(32)).sum())
+        assert top == int(((sl // w % h == 0) << np.arange(32)).sum())
+
+
+def _reconstruct_case(case, w):
+    """(mask, marker) batches that the reconstruction has to get right:
+    ``blobs`` random blobs with sparse markers, some outside the mask;
+    ``edges`` an empty frame, a full frame with one marker, a full frame
+    with none, and the serpentine marked at its far end."""
+    rng = np.random.default_rng(len(case) + w)
+    h = 24
+    if case == 'blobs':
+        mask = np.stack([_random_blobs(rng, h=h, w=max(w, 16))[:, :w]
+                         for _ in range(3)])
+        mask |= rng.random(mask.shape) < 0.05
+        marker = rng.random(mask.shape) < 0.03       # also off the mask
+    else:
+        mask = np.zeros((4, h, w), bool)
+        mask[1:3] = True
+        mask[3] = snake_mask(h, w) if w >= 4 else True
+        marker = np.zeros_like(mask)
+        marker[0, h // 2, w // 2] = True             # marker, no mask
+        marker[1, h - 1, w - 1] = True
+        ys, xs = np.nonzero(mask[3])
+        marker[3, ys[-1], xs[-1]] = True
+    return mask, marker
+
+
+RECONSTRUCT_CASES = [(c, w) for c in ('blobs', 'edges') for w in PACK_WIDTHS]
+
+
+@pytest.mark.parametrize('case,w', RECONSTRUCT_CASES)
+def test_packed_reconstruction_design_matches_plain_and_scipy(case, w):
+    """A sequential emulation of the kernel's four passes on bit words
+    (words in shuffled order) against scipy's binary_propagation on every
+    frame, and against the plain version wherever its labeling converged:
+    markers outside the mask, empty and full frames, the serpentine, and
+    widths below, at and above the word."""
+    mask, marker = _reconstruct_case(case, w)
+    got = _reconstruct_emulated(mask, marker, np.random.default_rng(3))
+    for i in range(len(mask)):
+        np.testing.assert_array_equal(got[i], ndimage.binary_propagation(
+            marker[i] & mask[i], mask=mask[i]), err_msg=str(i))
+    tm, tk = torch.from_numpy(mask), torch.from_numpy(marker)
+    _, steps = lb.label_components(tm, connectivity=4, max_iters=MAX_ITERS)
+    conv = (steps < MAX_ITERS).numpy()
+    assert conv.any()
+    np.testing.assert_array_equal(
+        got[conv], lb.propagate_markers(tm, tk, max_iters=MAX_ITERS)
+        .numpy()[conv])
+    if case == 'edges':
+        assert not got[0].any() and got[1].all() and not got[2].any()
+        assert got[3].sum() == mask[3].sum()
+
+
+def test_pixel_kernel_width_cap_is_the_shared_memory_formula():
+    """PIXEL_MAX_WIDTH is the widest frame whose tile (2048 slots of int32
+    parents), halo and tile lins (w + 1 + 2048 slots of an int32 and a
+    flag) fit a Hopper block's 232,448 bytes of shared memory
+    (csrc/cc.cu, merge_smem)."""
+    def merge_smem(w):
+        return 2048 * 4 + (w + 1 + 2048) * 5
+    assert merge_smem(cc.PIXEL_MAX_WIDTH) <= 232448 < \
+        merge_smem(cc.PIXEL_MAX_WIDTH + 1)
+    assert cc.PIXEL_MAX_WIDTH == 42802
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
     return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['whole', 'unaligned', 'chunks'])
+@pytest.mark.parametrize('case,w', RECONSTRUCT_CASES)
+def test_reconstruct_kernel_matches_scipy_and_plain_on_cuda(case, w, layout,
+                                                            monkeypatch):
+    """The kernel on the design cases: scipy on every frame, the plain
+    version where it converged, one launch counted; also on views that
+    start off a 16-byte boundary (the byte-wise loads) and with the frames
+    of a call split over several launches."""
+    dev = _cuda()
+    mask, marker = _reconstruct_case(case, w)
+    tm, tk = torch.from_numpy(mask).to(dev), torch.from_numpy(marker).to(dev)
+    if layout == 'unaligned':
+        pad = torch.zeros(5, dtype=torch.bool, device=dev)
+        tm = torch.cat([pad[:3], tm.reshape(-1)])[3:].view(mask.shape)
+        tk = torch.cat([pad, tk.reshape(-1)])[5:].view(mask.shape)
+        assert tm.data_ptr() % 16 and tm.is_contiguous()
+    elif layout == 'chunks':
+        monkeypatch.setattr(cc, 'RECONSTRUCT_MAX_PIXELS',
+                            2 * mask.shape[1] * mask.shape[2])
+    before = cc.binary_reconstruct.launches
+    got = cc.binary_reconstruct(tm, tk)
+    torch.cuda.synchronize()
+    assert cc.binary_reconstruct.launches == before + 1
+    got = got.cpu().numpy()
+    for i in range(len(mask)):
+        np.testing.assert_array_equal(got[i], ndimage.binary_propagation(
+            marker[i] & mask[i], mask=mask[i]), err_msg=str(i))
+    _, steps = lb.label_components(torch.from_numpy(mask), connectivity=4)
+    conv = (steps < MAX_ITERS).numpy()
+    np.testing.assert_array_equal(got[conv], lb.propagate_markers(
+        torch.from_numpy(mask), torch.from_numpy(marker)).numpy()[conv])
+
+
+@pytest.mark.cuda
+def test_pixel_kernel_width_cap_on_cuda():
+    """A frame one pixel wider than PIXEL_MAX_WIDTH raises; at the cap a
+    short list gives the plain version's labels."""
+    dev = _cuda()
+    w, h, f = cc.PIXEL_MAX_WIDTH, 3, 64
+    mask = np.zeros((1, h, w), bool)
+    mask[0, 0, 5:9] = mask[0, 1, 8:12] = mask[0, 2, w - 3:] = True
+    mask[0, 1, w - 1] = True
+    marker = np.zeros_like(mask)
+    marker[0, 0, 6] = marker[0, 2, w - 1] = True
+    lists = _pixel_lists(mask, marker, f)
+    args = [torch.from_numpy(a).to(dev) for a in lists]
+    with pytest.raises(ValueError, match='wider'):
+        cc.cc_labels_at_pixels(*args, h=h, w=w + 1, double_threshold=True)
+    lab, keep = cc.cc_labels_at_pixels(*args, h=h, w=w, double_threshold=True)
+    p_lab, p_keep, steps = cc.cc_labels_at_pixels_plain(
+        *(torch.from_numpy(a) for a in lists), h=h, w=w,
+        double_threshold=True)
+    assert int(steps.max()) < MAX_ITERS
+    np.testing.assert_array_equal(lab.cpu().numpy(), p_lab.numpy())
+    np.testing.assert_array_equal(keep.cpu().numpy(), p_keep.numpy())
+    assert keep.cpu().numpy().sum() == 4 + 4 + 3 + 1
 
 
 @pytest.mark.cuda

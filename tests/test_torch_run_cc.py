@@ -249,14 +249,188 @@ def test_run_cc_components_fuzz_vs_binary_propagation():
             ref8[geo['rows'][:n][kept], geo['xs'][:n][kept]])
 
 
+# ---- the kernel's design (csrc/run_prop.cu), emulated in sequence ----
+
+ROOT = 1 << 31
+
+
+def _edges(init, win, link, skip_mirrored):
+    """The undirected edges the kernel unites in one frame: chain links,
+    valid window endpoints (clamped), and i ~ init[i] mod R. With
+    ``skip_mirrored`` a lower endpoint that has run i as its own upper
+    endpoint is left to that run, as the kernel does."""
+    r = len(init)
+    clamp = lambda a: np.clip(a, 0, r - 1)
+    lo_up, hi_up = clamp(win['lo_up']), clamp(win['hi_up'])
+    lo_dn, hi_dn = clamp(win['lo_dn']), clamp(win['hi_dn'])
+    edges = []
+    for i in range(r):
+        if i + 1 < r and link[i]:
+            edges.append((i + 1, i))
+        if win['ok_up'][i]:
+            edges += [(i, lo_up[i]), (i, hi_up[i])]
+        if win['ok_dn'][i]:
+            for j in (lo_dn[i], hi_dn[i]):
+                mirrored = win['ok_up'][j] and i in (lo_up[j], hi_up[j])
+                if not (skip_mirrored and mirrored and j != i):
+                    edges.append((i, j))
+        l = int(init[i])
+        edges.append((i, int(clamp(l - r if l >= r else l))))
+    return [(int(a), int(b)) for a, b in edges if a != b]
+
+
+def _unite(fa, a, b):
+    """The kernel's union on the tagged forest: a root's entry is ROOT |
+    (minimum label of its tree), another's its parent's index."""
+    while not fa[a] & ROOT:
+        a = fa[a]
+    while not fa[b] & ROOT:
+        b = fa[b]
+    if a == b:
+        return
+    if a < b:
+        a, b = b, a
+    va, vb = fa[a], fa[b]
+    fa[a] = b
+    if va < vb:
+        fa[b] = va
+
+
+def _union_find_labels(init, win, link, rng, skip_mirrored=True):
+    """(T, R) labels of the kernel's three phases, frame by frame, with the
+    edges in shuffled order."""
+    out = np.empty_like(init)
+    for f in range(init.shape[0]):
+        fwin = {k: np.asarray(v[f]) for k, v in win.items()}
+        edges = _edges(init[f], fwin, np.asarray(link[f]), skip_mirrored)
+        fa = [ROOT | int(l) for l in init[f]]
+        for e in rng.permutation(len(edges)):
+            _unite(fa, *edges[e])
+        for i in range(init.shape[1]):
+            x = i
+            while not fa[x] & ROOT:
+                x = fa[x]
+            out[f, i] = fa[x] & (ROOT - 1)
+    return out
+
+
+def _contract_init(comp, rng):
+    """A random init inside the kernel's contract: every run names, mod R,
+    a random run of its own component, with a random weak bit (+ R)."""
+    t, r = comp.shape
+    init = np.empty((t, r), np.int32)
+    for f in range(t):
+        for c in np.unique(comp[f]):
+            members = np.nonzero(comp[f] == c)[0]
+            init[f, members] = rng.choice(members, len(members))
+    return init + r * (rng.random((t, r)) < 0.5).astype(np.int32)
+
+
+def _np_win(twin):
+    return {k: _np(v) for k, v in twin.items()}
+
+
+def _chain_graph(n_runs):
+    """One image row split into ``n_runs`` wire runs of 31 px, joined by
+    chain links only: a path of n_runs - 1 hops."""
+    w = 31 * n_runs
+    img = np.ones((1, w), bool)
+    r = 1 << n_runs.bit_length()
+    runs, rcnt = _encode(img, w=w, r=r)
+    assert int(rcnt[0]) == n_runs
+    geo = trcc._prepare(_t(runs), _t(rcnt), w=w)
+    win = trcc.run_windows(geo, dilate=1)
+    return geo, win, trcc.chain_mask(geo, win), r
+
+
+DESIGN_CASES = [('graphs', 4, 31), ('graphs', 8, 32), ('graphs', 8, 33),
+                ('contract', 4, 34), ('contract', 8, 35), ('contract', 8, 36),
+                ('chain', 8, 37), ('r1', 8, 38), ('all_invalid', 8, 39)]
+
+
+def _design_inputs(case, connectivity, seed):
+    """[(init, win, link)] as torch tensors for one design case."""
+    rng = np.random.default_rng(seed)
+    if case in ('graphs', 'contract'):
+        out = []
+        for _, _, _, tinit, twin, tlink in _graphs(seed, 6, connectivity):
+            if case == 'contract':
+                r = tinit.shape[1]
+                iota = torch.arange(r, dtype=torch.int32)[None, :]
+                comp = _np(trcc.propagate_min(iota, twin, tlink)[0])
+                tinit = _t(_contract_init(comp, rng))
+            out.append((tinit, twin, tlink))
+        return out
+    if case == 'chain':
+        _, win, link, r = _chain_graph(100)
+        init = torch.arange(r, dtype=torch.int32)[None, :]
+        weak = init + r
+        weak[0, 70] = 70            # the only marked run, 70 hops in
+        return [(init, win, link), (weak.contiguous(), win, link)]
+    r = 1 if case == 'r1' else 16
+    runs = np.zeros((2, r), np.uint32)
+    runs[0, 0] = 3 | (1 << 26) | (2 << 27)
+    rcnt = np.array([0 if case == 'all_invalid' else 1, 0], np.int32)
+    geo = trcc._prepare(_t(runs), _t(rcnt), w=32)
+    win = trcc.run_windows(geo, dilate=1)
+    iota = torch.arange(r, dtype=torch.int32).expand(2, r).contiguous()
+    return [(iota, win, trcc.chain_mask(geo, win)),
+            ((iota + r).contiguous(), win, trcc.chain_mask(geo, win))]
+
+
+@pytest.mark.parametrize('skip_mirrored', [True, False])
+@pytest.mark.parametrize('case,connectivity,seed', DESIGN_CASES)
+def test_union_find_design_matches_propagate_min(case, connectivity, seed,
+                                                 skip_mirrored):
+    """A sequential emulation of the kernel (a union-find over its edge set
+    with the minimum carried at the roots, edges in shuffled order) gives
+    the plain version's labels: on random run graphs with the pipeline's
+    two inits, on random inits of the contract, on a chain of 99 hops (the
+    TPU kernel's cap is 64 sweeps), on R = 1 and on frames without runs."""
+    rng = np.random.default_rng(seed + 100)
+    for tinit, twin, tlink in _design_inputs(case, connectivity, seed):
+        plain, steps = trcc.propagate_min(tinit, twin, tlink, max_iters=256)
+        assert (_np(steps) < 256).all()
+        got = _union_find_labels(_np(tinit), _np_win(twin), _np(tlink), rng,
+                                 skip_mirrored)
+        np.testing.assert_array_equal(got, _np(plain))
+    if case == 'chain':
+        assert (_np(plain)[0, :100] == 70).all()
+
+
+def test_union_find_differs_from_plain_outside_the_contract():
+    """An init whose label names a run of another component is outside the
+    contract: the plain version reads the path-halving edge in one
+    direction and in its own schedule (run 1 reaches label 0 through its
+    link before it looks at run 2, and run 2 never looks at run 1), the
+    union-find joins the two runs. Pinned so that the difference stays a
+    known one."""
+    r = 3
+    init = np.array([[0, 2, 5]], np.int32)
+    zero = np.zeros((1, r), np.int32)
+    off = np.zeros((1, r), bool)
+    win = {'lo_up': zero, 'hi_up': zero, 'lo_dn': zero, 'hi_dn': zero,
+           'ok_up': off, 'ok_dn': off}
+    link = np.array([[True, False, False]])
+    plain, _ = trcc.propagate_min(_t(init), {k: _t(v) for k, v in win.items()},
+                                  _t(link))
+    assert _np(plain).tolist() == [[0, 0, 5]]
+    got = _union_find_labels(init, win, link, np.random.default_rng(0))
+    assert got.tolist() == [[0, 0, 0]]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    return torch.device('cuda')
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
     """The CUDA kernel against the plain version on the card: exact labels,
     every frame converged, one launch counted per call. Runs on a machine
     with an NVIDIA GPU (see README)."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
-    dev = torch.device('cuda')
+    dev = _cuda()
     for init, jwin, jlink, tinit, twin, tlink in _graphs(23, 6):
         plain, _ = trcc.propagate_min(tinit, twin, tlink)
         before = propagate_min_fused.launches
@@ -267,3 +441,28 @@ def test_kernel_matches_plain_on_cuda():
         assert propagate_min_fused.launches == before + 1
         assert (steps.cpu().numpy() < MAX_ITERS).all()
         np.testing.assert_array_equal(lab.cpu().numpy(), _np(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case,connectivity,seed', DESIGN_CASES)
+def test_kernel_matches_plain_on_design_cases_on_cuda(case, connectivity,
+                                                      seed):
+    """The kernel on the design cases: the plain
+    version's labels, 0 steps, and with ``max_iters = 0`` a copy of the
+    init. The window planes go in as slices of a wider table, as the
+    pipeline's do."""
+    dev = _cuda()
+    for tinit, twin, tlink in _design_inputs(case, connectivity, seed):
+        plain, _ = trcc.propagate_min(tinit, twin, tlink, max_iters=256)
+        wide = torch.cat([twin[k] for k in ('lo_up', 'hi_up', 'lo_dn',
+                                            'hi_dn')], dim=1).to(dev)
+        r = tinit.shape[1]
+        win = {k: wide[:, j * r:(j + 1) * r] for j, k in enumerate(
+            ('lo_up', 'hi_up', 'lo_dn', 'hi_dn'))}
+        win.update(ok_up=twin['ok_up'].to(dev), ok_dn=twin['ok_dn'].to(dev))
+        lab, steps = propagate_min_fused(tinit.to(dev), win, tlink.to(dev))
+        assert steps.cpu().tolist() == [0] * tinit.shape[0]
+        np.testing.assert_array_equal(lab.cpu().numpy(), _np(plain))
+        same, _ = propagate_min_fused(tinit.to(dev), win, tlink.to(dev),
+                                      max_iters=0)
+        np.testing.assert_array_equal(same.cpu().numpy(), _np(tinit))

@@ -84,6 +84,27 @@ def test_list_csv_byte_identical_to_jax(tmp_path, clip):
     assert os.path.basename(tres[4]) == os.path.basename(jres[4])
 
 
+def test_exact_mode_above_the_default_gate(tmp_path):
+    """Dense exact mode: with 'cv2 exact rects max detections' raised to a
+    capacity above the default gate of 1024, the host rects and the
+    float64 tracker run at that capacity; the ``_list.csv`` is JAX's, byte
+    for byte, and the default gate's."""
+    from ysmr_tpu_torch.pipeline.track_bacteria import use_host_rects
+    exact = {'max detections per frame': 2048, 'max track slots': 2048,
+             'cv2 exact rects max detections': 2048}
+    settings = _make_settings(tmp_path, **exact)
+    assert use_host_rects(settings)
+    assert not use_host_rects({**settings,
+                               'cv2 exact rects max detections': 1024})
+    out = _run_both(tmp_path, 'adaptive_double', runs=(
+        ('jax', jtrack, {**exact, 'run cc': 'on'}),
+        ('torch', track_bacteria, exact),
+        ('torch_default', track_bacteria, {})))
+    assert out['jax'][1].count(b'\n') > 100
+    assert out['torch'][1] == out['jax'][1]
+    assert out['torch_default'][1] == out['jax'][1]
+
+
 @pytest.mark.parametrize('clip', sorted(CLIPS))
 def test_device_tracker_rows_match_jax(tmp_path, clip):
     out = _run_both(tmp_path, clip, **{'cv2 exact rects': False})

@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
-"""Per-launch device times of two kernels of the port, on one NVIDIA card.
+"""Per-launch device times of the port's kernels, on one NVIDIA card.
 
-Run from the root of a checkout: ``python3 trace_kernels.py [--root DIR]``.
-``--root`` names the checkout whose ``ysmr_tpu_torch`` is traced (default:
-this one), so two versions of the kernels can be traced in one run with
-the same inputs. The inputs are ``chip_smoke.py``'s: the pixel lists of
-the bench and dense scenes' first 64 frames (``cc_labels_at_pixels``,
-double and single threshold) and random blobs with the serpentine, and
-the assign inputs at 4096x4096 (K = 2 and 3) and 16384x16384. With
-``--dense-e2e N`` it also runs the smoke's dense scene (150 frames, 3000
-rods) in memory through the stage-1 loop N times, the device path whose
-tracker launches the assign kernel once per frame step.
+Run from the root of a checkout: ``python3 trace_kernels.py [--root DIR]
+[--groups run_prop,cc]``. ``--root`` names the checkout whose
+``ysmr_tpu_torch`` is traced (default: this one), so two versions of the
+kernels can be traced in one run with the same inputs. The inputs are
+``chip_smoke.py``'s, in four groups:
+
+- ``run_prop``: ``propagate_min_fused`` on the run graphs of the bench and
+  dense scenes' first 64 frames (the run wire's R bucket, the 4-connected
+  weak init and the 8-connected iota) and on the random R = 131072 graphs;
+- ``cc``: ``binary_reconstruct`` and the 8-connected
+  ``label_components_whole_frame`` on the bench scene's first 64 frames
+  thresholded by the device preprocess (64 x 922 x 1228), and the
+  reconstruction on random blobs with the serpentine;
+- ``pixels``: ``cc_labels_at_pixels`` on the pixel lists of the bench and
+  dense batches (double and single threshold) and of the random blobs;
+- ``assign``: ``row_min_argmin`` at 4096x4096 (K = 2 and 3) and
+  16384x16384.
+
+With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
+3000 rods) in memory through the stage-1 loop N times, the device path
+whose tracker launches the assign kernel once per frame step, and N times
+in dense exact mode (host rects and the float64 tracker); with
+``--e2e N`` the bench scene on the run wire, the dense scene and the bench
+scene in frames mode, N times each (frames/s of each).
 
 Each call is traced with ``torch.profiler``; the script prints every
 kernel the call launched (the entries' internal launches included) with
 its mean device time, grid, block, registers, shared memory and the
-profiler's estimate of achieved occupancy, and the call's span on CUDA
-events.
+profiler's estimate of achieved occupancy (the torch kernels a wrapper
+launches before its own appear as lines of their own), and the call's
+span on CUDA events.
 """
 
 import argparse
@@ -27,6 +42,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+GROUPS = ('run_prop', 'cc', 'pixels', 'assign')
 
 
 def parse_args():
@@ -34,9 +50,17 @@ def parse_args():
     ap.add_argument('--root', default=HERE,
                     help='checkout whose ysmr_tpu_torch is traced')
     ap.add_argument('--reps', type=int, default=20)
+    ap.add_argument('--groups', default=','.join(GROUPS),
+                    help='comma-separated groups to trace, of ' +
+                    ', '.join(GROUPS))
+    ap.add_argument('--e2e', type=int, default=0, metavar='N',
+                    help='also run the bench scene (run wire), the dense '
+                    'scene and the bench scene in frames mode in memory N '
+                    'times each (frames/s)')
     ap.add_argument('--dense-e2e', type=int, default=0, metavar='N',
                     help='also run the dense scene in memory through the '
-                    'stage-1 loop N times (frames/s and stage split)')
+                    'stage-1 loop N times, and N times in dense exact mode '
+                    '(frames/s and stage split)')
     return ap.parse_args()
 
 
@@ -94,28 +118,56 @@ def trace(name, fn, reps, smoke):
     print('  kernels sum {:.4f} ms per call'.format(total), flush=True)
 
 
-def main():
-    args = parse_args()
-    smoke = load_smoke(args.root)
+def trace_run_prop(smoke, args, dev):
+    import numpy as np
+    from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
+    batches = [('bench', smoke.W) + smoke.first_batch_runs(
+        smoke.BenchScene(), smoke.bench_settings()),
+        ('dense', smoke.W) + smoke.first_batch_runs(
+            smoke.BenchScene(seed=smoke.DENSE_SEED, n_bugs=smoke.DENSE_BUGS),
+            smoke.dense_settings())]
+    t, h, w, r, dens = smoke.RANDOM_GRAPHS[1]
+    batches.append(('random', w) + smoke.random_runs(
+        np.random.default_rng(smoke.SEED), t, h, w, r, dens))
+    for name, w, runs, rc in batches:
+        for conn in (4, 8):
+            init, win, link = smoke.graph_inputs(runs, rc, w, conn, dev)
+            trace('propagate_min_fused {} T={} R={} {}-conn'.format(
+                name, runs.shape[0], runs.shape[1], conn),
+                lambda: propagate_min_fused(
+                    init, win, link, max_iters=smoke.MAX_ITERS),
+                args.reps, smoke)
+
+
+def trace_cc(smoke, args, dev):
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit('no CUDA device: this script runs on a GPU')
     from ysmr_tpu_torch.ops import cc
-    from ysmr_tpu_torch.ops.assign import row_min_argmin
-    print('tracing the package of {}'.format(os.path.abspath(args.root)),
-          flush=True)
-    print(smoke.phase_environment(), flush=True)
-    smoke.phase_build()
-    os.makedirs(smoke.WORK, exist_ok=True)
-    dev = torch.device('cuda', 0)
-    settings = smoke.bench_settings()
-    dsettings = smoke.dense_settings()
+    mask, marker = smoke.bench_masks(smoke.BenchScene(),
+                                     smoke.bench_settings(), dev)
+    marker = marker & mask
+    shape = 'x'.join(str(n) for n in mask.shape)
+    trace('binary_reconstruct bench {}'.format(shape),
+          lambda: cc.binary_reconstruct(mask, marker), args.reps, smoke)
+    trace('label_components_whole_frame 8-conn bench {}'.format(shape),
+          lambda: cc.label_components_whole_frame(mask, 8), args.reps, smoke)
+    masks, markers = smoke.random_blob_masks(
+        np.random.default_rng(smoke.SEED), 8)
+    bmask = torch.from_numpy(masks).to(dev)
+    bmarker = torch.from_numpy(markers).to(dev)
+    trace('binary_reconstruct random blobs with the serpentine {}'.format(
+        'x'.join(str(n) for n in bmask.shape)),
+        lambda: cc.binary_reconstruct(bmask, bmarker), args.reps, smoke)
+
+
+def trace_pixels(smoke, args, dev):
+    import numpy as np
+    from ysmr_tpu_torch.ops import cc
     bench = smoke.lists_from_packed(*smoke.packed_batch(
-        smoke.BenchScene(), settings), dev)
+        smoke.BenchScene(), smoke.bench_settings()), dev)
     dense = smoke.lists_from_packed(*smoke.packed_batch(
         smoke.BenchScene(seed=smoke.DENSE_SEED, n_bugs=smoke.DENSE_BUGS),
-        dsettings), dev)
+        smoke.dense_settings()), dev)
     masks, markers = smoke.random_blob_masks(
         np.random.default_rng(smoke.SEED + 4), 8)
     blobs = smoke.lists_from_masks(masks, markers, dev)
@@ -128,22 +180,74 @@ def main():
                 'double' if double else 'single'),
                 lambda: cc.cc_labels_at_pixels(*lists, **kw), args.reps,
                 smoke)
+
+
+def trace_assign(smoke, args, dev):
+    import numpy as np
+    from ysmr_tpu_torch.ops.assign import row_min_argmin
     rng = np.random.default_rng(smoke.SEED)
     for n, k in ((4096, 2), (4096, 3), (16384, 2)):
         a = smoke.assign_inputs(rng, n, n, k, dev)
         trace('row_min_argmin {}x{} K={}'.format(n, n, k),
               lambda: row_min_argmin(*a), args.reps, smoke)
-    if args.dense_e2e:
+
+
+def end_to_end(smoke, args):
+    """The smoke's scenes in memory through the stage-1 loop on cuda:
+    frames/s and stage split of each run."""
+    runs = []
+    if args.e2e:
+        scene = smoke.BenchScene()
+        frames = [scene.frame(t) for t in range(smoke.N_FRAMES)]
+        settings = smoke.bench_settings()
+        runs += [('bench scene, run wire', frames, settings, args.e2e),
+                 ('bench scene, frames mode', frames,
+                  {**settings, **smoke.FRAMES}, args.e2e)]
+    n_dense = max(args.e2e, args.dense_e2e)
+    if n_dense:
         scene = smoke.BenchScene(seed=smoke.DENSE_SEED,
                                  n_bugs=smoke.DENSE_BUGS)
         frames = [scene.frame(t) for t in range(smoke.DENSE_FRAMES)]
-        for i in range(args.dense_e2e):
-            _, _, stats = smoke.run_loop(frames, dsettings, 'cuda',
-                                         'trace_dense{}'.format(i))
-            print('dense scene in memory run {}: {:.2f} frames/s, stage '
-                  'split (ms/frame): {}'.format(i, stats['fps'],
-                                                smoke.per_frame(stats)),
+        settings = smoke.dense_settings()
+        runs.append(('dense scene', frames, settings, n_dense))
+        if args.dense_e2e:
+            # the host-rect gate raised to the capacity: run-CC on the
+            # card, then the host rects and the float64 tracker
+            runs.append(('dense scene, exact mode', frames, {
+                **settings, 'cv2 exact rects max detections':
+                settings['max detections per frame']}, args.dense_e2e))
+    for name, frames, settings, n in runs:
+        for i in range(n):
+            _, _, stats = smoke.run_loop(frames, settings, 'cuda',
+                                         'trace_e2e')
+            print('{} in memory run {}: {:.2f} frames/s, stage split '
+                  '(ms/frame): {}'.format(name, i, stats['fps'],
+                                          smoke.per_frame(stats)),
                   flush=True)
+
+
+def main():
+    args = parse_args()
+    groups = [g for g in args.groups.split(',') if g]
+    if set(groups) - set(GROUPS):
+        raise SystemExit('unknown group in {} (of {})'.format(
+            args.groups, ', '.join(GROUPS)))
+    smoke = load_smoke(args.root)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('no CUDA device: this script runs on a GPU')
+    print('tracing the package of {}'.format(os.path.abspath(args.root)),
+          flush=True)
+    print(smoke.phase_environment(), flush=True)
+    smoke.phase_build()
+    os.makedirs(smoke.WORK, exist_ok=True)
+    dev = torch.device('cuda', 0)
+    tracers = {'run_prop': trace_run_prop, 'cc': trace_cc,
+               'pixels': trace_pixels, 'assign': trace_assign}
+    for g in GROUPS:
+        if g in groups:
+            tracers[g](smoke, args, dev)
+    end_to_end(smoke, args)
 
 
 if __name__ == '__main__':

@@ -153,7 +153,7 @@ def load_kernels():
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ysmr_run_prop.restype = ci
-    lib.ysmr_run_prop.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.ysmr_run_prop.argtypes = [vp] * 12 + [ci] * 4 + [vp]
     lib.ysmr_hull_edges.restype = ci
     lib.ysmr_hull_edges.argtypes = [vp] * 12 + [ci, ci, ci, vp]
     lib.ysmr_sweep_extents.restype = ci

@@ -13,8 +13,8 @@
 // ysmr_tpu_torch/ops/labeling.py::label_components (labels only) and
 // ::propagate_markers.
 //
-// Design (Playne-Hawick union-find, three or four passes over one grid of
-// T*H*W threads):
+// Design of the labeling (Playne-Hawick union-find, three passes over one
+// grid of T*H*W threads):
 //   init:     a foreground pixel's parent is its own in-frame index, the
 //             background's is h*w;
 //   merge:    each foreground pixel unites with its foreground neighbours
@@ -25,10 +25,30 @@
 //             the value the atomic returned;
 //   compress: each foreground pixel takes its root. The root is the
 //             component's minimum index whatever the schedule, so the labels
-//             are exact and deterministic. The reconstruction also sets
-//             flag[root] = 1 here for every pixel of marker & mask (all
-//             writers store 1);
-//   keep:     (reconstruction only) out = mask & flag[label].
+//             are exact and deterministic.
+// Bound: streaming passes (a byte of mask in, four bytes of labels out per
+// pixel: ~0.36 GB per 64-frame 1228x922 batch); the merge does work only on
+// foreground pixels, a few per cent of a frame.
+//
+// Design of the reconstruction (four passes over one thread per 32 pixels;
+// the passes are below, at rec_pack). It needs no label on the background
+// and no flag plane, only whether a component holds a marker:
+//   pack:  mask and marker & mask are read once, 32 bytes a thread with two
+//          16-byte loads, and kept as bits (2 x 9 MB per 64-frame batch,
+//          resident in the L2 for the other passes). The same pass builds
+//          the forest of the horizontal runs without an atomic: every set
+//          pixel points at the first pixel of its segment (its run within
+//          the word and the row);
+//   merge: word operations find the pixels with a set pixel above them,
+//          and of those only the ones whose left neighbours do not already
+//          make the same union: a run meets each run above it once;
+//   mark:  every segment's first pixel is pointed at its root, and a
+//          segment holding a marker pixel sets the mark bit of the root's
+//          entry;
+//   keep:  a segment is kept iff its root's entry carries the mark; the
+//          output bytes leave with 16-byte stores.
+// Bound: mask + marker + out, 3 bytes a pixel (217 MB per 64-frame batch);
+// the label array is touched at the mask's pixels only.
 //
 // Differences from the TPU kernels: the Pallas stencil stops after max_iters
 // (64) propagation steps, and the Pallas reconstruction after max_iters
@@ -37,14 +57,8 @@
 // every marker pixel is dropped. These kernels have no iteration loop and
 // always compute the fixpoint, as scipy does (and as the JAX CPU path does
 // whenever its labeling converged). The TPU's 32-frame bit packing, lane
-// rolls and VMEM residency existed for Mosaic and are not carried over.
-//
-// What bounds it on an H100: init, compress and keep are streaming passes
-// (a byte of mask in, four bytes of labels out per pixel: ~0.36 GB per
-// 64-frame 1228x922 batch, ~0.1 ms each at 3.35 TB/s). The merge does work
-// only on foreground pixels (a few per cent of a frame); its cost is the
-// latency of the root walks and the atomics, which stay in L2 for
-// bacteria-sized components.
+// rolls and VMEM residency existed for Mosaic and are not carried over (the
+// reconstruction here packs 32 pixels of one row, not 32 frames).
 //
 // The third entry, ysmr_cc_pixels, replaces cc_labels_at_pixels of the same
 // Pallas file (kernel _make_kernel): per frame a list of F foreground pixels
@@ -177,29 +191,15 @@ cc_merge(const uint8_t* __restrict__ mask, int32_t* lab, int64_t total,
 }
 
 __global__ void __launch_bounds__(kThreads)
-cc_compress(const uint8_t* __restrict__ mask,
-            const uint8_t* __restrict__ marker, int32_t* lab,
-            uint8_t* __restrict__ flag, int64_t total, int32_t n) {
+cc_compress(const uint8_t* __restrict__ mask, int32_t* lab, int64_t total,
+            int32_t n) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (idx >= total || !mask[idx]) return;
   const int64_t base = idx - idx % n;
   // other threads store roots meanwhile: a read returns the old parent or
   // the root, both ancestors
-  const int32_t root = find_root(lab + base,
-                                 static_cast<int32_t>(idx - base));
-  lab[idx] = root;
-  if (marker != nullptr && marker[idx]) flag[base + root] = 1;
-}
-
-__global__ void __launch_bounds__(kThreads)
-rec_keep(const uint8_t* __restrict__ mask, const int32_t* __restrict__ lab,
-         const uint8_t* __restrict__ flag, uint8_t* __restrict__ out,
-         int64_t total, int32_t n) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total) return;
-  out[idx] = mask[idx] && flag[idx - idx % n + lab[idx]];
+  lab[idx] = find_root(lab + base, static_cast<int32_t>(idx - base));
 }
 
 unsigned blocks_for(int64_t total) {
@@ -563,10 +563,208 @@ px_final(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
   }
 }
 
-// init + merge + compress on `lab`; marker/flag as in cc_compress
-cudaError_t label(const uint8_t* mask, const uint8_t* marker, int32_t* lab,
-                  uint8_t* flag, int t, int h, int w, int connectivity,
-                  cudaStream_t s) {
+// ---- marker reconstruction on bit-packed masks (ysmr_cc_reconstruct) ----
+//
+// The frames of a call are one flat array of t * h rows of w pixels, pixel
+// g in bit g % 32 of word g / 32, so rows and frames start at any bit. A
+// segment is a maximal run of set bits within one word and one row; its
+// first pixel carries its label.
+
+// 32 bytes from p (non-zero = set) as one bit each; kVec: p is 16-byte
+// aligned and all 32 bytes exist, else the first `count` bytes are read
+__device__ __forceinline__ uint32_t nibble(uint32_t v) {
+  // bytes 0/1 at bits 0, 8, 16, 24 to bits 24..27 of the product
+  return ((__vcmpne4(v, 0) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+template <bool kVec>
+__device__ __forceinline__ uint32_t pack32(const uint8_t* __restrict__ p,
+                                           int count) {
+  uint32_t bits = 0;
+  if (kVec && count >= 32) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const uint4 b = *reinterpret_cast<const uint4*>(p + 16);
+    bits = nibble(a.x) | nibble(a.y) << 4 | nibble(a.z) << 8 |
+           nibble(a.w) << 12 | nibble(b.x) << 16 | nibble(b.y) << 20 |
+           nibble(b.z) << 24 | nibble(b.w) << 28;
+  } else {
+    for (int b = 0; b < min(count, 32); ++b) {
+      bits |= static_cast<uint32_t>(p[b] != 0) << b;
+    }
+  }
+  return bits;
+}
+
+// of the 32 pixels from g0: `start` the bits at x = 0, `top` the bits in
+// the first row of a frame
+struct RowMasks {
+  uint32_t start, top;
+};
+
+__device__ __forceinline__ RowMasks row_masks(int32_t g0, int h, int w) {
+  int row = g0 / w;
+  int x = g0 - row * w;
+  RowMasks m = {0u, 0u};
+  for (int b = 0; b < 32; ++row) {
+    const int len = min(32 - b, w - x);
+    if (x == 0) m.start |= 1u << b;
+    if (row % h == 0) m.top |= (0xffffffffu >> (32 - len)) << b;
+    b += len;
+    x = 0;
+  }
+  return m;
+}
+
+// the first bits of the segments of a word
+__device__ __forceinline__ uint32_t segment_starts(uint32_t m,
+                                                   uint32_t row_start) {
+  return m & ~((m << 1) & ~row_start);
+}
+
+// the 32 bits from bit offset `off` of the packed array (0 outside it)
+__device__ __forceinline__ uint32_t bits_at(const uint32_t* __restrict__ m,
+                                            int32_t n_words, int32_t off) {
+  if (off <= -32) return 0;
+  if (off < 0) return m[0] << -off;
+  const int32_t j = off >> 5, o = off & 31;
+  const uint32_t lo = j < n_words ? m[j] : 0u;
+  if (o == 0) return lo;
+  const uint32_t hi = j + 1 < n_words ? m[j + 1] : 0u;
+  return lo >> o | hi << (32 - o);
+}
+
+// pass 1: the mask and marker & mask as bits, and the forest of the
+// horizontal runs: every set pixel points at its segment's first pixel,
+// which points at itself or, where the run goes on from the previous word,
+// at the first pixel of that word's last segment
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+rec_pack(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ marker,
+         uint32_t* __restrict__ mbits, uint32_t* __restrict__ kbits,
+         int32_t* __restrict__ lab, int32_t total, int32_t n_words, int h,
+         int w) {
+  const int32_t k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n_words) return;
+  const int32_t g0 = k * 32;
+  const uint32_t m = pack32<kVec>(mask + g0, total - g0);
+  mbits[k] = m;
+  kbits[k] = m == 0 ? 0u : pack32<kVec>(marker + g0, total - g0) & m;
+  if (m == 0) return;
+  const uint32_t rs = row_masks(g0, h, w).start;
+  const uint32_t starts = segment_starts(m, rs);
+  int32_t first = g0;
+  if ((m & 1u) && !(rs & 1u) && mask[g0 - 1]) {
+    const uint32_t pm = pack32<kVec>(mask + g0 - 32, 32);
+    first = g0 - 1 - __clz(segment_starts(pm, row_masks(g0 - 32, h, w).start));
+  }
+  for (uint32_t rest = m; rest != 0; rest &= rest - 1) {
+    const int b = __ffs(rest) - 1;
+    const int sb = 31 - __clz(starts & (0xffffffffu >> (31 - b)));
+    lab[g0 + b] = b == 0 ? first : g0 + sb;
+  }
+}
+
+// pass 2: a set pixel unites with the set pixel above it, unless both
+// have their left neighbours set (those two make the same union)
+__global__ void __launch_bounds__(kThreads)
+rec_merge(const uint32_t* __restrict__ mbits, int32_t* lab, int32_t n_words,
+          int h, int w) {
+  const int32_t k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n_words) return;
+  const uint32_t m = mbits[k];
+  if (m == 0) return;
+  const int32_t g0 = k * 32;
+  const RowMasks rm = row_masks(g0, h, w);
+  const uint32_t carry = k > 0 ? mbits[k - 1] >> 31 : 0u;
+  const uint32_t left = (m << 1 | carry) & ~rm.start;
+  const uint32_t up = bits_at(mbits, n_words, g0 - w) & ~rm.top;
+  const uint32_t up_left = bits_at(mbits, n_words, g0 - w - 1) & ~rm.start;
+  for (uint32_t need = m & up & ~(left & up_left); need != 0;
+       need &= need - 1) {
+    const int32_t p = g0 + __ffs(need) - 1;
+    unite(lab, p, p - w);
+  }
+}
+
+// root of x where roots may carry the mark bit
+__device__ __forceinline__ int32_t find_root_marked(
+    const volatile int32_t* lab, int32_t x) {
+  int32_t p = lab[x] & kDist;
+  while (p != x) {
+    x = p;
+    p = lab[x] & kDist;
+  }
+  return x;
+}
+
+// bits [sb, end) of the segment that starts at bit sb of word m
+__device__ __forceinline__ uint32_t segment_bits(uint32_t m, uint32_t starts,
+                                                 int sb) {
+  // the segment ends before the next start or the next clear bit
+  const uint32_t stop = (~m | starts) & ~(0xffffffffu >> (31 - sb));
+  return (stop == 0 ? 0xffffffffu : (1u << (__ffs(stop) - 1)) - 1u) &
+         ~((1u << sb) - 1u);
+}
+
+// pass 3: every segment's first pixel points straight at its root, and a
+// segment with a marker pixel sets the root's mark bit (other walks read
+// the old parent or the root meanwhile, both ancestors)
+__global__ void __launch_bounds__(kThreads)
+rec_mark(const uint32_t* __restrict__ mbits,
+         const uint32_t* __restrict__ kbits, int32_t* lab, int32_t n_words,
+         int h, int w) {
+  const int32_t k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n_words) return;
+  const uint32_t m = mbits[k];
+  if (m == 0) return;
+  const int32_t g0 = k * 32;
+  const uint32_t marked = kbits[k];
+  const uint32_t starts = segment_starts(m, row_masks(g0, h, w).start);
+  for (uint32_t rest = starts; rest != 0; rest &= rest - 1) {
+    const int sb = __ffs(rest) - 1;
+    const int32_t s = g0 + sb;
+    const int32_t root = find_root_marked(lab, s);
+    if (root != s) lab[s] = root;
+    if (marked & segment_bits(m, starts, sb)) atomicOr(lab + root, kMark);
+  }
+}
+
+// pass 4: a segment is kept iff its root carries the mark
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+rec_keep(const uint32_t* __restrict__ mbits, const int32_t* __restrict__ lab,
+         uint8_t* __restrict__ out, int32_t total, int32_t n_words, int h,
+         int w) {
+  const int32_t k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n_words) return;
+  const uint32_t m = mbits[k];
+  const int32_t g0 = k * 32;
+  uint32_t keep = 0;
+  if (m != 0) {
+    const uint32_t starts = segment_starts(m, row_masks(g0, h, w).start);
+    for (uint32_t rest = starts; rest != 0; rest &= rest - 1) {
+      const int sb = __ffs(rest) - 1;
+      int32_t v = lab[g0 + sb];
+      if ((v & kDist) != g0 + sb) v = lab[v];
+      if (v < 0) keep |= segment_bits(m, starts, sb);
+    }
+  }
+  if (kVec && total - g0 >= 32) {
+    // a nibble's bits to the low bits of four bytes
+    auto bytes = [keep](int q) {
+      return ((keep >> (4 * q) & 0xfu) * 0x00204081u) & 0x01010101u;
+    };
+    uint4* o = reinterpret_cast<uint4*>(out + g0);
+    o[0] = make_uint4(bytes(0), bytes(1), bytes(2), bytes(3));
+    o[1] = make_uint4(bytes(4), bytes(5), bytes(6), bytes(7));
+  } else {
+    for (int b = 0; b < min(total - g0, 32); ++b) out[g0 + b] = keep >> b & 1u;
+  }
+}
+
+// init + merge + compress on `lab`
+cudaError_t label(const uint8_t* mask, int32_t* lab, int t, int h, int w,
+                  int connectivity, cudaStream_t s) {
   const int32_t n = h * w;
   const int64_t total = static_cast<int64_t>(t) * n;
   const unsigned blocks = blocks_for(total);
@@ -576,7 +774,7 @@ cudaError_t label(const uint8_t* mask, const uint8_t* marker, int32_t* lab,
   } else {
     cc_merge<4><<<blocks, kThreads, 0, s>>>(mask, lab, total, h, w);
   }
-  cc_compress<<<blocks, kThreads, 0, s>>>(mask, marker, lab, flag, total, n);
+  cc_compress<<<blocks, kThreads, 0, s>>>(mask, lab, total, n);
   return cudaGetLastError();
 }
 
@@ -595,30 +793,58 @@ int ysmr_cc_label(const void* mask, void* labels, int t, int h, int w,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(label(static_cast<const uint8_t*>(mask), nullptr,
-                                static_cast<int32_t*>(labels), nullptr, t, h,
-                                w, connectivity,
+  return static_cast<int>(label(static_cast<const uint8_t*>(mask),
+                                static_cast<int32_t*>(labels), t, h, w,
+                                connectivity,
                                 static_cast<cudaStream_t>(stream)));
 }
 
-// mask, marker: (T, H, W) uint8 (0/1); labels: (T, H, W) int32 scratch;
-// flag: (T, H, W) uint8 scratch, zero on entry; out: (T, H, W) uint8.
-// Returns a cudaError_t (0 = launched).
+// mask, marker: (T, H, W) uint8 (non-zero = set); labels: (T, H, W) int32
+// scratch (touched at the mask's pixels only); bits: 2 * ceil(T * H * W /
+// 32) uint32 scratch; out: (T, H, W) uint8 (0/1). T * H * W <= 2^31 - 64
+// (cudaErrorInvalidValue otherwise). Returns a cudaError_t (0 = launched).
 int ysmr_cc_reconstruct(const void* mask, const void* marker, void* labels,
-                        void* flag, void* out, int t, int h, int w,
+                        void* bits, void* out, int t, int h, int w,
                         int device, void* stream) {
   if (t <= 0 || h <= 0 || w <= 0) return 0;
+  const int64_t total64 = static_cast<int64_t>(t) * h * w;
+  if (total64 > (int64_t{1} << 31) - 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t total = static_cast<int32_t>(total64);
+  const int32_t n_words = (total + 31) / 32;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const uint8_t* k = static_cast<const uint8_t*>(marker);
+  uint8_t* o = static_cast<uint8_t*>(out);
   int32_t* lab = static_cast<int32_t*>(labels);
-  uint8_t* f = static_cast<uint8_t*>(flag);
-  err = label(m, static_cast<const uint8_t*>(marker), lab, f, t, h, w, 4, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(t) * h * w;
-  rec_keep<<<blocks_for(total), kThreads, 0, s>>>(
-      m, lab, f, static_cast<uint8_t*>(out), total, h * w);
+  uint32_t* mbits = static_cast<uint32_t*>(bits);
+  uint32_t* kbits = mbits + n_words;
+  const unsigned blocks = blocks_for(n_words);
+  // The pipeline passes fresh allocations, which are aligned. The byte-wise
+  // variants are there only so that any contiguous tensor is taken: a view
+  // that starts inside a batch need not be aligned.
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (aligned(m) && aligned(k)) {
+    rec_pack<true><<<blocks, kThreads, 0, s>>>(m, k, mbits, kbits, lab, total,
+                                               n_words, h, w);
+  } else {
+    rec_pack<false><<<blocks, kThreads, 0, s>>>(m, k, mbits, kbits, lab,
+                                                total, n_words, h, w);
+  }
+  rec_merge<<<blocks, kThreads, 0, s>>>(mbits, lab, n_words, h, w);
+  rec_mark<<<blocks, kThreads, 0, s>>>(mbits, kbits, lab, n_words, h, w);
+  if (aligned(o)) {
+    rec_keep<true><<<blocks, kThreads, 0, s>>>(mbits, lab, o, total, n_words,
+                                               h, w);
+  } else {
+    rec_keep<false><<<blocks, kThreads, 0, s>>>(mbits, lab, o, total, n_words,
+                                                h, w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,10 +4,12 @@ foreground pixel lists (the pixel-table branch of pixels mode).
 
 Counterparts of ``ysmr_tpu/ops/pallas_cc.py::label_components_whole_frame``,
 ``::binary_reconstruct`` and ``::cc_labels_at_pixels``. The kernels
-(``csrc/cc.cu``) are union-find passes, over one grid of T*H*W threads or
-over tiles of the T*F list slots; the source notes the design, what
-bounds it, and where it differs from the TPU kernels (those stop after
-``max_iters`` steps; the union-find always reaches the fixpoint). The plain PyTorch versions are
+(``csrc/cc.cu``) are union-find passes: over one grid of T*H*W threads
+(labeling), over bit-packed masks with one thread per 32 pixels
+(reconstruction), or over tiles of the T*F list slots; the source notes
+the designs, what bounds them, and where they differ from the TPU kernels
+(those stop after ``max_iters`` steps; the union-find always reaches the
+fixpoint). The plain PyTorch versions are
 ``ops/labeling.py::label_components`` and ``::propagate_markers``, and
 ``cc_labels_at_pixels_plain`` here.
 
@@ -36,6 +38,14 @@ def _check_masks(name, mask, *others):
     if h * w >= 1 << 31:
         raise ValueError('{}: frames of 2^31 pixels or more'.format(name))
     return t, h, w
+
+
+#: most pixels of one reconstruction launch, and so of one frame there. The
+#: kernel indexes a launch's pixels with an int32; a batch above this goes
+#: in several launches, only so that the wrapper takes any number of
+#: frames (no pipeline call comes near: a 64-frame batch of 1228x922 is
+#: 72.5 M pixels).
+RECONSTRUCT_MAX_PIXELS = (1 << 31) - 64
 
 
 def label_components_whole_frame(mask, connectivity=8, max_iters=64):
@@ -80,16 +90,25 @@ def binary_reconstruct(mask, marker, max_iters=64):
     if mask.device.type == 'cpu':
         return propagate_markers(mask, marker, max_iters=max_iters)
     t, h, w = _check_masks('binary_reconstruct', mask, marker)
-    labels = torch.empty((t, h, w), dtype=torch.int32, device=mask.device)
-    flag = torch.zeros((t, h, w), dtype=torch.bool, device=mask.device)
+    if h * w > RECONSTRUCT_MAX_PIXELS:
+        raise ValueError('binary_reconstruct: frames of more than 2^31 - 64 '
+                         'pixels')
     out = torch.empty((t, h, w), dtype=torch.bool, device=mask.device)
     lib = _build.load_kernels()
     stream = torch.cuda.current_stream(mask.device).cuda_stream
-    rc = lib.ysmr_cc_reconstruct(mask.data_ptr(), marker.data_ptr(),
-                                 labels.data_ptr(), flag.data_ptr(),
-                                 out.data_ptr(), t, h, w, mask.device.index,
-                                 stream)
-    _build.check(lib, rc, 'cc reconstruct kernel launch')
+    step = max(1, RECONSTRUCT_MAX_PIXELS // (h * w))
+    for f0 in range(0, t, step):
+        n = min(step, t - f0) * h * w
+        # labels are touched at the mask's pixels only; the mask and the
+        # marker as bits, 32 pixels a word
+        labels = torch.empty(n, dtype=torch.int32, device=mask.device)
+        bits = torch.empty(2 * ((n + 31) // 32), dtype=torch.int32,
+                           device=mask.device)
+        rc = lib.ysmr_cc_reconstruct(
+            mask[f0:f0 + step].data_ptr(), marker[f0:f0 + step].data_ptr(),
+            labels.data_ptr(), bits.data_ptr(), out[f0:f0 + step].data_ptr(),
+            min(step, t - f0), h, w, mask.device.index, stream)
+        _build.check(lib, rc, 'cc reconstruct kernel launch')
     binary_reconstruct.launches += 1
     return out
 
