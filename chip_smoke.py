@@ -27,7 +27,10 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    list ``bench_data/bench_clip_list.csv.gz``;
 6. the dense path's kernels (hull, sweep, assign) against their plain
    PyTorch versions on the card, outputs bit-equal: hull and sweep on the
-   tables of the dense scene's first batch and on seeded random tables,
+   tables of the dense scene's first batch and of the bench scene's first
+   frames-mode batch (32768 x 64), the hull on seeded random tables (also
+   with valid rows that are no prefix, and with R = 4000 and R above the
+   kernel's shared-memory cap),
    assign at 4096x4096 and 16384x16384 with K = 2 and 3 (invalid rows and
    columns, exact ties) and on the edge cases of its row tiles and column
    slices (4097x4095, 1x1, 700x63, ties across slices, all rows or all
@@ -46,8 +49,11 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    card, bit-equal: on the bench scene's first 64 frames thresholded by
    the port's device preprocess at 1228x922, and on seeded random blob
    masks with an all-background frame and a serpentine component far
-   longer than 64 propagation steps (held to scipy, and to the plain
-   version only where that converged); median ms of each;
+   longer than 64 propagation steps, and on edge masks (a checkerboard,
+   one-pixel diagonals, a word across two frames) (held to scipy, and to
+   the plain version only where that converged); median ms of each; the
+   edge masks at 921x1227 once more, a frame a launch, so that launches
+   start off 16-byte boundaries (held to scipy);
 10. frames mode (``transfer mode = frames``) at full width on ``cuda``:
    the bench scene in memory (stage split, frames/s), whose ``_list.csv``
    must be byte-identical to the pixels-mode device path's without cv2
@@ -118,7 +124,7 @@ from ysmr_tpu_torch.io.preproc import HostPreprocessor
 from ysmr_tpu_torch.ops import assignment, cc, labeling, run_cc
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.assign import row_min_argmin
-from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+from ysmr_tpu_torch.ops.hull import HULL_MAX_SHARED_ROWS, hull_edge_vectors
 from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
 from ysmr_tpu_torch.ops.sweep import sweep_extents
 from ysmr_tpu_torch.pipeline import detect
@@ -560,13 +566,15 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 
 
-def bound(inputs, outputs, ops):
+def bound(inputs, outputs, ops, nbytes=None):
     """The least time the card could take for a call: the larger of its
-    bytes (each input read once, each output written once) over the memory
+    bytes (each input read once, each output written once, unless
+    ``nbytes`` counts only what the call's data needs) over the memory
     rate and its operations over the float32 rate. Returns (ms, 'bytes' or
     'operations')."""
-    nbytes = sum(int(t.numel()) * t.element_size()
-                 for t in list(inputs) + list(outputs))
+    if nbytes is None:
+        nbytes = sum(int(t.numel()) * t.element_size()
+                     for t in list(inputs) + list(outputs))
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, float(ops) / PEAK_OPS * 1e3
     return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else
             'operations')
@@ -593,10 +601,12 @@ def max_abs_err(got, want):
     return err
 
 
-def check_equal(name, kernel, plain, args, ops, reps=10, plain_reps=5):
+def check_equal(name, kernel, plain, args, ops, reps=10, plain_reps=5,
+                nbytes=None):
     """Kernel against its plain version on the same card tensors: every
     output bit-equal; median ms of each and the bound of the call
-    (``ops``: its operation count)."""
+    (``ops``: its operation count; ``nbytes``: its bytes, where not every
+    element of every input and output)."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -606,7 +616,7 @@ def check_equal(name, kernel, plain, args, ops, reps=10, plain_reps=5):
     err = max_abs_err(got, want)
     ms = cuda_ms(lambda: kernel(*args), reps=reps)
     plain_ms = cuda_ms(lambda: plain(*args), reps=plain_reps)
-    bnd = bound(args, got, ops)
+    bnd = bound(args, got, ops, nbytes)
     log('kernel check {}: bit-equal, ms kernel {:.4f} plain {:.4f} bound '
         '{:.4f} ({})'.format(name, ms, plain_ms, *bnd))
     return err, ms, plain_ms, bnd
@@ -634,28 +644,67 @@ def dense_tables(runs, rc, settings, dev):
     tabs = labeling.component_stats_runs(
         cc['s_start'], cc['s_len'], comp_rev, w=W, h=H, max_det=max_det,
         max_bh=max_bh, cv2_centers=True)
-    abs_y = (tabs['min_y'][:, None] + torch.arange(
-        max_bh, dtype=torch.int32, device=dev)[None, :]).contiguous()
-    hull_args = (tabs['row_min_x'], tabs['row_max_x'], tabs['row_valid'],
-                 abs_y)
+    hull_args, sweep_args = rect_inputs(
+        (tabs['row_min_x'], tabs['row_max_x'], tabs['row_valid'],
+         tabs['min_y']), tabs, max_bh)
+    log('dense batch: T={} components {} of {} slots, rows/component {}, '
+        'directions {}, points {}'.format(
+            runs.shape[0], int(n.clamp(max=max_det).sum()),
+            hull_args[0].shape[0], max_bh, sweep_args[2].shape[1],
+            sweep_args[0].shape[1]))
+    return hull_args, sweep_args
+
+
+def rect_inputs(rows, tabs, max_bh):
+    """Hull and sweep inputs as the stats tail gives them, from the row
+    tables ``rows`` (row_min_x, row_max_x, row_valid, min_y) and the tail's
+    ``tabs``: abs_y = min_y + row; the sweep's directions are the edge
+    candidates and the axis (1, 0)."""
+    row_min_x, row_max_x, row_valid, min_y = rows
+    abs_y = (min_y[:, None] + torch.arange(
+        max_bh, dtype=torch.int32, device=min_y.device)[None, :]).contiguous()
     d = tabs['edge_dx'].shape[0]
-    one = torch.ones((d, 1), dtype=torch.float32, device=dev)
+    one = torch.ones((d, 1), dtype=torch.float32, device=min_y.device)
     sweep_args = (tabs['points'].contiguous(),
                   tabs['points_valid'].contiguous(),
                   torch.cat([tabs['edge_dx'], one], 1).contiguous(),
                   torch.cat([tabs['edge_dy'], one * 0], 1).contiguous())
-    log('dense batch: T={} components {} of {} slots, rows/component {}, '
-        'directions {}, points {}'.format(
-            runs.shape[0], int(n.clamp(max=max_det).sum()), d, max_bh,
-            sweep_args[2].shape[1], sweep_args[0].shape[1]))
+    return (row_min_x, row_max_x, row_valid, abs_y), sweep_args
+
+
+def frames_tables(scene, settings, dev):
+    """Hull and sweep inputs at the shapes frames mode gives them: the
+    scene's first 64 frames through the device preprocess, the
+    reconstruction, the 8-connected labeling, the compaction, and the row
+    tables and stats tail of ``component_tables``, (T * max_det,
+    max_bh)."""
+    max_det = settings['max detections per frame']
+    max_bh = settings['max bounding box height']
+    mask, marker = bench_masks(scene, settings, dev)
+    mask = cc.binary_reconstruct(mask, marker & mask)
+    comp, n = labeling.compact_labels(
+        cc.label_components_whole_frame(mask, 8), mask, max_det=max_det)
+    t = mask.shape[0]
+    rows = labeling.component_row_tables(comp, mask, max_det=max_det,
+                                         max_bh=max_bh)
+    tabs = labeling.component_tables(comp, mask, max_det=max_det,
+                                     max_bh=max_bh)
+    hull_args, sweep_args = rect_inputs(rows, tabs, max_bh)
+    log('frames-mode bench batch: T={} components {} of {} slots, '
+        'rows/component {}, directions {}, points {}'.format(
+            t, int(n.clamp(max=max_det).sum()), hull_args[0].shape[0],
+            max_bh, sweep_args[2].shape[1], sweep_args[0].shape[1]))
     return hull_args, sweep_args
 
 
-def random_row_tables(rng, d, r, dev):
+def random_row_tables(rng, d, r, dev, holes=False):
     """Seeded random row-extreme tables with empty components, short
-    components and padding rows."""
+    components and padding rows; with ``holes`` the valid rows are no
+    prefix."""
     n_rows = rng.integers(1, r + 1, size=d)
     valid = np.arange(r)[None, :] < n_rows[:, None]
+    if holes:
+        valid &= rng.random((d, r)) < 0.6
     empty = rng.random(d) < 0.15
     valid[empty] = False
     min_y = np.where(empty, 1 << 30, rng.integers(0, 900, size=d))
@@ -708,10 +757,28 @@ def assign_edge_inputs(rng, case, k, dev):
 
 
 def hull_ops(row_valid):
-    """Slope-matrix operations of the hull call: per non-empty component
-    and chain, R x R pairs of two subtractions, a division and a compare."""
-    d_act = int(row_valid.any(dim=1).sum())
-    return d_act * row_valid.shape[1] ** 2 * 2 * 4
+    """Slope operations of the hull call on this data: per component with
+    n valid rows, n (n - 1) ordered pairs, and per pair and chain two
+    subtractions, a division and a compare."""
+    n = row_valid.sum(dim=1, dtype=torch.int64)
+    return int((n * (n - 1)).sum()) * 2 * 4
+
+
+def hull_bytes(row_valid):
+    """Bytes the hull call must move on this data: row_valid and the 20
+    output bytes (four float32, four flags) of every (component, row), and
+    the three int32 tables only at the valid rows (the outputs elsewhere
+    are zeros whatever the tables hold)."""
+    return row_valid.numel() * (1 + 20) + int(row_valid.sum()) * 12
+
+
+def check_hull(name, args, reps=10):
+    """``check_equal`` of the hull kernel, with its bound from
+    ``hull_ops`` and ``hull_bytes``."""
+    return check_equal(name, hull_edge_vectors,
+                       labeling.hull_edge_vectors_plain, args,
+                       hull_ops(args[2]), reps=reps,
+                       nbytes=hull_bytes(args[2]))
 
 
 def sweep_ops(valid, k):
@@ -737,24 +804,29 @@ def cdist_min_ms(args):
     return cuda_ms(lambda: torch.cdist(o, d).min(1))
 
 
-def phase_dense_kernels(scene, settings, dev):
+def phase_dense_kernels(scene, settings, dev, frames_args):
+    """``frames_args``: the hull and sweep inputs of ``frames_tables``."""
     runs, rc = first_batch_runs(scene, settings)
     hull_args, sweep_args = dense_tables(runs, rc, settings, dev)
     rng = np.random.default_rng(SEED)
     out = {}
-    hull = [check_equal('hull dense batch', hull_edge_vectors,
-                        labeling.hull_edge_vectors_plain, hull_args,
-                        hull_ops(hull_args[2]), reps=20)]
-    for d, r in ((4096, 48), (16384, 96)):
-        args = random_row_tables(rng, d, r, dev)
-        hull.append(check_equal(
-            'hull random D={} R={}'.format(d, r), hull_edge_vectors,
-            labeling.hull_edge_vectors_plain, args, hull_ops(args[2])))
+    hull = [check_hull('hull dense batch', hull_args, reps=20),
+            check_hull('hull frames-mode bench batch', frames_args[0],
+                       reps=20)]
+    # R = 4000: shared memory above 48 KB a block; R above the shared cap:
+    # the rows in global memory
+    for d, r, holes in ((4096, 48, False), (16384, 96, False),
+                        (4097, 33, True), (5, 4000, True),
+                        (2, HULL_MAX_SHARED_ROWS + 1, True)):
+        args = random_row_tables(rng, d, r, dev, holes)
+        hull.append(check_hull('hull random D={} R={}{}'.format(
+            d, r, ' (valid rows with holes)' if holes else ''), args))
     out['hull'] = (max(h[0] for h in hull),) + hull[0][1:]
-    sweep = [check_equal('sweep dense batch', sweep_extents,
-                         labeling.sweep_extents_plain, sweep_args,
-                         sweep_ops(sweep_args[1], sweep_args[2].shape[1]),
-                         reps=20)]
+    sweep = [check_equal('sweep {} batch'.format(name), sweep_extents,
+                         labeling.sweep_extents_plain, args,
+                         sweep_ops(args[1], args[2].shape[1]), reps=20)
+             for name, args in (('dense', sweep_args),
+                                ('frames-mode bench', frames_args[1]))]
     for d, p, k in ((4096, 96, 95), (4096, 192, 191)):
         pts = torch.from_numpy(rng.integers(0, 1228, (d, p, 2)).astype(
             np.float32)).to(dev)
@@ -1003,6 +1075,21 @@ def random_blob_masks(rng, t):
     return masks, markers
 
 
+def edge_cc_masks(rng):
+    """Full-size masks at the labeling's edges: a checkerboard (one
+    component 8-connected, singletons 4-connected), one-pixel diagonals in
+    both directions across word boundaries, and a frame whose last row and
+    the next frame's first row are full (a word straddles the frames:
+    922 * 1228 is no multiple of 32); markers on a random tenth of the
+    pixels."""
+    yy, xx = np.mgrid[:H, :W]
+    masks = np.stack([(yy + xx) % 2 == 0, (xx - yy) % 7 == 0,
+                      (xx + yy) % 7 == 0, (xx - 2 * yy) % 9 == 0,
+                      (xx + yy) % 5 == 0])
+    masks[3, -1] = masks[4, 0] = True
+    return masks, masks & (rng.random(masks.shape) < 0.1)
+
+
 def scipy_min_index_labels(mask, connectivity):
     """scipy.ndimage.label as the minimum linear index of each component,
     h * w on the background."""
@@ -1047,7 +1134,7 @@ def check_cc(name, mask, marker, scipy_frames=()):
         plain_ms = cuda_ms(lambda: labeling.label_components(mask, conn,
                                                              MAX_ITERS),
                            reps=3)
-        # init, merge and compress: a few operations per pixel
+        # pack, merge, roots and write: a few operations per pixel
         bnd = bound([mask], [got], 4 * mask.numel())
         out['label{}'.format(conn)] = (0.0, ms, plain_ms, bnd)
         log('kernel check {} label {}-conn: T={} bit-equal on {} of {} '
@@ -1079,6 +1166,44 @@ def check_cc(name, mask, marker, scipy_frames=()):
     return out, unconverged
 
 
+def check_cc_split(masks, markers, dev):
+    """Both cc kernels with a call's frames split one a launch, on the
+    masks without their middle row and column: 921 x 1227 pixels, an odd
+    count, so every other launch starts its mask, labels and kept pixels
+    off a 16-byte boundary of the batch (the byte-wise loads and stores);
+    every frame held to scipy."""
+    from scipy import ndimage
+
+    def odd(a):
+        return np.ascontiguousarray(np.delete(np.delete(
+            a, a.shape[1] // 2, axis=1), a.shape[2] // 2, axis=2))
+
+    masks, markers = odd(masks), odd(markers)
+    n = masks.shape[1] * masks.shape[2]
+    tm, tk = (torch.from_numpy(a).to(dev) for a in (masks, markers))
+    saved = cc.LABEL_MAX_PIXELS, cc.RECONSTRUCT_MAX_PIXELS
+    cc.LABEL_MAX_PIXELS = cc.RECONSTRUCT_MAX_PIXELS = n
+    try:
+        labels = {conn: cc.label_components_whole_frame(tm, conn).cpu()
+                  .numpy() for conn in (4, 8)}
+        kept = cc.binary_reconstruct(tm, tk).cpu().numpy()
+    finally:
+        cc.LABEL_MAX_PIXELS, cc.RECONSTRUCT_MAX_PIXELS = saved
+    for i in range(len(masks)):
+        for conn in (4, 8):
+            if not np.array_equal(labels[conn][i], scipy_min_index_labels(
+                    masks[i], conn)):
+                raise SystemExit('split launches {}-conn: frame {} != '
+                                 'scipy'.format(conn, i))
+        if not np.array_equal(kept[i], ndimage.binary_propagation(
+                markers[i] & masks[i], mask=masks[i])):
+            raise SystemExit('split launches: reconstruction frame {} != '
+                             'scipy'.format(i))
+    log('edge masks at {}x{}, one frame a launch (odd offsets): labels '
+        '(4- and 8-connected) and reconstruction equal to scipy on all {} '
+        'frames'.format(masks.shape[2], masks.shape[1], len(masks)))
+
+
 def phase_cc_kernels(scene, settings, dev):
     mask, marker = bench_masks(scene, settings, dev)
     log('bench batch thresholded on the card: T={} {}x{}, mask pixels {}, '
@@ -1101,6 +1226,14 @@ def phase_cc_kernels(scene, settings, dev):
         'is frame {}, {} px in one component) did not converge in the plain '
         'version in {} steps and are held to scipy only'.format(
             sorted(unconv), t - 1, int(masks[t - 1].sum()), MAX_ITERS))
+    masks, markers = edge_cc_masks(rng)
+    _, unconv = check_cc('edge masks', torch.from_numpy(masks).to(dev),
+                         torch.from_numpy(markers).to(dev),
+                         scipy_frames=range(len(masks)))
+    log('edge masks (checkerboard, diagonals, a word across two frames): '
+        'every frame held to scipy; frames {} held to scipy only'.format(
+            sorted(unconv)))
+    check_cc_split(masks, markers, dev)
     return {'label_components_whole_frame': main['label8'],
             'binary_reconstruct': main['reconstruct']}
 
@@ -1706,7 +1839,8 @@ def main():
                                       dev)
         launches, frames, run_bytes = phase_main_path(scene, settings)
         phase_clip(settings)
-        checks = phase_dense_kernels(dscene, dsettings, dev)
+        checks = phase_dense_kernels(dscene, dsettings, dev,
+                                     frames_tables(scene, settings, dev))
         t0 = time.perf_counter()
         dframes = [dscene.frame(t) for t in range(DENSE_FRAMES)]
         log('dense scene: {} frames of {}x{}, {} rods, drawn in {:.1f} '

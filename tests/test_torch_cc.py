@@ -156,6 +156,11 @@ def test_component_tables_match_jax(max_det, max_bh):
     ours = lb.component_tables(comp, tm, max_det=max_det, max_bh=max_bh)
     valid = ours['count'].numpy() > 0
     assert valid.any()
+    row_min_x, row_max_x, row_valid, min_y = lb.component_row_tables(
+        comp, tm, max_det=max_det, max_bh=max_bh)
+    np.testing.assert_array_equal(min_y.numpy(), ours['min_y'].numpy())
+    np.testing.assert_array_equal(row_valid.any(dim=1).numpy(), valid)
+    assert (row_min_x <= row_max_x).numpy()[row_valid.numpy()].all()
     assert (max_det == 6) == bool((n > max_det).any())
     jfn = jax.jit(jlb.component_tables, static_argnames=('max_det', 'max_bh'))
     for i in range(len(masks)):
@@ -172,8 +177,9 @@ def test_component_tables_match_jax(max_det, max_bh):
                                       np.asarray(ref['points'])[v][pv])
 
 
-# ---- the reconstruction kernel's design (csrc/cc.cu, rec_* passes),
-# emulated in sequence on Python integers ----
+# ---- the bit-packed kernels' design (csrc/cc.cu: seg_pack, seg_merge,
+# seg_roots, then rec_keep or cc_write), emulated in sequence on Python
+# integers ----
 
 M32 = 0xFFFFFFFF
 MARK = 1 << 31
@@ -203,20 +209,28 @@ def _unpack_words(words, total):
 
 
 def _row_masks(g0, h, w):
+    """(start, end, top): the bits at x = 0, at x = w - 1 and in the first
+    row of a frame, of the 32 pixels from g0."""
     row, x = divmod(g0, w)
-    start = top = b = 0
+    start = end = top = b = 0
     while b < 32:
         n = min(32 - b, w - x)
         if x == 0:
             start |= 1 << b
+        if x + n == w:
+            end |= 1 << (b + n - 1)
         if row % h == 0:
             top |= (M32 >> (32 - n)) << b
         b, x, row = b + n, 0, row + 1
-    return start, top & M32
+    return start, end & M32, top & M32
 
 
 def _segment_starts(m, row_start):
     return m & ~((m << 1) & ~row_start) & M32
+
+
+def _segment_of(starts, b):
+    return (starts & (M32 >> (31 - b))).bit_length() - 1
 
 
 def _bits_at(words, off):
@@ -240,52 +254,77 @@ def _set_bits(word):
     return [b for b in range(32) if word >> b & 1]
 
 
-def _reconstruct_emulated(mask, marker, rng):
-    """The four passes of the kernel on a (T, H, W) batch, the words of
-    each pass in shuffled order."""
+def _root(lab, x):
+    """find_root_marked: the walk up the forest, mark bits ignored; an entry
+    the kernels never wrote (-1) fails."""
+    while True:
+        assert lab[x] >= 0, x
+        if lab[x] & ~MARK == x:
+            return x
+        x = int(lab[x] & ~MARK)
+
+
+def _forest_emulated(mask, connectivity, lab, order):
+    """seg_pack and seg_merge on a (T, H, W) batch, the words of each pass
+    in the order ``order()`` gives: the forest in ``lab`` (written at the
+    mask's pixels only); returns the mask's words."""
     t, h, w = mask.shape
-    total = mask.size
-    mbits = _pack_words(mask.reshape(-1))
-    kbits = [a & b for a, b in zip(_pack_words(marker.reshape(-1)), mbits)]
-    lab = {}
-    order = lambda: [int(k) for k in rng.permutation(len(mbits))]
-    for k in order():                                        # rec_pack
+    flat = mask.reshape(-1)
+    mbits = _pack_words(flat)
+    for k in order():                                        # seg_pack
         m, g0 = mbits[k], k * 32
         if m == 0:
             continue
         rs = _row_masks(g0, h, w)[0]
         starts = _segment_starts(m, rs)
         first = g0
-        if m & 1 and not rs & 1 and mask.reshape(-1)[g0 - 1]:
+        if m & 1 and not rs & 1 and flat[g0 - 1]:
             prev = _segment_starts(mbits[k - 1], _row_masks(g0 - 32, h, w)[0])
             first = g0 - 32 + prev.bit_length() - 1
         for b in _set_bits(m):
-            sb = (starts & (M32 >> (31 - b))).bit_length() - 1
-            lab[g0 + b] = first if b == 0 else g0 + sb
-
-    def root(x):
-        while lab[x] & ~MARK != x:
-            x = lab[x] & ~MARK
-        return x
-
-    for k in order():                                        # rec_merge
+            lab[g0 + b] = first if b == 0 else g0 + _segment_of(starts, b)
+    for k in order():                                        # seg_merge
         m, g0 = mbits[k], k * 32
         if m == 0:
             continue
-        rs, top = _row_masks(g0, h, w)
+        rs, end, top = _row_masks(g0, h, w)
         carry = mbits[k - 1] >> 31 if k else 0
         left = ((m << 1) | carry) & ~rs & M32
-        up = _bits_at(mbits, g0 - w) & ~top
-        up_left = _bits_at(mbits, g0 - w - 1) & ~rs
-        for b in _set_bits(m & up & ~(left & up_left)):
-            a, c = root(g0 + b), root(g0 + b - w)
-            if a != c:
-                lab[max(a, c)] = min(a, c)
-    for k in order():                                        # rec_mark
+        up = _bits_at(mbits, g0 - w) & ~top & M32
+        up_left = _bits_at(mbits, g0 - w - 1) & ~(rs | top) & M32
+        need = [(m & up & ~(left & up_left), -w)]
+        if connectivity == 8:
+            right = _bits_at(mbits, g0 + 1)
+            up_right = _bits_at(mbits, g0 - w + 1) & ~(end | top) & M32
+            need += [(m & ~up & ~left & up_left, -w - 1),
+                     (m & ~up & ~right & up_right, -w + 1)]
+        for bits, delta in need:
+            for b in _set_bits(bits & M32):
+                a, c = _root(lab, g0 + b), _root(lab, g0 + b + delta)
+                if a != c:
+                    lab[max(a, c)] = min(a, c)
+    return mbits
+
+
+def _shuffled(rng, n):
+    return lambda: [int(k) for k in rng.permutation(n)]
+
+
+def _reconstruct_emulated(mask, marker, rng):
+    """The four passes of the reconstruction on a (T, H, W) batch, the
+    words of each pass in shuffled order."""
+    t, h, w = mask.shape
+    total = mask.size
+    n_words = (total + 31) // 32
+    lab = np.full(total, -1, np.int64)
+    order = _shuffled(rng, n_words)
+    mbits = _forest_emulated(mask, 4, lab, order)
+    kbits = [a & b for a, b in zip(_pack_words(marker.reshape(-1)), mbits)]
+    for k in order():                                        # seg_roots
         m, g0 = mbits[k], k * 32
         starts = _segment_starts(m, _row_masks(g0, h, w)[0])
         for sb in _set_bits(starts):
-            r = root(g0 + sb)
+            r = _root(lab, g0 + sb)
             if r != g0 + sb:
                 lab[g0 + sb] = r
             if kbits[k] & _segment_bits(m, starts, sb):
@@ -304,6 +343,36 @@ def _reconstruct_emulated(mask, marker, rng):
     return _unpack_words(keep, total).reshape(t, h, w).astype(bool)
 
 
+def _label_emulated(mask, connectivity, rng):
+    """The four passes of the labeling on a (T, H, W) batch, the words of
+    each pass (the warps of 4 words of cc_write) in shuffled order, the
+    forest in the output array: cc_write reads, for every set pixel of a
+    warp's words, its segment's first entry, which must lie in those
+    words, and then overwrites the warp's pixels with the labels."""
+    t, h, w = mask.shape
+    total, n = mask.size, h * w
+    n_words = (total + 31) // 32
+    out = np.full(total, -1, np.int64)          # torch.empty's garbage
+    order = _shuffled(rng, n_words)
+    mbits = _forest_emulated(mask, connectivity, out, order)
+    for k in order():                                        # seg_roots
+        starts = _segment_starts(mbits[k], _row_masks(k * 32, h, w)[0])
+        for sb in _set_bits(starts):
+            out[k * 32 + sb] = _root(out, k * 32 + sb)
+    for warp in _shuffled(rng, (n_words + 3) // 4)():        # cc_write
+        lo, hi = warp * 128, min(warp * 128 + 128, total)
+        labels = np.full(hi - lo, n, np.int64)
+        for k in range(warp * 4, min(warp * 4 + 4, n_words)):
+            m, g0 = mbits[k], k * 32
+            starts = _segment_starts(m, _row_masks(g0, h, w)[0])
+            for b in _set_bits(m):
+                s = g0 + _segment_of(starts, b)
+                assert lo <= s < hi and out[s] >= 0
+                labels[g0 + b - lo] = out[s] % n
+        out[lo:hi] = labels
+    return out.reshape(t, h, w)
+
+
 PACK_WIDTHS = [1, 31, 32, 33, 1228]
 
 
@@ -311,8 +380,9 @@ PACK_WIDTHS = [1, 31, 32, 33, 1228]
 def test_bit_pack_round_trip_and_row_masks(w):
     """The packing and unpacking multiplications are inverse to each other
     and agree with numpy's little-endian packbits; the row masks name the
-    first pixel of every row and the first row of every frame, at widths
-    below, at and above the word and at the bench width."""
+    first and the last pixel of every row and the first row of every
+    frame, at widths below, at and above the word and at the bench
+    width."""
     rng = np.random.default_rng(w)
     h, t = 5, 3
     flat = (rng.random(t * h * w) < 0.5).astype(np.uint8) * \
@@ -324,9 +394,10 @@ def test_bit_pack_round_trip_and_row_masks(w):
     np.testing.assert_array_equal(_unpack_words(words, len(flat)), flat != 0)
     g = np.arange(len(words) * 32)
     for k in range(len(words)):
-        start, top = _row_masks(k * 32, h, w)
+        start, end, top = _row_masks(k * 32, h, w)
         sl = g[k * 32:(k + 1) * 32]
         assert start == int(((sl % w == 0) << np.arange(32)).sum())
+        assert end == int(((sl % w == w - 1) << np.arange(32)).sum())
         assert top == int(((sl // w % h == 0) << np.arange(32)).sum())
 
 
@@ -381,6 +452,62 @@ def test_packed_reconstruction_design_matches_plain_and_scipy(case, w):
         assert got[3].sum() == mask[3].sum()
 
 
+def _label_case(case, w):
+    """Masks the labeling has to get right: ``blobs`` random blobs with
+    scattered pixels; ``edges`` an empty frame, a full frame, the
+    serpentine and a checkerboard (one component 8-connected, singletons
+    4-connected: up-left and up-right on every bit); ``diagonals``
+    one-pixel diagonals in both directions, across word boundaries, then a
+    frame whose last row and the next frame's first row are full (a word
+    straddles the frames, and nothing may join across)."""
+    rng = np.random.default_rng(len(case) + w)
+    h = 24
+    yy, xx = np.mgrid[:h, :w]
+    if case == 'blobs':
+        mask = np.stack([_random_blobs(rng, h=h, w=max(w, 16))[:, :w]
+                         for _ in range(3)])
+        return mask | (rng.random(mask.shape) < 0.05)
+    if case == 'edges':
+        return np.stack([np.zeros((h, w), bool), np.ones((h, w), bool),
+                         snake_mask(h, w) if w >= 4 else yy % 3 == 0,
+                         (yy + xx) % 2 == 0])
+    mask = np.stack([(xx - yy) % 7 == 0, (xx + yy) % 7 == 0,
+                     (xx - 2 * yy) % 9 == 0, (xx + yy) % 5 == 0])
+    mask[2, -1] = mask[3, 0] = True
+    return mask
+
+
+LABEL_CASES = [(c, w) for c in ('blobs', 'edges', 'diagonals')
+               for w in PACK_WIDTHS]
+
+
+@pytest.mark.parametrize('connectivity', [4, 8])
+@pytest.mark.parametrize('case,w', LABEL_CASES)
+def test_packed_labeling_design_matches_plain_and_scipy(case, w,
+                                                        connectivity):
+    """A sequential emulation of the labeling's four passes on bit words
+    (words and warps in shuffled order, the forest in the output array,
+    the labels written over it) against scipy's minimum-index labels on
+    every frame, and against the plain version wherever it converged."""
+    mask = _label_case(case, w)
+    got = _label_emulated(mask, connectivity, np.random.default_rng(5))
+    for i in range(len(mask)):
+        np.testing.assert_array_equal(
+            got[i], scipy_min_index_labels(mask[i], connectivity),
+            err_msg=str(i))
+    labels, steps = lb.label_components(torch.from_numpy(mask),
+                                        connectivity=connectivity,
+                                        max_iters=MAX_ITERS)
+    conv = (steps < MAX_ITERS).numpy()
+    assert conv.any()
+    np.testing.assert_array_equal(got[conv], labels.numpy()[conv])
+    if case == 'edges':
+        n = mask.shape[1] * w
+        assert (got[0] == n).all() and (got[1] == 0).all()
+        singles = got[3][mask[3]] == np.flatnonzero(mask[3].reshape(-1))
+        assert singles.all() == (connectivity == 4 or w == 1)
+
+
 def test_pixel_kernel_width_cap_is_the_shared_memory_formula():
     """PIXEL_MAX_WIDTH is the widest frame whose tile (2048 slots of int32
     parents), halo and tile lins (w + 1 + 2048 slots of an int32 and a
@@ -399,17 +526,34 @@ def _cuda():
     return torch.device('cuda')
 
 
+def _odd_frames(*masks):
+    """The batches without their middle row: 23 rows, so that a launch of
+    one frame starts off a 16-byte boundary of the batch wherever w is odd
+    (and of a bool batch also where w is 2 modulo 4)."""
+    return tuple(np.ascontiguousarray(np.delete(m, m.shape[1] // 2, axis=1))
+                 for m in masks)
+
+
+CHUNK_LAYOUTS = ['whole', 'unaligned', 'chunks', 'chunks_odd']
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('layout', ['whole', 'unaligned', 'chunks'])
+@pytest.mark.parametrize('layout', CHUNK_LAYOUTS)
 @pytest.mark.parametrize('case,w', RECONSTRUCT_CASES)
 def test_reconstruct_kernel_matches_scipy_and_plain_on_cuda(case, w, layout,
                                                             monkeypatch):
     """The kernel on the design cases: scipy on every frame, the plain
     version where it converged, one launch counted; also on views that
-    start off a 16-byte boundary (the byte-wise loads) and with the frames
-    of a call split over several launches."""
+    start off a 16-byte boundary (the byte-wise loads), with the frames of
+    a call split over several launches, and split a frame a launch at
+    frames of 23 rows (byte-wise loads and stores from the second launch
+    on, where w is odd)."""
     dev = _cuda()
     mask, marker = _reconstruct_case(case, w)
+    if layout == 'chunks_odd':
+        mask, marker = _odd_frames(mask, marker)
+        monkeypatch.setattr(cc, 'RECONSTRUCT_MAX_PIXELS',
+                            mask.shape[1] * mask.shape[2])
     tm, tk = torch.from_numpy(mask).to(dev), torch.from_numpy(marker).to(dev)
     if layout == 'unaligned':
         pad = torch.zeros(5, dtype=torch.bool, device=dev)
@@ -431,6 +575,48 @@ def test_reconstruct_kernel_matches_scipy_and_plain_on_cuda(case, w, layout,
     conv = (steps < MAX_ITERS).numpy()
     np.testing.assert_array_equal(got[conv], lb.propagate_markers(
         torch.from_numpy(mask), torch.from_numpy(marker)).numpy()[conv])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', CHUNK_LAYOUTS)
+@pytest.mark.parametrize('connectivity', [4, 8])
+@pytest.mark.parametrize('case,w', LABEL_CASES)
+def test_label_kernel_matches_scipy_and_plain_on_cuda(case, w, connectivity,
+                                                      layout, monkeypatch):
+    """The labeling kernel on the design cases: scipy's minimum-index
+    labels on every frame, the plain version where it converged, one
+    launch counted; also on a view that starts off a 16-byte boundary
+    (byte-wise loads), with the frames of a call split over several
+    launches, and split a frame a launch at frames of 23 rows (the labels
+    of the second launch on start off a 16-byte boundary where w is odd:
+    byte-wise loads and stores)."""
+    dev = _cuda()
+    mask = _label_case(case, w)
+    if layout == 'chunks_odd':
+        mask, = _odd_frames(mask)
+        monkeypatch.setattr(cc, 'LABEL_MAX_PIXELS',
+                            mask.shape[1] * mask.shape[2])
+    tm = torch.from_numpy(mask).to(dev)
+    if layout == 'unaligned':
+        pad = torch.zeros(3, dtype=torch.bool, device=dev)
+        tm = torch.cat([pad, tm.reshape(-1)])[3:].view(mask.shape)
+        assert tm.data_ptr() % 16 and tm.is_contiguous()
+    elif layout == 'chunks':
+        monkeypatch.setattr(cc, 'LABEL_MAX_PIXELS',
+                            3 * mask.shape[1] * mask.shape[2])
+    before = cc.label_components_whole_frame.launches
+    got = cc.label_components_whole_frame(tm, connectivity=connectivity)
+    torch.cuda.synchronize()
+    assert cc.label_components_whole_frame.launches == before + 1
+    got = got.cpu().numpy()
+    for i in range(len(mask)):
+        np.testing.assert_array_equal(
+            got[i], scipy_min_index_labels(mask[i], connectivity),
+            err_msg=str(i))
+    labels, steps = lb.label_components(torch.from_numpy(mask),
+                                        connectivity=connectivity)
+    conv = (steps < MAX_ITERS).numpy()
+    np.testing.assert_array_equal(got[conv], labels.numpy()[conv])
 
 
 @pytest.mark.cuda
@@ -462,13 +648,17 @@ def test_pixel_kernel_width_cap_on_cuda():
 def test_cc_kernels_match_plain_and_scipy_on_cuda():
     """Both kernels against their plain versions on the card, bit for bit,
     one launch counted per call; the serpentine frame (beyond the plain
-    version's cap) against scipy only. Runs on a machine with an NVIDIA
-    GPU (see README)."""
+    version's cap) against scipy only, and so the labeling's edge frames
+    (a checkerboard, diagonals, a word across two frames) where the plain
+    version did not converge. Runs on a machine with an NVIDIA GPU (see
+    README)."""
     dev = _cuda()
     h, w = 96, 128
+    edges = [np.pad(_label_case(c, w), ((0, 0), (0, h - 24), (0, 0)))
+             for c in ('edges', 'diagonals')]
     masks = np.concatenate([_masks(6, t=4, h=h, w=w),
                             np.zeros((1, h, w), bool),
-                            snake_mask(h, w)[None]])
+                            snake_mask(h, w)[None]] + edges)
     markers = masks & (np.random.default_rng(7).random(masks.shape) < 0.01)
     tm, tk = torch.from_numpy(masks), torch.from_numpy(markers)
     for conn in (4, 8):

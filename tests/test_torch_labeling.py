@@ -34,7 +34,7 @@ from ysmr_tpu.ops.pallas_sweep import sweep_extents as jsweep_pallas
 from ysmr_tpu.pipeline.detect_pixels import detect_from_pixels as jdetect
 from ysmr_tpu_torch.ops import labeling as lb
 from ysmr_tpu_torch.ops import run_cc as trcc
-from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+from ysmr_tpu_torch.ops.hull import HULL_MAX_SHARED_ROWS, hull_edge_vectors
 from ysmr_tpu_torch.ops.sweep import sweep_extents
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
 
@@ -174,6 +174,117 @@ def test_hull_collinear_runs_bit_equal():
         np.testing.assert_array_equal(out[i], ref[i], err_msg=str(i))
 
 
+def _hull_emulated(row_min_x, row_max_x, row_valid, abs_y):
+    """csrc/hull.cu's design in numpy float32, one warp (32 lanes,
+    vectorised here) per component: the valid rows compacted in ascending
+    order (the ballot); s = 32 // n lanes a row, lane k of a row looping
+    over its rows q = k, k + s, ... with the kernel's arithmetic and its
+    ``<=`` rule; then the shuffle tree that combines a row's lanes (the
+    smaller minimum, on a tie the larger q; the larger maximum)."""
+    f32 = np.float32
+    big = f32(3.0e38)
+    d, r = row_min_x.shape
+    outs = [np.zeros((d, r), t) for t in (f32, f32, bool, f32, f32, bool,
+                                          bool, bool)]
+    lane = np.arange(32)
+    for c in range(d):
+        rows = np.flatnonzero(row_valid[c])
+        n = len(rows)
+        if n == 0:
+            continue
+        cy, cx = (abs_y[c, rows].astype(f32),
+                  np.stack([row_min_x[c, rows], row_max_x[c, rows]]).astype(
+                      f32))
+        s = 32 // n if n <= 32 else 1
+        per_pass, part = 32 // s, lane % s
+        for p0 in range(0, n, per_pass):
+            p = p0 + lane // s
+            act = (lane < s * per_pass) & (p < n)
+            pc = np.where(act, p, 0)
+            # per chain: minimum, its q, maximum
+            omin = np.full((2, 32), big)
+            qmin = np.full((2, 32), -1)
+            imax = np.full((2, 32), -big)
+            with np.errstate(divide='ignore', invalid='ignore'):
+                for q in range(0, n):
+                    mine = act & (part == q % s)
+                    dy = np.where(q == pc, f32(1), cy[q] - cy[pc])
+                    cols = ((cx[0, q] - cx[0, pc]) / dy,
+                            -(cx[1, q] - cx[1, pc]) / dy)
+                    for k, col in enumerate(cols):
+                        upd = mine & (q > pc) & (col <= omin[k])
+                        omin[k] = np.where(upd, col, omin[k])
+                        qmin[k] = np.where(upd, q, qmin[k])
+                        imax[k] = np.where(mine & (q < pc),
+                                           np.maximum(imax[k], col), imax[k])
+            off = 1
+            while off < s:
+                src = np.minimum(lane + off, 31)      # __shfl_down_sync
+                o, oq, i = omin[:, src], qmin[:, src], imax[:, src]
+                take = (part + off < s) & ((o < omin) |
+                                           ((o == omin) & (oq > qmin)))
+                omin, qmin = np.where(take, o, omin), np.where(take, oq, qmin)
+                imax = np.where(part + off < s, np.maximum(imax, i), imax)
+                off *= 2
+            lead = act & (part == 0)
+            for k, (i_dx, i_dy, i_e, i_c) in enumerate(((0, 1, 2, 6),
+                                                        (3, 4, 5, 7))):
+                edge = (omin[k] >= imax[k]) & (omin[k] < big)
+                qe = np.where(edge, qmin[k], pc)
+                at = rows[pc[lead]]
+                outs[i_dx][c, at] = np.where(edge, cx[k, qe] - cx[k, pc],
+                                             0)[lead]
+                outs[i_dy][c, at] = np.where(edge, cy[qe] - cy[pc], 0)[lead]
+                outs[i_e][c, at] = edge[lead]
+                outs[i_c][c, at] = (omin[k] > imax[k])[lead]
+    return outs
+
+
+def _hull_tables(rng, d, r, holes):
+    """_random_tables, and with ``holes`` valid rows that are no prefix
+    (the invalid rows filled as the row tables fill them)."""
+    row_min, row_max, valid, abs_y = _random_tables(rng, d, r)
+    if holes:
+        valid = valid & (rng.random(valid.shape) < 0.6)
+        row_min = np.where(valid, row_min, 1 << 30).astype(np.int32)
+        row_max = np.where(valid, row_max, -(1 << 30)).astype(np.int32)
+    return row_min, row_max, valid, abs_y
+
+
+HULL_ROWS = [1, 31, 32, 33, 48, 96]
+
+
+@pytest.mark.parametrize('holes', [False, True])
+@pytest.mark.parametrize('r', HULL_ROWS)
+def test_hull_warp_design_bit_equal_to_plain(r, holes):
+    """The one-warp-per-component design, emulated, against the plain
+    version bit for bit: R below, at and above a warp's 32 lanes and the
+    pipeline's 48 and 96, valid rows as a prefix and with holes, empty
+    components."""
+    tabs = _hull_tables(np.random.default_rng(r + 100 * holes), 24, r, holes)
+    want = lb.hull_edge_vectors_plain(*(_t(a) for a in tabs))
+    got = _hull_emulated(*tabs)
+    assert not tabs[2].all(axis=1).all() and tabs[2].any()
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=str(i))
+
+
+def test_hull_warp_design_collinear_runs():
+    """The collinear chains of test_hull_collinear_runs_bit_equal: the
+    emulated design picks the plain version's (farthest) endpoints."""
+    r = 12
+    abs_y = np.tile(np.arange(r, dtype=np.int32), (3, 1)) + 7
+    row_min = np.stack([
+        np.full(r, 100, np.int32),
+        (100 + 2 * np.arange(r)).astype(np.int32),
+        np.where(np.arange(r) < 6, 100 + 3 * np.arange(r),
+                 118 - np.arange(r)).astype(np.int32)])
+    tabs = (row_min, row_min + 5, np.ones((3, r), bool), abs_y)
+    want = lb.hull_edge_vectors_plain(*(_t(a) for a in tabs))
+    for i, (g, w) in enumerate(zip(_hull_emulated(*tabs), want)):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=str(i))
+
+
 def _xla_sweep(pts, valid, dx, dy):
     big = jnp.float32(3.0e38)
     px = pts[..., 0][:, None, :]
@@ -268,14 +379,21 @@ def test_detect_device_rects_match_jax(cv2_centers, max_det):
 @pytest.mark.cuda
 def test_hull_and_sweep_kernels_match_plain_on_cuda():
     """The hull and sweep kernels against their plain versions on the
-    card, bit for bit, one launch counted per call. Runs on a machine with
-    an NVIDIA GPU (see README)."""
+    card, bit for bit, one launch counted per call: the hull at R below,
+    at and above a warp, valid rows with holes, an all-empty table and D
+    no multiple of a block's eight warps. Runs on a machine with an NVIDIA
+    GPU (see README)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
     dev = torch.device('cuda')
     rng = np.random.default_rng(5)
-    for d, r in ((300, 48), (7, 8), (1000, 16)):
-        tabs = [_t(a) for a in _random_tables(rng, d, r)]
+    cases = [(d, r, holes) for d, r in ((300, 48), (7, 8), (1000, 16),
+                                        (1001, 64)) for holes in (0, 1)]
+    cases += [(301, r, 1) for r in HULL_ROWS] + [(64, 48, 'empty')]
+    for d, r, holes in cases:
+        tabs = [_t(a) for a in _hull_tables(rng, d, r, holes == 1)]
+        if holes == 'empty':
+            tabs[2][:] = False
         plain = hull_edge_vectors(*tabs)
         before = hull_edge_vectors.launches
         got = hull_edge_vectors(*(a.to(dev) for a in tabs))
@@ -283,6 +401,20 @@ def test_hull_and_sweep_kernels_match_plain_on_cuda():
         assert hull_edge_vectors.launches == before + 1
         for g, p in zip(got, plain):
             np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
+    # tall components: shared memory above 48 KB a block (R > 3072), and
+    # the rows in global memory above the shared cap; the plain version
+    # on the card (its R x R slope matrices)
+    tall = np.random.default_rng(8)
+    for d, r in ((5, 4000), (2, HULL_MAX_SHARED_ROWS + 1)):
+        tabs = [_t(a).to(dev) for a in _hull_tables(tall, d, r, True)]
+        plain = lb.hull_edge_vectors_plain(*tabs)
+        before = hull_edge_vectors.launches
+        got = hull_edge_vectors(*tabs)
+        torch.cuda.synchronize()
+        assert hull_edge_vectors.launches == before + 1
+        assert bool(plain[2].any()) and bool(plain[5].any())
+        for g, p in zip(got, plain):
+            assert torch.equal(g, p)
     for d, p, k in ((300, 96, 95), (9, 2, 1), (500, 32, 31)):
         pts = _t(rng.integers(0, 1228, (d, p, 2)).astype(np.float32))
         valid = _t(rng.random((d, p)) < 0.6)

@@ -10,10 +10,13 @@ kernels can be traced in one run with the same inputs. The inputs are
 - ``run_prop``: ``propagate_min_fused`` on the run graphs of the bench and
   dense scenes' first 64 frames (the run wire's R bucket, the 4-connected
   weak init and the 8-connected iota) and on the random R = 131072 graphs;
-- ``cc``: ``binary_reconstruct`` and the 8-connected
+- ``cc``: ``binary_reconstruct`` and the 8- and 4-connected
   ``label_components_whole_frame`` on the bench scene's first 64 frames
   thresholded by the device preprocess (64 x 922 x 1228), and the
   reconstruction on random blobs with the serpentine;
+- ``rects``: ``hull_edge_vectors`` and ``sweep_extents`` on the dense
+  batch's tables (262,144 x 48), on the frames-mode bench batch's
+  (32,768 x 64) and the hull on random tables (16384 x 96);
 - ``pixels``: ``cc_labels_at_pixels`` on the pixel lists of the bench and
   dense batches (double and single threshold) and of the random blobs;
 - ``assign``: ``row_min_argmin`` at 4096x4096 (K = 2 and 3) and
@@ -42,7 +45,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GROUPS = ('run_prop', 'cc', 'pixels', 'assign')
+GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign')
 
 
 def parse_args():
@@ -149,8 +152,10 @@ def trace_cc(smoke, args, dev):
     shape = 'x'.join(str(n) for n in mask.shape)
     trace('binary_reconstruct bench {}'.format(shape),
           lambda: cc.binary_reconstruct(mask, marker), args.reps, smoke)
-    trace('label_components_whole_frame 8-conn bench {}'.format(shape),
-          lambda: cc.label_components_whole_frame(mask, 8), args.reps, smoke)
+    for conn in (8, 4):
+        trace('label_components_whole_frame {}-conn bench {}'.format(
+            conn, shape), lambda: cc.label_components_whole_frame(mask, conn),
+            args.reps, smoke)
     masks, markers = smoke.random_blob_masks(
         np.random.default_rng(smoke.SEED), 8)
     bmask = torch.from_numpy(masks).to(dev)
@@ -158,6 +163,29 @@ def trace_cc(smoke, args, dev):
     trace('binary_reconstruct random blobs with the serpentine {}'.format(
         'x'.join(str(n) for n in bmask.shape)),
         lambda: cc.binary_reconstruct(bmask, bmarker), args.reps, smoke)
+
+
+def trace_rects(smoke, args, dev):
+    import numpy as np
+    from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+    from ysmr_tpu_torch.ops.sweep import sweep_extents
+    dsettings = smoke.dense_settings()
+    dscene = smoke.BenchScene(seed=smoke.DENSE_SEED, n_bugs=smoke.DENSE_BUGS)
+    batches = [
+        ('dense', smoke.dense_tables(
+            *smoke.first_batch_runs(dscene, dsettings), dsettings, dev)),
+        ('frames-mode bench', smoke.frames_tables(
+            smoke.BenchScene(), smoke.bench_settings(), dev)),
+        ('random', (smoke.random_row_tables(
+            np.random.default_rng(smoke.SEED), 16384, 96, dev), None))]
+    for name, (hull_args, sweep_args) in batches:
+        trace('hull_edge_vectors {} D={} R={}'.format(
+            name, *hull_args[0].shape),
+            lambda: hull_edge_vectors(*hull_args), args.reps, smoke)
+        if sweep_args is not None:
+            trace('sweep_extents {} D={} P={} K={}'.format(
+                name, *sweep_args[0].shape[:2], sweep_args[2].shape[1]),
+                lambda: sweep_extents(*sweep_args), args.reps, smoke)
 
 
 def trace_pixels(smoke, args, dev):
@@ -243,7 +271,8 @@ def main():
     os.makedirs(smoke.WORK, exist_ok=True)
     dev = torch.device('cuda', 0)
     tracers = {'run_prop': trace_run_prop, 'cc': trace_cc,
-               'pixels': trace_pixels, 'assign': trace_assign}
+               'rects': trace_rects, 'pixels': trace_pixels,
+               'assign': trace_assign}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

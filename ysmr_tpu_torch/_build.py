@@ -155,13 +155,13 @@ def load_kernels():
     lib.ysmr_run_prop.restype = ci
     lib.ysmr_run_prop.argtypes = [vp] * 12 + [ci] * 4 + [vp]
     lib.ysmr_hull_edges.restype = ci
-    lib.ysmr_hull_edges.argtypes = [vp] * 12 + [ci, ci, ci, vp]
+    lib.ysmr_hull_edges.argtypes = [vp] * 13 + [ci, ci, ci, vp]
     lib.ysmr_sweep_extents.restype = ci
     lib.ysmr_sweep_extents.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
     lib.ysmr_row_min_argmin.restype = ci
     lib.ysmr_row_min_argmin.argtypes = [vp] * 6 + [ci, ci, ci, ci, vp]
     lib.ysmr_cc_label.restype = ci
-    lib.ysmr_cc_label.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.ysmr_cc_label.argtypes = [vp] * 3 + [ci] * 5 + [vp]
     lib.ysmr_cc_reconstruct.restype = ci
     lib.ysmr_cc_reconstruct.argtypes = [vp] * 5 + [ci, ci, ci, ci, vp]
     lib.ysmr_cc_pixels.restype = ci

@@ -13,42 +13,47 @@
 // ysmr_tpu_torch/ops/labeling.py::label_components (labels only) and
 // ::propagate_markers.
 //
-// Design of the labeling (Playne-Hawick union-find, three passes over one
-// grid of T*H*W threads):
-//   init:     a foreground pixel's parent is its own in-frame index, the
-//             background's is h*w;
-//   merge:    each foreground pixel unites with its foreground neighbours
-//             already visited in raster order (left and up; for 8-conn also
-//             up-left and up-right). A union links the larger root under
-//             the smaller with atomicMin, so parents only decrease and every
-//             tree's root is its smallest index; a lost race retries from
-//             the value the atomic returned;
-//   compress: each foreground pixel takes its root. The root is the
-//             component's minimum index whatever the schedule, so the labels
-//             are exact and deterministic.
-// Bound: streaming passes (a byte of mask in, four bytes of labels out per
-// pixel: ~0.36 GB per 64-frame 1228x922 batch); the merge does work only on
-// foreground pixels, a few per cent of a frame.
-//
-// Design of the reconstruction (four passes over one thread per 32 pixels;
-// the passes are below, at rec_pack). It needs no label on the background
-// and no flag plane, only whether a component holds a marker:
-//   pack:  mask and marker & mask are read once, 32 bytes a thread with two
-//          16-byte loads, and kept as bits (2 x 9 MB per 64-frame batch,
-//          resident in the L2 for the other passes). The same pass builds
-//          the forest of the horizontal runs without an atomic: every set
-//          pixel points at the first pixel of its segment (its run within
-//          the word and the row);
+// Both run the same union-find on bit-packed masks, one thread per 32
+// pixels (the passes are below, at seg_pack). A union links the larger
+// root under the smaller with atomicMin, so parents only decrease and every
+// tree's root is its component's smallest pixel whatever the schedule: the
+// labels are exact and deterministic. The shared passes:
+//   pack:  the mask (and marker & mask) is read once, 32 bytes a thread
+//          with two 16-byte loads, and kept as bits (9 MB a plane per
+//          64-frame 1228x922 batch, resident in the L2 for the other
+//          passes). The same pass builds the forest of the horizontal runs
+//          without an atomic: every set pixel points at the first pixel of
+//          its segment (its run within the word and the row);
 //   merge: word operations find the pixels with a set pixel above them,
 //          and of those only the ones whose left neighbours do not already
-//          make the same union: a run meets each run above it once;
-//   mark:  every segment's first pixel is pointed at its root, and a
-//          segment holding a marker pixel sets the mark bit of the root's
-//          entry;
-//   keep:  a segment is kept iff its root's entry carries the mark; the
-//          output bytes leave with 16-byte stores.
-// Bound: mask + marker + out, 3 bytes a pixel (217 MB per 64-frame batch);
-// the label array is touched at the mask's pixels only.
+//          make the same union: a run meets each run above it once. For
+//          8-connectivity, where the pixel above is clear, also up-left
+//          (only where left is clear) and up-right (only where right is
+//          clear), which is the byte-wise rule of the earlier kernel with
+//          the unions that a neighbour already makes left out;
+//   roots: every segment's first pixel is pointed straight at its root
+//          (for the reconstruction a segment holding a marker pixel also
+//          sets the mark bit of the root's entry).
+// The forest lives in the int32 label array, at the mask's pixels only.
+//
+// The labeling's last pass, write: every pixel of the frame gets its label,
+// the in-frame index of its segment's root (h*w on the background), read
+// once a segment from the segment's first pixel. A warp writes 4 words'
+// 128 labels with one 16-byte store a lane, into the same array, which the
+// forest then no longer needs (every entry a warp reads lies in its own 4
+// words and is read before the warp writes).
+// Bound: a byte of mask in, four bytes of labels out a pixel (362 MB per
+// 64-frame batch, 0.108 ms at 3.35 TB/s); the write is 80% of it.
+//
+// The reconstruction's last pass, keep: a segment is kept iff its root's
+// entry carries the mark; the output bytes leave with 16-byte stores.
+// Bound: mask + marker + out, 3 bytes a pixel (217 MB per 64-frame batch,
+// 0.065 ms).
+//
+// Measured with trace_kernels.py on an NVIDIA H100 80GB HBM3 at 700 W, at
+// the bench batch (64 x 922 x 1228): the labeling 0.20 ms on the card, 54%
+// of its bound (its write 0.112 ms, 2.6 TB/s); the reconstruction 0.12 ms,
+// 53%.
 //
 // Differences from the TPU kernels: the Pallas stencil stops after max_iters
 // (64) propagation steps, and the Pallas reconstruction after max_iters
@@ -57,8 +62,8 @@
 // every marker pixel is dropped. These kernels have no iteration loop and
 // always compute the fixpoint, as scipy does (and as the JAX CPU path does
 // whenever its labeling converged). The TPU's 32-frame bit packing, lane
-// rolls and VMEM residency existed for Mosaic and are not carried over (the
-// reconstruction here packs 32 pixels of one row, not 32 frames).
+// rolls and VMEM residency existed for Mosaic and are not carried over (a
+// word here packs 32 consecutive pixels, not one pixel of 32 frames).
 //
 // The third entry, ysmr_cc_pixels, replaces cc_labels_at_pixels of the same
 // Pallas file (kernel _make_kernel): per frame a list of F foreground pixels
@@ -149,57 +154,6 @@ __device__ void unite(int32_t* lab, int32_t a, int32_t b) {
     if (old == a) return;
     a = old;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-cc_init(const uint8_t* __restrict__ mask, int32_t* __restrict__ lab,
-        int64_t total, int32_t n) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total) return;
-  lab[idx] = mask[idx] ? static_cast<int32_t>(idx % n) : n;
-}
-
-template <int kConn>
-__global__ void __launch_bounds__(kThreads)
-cc_merge(const uint8_t* __restrict__ mask, int32_t* lab, int64_t total,
-         int h, int w) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total || !mask[idx]) return;
-  const int64_t n = static_cast<int64_t>(h) * w;
-  const int64_t base = idx - idx % n;
-  const int32_t i = static_cast<int32_t>(idx - base);
-  const int y = i / w;
-  const int x = i - y * w;
-  const uint8_t* m = mask + base;
-  int32_t* l = lab + base;
-  const bool left = x > 0 && m[i - 1];
-  if (left) unite(l, i, i - 1);
-  if (y == 0) return;
-  if (m[i - w]) {
-    // up is foreground: up-left and up-right are its own horizontal
-    // neighbours, united by their threads
-    unite(l, i, i - w);
-    return;
-  }
-  if (kConn == 8) {
-    // with left in the foreground, up-left is left's upper neighbour
-    if (!left && x > 0 && m[i - w - 1]) unite(l, i, i - w - 1);
-    if (x + 1 < w && m[i - w + 1]) unite(l, i, i - w + 1);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-cc_compress(const uint8_t* __restrict__ mask, int32_t* lab, int64_t total,
-            int32_t n) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total || !mask[idx]) return;
-  const int64_t base = idx - idx % n;
-  // other threads store roots meanwhile: a read returns the old parent or
-  // the root, both ancestors
-  lab[idx] = find_root(lab + base, static_cast<int32_t>(idx - base));
 }
 
 unsigned blocks_for(int64_t total) {
@@ -563,12 +517,13 @@ px_final(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
   }
 }
 
-// ---- marker reconstruction on bit-packed masks (ysmr_cc_reconstruct) ----
+// ---- bit-packed masks (ysmr_cc_label, ysmr_cc_reconstruct) ----
 //
-// The frames of a call are one flat array of t * h rows of w pixels, pixel
-// g in bit g % 32 of word g / 32, so rows and frames start at any bit. A
-// segment is a maximal run of set bits within one word and one row; its
-// first pixel carries its label.
+// The frames of a launch are one flat array of t * h rows of w pixels,
+// pixel g in bit g % 32 of word g / 32, so rows and frames start at any
+// bit. A segment is a maximal run of set bits within one word and one row;
+// its first pixel carries its label. Pixel indices are int32: a launch
+// holds at most 2^31 - 1 pixels.
 
 // 32 bytes from p (non-zero = set) as one bit each; kVec: p is 16-byte
 // aligned and all 32 bytes exist, else the first `count` bytes are read
@@ -595,19 +550,20 @@ __device__ __forceinline__ uint32_t pack32(const uint8_t* __restrict__ p,
   return bits;
 }
 
-// of the 32 pixels from g0: `start` the bits at x = 0, `top` the bits in
-// the first row of a frame
+// of the 32 pixels from g0: `start` the bits at x = 0, `end` the bits at
+// x = w - 1, `top` the bits in the first row of a frame
 struct RowMasks {
-  uint32_t start, top;
+  uint32_t start, end, top;
 };
 
 __device__ __forceinline__ RowMasks row_masks(int32_t g0, int h, int w) {
   int row = g0 / w;
   int x = g0 - row * w;
-  RowMasks m = {0u, 0u};
+  RowMasks m = {0u, 0u, 0u};
   for (int b = 0; b < 32; ++row) {
     const int len = min(32 - b, w - x);
     if (x == 0) m.start |= 1u << b;
+    if (x + len == w) m.end |= 1u << (b + len - 1);
     if (row % h == 0) m.top |= (0xffffffffu >> (32 - len)) << b;
     b += len;
     x = 0;
@@ -619,6 +575,11 @@ __device__ __forceinline__ RowMasks row_masks(int32_t g0, int h, int w) {
 __device__ __forceinline__ uint32_t segment_starts(uint32_t m,
                                                    uint32_t row_start) {
   return m & ~((m << 1) & ~row_start);
+}
+
+// the first bit of the segment that holds bit b
+__device__ __forceinline__ int segment_of(uint32_t starts, int b) {
+  return 31 - __clz(starts & (0xffffffffu >> (31 - b)));
 }
 
 // the 32 bits from bit offset `off` of the packed array (0 outside it)
@@ -633,13 +594,13 @@ __device__ __forceinline__ uint32_t bits_at(const uint32_t* __restrict__ m,
   return lo >> o | hi << (32 - o);
 }
 
-// pass 1: the mask and marker & mask as bits, and the forest of the
-// horizontal runs: every set pixel points at its segment's first pixel,
-// which points at itself or, where the run goes on from the previous word,
-// at the first pixel of that word's last segment
+// pass 1: the mask (and, where `marker` is given, marker & mask) as bits,
+// and the forest of the horizontal runs: every set pixel points at its
+// segment's first pixel, which points at itself or, where the run goes on
+// from the previous word, at the first pixel of that word's last segment
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-rec_pack(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ marker,
+seg_pack(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ marker,
          uint32_t* __restrict__ mbits, uint32_t* __restrict__ kbits,
          int32_t* __restrict__ lab, int32_t total, int32_t n_words, int h,
          int w) {
@@ -648,7 +609,9 @@ rec_pack(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ marker,
   const int32_t g0 = k * 32;
   const uint32_t m = pack32<kVec>(mask + g0, total - g0);
   mbits[k] = m;
-  kbits[k] = m == 0 ? 0u : pack32<kVec>(marker + g0, total - g0) & m;
+  if (marker != nullptr) {
+    kbits[k] = m == 0 ? 0u : pack32<kVec>(marker + g0, total - g0) & m;
+  }
   if (m == 0) return;
   const uint32_t rs = row_masks(g0, h, w).start;
   const uint32_t starts = segment_starts(m, rs);
@@ -659,15 +622,27 @@ rec_pack(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ marker,
   }
   for (uint32_t rest = m; rest != 0; rest &= rest - 1) {
     const int b = __ffs(rest) - 1;
-    const int sb = 31 - __clz(starts & (0xffffffffu >> (31 - b)));
-    lab[g0 + b] = b == 0 ? first : g0 + sb;
+    lab[g0 + b] = b == 0 ? first : g0 + segment_of(starts, b);
+  }
+}
+
+__device__ __forceinline__ void unite_bits(int32_t* lab, int32_t g0,
+                                           uint32_t need, int32_t delta) {
+  for (; need != 0; need &= need - 1) {
+    const int32_t p = g0 + __ffs(need) - 1;
+    unite(lab, p, p + delta);
   }
 }
 
 // pass 2: a set pixel unites with the set pixel above it, unless both
-// have their left neighbours set (those two make the same union)
+// have their left neighbours set (those two make the same union). For
+// 8-connectivity, where the pixel above is clear, it unites with up-left
+// unless left is set (left's upper neighbour then) and with up-right unless
+// right is set (likewise right's); where the pixel above is set, both are
+// that pixel's horizontal neighbours.
+template <int kConn>
 __global__ void __launch_bounds__(kThreads)
-rec_merge(const uint32_t* __restrict__ mbits, int32_t* lab, int32_t n_words,
+seg_merge(const uint32_t* __restrict__ mbits, int32_t* lab, int32_t n_words,
           int h, int w) {
   const int32_t k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= n_words) return;
@@ -678,11 +653,16 @@ rec_merge(const uint32_t* __restrict__ mbits, int32_t* lab, int32_t n_words,
   const uint32_t carry = k > 0 ? mbits[k - 1] >> 31 : 0u;
   const uint32_t left = (m << 1 | carry) & ~rm.start;
   const uint32_t up = bits_at(mbits, n_words, g0 - w) & ~rm.top;
-  const uint32_t up_left = bits_at(mbits, n_words, g0 - w - 1) & ~rm.start;
-  for (uint32_t need = m & up & ~(left & up_left); need != 0;
-       need &= need - 1) {
-    const int32_t p = g0 + __ffs(need) - 1;
-    unite(lab, p, p - w);
+  const uint32_t up_left =
+      bits_at(mbits, n_words, g0 - w - 1) & ~(rm.start | rm.top);
+  unite_bits(lab, g0, m & up & ~(left & up_left), -w);
+  if (kConn == 8) {
+    // (right at x = w - 1 is the next row's, but up_right is clear there)
+    const uint32_t right = bits_at(mbits, n_words, g0 + 1);
+    const uint32_t up_right =
+        bits_at(mbits, n_words, g0 - w + 1) & ~(rm.end | rm.top);
+    unite_bits(lab, g0, m & ~up & ~left & up_left, -w - 1);
+    unite_bits(lab, g0, m & ~up & ~right & up_right, -w + 1);
   }
 }
 
@@ -706,30 +686,33 @@ __device__ __forceinline__ uint32_t segment_bits(uint32_t m, uint32_t starts,
          ~((1u << sb) - 1u);
 }
 
-// pass 3: every segment's first pixel points straight at its root, and a
-// segment with a marker pixel sets the root's mark bit (other walks read
-// the old parent or the root meanwhile, both ancestors)
+// pass 3: every segment's first pixel points straight at its root; with
+// kMarks a segment with a marker pixel sets the root's mark bit (other
+// walks read the old parent or the root meanwhile, both ancestors)
+template <bool kMarks>
 __global__ void __launch_bounds__(kThreads)
-rec_mark(const uint32_t* __restrict__ mbits,
-         const uint32_t* __restrict__ kbits, int32_t* lab, int32_t n_words,
-         int h, int w) {
+seg_roots(const uint32_t* __restrict__ mbits,
+          const uint32_t* __restrict__ kbits, int32_t* lab, int32_t n_words,
+          int h, int w) {
   const int32_t k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= n_words) return;
   const uint32_t m = mbits[k];
   if (m == 0) return;
   const int32_t g0 = k * 32;
-  const uint32_t marked = kbits[k];
   const uint32_t starts = segment_starts(m, row_masks(g0, h, w).start);
   for (uint32_t rest = starts; rest != 0; rest &= rest - 1) {
     const int sb = __ffs(rest) - 1;
     const int32_t s = g0 + sb;
     const int32_t root = find_root_marked(lab, s);
     if (root != s) lab[s] = root;
-    if (marked & segment_bits(m, starts, sb)) atomicOr(lab + root, kMark);
+    if (kMarks && (kbits[k] & segment_bits(m, starts, sb))) {
+      atomicOr(lab + root, kMark);
+    }
   }
 }
 
-// pass 4: a segment is kept iff its root carries the mark
+// pass 4 of the reconstruction: a segment is kept iff its root carries the
+// mark
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 rec_keep(const uint32_t* __restrict__ mbits, const int32_t* __restrict__ lab,
@@ -762,41 +745,115 @@ rec_keep(const uint32_t* __restrict__ mbits, const int32_t* __restrict__ lab,
   }
 }
 
-// init + merge + compress on `lab`
-cudaError_t label(const uint8_t* mask, int32_t* lab, int t, int h, int w,
-                  int connectivity, cudaStream_t s) {
+// pass 4 of the labeling: eight lanes a word, four pixels a lane (a warp
+// takes 4 words). A set pixel's label is its root's in-frame index, root
+// % (h*w), since a component lies in one frame; the root is read once a
+// segment from the segment's first pixel. The labels overwrite the forest:
+// every entry a warp reads lies in its own words, and all its reads come
+// before its first write.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+cc_write(const uint32_t* __restrict__ mbits, int32_t* lab, int32_t total,
+         int32_t n_words, int h, int w) {
+  const int32_t k = (blockIdx.x * kThreads + threadIdx.x) >> 3;
+  const int q = threadIdx.x & 7;
   const int32_t n = h * w;
-  const int64_t total = static_cast<int64_t>(t) * n;
-  const unsigned blocks = blocks_for(total);
-  cc_init<<<blocks, kThreads, 0, s>>>(mask, lab, total, n);
-  if (connectivity == 8) {
-    cc_merge<8><<<blocks, kThreads, 0, s>>>(mask, lab, total, h, w);
-  } else {
-    cc_merge<4><<<blocks, kThreads, 0, s>>>(mask, lab, total, h, w);
+  int32_t v[4] = {n, n, n, n};
+  const bool in = k < n_words;
+  const int32_t g0 = in ? k * 32 : 0;
+  const uint32_t m = in ? mbits[k] : 0u;
+  if (m >> (4 * q) & 0xfu) {
+    const uint32_t starts = segment_starts(m, row_masks(g0, h, w).start);
+    int last = -1;
+    int32_t label = n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = 4 * q + i;
+      if (!(m >> b & 1u)) continue;
+      const int sb = segment_of(starts, b);
+      if (sb != last) {
+        label = lab[g0 + sb] % n;
+        last = sb;
+      }
+      v[i] = label;
+    }
   }
-  cc_compress<<<blocks, kThreads, 0, s>>>(mask, lab, total, n);
-  return cudaGetLastError();
+  __syncwarp();
+  if (!in) return;
+  const int32_t g = g0 + 4 * q;
+  if (kVec && total - g >= 4) {
+    *reinterpret_cast<int4*>(lab + g) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < total - g) lab[g + i] = v[i];
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// pass 1 of both entries (marker and kbits null for the labeling). The
+// pipeline passes fresh allocations, which are aligned. The byte-wise
+// variant is there only so that any contiguous tensor is taken: a view that
+// starts inside a batch need not be aligned.
+void pack(const uint8_t* mask, const uint8_t* marker, uint32_t* mbits,
+          uint32_t* kbits, int32_t* lab, int32_t total, int32_t n_words,
+          int h, int w, cudaStream_t s) {
+  const unsigned blocks = blocks_for(n_words);
+  if (aligned16(mask) && (marker == nullptr || aligned16(marker))) {
+    seg_pack<true><<<blocks, kThreads, 0, s>>>(mask, marker, mbits, kbits,
+                                               lab, total, n_words, h, w);
+  } else {
+    seg_pack<false><<<blocks, kThreads, 0, s>>>(mask, marker, mbits, kbits,
+                                                lab, total, n_words, h, w);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// mask: (T, H, W) uint8 (0/1); labels: (T, H, W) int32 out; connectivity 4
-// or 8; H * W < 2^31; all on CUDA device `device`, launched on `stream`.
-// Returns a cudaError_t (0 = launched).
-int ysmr_cc_label(const void* mask, void* labels, int t, int h, int w,
-                  int connectivity, int device, void* stream) {
+// mask: (T, H, W) uint8 (non-zero = set); labels: (T, H, W) int32 out;
+// bits: ceil(T * H * W / 32) uint32 scratch; connectivity 4 or 8;
+// T * H * W < 2^31 (cudaErrorInvalidValue otherwise); all on CUDA device
+// `device`, launched on `stream`. Returns a cudaError_t (0 = launched).
+int ysmr_cc_label(const void* mask, void* labels, void* bits, int t, int h,
+                  int w, int connectivity, int device, void* stream) {
   if (t <= 0 || h <= 0 || w <= 0) return 0;
-  if (connectivity != 4 && connectivity != 8) {
+  const int64_t total64 = static_cast<int64_t>(t) * h * w;
+  if ((connectivity != 4 && connectivity != 8) ||
+      total64 >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(label(static_cast<const uint8_t*>(mask),
-                                static_cast<int32_t*>(labels), t, h, w,
-                                connectivity,
-                                static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t total = static_cast<int32_t>(total64);
+  const int32_t n_words = static_cast<int32_t>((total64 + 31) / 32);
+  int32_t* lab = static_cast<int32_t*>(labels);
+  uint32_t* mbits = static_cast<uint32_t*>(bits);
+  const unsigned blocks = blocks_for(n_words);
+  pack(static_cast<const uint8_t*>(mask), nullptr, mbits, nullptr, lab, total,
+       n_words, h, w, s);
+  if (connectivity == 8) {
+    seg_merge<8><<<blocks, kThreads, 0, s>>>(mbits, lab, n_words, h, w);
+  } else {
+    seg_merge<4><<<blocks, kThreads, 0, s>>>(mbits, lab, n_words, h, w);
+  }
+  seg_roots<false><<<blocks, kThreads, 0, s>>>(mbits, nullptr, lab, n_words,
+                                               h, w);
+  const unsigned write_blocks = blocks_for(static_cast<int64_t>(n_words) * 8);
+  if (aligned16(lab)) {
+    cc_write<true><<<write_blocks, kThreads, 0, s>>>(mbits, lab, total,
+                                                     n_words, h, w);
+  } else {
+    cc_write<false><<<write_blocks, kThreads, 0, s>>>(mbits, lab, total,
+                                                      n_words, h, w);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // mask, marker: (T, H, W) uint8 (non-zero = set); labels: (T, H, W) int32
@@ -816,29 +873,17 @@ int ysmr_cc_reconstruct(const void* mask, const void* marker, void* labels,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t total = static_cast<int32_t>(total64);
   const int32_t n_words = (total + 31) / 32;
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  const uint8_t* k = static_cast<const uint8_t*>(marker);
   uint8_t* o = static_cast<uint8_t*>(out);
   int32_t* lab = static_cast<int32_t*>(labels);
   uint32_t* mbits = static_cast<uint32_t*>(bits);
   uint32_t* kbits = mbits + n_words;
   const unsigned blocks = blocks_for(n_words);
-  // The pipeline passes fresh allocations, which are aligned. The byte-wise
-  // variants are there only so that any contiguous tensor is taken: a view
-  // that starts inside a batch need not be aligned.
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (aligned(m) && aligned(k)) {
-    rec_pack<true><<<blocks, kThreads, 0, s>>>(m, k, mbits, kbits, lab, total,
-                                               n_words, h, w);
-  } else {
-    rec_pack<false><<<blocks, kThreads, 0, s>>>(m, k, mbits, kbits, lab,
-                                                total, n_words, h, w);
-  }
-  rec_merge<<<blocks, kThreads, 0, s>>>(mbits, lab, n_words, h, w);
-  rec_mark<<<blocks, kThreads, 0, s>>>(mbits, kbits, lab, n_words, h, w);
-  if (aligned(o)) {
+  pack(static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(marker),
+       mbits, kbits, lab, total, n_words, h, w, s);
+  seg_merge<4><<<blocks, kThreads, 0, s>>>(mbits, lab, n_words, h, w);
+  seg_roots<true><<<blocks, kThreads, 0, s>>>(mbits, kbits, lab, n_words, h,
+                                              w);
+  if (aligned16(o)) {
     rec_keep<true><<<blocks, kThreads, 0, s>>>(mbits, lab, o, total, n_words,
                                                h, w);
   } else {

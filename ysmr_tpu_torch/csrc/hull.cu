@@ -13,29 +13,68 @@
 //   - edge flag = valid & out_min >= in_max & out_min < big, strict corner
 //     flag = valid & out_min > in_max; the edge vector is 0 where the edge
 //     flag is False.
-// Slopes are correctly rounded float32 quotients (__fdiv_rn) of exact
-// integer differences, so the kernel equals the plain version bit for bit.
+// Slopes are correctly rounded float32 quotients (__fdiv_rn, a zero
+// numerator formed apart) of exact integer differences, so the kernel
+// equals the plain version bit for bit.
+// Rows "below" and "above" row i are the valid rows after and before it in
+// the table, which is ascending y (abs_y = min_y + row in the pipeline).
 // The TPU kernel's (R, D) lane layout and its fori_loop over rows existed
-// for Mosaic; here each thread owns one (component, row) and loops over the
-// component's rows.
+// for Mosaic and are not carried over.
 //
-// What bounds it on an H100: instruction throughput, not bytes. The tables
-// are 13 bytes per (component, row) in and 18 bytes out; each valid row does
-// up to 2R divisions. Invalid rows (most of the max_bh-row box of a small
-// component, and every row of an empty slot) exit at once, and invalid k
-// are skipped, so the work scales with the rows components really have. The
-// R loads of a component's rows come from L1 (the component's rows are
-// contiguous and shared by the warp).
+// Design: one warp per component. The lanes read the component's R rows
+// once, 32 at a time, coalesced; a ballot on row_valid compacts the valid
+// rows, in ascending order, into the warp's slice of shared memory as
+// float4 (y, x_min, x_max, row), and the invalid rows get their zeros there
+// and then (an empty component touches row_valid only). With n valid rows,
+// s = 32 / n lanes share a row (one lane a row, 32 rows a pass, above 32):
+// lane k of a row loops over the rows q = k, k + s, ... in ascending order
+// with `<=`, one broadcast 16-byte shared load each, so the last minimal q
+// of its share wins; shuffles then combine the s lanes, the smaller
+// minimum and on a tie the larger q (the farthest collinear endpoint), the
+// larger maximum. The loop has no branch: the row itself divides by 1 and
+// counts for neither chain. A row's outputs go to its own position, so a
+// component's valid rows leave as contiguous runs. Above 14,528 rows (at
+// 16 bytes a row, more than a block's shared memory) the warp's slice lies
+// in a (D, R) scratch in global memory instead.
+//
+// What bounds it on an H100: the bytes the data needs, row_valid and the
+// 20 bytes out (four float32, four flags) of every (component, row) and
+// the 12 bytes of the x and y tables at the valid rows only: 0.083 ms for
+// the dense batch's 262,144 x 48 at 3.35 TB/s (0.124 ms if every table
+// byte is counted); then the divisions, two per ordered pair of valid rows
+// and chain, which grow with the square of a component's valid rows and
+// are kept on the division's fast path (quotient, below). Measured with
+// trace_kernels.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.178-0.183 ms on
+// the card at the dense batch, 45-47% of that bound; 0.023-0.024 ms at the
+// frames-mode bench batch (32,768 x 64; bound 0.0135 ms, 56-58%).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxWarps = 8;                 // components per block
+constexpr int kMaxSmem = 232448;             // a block's limit on Hopper
 constexpr float kBig = 3.0e38f;
 
-__global__ void __launch_bounds__(kThreads)
+// a / b correctly rounded (__fdiv_rn). The division's fast path refuses a
+// zero numerator (FCHK: the sign of the zero), which the vertical edges of
+// a component give in plenty, and its slow path stalls the whole warp; the
+// zero, signed as IEEE signs it, is formed here instead.
+__device__ __forceinline__ float quotient(float a, float b) {
+  const float q = __fdiv_rn(a == 0.f ? 1.f : a, b);
+  return a == 0.f
+             ? __int_as_float((__float_as_int(a) ^ __float_as_int(b)) &
+                              static_cast<int>(0x80000000u))
+             : q;
+}
+
+// kShared: the compacted rows in the block's shared memory, else in
+// `scratch` (D, R) float4 in global memory (R above the shared cap)
+template <bool kShared>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 hull_kernel(const int32_t* __restrict__ row_min_x,
             const int32_t* __restrict__ row_max_x,
             const uint8_t* __restrict__ row_valid,
@@ -43,55 +82,108 @@ hull_kernel(const int32_t* __restrict__ row_min_x,
             float* __restrict__ dy_l, uint8_t* __restrict__ edge_l,
             float* __restrict__ dx_r, float* __restrict__ dy_r,
             uint8_t* __restrict__ edge_r, uint8_t* __restrict__ corner_l,
-            uint8_t* __restrict__ corner_r, int64_t total, int r) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total) return;
-  const int64_t base = idx - idx % r;  // row 0 of this component
-  float omin_l = kBig, imax_l = -kBig, dxe_l = 0.f, dye_l = 0.f;
-  float omin_r = kBig, imax_r = -kBig, dxe_r = 0.f, dye_r = 0.f;
-  const bool vi = row_valid[idx] != 0;
-  if (vi) {
-    const float xl = static_cast<float>(row_min_x[idx]);
-    const float xr = static_cast<float>(row_max_x[idx]);
-    const float y = static_cast<float>(abs_y[idx]);
-    for (int k = 0; k < r; ++k) {
-      const int64_t kk = base + k;
-      if (!row_valid[kk]) continue;
-      const float dy = __fsub_rn(static_cast<float>(abs_y[kk]), y);
-      if (dy == 0.f) continue;
-      const float dxl = __fsub_rn(static_cast<float>(row_min_x[kk]), xl);
-      const float dxr = __fsub_rn(static_cast<float>(row_max_x[kk]), xr);
-      const float col_l = __fdiv_rn(dxl, dy);
-      const float col_r = __fdiv_rn(-dxr, dy);
-      if (dy > 0.f) {
-        // ascending k with <=: the last (farthest) minimal k wins
-        if (col_l <= omin_l) {
+            uint8_t* __restrict__ corner_r, float4* scratch, int d, int r) {
+  extern __shared__ float4 s_rows[];
+  const unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
+                    warp;
+  if (c >= d) return;
+  const int64_t base = c * r;
+  float4* rows = kShared ? s_rows + warp * r : scratch + base;
+  int n = 0;
+  for (int j0 = 0; j0 < r; j0 += 32) {
+    const int j = j0 + lane;
+    const int64_t g = base + j;
+    const bool in = j < r;
+    const bool v = in && row_valid[g];
+    const unsigned valid = __ballot_sync(kAll, v);
+    if (v) {
+      rows[n + __popc(valid & ((1u << lane) - 1u))] = make_float4(
+          static_cast<float>(abs_y[g]), static_cast<float>(row_min_x[g]),
+          static_cast<float>(row_max_x[g]), __int_as_float(j));
+    } else if (in) {
+      dx_l[g] = dy_l[g] = dx_r[g] = dy_r[g] = 0.f;
+      edge_l[g] = edge_r[g] = corner_l[g] = corner_r[g] = 0;
+    }
+    n += __popc(valid);
+  }
+  __syncwarp();
+  if (n == 0) return;
+  // s lanes a row (consecutive lanes), each over every s-th row q of the
+  // component: one pass takes 32 / s rows
+  const int s = n <= 32 ? 32 / n : 1;
+  const int per_pass = 32 / s;
+  const int part = lane % s;
+  for (int p0 = 0; p0 < n; p0 += per_pass) {
+    const int p = p0 + lane / s;
+    const bool act = lane < s * per_pass && p < n;
+    const float4 me = rows[act ? p : 0];
+    // the minimum outgoing slope and its row (the last of the lane's rows
+    // that attain it), the maximum incoming slope, of each chain
+    float omin_l = kBig, imax_l = -kBig, omin_r = kBig, imax_r = -kBig;
+    int qmin_l = -1, qmin_r = -1;
+    if (act) {
+      for (int q = part; q < n; q += s) {
+        const float4 o = rows[q];
+        // the lane's own row divides by 1 and is used by neither chain
+        const float dy = q == p ? 1.f : __fsub_rn(o.x, me.x);
+        const float col_l = quotient(__fsub_rn(o.y, me.y), dy);
+        const float col_r = quotient(-__fsub_rn(o.z, me.z), dy);
+        // ascending q with <=: the last (farthest) minimal row wins
+        if (q > p && col_l <= omin_l) {
           omin_l = col_l;
-          dxe_l = dxl;
-          dye_l = dy;
+          qmin_l = q;
         }
-        if (col_r <= omin_r) {
+        if (q > p && col_r <= omin_r) {
           omin_r = col_r;
-          dxe_r = dxr;
-          dye_r = dy;
+          qmin_r = q;
         }
-      } else {
-        imax_l = fmaxf(imax_l, col_l);
-        imax_r = fmaxf(imax_r, col_r);
+        if (q < p) {
+          imax_l = fmaxf(imax_l, col_l);
+          imax_r = fmaxf(imax_r, col_r);
+        }
       }
     }
+    // the s lanes of a row combined into its first: the smaller minimum,
+    // on a tie the farther row; the larger maximum
+    for (int off = 1; off < s; off <<= 1) {
+      const float o_l = __shfl_down_sync(kAll, omin_l, off);
+      const int oq_l = __shfl_down_sync(kAll, qmin_l, off);
+      const float i_l = __shfl_down_sync(kAll, imax_l, off);
+      const float o_r = __shfl_down_sync(kAll, omin_r, off);
+      const int oq_r = __shfl_down_sync(kAll, qmin_r, off);
+      const float i_r = __shfl_down_sync(kAll, imax_r, off);
+      if (part + off < s) {
+        if (o_l < omin_l || (o_l == omin_l && oq_l > qmin_l)) {
+          omin_l = o_l;
+          qmin_l = oq_l;
+        }
+        if (o_r < omin_r || (o_r == omin_r && oq_r > qmin_r)) {
+          omin_r = o_r;
+          qmin_r = oq_r;
+        }
+        imax_l = fmaxf(imax_l, i_l);
+        imax_r = fmaxf(imax_r, i_r);
+      }
+    }
+    if (!act || part != 0) continue;
+    const int64_t g = base + __float_as_int(me.w);
+    const bool el = omin_l >= imax_l && omin_l < kBig;
+    const bool er = omin_r >= imax_r && omin_r < kBig;
+    // the edge vectors to the rows found, as the loop formed them
+    const float4 ol = rows[el ? qmin_l : p];
+    const float4 orr = rows[er ? qmin_r : p];
+    dx_l[g] = el ? __fsub_rn(ol.y, me.y) : 0.f;
+    dy_l[g] = el ? __fsub_rn(ol.x, me.x) : 0.f;
+    edge_l[g] = el;
+    dx_r[g] = er ? __fsub_rn(orr.z, me.z) : 0.f;
+    dy_r[g] = er ? __fsub_rn(orr.x, me.x) : 0.f;
+    edge_r[g] = er;
+    corner_l[g] = omin_l > imax_l;
+    corner_r[g] = omin_r > imax_r;
   }
-  const bool el = vi && omin_l >= imax_l && omin_l < kBig;
-  const bool er = vi && omin_r >= imax_r && omin_r < kBig;
-  dx_l[idx] = el ? dxe_l : 0.f;
-  dy_l[idx] = el ? dye_l : 0.f;
-  edge_l[idx] = el;
-  dx_r[idx] = er ? dxe_r : 0.f;
-  dy_r[idx] = er ? dye_r : 0.f;
-  edge_r[idx] = er;
-  corner_l[idx] = vi && omin_l > imax_l;
-  corner_r[idx] = vi && omin_r > imax_r;
 }
 
 }  // namespace
@@ -100,19 +192,39 @@ extern "C" {
 
 // row_min_x, row_max_x, abs_y: (D, R) int32; row_valid: (D, R) uint8;
 // outputs (D, R): float32 dx/dy, uint8 flags; all contiguous on CUDA device
-// `device`, launched on `stream`. Returns a cudaError_t (0 = launched).
+// `device`, launched on `stream`. scratch: (D, R) float4, used (and needed)
+// only for R > 14,528, where a warp's R rows of 16 bytes exceed a block's
+// shared memory (cudaErrorInvalidValue if it is null then). Returns a
+// cudaError_t (0 = launched).
 int ysmr_hull_edges(const void* row_min_x, const void* row_max_x,
                     const void* row_valid, const void* abs_y, void* dx_l,
                     void* dy_l, void* edge_l, void* dx_r, void* dy_r,
-                    void* edge_r, void* corner_l, void* corner_r, int d,
-                    int r, int device, void* stream) {
+                    void* edge_r, void* corner_l, void* corner_r,
+                    void* scratch, int d, int r, int device, void* stream) {
   if (d <= 0 || r <= 0) return 0;
+  const int64_t row_bytes = static_cast<int64_t>(r) * sizeof(float4);
+  const bool shared = row_bytes <= kMaxSmem;
+  if (!shared && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(d) * r;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  hull_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // as many warps as fit 48 KB of shared memory, or one warp up to the
+  // block's limit; the most warps with the rows in global memory
+  const int warps = shared ? static_cast<int>(std::max<int64_t>(
+                                 1, std::min<int64_t>(kMaxWarps,
+                                                      49152 / row_bytes)))
+                           : kMaxWarps;
+  const int smem = shared ? static_cast<int>(warps * row_bytes) : 0;
+  if (smem > 49152) {
+    err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&hull_kernel<true>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((d + warps - 1) / warps);
+  auto kernel = shared ? hull_kernel<true> : hull_kernel<false>;
+  kernel<<<blocks, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(row_min_x),
       static_cast<const int32_t*>(row_max_x),
       static_cast<const uint8_t*>(row_valid),
@@ -120,7 +232,7 @@ int ysmr_hull_edges(const void* row_min_x, const void* row_max_x,
       static_cast<float*>(dy_l), static_cast<uint8_t*>(edge_l),
       static_cast<float*>(dx_r), static_cast<float*>(dy_r),
       static_cast<uint8_t*>(edge_r), static_cast<uint8_t*>(corner_l),
-      static_cast<uint8_t*>(corner_r), total, r);
+      static_cast<uint8_t*>(corner_r), static_cast<float4*>(scratch), d, r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,12 +4,12 @@ foreground pixel lists (the pixel-table branch of pixels mode).
 
 Counterparts of ``ysmr_tpu/ops/pallas_cc.py::label_components_whole_frame``,
 ``::binary_reconstruct`` and ``::cc_labels_at_pixels``. The kernels
-(``csrc/cc.cu``) are union-find passes: over one grid of T*H*W threads
-(labeling), over bit-packed masks with one thread per 32 pixels
-(reconstruction), or over tiles of the T*F list slots; the source notes
-the designs, what bounds them, and where they differ from the TPU kernels
-(those stop after ``max_iters`` steps; the union-find always reaches the
-fixpoint). The plain PyTorch versions are
+(``csrc/cc.cu``) are union-find passes: over bit-packed masks with one
+thread per 32 pixels (labeling and reconstruction, which share their
+packing, merge and root passes), or over tiles of the T*F list slots; the
+source notes the designs, what bounds them, and where they differ from
+the TPU kernels (those stop after ``max_iters`` steps; the union-find
+always reaches the fixpoint). The plain PyTorch versions are
 ``ops/labeling.py::label_components`` and ``::propagate_markers``, and
 ``cc_labels_at_pixels_plain`` here.
 
@@ -40,11 +40,12 @@ def _check_masks(name, mask, *others):
     return t, h, w
 
 
-#: most pixels of one reconstruction launch, and so of one frame there. The
-#: kernel indexes a launch's pixels with an int32; a batch above this goes
-#: in several launches, only so that the wrapper takes any number of
-#: frames (no pipeline call comes near: a 64-frame batch of 1228x922 is
-#: 72.5 M pixels).
+#: most pixels of one labeling launch and of one reconstruction launch, and
+#: so of one frame there. The kernels index a launch's pixels with an int32;
+#: a batch above this goes in several launches of whole frames, only so that
+#: the wrappers take any number of frames (no pipeline call comes near: a
+#: 64-frame batch of 1228x922 is 72.5 M pixels).
+LABEL_MAX_PIXELS = (1 << 31) - 1
 RECONSTRUCT_MAX_PIXELS = (1 << 31) - 64
 
 
@@ -69,9 +70,17 @@ def label_components_whole_frame(mask, connectivity=8, max_iters=64):
     labels = torch.empty((t, h, w), dtype=torch.int32, device=mask.device)
     lib = _build.load_kernels()
     stream = torch.cuda.current_stream(mask.device).cuda_stream
-    rc = lib.ysmr_cc_label(mask.data_ptr(), labels.data_ptr(), t, h, w,
-                           connectivity, mask.device.index, stream)
-    _build.check(lib, rc, 'cc label kernel launch')
+    step = max(1, LABEL_MAX_PIXELS // (h * w))
+    # the mask as bits, 32 pixels a word; the union-find forest lives in
+    # the labels themselves until the last pass writes them
+    bits = torch.empty((min(step, t) * h * w + 31) // 32, dtype=torch.int32,
+                       device=mask.device)
+    for f0 in range(0, t, step):
+        rc = lib.ysmr_cc_label(mask[f0:f0 + step].data_ptr(),
+                               labels[f0:f0 + step].data_ptr(),
+                               bits.data_ptr(), min(step, t - f0), h, w,
+                               connectivity, mask.device.index, stream)
+        _build.check(lib, rc, 'cc label kernel launch')
     label_components_whole_frame.launches += 1
     return labels
 

@@ -1,8 +1,8 @@
 """Wrapper of the hand-written CUDA kernel for the hull-edge candidates.
 
 Counterpart of ``ysmr_tpu/ops/pallas_hull.py::hull_edge_vectors``. The
-kernel (``csrc/hull.cu``) runs one thread per (component, bbox row); its
-source notes the design and what bounds it. The plain PyTorch version is
+kernel (``csrc/hull.cu``) runs one warp per component over its valid rows;
+its source notes the design and what bounds it. The plain PyTorch version is
 ``ops/labeling.py::hull_edge_vectors_plain``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
@@ -14,6 +14,12 @@ import torch
 
 from ysmr_tpu_torch import _build
 from ysmr_tpu_torch.ops.labeling import hull_edge_vectors_plain
+
+
+#: most rows of a component that the kernel keeps in shared memory, 16
+#: bytes each, within a block's 232,448 bytes; above, it keeps them in a
+#: (D, R) scratch in global memory
+HULL_MAX_SHARED_ROWS = 14528
 
 
 def hull_edge_vectors(row_min_x, row_max_x, row_valid, abs_y):
@@ -49,13 +55,17 @@ def hull_edge_vectors(row_min_x, row_max_x, row_valid, abs_y):
            for _ in range(4)]
     flags = [torch.empty((d, r), dtype=torch.bool, device=row_min_x.device)
              for _ in range(4)]
+    # the compacted rows, above the shared-memory cap
+    scratch = torch.empty((d, r, 4) if r > HULL_MAX_SHARED_ROWS else 0,
+                          dtype=torch.float32, device=row_min_x.device)
     lib = _build.load_kernels()
     stream = torch.cuda.current_stream(row_min_x.device).cuda_stream
     rc = lib.ysmr_hull_edges(
         row_min_x.data_ptr(), row_max_x.data_ptr(), row_valid.data_ptr(),
         abs_y.data_ptr(), vec[0].data_ptr(), vec[1].data_ptr(),
         flags[0].data_ptr(), vec[2].data_ptr(), vec[3].data_ptr(),
-        flags[1].data_ptr(), flags[2].data_ptr(), flags[3].data_ptr(), d, r,
+        flags[1].data_ptr(), flags[2].data_ptr(), flags[3].data_ptr(),
+        scratch.data_ptr() if scratch.numel() else None, d, r,
         row_min_x.device.index, stream)
     _build.check(lib, rc, 'hull kernel launch')
     hull_edge_vectors.launches += 1

@@ -209,6 +209,15 @@ def component_tables(comp, mask, *, max_det, max_bh):
     :param mask: (T, H, W) bool
     :return: the ``_stats_tail_from_tables`` dict over (T*max_det, ...)
     """
+    return _stats_tail_from_tables(
+        *component_row_tables(comp, mask, max_det=max_det, max_bh=max_bh),
+        max_bh=max_bh)
+
+
+def component_row_tables(comp, mask, *, max_det, max_bh):
+    """The row tables that ``component_tables`` reduces: (row_min_x,
+    row_max_x, row_valid, min_y) over (T*max_det, ...), as ``_row_tables``
+    gives them for the foreground pixels of ``mask``."""
     t, h, w = comp.shape
     n = h * w
     fg = torch.nonzero(mask.reshape(-1)).flatten()
@@ -217,9 +226,7 @@ def component_tables(comp, mask, *, max_det, max_bh):
     ys = torch.div(lin, w, rounding_mode='floor')
     xs = lin - ys * w
     seg = comp.reshape(-1)[fg].long()
-    return _stats_tail_from_tables(
-        *_row_tables(frame, xs, ys, seg, t, max_det=max_det, max_bh=max_bh),
-        max_bh=max_bh)
+    return _row_tables(frame, xs, ys, seg, t, max_det=max_det, max_bh=max_bh)
 
 
 def _row_tables(frame, xs, ys, seg, t, *, max_det, max_bh):
