@@ -94,7 +94,34 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    then the MJPG dense clip through ``track_bacteria(path)``, whose rows
    must be those of ``bench_data/dense_clip_list.csv.gz`` (378,751 rows,
    2899 tracks), with the run-CC kernel launched and the device rects'
-   and tracker's kernels not.
+   and tracker's kernels not;
+18. the user's program: ``python -m ysmr_tpu_torch <bench clip> --serial``
+   in a subprocess on ``cuda`` (``bench_settings()`` as a tracking.ini,
+   the live display on in a headless environment, plots on), through a
+   wrapper that replaces ``ysmr_tpu_torch.plot_functions`` with a stub
+   that records each call (a GPU host may lack matplotlib), times each
+   stage and counts the kernels' launches: exit 0, the run-CC kernel
+   launched, ``_list.csv`` row-identical to the reference list, and
+   ``_selected_data.csv``, ``_statistics.csv``, ``_analysed.csv`` and the
+   collated xlsx cell for cell those of ``analyse()`` on the reference
+   list through the CSV restart path (numbers within 1e-9; the cells that
+   hold a displacement's direction are counted, not held: see
+   ``DIRECTION_COLUMNS``); the wall time of each stage;
+19. the live display on the card with a fake GUI (cv2's window calls
+   replaced, ``DISPLAY`` set) on the bench clip: every frame drawn, the
+   device-rect path's kernels launched, ``_list.csv`` byte-identical to
+   the device-rect path without the display (batch 16 against 64), and
+   'q' after the second batch returns None;
+20. the compact emissions readback on the dense scene in memory against
+   the padded readback (byte-identical; the bucket grows from 1024 to
+   4096, the batches read padded and the stage split printed) and on the
+   dense clip through ``track_bacteria(path)`` (byte-identical to phase
+   7's list);
+21. ``det_px_from_runs`` (the run-CC branch's per-pixel detection index)
+   on ``cuda`` against ``cpu`` on the first bench batch;
+22. the program's spawn pool on the card (``python -m ysmr_tpu_torch``
+   without ``--serial``) on two 64-frame clips against ``--serial``: every
+   CSV byte-identical.
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (seven kernels, each
@@ -1824,6 +1851,538 @@ def phase_lum_frames(frames, settings):
     cuda_vs_cpu('frames luminosity', frames, fset)
 
 
+# ---- the user's program: ysmr(), the CLI, the display, the readback ----
+
+#: the program's wrapper, written into the work directory at run time: it
+#: replaces ysmr_tpu_torch.plot_functions (a GPU host may have no
+#: matplotlib) with a stub that records each call, before anything imports
+#: the package, also in the spawn children, which import this file as
+#: their main module; run as a script it times the stages, counts the
+#: kernels' launches and calls cli() on its arguments
+PROGRAM_MAIN = """
+import json, os, sys, time, types
+
+RECORD = os.environ['SMOKE_PROGRAM_RECORD']
+
+
+def note(**entry):
+    entry['pid'] = os.getpid()
+    with open(RECORD, 'a') as f:
+        f.write(json.dumps(entry) + '\\n')
+
+
+def stub_plot(name):
+    def plot(*args, **kwargs):
+        note(plot=name, save_path=kwargs.get('save_path'))
+    return plot
+
+
+stub = types.ModuleType('ysmr_tpu_torch.plot_functions')
+for name in ('angle_distribution_plot', 'large_xy_plot', 'rose_graph',
+             'violin_plot'):
+    setattr(stub, name, stub_plot(name))
+sys.modules['ysmr_tpu_torch.plot_functions'] = stub
+
+if __name__ == '__main__':
+    import ysmr_tpu_torch.main as program
+    from ysmr_tpu_torch.__main__ import cli
+    from ysmr_tpu_torch.ops.assign import row_min_argmin
+    from ysmr_tpu_torch.ops.cc import (binary_reconstruct,
+                                       cc_labels_at_pixels,
+                                       label_components_whole_frame)
+    from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+    from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
+    from ysmr_tpu_torch.ops.sweep import sweep_extents
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                note(stage=name, s=time.perf_counter() - t0)
+        return call
+
+    for name in ('track_bacteria', 'select_tracks', 'evaluate_tracks',
+                 'annotate_video', 'collate_results_csv_to_xlsx'):
+        setattr(program, name, timed(name, getattr(program, name)))
+    kernels = (propagate_min_fused, hull_edge_vectors, sweep_extents,
+               row_min_argmin, label_components_whole_frame,
+               binary_reconstruct, cc_labels_at_pixels)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc = cli(sys.argv[1:])
+    note(cli_s=time.perf_counter() - t0, rc=rc,
+         launches={k.__name__: k.launches for k in kernels})
+    sys.exit(rc)
+"""
+
+#: the analysis stages' outputs that the program writes per input
+STAGE_SUFFIXES = ('_selected_data.csv', '_statistics.csv', '_analysed.csv')
+
+
+def program_ini(path, overrides):
+    """A tracking.ini: the defaults with ``overrides`` (settings keys)."""
+    parser = configparser.ConfigParser(allow_no_value=True)
+    for section, values in default_config_dict().items():
+        parser[section] = {k: str(overrides.get(k, v))
+                           for k, v in values.items()}
+    with open(path, 'w') as f:
+        parser.write(f)
+    return path
+
+
+#: bench_settings() as an ini for the program: plots on (the defaults),
+#: the live display on (the run is headless), no prompts
+PROGRAM_SETTINGS = {
+    'display video analysis': True, 'user input': False,
+    'select files': False, 'shut down after analysis': False,
+    'save video': False, 'log to file': False,
+    'rename previous result .csv': False,
+    'collate results csv to xlsx': True, 'max detections per frame': 512,
+    'max track slots': 1024, 'max bounding box height': 64,
+    'frame batch size': 64, 'max foreground pixels per frame': 8192,
+}
+
+
+def run_program(name, args, ini):
+    """``python -m ysmr_tpu_torch`` through the wrapper in a subprocess on
+    a headless environment; returns (records, result folder, wall s)."""
+    main = os.path.join(WORK, 'program_main.py')
+    if not os.path.exists(main):
+        with open(main, 'w') as f:
+            f.write(PROGRAM_MAIN)
+    folder = os.path.join(WORK, name)
+    os.makedirs(folder, exist_ok=True)
+    record = os.path.join(WORK, name + '.jsonl')
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('DISPLAY', 'WAYLAND_DISPLAY')}
+    env.update(SMOKE_PROGRAM_RECORD=record, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, main] + list(args) + [
+            '--settings', ini, '--result-folder', folder],
+        cwd=folder, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(WORK, name + '.log'), 'w') as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise SystemExit('{}: the program exited {}'.format(name,
+                                                            proc.returncode))
+    with open(record) as f:
+        return [json.loads(line) for line in f], folder, wall
+
+
+class PlotStub:
+    """The program's plot stub in this process, while a block runs."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import types
+        stub = types.ModuleType('ysmr_tpu_torch.plot_functions')
+        for name in ('angle_distribution_plot', 'large_xy_plot',
+                     'rose_graph', 'violin_plot'):
+            setattr(stub, name, lambda *a, _n=name, **k: self.calls.append(
+                (_n, k.get('save_path'))))
+        self.saved = sys.modules.get('ysmr_tpu_torch.plot_functions')
+        sys.modules['ysmr_tpu_torch.plot_functions'] = stub
+        return self
+
+    def __exit__(self, *exc):
+        sys.modules['ysmr_tpu_torch.plot_functions'] = self.saved
+
+
+#: columns that hold the direction of a displacement (or follow from it).
+#: A stationary rod's displacement is round-off, and the CSV restart path
+#: reads the positions back with pandas' default float parser, which is not
+#: correctly rounded (an ulp off, and the reference list is written with
+#: other last digits), so these cells may differ between the two paths;
+#: they are counted, every other cell is held
+DIRECTION_COLUMNS = ('Arc-Chord Ratio', 'angle_diff', 'tp_of_tracks')
+
+
+def _cells_close(a, b):
+    """Elementwise: equal, both NaN, or within 1e-9 (relative and absolute:
+    the repo's own restart tolerance, tests/test_main_orchestration.py)."""
+    return (a == b) | (np.isnan(a) & np.isnan(b)) | \
+        (np.abs(a - b) <= 1e-9 + 1e-9 * np.abs(b))
+
+
+def csv_cells_match(what, got_path, want_path):
+    """Two stage CSVs cell for cell: the same header, rows and text cells,
+    numbers within 1e-9 outside DIRECTION_COLUMNS; returns (byte-identical
+    files, identical rows, rows, the largest held difference, {direction
+    column: differing cells})."""
+    with open(got_path, 'rb') as f, open(want_path, 'rb') as g:
+        got_b, want_b = f.read(), g.read()
+    got, want = pd.read_csv(got_path), pd.read_csv(want_path)
+    if list(got.columns) != list(want.columns) or got.shape != want.shape:
+        raise SystemExit('{}: {} against {}'.format(what, got.shape,
+                                                    want.shape))
+    worst, loose = 0.0, {}
+    for col in want.columns:
+        a, b = got[col].to_numpy(), want[col].to_numpy()
+        if a.dtype.kind in 'fiub' and b.dtype.kind in 'fiub':
+            a, b = a.astype(float), b.astype(float)
+            close = _cells_close(a, b)
+        else:
+            close = a == b
+        if col in DIRECTION_COLUMNS:
+            loose[col] = int((~close).sum())
+            continue
+        if not close.all():
+            raise SystemExit('{}: column {} differs on {} rows'.format(
+                what, col, int((~close).sum())))
+        if a.dtype.kind == 'f':
+            diff = np.abs(a - b)
+            diff = diff[~np.isnan(diff)]
+            worst = max(worst, float(diff.max()) if diff.size else 0.0)
+    same_rows = sum(x == y for x, y in zip(got_b.splitlines(),
+                                           want_b.splitlines()))
+    return got_b == want_b, same_rows, got.shape[0], worst, loose
+
+
+def xlsx_cells(path):
+    """{sheet part: {cell: (type, text)}} of a workbook the port wrote."""
+    import re
+    import zipfile
+    cell = re.compile(r'<c r="([A-Z]+[0-9]+)"(?: t="(\w+)")?>'
+                      r'(?:<v>(.*?)</v>|<is><t>(.*?)</t></is>)</c>')
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            if name.startswith('xl/worksheets/'):
+                text = zf.read(name).decode()
+                out[name] = {m.group(1): (m.group(2), m.group(3)
+                                          if m.group(3) is not None
+                                          else m.group(4))
+                             for m in cell.finditer(text)}
+            elif name == 'xl/workbook.xml':
+                out[name] = zf.read(name)
+    return out
+
+
+def xlsx_match(got_path, want_path):
+    """The two workbooks' sheets cell for cell (numbers within 1e-9) outside
+    the DIRECTION_COLUMNS; returns (identical cells, cells, differing
+    cells in the direction columns)."""
+    import re
+    got, want = xlsx_cells(got_path), xlsx_cells(want_path)
+    if sorted(got) != sorted(want) or \
+            got['xl/workbook.xml'] != want['xl/workbook.xml']:
+        raise SystemExit('collated xlsx: the sheets differ')
+    same = total = loose = 0
+    for part in want:
+        if part == 'xl/workbook.xml':
+            continue
+        if sorted(got[part]) != sorted(want[part]):
+            raise SystemExit('collated xlsx: the cells of {} differ'.format(
+                part))
+        direction = {ref[:-1] for ref, (_, text) in want[part].items()
+                     if re.fullmatch('[A-Z]+1', ref)
+                     and text in DIRECTION_COLUMNS}
+        for ref, (kind, text) in want[part].items():
+            gkind, gtext = got[part][ref]
+            total += 1
+            if (gkind, gtext) == (kind, text):
+                same += 1
+            elif kind is None and gkind is None and _cells_close(
+                    np.float64(gtext), np.float64(text)):
+                pass
+            elif re.sub('[0-9]', '', ref) in direction:
+                loose += 1
+            else:
+                raise SystemExit('collated xlsx: cell {} of {} differs: {} '
+                                 'against {}'.format(ref, part, gtext, text))
+    return same, total, loose
+
+
+def phase_program(settings):
+    """Phase a: the whole program, ``python -m ysmr_tpu_torch <bench clip>
+    --serial`` on cuda (stage 1, selection, evaluation, collation), its
+    list held to the reference list, its stage outputs to ``analyse()`` on
+    the reference list through the CSV restart path."""
+    ini = program_ini(os.path.join(WORK, 'program.ini'), PROGRAM_SETTINGS)
+    clip = os.path.join(WORK, 'bench_clip.avi')
+    records, folder, wall = run_program('program', [clip, '--serial'], ini)
+    end = [r for r in records if 'rc' in r][-1]
+    stages = {}
+    for r in records:
+        if 'stage' in r:
+            stages[r['stage']] = stages.get(r['stage'], 0.0) + r['s']
+    plots = sorted({r['plot'] for r in records if 'plot' in r})
+    launches = end['launches']
+    log('program: python -m ysmr_tpu_torch bench_clip.avi --serial on cuda '
+        'exited {}; wall {:.2f} s (the process, imports included), cli() '
+        '{:.2f} s; stage wall s: {}; kernel launches {}; plot stub used by '
+        '{} calls ({})'.format(end['rc'], wall, end['cli_s'],
+                               json.dumps({k: round(v, 4)
+                                           for k, v in stages.items()}),
+                               json.dumps(launches),
+                               sum('plot' in r for r in records),
+                               ', '.join(plots)))
+    if launches['propagate_min_fused'] <= 0:
+        raise SystemExit('program: the run-CC kernel was never launched')
+    if 'violin_plot' not in plots:
+        raise SystemExit('program: the plot stub was not used')
+    ours = pd.read_csv(os.path.join(folder, 'bench_clip_list.csv'))
+    hold_to_reference('program _list.csv', ours, 'bench_clip_list.csv.gz')
+    import gzip
+    with gzip.open(os.path.join(REPO, 'bench_data',
+                                'bench_clip_list.csv.gz')) as f:
+        ref_bytes = f.read()
+    with open(os.path.join(folder, 'bench_clip_list.csv'), 'rb') as f:
+        list_same = f.read() == ref_bytes
+    # the CSV restart path on the reference list, in this process, under
+    # the same ini; it runs no device work
+    restart_in = os.path.join(WORK, 'restart_in')
+    restart = os.path.join(WORK, 'restart')
+    os.makedirs(restart_in)
+    os.makedirs(restart)
+    ref_csv = os.path.join(restart_in, 'bench_clip.csv')
+    with open(ref_csv, 'wb') as f:
+        f.write(ref_bytes)
+    from ysmr_tpu_torch.main import analyse
+    from ysmr_tpu_torch.utils.csv_io import collate_results_csv_to_xlsx
+    rsettings = get_configs(ini)
+    t0 = time.perf_counter()
+    with PlotStub() as stub:
+        ok = analyse(ref_csv, settings=rsettings, result_folder=restart,
+                     device='cuda', fps=float(FPS), frame_height=H,
+                     frame_width=W)
+    restart_s = time.perf_counter() - t0
+    if ok is not True:
+        raise SystemExit('program: analyse() on the reference list failed')
+    want_xlsx = collate_results_csv_to_xlsx(path=restart, save_path=restart)
+    same = []
+    for suffix in STAGE_SUFFIXES:
+        same.append((suffix,) + csv_cells_match(
+            'program ' + suffix,
+            os.path.join(folder, 'bench_clip' + suffix),
+            os.path.join(restart, 'bench_clip' + suffix)))
+    (got_xlsx,) = [os.path.join(folder, n) for n in os.listdir(folder)
+                   if n.endswith('_collated_statistics.xlsx')]
+    cells = xlsx_match(got_xlsx, want_xlsx)
+    log('program _list.csv: {} rows, row-identical to '
+        'bench_data/bench_clip_list.csv.gz, byte-identical {}'.format(
+            ours.shape[0], list_same))
+    log('program stage outputs against analyse() on the reference list '
+        '(CSV restart, {:.2f} s, {} stub plot calls): {}; collated xlsx {} '
+        'of {} cells identical, the rest within 1e-9 but {} in {}'.format(
+            restart_s, len(stub.calls), '; '.join(
+                '{} byte-identical {}, rows identical {} of {}, held cells '
+                'within {:.3e}, differing direction cells {}'.format(
+                    r[0], r[1], r[2], r[3], r[4], json.dumps(r[5]))
+                for r in same), *cells, DIRECTION_COLUMNS[0]))
+    return launches
+
+
+def fake_gui(keys):
+    """cv2's window calls replaced; returns (restore, drawn window names).
+    ``keys(n)`` is the key for the n-th drawn frame."""
+    saved = {n: getattr(cv2, n) for n in ('imshow', 'waitKey', 'namedWindow',
+                                          'destroyAllWindows')}
+    env = {k: os.environ.get(k) for k in ('DISPLAY', 'WAYLAND_DISPLAY')}
+    shown = []
+    os.environ['DISPLAY'] = ':0'
+    cv2.imshow = lambda name, img: shown.append(name)
+    cv2.waitKey = lambda ms: keys(sum('unfiltered' in n for n in shown))
+    cv2.namedWindow = lambda *a, **k: None
+    cv2.destroyAllWindows = lambda: None
+
+    def restore():
+        for n, f in saved.items():
+            setattr(cv2, n, f)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return restore, shown
+
+
+def phase_display(settings):
+    """Phase b: the live display on the card with a fake GUI on the bench
+    clip: every frame drawn, the rows those of the device-rect path
+    without the display, and 'q' after the second batch returns None."""
+    clip = os.path.join(WORK, 'bench_clip.avi')
+    plain = os.path.join(WORK, 'display_plain')
+    os.makedirs(plain)
+    t0 = time.perf_counter()
+    res = track_bacteria(clip, settings={**settings, 'cv2 exact rects': False},
+                         result_folder=plain)
+    plain_fps = N_FRAMES / (time.perf_counter() - t0)
+    if res is None:
+        raise SystemExit('display: the device-rect run returned None')
+    with open(res[4], 'rb') as f:
+        plain_bytes = f.read()
+    disp = {**settings, 'display video analysis': True}
+    for name in ('display', 'display_q'):
+        os.makedirs(os.path.join(WORK, name))
+    restore, shown = fake_gui(lambda n: 255)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = track_bacteria(clip, settings=dict(disp),
+                             result_folder=os.path.join(WORK, 'display'))
+        torch.cuda.synchronize()
+        fps = N_FRAMES / (time.perf_counter() - t0)
+        launches = {k.__name__: k.launches for k in KERNELS}
+        drawn = sum('unfiltered possible detections' in n for n in shown)
+    finally:
+        restore()
+    if res is None:
+        raise SystemExit('display: track_bacteria returned None')
+    with open(res[4], 'rb') as f:
+        got = f.read()
+    # 'q' on the first frame of the third batch of 16
+    restore, shown = fake_gui(lambda n: ord('q') if n > 32 else 255)
+    try:
+        res_q = track_bacteria(clip, settings=dict(disp),
+                               result_folder=os.path.join(WORK, 'display_q'))
+        drawn_q = sum('unfiltered possible detections' in n for n in shown)
+    finally:
+        restore()
+    log('display (fake GUI) on cuda, bench clip: {} of {} frames drawn, {} '
+        'rows, _list.csv byte-identical to the device-rect path without the '
+        'display (batch 16 against 64): {}; {:.2f} fps with the display, '
+        '{:.2f} without; kernel launches {}; q after the second batch: '
+        'returned {}, {} frames drawn'.format(
+            drawn, N_FRAMES, got.count(b'\n') - 1, got == plain_bytes, fps,
+            plain_fps, json.dumps(launches), res_q, drawn_q))
+    if drawn != N_FRAMES:
+        raise SystemExit('display: {} of {} frames drawn'.format(drawn,
+                                                                 N_FRAMES))
+    if got != plain_bytes:
+        raise SystemExit('display: the batch size changed the rows')
+    if res_q is not None or drawn_q != 33:
+        raise SystemExit('display: q did not stop the run')
+    if min(launches.values()) <= 0:
+        raise SystemExit('display: a kernel of the path was never launched: '
+                         '{}'.format(launches))
+
+
+def phase_compact(dframes, dsettings):
+    """Phase c: the compact emissions readback on the dense scene in memory
+    (stage split; the bucket's growth and its padded batches) and on the
+    dense clip through track_bacteria(path), against the padded readback
+    of phase 7: byte-identical lists."""
+    out = {}
+    for compact in (False, True):
+        _, got, stats = run_loop(
+            dframes, {**dsettings, 'compact emissions readback': compact},
+            'cuda', 'dense_compact_{}'.format(compact))
+        out[compact] = (got, stats)
+        log('dense scene in memory, {} readback (cuda): fps {:.2f}; bucket '
+            'growth (first frame, old, new) {}; batches read padded {}; '
+            'stage split (ms/frame): {}'.format(
+                stats['readback'], stats['fps'], stats['bucket_growth'],
+                stats['fallback_batches'], per_frame(stats)))
+    if out[True][0] != out[False][0]:
+        raise SystemExit('compact readback: _list.csv differs from padded')
+    growth = out[True][1]['bucket_growth']
+    if not growth or growth[0][1:] != (1024, 4096):
+        raise SystemExit('compact readback: the bucket did not grow from '
+                         '1024 to 4096: {}'.format(growth))
+    folder = os.path.join(WORK, 'dense_clip_compact')
+    os.makedirs(folder)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = track_bacteria(os.path.join(WORK, 'dense_clip.avi'),
+                         settings={**dsettings,
+                                   'compact emissions readback': True},
+                         result_folder=folder)
+    torch.cuda.synchronize()
+    fps = DENSE_FRAMES / (time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    if res is None:
+        raise SystemExit('compact readback: track_bacteria(path) returned '
+                         'None')
+    with open(res[4], 'rb') as f, open(os.path.join(
+            WORK, 'dense_clip', 'dense_clip_list.csv'), 'rb') as g:
+        same = f.read() == g.read()
+    log('dense clip via track_bacteria(path) with the compact readback '
+        '(cuda): _list.csv byte-identical to the padded readback of phase 7: '
+        '{}; {:.2f} fps end to end; kernel launches {}'.format(
+            same, fps, json.dumps(launches)))
+    if not same:
+        raise SystemExit('compact readback: the dense clip list differs')
+    if min(launches.values()) <= 0:
+        raise SystemExit('compact readback: a kernel was never launched')
+
+
+def phase_det_px(scene, settings, dev):
+    """Phase d: the run-CC branch's per-pixel detection index
+    (``det_px_from_runs``) on cuda against cpu on the first bench batch."""
+    packed, counts = packed_batch(scene, settings)
+    runs, rc = encode(packed, counts, W, None)
+    double = pp.resolve_detection_rule(settings)[0] == 'adaptive_double'
+    kw = dict(h=H, w=W, double_threshold=double,
+              max_det=settings['max detections per frame'],
+              max_bh=settings['max bounding box height'], cc_iters=MAX_ITERS,
+              use_run_cc=True, return_det_px=True, skip_rect=True,
+              det_px_as_runs=False, expanded_f=packed.shape[1])
+    out = {}
+    for device in ('cuda', 'cpu'):
+        args = (None, None, None, None,
+                torch.ones(len(counts), dtype=torch.bool, device=device))
+        wire = dict(px_runs=torch.from_numpy(runs.view(np.int32)).to(device),
+                    run_counts=torch.from_numpy(rc).to(device))
+        propagate_min_fused.launches = 0
+        got = detect_from_pixels(*args, **wire, **kw)
+        launches = propagate_min_fused.launches
+        ms = cuda_ms(lambda: detect_from_pixels(*args, **wire, **kw), 5) \
+            if device == 'cuda' else None
+        out[device] = ({k: got[k].cpu() for k in
+                        ('det_px_idx', 'n_components', 'det_valid')},
+                       launches, ms)
+    same = all(torch.equal(out['cuda'][0][k], out['cpu'][0][k])
+               for k in out['cpu'][0])
+    det = out['cuda'][0]['det_px_idx']
+    log('det_px_from_runs, first bench batch (64 x {}): cuda equals cpu {}; '
+        '{} labelled pixels; run-CC kernel launches {}; detect with the '
+        'per-pixel index {:.4f} ms on cuda'.format(
+            packed.shape[1], same, int((det >= 0).sum()), out['cuda'][1],
+            out['cuda'][2]))
+    if not same:
+        raise SystemExit('det_px_from_runs: cuda differs from cpu')
+    if out['cuda'][1] <= 0:
+        raise SystemExit('det_px_from_runs: the run-CC kernel never ran')
+
+
+def phase_pool(settings):
+    """Phase e: ysmr() with its spawn pool on the card (the program
+    without --serial) on two short clips, against the serial run."""
+    clips = [make_clip(os.path.join(WORK, 'pool_{}.avi'.format(i)), 64,
+                       BenchScene(seed=SEED + 10 + i)) for i in range(2)]
+    ini = program_ini(os.path.join(WORK, 'pool.ini'), {
+        **PROGRAM_SETTINGS, 'minimal frame count': 32,
+        'minimal length in seconds': 1.0,
+        'limit track length to x seconds': 1.5,
+        'collate results csv to xlsx': False})
+    _, pool, pool_s = run_program('pool', clips, ini)
+    _, serial, serial_s = run_program('pool_serial', clips + ['--serial'],
+                                      ini)
+    same = []
+    for clip in clips:
+        stem = os.path.splitext(os.path.basename(clip))[0]
+        for suffix in ('_list.csv',) + STAGE_SUFFIXES:
+            with open(os.path.join(pool, stem + suffix), 'rb') as f, \
+                    open(os.path.join(serial, stem + suffix), 'rb') as g:
+                same.append(f.read() == g.read())
+    log('pool: python -m ysmr_tpu_torch on two 64-frame clips with spawn '
+        'workers on cuda ({:.2f} s) against --serial ({:.2f} s): {} of {} '
+        'CSVs byte-identical'.format(pool_s, serial_s, sum(same), len(same)))
+    if not all(same):
+        raise SystemExit('pool: the workers wrote other rows')
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1859,6 +2418,11 @@ def main():
         phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev)
         phase_lum_frames(frames, settings)
         phase_dense_exact(dframes, dsettings)
+        phase_program(settings)
+        phase_display(settings)
+        phase_compact(dframes, dsettings)
+        phase_det_px(scene, settings, dev)
+        phase_pool(settings)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(

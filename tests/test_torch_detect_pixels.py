@@ -168,6 +168,43 @@ def test_pixel_table_branch_matches_jax(wire, skip_rect):
             assert (got['det_xy'][..., 2][got['det_valid']] > 0).all()
 
 
+@pytest.mark.parametrize('double_threshold,max_det,skip_rect,narrow', [
+    (True, 64, True, False), (False, 64, True, False),
+    (True, 8, True, False), (True, 64, True, True),
+    (True, 64, False, False)])
+def test_det_px_from_runs_matches_jax(double_threshold, max_det, skip_rect,
+                                      narrow):
+    """The run-CC branch with ``det_px_as_runs=False``: the per-pixel
+    detection index expanded on the device (``run_cc.det_px_from_runs``)
+    equals JAX's, with host rects and beside the device rects, on random
+    wires (an invalid last frame; with max_det 8 components past the
+    slots; ``narrow``: a table narrower than some frames' pixels)."""
+    rng = np.random.default_rng(9)
+    h, w, t = 120, 160, 6
+    packed, counts = _random_wire(rng, t, 2048, h, w)
+    runs, rcnt = _runs(packed, counts, w)
+    fv = np.ones(t, bool)
+    fv[-1] = False
+    for f in ((int(np.median(counts)),) if narrow else (2048,)):
+        kw = dict(KW, det_px_as_runs=False, skip_rect=skip_rect,
+                  cv2_centers=not skip_rect, expanded_f=f, h=h, w=w,
+                  double_threshold=double_threshold, max_det=max_det)
+        ref = jdetect(None, None, rcnt, None, fv, px_runs=runs,
+                      run_counts=rcnt, use_pallas=False, **kw)
+        got = detect_from_pixels(
+            None, None, None, None, torch.from_numpy(fv),
+            px_runs=torch.from_numpy(runs.view(np.int32)),
+            run_counts=torch.from_numpy(rcnt), **kw)
+        assert set(got) == set(ref) | {'cc_steps'}
+        assert got['det_px_idx'].dtype == torch.int16
+        assert got['det_px_idx'].shape == (t, f)
+        for key in ref:
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          np.asarray(ref[key]), err_msg=key)
+        det = got['det_px_idx'].numpy()
+        assert (det[:-1] >= 0).sum() > 100 and (det[-1] == -1).all()
+
+
 @pytest.mark.parametrize('kwargs', [
     {}, {'use_run_cc': False}, {'include_luminosity': True},
     {'skip_rect': False}])
@@ -250,3 +287,30 @@ def test_pixel_table_on_cuda_equals_cpu():
                 np.testing.assert_array_equal(gpu[key].cpu().numpy(),
                                               cpu[key].numpy(),
                                               err_msg=(wire, skip, key))
+
+
+@pytest.mark.cuda
+def test_det_px_from_runs_on_cuda_equals_cpu():
+    """``det_px_from_runs`` on the card (the run-CC kernel, then its
+    scatter and cumulative max) gives the CPU path's per-pixel index."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    rng = np.random.default_rng(9)
+    h, w, t, f = 120, 160, 6, 2048
+    packed, counts = _random_wire(rng, t, f, h, w)
+    runs, rcnt = _runs(packed, counts, w)
+    fv = np.ones(t, bool)
+    fv[-1] = False
+    kw = dict(KW, det_px_as_runs=False, expanded_f=f, h=h, w=w,
+              double_threshold=True, max_det=8)
+    cpu = detect_from_pixels(
+        None, None, None, None, torch.from_numpy(fv),
+        px_runs=torch.from_numpy(runs.view(np.int32)),
+        run_counts=torch.from_numpy(rcnt), **kw)
+    gpu = detect_from_pixels(
+        None, None, None, None, torch.from_numpy(fv).cuda(),
+        px_runs=torch.from_numpy(runs.view(np.int32)).cuda(),
+        run_counts=torch.from_numpy(rcnt).cuda(), **kw)
+    for key in ('det_px_idx', 'det_valid', 'n_components'):
+        np.testing.assert_array_equal(gpu[key].cpu().numpy(),
+                                      cpu[key].numpy(), err_msg=key)

@@ -171,8 +171,9 @@ def test_pixel_table_wires_equal_run_cc(tmp_path, clip):
 
 def test_slice_gate_and_unported_settings(tmp_path):
     """The capacity gate picks the path; luminosity (both transfer modes),
-    the pixel wire and 'run cc = off' are ported; settings outside the
-    slice raise and name their ROADMAP item."""
+    the pixel wire, 'run cc = off', the live display and the compact
+    emissions readback are ported; settings outside the port raise and
+    say why ('use table cc' is on the do-not-port list)."""
     from ysmr_tpu_torch.pipeline.track_bacteria import (check_slice_settings,
                                                         use_host_rects)
     settings = _make_settings(tmp_path)
@@ -186,14 +187,18 @@ def test_slice_gate_and_unported_settings(tmp_path):
     check_slice_settings({**settings, **FRAMES})
     assert not use_host_rects({**settings, **FRAMES})
     for extra in (LUM, {**FRAMES, **LUM}, {'wire format': 'pixels'},
-                  {'run cc': 'off'}):
+                  {'run cc': 'off'}, {'compact emissions readback': True},
+                  {'display video analysis': True}):
         check_slice_settings({**settings, **extra})
     assert use_host_rects({**settings, **LUM})
-    for extra in ({'compact emissions readback': True},
-                  {'use table cc': True},
-                  {'display video analysis': True}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            check_slice_settings({**settings, **extra})
+    # an open display shuts the host-rect gate
+    assert not use_host_rects(settings, has_display=True)
+    # the sharded assignment engages only with several devices, so it
+    # passes on this host; 'use table cc' raises everywhere
+    check_slice_settings({**settings,
+                          'shard dense assignment across devices': True})
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        check_slice_settings({**settings, 'use table cc': True})
 
 
 def test_track_loop_with_in_memory_reader(tmp_path):

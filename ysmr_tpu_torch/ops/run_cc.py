@@ -23,6 +23,10 @@ Differences from the JAX module, all of representation:
 - Each propagation also returns its per-frame step count, so callers can
   assert convergence (the result depends on the schedule until the fixpoint
   is reached; converged <=> steps < max_iters).
+- ``det_px_from_runs``'s scatter of the run starts goes to one dump slot
+  past the table instead of JAX's dropped out-of-bounds indices.
+
+Not ported: ``keep_marked_runs``, which no pipeline calls.
 """
 
 import torch
@@ -301,3 +305,39 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
                    s_len=torch.gather(c_len_v, 1, order),
                    s_comp=torch.gather(comp_c, 1, order))
     return out
+
+
+def det_px_from_runs(px_runs, run_counts, comp_rev_run, *, f, max_det):
+    """Wire-order per-pixel detection index from per-run component ids.
+
+    Feeds the host-side cv2-exact rect measurement with the pixel-table
+    path's ``det_px_idx`` contract: -1 = background, dropped or
+    ``>= max_det``. Each run's index is scattered at its first pixel's
+    slot and carried over the run by a cumulative max.
+
+    :param px_runs: (T, R) int32 view of the run wire
+    :param run_counts: (T,) valid runs per frame
+    :param comp_rev_run: (T, R) int32 detection index per run (-1 none)
+    :param f: pixel-table width
+    :return: (T, f) int32
+    """
+    t, r = px_runs.shape
+    dev = px_runs.device
+    lens = (px_runs.to(_I32) >> 27) & 0x1F
+    iota_r = torch.arange(r, dtype=_I32, device=dev)[None, :]
+    lens = torch.where(iota_r < run_counts.to(_I32)[:, None], lens,
+                       torch.zeros_like(lens))
+    ends = torch.cumsum(lens, dim=1, dtype=_I32)
+    offs = ends - lens
+    t_off = torch.arange(t, dtype=torch.int64, device=dev)[:, None] * f
+    # empty runs and runs past the table go to the dump slot t * f
+    flat_idx = torch.where((lens > 0) & (offs < f), offs + t_off,
+                           torch.full_like(t_off, t * f)).reshape(-1)
+    rid = torch.zeros(t * f + 1, dtype=torch.int64, device=dev)
+    rid[flat_idx] = iota_r.expand(t, r).reshape(-1).to(torch.int64)
+    rid = torch.cummax(rid[:t * f].view(t, f), dim=1).values
+    g = torch.gather(comp_rev_run.to(_I32), 1, rid)
+    active = torch.arange(f, dtype=_I32, device=dev)[None, :] < \
+        ends[:, -1:]
+    return torch.where(active & (g >= 0) & (g < max_det), g,
+                       torch.full_like(g, -1))

@@ -5,9 +5,10 @@ Counterpart of ``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels``:
 
 - the run-CC branch (``use_run_cc`` on the run wire, no luminosity): the
   device labels components directly on the (T, R) run tables, then with
-  ``skip_rect`` and ``det_px_as_runs`` returns one detection index per run
-  (the host measures the cv2-exact rects from the wire pixels it holds),
-  and without ``skip_rect`` measures on the device (``_stats_outputs_runs``:
+  ``return_det_px`` returns one detection index per run
+  (``det_px_as_runs``; the host measures the cv2-exact rects from the wire
+  pixels it holds) or per wire pixel (``run_cc.det_px_from_runs``), and
+  without ``skip_rect`` measures on the device (``_stats_outputs_runs``:
   row-extreme tables, hull edges, the exact minimum-area rect and, with
   ``cv2_centers``, cv2's bit-exact f32 centers);
 - the pixel-table branch (``run cc = off``, ``wire format = pixels``, and
@@ -83,7 +84,8 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
         return _detect_run_cc(px_runs, run_counts, frame_valid, h=h, w=w,
                               double_threshold=double_threshold,
                               max_det=max_det, max_bh=max_bh,
-                              cc_iters=cc_iters, return_det_px=return_det_px,
+                              cc_iters=cc_iters, expanded_f=expanded_f,
+                              return_det_px=return_det_px,
                               skip_rect=skip_rect,
                               det_px_as_runs=det_px_as_runs,
                               cv2_centers=cv2_centers)
@@ -211,14 +213,9 @@ def _compact_ids(lab_fg, keep, lin):
 
 
 def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
-                   double_threshold, max_det, max_bh, cc_iters,
+                   double_threshold, max_det, max_bh, cc_iters, expanded_f,
                    return_det_px, skip_rect, det_px_as_runs, cv2_centers):
     """The run-CC branch: labels on the run tables (``ops/run_cc.py``)."""
-    if skip_rect and not (return_det_px and det_px_as_runs):
-        raise NotImplementedError(
-            'detect_from_pixels: on the run-CC branch only the per-run '
-            'detection index is ported (det_px_from_runs is not; ROADMAP '
-            'Queue 1 item 2)')
     rc_eff = torch.where(frame_valid, run_counts.to(_I32),
                          torch.zeros_like(run_counts, dtype=_I32))
     cc_out = rcc.run_cc_components(px_runs, rc_eff, w=w,
@@ -226,6 +223,24 @@ def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
                                    max_iters=cc_iters,
                                    sorted_runs=not skip_rect)
     n_components = cc_out['n_components']
+    det_px = det_run = None
+    if return_det_px:
+        run_comp = cc_out['run_comp']
+        comp_rev = torch.where(run_comp >= 0,
+                               n_components[:, None] - 1 - run_comp,
+                               torch.full_like(run_comp, -1))
+        if det_px_as_runs:
+            # a run is horizontally contiguous foreground, so every pixel
+            # of a run belongs to one component and the per-run index
+            # carries the whole per-pixel assignment (the host expands it
+            # against the run table it encoded)
+            det_run = torch.where(comp_rev < max_det, comp_rev,
+                                  torch.full_like(comp_rev, -1)).to(
+                                      torch.int16)
+        else:
+            det_px = rcc.det_px_from_runs(px_runs, rc_eff, comp_rev,
+                                          f=expanded_f,
+                                          max_det=max_det).to(torch.int16)
     if not skip_rect:
         # cv2 enumerates contours in reverse raster order: reverse the ids
         comp_rev_s = torch.where(cc_out['s_comp'] >= 0,
@@ -235,21 +250,23 @@ def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
                                   comp_rev_s, n_components, h=h, w=w,
                                   max_det=max_det, max_bh=max_bh,
                                   cv2_centers=cv2_centers)
-        out['cc_steps'] = cc_out['cc_steps']
-        return out
-    run_comp = cc_out['run_comp']
-    # a run is horizontally contiguous foreground, so every pixel of a run
-    # belongs to one component and the per-run index carries the whole
-    # per-pixel assignment (the host expands it against the run table it
-    # encoded)
-    comp_rev = n_components[:, None] - 1 - run_comp
-    det_run = torch.where((run_comp >= 0) & (comp_rev < max_det), comp_rev,
-                          torch.full_like(comp_rev, -1)).to(torch.int16)
-    det_valid = torch.arange(max_det, dtype=_I32,
-                             device=px_runs.device)[None, :] < \
-        torch.clamp(n_components, max=max_det)[:, None]
-    return {'det_run_idx': det_run, 'det_valid': det_valid,
-            'n_components': n_components, 'cc_steps': cc_out['cc_steps']}
+    else:
+        t = px_runs.shape[0]
+        dev = px_runs.device
+        out = {'det_xy': torch.zeros((t, max_det, 2), dtype=torch.float32,
+                                     device=dev),
+               'det_info': torch.zeros((t, max_det, 3), dtype=torch.float32,
+                                       device=dev),
+               'det_valid': torch.arange(max_det, dtype=_I32,
+                                         device=dev)[None, :] <
+               torch.clamp(n_components, max=max_det)[:, None],
+               'n_components': n_components}
+        if det_run is not None:
+            out['det_run_idx'] = det_run
+    if det_px is not None:
+        out['det_px_idx'] = det_px
+    out['cc_steps'] = cc_out['cc_steps']
+    return out
 
 
 _CV2_TABLE_KEYS = ('row_min_x', 'row_max_x', 'row_valid', 'min_y',

@@ -41,9 +41,18 @@ rects feed the device tracker. The device-tracker path (denser scenes, or
 row tables, the hull and sweep kernels ``csrc/hull.cu`` and
 ``csrc/sweep.cu``, the exact rect, cv2's f32 centers) and tracks there
 (``pipeline/tracker.py``, double-single GSFF, the kernel
-``csrc/assign.cu``); the padded emissions come back and
+``csrc/assign.cu``); the padded emissions come back (or, with ``compact
+emissions readback``, each frame's live slots packed to the front on the
+device, ``tracker.compact_emissions_device``) and
 ``ReferenceOrderRenumberer`` rewrites their ids into the reference's
 registration order.
+
+``display video analysis`` opens the live preview (``pipeline/display.py``)
+where a GUI is reachable and warns and runs normally where it is not. An
+open preview caps the batch at 16 frames, keeps the decoded frames, takes
+the device-rect path, and draws each batch one batch behind, from the host
+copies of its detection tables and padded emissions; 'q' stops the run as a
+read failure does.
 
 Same contract as the JAX entry point: writes ``_list.csv`` and returns
 ``(df, fps, frame_height, frame_width, csv_path)``, or None on the errors
@@ -71,10 +80,15 @@ from ysmr_tpu_torch.ops.luminosity import rect_mean_luminosity
 from ysmr_tpu_torch.pipeline import tracker as trk
 from ysmr_tpu_torch.pipeline.detect import DetectorConfig, detect_batch
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
+from ysmr_tpu_torch.pipeline.display import LiveDisplay
 from ysmr_tpu_torch.utils.csv_io import (finalize_sorted_list, save_list,
                                          sort_list)
 from ysmr_tpu_torch.utils.files import create_results_folder
 from ysmr_tpu_torch.utils.logging_utils import get_loggers
+
+
+#: the compact readback's first bucket of live slots per frame (as JAX)
+EMISSIONS_BUCKET = 1024
 
 
 def _next_pow2(n):
@@ -109,6 +123,26 @@ def _compact_emissions(emissions, batch_start, frame_offset_valid):
     if pos.shape[-1] > 2:
         out['ILLUMINATION'] = pos[sel][order][:, 2].astype(np.float64)
     return out
+
+
+# Copied from ysmr_tpu/pipeline/track_bacteria.py (_host_rows_from_packed).
+def _host_rows_from_packed(packed, counts, k, batch_start,
+                           frame_offset_valid, renumberer=None):
+    """Rows from the single-buffer device compaction
+    (tracker.compact_emissions_device): the first ``counts[t]`` payload
+    entries of each frame are the live slots in slot order. Layout per
+    payload entry: [id, det_col, pos bits x K, info bits x 3]."""
+    b = packed.shape[1] - 1
+    ids = packed[:, 1:, 0]
+    pos = np.ascontiguousarray(packed[:, 1:, 2:2 + k]).view(np.float32)
+    info = np.ascontiguousarray(packed[:, 1:, 2 + k:5 + k]).view(np.float32)
+    mask = np.arange(b, dtype=np.int32)[None, :] < counts[:, None]
+    if renumberer is not None:
+        ids = renumberer.observe_batch(mask, ids, packed[:, 1:, 1],
+                                       packed[:, 0, 2], frame_offset_valid)
+    return _compact_emissions(
+        {'mask': mask, 'ids': ids, 'pos': pos, 'info': info},
+        batch_start, frame_offset_valid)
 
 
 def resolve_device(device):
@@ -149,10 +183,6 @@ def check_slice_settings(settings):
             '{} is not ported to ysmr_tpu_torch yet (ROADMAP Queue 1 item '
             '{}).'.format(what, item))
 
-    if settings['display video analysis']:
-        unported("'display video analysis'", 13)
-    if bool(settings.get('compact emissions readback', False)):
-        unported("'compact emissions readback = True'", 9)
     if bool(settings.get('shard dense assignment across devices', False)):
         # as in the JAX loop, it engages only with several devices and a
         # slots x detections matrix at or above the threshold
@@ -169,22 +199,27 @@ def check_slice_settings(settings):
             'loses end to end on both backends).')
 
 
-def use_host_rects(settings):
-    """The JAX loop's gate (``track_bacteria.py:398-406``): in pixels mode,
-    host rects and the float64 host tracker up to ``cv2 exact rects max
-    detections`` detections per frame, unless ``cv2 exact rects`` is off;
-    the device rects and tracker above it and in frames mode."""
+def use_host_rects(settings, has_display=False):
+    """The JAX loop's gate (``track_bacteria.py:398-406``): in pixels mode
+    without an open live display, host rects and the float64 host tracker
+    up to ``cv2 exact rects max detections`` detections per frame, unless
+    ``cv2 exact rects`` is off; the device rects and tracker above it, in
+    frames mode and under the display (which draws the device tables)."""
     cap = int(settings.get('cv2 exact rects max detections', 1024) or 0)
     return resolve_transfer_mode(settings) == 'pixels' and \
+        not has_display and \
         settings['max detections per frame'] <= cap and \
         bool(settings.get('cv2 exact rects', True))
 
 
-def resolve_batch_size(settings, device):
-    """Frames per device batch: on a GPU small batches round up to 64 (the
-    run tables are tiny; a larger batch amortises launches), as the JAX
-    package does on an accelerator."""
+def resolve_batch_size(settings, device, has_display=False):
+    """Frames per device batch: at most 16 under an open live display (it
+    bounds the preview's latency); else on a GPU small batches round up to
+    64 (the run tables are tiny; a larger batch amortises launches), as the
+    JAX package does on an accelerator."""
     batch_size = settings['frame batch size']
+    if has_display:
+        return min(batch_size, 16)
     if device.type == 'cuda' and batch_size < 64:
         return 64
     return batch_size
@@ -222,6 +257,11 @@ def track_bacteria(video_path, settings=None, result_folder=None,
     frame_height, frame_width = probe_reader.height, probe_reader.width
     file_fps = probe_reader.fps
     probe_reader._cap.release()
+    display = None
+    if settings['display video analysis']:
+        display = LiveDisplay(video_path, settings, frame_height, frame_width)
+        if not display.enabled:
+            display = None  # headless: warned already, run normally
     if frame_count < settings['minimal frame count']:
         logger.warning('File %s too short; file was skipped. Limit for '
                        "'minimal frame count': %s", video_path,
@@ -254,6 +294,8 @@ def track_bacteria(video_path, settings=None, result_folder=None,
     preprocess = None if resolve_transfer_mode(settings) == 'frames' else \
         HostPreprocessor(settings, fps_of_file,
                          max_fg=settings['max foreground pixels per frame'])
+    if preprocess is not None and display is not None:
+        preprocess.keep_frames = True  # the preview draws on the frames
     # striped decode pays off only with spare cores; 'host decode threads'
     # = 0 opts into inline (threadless) decode
     raw_threads = int(settings.get('host decode threads', 1) or 0)
@@ -261,7 +303,8 @@ def track_bacteria(video_path, settings=None, result_folder=None,
     decode_threads = max(1, min(raw_threads, cpu_n)) if raw_threads > 0 else 1
     try:
         reader = BatchedVideoReader(
-            video_path, batch_size=resolve_batch_size(settings, device),
+            video_path, batch_size=resolve_batch_size(settings, device,
+                                                      display is not None),
             prefetch=settings['prefetch batches'],
             color_filter=settings['color filter'],
             preprocess=preprocess,
@@ -273,11 +316,11 @@ def track_bacteria(video_path, settings=None, result_folder=None,
         return None
     return _track_loop(reader, settings, fps_of_file, list_name,
                        device=device, old_list=old_list,
-                       video_path=video_path)
+                       video_path=video_path, display=display)
 
 
 def _track_loop(reader, settings, fps_of_file, list_name, *, device,
-                old_list=False, video_path=None, stats=None):
+                old_list=False, video_path=None, stats=None, display=None):
     """Stage 1 from an opened reader to the sorted ``_list.csv``.
 
     ``reader`` yields ``{'frames': payload, 'start': int, 'count': int}``
@@ -287,7 +330,9 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     array of BGR frames in frames mode (``preprocess`` None). ``list_name``
     must already hold the CSV header (``save_list(first_call=True)``).
     When ``stats`` is a dict it receives
-    the run's counts and host-clock stage times (seconds).
+    the run's counts and host-clock stage times (seconds). ``display`` is
+    an enabled ``LiveDisplay`` or None; the reader's batches then carry
+    the decoded frames (``display_frames``, pixels mode).
 
     :return: (df, fps, frame_height, frame_width, csv_path) or None
     """
@@ -309,7 +354,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                         n_max=settings['maximum horizon size'],
                         n_f=settings['number of LSFFs']) if use_gsff else None
     frames_mode = resolve_transfer_mode(settings) == 'frames'
-    host_rects = use_host_rects(settings)
+    host_rects = use_host_rects(settings, display is not None)
     include_lum = bool(settings['include luminosity in tracking calculation'])
     lum_win = settings.get('luminosity window size', 48)
     dims = 3 if include_lum else 2
@@ -361,6 +406,15 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     trk_d = min(max_det, 128)
     overflow_warned = False
     capped_frames = 0
+    # compact readback: each frame's live slots packed to the front on the
+    # device, read back in a bucket that grows to the next power of two
+    # past the largest live count; a batch past its bucket reads its
+    # padded emissions instead. The display keeps the padded arrays.
+    compact = display is None and \
+        bool(settings.get('compact emissions readback', False))
+    em_bucket = min(EMISSIONS_BUCKET, max_slots)
+    bucket_growth = []      # (first frame of the batch, old, new bucket)
+    fallback_batches = []   # first frames of the batches read padded
 
     def encode_wire_runs(packed_np, counts_np):
         """Run-length wire of one batch: (T, bucket) uint32 copy + counts."""
@@ -421,12 +475,18 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         ev.record()
         return ev
 
-    def to_host(fused, staged):
-        """One pinned non-blocking copy of the batch's fused buffer and the
-        event that marks its arrival."""
-        host = torch.empty(fused.shape, dtype=fused.dtype, pin_memory=on_cuda)
-        host.copy_(fused, non_blocking=on_cuda)
-        staged['host'] = host
+    def pinned_copy(t):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=on_cuda)
+        host.copy_(t, non_blocking=on_cuda)
+        return host
+
+    def to_host(fused, staged, extra=None):
+        """One pinned non-blocking copy of the batch's fused buffer (and of
+        the tensors of ``extra``, a dict) and the event that marks their
+        arrival."""
+        staged['host'] = pinned_copy(fused)
+        if extra:
+            staged['extra'] = {k: pinned_copy(v) for k, v in extra.items()}
         if on_cuda:
             staged['done'] = event()
         return staged
@@ -532,7 +592,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                       'cc_steps': torch.zeros(len(fv), dtype=torch.int32,
                                               device=device)}
             out = finish_track(stage_tracker(tables, marks, staged['start'],
-                                             fv))
+                                             fv, None))
             stage_t['tracker'] += time.perf_counter() - t_c
             return out
         t_count = int(fv.sum())
@@ -564,7 +624,8 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                         gray_frames=host['gray'], lum_win=lum_win)
         if on_cuda:
             marks.append(('detect', event()))
-        return stage_tracker(tables, marks, start, frame_valid)
+        return stage_tracker(tables, marks, start, frame_valid,
+                             (data.get('display_frames'), data))
 
     # frames mode: two pinned staging buffers, used in turns, and the
     # event after each one's last upload
@@ -600,57 +661,118 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                               threshold_state=threshold_state)
         if on_cuda:
             marks.append(('detect', event()))
-        return stage_tracker(tables, marks, start, frame_valid)
+        return stage_tracker(tables, marks, start, frame_valid,
+                             (frames_np, None))
 
-    def stage_tracker(tables, marks, start, frame_valid):
+    def stage_tracker(tables, marks, start, frame_valid, shown):
         """Launch the tracker scan over one batch's detection tables and
-        the async readback of its padded emissions in one int32 buffer;
-        returns the staged batch."""
+        the async readback of its emissions in one int32 buffer: padded,
+        or packed by ``compact_emissions_device``. Under the display also
+        the host copies of the detection tables, and ``shown`` (the
+        batch's frames and its host wire) rides along. Returns the staged
+        batch."""
         nonlocal state
         state, em = trk.run_tracker_scan(
             state, tables['det_xy'], tables['det_info'], tables['det_valid'],
             **tracker_kwargs)
         if on_cuda:
             marks.append(('track', event()))
-        # per slot [mask, id, det_col, x, y, w, h, angle] (floats as their
-        # int32 bits), then per frame [n_det, n_components, cc_steps]
         t_len = em['mask'].shape[0]
-        slots = torch.cat(
-            [em['mask'][..., None].to(torch.int32), em['ids'][..., None],
-             em['det_col'][..., None], em['pos'].view(torch.int32),
-             em['info'].view(torch.int32)], dim=2)
         # frames mode reports no step counts (0), as the JAX one: the
         # kernels have no cap, and the plain labeling stops at the cap
         # without a warning, as the JAX CPU path does
         steps = tables.get('cc_steps')
         if steps is None:
             steps = torch.zeros_like(tables['n_components'])
+        staged = {'marks': marks, 'start': start, 'frame_valid': frame_valid,
+                  't': t_len, 'k': em['pos'].shape[2]}
+        if compact:
+            # [T, bucket + 1, 5 + K] (tracker.compact_emissions_device),
+            # then per frame cc_steps; the padded emissions stay on the
+            # device for a batch that overflows the bucket
+            packed = trk.compact_emissions_device(
+                em, tables['n_components'], bucket=em_bucket)
+            fused = torch.cat([packed.reshape(-1), steps.to(torch.int32)])
+            staged.update(bucket=packed.shape[1] - 1, padded=em)
+            return to_host(fused, staged)
+        # per slot [mask, id, det_col, x, y, w, h, angle] (floats as their
+        # int32 bits), then per frame [n_det, n_components, cc_steps]
+        slots = torch.cat(
+            [em['mask'][..., None].to(torch.int32), em['ids'][..., None],
+             em['det_col'][..., None], em['pos'].view(torch.int32),
+             em['info'].view(torch.int32)], dim=2)
         frames = torch.stack([em['n_det'], tables['n_components'], steps],
                              dim=1).to(torch.int32)
         fused = torch.cat([slots.reshape(-1), frames.reshape(-1)])
-        return to_host(fused, {'marks': marks, 'start': start,
-                               'frame_valid': frame_valid, 't': t_len,
-                               'k': em['pos'].shape[2]})
+        extra = None
+        if display is not None and shown is not None:
+            staged['shown'] = shown
+            extra = {k: tables[k] for k in ('det_xy', 'det_info',
+                                            'det_valid')}
+        return to_host(fused, staged, extra)
+
+    def show(staged, mask, ids, pos):
+        """Draw a read-back batch on the live display (device ids, as the
+        JAX loop draws them)."""
+        frames, wire = staged['shown']
+        det_host = {k: v.numpy() for k, v in staged['extra'].items()}
+        if wire is not None:
+            for key in ('px_x', 'px_y', 'px_marker', 'px_packed', 'count'):
+                if key in wire:
+                    det_host[key] = np.asarray(wire[key])
+        fps = frames_processed / max(time.perf_counter() - t_start, 1e-9)
+        display.show_batch(frames, int(staged['frame_valid'].sum()),
+                           det_host, {'mask': mask, 'ids': ids, 'pos': pos},
+                           fps)
 
     def finish_track(staged):
-        """Device-tracker path: wait for a staged batch's emissions and turn
-        them into rows (ids renumbered); returns the rows or None."""
+        """Device-tracker path: wait for a staged batch's emissions, draw it
+        on the display, and turn them into rows (ids renumbered); returns
+        the rows or None."""
+        nonlocal em_bucket
         buf = wait_host(staged)
         t_b = time.perf_counter()
         t_len, k = staged['t'], staged['k']
-        width = 3 + k + 3
-        n_slot = (buf.shape[0] - 3 * t_len) // (t_len * width)
-        slots = buf[:t_len * n_slot * width].reshape(t_len, n_slot, width)
-        frames = buf[t_len * n_slot * width:].reshape(t_len, 3)
         fv = staged['frame_valid']
-        check_counts(frames[:, 1], frames[:, 2], fv)
-        mask = slots[:, :, 0] > 0
-        ids = renumberer.observe_batch(mask, slots[:, :, 1], slots[:, :, 2],
-                                       frames[:, 0], fv)
-        floats = np.ascontiguousarray(slots[:, :, 3:]).view(np.float32)
-        out = _compact_emissions(
-            {'mask': mask, 'ids': ids, 'pos': floats[:, :, :k],
-             'info': floats[:, :, k:]}, staged['start'], fv)
+        bucket = staged.get('bucket')
+        if bucket is not None:
+            packed = buf[:-t_len].reshape(t_len, bucket + 1, 5 + k)
+            counts = packed[:, 0, 0]
+            check_counts(packed[:, 0, 1], buf[-t_len:], fv)
+            cmax = int(counts.max(initial=0))
+            if cmax > em_bucket:
+                new_bucket = min(max_slots, _next_pow2(cmax))
+                bucket_growth.append((staged['start'], em_bucket,
+                                      new_bucket))
+                em_bucket = new_bucket
+            if cmax <= bucket:
+                out = _host_rows_from_packed(packed, counts, k,
+                                             staged['start'], fv,
+                                             renumberer=renumberer)
+                stage_t['emit_rows'] += time.perf_counter() - t_b
+                return out
+            # past the bucket: this batch's padded emissions
+            fallback_batches.append(staged['start'])
+            em = {key: v.cpu().numpy() for key, v in staged['padded'].items()}
+            mask, ids, det_col, n_det = (em[key] for key in
+                                         ('mask', 'ids', 'det_col', 'n_det'))
+            pos, info = em['pos'], em['info']
+        else:
+            width = 3 + k + 3
+            n_slot = (buf.shape[0] - 3 * t_len) // (t_len * width)
+            slots = buf[:t_len * n_slot * width].reshape(t_len, n_slot,
+                                                         width)
+            frames = buf[t_len * n_slot * width:].reshape(t_len, 3)
+            check_counts(frames[:, 1], frames[:, 2], fv)
+            mask = slots[:, :, 0] > 0
+            ids, det_col, n_det = slots[:, :, 1], slots[:, :, 2], frames[:, 0]
+            floats = np.ascontiguousarray(slots[:, :, 3:]).view(np.float32)
+            pos, info = floats[:, :, :k], floats[:, :, k:]
+            if 'shown' in staged and display.enabled:
+                show(staged, mask, ids, pos)
+        ids = renumberer.observe_batch(mask, ids, det_col, n_det, fv)
+        out = _compact_emissions({'mask': mask, 'ids': ids, 'pos': pos,
+                                  'info': info}, staged['start'], fv)
         stage_t['emit_rows'] += time.perf_counter() - t_b
         return out
 
@@ -701,6 +823,13 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         if pending_rows >= flush_every:
             flush()
 
+    def interrupted():
+        """'q' on the live display: the run stops as on a read error."""
+        if display is None or not display.interrupted:
+            return False
+        logger.error('Processing file interrupted by user: %s', video_path)
+        return True
+
     t_start = time.perf_counter()
     in_flight = None  # the staged batch whose host stage is still to run
     try:
@@ -721,14 +850,24 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
             stage_t['dispatch'] += time.perf_counter() - t1
             frames_processed += count
             if in_flight is not None:
-                collect(finish(in_flight))
+                out = finish(in_flight)
+                if interrupted():
+                    error_during_read = True
+                    break
+                collect(out)
             in_flight = staged
     except VideoReadError:
         logger.critical('Error during read with file %s', video_path)
         error_during_read = settings['stop evaluation on error']
     if in_flight is not None and not error_during_read:
-        collect(finish(in_flight))
+        out = finish(in_flight)
+        if interrupted():
+            error_during_read = True
+        else:
+            collect(out)
     flush()
+    if display is not None:
+        display.close()
     preprocess = getattr(reader, 'preprocess', None)
     if preprocess is not None and preprocess.overflowed:
         logger.warning(
@@ -758,6 +897,9 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                       'capped_frames': capped_frames, 'device': str(device),
                       'host_rects': host_rects,
                       'dropped_registrations': dropped,
+                      'readback': 'compact' if compact else 'padded',
+                      'bucket_growth': list(bucket_growth),
+                      'fallback_batches': list(fallback_batches),
                       'stage_s': dict(stage_t)})
     last_object_id = (tracker.next_id if native_tracker
                       else int(state['next_id'])) - 1

@@ -12,8 +12,12 @@ step's shapes are static. The per-row nearest detection goes through
 plain matrix on a CPU one). ``ReferenceOrderRenumberer`` is host numpy,
 copied from the JAX module.
 
-Not ported: ``compact_emissions_device`` (the opt-in single-buffer
-readback) and the sharded assignment (ROADMAP Queue 1).
+``compact_emissions_device`` (the opt-in ``compact emissions readback``)
+is a stable sort and a gather in plain torch ops; the JAX function's
+multi-operand ``lax.sort`` becomes one sort of the live/dead key and one
+gather of the payload, bit-cast into int32 the same way.
+
+Not ported: the sharded assignment (ROADMAP Queue 1 item 12).
 """
 
 import numpy as np
@@ -297,3 +301,40 @@ def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
         frames.append(em)
     emissions = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
     return state, emissions
+
+
+def compact_emissions_device(emissions, n_components, *, bucket):
+    """Each frame's live slots packed into ONE (T, bucket+1, 5+K) int32
+    buffer, bit for bit the JAX function's.
+
+    Layout: head ``[:, 0, 0]`` the frame's live count, ``[:, 0, 1]``
+    n_components, ``[:, 0, 2]`` n_det (for the renumberer), zeros after;
+    payload rows ``[:, 1:, 0]`` ids, ``[:, 1:, 1]`` det_col, ``[:, 1:,
+    2:2+K]`` position bits, ``[:, 1:, 2+K:5+K]`` (w, h, angle) bits. A
+    stable sort of the key (0 live, 1 dead) moves the live slots to the
+    front in slot order; the float payloads are bit-cast into the int32
+    buffer (every float32 bit pattern is a valid int32). Slots beyond
+    ``bucket`` are dropped: the caller compares the counts against
+    ``bucket`` and reads the padded emissions for a batch that overflows.
+
+    :param emissions: the padded emissions of ``run_tracker_scan``
+    :param n_components: (T,) int components per frame
+    """
+    mask = emissions['mask']
+    i32 = torch.int32
+    t = mask.shape[0]
+    k = emissions['pos'].shape[2]
+    key = torch.where(mask, torch.zeros((), dtype=i32, device=mask.device),
+                      torch.ones((), dtype=i32, device=mask.device))
+    order = torch.sort(key, dim=1, stable=True).indices[:, :bucket]
+    payload = torch.cat([emissions['ids'][..., None].to(i32),
+                         emissions['det_col'][..., None].to(i32),
+                         emissions['pos'].contiguous().view(i32),
+                         emissions['info'].contiguous().view(i32)], dim=2)
+    payload = torch.gather(payload, 1,
+                           order[..., None].expand(-1, -1, 5 + k))
+    head = torch.zeros((t, 1, 5 + k), dtype=i32, device=mask.device)
+    head[:, 0, 0] = mask.sum(dim=1, dtype=i32)
+    head[:, 0, 1] = n_components.to(i32)
+    head[:, 0, 2] = emissions['n_det'].to(i32)
+    return torch.cat([head, payload], dim=1)
