@@ -121,7 +121,30 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    on ``cuda`` against ``cpu`` on the first bench batch;
 22. the program's spawn pool on the card (``python -m ysmr_tpu_torch``
    without ``--serial``) on two 64-frame clips against ``--serial``: every
-   CSV byte-identical.
+   CSV byte-identical;
+23. the multi-video path on ``cuda`` (``track_videos_sharded``, frames
+   mode, batch 16) over four full-width MJPG bench clips of uneven length
+   (seeds 123, 126, 127, 128; 192, 160, 128 and 96 frames) and one
+   640x480 clip (a second group): every ``_list.csv`` byte-identical to a
+   solo ``track_bacteria(path)`` on ``cuda`` with the same settings,
+   kernels 2-6 launched (the counts per device step printed), the sharded
+   run's wall time and frames/s beside the solo runs' sum;
+24. the program with ``shard videos across devices`` in its tracking.ini:
+   ``python -m ysmr_tpu_torch <phase 23's four clips> --serial`` and once
+   without ``--serial``: exit 0, every clip's stage outputs, the lists
+   byte-identical to phase 23's, and without ``--serial`` the log says
+   that sharding replaced the pool and one process ran every stage;
+25. the sharded assignment on the card: ``sharded_greedy_assign`` on
+   meshes that list the card 1, 2 and 4 times at 16384 x 4096 (K = 2, 3)
+   bit-equal to the unsharded matcher; ``run_tracker_scan(assign_mesh=
+   ...)`` on the dense scene's first batch equal to the call without; the
+   ``all_gather`` branch in a one-process NCCL group from
+   ``init_distributed``; the dense-assignment gate of ``track_bacteria``
+   shut on one card;
+26. ``run_cc.keep_marked_runs`` through the kernel on the first bench batch
+   bit-equal to its plain version, one step of
+   ``graft_entry.entry('cuda')`` against ``entry('cpu')``, and
+   ``graft_entry.dryrun_multichip(4)`` on ``cuda``.
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (seven kernels, each
@@ -145,16 +168,20 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ysmr_tpu_torch import _build, native
+from ysmr_tpu_torch import _build, graft_entry, native
 from ysmr_tpu_torch.config import default_config_dict, get_configs
 from ysmr_tpu_torch.io.preproc import HostPreprocessor
 from ysmr_tpu_torch.ops import assignment, cc, labeling, run_cc
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.assign import row_min_argmin
+from ysmr_tpu_torch.ops.gsff import GSFFParams
 from ysmr_tpu_torch.ops.hull import HULL_MAX_SHARED_ROWS, hull_edge_vectors
 from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
 from ysmr_tpu_torch.ops.sweep import sweep_extents
+from ysmr_tpu_torch.parallel import sharding as shd
+from ysmr_tpu_torch.parallel.multi_video import track_videos_sharded
 from ysmr_tpu_torch.pipeline import detect
+from ysmr_tpu_torch.pipeline import tracker as trk
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
 from ysmr_tpu_torch.pipeline.track_bacteria import _track_loop, track_bacteria
 from ysmr_tpu_torch.utils.csv_io import save_list
@@ -531,15 +558,18 @@ def phase_main_path(scene, settings):
     return launches, frames, cuda_bytes
 
 
-def make_clip(path, n_frames, scene=None):
-    """bench.py make_clip: a scene written as an MJPG AVI."""
+def make_clip(path, n_frames, scene=None, size=(W, H)):
+    """bench.py make_clip: a scene written as an MJPG AVI (``size``
+    smaller than the scene's: its top-left corner)."""
     scene = scene or BenchScene()
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'MJPG'), FPS,
-                             (W, H))
+                             size)
     if not writer.isOpened():
         raise SystemExit('cannot open an MJPG writer')
     for t in range(n_frames):
-        writer.write(cv2.cvtColor(scene.frame(t), cv2.COLOR_GRAY2BGR))
+        frame = scene.frame(t)[:size[1], :size[0]]
+        writer.write(cv2.cvtColor(np.ascontiguousarray(frame),
+                                  cv2.COLOR_GRAY2BGR))
     writer.release()
     return path
 
@@ -1903,8 +1933,9 @@ if __name__ == '__main__':
                 note(stage=name, s=time.perf_counter() - t0)
         return call
 
-    for name in ('track_bacteria', 'select_tracks', 'evaluate_tracks',
-                 'annotate_video', 'collate_results_csv_to_xlsx'):
+    for name in ('track_bacteria', 'track_videos_sharded', 'select_tracks',
+                 'evaluate_tracks', 'annotate_video',
+                 'collate_results_csv_to_xlsx'):
         setattr(program, name, timed(name, getattr(program, name)))
     kernels = (propagate_min_fused, hull_edge_vectors, sweep_extents,
                row_min_argmin, label_components_whole_frame,
@@ -2383,6 +2414,297 @@ def phase_pool(settings):
         raise SystemExit('pool: the workers wrote other rows')
 
 
+# ---- the parallel modes: multi-video sharding, the sharded assignment ----
+
+#: phase 23's clips: bench scenes of these seeds and frame counts at full
+#: width, and one bench scene cropped to 640x480 (a second group)
+MV_CLIPS = ((123, 192), (126, 160), (127, 128), (128, 96))
+MV_OTHER = (SEED + 6, 64, (640, 480))
+MV_SETTINGS = {'frame batch size': 16, 'transfer mode': 'frames',
+               'minimal frame count': 32}
+MV_KERNELS = (row_min_argmin, hull_edge_vectors, sweep_extents,
+              cc.label_components_whole_frame, cc.binary_reconstruct)
+
+
+def list_bytes(path):
+    with open(path, 'rb') as f:
+        return f.read()
+
+
+def phase_multi_video(settings):
+    """Phase 23: ``track_videos_sharded`` on cuda (frames mode, batch 16)
+    over four full-width clips of uneven length and one 640x480 clip; each
+    ``_list.csv`` against a solo ``track_bacteria(path)`` on cuda with the
+    same settings: byte-identical. Returns {clip: list bytes}."""
+    sets = {**settings, **MV_SETTINGS}
+    t0 = time.perf_counter()
+    clips = [make_clip(os.path.join(WORK, 'mv_{}.avi'.format(seed)), n,
+                       BenchScene(seed=seed)) for seed, n in MV_CLIPS]
+    seed, n_other, size = MV_OTHER
+    other = make_clip(os.path.join(WORK, 'mv_other.avi'), n_other,
+                      BenchScene(seed=seed), size=size)
+    log('multi-video clips written in {:.1f} s: {} frames of {}x{} and {} '
+        'of {}x{}'.format(time.perf_counter() - t0,
+                          [n for _, n in MV_CLIPS], W, H, n_other, *size))
+    paths = clips + [other]
+    n_frames = sum(n for _, n in MV_CLIPS) + n_other
+    solo_folder = os.path.join(WORK, 'mv_solo')
+    os.makedirs(solo_folder)
+    solo, solo_s = {}, {}
+    for path in paths:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = track_bacteria(path, settings=dict(sets),
+                             result_folder=solo_folder)
+        torch.cuda.synchronize()
+        solo_s[path] = time.perf_counter() - t0
+        if res is None:
+            raise SystemExit('multi-video: solo track_bacteria returned None '
+                             'for {}'.format(path))
+        solo[path] = list_bytes(res[4])
+    folder = os.path.join(WORK, 'mv_sharded')
+    os.makedirs(folder)
+    for k in MV_KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = track_videos_sharded(paths, settings=dict(sets),
+                               result_folder=folder, device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in MV_KERNELS}
+    batch = MV_SETTINGS['frame batch size']
+    steps = -(-max(n for _, n in MV_CLIPS) // batch) + -(-n_other // batch)
+    got = {}
+    for path in paths:
+        if out.get(path) is None:
+            raise SystemExit('multi-video: no result for {}'.format(path))
+        got[path] = list_bytes(out[path][4])
+        if got[path] != solo[path]:
+            raise SystemExit('multi-video: the sharded _list.csv of {} '
+                             'differs from the solo run'.format(path))
+        df = out[path][0]
+        if not np.isfinite(df[['POSITION_X', 'POSITION_Y', 'WIDTH', 'HEIGHT',
+                               'DEGREES_ANGLE']].to_numpy()).all():
+            raise SystemExit('multi-video: non-finite values')
+    if min(launches.values()) <= 0:
+        raise SystemExit('multi-video: a kernel of the path was never '
+                         'launched: {}'.format(launches))
+    log('multi-video (phase 23): track_videos_sharded on cuda, {} clips, {} '
+        'frames, {} device step(s) over a {}-device mesh: wall {:.2f} s, '
+        '{:.2f} frames/s; solo track_bacteria(path) one after another {:.2f} '
+        's ({:.2f} frames/s; per clip {}); every _list.csv byte-identical to '
+        'its solo run ({} rows in all)'.format(
+            len(paths), n_frames, steps, shd.device_count('cuda'), wall,
+            n_frames / wall, sum(solo_s.values()),
+            n_frames / sum(solo_s.values()),
+            [round(v, 2) for v in solo_s.values()],
+            sum(b.count(b'\n') - 1 for b in got.values())))
+    log('multi-video kernel launches {} in {} steps, per step {}'.format(
+        json.dumps(launches), steps, json.dumps(
+            {k: round(v / steps, 2) for k, v in launches.items()})))
+    return {p: got[p] for p in clips}
+
+
+def phase_program_sharded(mv_lists):
+    """Phase 24: ``python -m ysmr_tpu_torch <phase 23's four clips>`` with
+    'shard videos across devices' in its tracking.ini, with --serial and
+    without: exit 0, every clip's stage outputs, the lists those of phase
+    23, and without --serial the pool replaced (one process ran every
+    stage)."""
+    ini = program_ini(os.path.join(WORK, 'sharded.ini'), {
+        **PROGRAM_SETTINGS, **MV_SETTINGS,
+        'minimal length in seconds': 1.0,
+        'limit track length to x seconds': 1.5,
+        'collate results csv to xlsx': False,
+        'shard videos across devices': True})
+    clips = list(mv_lists)
+    for name, extra in (('program_sharded', ['--serial']),
+                        ('program_sharded_pool', [])):
+        records, folder, wall = run_program(name, clips + extra, ini)
+        end = [r for r in records if 'rc' in r][-1]
+        stages = {}
+        for r in records:
+            if 'stage' in r:
+                stages[r['stage']] = stages.get(r['stage'], 0.0) + r['s']
+        pids = {r['pid'] for r in records if 'stage' in r}
+        for clip in clips:
+            stem = os.path.splitext(os.path.basename(clip))[0]
+            for suffix in ('_list.csv',) + STAGE_SUFFIXES:
+                if not os.path.isfile(os.path.join(folder, stem + suffix)):
+                    raise SystemExit('{}: {} missing'.format(name,
+                                                             stem + suffix))
+            if list_bytes(os.path.join(folder, stem + '_list.csv')) != \
+                    mv_lists[clip]:
+                raise SystemExit('{}: the _list.csv of {} differs from '
+                                 'phase 23'.format(name, stem))
+        with open(os.path.join(WORK, name + '.log')) as f:
+            replaced = 'sharding replaces the process pool' in f.read()
+        launches = end['launches']
+        log('{}: python -m ysmr_tpu_torch <4 clips> {}with shard videos '
+            'across devices: exit {}, wall {:.2f} s, cli() {:.2f} s, stage '
+            'wall s {}, kernel launches {}, stage processes {}, the log says '
+            'sharding replaced the pool: {}; every list byte-identical to '
+            'phase 23'.format(name, ' '.join(extra) + ' ' if extra else '',
+                              end['rc'], wall, end['cli_s'], json.dumps(
+                                  {k: round(v, 4)
+                                   for k, v in stages.items()}),
+                              json.dumps(launches), len(pids), replaced))
+        if stages.get('track_bacteria') or 'track_videos_sharded' not in \
+                stages:
+            raise SystemExit('{}: stage 1 did not run sharded'.format(name))
+        if min(launches[k.__name__] for k in MV_KERNELS) <= 0:
+            raise SystemExit('{}: a kernel of the path was never launched'
+                             .format(name))
+        if not extra and (not replaced or pids != {end['pid']}):
+            raise SystemExit('{}: sharding did not replace the pool'.format(
+                name))
+
+
+def phase_sharded_assign(dframes, dsettings, dev):
+    """Phase 25: ``sharded_greedy_assign`` on meshes that list the card 1,
+    2 and 4 times at 16384 x 4096 (K = 2, 3) against the unsharded
+    matcher; ``run_tracker_scan(assign_mesh=...)`` on the dense scene's
+    first batch against the call without; the all_gather branch in a
+    one-process NCCL group; the gate of ``track_bacteria`` on one card."""
+    rng = np.random.default_rng(SEED)
+    meshes = {n: shd.Mesh([dev] * n, ('slots',)) for n in (1, 2, 4)}
+    for k in (2, 3):
+        args = assign_inputs(rng, 16384, 4096, k, dev)
+        want = assignment.greedy_assign_from_candidates(
+            *row_min_argmin(*args), args[1], args[3])
+        times = {'unsharded': cuda_ms(
+            lambda: assignment.greedy_assign_from_candidates(
+                *row_min_argmin(*args), args[1], args[3]), reps=5)}
+        for n, mesh in meshes.items():
+            got = shd.sharded_greedy_assign(mesh, *args)
+            if not all(torch.equal(got[key], want[key]) for key in want):
+                raise SystemExit('sharded assign differs on a {}-entry mesh '
+                                 '(K = {})'.format(n, k))
+            times[n] = cuda_ms(lambda: shd.sharded_greedy_assign(mesh, *args),
+                               reps=5)
+        log('sharded assign 16384 x 4096 K={}: bit-equal to the unsharded '
+            'matcher on meshes of 1, 2, 4 entries; ms {}'.format(
+                k, json.dumps({str(n): round(t, 4)
+                               for n, t in times.items()})))
+
+    t = 64
+    bgr = torch.from_numpy(np.stack([cv2.cvtColor(f, cv2.COLOR_GRAY2BGR)
+                                     for f in dframes[:t]])).to(dev)
+    tables = detect.detect_batch(bgr, torch.ones(t, dtype=torch.bool,
+                                                 device=dev),
+                                 detect.DetectorConfig(dsettings))
+    params = GSFFParams(fps=FPS, n_min=dsettings['minimum horizon size'],
+                        n_max=dsettings['maximum horizon size'],
+                        n_f=dsettings['number of LSFFs'])
+    tkw = dict(max_disappeared=float(FPS), use_gsff=True,
+               **trk.gsff_kwargs(params, dev))
+    slots = dsettings['max track slots']
+    out = {}
+    for n in (None, 2, 4):
+        state = trk.init_tracker_state(slots, dev, use_gsff=True,
+                                       gsff_params=params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, em = trk.run_tracker_scan(
+            state, tables['det_xy'], tables['det_info'], tables['det_valid'],
+            assign_mesh=meshes.get(n), **tkw)
+        torch.cuda.synchronize()
+        out[n] = (em, time.perf_counter() - t0)
+    for n in (2, 4):
+        if not all(torch.equal(out[n][0][key], out[None][0][key])
+                   for key in out[None][0]):
+            raise SystemExit('run_tracker_scan with a {}-entry mesh differs'
+                             .format(n))
+    log('run_tracker_scan on the dense scene first batch ({} frames, {} '
+        'slots, {} live emissions): with a mesh of 2 and 4 entries equal '
+        'to the call without; wall s {}'.format(
+            t, slots, int(out[None][0]['mask'].sum()), json.dumps(
+                {str(n): round(v[1], 4) for n, v in out.items()})))
+
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    if not shd.init_distributed('127.0.0.1:{}'.format(port), 1, 0,
+                                device='cuda'):
+        raise SystemExit('init_distributed did not start a group')
+    try:
+        mesh = shd.make_mesh(axis='slots', device='cuda')
+        args = assign_inputs(rng, 16384, 4096, 2, dev)
+        want = assignment.greedy_assign_from_candidates(
+            *row_min_argmin(*args), args[1], args[3])
+        got = shd.sharded_greedy_assign(mesh, *args)
+        same = all(torch.equal(got[key], want[key]) for key in want)
+        log('NCCL group of one process: {} (world {}, backend {}); the '
+            'all_gather branch equals the unsharded matcher: {}'.format(
+                mesh, mesh.world, torch.distributed.get_backend(), same))
+    finally:
+        torch.distributed.destroy_process_group()
+    if not same or mesh.world != 1:
+        raise SystemExit('the NCCL all_gather branch differs')
+
+    clip = os.path.join(WORK, 'pool_0.avi')
+    calls = []
+    real = shd.sharded_greedy_assign
+    shd.sharded_greedy_assign = lambda *a, **kw: calls.append(1) or \
+        real(*a, **kw)
+    try:
+        folder = os.path.join(WORK, 'gate')
+        os.makedirs(folder)
+        row_min_argmin.launches = 0
+        res = track_bacteria(clip, settings={
+            **dsettings, 'cv2 exact rects': False, 'minimal frame count': 32,
+            'shard dense assignment across devices': True,
+            'dense assignment shard threshold': 0}, result_folder=folder)
+    finally:
+        shd.sharded_greedy_assign = real
+    if res is None or calls or row_min_argmin.launches <= 0:
+        raise SystemExit('the dense-assignment gate engaged on one card')
+    log('track_bacteria with shard dense assignment across devices '
+        '(threshold 0) on {} card(s): the gate stays shut (sharded calls {}, '
+        'assign launches {})'.format(shd.device_count('cuda'), len(calls),
+                                      row_min_argmin.launches))
+
+
+def phase_keep_and_entry(scene, settings, dev):
+    """Phase 26: ``run_cc.keep_marked_runs`` through the kernel on the
+    bench batch against its plain version (the same runs on the CPU):
+    bit-equal; one step of ``graft_entry.entry('cuda')`` against
+    ``entry('cpu')``; ``graft_entry.dryrun_multichip(4)`` on ``cuda``."""
+    runs, rc = first_batch_runs(scene, settings)
+    wire = [torch.from_numpy(runs.view(np.int32)), torch.from_numpy(rc)]
+    propagate_min_fused.launches = 0
+    got = run_cc.keep_marked_runs(*(a.to(dev) for a in wire), w=W)
+    launches = propagate_min_fused.launches
+    want = run_cc.keep_marked_runs(*wire, w=W)
+    if launches != 1 or not torch.equal(got.cpu(), want):
+        raise SystemExit('keep_marked_runs: the kernel differs from the '
+                         'plain version (launches {})'.format(launches))
+    ms = cuda_ms(lambda: run_cc.keep_marked_runs(*(a.to(dev) for a in wire),
+                                                 w=W), reps=5)
+    log('keep_marked_runs, first bench batch ({} x {} runs): kernel bit-equal '
+        'to the plain version, {} of {} runs kept; {:.4f} ms on cuda (with '
+        'the upload)'.format(runs.shape[0], runs.shape[1], int(got.sum()),
+                             int(rc.sum()), ms))
+    ems = {}
+    for device in ('cuda', 'cpu'):
+        fn, args = graft_entry.entry(device=device)
+        ems[device] = {k: v.cpu() for k, v in fn(*args)[1].items()}
+    c, p = ems['cuda'], ems['cpu']
+    pos = float((c['pos'] - p['pos']).abs().max())
+    if not all(torch.equal(c[k], p[k]) for k in ('mask', 'ids', 'det_col',
+                                                   'n_det')) or pos > POS_TOL:
+        raise SystemExit('graft_entry.entry: cuda differs from cpu')
+    log('graft_entry.entry on cuda: {} live emissions over {} frames, mask '
+        'and ids equal to the cpu step, positions within {:.2e}'.format(
+            int(c['mask'].sum()), c['mask'].shape[0], pos))
+    graft_entry.dryrun_multichip(4)
+    log('graft_entry.dryrun_multichip(4) on cuda (a mesh listing {} card(s) '
+        'in turn): the multi-video step and the sharded assignment equal '
+        'their one-device results'.format(shd.device_count('cuda')))
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2423,6 +2745,10 @@ def main():
         phase_compact(dframes, dsettings)
         phase_det_px(scene, settings, dev)
         phase_pool(settings)
+        mv_lists = phase_multi_video(settings)
+        phase_program_sharded(mv_lists)
+        phase_sharded_assign(dframes, dsettings, dev)
+        phase_keep_and_entry(scene, settings, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(

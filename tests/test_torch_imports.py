@@ -26,6 +26,8 @@ from ysmr_tpu_torch.utils import csv_io, files, logging_utils, xlsx
 from ysmr_tpu_torch import config, native, _build
 from ysmr_tpu_torch import main, plot_functions, __main__
 from ysmr_tpu_torch.pipeline import annotate, display, evaluate, select
+from ysmr_tpu_torch.parallel import multi_video, sharding
+from ysmr_tpu_torch import graft_entry
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'ysmr_tpu'))
 print(bad)

@@ -193,15 +193,17 @@ def test_cli_runs_on_the_cpu(tmp_path):
 
 
 def test_unported_and_unavailable(tmp_path):
-    """'shard videos across devices' with several paths raises and names
-    its ROADMAP item; 'cuda' raises on a host without a GPU."""
+    """'shard videos across devices' with several paths is ported: missing
+    files count as failed, nothing raises (the sharded run itself:
+    tests/test_torch_multi_video.py); 'cuda' raises on a host without a
+    GPU."""
     from ysmr_tpu_torch.main import ysmr
     settings = _settings_for(tmp_path, 'unused')
     settings['shard videos across devices'] = True
-    with pytest.raises(NotImplementedError, match='item 12'):
-        ysmr(paths=[str(tmp_path / 'a.avi'), str(tmp_path / 'b.avi')],
-             settings=settings, result_folder=str(tmp_path / 'r'),
-             device='cpu')
+    paths = [str(tmp_path / 'a.avi'), str(tmp_path / 'b.avi')]
+    finished = ysmr(paths=paths, settings=settings,
+                    result_folder=str(tmp_path / 'r'), device='cpu')
+    assert finished == [(p, None) for p in paths]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             ysmr(paths=[str(tmp_path / 'a.avi')],

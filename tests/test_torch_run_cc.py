@@ -249,6 +249,37 @@ def test_run_cc_components_fuzz_vs_binary_propagation():
             ref8[geo['rows'][:n][kept], geo['xs'][:n][kept]])
 
 
+def _keep_cases():
+    """Random images with markers, as tests/test_run_cc.py's
+    test_keep_marked_runs_matches_binary_propagation draws them."""
+    rng = np.random.default_rng(7)
+    for _ in range(40):
+        h = int(rng.integers(3, 24))
+        w = int(rng.integers(3, 40))
+        img = rng.random((h, w)) < rng.uniform(0.2, 0.8)
+        marker = img & (rng.random((h, w)) < 0.15)
+        if img.any():
+            runs, rcnt = _encode(img, marker=marker.astype(np.uint8) * 255,
+                                 w=w)
+            yield img, marker, runs, rcnt, w
+
+
+def test_keep_marked_runs_matches_jax_and_binary_propagation():
+    """The kept runs: JAX's flags (the whole (T, R) table) and scipy's
+    binary_propagation at each run's pixels."""
+    for img, marker, runs, rcnt, w in _keep_cases():
+        got = _np(trcc.keep_marked_runs(_t(runs), _t(rcnt), w=w))
+        np.testing.assert_array_equal(
+            got, np.asarray(jrcc.keep_marked_runs(runs, rcnt, w=w)))
+        ref = ndimage.binary_propagation(marker, mask=img)
+        geo = {k: _np(v)[0] for k, v in
+               trcc.decode_runs(_t(runs), _t(rcnt), w).items()}
+        n = int(rcnt[0])
+        np.testing.assert_array_equal(
+            got[0, :n], ref[geo['rows'][:n], geo['xs'][:n]])
+        assert not got[0, n:].any()
+
+
 # ---- the kernel's design (csrc/run_prop.cu), emulated in sequence ----
 
 ROOT = 1 << 31
@@ -466,3 +497,16 @@ def test_kernel_matches_plain_on_design_cases_on_cuda(case, connectivity,
         same, _ = propagate_min_fused(tinit.to(dev), win, tlink.to(dev),
                                       max_iters=0)
         np.testing.assert_array_equal(same.cpu().numpy(), _np(tinit))
+
+
+@pytest.mark.cuda
+def test_keep_marked_runs_kernel_matches_cpu_on_cuda():
+    """keep_marked_runs through the kernel on the card: the plain run's
+    flags on the CPU, one launch a call."""
+    dev = _cuda()
+    for _, _, runs, rcnt, w in _keep_cases():
+        want = _np(trcc.keep_marked_runs(_t(runs), _t(rcnt), w=w))
+        before = propagate_min_fused.launches
+        got = trcc.keep_marked_runs(_t(runs).to(dev), _t(rcnt).to(dev), w=w)
+        assert propagate_min_fused.launches == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), want)

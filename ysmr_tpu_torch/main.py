@@ -1,6 +1,6 @@
 # Copied from ysmr_tpu/main.py; the differences are the device argument,
-# the pool without a JAX initializer, the sharded mode's raise and the
-# logging listener's teardown when a dispatch raises.
+# the pool without a JAX initializer and the logging listener's teardown
+# when a dispatch raises.
 #!/usr/bin/env python3
 """Batch orchestration: the ``ysmr()`` entry point and per-file ``analyse()``.
 
@@ -16,8 +16,9 @@ default, which raises without a GPU; 'cpu' runs the plain PyTorch path)
 and hand it to ``track_bacteria``. Pool workers run on the device the
 caller named: a GPU is shared between processes, so each spawn worker opens
 its own CUDA context, and a worker that cannot open one raises (its file
-counts as failed). ``shard videos across devices`` with several paths is
-not ported yet and raises.
+counts as failed). ``shard videos across devices`` with several paths
+runs stage 1 for every video at once over the devices of ``device``'s kind
+(``parallel/multi_video.py``) in place of the pool.
 """
 
 import logging
@@ -27,6 +28,7 @@ from datetime import datetime
 from time import sleep
 
 from ysmr_tpu_torch.config import get_configs
+from ysmr_tpu_torch.parallel.multi_video import track_videos_sharded
 from ysmr_tpu_torch.pipeline.annotate import annotate_video
 from ysmr_tpu_torch.pipeline.evaluate import evaluate_tracks
 from ysmr_tpu_torch.pipeline.select import select_tracks
@@ -272,13 +274,22 @@ def _dispatch_pool(paths, settings, folder, log, device):
     pool.join()
     return pending
 
-def _dispatch_sharded(paths, settings, folder, log):
-    """Stage 1 for every video at once over several devices is not ported
-    yet (``parallel/multi_video.py::track_videos_sharded`` of the JAX
-    package)."""
-    raise NotImplementedError(
-        "'shard videos across devices' is not ported to ysmr_tpu_torch yet "
-        '(ROADMAP Queue 1 item 12).')
+def _dispatch_sharded(paths, settings, folder, log, device):
+    """Stage 1 for every video at once over the device mesh, then the
+    remaining per-file stages serially (see parallel/multi_video.py)."""
+    videos = [p for p in paths if '.csv' not in p
+              and not any(m in p for m in _FINISHED_MARKERS)]
+    staged = track_videos_sharded(videos, settings, folder, device=device) \
+        if videos else {}
+    outcomes = {}
+    for path in paths:
+        if path in staged and staged[path] is None:
+            outcomes[path] = None  # stage 1 already failed and logged
+        else:
+            outcomes[path] = analyse(path=path, settings=settings,
+                                     result_folder=folder, device=device,
+                                     _staged=staged.get(path))
+    return outcomes
 
 
 def _collect_outcomes(pending, multiprocess, log):
@@ -345,8 +356,13 @@ def ysmr(paths=None, settings=None, result_folder=None, multiprocess=False,
 
     try:
         if settings['shard videos across devices'] and len(paths) > 1:
-            _dispatch_sharded(paths, settings, result_folder, log)
-        if multiprocess:
+            if multiprocess:
+                log.info('Device-mesh video sharding replaces the process '
+                         "pool ('shard videos across devices' is set).")
+                multiprocess = False
+            pending = _dispatch_sharded(paths, settings, result_folder, log,
+                                        device)
+        elif multiprocess:
             pending = _dispatch_pool(paths, settings, result_folder, log,
                                      device)
         else:

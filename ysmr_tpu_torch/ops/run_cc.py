@@ -25,8 +25,6 @@ Differences from the JAX module, all of representation:
   is reached; converged <=> steps < max_iters).
 - ``det_px_from_runs``'s scatter of the run starts goes to one dump slot
   past the table instead of JAX's dropped out-of-bounds indices.
-
-Not ported: ``keep_marked_runs``, which no pipeline calls.
 """
 
 import torch
@@ -198,6 +196,27 @@ def label_runs(px_runs, run_counts, *, w, connectivity=8, max_iters=64):
     t, r = geo['rows'].shape
     iota = torch.arange(r, dtype=_I32, device=px_runs.device).expand(t, r)
     return _make_prop()(iota.contiguous(), win, link, max_iters=max_iters)
+
+
+def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64):
+    """Marker reconstruction on runs (binary_propagation semantics).
+
+    A run survives iff its 4-connected mask component contains at least
+    one marker pixel (reference track_eval.py:211-214; the encoder splits
+    runs at marker transitions, so marker membership is per-run). The
+    propagation is ``propagate_min_fused``: the CUDA kernel on a CUDA
+    tensor, the plain ``propagate_min`` on a CPU one.
+
+    :return: (T, R) bool keep flags
+    """
+    geo = _prepare(px_runs, run_counts, w=w)
+    win = run_windows(geo, dilate=0)
+    link = chain_mask(geo, win)
+    t, r = geo['rows'].shape
+    iota = torch.arange(r, dtype=_I32, device=px_runs.device).expand(t, r)
+    init = torch.where(geo['rmark'], iota, iota + r)
+    lab, _ = _make_prop()(init, win, link, max_iters=max_iters)
+    return geo['valid'] & (lab < r)
 
 
 def run_cc_components(px_runs, run_counts, *, w, double_threshold,

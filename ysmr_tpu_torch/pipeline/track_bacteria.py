@@ -58,9 +58,11 @@ Same contract as the JAX entry point: writes ``_list.csv`` and returns
 ``(df, fps, frame_height, frame_width, csv_path)``, or None on the errors
 the reference reports that way. The device defaults to ``cuda`` and the
 call raises without one; CPU runs happen only when a caller passes
-``device='cpu'``. Settings outside the ported slice raise
-``NotImplementedError`` naming the ROADMAP item that ports them; a missing
-native library raises (there is no slower fallback path to take).
+``device='cpu'``. ``use table cc`` (on ROADMAP's do-not-port list) raises
+``NotImplementedError``; a missing native library raises (there is no
+slower fallback path to take). ``shard dense assignment across devices``
+row-shards the device tracker's assignment over the visible devices where
+the JAX loop's gate would (``parallel/sharding.py``).
 """
 
 import logging
@@ -77,6 +79,7 @@ from ysmr_tpu_torch.io.video import BatchedVideoReader, VideoReadError
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.gsff import GSFFParams
 from ysmr_tpu_torch.ops.luminosity import rect_mean_luminosity
+from ysmr_tpu_torch.parallel import sharding as shd
 from ysmr_tpu_torch.pipeline import tracker as trk
 from ysmr_tpu_torch.pipeline.detect import DetectorConfig, detect_batch
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
@@ -177,22 +180,7 @@ def resolve_transfer_mode(settings):
 
 
 def check_slice_settings(settings):
-    """Raise NotImplementedError for settings outside the ported slice."""
-    def unported(what, item):
-        raise NotImplementedError(
-            '{} is not ported to ysmr_tpu_torch yet (ROADMAP Queue 1 item '
-            '{}).'.format(what, item))
-
-    if bool(settings.get('shard dense assignment across devices', False)):
-        # as in the JAX loop, it engages only with several devices and a
-        # slots x detections matrix at or above the threshold
-        n_dev = torch.cuda.device_count()
-        slots = settings['max track slots']
-        if n_dev > 1 and slots % n_dev == 0 and \
-                slots * settings['max detections per frame'] >= int(
-                    settings.get('dense assignment shard threshold',
-                                 1 << 21)):
-            unported("'shard dense assignment across devices'", 12)
+    """Raise NotImplementedError for settings the port does not take."""
     if bool(settings.get('use table cc', False)):
         raise NotImplementedError(
             "'use table cc = True' is on ROADMAP's do-not-port list (it "
@@ -380,6 +368,19 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                                        use_gsff=use_gsff, gsff_params=params)
         tracker_kwargs = dict(max_disappeared=float(fps_of_file),
                               use_gsff=use_gsff)
+        # the JAX loop's gate of the dense-scene assignment sharding: only
+        # with several devices and a slots x detections matrix at or above
+        # the threshold (below it the matrix fits one device)
+        if bool(settings.get('shard dense assignment across devices',
+                             False)):
+            n_dev = shd.device_count(device.type)
+            if n_dev > 1 and max_slots % n_dev == 0 and \
+                    max_slots * max_det >= int(settings.get(
+                        'dense assignment shard threshold', 1 << 21)):
+                tracker_kwargs['assign_mesh'] = shd.make_mesh(
+                    axis='slots', device=device.type)
+                logger.debug('Dense assignment row-sharded over %d devices',
+                             n_dev)
         if use_gsff:
             tracker_kwargs.update(trk.gsff_kwargs(params, device))
         # device ids rewritten into the reference's registration order

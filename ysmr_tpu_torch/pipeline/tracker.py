@@ -9,15 +9,14 @@ ascending column order, and the GSFF correct/predict block.
 ``lax.scan`` becomes a Python loop over the frames of a batch; the frame
 step's shapes are static. The per-row nearest detection goes through
 ``ops/assign.py::row_min_argmin`` (the CUDA kernel on a CUDA tensor, the
-plain matrix on a CPU one). ``ReferenceOrderRenumberer`` is host numpy,
-copied from the JAX module.
+plain matrix on a CPU one); with ``assign_mesh`` the rows are sharded
+over a device mesh (``parallel/sharding.py::sharded_greedy_assign``).
+``ReferenceOrderRenumberer`` is host numpy, copied from the JAX module.
 
 ``compact_emissions_device`` (the opt-in ``compact emissions readback``)
 is a stable sort and a gather in plain torch ops; the JAX function's
 multi-operand ``lax.sort`` becomes one sort of the live/dead key and one
 gather of the payload, bit-cast into int32 the same way.
-
-Not ported: the sharded assignment (ROADMAP Queue 1 item 12).
 """
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 from ysmr_tpu_torch.ops import assignment as asg
 from ysmr_tpu_torch.ops import gsff as gsff_ops
 from ysmr_tpu_torch.ops.assign import row_min_argmin
+from ysmr_tpu_torch.parallel import sharding as shd
 
 INT_MAX = 2 ** 31 - 1
 
@@ -156,7 +156,7 @@ def tracker_state_from_numpy(state, device, gsff_params=None):
 
 def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
                           max_disappeared, use_gsff, gsff_gains, gsff_n_i,
-                          gsff_n_f, gsff_n_i0):
+                          gsff_n_f, gsff_n_i0, assign_mesh=None):
     """One frame of CentroidTracker.update semantics over the slot table."""
     active = state['active']
     ids = state['ids']
@@ -177,10 +177,16 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
     sortkey = torch.where(active, ids, torch.full_like(ids, INT_MAX))
     perm = torch.argsort(sortkey, stable=True)       # row -> slot
     row_valid = active[perm]
-    row_min, cand_col = row_min_argmin(pos[perm].contiguous(), row_valid,
-                                       det_xy, det_valid)
-    res = asg.greedy_assign_from_candidates(row_min, cand_col, row_valid,
-                                            det_valid)
+    if assign_mesh is not None:
+        # dense-scene path: the slots x detections rows sharded over the
+        # mesh; only the O(slots) minima come back
+        res = shd.sharded_greedy_assign(assign_mesh, pos[perm], row_valid,
+                                        det_xy, det_valid)
+    else:
+        row_min, cand_col = row_min_argmin(pos[perm].contiguous(),
+                                           row_valid, det_xy, det_valid)
+        res = asg.greedy_assign_from_candidates(row_min, cand_col,
+                                                row_valid, det_valid)
     slot_to_col = torch.full((s,), -1, dtype=torch.long, device=dev)
     slot_to_col.scatter_(0, perm, res['row_to_col'])
     col_matched = res['col_matched']
@@ -281,13 +287,15 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
 
 def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
                      use_gsff=False, gsff_gains=None, gsff_n_i=None,
-                     gsff_n_f=3, gsff_n_i0=10):
+                     gsff_n_f=3, gsff_n_i0=10, assign_mesh=None):
     """Run the tracker over a batch of frames.
 
     :param state: tracker state (carried between batches)
     :param det_xy: (T, C, K) float32 detection positions
     :param det_info: (T, C, 3) float32 (w, h, angle) per detection
     :param det_valid: (T, C) bool
+    :param assign_mesh: optional ``parallel.sharding.Mesh``: the frame
+        step's assignment rows sharded over it (S divisible by its size)
     :return: (new_state, emissions) — emissions are (T, S) padded tensors
         (``n_det`` (T,))
     """
@@ -297,7 +305,7 @@ def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
             state, det_xy[t], det_info[t], det_valid[t],
             max_disappeared=max_disappeared, use_gsff=use_gsff,
             gsff_gains=gsff_gains, gsff_n_i=gsff_n_i, gsff_n_f=gsff_n_f,
-            gsff_n_i0=gsff_n_i0)
+            gsff_n_i0=gsff_n_i0, assign_mesh=assign_mesh)
         frames.append(em)
     emissions = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
     return state, emissions
