@@ -127,8 +127,10 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    (seeds 123, 126, 127, 128; 192, 160, 128 and 96 frames) and one
    640x480 clip (a second group): every ``_list.csv`` byte-identical to a
    solo ``track_bacteria(path)`` on ``cuda`` with the same settings,
-   kernels 2-6 launched (the counts per device step printed), the sharded
-   run's wall time and frames/s beside the solo runs' sum;
+   kernels 2-6 launched (the counts per device step printed), the assign
+   kernel once per frame of a device step (the tracker batched over the
+   step's videos: 16 steps x 16 frames = 256), the sharded run's wall time
+   and frames/s beside the solo runs' sum;
 24. the program with ``shard videos across devices`` in its tracking.ini:
    ``python -m ysmr_tpu_torch <phase 23's four clips> --serial`` and once
    without ``--serial``: exit 0, every clip's stage outputs, the lists
@@ -144,7 +146,16 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 26. ``run_cc.keep_marked_runs`` through the kernel on the first bench batch
    bit-equal to its plain version, one step of
    ``graft_entry.entry('cuda')`` against ``entry('cpu')``, and
-   ``graft_entry.dryrun_multichip(4)`` on ``cuda``.
+   ``graft_entry.dryrun_multichip(4)`` on ``cuda``;
+27. the tracker batched over the video axis: the batched assign kernel
+   (one launch for V problems) bit-equal to its plain version and to V
+   single launches (V = 4 at 1024 x 512 and 4096 x 4096, K = 2, 3, timed
+   against the four single launches and ``torch.cdist(...).min(-1)`` over
+   the batch; V = 5 at 1001 x 700 with an all-invalid video and one
+   without a valid detection, V = 1, C = 0), then the dense scene's first
+   batch split into four pseudo-videos of 16 frames: one batched
+   ``run_tracker_scan`` on ``cuda`` bit-equal to the four per-video scans
+   on ``cuda``, 16 assign launches against 64.
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (seven kernels, each
@@ -847,8 +858,10 @@ def sweep_ops(valid, k):
 def assign_ops(ov, dv, k):
     """Distance operations of the assign call, counted over every valid
     pair whatever the kernel skips: K differences, K products/fmas, a sqrt
-    and a compare (the kernel takes the sqrt on few pairs)."""
-    return int(ov.sum()) * int(dv.sum()) * (2 * k + 2)
+    and a compare (the kernel takes the sqrt on few pairs); per video and
+    summed for a batched call."""
+    pairs = ov.sum(-1, dtype=torch.int64) * dv.sum(-1, dtype=torch.int64)
+    return int(pairs.sum()) * (2 * k + 2)
 
 
 def cdist_min_ms(args):
@@ -2490,6 +2503,13 @@ def phase_multi_video(settings):
     if min(launches.values()) <= 0:
         raise SystemExit('multi-video: a kernel of the path was never '
                          'launched: {}'.format(launches))
+    # the tracker runs once over each device step's videos: one assign
+    # launch per frame of a step, whatever the videos in it
+    if launches['row_min_argmin'] != steps * batch:
+        raise SystemExit('multi-video: {} assign launches, not one per frame '
+                         'of the {} device steps ({})'.format(
+                             launches['row_min_argmin'], steps,
+                             steps * batch))
     log('multi-video (phase 23): track_videos_sharded on cuda, {} clips, {} '
         'frames, {} device step(s) over a {}-device mesh: wall {:.2f} s, '
         '{:.2f} frames/s; solo track_bacteria(path) one after another {:.2f} '
@@ -2705,6 +2725,147 @@ def phase_keep_and_entry(scene, settings, dev):
         'their one-device results'.format(shd.device_count('cuda')))
 
 
+# ---- the tracker batched over the video axis ----
+
+#: phase 27's batched assign calls: (V, R, C, K, timed); with V > 1 video 1
+#: has no valid row and the last video no valid detection
+BATCHED_ASSIGN = ((4, 1024, 512, 2, True), (4, 1024, 512, 3, True),
+                  (4, 4096, 4096, 2, True), (4, 4096, 4096, 3, True),
+                  (5, 1001, 700, 2, False), (1, 1001, 700, 3, False),
+                  (3, 77, 0, 2, False))
+
+
+def assign_batch(rng, v, r, c, k, dev):
+    """V problems of ``assign_inputs`` stacked on a leading video axis
+    (made with at least 8 detections, which it marks valid, then cut to
+    C)."""
+    parts = [[a.cpu().numpy() for a in assign_inputs(rng, r, max(c, 8), k,
+                                                     'cpu')]
+             for _ in range(v)]
+    obj, ov, det, dv = (np.stack(x) for x in zip(*parts))
+    det, dv = det[:, :c], dv[:, :c]
+    if v > 1:
+        ov[1] = False
+        dv[-1] = False
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (obj, ov, det, dv))
+
+
+def check_batched_assign(rng, dev):
+    """The batched assign kernel: one launch per call, bit-equal to its
+    plain version and to V single launches; at V = 4 its time beside the
+    four single launches and ``torch.cdist(...).min(-1)`` over the batch
+    (two calls, a yardstick: it takes the invalid rows and columns too)."""
+    for v, r, c, k, timed in BATCHED_ASSIGN:
+        args = assign_batch(rng, v, r, c, k, dev)
+        before = row_min_argmin.launches
+        got = row_min_argmin(*args)
+        torch.cuda.synchronize()
+        if row_min_argmin.launches != before + 1:
+            raise SystemExit('batched assign: {} launches for one call'
+                             .format(row_min_argmin.launches - before))
+        want = assignment.row_min_argmin_plain(*args)
+        singles = [row_min_argmin(*(a[i] for a in args)) for i in range(v)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want)) and all(
+            torch.equal(got[j][i], singles[i][j])
+            for i in range(v) for j in range(2))
+        if not same:
+            raise SystemExit('batched assign V={} {}x{} K={}: differs from '
+                             'the plain version or the single launches (max '
+                             '|diff| {})'.format(v, r, c, k,
+                                                 max_abs_err(got, want)))
+        what = 'batched assign V={} {}x{} K={}'.format(v, r, c, k)
+        if not timed:
+            log('{}: one launch, bit-equal to the plain version and to the '
+                'single launch of each of its {} video(s)'.format(what, v))
+            continue
+        ms = cuda_ms(lambda: row_min_argmin(*args), reps=20)
+        views = [tuple(a[i] for a in args) for i in range(v)]
+        singles_ms = cuda_ms(lambda: [row_min_argmin(*x) for x in views],
+                             reps=20)
+        obj, det = args[0], args[2]
+        cdist_ms = cuda_ms(lambda: torch.cdist(obj, det).min(-1), reps=20)
+        bnd = bound(args, got, assign_ops(args[1], args[3], k))
+        log('{}: one launch, bit-equal to the plain version and to {} single '
+            'launches; ms batched {:.4f}, {} single launches {:.4f}, bound '
+            '{:.3g} ({})'.format(what, v, ms, v, singles_ms, *bnd))
+        log('{}: torch.cdist(obj, det).min(-1) over the batch (two calls, '
+            'invalid rows and columns included) {:.4f} ms'.format(what,
+                                                                cdist_ms))
+
+
+def phase_batched_tracker(dframes, dsettings, dev):
+    """Phase 27: the batched assign kernel (``check_batched_assign``), then
+    the dense scene's first batch (64 frames at the dense capacities, GSFF)
+    split into four pseudo-videos of 16 frames: one batched
+    ``run_tracker_scan`` on cuda against the four per-video scans on cuda,
+    every emission and state tensor bit-equal; assign launches 16 against
+    64, and the wall time per frame step of each."""
+    check_batched_assign(np.random.default_rng(SEED + 27), dev)
+    t, v = 64, 4
+    bgr = torch.from_numpy(np.stack([cv2.cvtColor(f, cv2.COLOR_GRAY2BGR)
+                                     for f in dframes[:t]])).to(dev)
+    tables = detect.detect_batch(bgr, torch.ones(t, dtype=torch.bool,
+                                                 device=dev),
+                                 detect.DetectorConfig(dsettings))
+    split = [tables[k].reshape((v, t // v) + tuple(tables[k].shape[1:]))
+             for k in ('det_xy', 'det_info', 'det_valid')]
+    params = GSFFParams(fps=FPS, n_min=dsettings['minimum horizon size'],
+                        n_max=dsettings['maximum horizon size'],
+                        n_f=dsettings['number of LSFFs'])
+    tkw = dict(max_disappeared=float(FPS), use_gsff=True,
+               **trk.gsff_kwargs(params, dev))
+    slots = dsettings['max track slots']
+
+    def fresh():
+        return trk.init_tracker_state(slots, dev, use_gsff=True,
+                                      gsff_params=params)
+
+    # warm-up: one batched and one single scan of two frames
+    trk.run_tracker_scan(shd.stack_states([fresh()] * v),
+                         *(x[:, :2] for x in split), **tkw)
+    trk.run_tracker_scan(fresh(), *(x[0, :2] for x in split), **tkw)
+    runs = {}
+    for name in ('batched', 'per video'):
+        row_min_argmin.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == 'batched':
+            out = trk.run_tracker_scan(shd.stack_states([fresh()] * v),
+                                       *split, **tkw)
+        else:
+            out = [trk.run_tracker_scan(fresh(), *(x[i] for x in split),
+                                        **tkw) for i in range(v)]
+        torch.cuda.synchronize()
+        runs[name] = (out, time.perf_counter() - t0,
+                      row_min_argmin.launches)
+    (b_state, b_em), b_s, b_launches = runs['batched']
+    singles, s_s, s_launches = runs['per video']
+    for i, (st, em) in enumerate(singles):
+        for key in em:
+            if not torch.equal(b_em[key][i], em[key]):
+                raise SystemExit('batched tracker scan: {} of pseudo-video '
+                                 '{} differs from its own scan'.format(key, i))
+        both = shd._tree_map(lambda a, b: torch.equal(a[i], b), b_state, st)
+        flat = [x for x in both.values() if not isinstance(x, dict)] + \
+            list(both['gsff'].values())
+        if not all(flat):
+            raise SystemExit('batched tracker scan: the state of pseudo-video '
+                             '{} differs from its own scan'.format(i))
+    if b_launches != t // v or s_launches != t:
+        raise SystemExit('batched tracker scan: assign launches {} / {}, '
+                         'not {} / {}'.format(b_launches, s_launches, t // v,
+                                              t))
+    log('batched tracker scan, dense first batch as {} pseudo-videos of {} '
+        'frames ({} slots, {} live emissions): bit-equal to the per-video '
+        'scans on cuda (every emission and state tensor); assign launches '
+        '{} against {}; wall {:.4f} s ({:.3f} ms per frame step of {} '
+        'videos) against {:.4f} s ({:.3f} ms per frame step of one)'.format(
+            v, t // v, slots, int(b_em['mask'].sum()), b_launches,
+            s_launches, b_s, b_s / (t // v) * 1e3, v, s_s, s_s / t * 1e3))
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2749,6 +2910,7 @@ def main():
         phase_program_sharded(mv_lists)
         phase_sharded_assign(dframes, dsettings, dev)
         phase_keep_and_entry(scene, settings, dev)
+        phase_batched_tracker(dframes, dsettings, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(

@@ -245,3 +245,145 @@ def test_kernel_matches_plain_on_cuda(case, k):
                                       plain[0].numpy())
         np.testing.assert_array_equal(got[1].cpu().numpy(),
                                       plain[1].numpy())
+
+
+def _batched_inputs(v, k, r=45, c=29, seed=0):
+    """V problems with ragged validity: per video its own share of valid
+    rows and detections and an exact tie; with V > 1 video 1 has no valid
+    row and the last video no valid detection."""
+    rng = np.random.default_rng(seed + 10 * v + k)
+    obj = np.stack([_inputs(rng, r, c, k)[0] for _ in range(v)])
+    det = rng.uniform(0, 1228, (v, c, k)).astype(np.float32)
+    ov = rng.random((v, r)) < rng.uniform(0.3, 0.95, (v, 1))
+    dv = rng.random((v, c)) < rng.uniform(0.3, 0.95, (v, 1))
+    det[:, 4] = det[:, 5]
+    dv[:, 4] = dv[:, 5] = True
+    obj[:, 2] = det[:, 8]
+    if v > 1:
+        ov[1] = False
+        dv[-1] = False
+    return obj, ov, det, dv
+
+
+def _jax_min_argmin_one(obj, ov, det, dv):
+    m = jasg.pairwise_distances(obj, ov, det, dv)
+    return jnp.min(m, axis=1), jnp.argmin(m, axis=1)
+
+
+_JIT_VMAP_MIN_ARGMIN = jax.jit(jax.vmap(_jax_min_argmin_one))
+
+
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('v', [1, 3, 5])
+def test_batched_plain_equals_single_calls_and_jax_vmap(v, k):
+    """A (V, R, K) call, through the wrapper's CPU route: bit-equal to V
+    single calls and to ``jax.jit(jax.vmap(...))`` of ``ysmr_tpu``'s
+    distances + min/argmin, with an all-invalid video and a video with
+    no valid detection."""
+    obj, ov, det, dv = _batched_inputs(v, k)
+    got_min, got_arg = row_min_argmin(*(torch.from_numpy(a)
+                                        for a in (obj, ov, det, dv)))
+    assert tuple(got_min.shape) == tuple(got_arg.shape) == ov.shape
+    assert got_min.dtype == torch.float32 and got_arg.dtype == torch.int32
+    ref_min, ref_arg = _JIT_VMAP_MIN_ARGMIN(obj, ov, det, dv)
+    np.testing.assert_array_equal(got_min.numpy(), np.asarray(ref_min))
+    np.testing.assert_array_equal(got_arg.numpy(),
+                                  np.asarray(ref_arg).astype(np.int32))
+    for i in range(v):
+        one_min, one_arg = row_min_argmin(*(torch.from_numpy(a[i])
+                                            for a in (obj, ov, det, dv)))
+        np.testing.assert_array_equal(got_min[i].numpy(), one_min.numpy())
+        np.testing.assert_array_equal(got_arg[i].numpy(), one_arg.numpy())
+    if v > 1:
+        assert (got_min[1].numpy() == np.float32(asg.BIG)).all()
+        assert (got_min[-1].numpy() == np.float32(asg.BIG)).all()
+        assert (got_arg[1].numpy() == 0).all()
+
+
+def test_batched_shapes_are_checked():
+    """The plain version takes one problem or a batch of them, both
+    operands alike; anything else raises."""
+    obj, ov, det, dv = (torch.from_numpy(a) for a in _batched_inputs(3, 2))
+    with pytest.raises(ValueError, match='both'):
+        row_min_argmin(obj, ov, det[0], dv[0])
+    with pytest.raises(ValueError, match='both'):
+        row_min_argmin(obj[None], ov[None], det[None], dv[None])
+
+
+def _candidates_with_ties(rng, v, r, c):
+    """Per-row candidates as the kernel gives them, with many rows
+    claiming one column and equal row minima (the stable rank decides)."""
+    row_min = rng.integers(0, 6, (v, r)).astype(np.float32) * np.float32(0.5)
+    cand = rng.integers(0, c, (v, r)).astype(np.int32)
+    ov = rng.random((v, r)) < 0.8
+    dv = rng.random((v, c)) < 0.8
+    ov[0, :3] = True
+    cand[0, :3] = 2
+    row_min[0, :3] = 0.0
+    dv[0, 2] = True
+    row_min = np.where(ov, row_min, np.float32(asg.BIG))
+    cand = np.where(ov, cand, 0).astype(np.int32)
+    return row_min, cand, ov, dv
+
+
+@pytest.mark.parametrize('seed', [1, 2, 3])
+def test_batched_greedy_matches_jax_vmap(seed):
+    """The greedy matcher over (V, R) candidates and (V, C) detections:
+    ``jax.vmap`` of ``ysmr_tpu``'s matcher, and the V single calls, on
+    contested columns and tied minima."""
+    rng = np.random.default_rng(seed)
+    v, r, c = 4, 40, 12
+    row_min, cand, ov, dv = _candidates_with_ties(rng, v, r, c)
+    ref = jax.vmap(jasg.greedy_assign_from_candidates)(
+        jnp.asarray(row_min), jnp.asarray(cand), jnp.asarray(ov),
+        jnp.asarray(dv))
+    args = [torch.from_numpy(a) for a in (row_min, cand, ov, dv)]
+    got = asg.greedy_assign_from_candidates(*args)
+    assert int((got['row_to_col'] >= 0).sum()) > 10
+    # the three tied claimants of column 2 in video 0: the first row wins
+    assert got['row_to_col'][0, :3].tolist() == [2, -1, -1]
+    for key in ('row_to_col', 'col_matched'):
+        assert tuple(got[key].shape) == tuple(np.asarray(ref[key]).shape)
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
+        for i in range(v):
+            one = asg.greedy_assign_from_candidates(*(a[i] for a in args))
+            assert torch.equal(one[key], got[key][i]), (key, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('case', ['ragged', 'one_video', 'no_columns'])
+def test_batched_kernel_matches_plain_and_single_launches_on_cuda(case, k):
+    """The batched kernel on the card: one launch for all V, bit-equal to
+    its plain version and to V single launches. ``ragged``: V = 5 at
+    R = 1001 (no multiple of the 16-row tiles), an all-invalid video and
+    a video with no valid detection (C = 0 valid columns); ``one_video``:
+    V = 1; ``no_columns``: C = 0 for the whole batch. Runs on a machine
+    with an NVIDIA GPU (see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    dev = torch.device('cuda')
+    v, r, c = {'ragged': (5, 1001, 700), 'one_video': (1, 1001, 700),
+               'no_columns': (3, 77, 0)}[case]
+    if c:
+        arrays = _batched_inputs(v, k, r=r, c=c, seed=7)
+    else:
+        rng = np.random.default_rng(7)
+        arrays = (rng.uniform(0, 100, (v, r, k)).astype(np.float32),
+                  rng.random((v, r)) < 0.8, np.zeros((v, 0, k), np.float32),
+                  np.zeros((v, 0), bool))
+    args = [torch.from_numpy(a) for a in arrays]
+    plain = row_min_argmin(*args)
+    before = row_min_argmin.launches
+    got = row_min_argmin(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    assert row_min_argmin.launches == before + 1
+    for g, p in zip(got, plain):
+        assert tuple(g.shape) == (v, r)
+        np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
+    for i in range(v):
+        one = row_min_argmin(*(a[i].to(dev) for a in args))
+        for g, o in zip(got, one):
+            np.testing.assert_array_equal(g[i].cpu().numpy(),
+                                          o.cpu().numpy())

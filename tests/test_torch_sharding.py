@@ -180,6 +180,30 @@ def test_multi_video_step_matches_jax(use_gsff):
             np.testing.assert_array_equal(other[key], got[key], err_msg=key)
 
 
+@pytest.mark.parametrize('n', [1, 2, 4])
+def test_multi_video_step_assigns_once_per_frame(monkeypatch, n):
+    """The step runs the tracker once over each device's videos: on an
+    n-entry mesh, ``row_min_argmin`` is called T times per device, each
+    call over that device's V / n videos, not V / n * T times over one
+    (the counterpart of jax.vmap(per_video), whose Pallas call batches the
+    video axis into its grid)."""
+    frames, valid = _videos()
+    calls = []
+    real = trk.row_min_argmin
+
+    def counted(obj_xy, *args):
+        calls.append(tuple(obj_xy.shape))
+        return real(obj_xy, *args)
+
+    monkeypatch.setattr(trk, 'row_min_argmin', counted)
+    mesh = shd.make_mesh(n, device='cpu')
+    _port_step(mesh, frames, valid,
+               [jax.tree_util.tree_map(np.asarray,
+                                       jtrk.init_tracker_state(MAX_SLOTS))]
+               * V, False)
+    assert calls == [(V // n, MAX_SLOTS, 2)] * (n * T)
+
+
 def test_tracker_scan_sharded_assign_matches(monkeypatch):
     """run_tracker_scan(assign_mesh=...) emits exactly what the unsharded
     matcher emits on a dense stream with appearing and vanishing

@@ -248,3 +248,46 @@ def test_track_loop_with_in_memory_reader(tmp_path):
     df = res[0]
     assert df['POSITION_T'].nunique() == n
     assert df['TRACK_ID'].nunique() == 6
+
+
+def test_profiler_dir_writes_a_trace(tmp_path, monkeypatch):
+    """``jax profiler dir`` (the key both packages read): the port wraps
+    the tracking run in ``torch.profiler`` and writes a Chrome trace into
+    the directory, after a run that ends normally and after one that
+    fails; the run's rows are those of a run without it."""
+    import json
+    import ysmr_tpu_torch.pipeline.track_bacteria as tb
+
+    video = make_synthetic_video(str(tmp_path / 'clip.avi'),
+                                 n_frames=N_FRAMES, seed=7)
+    trace_dir = tmp_path / 'traces'
+    settings = _make_settings(tmp_path)
+    rows = {}
+    for name, extra in (('plain', {}),
+                        ('traced', {'jax profiler dir': str(trace_dir)})):
+        folder = str(tmp_path / name)
+        os.makedirs(folder)
+        res = track_bacteria(video, settings={**settings, **extra},
+                             result_folder=folder, device='cpu')
+        assert res is not None
+        with open(res[4], 'rb') as f:
+            rows[name] = f.read()
+    assert rows['traced'] == rows['plain']
+    traces = sorted(trace_dir.iterdir())
+    assert [p.name.startswith('clip.') and p.name.endswith('.pt.trace.json')
+            for p in traces] == [True]
+    assert traces[0].stat().st_size > 0
+    with open(traces[0]) as f:
+        assert json.load(f)['traceEvents']
+
+    def failing_loop(*args, **kwargs):
+        raise RuntimeError('read failed')
+
+    monkeypatch.setattr(tb, '_track_loop', failing_loop)
+    folder = str(tmp_path / 'failed')
+    os.makedirs(folder)
+    with pytest.raises(RuntimeError, match='read failed'):
+        track_bacteria(video, settings={**settings,
+                                        'jax profiler dir': str(trace_dir)},
+                       result_folder=folder, device='cpu')
+    assert len(list(trace_dir.iterdir())) == 2

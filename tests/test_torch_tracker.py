@@ -323,3 +323,186 @@ def test_scan_on_cuda_equals_cpu():
     torch.cuda.synchronize()
     assert row_min_argmin.launches == before + t_len
     _assert_emissions(gpu, cpu, 1e-4)
+
+
+#: the batched scans' videos: mixed scenes, padded with empty frames to
+#: one length, and a video whose frames are all invalid (a finished video
+#: stepping along with the others)
+BATCH_SCENES = ('drifting', 'contested', 'gsff_disappearance',
+                'dereg_after_grace', None)
+
+
+def _video_batch(dims):
+    """(V, T, ...) tables of BATCH_SCENES at 30 fps, luminosity as the
+    third coordinate with ``dims`` = 3."""
+    tables = [_tables(SCENES[name]()[0]) if name else None
+              for name in BATCH_SCENES]
+    t_len = max(t[0].shape[0] for t in tables if t is not None)
+    empty = (np.zeros((t_len, 8, 2), np.float32),
+             np.zeros((t_len, 8, 3), np.float32), np.zeros((t_len, 8), bool))
+    out = []
+    for tab in tables:
+        full = [e.copy() for e in empty]
+        if tab is not None:
+            for f, a in zip(full, tab):
+                f[:a.shape[0]] = a
+        out.append(full)
+    det_xy, det_info, det_valid = (np.stack(x) for x in zip(*out))
+    if dims == 3:
+        lum = np.random.default_rng(3).uniform(0.3, 2.5, det_valid.shape)
+        det_xy = np.concatenate([det_xy, lum[..., None].astype(np.float32)],
+                                axis=-1)
+    return det_xy, det_info, det_valid
+
+
+def _port_setup(v, use_gsff, dims, device='cpu', max_slots=32):
+    params = gsff.GSFFParams(fps=30.0, n_min=0, n_max=30, n_f=3) \
+        if use_gsff else None
+    state = trk.init_tracker_state(max_slots, device, dims=dims,
+                                   use_gsff=use_gsff, gsff_params=params)
+    kwargs = dict(max_disappeared=30.0, use_gsff=use_gsff)
+    if use_gsff:
+        kwargs.update(trk.gsff_kwargs(params, device))
+    stacked = {k: (torch.stack([x] * v) if torch.is_tensor(x) else
+                   {g: torch.stack([y] * v) for g, y in x.items()})
+               for k, x in state.items()}
+    return state, stacked, kwargs
+
+
+def _flat_state(state):
+    out = {}
+    for k, x in state.items():
+        if isinstance(x, dict):
+            out.update({'gsff.' + g: y for g, y in x.items()})
+        else:
+            out[k] = x
+    return out
+
+
+def _batched_and_per_video(tables, use_gsff, dims, device='cpu'):
+    """The batched scan over two batches of frames (the state threading
+    through) and each video's own scans: (batched state, emissions),
+    [(state, emissions) per video]."""
+    v, t_len = tables[2].shape[:2]
+    split = t_len // 2
+    args = [torch.from_numpy(a).to(device) for a in tables]
+    state0, stacked, kwargs = _port_setup(v, use_gsff, dims, device)
+    parts = []
+    for sl in (slice(0, split), slice(split, None)):
+        stacked, em = trk.run_tracker_scan(stacked, *(a[:, sl] for a in args),
+                                           **kwargs)
+        parts.append(em)
+    batched = {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+    singles = []
+    for i in range(v):
+        st, ems = state0, []
+        for sl in (slice(0, split), slice(split, None)):
+            st, em = trk.run_tracker_scan(st, *(a[i, sl] for a in args),
+                                          **kwargs)
+            ems.append(em)
+        singles.append((st, {k: torch.cat([e[k] for e in ems])
+                             for k in ems[0]}))
+    return (stacked, batched), singles
+
+
+@pytest.mark.parametrize('dims', [2, 3])
+@pytest.mark.parametrize('use_gsff', [False, True])
+def test_batched_scan_equals_per_video_scans(use_gsff, dims):
+    """One scan over V = 5 videos (mixed scenes, one all-invalid) equals
+    the five videos' own scans bit for bit: every emission and every
+    state tensor, the state carried across two batches."""
+    tables = _video_batch(dims)
+    (state, em), singles = _batched_and_per_video(tables, use_gsff, dims)
+    v = tables[2].shape[0]
+    assert em['mask'].shape == (v, tables[2].shape[1], 32)
+    assert em['n_det'].shape == tables[2].shape[:2]
+    assert int(em['mask'][:-1].sum()) > 100 and not em['mask'][-1].any()
+    flat = _flat_state(state)
+    for i, (st, one) in enumerate(singles):
+        for key in one:
+            assert torch.equal(em[key][i], one[key]), (i, key)
+        for key, x in _flat_state(st).items():
+            assert torch.equal(flat[key][i], x), (i, key)
+
+
+def test_batched_scan_of_one_video_equals_the_unbatched_scan():
+    """V = 1 with the video axis written out: the unbatched scan's
+    emissions and state with a leading axis of 1."""
+    tables = _tables(SCENES['drifting']()[0])
+    state, stacked, kwargs = _port_setup(1, True, 2)
+    args = [torch.from_numpy(a) for a in tables]
+    st1, em1 = trk.run_tracker_scan(state, *args, **kwargs)
+    stv, emv = trk.run_tracker_scan(stacked, *(a[None] for a in args),
+                                    **kwargs)
+    for key in em1:
+        assert torch.equal(emv[key][0], em1[key]), key
+    for key, x in _flat_state(st1).items():
+        assert torch.equal(_flat_state(stv)[key][0], x), key
+
+
+@pytest.mark.parametrize('use_gsff', [False, True])
+def test_batched_scan_matches_jax_vmap(use_gsff):
+    """The batched scan against ``jax.vmap(run_tracker_scan)`` of
+    ``ysmr_tpu`` on the same five videos: mask, ids, det_col, n_det and
+    info equal; positions equal without GSFF and within 1e-4 px with it
+    (the double-single residue of ``test_scan_matches_jax``)."""
+    tables = _video_batch(2)
+    v = tables[2].shape[0]
+    kwargs = dict(max_disappeared=30.0, use_gsff=use_gsff)
+    params = None
+    if use_gsff:
+        params = jgsff.GSFFParams(fps=30.0, n_min=0, n_max=30, n_f=3)
+        kwargs.update(gsff_gains=params.gains, gsff_n_i=params.n_i_arr,
+                      gsff_n_f=params.n_f, gsff_n_i0=params.n_i[0])
+    jstate = jtrk.init_tracker_state(32, dims=2, use_gsff=use_gsff,
+                                     gsff_params=params)
+    jstate = jax.tree.map(lambda x: np.stack([np.asarray(x)] * v), jstate)
+    _, ref = jax.vmap(lambda st, a, b, c: jtrk.run_tracker_scan(
+        st, a, b, c, **kwargs))(jstate, *tables)
+    ref = jax.tree.map(np.asarray, ref)
+    _, stacked, tkw = _port_setup(v, use_gsff, 2)
+    _, got = trk.run_tracker_scan(stacked, *(torch.from_numpy(a)
+                                             for a in tables), **tkw)
+    got = {k: x.numpy() for k, x in got.items()}
+    assert got['mask'].shape == ref['mask'].shape
+    _assert_emissions(got, ref, 1e-4 if use_gsff else 0)
+
+
+def test_assign_mesh_takes_one_video():
+    """The row-sharded assignment is a one-video path (the JAX
+    multi-video step passes no mesh): a batch of videos raises."""
+    from ysmr_tpu_torch.parallel import sharding as shd
+    tables = _video_batch(2)
+    _, stacked, kwargs = _port_setup(tables[2].shape[0], False, 2)
+    with pytest.raises(ValueError, match='one video'):
+        trk.run_tracker_scan(stacked, *(torch.from_numpy(a) for a in tables),
+                             assign_mesh=shd.make_mesh(2, axis='slots',
+                                                       device='cpu'),
+                             **kwargs)
+    with pytest.raises(ValueError, match='video axis'):
+        trk.run_tracker_scan(stacked, *(torch.from_numpy(a[0])
+                                        for a in tables), **kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('use_gsff', [False, True])
+def test_batched_scan_on_cuda_equals_per_video_scans(use_gsff):
+    """The batched scan on the card (one assign launch per frame for all
+    videos) against the per-video scans on the card, bit for bit. Runs on
+    a machine with an NVIDIA GPU (see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    tables = _video_batch(3)
+    t_len = tables[2].shape[1]
+    before = row_min_argmin.launches
+    (state, em), singles = _batched_and_per_video(tables, use_gsff, 3,
+                                                  device='cuda')
+    torch.cuda.synchronize()
+    v = tables[2].shape[0]
+    assert row_min_argmin.launches == before + t_len * (1 + v)
+    flat = _flat_state(state)
+    for i, (st, one) in enumerate(singles):
+        for key in one:
+            assert torch.equal(em[key][i], one[key]), (i, key)
+        for key, x in _flat_state(st).items():
+            assert torch.equal(flat[key][i], x), (i, key)

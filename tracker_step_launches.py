@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Kernel launches and wall time of the port's tracker frame step on one
+NVIDIA card.
+
+Run from the root of a checkout::
+
+    python3 tracker_step_launches.py [--root DIR] [--videos 1,4]
+
+It imports ``ysmr_tpu_torch`` from ``DIR`` (default: this checkout), so
+two trees can be compared in one call on one card (unpack the other with
+``git archive <commit> | tar -x -C .scratch/parent``). The tables have
+the dense scene's capacities (4096 slots, 4096 detections a frame, K = 2,
+the GSFF bank of the default tracking.ini) and hold 3000 seeded
+detections drifting by about a pixel a frame. After a warm-up scan,
+``torch.profiler`` (CPU and CUDA activities) records a scan of one frame
+and one of two frames; their difference is one frame step, the rest the
+scan's own work (the emissions' stacks). Then five 16-frame scans are
+timed on the host clock with the card synchronised (median and each).
+``--videos 4`` also runs the step over four videos at once (a tree whose
+``run_tracker_scan`` takes a leading video axis). Prints one JSON line
+per V, then the card's name and power limit from ``nvidia-smi``.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SLOTS, DETS, LIVE = 4096, 4096, 3000
+
+
+def tables(rng, t_len, v, dev):
+    """(V, T, C, 2) drifting detections, (V, T, C, 3) sizes, (V, T, C)
+    validity: LIVE valid detections a frame."""
+    xy = rng.uniform(0, 1228, (v, 1, DETS, 2))
+    xy = xy + np.cumsum(rng.normal(0, 1.0, (v, t_len, DETS, 2)), axis=1)
+    info = rng.uniform(1, 8, (v, t_len, DETS, 3))
+    valid = np.zeros((v, t_len, DETS), bool)
+    valid[..., :LIVE] = True
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xy.astype(np.float32), info.astype(np.float32), valid)]
+
+
+def count(prof):
+    """(device kernels, device memsets and copies, runtime launch calls)
+    of a profile."""
+    kernels = memops = launches = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(('Memset', 'Memcpy')):
+                memops += 1
+            else:
+                kernels += 1
+        elif 'LaunchKernel' in e.name:
+            launches += 1
+    return kernels, memops, launches
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--root', default=os.path.dirname(os.path.abspath(
+        __file__)), help='checkout whose ysmr_tpu_torch is measured')
+    ap.add_argument('--videos', default='1',
+                    help='comma-separated video counts V (default 1)')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('no CUDA device: this script measures the card')
+    sys.path.insert(0, os.path.abspath(args.root))
+    from ysmr_tpu_torch.ops.gsff import GSFFParams
+    from ysmr_tpu_torch.pipeline import tracker as trk
+    dev = torch.device('cuda', 0)
+    params = GSFFParams(fps=30.0, n_min=0, n_max=30, n_f=3)
+    kwargs = dict(max_disappeared=30.0, use_gsff=True,
+                  **trk.gsff_kwargs(params, dev))
+    from torch.profiler import ProfilerActivity, profile
+
+    for v in (int(x) for x in args.videos.split(',')):
+        rng = np.random.default_rng(0)
+        data = tables(rng, 24, v, dev)
+
+        def frames(a, b):
+            return [x[0, a:b] if v == 1 else x[:, a:b] for x in data]
+
+        state = trk.init_tracker_state(SLOTS, dev, use_gsff=True,
+                                       gsff_params=params)
+        if v > 1:
+            state = {k: (torch.stack([x] * v) if torch.is_tensor(x) else
+                         {g: torch.stack([y] * v) for g, y in x.items()})
+                     for k, x in state.items()}
+        state, _ = trk.run_tracker_scan(state, *frames(0, 4), **kwargs)
+        counts = {}
+        for n in (1, 2):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                trk.run_tracker_scan(state, *frames(4, 4 + n), **kwargs)
+                torch.cuda.synchronize()
+            counts[n] = count(prof)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trk.run_tracker_scan(state, *frames(4, 20), **kwargs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / 16 * 1e3)
+        step = [b - a for a, b in zip(counts[1], counts[2])]
+        print(json.dumps({
+            'root': os.path.abspath(args.root), 'videos': v,
+            'slots': SLOTS, 'detections': DETS, 'live': LIVE,
+            'frame_step': {'kernels': step[0], 'memops': step[1],
+                           'launch_calls': step[2]},
+            'scan_of_one_frame': dict(zip(('kernels', 'memops',
+                                           'launch_calls'), counts[1])),
+            'ms_per_frame_step': float(np.median(walls)),
+            'ms_per_frame_step_each': walls}), flush=True)
+    print(subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+
+
+if __name__ == '__main__':
+    main()

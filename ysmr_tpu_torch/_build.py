@@ -159,7 +159,7 @@ def load_kernels():
     lib.ysmr_sweep_extents.restype = ci
     lib.ysmr_sweep_extents.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
     lib.ysmr_row_min_argmin.restype = ci
-    lib.ysmr_row_min_argmin.argtypes = [vp] * 6 + [ci, ci, ci, ci, vp]
+    lib.ysmr_row_min_argmin.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.ysmr_cc_label.restype = ci
     lib.ysmr_cc_label.argtypes = [vp] * 3 + [ci] * 5 + [vp]
     lib.ysmr_cc_reconstruct.restype = ci

@@ -105,8 +105,9 @@ _TPU_DEFAULTS = {
     'compact emissions readback': False,
     # log per-frame wait/dispatch/readback stage times at the end of a run
     'profile stages': False,
-    # write a jax.profiler trace (tensorboard format) of each tracking run
-    # into this directory; empty = disabled
+    # write a device trace of each tracking run into this directory (the
+    # JAX package: a jax.profiler trace; this port: a torch.profiler Chrome
+    # trace); empty = disabled
     'jax profiler dir': '',
     # opt-in sparse O(F log F) connected components (see ops/labeling.py
     # label_components_table; loses to the whole-frame stencil end-to-end)

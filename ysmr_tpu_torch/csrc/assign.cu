@@ -15,6 +15,14 @@
 // contraction cannot move it. The plain version reproduces the same fmas
 // exactly in float64.
 //
+// Batched form: a leading video axis V (the multi-video step's tracker,
+// the counterpart of jax.vmap over pallas_call, whose batching rule puts
+// the video axis in front of the grid) is the grid's y dimension: block
+// (x, y) takes row tile x of video y, with the video's problem at strides
+// R*K / C*K / R / C into obj, det, ov/dv and the outputs. Each row's
+// arithmetic is the unbatched one, so a launch over V videos gives, bit for
+// bit, the V separate launches' results. V = 1 is the unbatched call.
+//
 // Design: one launch, a block of 256 threads per tile of 16 rows. The
 // columns of a tile are split across the block: thread (g, s) takes rows
 // 4g .. 4g + 3 of the tile and the columns s, s + 64, s + 128, ... The
@@ -69,6 +77,14 @@ assign_kernel(const float* __restrict__ obj, const uint8_t* __restrict__ ov,
               const float* __restrict__ det, const uint8_t* __restrict__ dv,
               float* __restrict__ row_min, int32_t* __restrict__ cand, int r,
               int c) {
+  // video blockIdx.y: its rows, detections and outputs
+  const int64_t v = blockIdx.y;
+  obj += v * r * K;
+  ov += v * r;
+  det += v * c * K;
+  dv += v * c;
+  row_min += v * r;
+  cand += v * r;
   __shared__ uint64_t part[kRowsPerBlock][kWarpsPerRow];
   __shared__ float sd[K][kChunk];
   __shared__ uint8_t sdv[kChunk];
@@ -170,18 +186,21 @@ assign_kernel(const float* __restrict__ obj, const uint8_t* __restrict__ ov,
 
 extern "C" {
 
-// obj: (R, K) float32; ov: (R,) uint8; det: (C, K) float32; dv: (C,) uint8;
-// row_min: (R,) float32; cand: (R,) int32; K in {2, 3}; all contiguous on
-// CUDA device `device`, launched on `stream`. Returns a cudaError_t
-// (0 = launched; cudaErrorInvalidValue for another K).
+// obj: (V, R, K) float32; ov: (V, R) uint8; det: (V, C, K) float32;
+// dv: (V, C) uint8; row_min: (V, R) float32; cand: (V, R) int32; K in
+// {2, 3}; V <= 65535 (the grid's y limit); all contiguous on CUDA device
+// `device`, launched on `stream`. Returns a cudaError_t (0 = launched;
+// cudaErrorInvalidValue for another K or V).
 int ysmr_row_min_argmin(const void* obj, const void* ov, const void* det,
-                        const void* dv, void* row_min, void* cand, int r,
-                        int c, int k, int device, void* stream) {
-  if (r <= 0) return 0;
+                        const void* dv, void* row_min, void* cand, int v,
+                        int r, int c, int k, int device, void* stream) {
+  if (v > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (r <= 0 || v <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks =
-      static_cast<unsigned>((r + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 blocks(
+      static_cast<unsigned>((r + kRowsPerBlock - 1) / kRowsPerBlock),
+      static_cast<unsigned>(v));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* o = static_cast<const float*>(obj);
   const uint8_t* ovp = static_cast<const uint8_t*>(ov);

@@ -25,8 +25,9 @@ Differences from the JAX module, all of representation:
   (restrict them with ``CUDA_VISIBLE_DEVICES``).
 - ``make_multi_video_step`` flattens each device's videos into one frame
   batch, so each detection kernel launches once per device step, and runs
-  the tracker per video (``jax.vmap`` over the video axis has no
-  counterpart yet).
+  the tracker once over the device's videos (``run_tracker_scan`` with a
+  leading video axis, the counterpart of ``jax.vmap(per_video)``), so the
+  assign kernel launches once per frame of the step.
 """
 
 import contextlib
@@ -203,7 +204,9 @@ def make_multi_video_step(mesh, *, detect_kwargs, tracker_kwargs):
     batch and runs ``detect.prepare_batch`` and ``detect_from_blurred``
     once over it (each frames-mode kernel launches once per device step),
     folds the tables back to (v_loc, T, ...), then runs
-    ``run_tracker_scan`` per video on its slice of the state. Every device
+    ``run_tracker_scan`` once over them and the device's stacked state (a
+    frame step, and one assign launch, per frame for all v_loc videos;
+    each video's bits those of its own scan). Every device
     is enqueued before the caller reads anything back. The thresholds are
     zeros, as in the JAX step: mean-threshold mode does not batch (the
     caller runs it solo). Memory: one detect call holds v_loc * T frames,
@@ -230,15 +233,13 @@ def make_multi_video_step(mesh, *, detect_kwargs, tracker_kwargs):
                                          thresholds, **detect_kwargs)
         tables = {k: v.reshape((v_loc, t) + tuple(v.shape[1:]))
                   for k, v in tables.items()}
-        states, emissions = [], []
-        for i in range(v_loc):
-            st, em = trk.run_tracker_scan(
-                _tree_map(lambda x: x[i], state), tables['det_xy'][i],
-                tables['det_info'][i], tables['det_valid'][i], **tkw)
-            em['n_components'] = tables['n_components'][i]
-            states.append(st)
-            emissions.append(em)
-        return stack_states(states), stack_states(emissions)
+        # one scan over the device's videos: a frame step (and one assign
+        # launch) per frame for all v_loc of them, as jax.vmap(per_video)
+        state, emissions = trk.run_tracker_scan(
+            state, tables['det_xy'], tables['det_info'], tables['det_valid'],
+            **tkw)
+        emissions['n_components'] = tables['n_components']
+        return state, emissions
 
     def step(frames, frame_valid, state):
         out = []

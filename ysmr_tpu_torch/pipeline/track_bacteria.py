@@ -62,9 +62,12 @@ call raises without one; CPU runs happen only when a caller passes
 ``NotImplementedError``; a missing native library raises (there is no
 slower fallback path to take). ``shard dense assignment across devices``
 row-shards the device tracker's assignment over the visible devices where
-the JAX loop's gate would (``parallel/sharding.py``).
+the JAX loop's gate would (``parallel/sharding.py``). ``jax profiler dir``
+writes a ``torch.profiler`` Chrome trace of each tracking run into that
+directory (``profiled_run``), as the JAX package writes its device trace.
 """
 
+import contextlib
 import logging
 import os
 import time
@@ -161,6 +164,40 @@ def resolve_device(device):
     elif dev.type != 'cpu':
         raise ValueError('Unsupported device: {}'.format(device))
     return dev
+
+
+@contextlib.contextmanager
+def profiled_run(trace_dir, device, name, logger):
+    """The tracking run under ``torch.profiler`` when ``jax profiler dir``
+    is set (the key keeps its name: both packages read one tracking.ini).
+    CPU activity, and the card's with a CUDA ``device``; on every exit,
+    an error included, a Chrome trace ``<name>.<pid>.<ns>.pt.trace.json``
+    goes into ``trace_dir`` and its path into the log. A profiler that
+    cannot start is warned about and the run goes on without it."""
+    prof = None
+    if trace_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == 'cuda':
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+        except (RuntimeError, OSError) as err:
+            logger.warning('torch profiler not started: %s', err)
+            prof = None
+    try:
+        yield
+    finally:
+        if prof is not None:
+            path = os.path.join(trace_dir, '{}.{}.{}.pt.trace.json'.format(
+                name, os.getpid(), time.time_ns()))
+            try:
+                prof.stop()
+                prof.export_chrome_trace(path)
+                logger.info('torch profiler trace written to %s', path)
+            except (RuntimeError, OSError) as err:
+                logger.warning('torch profiler trace not written: %s', err)
 
 
 def _require_native():
@@ -302,9 +339,12 @@ def track_bacteria(video_path, settings=None, result_folder=None,
     except VideoReadError as err:
         logger.exception('Problem opening file %s: %s', video_path, err)
         return None
-    return _track_loop(reader, settings, fps_of_file, list_name,
-                       device=device, old_list=old_list,
-                       video_path=video_path, display=display)
+    with profiled_run(settings.get('jax profiler dir') or '', device,
+                      os.path.splitext(os.path.basename(video_path))[0],
+                      logger):
+        return _track_loop(reader, settings, fps_of_file, list_name,
+                           device=device, old_list=old_list,
+                           video_path=video_path, display=display)
 
 
 def _track_loop(reader, settings, fps_of_file, list_name, *, device,

@@ -7,7 +7,11 @@ slot table: rows in ascending-id order, the greedy first-come match
 ascending column order, and the GSFF correct/predict block.
 
 ``lax.scan`` becomes a Python loop over the frames of a batch; the frame
-step's shapes are static. The per-row nearest detection goes through
+step's shapes are static. The frame step always works over a leading
+video axis V: one video is V = 1, and the multi-video step's ``jax.vmap``
+over a device's videos becomes one scan over its (V, T, ...) tables, so
+a frame step (and its one assign launch) serves all V videos. The
+per-row nearest detection goes through
 ``ops/assign.py::row_min_argmin`` (the CUDA kernel on a CUDA tensor, the
 plain matrix on a CPU one); with ``assign_mesh`` the rows are sharded
 over a device mesh (``parallel/sharding.py::sharded_greedy_assign``).
@@ -154,56 +158,77 @@ def tracker_state_from_numpy(state, device, gsff_params=None):
     return out, extra
 
 
-def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
+def _gather_rows(table, idx):
+    """``table[v, idx[v, s]]`` for a (V, N, D) table and (V, S) indices:
+    (V, S, D)."""
+    return torch.gather(table, 1, idx[..., None].expand(-1, -1,
+                                                         table.shape[2]))
+
+
+def _tracker_frame_update(state, det_xy, det_info, det_valid, col_ids, *,
                           max_disappeared, use_gsff, gsff_gains, gsff_n_i,
                           gsff_n_f, gsff_n_i0, assign_mesh=None):
-    """One frame of CentroidTracker.update semantics over the slot table."""
+    """One frame of CentroidTracker.update semantics over the slot table,
+    for V videos at once: every tensor of ``state`` and the frame's
+    detections carry a leading video axis (``next_id`` and
+    ``dropped_registrations`` (V,)), and each video's result is the one a
+    step of that video alone gives. The GSFF sub-state is per slot and
+    stays flattened to (V * S, ...) through the scan. ``col_ids`` is
+    ``arange(C)`` as int32 expanded to (V, C), built once per scan."""
     active = state['active']
     ids = state['ids']
     pos = state['pos']
     info = state['info']
     disappeared = state['disappeared']
     next_id = state['next_id']
-    s = active.shape[0]
-    c = det_valid.shape[0]
-    dev = active.device
+    v, s = active.shape
+    c = det_valid.shape[1]
     i32 = torch.int32
 
-    n_obj = active.sum(dtype=i32)
-    n_det = det_valid.sum(dtype=i32)
+    n_obj = active.sum(dim=1, dtype=i32)
+    n_det = det_valid.sum(dim=1, dtype=i32)
     has_det = n_det > 0
 
     # rows = active slots in ascending-id order
     sortkey = torch.where(active, ids, torch.full_like(ids, INT_MAX))
-    perm = torch.argsort(sortkey, stable=True)       # row -> slot
-    row_valid = active[perm]
+    perm = torch.argsort(sortkey, dim=1, stable=True)    # row -> slot
+    row_valid = torch.gather(active, 1, perm)
     if assign_mesh is not None:
+        if v != 1:
+            raise ValueError('run_tracker_scan: assign_mesh takes one '
+                             'video, not {}'.format(v))
         # dense-scene path: the slots x detections rows sharded over the
         # mesh; only the O(slots) minima come back
-        res = shd.sharded_greedy_assign(assign_mesh, pos[perm], row_valid,
-                                        det_xy, det_valid)
+        res = shd.sharded_greedy_assign(assign_mesh, pos[0][perm[0]],
+                                        row_valid[0], det_xy[0],
+                                        det_valid[0])
+        res = {k: x[None] for k, x in res.items()}
     else:
-        row_min, cand_col = row_min_argmin(pos[perm].contiguous(),
+        row_min, cand_col = row_min_argmin(_gather_rows(pos, perm),
                                            row_valid, det_xy, det_valid)
         res = asg.greedy_assign_from_candidates(row_min, cand_col,
                                                 row_valid, det_valid)
-    slot_to_col = torch.full((s,), -1, dtype=torch.long, device=dev)
-    slot_to_col.scatter_(0, perm, res['row_to_col'])
+    slot_to_col = torch.full((v, s), -1, dtype=torch.long,
+                             device=active.device)
+    slot_to_col.scatter_(1, perm, res['row_to_col'])
     col_matched = res['col_matched']
 
-    matched = has_det & (slot_to_col >= 0)
+    matched = has_det[:, None] & (slot_to_col >= 0)
     col_idx = torch.clamp(slot_to_col, 0, c - 1)
-    pos_new = torch.where(matched[:, None], det_xy[col_idx], pos)
-    info_new = torch.where(matched[:, None], det_info[col_idx], info)
+    pos_new = torch.where(matched[..., None], _gather_rows(det_xy, col_idx),
+                          pos)
+    info_new = torch.where(matched[..., None],
+                           _gather_rows(det_info, col_idx), info)
     zero_i = torch.zeros_like(disappeared)
     dis_new = torch.where(matched, zero_i, disappeared)
 
     # ageing: all active slots when the frame is empty; unmatched active
     # slots when rows >= cols
-    age_mask = torch.where(has_det, active & ~matched & (n_obj >= n_det),
+    age_mask = torch.where(has_det[:, None],
+                           active & ~matched & (n_obj >= n_det)[:, None],
                            active)
     dis_new = dis_new + age_mask.to(i32)
-    info_new = torch.where(age_mask[:, None], torch.zeros_like(info_new),
+    info_new = torch.where(age_mask[..., None], torch.zeros_like(info_new),
                            info_new)
     dereg = age_mask & (dis_new.to(torch.float32) > max_disappeared)
     active_new = active & ~dereg
@@ -211,27 +236,30 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
     # registration: unmatched detections when cols > rows, in ascending
     # column order (the host renumbers into the reference's set order)
     do_register = has_det & (n_det > n_obj)
-    unmatched_col = det_valid & ~col_matched & do_register
-    col_rank = torch.cumsum(unmatched_col.to(i32), 0, dtype=i32) - 1
-    n_new = unmatched_col.sum(dtype=i32)
+    unmatched_col = det_valid & ~col_matched & do_register[:, None]
+    col_rank = torch.cumsum(unmatched_col.to(i32), 1, dtype=i32) - 1
+    n_new = unmatched_col.sum(dim=1, dtype=i32)
     free = ~active_new
-    free_rank = torch.cumsum(free.to(i32), 0, dtype=i32) - 1
-    # col_of_rank[k] = the column holding the k-th registration (slot c is
-    # the dump of the JAX scatter's mode='drop')
-    col_of_rank = torch.zeros(c + 1, dtype=i32, device=dev)
-    col_of_rank.scatter_(0, torch.where(unmatched_col, col_rank,
+    free_rank = torch.cumsum(free.to(i32), 1, dtype=i32) - 1
+    # col_of_rank[v, k] = the column holding video v's k-th registration
+    # (column c is the dump of the JAX scatter's mode='drop')
+    col_of_rank = torch.zeros((v, c + 1), dtype=i32, device=active.device)
+    col_of_rank.scatter_(1, torch.where(unmatched_col, col_rank,
                                         torch.full_like(col_rank, c)).long(),
-                         torch.arange(c, dtype=i32, device=dev))
-    reg_slot = free & (free_rank < n_new)
-    reg_col = col_of_rank[torch.clamp(free_rank, 0, c - 1).long()]
-    n_registered = reg_slot.sum(dtype=i32)
+                         col_ids)
+    reg_slot = free & (free_rank < n_new[:, None])
+    reg_col = torch.gather(col_of_rank, 1,
+                           torch.clamp(free_rank, 0, c - 1).long())
+    n_registered = reg_slot.sum(dim=1, dtype=i32)
     dropped = state['dropped_registrations'] + (n_new - n_registered)
 
     active_new = active_new | reg_slot
-    ids_new = torch.where(reg_slot, next_id + free_rank, ids)
+    ids_new = torch.where(reg_slot, next_id[:, None] + free_rank, ids)
     reg_col_l = reg_col.long()
-    pos_new = torch.where(reg_slot[:, None], det_xy[reg_col_l], pos_new)
-    info_new = torch.where(reg_slot[:, None], det_info[reg_col_l], info_new)
+    pos_new = torch.where(reg_slot[..., None], _gather_rows(det_xy, reg_col_l),
+                          pos_new)
+    info_new = torch.where(reg_slot[..., None],
+                           _gather_rows(det_info, reg_col_l), info_new)
     dis_new = torch.where(reg_slot, zero_i, dis_new)
     next_id_new = next_id + n_new
 
@@ -246,24 +274,30 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
     }
 
     if use_gsff:
+        # the filter works per slot: the (V, S) slots flattened to V * S
+        # (views of contiguous tensors) through the unbatched filter step
         g = state['gsff']
-        m = pos_new[:, :2].to(torch.float32)
+        flat_active = active_new.flatten()
+        flat_reg = reg_slot.flatten()
+        m = pos_new[..., :2].flatten(0, 1)
         # a coasting slot (active, unmatched, not newly registered) feeds its
         # own stored prediction back, with the lo half re-attached
-        coasting = active_new & ~matched & ~reg_slot
+        coasting = (active_new & ~matched & ~reg_slot).flatten()
         m_lo = torch.where(coasting[:, None], g['pred_lo'],
                            torch.zeros_like(g['pred_lo']))
         # fresh state for newly-registered slots: the ring filled with m
-        gstate = gsff_ops.register_slots(g, gsff_n_i0, reg_slot, m)
+        gstate = gsff_ops.register_slots(g, gsff_n_i0, flat_reg, m)
         gstate, corrected, predicted = gsff_ops._step(
-            gsff_gains, gsff_n_i, gsff_n_f, gstate, m, active_new,
+            gsff_gains, gsff_n_i, gsff_n_f, gstate, m, flat_active,
             measurements_lo=m_lo)
-        emit_pos = torch.where(active_new[:, None],
-                               torch.cat([corrected, pos_new[:, 2:]], dim=1),
+        corrected = corrected.view(v, s, 2)
+        predicted = predicted.view(v, s, 2)
+        emit_pos = torch.where(active_new[..., None],
+                               torch.cat([corrected, pos_new[..., 2:]], dim=2),
                                pos_new)
-        stored_pos = torch.where(active_new[:, None],
-                                 torch.cat([predicted, pos_new[:, 2:]], dim=1),
-                                 pos_new)
+        stored_pos = torch.where(active_new[..., None],
+                                 torch.cat([predicted, pos_new[..., 2:]],
+                                           dim=2), pos_new)
         new_state['gsff'] = gstate
         new_state['pos'] = stored_pos
     else:
@@ -288,26 +322,58 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
 def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
                      use_gsff=False, gsff_gains=None, gsff_n_i=None,
                      gsff_n_f=3, gsff_n_i0=10, assign_mesh=None):
-    """Run the tracker over a batch of frames.
+    """Run the tracker over a batch of frames, of one video or of V videos
+    at once (the counterpart of ``jax.vmap`` over the JAX scan: one frame
+    step, and one assign launch, per frame for all V).
 
-    :param state: tracker state (carried between batches)
-    :param det_xy: (T, C, K) float32 detection positions
-    :param det_info: (T, C, 3) float32 (w, h, angle) per detection
-    :param det_valid: (T, C) bool
+    :param state: tracker state (carried between batches); with a leading
+        video axis V on every tensor for V videos
+    :param det_xy: (T, C, K) float32 detection positions, or (V, T, C, K)
+    :param det_info: (T, C, 3) float32 (w, h, angle) per detection, or
+        (V, T, C, 3)
+    :param det_valid: (T, C) bool, or (V, T, C)
     :param assign_mesh: optional ``parallel.sharding.Mesh``: the frame
-        step's assignment rows sharded over it (S divisible by its size)
+        step's assignment rows sharded over it (S divisible by its size);
+        one video only
     :return: (new_state, emissions) — emissions are (T, S) padded tensors
-        (``n_det`` (T,))
+        (``n_det`` (T,)), or (V, T, S) and (V, T) for V videos; each
+        video's the bits of its own scan
     """
+    batched = det_valid.dim() == 3
+    if state['active'].dim() != (2 if batched else 1):
+        raise ValueError('run_tracker_scan: the state and the detections '
+                         'disagree on the video axis')
+    if not batched:
+        state = shd._tree_map(lambda x: x[None], state)
+        det_xy, det_info, det_valid = det_xy[None], det_info[None], \
+            det_valid[None]
+    v, t_len, c = det_valid.shape
+    # frame-major copies, so each frame's (V, C, ...) slice is contiguous
+    # (no copy for one video)
+    det_xy, det_info, det_valid = (x.transpose(0, 1).contiguous() for x in
+                                   (det_xy, det_info, det_valid))
+    col_ids = torch.arange(c, dtype=torch.int32,
+                           device=det_valid.device).expand(v, c)
+    s = state['active'].shape[1]
+    if use_gsff:
+        state = dict(state, gsff={k: x.flatten(0, 1)
+                                  for k, x in state['gsff'].items()})
     frames = []
-    for t in range(det_xy.shape[0]):
+    for t in range(t_len):
         state, em = _tracker_frame_update(
-            state, det_xy[t], det_info[t], det_valid[t],
+            state, det_xy[t], det_info[t], det_valid[t], col_ids,
             max_disappeared=max_disappeared, use_gsff=use_gsff,
             gsff_gains=gsff_gains, gsff_n_i=gsff_n_i, gsff_n_f=gsff_n_f,
             gsff_n_i0=gsff_n_i0, assign_mesh=assign_mesh)
         frames.append(em)
-    emissions = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    emissions = {k: torch.stack([f[k] for f in frames], dim=1)
+                 for k in frames[0]}
+    if use_gsff:
+        state['gsff'] = {k: x.unflatten(0, (v, s))
+                         for k, x in state['gsff'].items()}
+    if not batched:
+        state = shd._tree_map(lambda x: x[0], state)
+        emissions = {k: x[0] for k, x in emissions.items()}
     return state, emissions
 
 
