@@ -127,10 +127,11 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    (seeds 123, 126, 127, 128; 192, 160, 128 and 96 frames) and one
    640x480 clip (a second group): every ``_list.csv`` byte-identical to a
    solo ``track_bacteria(path)`` on ``cuda`` with the same settings,
-   kernels 2-6 launched (the counts per device step printed), the assign
-   kernel once per frame of a device step (the tracker batched over the
-   step's videos: 16 steps x 16 frames = 256), the sharded run's wall time
-   and frames/s beside the solo runs' sum;
+   kernels 2-6 and the adaptive mean launched (the counts per device step
+   printed), the assign kernel once per frame of a device step (the
+   tracker batched over the step's videos: 16 steps x 16 frames = 256),
+   the adaptive mean once per device step (16), the sharded run's wall
+   time and frames/s beside the solo runs' sum;
 24. the program with ``shard videos across devices`` in its tracking.ini:
    ``python -m ysmr_tpu_torch <phase 23's four clips> --serial`` and once
    without ``--serial``: exit 0, every clip's stage outputs, the lists
@@ -146,7 +147,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 26. ``run_cc.keep_marked_runs`` through the kernel on the first bench batch
    bit-equal to its plain version, one step of
    ``graft_entry.entry('cuda')`` against ``entry('cpu')``, and
-   ``graft_entry.dryrun_multichip(4)`` on ``cuda``;
+   ``graft_entry.dryrun_multichip(4)`` on ``cuda`` (its pipeline leg
+   included: ``track_bacteria`` through the dense-assignment gate and
+   ``track_videos_sharded`` on two tiny clips);
 27. the tracker batched over the video axis: the batched assign kernel
    (one launch for V problems) bit-equal to its plain version and to V
    single launches (V = 4 at 1024 x 512 and 4096 x 4096, K = 2, 3, timed
@@ -155,12 +158,21 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    without a valid detection, V = 1, C = 0), then the dense scene's first
    batch split into four pseudo-videos of 16 frames: one batched
    ``run_tracker_scan`` on ``cuda`` bit-equal to the four per-video scans
-   on ``cuda``, 16 assign launches against 64.
+   on ``cuda``, 16 assign launches against 64;
+28. the adaptive-mean kernel (``csrc/adaptive_mean.cu``) against its plain
+   version on the card, bit-equal: the blurred first 64 frames of the
+   bench and dense scenes, a 16-frame 640x480 batch, and the edge shapes
+   (1x1x1, 3x7x5, 17x33x129, 2x921x1227) with values in 0-255 and in
+   +-70,000; median ms of the kernel, the plain version and the
+   ``F.conv2d`` yardstick (TF32 off; timed, not bit-equal), with the
+   bound and the share. The frames path's phases (10, 16, 23) fail
+   unless it was launched; phase 23 holds it to one launch a device step.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (seven kernels, each
-with its bound and the library call where one exists), ``nvidia-smi``'s
-card name and power limit, and the result JSON.
+The last three lines are the ``kernels`` JSON record (eight kernels: the
+seven TPU kernels' ports and the adaptive mean, each with its bound and
+the library call where one exists), ``nvidia-smi``'s card name and power
+limit, and the result JSON.
 """
 
 import configparser
@@ -1103,18 +1115,23 @@ def phase_dense_cuda_vs_cpu(frames, settings):
 FRAMES = {'transfer mode': 'frames'}
 CC_KERNELS = (cc.label_components_whole_frame, cc.binary_reconstruct)
 FRAMES_KERNELS = CC_KERNELS + (hull_edge_vectors, sweep_extents,
-                               row_min_argmin)
+                               row_min_argmin, pp.adaptive_gaussian_mean)
 
 
 def bench_masks(scene, settings, dev, t=64):
     """Mask and markers of the bench scene's first ``t`` frames through
     the port's device preprocess (BGR upload, gray, blur, thresholds)."""
-    bgr = np.stack([cv2.cvtColor(scene.frame(i), cv2.COLOR_GRAY2BGR)
-                    for i in range(t)])
     cfg = detect.DetectorConfig(settings)
-    blurred = detect.prepare_batch(torch.from_numpy(bgr).to(dev))[1]
+    blurred = blurred_batch([scene.frame(i) for i in range(t)], dev)
     return pp.detect_masks(blurred, cfg.mode, cfg.offset, cfg.double_delta,
                            cfg.white_on_dark)
+
+
+def blurred_batch(frames, dev):
+    """The blurred frames of the port's device preprocess (BGR upload,
+    gray, blur) of gray frames."""
+    bgr = np.stack([cv2.cvtColor(f, cv2.COLOR_GRAY2BGR) for f in frames])
+    return detect.prepare_batch(torch.from_numpy(bgr).to(dev))[1]
 
 
 def snake_mask(h, w):
@@ -1934,6 +1951,7 @@ if __name__ == '__main__':
                                        cc_labels_at_pixels,
                                        label_components_whole_frame)
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+    from ysmr_tpu_torch.ops.preprocess import adaptive_gaussian_mean
     from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
     from ysmr_tpu_torch.ops.sweep import sweep_extents
 
@@ -1952,7 +1970,8 @@ if __name__ == '__main__':
         setattr(program, name, timed(name, getattr(program, name)))
     kernels = (propagate_min_fused, hull_edge_vectors, sweep_extents,
                row_min_argmin, label_components_whole_frame,
-               binary_reconstruct, cc_labels_at_pixels)
+               binary_reconstruct, cc_labels_at_pixels,
+               adaptive_gaussian_mean)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2436,7 +2455,8 @@ MV_OTHER = (SEED + 6, 64, (640, 480))
 MV_SETTINGS = {'frame batch size': 16, 'transfer mode': 'frames',
                'minimal frame count': 32}
 MV_KERNELS = (row_min_argmin, hull_edge_vectors, sweep_extents,
-              cc.label_components_whole_frame, cc.binary_reconstruct)
+              cc.label_components_whole_frame, cc.binary_reconstruct,
+              pp.adaptive_gaussian_mean)
 
 
 def list_bytes(path):
@@ -2510,6 +2530,11 @@ def phase_multi_video(settings):
                          'of the {} device steps ({})'.format(
                              launches['row_min_argmin'], steps,
                              steps * batch))
+    # and one frames-mode detect per device step: one adaptive mean
+    if launches['adaptive_gaussian_mean'] != steps:
+        raise SystemExit('multi-video: {} adaptive-mean launches, not one per '
+                         'device step ({})'.format(
+                             launches['adaptive_gaussian_mean'], steps))
     log('multi-video (phase 23): track_videos_sharded on cuda, {} clips, {} '
         'frames, {} device step(s) over a {}-device mesh: wall {:.2f} s, '
         '{:.2f} frames/s; solo track_bacteria(path) one after another {:.2f} '
@@ -2866,6 +2891,86 @@ def phase_batched_tracker(dframes, dsettings, dev):
             s_launches, b_s, b_s / (t // v) * 1e3, v, s_s, s_s / t * 1e3))
 
 
+# ---- the adaptive mean ----
+
+#: phase 28's edge shapes and value ranges (tests/test_torch_preprocess.py):
+#: one pixel, H and W under the 11 taps, a partial 16-frame chunk of the
+#: plain version with W past a 64-column tile, partial tiles at full size
+MEAN_EDGES = ((1, 1, 1), (3, 7, 5), (17, 33, 129), (2, 921, 1227))
+MEAN_WIDE = (-70000, 70001)
+
+
+def conv_mean(img):
+    """The yardstick of the adaptive mean, not bit-equal: two 1-D float32
+    convolutions (cuDNN, TF32 off) over a replicate-padded batch, then
+    ``floor(acc + 0.5)``."""
+    k = torch.from_numpy(pp._K11_F32).to(img.device)
+    x = torch.nn.functional.pad(img.to(torch.float32)[:, None],
+                                (5, 5, 5, 5), mode='replicate')
+    x = torch.nn.functional.conv2d(x, k.view(1, 1, 1, 11))
+    x = torch.nn.functional.conv2d(x, k.view(1, 1, 11, 1))
+    return torch.floor(x + 0.5).to(torch.int32)[:, 0]
+
+
+def phase_adaptive_mean(scene, dscene, dev):
+    """Phase 28: the adaptive-mean kernel against its plain version on the
+    card, bit-equal: the blurred first 64 frames of the bench and dense
+    scenes, a 16-frame 640x480 batch (a device step of phase 23's second
+    group), the edge shapes with values in 0-255 and in +-70,000; median ms
+    of the kernel, the plain version and the ``F.conv2d`` yardstick, with
+    the bound. Returns the bench batch's check and yardstick ms."""
+    seed, _, (ow, oh) = MV_OTHER
+    other = BenchScene(seed=seed)
+    batches = (
+        ('bench 64x922x1228', blurred_batch(
+            [scene.frame(t) for t in range(64)], dev)),
+        ('dense 64x922x1228', blurred_batch(
+            [dscene.frame(t) for t in range(64)], dev)),
+        ('640x480 16 frames', blurred_batch(
+            [other.frame(t)[:oh, :ow] for t in range(16)], dev)))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        checks = []
+        for name, img in batches:
+            check = check_equal(
+                'adaptive mean ' + name,
+                lambda x: (pp.adaptive_gaussian_mean(x),),
+                lambda x: (pp.adaptive_gaussian_mean_plain(x),), [img],
+                44 * img.numel(), plain_reps=3)
+            conv_ms = cuda_ms(lambda: conv_mean(img))
+            off = int((conv_mean(img) != pp.adaptive_gaussian_mean(img))
+                      .sum())
+            log('adaptive mean {}: kernel {:.4f} ms, {:.1f}% of the bound '
+                '{:.4f} ms ({}); plain {:.4f} ms; F.conv2d yardstick {:.4f} '
+                'ms ({} of {} pixels differ from the kernel)'.format(
+                    name, check[1], 100 * check[3][0] / check[1],
+                    check[3][0], check[3][1], check[2], conv_ms, off,
+                    img.numel()))
+            checks.append((check, conv_ms))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rng = np.random.default_rng(SEED)
+    for span in ((0, 256), MEAN_WIDE):
+        for shape in MEAN_EDGES:
+            img = torch.from_numpy(rng.integers(*span, shape).astype(
+                np.int32)).to(dev)
+            pp.adaptive_gaussian_mean.launches = 0
+            got = pp.adaptive_gaussian_mean(img)
+            want = pp.adaptive_gaussian_mean_plain(img)
+            torch.cuda.synchronize()
+            if pp.adaptive_gaussian_mean.launches != 1 or \
+                    not torch.equal(got, want):
+                raise SystemExit('adaptive mean {} values {}: kernel != '
+                                 'plain (launches {})'.format(
+                                     shape, span,
+                                     pp.adaptive_gaussian_mean.launches))
+    log('adaptive mean edge shapes {} with values in 0-255 and in +-70,000: '
+        'kernel bit-equal to the plain version, one launch a call'.format(
+            list(MEAN_EDGES)))
+    return checks[0]
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2911,6 +3016,7 @@ def main():
         phase_sharded_assign(dframes, dsettings, dev)
         phase_keep_and_entry(scene, settings, dev)
         phase_batched_tracker(dframes, dsettings, dev)
+        mean_check, mean_conv_ms = phase_adaptive_mean(scene, dscene, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -2934,6 +3040,11 @@ def main():
         'cc_labels_at_pixels', 'ysmr_tpu_torch/csrc/cc.cu',
         'ysmr_tpu/ops/pallas_cc.py:347',
         lum_launches['cc_labels_at_pixels'], pixel_check))
+    records.append(kernel_record(
+        'adaptive_gaussian_mean', 'ysmr_tpu_torch/csrc/adaptive_mean.cu',
+        'ysmr_tpu/ops/preprocess.py:69',
+        frames_runs['bench']['adaptive_gaussian_mean'], mean_check,
+        library_ms=mean_conv_ms))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

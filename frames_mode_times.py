@@ -1,0 +1,247 @@
+#!/usr/bin/env python3
+"""Frames-mode times of the port on one NVIDIA card: the split of a warm
+64-frame detect into its steps, and the detect, stage-1 and multi-video
+times of one or more checkouts in turns.
+
+Run from the root of a checkout::
+
+    python3 frames_mode_times.py [--roots DIR,DIR,...] [--split]
+
+``--roots`` lists checkouts in the order to run them (default: this one),
+e.g. ``.scratch/parent,.,.,.scratch/parent`` after unpacking the other
+tree with ``git archive <commit> | tar -x -C .scratch/parent``. Each runs
+in a process of its own that imports that checkout's ``ysmr_tpu_torch``
+and ``chip_smoke.py`` and prints one JSON line:
+
+- ``detect_ms``: median host-clock ms (card synchronised; 10 calls after
+  2 warm-ups) of ``detect.detect_batch`` on the bench scene's first 64
+  frames (1228x922, BGR on the card; the bench capacities in frames mode:
+  adaptive double threshold, 512 detections, max_bh 64), and
+  ``mean_ms`` of ``preprocess.adaptive_gaussian_mean`` on its blurred
+  frames;
+- ``bench_fps`` and ``device_detect_ms``: the bench scene (630 frames) in
+  memory through the stage-1 loop in frames mode on ``cuda``, as smoke
+  phase 10 runs it (frames/s and the ``device_detect`` stage, ms a frame);
+- ``mv_wall_s``: smoke phase 23's ``track_videos_sharded`` call (four
+  full-width clips of 192, 160, 128 and 96 frames and one 640x480 clip of
+  64, frames mode, batch 16) after one solo run of the small clip, twice.
+
+``--split`` (this checkout) records ``torch.profiler`` (CPU and CUDA)
+over the steps of the same warm detect run one at a time, each ended by a
+synchronise, and gives each step the device time of the kernels that
+start inside its window (median of three passes), with the three longest
+kernels of each step; the steps' outputs are held to ``detect_batch``'s.
+The last line is the card's name and power limit from ``nvidia-smi``.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import cv2
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _setup(root):
+    sys.path.insert(0, os.path.abspath(root))
+    import chip_smoke as cs
+    from ysmr_tpu_torch.pipeline import detect
+    os.makedirs(cs.WORK, exist_ok=True)
+    settings = {**cs.bench_settings(), **cs.FRAMES}
+    scene = cs.BenchScene()
+    bgr = np.stack([cv2.cvtColor(scene.frame(t), cv2.COLOR_GRAY2BGR)
+                    for t in range(64)])
+    dev = torch.device('cuda', 0)
+    bgr = torch.from_numpy(bgr).to(dev)
+    valid = torch.ones(64, dtype=torch.bool, device=dev)
+    return cs, detect, settings, scene, bgr, valid
+
+
+def _host_ms(fn, reps=10):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def measure(root):
+    """The JSON record of one checkout (see the module docstring)."""
+    cs, detect, settings, scene, bgr, valid = _setup(root)
+    from ysmr_tpu_torch.ops import preprocess as pp
+    from ysmr_tpu_torch.parallel.multi_video import track_videos_sharded
+    from ysmr_tpu_torch.pipeline.track_bacteria import track_bacteria
+    cfg = detect.DetectorConfig(settings)
+    rec = {'root': root}
+    rec['detect_ms'] = _host_ms(lambda: detect.detect_batch(bgr, valid, cfg))
+    blurred = detect.prepare_batch(bgr)[1]
+    rec['mean_ms'] = _host_ms(lambda: pp.adaptive_gaussian_mean(blurred))
+    frames = [scene.frame(t) for t in range(cs.N_FRAMES)]
+    _, _, stats = cs.run_loop(frames, settings, 'cuda', 'times_frames')
+    rec['bench_fps'] = stats['fps']
+    rec['device_detect_ms'] = stats['stage_s']['device_detect'] / \
+        stats['frames'] * 1e3
+    sets = {**cs.bench_settings(), **cs.MV_SETTINGS}
+    with tempfile.TemporaryDirectory(dir=cs.WORK) as td:
+        paths = [cs.make_clip(os.path.join(td, 'mv_{}.avi'.format(seed)), n,
+                              cs.BenchScene(seed=seed))
+                 for seed, n in cs.MV_CLIPS]
+        seed, n_other, size = cs.MV_OTHER
+        paths.append(cs.make_clip(os.path.join(td, 'mv_other.avi'), n_other,
+                                  cs.BenchScene(seed=seed), size=size))
+        os.makedirs(os.path.join(td, 'solo'))
+        track_bacteria(paths[-1], settings=dict(sets),
+                       result_folder=os.path.join(td, 'solo'))
+        rec['mv_wall_s'] = []
+        for i in range(2):
+            folder = os.path.join(td, 'sharded{}'.format(i))
+            os.makedirs(folder)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = track_videos_sharded(paths, settings=dict(sets),
+                                       result_folder=folder, device='cuda')
+            torch.cuda.synchronize()
+            rec['mv_wall_s'].append(time.perf_counter() - t0)
+            if any(v is None for v in out.values()):
+                raise SystemExit('multi-video: a clip gave no result')
+    return rec
+
+
+def split(root):
+    """The per-step device times of a warm 64-frame detect (see the module
+    docstring)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cs, detect, settings, _, bgr, valid = _setup(root)
+    from ysmr_tpu_torch.ops import cc
+    from ysmr_tpu_torch.ops import labeling as lb
+    from ysmr_tpu_torch.ops import preprocess as pp
+    from ysmr_tpu_torch.pipeline.detect_pixels import detections_from_tables
+    cfg = detect.DetectorConfig(settings)
+    if cfg.mode != 'adaptive_double':
+        raise SystemExit('the split follows the adaptive double threshold')
+    fv = valid[:, None, None]
+    st = {}
+
+    def thresholds():
+        rule = pp._adaptive_rule
+        st['mask'] = rule(st['blurred'], st['mean'], -cfg.offset,
+                          cfg.white_on_dark) & fv
+        st['markers'] = rule(st['blurred'], st['mean'],
+                             -(cfg.offset + cfg.double_delta),
+                             cfg.white_on_dark) & fv
+
+    def compaction():
+        st['comp'], st['n'] = lb.compact_labels(st['labels'], st['rec'],
+                                                max_det=cfg.max_det)
+
+    def tables():
+        st['tables'] = lb.component_tables(st['comp'], st['rec'],
+                                           max_det=cfg.max_det,
+                                           max_bh=cfg.max_bh)
+
+    steps = (
+        ('gray', lambda: st.update(gray=pp.bgr_to_gray(bgr))),
+        ('blur', lambda: st.update(blurred=pp.blur3(st['gray']))),
+        ('adaptive mean', lambda: st.update(
+            mean=pp.adaptive_gaussian_mean(st['blurred']))),
+        ('threshold comparisons', thresholds),
+        ('reconstruction', lambda: st.update(rec=cc.binary_reconstruct(
+            st['mask'], st['markers'], max_iters=cfg.cc_iters))),
+        ('labeling', lambda: st.update(
+            labels=cc.label_components_whole_frame(
+                st['rec'], connectivity=8, max_iters=cfg.cc_iters))),
+        ('compaction', compaction),
+        ('row tables + hull', tables),
+        ('rect (sweep) + output', lambda: st.update(out=detections_from_tables(
+            st['tables'], 64, max_det=cfg.max_det, max_bh=cfg.max_bh,
+            n_components=st['n']))),
+    )
+
+    def run_steps():
+        for name, fn in steps:
+            with record_function('step: ' + name):
+                fn()
+                torch.cuda.synchronize()
+
+    for _ in range(2):
+        run_steps()
+    want = detect.detect_batch(bgr, valid, cfg)
+    for key in want:
+        if not torch.equal(want[key], st['out'][key]):
+            raise SystemExit('the split steps differ from detect_batch in '
+                             '{}'.format(key))
+    passes = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_steps()
+        cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+        windows = [(e.name[len('step: '):], e.time_range) for e in
+                   prof.events() if e.device_type == cpu and
+                   e.name.startswith('step: ')]
+        per = {name: {'device_ms': 0.0, 'span_ms': rng.elapsed_us() / 1e3,
+                      'kernels': {}} for name, rng in windows}
+        for e in prof.events():
+            if e.device_type != gpu or e.name.startswith('step: '):
+                continue
+            for name, rng in windows:
+                if rng.start <= e.time_range.start < rng.end:
+                    ms = e.time_range.elapsed_us() / 1e3
+                    per[name]['device_ms'] += ms
+                    k = per[name]['kernels']
+                    k[e.name] = k.get(e.name, 0.0) + ms
+                    break
+        passes.append(per)
+    out = {}
+    for name, _ in steps:
+        out[name] = {key: float(np.median([p[name][key] for p in passes]))
+                     for key in ('device_ms', 'span_ms')}
+        kern = passes[-1][name]['kernels']
+        out[name]['top_kernels'] = {
+            k[:60]: round(v, 4) for k, v in sorted(
+                kern.items(), key=lambda kv: -kv[1])[:3]}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--roots', default=HERE,
+                    help='comma-separated checkouts, run in this order')
+    ap.add_argument('--split', action='store_true',
+                    help='the per-step split of a warm detect (this checkout)')
+    ap.add_argument('--one', help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('no CUDA device: this script measures the card')
+    if args.one:
+        print(json.dumps(measure(args.one)), flush=True)
+        return
+    if args.split:
+        print(json.dumps({'split': split(HERE)}), flush=True)
+    for root in args.roots.split(','):
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               '--one', root], cwd=root, capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise SystemExit('{} failed:\n{}'.format(root, proc.stderr[-4000:]))
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip())
+
+
+if __name__ == '__main__':
+    main()

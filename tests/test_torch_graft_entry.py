@@ -3,8 +3,10 @@ the CPU: ``entry(device='cpu')``'s step on the example frames against
 ``__graft_entry__.entry()``'s jitted step (mask and ids equal, positions
 within 2e-4 px, the frames-mode GSFF residue of
 tests/test_torch_track_bacteria.py::test_frames_mode_rows_match_jax), and
-``dryrun_multichip(4, device='cpu')`` on a 4-entry CPU mesh; both
-default to ``cuda`` and raise without a GPU."""
+``dryrun_multichip(4, device='cpu')`` on a 4-entry CPU mesh, its
+pipeline leg (``track_bacteria`` through the dense-assignment gate,
+``track_videos_sharded`` on two clips) included; both default to ``cuda``
+and raise without a GPU."""
 
 import jax
 import numpy as np
@@ -37,7 +39,19 @@ def test_entry_matches_jax_entry():
 
 
 def test_dryrun_multichip_on_a_cpu_mesh():
-    graft_entry.dryrun_multichip(4, device='cpu')
+    rows = graft_entry.dryrun_multichip(4, device='cpu')
+    # the pipeline leg: track_videos_sharded wrote rows for both clips
+    assert sorted(rows) == ['a.avi', 'b.avi'] and all(rows.values()), rows
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             graft_entry.dryrun_multichip(4)
+
+
+def test_dryrun_pipeline_leg_on_a_two_entry_cpu_mesh():
+    """The pipeline leg alone: track_bacteria through the dense-assignment
+    gate (shut: the CPU counts one device) and track_videos_sharded with
+    the two clips split over a 2-entry mesh, rows for both."""
+    from ysmr_tpu_torch.parallel import sharding as shd
+    rows = graft_entry._dryrun_pipeline_entries(
+        shd.make_mesh(2, device='cpu'), 'cpu')
+    assert sorted(rows) == ['a.avi', 'b.avi'] and all(rows.values()), rows

@@ -166,6 +166,9 @@ def load_kernels():
     lib.ysmr_cc_reconstruct.argtypes = [vp] * 5 + [ci, ci, ci, ci, vp]
     lib.ysmr_cc_pixels.restype = ci
     lib.ysmr_cc_pixels.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ysmr_adaptive_mean.restype = ci
+    lib.ysmr_adaptive_mean.argtypes = [vp, vp, ctypes.POINTER(
+        ctypes.c_float)] + [ci] * 4 + [vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

@@ -6,8 +6,9 @@
 Counterpart of ``ysmr_tpu/ops/preprocess.py``: the device half of frames
 mode (``bgr_to_gray``, ``blur3``, ``adaptive_gaussian_mean``,
 ``adaptive_threshold``, ``global_threshold``, ``frame_mean_std_sums``,
-``detect_masks``) as plain PyTorch on (T, H, W) tensors of any device, and
-the host helpers, copied unchanged. The JAX module's docstring gives the
+``detect_masks``) as plain PyTorch on (T, H, W) tensors of the CPU or a
+GPU, but for the adaptive mean, a hand-written kernel on a GPU (below),
+and the host helpers, copied unchanged. The JAX module's docstring gives the
 OpenCV recipes each function reproduces.
 
 Bits that differ by construction and what the port does about them:
@@ -17,19 +18,25 @@ Bits that differ by construction and what the port does about them:
   ``fma(p0, k0, p1 * k1)`` followed by ``fma(p_i, k_i, acc)`` for
   i = 2..10 (measured on 1.1 M pixels: equal in every accumulator bit);
   the unfused products differ in about a third of the accumulators and in
-  the rounded mean of a few pixels per million. The port forms those fmas
-  exactly (``ds.fma_f32``), so the CPU and CUDA agree in every bit with
-  each other and with the jitted JAX function. No convolution routine is
-  used: its summation order (and TF32 on the GPU) would differ.
+  the rounded mean of a few pixels per million. On a CUDA tensor
+  ``adaptive_gaussian_mean`` launches the hand-written kernel
+  ``csrc/adaptive_mean.cu``, which forms those fmas with ``__fmaf_rn`` in
+  one pass. The plain version, ``adaptive_gaussian_mean_plain``, forms them
+  exactly in float64 (``ds.fma_f32``); it is what a CPU tensor runs and
+  what the tests hold to the jitted JAX function. Both give the same bits.
+  No convolution routine is used: its summation order (and TF32 on the
+  GPU) would differ.
 - The integer sums of ``frame_mean_std_sums`` widen to int64 in PyTorch;
   they are cast back to int32, the JAX types (no sum overflows).
 """
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
+from ysmr_tpu_torch import _build
 from ysmr_tpu_torch.ops import ds
 
 _I32 = torch.int32
@@ -51,6 +58,8 @@ def _gaussian_kernel_11():
 
 
 _K11_F32 = _gaussian_kernel_11()
+#: the same taps as the kernel's argument (11 float32 values in host memory)
+_K11_C = (ctypes.c_float * 11)(*(float(v) for v in _K11_F32))
 
 
 def bgr_to_gray(frames_bgr):
@@ -105,7 +114,7 @@ def _taps11(p, dim, k):
     return acc
 
 
-def adaptive_gaussian_mean(img):
+def adaptive_gaussian_mean_plain(img):
     """The 11x11 Gaussian-weighted local mean of cv2.adaptiveThreshold:
     float32 separable taps of ``getGaussianKernel(11, 0)``, replicate
     border, ``floor(acc + 0.5)``. int32 (T, H, W) in and out."""
@@ -116,6 +125,38 @@ def adaptive_gaussian_mean(img):
         acc = _taps11(_taps11(p, -1, k), -2, k)
         out.append(torch.floor(acc + 0.5).to(_I32))
     return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def adaptive_gaussian_mean(img):
+    """The adaptive mean (contract of ``adaptive_gaussian_mean_plain``):
+    a CPU tensor goes to the plain version, a CUDA tensor to the kernel of
+    ``csrc/adaptive_mean.cu``; nothing falls back from one to the other.
+
+    :param img: (T, H, W) int32, contiguous
+    :return: (T, H, W) int32
+    """
+    if img.dim() != 3 or img.dtype != _I32 or not img.is_contiguous():
+        raise ValueError('adaptive_gaussian_mean: img must be a contiguous '
+                         '(T, H, W) int32 tensor')
+    if img.device.type == 'cpu':
+        return adaptive_gaussian_mean_plain(img)
+    if img.device.type != 'cuda':
+        raise ValueError('adaptive_gaussian_mean: unsupported device '
+                         '{}'.format(img.device))
+    out = torch.empty_like(img)
+    if img.numel() == 0:
+        return out
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    rc = lib.ysmr_adaptive_mean(img.data_ptr(), out.data_ptr(), _K11_C,
+                                *img.shape, img.device.index, stream)
+    _build.check(lib, rc, 'adaptive mean kernel launch')
+    adaptive_gaussian_mean.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+adaptive_gaussian_mean.launches = 0
 
 
 def _adaptive_rule(img, mean, c_offset, white_on_dark):
