@@ -38,8 +38,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 7. the dense path at full width on ``cuda``: the dense scene (150 frames
    of 1228x922, 3000 rods, seed 125; bench.py ``measure_dense_e2e``) in
    memory through the stage-1 loop (stage split), then written as MJPG
-   through ``track_bacteria(path)``: every kernel launched, the track
-   count within 2899 +- 10, no dropped registration, id agreement against
+   through ``track_bacteria(path)``: every kernel launched (the GSFF
+   kernel once per frame step, as the assign kernel), the track count
+   within 2899 +- 10, no dropped registration, id agreement against
    ``bench_data/dense_clip_list.csv.gz`` printed;
 8. ``cuda`` against ``cpu`` on the dense scene's first batch (64 frames)
    at dense capacities: TRACK_ID and POSITION_T identical, the other
@@ -130,8 +131,8 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    kernels 2-6 and the adaptive mean launched (the counts per device step
    printed), the assign kernel once per frame of a device step (the
    tracker batched over the step's videos: 16 steps x 16 frames = 256),
-   the adaptive mean once per device step (16), the sharded run's wall
-   time and frames/s beside the solo runs' sum;
+   the GSFF kernel as often, the adaptive mean once per device step (16),
+   the sharded run's wall time and frames/s beside the solo runs' sum;
 24. the program with ``shard videos across devices`` in its tracking.ini:
    ``python -m ysmr_tpu_torch <phase 23's four clips> --serial`` and once
    without ``--serial``: exit 0, every clip's stage outputs, the lists
@@ -166,13 +167,27 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    +-70,000; median ms of the kernel, the plain version and the
    ``F.conv2d`` yardstick (TF32 off; timed, not bit-equal), with the
    bound and the share. The frames path's phases (10, 16, 23) fail
-   unless it was launched; phase 23 holds it to one launch a device step.
+   unless it was launched; phase 23 holds it to one launch a device step;
+29. the GSFF kernel (``csrc/gsff.cu``, the tracker's register fill and
+   filter step) against its plain version on the card, bit-equal, one
+   launch a call, its inputs untouched: every frame step's call of the
+   dense scene's first batch (and the whole scan with the plain version
+   swapped in, every emission and state tensor bit-equal), random mid-run
+   states at N = 4096 and 4 x 1024, and the edge cases of
+   ``tests/test_torch_gsff.py`` (N = 1 and 4095, all slots inactive, all
+   registering, the n_max 256 / n_f 8 bank, +-1e4 px); median ms of the
+   kernel and the plain version with the bound; then the dense frame
+   step's kernels (``torch.profiler``) and wall time at V = 1 and V = 4
+   (``tracker_step_launches.measure``),
+   with the kernel and with the plain version swapped in (at most 200
+   kernels with the kernel). The dense, frames, luminosity and
+   multi-video phases (7, 10, 14-16, 23, 24) fail unless it was launched.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (eight kernels: the
-seven TPU kernels' ports and the adaptive mean, each with its bound and
-the library call where one exists), ``nvidia-smi``'s card name and power
-limit, and the result JSON.
+The last three lines are the ``kernels`` JSON record (nine kernels: the
+seven TPU kernels' ports, the adaptive mean and the GSFF step, each with
+its bound and the library call where one exists), ``nvidia-smi``'s card
+name and power limit, and the result JSON.
 """
 
 import configparser
@@ -191,10 +206,13 @@ import numpy as np
 import pandas as pd
 import torch
 
+import tracker_step_launches as tsl
+
 from ysmr_tpu_torch import _build, graft_entry, native
 from ysmr_tpu_torch.config import default_config_dict, get_configs
 from ysmr_tpu_torch.io.preproc import HostPreprocessor
 from ysmr_tpu_torch.ops import assignment, cc, labeling, run_cc
+from ysmr_tpu_torch.ops import gsff as gsff_ops
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.assign import row_min_argmin
 from ysmr_tpu_torch.ops.gsff import GSFFParams
@@ -964,7 +982,7 @@ class WarningCounter(logging.Handler):
 
 
 KERNELS = (propagate_min_fused, hull_edge_vectors, sweep_extents,
-           row_min_argmin)
+           row_min_argmin, gsff_ops.register_and_step)
 
 
 def reset_launches():
@@ -1043,6 +1061,10 @@ def phase_dense_path(scene, frames, settings):
     if min(launches.values()) <= 0:
         raise SystemExit('dense clip: a kernel was never launched: {}'.format(
             launches))
+    if launches['register_and_step'] != launches['row_min_argmin']:
+        raise SystemExit('dense clip: {} GSFF launches, not one per frame '
+                         'step ({})'.format(launches['register_and_step'],
+                                            launches['row_min_argmin']))
     return launches, dense_bytes
 
 
@@ -1115,7 +1137,8 @@ def phase_dense_cuda_vs_cpu(frames, settings):
 FRAMES = {'transfer mode': 'frames'}
 CC_KERNELS = (cc.label_components_whole_frame, cc.binary_reconstruct)
 FRAMES_KERNELS = CC_KERNELS + (hull_edge_vectors, sweep_extents,
-                               row_min_argmin, pp.adaptive_gaussian_mean)
+                               row_min_argmin, pp.adaptive_gaussian_mean,
+                               gsff_ops.register_and_step)
 
 
 def bench_masks(scene, settings, dev, t=64):
@@ -1802,7 +1825,7 @@ def phase_lum_bench(frames, settings):
     lset = {**settings, **LUM}
     df, launches, fps = track_clip(
         'lum_clip', os.path.join(WORK, 'bench_clip.avi'), lset,
-        (cc.cc_labels_at_pixels, row_min_argmin))
+        (cc.cc_labels_at_pixels, row_min_argmin, gsff_ops.register_and_step))
     log('bench clip with luminosity and GSFF via track_bacteria(path) on '
         'cuda: rows {} tracks {} {:.2f} fps end to end (decode included), '
         'kernel launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(),
@@ -1849,7 +1872,7 @@ def phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev):
     df, launches, fps = track_clip(
         'lum_dense_clip', os.path.join(WORK, 'dense_clip.avi'), lset,
         (cc.cc_labels_at_pixels, hull_edge_vectors, sweep_extents,
-         row_min_argmin))
+         row_min_argmin, gsff_ops.register_and_step))
     log('dense clip with luminosity via track_bacteria(path) on cuda: rows '
         '{} tracks {} {:.2f} fps end to end (decode included), kernel '
         'launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(), fps,
@@ -1950,6 +1973,7 @@ if __name__ == '__main__':
     from ysmr_tpu_torch.ops.cc import (binary_reconstruct,
                                        cc_labels_at_pixels,
                                        label_components_whole_frame)
+    from ysmr_tpu_torch.ops.gsff import register_and_step
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
     from ysmr_tpu_torch.ops.preprocess import adaptive_gaussian_mean
     from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
@@ -1971,7 +1995,7 @@ if __name__ == '__main__':
     kernels = (propagate_min_fused, hull_edge_vectors, sweep_extents,
                row_min_argmin, label_components_whole_frame,
                binary_reconstruct, cc_labels_at_pixels,
-               adaptive_gaussian_mean)
+               adaptive_gaussian_mean, register_and_step)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2456,7 +2480,7 @@ MV_SETTINGS = {'frame batch size': 16, 'transfer mode': 'frames',
                'minimal frame count': 32}
 MV_KERNELS = (row_min_argmin, hull_edge_vectors, sweep_extents,
               cc.label_components_whole_frame, cc.binary_reconstruct,
-              pp.adaptive_gaussian_mean)
+              pp.adaptive_gaussian_mean, gsff_ops.register_and_step)
 
 
 def list_bytes(path):
@@ -2525,11 +2549,11 @@ def phase_multi_video(settings):
                          'launched: {}'.format(launches))
     # the tracker runs once over each device step's videos: one assign
     # launch per frame of a step, whatever the videos in it
-    if launches['row_min_argmin'] != steps * batch:
-        raise SystemExit('multi-video: {} assign launches, not one per frame '
-                         'of the {} device steps ({})'.format(
-                             launches['row_min_argmin'], steps,
-                             steps * batch))
+    for name in ('row_min_argmin', 'register_and_step'):
+        if launches[name] != steps * batch:
+            raise SystemExit('multi-video: {} {} launches, not one per frame '
+                             'of the {} device steps ({})'.format(
+                                 launches[name], name, steps, steps * batch))
     # and one frames-mode detect per device step: one adaptive mean
     if launches['adaptive_gaussian_mean'] != steps:
         raise SystemExit('multi-video: {} adaptive-mean launches, not one per '
@@ -2820,6 +2844,24 @@ def check_batched_assign(rng, dev):
                                                                 cdist_ms))
 
 
+def dense_tracker_inputs(dframes, dsettings, dev, t=64):
+    """The dense scene's first ``t`` frames through the frames-mode detect
+    on the card: the tracker's (det_xy, det_info, det_valid) tables, the
+    GSFF bank of the settings and ``run_tracker_scan``'s keywords."""
+    bgr = torch.from_numpy(np.stack([cv2.cvtColor(f, cv2.COLOR_GRAY2BGR)
+                                     for f in dframes[:t]])).to(dev)
+    tables = detect.detect_batch(bgr, torch.ones(t, dtype=torch.bool,
+                                                 device=dev),
+                                 detect.DetectorConfig(dsettings))
+    params = GSFFParams(fps=FPS, n_min=dsettings['minimum horizon size'],
+                        n_max=dsettings['maximum horizon size'],
+                        n_f=dsettings['number of LSFFs'])
+    tkw = dict(max_disappeared=float(FPS), use_gsff=True,
+               **trk.gsff_kwargs(params, dev))
+    return [tables[k] for k in ('det_xy', 'det_info', 'det_valid')], params, \
+        tkw
+
+
 def phase_batched_tracker(dframes, dsettings, dev):
     """Phase 27: the batched assign kernel (``check_batched_assign``), then
     the dense scene's first batch (64 frames at the dense capacities, GSFF)
@@ -2829,18 +2871,8 @@ def phase_batched_tracker(dframes, dsettings, dev):
     64, and the wall time per frame step of each."""
     check_batched_assign(np.random.default_rng(SEED + 27), dev)
     t, v = 64, 4
-    bgr = torch.from_numpy(np.stack([cv2.cvtColor(f, cv2.COLOR_GRAY2BGR)
-                                     for f in dframes[:t]])).to(dev)
-    tables = detect.detect_batch(bgr, torch.ones(t, dtype=torch.bool,
-                                                 device=dev),
-                                 detect.DetectorConfig(dsettings))
-    split = [tables[k].reshape((v, t // v) + tuple(tables[k].shape[1:]))
-             for k in ('det_xy', 'det_info', 'det_valid')]
-    params = GSFFParams(fps=FPS, n_min=dsettings['minimum horizon size'],
-                        n_max=dsettings['maximum horizon size'],
-                        n_f=dsettings['number of LSFFs'])
-    tkw = dict(max_disappeared=float(FPS), use_gsff=True,
-               **trk.gsff_kwargs(params, dev))
+    tables, params, tkw = dense_tracker_inputs(dframes, dsettings, dev, t)
+    split = [x.reshape((v, t // v) + tuple(x.shape[1:])) for x in tables]
     slots = dsettings['max track slots']
 
     def fresh():
@@ -2971,6 +3003,203 @@ def phase_adaptive_mean(scene, dscene, dev):
     return checks[0]
 
 
+# ---- the GSFF block ----
+
+#: phase 29's edge cases (tests/test_torch_gsff.py's cuda twin): name,
+#: slots, GSFFParams keywords besides fps, kind of slots, coordinate span
+GSFF_EDGES = (
+    ('N = 1', 1, {}, 'mixed', 400), ('N = 4095', 4095, {}, 'mixed', 400),
+    ('all inactive', 4096, {}, 'inactive', 400),
+    ('all registering', 4096, {}, 'registering', 400),
+    ('n_max 256, n_f 8', 1024, {'n_max': 256, 'n_f': 8}, 'mixed', 400),
+    ('+-1e4 px', 4096, {}, 'mixed', 1e4))
+
+
+def gsff_case(rng, n, params, dev, kind='mixed', span=400):
+    """``register_and_step``'s arguments on the card for a random mid-run
+    state of ``n`` slots (tests/test_torch_gsff.py::_mixed_case): rings
+    that random-walk from up to ``span`` px (shifted into +-span beyond
+    1228), the modes the ring allows, a third of them lower, matched,
+    coasting, registering and inactive slots mixed (or all inactive, or
+    all registering)."""
+    st = {k: v.numpy() for k, v in gsff_ops.init_state(params, n,
+                                                        'cpu').items()}
+    width = min(span, W)
+    base = rng.uniform(50, width, (n, 1, 2))
+    if span > W:
+        base = base + rng.uniform(-span, span - W, (n, 1, 1))
+    st['buf'] = (base + np.cumsum(rng.normal(0, 1, (n, params.buf_len, 2)),
+                                  axis=1)).astype(np.float32)
+    st['buf_lo'] = (rng.uniform(-1, 1, st['buf'].shape) * 1e-6).astype(
+        np.float32)
+    st['len'] = rng.integers(0, params.buf_len + 1, n).astype(np.int32)
+    mode = (st['len'][:, None] >= np.asarray(params.n_i)[None]).sum(1)
+    low = (rng.random(n) < 0.3) & (mode > 0)
+    st['mode'] = np.where(low, rng.integers(0, np.maximum(mode, 1)),
+                          mode).astype(np.int32)
+    st['log_w'] = np.where(
+        np.arange(params.n_f)[None] < st['mode'][:, None],
+        np.log(rng.dirichlet(np.ones(params.n_f), n)),
+        gsff_ops.NEG_INF).astype(np.float32)
+    st['pred_lo'] = (rng.uniform(-1, 1, (n, 2)) * 1e-6).astype(np.float32)
+    meas = (st['buf'][:, -1] + rng.normal(0, 1, (n, 2))).astype(np.float32)
+    sort = rng.integers(0, 4, n)  # matched, coasting, registering, inactive
+    active, reg, coast = sort != 3, sort == 2, sort == 1
+    if kind == 'inactive':
+        active, reg, coast = (np.zeros(n, bool),) * 3
+    elif kind == 'registering':
+        active, reg, coast = np.ones(n, bool), np.ones(n, bool), \
+            np.zeros(n, bool)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (params.gains_on(dev),
+            torch.tensor(params.n_i, dtype=torch.int32, device=dev),
+            params.n_f, params.n_i[0], {k: put(v) for k, v in st.items()},
+            put(meas), put(active), put(reg), put(coast))
+
+
+def gsff_ops_count(args):
+    """Float operations of one GSFF step on its active slots: two windows
+    of 2 n_max double-single differences (11 operations each), 4 n_f dots
+    of a double-single product (24) and add (11) per entry (the tree's
+    adds and the center's), and about 60 per filter for the weights and
+    sums."""
+    gains, _, n_f, _, _, _, active = args[:7]
+    w2 = gains.shape[-1]
+    per = 2 * 11 * w2 + 4 * n_f * 35 * w2 + 60 * n_f
+    return int(active.sum()) * per
+
+
+def gsff_tensors(args):
+    gains, n_i, _, _, state, m, active, reg, coast = args
+    return [gains, n_i] + [state[k] for k in gsff_ops.STATE_KEYS] + \
+        [m, active, reg, coast]
+
+
+def gsff_outputs(out):
+    state, corrected, predicted = out
+    return [state[k] for k in gsff_ops.STATE_KEYS] + [corrected, predicted]
+
+
+def check_gsff(name, args, timed=False):
+    """The GSFF kernel against its plain version on the same card tensors:
+    every output bit-equal, one launch, the inputs untouched; with
+    ``timed``, median ms of each and the bound (``check_equal``)."""
+    before = [x.clone() for x in gsff_tensors(args)]
+    gsff_ops.register_and_step.launches = 0
+    got = gsff_outputs(gsff_ops.register_and_step(*args))
+    want = gsff_outputs(gsff_ops.register_and_step_plain(*args))
+    torch.cuda.synchronize()
+    if gsff_ops.register_and_step.launches != 1:
+        raise SystemExit('gsff {}: {} launches, not 1'.format(
+            name, gsff_ops.register_and_step.launches))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit('gsff {}: kernel != plain (max |diff| {})'.format(
+            name, max_abs_err(got, want)))
+    if not all(torch.equal(a, b) for a, b in zip(gsff_tensors(args),
+                                                  before)):
+        raise SystemExit('gsff {}: the kernel wrote into its inputs'.format(
+            name))
+    if not timed:
+        return None
+    return check_equal(
+        'gsff ' + name,
+        lambda *_: gsff_outputs(gsff_ops.register_and_step(*args)),
+        lambda *_: gsff_outputs(gsff_ops.register_and_step_plain(*args)),
+        gsff_tensors(args), gsff_ops_count(args), reps=20)
+
+
+def frame_step(v, params, dev, plain):
+    """``tracker_step_launches.measure`` (the dense frame step: 4096
+    slots, 4096 detections, 3000 live) at V videos with the GSFF kernel
+    or, with ``plain``, its plain version swapped in: (kernels of the
+    step, median ms per frame step)."""
+    kernel = gsff_ops.register_and_step
+    if plain:
+        gsff_ops.register_and_step = gsff_ops.register_and_step_plain
+    try:
+        out = tsl.measure(trk, params, v, dev)
+    finally:
+        gsff_ops.register_and_step = kernel
+    return out['frame_step']['kernels'], out['ms_per_frame_step']
+
+
+def phase_gsff(dframes, dsettings, settings, dev):
+    """Phase 29: the GSFF kernel against its plain version on the card:
+    each frame step's call of the dense first batch and that scan with the
+    plain version swapped in, random mid-run states at N = 4096 (timed,
+    with the bound) and 4 x 1024, the edge cases; the dense frame step's
+    kernels and wall time at V = 1 and 4 with the kernel and with the
+    plain version. Returns the timed dense-batch check."""
+    t = 64
+    tables, params, tkw = dense_tracker_inputs(dframes, dsettings, dev, t)
+    slots = dsettings['max track slots']
+    kernel = gsff_ops.register_and_step
+    calls, scans = [], {}
+    for name in ('kernel', 'plain'):
+        def record(*args, step=gsff_ops.register_and_step_plain
+                   if name == 'plain' else kernel):
+            calls.append(args)
+            return step(*args)
+        # the wrapper counts on the module's name, the recorder meanwhile
+        record.launches = 0
+        gsff_ops.register_and_step = record
+        try:
+            scans[name] = trk.run_tracker_scan(
+                trk.init_tracker_state(slots, dev, use_gsff=True,
+                                       gsff_params=params), *tables, **tkw)
+        finally:
+            gsff_ops.register_and_step = kernel
+    torch.cuda.synchronize()
+    (k_state, k_em), (p_state, p_em) = scans['kernel'], scans['plain']
+    same = [torch.equal(k_em[key], p_em[key]) for key in k_em] + \
+        [torch.equal(k_state['gsff'][key], p_state['gsff'][key])
+         for key in gsff_ops.STATE_KEYS] + \
+        [torch.equal(k_state[key], p_state[key]) for key in k_state
+         if key != 'gsff']
+    if len(calls) != 2 * t or not all(same):
+        raise SystemExit('gsff: the dense first batch with the kernel differs '
+                         'from the scan with the plain version ({} calls)'
+                         .format(len(calls)))
+    for i, args in enumerate(calls[:t]):
+        check_gsff('dense first batch, frame {}'.format(i), args)
+    live = int(calls[t // 2][6].sum())
+    dense = check_gsff('dense first batch, frame {} ({} active of {} '
+                       'slots)'.format(t // 2, live, slots), calls[t // 2],
+                       timed=True)
+    log('gsff: the dense first batch ({} frames, {} live emissions) with the '
+        'kernel bit-equal to the scan with the plain version; each frame '
+        'step\'s call bit-equal to the plain version on its inputs'.format(
+            t, int(k_em['mask'].sum())))
+    rng = np.random.default_rng(SEED + 29)
+    bench = GSFFParams(fps=FPS, n_min=settings['minimum horizon size'],
+                       n_max=settings['maximum horizon size'],
+                       n_f=settings['number of LSFFs'])
+    check_gsff('random mid-run state, N = 4096',
+               gsff_case(rng, slots, params, dev), timed=True)
+    check_gsff('random mid-run state, 4 x 1024 (a device step of phase 23)',
+               gsff_case(rng, 4 * settings['max track slots'], bench, dev),
+               timed=True)
+    for name, n, bank, kind, span in GSFF_EDGES:
+        check_gsff(name, gsff_case(rng, n, GSFFParams(fps=FPS, **bank), dev,
+                                   kind, span))
+    log('gsff edge cases {}: kernel bit-equal to the plain version, one '
+        'launch a call, inputs untouched'.format([e[0] for e in GSFF_EDGES]))
+    default = GSFFParams(fps=FPS)
+    for v in (1, 4):
+        step = {name: frame_step(v, default, dev, name == 'plain')
+                for name in ('kernel', 'plain')}
+        log('gsff: dense frame step at V = {}: {} kernels and {:.3f} ms with '
+            'the GSFF kernel, {} kernels and {:.3f} ms with the plain '
+            'version'.format(v, *step['kernel'], *step['plain']))
+        if step['kernel'][0] > 200:
+            raise SystemExit('gsff: the dense frame step launches {} kernels, '
+                             'above 200'.format(step['kernel'][0]))
+    return dense
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -3017,6 +3246,7 @@ def main():
         phase_keep_and_entry(scene, settings, dev)
         phase_batched_tracker(dframes, dsettings, dev)
         mean_check, mean_conv_ms = phase_adaptive_mean(scene, dscene, dev)
+        gsff_check = phase_gsff(dframes, dsettings, settings, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -3045,6 +3275,10 @@ def main():
         'ysmr_tpu/ops/preprocess.py:69',
         frames_runs['bench']['adaptive_gaussian_mean'], mean_check,
         library_ms=mean_conv_ms))
+    records.append(kernel_record(
+        'gsff_step', 'ysmr_tpu_torch/csrc/gsff.cu',
+        'ysmr_tpu/ops/gsff.py:190 _step (plain XLA)',
+        dense_launches['register_and_step'], gsff_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

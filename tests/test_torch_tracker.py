@@ -14,6 +14,7 @@ Tolerances and why:
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -201,20 +202,57 @@ def _random_gsff_state(rng, s, jp, width=400):
     st['buf_lo'] = (rng.uniform(-1, 1, st['buf'].shape) * 1e-6).astype(
         np.float32)
     st['len'] = rng.integers(0, jp.buf_len + 1, s).astype(np.int32)
-    st['mode'] = np.minimum(st['len'] // 10, 3).astype(np.int32)
-    st['log_w'] = np.where(np.arange(3)[None] < st['mode'][:, None],
-                           np.log(rng.dirichlet(np.ones(3), s)),
+    # the filters whose horizon the ring has reached
+    st['mode'] = (st['len'][:, None] >= np.asarray(jp.n_i)[None]).sum(
+        1).astype(np.int32)
+    st['log_w'] = np.where(np.arange(jp.n_f)[None] < st['mode'][:, None],
+                           np.log(rng.dirichlet(np.ones(jp.n_f), s)),
                            gsff.NEG_INF).astype(np.float32)
     return st
 
 
-def _both_steps(jp, tp, st, meas, active, mlo):
-    jst, jcor, jpred = jgsff.step(jp, st, meas, active, mlo)
-    tst, tcor, tpred = gsff.step(
-        tp, tp.gains_on('cpu'), {k: torch.from_numpy(np.array(v))
-                                 for k, v in st.items()},
-        torch.from_numpy(meas), torch.from_numpy(active),
-        torch.from_numpy(mlo))
+def _jax_register_fill(jp, st, register, meas):
+    """The register fill inlined in ysmr_tpu's tracker frame step
+    (ysmr_tpu/pipeline/tracker.py): the ring filled with the measurement,
+    the first horizon's length, no mode, no weights."""
+    m = jnp.asarray(meas, jnp.float32)
+    reg = jnp.asarray(register)
+    return {
+        'buf': jnp.where(reg[:, None, None],
+                         jnp.broadcast_to(m[:, None, :], st['buf'].shape),
+                         st['buf']),
+        'buf_lo': jnp.where(reg[:, None, None], 0.0, st['buf_lo']),
+        'len': jnp.where(reg, jnp.int32(jp.n_i[0]), st['len']),
+        'mode': jnp.where(reg, 0, st['mode']),
+        'log_w': jnp.where(reg[:, None], jgsff.NEG_INF, st['log_w']),
+        'pred_lo': jnp.where(reg[:, None], 0.0, st['pred_lo']),
+    }
+
+
+def _both_steps(jp, tp, st, meas, active, mlo=None, register=None,
+                coasting=None):
+    """One filter step of both packages from the numpy state ``st``: with
+    ``mlo`` their ``step``; with ``register`` and ``coasting`` the
+    tracker's GSFF block, ysmr_tpu's inlined fill and ``_step`` against
+    the port's ``register_and_step`` (a coasting slot's lo half is its
+    ``pred_lo``)."""
+    tstate = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+    if register is None:
+        jst, jcor, jpred = jgsff.step(jp, st, meas, active, mlo)
+        tst, tcor, tpred = gsff.step(
+            tp, tp.gains_on('cpu'), tstate, torch.from_numpy(meas),
+            torch.from_numpy(active), torch.from_numpy(mlo))
+    else:
+        jmlo = np.where(coasting[:, None], st['pred_lo'], 0.0).astype(
+            np.float32)
+        jst, jcor, jpred = jgsff._step(
+            jp.gains, jp.n_i_arr, jp.n_f,
+            _jax_register_fill(jp, st, register, meas), meas, active, jmlo)
+        tst, tcor, tpred = gsff.register_and_step(
+            tp.gains_on('cpu'), torch.tensor(tp.n_i, dtype=torch.int32),
+            tp.n_f, tp.n_i[0], tstate, torch.from_numpy(meas),
+            torch.from_numpy(active), torch.from_numpy(register),
+            torch.from_numpy(coasting))
     return (jst, np.asarray(jcor), np.asarray(jpred)), \
         (tst, tcor.numpy(), tpred.numpy())
 

@@ -20,7 +20,10 @@ kernels can be traced in one run with the same inputs. The inputs are
 - ``pixels``: ``cc_labels_at_pixels`` on the pixel lists of the bench and
   dense batches (double and single threshold) and of the random blobs;
 - ``assign``: ``row_min_argmin`` at 4096x4096 (K = 2 and 3) and
-  16384x16384.
+  16384x16384;
+- ``gsff``: ``register_and_step`` (the tracker's GSFF block) on random
+  mid-run states of 4096 slots with the default bank and of 1024 slots
+  with n_max 256 and 8 filters (phase 29's).
 
 With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
 3000 rods) in memory through the stage-1 loop N times, the device path
@@ -45,7 +48,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign')
+GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign', 'gsff')
 
 
 def parse_args():
@@ -220,6 +223,18 @@ def trace_assign(smoke, args, dev):
               lambda: row_min_argmin(*a), args.reps, smoke)
 
 
+def trace_gsff(smoke, args, dev):
+    import numpy as np
+    from ysmr_tpu_torch.ops.gsff import GSFFParams, register_and_step
+    rng = np.random.default_rng(smoke.SEED + 29)
+    for n, bank in ((4096, {}), (1024, {'n_max': 256, 'n_f': 8})):
+        params = GSFFParams(fps=smoke.FPS, **bank)
+        a = smoke.gsff_case(rng, n, params, dev)
+        trace('register_and_step N={} n_max={} n_f={} ({} active)'.format(
+            n, params.n_max, params.n_f, int(a[6].sum())),
+            lambda: register_and_step(*a), args.reps, smoke)
+
+
 def end_to_end(smoke, args):
     """The smoke's scenes in memory through the stage-1 loop on cuda:
     frames/s and stage split of each run."""
@@ -272,7 +287,7 @@ def main():
     dev = torch.device('cuda', 0)
     tracers = {'run_prop': trace_run_prop, 'cc': trace_cc,
                'rects': trace_rects, 'pixels': trace_pixels,
-               'assign': trace_assign}
+               'assign': trace_assign, 'gsff': trace_gsff}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

@@ -19,6 +19,7 @@ timed on the host clock with the card synchronised (median and each).
 ``--videos 4`` also runs the step over four videos at once (a tree whose
 ``run_tracker_scan`` takes a leading video axis). Prints one JSON line
 per V, then the card's name and power limit from ``nvidia-smi``.
+``chip_smoke.py`` calls ``measure`` (phase 29).
 """
 
 import argparse
@@ -61,6 +62,50 @@ def count(prof):
     return kernels, memops, launches
 
 
+def measure(trk, params, v, dev):
+    """One dense frame step of ``trk`` (a checkout's
+    ``ysmr_tpu_torch.pipeline.tracker``) at V videos with the GSFF bank
+    ``params``: the device kernels, memsets and copies and runtime launch
+    calls of the step and of a one-frame scan, and the host-clock ms per
+    frame step of five 16-frame scans (median and each)."""
+    from torch.profiler import ProfilerActivity, profile
+    kwargs = dict(max_disappeared=30.0, use_gsff=True,
+                  **trk.gsff_kwargs(params, dev))
+    data = tables(np.random.default_rng(0), 24, v, dev)
+
+    def frames(a, b):
+        return [x[0, a:b] if v == 1 else x[:, a:b] for x in data]
+
+    state = trk.init_tracker_state(SLOTS, dev, use_gsff=True,
+                                   gsff_params=params)
+    if v > 1:
+        state = {k: (torch.stack([x] * v) if torch.is_tensor(x) else
+                     {g: torch.stack([y] * v) for g, y in x.items()})
+                 for k, x in state.items()}
+    state, _ = trk.run_tracker_scan(state, *frames(0, 4), **kwargs)
+    counts = {}
+    for n in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trk.run_tracker_scan(state, *frames(4, 4 + n), **kwargs)
+            torch.cuda.synchronize()
+        counts[n] = count(prof)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trk.run_tracker_scan(state, *frames(4, 20), **kwargs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / 16 * 1e3)
+    step = [b - a for a, b in zip(counts[1], counts[2])]
+    names = ('kernels', 'memops', 'launch_calls')
+    return {'frame_step': dict(zip(names, step)),
+            'scan_of_one_frame': dict(zip(names, counts[1])),
+            'ms_per_frame_step': float(np.median(walls)),
+            'ms_per_frame_step_each': walls}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--root', default=os.path.dirname(os.path.abspath(
@@ -75,49 +120,11 @@ def main():
     from ysmr_tpu_torch.pipeline import tracker as trk
     dev = torch.device('cuda', 0)
     params = GSFFParams(fps=30.0, n_min=0, n_max=30, n_f=3)
-    kwargs = dict(max_disappeared=30.0, use_gsff=True,
-                  **trk.gsff_kwargs(params, dev))
-    from torch.profiler import ProfilerActivity, profile
-
     for v in (int(x) for x in args.videos.split(',')):
-        rng = np.random.default_rng(0)
-        data = tables(rng, 24, v, dev)
-
-        def frames(a, b):
-            return [x[0, a:b] if v == 1 else x[:, a:b] for x in data]
-
-        state = trk.init_tracker_state(SLOTS, dev, use_gsff=True,
-                                       gsff_params=params)
-        if v > 1:
-            state = {k: (torch.stack([x] * v) if torch.is_tensor(x) else
-                         {g: torch.stack([y] * v) for g, y in x.items()})
-                     for k, x in state.items()}
-        state, _ = trk.run_tracker_scan(state, *frames(0, 4), **kwargs)
-        counts = {}
-        for n in (1, 2):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                trk.run_tracker_scan(state, *frames(4, 4 + n), **kwargs)
-                torch.cuda.synchronize()
-            counts[n] = count(prof)
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trk.run_tracker_scan(state, *frames(4, 20), **kwargs)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) / 16 * 1e3)
-        step = [b - a for a, b in zip(counts[1], counts[2])]
         print(json.dumps({
             'root': os.path.abspath(args.root), 'videos': v,
             'slots': SLOTS, 'detections': DETS, 'live': LIVE,
-            'frame_step': {'kernels': step[0], 'memops': step[1],
-                           'launch_calls': step[2]},
-            'scan_of_one_frame': dict(zip(('kernels', 'memops',
-                                           'launch_calls'), counts[1])),
-            'ms_per_frame_step': float(np.median(walls)),
-            'ms_per_frame_step_each': walls}), flush=True)
+            **measure(trk, params, v, dev)}), flush=True)
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,

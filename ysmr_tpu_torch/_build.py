@@ -169,6 +169,8 @@ def load_kernels():
     lib.ysmr_adaptive_mean.restype = ci
     lib.ysmr_adaptive_mean.argtypes = [vp, vp, ctypes.POINTER(
         ctypes.c_float)] + [ci] * 4 + [vp]
+    lib.ysmr_gsff_step.restype = ci
+    lib.ysmr_gsff_step.argtypes = [vp] * 20 + [ci] * 5 + [vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

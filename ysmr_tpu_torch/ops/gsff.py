@@ -10,6 +10,12 @@ ring, the estimates and the emitted positions. ``generate_n_i``,
 float64 gains also feed the native float64 tracker
 (``native/tracker64.cpp``).
 
+The tracker's frame step calls ``register_and_step``: the register fill
+and one step in one call, on a CUDA tensor one launch of the hand-written
+kernel ``csrc/gsff.cu`` (bit-equal to ``register_and_step_plain``, the
+torch sequence ``register_slots`` + ``_step``), on a CPU tensor the plain
+sequence. Nothing falls back from the kernel to the plain version.
+
 Numerics: the few transcendentals (``exp``, ``log``) run in float64 and
 round to float32, so the CPU and CUDA give the same bits (library float32
 versions differ by an ulp); the three-filter sums are written out as adds
@@ -20,6 +26,7 @@ between devices.
 import numpy as np
 import torch
 
+from ysmr_tpu_torch import _build
 from ysmr_tpu_torch.ops.ds import (add as _ds_add, dot_tree as _ds_dot_tree,
                                    mul as _ds_mul, sub as _ds_sub)
 
@@ -93,6 +100,10 @@ class GSFFParams:
     def gains_on(self, device):
         """The double-single gain pair as a tensor on ``device``."""
         return torch.from_numpy(self.gains_ds).to(device)
+
+
+#: the keys of a GSFF state, in the kernel's argument order
+STATE_KEYS = ('buf', 'buf_lo', 'len', 'mode', 'log_w', 'pred_lo')
 
 
 def init_state(params, max_slots, device):
@@ -269,3 +280,113 @@ def step(params, gains, state, measurements, active, measurements_lo=None):
     ``params.gains_on(device)``."""
     return _step(gains, params.n_i, params.n_f, state, measurements, active,
                  measurements_lo)
+
+
+def register_and_step_plain(gains, n_i, n_f, n_i0, state, m, active,
+                            register, coasting):
+    """The tracker's GSFF block as torch calls: a coasting slot's
+    measurement takes its stored ``pred_lo`` as its lo half, newly
+    registered slots get a fresh state (``register_slots``), then one
+    ``_step``. Contract of ``register_and_step``."""
+    m_lo = torch.where(coasting[:, None], state['pred_lo'],
+                       torch.zeros_like(state['pred_lo']))
+    gstate = register_slots(state, n_i0, register, m)
+    return _step(gains, n_i, n_f, gstate, m, active, measurements_lo=m_lo)
+
+
+#: dynamic shared memory a block of ``csrc/gsff.cu`` may use (bytes)
+MAX_SHARED_BYTES = 232448
+#: threads a block may have
+MAX_BLOCK_THREADS = 1024
+
+
+def kernel_shared_bytes(n_f, n_max):
+    """Shared memory of a one-slot block of ``csrc/gsff.cu``: 4 n_f
+    threads, each a column of n_max (hi, lo) tree entries and its
+    estimate, and the slot's n_f log weights and weights."""
+    return 4 * (4 * n_f * (2 * n_max + 2) + 2 * n_f)
+
+
+def kernel_takes(n_f, n_max):
+    """Whether the kernel takes a bank of ``n_f`` filters and longest
+    horizon ``n_max`` (its cap: one slot's block must fit an SM)."""
+    return 4 * n_f <= MAX_BLOCK_THREADS and \
+        kernel_shared_bytes(n_f, n_max) <= MAX_SHARED_BYTES
+
+
+def register_and_step(gains, n_i, n_f, n_i0, state, m, active, register,
+                      coasting):
+    """The register fill and one correct/predict step for all N slots:
+    ``register_and_step_plain`` on a CPU tensor, one launch of
+    ``csrc/gsff.cu`` on a CUDA tensor (bit-equal). The inputs are never
+    written: every output is a new tensor.
+
+    :param gains: (2, n_f, 2, 2*n_max) float32 double-single gain pair
+    :param n_i: (n_f,) int32 tensor of the filter horizons
+    :param n_f: filters of the bank
+    :param n_i0: the first horizon, the length of a registered slot
+    :param state: the GSFF state: ``buf``, ``buf_lo`` (N, n_max+1, 2)
+        float32, ``len``, ``mode`` (N,) int32, ``log_w`` (N, n_f) float32,
+        ``pred_lo`` (N, 2) float32
+    :param m: (N, 2) float32 measurements
+    :param active, register, coasting: (N,) bool: slots that step, slots
+        registered this frame (filled first), slots whose measurement is
+        their own prediction (its lo half re-attached)
+    :return: (new_state, corrected (N, 2), predicted (N, 2))
+    """
+    buf = state['buf']
+    dev = buf.device
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError('register_and_step: unsupported device {}'.format(
+            dev))
+    if buf.dim() != 3 or buf.shape[1] < 2:
+        raise ValueError('register_and_step: buf must be (N, n_max+1, 2)')
+    n, n_max = buf.shape[0], buf.shape[1] - 1
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    args = (('buf', buf, (n, n_max + 1, 2), f32),
+            ('buf_lo', state['buf_lo'], (n, n_max + 1, 2), f32),
+            ('len', state['len'], (n,), i32),
+            ('mode', state['mode'], (n,), i32),
+            ('log_w', state['log_w'], (n, n_f), f32),
+            ('pred_lo', state['pred_lo'], (n, 2), f32),
+            ('gains', gains, (2, n_f, 2, 2 * n_max), f32),
+            ('n_i', n_i, (n_f,), i32),
+            ('m', m, (n, 2), f32),
+            ('active', active, (n,), b8),
+            ('register', register, (n,), b8),
+            ('coasting', coasting, (n,), b8))
+    for name, a, shape, dtype in args:
+        if not torch.is_tensor(a) or tuple(a.shape) != shape or \
+                a.dtype != dtype or a.device != dev:
+            raise ValueError('register_and_step: {} must be a {} {} tensor '
+                             'on {}'.format(name, shape, dtype, dev))
+    if dev.type == 'cpu':
+        return register_and_step_plain(gains, n_i, n_f, n_i0, state, m,
+                                       active, register, coasting)
+    if not kernel_takes(n_f, n_max):
+        raise ValueError('register_and_step: the kernel takes n_f <= {} and '
+                         '{} bytes of shared memory; n_f {} and n_max {} '
+                         'need {}'.format(MAX_BLOCK_THREADS // 4,
+                                          MAX_SHARED_BYTES, n_f, n_max,
+                                          kernel_shared_bytes(n_f, n_max)))
+    for name, a, _, _ in args:
+        if not a.is_contiguous():
+            raise ValueError('register_and_step: {} must be contiguous'
+                             .format(name))
+    out = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
+    corrected = torch.empty_like(m)
+    predicted = torch.empty_like(m)
+    if n:
+        lib = _build.load_kernels()
+        rc = lib.ysmr_gsff_step(
+            *(a.data_ptr() for _, a, _, _ in args),
+            *(out[k].data_ptr() for k in STATE_KEYS),
+            corrected.data_ptr(), predicted.data_ptr(), n, n_max, n_f,
+            n_i0, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+        _build.check(lib, rc, 'gsff kernel launch')
+        register_and_step.launches += 1
+    return out, corrected, predicted
+
+
+#: kernel launches since the count was last set to 0
+register_and_step.launches = 0

@@ -4,7 +4,9 @@ Counterpart of ``ysmr_tpu/pipeline/tracker.py``, whose docstring sets out
 how the reference's ``CentroidTracker`` (tracker.py:27-230) maps onto a
 slot table: rows in ascending-id order, the greedy first-come match
 (``ops/assignment.py``), ageing and deregistration, registration in
-ascending column order, and the GSFF correct/predict block.
+ascending column order, and the GSFF correct/predict block
+(``ops/gsff.py::register_and_step``: one launch of ``csrc/gsff.cu`` per
+frame step on a CUDA tensor, the plain torch sequence on a CPU one).
 
 ``lax.scan`` becomes a Python loop over the frames of a batch; the frame
 step's shapes are static. The frame step always works over a leading
@@ -275,21 +277,15 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, col_ids, *,
 
     if use_gsff:
         # the filter works per slot: the (V, S) slots flattened to V * S
-        # (views of contiguous tensors) through the unbatched filter step
-        g = state['gsff']
-        flat_active = active_new.flatten()
-        flat_reg = reg_slot.flatten()
-        m = pos_new[..., :2].flatten(0, 1)
-        # a coasting slot (active, unmatched, not newly registered) feeds its
+        # (views of contiguous tensors) through the unbatched filter step;
+        # newly registered slots start with the ring filled with m, and a
+        # coasting slot (active, unmatched, not newly registered) feeds its
         # own stored prediction back, with the lo half re-attached
-        coasting = (active_new & ~matched & ~reg_slot).flatten()
-        m_lo = torch.where(coasting[:, None], g['pred_lo'],
-                           torch.zeros_like(g['pred_lo']))
-        # fresh state for newly-registered slots: the ring filled with m
-        gstate = gsff_ops.register_slots(g, gsff_n_i0, flat_reg, m)
-        gstate, corrected, predicted = gsff_ops._step(
-            gsff_gains, gsff_n_i, gsff_n_f, gstate, m, flat_active,
-            measurements_lo=m_lo)
+        coasting = active_new & ~matched & ~reg_slot
+        gstate, corrected, predicted = gsff_ops.register_and_step(
+            gsff_gains, gsff_n_i, gsff_n_f, gsff_n_i0, state['gsff'],
+            pos_new[..., :2].flatten(0, 1).contiguous(),
+            active_new.flatten(), reg_slot.flatten(), coasting.flatten())
         corrected = corrected.view(v, s, 2)
         predicted = predicted.view(v, s, 2)
         emit_pos = torch.where(active_new[..., None],
