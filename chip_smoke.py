@@ -38,8 +38,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 7. the dense path at full width on ``cuda``: the dense scene (150 frames
    of 1228x922, 3000 rods, seed 125; bench.py ``measure_dense_e2e``) in
    memory through the stage-1 loop (stage split), then written as MJPG
-   through ``track_bacteria(path)``: every kernel launched (the GSFF
-   kernel once per frame step, as the assign kernel), the track count
+   through ``track_bacteria(path)``: every kernel launched (the GSFF,
+   frame-step and merge kernels once per frame step, as the assign
+   kernel), the track count
    within 2899 +- 10, no dropped registration, id agreement against
    ``bench_data/dense_clip_list.csv.gz`` printed;
 8. ``cuda`` against ``cpu`` on the dense scene's first batch (64 frames)
@@ -131,7 +132,8 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    kernels 2-6 and the adaptive mean launched (the counts per device step
    printed), the assign kernel once per frame of a device step (the
    tracker batched over the step's videos: 16 steps x 16 frames = 256),
-   the GSFF kernel as often, the adaptive mean once per device step (16),
+   the GSFF, frame-step and merge kernels as often, the adaptive mean once
+   per device step (16),
    the sharded run's wall time and frames/s beside the solo runs' sum;
 24. the program with ``shard videos across devices`` in its tracking.ini:
    ``python -m ysmr_tpu_torch <phase 23's four clips> --serial`` and once
@@ -141,8 +143,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 25. the sharded assignment on the card: ``sharded_greedy_assign`` on
    meshes that list the card 1, 2 and 4 times at 16384 x 4096 (K = 2, 3)
    bit-equal to the unsharded matcher; ``run_tracker_scan(assign_mesh=
-   ...)`` on the dense scene's first batch equal to the call without; the
-   ``all_gather`` branch in a one-process NCCL group from
+   ...)`` on the dense scene's first batch equal to the call without,
+   the sharded candidates through the frame-step kernel (one launch a
+   frame); the ``all_gather`` branch in a one-process NCCL group from
    ``init_distributed``; the dense-assignment gate of ``track_bacteria``
    shut on one card;
 26. ``run_cc.keep_marked_runs`` through the kernel on the first bench batch
@@ -159,7 +162,8 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    without a valid detection, V = 1, C = 0), then the dense scene's first
    batch split into four pseudo-videos of 16 frames: one batched
    ``run_tracker_scan`` on ``cuda`` bit-equal to the four per-video scans
-   on ``cuda``, 16 assign launches against 64;
+   on ``cuda``, 16 assign launches against 64, as many frame-step
+   launches as assign launches;
 28. the adaptive-mean kernel (``csrc/adaptive_mean.cu``) against its plain
    version on the card, bit-equal: the blurred first 64 frames of the
    bench and dense scenes, a 16-frame 640x480 batch, and the edge shapes
@@ -179,15 +183,29 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    kernel and the plain version with the bound; then the dense frame
    step's kernels (``torch.profiler``) and wall time at V = 1 and V = 4
    (``tracker_step_launches.measure``),
-   with the kernel and with the plain version swapped in (at most 200
-   kernels with the kernel). The dense, frames, luminosity and
-   multi-video phases (7, 10, 14-16, 23, 24) fail unless it was launched.
+   with the kernel and with the plain version swapped in, the device
+   operations by name (at most 8 kernels, memsets and copies with the
+   kernels). The dense, frames, luminosity and multi-video phases (7, 10,
+   14-16, 23, 24) fail unless it was launched;
+30. the frame-step kernel (``csrc/frame_step.cu``: the tracker's greedy
+   match, ageing, registration and emissions) against
+   ``match_and_register_plain`` on the card, bit for bit, one call a
+   check, its inputs untouched: every frame step of the dense first batch
+   (the plain version's state fed to both, and the whole scan with the
+   plain block swapped in), random states at the dense size (4096 slots,
+   3000 live) for V = 1 and 4, and the edge cases of
+   ``tests/test_torch_frame_step.py`` (its seven seeded cases at five
+   shapes, NaN row minima, ``max_disappeared`` compared in float32, no
+   slots); the GSFF merge against its plain version; median ms of each
+   with the bound. Phases 7, 10, 14-16 and 23 fail unless both were
+   launched, 7 and 23 unless once a frame step.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (nine kernels: the
-seven TPU kernels' ports, the adaptive mean and the GSFF step, each with
-its bound and the library call where one exists), ``nvidia-smi``'s card
-name and power limit, and the result JSON.
+The last three lines are the ``kernels`` JSON record (eleven kernels: the
+seven TPU kernels' ports, the adaptive mean, the GSFF step, the frame
+step and the GSFF merge, each with its bound and the library call where
+one exists), ``nvidia-smi``'s card name and power limit, and the result
+JSON.
 """
 
 import configparser
@@ -212,6 +230,7 @@ from ysmr_tpu_torch import _build, graft_entry, native
 from ysmr_tpu_torch.config import default_config_dict, get_configs
 from ysmr_tpu_torch.io.preproc import HostPreprocessor
 from ysmr_tpu_torch.ops import assignment, cc, labeling, run_cc
+from ysmr_tpu_torch.ops import frame_step as fs
 from ysmr_tpu_torch.ops import gsff as gsff_ops
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.assign import row_min_argmin
@@ -982,7 +1001,19 @@ class WarningCounter(logging.Handler):
 
 
 KERNELS = (propagate_min_fused, hull_edge_vectors, sweep_extents,
-           row_min_argmin, gsff_ops.register_and_step)
+           row_min_argmin, gsff_ops.register_and_step,
+           fs.match_and_register, fs.gsff_merge)
+
+
+def tracker_gate(what, launches, per):
+    """Raise unless each tracker kernel of ``launches`` ran ``per``
+    times (the frame steps): the frame-step kernel and, with GSFF, the
+    GSFF kernel and the merge, once a frame step, as the assign kernel."""
+    for name in ('row_min_argmin', 'match_and_register', 'register_and_step',
+                 'gsff_merge'):
+        if launches[name] != per:
+            raise SystemExit('{}: {} {} launches, not one per frame step '
+                             '({})'.format(what, launches[name], name, per))
 
 
 def reset_launches():
@@ -1061,10 +1092,7 @@ def phase_dense_path(scene, frames, settings):
     if min(launches.values()) <= 0:
         raise SystemExit('dense clip: a kernel was never launched: {}'.format(
             launches))
-    if launches['register_and_step'] != launches['row_min_argmin']:
-        raise SystemExit('dense clip: {} GSFF launches, not one per frame '
-                         'step ({})'.format(launches['register_and_step'],
-                                            launches['row_min_argmin']))
+    tracker_gate('dense clip', launches, launches['row_min_argmin'])
     return launches, dense_bytes
 
 
@@ -1138,7 +1166,8 @@ FRAMES = {'transfer mode': 'frames'}
 CC_KERNELS = (cc.label_components_whole_frame, cc.binary_reconstruct)
 FRAMES_KERNELS = CC_KERNELS + (hull_edge_vectors, sweep_extents,
                                row_min_argmin, pp.adaptive_gaussian_mean,
-                               gsff_ops.register_and_step)
+                               gsff_ops.register_and_step,
+                               fs.match_and_register, fs.gsff_merge)
 
 
 def bench_masks(scene, settings, dev, t=64):
@@ -1825,7 +1854,8 @@ def phase_lum_bench(frames, settings):
     lset = {**settings, **LUM}
     df, launches, fps = track_clip(
         'lum_clip', os.path.join(WORK, 'bench_clip.avi'), lset,
-        (cc.cc_labels_at_pixels, row_min_argmin, gsff_ops.register_and_step))
+        (cc.cc_labels_at_pixels, row_min_argmin, gsff_ops.register_and_step,
+         fs.match_and_register, fs.gsff_merge))
     log('bench clip with luminosity and GSFF via track_bacteria(path) on '
         'cuda: rows {} tracks {} {:.2f} fps end to end (decode included), '
         'kernel launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(),
@@ -1872,7 +1902,8 @@ def phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev):
     df, launches, fps = track_clip(
         'lum_dense_clip', os.path.join(WORK, 'dense_clip.avi'), lset,
         (cc.cc_labels_at_pixels, hull_edge_vectors, sweep_extents,
-         row_min_argmin, gsff_ops.register_and_step))
+         row_min_argmin, gsff_ops.register_and_step, fs.match_and_register,
+         fs.gsff_merge))
     log('dense clip with luminosity via track_bacteria(path) on cuda: rows '
         '{} tracks {} {:.2f} fps end to end (decode included), kernel '
         'launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(), fps,
@@ -1973,6 +2004,7 @@ if __name__ == '__main__':
     from ysmr_tpu_torch.ops.cc import (binary_reconstruct,
                                        cc_labels_at_pixels,
                                        label_components_whole_frame)
+    from ysmr_tpu_torch.ops.frame_step import gsff_merge, match_and_register
     from ysmr_tpu_torch.ops.gsff import register_and_step
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
     from ysmr_tpu_torch.ops.preprocess import adaptive_gaussian_mean
@@ -1995,7 +2027,8 @@ if __name__ == '__main__':
     kernels = (propagate_min_fused, hull_edge_vectors, sweep_extents,
                row_min_argmin, label_components_whole_frame,
                binary_reconstruct, cc_labels_at_pixels,
-               adaptive_gaussian_mean, register_and_step)
+               adaptive_gaussian_mean, register_and_step, match_and_register,
+               gsff_merge)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2480,7 +2513,8 @@ MV_SETTINGS = {'frame batch size': 16, 'transfer mode': 'frames',
                'minimal frame count': 32}
 MV_KERNELS = (row_min_argmin, hull_edge_vectors, sweep_extents,
               cc.label_components_whole_frame, cc.binary_reconstruct,
-              pp.adaptive_gaussian_mean, gsff_ops.register_and_step)
+              pp.adaptive_gaussian_mean, gsff_ops.register_and_step,
+              fs.match_and_register, fs.gsff_merge)
 
 
 def list_bytes(path):
@@ -2548,12 +2582,10 @@ def phase_multi_video(settings):
         raise SystemExit('multi-video: a kernel of the path was never '
                          'launched: {}'.format(launches))
     # the tracker runs once over each device step's videos: one assign
-    # launch per frame of a step, whatever the videos in it
-    for name in ('row_min_argmin', 'register_and_step'):
-        if launches[name] != steps * batch:
-            raise SystemExit('multi-video: {} {} launches, not one per frame '
-                             'of the {} device steps ({})'.format(
-                                 launches[name], name, steps, steps * batch))
+    # launch per frame of a step, whatever the videos in it, and as many
+    # of the other tracker kernels
+    tracker_gate('multi-video ({} device steps)'.format(steps), launches,
+                 steps * batch)
     # and one frames-mode detect per device step: one adaptive mean
     if launches['adaptive_gaussian_mean'] != steps:
         raise SystemExit('multi-video: {} adaptive-mean launches, not one per '
@@ -2674,12 +2706,18 @@ def phase_sharded_assign(dframes, dsettings, dev):
         state = trk.init_tracker_state(slots, dev, use_gsff=True,
                                        gsff_params=params)
         torch.cuda.synchronize()
+        fs.match_and_register.launches = 0
         t0 = time.perf_counter()
         _, em = trk.run_tracker_scan(
             state, tables['det_xy'], tables['det_info'], tables['det_valid'],
             assign_mesh=meshes.get(n), **tkw)
         torch.cuda.synchronize()
         out[n] = (em, time.perf_counter() - t0)
+        # the sharded candidates go through the frame-step kernel too
+        if fs.match_and_register.launches != t:
+            raise SystemExit('run_tracker_scan with mesh {}: {} frame-step '
+                             'launches for {} frames'.format(
+                                 n, fs.match_and_register.launches, t))
     for n in (2, 4):
         if not all(torch.equal(out[n][0][key], out[None][0][key])
                    for key in out[None][0]):
@@ -2687,7 +2725,7 @@ def phase_sharded_assign(dframes, dsettings, dev):
                              .format(n))
     log('run_tracker_scan on the dense scene first batch ({} frames, {} '
         'slots, {} live emissions): with a mesh of 2 and 4 entries equal '
-        'to the call without; wall s {}'.format(
+        'to the call without, one frame-step launch a frame; wall s {}'.format(
             t, slots, int(out[None][0]['mask'].sum()), json.dumps(
                 {str(n): round(v[1], 4) for n, v in out.items()})))
 
@@ -2715,8 +2753,8 @@ def phase_sharded_assign(dframes, dsettings, dev):
 
     clip = os.path.join(WORK, 'pool_0.avi')
     calls = []
-    real = shd.sharded_greedy_assign
-    shd.sharded_greedy_assign = lambda *a, **kw: calls.append(1) or \
+    real = shd.sharded_row_min_argmin
+    shd.sharded_row_min_argmin = lambda *a, **kw: calls.append(1) or \
         real(*a, **kw)
     try:
         folder = os.path.join(WORK, 'gate')
@@ -2727,7 +2765,7 @@ def phase_sharded_assign(dframes, dsettings, dev):
             'shard dense assignment across devices': True,
             'dense assignment shard threshold': 0}, result_folder=folder)
     finally:
-        shd.sharded_greedy_assign = real
+        shd.sharded_row_min_argmin = real
     if res is None or calls or row_min_argmin.launches <= 0:
         raise SystemExit('the dense-assignment gate engaged on one card')
     log('track_bacteria with shard dense assignment across devices '
@@ -2886,6 +2924,7 @@ def phase_batched_tracker(dframes, dsettings, dev):
     runs = {}
     for name in ('batched', 'per video'):
         row_min_argmin.launches = 0
+        fs.match_and_register.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if name == 'batched':
@@ -2897,6 +2936,11 @@ def phase_batched_tracker(dframes, dsettings, dev):
         torch.cuda.synchronize()
         runs[name] = (out, time.perf_counter() - t0,
                       row_min_argmin.launches)
+        if fs.match_and_register.launches != row_min_argmin.launches:
+            raise SystemExit('batched tracker scan ({}): {} frame-step '
+                             'launches, {} assign launches'.format(
+                                 name, fs.match_and_register.launches,
+                                 row_min_argmin.launches))
     (b_state, b_em), b_s, b_launches = runs['batched']
     singles, s_s, s_launches = runs['per video']
     for i, (st, em) in enumerate(singles):
@@ -3114,8 +3158,9 @@ def check_gsff(name, args, timed=False):
 def frame_step(v, params, dev, plain):
     """``tracker_step_launches.measure`` (the dense frame step: 4096
     slots, 4096 detections, 3000 live) at V videos with the GSFF kernel
-    or, with ``plain``, its plain version swapped in: (kernels of the
-    step, median ms per frame step)."""
+    or, with ``plain``, its plain version swapped in: (device operations
+    of the step (kernels, memsets, copies), median ms per frame step,
+    the operations by name)."""
     kernel = gsff_ops.register_and_step
     if plain:
         gsff_ops.register_and_step = gsff_ops.register_and_step_plain
@@ -3123,7 +3168,12 @@ def frame_step(v, params, dev, plain):
         out = tsl.measure(trk, params, v, dev)
     finally:
         gsff_ops.register_and_step = kernel
-    return out['frame_step']['kernels'], out['ms_per_frame_step']
+    ops = out['frame_step']['kernels'] + out['frame_step']['memops']
+    return ops, out['ms_per_frame_step'], out['frame_step_ops']
+
+
+#: device operations (kernels, memsets, copies) of a dense frame step
+MAX_STEP_OPS = 8
 
 
 def phase_gsff(dframes, dsettings, settings, dev):
@@ -3191,13 +3241,273 @@ def phase_gsff(dframes, dsettings, settings, dev):
     for v in (1, 4):
         step = {name: frame_step(v, default, dev, name == 'plain')
                 for name in ('kernel', 'plain')}
-        log('gsff: dense frame step at V = {}: {} kernels and {:.3f} ms with '
-            'the GSFF kernel, {} kernels and {:.3f} ms with the plain '
-            'version'.format(v, *step['kernel'], *step['plain']))
-        if step['kernel'][0] > 200:
-            raise SystemExit('gsff: the dense frame step launches {} kernels, '
-                             'above 200'.format(step['kernel'][0]))
+        log('gsff: dense frame step at V = {}: {} device operations and '
+            '{:.3f} ms with the GSFF kernel ({}), {} operations and {:.3f} ms '
+            'with its plain version'.format(
+                v, step['kernel'][0], step['kernel'][1],
+                json.dumps(step['kernel'][2]), *step['plain'][:2]))
+        if step['kernel'][0] > MAX_STEP_OPS:
+            raise SystemExit('gsff: the dense frame step runs {} device '
+                             'operations, above {}'.format(step['kernel'][0],
+                                                           MAX_STEP_OPS))
     return dense
+
+
+# ---- the frame step's match-and-register block ----
+
+#: phase 30's seeded cases (tests/test_torch_frame_step.py): stale ids in
+#: free slots, quantised positions (row-minimum ties), an empty frame,
+#: more and fewer detections than tracks, a full table that drops
+#: registrations, two active slots that share an id; and their shapes
+#: (V, S, C, K)
+STEP_CASES = ('stale_ids', 'ties', 'empty', 'more_dets', 'fewer_dets',
+              'full', 'shared_id')
+STEP_SHAPES = ((1, 16, 24, 2), (3, 48, 40, 3), (3, 96, 64, 2),
+               (1, 64, 96, 3), (3, 0, 40, 2))
+
+
+def step_video(rng, case, s, c, k):
+    """One video's slot table and frame for ``case`` as numpy; ``dense``:
+    3000 live tracks of 4096 slots at full width and 3000 detections
+    within about a pixel of them."""
+    if case == 'dense':
+        active = np.zeros(s, bool)
+        active[rng.choice(s, 3000, replace=False)] = True
+        next_id = 20000
+        scale, quant = W, False
+    else:
+        live = {'full': 0.75, 'fewer_dets': 0.8}.get(case, 0.5)
+        active = rng.random(s) < live
+        next_id = int(rng.integers(3 * s, 5 * s + 2))
+        scale, quant = 60, case == 'ties'
+    n_obj = int(active.sum())
+    ids = rng.integers(0, next_id, s).astype(np.int32)
+    ids[active] = rng.choice(next_id, n_obj, replace=False)
+    if case == 'shared_id' and n_obj >= 2:
+        on = np.nonzero(active)[0]
+        ids[on[1]] = ids[on[0]]
+    pos = rng.uniform(0, scale, (s, k))
+    pos = np.round(pos / 4) * 4 if quant else pos
+    n_det = {'more_dets': min(c, n_obj + 1 + s // 4),
+             'fewer_dets': max(0, n_obj - 1 - s // 4), 'full': c,
+             'empty': 0, 'dense': 3000}.get(case, int(rng.integers(0, c + 1)))
+    det_xy = rng.uniform(0, scale, (c, k))
+    if n_obj:
+        near = rng.random(c) < (1.0 if case == 'dense' else 0.5)
+        src = pos[rng.choice(np.nonzero(active)[0], c)]
+        det_xy = np.where(near[:, None], src + rng.normal(0, 1.5, (c, k)),
+                          det_xy)
+    det_xy = np.round(det_xy / 4) * 4 if quant else det_xy
+    det_valid = np.zeros(c, bool)
+    det_valid[rng.choice(c, n_det, replace=False)] = True
+    state = {'active': active, 'ids': ids, 'pos': pos.astype(np.float32),
+             'info': rng.uniform(1, 8, (s, 3)).astype(np.float32),
+             'disappeared': np.where(active, rng.integers(0, 40, s),
+                                     0).astype(np.int32),
+             'next_id': np.int32(next_id),
+             'dropped_registrations': np.int32(rng.integers(0, 4))}
+    frame = (det_xy.astype(np.float32),
+             rng.uniform(1, 8, (c, 3)).astype(np.float32), det_valid)
+    return state, frame
+
+
+def step_inputs(rng, case, shape, dev):
+    """V videos of ``case`` on the card: (state, frame, row_min, cand),
+    the candidates from the assign kernel on the slot table as it is."""
+    v, s, c, k = shape
+    videos = [step_video(rng, case, s, c, k) for _ in range(v)]
+
+    def put(arrays):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(arrays))).to(
+            dev)
+
+    state = {key: put([st[key] for st, _ in videos]) for key in fs.STATE_KEYS}
+    frame = [put([f[i] for _, f in videos]) for i in range(3)]
+    return (state, frame) + row_min_argmin(state['pos'], state['active'],
+                                           frame[0], frame[2])
+
+
+def same_bits(a, b):
+    """Whether two tensors hold the same bits (NaN payloads included)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def step_outputs(res):
+    new_state, emission = res[:2]
+    return [new_state[k] for k in fs.STATE_KEYS] + \
+        [emission[k] for k in fs.EMISSION_KEYS] + list(res[2:])
+
+
+def check_step(name, state, frame, row_min, cand, md=float(FPS),
+               timed=False):
+    """The frame-step kernel against its plain version on the same card
+    tensors: every output bit-equal, one call counted, the inputs
+    untouched; with ``timed``, median ms of each and the bound (bytes in
+    and out; operations: a key comparison per pair of live slots)."""
+    inputs = [state[k] for k in fs.STATE_KEYS] + [row_min, cand] + \
+        list(frame)
+    before = [x.clone() for x in inputs]
+
+    def kernel(*_):
+        return step_outputs(fs.match_and_register(
+            state, row_min, cand, *frame, max_disappeared=md))
+
+    def plain(*_):
+        return step_outputs(fs.match_and_register_plain(
+            state, row_min, cand, *frame, max_disappeared=md))
+
+    fs.match_and_register.launches = 0
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if fs.match_and_register.launches != 1:
+        raise SystemExit('frame step {}: {} launches, not 1'.format(
+            name, fs.match_and_register.launches))
+    if not all(same_bits(g, w) for g, w in zip(got, want)):
+        raise SystemExit('frame step {}: kernel != plain (max |diff| '
+                         '{})'.format(name, max_abs_err(got, want)))
+    if not all(same_bits(a, b) for a, b in zip(inputs, before)):
+        raise SystemExit('frame step {}: the kernel wrote into its '
+                         'inputs'.format(name))
+    if not timed:
+        return None
+    live = state['active'].sum(dim=1).double()
+    return check_equal('frame step ' + name, kernel, plain, inputs,
+                       int((live * live).sum()), reps=20)
+
+
+def check_merge(name, state_pos, active, dev, timed=False):
+    """The GSFF merge against its plain version on copies of the same
+    card tensors (the emitted positions a frame of a (V, 4, S, K)
+    buffer), bit-equal, one launch; with ``timed``, median ms of each
+    and the bound (the live flags read, two corrected and two predicted
+    floats read and written per live slot)."""
+    v, s, k = state_pos.shape
+    gen = torch.Generator(device=dev).manual_seed(30)
+    corr, pred = (torch.rand((v, s, 2), generator=gen, device=dev) * W
+                  for _ in range(2))
+    buf = torch.rand((v, 4, s, k), generator=gen, device=dev) * W
+
+    def run(step, sp, eb):
+        step(sp, eb[:, 2], active, corr, pred)
+        return [sp, eb]
+
+    fs.gsff_merge.launches = 0
+    got = run(fs.gsff_merge, state_pos.clone(), buf.clone())
+    want = run(fs.gsff_merge_plain, state_pos.clone(), buf.clone())
+    torch.cuda.synchronize()
+    if fs.gsff_merge.launches != 1 or \
+            not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit('gsff merge {}: kernel != plain or {} launches'
+                         .format(name, fs.gsff_merge.launches))
+    if not timed:
+        return None
+    sp, eb = state_pos.clone(), buf.clone()
+    nbytes = v * s + 32 * int(active.sum())
+    return check_equal('gsff merge ' + name,
+                       lambda *_: run(fs.gsff_merge, sp, eb),
+                       lambda *_: run(fs.gsff_merge_plain, sp, eb),
+                       [state_pos, active, corr, pred], 0, reps=20,
+                       nbytes=nbytes)
+
+
+def phase_frame_step(dframes, dsettings, dev):
+    """Phase 30: the frame-step kernel (``csrc/frame_step.cu``) against
+    ``match_and_register_plain`` on the card, bit for bit: every frame
+    step of the dense first batch (the plain version's state fed to both;
+    the whole scan with the plain block swapped in too), random states at
+    the dense size for V = 1 and 4 (timed, with the bound), and the edge
+    cases of tests/test_torch_frame_step.py; the GSFF merge against its
+    plain version. Returns the timed checks of the two kernels."""
+    t = 64
+    tables, params, tkw = dense_tracker_inputs(dframes, dsettings, dev, t)
+    slots = dsettings['max track slots']
+    md = tkw['max_disappeared']
+    kernel = fs._match_and_register
+    calls, scans, counts = [], {}, {}
+
+    def record(state, row_min, cand, *tables, max_disappeared, out, frame):
+        calls.append(({k: state[k].clone() for k in fs.STATE_KEYS},
+                      tables, row_min.clone(), cand.clone()))
+        return fs.write_plain(out, frame, fs.match_and_register_plain(
+            state, row_min, cand, *tables, max_disappeared=max_disappeared))
+
+    for name in ('kernel', 'plain'):
+        fs.match_and_register.launches = 0
+        row_min_argmin.launches = 0
+        fs._match_and_register = record if name == 'plain' else kernel
+        try:
+            scans[name] = trk.run_tracker_scan(
+                trk.init_tracker_state(slots, dev, use_gsff=True,
+                                       gsff_params=params), *tables, **tkw)
+        finally:
+            fs._match_and_register = kernel
+        counts[name] = (fs.match_and_register.launches,
+                        row_min_argmin.launches)
+    torch.cuda.synchronize()
+    (k_state, k_em), (p_state, p_em) = scans['kernel'], scans['plain']
+    same = [torch.equal(k_em[key], p_em[key]) for key in k_em] + \
+        [torch.equal(k_state['gsff'][key], p_state['gsff'][key])
+         for key in gsff_ops.STATE_KEYS] + \
+        [torch.equal(k_state[key], p_state[key]) for key in k_state
+         if key != 'gsff']
+    if len(calls) != t or not all(same) or counts['kernel'] != (t, t) or \
+            counts['plain'] != (0, t):
+        raise SystemExit('frame step: the dense first batch with the kernel '
+                         'differs from the scan with the plain version ({} '
+                         'calls; launches {})'.format(len(calls), counts))
+    t0 = time.perf_counter()
+    for i, (state, frame, row_min, cand) in enumerate(calls):
+        check_step('dense first batch, frame {}'.format(i), state, frame,
+                   row_min, cand, md)
+    state, frame, row_min, cand = calls[t // 2]
+    dense = check_step('dense first batch, frame {} ({} live of {} '
+                       'slots)'.format(t // 2, int(state['active'].sum()),
+                                       slots), state, frame, row_min, cand,
+                       md, timed=True)
+    log('frame step (phase 30): the dense first batch ({} frames, {} live '
+        'emissions) with the kernel bit-equal to the scan with the plain '
+        'block (frame-step launches {}, assign {}); each frame step bit-equal '
+        'to the plain version on its inputs ({:.1f} s)'.format(
+            t, int(k_em['mask'].sum()), *counts['kernel'],
+            time.perf_counter() - t0))
+    merge = check_merge('dense first batch, frame {}'.format(t // 2),
+                        calls[t // 2][0]['pos'], calls[t // 2][0]['active'],
+                        dev, timed=True)
+    rng = np.random.default_rng(SEED + 30)
+    for v in (1, 4):
+        args = step_inputs(rng, 'dense', (v, slots, slots, 2), dev)
+        check_step('random dense state, V = {}'.format(v), *args,
+                   timed=True)
+        check_merge('random dense state, V = {}'.format(v), args[0]['pos'],
+                    args[0]['active'], dev, timed=v == 4)
+    t0 = time.perf_counter()
+    n = 0
+    for case in STEP_CASES:
+        for shape in STEP_SHAPES:
+            args = step_inputs(rng, case, shape, dev)
+            check_step('{} {}'.format(case, shape), *args, md=5.0)
+            n += 1
+    state, frame, row_min, cand = step_inputs(rng, 'ties', (1, 48, 40, 2),
+                                              dev)
+    on = torch.nonzero(state['active'][0]).flatten()
+    row_min[0, on[::3]] = float('nan')
+    check_step('NaN row minima', state, frame, row_min, cand, md=5.0)
+    state, frame, row_min, cand = step_inputs(rng, 'empty', (1, 16, 24, 2),
+                                              dev)
+    state['active'].fill_(True)
+    state['disappeared'].fill_(2 ** 24 - 1)
+    check_step('max_disappeared in float32', state, frame, row_min, cand,
+               md=16777215.9)
+    check_merge('3 x 48 slots, K = 3', step_inputs(
+        rng, 'more_dets', (3, 48, 40, 3), dev)[0]['pos'],
+        torch.rand((3, 48), device=dev) < 0.5, dev)
+    log('frame step edge cases ({} seeded, NaN row minima, the float32 '
+        'max_disappeared, no slots): kernel bit-equal to the plain version, '
+        'one call a check, inputs untouched ({:.1f} s)'.format(
+            n, time.perf_counter() - t0))
+    return dense, merge
 
 
 def main():
@@ -3247,6 +3557,7 @@ def main():
         phase_batched_tracker(dframes, dsettings, dev)
         mean_check, mean_conv_ms = phase_adaptive_mean(scene, dscene, dev)
         gsff_check = phase_gsff(dframes, dsettings, settings, dev)
+        step_check, merge_check = phase_frame_step(dframes, dsettings, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -3279,6 +3590,14 @@ def main():
         'gsff_step', 'ysmr_tpu_torch/csrc/gsff.cu',
         'ysmr_tpu/ops/gsff.py:190 _step (plain XLA)',
         dense_launches['register_and_step'], gsff_check))
+    records.append(kernel_record(
+        'match_and_register', 'ysmr_tpu_torch/csrc/frame_step.cu',
+        'ysmr_tpu/pipeline/tracker.py:129 _tracker_frame_update (plain XLA)',
+        dense_launches['match_and_register'], step_check))
+    records.append(kernel_record(
+        'gsff_merge', 'ysmr_tpu_torch/csrc/frame_step.cu',
+        'ysmr_tpu/pipeline/tracker.py:253 emit_pos / stored_pos (plain XLA)',
+        dense_launches['gsff_merge'], merge_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

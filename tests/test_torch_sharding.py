@@ -8,7 +8,8 @@ device='cpu')``), which runs the same splits one after another.
 - ``sharded_greedy_assign``: JAX's sharded matcher and the port's
   unsharded one, bit for bit, on 1-, 2- and 4-entry meshes and the 2-axis
   (hosts, videos) layout of JAX's ``make_mesh(4, hosts=2)`` (the port's
-  ``Mesh`` over the same devices reshaped), K = 2 and 3.
+  ``Mesh`` over the same devices reshaped), K = 2 and 3; its gathered
+  candidates (``sharded_row_min_argmin``) the unsharded ones.
 - ``make_multi_video_step``: JAX's step on the same videos; mask, ids,
   det_col, n_det and n_components equal, positions equal without GSFF and
   within 1e-4 px with it (the double-single residue pinned by
@@ -31,6 +32,7 @@ from ysmr_tpu.ops import gsff as jgsff
 from ysmr_tpu.parallel import sharding as jshd
 from ysmr_tpu.pipeline import tracker as jtrk
 from ysmr_tpu_torch.ops import assignment as asg
+from ysmr_tpu_torch.ops import frame_step as fs
 from ysmr_tpu_torch.ops.gsff import GSFFParams
 from ysmr_tpu_torch.parallel import sharding as shd
 from ysmr_tpu_torch.pipeline import tracker as trk
@@ -83,6 +85,22 @@ def test_sharded_greedy_assign_matches_jax_and_unsharded(layout, k):
                                       err_msg=key)
         np.testing.assert_array_equal(got[key].numpy(), want[key].numpy(),
                                       err_msg=key)
+
+
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('layout', sorted(LAYOUTS))
+def test_sharded_candidates_are_the_unsharded_ones(layout, k):
+    """``sharded_row_min_argmin`` gathers each row's minimum and first
+    minimal column in row order, the unsharded call's bits: what the
+    tracker's frame-step block takes with ``assign_mesh``."""
+    args = [torch.from_numpy(a) for a in _assign_inputs(k)]
+    row_min, cand = shd.sharded_row_min_argmin(_port_mesh(*LAYOUTS[layout]),
+                                               *args)
+    want_min, want_cand = shd.row_min_argmin(*args)
+    assert row_min.dtype == torch.float32 and cand.dtype == torch.int32
+    assert torch.equal(row_min.view(torch.int32),
+                       want_min.view(torch.int32))
+    assert torch.equal(cand, want_cand)
 
 
 def test_mesh_rejects_uneven_splits_and_cuda_without_a_gpu():
@@ -221,12 +239,17 @@ def test_tracker_scan_sharded_assign_matches(monkeypatch):
     ref_state, ref = trk.run_tracker_scan(
         trk.init_tracker_state(s, 'cpu'), *args, **kwargs)
     calls = []
-    real = shd.sharded_greedy_assign
-    monkeypatch.setattr(shd, 'sharded_greedy_assign',
+    real = shd.sharded_row_min_argmin
+    monkeypatch.setattr(shd, 'sharded_row_min_argmin',
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    blocks = []
+    block = fs._match_and_register
+    monkeypatch.setattr(fs, '_match_and_register',
+                        lambda *a, **k: blocks.append(1) or block(*a, **k))
     got_state, got = trk.run_tracker_scan(
         trk.init_tracker_state(s, 'cpu'), *args, assign_mesh=mesh, **kwargs)
-    assert len(calls) == t_len
+    # the sharded candidates feed the same match-and-register block
+    assert len(calls) == len(blocks) == t_len
     for key in ref:
         assert torch.equal(got[key], ref[key]), key
     for key in ref_state:
@@ -237,7 +260,7 @@ def test_tracker_scan_sharded_assign_matches(monkeypatch):
 def test_track_bacteria_sharded_assign_gate(tmp_path, monkeypatch):
     """'shard dense assignment across devices' with the device count set to
     4 and the threshold to 0: the device tracker goes through
-    sharded_greedy_assign and the rows are the unsharded run's, byte for
+    sharded_row_min_argmin and the rows are the unsharded run's, byte for
     byte. With one device (this host) the gate stays shut."""
     from ysmr_tpu_torch import track_bacteria
     clip = make_synthetic_video(str(tmp_path / 'dense.avi'), n_frames=32,
@@ -249,8 +272,8 @@ def test_track_bacteria_sharded_assign_gate(tmp_path, monkeypatch):
     sharded = {**base, 'shard dense assignment across devices': True,
                'dense assignment shard threshold': 0}
     calls = []
-    real = shd.sharded_greedy_assign
-    monkeypatch.setattr(shd, 'sharded_greedy_assign',
+    real = shd.sharded_row_min_argmin
+    monkeypatch.setattr(shd, 'sharded_row_min_argmin',
                         lambda *a, **k: calls.append(a[0]) or real(*a, **k))
     out = {}
     for name, settings in (('ref', base), ('one_device', sharded)):

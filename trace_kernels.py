@@ -4,8 +4,9 @@
 Run from the root of a checkout: ``python3 trace_kernels.py [--root DIR]
 [--groups run_prop,cc]``. ``--root`` names the checkout whose
 ``ysmr_tpu_torch`` is traced (default: this one), so two versions of the
-kernels can be traced in one run with the same inputs. The inputs are
-``chip_smoke.py``'s, in four groups:
+kernels can be traced in one run with the same inputs (the other
+checkout's package must hold every module this ``chip_smoke.py``
+imports). The inputs are ``chip_smoke.py``'s, in these groups:
 
 - ``run_prop``: ``propagate_min_fused`` on the run graphs of the bench and
   dense scenes' first 64 frames (the run wire's R bucket, the 4-connected
@@ -23,7 +24,12 @@ kernels can be traced in one run with the same inputs. The inputs are
   16384x16384;
 - ``gsff``: ``register_and_step`` (the tracker's GSFF block) on random
   mid-run states of 4096 slots with the default bank and of 1024 slots
-  with n_max 256 and 8 filters (phase 29's).
+  with n_max 256 and 8 filters (phase 29's);
+- ``frame_step``: ``match_and_register`` (the tracker's match, ageing,
+  registration and emissions: the rank and update launches of
+  ``csrc/frame_step.cu``) and ``gsff_merge`` on random states at the
+  dense size (4096 slots, 3000 live, 3000 detections near them), V = 1
+  and 4 (phase 30's).
 
 With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
 3000 rods) in memory through the stage-1 loop N times, the device path
@@ -48,7 +54,8 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign', 'gsff')
+GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign', 'gsff',
+          'frame_step')
 
 
 def parse_args():
@@ -235,6 +242,27 @@ def trace_gsff(smoke, args, dev):
             lambda: register_and_step(*a), args.reps, smoke)
 
 
+def trace_frame_step(smoke, args, dev):
+    import numpy as np
+    import torch
+    from ysmr_tpu_torch.ops import frame_step as fs
+    rng = np.random.default_rng(smoke.SEED + 30)
+    for v in (1, 4):
+        state, frame, row_min, cand = smoke.step_inputs(
+            rng, 'dense', (v, 4096, 4096, 2), dev)
+        trace('match_and_register V={} S=C=4096 ({} live)'.format(
+            v, int(state['active'].sum())),
+            lambda: fs.match_and_register(state, row_min, cand, *frame,
+                                          max_disappeared=float(smoke.FPS)),
+            args.reps, smoke)
+        corr, pred = (torch.rand((v, 4096, 2), device=dev) * smoke.W
+                      for _ in range(2))
+        pos = state['pos'].clone()
+        trace('gsff_merge V={} S=4096'.format(v),
+              lambda: fs.gsff_merge(pos, pos, state['active'], corr, pred),
+              args.reps, smoke)
+
+
 def end_to_end(smoke, args):
     """The smoke's scenes in memory through the stage-1 loop on cuda:
     frames/s and stage split of each run."""
@@ -287,7 +315,8 @@ def main():
     dev = torch.device('cuda', 0)
     tracers = {'run_prop': trace_run_prop, 'cc': trace_cc,
                'rects': trace_rects, 'pixels': trace_pixels,
-               'assign': trace_assign, 'gsff': trace_gsff}
+               'assign': trace_assign, 'gsff': trace_gsff,
+               'frame_step': trace_frame_step}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

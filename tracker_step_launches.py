@@ -14,8 +14,10 @@ the GSFF bank of the default tracking.ini) and hold 3000 seeded
 detections drifting by about a pixel a frame. After a warm-up scan,
 ``torch.profiler`` (CPU and CUDA activities) records a scan of one frame
 and one of two frames; their difference is one frame step, the rest the
-scan's own work (the emissions' stacks). Then five 16-frame scans are
-timed on the host clock with the card synchronised (median and each).
+scan's own work (its checks and buffers), and the step's device
+operations (kernels, memsets, copies) are listed by name. Then five
+16-frame scans are timed on the host clock with the card synchronised
+(median and each).
 ``--videos 4`` also runs the step over four videos at once (a tree whose
 ``run_tracker_scan`` takes a leading video axis). Prints one JSON line
 per V, then the card's name and power limit from ``nvidia-smi``.
@@ -28,6 +30,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -49,17 +52,19 @@ def tables(rng, t_len, v, dev):
 
 def count(prof):
     """(device kernels, device memsets and copies, runtime launch calls)
-    of a profile."""
+    of a profile, and a Counter of its device operations by name."""
     kernels = memops = launches = 0
+    names = Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] += 1
             if e.name.startswith(('Memset', 'Memcpy')):
                 memops += 1
             else:
                 kernels += 1
         elif 'LaunchKernel' in e.name:
             launches += 1
-    return kernels, memops, launches
+    return (kernels, memops, launches), names
 
 
 def measure(trk, params, v, dev):
@@ -83,14 +88,14 @@ def measure(trk, params, v, dev):
                      {g: torch.stack([y] * v) for g, y in x.items()})
                  for k, x in state.items()}
     state, _ = trk.run_tracker_scan(state, *frames(0, 4), **kwargs)
-    counts = {}
+    counts, names = {}, {}
     for n in (1, 2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             trk.run_tracker_scan(state, *frames(4, 4 + n), **kwargs)
             torch.cuda.synchronize()
-        counts[n] = count(prof)
+        counts[n], names[n] = count(prof)
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -99,9 +104,10 @@ def measure(trk, params, v, dev):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / 16 * 1e3)
     step = [b - a for a, b in zip(counts[1], counts[2])]
-    names = ('kernels', 'memops', 'launch_calls')
-    return {'frame_step': dict(zip(names, step)),
-            'scan_of_one_frame': dict(zip(names, counts[1])),
+    keys = ('kernels', 'memops', 'launch_calls')
+    return {'frame_step': dict(zip(keys, step)),
+            'frame_step_ops': dict(sorted((names[2] - names[1]).items())),
+            'scan_of_one_frame': dict(zip(keys, counts[1])),
             'ms_per_frame_step': float(np.median(walls)),
             'ms_per_frame_step_each': walls}
 

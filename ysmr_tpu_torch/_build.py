@@ -171,6 +171,12 @@ def load_kernels():
         ctypes.c_float)] + [ci] * 4 + [vp]
     lib.ysmr_gsff_step.restype = ci
     lib.ysmr_gsff_step.argtypes = [vp] * 20 + [ci] * 5 + [vp]
+    lib.ysmr_frame_step.restype = ci
+    lib.ysmr_frame_step.argtypes = [vp] * 27 + [ctypes.c_float] + \
+        [ci] * 6 + [vp]
+    lib.ysmr_gsff_merge.restype = ci
+    lib.ysmr_gsff_merge.argtypes = [vp] * 5 + [ci] * 3 + \
+        [ctypes.c_longlong, ci, vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

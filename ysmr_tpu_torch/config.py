@@ -120,7 +120,7 @@ _TPU_DEFAULTS = {
     # state) and for .csv restarts.
     'shard videos across devices': False,
     # dense-scene assignment sharding (parallel/sharding.py
-    # sharded_greedy_assign): row-shard the tracker's slots x detections
+    # sharded_row_min_argmin): row-shard the tracker's slots x detections
     # distance matrix over the device mesh — each device searches its row
     # block, only O(rows) min/argmin vectors cross the interconnect. Takes
     # effect when enabled AND more than one device is visible AND

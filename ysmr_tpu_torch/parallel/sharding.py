@@ -252,22 +252,22 @@ def make_multi_video_step(mesh, *, detect_kwargs, tracker_kwargs):
     return step
 
 
-def sharded_greedy_assign(mesh, obj_xy, obj_valid, det_xy, det_valid):
-    """Reference-exact greedy assignment with the distance rows sharded.
+def sharded_row_min_argmin(mesh, obj_xy, obj_valid, det_xy, det_valid):
+    """Each row's nearest valid detection with the distance rows sharded.
 
     The R rows split into ``mesh.size`` equal shards; each of this
     process's shards runs ``ops/assign.py::row_min_argmin`` on its device
     (the kernel on ``cuda``, the plain version on ``cpu``). The per-row
     ``(row_min, cand_col)`` come back to the device of ``obj_xy`` (the
     tracker's, the mesh's first), across processes through one
-    ``all_gather`` of these O(R) vectors, and the winner resolution
-    (``greedy_assign_from_candidates``) runs there. The kernel works row
-    by row, so the result has the unsharded call's bits.
+    ``all_gather`` of these O(R) vectors. The kernel works row by row, so
+    the result has the unsharded call's bits.
 
     :param obj_xy: (R, K) float32, R divisible by ``mesh.size``; every
         process passes all R rows
     :param det_xy: (C, K) float32, replicated
-    :return: same contract as ``assignment.greedy_assign``
+    :return: (row_min (R,) float32, cand (R,) int32) in row order, as
+        ``row_min_argmin`` returns them
     """
     r = obj_xy.shape[0]
     if r % mesh.size:
@@ -289,5 +289,17 @@ def sharded_greedy_assign(mesh, obj_xy, obj_valid, det_xy, det_valid):
         gathered = [torch.empty_like(both) for _ in range(mesh.world)]
         dist.all_gather(gathered, both)
         both = torch.cat(gathered, dim=1)
-    return asg.greedy_assign_from_candidates(
-        both[0].view(torch.float32), both[1], obj_valid, det_valid)
+    return both[0].view(torch.float32), both[1]
+
+
+def sharded_greedy_assign(mesh, obj_xy, obj_valid, det_xy, det_valid):
+    """Reference-exact greedy assignment with the distance rows sharded:
+    ``sharded_row_min_argmin``, then the winner resolution
+    (``greedy_assign_from_candidates``) on the device of ``obj_xy``.
+
+    :return: same contract as ``assignment.greedy_assign``
+    """
+    row_min, cand = sharded_row_min_argmin(mesh, obj_xy, obj_valid, det_xy,
+                                           det_valid)
+    return asg.greedy_assign_from_candidates(row_min, cand, obj_valid,
+                                             det_valid)

@@ -4,19 +4,25 @@ Counterpart of ``ysmr_tpu/pipeline/tracker.py``, whose docstring sets out
 how the reference's ``CentroidTracker`` (tracker.py:27-230) maps onto a
 slot table: rows in ascending-id order, the greedy first-come match
 (``ops/assignment.py``), ageing and deregistration, registration in
-ascending column order, and the GSFF correct/predict block
-(``ops/gsff.py::register_and_step``: one launch of ``csrc/gsff.cu`` per
-frame step on a CUDA tensor, the plain torch sequence on a CPU one).
+ascending column order, and the GSFF correct/predict block.
 
 ``lax.scan`` becomes a Python loop over the frames of a batch; the frame
 step's shapes are static. The frame step always works over a leading
 video axis V: one video is V = 1, and the multi-video step's ``jax.vmap``
 over a device's videos becomes one scan over its (V, T, ...) tables, so
-a frame step (and its one assign launch) serves all V videos. The
-per-row nearest detection goes through
-``ops/assign.py::row_min_argmin`` (the CUDA kernel on a CUDA tensor, the
-plain matrix on a CPU one); with ``assign_mesh`` the rows are sharded
-over a device mesh (``parallel/sharding.py::sharded_greedy_assign``).
+a frame step serves all V videos. On a CUDA tensor a frame step is three
+kernels, five with GSFF (and a copy of the filter's two coordinates with
+luminosity's third): the per-slot nearest detection
+(``ops/assign.py::row_min_argmin``, ``csrc/assign.cu``), the match,
+ageing, registration and emissions
+(``ops/frame_step.py::match_and_register``, ``csrc/frame_step.cu``, two
+launches), and with GSFF the filter step
+(``ops/gsff.py::register_and_step``, ``csrc/gsff.cu``) and the merge of
+its outputs (``frame_step.gsff_merge``); on a CPU tensor each is its
+plain torch version. With ``assign_mesh`` the per-slot nearest
+detection is computed with the slots sharded over a device mesh
+(``parallel/sharding.py::sharded_row_min_argmin``, the assign kernel on
+each shard) and the rest of the step is the same.
 ``ReferenceOrderRenumberer`` is host numpy, copied from the JAX module.
 
 ``compact_emissions_device`` (the opt-in ``compact emissions readback``)
@@ -28,12 +34,10 @@ gather of the payload, bit-cast into int32 the same way.
 import numpy as np
 import torch
 
-from ysmr_tpu_torch.ops import assignment as asg
+from ysmr_tpu_torch.ops import frame_step as fs
 from ysmr_tpu_torch.ops import gsff as gsff_ops
 from ysmr_tpu_torch.ops.assign import row_min_argmin
 from ysmr_tpu_torch.parallel import sharding as shd
-
-INT_MAX = 2 ** 31 - 1
 
 
 # Copied from ysmr_tpu/pipeline/tracker.py (ReferenceOrderRenumberer).
@@ -160,158 +164,58 @@ def tracker_state_from_numpy(state, device, gsff_params=None):
     return out, extra
 
 
-def _gather_rows(table, idx):
-    """``table[v, idx[v, s]]`` for a (V, N, D) table and (V, S) indices:
-    (V, S, D)."""
-    return torch.gather(table, 1, idx[..., None].expand(-1, -1,
-                                                         table.shape[2]))
-
-
-def _tracker_frame_update(state, det_xy, det_info, det_valid, col_ids, *,
+def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
                           max_disappeared, use_gsff, gsff_gains, gsff_n_i,
-                          gsff_n_f, gsff_n_i0, assign_mesh=None):
+                          gsff_n_f, gsff_n_i0, out, frame, assign_mesh=None):
     """One frame of CentroidTracker.update semantics over the slot table,
     for V videos at once: every tensor of ``state`` and the frame's
     detections carry a leading video axis (``next_id`` and
     ``dropped_registrations`` (V,)), and each video's result is the one a
     step of that video alone gives. The GSFF sub-state is per slot and
-    stays flattened to (V * S, ...) through the scan. ``col_ids`` is
-    ``arange(C)`` as int32 expanded to (V, C), built once per scan."""
+    stays flattened to (V * S, ...) through the scan. The step writes
+    frame ``frame`` of ``ops/frame_step.py::allocate``'s buffers ``out``
+    and trusts its tables: the scan checks them once and allocates once.
+
+    On a CUDA tensor the step is the assign kernel on the slot table as it
+    is (on each shard with ``assign_mesh``), the frame-step kernel
+    (``frame_step._match_and_register``) and, with GSFF, the GSFF kernel
+    and the merge."""
     active = state['active']
-    ids = state['ids']
-    pos = state['pos']
-    info = state['info']
-    disappeared = state['disappeared']
-    next_id = state['next_id']
     v, s = active.shape
-    c = det_valid.shape[1]
-    i32 = torch.int32
-
-    n_obj = active.sum(dim=1, dtype=i32)
-    n_det = det_valid.sum(dim=1, dtype=i32)
-    has_det = n_det > 0
-
-    # rows = active slots in ascending-id order
-    sortkey = torch.where(active, ids, torch.full_like(ids, INT_MAX))
-    perm = torch.argsort(sortkey, dim=1, stable=True)    # row -> slot
-    row_valid = torch.gather(active, 1, perm)
-    if assign_mesh is not None:
-        if v != 1:
-            raise ValueError('run_tracker_scan: assign_mesh takes one '
-                             'video, not {}'.format(v))
-        # dense-scene path: the slots x detections rows sharded over the
-        # mesh; only the O(slots) minima come back
-        res = shd.sharded_greedy_assign(assign_mesh, pos[0][perm[0]],
-                                        row_valid[0], det_xy[0],
-                                        det_valid[0])
-        res = {k: x[None] for k, x in res.items()}
+    # the candidates in slot order: a row's minimum and first minimal
+    # column do not depend on the order of the rows
+    if assign_mesh is None:
+        row_min, cand = row_min_argmin(state['pos'], active, det_xy,
+                                       det_valid)
+    elif v != 1:
+        raise ValueError('run_tracker_scan: assign_mesh takes one video, '
+                         'not {}'.format(v))
     else:
-        row_min, cand_col = row_min_argmin(_gather_rows(pos, perm),
-                                           row_valid, det_xy, det_valid)
-        res = asg.greedy_assign_from_candidates(row_min, cand_col,
-                                                row_valid, det_valid)
-    slot_to_col = torch.full((v, s), -1, dtype=torch.long,
-                             device=active.device)
-    slot_to_col.scatter_(1, perm, res['row_to_col'])
-    col_matched = res['col_matched']
-
-    matched = has_det[:, None] & (slot_to_col >= 0)
-    col_idx = torch.clamp(slot_to_col, 0, c - 1)
-    pos_new = torch.where(matched[..., None], _gather_rows(det_xy, col_idx),
-                          pos)
-    info_new = torch.where(matched[..., None],
-                           _gather_rows(det_info, col_idx), info)
-    zero_i = torch.zeros_like(disappeared)
-    dis_new = torch.where(matched, zero_i, disappeared)
-
-    # ageing: all active slots when the frame is empty; unmatched active
-    # slots when rows >= cols
-    age_mask = torch.where(has_det[:, None],
-                           active & ~matched & (n_obj >= n_det)[:, None],
-                           active)
-    dis_new = dis_new + age_mask.to(i32)
-    info_new = torch.where(age_mask[..., None], torch.zeros_like(info_new),
-                           info_new)
-    dereg = age_mask & (dis_new.to(torch.float32) > max_disappeared)
-    active_new = active & ~dereg
-
-    # registration: unmatched detections when cols > rows, in ascending
-    # column order (the host renumbers into the reference's set order)
-    do_register = has_det & (n_det > n_obj)
-    unmatched_col = det_valid & ~col_matched & do_register[:, None]
-    col_rank = torch.cumsum(unmatched_col.to(i32), 1, dtype=i32) - 1
-    n_new = unmatched_col.sum(dim=1, dtype=i32)
-    free = ~active_new
-    free_rank = torch.cumsum(free.to(i32), 1, dtype=i32) - 1
-    # col_of_rank[v, k] = the column holding video v's k-th registration
-    # (column c is the dump of the JAX scatter's mode='drop')
-    col_of_rank = torch.zeros((v, c + 1), dtype=i32, device=active.device)
-    col_of_rank.scatter_(1, torch.where(unmatched_col, col_rank,
-                                        torch.full_like(col_rank, c)).long(),
-                         col_ids)
-    reg_slot = free & (free_rank < n_new[:, None])
-    reg_col = torch.gather(col_of_rank, 1,
-                           torch.clamp(free_rank, 0, c - 1).long())
-    n_registered = reg_slot.sum(dim=1, dtype=i32)
-    dropped = state['dropped_registrations'] + (n_new - n_registered)
-
-    active_new = active_new | reg_slot
-    ids_new = torch.where(reg_slot, next_id[:, None] + free_rank, ids)
-    reg_col_l = reg_col.long()
-    pos_new = torch.where(reg_slot[..., None], _gather_rows(det_xy, reg_col_l),
-                          pos_new)
-    info_new = torch.where(reg_slot[..., None],
-                           _gather_rows(det_info, reg_col_l), info_new)
-    dis_new = torch.where(reg_slot, zero_i, dis_new)
-    next_id_new = next_id + n_new
-
-    new_state = {
-        'active': active_new,
-        'ids': ids_new,
-        'pos': pos_new,
-        'info': info_new,
-        'disappeared': dis_new,
-        'next_id': next_id_new,
-        'dropped_registrations': dropped,
-    }
-
+        # dense-scene path: the slots x detections rows sharded over the
+        # mesh; only the O(slots) minima come back, across processes too
+        row_min, cand = (x[None] for x in shd.sharded_row_min_argmin(
+            assign_mesh, state['pos'][0], active[0], det_xy[0],
+            det_valid[0]))
+    new_state, emission, _, reg_slot, coasting = fs._match_and_register(
+        state, row_min, cand, det_xy, det_info, det_valid,
+        max_disappeared=max_disappeared, out=out, frame=frame)
     if use_gsff:
         # the filter works per slot: the (V, S) slots flattened to V * S
         # (views of contiguous tensors) through the unbatched filter step;
         # newly registered slots start with the ring filled with m, and a
         # coasting slot (active, unmatched, not newly registered) feeds its
         # own stored prediction back, with the lo half re-attached
-        coasting = active_new & ~matched & ~reg_slot
+        pos_new = new_state['pos']
+        active_new = new_state['active']
         gstate, corrected, predicted = gsff_ops.register_and_step(
             gsff_gains, gsff_n_i, gsff_n_f, gsff_n_i0, state['gsff'],
             pos_new[..., :2].flatten(0, 1).contiguous(),
             active_new.flatten(), reg_slot.flatten(), coasting.flatten())
-        corrected = corrected.view(v, s, 2)
-        predicted = predicted.view(v, s, 2)
-        emit_pos = torch.where(active_new[..., None],
-                               torch.cat([corrected, pos_new[..., 2:]], dim=2),
-                               pos_new)
-        stored_pos = torch.where(active_new[..., None],
-                                 torch.cat([predicted, pos_new[..., 2:]],
-                                           dim=2), pos_new)
-        new_state['gsff'] = gstate
-        new_state['pos'] = stored_pos
-    else:
-        emit_pos = pos_new
-
-    neg1 = torch.full_like(slot_to_col, -1)
-    emission = {
-        'mask': active_new,
-        'ids': torch.where(active_new, ids_new, torch.zeros_like(ids_new)),
-        'pos': emit_pos,
-        'info': info_new,
-        # the detection column each live slot consumed this frame (-1 while
-        # coasting) and the frame's detection count, for the renumberer
-        'det_col': torch.where(matched, slot_to_col,
-                               torch.where(reg_slot, reg_col_l,
-                                           neg1)).to(i32),
-        'n_det': n_det,
-    }
+        # the emitted position is the corrected one, the stored one the
+        # prediction, on every live slot
+        fs.gsff_merge(pos_new, emission['pos'], active_new,
+                      corrected.view(v, s, 2), predicted.view(v, s, 2))
+        new_state = dict(new_state, gsff=gstate)
     return new_state, emission
 
 
@@ -321,6 +225,11 @@ def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
     """Run the tracker over a batch of frames, of one video or of V videos
     at once (the counterpart of ``jax.vmap`` over the JAX scan: one frame
     step, and one assign launch, per frame for all V).
+
+    The tables are checked once per call, and the outputs allocated once:
+    the (V, T, S) emissions, which each frame step writes in place, and
+    two state buffers that the frames alternate between (after a frame,
+    the returned state never aliases the caller's).
 
     :param state: tracker state (carried between batches); with a leading
         video axis V on every tensor for V videos
@@ -348,22 +257,21 @@ def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
     # (no copy for one video)
     det_xy, det_info, det_valid = (x.transpose(0, 1).contiguous() for x in
                                    (det_xy, det_info, det_valid))
-    col_ids = torch.arange(c, dtype=torch.int32,
-                           device=det_valid.device).expand(v, c)
     s = state['active'].shape[1]
+    gsff = state.get('gsff')
+    state = {k: x.contiguous() for k, x in state.items() if k != 'gsff'}
     if use_gsff:
-        state = dict(state, gsff={k: x.flatten(0, 1)
-                                  for k, x in state['gsff'].items()})
-    frames = []
+        state['gsff'] = {k: x.flatten(0, 1) for k, x in gsff.items()}
+    if t_len:
+        fs.check(state, det_xy[0], det_info[0], det_valid[0])
+    out = fs.allocate(state, c, t_len)
     for t in range(t_len):
-        state, em = _tracker_frame_update(
-            state, det_xy[t], det_info[t], det_valid[t], col_ids,
+        state, _ = _tracker_frame_update(
+            state, det_xy[t], det_info[t], det_valid[t],
             max_disappeared=max_disappeared, use_gsff=use_gsff,
             gsff_gains=gsff_gains, gsff_n_i=gsff_n_i, gsff_n_f=gsff_n_f,
-            gsff_n_i0=gsff_n_i0, assign_mesh=assign_mesh)
-        frames.append(em)
-    emissions = {k: torch.stack([f[k] for f in frames], dim=1)
-                 for k in frames[0]}
+            gsff_n_i0=gsff_n_i0, assign_mesh=assign_mesh, out=out, frame=t)
+    emissions = dict(out['emission'])
     if use_gsff:
         state['gsff'] = {k: x.unflatten(0, (v, s))
                          for k, x in state['gsff'].items()}
