@@ -198,14 +198,27 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    shapes, NaN row minima, ``max_disappeared`` compared in float32, no
    slots); the GSFF merge against its plain version; median ms of each
    with the bound. Phases 7, 10, 14-16 and 23 fail unless both were
-   launched, 7 and 23 unless once a frame step.
+   launched, 7 and 23 unless once a frame step;
+31. the rect tail's kernels against their plain versions on the card, one
+   launch a call: the cv2 centres (``csrc/cv2_centers.cu``; ``ok`` equal
+   everywhere, the centres bit-equal where it holds), the hull-edge
+   finish and the rect select (``csrc/rect.cu``, bit-equal), on the dense
+   first batch's tables, the frames-mode bench batch and seeded edge
+   cases (no valid row, a pixel, lines, more than 32 strict corners, more
+   than 8 in-band candidates, bboxes past the inverse-sqrt table, equal
+   areas and angles, a missing row, a component taller than R, random
+   tables at R = 2, 48 and 96); median ms of each with the bound; then the
+   dense first batch's ``_list.csv`` with the plain blocks swapped in,
+   byte-identical to the kernels'. Phases 7 and 10 fail unless the edge
+   finish and rect select ran once a detect batch, the cv2 centres once a
+   batch on the dense clip and never in frames mode.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (eleven kernels: the
-seven TPU kernels' ports, the adaptive mean, the GSFF step, the frame
-step and the GSFF merge, each with its bound and the library call where
-one exists), ``nvidia-smi``'s card name and power limit, and the result
-JSON.
+The last three lines are the ``kernels`` JSON record (fourteen kernels:
+the seven TPU kernels' ports, the adaptive mean, the GSFF step, the frame
+step, the GSFF merge, the cv2 centres, the edge finish and the rect
+select, each with its bound and the library call where one exists),
+``nvidia-smi``'s card name and power limit, and the result JSON.
 """
 
 import configparser
@@ -224,12 +237,14 @@ import numpy as np
 import pandas as pd
 import torch
 
+import rect_tail_cases as rtc
 import tracker_step_launches as tsl
 
 from ysmr_tpu_torch import _build, graft_entry, native
 from ysmr_tpu_torch.config import default_config_dict, get_configs
 from ysmr_tpu_torch.io.preproc import HostPreprocessor
-from ysmr_tpu_torch.ops import assignment, cc, labeling, run_cc
+from ysmr_tpu_torch.ops import assignment, cc, labeling, rect, run_cc
+from ysmr_tpu_torch.ops import cv2_centers as cv2c
 from ysmr_tpu_torch.ops import frame_step as fs
 from ysmr_tpu_torch.ops import gsff as gsff_ops
 from ysmr_tpu_torch.ops import preprocess as pp
@@ -719,14 +734,20 @@ def max_abs_err(got, want):
 
 
 def check_equal(name, kernel, plain, args, ops, reps=10, plain_reps=5,
-                nbytes=None):
+                nbytes=None, view=None):
     """Kernel against its plain version on the same card tensors: every
     output bit-equal; median ms of each and the bound of the call
     (``ops``: its operation count; ``nbytes``: its bytes, where not every
-    element of every input and output)."""
+    element of every input and output; ``view``: the part of the outputs
+    that is compared, where not all of it)."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
+    if view is not None:
+        got, want = view(got), view(want)
+        if any(g.shape != w.shape for g, w in zip(got, want)):
+            raise SystemExit('{}: kernel != plain (the compared parts '
+                             'differ in shape)'.format(name))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise SystemExit('{}: kernel != plain (max |diff| {})'.format(
             name, max_abs_err(got, want)))
@@ -1002,7 +1023,8 @@ class WarningCounter(logging.Handler):
 
 KERNELS = (propagate_min_fused, hull_edge_vectors, sweep_extents,
            row_min_argmin, gsff_ops.register_and_step,
-           fs.match_and_register, fs.gsff_merge)
+           fs.match_and_register, fs.gsff_merge,
+           cv2c.cv2_centers_from_tables, rect.edge_finish, rect.rect_select)
 
 
 def tracker_gate(what, launches, per):
@@ -1019,6 +1041,19 @@ def tracker_gate(what, launches, per):
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+
+
+def rect_tail_gate(what, launches, cv2_launches):
+    """Raise unless the edge-finish and rect-select kernels ran once a
+    detect batch (as often as the hull kernel) and the cv2-centre kernel
+    ``cv2_launches`` times."""
+    per = launches['hull_edge_vectors']
+    got = (launches['edge_finish'], launches['rect_select'],
+           cv2c.cv2_centers_from_tables.launches)
+    if per <= 0 or got != (per, per, cv2_launches):
+        raise SystemExit('{}: edge-finish, rect-select and cv2-centre '
+                         'launches {}, not {} (one a detect batch)'.format(
+                             what, got, (per, per, cv2_launches)))
 
 
 def phase_dense_path(scene, frames, settings):
@@ -1093,6 +1128,7 @@ def phase_dense_path(scene, frames, settings):
         raise SystemExit('dense clip: a kernel was never launched: {}'.format(
             launches))
     tracker_gate('dense clip', launches, launches['row_min_argmin'])
+    rect_tail_gate('dense clip', launches, launches['hull_edge_vectors'])
     return launches, dense_bytes
 
 
@@ -1167,7 +1203,8 @@ CC_KERNELS = (cc.label_components_whole_frame, cc.binary_reconstruct)
 FRAMES_KERNELS = CC_KERNELS + (hull_edge_vectors, sweep_extents,
                                row_min_argmin, pp.adaptive_gaussian_mean,
                                gsff_ops.register_and_step,
-                               fs.match_and_register, fs.gsff_merge)
+                               fs.match_and_register, fs.gsff_merge,
+                               rect.edge_finish, rect.rect_select)
 
 
 def bench_masks(scene, settings, dev, t=64):
@@ -1378,7 +1415,7 @@ def phase_cc_kernels(scene, settings, dev):
 
 
 def reset_frames_launches():
-    for k in FRAMES_KERNELS:
+    for k in FRAMES_KERNELS + (cv2c.cv2_centers_from_tables,):
         k.launches = 0
 
 
@@ -1442,6 +1479,7 @@ def phase_frames_path(frames, settings, dframes, dsettings):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = frames_launches('frames {} clip'.format(name))
+        rect_tail_gate('frames {} clip'.format(name), launches, 0)
         logging.getLogger('ysmr').removeHandler(dropped)
         if res is None:
             raise SystemExit('frames {} clip: track_bacteria(path) returned '
@@ -2008,6 +2046,7 @@ if __name__ == '__main__':
     from ysmr_tpu_torch.ops.gsff import register_and_step
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
     from ysmr_tpu_torch.ops.preprocess import adaptive_gaussian_mean
+    from ysmr_tpu_torch.ops.rect import edge_finish, rect_select
     from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
     from ysmr_tpu_torch.ops.sweep import sweep_extents
 
@@ -2028,7 +2067,7 @@ if __name__ == '__main__':
                row_min_argmin, label_components_whole_frame,
                binary_reconstruct, cc_labels_at_pixels,
                adaptive_gaussian_mean, register_and_step, match_and_register,
-               gsff_merge)
+               gsff_merge, edge_finish, rect_select)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2514,7 +2553,8 @@ MV_SETTINGS = {'frame batch size': 16, 'transfer mode': 'frames',
 MV_KERNELS = (row_min_argmin, hull_edge_vectors, sweep_extents,
               cc.label_components_whole_frame, cc.binary_reconstruct,
               pp.adaptive_gaussian_mean, gsff_ops.register_and_step,
-              fs.match_and_register, fs.gsff_merge)
+              fs.match_and_register, fs.gsff_merge, rect.edge_finish,
+              rect.rect_select)
 
 
 def list_bytes(path):
@@ -3510,6 +3550,178 @@ def phase_frame_step(dframes, dsettings, dev):
     return dense, merge
 
 
+# ---- phase 31: the rect tail's kernels (csrc/cv2_centers.cu, rect.cu) ----
+
+def rect_tail_inputs(hull_args, sweep_args):
+    """The three rect-tail kernels' inputs from the hull and sweep inputs
+    of a batch (``dense_tables``, ``frames_tables``): the cv2-centre
+    tables with the hull's corners and the inverse-sqrt table, the hull's
+    chain outputs, and the sweep's extents with its directions and the
+    finished edges' angles and validity."""
+    row_min_x, row_max_x, row_valid, abs_y = hull_args
+    r = row_min_x.shape[1]
+    chains = hull_edge_vectors(*hull_args)
+    isq = cv2c.inv_sqrt_table(labeling._CV2_CENTER_MAX_EDGE_W, r,
+                              device=abs_y.device)
+    cv2_args = (row_min_x, row_max_x, row_valid, abs_y[:, 0].contiguous(),
+                chains[6], chains[7], isq)
+    _, _, ang, valid = rect.edge_finish(*chains[:6])
+    select_args = sweep_extents(*sweep_args) + sweep_args[2:] + (ang, valid)
+    return cv2_args, chains[:6], select_args
+
+
+def rect_tail_edge_tables(dev):
+    """The seeded edge cases of ``rect_tail_cases`` as row tables (R =
+    160), then seeded random tables (also with holes)."""
+    r = rtc.EDGE_CASE_ROWS
+    lo, hi, valid, min_y = rtc.row_tables(rtc.edge_case_blobs(), r)
+    abs_y = (min_y[:, None] + np.arange(r)).astype(np.int32)
+    tabs = [(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in (lo, hi, valid, abs_y)), r)]
+    rng = np.random.default_rng(SEED + 31)
+    for dd, rr, holes in ((4097, 48, False), (3001, 96, True),
+                          (33, 2, False)):
+        tabs.append((random_row_tables(rng, dd, rr, dev, holes), rr))
+    return tabs
+
+
+def sweep_of(hull_args):
+    """The sweep's inputs of row tables: the stats tail's points and its
+    edge candidates with the appended (1, 0)."""
+    row_min_x, row_max_x, row_valid, abs_y = hull_args
+    tabs = labeling._stats_tail_from_tables(
+        row_min_x, row_max_x, row_valid, abs_y[:, 0].contiguous(),
+        max_bh=row_min_x.shape[1])
+    return rect_inputs(hull_args[:3] + (abs_y[:, 0],), tabs,
+                       row_min_x.shape[1])[1]
+
+
+def cv2_ok_view(outs):
+    """The cv2-centre outputs that are compared: ``ok`` everywhere, the
+    centres' bits where it holds (nothing reads them elsewhere)."""
+    ok = outs[2]
+    return (ok,) + tuple(t[ok].view(torch.int32) for t in outs[:2])
+
+
+def cv2_cost(args, ok):
+    """Operations and bytes of the cv2-centre call on this data. The u/v
+    projection loop: per component of n > 2 strict corners, n x n (edge,
+    vertex) pairs of two products, a sum and two min/max. Bytes: row_valid
+    of every (component, row); the two int32 tables and both corner flags
+    only at the valid rows (the kernel reads no other row of them); min_y
+    and the 9 output bytes of every component; the inverse square roots of
+    the at most 8 candidates of each ``ok`` component."""
+    rvalid = args[2]
+    n = (args[4].sum(1) + args[5].sum(1)).to(torch.int64)
+    ops = int((n * n * (n > 2)).sum()) * 6
+    nbytes = rvalid.numel() + int(rvalid.sum()) * 10 + \
+        rvalid.shape[0] * 13 + int((n.clamp(max=8) * ok).sum()) * 4
+    return ops, nbytes
+
+
+def edge_finish_cost(chains):
+    """Operations and bytes of the edge-finish call on this data: about 40
+    operations at a kept slot; the edge flag and the 13 output bytes
+    (three float32, a flag) of every slot, the vector's 8 bytes only at a
+    kept slot."""
+    d, r = chains[0].shape
+    keep = int(chains[2][:, :r - 1].sum() + chains[5][:, :r - 1].sum())
+    return keep * 40, d * 2 * (r - 1) * 14 + keep * 8
+
+
+def rect_select_cost(select_args):
+    """Operations and bytes of the rect-select call on this data: about
+    100 operations per valid candidate (the appended one included); the
+    validity byte of every candidate, the 7 float32 values (extents,
+    direction, angle) of a valid one, the appended candidate's 6 (its
+    angle is 0) and the 20 output bytes of every component."""
+    evalid = select_args[7]
+    n_valid = int(evalid.sum())
+    d = evalid.shape[0]
+    return (n_valid + d) * 100, evalid.numel() + n_valid * 28 + d * 44
+
+
+def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
+    """Phase 31: the cv2-centre kernel (``csrc/cv2_centers.cu``) and the
+    edge-finish and rect-select kernels (``csrc/rect.cu``) against their
+    plain versions on the card, one launch a call: on the dense first
+    batch's tables, the frames-mode bench batch and the seeded edge cases;
+    then the dense first batch's ``_list.csv`` with the plain blocks
+    swapped in, byte-identical to the kernels'. Returns the dense
+    batch's timed checks."""
+    dense = dense_tables(*first_batch_runs(dscene, dsettings), dsettings,
+                         dev)
+    frames = frames_tables(scene, settings, dev)
+    cases = [('dense batch', dense), ('frames-mode bench batch', frames)]
+    for i, (hull_args, r) in enumerate(rect_tail_edge_tables(dev)):
+        cases.append(('edge cases {} (D={} R={})'.format(
+            i, hull_args[0].shape[0], r), (hull_args, sweep_of(hull_args))))
+    out = {}
+    for name, (hull_args, sweep_args) in cases:
+        cv2_args, chains, select_args = rect_tail_inputs(hull_args,
+                                                         sweep_args)
+        reps = 20 if name == 'dense batch' else 3
+        before = [k.launches for k in (cv2c.cv2_centers_from_tables,
+                                       rect.edge_finish, rect.rect_select)]
+        r = cv2_args[0].shape[1]
+        ops, nbytes = cv2_cost(cv2_args, cv2c.cv2_centers_from_tables_plain(
+            *cv2_args, max_bh=r)[2])
+        checks = [check_equal(
+            'cv2 centres ' + name,
+            lambda *a: cv2c.cv2_centers_from_tables(*a, max_bh=r),
+            lambda *a: cv2c.cv2_centers_from_tables_plain(*a, max_bh=r),
+            cv2_args, ops, reps=reps, plain_reps=3, nbytes=nbytes,
+            view=cv2_ok_view)]
+        ops, nbytes = edge_finish_cost(chains)
+        checks.append(check_equal(
+            'edge finish ' + name, rect.edge_finish,
+            labeling.edge_finish_plain, chains, ops, reps=reps,
+            plain_reps=3, nbytes=nbytes))
+        ops, nbytes = rect_select_cost(select_args)
+        checks.append(check_equal(
+            'rect select ' + name, rect.rect_select,
+            labeling.rect_select_plain, select_args, ops, reps=reps,
+            plain_reps=3, nbytes=nbytes))
+        after = [k.launches for k in (cv2c.cv2_centers_from_tables,
+                                      rect.edge_finish, rect.rect_select)]
+        if any(a <= b for a, b in zip(after, before)):
+            raise SystemExit('rect tail {}: a kernel was not launched'.format(
+                name))
+        if name == 'dense batch':
+            out = dict(zip(('cv2_centers_from_tables', 'edge_finish',
+                            'rect_select'), checks))
+    # the dense first batch through the stage-1 loop, kernels against the
+    # plain blocks swapped in
+    swaps = ((cv2c, 'cv2_centers_from_tables',
+              cv2c.cv2_centers_from_tables_plain),
+             (rect, 'edge_finish', labeling.edge_finish_plain),
+             (rect, 'rect_select', labeling.rect_select_plain))
+    lists = {}
+    for how in ('kernels', 'plain'):
+        saved = [getattr(m, n) for m, n, _ in swaps]
+        if how == 'plain':
+            for m, n, fn in swaps:
+                setattr(m, n, fn)
+        try:
+            reset_launches()
+            _, lists[how], _ = run_loop(dframes[:64], dsettings, 'cuda',
+                                        'rect_tail_' + how)
+            launches = [k.launches for k in saved]
+        finally:
+            for (m, n, _), fn in zip(swaps, saved):
+                setattr(m, n, fn)
+        if launches != [int(how == 'kernels')] * 3:
+            raise SystemExit('rect tail, {}: launches {}'.format(how,
+                                                                  launches))
+    if lists['kernels'] != lists['plain']:
+        raise SystemExit('rect tail: the dense first batch differs with the '
+                         'plain blocks swapped in')
+    log('rect tail: the dense first batch _list.csv ({} rows) byte-identical '
+        'with the kernels (one launch each) and with the plain blocks '
+        'swapped in'.format(lists['plain'].count(b'\n') - 1))
+    return out
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -3558,6 +3770,8 @@ def main():
         mean_check, mean_conv_ms = phase_adaptive_mean(scene, dscene, dev)
         gsff_check = phase_gsff(dframes, dsettings, settings, dev)
         step_check, merge_check = phase_frame_step(dframes, dsettings, dev)
+        tail_checks = phase_rect_tail(scene, settings, dscene, dsettings,
+                                      dframes, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -3598,6 +3812,18 @@ def main():
         'gsff_merge', 'ysmr_tpu_torch/csrc/frame_step.cu',
         'ysmr_tpu/pipeline/tracker.py:253 emit_pos / stored_pos (plain XLA)',
         dense_launches['gsff_merge'], merge_check))
+    for name, src, rep in (
+            ('cv2_centers_from_tables', 'cv2_centers.cu',
+             'ysmr_tpu/ops/cv2_centers.py:157 cv2_centers_from_tables '
+             '(plain XLA)'),
+            ('edge_finish', 'rect.cu',
+             'ysmr_tpu/ops/labeling.py:736 _edge_vector_finish (plain XLA)'),
+            ('rect_select', 'rect.cu',
+             'ysmr_tpu/ops/labeling.py:877 _min_area_rect_exact after the '
+             'sweep (plain XLA)')):
+        records.append(kernel_record(
+            name, 'ysmr_tpu_torch/csrc/' + src, rep, dense_launches[name],
+            tail_checks[name]))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

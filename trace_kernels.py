@@ -15,9 +15,11 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   ``label_components_whole_frame`` on the bench scene's first 64 frames
   thresholded by the device preprocess (64 x 922 x 1228), and the
   reconstruction on random blobs with the serpentine;
-- ``rects``: ``hull_edge_vectors`` and ``sweep_extents`` on the dense
-  batch's tables (262,144 x 48), on the frames-mode bench batch's
-  (32,768 x 64) and the hull on random tables (16384 x 96);
+- ``rects``: ``hull_edge_vectors``, ``sweep_extents`` and the rect
+  tail's kernels (``cv2_centers_from_tables``, ``edge_finish``,
+  ``rect_select``; phase 31's inputs) on the dense batch's tables
+  (262,144 x 48) and on the frames-mode bench batch's (32,768 x 64), and
+  the hull on random tables (16384 x 96);
 - ``pixels``: ``cc_labels_at_pixels`` on the pixel lists of the bench and
   dense batches (double and single threshold) and of the random blobs;
 - ``assign``: ``row_min_argmin`` at 4096x4096 (K = 2 and 3) and
@@ -177,6 +179,8 @@ def trace_cc(smoke, args, dev):
 
 def trace_rects(smoke, args, dev):
     import numpy as np
+    from ysmr_tpu_torch.ops import cv2_centers as cv2c
+    from ysmr_tpu_torch.ops import rect
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
     from ysmr_tpu_torch.ops.sweep import sweep_extents
     dsettings = smoke.dense_settings()
@@ -192,10 +196,22 @@ def trace_rects(smoke, args, dev):
         trace('hull_edge_vectors {} D={} R={}'.format(
             name, *hull_args[0].shape),
             lambda: hull_edge_vectors(*hull_args), args.reps, smoke)
-        if sweep_args is not None:
-            trace('sweep_extents {} D={} P={} K={}'.format(
-                name, *sweep_args[0].shape[:2], sweep_args[2].shape[1]),
-                lambda: sweep_extents(*sweep_args), args.reps, smoke)
+        if sweep_args is None:
+            continue
+        trace('sweep_extents {} D={} P={} K={}'.format(
+            name, *sweep_args[0].shape[:2], sweep_args[2].shape[1]),
+            lambda: sweep_extents(*sweep_args), args.reps, smoke)
+        cv2_args, chains, select_args = smoke.rect_tail_inputs(hull_args,
+                                                               sweep_args)
+        r = cv2_args[0].shape[1]
+        trace('cv2_centers_from_tables {} D={} R={}'.format(
+            name, *cv2_args[0].shape),
+            lambda: cv2c.cv2_centers_from_tables(*cv2_args, max_bh=r),
+            args.reps, smoke)
+        trace('edge_finish {} D={} R={}'.format(name, *chains[0].shape),
+              lambda: rect.edge_finish(*chains), args.reps, smoke)
+        trace('rect_select {} D={} K={}'.format(name, *select_args[0].shape),
+              lambda: rect.rect_select(*select_args), args.reps, smoke)
 
 
 def trace_pixels(smoke, args, dev):

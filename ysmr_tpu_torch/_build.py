@@ -177,6 +177,13 @@ def load_kernels():
     lib.ysmr_gsff_merge.restype = ci
     lib.ysmr_gsff_merge.argtypes = [vp] * 5 + [ci] * 3 + \
         [ctypes.c_longlong, ci, vp]
+    ll = ctypes.c_longlong
+    lib.ysmr_cv2_centers.restype = ci
+    lib.ysmr_cv2_centers.argtypes = [vp] * 10 + [ll] + [ci] * 4 + [vp]
+    lib.ysmr_edge_finish.restype = ci
+    lib.ysmr_edge_finish.argtypes = [vp] * 10 + [ll, ci, ci, vp]
+    lib.ysmr_rect_select.restype = ci
+    lib.ysmr_rect_select.argtypes = [vp] * 13 + [ll, ci, ci, vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

@@ -1,0 +1,401 @@
+// The exact rect's tail after the hull and sweep kernels: the hull-edge
+// finish and the rect select, one launch each.
+//
+// Replaces plain XLA of ysmr_tpu/ops/labeling.py (no Pallas kernel):
+//   - edge finish: _edge_vector_finish (:736), called twice by the
+//     hull-edge data and concatenated. Same contract and bits as
+//     ysmr_tpu_torch/ops/labeling.py::edge_finish_plain;
+//   - rect select: _min_area_rect_exact (:877) after the sweep: the
+//     double-single areas, their minimum, the tie band, the angle argmax,
+//     the picks and the centre. Same contract and bits as
+//     ysmr_tpu_torch/ops/labeling.py::rect_select_plain.
+//
+// Bits: every float32 operation is an _rn intrinsic (nvcc contracts a
+// plain a * b + c into an fma by default), in the plain version's order.
+// The angle is fdlibm's float32 atan2f (glibc e_atan2f.c / s_atanf.c, which
+// XLA:CPU's float32 atan2 gives), one rounding per operation in the C
+// order, the branches decided on the float's bits. The double-single
+// arithmetic follows ops/ds.py: two_sum, quick_two_sum, two_prod with the
+// Veltkamp split by the float32 product 4097 * a. The side length is the
+// float64 square root rounded to float32, and the angle in degrees one
+// float32 fma (ds.fma_f32, XLA's contraction).
+//
+// Design.
+//   - Edge finish: one thread per (component, chain slot) of the
+//     (D, 2 (R - 1)) output; slot j < R - 1 reads the left chain's row j,
+//     the others the right chain's row j - (R - 1). Elementwise: the fold,
+//     the keep rule, the angle.
+//   - Rect select: one warp per component over its K = 2 (R - 1) + 1
+//     candidates (the last is the appended horizontal (1, 0), angle 0,
+//     always valid). Lane l takes candidates l, l + 32, ...: it forms each
+//     double-single area and keeps its least under the strict order
+//     (h, l) < (h', l'); a butterfly of shuffles then gives every lane the
+//     least of the warp (the pairwise-halving tree's value: the order is
+//     total on these finite pairs, so any reduction order finds the same
+//     value). A second pass forms each candidate's tie test against it
+//     (the areas of a lane's first four candidates kept in registers from
+//     the first pass, any later ones formed again) and keeps the largest
+//     angle, the lower index on equal angles (argmax's first maximum);
+//     lane 0 computes the outputs from the winner.
+//
+// What bounds it on an H100: bytes. Each kernel reads a flag first and
+// the values behind it only where it is set. Edge finish: the edge flag
+// and 13 bytes out per slot, the 2 x 4 bytes of the vector and about 40
+// operations of the polynomial at a kept slot; rect select: the validity
+// byte per candidate, 7 x 4 bytes and about 60 float operations per valid
+// candidate (and the appended one), 20 bytes out per component.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// rect select: the candidates a lane keeps from pass 1 (all of them up
+// to K = 128, the frames-mode R = 64)
+constexpr int kKeep = 4;
+constexpr unsigned kFull = 0xffffffffu;
+// float32(3e38): ops/labeling.py's BIG_F
+constexpr float kBigF = 0x1.c363ccp+127f;
+// float32(1e-9), the tie band's constant
+constexpr float kTie = 0x1.12e0bep-30f;
+// float32(180 / pi), the constant of jnp.degrees
+constexpr float kRadToDeg = 0x1.ca5dc2p+5f;
+
+// fdlibm s_atanf.c: atan of the breakpoints split hi + lo, the polynomial
+__constant__ float kAtanHi[4] = {0x1.dac670p-2f, 0x1.921fb4p-1f,
+                                 0x1.f730bcp-1f, 0x1.921fb4p+0f};
+__constant__ float kAtanLo[4] = {0x1.586ed2p-28f, 0x1.4442d0p-25f,
+                                 0x1.281f68p-25f, 0x1.4442d0p-24f};
+__constant__ float kAtanT[11] = {
+    0x1.555556p-2f, -0x1.99999ap-3f, 0x1.24924ap-3f, -0x1.c71c70p-4f,
+    0x1.745cdcp-4f, -0x1.3b0f2ap-4f, 0x1.10d66ap-4f, -0x1.dde2d6p-5f,
+    0x1.97b4b2p-5f, -0x1.2b4442p-5f, 0x1.0ad3aep-6f};
+constexpr float kPiO2 = 0x1.921fb6p+0f;
+constexpr float kPiLo = -0x1.777a5cp-24f;
+
+__device__ __forceinline__ float fadd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float fsub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float fmul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float fdiv(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+
+// fdlibm atanf for finite x >= 0
+__device__ float atanf_fdlibm(float x) {
+  const int ix = __float_as_int(x);
+  if (ix >= 0x4c000000) return fadd(kAtanHi[3], kAtanLo[3]);  // |x| >= 2^25
+  if (ix < 0x31000000) return x;                               // |x| < 2^-29
+  int id = -1;
+  float xr = x;
+  if (ix >= 0x401c0000) {
+    id = 3;
+    xr = fdiv(-1.0f, x);
+  } else if (ix >= 0x3f980000) {
+    id = 2;
+    xr = fdiv(fsub(x, 1.5f), fadd(1.0f, fmul(1.5f, x)));
+  } else if (ix >= 0x3f300000) {
+    id = 1;
+    xr = fdiv(fsub(x, 1.0f), fadd(x, 1.0f));
+  } else if (ix >= 0x3ee00000) {
+    id = 0;
+    xr = fdiv(fsub(fmul(x, 2.0f), 1.0f), fadd(2.0f, x));
+  }
+  const float z = fmul(xr, xr);
+  const float w = fmul(z, z);
+  const float* t = kAtanT;
+  const float s1 = fmul(z, fadd(t[0], fmul(w, fadd(t[2], fmul(w, fadd(t[4],
+      fmul(w, fadd(t[6], fmul(w, fadd(t[8], fmul(w, t[10])))))))))));
+  const float s2 = fmul(w, fadd(t[1], fmul(w, fadd(t[3], fmul(w, fadd(t[5],
+      fmul(w, fadd(t[7], fmul(w, t[9])))))))));
+  const float s = fadd(s1, s2);
+  if (id < 0) return fsub(xr, fmul(xr, s));
+  return fsub(kAtanHi[id], fsub(fsub(fmul(xr, s), kAtanLo[id]), xr));
+}
+
+// fdlibm atan2f for finite y >= 0, x > 0 (the folded edge vectors)
+__device__ float atan2f_fdlibm(float y, float x) {
+  if (y == 0.0f) return y;
+  if (x == 1.0f) return atanf_fdlibm(y);
+  const int k = (__float_as_int(y) - __float_as_int(x)) >> 23;
+  if (k > 60) return fadd(kPiO2, fmul(0.5f, kPiLo));
+  return atanf_fdlibm(fabsf(fdiv(y, x)));
+}
+
+__global__ void __launch_bounds__(kThreads)
+edge_finish_kernel(const float* __restrict__ dxl, const float* __restrict__ dyl,
+                   const uint8_t* __restrict__ el,
+                   const float* __restrict__ dxr,
+                   const float* __restrict__ dyr,
+                   const uint8_t* __restrict__ er, float* __restrict__ out_dx,
+                   float* __restrict__ out_dy, float* __restrict__ out_ang,
+                   uint8_t* __restrict__ out_valid, int64_t total, int r) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (o >= total) return;
+  const int m = r - 1;
+  const int64_t c = o / (2 * m);
+  const int j = static_cast<int>(o - c * 2 * m);
+  const bool right = j >= m;
+  const int i = right ? j - m : j;
+  const int64_t q = c * r + i;
+  const bool keep = right ? er[q] : el[q];
+  out_valid[o] = keep || i == 0;
+  if (!keep) {  // the vector is not read
+    out_dx[o] = 1.0f;
+    out_dy[o] = 0.0f;
+    out_ang[o] = 0.0f;
+    return;
+  }
+  float dx = right ? dxr[q] : dxl[q];
+  float dy = right ? dyr[q] : dyl[q];
+  // the fold to dx > 0, dy >= 0 (ops/labeling.py::_fold_edge_vector)
+  const bool neg = (dy < 0.0f) || (dy == 0.0f && dx < 0.0f);
+  if (neg) {
+    dx = -dx;
+    dy = -dy;
+  }
+  if (dx <= 0.0f && dy > 0.0f) {
+    const float t = dx;
+    dx = dy;
+    dy = -t;
+  }
+  if (dx == 0.0f && dy == 0.0f) dx = 1.0f;
+  out_dx[o] = dx;
+  out_dy[o] = dy;
+  out_ang[o] = atan2f_fdlibm(dy, dx);
+}
+
+struct Ds {
+  float h, l;
+};
+
+__device__ __forceinline__ Ds two_sum(float a, float b) {
+  const float s = fadd(a, b);
+  const float bb = fsub(s, a);
+  return {s, fadd(fsub(a, fsub(s, bb)), fsub(b, bb))};
+}
+
+__device__ __forceinline__ Ds quick_two_sum(float a, float b) {
+  const float s = fadd(a, b);
+  return {s, fsub(b, fsub(s, a))};
+}
+
+__device__ __forceinline__ Ds two_prod(float a, float b) {
+  const float p = fmul(a, b);
+  const float ca = fmul(4097.0f, a);
+  const float ah = fsub(ca, fsub(ca, a));
+  const float al = fsub(a, ah);
+  const float cb = fmul(4097.0f, b);
+  const float bh = fsub(cb, fsub(cb, b));
+  const float bl = fsub(b, bh);
+  const float e = fadd(fadd(fadd(fsub(fmul(ah, bh), p), fmul(ah, bl)),
+                            fmul(al, bh)),
+                       fmul(al, bl));
+  return {p, e};
+}
+
+__device__ __forceinline__ Ds ds_add(Ds x, Ds y) {
+  const Ds s = two_sum(x.h, y.h);
+  return quick_two_sum(s.h, fadd(s.l, fadd(x.l, y.l)));
+}
+
+__device__ __forceinline__ Ds ds_sub(Ds x, Ds y) {
+  return ds_add(x, {-y.h, -y.l});
+}
+
+__device__ __forceinline__ Ds div_by_f32(Ds x, float d) {
+  const float q0 = fdiv(x.h, d);
+  const Ds r0 = two_prod(q0, d);
+  const Ds r = ds_sub(x, r0);
+  return quick_two_sum(q0, fdiv(fadd(r.h, r.l), d));
+}
+
+// (bh, bl) < (ah, al) in ops/labeling.py::_ds_less's order
+__device__ __forceinline__ bool ds_less(Ds b, Ds a) {
+  return b.h < a.h || (b.h == a.h && b.l < a.l);
+}
+
+struct Cand {
+  float du, dv, l2;
+};
+
+// candidate o's clamped extents and squared length
+__device__ __forceinline__ Cand candidate(
+    const float* __restrict__ min_u, const float* __restrict__ max_u,
+    const float* __restrict__ min_v, const float* __restrict__ max_v,
+    const float* __restrict__ edx, const float* __restrict__ edy,
+    int64_t o) {
+  Cand c;
+  c.du = fmaxf(fsub(max_u[o], min_u[o]), 0.0f);
+  c.dv = fmaxf(fsub(max_v[o], min_v[o]), 0.0f);
+  const float dx = edx[o], dy = edy[o];
+  c.l2 = fadd(fmul(dx, dx), fmul(dy, dy));
+  return c;
+}
+
+// a valid candidate's double-single area
+__device__ __forceinline__ Ds area(const Cand& c) {
+  return div_by_f32(two_prod(c.du, c.dv), c.l2);
+}
+
+__global__ void __launch_bounds__(kThreads)
+rect_select_kernel(const float* __restrict__ min_u,
+                   const float* __restrict__ max_u,
+                   const float* __restrict__ min_v,
+                   const float* __restrict__ max_v,
+                   const float* __restrict__ edx, const float* __restrict__ edy,
+                   const float* __restrict__ eang,
+                   const uint8_t* __restrict__ evalid, float* __restrict__ cx,
+                   float* __restrict__ cy, float* __restrict__ w_out,
+                   float* __restrict__ h_out, float* __restrict__ ang_out,
+                   int64_t d, int kk) {
+  const int lane = threadIdx.x & 31;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps +
+                    (threadIdx.x >> 5);
+  if (c >= d) return;  // whole warps leave together
+  const int64_t base = c * kk;
+  const int64_t vbase = c * (kk - 1);
+  auto valid = [&](int k) { return k == kk - 1 || evalid[vbase + k] != 0; };
+  // an invalid candidate's extents are not read: its area is +big
+  auto area_of = [&](int k) {
+    return valid(k) ? area(candidate(min_u, max_u, min_v, max_v, edx, edy,
+                                     base + k))
+                    : Ds{kBigF, 0.0f};
+  };
+  // pass 1: the least double-single area; a lane keeps the areas of its
+  // first kKeep candidates in registers for pass 2
+  Ds kept[kKeep];
+  Ds m = {INFINITY, 0.0f};
+  bool have = false;
+  auto take_min = [&](const Ds& a) {
+    if (!have || ds_less(a, m)) m = a;
+    have = true;
+  };
+#pragma unroll
+  for (int i = 0; i < kKeep; ++i) {
+    const int k = lane + 32 * i;
+    if (k < kk) {
+      kept[i] = area_of(k);
+      take_min(kept[i]);
+    }
+  }
+  for (int k = lane + 32 * kKeep; k < kk; k += 32) take_min(area_of(k));
+  for (int off = 16; off > 0; off >>= 1) {
+    Ds o = {__shfl_xor_sync(kFull, m.h, off), __shfl_xor_sync(kFull, m.l,
+                                                               off)};
+    const bool oh = __shfl_xor_sync(kFull, static_cast<int>(have), off);
+    if (oh && (!have || ds_less(o, m))) m = o;
+    have = have || oh;
+  }
+  m.h = __shfl_sync(kFull, m.h, 0);
+  m.l = __shfl_sync(kFull, m.l, 0);
+  // pass 2: the tied candidate with the largest angle, first on equal
+  const float band = fadd(fmul(m.h, kTie), kTie);
+  float best = -INFINITY;
+  int bk = kk;
+  auto take_tie = [&](int k, const Ds& a) {
+    float val = -1.0f;
+    if (valid(k) && ds_sub(a, m).h <= band) {
+      val = k == kk - 1 ? 0.0f : eang[vbase + k];
+    }
+    if (val > best) {
+      best = val;
+      bk = k;
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kKeep; ++i) {
+    const int k = lane + 32 * i;
+    if (k < kk) take_tie(k, kept[i]);
+  }
+  for (int k = lane + 32 * kKeep; k < kk; k += 32) take_tie(k, area_of(k));
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, best, off);
+    const int ok = __shfl_xor_sync(kFull, bk, off);
+    if (ov > best || (ov == best && ok < bk)) {
+      best = ov;
+      bk = ok;
+    }
+  }
+  if (lane != 0) return;
+  const int64_t o = base + bk;
+  const Cand a = candidate(min_u, max_u, min_v, max_v, edx, edy, o);
+  const float bdx = edx[o], bdy = edy[o];
+  const float bl = __double2float_rn(__dsqrt_rn(static_cast<double>(a.l2)));
+  w_out[c] = fdiv(a.dv, bl);
+  h_out[c] = fdiv(a.du, bl);
+  const float cu2 = fadd(min_u[o], max_u[o]);
+  const float cv2 = fadd(min_v[o], max_v[o]);
+  const Ds nx = ds_sub(two_prod(cu2, bdx), two_prod(cv2, bdy));
+  const Ds ny = ds_add(two_prod(cu2, bdy), two_prod(cv2, bdx));
+  const float inv = fdiv(1.0f, fmul(2.0f, a.l2));
+  cx[c] = fadd(fmul(nx.h, inv), fmul(nx.l, inv));
+  cy[c] = fadd(fmul(ny.h, inv), fmul(ny.l, inv));
+  const float ang = bk == kk - 1 ? 0.0f : eang[vbase + bk];
+  ang_out[c] = __fmaf_rn(ang, kRadToDeg, -90.0f);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dxl, dyl, dxr, dyr: (D, R) float32; el, er: (D, R) uint8; the outputs
+// (D, 2 (R - 1)): dx, dy, angles float32, valid uint8; all contiguous on
+// CUDA device `device`, launched on `stream`. Returns a cudaError_t.
+int ysmr_edge_finish(const void* dxl, const void* dyl, const void* el,
+                     const void* dxr, const void* dyr, const void* er,
+                     void* out_dx, void* out_dy, void* out_ang,
+                     void* out_valid, long long d, int r, int device,
+                     void* stream) {
+  const int64_t total = static_cast<int64_t>(d) * 2 * (r - 1);
+  if (total <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  edge_finish_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dxl), static_cast<const float*>(dyl),
+      static_cast<const uint8_t*>(el), static_cast<const float*>(dxr),
+      static_cast<const float*>(dyr), static_cast<const uint8_t*>(er),
+      static_cast<float*>(out_dx), static_cast<float*>(out_dy),
+      static_cast<float*>(out_ang), static_cast<uint8_t*>(out_valid), total,
+      r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// min_u, max_u, min_v, max_v, edx, edy: (D, K) float32 (the sweep's
+// extents and directions, the appended (1, 0) last); eang: (D, K - 1)
+// float32; evalid: (D, K - 1) uint8; the outputs (D,) float32: cx, cy, w,
+// h, angle in degrees; all contiguous on CUDA device `device`, launched on
+// `stream`. Returns a cudaError_t.
+int ysmr_rect_select(const void* min_u, const void* max_u, const void* min_v,
+                     const void* max_v, const void* edx, const void* edy,
+                     const void* eang, const void* evalid, void* cx, void* cy,
+                     void* w, void* h, void* ang, long long d, int k,
+                     int device, void* stream) {
+  if (d <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (d + kWarps - 1) / kWarps;
+  rect_select_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(min_u), static_cast<const float*>(max_u),
+      static_cast<const float*>(min_v), static_cast<const float*>(max_v),
+      static_cast<const float*>(edx), static_cast<const float*>(edy),
+      static_cast<const float*>(eang), static_cast<const uint8_t*>(evalid),
+      static_cast<float*>(cx), static_cast<float*>(cy),
+      static_cast<float*>(w), static_cast<float*>(h),
+      static_cast<float*>(ang), d, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -18,14 +18,23 @@ Differences from the JAX module, all of representation:
   two-rounding expression: PyTorch rounds every product on its own.
 - ``lax.top_k`` of the negated areas is a stable ascending sort (both put
   the lower index first on ties).
-- ``cv2_centers_from_tables`` runs over chunks of components, so its
+- ``cv2_centers_from_tables_plain`` runs over chunks of components, so its
   (D, 32, 32) projection tensors stay small at dense capacities.
+
+``cv2_centers_from_tables`` sends a CPU tensor to the plain version and a
+CUDA tensor to the hand-written kernel ``csrc/cv2_centers.cu`` (one warp
+per component, all components in one launch; its source notes the
+design), or raises. Nothing falls back from the kernel to the plain
+version.
 """
 
 import numpy as np
 import torch
 
-__all__ = ['inv_sqrt_table', 'cv2_centers_from_tables']
+from ysmr_tpu_torch import _build
+
+__all__ = ['inv_sqrt_table', 'cv2_centers_from_tables',
+           'cv2_centers_from_tables_plain']
 
 #: caliper candidates kept per component; more near-ties than this -> ok
 #: False (exact-center fallback)
@@ -35,7 +44,7 @@ _N_CAND = 8
 #: -> ok False (exact-center fallback)
 _K_HULL = 32
 
-#: components per chunk of cv2_centers_from_tables
+#: components per chunk of cv2_centers_from_tables_plain
 _CHUNK = 16384
 
 _I32 = torch.int32
@@ -70,8 +79,65 @@ def _select(conds, vals, default):
     return out
 
 
+def _w_limit(r):
+    """Widths below this keep the f32 slope/tan keys collision-free."""
+    return (1 << 23) // max(r * r, 1)
+
+
 def cv2_centers_from_tables(row_min_x, row_max_x, row_valid, min_y,
                             corner_l, corner_r, isq_table, *, max_bh):
+    """cv2.minAreaRect centers (f32, bit-exact) from row-extreme tables
+    (contract of :func:`cv2_centers_from_tables_plain`): the plain version
+    on a CPU tensor, the kernel ``csrc/cv2_centers.cu`` on a CUDA one (one
+    launch, counted in ``.launches``). Where ``ok`` is False the kernel's
+    centre is 0."""
+    dev = row_min_x.device
+    if dev.type == 'cpu':
+        return cv2_centers_from_tables_plain(
+            row_min_x, row_max_x, row_valid, min_y, corner_l, corner_r,
+            isq_table, max_bh=max_bh)
+    if dev.type != 'cuda':
+        raise ValueError('cv2_centers_from_tables: unsupported device '
+                         '{}'.format(dev))
+    if row_min_x.dim() != 2 or row_min_x.shape[1] != max_bh:
+        raise ValueError('cv2_centers_from_tables: tables must have max_bh '
+                         'rows')
+    d, r = row_min_x.shape
+    tabs = [a.contiguous() for a in (row_min_x, row_max_x, row_valid,
+                                     min_y, corner_l, corner_r, isq_table)]
+    for name, a, shape, dtype in zip(
+            ('row_min_x', 'row_max_x', 'row_valid', 'min_y', 'corner_l',
+             'corner_r'), tabs,
+            ((d, r), (d, r), (d, r), (d,), (d, r), (d, r)),
+            (torch.int32, torch.int32, torch.bool, torch.int32, torch.bool,
+             torch.bool)):
+        if tuple(a.shape) != shape or a.dtype != dtype or a.device != dev:
+            raise ValueError('cv2_centers_from_tables: {} must be a {} {} '
+                             'tensor on {}'.format(name, shape, dtype, dev))
+    tab_n = isq_table.numel()
+    if isq_table.dim() != 1 or isq_table.dtype != _F32 or \
+            isq_table.device != dev or not 0 < tab_n < 1 << 31:
+        raise ValueError('cv2_centers_from_tables: isq_table must be a '
+                         'non-empty 1-D float32 table on {}'.format(dev))
+    cx = torch.empty(d, dtype=_F32, device=dev)
+    cy = torch.empty(d, dtype=_F32, device=dev)
+    ok = torch.empty(d, dtype=torch.bool, device=dev)
+    lib = _build.load_kernels()
+    rc = lib.ysmr_cv2_centers(
+        *(a.data_ptr() for a in tabs), cx.data_ptr(), cy.data_ptr(),
+        ok.data_ptr(), d, r, tab_n, _w_limit(r), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, 'cv2 centers kernel launch')
+    cv2_centers_from_tables.launches += 1
+    return cx, cy, ok
+
+
+#: kernel launches since the count was last set to 0
+cv2_centers_from_tables.launches = 0
+
+
+def cv2_centers_from_tables_plain(row_min_x, row_max_x, row_valid, min_y,
+                                  corner_l, corner_r, isq_table, *, max_bh):
     """cv2.minAreaRect centers (f32, bit-exact) from row-extreme tables.
 
     :param row_min_x, row_max_x: (D, R) int32 absolute x extremes per row
@@ -122,7 +188,7 @@ def _centers_chunk(row_min_x, row_max_x, row_valid, min_y, corner_l,
                        ).amax(dim=1)
     width = xmax - x0
     # f32 slope/tan keys are collision-free only below this width
-    w_ok = width < (1 << 23) // max(r * r, 1)
+    w_ok = width < _w_limit(r)
 
     xl_min = torch.where(row_valid, row_min_x - x0[:, None], zero_i)
     xl_max = torch.where(row_valid, row_max_x - x0[:, None], zero_i)

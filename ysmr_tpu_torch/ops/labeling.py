@@ -43,6 +43,9 @@ Differences from the JAX module, all of representation:
   ``csrc/hull.cu`` and ``csrc/sweep.cu`` (wrappers ``ops/hull.py`` and
   ``ops/sweep.py``); they run over chunks of the non-empty components so
   the (D, R, R) and (D, K, P) tensors stay small at dense capacities.
+  The angle finishing of both chains (``edge_finish_plain``) and the
+  choice after the sweep (``rect_select_plain``) are the plain versions
+  of the two kernels of ``csrc/rect.cu`` (wrapper ``ops/rect.py``).
 - The hull-edge ``arctan2`` is fdlibm's float32 ``atan2f``, spelt out in
   float32 tensor operations: XLA:CPU's float32 atan2 is the C library's
   ``atan2f``, and glibc's is fdlibm's (equal on 189,700 tested inputs). A
@@ -535,26 +538,41 @@ def hull_edge_vectors_plain(row_min_x, row_max_x, row_valid, abs_y):
     return tuple(outs)
 
 
+def edge_finish_plain(dx_l, dy_l, edge_l, dx_r, dy_r, edge_r):
+    """Plain version of the ``csrc/rect.cu`` edge-finish kernel: each
+    chain's R - 1 outgoing edge vectors folded, their fdlibm angles and
+    validity (``_edge_vector_finish`` of the left chain, then of the right,
+    concatenated).
+
+    :param dx_l, dy_l, dx_r, dy_r: (D, R) float32; edge_l, edge_r (D, R)
+        bool (``hull_edge_vectors``' outputs)
+    :return: (dx, dy, angles, valid), (D, 2 (R - 1))
+    """
+    r = dx_l.shape[1]
+    lx, ly, la, lv = _edge_vector_finish(dx_l, dy_l, edge_l, r)
+    rx, ry, ra, rv = _edge_vector_finish(dx_r, dy_r, edge_r, r)
+    return (torch.cat([lx, rx], dim=1), torch.cat([ly, ry], dim=1),
+            torch.cat([la, ra], dim=1), torch.cat([lv, rv], dim=1))
+
+
 def _hull_edge_data(row_min_x, row_max_x, row_valid, abs_y):
     """Exact hull-edge candidate vectors and angles of both chains.
 
-    The slopes come from ``ops/hull.py::hull_edge_vectors`` (the CUDA
-    kernel on a CUDA tensor, ``hull_edge_vectors_plain`` on a CPU one);
-    the angle finishing runs here, as in the JAX module.
+    The slopes come from ``ops/hull.py::hull_edge_vectors`` and the angle
+    finishing from ``ops/rect.py::edge_finish`` (the CUDA kernels on a CUDA
+    tensor, ``hull_edge_vectors_plain`` and ``edge_finish_plain`` on a CPU
+    one).
 
     :return: (dx, dy, angles, valid, corner_l, corner_r): the first four
         (D, 2*(R-1)) folded integer edge vectors, their float32 angles in
         [0, pi/2) and validity; the corners (D, R) strict chain-corner
         masks (consumed by ops/cv2_centers)
     """
+    from ysmr_tpu_torch.ops import rect
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
-    r = row_min_x.shape[1]
     dxl, dyl, el, dxr, dyr, er, cl, cr = hull_edge_vectors(
         row_min_x, row_max_x, row_valid, abs_y)
-    lx, ly, la, lv = _edge_vector_finish(dxl, dyl, el, r)
-    rx, ry, ra, rv = _edge_vector_finish(dxr, dyr, er, r)
-    return (torch.cat([lx, rx], dim=1), torch.cat([ly, ry], dim=1),
-            torch.cat([la, ra], dim=1), torch.cat([lv, rv], dim=1), cl, cr)
+    return rect.edge_finish(dxl, dyl, el, dxr, dyr, er) + (cl, cr)
 
 
 def sweep_extents_plain(pts, valid, dx, dy):
@@ -604,28 +622,49 @@ def min_area_rect(pts, valid, edge_angles, edge_valid, edge_dx, edge_dy):
     projections onto integer edge vectors are exact float32 integers, so
     the scaled areas are exact double-single products compared exactly;
     equal areas resolve to the largest-angle candidate (cv2's calipers
-    visit edges in increasing rotation and replace on <=).
+    visit edges in increasing rotation and replace on <=). The extents come
+    from ``ops/sweep.py::sweep_extents`` and the choice from
+    ``ops/rect.py::rect_select`` (kernels on a CUDA tensor, the plain
+    versions on a CPU one).
 
     :param pts: (D, P, 2) float32 candidate points; valid (D, P) bool
     :param edge_*: (D, K) candidate edge vectors, angles and validity
     :return: dict of (D,) float32 cx, cy, w, h, angle_deg (cv2's classic
         convention: degrees in [-90, 0), w along the reported angle)
     """
+    from ysmr_tpu_torch.ops import rect
     from ysmr_tpu_torch.ops.sweep import sweep_extents
     d = edge_dx.shape[0]
-    dev = edge_dx.device
     # the hull's closing edges (top/bottom row) are horizontal and are not
     # emitted by the left/right chains: append an always-valid (1, 0)
-    one = torch.ones((d, 1), dtype=edge_dx.dtype, device=dev)
+    one = torch.ones((d, 1), dtype=edge_dx.dtype, device=edge_dx.device)
     edge_dx = torch.cat([edge_dx, one], dim=1)
     edge_dy = torch.cat([edge_dy, one * 0.0], dim=1)
-    edge_angles = torch.cat([edge_angles, one * 0.0], dim=1)
+    extents = sweep_extents(pts.contiguous(), valid.contiguous(), edge_dx,
+                            edge_dy)
+    cx, cy, w, h, angle_deg = rect.rect_select(
+        *extents, edge_dx, edge_dy, edge_angles.contiguous(),
+        edge_valid.contiguous())
+    return {'cx': cx, 'cy': cy, 'w': w, 'h': h, 'angle_deg': angle_deg}
+
+
+def rect_select_plain(min_u, max_u, min_v, max_v, edge_dx, edge_dy,
+                      edge_angles, edge_valid):
+    """Plain version of the ``csrc/rect.cu`` rect-select kernel:
+    ``_min_area_rect_exact``'s choice after the sweep.
+
+    :param min_u, max_u, min_v, max_v: (D, K) float32 swept extents
+    :param edge_dx, edge_dy: (D, K) float32 swept directions, the appended
+        horizontal (1, 0) last
+    :param edge_angles, edge_valid: (D, K - 1) of the hull candidates
+    :return: (cx, cy, w, h, angle_deg), each (D,) float32
+    """
+    d, k = min_u.shape
+    dev = min_u.device
+    edge_angles = torch.cat(
+        [edge_angles, torch.zeros((d, 1), dtype=_F32, device=dev)], dim=1)
     edge_valid = torch.cat(
         [edge_valid, torch.ones((d, 1), dtype=torch.bool, device=dev)], dim=1)
-    k = edge_dx.shape[1]
-    min_u, max_u, min_v, max_v = sweep_extents(
-        pts.contiguous(), valid.contiguous(), edge_dx.contiguous(),
-        edge_dy.contiguous())
     # all-invalid components give inverted +-big extents; clamp to keep the
     # arithmetic NaN-free (their outputs are masked by det_valid later)
     du = torch.clamp(max_u - min_u, min=0.0)
@@ -685,5 +724,4 @@ def min_area_rect(pts, valid, edge_angles, edge_valid, edge_dx, edge_dy):
     ang = pick(edge_angles)
     angle_deg = ds.fma_f32(ang, torch.full_like(ang, _RAD_TO_DEG),
                            torch.full_like(ang, -90.0))
-    return {'cx': cx, 'cy': cy, 'w': h_side, 'h': w_side,
-            'angle_deg': angle_deg}
+    return cx, cy, h_side, w_side, angle_deg
