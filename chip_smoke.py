@@ -179,14 +179,16 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    swapped in, every emission and state tensor bit-equal), random mid-run
    states at N = 4096 and 4 x 1024, and the edge cases of
    ``tests/test_torch_gsff.py`` (N = 1 and 4095, all slots inactive, all
-   registering, the n_max 256 / n_f 8 bank, +-1e4 px); median ms of the
+   registering, the n_max 256 / n_f 8 bank, +-1e4 px, n_max 33 and 64,
+   whose trees start in the warp's shared buffer); median ms of the
    kernel and the plain version with the bound; then the dense frame
-   step's kernels (``torch.profiler``) and wall time at V = 1 and V = 4
-   (``tracker_step_launches.measure``),
-   with the kernel and with the plain version swapped in, the device
-   operations by name (at most 8 kernels, memsets and copies with the
-   kernels). The dense, frames, luminosity and multi-video phases (7, 10,
-   14-16, 23, 24) fail unless it was launched;
+   step's kernels (``torch.profiler``) and wall time at V = 1 and V = 4,
+   and with luminosity's K = 3 at V = 1
+   (``tracker_step_launches.measure``), with the kernel and with the
+   plain version swapped in, the device operations by name (at most 5
+   kernels, memsets and copies with the kernels). The dense, frames,
+   luminosity and multi-video phases (7, 10, 14-16, 23, 24) fail unless
+   it was launched;
 30. the frame-step kernel (``csrc/frame_step.cu``: the tracker's greedy
    match, ageing, registration and emissions) against
    ``match_and_register_plain`` on the card, bit for bit, one call a
@@ -194,10 +196,14 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    (the plain version's state fed to both, and the whole scan with the
    plain block swapped in), random states at the dense size (4096 slots,
    3000 live) for V = 1 and 4, and the edge cases of
-   ``tests/test_torch_frame_step.py`` (its seven seeded cases at five
-   shapes, NaN row minima, ``max_disappeared`` compared in float32, no
-   slots); the GSFF merge against its plain version; median ms of each
-   with the bound. Phases 7, 10, 14-16 and 23 fail unless both were
+   ``tests/test_torch_frame_step.py`` (its seven seeded cases at eight
+   shapes, three of them splitting the rank tiles and the update cluster
+   unevenly, NaN row minima, ``max_disappeared`` compared in float32, no
+   slots, and ``frame_step_cases``' key edges: signed zeros, NaN
+   payloads, ids at the int32 limits, keys equal but for the slot); the
+   GSFF merge against its plain version; median ms of each with the
+   bound, and the rank and update launches' device times apart, each
+   with its bound. Phases 7, 10, 14-16 and 23 fail unless both were
    launched, 7 and 23 unless once a frame step;
 31. the rect tail's kernels against their plain versions on the card, one
    launch a call: the cv2 centres (``csrc/cv2_centers.cu``; ``ok`` equal
@@ -237,6 +243,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+import frame_step_cases as fsc
 import rect_tail_cases as rtc
 import tracker_step_launches as tsl
 
@@ -3096,7 +3103,9 @@ GSFF_EDGES = (
     ('all inactive', 4096, {}, 'inactive', 400),
     ('all registering', 4096, {}, 'registering', 400),
     ('n_max 256, n_f 8', 1024, {'n_max': 256, 'n_f': 8}, 'mixed', 400),
-    ('+-1e4 px', 4096, {}, 'mixed', 1e4))
+    ('+-1e4 px', 4096, {}, 'mixed', 1e4),
+    ('n_max 33', 1024, {'n_max': 33}, 'mixed', 400),
+    ('n_max 64', 1024, {'n_max': 64}, 'mixed', 400))
 
 
 def gsff_case(rng, n, params, dev, kind='mixed', span=400):
@@ -3195,25 +3204,41 @@ def check_gsff(name, args, timed=False):
         gsff_tensors(args), gsff_ops_count(args), reps=20)
 
 
-def frame_step(v, params, dev, plain):
+def plain_gsff_step(gains, n_i, n_f, n_i0, state, pos, active, register,
+                    coasting, *, out, frame):
+    """The scan's GSFF entry with the plain version on the card, into the
+    scan's buffers (``frame_step.write_plain``'s twin)."""
+    new_state = out['states'][frame % len(out['states'])]
+    got, corr, pred = gsff_ops.register_and_step_plain(
+        gains, n_i, n_f, n_i0, state, pos[:, :2], active, register,
+        coasting)
+    for key in gsff_ops.STATE_KEYS:
+        new_state[key].copy_(got[key])
+    out['corrected'].copy_(corr)
+    out['predicted'].copy_(pred)
+    return new_state, out['corrected'], out['predicted']
+
+
+def frame_step(v, params, dev, plain, k=2):
     """``tracker_step_launches.measure`` (the dense frame step: 4096
-    slots, 4096 detections, 3000 live) at V videos with the GSFF kernel
-    or, with ``plain``, its plain version swapped in: (device operations
-    of the step (kernels, memsets, copies), median ms per frame step,
-    the operations by name)."""
-    kernel = gsff_ops.register_and_step
+    slots, 4096 detections, 3000 live) at V videos and K coordinates with
+    the GSFF kernel or, with ``plain``, its plain version swapped in:
+    (device operations of the step (kernels, memsets, copies), median ms
+    per frame step, the operations by name)."""
+    kernel = gsff_ops._register_and_step
     if plain:
-        gsff_ops.register_and_step = gsff_ops.register_and_step_plain
+        gsff_ops._register_and_step = plain_gsff_step
     try:
-        out = tsl.measure(trk, params, v, dev)
+        out = tsl.measure(trk, params, v, dev, k)
     finally:
-        gsff_ops.register_and_step = kernel
+        gsff_ops._register_and_step = kernel
     ops = out['frame_step']['kernels'] + out['frame_step']['memops']
     return ops, out['ms_per_frame_step'], out['frame_step_ops']
 
 
-#: device operations (kernels, memsets, copies) of a dense frame step
-MAX_STEP_OPS = 8
+#: device operations (kernels, memsets, copies) of a dense frame step:
+#: assign, the frame step's rank and update, GSFF, the merge
+MAX_STEP_OPS = 5
 
 
 def phase_gsff(dframes, dsettings, settings, dev):
@@ -3226,22 +3251,26 @@ def phase_gsff(dframes, dsettings, settings, dev):
     t = 64
     tables, params, tkw = dense_tracker_inputs(dframes, dsettings, dev, t)
     slots = dsettings['max track slots']
-    kernel = gsff_ops.register_and_step
+    kernel = gsff_ops._register_and_step
     calls, scans = [], {}
     for name in ('kernel', 'plain'):
-        def record(*args, step=gsff_ops.register_and_step_plain
-                   if name == 'plain' else kernel):
-            calls.append(args)
-            return step(*args)
-        # the wrapper counts on the module's name, the recorder meanwhile
-        record.launches = 0
-        gsff_ops.register_and_step = record
+        def record(gains, n_i, n_f, n_i0, state, pos, *masks, out, frame,
+                   step=plain_gsff_step if name == 'plain' else kernel):
+            # the public entry's arguments, copied: the scan's buffers
+            # are rewritten by the frames that follow
+            calls.append((gains, n_i, n_f, n_i0,
+                          {k: x.clone() for k, x in state.items()},
+                          pos[:, :2].contiguous()) +
+                         tuple(x.clone() for x in masks))
+            return step(gains, n_i, n_f, n_i0, state, pos, *masks, out=out,
+                        frame=frame)
+        gsff_ops._register_and_step = record
         try:
             scans[name] = trk.run_tracker_scan(
                 trk.init_tracker_state(slots, dev, use_gsff=True,
                                        gsff_params=params), *tables, **tkw)
         finally:
-            gsff_ops.register_and_step = kernel
+            gsff_ops._register_and_step = kernel
     torch.cuda.synchronize()
     (k_state, k_em), (p_state, p_em) = scans['kernel'], scans['plain']
     same = [torch.equal(k_em[key], p_em[key]) for key in k_em] + \
@@ -3278,18 +3307,18 @@ def phase_gsff(dframes, dsettings, settings, dev):
     log('gsff edge cases {}: kernel bit-equal to the plain version, one '
         'launch a call, inputs untouched'.format([e[0] for e in GSFF_EDGES]))
     default = GSFFParams(fps=FPS)
-    for v in (1, 4):
-        step = {name: frame_step(v, default, dev, name == 'plain')
+    for v, k in ((1, 2), (4, 2), (1, 3)):
+        step = {name: frame_step(v, default, dev, name == 'plain', k)
                 for name in ('kernel', 'plain')}
-        log('gsff: dense frame step at V = {}: {} device operations and '
-            '{:.3f} ms with the GSFF kernel ({}), {} operations and {:.3f} ms '
-            'with its plain version'.format(
-                v, step['kernel'][0], step['kernel'][1],
+        log('gsff: dense frame step at V = {}, K = {}: {} device operations '
+            'and {:.3f} ms with the GSFF kernel ({}), {} operations and '
+            '{:.3f} ms with its plain version'.format(
+                v, k, step['kernel'][0], step['kernel'][1],
                 json.dumps(step['kernel'][2]), *step['plain'][:2]))
-        if step['kernel'][0] > MAX_STEP_OPS:
+        if not 1 <= step['kernel'][0] <= MAX_STEP_OPS:
             raise SystemExit('gsff: the dense frame step runs {} device '
-                             'operations, above {}'.format(step['kernel'][0],
-                                                           MAX_STEP_OPS))
+                             'operations, not 1 to {}'.format(
+                                 step['kernel'][0], MAX_STEP_OPS))
     return dense
 
 
@@ -3303,7 +3332,8 @@ def phase_gsff(dframes, dsettings, settings, dev):
 STEP_CASES = ('stale_ids', 'ties', 'empty', 'more_dets', 'fewer_dets',
               'full', 'shared_id')
 STEP_SHAPES = ((1, 16, 24, 2), (3, 48, 40, 3), (3, 96, 64, 2),
-               (1, 64, 96, 3), (3, 0, 40, 2))
+               (1, 64, 96, 3), (3, 0, 40, 2), (2, 4095, 4097, 2),
+               (1, 1, 1, 3), (4, 1500, 1700, 3))
 
 
 def step_video(rng, case, s, c, k):
@@ -3381,11 +3411,12 @@ def step_outputs(res):
 
 
 def check_step(name, state, frame, row_min, cand, md=float(FPS),
-               timed=False):
+               timed=False, cpu_plain=False):
     """The frame-step kernel against its plain version on the same card
-    tensors: every output bit-equal, one call counted, the inputs
-    untouched; with ``timed``, median ms of each and the bound (bytes in
-    and out; operations: a key comparison per pair of live slots)."""
+    tensors (with ``cpu_plain``, on copies on the CPU): every output
+    bit-equal, one call counted, the inputs untouched; with ``timed``,
+    median ms of each and the bound (bytes in and out; operations: a key
+    comparison per pair of live slots)."""
     inputs = [state[k] for k in fs.STATE_KEYS] + [row_min, cand] + \
         list(frame)
     before = [x.clone() for x in inputs]
@@ -3398,8 +3429,14 @@ def check_step(name, state, frame, row_min, cand, md=float(FPS),
         return step_outputs(fs.match_and_register_plain(
             state, row_min, cand, *frame, max_disappeared=md))
 
+    def plain_cpu():
+        return [x.to(row_min.device) for x in step_outputs(
+            fs.match_and_register_plain(
+                {k: x.cpu() for k, x in state.items()}, row_min.cpu(),
+                cand.cpu(), *(x.cpu() for x in frame), max_disappeared=md))]
+
     fs.match_and_register.launches = 0
-    got, want = kernel(), plain()
+    got, want = kernel(), (plain_cpu() if cpu_plain else plain())
     torch.cuda.synchronize()
     if fs.match_and_register.launches != 1:
         raise SystemExit('frame step {}: {} launches, not 1'.format(
@@ -3415,6 +3452,79 @@ def check_step(name, state, frame, row_min, cand, md=float(FPS),
     live = state['active'].sum(dim=1).double()
     return check_equal('frame step ' + name, kernel, plain, inputs,
                        int((live * live).sum()), reps=20)
+
+
+def device_ms(fn, reps=20):
+    """Mean device ms per call of each kernel ``fn`` launches, by name, and
+    the median device span of a call (its first launch's start to its
+    last one's end; launches may overlap) (``torch.profiler`` over
+    ``reps`` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # a profile now and then records no device operation at all (seen on
+    # the H100 after several profiles in one process): take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, ranges = {}, []
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                out[e.name] = out.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3 / reps
+                ranges.append((e.time_range.start, e.time_range.end))
+        if ranges:
+            break
+    ranges.sort()
+    per = len(ranges) // reps
+    spans = [max(b for _, b in ranges[i:i + per]) - ranges[i][0]
+             for i in range(0, per * reps, per)] if per else [0]
+    return out, float(np.median(spans)) / 1e3
+
+
+def step_split(name, state, frame, row_min, cand, md=float(FPS)):
+    """The frame-step kernel's two launches timed apart on the card
+    (``device_ms``), each beside its bound: rank reads the live flags, row
+    minima and ids and writes the ranks, a key comparison per pair of
+    live slots of a video; update reads the rest of the inputs and the
+    ranks and writes the outputs (bytes). Returns {launch: (ms, bound
+    ms, bound by)}."""
+    v, s = state['active'].shape
+    c = frame[2].shape[1]
+    k = state['pos'].shape[2]
+    times, span = device_ms(lambda: fs.match_and_register(
+        state, row_min, cand, *frame, max_disappeared=md))
+    live = state['active'].sum(dim=1).double()
+    rank_bytes = v * s * (1 + 4 + 4 + 4)
+    # inputs: the slot table (active, ids, pos, info, disappeared), the
+    # candidates and ranks, the detections; outputs: the new state, the
+    # emission row (mask, ids, pos, info, det_col), the flags
+    update_bytes = v * (s * (1 + 4 + 4 * k + 12 + 4 + 4 + 4) +
+                        c * (4 * k + 12 + 1) +
+                        s * (1 + 4 + 4 * k + 12 + 4) +
+                        s * (1 + 4 + 4 * k + 12 + 4) + 3 * s) + 4 * 5 * v
+    rank_ops = float((live * live).sum())
+    out = {}
+    for launch, nbytes, ops in (('rank', rank_bytes, rank_ops),
+                                ('update', update_bytes, 0.0)):
+        ms = sum(t for n, t in times.items() if launch + '_kernel' in n)
+        bnd = bound([], [], ops, nbytes)
+        out[launch] = (ms,) + bnd
+        log('frame step {}: {} launch {:.4f} ms on the card, bound {:.5f} ms '
+            '({})'.format(name, launch, ms, *bnd))
+    if not all(out[x][0] > 0 for x in out):
+        raise SystemExit('frame step {}: a launch was not traced ({})'.format(
+            name, sorted(times)))
+    # the update launch starts programmatically during the rank launch:
+    # the pair's cost is its device span
+    bnd = bound([], [], rank_ops, rank_bytes + update_bytes)
+    out['span'] = (span,) + bnd
+    log('frame step {}: rank + update device span {:.4f} ms, bound {:.5f} '
+        'ms ({})'.format(name, span, *bnd))
+    return out
 
 
 def check_merge(name, state_pos, active, dev, timed=False):
@@ -3512,6 +3622,8 @@ def phase_frame_step(dframes, dsettings, dev):
         'to the plain version on its inputs ({:.1f} s)'.format(
             t, int(k_em['mask'].sum()), *counts['kernel'],
             time.perf_counter() - t0))
+    step_split('dense first batch, frame {}'.format(t // 2), state, frame,
+               row_min, cand, md)
     merge = check_merge('dense first batch, frame {}'.format(t // 2),
                         calls[t // 2][0]['pos'], calls[t // 2][0]['active'],
                         dev, timed=True)
@@ -3520,6 +3632,7 @@ def phase_frame_step(dframes, dsettings, dev):
         args = step_inputs(rng, 'dense', (v, slots, slots, 2), dev)
         check_step('random dense state, V = {}'.format(v), *args,
                    timed=True)
+        step_split('random dense state, V = {}'.format(v), *args)
         check_merge('random dense state, V = {}'.format(v), args[0]['pos'],
                     args[0]['active'], dev, timed=v == 4)
     t0 = time.perf_counter()
@@ -3540,13 +3653,25 @@ def phase_frame_step(dframes, dsettings, dev):
     state['disappeared'].fill_(2 ** 24 - 1)
     check_step('max_disappeared in float32', state, frame, row_min, cand,
                md=16777215.9)
+    for edge in fsc.KEY_EDGES:
+        for shape in ((1, 96, 64, 2), (1, slots, slots, 2)):
+            state, frame, row_min, cand = step_inputs(rng, 'more_dets',
+                                                      shape, dev)
+            fsc.key_edges(edge, state, row_min, cand)
+            # torch's CUDA stable sort orders NaNs by their bits (a
+            # negative NaN first); its CPU sort, ysmr_tpu's and the
+            # kernel's put every NaN after +inf, equal
+            check_step('key edge {} {}'.format(edge, shape), state, frame,
+                       row_min, cand, md=5.0,
+                       cpu_plain=edge == 'nan_payloads')
     check_merge('3 x 48 slots, K = 3', step_inputs(
         rng, 'more_dets', (3, 48, 40, 3), dev)[0]['pos'],
         torch.rand((3, 48), device=dev) < 0.5, dev)
-    log('frame step edge cases ({} seeded, NaN row minima, the float32 '
-        'max_disappeared, no slots): kernel bit-equal to the plain version, '
-        'one call a check, inputs untouched ({:.1f} s)'.format(
-            n, time.perf_counter() - t0))
+    log('frame step edge cases ({} seeded at shapes {}, NaN row minima, '
+        'the float32 max_disappeared, no slots, the key edges {}): kernel '
+        'bit-equal to the plain version, one call a check, inputs untouched '
+        '({:.1f} s)'.format(n, list(STEP_SHAPES), list(fsc.KEY_EDGES),
+                            time.perf_counter() - t0))
     return dense, merge
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from frame_step_cases import KEY_EDGES, NAN_BITS, key_edges
 from test_torch_tracker import _random_gsff_state
 from ysmr_tpu.ops import gsff as jgsff
 from ysmr_tpu.pipeline import tracker as jtrk
@@ -177,21 +178,79 @@ def test_max_disappeared_is_compared_in_float32():
     _assert_same(got[:2], _emulate_kernel(state, row_min, cand, *frame, md))
 
 
-def _lt(a, b):
-    """a < b as the stable float sort orders float32 values (NaN last)."""
-    return np.where(np.isnan(b), ~np.isnan(a), a < b)
+FREE_KEY = np.uint64(2 ** 64 - 1)
+
+#: the kernel's partition (csrc/frame_step.cu: rank tiles of 64 slots, 8
+#: key ranges a cluster, 1024 keys staged, 8 warps; update clusters of up
+#: to 8 blocks of up to 512 threads) and small ones whose tiles, stages,
+#: warps, blocks and threads split every seeded table, so that counts and
+#: prefix sums carry across each boundary; keyed by the staging chunk
+PARTITIONS = {
+    1024: dict(tile=64, split=8, stage=1024, warps=8, cluster=8,
+               threads=512),
+    7: dict(tile=6, split=3, stage=7, warps=2, cluster=3, threads=4),
+    5: dict(tile=4, split=2, stage=5, warps=3, cluster=5, threads=1),
+}
 
 
-def _block_scan(flags, chunk):
-    """The kernel's exclusive prefix sums: chunks of ``chunk`` with a
-    carry. Returns (exclusive sums, total)."""
-    out = np.zeros(len(flags), np.int64)
-    carry = 0
-    for c0 in range(0, len(flags), chunk):
-        part = flags[c0:c0 + chunk].astype(np.int64)
-        out[c0:c0 + chunk] = carry + np.cumsum(part) - part
-        carry += int(part.sum())
-    return out, carry
+def _sort_keys(row_min, ids, active):
+    """The rank launch's uint64 keys: the float32 row minimum mapped to an
+    order-preserving uint32 (-0 as +0, every NaN as 0xff800001, above
+    +inf) over the id with its sign bit flipped; a free slot all ones."""
+    u = np.ascontiguousarray(row_min, np.float32).view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    m = np.where(u & 0x80000000, ~u, u | np.uint32(0x80000000))
+    m = np.where(np.isnan(row_min), np.uint32(0xff800001), m)
+    low = np.ascontiguousarray(ids, np.int32).view(np.uint32) ^ \
+        np.uint32(0x80000000)
+    key = (m.astype(np.uint64) << np.uint64(32)) | low.astype(np.uint64)
+    return np.where(active, key, FREE_KEY)
+
+
+def _share(n, parts, part):
+    """[lo, hi) of n items split into ``parts`` parts (csrc's ``share``)."""
+    per = -(-n // parts)
+    lo = min(n, part * per)
+    return lo, min(n, lo + per)
+
+
+def _emulate_rank(key, tile, split, stage, warps):
+    """Launch A: for each tile of slots and each of the cluster's key
+    ranges, the staged chunks split between warps; a warp wholly before
+    its slots counts keys < key + 1, wholly after keys < key, a diagonal
+    one picks per key; the partial counts summed."""
+    s = len(key)
+    with np.errstate(over='ignore'):
+        le = key + np.uint64(1)     # a free slot's wraps to 0: counts none
+    rank = np.zeros(s, np.int64)
+    for t0 in range(0, s, tile):
+        mine = np.arange(t0, min(s, t0 + tile))
+        for part in range(split):
+            jlo, jhi = _share(s, split, part)
+            for j0 in range(jlo, jhi, stage):
+                n = min(stage, jhi - j0)
+                per_warp = -(-n // warps)
+                for w in range(warps):
+                    qa = min(n, w * per_warp)
+                    qb = min(n, qa + per_warp)
+                    j = np.arange(j0 + qa, j0 + qb)
+                    kj = key[j][None, :]
+                    if j0 + qb <= t0:
+                        hit = kj < le[mine][:, None]
+                    elif j0 + qa >= t0 + tile:
+                        hit = kj < key[mine][:, None]
+                    else:
+                        thr = np.where(j[None, :] < mine[:, None],
+                                       le[mine][:, None], key[mine][:, None])
+                        hit = kj < thr
+                    rank[mine] += hit.sum(1)
+    return rank
+
+
+def _runs(lo, hi, threads):
+    """Each thread's contiguous run of the block's items [lo, hi)."""
+    return [tuple(lo + x for x in _share(hi - lo, threads, t))
+            for t in range(threads)]
 
 
 def _wrap(x):
@@ -201,11 +260,16 @@ def _wrap(x):
 
 def _emulate_kernel(state, row_min, cand, det_xy, det_info, det_valid,
                     max_disappeared, chunk=1024):
-    """csrc/frame_step.cu's design per video: each active slot's rank the
-    number of active slots with a smaller (row_min, id, slot) key; each
-    column's winner the smallest claiming rank; the unmatched columns'
-    and the free slots' prefix sums in chunks; the writes of the update
-    pass. Returns (new_state, emission) as numpy."""
+    """csrc/frame_step.cu's design per video, with the partition
+    ``PARTITIONS[chunk]``: the ranks from the packed keys counted tile by
+    tile (``_emulate_rank``); then the update cluster's blocks, each an
+    equal share of the slots and columns, a thread a contiguous run of
+    each: the counts added over the blocks, each column's winner the
+    smallest claiming rank, the registrations' and free slots' offsets as
+    the blocks' and threads' totals before them plus a running count,
+    and the writes of the last phase. Returns (new_state, emission) as
+    numpy."""
+    part = PARTITIONS[chunk]
     st = {k: x.numpy() for k, x in state.items()}
     rm, cd = row_min.numpy(), cand.numpy()
     dxy, dinf, dv = det_xy.numpy(), det_info.numpy(), det_valid.numpy()
@@ -217,37 +281,55 @@ def _emulate_kernel(state, row_min, cand, det_xy, det_info, det_valid,
           'pos': np.zeros_like(st['pos']), 'info': np.zeros_like(st['info']),
           'det_col': np.zeros((v, s), np.int32),
           'n_det': np.zeros(v, np.int32)}
-    slot = np.arange(s)
+    # the cluster and its block size as the launch picks them (or fixed)
+    most = max(s, c)
+    if chunk == 1024:
+        cb = min(part['cluster'], max(1, -(-most // part['threads'])))
+        nt = min(part['threads'], max(32, -(-(-(-most // cb)) // 32) * 32))
+    else:
+        cb, nt = part['cluster'], part['threads']
     for vi in range(v):
         act, ids = st['active'][vi], st['ids'][vi]
-        r, i = rm[vi], ids
-        # launch A: key_j < key_i, counted over active j
-        lt = _lt(r[:, None], r[None, :]) | (
-            ~_lt(r[None, :], r[:, None]) & ~_lt(r[:, None], r[None, :]) &
-            ((i[:, None] < i[None, :]) |
-             ((i[:, None] == i[None, :]) & (slot[:, None] < slot[None, :]))))
-        rank = (lt & act[:, None]).sum(0)
-        # launch B
-        n_obj, n_det = int(act.sum()), int(dv[vi].sum())
-        col = cd[vi]
-        claim = act & (col >= 0) & (col < c) & dv[vi][np.clip(col, 0, c - 1)]
+        rank = _emulate_rank(_sort_keys(rm[vi], ids, act), part['tile'],
+                             part['split'], part['stage'], part['warps'])
+        valid, col = dv[vi], cd[vi]
+        blocks = [(_share(s, cb, b), _share(c, cb, b)) for b in range(cb)]
+        # 1.-2. the counts over the blocks; the claims
+        n_obj = sum(int(act[lo:hi].sum()) for (lo, hi), _ in blocks)
+        n_det = sum(int(valid[lo:hi].sum()) for _, (lo, hi) in blocks)
+        claim = act & (col >= 0) & (col < c) & valid[np.clip(col, 0, c - 1)]
         winner = np.full(c, INT_MAX, np.int64)
-        for j in np.nonzero(claim)[0]:
-            winner[col[j]] = min(winner[col[j]], rank[j])
+        for i in np.nonzero(claim)[0]:
+            winner[col[i]] = min(winner[col[i]], rank[i])
         has_det = n_det > 0
         do_reg = has_det and n_det > n_obj
-        unmatched = dv[vi] & (winner == INT_MAX) & do_reg
-        at, n_new = _block_scan(unmatched, chunk)
-        col_of_rank = np.zeros(c, np.int64)
-        col_of_rank[at[unmatched]] = np.nonzero(unmatched)[0]
         matched = claim & (winner[np.clip(col, 0, c - 1)] == rank)
         age = (act & ~matched & (n_obj >= n_det)) if has_det else act
         dis = np.where(matched, 0, st['disappeared'][vi])
         dis = np.where(age, _wrap(dis.astype(np.int64) + 1), dis)
         alive = act & ~(age & (dis.astype(np.float32) > md))
-        free_rank, n_free = _block_scan(~alive, chunk)
+        flag = valid & (winner == INT_MAX) & do_reg
+        # 3.-4. the blocks' and threads' totals before each run
+        n_new = int(flag.sum())
+        col_of_rank = np.full(c, -7, np.int64)
+        free_rank = np.zeros(s, np.int64)
+        at_new = at_free = 0
+        for (slo, shi), (clo, chi) in blocks:
+            for (ilo, ihi), (jlo, jhi) in zip(_runs(slo, shi, nt),
+                                              _runs(clo, chi, nt)):
+                for j in range(jlo, jhi):
+                    if flag[j]:
+                        col_of_rank[at_new] = j
+                        at_new += 1
+                for i in range(ilo, ihi):
+                    free_rank[i] = at_free
+                    at_free += not alive[i]
+        n_free = at_free
+        assert at_new == n_new
+        # 5. the writes
         reg = ~alive & (free_rank < n_new)
-        reg_col = np.where(reg, col_of_rank[np.clip(free_rank, 0, c - 1)], -1)
+        reg_col = np.where(reg, col_of_rank[np.clip(free_rank, 0, c - 1)],
+                           -1)
         on = alive | reg
         new_ids = np.where(reg, _wrap(st['next_id'][vi] + free_rank), ids)
         src = np.where(reg, reg_col, np.where(matched, col, -1))
@@ -273,13 +355,16 @@ def _emulate_kernel(state, row_min, cand, det_xy, det_info, det_valid,
     return new, em
 
 
-@pytest.mark.parametrize('chunk', [1024, 7])
+@pytest.mark.parametrize('chunk', [1024, 7, 5])
 @pytest.mark.parametrize('shape', SHAPES, ids=lambda x: 'x'.join(map(str, x)))
 @pytest.mark.parametrize('case', CASES)
 def test_kernel_design_matches_plain(case, shape, chunk):
-    """The kernel's design, emulated on the CPU (ranks by key count, the
-    columns' smallest claiming rank, prefix sums over chunks of 1024 and,
-    to carry across chunks, of 7), gives the plain version's bits."""
+    """The kernel's design, emulated on the CPU (ranks counted over the
+    packed keys tile by tile, the columns' smallest claiming rank, the
+    cluster's counts and prefix sums over blocks and threads' runs), gives
+    the plain version's bits: at the kernel's partition and, so that
+    counts and sums carry across tiles, stages, warps, blocks and
+    threads, at two small ones."""
     state, frame, row_min, cand = _torch_inputs(_case(case, shape, seed=1))
     want = _numpy(fs.match_and_register_plain(
         state, row_min, cand, *frame, max_disappeared=MAX_DISAPPEARED))
@@ -300,6 +385,44 @@ def test_kernel_design_orders_nan_row_minima_last():
                                  MAX_DISAPPEARED), want[:2])
 
 
+@pytest.mark.parametrize('chunk', [1024, 7, 5])
+@pytest.mark.parametrize('edge', KEY_EDGES)
+def test_kernel_design_key_edges(edge, chunk):
+    """The packed keys at their edges (signed zeros, NaN payloads, the
+    int32 limits of the ids, keys equal but for the slot) rank as the
+    plain version's stable sorts order them: the emulation gives its
+    bits."""
+    state, frame, row_min, cand = _torch_inputs(_case('more_dets',
+                                                      (1, 96, 64, 2), seed=3))
+    key_edges(edge, state, row_min, cand)
+    want = _numpy(fs.match_and_register_plain(
+        state, row_min, cand, *frame, max_disappeared=MAX_DISAPPEARED))
+    _assert_same(_emulate_kernel(state, row_min, cand, *frame,
+                                 MAX_DISAPPEARED, chunk), want[:2])
+
+
+def test_sort_keys_order():
+    """The packed keys' unsigned order is the (row minimum, id) order of
+    the stable sorts: numbers ascending with -0 equal to +0, every NaN one
+    key after +inf, ids signed; a free slot's key above every live one
+    and its + 1 wrapping to 0."""
+    f = np.array([-np.inf, -1.5, -0.0, 0.0, 1e-45, 2.0, np.inf], np.float32)
+    nan = np.array(NAN_BITS, np.uint32).view(np.float32)
+    ids = np.zeros(len(f), np.int32)
+    keys = _sort_keys(f, ids, np.ones(len(f), bool))
+    assert (np.diff(keys.astype(np.float64)) >= 0).all()
+    assert keys[2] == keys[3] and (np.diff(keys[3:]) > 0).all()
+    nk = _sort_keys(nan, np.zeros(4, np.int32), np.ones(4, bool))
+    assert (nk == nk[0]).all() and nk[0] > keys[-1]
+    assert nk[0] >> np.uint64(32) == 0xff800001
+    lim = _sort_keys(np.zeros(3, np.float32),
+                     np.array([-2 ** 31, 0, INT_MAX], np.int32),
+                     np.ones(3, bool))
+    assert lim[0] < lim[1] < lim[2] < nk[0] < FREE_KEY
+    assert _sort_keys(np.zeros(1, np.float32), np.zeros(1, np.int32),
+                      np.zeros(1, bool))[0] == FREE_KEY
+
+
 def test_wrapper_takes_the_plain_route_on_the_cpu():
     """A CPU call is the plain version's, launches nothing and leaves its
     inputs as they were."""
@@ -314,7 +437,7 @@ def test_wrapper_takes_the_plain_route_on_the_cpu():
     assert fs.match_and_register.launches == 0
     _assert_same(_numpy(got), _numpy(want))
     for a, b in zip(got[2:], want[2:]):
-        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), b.cpu())
     for k, x in before.items():
         assert torch.equal(state[k], x)
 
@@ -502,6 +625,79 @@ def test_scan_checks_once_and_returns_fresh_buffers(monkeypatch):
         assert torch.equal(new[key], st[key])
 
 
+def test_scan_checks_gsff_once_and_returns_fresh_buffers(monkeypatch):
+    """With GSFF the scan checks the filter's tables once per call (with
+    the block's), writes every frame's GSFF step into one allocation (two
+    alternating states, the corrected and predicted positions) through
+    the private entry, reading the measurement from the (V S, K) positions
+    at stride K, and returns a GSFF state that aliases neither the
+    caller's nor another call's; frame by frame it equals the public
+    entries' steps (``match_and_register_plain``, ``register_and_step``
+    on a contiguous copy of the measurement, the merge)."""
+    v, s, c, k, t_len = 3, 48, 40, 3, 5
+    videos = _case('more_dets', (v, s, c, k))
+    state, _, _, _ = _torch_inputs(videos)
+    _, gstate, gkw = _gsff_setup(videos)
+    state = dict(state, gsff={key: x.unflatten(0, (v, s))
+                              for key, x in gstate.items()})
+    rng = np.random.default_rng(10)
+    tables = (torch.from_numpy(rng.uniform(0, 60, (v, t_len, c, k)).astype(
+        np.float32)), torch.from_numpy(rng.uniform(
+            1, 8, (v, t_len, c, 3)).astype(np.float32)),
+        torch.from_numpy(rng.random((v, t_len, c)) < 0.7))
+    checks, frames = [], []
+    check = gsff.check
+    monkeypatch.setattr(gsff, 'check', lambda *a, **kw: checks.append(1) or
+                        check(*a, **kw))
+    step = gsff._register_and_step
+    monkeypatch.setattr(gsff, '_register_and_step', lambda *a, **kw:
+                        frames.append((a[5], kw['out'], kw['frame'])) or
+                        step(*a, **kw))
+    kwargs = dict(max_disappeared=MAX_DISAPPEARED, use_gsff=True, **gkw)
+    new, em = trk.run_tracker_scan(state, *tables, **kwargs)
+    assert len(checks) == 1
+    out = frames[0][1]
+    assert [f for _, _, f in frames] == list(range(t_len))
+    assert all(o is out for _, o, _ in frames) and len(out['states']) == 2
+    # the measurement: the new state's positions, all K of them
+    assert all(pos.shape == (v * s, k) for pos, _, _ in frames)
+    for key in gsff.STATE_KEYS:
+        assert new['gsff'][key].data_ptr() == \
+            out['states'][(t_len - 1) % 2][key].data_ptr()
+    again, _ = trk.run_tracker_scan(state, *tables, **kwargs)
+    ptrs = {x.data_ptr() for x in state['gsff'].values()}
+    for key in gsff.STATE_KEYS:
+        assert new['gsff'][key].data_ptr() not in ptrs
+        assert again['gsff'][key].data_ptr() != new['gsff'][key].data_ptr()
+        assert torch.equal(again['gsff'][key], new['gsff'][key])
+    # the frames one at a time through the public entries
+    st = dict(state, gsff=gstate)
+    for t in range(t_len):
+        frame = [x[:, t] for x in tables]
+        row_min, cand = row_min_argmin_plain(st['pos'], st['active'],
+                                             frame[0], frame[2])
+        nxt, one, _, reg, coast = fs.match_and_register_plain(
+            st, row_min, cand, *frame, max_disappeared=MAX_DISAPPEARED)
+        pos, live = nxt['pos'], nxt['active']
+        g, corr, pred = gsff.register_and_step(
+            gkw['gsff_gains'], gkw['gsff_n_i'], gkw['gsff_n_f'],
+            gkw['gsff_n_i0'], st['gsff'],
+            pos[..., :2].flatten(0, 1).contiguous(), live.flatten(),
+            reg.flatten(), coast.flatten())
+        on = live[..., None]
+        one = dict(one, pos=torch.where(
+            on, torch.cat([corr.view(v, s, 2), pos[..., 2:]], 2), pos))
+        st = dict(nxt, pos=torch.where(
+            on, torch.cat([pred.view(v, s, 2), pos[..., 2:]], 2), pos),
+            gsff=g)
+        for key in fs.EMISSION_KEYS:
+            assert torch.equal(em[key][:, t], one[key]), (t, key)
+    for key in fs.STATE_KEYS:
+        assert torch.equal(new[key], st[key])
+    for key in gsff.STATE_KEYS:
+        assert torch.equal(new['gsff'][key].flatten(0, 1), st['gsff'][key])
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
@@ -509,18 +705,27 @@ def _cuda():
 
 
 def _kernel_against_plain(state, frame, row_min, cand,
-                          max_disappeared=MAX_DISAPPEARED):
+                          max_disappeared=MAX_DISAPPEARED, plain_on=None):
+    """The kernel against the plain version on the same tensors (with
+    ``plain_on``, the plain version on copies on that device)."""
     before = {k: x.clone() for k, x in state.items()}
     n = fs.match_and_register.launches
     got = fs.match_and_register(state, row_min, cand, *frame,
                                 max_disappeared=max_disappeared)
-    want = fs.match_and_register_plain(state, row_min, cand, *frame,
-                                       max_disappeared=max_disappeared)
+    if plain_on is None:
+        want = fs.match_and_register_plain(state, row_min, cand, *frame,
+                                           max_disappeared=max_disappeared)
+    else:
+        want = fs.match_and_register_plain(
+            {k: x.to(plain_on) for k, x in state.items()},
+            row_min.to(plain_on), cand.to(plain_on),
+            *(x.to(plain_on) for x in frame),
+            max_disappeared=max_disappeared)
     torch.cuda.synchronize()
     assert fs.match_and_register.launches == n + 1
     _assert_same(_numpy(got), _numpy(want))
     for a, b in zip(got[2:], want[2:]):
-        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), b.cpu())
     for k, x in before.items():
         assert torch.equal(state[k], x)
 
@@ -553,6 +758,25 @@ def test_kernel_edges_on_cuda():
                           max_disappeared=16777215.9)
     _kernel_against_plain(*_torch_inputs(_case('more_dets', (3, 0, 40, 2)),
                                          dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('edge', KEY_EDGES)
+def test_kernel_key_edges_on_cuda(edge):
+    """The packed keys' edges (``frame_step_cases.key_edges``) on the
+    card, and shapes that split the rank tiles and the update cluster
+    unevenly: bit-equal to the plain version. NaN payloads against the
+    plain version on the CPU: torch's CUDA stable sort orders NaNs by
+    their bits (a negative NaN first), its CPU sort, ysmr_tpu's and the
+    kernel's put every NaN after +inf, equal."""
+    dev = _cuda()
+    state, frame, row_min, cand = _torch_inputs(
+        _case('more_dets', (1, 96, 64, 2), seed=3), dev)
+    key_edges(edge, state, row_min, cand)
+    _kernel_against_plain(state, frame, row_min, cand, plain_on='cpu'
+                          if edge == 'nan_payloads' else None)
+    for shape in ((2, 4095, 4097, 2), (1, 1, 1, 3), (4, 1500, 1700, 3)):
+        _kernel_against_plain(*_torch_inputs(_case('stale_ids', shape), dev))
 
 
 @pytest.mark.cuda

@@ -130,15 +130,41 @@ def test_register_and_step_matches_jax(bank):
     assert tp.n_f == 1 or grew[~reg].any()
 
 
+def _flat_tree(h, l):
+    """ds.dot_tree's levels as a warp of csrc/gsff.cu runs them on a
+    chunk's first-level entries, (N, n, stride): row i of every column
+    (estimate) at once, the rows flat. An odd level folds row n - 1 into
+    row 0, then rows < half add rows half .. 2 half - 1, as passes over
+    consecutive flat entries. Returns row 0, (N, stride)."""
+    h, l = h.clone(), l.clone()
+    n, stride = h.shape[1], h.shape[2]
+    h, l = h.flatten(1), l.flatten(1)
+    while n > 1:
+        half = n // 2
+        if n % 2:
+            fold = slice((n - 1) * stride, n * stride)
+            h[:, :stride], l[:, :stride] = ds.add(
+                h[:, :stride], l[:, :stride], h[:, fold], l[:, fold])
+        off = half * stride
+        h[:, :off], l[:, :off] = ds.add(h[:, :off], l[:, :off],
+                                        h[:, off:2 * off], l[:, off:2 * off])
+        n = half
+    return h[:, :stride], l[:, :stride]
+
+
 def _emulate_kernel(gains, n_i, n_f, n_i0, state, m, active, register,
                     coasting):
     """csrc/gsff.cu's design on the CPU, slot-parallel over torch float32
-    vectors: the ring read through the fill (``Slot::ring``), each of the
-    4 n_f estimates from its window formed entry by entry, its tree's first
-    level (entry i adds i + n_max) reduced in place with the odd fold, the
-    one-thread epilogue (the filters in a loop, the sequential
-    NaN-propagating maximum), and the ring written from ``at`` or
-    ``at + 2``."""
+    vectors: the ring read through the fill (``Slot::ring``); a warp per
+    slot whose lane i forms each estimate's first level, product(i) +
+    product(i + n_max), from the window's differences into row i of the
+    tree, a chunk of up to ``KERNEL_CHUNK`` estimates a column each (an
+    odd stride), reduced level by level over the flat rows
+    (``_flat_tree``); lane g adds estimate g's center. The finish spread
+    over the filters' lanes (the log likelihoods, exps and weighted
+    products a filter each) and gathered in the plain order by lane 0
+    (the NaN-propagating maximum, the sum) and lanes 0-3 (the four
+    accumulations); the ring written a ring entry a lane."""
     n, buf_len, _ = state['buf'].shape
     n_max = buf_len - 1
     f32 = torch.float32
@@ -148,42 +174,66 @@ def _emulate_kernel(gains, n_i, n_f, n_i0, state, m, active, register,
     ml = [torch.where(coasting, state['pred_lo'][:, c], zero)
           for c in range(2)]
 
-    def ring(j, c):
+    def ring(q):
+        """Ring float q (entry q // 2, coordinate q % 2) after the fill."""
+        j, c = q // 2, q % 2
         return (torch.where(reg, mh[c], state['buf'][:, j, c]),
                 torch.where(reg, zero, state['buf_lo'][:, j, c]))
 
-    def estimate(post, f, r):
-        center = [(mh[c], ml[c]) if post else ring(n_max, c)
+    def window(post):
+        """The window's 2 n_max entries minus their centers: (N, 2 n_max)
+        hi and lo (before the append ring float k + 2, after it k + 4 or
+        the measurement)."""
+        center = [(mh[c], ml[c]) if post else ring(2 * n_max + c)
                   for c in range(2)]
-
-        def product(k):
-            j, c = k // 2 + 1, k % 2
+        hs, ls = [], []
+        for k in range(2 * n_max):
             if not post:
-                v = ring(j, c)
+                v = ring(k + 2)
             else:
-                v = ring(j + 1, c) if j < n_max else (mh[c], ml[c])
-            w = ds.sub(*v, *center[c])
-            return ds.mul(gains[0, f, r, k], gains[1, f, r, k], *w)
+                v = ring(k + 4) if k < 2 * n_max - 2 else (mh[k % 2],
+                                                           ml[k % 2])
+            dh, dl = ds.sub(*v, *center[k % 2])
+            hs.append(dh)
+            ls.append(dl)
+        return center, torch.stack(hs, 1), torch.stack(ls, 1)
 
-        sh, sl = [], []
-        for i in range(n_max):
-            h, l = ds.add(*product(i), *product(i + n_max))
-            sh.append(h)
-            sl.append(l)
-        width = n_max
-        while width > 1:
-            half = width // 2
-            if width % 2:
-                sh[0], sl[0] = ds.add(sh[0], sl[0], sh[width - 1],
-                                      sl[width - 1])
-            for i in range(half):
-                sh[i], sl[i] = ds.add(sh[i], sl[i], sh[i + half],
-                                      sl[i + half])
-            width = half
-        return ds.add(*center[r], sh[0], sl[0])
+    def first_levels(post):
+        """Each (f, r)'s first level, lane i's pair: entries i and
+        i + n_max, (N, n_max) hi and lo."""
+        _, wh, wl = window(post)
+        out = []
+        for f in range(n_f):
+            for r in range(2):
+                ph, pl = ds.mul(gains[0, f, r][None], gains[1, f, r][None],
+                                wh, wl)
+                out.append(ds.add(ph[:, :n_max], pl[:, :n_max],
+                                  ph[:, n_max:], pl[:, n_max:]))
+        return out
 
-    pre = [[estimate(False, f, r) for r in range(2)] for f in range(n_f)]
-    post = [[estimate(True, f, r) for r in range(2)] for f in range(n_f)]
+    # the 4 n_f estimates in the kernel's order (before the append at
+    # 2 f + r, after it at 2 n_f + 2 f + r), chunk by chunk through the
+    # tree's rows; lane g adds estimate g's center
+    levels = first_levels(False) + first_levels(True)
+    centers = [ring(2 * n_max + r) for r in range(2)] + \
+        [(mh[r], ml[r]) for r in range(2)]
+    ne = 4 * n_f
+    chunk = min(ne, gsff.KERNEL_CHUNK)
+    stride = chunk | 1
+    est = []
+    for e0 in range(0, ne, chunk):
+        ec = min(chunk, ne - e0)
+        th = torch.zeros(n, n_max, stride, dtype=f32)
+        tl = torch.zeros_like(th)
+        for g in range(ec):
+            th[:, :, g], tl[:, :, g] = levels[e0 + g]
+        rh, rl = _flat_tree(th, tl)
+        for g in range(ec):
+            e = e0 + g
+            c = centers[(2 if e >= 2 * n_f else 0) + e % 2]
+            est.append(ds.add(*c, rh[:, g], rl[:, g]))
+    pre = [[est[2 * f + r] for r in range(2)] for f in range(n_f)]
+    post = [[est[2 * n_f + 2 * f + r] for r in range(2)] for f in range(n_f)]
     length = torch.where(reg, torch.full_like(state['len'], n_i0),
                          state['len'])
     mode = torch.where(reg, torch.zeros_like(state['mode']), state['mode'])
@@ -196,6 +246,7 @@ def _emulate_kernel(gains, n_i, n_f, n_i0, state, m, active, register,
         grown = grown + ((grown < n_f) & (length >= n_i[at])).to(torch.int32)
     grew = grown > mode
     uniform = -torch.log(grown.clamp(min=1).to(f32).double()).to(f32)
+    # the filters' lanes
     lw = []
     for f in range(n_f):
         lw_in = torch.where(grew, uniform, log_w[:, f])
@@ -209,49 +260,50 @@ def _emulate_kernel(gains, n_i, n_f, n_i0, state, m, active, register,
                               log_lik)
         lw.append(torch.where(f < grown, lw_in + log_lik,
                               torch.full_like(log_lik, gsff.NEG_INF)))
+    # lane 0: the maximum, left to right
     lw_max = lw[0]
     for v in lw[1:]:
         lw_max = torch.where(torch.isnan(lw_max) | (lw_max > v), lw_max, v)
-    total = None
-    for v in lw:
-        e = torch.exp((v - lw_max).double()).to(f32)
-        total = e if total is None else total + e
+    exps = [torch.exp((v - lw_max).double()).to(f32) for v in lw]
+    total = exps[0]
+    for e in exps[1:]:
+        total = total + e
     lse = lw_max + torch.log(total.double()).to(f32)
-    lw_new, wt = [], []
+    lw_new, prods = [], []
     for f in range(n_f):
         v = torch.where(f < grown, lw[f] - lse,
                         torch.full_like(lse, gsff.NEG_INF))
         lw_new.append(v)
-        wt.append(torch.where(f < grown, torch.exp(v.double()).to(f32),
-                              zero))
-    out_c, out_p, out_pl = [], [], []
-    for r in range(2):
-        corr = ds.mul(*pre[0][r], wt[0], zero)
-        pred = ds.mul(*post[0][r], wt[0], zero)
+        w = torch.where(f < grown, torch.exp(v.double()).to(f32), zero)
+        prods.append([ds.mul(*pre[f][r], w, zero) for r in range(2)] +
+                     [ds.mul(*post[f][r], w, zero) for r in range(2)])
+    # lanes 0-3: corrected r, predicted r
+    acc = []
+    for q in range(4):
+        a = prods[0][q]
         for f in range(1, n_f):
-            corr = ds.add(*corr, *ds.mul(*pre[f][r], wt[f], zero))
-            pred = ds.add(*pred, *ds.mul(*post[f][r], wt[f], zero))
-        out_c.append(corr[0] + corr[1])
-        out_p.append(pred[0])
-        out_pl.append(pred[1])
+            a = ds.add(*a, *prods[f][q])
+        acc.append(a)
+    out_c = [acc[r][0] + acc[r][1] for r in range(2)]
+    out_p = [acc[2 + r][0] for r in range(2)]
+    out_pl = [acc[2 + r][1] for r in range(2)]
 
+    # the rings, an entry a lane
     act = active
-    per = 2 * buf_len
-    at = torch.arange(n * per).view(n, buf_len, 2)
-    q = at % per
-    on = act[:, None, None].expand_as(at)
-    filled = reg[:, None, None].expand_as(at)
-    src = torch.where(on, at + 2, at).clamp(max=n * per - 1)
-    coord = (q % 2).expand_as(at)
-    m_at = m.gather(1, coord.reshape(n, -1)).view_as(at)
-    ml_at = torch.stack(ml, 1).gather(1, coord.reshape(n, -1)).view_as(at)
-    h = torch.where(filled, m_at, state['buf'].flatten()[src])
-    lo = torch.where(filled, torch.zeros_like(h),
-                     state['buf_lo'].flatten()[src])
-    last = on & (q // 2 == n_max)
+    hs, ls = [], []
+    for j in range(buf_len):
+        last = act & (j == n_max)
+        src = j + 1 if j < n_max else j
+        h = torch.stack([torch.where(act, ring(2 * src + c)[0],
+                                     ring(2 * j + c)[0]) for c in range(2)], 1)
+        lo = torch.stack([torch.where(act, ring(2 * src + c)[1],
+                                      ring(2 * j + c)[1]) for c in range(2)],
+                         1)
+        hs.append(torch.where(last[:, None], m, h))
+        ls.append(torch.where(last[:, None], torch.stack(ml, 1), lo))
     out = {
-        'buf': torch.where(last, m_at, h),
-        'buf_lo': torch.where(last, ml_at, lo),
+        'buf': torch.stack(hs, 1),
+        'buf_lo': torch.stack(ls, 1),
         'len': torch.where(act, torch.clamp(length + 1, max=n_max + 1),
                            length),
         'mode': torch.where(act, grown, mode),
@@ -266,17 +318,111 @@ def _emulate_kernel(gains, n_i, n_f, n_i0, state, m, active, register,
             torch.where(act[:, None], torch.stack(out_p, 1), zero2))
 
 
-@pytest.mark.parametrize('bank', ['fps30', 'fps60', 'n_f1', 'n_f4'])
+class _RandomBank:
+    """A bank of random double-single gains where GSFFParams has none (a
+    horizon of one entry makes the least-squares gain singular): the
+    design's bits do not depend on what the gains mean. Duck-types
+    GSFFParams for ``_mixed_case`` and ``_torch_args``."""
+
+    def __init__(self, n_f, n_max, n_i, seed=20):
+        self.n_f, self.n_max, self.n_i = n_f, n_max, list(n_i)
+        self.buf_len = n_max + 1
+        g = np.random.default_rng(seed).normal(0, 0.5, (n_f, 2, 2 * n_max))
+        g[0, :, :2] = 0.0   # zero gains: products of -0
+        hi = g.astype(np.float32)
+        self.gains_ds = np.stack([hi, (g - hi).astype(np.float32)])
+
+    def gains_on(self, device):
+        return torch.from_numpy(self.gains_ds).to(device)
+
+
+#: the design test's banks: four of ``BANKS``, widths on both sides of a
+#: warp (n_max 33: the shared buffer folds 33 into 16; 256 with 8
+#: filters: 256, 128, 64 in the buffer), and random banks of one and two
+#: entries
+DESIGN_BANKS = {
+    **{k: BANKS[k] for k in ('fps30', 'fps60', 'n_f1', 'n_f4')},
+    'n_max33': dict(fps=30.0, n_max=33),
+    'n_max256_f8': dict(fps=30.0, n_max=256, n_f=8),
+    'n_max1': (3, 1, (0, 1, 1)),
+    'n_max2': (3, 2, (1, 1, 2)),
+}
+
+
+@pytest.mark.parametrize('bank', list(DESIGN_BANKS))
 def test_kernel_design_matches_plain(bank):
     """The kernel's arithmetic and indexing, emulated on the CPU, give the
     plain version's bits (odd tree levels: n_max 30 folds at 15, 7, 3;
-    n_max 60 at 15, 7, 3 after 30)."""
+    n_max 60 at 15, 7, 3 after 30; n_max 33 at 33 in the buffer, then 2
+    ... in lanes; n_max 256 halves to 32 in the buffer)."""
     rng = np.random.default_rng(14)
-    jp = jgsff.GSFFParams(**BANKS[bank])
-    tp = gsff.GSFFParams(**BANKS[bank])
+    spec = DESIGN_BANKS[bank]
+    if isinstance(spec, dict):
+        jp = jgsff.GSFFParams(**spec)
+        tp = gsff.GSFFParams(**spec)
+    else:
+        jp = tp = _RandomBank(*spec)
     args = _torch_args(tp, *_mixed_case(rng, jp, s=24))
     _assert_same(_emulate_kernel(*args),
                  gsff.register_and_step_plain(*args))
+
+
+def test_flat_tree_is_dot_tree(monkeypatch):
+    """The warp's tree (the chunk's estimates as columns of flat rows)
+    reduces every width from 1 to 300 to ds.dot_tree's bits in each
+    column (its levels, the products taken as given), on entries with
+    signed zeros, NaN and magnitudes from 1e-3 to 1e3."""
+    monkeypatch.setattr(ds, 'mul', lambda gh, gl, wh, wl: (wh, wl))
+    rng = np.random.default_rng(21)
+    for n in list(range(1, 70)) + [127, 128, 129, 255, 256, 257, 300]:
+        h = rng.normal(0, 1, (5, n, 3)) * 10.0 ** rng.integers(-3, 4,
+                                                               (5, n, 3))
+        h[0] = -0.0
+        h[1, ::3] = 0.0
+        if n > 2:
+            h[2, n // 2, 1] = np.nan
+        h = torch.from_numpy(h.astype(np.float32))
+        l = torch.from_numpy((rng.normal(0, 1, (5, n, 3)) * 1e-8).astype(
+            np.float32))
+        l[0] = 0.0
+        got = _flat_tree(h, l)
+        for col in range(3):
+            want = ds.dot_tree(None, None, h[..., col], l[..., col])
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(
+                    g[:, col].numpy().view(np.int32),
+                    w.numpy().view(np.int32), err_msg=str((n, col)))
+
+
+@pytest.mark.parametrize('k', [2, 3])
+def test_private_entry_writes_its_buffers(k):
+    """``_register_and_step`` (the scan's entry) reads the measurement as
+    the first two of K columns, writes frame f's state into buffer f % 2
+    of ``allocate``'s and the positions into its corrected and predicted
+    buffers, and gives the public entry's bits; the inputs stay as they
+    were."""
+    rng = np.random.default_rng(22)
+    jp = jgsff.GSFFParams(fps=30.0)
+    tp = gsff.GSFFParams(fps=30.0)
+    st, meas, active, reg, coast = _mixed_case(rng, jp)
+    pos = np.concatenate([meas, rng.uniform(0, 9, (len(meas), k - 2)).astype(
+        np.float32)], 1)
+    args = _torch_args(tp, st, meas, active, reg, coast)
+    gains, n_i, n_f, n_i0, state = args[:5]
+    before = {key: x.clone() for key, x in state.items()}
+    want = gsff.register_and_step(*args)
+    out = gsff.allocate(state, frames=3)
+    assert len(out['states']) == 2
+    for frame in (0, 1, 2):
+        got = gsff._register_and_step(
+            gains, n_i, n_f, n_i0, state, torch.from_numpy(pos), *args[6:],
+            out=out, frame=frame)
+        _assert_same(got, want)
+        for key in gsff.STATE_KEYS:
+            assert got[0][key] is out['states'][frame % 2][key]
+        assert got[1] is out['corrected'] and got[2] is out['predicted']
+    for key, x in before.items():
+        assert torch.equal(state[key], x)
 
 
 def test_wrapper_takes_the_plain_route_on_the_cpu():
@@ -342,15 +488,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
 
 
 def test_kernel_cap_and_constants():
-    """The cap: a one-slot block within the shared memory of an SM and
-    1024 threads; n_max 256 with 8 filters is inside it, n_max 906 the
-    widest at 8 filters, 2420 at 3. The kernel's constants are the
+    """The cap: a one-warp (one-slot) block whose tree holds one estimate
+    within the shared memory of an SM; n_max 256 with 8 filters is inside
+    it, n_max 28988 the widest at 8 filters, 29030 at 3, 3418 filters at
+    n_max 1. The launch's chunk of 16 estimates (stride 17) fits the
+    default bank 8 warps a block. The kernel's constants are the
     module's."""
-    assert gsff.kernel_takes(8, 256) and gsff.kernel_takes(3, 2420)
-    assert gsff.kernel_shared_bytes(8, 906) <= gsff.MAX_SHARED_BYTES < \
-        gsff.kernel_shared_bytes(8, 907)
-    assert not gsff.kernel_takes(8, 907) and not gsff.kernel_takes(3, 2421)
-    assert gsff.kernel_takes(256, 1) and not gsff.kernel_takes(257, 1)
+    assert gsff.kernel_takes(8, 256) and gsff.kernel_takes(3, 29030)
+    assert gsff.kernel_shared_bytes(8, 28988) <= gsff.MAX_SHARED_BYTES < \
+        gsff.kernel_shared_bytes(8, 28989)
+    assert not gsff.kernel_takes(8, 28989) and \
+        not gsff.kernel_takes(3, 29031)
+    assert gsff.kernel_takes(3418, 1) and not gsff.kernel_takes(3419, 1)
+    # the tree's rows are odd: a chunk of 12 is 13 wide
+    assert gsff.kernel_shared_bytes(3, 30, 12) == 4 * (17 * 3 + 2 * 30 * 13)
+    assert 8 * gsff.kernel_shared_bytes(3, 30, gsff.KERNEL_CHUNK) <= \
+        gsff.MAX_SHARED_BYTES
     with open(os.path.join(_build.CSRC_DIR, 'gsff.cu')) as f:
         src = f.read()
 
@@ -360,6 +513,7 @@ def test_kernel_cap_and_constants():
 
     assert int(const('kMaxShared')) == gsff.MAX_SHARED_BYTES
     assert int(const('kMaxThreads')) == gsff.MAX_BLOCK_THREADS
+    assert int(const('kChunk')) == gsff.KERNEL_CHUNK
     assert float.fromhex(const('kNegInf').rstrip('f')) == gsff.NEG_INF
     assert float.fromhex(const('kLogLikMin').rstrip('f')) == \
         gsff._LOG_LIK_MIN
@@ -367,9 +521,9 @@ def test_kernel_cap_and_constants():
 
 def test_plain_route_has_no_cap():
     """Past the kernel's cap a CPU call still runs (the plain version):
-    8 filters over n_max 907, random gains."""
+    8 filters over n_max 28989, random gains."""
     rng = np.random.default_rng(17)
-    n, n_f, n_max = 3, 8, 907
+    n, n_f, n_max = 3, 8, 28989
     state = {'buf': torch.from_numpy(rng.uniform(0, 9, (n, n_max + 1, 2))
                                      .astype(np.float32)),
              'buf_lo': torch.zeros(n, n_max + 1, 2),
@@ -402,6 +556,8 @@ CUDA_CASES = {
     'all_inactive': (4096, dict(fps=30.0), 'inactive', 400),
     'all_registering': (4096, dict(fps=30.0), 'registering', 400),
     'bank256x8': (1024, dict(fps=30.0, n_max=256, n_f=8), 'mixed', 400),
+    'n_max33': (1024, dict(fps=30.0, n_max=33), 'mixed', 400),
+    'n_max64': (1024, dict(fps=30.0, n_max=64), 'mixed', 400),
     'wide1e4': (4096, dict(fps=30.0), 'mixed', 1e4),
 }
 
@@ -443,13 +599,13 @@ def test_kernel_bit_equal_to_plain_on_cuda(case):
 
 @pytest.mark.cuda
 def test_kernel_cap_on_cuda():
-    """At the cap (8 filters, n_max 906, random gains) the kernel runs and
-    equals the plain version; one past it the wrapper raises."""
+    """At the cap (8 filters, n_max 28988, random gains) the kernel runs
+    and equals the plain version; one past it the wrapper raises."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     rng = np.random.default_rng(19)
     n, n_f = 64, 8
-    for n_max, fits in ((906, True), (907, False)):
+    for n_max, fits in ((28988, True), (28989, False)):
         state = {'buf': torch.from_numpy(
                      rng.uniform(0, 99, (n, n_max + 1, 2)).astype(
                          np.float32)).cuda(),

@@ -44,8 +44,10 @@ Each call is traced with ``torch.profiler``; the script prints every
 kernel the call launched (the entries' internal launches included) with
 its mean device time, grid, block, registers, shared memory and the
 profiler's estimate of achieved occupancy (the torch kernels a wrapper
-launches before its own appear as lines of their own), and the call's
-span on CUDA events.
+launches before its own appear as lines of their own), the call's span
+on CUDA events and, for a call of several launches, its device span (the
+first launch's start to the last one's end: launches may overlap, as the
+frame step's update overlaps its rank launch).
 """
 
 import argparse
@@ -92,6 +94,7 @@ def load_smoke(root):
 def trace(name, fn, reps, smoke):
     """Profile ``reps`` calls of ``fn`` after a warm-up; print each kernel's
     mean device time and launch shape, and the call's CUDA-event span."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     span = smoke.cuda_ms(fn, reps=reps)
@@ -107,6 +110,8 @@ def trace(name, fn, reps, smoke):
         with open(path) as f:
             events = json.load(f)['traceEvents']
     kernels = {}
+    launches = sorted((float(ev['ts']), float(ev.get('dur', 0.0)))
+                      for ev in events if ev.get('cat') == 'kernel')
     for ev in events:
         if ev.get('cat') != 'kernel':
             continue
@@ -131,6 +136,15 @@ def trace(name, fn, reps, smoke):
                   k['registers'], k['smem'], k['occupancy'], kname[:90]),
               flush=True)
     print('  kernels sum {:.4f} ms per call'.format(total), flush=True)
+    per = len(launches) // reps
+    if per > 1 and per * reps == len(launches):
+        # a call's launches may overlap (a programmatic launch) or leave
+        # gaps: the device span from its first start to its last end
+        spans = [max(t + d for t, d in launches[i:i + per]) -
+                 launches[i][0] for i in range(0, len(launches), per)]
+        print('  device span {:.4f} ms per call (first kernel start to last '
+              'end, median)'.format(float(np.median(spans)) / 1e3),
+              flush=True)
 
 
 def trace_run_prop(smoke, args, dev):

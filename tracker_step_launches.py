@@ -19,8 +19,9 @@ operations (kernels, memsets, copies) are listed by name. Then five
 16-frame scans are timed on the host clock with the card synchronised
 (median and each).
 ``--videos 4`` also runs the step over four videos at once (a tree whose
-``run_tracker_scan`` takes a leading video axis). Prints one JSON line
-per V, then the card's name and power limit from ``nvidia-smi``.
+``run_tracker_scan`` takes a leading video axis); ``--dims 2,3`` also
+with luminosity's third coordinate. Prints one JSON line per (K, V),
+then the card's name and power limit from ``nvidia-smi``.
 ``chip_smoke.py`` calls ``measure`` (phase 29).
 """
 
@@ -38,11 +39,12 @@ import torch
 SLOTS, DETS, LIVE = 4096, 4096, 3000
 
 
-def tables(rng, t_len, v, dev):
-    """(V, T, C, 2) drifting detections, (V, T, C, 3) sizes, (V, T, C)
+def tables(rng, t_len, v, dev, k=2):
+    """(V, T, C, K) drifting detections (a third coordinate, luminosity's,
+    drifting as the positions do), (V, T, C, 3) sizes, (V, T, C)
     validity: LIVE valid detections a frame."""
-    xy = rng.uniform(0, 1228, (v, 1, DETS, 2))
-    xy = xy + np.cumsum(rng.normal(0, 1.0, (v, t_len, DETS, 2)), axis=1)
+    xy = rng.uniform(0, 1228, (v, 1, DETS, k))
+    xy = xy + np.cumsum(rng.normal(0, 1.0, (v, t_len, DETS, k)), axis=1)
     info = rng.uniform(1, 8, (v, t_len, DETS, 3))
     valid = np.zeros((v, t_len, DETS), bool)
     valid[..., :LIVE] = True
@@ -67,21 +69,22 @@ def count(prof):
     return (kernels, memops, launches), names
 
 
-def measure(trk, params, v, dev):
+def measure(trk, params, v, dev, k=2):
     """One dense frame step of ``trk`` (a checkout's
-    ``ysmr_tpu_torch.pipeline.tracker``) at V videos with the GSFF bank
-    ``params``: the device kernels, memsets and copies and runtime launch
-    calls of the step and of a one-frame scan, and the host-clock ms per
-    frame step of five 16-frame scans (median and each)."""
+    ``ysmr_tpu_torch.pipeline.tracker``) at V videos, K coordinates, with
+    the GSFF bank ``params``: the device kernels, memsets and copies and
+    runtime launch calls of the step and of a one-frame scan, and the
+    host-clock ms per frame step of five 16-frame scans (median and
+    each)."""
     from torch.profiler import ProfilerActivity, profile
     kwargs = dict(max_disappeared=30.0, use_gsff=True,
                   **trk.gsff_kwargs(params, dev))
-    data = tables(np.random.default_rng(0), 24, v, dev)
+    data = tables(np.random.default_rng(0), 24, v, dev, k)
 
     def frames(a, b):
         return [x[0, a:b] if v == 1 else x[:, a:b] for x in data]
 
-    state = trk.init_tracker_state(SLOTS, dev, use_gsff=True,
+    state = trk.init_tracker_state(SLOTS, dev, dims=k, use_gsff=True,
                                    gsff_params=params)
     if v > 1:
         state = {k: (torch.stack([x] * v) if torch.is_tensor(x) else
@@ -90,12 +93,17 @@ def measure(trk, params, v, dev):
     state, _ = trk.run_tracker_scan(state, *frames(0, 4), **kwargs)
     counts, names = {}, {}
     for n in (1, 2):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            trk.run_tracker_scan(state, *frames(4, 4 + n), **kwargs)
+        # a profile now and then records no device operation at all (seen
+        # on the H100 after several profiles in one process): take another
+        for _ in range(3):
             torch.cuda.synchronize()
-        counts[n], names[n] = count(prof)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                trk.run_tracker_scan(state, *frames(4, 4 + n), **kwargs)
+                torch.cuda.synchronize()
+            counts[n], names[n] = count(prof)
+            if counts[n][0] + counts[n][1]:
+                break
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -118,6 +126,9 @@ def main():
         __file__)), help='checkout whose ysmr_tpu_torch is measured')
     ap.add_argument('--videos', default='1',
                     help='comma-separated video counts V (default 1)')
+    ap.add_argument('--dims', default='2',
+                    help='comma-separated coordinate counts K (default 2; '
+                    '3 is luminosity\'s)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('no CUDA device: this script measures the card')
@@ -126,11 +137,12 @@ def main():
     from ysmr_tpu_torch.pipeline import tracker as trk
     dev = torch.device('cuda', 0)
     params = GSFFParams(fps=30.0, n_min=0, n_max=30, n_f=3)
-    for v in (int(x) for x in args.videos.split(',')):
-        print(json.dumps({
-            'root': os.path.abspath(args.root), 'videos': v,
-            'slots': SLOTS, 'detections': DETS, 'live': LIVE,
-            **measure(trk, params, v, dev)}), flush=True)
+    for k in (int(x) for x in args.dims.split(',')):
+        for v in (int(x) for x in args.videos.split(',')):
+            print(json.dumps({
+                'root': os.path.abspath(args.root), 'videos': v, 'dims': k,
+                'slots': SLOTS, 'detections': DETS, 'live': LIVE,
+                **measure(trk, params, v, dev, k)}), flush=True)
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,

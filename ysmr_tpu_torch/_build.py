@@ -170,7 +170,7 @@ def load_kernels():
     lib.ysmr_adaptive_mean.argtypes = [vp, vp, ctypes.POINTER(
         ctypes.c_float)] + [ci] * 4 + [vp]
     lib.ysmr_gsff_step.restype = ci
-    lib.ysmr_gsff_step.argtypes = [vp] * 20 + [ci] * 5 + [vp]
+    lib.ysmr_gsff_step.argtypes = [vp] * 20 + [ci] * 6 + [vp]
     lib.ysmr_frame_step.restype = ci
     lib.ysmr_frame_step.argtypes = [vp] * 27 + [ctypes.c_float] + \
         [ci] * 6 + [vp]

@@ -21,30 +21,52 @@
 // run in float64 (the math library's, as torch's CUDA kernels call them)
 // and round to float32, and lw - lw_max is formed in float32 first.
 //
-// Design: a block holds sb slots and 4 * n_f threads per slot; thread d of
-// a slot computes one of its 4 * n_f double-single estimates (before or
-// after the append, filter d / 2 mod n_f, coordinate d mod 2). It forms
-// the window's entries from the ring on the fly (the slot's threads read
-// the same ring, through L1), writes the first level of the tree to its
-// own column of a dynamic shared-memory scratch ([entry][thread]: a warp's
-// accesses fall in distinct banks), reduces it in place and leaves the
-// estimate in shared memory. After a barrier one thread per slot runs the
-// mode growth, the weights, the corrected output and the prediction; then
-// the block writes its slots' rings (shifted for active slots, filled for
-// registered ones), consecutive threads on consecutive floats. Inactive
-// slots skip the estimates: the plain version drops them. No allocation,
-// no host synchronisation.
+// Design (a warp per slot, lanes over the window, then over the tree):
+// lane i forms the tree's first level, product(i) + product(i + n_max),
+// for a chunk of up to kChunk of the slot's 4 n_f estimates (before or
+// after the append, filter e / 2 mod n_f, coordinate e mod 2; the four
+// window differences a lane needs are formed once) into row i of a
+// per-warp shared-memory tree whose columns are the chunk's estimates.
+// Each further level of ds.dot_tree is one pass of the warp over the flat
+// rows, every estimate at once: the odd level's fold of row n - 1 into
+// row 0, then row i adds row i + half (the same pairs in the same order
+// as the plain tree, so the same bits), the lanes on consecutive entries.
+// (A shuffle per level, lane i holding entry i, measured slower: a level
+// of width 15 keeps 15 of 32 lanes busy, one estimate an instruction.)
+// Lane g adds estimate g's center. The finish is spread over the
+// filters' lanes (lane f, f + 32, ...): the log likelihood, the float64
+// exp and log, the weights and the weighted double-single products; lane
+// 0 runs lw_max (NaN-propagating, left to right) and the sum of the exps,
+// lanes 0-3 the four corr / pred accumulations, each in the plain
+// version's order. The warp writes its slot's rings a ring entry (8
+// bytes, hi or lo) a lane: shifted on an active slot, filled on a
+// registered one (the 31 entries of the default ring put every other
+// slot off 16-byte alignment, so 8-byte stores are the widest the layout
+// allows). Inactive slots skip the estimates: the plain version drops
+// them. The measurement is read at stride m_stride (the tracker's (V S,
+// K) positions). No allocation, no host synchronisation, no block
+// barrier: warps are independent.
 //
-// Cap: one slot's block needs 4 * (4 n_f (2 n_max + 2) + 2 n_f) bytes of
-// shared memory, at most 232,448, and 4 n_f threads, at most 1024:
-// n_max <= 906 at n_f = 8, 2420 at n_f = 3 (ops/gsff.py::kernel_takes).
+// Cap: a warp needs 4 (17 n_f + 2 n_max stride) bytes of shared memory
+// (stride: the chunk, odd), the launch shrinks the chunk to fit 232,448
+// and takes any bank whose chunk of one fits: 4 (17 n_f + 2 n_max) bytes,
+// n_max <= 28988 at n_f = 8, 29030 at n_f = 3, n_f <= 3418
+// (ops/gsff.py::kernel_takes).
 //
-// What bounds it on an H100: operations. Per active slot two windows of
-// 2 n_max double-single differences and 4 n_f dots of a double-single
-// product (24 float operations) and a tree add (11) per entry, against
-// about 1.1 KB of state in and out: at N = 4096, n_f = 3, n_max = 30 about
-// 109 MFLOP (1.6 us at 67 TFLOP/s) and 4.4 MB (1.3 us at 3.35 TB/s). The
-// TPU had no kernel here; XLA fused the step into the scan's body.
+// What bounds it on an H100: instruction issue. Per active slot two
+// windows of 2 n_max double-single differences and 4 n_f dots of a
+// double-single product (24 float operations) and a tree add (11) per
+// entry, against about 1.1 KB of state in and out: at N = 4096, n_f = 3,
+// n_max = 30 about 109 MFLOP (1.6 us at 67 TFLOP/s) and 4.4 MB (1.3 us
+// at 3.35 TB/s). The instructions around the arithmetic (the products'
+// Veltkamp splits, the tree's shared loads and stores, the float64 exp
+// and log) make about 2,000 warp instructions a slot; with every slot's
+// warp resident at once (64 registers, 4 blocks of 8 warps an SM) the
+// kernel takes 15.7 us there (29.7 us for the former thread-per-estimate
+// design, NVIDIA H100 80GB HBM3, 700 W). Above n_max 32 the launch keeps
+// 8 warps a block by shrinking the chunk, and 3 blocks an SM (85
+// registers). The TPU had no kernel here; XLA fused the step into the
+// scan's body.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,7 +74,8 @@
 
 namespace {
 
-constexpr int kTargetThreads = 128;
+constexpr int kTargetWarps = 8;  // slots of a block (a warp each)
+constexpr int kChunk = 16;       // estimates a warp's tree holds at most
 constexpr int kMaxThreads = 1024;
 constexpr size_t kMaxShared = 232448;
 // float32(-1e30) and float32(log(1e-20)): ops/gsff.py's NEG_INF and
@@ -127,7 +150,7 @@ struct Args {
   const float* pred_lo;  // (N, 2)
   const float* gains;    // (2, n_f, 2, 2 n_max): hi, lo
   const int* n_i;        // (n_f,)
-  const float* m;        // (N, 2)
+  const float* m;        // (N, m_stride): the first two columns
   const uint8_t* active;
   const uint8_t* reg;
   const uint8_t* coast;
@@ -139,8 +162,20 @@ struct Args {
   float* out_pred_lo;
   float* corrected;
   float* predicted;
-  int n, n_max, n_f, n_i0, sb;
+  int n, n_max, n_f, n_i0, m_stride;
+  int warps;   // slots (warps) of a block
+  int chunk;   // estimates the tree holds at once
+  int stride;  // its row: chunk, or chunk + 1 if that is even
 };
+
+// floats of a warp's shared memory: its 4 n_f estimates (hi, lo), the n_f
+// log weights, 8 n_f of scratch (the exps, then the weighted products),
+// and the tree: n_max rows of `stride` double-single entries
+__host__ __device__ __forceinline__ size_t warp_floats(int n_f, int n_max,
+                                                       int stride) {
+  return 17 * static_cast<size_t>(n_f) +
+         2 * static_cast<size_t>(n_max) * stride;
+}
 
 // One slot's inputs after the register fill.
 struct Slot {
@@ -149,93 +184,204 @@ struct Slot {
   bool reg;
   Ds m[2];  // the measurement and its lo half (a coasting slot's pred_lo)
 
-  __device__ __forceinline__ Ds ring(int j, int c) const {
-    return reg ? Ds{m[c].h, 0.0f} : Ds{buf[2 * j + c], lo[2 * j + c]};
+  // coordinate c's measurement, picked by a select (a runtime index would
+  // put m on the stack)
+  __device__ __forceinline__ Ds meas(int c) const { return c ? m[1] : m[0]; }
+
+  // ring float q (entry q / 2, coordinate q % 2)
+  __device__ __forceinline__ Ds ring(int q) const {
+    return reg ? Ds{meas(q & 1).h, 0.0f} : Ds{buf[q], lo[q]};
   }
 };
 
-// center + gains[f][r] . (window - center) in double-single, the window
-// the last n_max ring entries before the append or after it; the tree's
-// entries live at sh[i * stride], sl[i * stride].
-__device__ Ds estimate(const Args& a, const Slot& s, bool post, int f, int r,
-                       float* sh, float* sl, int stride) {
-  const int n_max = a.n_max, w2 = 2 * n_max;
-  const float* gh = a.gains + (static_cast<int64_t>(f) * 2 + r) * w2;
-  const float* gl = gh + static_cast<int64_t>(a.n_f) * 2 * w2;
-  Ds center[2];
-  for (int c = 0; c < 2; ++c) center[c] = post ? s.m[c] : s.ring(n_max, c);
-  auto product = [&](int k) {
-    const int j = k / 2 + 1, c = k % 2;
-    const Ds v = !post       ? s.ring(j, c)
-                 : j < n_max ? s.ring(j + 1, c)
-                             : s.m[c];
-    return ds_mul({__ldg(gh + k), __ldg(gl + k)}, ds_sub(v, center[c]));
-  };
-  // the tree's first level: the width 2 n_max is even, so nothing folds
-  for (int i = 0; i < n_max; ++i) {
-    const Ds v = ds_add(product(i), product(i + n_max));
-    sh[i * stride] = v.h;
-    sl[i * stride] = v.l;
-  }
-  for (int n = n_max; n > 1;) {
-    const int half = n / 2;
-    if (n % 2) {
-      const int k = (n - 1) * stride;
-      const Ds v = ds_add({sh[0], sl[0]}, {sh[k], sl[k]});
-      sh[0] = v.h;
-      sl[0] = v.l;
-    }
-    for (int i = 0; i < half; ++i) {
-      const int k = i * stride, q = (i + half) * stride;
-      const Ds v = ds_add({sh[k], sl[k]}, {sh[q], sl[q]});
-      sh[k] = v.h;
-      sl[k] = v.l;
-    }
-    n = half;
-  }
-  return ds_add(center[r], {sh[0], sl[0]});
+// window entry k (of 2 n_max) minus its coordinate's center: before the
+// append ring float k + 2, after it ring float k + 4 or the measurement
+__device__ __forceinline__ Ds window_diff(const Slot& s, Ds c0, Ds c1,
+                                          bool post, int k, int n_max) {
+  const Ds v = !post ? s.ring(k + 2)
+               : k < 2 * n_max - 2 ? s.ring(k + 4)
+                                   : s.meas(k & 1);
+  return ds_sub(v, (k & 1) ? c1 : c0);
 }
 
-// The slot's weights, outputs and scalar state; eh/el hold its 4 n_f
-// estimates (before the append at 2 f + r, after it at 2 n_f + 2 f + r),
-// lw and wt are n_f floats of shared scratch.
-__device__ void finish_slot(const Args& a, const Slot& s, bool act,
-                            int64_t slot, const float* eh, const float* el,
-                            float* lw, float* wt) {
-  const int n_f = a.n_f;
+// gains[f][r] . (window - center) at entries i and i + n_max, fr = 2 f +
+// r: the tree's first level (the width 2 n_max is even, so nothing folds)
+__device__ __forceinline__ Ds first_level(const Args& a, int fr, Ds d0,
+                                          Ds d1, int i) {
+  const int n_max = a.n_max, w2 = 2 * n_max;
+  const float* gh = a.gains + static_cast<int64_t>(fr) * w2;
+  const float* gl = gh + static_cast<int64_t>(a.n_f) * 2 * w2;
+  return ds_add(ds_mul({__ldg(gh + i), __ldg(gl + i)}, d0),
+                ds_mul({__ldg(gh + i + n_max), __ldg(gl + i + n_max)}, d1));
+}
+
+// The slot's 4 n_f estimates into est_h, est_l (before the append at
+// 2 f + r, after it at 2 n_f + 2 f + r), a chunk of estimates at a time:
+// lane i forms the first level of entry i (and i + 32, ...) for each
+// estimate g of the chunk into row i, column g of the tree (th, tl: n_max
+// rows of `stride` entries, an odd stride so that the lanes' columns fall
+// in distinct banks); then each level of ds.dot_tree is one pass over the
+// flat rows: the odd level's fold of row n - 1 into row 0, then row i
+// (< half) adds row i + half, every column (estimate) at once, the lanes
+// over consecutive entries. Lane g adds estimate g's center to row 0.
+// Registers are picked by selects, never by a runtime index (which would
+// put them on the stack).
+__device__ __forceinline__ void estimates(const Args& a, const Slot& s,
+                                          float* est_h, float* est_l,
+                                          float* th, float* tl) {
+  const int lane = threadIdx.x & 31, n_max = a.n_max, ne = 4 * a.n_f;
+  const int posts = 2 * a.n_f, stride = a.stride;
+  // the centers: before the append the ring's last entry, after it the
+  // measurement
+  const Ds pre_c0 = s.ring(2 * n_max), pre_c1 = s.ring(2 * n_max + 1);
+  for (int e0 = 0; e0 < ne; e0 += a.chunk) {
+    const int ec = min(a.chunk, ne - e0);
+    for (int i = lane; i < n_max; i += 32) {
+      // the window's differences at entries i and i + n_max
+      const Ds pre0 = window_diff(s, pre_c0, pre_c1, false, i, n_max);
+      const Ds pre1 = window_diff(s, pre_c0, pre_c1, false, i + n_max, n_max);
+      const Ds post0 = window_diff(s, s.m[0], s.m[1], true, i, n_max);
+      const Ds post1 = window_diff(s, s.m[0], s.m[1], true, i + n_max,
+                                   n_max);
+      // the chunk's estimates before the append, then after it: each
+      // loop's differences are invariant (their splits are formed once)
+      const int mid = min(max(posts - e0, 0), ec);
+      for (int g = 0; g < mid; ++g) {
+        const Ds v = first_level(a, e0 + g, pre0, pre1, i);
+        th[i * stride + g] = v.h;
+        tl[i * stride + g] = v.l;
+      }
+      for (int g = mid; g < ec; ++g) {
+        const Ds v = first_level(a, e0 + g - posts, post0, post1, i);
+        th[i * stride + g] = v.h;
+        tl[i * stride + g] = v.l;
+      }
+    }
+    __syncwarp();
+    for (int n = n_max; n > 1;) {
+      const int half = n / 2;
+      if (n & 1) {
+        const int off = (n - 1) * stride;
+        for (int t = lane; t < stride; t += 32) {
+          const Ds v = ds_add({th[t], tl[t]}, {th[t + off], tl[t + off]});
+          th[t] = v.h;
+          tl[t] = v.l;
+        }
+        __syncwarp();
+      }
+      const int off = half * stride;
+      for (int t = lane; t < off; t += 32) {
+        const Ds v = ds_add({th[t], tl[t]}, {th[t + off], tl[t + off]});
+        th[t] = v.h;
+        tl[t] = v.l;
+      }
+      __syncwarp();
+      n = half;
+    }
+    for (int g = lane; g < ec; g += 32) {
+      const int e = e0 + g;
+      const Ds c = e < posts ? ((e & 1) ? pre_c1 : pre_c0) : s.meas(e & 1);
+      const Ds v = ds_add(c, {th[g], tl[g]});
+      est_h[e] = v.h;
+      est_l[e] = v.l;
+    }
+    __syncwarp();  // the tree is free for the next chunk
+  }
+}
+
+static_assert(32 * kTargetWarps <= kMaxThreads, "a block's threads");
+
+// MinBlocks: blocks an SM should hold (the registers a thread may use);
+// the launch picks 4 for the register-light trees up to n_max 32, 3 above
+template <int MinBlocks>
+__global__ void __launch_bounds__(32 * kTargetWarps, MinBlocks)
+    gsff_kernel(Args a) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t slot = static_cast<int64_t>(blockIdx.x) * a.warps + warp;
+  if (slot >= a.n) return;  // a whole warp: no block barrier follows
+  const int n_f = a.n_f, n_max = a.n_max;
+  float* est_h = smem + warp * warp_floats(n_f, n_max, a.stride);
+  float* est_l = est_h + 4 * n_f;
+  float* lw = est_l + 4 * n_f;
+  float* tmp = lw + n_f;
+  float* tree_h = tmp + 8 * n_f;
+  float* tree_l = tree_h + n_max * a.stride;
+  const int per = 2 * (n_max + 1);
+  const bool act = a.active[slot] != 0;
+  const bool coast = a.coast[slot] != 0;
+  Slot s;
+  s.reg = a.reg[slot] != 0;
+  s.buf = a.buf + slot * per;
+  s.lo = a.buf_lo + slot * per;
+  for (int c = 0; c < 2; ++c)
+    s.m[c] = {a.m[slot * a.m_stride + c],
+              coast ? a.pred_lo[2 * slot + c] : 0.0f};
+  // the rings: entry j + 1 moves to j and the measurement is appended on
+  // an active slot; the filled or the old ring stays on an inactive one
+  {
+    const float2* src = reinterpret_cast<const float2*>(s.buf);
+    const float2* src_lo = reinterpret_cast<const float2*>(s.lo);
+    float2* dst = reinterpret_cast<float2*>(a.out_buf + slot * per);
+    float2* dst_lo = reinterpret_cast<float2*>(a.out_buf_lo + slot * per);
+    for (int j = lane; j <= n_max; j += 32) {
+      float2 h, l;
+      if (act && j == n_max) {
+        h = make_float2(s.m[0].h, s.m[1].h);
+        l = make_float2(s.m[0].l, s.m[1].l);
+      } else if (s.reg) {
+        h = make_float2(s.m[0].h, s.m[1].h);
+        l = make_float2(0.0f, 0.0f);
+      } else {
+        const int q = act ? j + 1 : j;
+        h = src[q];
+        l = src_lo[q];
+      }
+      dst[j] = h;
+      dst_lo[j] = l;
+    }
+  }
   const int length = s.reg ? a.n_i0 : a.len[slot];
   const int mode = s.reg ? 0 : a.mode[slot];
   const float* log_w = a.log_w + slot * n_f;
   float* out_lw = a.out_log_w + slot * n_f;
   if (!act) {
-    a.out_len[slot] = length;
-    a.out_mode[slot] = mode;
-    for (int f = 0; f < n_f; ++f) out_lw[f] = s.reg ? kNegInf : log_w[f];
-    for (int c = 0; c < 2; ++c) {
+    for (int f = lane; f < n_f; f += 32)
+      out_lw[f] = s.reg ? kNegInf : log_w[f];
+    if (lane < 2) {
+      const int c = lane;
       a.out_pred_lo[2 * slot + c] = s.reg ? 0.0f : a.pred_lo[2 * slot + c];
       a.corrected[2 * slot + c] = 0.0f;
       a.predicted[2 * slot + c] = 0.0f;
     }
+    if (lane == 0) {
+      a.out_len[slot] = length;
+      a.out_mode[slot] = mode;
+    }
     return;
   }
-  // (a) mode growth: n_f rounds of a clamped lookup into n_i
+  // (a) mode growth: n_f rounds of a clamped lookup into n_i; (b)
+  // uniform weights on a transition (both before the estimates, whose
+  // work hides their latency)
   int grown = mode;
   for (int i = 0; i < n_f; ++i) {
     const int at = min(max(grown, 0), n_f - 1);
     grown += (grown < n_f && length >= __ldg(a.n_i + at)) ? 1 : 0;
   }
   const bool grew = grown > mode;
-  // (b) uniform weights on a transition
-  const float uniform = -log_f(static_cast<float>(max(grown, 1)));
+  // read only on a transition (the float64 log is skipped on the rest)
+  const float uniform =
+      grew ? -log_f(static_cast<float>(max(grown, 1))) : 0.0f;
+  estimates(a, s, est_h, est_l, tree_h, tree_l);
+  __syncwarp();
   // (d) log likelihoods floored at the likelihood minimum, (e) the update
-  float lw_max = 0.0f;
-  for (int f = 0; f < n_f; ++f) {
+  for (int f = lane; f < n_f; f += 32) {
     float v = kNegInf;
     if (f < grown) {
       const float lw_in = grew ? uniform : (s.reg ? kNegInf : log_w[f]);
       float sq[2];
       for (int r = 0; r < 2; ++r) {
-        const Ds diff = ds_sub(s.m[r], {eh[2 * f + r], el[2 * f + r]});
+        const Ds diff = ds_sub(s.m[r], {est_h[2 * f + r], est_l[2 * f + r]});
         sq[r] = __fadd_rn(__fmul_rn(diff.h, diff.h),
                           __fmul_rn(__fmul_rn(2.0f, diff.h), diff.l));
       }
@@ -244,99 +390,56 @@ __device__ void finish_slot(const Args& a, const Slot& s, bool act,
       v = __fadd_rn(lw_in, log_lik);
     }
     lw[f] = v;
-    lw_max = f == 0 ? v : max_nan(lw_max, v);
   }
-  float sum = 0.0f;
-  for (int f = 0; f < n_f; ++f) {
-    const float e = exp_f(__fsub_rn(lw[f], lw_max));
-    sum = f == 0 ? e : __fadd_rn(sum, e);
+  __syncwarp();
+  float lw_max = lw[0];
+  if (lane == 0)
+    for (int f = 1; f < n_f; ++f) lw_max = max_nan(lw_max, lw[f]);
+  lw_max = __shfl_sync(0xffffffffu, lw_max, 0);
+  for (int f = lane; f < n_f; f += 32) tmp[f] = exp_f(__fsub_rn(lw[f], lw_max));
+  __syncwarp();
+  float lse = 0.0f;
+  if (lane == 0) {
+    float sum = tmp[0];
+    for (int f = 1; f < n_f; ++f) sum = __fadd_rn(sum, tmp[f]);
+    lse = __fadd_rn(lw_max, log_f(sum));
   }
-  const float lse = __fadd_rn(lw_max, log_f(sum));
-  for (int f = 0; f < n_f; ++f) {
+  lse = __shfl_sync(0xffffffffu, lse, 0);
+  __syncwarp();  // lane 0 has read the exps before tmp is rewritten
+  // (f) the weighted pre-append estimates, (g) the post-append ones:
+  // tmp[8 f + 2 q], tmp[8 f + 2 q + 1] for q = 2 kind + r
+  const int post = 2 * n_f;
+  for (int f = lane; f < n_f; f += 32) {
     const float v = f < grown ? __fsub_rn(lw[f], lse) : kNegInf;
     out_lw[f] = v;
-    wt[f] = f < grown ? exp_f(v) : 0.0f;
-  }
-  // (f) the weighted pre-append estimates, (g) the post-append ones
-  const int post = 2 * n_f;
-  for (int r = 0; r < 2; ++r) {
-    Ds corr = ds_mul({eh[r], el[r]}, {wt[0], 0.0f});
-    Ds pred = ds_mul({eh[post + r], el[post + r]}, {wt[0], 0.0f});
-    for (int f = 1; f < n_f; ++f) {
+    const Ds w = {f < grown ? exp_f(v) : 0.0f, 0.0f};
+    for (int r = 0; r < 2; ++r) {
       const int k = 2 * f + r;
-      corr = ds_add(corr, ds_mul({eh[k], el[k]}, {wt[f], 0.0f}));
-      pred = ds_add(pred, ds_mul({eh[post + k], el[post + k]}, {wt[f], 0.0f}));
+      const Ds c = ds_mul({est_h[k], est_l[k]}, w);
+      const Ds p = ds_mul({est_h[post + k], est_l[post + k]}, w);
+      tmp[8 * f + 2 * r] = c.h;
+      tmp[8 * f + 2 * r + 1] = c.l;
+      tmp[8 * f + 4 + 2 * r] = p.h;
+      tmp[8 * f + 4 + 2 * r + 1] = p.l;
     }
-    a.corrected[2 * slot + r] = __fadd_rn(corr.h, corr.l);
-    a.predicted[2 * slot + r] = pred.h;
-    a.out_pred_lo[2 * slot + r] = pred.l;
   }
-  a.out_len[slot] = min(length + 1, a.n_max + 1);
-  a.out_mode[slot] = grown;
-}
-
-__global__ void gsff_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int lanes = 4 * a.n_f, nt = blockDim.x;
-  float* scr_h = smem;                  // (n_max, nt)
-  float* scr_l = scr_h + a.n_max * nt;  // (n_max, nt)
-  float* est_h = scr_l + a.n_max * nt;  // (nt,)
-  float* est_l = est_h + nt;            // (nt,)
-  float* lw = est_l + nt;               // (sb, n_f)
-  float* wt = lw + a.sb * a.n_f;        // (sb, n_f)
-  const int t = threadIdx.x, local = t / lanes, d = t % lanes;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * a.sb;
-  const int64_t slot = first + local;
-  const bool live = slot < a.n;
-  const int per = 2 * (a.n_max + 1);
-  Slot s{};
-  bool act = false;
-  if (live) {
-    act = a.active[slot] != 0;
-    s.reg = a.reg[slot] != 0;
-    s.buf = a.buf + slot * per;
-    s.lo = a.buf_lo + slot * per;
-    const bool coast = a.coast[slot] != 0;
-    for (int c = 0; c < 2; ++c)
-      s.m[c] = {a.m[2 * slot + c], coast ? a.pred_lo[2 * slot + c] : 0.0f};
-  }
-  if (act) {
-    const Ds x = estimate(a, s, d >= 2 * a.n_f, (d / 2) % a.n_f, d % 2,
-                          scr_h + t, scr_l + t, nt);
-    est_h[t] = x.h;
-    est_l[t] = x.l;
-  }
-  __syncthreads();
-  if (live && d == 0)
-    finish_slot(a, s, act, slot, est_h + t, est_l + t, lw + local * a.n_f,
-                wt + local * a.n_f);
-  // the rings: entry j + 1 moves to j and the measurement is appended on
-  // an active slot; the filled or the old ring stays on an inactive one
-  const int64_t slots = a.n - first < a.sb ? a.n - first : a.sb;
-  const int64_t total = slots * per;
-  for (int64_t e = t; e < total; e += nt) {
-    const int64_t at = first * per + e;
-    const int64_t sl = first + e / per;
-    const int q = static_cast<int>(e % per), c = q % 2;
-    const bool on = a.active[sl] != 0, filled = a.reg[sl] != 0;
-    float h, l;
-    if (on && q / 2 == a.n_max) {
-      h = a.m[2 * sl + c];
-      l = a.coast[sl] ? a.pred_lo[2 * sl + c] : 0.0f;
+  __syncwarp();
+  if (lane < 4) {  // lanes 0, 1: corrected r; lanes 2, 3: predicted r
+    const int q = 2 * lane, r = lane & 1;
+    Ds acc = {tmp[q], tmp[q + 1]};
+    for (int f = 1; f < n_f; ++f)
+      acc = ds_add(acc, {tmp[8 * f + q], tmp[8 * f + q + 1]});
+    if (lane < 2) {
+      a.corrected[2 * slot + r] = __fadd_rn(acc.h, acc.l);
     } else {
-      const int64_t src = on ? at + 2 : at;
-      h = filled ? a.m[2 * sl + c] : a.buf[src];
-      l = filled ? 0.0f : a.buf_lo[src];
+      a.predicted[2 * slot + r] = acc.h;
+      a.out_pred_lo[2 * slot + r] = acc.l;
     }
-    a.out_buf[at] = h;
-    a.out_buf_lo[at] = l;
   }
-}
-
-size_t shared_bytes(int sb, int n_f, int n_max) {
-  const size_t threads = static_cast<size_t>(sb) * 4 * n_f;
-  return 4 * (threads * (2 * static_cast<size_t>(n_max) + 2) +
-              2 * static_cast<size_t>(sb) * n_f);
+  if (lane == 0) {
+    a.out_len[slot] = min(length + 1, n_max + 1);
+    a.out_mode[slot] = grown;
+  }
 }
 
 }  // namespace
@@ -344,11 +447,13 @@ size_t shared_bytes(int sb, int n_f, int n_max) {
 extern "C" {
 
 // buf, buf_lo: (N, n_max + 1, 2) float32; len, mode: (N,) int32; log_w:
-// (N, n_f) float32; pred_lo, m: (N, 2) float32; gains: (2, n_f, 2,
-// 2 n_max) float32; n_i: (n_f,) int32; active, reg, coast: (N,) bool; the
-// outputs shaped as their inputs, corrected and predicted (N, 2) float32;
-// all contiguous on CUDA device `device`, launched on `stream`. Returns a
-// cudaError_t (0 = launched; cudaErrorInvalidValue past the cap).
+// (N, n_f) float32; pred_lo: (N, 2) float32; gains: (2, n_f, 2, 2 n_max)
+// float32; n_i: (n_f,) int32; m: (N, m_stride) float32, its first two
+// columns the measurement; active, reg, coast: (N,) bool; the outputs
+// shaped as their inputs, corrected and predicted (N, 2) float32; all
+// contiguous on CUDA device `device` (buffers 8-byte aligned), launched
+// on `stream`. Returns a cudaError_t (0 = launched; cudaErrorInvalidValue
+// past the cap).
 int ysmr_gsff_step(const void* buf, const void* buf_lo, const void* len,
                    const void* mode, const void* log_w, const void* pred_lo,
                    const void* gains, const void* n_i, const void* m,
@@ -356,20 +461,32 @@ int ysmr_gsff_step(const void* buf, const void* buf_lo, const void* len,
                    void* out_buf, void* out_buf_lo, void* out_len,
                    void* out_mode, void* out_log_w, void* out_pred_lo,
                    void* corrected, void* predicted, int n, int n_max,
-                   int n_f, int n_i0, int device, void* stream) {
+                   int n_f, int n_i0, int m_stride, int device,
+                   void* stream) {
   if (n <= 0) return 0;
-  if (n_max < 1 || n_f < 1 || 4 * n_f > kMaxThreads ||
-      shared_bytes(1, n_f, n_max) > kMaxShared)
+  if (n_max < 1 || n_f < 1 || m_stride < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the largest chunk of estimates (at most kChunk) whose tree lets a
+  // block hold kTargetWarps warps (slots), or failing that one; then as
+  // many warps as fit
+  int chunk = min(4 * n_f, kChunk);
+  auto warp_bytes = [&](int ch) {
+    return 4 * warp_floats(n_f, n_max, ch | 1);
+  };
+  while (chunk > 1 && kTargetWarps * warp_bytes(chunk) > kMaxShared) --chunk;
+  if (warp_bytes(chunk) > kMaxShared)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int sb = kTargetThreads / (4 * n_f);
-  if (sb < 1) sb = 1;
-  if (sb > n) sb = n;
-  while (sb > 1 && shared_bytes(sb, n_f, n_max) > kMaxShared) --sb;
-  const size_t bytes = shared_bytes(sb, n_f, n_max);
+  int warps = kTargetWarps;
+  while (warps > 1 && warps * warp_bytes(chunk) > kMaxShared) --warps;
+  if (warps > n) warps = n;
+  const size_t bytes = warps * warp_bytes(chunk);
+  // measured on an H100: 4 blocks an SM (64 registers) is faster for the
+  // default bank, 3 (85) for n_max 256 with 8 filters
+  void (*kernel)(Args) = n_max <= 32 ? &gsff_kernel<4> : &gsff_kernel<3>;
   if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(gsff_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -384,10 +501,9 @@ int ysmr_gsff_step(const void* buf, const void* buf_lo, const void* len,
          static_cast<int*>(out_len), static_cast<int*>(out_mode),
          static_cast<float*>(out_log_w), static_cast<float*>(out_pred_lo),
          static_cast<float*>(corrected), static_cast<float*>(predicted),
-         n, n_max, n_f, n_i0, sb};
-  const unsigned blocks = static_cast<unsigned>((n + sb - 1) / sb);
-  gsff_kernel<<<blocks, sb * 4 * n_f, bytes,
-                static_cast<cudaStream_t>(stream)>>>(a);
+         n, n_max, n_f, n_i0, m_stride, warps, chunk, chunk | 1};
+  const unsigned blocks = static_cast<unsigned>((n + warps - 1) / warps);
+  kernel<<<blocks, 32 * warps, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

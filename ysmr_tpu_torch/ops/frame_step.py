@@ -33,6 +33,7 @@ import torch
 
 from ysmr_tpu_torch import _build
 from ysmr_tpu_torch.ops import assignment as asg
+from ysmr_tpu_torch.ops import gsff as gsff_ops
 
 INT_MAX = 2 ** 31 - 1
 
@@ -178,7 +179,9 @@ def allocate(state, c, frames=1):
     alternate between; ``emission``, the (V, frames, S, ...) emissions
     (``n_det`` (V, frames)); ``flags``, the (3, V, S) bool masks of
     ``FLAGS``; ``scratch``, the kernel's (V, S + 2 C) int32 ranks, column
-    winners and registration columns."""
+    winners and registration columns; and where ``state`` holds a
+    flattened GSFF state (key ``gsff``), ``gsff``, the GSFF block's
+    buffers (``ops/gsff.py::allocate``)."""
     active = state['active']
     v, s = active.shape
     k = state['pos'].shape[2]
@@ -194,7 +197,7 @@ def allocate(state, c, frames=1):
                 'next_id': empty(v, dtype=_I32),
                 'dropped_registrations': empty(v, dtype=_I32)}
 
-    return {
+    out = {
         'states': tuple(new_state() for _ in range(min(frames, 2))),
         'emission': {'mask': empty(v, frames, s, dtype=_B8),
                      'ids': empty(v, frames, s, dtype=_I32),
@@ -205,6 +208,9 @@ def allocate(state, c, frames=1):
         'flags': empty(len(FLAGS), v, s, dtype=_B8),
         'scratch': empty(v, s + 2 * c, dtype=_I32),
     }
+    if 'gsff' in state:
+        out['gsff'] = gsff_ops.allocate(state['gsff'], frames)
+    return out
 
 
 def _frame_outputs(out, frame):

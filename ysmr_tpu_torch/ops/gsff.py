@@ -10,11 +10,14 @@ ring, the estimates and the emitted positions. ``generate_n_i``,
 float64 gains also feed the native float64 tracker
 (``native/tracker64.cpp``).
 
-The tracker's frame step calls ``register_and_step``: the register fill
-and one step in one call, on a CUDA tensor one launch of the hand-written
+``register_and_step`` is the tracker's GSFF block: the register fill and
+one step in one call, on a CUDA tensor one launch of the hand-written
 kernel ``csrc/gsff.cu`` (bit-equal to ``register_and_step_plain``, the
 torch sequence ``register_slots`` + ``_step``), on a CPU tensor the plain
-sequence. Nothing falls back from the kernel to the plain version.
+sequence. Nothing falls back from the kernel to the plain version. The
+tracker's scan calls its private twin ``_register_and_step``, which trusts
+the checked tables and writes into buffers allocated once a scan
+(``allocate``).
 
 Numerics: the few transcendentals (``exp``, ``log``) run in float64 and
 round to float32, so the CPU and CUDA give the same bits (library float32
@@ -298,20 +301,127 @@ def register_and_step_plain(gains, n_i, n_f, n_i0, state, m, active,
 MAX_SHARED_BYTES = 232448
 #: threads a block may have
 MAX_BLOCK_THREADS = 1024
+#: estimates a warp of ``csrc/gsff.cu`` holds in its tree at most
+KERNEL_CHUNK = 16
 
 
-def kernel_shared_bytes(n_f, n_max):
-    """Shared memory of a one-slot block of ``csrc/gsff.cu``: 4 n_f
-    threads, each a column of n_max (hi, lo) tree entries and its
-    estimate, and the slot's n_f log weights and weights."""
-    return 4 * (4 * n_f * (2 * n_max + 2) + 2 * n_f)
+def kernel_shared_bytes(n_f, n_max, chunk=1):
+    """Shared memory of a one-slot (one-warp) block of ``csrc/gsff.cu``
+    whose tree holds ``chunk`` estimates: the slot's 4 n_f double-single
+    estimates, n_f log weights and 8 n_f floats of scratch, and the tree's
+    n_max rows of double-single entries, ``chunk`` (odd: ``chunk | 1``)
+    wide. The launch takes the largest chunk up to ``KERNEL_CHUNK`` that
+    fits."""
+    return 4 * (17 * n_f + 2 * n_max * (chunk | 1))
 
 
 def kernel_takes(n_f, n_max):
     """Whether the kernel takes a bank of ``n_f`` filters and longest
-    horizon ``n_max`` (its cap: one slot's block must fit an SM)."""
-    return 4 * n_f <= MAX_BLOCK_THREADS and \
-        kernel_shared_bytes(n_f, n_max) <= MAX_SHARED_BYTES
+    horizon ``n_max`` (its cap: one slot's warp with a tree of one
+    estimate must fit an SM's shared memory)."""
+    return kernel_shared_bytes(n_f, n_max) <= MAX_SHARED_BYTES
+
+
+def allocate(state, frames=1):
+    """Output buffers of ``frames`` GSFF steps of the tracker's scan for
+    the flattened GSFF ``state``: ``states``, two new states (one for a
+    single frame) that the frames alternate between, and the (N, 2)
+    ``corrected`` and ``predicted`` positions, rewritten each frame."""
+    def like(x):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    return {'states': tuple({k: like(state[k]) for k in STATE_KEYS}
+                            for _ in range(min(frames, 2))),
+            'corrected': like(state['pred_lo']),
+            'predicted': like(state['pred_lo'])}
+
+
+def _register_and_step(gains, n_i, n_f, n_i0, state, pos, active, register,
+                       coasting, *, out, frame):
+    """``register_and_step`` on checked tensors into ``allocate``'s
+    buffers ``out``, frame ``frame``: the private entry of the tracker's
+    scan, which checks its tables once. The measurement is the first two
+    columns of ``pos``, the new state's (N, K) positions (read at stride
+    K; no copy of the slice). Returns (new_state, corrected, predicted),
+    views of ``out``."""
+    states = out['states']
+    new_state = states[frame % len(states)]
+    corrected, predicted = out['corrected'], out['predicted']
+    m = pos[:, :2]
+    if pos.device.type == 'cpu':
+        got, corr, pred = register_and_step_plain(
+            gains, n_i, n_f, n_i0, state, m, active, register, coasting)
+        for key in STATE_KEYS:
+            new_state[key].copy_(got[key])
+        corrected.copy_(corr)
+        predicted.copy_(pred)
+        return new_state, corrected, predicted
+    n, n_max = state['buf'].shape[0], state['buf'].shape[1] - 1
+    if n:
+        dev = pos.device
+        lib = _build.load_kernels()
+        rc = lib.ysmr_gsff_step(
+            *(state[k].data_ptr() for k in STATE_KEYS), gains.data_ptr(),
+            n_i.data_ptr(), pos.data_ptr(), active.data_ptr(),
+            register.data_ptr(), coasting.data_ptr(),
+            *(new_state[k].data_ptr() for k in STATE_KEYS),
+            corrected.data_ptr(), predicted.data_ptr(), n, n_max, n_f,
+            n_i0, pos.stride(0), dev.index,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+        _build.check(lib, rc, 'gsff kernel launch')
+        register_and_step.launches += 1
+    return new_state, corrected, predicted
+
+
+def check(gains, n_i, n_f, state, m=None, active=None, register=None,
+          coasting=None):
+    """Raise unless the tensors are what ``register_and_step`` takes: the
+    bank (``gains`` (2, n_f, 2, 2 n_max) float32, ``n_i`` (n_f,) int32),
+    the GSFF ``state`` of N slots (``STATE_KEYS``) and, where given, the
+    (N, 2) float32 measurements and (N,) bool masks; all on one device,
+    the CPU or CUDA. On CUDA also contiguous, the rings 8-byte aligned and
+    the bank within the kernel's cap."""
+    buf = state['buf']
+    dev = buf.device
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError('register_and_step: unsupported device {}'.format(
+            dev))
+    if buf.dim() != 3 or buf.shape[1] < 2:
+        raise ValueError('register_and_step: buf must be (N, n_max+1, 2)')
+    n, n_max = buf.shape[0], buf.shape[1] - 1
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    args = [('buf', buf, (n, n_max + 1, 2), f32),
+            ('buf_lo', state['buf_lo'], (n, n_max + 1, 2), f32),
+            ('len', state['len'], (n,), i32),
+            ('mode', state['mode'], (n,), i32),
+            ('log_w', state['log_w'], (n, n_f), f32),
+            ('pred_lo', state['pred_lo'], (n, 2), f32),
+            ('gains', gains, (2, n_f, 2, 2 * n_max), f32),
+            ('n_i', n_i, (n_f,), i32)]
+    if m is not None:
+        args += [('m', m, (n, 2), f32),
+                 ('active', active, (n,), b8),
+                 ('register', register, (n,), b8),
+                 ('coasting', coasting, (n,), b8)]
+    for name, a, shape, dtype in args:
+        if not torch.is_tensor(a) or tuple(a.shape) != shape or \
+                a.dtype != dtype or a.device != dev:
+            raise ValueError('register_and_step: {} must be a {} {} tensor '
+                             'on {}'.format(name, shape, dtype, dev))
+    if dev.type == 'cpu':
+        return
+    if not kernel_takes(n_f, n_max):
+        raise ValueError('register_and_step: the kernel takes {} bytes of '
+                         'shared memory a slot; n_f {} and n_max {} need {}'
+                         .format(MAX_SHARED_BYTES, n_f, n_max,
+                                 kernel_shared_bytes(n_f, n_max)))
+    for name, a, _, _ in args:
+        if not a.is_contiguous():
+            raise ValueError('register_and_step: {} must be contiguous'
+                             .format(name))
+    if buf.data_ptr() % 8 or state['buf_lo'].data_ptr() % 8:
+        raise ValueError('register_and_step: buf and buf_lo must be 8-byte '
+                         'aligned')
 
 
 def register_and_step(gains, n_i, n_f, n_i0, state, m, active, register,
@@ -319,7 +429,9 @@ def register_and_step(gains, n_i, n_f, n_i0, state, m, active, register,
     """The register fill and one correct/predict step for all N slots:
     ``register_and_step_plain`` on a CPU tensor, one launch of
     ``csrc/gsff.cu`` on a CUDA tensor (bit-equal). The inputs are never
-    written: every output is a new tensor.
+    written: every output is a new tensor. The tracker's scan, which
+    checks its tables once (``check``) and writes into buffers allocated
+    once a scan, calls ``_register_and_step`` instead.
 
     :param gains: (2, n_f, 2, 2*n_max) float32 double-single gain pair
     :param n_i: (n_f,) int32 tensor of the filter horizons
@@ -334,58 +446,13 @@ def register_and_step(gains, n_i, n_f, n_i0, state, m, active, register,
         their own prediction (its lo half re-attached)
     :return: (new_state, corrected (N, 2), predicted (N, 2))
     """
-    buf = state['buf']
-    dev = buf.device
-    if dev.type not in ('cpu', 'cuda'):
-        raise ValueError('register_and_step: unsupported device {}'.format(
-            dev))
-    if buf.dim() != 3 or buf.shape[1] < 2:
-        raise ValueError('register_and_step: buf must be (N, n_max+1, 2)')
-    n, n_max = buf.shape[0], buf.shape[1] - 1
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    args = (('buf', buf, (n, n_max + 1, 2), f32),
-            ('buf_lo', state['buf_lo'], (n, n_max + 1, 2), f32),
-            ('len', state['len'], (n,), i32),
-            ('mode', state['mode'], (n,), i32),
-            ('log_w', state['log_w'], (n, n_f), f32),
-            ('pred_lo', state['pred_lo'], (n, 2), f32),
-            ('gains', gains, (2, n_f, 2, 2 * n_max), f32),
-            ('n_i', n_i, (n_f,), i32),
-            ('m', m, (n, 2), f32),
-            ('active', active, (n,), b8),
-            ('register', register, (n,), b8),
-            ('coasting', coasting, (n,), b8))
-    for name, a, shape, dtype in args:
-        if not torch.is_tensor(a) or tuple(a.shape) != shape or \
-                a.dtype != dtype or a.device != dev:
-            raise ValueError('register_and_step: {} must be a {} {} tensor '
-                             'on {}'.format(name, shape, dtype, dev))
-    if dev.type == 'cpu':
+    check(gains, n_i, n_f, state, m, active, register, coasting)
+    if m.device.type == 'cpu':
         return register_and_step_plain(gains, n_i, n_f, n_i0, state, m,
                                        active, register, coasting)
-    if not kernel_takes(n_f, n_max):
-        raise ValueError('register_and_step: the kernel takes n_f <= {} and '
-                         '{} bytes of shared memory; n_f {} and n_max {} '
-                         'need {}'.format(MAX_BLOCK_THREADS // 4,
-                                          MAX_SHARED_BYTES, n_f, n_max,
-                                          kernel_shared_bytes(n_f, n_max)))
-    for name, a, _, _ in args:
-        if not a.is_contiguous():
-            raise ValueError('register_and_step: {} must be contiguous'
-                             .format(name))
-    out = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
-    corrected = torch.empty_like(m)
-    predicted = torch.empty_like(m)
-    if n:
-        lib = _build.load_kernels()
-        rc = lib.ysmr_gsff_step(
-            *(a.data_ptr() for _, a, _, _ in args),
-            *(out[k].data_ptr() for k in STATE_KEYS),
-            corrected.data_ptr(), predicted.data_ptr(), n, n_max, n_f,
-            n_i0, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
-        _build.check(lib, rc, 'gsff kernel launch')
-        register_and_step.launches += 1
-    return out, corrected, predicted
+    return _register_and_step(gains, n_i, n_f, n_i0, state, m, active,
+                              register, coasting, out=allocate(state),
+                              frame=0)
 
 
 #: kernel launches since the count was last set to 0

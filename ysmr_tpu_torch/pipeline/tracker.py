@@ -11,15 +11,18 @@ step's shapes are static. The frame step always works over a leading
 video axis V: one video is V = 1, and the multi-video step's ``jax.vmap``
 over a device's videos becomes one scan over its (V, T, ...) tables, so
 a frame step serves all V videos. On a CUDA tensor a frame step is three
-kernels, five with GSFF (and a copy of the filter's two coordinates with
-luminosity's third): the per-slot nearest detection
+kernels, five with GSFF (luminosity's third coordinate too): the per-slot
+nearest detection
 (``ops/assign.py::row_min_argmin``, ``csrc/assign.cu``), the match,
 ageing, registration and emissions
 (``ops/frame_step.py::match_and_register``, ``csrc/frame_step.cu``, two
 launches), and with GSFF the filter step
 (``ops/gsff.py::register_and_step``, ``csrc/gsff.cu``) and the merge of
 its outputs (``frame_step.gsff_merge``); on a CPU tensor each is its
-plain torch version. With ``assign_mesh`` the per-slot nearest
+plain torch version. The scan checks its tables once and calls the
+blocks' private entries (``frame_step._match_and_register``,
+``gsff._register_and_step``), which write into buffers allocated once a
+scan. With ``assign_mesh`` the per-slot nearest
 detection is computed with the slots sharded over a device mesh
 (``parallel/sharding.py::sharded_row_min_argmin``, the assign kernel on
 each shard) and the rest of the step is the same.
@@ -201,16 +204,17 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
         max_disappeared=max_disappeared, out=out, frame=frame)
     if use_gsff:
         # the filter works per slot: the (V, S) slots flattened to V * S
-        # (views of contiguous tensors) through the unbatched filter step;
+        # (views of contiguous tensors) through the unbatched filter step,
+        # the measurement the first two of the K coordinates (no copy);
         # newly registered slots start with the ring filled with m, and a
         # coasting slot (active, unmatched, not newly registered) feeds its
         # own stored prediction back, with the lo half re-attached
         pos_new = new_state['pos']
         active_new = new_state['active']
-        gstate, corrected, predicted = gsff_ops.register_and_step(
+        gstate, corrected, predicted = gsff_ops._register_and_step(
             gsff_gains, gsff_n_i, gsff_n_f, gsff_n_i0, state['gsff'],
-            pos_new[..., :2].flatten(0, 1).contiguous(),
-            active_new.flatten(), reg_slot.flatten(), coasting.flatten())
+            pos_new.flatten(0, 1), active_new.flatten(), reg_slot.flatten(),
+            coasting.flatten(), out=out['gsff'], frame=frame)
         # the emitted position is the corrected one, the stored one the
         # prediction, on every live slot
         fs.gsff_merge(pos_new, emission['pos'], active_new,
@@ -228,8 +232,9 @@ def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
 
     The tables are checked once per call, and the outputs allocated once:
     the (V, T, S) emissions, which each frame step writes in place, and
-    two state buffers that the frames alternate between (after a frame,
-    the returned state never aliases the caller's).
+    two state buffers, the GSFF sub-state's too, that the frames alternate
+    between (after a frame, the returned state never aliases the
+    caller's).
 
     :param state: tracker state (carried between batches); with a leading
         video axis V on every tensor for V videos
@@ -261,9 +266,16 @@ def run_tracker_scan(state, det_xy, det_info, det_valid, *, max_disappeared,
     gsff = state.get('gsff')
     state = {k: x.contiguous() for k, x in state.items() if k != 'gsff'}
     if use_gsff:
-        state['gsff'] = {k: x.flatten(0, 1) for k, x in gsff.items()}
+        state['gsff'] = {k: x.flatten(0, 1).contiguous()
+                         for k, x in gsff.items()}
     if t_len:
         fs.check(state, det_xy[0], det_info[0], det_valid[0])
+        if use_gsff:
+            gsff_ops.check(gsff_gains, gsff_n_i, gsff_n_f, state['gsff'])
+            if state['gsff']['buf'].shape[0] != v * s:
+                raise ValueError('run_tracker_scan: the GSFF state has {} '
+                                 'slots, the table {}'.format(
+                                     state['gsff']['buf'].shape[0], v * s))
     out = fs.allocate(state, c, t_len)
     for t in range(t_len):
         state, _ = _tracker_frame_update(
