@@ -213,7 +213,15 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    cases (no valid row, a pixel, lines, more than 32 strict corners, more
    than 8 in-band candidates, bboxes past the inverse-sqrt table, equal
    areas and angles, a missing row, a component taller than R, random
-   tables at R = 2, 48 and 96); median ms of each with the bound; then the
+   tables at R = 2, 48 and 96) and the cases that split the kernels'
+   layouts unevenly (octagons with exactly 8 and 9 edges in the
+   surrogate band, squares on the inverse-sqrt table's last entry and one
+   past it, D no multiple of a block's components, tables too tall to
+   stage at R = 1000; the rect select with every candidate valid, none,
+   K = 1, 2, 127 and 191); median ms of each with the bound, and a
+   ``rect tail resources`` JSON line a kernel (ptxas' registers, spills
+   and shared memory, the occupancy they allow, the profiler's estimate
+   of achieved occupancy on the dense batch); then the
    dense first batch's ``_list.csv`` with the plain blocks swapped in,
    byte-identical to the kernels'. Phases 7 and 10 fail unless the edge
    finish and rect select ran once a detect batch, the cv2 centres once a
@@ -3766,6 +3774,98 @@ def rect_select_cost(select_args):
     return (n_valid + d) * 100, evalid.numel() + n_valid * 28 + d * 44
 
 
+def rect_tail_uneven(dev):
+    """The cases of ``rect_tail_cases`` that split the new layouts
+    unevenly, as (name, cv2 args, R, select args): the band octagons and
+    the table-edge squares (with its 26-entry table) padded with empty
+    components to D = 4 k + 1 and 4 k + 3, seeded random tables at R =
+    1000 (too tall to stage), and the rect select's synthetic cases."""
+    out = []
+    r = 48
+    for name, blobs, table in (('band octagons', rtc.band_blobs(), None),
+                               ('table-edge squares', rtc.table_edge_blobs(),
+                                rtc.TABLE_EDGE)):
+        for odd in (1, 3):
+            pad = (odd - len(blobs)) % 4 + 4
+            lo, hi, valid, min_y = rtc.row_tables(blobs + [None] * pad, r)
+            abs_y = (min_y[:, None] + np.arange(r)).astype(np.int32)
+            hull_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+                dev) for a in (lo, hi, valid, abs_y))
+            cv2_args, _, select_args = rect_tail_inputs(hull_args,
+                                                        sweep_of(hull_args))
+            if table:
+                cv2_args = cv2_args[:6] + (cv2c.inv_sqrt_table(
+                    *table, device=dev),)
+            out.append(('{} D={}'.format(name, lo.shape[0]), cv2_args, r,
+                        select_args))
+    tall = random_row_tables(np.random.default_rng(SEED + 32), 301, 1000,
+                             dev)
+    cv2_args, _, select_args = rect_tail_inputs(tall, sweep_of(tall))
+    out.append(('random D=301 R=1000', cv2_args, 1000, select_args))
+    rng = np.random.default_rng(SEED + 33)
+    for name, k, d, frac in rtc.SELECT_CASES:
+        out.append(('select ' + name, None, None, tuple(
+            torch.from_numpy(a).to(dev) for a in
+            rtc.select_arrays(rng, k, d, frac))))
+    return out
+
+
+def ptxas_of(log_text, source, kernel):
+    """(registers, spill stores, shared bytes) of the first entry of
+    ``source`` whose name holds ``kernel`` in the build's ptxas report."""
+    unit, entry, regs, spill = None, False, None, None
+    for line in log_text.splitlines():
+        if line.endswith('.cu:'):
+            unit = line[:-1]
+        elif unit == source and 'Compiling entry' in line:
+            if regs is not None:
+                break
+            entry = kernel in line
+        elif unit == source and entry and 'spill stores' in line:
+            spill = int(line.split('bytes spill stores')[0].split(',')[-1])
+        elif unit == source and entry and 'Used' in line:
+            regs = int(line.split('Used ')[1].split(' registers')[0])
+            smem = int(line.split(' bytes smem')[0].split(',')[-1]) \
+                if 'bytes smem' in line else 0
+    if regs is None:
+        return None
+    return regs, spill, smem
+
+
+def resident_share(regs, smem, threads):
+    """The occupancy ptxas' registers and shared memory allow on an H100
+    (registers allocated 256 a warp, 64 K a SM, 228 KB of shared memory
+    with 1 KB reserved a block, 32 blocks and 64 warps a SM)."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * warps), 32, 64 // warps,
+                 (228 * 1024) // (smem + 1024))
+    return blocks * warps / 64
+
+
+def achieved_occupancy(fn, kernel):
+    """The profiler's estimate of achieved occupancy (%) of the first
+    launch whose name holds ``kernel`` in a traced call of ``fn``."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'trace.json')
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)['traceEvents']
+        for ev in events:
+            if ev.get('cat') == 'kernel' and kernel in ev['name']:
+                return ev.get('args', {}).get('est. achieved occupancy %')
+    return None
+
+
 def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
     """Phase 31: the cv2-centre kernel (``csrc/cv2_centers.cu``) and the
     edge-finish and rect-select kernels (``csrc/rect.cu``) against their
@@ -3815,6 +3915,48 @@ def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
         if name == 'dense batch':
             out = dict(zip(('cv2_centers_from_tables', 'edge_finish',
                             'rect_select'), checks))
+            # (wrapper, source, ptxas' and the profiler's kernel name,
+            # threads a block, the call on this batch)
+            dense_calls = (
+                (cv2c.cv2_centers_from_tables, 'cv2_centers.cu',
+                 ('cv2_centers_kernel',) * 2, 128,
+                 lambda a=cv2_args, rr=r: cv2c.cv2_centers_from_tables(
+                     *a, max_bh=rr)),
+                (rect.rect_select, 'rect.cu', ('rect_select_kernel',) * 2,
+                 256, lambda a=select_args: rect.rect_select(*a)))
+    for name, cv2_args, r, select_args in rect_tail_uneven(dev):
+        before = [k.launches for k in (cv2c.cv2_centers_from_tables,
+                                       rect.rect_select)]
+        if cv2_args is not None:
+            ops, nbytes = cv2_cost(cv2_args, cv2c.cv2_centers_from_tables_plain(
+                *cv2_args, max_bh=r)[2])
+            check_equal(
+                'cv2 centres ' + name,
+                lambda *a: cv2c.cv2_centers_from_tables(*a, max_bh=r),
+                lambda *a: cv2c.cv2_centers_from_tables_plain(*a, max_bh=r),
+                cv2_args, ops, reps=3, plain_reps=1, nbytes=nbytes,
+                view=cv2_ok_view)
+        ops, nbytes = rect_select_cost(select_args)
+        check_equal('rect select ' + name, rect.rect_select,
+                    labeling.rect_select_plain, select_args, ops, reps=3,
+                    plain_reps=1, nbytes=nbytes)
+        after = [k.launches for k in (cv2c.cv2_centers_from_tables,
+                                      rect.rect_select)]
+        if after[1] <= before[1] or (cv2_args is not None and
+                                     after[0] <= before[0]):
+            raise SystemExit('rect tail {}: a kernel was not launched'.format(
+                name))
+    # each redesigned kernel's resources at the dense batch
+    lib = _build.load_kernels()
+    for fn, source, kernel, threads, call in dense_calls:
+        ptx = ptxas_of(lib.build_log, source, kernel[0])
+        rec = {'kernel': fn.__name__, 'source': source}
+        if ptx is not None:
+            regs, spill, smem = ptx
+            rec.update(registers=regs, spill_stores=spill, shared_bytes=smem,
+                       occupancy_allowed=resident_share(regs, smem, threads))
+        rec['achieved_occupancy_pct'] = achieved_occupancy(call, kernel[1])
+        log('rect tail resources ' + json.dumps(rec))
     # the dense first batch through the stage-1 loop, kernels against the
     # plain blocks swapped in
     swaps = ((cv2c, 'cv2_centers_from_tables',

@@ -9,6 +9,13 @@ strict corners, a 12-gon with more than 8 in-band candidates, bboxes past
 the inverse-sqrt table or too wide for it, axis-aligned rects and
 45-degree squares (equal areas and equal angles), a component whose
 valid rows are no prefix (a hole row) and one taller than the tables.
+
+Cases that split the kernels' layouts unevenly (``band_blobs``,
+``table_edge_blobs``, ``select_arrays``): octagons with exactly 8 and 9
+edges in the surrogate band, lattice squares whose edge vector lands on
+the inverse-sqrt table's last entry and one past it, and rect-select
+inputs with every candidate valid, none valid, K = 1, 2 and 191, at D
+no multiple of a block's components.
 """
 
 import numpy as np
@@ -97,3 +104,82 @@ def edge_case_blobs():
     blobs.append((xs[ys != 200], ys[ys != 200]))
     blobs.append((np.full(200, 5), np.arange(200)))
     return blobs
+
+
+def octagon(w, h, s, t, cut=None, x0=40, y0=30):
+    """The lattice points of 0 <= x <= w, 0 <= y <= h, s[0] <= x + y <=
+    s[1], t[0] <= x - y <= t[1] and, with ``cut`` = (a, b, c), a x + b y
+    <= c, shifted by (x0, y0)."""
+    ys, xs = np.mgrid[0:h + 1, 0:w + 1]
+    m = (xs + ys >= s[0]) & (xs + ys <= s[1]) & (xs - ys >= t[0]) & \
+        (xs - ys <= t[1])
+    if cut:
+        a, b, c = cut
+        m &= a * xs + b * ys <= c
+    return xs[m] + x0, ys[m] + y0
+
+
+def band_blobs():
+    """Exactly 8 edges in the surrogate band (an octagon whose axis and
+    diagonal boxes have the same area, 10 x 12 = 15 x 16 / 2: ``ok``),
+    then exactly 9 (two octagons with a corner cut whose edge ties them:
+    ``ok`` False)."""
+    return [octagon(10, 12, (3, 18), (-9, 7)),
+            octagon(6, 8, (2, 10), (-7, 5), (2, 1, 14)),
+            octagon(8, 6, (2, 10), (-5, 7), (1, 2, 14))]
+
+
+#: (max_w, max_h) of the inverse-sqrt table of ``table_edge_blobs``: 26
+#: entries, the last 3^2 + 4^2 = 25
+TABLE_EDGE = (3, 4)
+
+
+def lattice_square(u, x0=60, y0=20):
+    """The lattice points of the square with edge vectors u and (-u_y,
+    u_x) from (x0, y0)."""
+    a, b = u
+    corners = np.array([[0, 0], [a, b], [a - b, b + a], [-b, a]])
+    lo, hi = corners.min(0), corners.max(0)
+    ys, xs = np.mgrid[lo[1]:hi[1] + 1, lo[0]:hi[0] + 1]
+    inside = np.ones_like(xs, bool)
+    for i in range(4):
+        p, q = corners[i], corners[(i + 1) % 4]
+        inside &= (q[0] - p[0]) * (ys - p[1]) - (q[1] - p[1]) * \
+            (xs - p[0]) >= 0
+    return xs[inside] + x0, ys[inside] + y0
+
+
+def table_edge_blobs():
+    """Squares whose four in-band edges have |v|^2 = 25, the last entry of
+    the ``TABLE_EDGE`` table (``ok``), and 26, one past it (``ok`` False)."""
+    return [lattice_square(u) for u in ((3, 4), (4, 3), (5, 1), (1, 5))]
+
+
+#: the rect select's uneven cases: (name, K, D, share of valid candidates)
+SELECT_CASES = (('all 94 valid', 95, 4099, 1.0),
+                ('none valid', 95, 3001, 0.0),
+                ('K=1', 1, 77, 1.0),
+                ('K=2', 2, 65, 0.5),
+                ('K=191 (R=96)', 191, 2049, 0.8),
+                ('K=127 (R=64)', 127, 1001, 0.3))
+
+
+def select_arrays(rng, k, d, frac):
+    """Seeded rect-select inputs (min_u, max_u, min_v, max_v, dx, dy,
+    angles, valid): small integer extents and directions (equal areas in
+    many candidates), angles 0, -0, 0.25, 0.5 (equal angles), each hull
+    candidate valid with probability ``frac``; the appended candidate
+    (1, 0) last; the first five components without a valid point."""
+    f32 = np.float32
+    mnu = rng.integers(-40, 0, (d, k)).astype(f32)
+    mxu = mnu + rng.integers(0, 6, (d, k)).astype(f32)
+    mnv = rng.integers(-40, 0, (d, k)).astype(f32)
+    mxv = mnv + rng.integers(0, 6, (d, k)).astype(f32)
+    dx = rng.integers(1, 4, (d, k)).astype(f32)
+    dy = rng.integers(0, 4, (d, k)).astype(f32)
+    dx[:, -1], dy[:, -1] = 1, 0
+    ang = rng.choice(np.array([0.0, -0.0, 0.25, 0.5], f32), (d, k - 1))
+    valid = rng.random((d, k - 1)) < frac
+    mnu[:5], mxu[:5] = 3e38, -3e38
+    return [np.ascontiguousarray(a) for a in
+            (mnu, mxu, mnv, mxv, dx, dy, ang, valid)]

@@ -12,18 +12,26 @@ the rect select (ops/rect.py, kernels csrc/rect.cu).
   ``_min_area_rect_exact``: XLA:CPU may contract the double-single centre
   into fmas, see tests/test_torch_labeling.py).
 - Each kernel's design as a numpy float32 emulation (one rounding per
-  operation, the kernel's order: the warp per component as 32 lanes, the
-  ballot compaction, the rank count for the 8 candidates, the butterfly
-  minimum of the double-single areas), bit-equal to the plain version on
-  ~1200 fuzz components plus the edge cases: no valid row, a single
-  point, lines, more than 32 strict corners, more than 8 in-band
-  candidates, an edge vector past the inverse-sqrt table, equal
-  surrogate areas and equal angles.
+  operation, the kernel's order): the cv2 centres' warp per component as
+  32 lanes, the ballot compaction, the in-band lanes' rank and the
+  inverse square root computed in float64; the rect select's groups of
+  4, 8 or 16 lanes, the flag scan's prefix count, the kept and overflow
+  candidates, the group butterflies of the double-single areas and of
+  the angle argmax. Bit-equal to the plain version on ~1200 fuzz
+  components plus the edge cases: no valid row, a single point, lines,
+  more than 32 strict corners, more than 8 in-band candidates, an edge
+  vector past the inverse-sqrt table, equal surrogate areas and equal
+  angles, and the cases of ``rect_tail_cases`` that split the layouts
+  unevenly (exactly 8 and 9 in-band edges, |v|^2 on the table's last
+  entry and one past it, every rect candidate valid, none, K = 1, 2,
+  127, 191).
 - fdlibm's ``atan2f`` in the kernel's scalar C order, emulated in numpy
   float32, against the plain ``_atan2_f32`` and ``jnp.arctan2`` over
   every folded integer vector with 0 <= dy <= 256, 1 <= dx <= 256.
 - ``cuda``-marked twins hold each kernel bit-equal to its plain version on
-  the card (they skip here).
+  the card, also on the uneven cases and at R = 1000, and prove the two
+  square roots the kernels compute over every float32 >= 0 and a 16.8
+  M-entry table (they skip here).
 
 Tolerance: none, except the JAX rect centre above. ``ok`` is compared
 everywhere, the centres where ``ok`` is True (the pipeline reads nothing
@@ -268,53 +276,119 @@ def halving_tree_min(h, lo):
     return h[:, 0], lo[:, 0]
 
 
-def rect_select_emulated(mnu, mxu, mnv, mxv, edx, edy, eang, evalid):
-    """csrc/rect.cu's rect-select kernel: a warp per component, lane l over
-    candidates l, l + 32, ...; returns the outputs and the warp minimum
-    (h, l) of the areas."""
+#: csrc/rect.cu's rect select: the lanes of a component's group and the
+#: valid candidates a group keeps in registers
+LANES = 8
+KEPT = 16
+
+
+def group_layout(evalid, lanes, kept):
+    """The rect select's scan as the group runs it, 16 * ``lanes``
+    candidates at a time: lane gl counts the valid flags of candidates
+    k0 + 16 gl ... + 15 and a prefix sum over the group numbers them in
+    index order; the first ``kept`` go to lane p % lanes (slot p //
+    lanes), the valid ones after the last kept one to lane (k - over0) %
+    lanes in index order. Returns (at, n, first_inv): at (D, lanes,
+    steps) the candidate a lane takes at each step (-1: none), n the valid
+    count, first_inv the first invalid index (K: none)."""
+    d, k = evalid.shape
+    n = np.zeros(d, np.int64)
+    num = np.full((d, k), -1)
+    first_inv = np.full(d, k)
+    span = 16 * lanes
+    for k0 in range(0, k, span):
+        f = np.zeros((d, span), bool)
+        f[:, :min(span, k - k0)] = evalid[:, k0:k0 + span]
+        f = f.reshape(d, lanes, 16)
+        cnt = f.sum(2)
+        start = n[:, None] + np.cumsum(cnt, 1) - cnt      # the prefix sum
+        p = start[:, :, None] + np.cumsum(f, 2) - f
+        num[:, k0:k0 + span] = np.where(f, p, -1).reshape(d, span)[
+            :, :min(span, k - k0)]
+        inv = ~evalid[:, k0:k0 + span]
+        hit = (first_inv == k) & inv.any(1)
+        first_inv[hit] = k0 + inv[hit].argmax(1)
+        n += cnt.sum(1)
+    idx = np.arange(k)[None, :]
+    last_kept = np.where(num == kept - 1, idx, -1).max(1)
+    over0 = np.where(n > kept, last_kept + 1, k)[:, None]
+    lane = np.where(num < kept, num % lanes, (idx - over0) % lanes)
+    step = np.where(num < kept, num // lanes,
+                    kept // lanes + (idx - over0) // lanes)
+    steps = int(step[evalid].max()) + 1
+    at = np.full((d, lanes, steps), -1)
+    ci, ki = np.nonzero(evalid)
+    at[ci, lane[ci, ki], step[ci, ki]] = ki
+    return at, n, first_inv
+
+
+def _butterfly(vals, take, lanes):
+    """A butterfly of xor shuffles over the group's lanes (axis 1):
+    ``take(own, other)`` says where a lane takes its partner's values."""
+    for off in [1 << i for i in range(lanes.bit_length() - 2, -1, -1)]:
+        src = np.arange(lanes) ^ off
+        other = [v[:, src] for v in vals]
+        t = take(vals, other)
+        vals = [np.where(t, o, v) for v, o in zip(vals, other)]
+    return vals
+
+
+def rect_select_emulated(mnu, mxu, mnv, mxv, edx, edy, eang, evalid,
+                         lanes=LANES, kept=KEPT):
+    """csrc/rect.cu's rect-select kernel: a group of ``lanes`` lanes per
+    component (axis 1), the scan's compaction, each lane's candidates in
+    its order, the butterflies over the group; returns the outputs and
+    the group minimum (h, l) of the areas."""
     d, k = mnu.shape
     eang = np.concatenate([eang, np.zeros((d, 1), F32)], 1)
     evalid = np.concatenate([evalid, np.ones((d, 1), bool)], 1)
     ah, al, du, dv, l2 = _ds_area(mnu, mxu, mnv, mxv, edx, edy, evalid)
-    # pass 1: each lane's least area in its order, then the butterfly
-    lanes = 32
-    mh = np.full((d, lanes), np.inf, F32)
+    at, n, first_inv = group_layout(evalid, lanes, kept)
+    rows = np.arange(d)[:, None]
+    # pass 1: an invalid candidate's (BIG_F, 0) starts the minimum
+    some_inv = np.broadcast_to((n < k)[:, None], (d, lanes))
+    mh = np.where(some_inv, F32(3e38), F32(np.inf)).astype(F32)
     ml = np.zeros((d, lanes), F32)
-    have = np.zeros((d, lanes), bool)
-    for kk in range(k):
-        ln = kk % lanes
-        take = ~have[:, ln] | _less(ah[:, kk], al[:, kk], mh[:, ln],
-                                    ml[:, ln])
-        mh[:, ln] = np.where(take, ah[:, kk], mh[:, ln])
-        ml[:, ln] = np.where(take, al[:, kk], ml[:, ln])
-        have[:, ln] = True
-    for off in (16, 8, 4, 2, 1):
-        src = np.arange(lanes) ^ off
-        oh, ol, ov = mh[:, src], ml[:, src], have[:, src]
-        take = ov & (~have | _less(oh, ol, mh, ml))
-        mh, ml = np.where(take, oh, mh), np.where(take, ol, ml)
-        have = have | ov
+    have = some_inv.copy()
+    for st in range(at.shape[2]):
+        kk = at[:, :, st]
+        got = kk >= 0
+        kc = np.maximum(kk, 0)
+        take = got & (~have | _less(ah[rows, kc], al[rows, kc], mh, ml))
+        mh = np.where(take, ah[rows, kc], mh)
+        ml = np.where(take, al[rows, kc], ml)
+        have |= got
+    mh, ml, have = _butterfly(
+        [mh, ml, have], lambda v, o: o[2] & (~v[2] | _less(o[0], o[1], v[0],
+                                                           v[1])), lanes)
+    assert (mh == mh[:, :1]).all()
     m_h, m_l = mh[:, 0], ml[:, 0]
-    # pass 2: the tie band and each lane's first largest angle
+    # pass 2: the tie band; each lane's largest angle, the lower index on
+    # equal ones; lane 0 also takes the first invalid candidate at -1
     band = m_h * F32(1e-9) + F32(1e-9)
     diff, _ = _ds_add(ah, al, -m_h[:, None], -m_l[:, None])
     val = np.where(evalid & (diff <= band[:, None]), eang, F32(-1))
     best = np.full((d, lanes), -np.inf, F32)
     bk = np.full((d, lanes), k)
-    for kk in range(k):
-        ln = kk % lanes
-        take = val[:, kk] > best[:, ln]
-        best[:, ln] = np.where(take, val[:, kk], best[:, ln])
-        bk[:, ln] = np.where(take, kk, bk[:, ln])
-    for off in (16, 8, 4, 2, 1):
-        src = np.arange(lanes) ^ off
-        ob, ok = best[:, src], bk[:, src]
-        take = (ob > best) | ((ob == best) & (ok < bk))
-        best, bk = np.where(take, ob, best), np.where(take, ok, bk)
-    rows = np.arange(d)
+
+    def better(v, kx, b, bkx):
+        return (v > b) | ((v == b) & (kx < bkx))
+
+    for st in range(at.shape[2]):
+        kk = at[:, :, st]
+        kc = np.maximum(kk, 0)
+        take = (kk >= 0) & better(val[rows, kc], kk, best, bk)
+        best = np.where(take, val[rows, kc], best)
+        bk = np.where(take, kk, bk)
+    inv = first_inv < k
+    t0 = inv & better(F32(-1), first_inv, best[:, 0], bk[:, 0])
+    best[t0, 0], bk[t0, 0] = -1, first_inv[t0]
+    best, bk = _butterfly([best, bk], lambda v, o: better(o[0], o[1], v[0],
+                                                          v[1]), lanes)
     b = bk[:, 0]
+    rows = np.arange(d)
     bdx, bdy, bl2 = edx[rows, b], edy[rows, b], l2[rows, b]
-    bl = np.sqrt(bl2.astype(np.float64)).astype(F32)
+    bl = np.sqrt(bl2)                   # __fsqrt_rn: correctly rounded
     cu2 = mnu[rows, b] + mxu[rows, b]
     cv2_ = mnv[rows, b] + mxv[rows, b]
     t1, t2 = _two_prod(cu2, bdx), _two_prod(cv2_, bdy)
@@ -332,6 +406,14 @@ def rect_select_emulated(mnu, mxu, mnv, mxv, edx, edy, eang, evalid):
 
 def _pmod(a, n):
     return np.mod(a, n)
+
+
+def inv_sqrt_computed(v):
+    """csrc/cv2_centers.cu's inverse square root of an index v of the
+    table: f32(1 / sqrt(f64(v))), two float64 operations and one rounding
+    (entry 0 is 1)."""
+    v = np.asarray(v, np.float64)
+    return (1.0 / np.sqrt(np.maximum(v, 1.0))).astype(F32)
 
 
 def cv2_centers_emulated(rmin, rmax, rvalid, min_y, cl, cr, isq):
@@ -418,7 +500,6 @@ def cv2_centers_emulated(rmin, rmax, rvalid, min_y, cl, cr, isq):
     with np.errstate(all='ignore'):
         tan_key = np.where(vvalid, cdy.astype(F32) / cdx.astype(F32),
                            F32(np.inf))
-    arc_key = np.where(vvalid, arc, 4)
     dxf, dyf = dx.astype(F32), dy.astype(F32)
     umin = np.full((ds_, 32), np.inf, F32)
     umax = np.full((ds_, 32), -np.inf, F32)
@@ -440,51 +521,49 @@ def cv2_centers_emulated(rmin, rmax, rvalid, min_y, cl, cr, isq):
     min_sur = area_sur.min(1, keepdims=True)
     band = min_sur * F32(1.0 + 2.0 ** -14) + F32(1e-30)
     in_band = vvalid & (area_sur <= band)
-    good = in_band.sum(1) <= 8
     n_band[sel] = in_band.sum(1)
-    # the rank count: the 8 smallest, the lower slot first on ties
-    rank = ((area_sur[:, None, :] < area_sur[:, :, None]) |
-            ((area_sur[:, None, :] == area_sur[:, :, None]) &
-             (lanes[None, None, :] < lanes[None, :, None]))).sum(2)
-    cand = np.argsort(rank, 1)[:, :8]
-    assert (np.take_along_axis(rank, cand, 1) == np.arange(8)).all()
-    pick = (lambda a: np.take_along_axis(a, cand, 1))
-    cvalid = pick(in_band)
-    ctan = pick(tan_key) + F32(0)
-    carc = pick(arc_key)
+    good = in_band.sum(1) <= 8
+    # the in-band lanes rank themselves against the other in-band lanes,
+    # (area, slot) order, and count the in-band lanes visited before them
+    # (tangent key, arc)
+    ib_i = in_band[:, None, :]
+    rank = (ib_i & ((area_sur[:, None, :] < area_sur[:, :, None]) |
+                    ((area_sur[:, None, :] == area_sur[:, :, None]) &
+                     (lanes[None, None, :] < lanes[None, :, None])))).sum(2)
+    later = (ib_i & ((tan_key[:, :, None] > tan_key[:, None, :]) |
+                     ((tan_key[:, :, None] == tan_key[:, None, :]) &
+                      (arc[:, :, None] > arc[:, None, :])))).sum(2)
+    # each in-band lane's calipers from its own edge
     emask = vvalid[:, None, :]
-    earlier = emask & ((tan_key[:, None, :] < ctan[:, :, None]) |
-                       ((tan_key[:, None, :] == ctan[:, :, None]) &
-                        (arc_key[:, None, :] < carc[:, :, None])))
+    earlier = emask & ((tan_key[:, None, :] < tan_key[:, :, None]) |
+                       ((tan_key[:, None, :] == tan_key[:, :, None]) &
+                        (arc[:, None, :] < arc[:, :, None])))   # (d, 32, 32)
     cnt = np.stack([(earlier & (arc[:, None, :] == q)).sum(2)
-                    for q in range(4)], 1)                       # (d, 4, 8)
+                    for q in range(4)], 1)                       # (d, 4, 32)
     tgt = _pmod(seq0[:, :, None] + cnt, nn[:, :, None])
-    cend = _pmod(cand + 1, nn)
-    tgt = np.where(carc[:, None, :] == np.arange(4)[None, :, None],
+    cend = _pmod(lanes[None, :] + 1, nn)
+    tgt = np.where(arc[:, None, :] == np.arange(4)[None, :, None],
                    cend[:, None, :], tgt)
     tgt = np.minimum(tgt, 32)
     sx = np.take_along_axis(vx, tgt.reshape(ds_, -1), 1).reshape(
-        ds_, 4, 8).astype(F32)
+        ds_, 4, 32).astype(F32)
     sy = np.take_along_axis(vy, tgt.reshape(ds_, -1), 1).reshape(
-        ds_, 4, 8).astype(F32)
-    ex, ey = pick(dx), pick(dy)
-    vlen2 = ex * ex + ey * ey
-    good &= (((vlen2 < len(isq)) | ~cvalid)).all(1)
-    iv = isq[np.clip(vlen2, 0, len(isq) - 1)]
-    lx, ly = ex.astype(F32) * iv, ey.astype(F32) * iv
-    conds = [carc == 0, carc == 1, carc == 2]
+        ds_, 4, 32).astype(F32)
+    vlen2 = dx * dx + dy * dy
+    good &= ((vlen2 < len(isq)) | ~in_band).all(1)
+    iv = inv_sqrt_computed(np.clip(vlen2, 0, len(isq) - 1))
+    lx, ly = dx.astype(F32) * iv, dy.astype(F32) * iv
+    conds = [arc == 0, arc == 1, arc == 2]
     a = np.select(conds, [lx, ly, -lx], -ly)
     b = np.select(conds, [ly, -lx, -ly], lx)
     rwidth = (sx[:, 1] - sx[:, 3]) * a + (sy[:, 1] - sy[:, 3]) * b
     rheight = (sy[:, 2] - sy[:, 0]) * a + (-(sx[:, 2] - sx[:, 0])) * b
-    area = np.where(cvalid, rwidth * rheight, F32(np.inf))
+    area = np.where(in_band, rwidth * rheight, F32(np.inf))
     min_area = area.min(1, keepdims=True)
-    later = (cvalid[:, None, :] & ((ctan[:, :, None] > ctan[:, None, :]) |
-                                   ((ctan[:, :, None] == ctan[:, None, :]) &
-                                    (carc[:, :, None] > carc[:, None, :])))
-             ).sum(2)
-    tie_rank = np.where(area == min_area, later, -1)
-    win = tie_rank.argmax(1)[:, None]
+    # the winner: the largest count, then the lower rank
+    key = np.where(in_band & (area == min_area), later * 64 + 63 - rank, -1)
+    win = key.argmax(1)[:, None]
+    assert (np.take_along_axis(key, win, 1) >= 0).all()
 
     def g(arr):
         return np.take_along_axis(arr, win, 1)[:, 0] + F32(0)
@@ -500,7 +579,8 @@ def cv2_centers_emulated(rmin, rmax, rvalid, min_y, cl, cr, isq):
     cc1 = lxx * wa + lyy * wb
     cc2 = bxx * nb + byy * wa
     det = wa * wa + (-nb) * wb
-    idet = F32(1) / det
+    with np.errstate(all='ignore'):
+        idet = F32(1) / det
     px = (cc1 * wa + (-cc2) * wb) * idet
     py = (cc2 * wa + (-cc1) * nb) * idet
     cx[sel] = (wa * ww + nb * wh) * F32(0.5) + px
@@ -592,6 +672,70 @@ def test_rect_design_ties_and_odd_widths():
                                               ev)[:2])
         np.testing.assert_array_equal(m_h.view(np.int32), t_h.view(np.int32))
         np.testing.assert_array_equal(m_l.view(np.int32), t_l.view(np.int32))
+
+
+def _select_case(case):
+    _, k, d, frac = next(c for c in cases.SELECT_CASES if c[0] == case)
+    return cases.select_arrays(np.random.default_rng(k * 7919 + d), k, d,
+                               frac)
+
+
+@pytest.mark.parametrize('lanes', [4, 8, 16])
+@pytest.mark.parametrize('case', [c[0] for c in cases.SELECT_CASES])
+def test_rect_design_uneven_splits(case, lanes):
+    """The group layout on inputs that split it unevenly (every candidate
+    valid: more than a group keeps; none valid; K = 1, 2, 127, 191; D no
+    multiple of a block's groups), at 4, 8 and 16 lanes a group: the
+    emulated kernel equals the plain version, its minimum the halving
+    tree's."""
+    a = _select_case(case)
+    want = _np(lb.rect_select_plain(*(torch.from_numpy(x) for x in a)))
+    got, (m_h, m_l) = rect_select_emulated(*a, lanes=lanes)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+    d = a[0].shape[0]
+    ev = np.concatenate([a[7], np.ones((d, 1), bool)], 1)
+    t_h, t_l = halving_tree_min(*_ds_area(*a[:6], ev)[:2])
+    np.testing.assert_array_equal(m_h.view(np.int32), t_h.view(np.int32))
+    np.testing.assert_array_equal(m_l.view(np.int32), t_l.view(np.int32))
+
+
+def _band_or_table_inputs(case):
+    """The cv2 inputs of ``rect_tail_cases``' band or table-edge blobs,
+    the expected ``ok`` and in-band counts (None: not checked)."""
+    r = 48
+    if case == 'band':
+        args = cv2_inputs(cases.band_blobs(), r)
+        return args, r, [True, False, False], [8, 9, 9]
+    args = cv2_inputs(cases.table_edge_blobs(), r)
+    args = args[:6] + (tcc.inv_sqrt_table(*cases.TABLE_EDGE),)
+    assert args[6].numel() == 26
+    return args, r, [True, True, False, False], [4, 4, 4, 4]
+
+
+@pytest.mark.parametrize('case', ['band', 'table'])
+def test_cv2_design_band_and_table_edges(case):
+    """Exactly 8 and 9 edges in the surrogate band, and in-band edges with
+    |v|^2 at the inverse-sqrt table's last entry and one past it: the
+    emulated kernel (the in-band rank, the computed inverse square root)
+    equals the plain version, ``ok`` where expected."""
+    args, r, want_ok, want_band = _band_or_table_inputs(case)
+    cx, cy, ok = _np(tcc.cv2_centers_from_tables_plain(*args, max_bh=r))
+    ecx, ecy, eok, n_band = cv2_centers_emulated(*_np(args))
+    np.testing.assert_array_equal(eok, ok)
+    np.testing.assert_array_equal(ecx[ok].view(np.int32),
+                                  cx[ok].view(np.int32))
+    np.testing.assert_array_equal(ecy[ok].view(np.int32),
+                                  cy[ok].view(np.int32))
+    assert ok.tolist() == want_ok and n_band.tolist() == want_band
+
+
+def test_inv_sqrt_computed_equals_table():
+    """The kernel's inverse square root, two float64 operations and one
+    rounding, against the table over all its entries (R = 160's)."""
+    tab = tcc.inv_sqrt_table(MAX_EDGE_W, cases.EDGE_CASE_ROWS).numpy()
+    got = inv_sqrt_computed(np.arange(tab.size))
+    np.testing.assert_array_equal(got.view(np.int32), tab.view(np.int32))
 
 
 @pytest.mark.parametrize('seed', [7, 8])
@@ -746,3 +890,88 @@ def test_kernels_on_cuda_at_odd_sizes():
              (mnu, mxu, mnv, mxv, dx, dy, ang, valid)]
         for g, w in zip(rect.rect_select(*a), lb.rect_select_plain(*a)):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', [c[0] for c in cases.SELECT_CASES])
+def test_rect_select_on_cuda_uneven_splits(case):
+    """The rect-select kernel against its plain version on the uneven
+    cases of ``test_rect_design_uneven_splits``, one launch a call."""
+    dev = _cuda_or_skip()
+    a = [torch.from_numpy(x).to(dev) for x in _select_case(case)]
+    before = rect.rect_select.launches
+    got = rect.rect_select(*a)
+    torch.cuda.synchronize()
+    assert rect.rect_select.launches == before + 1
+    for g, w in zip(got, lb.rect_select_plain(*a)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['band', 'table', 'tall'])
+def test_cv2_centers_on_cuda_band_table_and_tall(case):
+    """The cv2-centre kernel against its plain version on the 8 and 9
+    in-band octagons, the table-edge squares (each at D = 4 k + 1 and
+    4 k + 3 with fuzz components, D no multiple of a block's warps) and
+    at R = 1000 (rows read from global memory, not staged); with the
+    rect select at R = 1000 (K = 1999)."""
+    dev = _cuda_or_skip()
+    if case == 'tall':
+        r = 1000
+        blobs = fuzz_blobs(299, 9)
+        blobs.append((np.arange(900) // 30 + 5, np.arange(900)))
+        args = cv2_inputs(blobs, r)
+        _, sel_args = rect_inputs(blobs, r)
+        a = [t.to(dev) for t in sel_args]
+        for g, w in zip(rect.rect_select(*a), lb.rect_select_plain(*a)):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        variants = [args]
+    else:
+        base, r, want_ok, _ = _band_or_table_inputs(case)
+        fill = cv2_inputs(fuzz_blobs(8, 4), r)
+        d0 = base[0].shape[0]
+        variants = [tuple(torch.cat([b, f[:(odd - d0) % 4 + 4]])
+                          for b, f in zip(base[:6], fill[:6])) + base[6:]
+                    for odd in (1, 3)]
+        assert [v[0].shape[0] % 4 for v in variants] == [1, 3]
+    for args in variants:
+        args = [t.to(dev) for t in args]
+        got = tcc.cv2_centers_from_tables(*args, max_bh=r)
+        want = tcc.cv2_centers_from_tables_plain(*args, max_bh=r)
+        torch.cuda.synchronize()
+        _assert_cv2_equal(got, want)
+        if case != 'tall':
+            assert want[2][:len(want_ok)].tolist() == want_ok
+
+
+@pytest.mark.cuda
+def test_sqrt_f32_is_rounded_f64_sqrt_on_cuda():
+    """The rect select's __fsqrt_rn against the float64 root rounded to
+    float32 (the plain version's side length) over every finite float32
+    >= 0 and -0, on the card: no value differs."""
+    dev = _cuda_or_skip()
+    from ysmr_tpu_torch import _build
+    lib = _build.load_kernels()
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    _build.check(lib, lib.ysmr_rect_sqrt_mismatches(
+        counts.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream), 'sqrt check')
+    torch.cuda.synchronize()
+    assert counts.tolist() == [0, 0x7f800001]
+
+
+@pytest.mark.cuda
+def test_inv_sqrt_entries_equal_table_on_cuda():
+    """The cv2 kernel's inverse square roots against ``inv_sqrt_table``
+    over a table of 16.8 M entries (every table with max_h <= 4096 is a
+    prefix of it), on the card: bit-equal."""
+    dev = _cuda_or_skip()
+    from ysmr_tpu_torch import _build
+    lib = _build.load_kernels()
+    tab = tcc.inv_sqrt_table(MAX_EDGE_W, 4096, device=dev)
+    got = torch.empty_like(tab)
+    _build.check(lib, lib.ysmr_cv2_inv_sqrt(
+        got.data_ptr(), tab.numel(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream), 'inverse sqrt')
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), tab.view(torch.int32))

@@ -179,11 +179,15 @@ def load_kernels():
         [ctypes.c_longlong, ci, vp]
     ll = ctypes.c_longlong
     lib.ysmr_cv2_centers.restype = ci
-    lib.ysmr_cv2_centers.argtypes = [vp] * 10 + [ll] + [ci] * 4 + [vp]
+    lib.ysmr_cv2_centers.argtypes = [vp] * 9 + [ll] + [ci] * 4 + [vp]
+    lib.ysmr_cv2_inv_sqrt.restype = ci
+    lib.ysmr_cv2_inv_sqrt.argtypes = [vp, ci, ci, vp]
     lib.ysmr_edge_finish.restype = ci
     lib.ysmr_edge_finish.argtypes = [vp] * 10 + [ll, ci, ci, vp]
     lib.ysmr_rect_select.restype = ci
     lib.ysmr_rect_select.argtypes = [vp] * 13 + [ll, ci, ci, vp]
+    lib.ysmr_rect_sqrt_mismatches.restype = ci
+    lib.ysmr_rect_sqrt_mismatches.argtypes = [vp, ci, vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p
     lib.ysmr_cuda_error_string.argtypes = [ci]
     lib.build_log = log

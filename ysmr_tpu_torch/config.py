@@ -1,4 +1,5 @@
-# Copied from ysmr_tpu/config.py; only the import lines differ.
+# Copied from ysmr_tpu/config.py; the import lines differ, and comments
+# that quoted timings of the TPU round or described the JAX package.
 #!/usr/bin/env python3
 """tracking.ini configuration system for ysmr_tpu.
 
@@ -35,6 +36,8 @@ _TPU_DEFAULTS = {
     'max detections per frame': 512,
     'max track slots': 1024,
     'connected components max iterations': 64,
+    # read and kept for tracking.ini compatibility; the port uses it
+    # nowhere (its kernels are CUDA and always on)
     'use pallas kernels': True,
     # parallel decode workers (whole batches interleaved over threads, each
     # worker with its own capture/demux handle — io/video.py). Clamped to the
@@ -46,15 +49,17 @@ _TPU_DEFAULTS = {
     # (threadless) decode.
     'host decode threads': 2,
     'prefetch batches': 3,
-    # 'auto' probes the host->device link and picks 'frames' (raw frames to
-    # device, full detection on device) or 'pixels' (host thresholding,
-    # compact foreground tables to device) — see io/preproc.py
+    # 'frames' (raw frames to device, full detection on device) or 'pixels'
+    # (host thresholding, compact foreground tables to device); 'auto'
+    # picks pixels: the port does not probe the link
+    # (pipeline/track_bacteria.py::resolve_transfer_mode)
     'transfer mode': 'auto',
     # 'exact' decodes via cv2.VideoCapture and converts BGR->gray with the
     # bit-exact OpenCV recipe (same pixels as the reference); 'fast' demuxes
-    # MJPG AVIs and decodes JPEG luma directly to grayscale (~1.5 ms/frame
-    # cheaper; gray values within +-2 of exact, detections unchanged in
-    # practice — see io/video.py MjpgAviDemuxer)
+    # MJPG AVIs and decodes JPEG luma directly to grayscale (gray values
+    # within +-2 of exact, detections unchanged in practice — see
+    # io/video.py MjpgAviDemuxer; its saving is not measured on the H100
+    # machine)
     'decode mode': 'exact',
     'max foreground pixels per frame': 8192,
     # caps the per-row hull-candidate table; components taller than this are
@@ -83,7 +88,7 @@ _TPU_DEFAULTS = {
     # instead of the exact-arithmetic center: the measurement stream then
     # matches the reference's, leaving only the double-single GSFF residue
     # as an id-parity deviation. On the GPU one launch of
-    # csrc/cv2_centers.cu a batch: 0.33 ms of device time for 64 frames of
+    # csrc/cv2_centers.cu a batch: 0.17 ms of device time for 64 frames of
     # 4096 detections on an NVIDIA H100 80GB HBM3 at 700 W
     # (trace_kernels.py); 'off' keeps the exact-arithmetic centers.
     'cv2 exact centers': 'auto',
@@ -92,17 +97,15 @@ _TPU_DEFAULTS = {
     # less traffic at dense scale, expanded back on device), 'pixels'
     # ships one word per pixel. 'runs' forces RLE where 'auto' would.
     'wire format': 'auto',
-    # labeling representation when the runs wire is active: 'auto' runs
-    # connected components directly on the (T, R) run tables on the TPU
-    # backend (ops/run_cc.py — no whole-frame raster, stencil passes, or
-    # pixel-table sort), 'on' forces it on any backend, 'off' keeps the
-    # whole-frame stencil labeling
+    # labeling representation when the runs wire is active: 'auto' and 'on'
+    # run connected components directly on the (T, R) run tables on every
+    # device (ops/run_cc.py — no whole-frame raster or pixel-table sort;
+    # pipeline/track_bacteria.py), 'off' keeps the pixel-table labeling
     'run cc': 'auto',
     # pack live tracker emissions into one buffer on device before readback
-    # (tracker.compact_emissions_device). Pays on links where the
-    # device-to-host direction is contended; on a full-duplex link the
-    # async padded readback rides the free d2h direction and this only
-    # adds bucket warm-up (measured: 29 -> 23 fps on the dense clip), so
+    # (tracker.compact_emissions_device). Meant for links where the
+    # device-to-host direction is contended; on the H100 machine it
+    # measured no gain at 4096 slots (PERF.md, chip_smoke.py phase 20), so
     # the default is off.
     'compact emissions readback': False,
     # log per-frame wait/dispatch/readback stage times at the end of a run

@@ -17,33 +17,47 @@
 // order, the branches decided on the float's bits. The double-single
 // arithmetic follows ops/ds.py: two_sum, quick_two_sum, two_prod with the
 // Veltkamp split by the float32 product 4097 * a. The side length is the
-// float64 square root rounded to float32, and the angle in degrees one
-// float32 fma (ds.fma_f32, XLA's contraction).
+// float64 square root rounded to float32 (which is the correctly rounded
+// float32 root), and the angle in degrees one float32 fma (ds.fma_f32,
+// XLA's contraction).
 //
 // Design.
 //   - Edge finish: one thread per (component, chain slot) of the
 //     (D, 2 (R - 1)) output; slot j < R - 1 reads the left chain's row j,
 //     the others the right chain's row j - (R - 1). Elementwise: the fold,
 //     the keep rule, the angle.
-//   - Rect select: one warp per component over its K = 2 (R - 1) + 1
-//     candidates (the last is the appended horizontal (1, 0), angle 0,
-//     always valid). Lane l takes candidates l, l + 32, ...: it forms each
-//     double-single area and keeps its least under the strict order
-//     (h, l) < (h', l'); a butterfly of shuffles then gives every lane the
-//     least of the warp (the pairwise-halving tree's value: the order is
-//     total on these finite pairs, so any reduction order finds the same
-//     value). A second pass forms each candidate's tie test against it
-//     (the areas of a lane's first four candidates kept in registers from
-//     the first pass, any later ones formed again) and keeps the largest
-//     angle, the lower index on equal angles (argmax's first maximum);
-//     lane 0 computes the outputs from the winner.
+//   - Rect select: a group of kLanes lanes per component over its K =
+//     2 (R - 1) + 1 candidates (the last is the appended horizontal
+//     (1, 0), angle 0, always valid), several components a warp. Few
+//     candidates are valid (about 7 of 94 a component at the dense
+//     batch), so the group first scans the validity flags: lane l loads
+//     those of candidates 16 l ... 16 l + 15 at once (two a 16-bit load
+//     where the row is 2-byte aligned, as the pipeline's always is),
+//     counts them, and a prefix sum over the group numbers the valid
+//     ones in index order. Lane l then reads entries l, l + kLanes, ...
+//     of the group's first kKept: extents, direction and angle in one
+//     pass, kept in registers. Pass 1 forms their double-single areas
+//     and the least under the strict order (h, l) < (h', l') (the order
+//     is total on these finite pairs, so any reduction order finds the
+//     halving tree's value); a butterfly of shuffles within the group
+//     gives it to every lane. Pass 2 forms each candidate's tie test
+//     against it from the kept areas and keeps the largest angle, the
+//     lower index on equal angles (argmax's first maximum; an invalid
+//     candidate counts as -1, so only the first one can win). The lane
+//     that took the winner computes the outputs from its registers, in
+//     parallel with the other groups. Valid candidates past the kKept
+//     (more than a group keeps) are read again in each pass.
 //
-// What bounds it on an H100: bytes. Each kernel reads a flag first and
-// the values behind it only where it is set. Edge finish: the edge flag
-// and 13 bytes out per slot, the 2 x 4 bytes of the vector and about 40
-// operations of the polynomial at a kept slot; rect select: the validity
-// byte per candidate, 7 x 4 bytes and about 60 float operations per valid
-// candidate (and the appended one), 20 bytes out per component.
+// What bounds it on an H100: the edge finish, bytes (the edge flag and
+// 13 bytes out per slot, the 2 x 4 bytes of the vector and about 40
+// operations of the polynomial at a kept slot). The rect select reads
+// the validity byte per candidate, 7 x 4 bytes and about 100 float
+// operations per valid candidate (and the appended one), 20 bytes out
+// per component, but its valid candidates are scattered over their rows
+// (a 32-byte sector for each few), and a component's work is two
+// dependent round trips to memory (the flags, then the kept candidates)
+// and a chain of double-single arithmetic: latency, hidden by the
+// components in flight (four a warp, 32 warps an SM).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,10 +66,17 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// rect select: the candidates a lane keeps from pass 1 (all of them up
-// to K = 128, the frames-mode R = 64)
-constexpr int kKeep = 4;
+// rect select: the lanes of a component's group (kGroups components a
+// block), the valid candidates a group keeps in registers from pass 1
+// (its first kKept, kSlots a lane), and the blocks an SM keeps resident
+// (at most 64 registers a thread)
+constexpr int kLanes = 8;
+constexpr int kGroups = kThreads / kLanes;
+constexpr int kKept = 16;
+constexpr int kSlots = kKept / kLanes;
+constexpr int kSelectBlocks = 4;
+static_assert(kLanes <= 16 && 32 % kLanes == 0 && kKept % kLanes == 0,
+              "a group is a power of two lanes of one warp");
 constexpr unsigned kFull = 0xffffffffu;
 // float32(3e38): ops/labeling.py's BIG_F
 constexpr float kBigF = 0x1.c363ccp+127f;
@@ -224,30 +245,20 @@ __device__ __forceinline__ bool ds_less(Ds b, Ds a) {
   return b.h < a.h || (b.h == a.h && b.l < a.l);
 }
 
+// a candidate's inputs: extents, direction, angle (0 for the appended one)
 struct Cand {
-  float du, dv, l2;
+  float mnu, mxu, mnv, mxv, dx, dy, ang;
 };
 
-// candidate o's clamped extents and squared length
-__device__ __forceinline__ Cand candidate(
-    const float* __restrict__ min_u, const float* __restrict__ max_u,
-    const float* __restrict__ min_v, const float* __restrict__ max_v,
-    const float* __restrict__ edx, const float* __restrict__ edy,
-    int64_t o) {
-  Cand c;
-  c.du = fmaxf(fsub(max_u[o], min_u[o]), 0.0f);
-  c.dv = fmaxf(fsub(max_v[o], min_v[o]), 0.0f);
-  const float dx = edx[o], dy = edy[o];
-  c.l2 = fadd(fmul(dx, dx), fmul(dy, dy));
-  return c;
-}
-
-// a valid candidate's double-single area
+// a candidate's double-single area (du dv / l2, the extents clamped at 0)
 __device__ __forceinline__ Ds area(const Cand& c) {
-  return div_by_f32(two_prod(c.du, c.dv), c.l2);
+  const float du = fmaxf(fsub(c.mxu, c.mnu), 0.0f);
+  const float dv = fmaxf(fsub(c.mxv, c.mnv), 0.0f);
+  const float l2 = fadd(fmul(c.dx, c.dx), fmul(c.dy, c.dy));
+  return div_by_f32(two_prod(du, dv), l2);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSelectBlocks)
 rect_select_kernel(const float* __restrict__ min_u,
                    const float* __restrict__ max_u,
                    const float* __restrict__ min_v,
@@ -258,90 +269,207 @@ rect_select_kernel(const float* __restrict__ min_u,
                    float* __restrict__ cy, float* __restrict__ w_out,
                    float* __restrict__ h_out, float* __restrict__ ang_out,
                    int64_t d, int kk) {
+  __shared__ int lists[kGroups][kKept];
   const int lane = threadIdx.x & 31;
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps +
-                    (threadIdx.x >> 5);
-  if (c >= d) return;  // whole warps leave together
+  const int gl = lane & (kLanes - 1);
+  const int shift = lane - gl;
+  const unsigned gmask = ((1u << kLanes) - 1u) << shift;
+  const int grp = threadIdx.x / kLanes;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kGroups + grp;
+  if (c >= d) return;  // whole groups leave together
   const int64_t base = c * kk;
   const int64_t vbase = c * (kk - 1);
+  int* list = lists[grp];
+  // the appended candidate is valid; the hull candidates' flags
   auto valid = [&](int k) { return k == kk - 1 || evalid[vbase + k] != 0; };
-  // an invalid candidate's extents are not read: its area is +big
-  auto area_of = [&](int k) {
-    return valid(k) ? area(candidate(min_u, max_u, min_v, max_v, edx, edy,
-                                     base + k))
-                    : Ds{kBigF, 0.0f};
+  auto load = [&](int k) {
+    const int64_t o = base + k;
+    return Cand{min_u[o], max_u[o], min_v[o], max_v[o], edx[o], edy[o],
+                k == kk - 1 ? 0.0f : eang[vbase + k]};
   };
-  // pass 1: the least double-single area; a lane keeps the areas of its
-  // first kKeep candidates in registers for pass 2
-  Ds kept[kKeep];
-  Ds m = {INFINITY, 0.0f};
-  bool have = false;
+
+  // the scan, kLanes * 16 candidates at a time: lane gl loads the flags
+  // of candidates k0 + 16 gl ... + 15 (all loads first, one round trip),
+  // counts them, and a prefix sum over the group numbers the valid ones
+  // in index order; the first kKept go to the group's list
+  int n = 0, first_inv = kk;
+  for (int k0 = 0; k0 < kk; k0 += 16 * kLanes) {
+    const int kl = k0 + 16 * gl;
+    unsigned bits = 0;
+    const unsigned in_range =
+        kl >= kk ? 0u : kk - kl >= 16 ? 0xffffu : (1u << (kk - kl)) - 1u;
+    if (kl <= kk - 1 && kk - 1 < kl + 16) bits |= 1u << (kk - 1 - kl);
+    const uint8_t* fl = evalid + vbase + kl;
+    if ((reinterpret_cast<uintptr_t>(evalid + vbase) & 1) == 0) {
+      // two flags a 16-bit load (kl is even)
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        if (kl + i + 1 < kk - 1) {
+          const unsigned w = *reinterpret_cast<const uint16_t*>(fl + i);
+          bits |= ((w & 0xffu) != 0u ? 1u : 0u) << i;
+          bits |= ((w >> 8) != 0u ? 1u : 0u) << (i + 1);
+        } else if (kl + i < kk - 1) {
+          bits |= (fl[i] != 0 ? 1u : 0u) << i;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (kl + i < kk - 1) bits |= (fl[i] != 0 ? 1u : 0u) << i;
+      }
+    }
+    const int cnt = __popc(bits);
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < kLanes; off <<= 1) {
+      const int t = __shfl_up_sync(gmask, incl, off, kLanes);
+      if (gl >= off) incl += t;
+    }
+    int p = n + incl - cnt;
+    for (unsigned m = bits; m; m &= m - 1, ++p) {
+      if (p < kKept) list[p] = kl + __ffs(m) - 1;
+    }
+    const unsigned inv = in_range & ~bits;
+    const int fi = __reduce_min_sync(gmask, inv ? kl + __ffs(inv) - 1 : kk);
+    first_inv = min(first_inv, fi);
+    n += __shfl_sync(gmask, incl, kLanes - 1, kLanes);
+  }
+  __syncwarp(gmask);
+  // lane gl keeps list entries gl, gl + kLanes, ...; the valid
+  // candidates after the last kept one (none unless n > kKept) are read
+  // again in each pass
+  const int nk = min(n, kKept);
+  const int over0 = n > kKept ? list[kKept - 1] + 1 : kk;
+  int ki[kSlots];
+  Cand kc[kSlots] = {};
+  Ds ka[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int p = s * kLanes + gl;
+    ki[s] = p < nk ? list[p] : -1;
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    if (ki[s] >= 0) kc[s] = load(ki[s]);
+  }
+
+  // pass 1: the least double-single area; an invalid candidate's area
+  // is (BIG_F, 0) in the plain version, so it starts the minimum where
+  // the component has one
+  Ds m = {n < kk ? kBigF : INFINITY, 0.0f};
+  bool have = n < kk;
   auto take_min = [&](const Ds& a) {
     if (!have || ds_less(a, m)) m = a;
     have = true;
   };
 #pragma unroll
-  for (int i = 0; i < kKeep; ++i) {
-    const int k = lane + 32 * i;
-    if (k < kk) {
-      kept[i] = area_of(k);
-      take_min(kept[i]);
+  for (int s = 0; s < kSlots; ++s) {
+    ka[s] = Ds{0.0f, 0.0f};
+    if (ki[s] >= 0) {
+      ka[s] = area(kc[s]);
+      take_min(ka[s]);
     }
   }
-  for (int k = lane + 32 * kKeep; k < kk; k += 32) take_min(area_of(k));
-  for (int off = 16; off > 0; off >>= 1) {
-    Ds o = {__shfl_xor_sync(kFull, m.h, off), __shfl_xor_sync(kFull, m.l,
-                                                               off)};
-    const bool oh = __shfl_xor_sync(kFull, static_cast<int>(have), off);
+  for (int k = over0 + gl; k < kk; k += kLanes) {
+    if (valid(k)) take_min(area(load(k)));
+  }
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    const Ds o = {__shfl_xor_sync(gmask, m.h, off),
+                  __shfl_xor_sync(gmask, m.l, off)};
+    const bool oh = __shfl_xor_sync(gmask, static_cast<int>(have), off);
     if (oh && (!have || ds_less(o, m))) m = o;
     have = have || oh;
   }
-  m.h = __shfl_sync(kFull, m.h, 0);
-  m.l = __shfl_sync(kFull, m.l, 0);
-  // pass 2: the tied candidate with the largest angle, first on equal
+
+  // pass 2: argmax of (angle where tied, else -1), the first index on
+  // equal values; every invalid candidate has -1, so only the first one
+  // can win
   const float band = fadd(fmul(m.h, kTie), kTie);
   float best = -INFINITY;
   int bk = kk;
-  auto take_tie = [&](int k, const Ds& a) {
-    float val = -1.0f;
-    if (valid(k) && ds_sub(a, m).h <= band) {
-      val = k == kk - 1 ? 0.0f : eang[vbase + k];
-    }
-    if (val > best) {
+  auto take = [&](float val, int k) {
+    if (val > best || (val == best && k < bk)) {
       best = val;
       bk = k;
     }
   };
+  auto tie_val = [&](const Ds& a, float ang) {
+    return ds_sub(a, m).h <= band ? ang : -1.0f;
+  };
 #pragma unroll
-  for (int i = 0; i < kKeep; ++i) {
-    const int k = lane + 32 * i;
-    if (k < kk) take_tie(k, kept[i]);
+  for (int s = 0; s < kSlots; ++s) {
+    if (ki[s] >= 0) take(tie_val(ka[s], kc[s].ang), ki[s]);
   }
-  for (int k = lane + 32 * kKeep; k < kk; k += 32) take_tie(k, area_of(k));
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, best, off);
-    const int ok = __shfl_xor_sync(kFull, bk, off);
+  for (int k = over0 + gl; k < kk; k += kLanes) {
+    if (valid(k)) {
+      const Cand f = load(k);
+      take(tie_val(area(f), f.ang), k);
+    }
+  }
+  if (gl == 0 && first_inv < kk) take(-1.0f, first_inv);
+  const int mine = bk;
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(gmask, best, off);
+    const int ok = __shfl_xor_sync(gmask, bk, off);
     if (ov > best || (ov == best && ok < bk)) {
       best = ov;
       bk = ok;
     }
   }
-  if (lane != 0) return;
-  const int64_t o = base + bk;
-  const Cand a = candidate(min_u, max_u, min_v, max_v, edx, edy, o);
-  const float bdx = edx[o], bdy = edy[o];
-  const float bl = __double2float_rn(__dsqrt_rn(static_cast<double>(a.l2)));
-  w_out[c] = fdiv(a.dv, bl);
-  h_out[c] = fdiv(a.du, bl);
-  const float cu2 = fadd(min_u[o], max_u[o]);
-  const float cv2 = fadd(min_v[o], max_v[o]);
-  const Ds nx = ds_sub(two_prod(cu2, bdx), two_prod(cv2, bdy));
-  const Ds ny = ds_add(two_prod(cu2, bdy), two_prod(cv2, bdx));
-  const float inv = fdiv(1.0f, fmul(2.0f, a.l2));
+  // the lane that took the winner writes the outputs, from its registers
+  // where it kept it (an overflow or invalid winner is read again)
+  if (mine != bk) return;
+  Cand w;
+  bool kept = false;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    if (ki[s] == bk) {
+      w = kc[s];
+      kept = true;
+    }
+  }
+  if (!kept) w = load(bk);
+  const float du = fmaxf(fsub(w.mxu, w.mnu), 0.0f);
+  const float dv = fmaxf(fsub(w.mxv, w.mnv), 0.0f);
+  const float l2 = fadd(fmul(w.dx, w.dx), fmul(w.dy, w.dy));
+  // f32(sqrt(f64(l2))): rounding the float64 root to float32 is the
+  // correctly rounded float32 root (53 >= 2 * 24 + 2; checked for every
+  // finite float32 on the card: ysmr_rect_sqrt_mismatches)
+  const float bl = __fsqrt_rn(l2);
+  w_out[c] = fdiv(dv, bl);
+  h_out[c] = fdiv(du, bl);
+  const float cu2 = fadd(w.mnu, w.mxu);
+  const float cv2 = fadd(w.mnv, w.mxv);
+  const Ds nx = ds_sub(two_prod(cu2, w.dx), two_prod(cv2, w.dy));
+  const Ds ny = ds_add(two_prod(cu2, w.dy), two_prod(cv2, w.dx));
+  const float inv = fdiv(1.0f, fmul(2.0f, l2));
   cx[c] = fadd(fmul(nx.h, inv), fmul(nx.l, inv));
   cy[c] = fadd(fmul(ny.h, inv), fmul(ny.l, inv));
-  const float ang = bk == kk - 1 ? 0.0f : eang[vbase + bk];
-  ang_out[c] = __fmaf_rn(ang, kRadToDeg, -90.0f);
+  ang_out[c] = __fmaf_rn(w.ang, kRadToDeg, -90.0f);
+}
+
+// counts[0] += the finite float32 x >= 0 (+0 to the largest, and -0)
+// whose __fsqrt_rn(x) differs in its bits from f32(sqrt(f64(x)));
+// counts[1] += the values compared
+__global__ void sqrt_check_kernel(unsigned long long* __restrict__ counts) {
+  unsigned long long bad = 0, seen = 0;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i <= 0x7f800000u;
+       i += stride) {
+    const float x = __uint_as_float(i < 0x7f800000u ? i : 0x80000000u);
+    const float a = __fsqrt_rn(x);
+    const float b = __double2float_rn(__dsqrt_rn(static_cast<double>(x)));
+    bad += __float_as_uint(a) != __float_as_uint(b);
+    ++seen;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    bad += __shfl_xor_sync(kFull, bad, off);
+    seen += __shfl_xor_sync(kFull, seen, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(counts, bad);
+    atomicAdd(counts + 1, seen);
+  }
 }
 
 }  // namespace
@@ -385,7 +513,7 @@ int ysmr_rect_select(const void* min_u, const void* max_u, const void* min_v,
   if (d <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (d + kWarps - 1) / kWarps;
+  const long long blocks = (d + kGroups - 1) / kGroups;
   rect_select_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(min_u), static_cast<const float*>(max_u),
@@ -395,6 +523,19 @@ int ysmr_rect_select(const void* min_u, const void* max_u, const void* min_v,
       static_cast<float*>(cx), static_cast<float*>(cy),
       static_cast<float*>(w), static_cast<float*>(h),
       static_cast<float*>(ang), d, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// counts: two uint64 on CUDA device `device`, set to 0 by the caller;
+// adds the number of finite float32 x >= 0 (and -0) whose __fsqrt_rn
+// differs from the float64 root rounded to float32 (the rect select's
+// side length), and the number compared (2^31 - 2^23 + 1). Launched on
+// `stream`. Returns a cudaError_t.
+int ysmr_rect_sqrt_mismatches(void* counts, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sqrt_check_kernel<<<4096, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

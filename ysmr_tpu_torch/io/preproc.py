@@ -1,4 +1,5 @@
-# Copied from ysmr_tpu/io/preproc.py; only the import lines differ.
+# Copied from ysmr_tpu/io/preproc.py; the import lines differ, and comments
+# that quoted timings of the TPU round or described the JAX package.
 #!/usr/bin/env python3
 """Host-side threshold preprocessing for the bandwidth-adaptive pixels mode.
 
@@ -42,10 +43,9 @@ class HostPreprocessor:
         self.overflowed = 0
         # fused stage 2 (adaptive modes): the native lib computes the
         # adaptive mean and thresholds it in-register, skipping the mean
-        # plane. With the aligned-stride mean kernels the plane round trip
-        # costs less than the fused kernel's in-loop emission (interleaved
-        # A/B: 1.38 vs 1.45 ms/frame at 1228x922), so the plane path is the
-        # default; YSMR_FUSED_STAGE2=1 opts back in (both are bit-identical,
+        # plane. The plane path is the default (the two were not compared
+        # on the H100 machine); YSMR_FUSED_STAGE2=1 opts into the fused
+        # one (both are bit-identical,
         # tests/test_native.py::test_fused_stage2_bit_equals_unfused).
         self._fused_s2 = (self.mode != 'mean' and native.has_fused_stage2()
                           and os.environ.get('YSMR_FUSED_STAGE2') == '1')

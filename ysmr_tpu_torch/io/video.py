@@ -1,12 +1,14 @@
-# Copied from ysmr_tpu/io/video.py; only the import lines differ.
+# Copied from ysmr_tpu/io/video.py; the import lines differ, and comments
+# that quoted timings of the TPU round or described the JAX package.
 #!/usr/bin/env python3
 """Host video decode feeding device-resident frame batches.
 
 The reference reads one frame at a time inside its Python hot loop
 (track_eval.py:156-366, ``cap.read()`` per iteration). Here decode runs on a
 background thread producing fixed-size frame batches through a bounded queue,
-so host decode overlaps device compute (double/triple buffering); the TPU
-never waits on the decoder once the pipeline is warm.
+so host decode overlaps device compute (double/triple buffering). Whether
+the device still waits on the decoder depends on the clip and the host
+(the ``wait_batch`` stage time says; PERF.md §5).
 
 Decoding itself uses OpenCV's C++ videoio (FFmpeg underneath) — the same
 native decode path as the reference — but batched and threaded. cv2 releases
@@ -33,8 +35,8 @@ class MjpgAviDemuxer:
     the default grayscale color filter that round trip is wasted work: JPEG
     luma IS the grayscale channel. Demuxing the AVI ourselves and handing
     each JPEG to ``cv2.imdecode(..., IMREAD_GRAYSCALE)`` lets libjpeg skip
-    the chroma IDCTs and the YCbCr->BGR->gray conversions entirely
-    (measured: 3.9 + 0.3 ms/frame -> 2.9 ms/frame at 1228x922).
+    the chroma IDCTs and the YCbCr->BGR->gray conversions entirely (the
+    saving is not measured on the H100 machine).
 
     Gray values differ from the exact BGR-roundtrip recipe by at most +-2
     (systematic +-1 from the dropped double rounding); the adaptive
@@ -262,8 +264,8 @@ class BatchedVideoReader:
         """Reusable cap.read() destination, or None when unsafe.
 
         Passing a preallocated Mat skips cv2's per-frame allocation+copy
-        (~0.3 ms at 1228x922). Only valid when the frame is consumed before
-        the next read: the preprocessor reduces it to pixel tables
+        (not measured on the H100 machine). Only valid when the frame is
+        consumed before the next read: the preprocessor reduces it to pixel tables
         immediately, but keep_frames (display) retains the object and the
         frames path batches raw frames, so both keep the allocating read.
         """

@@ -25,7 +25,9 @@ Differences from the JAX module, all of representation:
 CUDA tensor to the hand-written kernel ``csrc/cv2_centers.cu`` (one warp
 per component, all components in one launch; its source notes the
 design), or raises. Nothing falls back from the kernel to the plain
-version.
+version. The kernel computes the inverse square roots as
+:func:`inv_sqrt_table` does instead of reading them: the table must be
+that function's (the plain version reads it).
 """
 
 import numpy as np
@@ -123,8 +125,10 @@ def cv2_centers_from_tables(row_min_x, row_max_x, row_valid, min_y,
     cy = torch.empty(d, dtype=_F32, device=dev)
     ok = torch.empty(d, dtype=torch.bool, device=dev)
     lib = _build.load_kernels()
+    # the kernel computes the table's entries (bit for bit) and reads only
+    # its length
     rc = lib.ysmr_cv2_centers(
-        *(a.data_ptr() for a in tabs), cx.data_ptr(), cy.data_ptr(),
+        *(a.data_ptr() for a in tabs[:6]), cx.data_ptr(), cy.data_ptr(),
         ok.data_ptr(), d, r, tab_n, _w_limit(r), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, 'cv2 centers kernel launch')
