@@ -129,11 +129,11 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    (seeds 123, 126, 127, 128; 192, 160, 128 and 96 frames) and one
    640x480 clip (a second group): every ``_list.csv`` byte-identical to a
    solo ``track_bacteria(path)`` on ``cuda`` with the same settings,
-   kernels 2-6 and the adaptive mean launched (the counts per device step
-   printed), the assign kernel once per frame of a device step (the
+   kernels 2-6 and the fused preprocess launched (the counts per device
+   step printed), the assign kernel once per frame of a device step (the
    tracker batched over the step's videos: 16 steps x 16 frames = 256),
-   the GSFF, frame-step and merge kernels as often, the adaptive mean once
-   per device step (16),
+   the GSFF, frame-step and merge kernels as often, the fused preprocess
+   once per device step (16) and the int32 adaptive mean never,
    the sharded run's wall time and frames/s beside the solo runs' sum;
 24. the program with ``shard videos across devices`` in its tracking.ini:
    ``python -m ysmr_tpu_torch <phase 23's four clips> --serial`` and once
@@ -164,14 +164,22 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    ``run_tracker_scan`` on ``cuda`` bit-equal to the four per-video scans
    on ``cuda``, 16 assign launches against 64, as many frame-step
    launches as assign launches;
-28. the adaptive-mean kernel (``csrc/adaptive_mean.cu``) against its plain
-   version on the card, bit-equal: the blurred first 64 frames of the
-   bench and dense scenes, a 16-frame 640x480 batch, and the edge shapes
-   (1x1x1, 3x7x5, 17x33x129, 2x921x1227) with values in 0-255 and in
-   +-70,000; median ms of the kernel, the plain version and the
-   ``F.conv2d`` yardstick (TF32 off; timed, not bit-equal), with the
-   bound and the share. The frames path's phases (10, 16, 23) fail
-   unless it was launched; phase 23 holds it to one launch a device step;
+28. both entries of ``csrc/adaptive_mean.cu`` against their plain
+   versions on the card, bit-equal. The int32 adaptive mean: the blurred
+   first 64 frames of the bench and dense scenes, a 16-frame 640x480
+   batch, and the edge shapes (1x1x1, 3x7x5, 17x33x129, 2x921x1227) with
+   values in 0-255 and in +-70,000; median ms of the kernel, the plain
+   version and the ``F.conv2d`` yardstick (TF32 off; timed, not
+   bit-equal); its path, ``detect_from_blurred``, one launch, the tables
+   those of ``detect_batch``. The fused preprocess
+   (``adaptive_masks_from_bgr``: BGR in, mask and markers out): the same
+   three batches as BGR, timed with and without the gray, both rules,
+   white and dark, a padded batch, and the edge shapes (tiles crossed, 2
+   rows, 2 columns, W % 4 != 0) with a padded frame; ms, bound and share
+   of each, and each kernel's registers, shared memory and occupancy. The
+   frames path's phases (10, 16, 23) fail unless the fused entry ran once
+   a detect batch (phase 23: once a device step) and the int32 entry
+   never;
 29. the GSFF kernel (``csrc/gsff.cu``, the tracker's register fill and
    filter step) against its plain version on the card, bit-equal, one
    launch a call, its inputs untouched: every frame step's call of the
@@ -186,7 +194,8 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    and with luminosity's K = 3 at V = 1
    (``tracker_step_launches.measure``), with the kernel and with the
    plain version swapped in, the device operations by name (at most 5
-   kernels, memsets and copies with the kernels). The dense, frames,
+   kernels, memsets and copies with the kernels; each scan profiled
+   until two of its profiles list the same operations). The dense, frames,
    luminosity and multi-video phases (7, 10, 14-16, 23, 24) fail unless
    it was launched;
 30. the frame-step kernel (``csrc/frame_step.cu``: the tracker's greedy
@@ -228,8 +237,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    batch on the dense clip and never in frames mode.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (fourteen kernels:
-the seven TPU kernels' ports, the adaptive mean, the GSFF step, the frame
+The last three lines are the ``kernels`` JSON record (fifteen kernels:
+the seven TPU kernels' ports, the adaptive mean and the fused preprocess
+around it, the GSFF step, the frame
 step, the GSFF merge, the cv2 centres, the edge finish and the rect
 select, each with its bound and the library call where one exists),
 ``nvidia-smi``'s card name and power limit, and the result JSON.
@@ -1215,8 +1225,11 @@ def phase_dense_cuda_vs_cpu(frames, settings):
 
 FRAMES = {'transfer mode': 'frames'}
 CC_KERNELS = (cc.label_components_whole_frame, cc.binary_reconstruct)
+#: the fused preprocess, looked up so that trace_kernels.py --root can load
+#: this module over a checkout from before it (None there)
+ADAPTIVE_MASKS = getattr(pp, 'adaptive_masks_from_bgr', None)
 FRAMES_KERNELS = CC_KERNELS + (hull_edge_vectors, sweep_extents,
-                               row_min_argmin, pp.adaptive_gaussian_mean,
+                               row_min_argmin, ADAPTIVE_MASKS,
                                gsff_ops.register_and_step,
                                fs.match_and_register, fs.gsff_merge,
                                rect.edge_finish, rect.rect_select)
@@ -1231,11 +1244,16 @@ def bench_masks(scene, settings, dev, t=64):
                            cfg.white_on_dark)
 
 
+def bgr_batch(frames, dev):
+    """Gray frames as the BGR batch frames mode uploads."""
+    bgr = np.stack([cv2.cvtColor(f, cv2.COLOR_GRAY2BGR) for f in frames])
+    return torch.from_numpy(bgr).to(dev)
+
+
 def blurred_batch(frames, dev):
     """The blurred frames of the port's device preprocess (BGR upload,
     gray, blur) of gray frames."""
-    bgr = np.stack([cv2.cvtColor(f, cv2.COLOR_GRAY2BGR) for f in frames])
-    return detect.prepare_batch(torch.from_numpy(bgr).to(dev))[1]
+    return detect.prepare_batch(bgr_batch(frames, dev))[1]
 
 
 def snake_mask(h, w):
@@ -1430,15 +1448,29 @@ def phase_cc_kernels(scene, settings, dev):
 
 
 def reset_frames_launches():
-    for k in FRAMES_KERNELS + (cv2c.cv2_centers_from_tables,):
+    for k in FRAMES_KERNELS + (cv2c.cv2_centers_from_tables,
+                               pp.adaptive_gaussian_mean):
         k.launches = 0
 
 
 def frames_launches(what):
+    """The frames path's launches since ``reset_frames_launches``; raises
+    unless every kernel of the path ran and the adaptive modes' preprocess
+    was one fused launch a detect batch (as many as the hull's), with no
+    int32 adaptive-mean launch."""
     launches = {k.__name__: k.launches for k in FRAMES_KERNELS}
     if min(launches.values()) <= 0:
         raise SystemExit('{}: a kernel of the frames path was never '
                          'launched: {}'.format(what, launches))
+    if pp.adaptive_gaussian_mean.launches or \
+            launches['adaptive_masks_from_bgr'] != \
+            launches['hull_edge_vectors']:
+        raise SystemExit('{}: {} fused preprocess launches for {} detect '
+                         'batches, {} int32 adaptive-mean launches'.format(
+                             what, launches['adaptive_masks_from_bgr'],
+                             launches['hull_edge_vectors'],
+                             pp.adaptive_gaussian_mean.launches))
+    launches['adaptive_gaussian_mean'] = pp.adaptive_gaussian_mean.launches
     return launches
 
 
@@ -2060,7 +2092,8 @@ if __name__ == '__main__':
     from ysmr_tpu_torch.ops.frame_step import gsff_merge, match_and_register
     from ysmr_tpu_torch.ops.gsff import register_and_step
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
-    from ysmr_tpu_torch.ops.preprocess import adaptive_gaussian_mean
+    from ysmr_tpu_torch.ops.preprocess import (adaptive_gaussian_mean,
+                                               adaptive_masks_from_bgr)
     from ysmr_tpu_torch.ops.rect import edge_finish, rect_select
     from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
     from ysmr_tpu_torch.ops.sweep import sweep_extents
@@ -2081,8 +2114,9 @@ if __name__ == '__main__':
     kernels = (propagate_min_fused, hull_edge_vectors, sweep_extents,
                row_min_argmin, label_components_whole_frame,
                binary_reconstruct, cc_labels_at_pixels,
-               adaptive_gaussian_mean, register_and_step, match_and_register,
-               gsff_merge, edge_finish, rect_select)
+               adaptive_gaussian_mean, adaptive_masks_from_bgr,
+               register_and_step, match_and_register, gsff_merge, edge_finish,
+               rect_select)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2567,7 +2601,7 @@ MV_SETTINGS = {'frame batch size': 16, 'transfer mode': 'frames',
                'minimal frame count': 32}
 MV_KERNELS = (row_min_argmin, hull_edge_vectors, sweep_extents,
               cc.label_components_whole_frame, cc.binary_reconstruct,
-              pp.adaptive_gaussian_mean, gsff_ops.register_and_step,
+              ADAPTIVE_MASKS, gsff_ops.register_and_step,
               fs.match_and_register, fs.gsff_merge, rect.edge_finish,
               rect.rect_select)
 
@@ -2610,7 +2644,7 @@ def phase_multi_video(settings):
         solo[path] = list_bytes(res[4])
     folder = os.path.join(WORK, 'mv_sharded')
     os.makedirs(folder)
-    for k in MV_KERNELS:
+    for k in MV_KERNELS + (pp.adaptive_gaussian_mean,):
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2641,11 +2675,15 @@ def phase_multi_video(settings):
     # of the other tracker kernels
     tracker_gate('multi-video ({} device steps)'.format(steps), launches,
                  steps * batch)
-    # and one frames-mode detect per device step: one adaptive mean
-    if launches['adaptive_gaussian_mean'] != steps:
-        raise SystemExit('multi-video: {} adaptive-mean launches, not one per '
-                         'device step ({})'.format(
-                             launches['adaptive_gaussian_mean'], steps))
+    # and one frames-mode detect per device step: one fused preprocess
+    # launch, no int32 adaptive mean
+    if launches['adaptive_masks_from_bgr'] != steps or \
+            pp.adaptive_gaussian_mean.launches:
+        raise SystemExit('multi-video: {} fused preprocess launches, not one '
+                         'per device step ({}); {} int32 adaptive-mean '
+                         'launches'.format(launches['adaptive_masks_from_bgr'],
+                                           steps,
+                                           pp.adaptive_gaussian_mean.launches))
     log('multi-video (phase 23): track_videos_sharded on cuda, {} clips, {} '
         'frames, {} device step(s) over a {}-device mesh: wall {:.2f} s, '
         '{:.2f} frames/s; solo track_bacteria(path) one after another {:.2f} '
@@ -3043,27 +3081,115 @@ def conv_mean(img):
     return torch.floor(x + 0.5).to(torch.int32)[:, 0]
 
 
-def phase_adaptive_mean(scene, dscene, dev):
-    """Phase 28: the adaptive-mean kernel against its plain version on the
-    card, bit-equal: the blurred first 64 frames of the bench and dense
-    scenes, a 16-frame 640x480 batch (a device step of phase 23's second
-    group), the edge shapes with values in 0-255 and in +-70,000; median ms
-    of the kernel, the plain version and the ``F.conv2d`` yardstick, with
-    the bound. Returns the bench batch's check and yardstick ms."""
+#: phase 28's frames for the fused pass besides the scenes'
+#: (tests/test_torch_preprocess.py's MASK_SHAPES and its W % 4 != 0 batch):
+#: the 64 x 128 tiles crossed, 2 rows, 2 columns, one row, one column, one
+#: pixel, byte-wise loads and stores
+MASK_EDGES = ((3, 70, 133), (3, 2, 130), (3, 67, 2), (2, 130, 260),
+              (3, 1, 130), (3, 67, 1), (3, 1, 1), (2, 921, 1227))
+#: (mode, white on dark, offset, double delta, gray) of the fused checks
+#: besides the bench configuration: both rules, white and dark, offsets on
+#: both sides of the ceil and floor edges, with and without the gray
+MASK_RULES = (('adaptive_double', True, 2.5, 1.25, True),
+              ('adaptive_double', False, -1.5, 2.0, True),
+              ('adaptive', True, 5, 0.5, False),
+              ('adaptive', False, 2.5, 1.25, True))
+
+
+def masks_outputs(out):
+    return tuple(o for o in out if o is not None)
+
+
+def check_masks(name, bgr, valid, rule, timed=False):
+    """The fused pass (``adaptive_masks_from_bgr``) against its plain
+    version on the card, bit-equal, one launch a call; with ``timed`` the
+    ``check_equal`` record (median ms of each, the bound: the BGR of the
+    valid frames read once, or of every frame with the gray, frame_valid,
+    the outputs written once; 44 float32 and about 20 integer operations a
+    pixel, counted at the float32 rate)."""
+    mode, white, offset, delta, gray = rule
+    args = (bgr, valid, mode, offset, delta, white, gray)
+    n, h, w = bgr.shape[:3]
+    if timed:
+        read = n if gray else int(valid.sum())
+        nbytes = read * h * w * 3 + n + n * h * w * (
+            1 + (mode == 'adaptive_double') + 4 * gray)
+        return check_equal(
+            'adaptive masks ' + name,
+            lambda *a: masks_outputs(pp.adaptive_masks_from_bgr(*a)),
+            lambda *a: masks_outputs(pp.adaptive_masks_from_bgr_plain(*a)),
+            args, 64 * n * h * w, plain_reps=3, nbytes=nbytes)
+    before = pp.adaptive_masks_from_bgr.launches
+    got = pp.adaptive_masks_from_bgr(*args)
+    want = pp.adaptive_masks_from_bgr_plain(*args)
+    torch.cuda.synchronize()
+    if pp.adaptive_masks_from_bgr.launches != before + 1 or any(
+            (g is None) != (v is None) or
+            (g is not None and not torch.equal(g, v))
+            for g, v in zip(got, want)):
+        raise SystemExit('adaptive masks {} {}: kernel != plain (launches '
+                         '{})'.format(name, rule,
+                                      pp.adaptive_masks_from_bgr.launches -
+                                      before))
+    return None
+
+
+def launch_args(fn, kernel):
+    """The profiler's arguments (registers, shared memory, estimated
+    achieved occupancy) of the first launch whose name holds ``kernel`` in
+    a traced call of ``fn``."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'trace.json')
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)['traceEvents']
+        for ev in events:
+            if ev.get('cat') == 'kernel' and kernel in ev['name']:
+                return ev.get('args', {})
+    return {}
+
+
+def phase_adaptive_mean(scene, settings, dscene, dev):
+    """Phase 28: both entries of ``csrc/adaptive_mean.cu`` against their
+    plain versions on the card, bit-equal. The int32 adaptive mean on the
+    blurred first 64 frames of the bench and dense scenes, a 16-frame
+    640x480 batch (a device step of phase 23's second group), the edge
+    shapes with values in 0-255 and in +-70,000, with the ``F.conv2d``
+    yardstick; its own path, ``detect_from_blurred`` on the bench batch,
+    one launch, the tables those of ``detect_batch``'s fused route. The
+    fused pass on the same three BGR batches (the bench configuration
+    timed with and without the gray, both rules, white and dark, a padded
+    batch) and on the edge shapes. Median ms, bounds and shares logged,
+    and each kernel's resources. Returns the int32 entry's bench check,
+    its yardstick ms and its launches on its path, and the fused entry's
+    bench check."""
+    cfg = detect.DetectorConfig(settings)
+    bench_rule = (cfg.mode, cfg.white_on_dark, cfg.offset, cfg.double_delta,
+                  False)
     seed, _, (ow, oh) = MV_OTHER
     other = BenchScene(seed=seed)
     batches = (
-        ('bench 64x922x1228', blurred_batch(
+        ('bench 64x922x1228', bgr_batch(
             [scene.frame(t) for t in range(64)], dev)),
-        ('dense 64x922x1228', blurred_batch(
+        ('dense 64x922x1228', bgr_batch(
             [dscene.frame(t) for t in range(64)], dev)),
-        ('640x480 16 frames', blurred_batch(
+        ('640x480 16 frames', bgr_batch(
             [other.frame(t)[:oh, :ow] for t in range(16)], dev)))
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         checks = []
-        for name, img in batches:
+        for name, bgr in batches:
+            img = detect.prepare_batch(bgr)[1]
             check = check_equal(
                 'adaptive mean ' + name,
                 lambda x: (pp.adaptive_gaussian_mean(x),),
@@ -3099,7 +3225,82 @@ def phase_adaptive_mean(scene, dscene, dev):
     log('adaptive mean edge shapes {} with values in 0-255 and in +-70,000: '
         'kernel bit-equal to the plain version, one launch a call'.format(
             list(MEAN_EDGES)))
-    return checks[0]
+    masks_checks = []
+    for name, bgr in batches:
+        n = bgr.shape[0]
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        main = check_masks(name, bgr, valid, bench_rule, timed=True)
+        with_gray = check_masks(name + ' with the gray', bgr, valid,
+                                bench_rule[:4] + (True,), timed=True)
+        for chk, what in ((main, 'mask and markers'),
+                          (with_gray, 'mask, markers and gray')):
+            log('adaptive masks {} ({}): kernel {:.4f} ms, {:.1f}% of the '
+                'bound {:.4f} ms ({}); plain {:.4f} ms'.format(
+                    name, what, chk[1], 100 * chk[3][0] / chk[1],
+                    chk[3][0], chk[3][1], chk[2]))
+        for rule in MASK_RULES:
+            check_masks(name, bgr, valid, rule)
+        padded = torch.arange(n, device=dev) < n - 3
+        for rule in (bench_rule, MASK_RULES[1]):
+            check_masks(name + ' padded', bgr, padded, rule)
+        masks_checks.append(main)
+    rng = np.random.default_rng(SEED + 40)
+    for shape in MASK_EDGES:
+        bgr = torch.from_numpy(rng.integers(0, 256, shape + (3,),
+                                            dtype=np.uint8)).to(dev)
+        valid = torch.arange(shape[0], device=dev) != 1
+        for rule in (bench_rule,) + MASK_RULES:
+            check_masks('x'.join(map(str, shape)), bgr, valid, rule)
+    log('adaptive masks: kernel bit-equal to the plain version, one launch '
+        'a call, on the three batches ({} and {} rules each, a padded '
+        'batch) and on the edge shapes {} with a padded frame'.format(
+            bench_rule, len(MASK_RULES), list(MASK_EDGES)))
+    # the int32 entry's own path: detect_from_blurred, the JAX function's
+    # counterpart, against detect_batch's fused route
+    bgr = batches[0][1]
+    valid = torch.ones(bgr.shape[0], dtype=torch.bool, device=dev)
+    pp.adaptive_gaussian_mean.launches = 0
+    pp.adaptive_masks_from_bgr.launches = 0
+    gray, blurred = detect.prepare_batch(bgr)
+    old = detect.detect_from_blurred(
+        gray, blurred, valid, None, mode=cfg.mode,
+        white_on_dark=cfg.white_on_dark, offset=cfg.offset,
+        double_delta=cfg.double_delta, max_det=cfg.max_det,
+        max_bh=cfg.max_bh, cc_iters=cfg.cc_iters)
+    mean_launches = pp.adaptive_gaussian_mean.launches
+    new = detect.detect_batch(bgr, valid, cfg)
+    torch.cuda.synchronize()
+    if (mean_launches, pp.adaptive_masks_from_bgr.launches) != (1, 1) or \
+            pp.adaptive_gaussian_mean.launches != 1:
+        raise SystemExit('adaptive mean: detect_from_blurred and detect_batch '
+                         'launched {} int32 and {} fused preprocess '
+                         'kernels'.format(pp.adaptive_gaussian_mean.launches,
+                                          pp.adaptive_masks_from_bgr.launches))
+    for key in old:
+        if not torch.equal(old[key], new[key]):
+            raise SystemExit('adaptive mean: detect_from_blurred and '
+                             'detect_batch differ in {}'.format(key))
+    log('adaptive mean: detect_from_blurred on the bench batch (one int32 '
+        'adaptive-mean launch) gives detect_batch\'s tables (one fused '
+        'launch), bit for bit')
+    lib = _build.load_kernels()
+    img = detect.prepare_batch(bgr)[1]
+    for kernel, call in (
+            ('masks_kernel', lambda: pp.adaptive_masks_from_bgr(
+                bgr, valid, *(bench_rule[i] for i in (0, 2, 3, 1)))),
+            ('mean_kernel', lambda: pp.adaptive_gaussian_mean(img))):
+        ptx = ptxas_of(lib.build_log, 'adaptive_mean.cu', kernel)
+        args = launch_args(call, kernel)
+        rec = {'kernel': kernel, 'source': 'adaptive_mean.cu'}
+        if ptx is not None:
+            regs, spill, _ = ptx
+            smem = int(args.get('shared memory') or 0)
+            rec.update(registers=regs, spill_stores=spill, shared_bytes=smem,
+                       occupancy_allowed=resident_share(regs, smem, 128))
+        rec['achieved_occupancy_pct'] = args.get(
+            'est. achieved occupancy %')
+        log('adaptive mean resources ' + json.dumps(rec))
+    return checks[0], masks_checks[0]
 
 
 # ---- the GSFF block ----
@@ -3232,7 +3433,9 @@ def frame_step(v, params, dev, plain, k=2):
     slots, 4096 detections, 3000 live) at V videos and K coordinates with
     the GSFF kernel or, with ``plain``, its plain version swapped in:
     (device operations of the step (kernels, memsets, copies), median ms
-    per frame step, the operations by name)."""
+    per frame step, the operations by name, the device operations each
+    profile of the one- and two-frame scans recorded); the first and
+    third are None where no two profiles of a scan agreed."""
     kernel = gsff_ops._register_and_step
     if plain:
         gsff_ops._register_and_step = plain_gsff_step
@@ -3240,8 +3443,10 @@ def frame_step(v, params, dev, plain, k=2):
         out = tsl.measure(trk, params, v, dev, k)
     finally:
         gsff_ops._register_and_step = kernel
-    ops = out['frame_step']['kernels'] + out['frame_step']['memops']
-    return ops, out['ms_per_frame_step'], out['frame_step_ops']
+    ops = None if out['frame_step'] is None else \
+        out['frame_step']['kernels'] + out['frame_step']['memops']
+    return (ops, out['ms_per_frame_step'], out['frame_step_ops'],
+            out['device_ops_of_each_profile'])
 
 
 #: device operations (kernels, memsets, copies) of a dense frame step:
@@ -3319,14 +3524,20 @@ def phase_gsff(dframes, dsettings, settings, dev):
         step = {name: frame_step(v, default, dev, name == 'plain', k)
                 for name in ('kernel', 'plain')}
         log('gsff: dense frame step at V = {}, K = {}: {} device operations '
-            'and {:.3f} ms with the GSFF kernel ({}), {} operations and '
-            '{:.3f} ms with its plain version'.format(
+            'and {:.3f} ms with the GSFF kernel ({}; each profile\'s '
+            'operations {}), {} operations and {:.3f} ms with its plain '
+            'version'.format(
                 v, k, step['kernel'][0], step['kernel'][1],
-                json.dumps(step['kernel'][2]), *step['plain'][:2]))
-        if not 1 <= step['kernel'][0] <= MAX_STEP_OPS:
-            raise SystemExit('gsff: the dense frame step runs {} device '
-                             'operations, not 1 to {}'.format(
-                                 step['kernel'][0], MAX_STEP_OPS))
+                json.dumps(step['kernel'][2]), step['kernel'][3],
+                *step['plain'][:2]))
+        if step['kernel'][0] is None or \
+                not 1 <= step['kernel'][0] <= MAX_STEP_OPS:
+            raise SystemExit('gsff: the dense frame step at V = {}, K = {} '
+                             'runs {} device operations, not 1 to {} ({}; '
+                             'each profile\'s operations {})'.format(
+                                 v, k, step['kernel'][0], MAX_STEP_OPS,
+                                 json.dumps(step['kernel'][2]),
+                                 step['kernel'][3]))
     return dense
 
 
@@ -3846,24 +4057,7 @@ def resident_share(regs, smem, threads):
 def achieved_occupancy(fn, kernel):
     """The profiler's estimate of achieved occupancy (%) of the first
     launch whose name holds ``kernel`` in a traced call of ``fn``."""
-    import tempfile
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, 'trace.json')
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)['traceEvents']
-        for ev in events:
-            if ev.get('cat') == 'kernel' and kernel in ev['name']:
-                return ev.get('args', {}).get('est. achieved occupancy %')
-    return None
+    return launch_args(fn, kernel).get('est. achieved occupancy %')
 
 
 def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
@@ -4034,7 +4228,8 @@ def main():
         phase_sharded_assign(dframes, dsettings, dev)
         phase_keep_and_entry(scene, settings, dev)
         phase_batched_tracker(dframes, dsettings, dev)
-        mean_check, mean_conv_ms = phase_adaptive_mean(scene, dscene, dev)
+        (mean_check, mean_conv_ms), masks_check = \
+            phase_adaptive_mean(scene, settings, dscene, dev)
         gsff_check = phase_gsff(dframes, dsettings, settings, dev)
         step_check, merge_check = phase_frame_step(dframes, dsettings, dev)
         tail_checks = phase_rect_tail(scene, settings, dscene, dsettings,
@@ -4062,11 +4257,20 @@ def main():
         'cc_labels_at_pixels', 'ysmr_tpu_torch/csrc/cc.cu',
         'ysmr_tpu/ops/pallas_cc.py:347',
         lum_launches['cc_labels_at_pixels'], pixel_check))
+    # the int32 entry is off the main path since the fused preprocess: its
+    # count is the frames path's (0, gated so in phase 10); phase 28 drives
+    # detect_from_blurred to check it
     records.append(kernel_record(
         'adaptive_gaussian_mean', 'ysmr_tpu_torch/csrc/adaptive_mean.cu',
         'ysmr_tpu/ops/preprocess.py:69',
         frames_runs['bench']['adaptive_gaussian_mean'], mean_check,
         library_ms=mean_conv_ms))
+    records.append(kernel_record(
+        'adaptive_masks_from_bgr', 'ysmr_tpu_torch/csrc/adaptive_mean.cu',
+        'ysmr_tpu/pipeline/detect.py:43 prepare_batch, '
+        'ysmr_tpu/ops/preprocess.py:185 detect_masks and & frame_valid '
+        '(plain XLA)', frames_runs['bench']['adaptive_masks_from_bgr'],
+        masks_check))
     records.append(kernel_record(
         'gsff_step', 'ysmr_tpu_torch/csrc/gsff.cu',
         'ysmr_tpu/ops/gsff.py:190 _step (plain XLA)',

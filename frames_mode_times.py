@@ -16,9 +16,12 @@ and ``chip_smoke.py`` and prints one JSON line:
 - ``detect_ms``: median host-clock ms (card synchronised; 10 calls after
   2 warm-ups) of ``detect.detect_batch`` on the bench scene's first 64
   frames (1228x922, BGR on the card; the bench capacities in frames mode:
-  adaptive double threshold, 512 detections, max_bh 64), and
-  ``mean_ms`` of ``preprocess.adaptive_gaussian_mean`` on its blurred
-  frames;
+  adaptive double threshold, 512 detections, max_bh 64), ``mean_ms``
+  of ``preprocess.adaptive_gaussian_mean`` on its blurred frames and,
+  where the checkout has it, ``masks_ms`` of the fused preprocess
+  ``preprocess.adaptive_masks_from_bgr`` on its BGR frames, each also as
+  the median of CUDA-event spans (``mean_event_ms``, ``masks_event_ms``,
+  ``masks_gray_event_ms`` with the gray);
 - ``bench_fps`` and ``device_detect_ms``: the bench scene (630 frames) in
   memory through the stage-1 loop in frames mode on ``cuda``, as smoke
   phase 10 runs it (frames/s and the ``device_detect`` stage, ms a frame);
@@ -31,6 +34,13 @@ over the steps of the same warm detect run one at a time, each ended by a
 synchronise, and gives each step the device time of the kernels that
 start inside its window (median of three passes), with the three longest
 kernels of each step; the steps' outputs are held to ``detect_batch``'s.
+The steps are ``detect_batch``'s: the fused preprocess ("adaptive
+masks": gray, blur, adaptive mean, both rules and ``& frame_valid`` in
+one launch), reconstruction, labeling, compaction, row tables + hull,
+rect. A checkout before the fused preprocess splits its own detect with
+its own copy of this script (gray, blur, adaptive mean and threshold
+comparisons in its place): ``cd <checkout> && python3
+frames_mode_times.py --split --roots .``.
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
 
@@ -88,6 +98,16 @@ def measure(root):
     rec['detect_ms'] = _host_ms(lambda: detect.detect_batch(bgr, valid, cfg))
     blurred = detect.prepare_batch(bgr)[1]
     rec['mean_ms'] = _host_ms(lambda: pp.adaptive_gaussian_mean(blurred))
+    rec['mean_event_ms'] = cs.cuda_ms(
+        lambda: pp.adaptive_gaussian_mean(blurred), reps=30)
+    if hasattr(pp, 'adaptive_masks_from_bgr'):
+        def masks(gray=False):
+            return pp.adaptive_masks_from_bgr(
+                bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
+                cfg.white_on_dark, gray)
+        rec['masks_ms'] = _host_ms(masks)
+        rec['masks_event_ms'] = cs.cuda_ms(masks, reps=30)
+        rec['masks_gray_event_ms'] = cs.cuda_ms(lambda: masks(True), reps=30)
     frames = [scene.frame(t) for t in range(cs.N_FRAMES)]
     _, _, stats = cs.run_loop(frames, settings, 'cuda', 'times_frames')
     rec['bench_fps'] = stats['fps']
@@ -131,16 +151,12 @@ def split(root):
     cfg = detect.DetectorConfig(settings)
     if cfg.mode != 'adaptive_double':
         raise SystemExit('the split follows the adaptive double threshold')
-    fv = valid[:, None, None]
     st = {}
 
-    def thresholds():
-        rule = pp._adaptive_rule
-        st['mask'] = rule(st['blurred'], st['mean'], -cfg.offset,
-                          cfg.white_on_dark) & fv
-        st['markers'] = rule(st['blurred'], st['mean'],
-                             -(cfg.offset + cfg.double_delta),
-                             cfg.white_on_dark) & fv
+    def masks():
+        st['mask'], st['markers'], _ = pp.adaptive_masks_from_bgr(
+            bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
+            cfg.white_on_dark)
 
     def compaction():
         st['comp'], st['n'] = lb.compact_labels(st['labels'], st['rec'],
@@ -152,11 +168,7 @@ def split(root):
                                            max_bh=cfg.max_bh)
 
     steps = (
-        ('gray', lambda: st.update(gray=pp.bgr_to_gray(bgr))),
-        ('blur', lambda: st.update(blurred=pp.blur3(st['gray']))),
-        ('adaptive mean', lambda: st.update(
-            mean=pp.adaptive_gaussian_mean(st['blurred']))),
-        ('threshold comparisons', thresholds),
+        ('adaptive masks', masks),
         ('reconstruction', lambda: st.update(rec=cc.binary_reconstruct(
             st['mask'], st['markers'], max_iters=cfg.cc_iters))),
         ('labeling', lambda: st.update(

@@ -6,8 +6,11 @@ Every output is compared bit for bit. The float32 adaptive mean is held to
 the jitted JAX function (XLA:CPU contracts its taps into fmas; the port
 forms the same fmas exactly) on the shapes that make edges of the CUDA
 kernel's tiles and of the plain version's chunks, and, through the
-threshold, to cv2.adaptiveThreshold, including a 922x1228 frame; the
-``cuda``-marked test holds the kernel to the plain version on the card.
+threshold, to cv2.adaptiveThreshold, including a 922x1228 frame. Frames
+mode's single pass (``adaptive_masks_from_bgr``) is held to the jitted JAX
+chain (``prepare_batch``, ``detect_masks``, ``& frame_valid``), and both
+kernels' tile designs are emulated here; the ``cuda``-marked tests hold
+the kernels to the plain versions on the card.
 """
 
 import cv2
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from ysmr_tpu.ops import preprocess as jpp
+from ysmr_tpu.pipeline import detect as jdet
 from ysmr_tpu_torch.ops import preprocess as pp
 
 torch.set_num_threads(1)
@@ -82,24 +86,92 @@ def test_adaptive_mean_wide_values_match_jitted_jax(rng, shape):
         ours, np.asarray(jax.jit(jpp.adaptive_gaussian_mean)(img)))
 
 
-def _tiled_mean(img, tile_h=32, tile_w=64):
-    """csrc/adaptive_mean.cu's design, tile by tile: the clamped
-    (tile_h + 10) x (tile_w + 10) window, the horizontal chain over every
-    window row (halo rows from their clamped source rows), the vertical
-    chain over the row sums, the ragged edge cut off."""
+#: csrc/adaptive_mean.cu's tile: output rows and columns, the rows of a
+#: thread's strip in the mean
+TILE_H, TILE_W, STRIP = 64, 128, 16
+
+
+def _strip_means(win, k):
+    """The mean's phase of a tile: each 16-row strip's chains over its 26
+    window rows (the horizontal chain of each row, then the vertical chain
+    over 11 of them: the register ring), the strips stacked."""
+    out = []
+    for s in range(0, win.shape[-2] - 10, STRIP):
+        rows = win[..., s:s + STRIP + 10, :]
+        out.append(pp._taps11(pp._taps11(rows, -1, k), -2, k))
+    return torch.cat(out, dim=-2)
+
+
+def _tiled_mean(img):
+    """csrc/adaptive_mean.cu's ysmr_adaptive_mean, tile by tile: the
+    float32 input at the clamped (TILE_H + 10) x (TILE_W + 10) window
+    positions, the strips' chains, the ragged edge cut off."""
     t, h, w = img.shape
     k = [torch.tensor(v, dtype=torch.float32) for v in pp._K11_F32]
     out = torch.empty_like(img)
-    for y0 in range(0, h, tile_h):
-        for x0 in range(0, w, tile_w):
-            ys = torch.arange(y0 - 5, y0 + tile_h + 5).clamp(0, h - 1)
-            xs = torch.arange(x0 - 5, x0 + tile_w + 5).clamp(0, w - 1)
+    for y0 in range(0, h, TILE_H):
+        for x0 in range(0, w, TILE_W):
+            ys = torch.arange(y0 - 5, y0 + TILE_H + 5).clamp(0, h - 1)
+            xs = torch.arange(x0 - 5, x0 + TILE_W + 5).clamp(0, w - 1)
             win = img[:, ys][:, :, xs].to(torch.float32)
-            acc = pp._taps11(pp._taps11(win, -1, k), -2, k)
-            cut = torch.floor(acc + 0.5).to(torch.int32)
-            out[:, y0:y0 + tile_h, x0:x0 + tile_w] = \
-                cut[:, :min(tile_h, h - y0), :min(tile_w, w - x0)]
+            cut = torch.floor(_strip_means(win, k) + 0.5).to(torch.int32)
+            out[:, y0:y0 + TILE_H, x0:x0 + TILE_W] = \
+                cut[:, :min(TILE_H, h - y0), :min(TILE_W, w - x0)]
     return out
+
+
+def _reflect101_clamped(v, n):
+    """The kernel's map of a window position to a pixel: reflect-101, then
+    clamped (positions past the blur's one-pixel halo feed no output)."""
+    v = np.where(v < 0, -v, np.where(v >= n, 2 * n - 2 - v, v))
+    return np.clip(v, 0, n - 1)
+
+
+def _tiled_masks(bgr, valid, mode, c_offset, double_delta, white):
+    """csrc/adaptive_mean.cu's ysmr_adaptive_masks, tile by tile, in numpy
+    and the plain version's float32 chains (``ds.fma_f32``): the gray
+    window (rows from y0 - 6, columns from x0 - 8, both mapped by
+    reflect-101 then clamped), the blur as (S + 8) >> 4 over it, the
+    window's rows and then columns outside the frame copied from the
+    frame's edge row and column, the strips' mean chains, the rules as
+    (acc + 0.5 < blur - bound) != dark (white keeps blur - floor(acc +
+    0.5) > bound), zeros for an invalid frame."""
+    n, h, w, _ = bgr.shape
+    k = [torch.tensor(v, dtype=torch.float32) for v in pp._K11_F32]
+    dark = not white
+    bounds = [pp._rule_bound(-c_offset, white)]
+    if mode == 'adaptive_double':
+        bounds.append(pp._rule_bound(-(c_offset + double_delta), white))
+    outs = [np.zeros((n, h, w), bool) for _ in bounds]
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    gray = (b * 3735 + g * 19235 + r * 9798 + 16384) >> 15
+    for y0 in range(0, h, TILE_H):
+        for x0 in range(0, w, TILE_W):
+            gy = _reflect101_clamped(np.arange(y0 - 6, y0 + TILE_H + 6), h)
+            gx = _reflect101_clamped(np.arange(x0 - 8, x0 + TILE_W + 8), w)
+            gw = gray[:, gy][:, :, gx]
+            hs = gw[..., 2:-2] + 2 * gw[..., 3:-1] + gw[..., 4:]
+            s = hs[:, :-2] + 2 * hs[:, 1:-1] + hs[:, 2:]
+            win = (s + 8) >> 4                 # (n, TILE_H + 10, TILE_W + 12)
+            top, bottom = 5 - y0, h - 1 - y0 + 5
+            if top > 0:
+                win[:, :top] = win[:, top:top + 1]
+            if bottom < win.shape[1] - 1:
+                win[:, bottom + 1:] = win[:, bottom:bottom + 1]
+            left, right = 5 - x0, w - 1 - x0 + 5
+            if left > 0:
+                win[:, :, :left] = win[:, :, left:left + 1]
+            if right < win.shape[2] - 1:
+                win[:, :, right + 1:] = win[:, :, right:right + 1]
+            winf = torch.from_numpy(win.astype(np.float32))
+            half = (_strip_means(winf[..., :TILE_W + 10], k) + 0.5).numpy()
+            blur = win[:, 5:TILE_H + 5, 5:TILE_W + 5].astype(np.float32)
+            th, tw = min(TILE_H, h - y0), min(TILE_W, w - x0)
+            for out, bound in zip(outs, bounds):
+                keep = ((half < blur - np.float32(bound)) != dark) & \
+                    valid[:, None, None]
+                out[:, y0:y0 + th, x0:x0 + tw] = keep[:, :th, :tw]
+    return outs[0], outs[1] if len(outs) > 1 else None, gray.astype(np.int32)
 
 
 @pytest.mark.parametrize('shape', [(1, 1, 1), (3, 7, 5), (2, 70, 150)])
@@ -147,6 +219,279 @@ def test_adaptive_mean_kernel_matches_plain_on_cuda(rng):
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == img.shape
         assert torch.equal(got, want), (shape, span)
+
+
+#: frames of the fused pass: crossing the kernel's 64 x 128 tiles, 2 rows,
+#: 2 columns, one row, one column, one pixel, W % 4 != 0 (its byte-wise
+#: loads and stores)
+MASK_SHAPES = [(3, 70, 133), (3, 2, 130), (3, 67, 2), (2, 130, 260),
+               (3, 1, 130), (3, 67, 1), (3, 1, 1)]
+#: (offset, double threshold delta): fractional offsets on both sides of
+#: the ceil and floor edges
+MASK_OFFSETS = [(2.5, 1.25), (-1.5, 2.0), (5, 0.5)]
+#: the batch's frame_valid: a padding frame in the middle
+MASK_VALID = np.array([True, False, True])
+
+
+def _bgr(rng, shape):
+    return rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+
+
+def _jax_masks(bgr, valid, mode, c_offset, double_delta, white):
+    """The JAX package's chain: jitted prepare_batch, jitted detect_masks,
+    & frame_valid."""
+    gray, blurred = jax.jit(jdet.prepare_batch)(bgr)
+    mask, markers = jax.jit(jpp.detect_masks, static_argnums=(1, 2, 3, 4))(
+        blurred, mode, c_offset, double_delta, white)
+    fv = valid[:, None, None]
+    return (np.asarray(mask) & fv,
+            None if markers is None else np.asarray(markers) & fv,
+            np.asarray(gray))
+
+
+@pytest.mark.parametrize('shape', MASK_SHAPES)
+@pytest.mark.parametrize('mode,white', [('adaptive_double', True),
+                                        ('adaptive_double', False),
+                                        ('adaptive', True),
+                                        ('adaptive', False)])
+def test_adaptive_masks_plain_matches_jitted_jax(rng, shape, mode, white):
+    """Mask, markers and gray of the fused pass's plain version, bit for
+    bit against the jitted JAX chain, on a batch with a padding frame."""
+    bgr = _bgr(rng, shape)
+    valid = MASK_VALID[:shape[0]]
+    for c_offset, delta in MASK_OFFSETS:
+        mask, markers, gray = pp.adaptive_masks_from_bgr_plain(
+            torch.from_numpy(bgr), torch.from_numpy(valid), mode, c_offset,
+            delta, white, want_gray=True)
+        want = _jax_masks(bgr, valid, mode, c_offset, delta, white)
+        assert mask.dtype == torch.bool and gray.dtype == torch.int32
+        np.testing.assert_array_equal(_np(mask), want[0])
+        assert (markers is None) == (want[1] is None)
+        if markers is not None:
+            np.testing.assert_array_equal(_np(markers), want[1])
+        np.testing.assert_array_equal(_np(gray), want[2])
+        np.testing.assert_array_equal(
+            _np(gray), np.asarray(jax.jit(jpp.bgr_to_gray)(bgr)))
+
+
+@pytest.mark.parametrize('shape', MASK_SHAPES)
+def test_adaptive_masks_tiled_design_matches_plain(rng, shape):
+    """The fused kernel's tiles, halo maps, edge copies and strips give the
+    plain version's bits, both rules, white and dark, a padding frame."""
+    bgr = _bgr(rng, shape)
+    valid = MASK_VALID[:shape[0]]
+    for mode, white in (('adaptive_double', True), ('adaptive_double', False),
+                        ('adaptive', True)):
+        for c_offset, delta in MASK_OFFSETS:
+            got = _tiled_masks(bgr, valid, mode, c_offset, delta, white)
+            want = pp.adaptive_masks_from_bgr_plain(
+                torch.from_numpy(bgr), torch.from_numpy(valid), mode,
+                c_offset, delta, white, want_gray=True)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if g is not None:
+                    np.testing.assert_array_equal(g, _np(w))
+
+
+def _byte(x, i):
+    return (x >> np.uint32(8 * i)) & np.uint32(255)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays."""
+    src = [_byte(x, i) for i in range(4)] + [_byte(y, i) for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << np.uint32(8 * i)
+               for i in range(4)).astype(np.uint32)
+
+
+def _dp2a(a, b, c, hi):
+    """CUDA's unsigned __dp2a_lo / __dp2a_hi: the two 16-bit halves of a
+    times bytes 0-1 (lo) or 2-3 (hi) of b, plus c."""
+    a = np.uint32(a)
+    return (c + (a & np.uint32(0xFFFF)) * _byte(b, 2 * hi) +
+            (a >> np.uint32(16)) * _byte(b, 2 * hi + 1)).astype(np.uint32)
+
+
+def test_adaptive_masks_packed_arithmetic():
+    """The kernel's packed integer steps against the plain arithmetic: the
+    gray of four pixels from three BGR words by eight dot products (seeded
+    and extreme B, G, R values in each of the four pixel slots), the
+    [1 2 1] blur in
+    16-bit lanes turned to float32 under the exponent of 2^23 (seeded
+    windows and all-255 ones), and the rule fl(acc + 0.5) < blur - bound
+    for floor(fl(acc + 0.5)) < blur - bound at every float32 acc within
+    2^11 ulps of each half-integer in [0, 256) and at seeded ones. The
+    shortcut acc < blur - (bound + 0.5) is not the same: at acc =
+    0.49999997, acc + 0.5 rounds to 1."""
+    rng = np.random.default_rng(7)
+    corners = np.stack(np.meshgrid(*[[0, 1, 254, 255]] * 3, indexing='ij'),
+                       -1).reshape(-1, 3)
+    bgr = np.concatenate([corners, rng.integers(0, 256, (1 << 16, 3))]
+                         ).astype(np.uint32)
+    want = (bgr[:, 0] * 3735 + bgr[:, 1] * 19235 + bgr[:, 2] * 9798 +
+            16384) >> 15
+    for slot in range(4):
+        px = rng.integers(0, 256, (len(bgr), 12)).astype(np.uint32)
+        px[:, 3 * slot:3 * slot + 3] = bgr
+        p, q, r = (sum(px[:, 4 * i + j] << np.uint32(8 * j)
+                       for j in range(4)).astype(np.uint32)
+                   for i in range(3))
+        kbg, kr = 7470 | 38470 << 16, 19596
+        kb, kgr = 7470 << 16, 38470 | 19596 << 16
+        g2 = [_dp2a(kr, p, _dp2a(kbg, p, 32768, 0), 1),
+              _dp2a(kgr, q, _dp2a(kb, p, 32768, 1), 0),
+              _dp2a(kr, r, _dp2a(kbg, q, 32768, 1), 0),
+              _dp2a(kgr, r, _dp2a(kb, r, 32768, 0), 1)]
+        word = _byte_perm(_byte_perm(g2[0], g2[1], 0x0062),
+                          _byte_perm(g2[2], g2[3], 0x0062), 0x5410)
+        np.testing.assert_array_equal(_byte(word, slot), want)
+        np.testing.assert_array_equal(g2[slot] >> np.uint32(16), want)
+    gray = rng.integers(0, 256, (1 << 16, 3, 8)).astype(np.uint32)
+    gray[:1000] = 255
+    words = [sum(gray[:, :, 4 * i + j] << np.uint32(8 * j)
+                 for j in range(4)).astype(np.uint32) for i in range(2)]
+    lo, hi = words
+    wide = lo.astype(np.uint64) | hi.astype(np.uint64) << np.uint64(32)
+    p = (wide >> np.uint64(16)).astype(np.uint32)
+    q = (wide >> np.uint64(24)).astype(np.uint32)
+    zero = np.zeros_like(lo)
+    lanes = {}
+    for name, sel in (('even', 0x4240), ('odd', 0x4341)):
+        hs = (_byte_perm(p, zero, sel) + 2 * _byte_perm(q, zero, sel) +
+              _byte_perm(hi, zero, sel))
+        lanes[name] = (((hs[:, 0] + 2 * hs[:, 1] + hs[:, 2] + 0x00080008)
+                        >> np.uint32(4)) & np.uint32(0x0FFF0FFF))
+    magic = np.full(len(lo), 0x4B000000, np.uint32)
+    got = np.stack([_byte_perm(lanes[lane], magic, sel).view(np.float32) -
+                    np.float32(8388608.0)
+                    for lane, sel in (('even', 0x7650), ('odd', 0x7650),
+                                      ('even', 0x7652), ('odd', 0x7652))], 1)
+    rows = gray[:, :, 2:6] + 2 * gray[:, :, 3:7] + gray[:, :, 4:8]
+    s = rows[:, 0] + 2 * rows[:, 1] + rows[:, 2]
+    np.testing.assert_array_equal(got, ((4096 * s + 32768) >> 16)
+                                  .astype(np.float32))
+    near = (np.arange(512, dtype=np.float32) / 2)[:, None].view(np.int32) + \
+        np.arange(-(1 << 11), 1 << 11, dtype=np.int32)
+    acc = np.concatenate([near.ravel().view(np.float32),
+                          rng.uniform(0, 256, 10 ** 6).astype(np.float32)])
+    acc = acc[(acc >= 0) & (acc < 256)]
+    half = acc + np.float32(0.5)
+    for bound in (-7, -3, 0, 2, 5):
+        for blur in (0, 1, 127, 128, 200, 255):
+            want = np.floor(half) < np.float32(blur - bound)
+            got = half < np.float32(blur) - np.float32(bound)
+            np.testing.assert_array_equal(got, want)
+    tie = np.float32(0.49999997)
+    assert np.floor(tie + np.float32(0.5)) == 1 and tie < np.float32(0.5)
+
+
+def test_adaptive_masks_wrapper_on_cpu(rng):
+    """A CPU tensor goes to the plain version and launches nothing; what
+    the kernel does not take raises ValueError on any device, and mean
+    mode raises."""
+    bgr = torch.from_numpy(_bgr(rng, (3, 40, 70)))
+    valid = torch.from_numpy(MASK_VALID)
+    pp.adaptive_masks_from_bgr.launches = 0
+    for mode in ('adaptive', 'adaptive_double'):
+        for want_gray in (False, True):
+            got = pp.adaptive_masks_from_bgr(bgr, valid, mode, 5, 2.0, True,
+                                             want_gray=want_gray)
+            want = pp.adaptive_masks_from_bgr_plain(bgr, valid, mode, 5, 2.0,
+                                                    True, want_gray)
+            assert (got[1] is None) == (mode == 'adaptive')
+            assert (got[2] is None) != want_gray
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
+    assert pp.adaptive_masks_from_bgr.launches == 0
+    meta = torch.empty((1, 4, 4, 3), dtype=torch.uint8, device='meta')
+    bad = [
+        (bgr, valid, 'mean'),
+        (bgr.to(torch.int32), valid, 'adaptive'),
+        (bgr[..., :2].contiguous(), valid, 'adaptive'),
+        (bgr[0], valid[:1], 'adaptive'),
+        (bgr.transpose(1, 2), valid, 'adaptive'),
+        (bgr, valid.to(torch.uint8), 'adaptive'),
+        (bgr, valid[:2], 'adaptive'),
+        (bgr, torch.ones(6, dtype=torch.bool)[::2], 'adaptive'),
+        (meta, torch.ones(1, dtype=torch.bool, device='meta'), 'adaptive'),
+        (meta, torch.ones(1, dtype=torch.bool), 'adaptive')]
+    for frames, fv, mode in bad:
+        with pytest.raises(ValueError):
+            pp.adaptive_masks_from_bgr(frames, fv, mode, 5, 2.0, True)
+    assert pp.adaptive_masks_from_bgr.launches == 0
+
+
+def test_one_pixel_axis_blur_matches_jax(rng):
+    """blur3's reflect-101 border on an axis of one pixel reflects onto the
+    pixel itself, as jnp.pad's reflect does: the same shape and bits."""
+    for shape in ((1, 1, 5), (1, 5, 1), (2, 1, 1), (1, 2, 1)):
+        g = rng.integers(0, 256, shape).astype(np.int32)
+        np.testing.assert_array_equal(
+            _np(pp.blur3(torch.from_numpy(g))),
+            np.asarray(jax.jit(jpp.blur3)(g)))
+
+
+def _cuda_masks_cases(rng):
+    """(bgr, valid) batches of the cuda twins: the CPU tests' shapes, a
+    W % 4 != 0 frame at full size and the bench batch's shape."""
+    out = [(_bgr(rng, s), MASK_VALID[:s[0]]) for s in MASK_SHAPES]
+    out.append((_bgr(rng, (2, 921, 1227)), np.array([False, True])))
+    out.append((_bgr(rng, (64, 922, 1228)), np.arange(64) < 61))
+    return out
+
+
+@pytest.mark.cuda
+def test_adaptive_masks_kernel_matches_plain_on_cuda(rng):
+    """csrc/adaptive_mean.cu's ysmr_adaptive_masks against the plain
+    version on the card, bit for bit: the CPU tests' shapes, modes, rules
+    and offsets (and so the tile design's cases), a 921 x 1227 batch
+    (byte-wise loads and stores) and a padded 64 x 922 x 1228 batch, with
+    and without the gray; one launch counted per call. Runs on a machine
+    with an NVIDIA GPU (see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    dev = torch.device('cuda')
+    for bgr_np, valid_np in _cuda_masks_cases(rng):
+        bgr = torch.from_numpy(bgr_np).to(dev)
+        valid = torch.from_numpy(valid_np).to(dev)
+        for mode, white in (('adaptive_double', True),
+                            ('adaptive_double', False), ('adaptive', True),
+                            ('adaptive', False)):
+            for (c_offset, delta), want_gray in zip(MASK_OFFSETS,
+                                                    (True, False, True)):
+                pp.adaptive_masks_from_bgr.launches = 0
+                got = pp.adaptive_masks_from_bgr(bgr, valid, mode, c_offset,
+                                                 delta, white, want_gray)
+                assert pp.adaptive_masks_from_bgr.launches == 1
+                want = pp.adaptive_masks_from_bgr_plain(
+                    bgr, valid, mode, c_offset, delta, white, want_gray)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert (g is None) == (w is None)
+                    if g is not None:
+                        assert g.dtype == w.dtype and torch.equal(g, w), (
+                            bgr.shape, mode, white, c_offset)
+
+
+@pytest.mark.cuda
+def test_adaptive_masks_tiled_design_matches_kernel_on_cuda(rng):
+    """The numpy emulation of the tile design against the kernel on the
+    card on the tile-crossing shapes (the twin of the CPU design test)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    dev = torch.device('cuda')
+    for shape in MASK_SHAPES:
+        bgr = _bgr(rng, shape)
+        valid = MASK_VALID[:shape[0]]
+        for c_offset, delta in MASK_OFFSETS:
+            want = _tiled_masks(bgr, valid, 'adaptive_double', c_offset,
+                                delta, False)
+            got = pp.adaptive_masks_from_bgr(
+                torch.from_numpy(bgr).to(dev),
+                torch.from_numpy(valid).to(dev), 'adaptive_double',
+                c_offset, delta, False, want_gray=True)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.cpu().numpy(), w)
 
 
 @pytest.mark.parametrize('c_offset', [-7.0, -5.0, -2.5, 0.0, 3.0, 5.0, 7.5])

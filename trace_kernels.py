@@ -27,6 +27,11 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
 - ``gsff``: ``register_and_step`` (the tracker's GSFF block) on random
   mid-run states of 4096 slots with the default bank and of 1024 slots
   with n_max 256 and 8 filters (phase 29's);
+- ``preprocess``: the two entries of ``csrc/adaptive_mean.cu``, the int32
+  ``adaptive_gaussian_mean`` on the bench scene's blurred first 64
+  frames and the fused ``adaptive_masks_from_bgr`` on their BGR (the
+  bench configuration, with and without the gray; a checkout from before
+  the fused entry traces the int32 one alone);
 - ``frame_step``: ``match_and_register`` (the tracker's match, ageing,
   registration and emissions: the rank and update launches of
   ``csrc/frame_step.cu``) and ``gsff_merge`` on random states at the
@@ -59,7 +64,7 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign', 'gsff',
-          'frame_step')
+          'frame_step', 'preprocess')
 
 
 def parse_args():
@@ -293,6 +298,28 @@ def trace_frame_step(smoke, args, dev):
               args.reps, smoke)
 
 
+def trace_preprocess(smoke, args, dev):
+    import torch
+    from ysmr_tpu_torch.ops import preprocess as pp
+    from ysmr_tpu_torch.pipeline import detect
+    scene = smoke.BenchScene()
+    cfg = detect.DetectorConfig(smoke.bench_settings())
+    bgr = smoke.bgr_batch([scene.frame(t) for t in range(64)], dev)
+    blurred = detect.prepare_batch(bgr)[1]
+    shape = 'x'.join(str(n) for n in blurred.shape)
+    trace('adaptive_gaussian_mean bench {}'.format(shape),
+          lambda: pp.adaptive_gaussian_mean(blurred), args.reps, smoke)
+    if not hasattr(pp, 'adaptive_masks_from_bgr'):
+        return      # a checkout from before the fused preprocess
+    valid = torch.ones(bgr.shape[0], dtype=torch.bool, device=dev)
+    for gray in (False, True):
+        trace('adaptive_masks_from_bgr bench {} {}{}'.format(
+            shape, cfg.mode, ' with the gray' if gray else ''),
+            lambda: pp.adaptive_masks_from_bgr(
+                bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
+                cfg.white_on_dark, gray), args.reps, smoke)
+
+
 def end_to_end(smoke, args):
     """The smoke's scenes in memory through the stage-1 loop on cuda:
     frames/s and stage split of each run."""
@@ -346,7 +373,8 @@ def main():
     tracers = {'run_prop': trace_run_prop, 'cc': trace_cc,
                'rects': trace_rects, 'pixels': trace_pixels,
                'assign': trace_assign, 'gsff': trace_gsff,
-               'frame_step': trace_frame_step}
+               'frame_step': trace_frame_step,
+               'preprocess': trace_preprocess}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

@@ -13,9 +13,11 @@ the dense scene's capacities (4096 slots, 4096 detections a frame, K = 2,
 the GSFF bank of the default tracking.ini) and hold 3000 seeded
 detections drifting by about a pixel a frame. After a warm-up scan,
 ``torch.profiler`` (CPU and CUDA activities) records a scan of one frame
-and one of two frames; their difference is one frame step, the rest the
-scan's own work (its checks and buffers), and the step's device
-operations (kernels, memsets, copies) are listed by name. Then five
+and one of two frames, each until two of its profiles list the same
+device operations (the profiler now and then drops or adds some); their
+difference is one frame step, the rest the scan's own work (its checks
+and buffers), and the step's device operations (kernels, memsets,
+copies) are listed by name. Then five
 16-frame scans are timed on the host clock with the card synchronised
 (median and each).
 ``--videos 4`` also runs the step over four videos at once (a tree whose
@@ -37,6 +39,8 @@ import numpy as np
 import torch
 
 SLOTS, DETS, LIVE = 4096, 4096, 3000
+#: profiles at most of each scan, until two list the same device operations
+PROFILES = 5
 
 
 def tables(rng, t_len, v, dev, k=2):
@@ -91,19 +95,29 @@ def measure(trk, params, v, dev, k=2):
                      {g: torch.stack([y] * v) for g, y in x.items()})
                  for k, x in state.items()}
     state, _ = trk.run_tracker_scan(state, *frames(0, 4), **kwargs)
-    counts, names = {}, {}
+    counts, names, totals = {}, {}, {}
     for n in (1, 2):
-        # a profile now and then records no device operation at all (seen
-        # on the H100 after several profiles in one process): take another
-        for _ in range(3):
+        # a profile now and then records no device operation at all, or
+        # another number of them than the same scan's other profiles (both
+        # seen on the H100 after many profiles in one process): profile the
+        # scan until two profiles list the same device operations, at most
+        # PROFILES times, and keep those; with no two alike they are None
+        counts[n] = names[n] = None
+        totals[n], earlier = [], []
+        for _ in range(PROFILES):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 trk.run_tracker_scan(state, *frames(4, 4 + n), **kwargs)
                 torch.cuda.synchronize()
-            counts[n], names[n] = count(prof)
-            if counts[n][0] + counts[n][1]:
+            got, ops = count(prof)
+            totals[n].append(got[0] + got[1])
+            if not got[0] + got[1]:
+                continue
+            if ops in earlier:
+                counts[n], names[n] = got, ops
                 break
+            earlier.append(ops)
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -111,11 +125,16 @@ def measure(trk, params, v, dev, k=2):
         trk.run_tracker_scan(state, *frames(4, 20), **kwargs)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / 16 * 1e3)
-    step = [b - a for a, b in zip(counts[1], counts[2])]
     keys = ('kernels', 'memops', 'launch_calls')
-    return {'frame_step': dict(zip(keys, step)),
-            'frame_step_ops': dict(sorted((names[2] - names[1]).items())),
-            'scan_of_one_frame': dict(zip(keys, counts[1])),
+    stable = counts[1] is not None and counts[2] is not None
+    step = [b - a for a, b in zip(counts[1], counts[2])] if stable else None
+    return {'frame_step': dict(zip(keys, step)) if stable else None,
+            'frame_step_ops': dict(sorted((names[2] - names[1]).items()))
+            if stable else None,
+            'scan_of_one_frame': dict(zip(keys, counts[1]))
+            if counts[1] is not None else None,
+            'device_ops_of_each_profile': {'one_frame': totals[1],
+                                           'two_frames': totals[2]},
             'ms_per_frame_step': float(np.median(walls)),
             'ms_per_frame_step_each': walls}
 

@@ -169,6 +169,9 @@ def load_kernels():
     lib.ysmr_adaptive_mean.restype = ci
     lib.ysmr_adaptive_mean.argtypes = [vp, vp, ctypes.POINTER(
         ctypes.c_float)] + [ci] * 4 + [vp]
+    lib.ysmr_adaptive_masks.restype = ci
+    lib.ysmr_adaptive_masks.argtypes = [vp] * 5 + [ctypes.POINTER(
+        ctypes.c_float)] + [ci] * 7 + [vp]
     lib.ysmr_gsff_step.restype = ci
     lib.ysmr_gsff_step.argtypes = [vp] * 20 + [ci] * 6 + [vp]
     lib.ysmr_frame_step.restype = ci

@@ -66,12 +66,8 @@ def entry(device='cuda'):
 
     def step(frames_bgr, tracker_state):
         n = frames_bgr.shape[0]
-        gray, blurred = det.prepare_batch(frames_bgr)
         frame_valid = torch.ones(n, dtype=torch.bool, device=frames_bgr.device)
-        thresholds = torch.zeros(n, dtype=torch.int32,
-                                 device=frames_bgr.device)
-        tables = det.detect_from_blurred(gray, blurred, frame_valid,
-                                         thresholds, **dkw)
+        tables = det.detect_adaptive(frames_bgr, frame_valid, **dkw)
         return trk.run_tracker_scan(tracker_state, tables['det_xy'],
                                     tables['det_info'], tables['det_valid'],
                                     **tkw)

@@ -11,6 +11,16 @@ GPU, but for the adaptive mean, a hand-written kernel on a GPU (below),
 and the host helpers, copied unchanged. The JAX module's docstring gives the
 OpenCV recipes each function reproduces.
 
+Frames mode in the adaptive modes takes one call instead of that chain:
+``adaptive_masks_from_bgr`` goes from the BGR frames to the mask and the
+markers (and, for luminosity, the gray frames) in one launch of
+``csrc/adaptive_mean.cu``'s second entry on a CUDA tensor, and through
+``adaptive_masks_from_bgr_plain`` (``bgr_to_gray``, ``blur3``,
+``adaptive_gaussian_mean_plain``, the rules and ``& frame_valid``: the
+chain of ``ysmr_tpu/pipeline/detect.py``) on a CPU one, the same bits.
+Mean-threshold mode keeps the chain (its thresholds come from the host
+between the gray frames and the masks).
+
 Bits that differ by construction and what the port does about them:
 
 - The 11-tap float32 mean is spelt as the jitted JAX function computes it.
@@ -76,9 +86,14 @@ def bgr_to_gray(frames_bgr):
 
 def _pad_reflect1(x):
     """One-pixel reflect-101 border on the last two axes
-    (``jnp.pad(mode='reflect')``)."""
-    x = torch.cat([x[..., :, 1:2], x, x[..., :, -2:-1]], dim=-1)
-    return torch.cat([x[..., 1:2, :], x, x[..., -2:-1, :]], dim=-2)
+    (``jnp.pad(mode='reflect')``: an axis of one pixel reflects onto
+    itself)."""
+    h, w = x.shape[-2:]
+    a, b = min(1, w - 1), min(1, h - 1)
+    x = torch.cat([x[..., :, a:a + 1], x, x[..., :, w - 1 - a:w - a]],
+                  dim=-1)
+    return torch.cat([x[..., b:b + 1, :], x, x[..., h - 1 - b:h - b, :]],
+                     dim=-2)
 
 
 def _pad_edge(x, k):
@@ -159,11 +174,18 @@ def adaptive_gaussian_mean(img):
 adaptive_gaussian_mean.launches = 0
 
 
+def _rule_bound(c_offset, white_on_dark):
+    """The integer bound of the adaptive rule with C = ``c_offset``: white
+    on dark keeps ``diff > bound``, dark ``diff <= bound``."""
+    if white_on_dark:
+        return -int(math.ceil(c_offset))
+    return -int(math.floor(c_offset))
+
+
 def _adaptive_rule(img, mean, c_offset, white_on_dark):
     diff = img.to(_I32) - mean
-    if white_on_dark:
-        return diff > -int(math.ceil(c_offset))
-    return diff <= -int(math.floor(c_offset))
+    bound = _rule_bound(c_offset, white_on_dark)
+    return diff > bound if white_on_dark else diff <= bound
 
 
 def adaptive_threshold(img, c_offset, white_on_dark):
@@ -243,6 +265,98 @@ def detect_masks(blurred, mode, c_offset, double_delta, white_on_dark,
         return mask, _adaptive_rule(blurred, mean, -(c_offset + double_delta),
                                     white_on_dark)
     return mask, None
+
+
+def adaptive_masks_from_bgr_plain(frames_bgr, frame_valid, mode, c_offset,
+                                  double_delta, white_on_dark,
+                                  want_gray=False):
+    """The plain version of :func:`adaptive_masks_from_bgr`: gray, blur,
+    the adaptive mean, the rules of ``detect_masks`` and ``& frame_valid``
+    as separate torch passes."""
+    gray = bgr_to_gray(frames_bgr)
+    blurred = blur3(gray)
+    mean = adaptive_gaussian_mean_plain(blurred)
+    fv = frame_valid[:, None, None]
+    # the reference passes C = -offset (offset already negated for dark bg)
+    mask = _adaptive_rule(blurred, mean, -c_offset, white_on_dark) & fv
+    markers = None
+    if mode == 'adaptive_double':
+        markers = _adaptive_rule(blurred, mean, -(c_offset + double_delta),
+                                 white_on_dark) & fv
+    return mask, markers, gray if want_gray else None
+
+
+#: rule bounds beyond this never change a comparison (|blur - mean| < 256);
+#: the kernel takes them as C ints
+_BOUND_LIMIT = 1 << 20
+
+
+def _kernel_bound(c_offset, white_on_dark):
+    return max(-_BOUND_LIMIT, min(_BOUND_LIMIT,
+                                  _rule_bound(c_offset, white_on_dark)))
+
+
+def adaptive_masks_from_bgr(frames_bgr, frame_valid, mode, c_offset,
+                            double_delta, white_on_dark, want_gray=False):
+    """Frames mode's preprocess in the adaptive modes in one pass: BGR
+    frames to the mask and markers of ``detect_masks(blur3(bgr_to_gray(
+    frames_bgr)), ...)``, each ``& frame_valid``. A CPU tensor goes to
+    :func:`adaptive_masks_from_bgr_plain`, a CUDA tensor to one launch of
+    ``csrc/adaptive_mean.cu``'s ``ysmr_adaptive_masks``; nothing falls back
+    from one to the other.
+
+    :param frames_bgr: (N, H, W, 3) uint8, contiguous
+    :param frame_valid: (N,) bool, contiguous, on the same device
+    :param mode: 'adaptive' or 'adaptive_double'
+    :param c_offset, double_delta, white_on_dark: as for ``detect_masks``
+    :param want_gray: also return the gray frames (luminosity)
+    :return: (mask (N, H, W) bool, markers (N, H, W) bool or None,
+        gray (N, H, W) int32 or None)
+    """
+    if mode not in ('adaptive', 'adaptive_double'):
+        raise ValueError('adaptive_masks_from_bgr: mode must be adaptive or '
+                         'adaptive_double, not {!r}'.format(mode))
+    if frames_bgr.dim() != 4 or frames_bgr.shape[-1] != 3 or \
+            frames_bgr.dtype != torch.uint8 or \
+            not frames_bgr.is_contiguous():
+        raise ValueError('adaptive_masks_from_bgr: frames_bgr must be a '
+                         'contiguous (N, H, W, 3) uint8 tensor')
+    n, h, w = frames_bgr.shape[:3]
+    if tuple(frame_valid.shape) != (n,) or frame_valid.dtype != torch.bool \
+            or frame_valid.device != frames_bgr.device or \
+            not frame_valid.is_contiguous():
+        raise ValueError('adaptive_masks_from_bgr: frame_valid must be a '
+                         'contiguous (N,) bool tensor on the frames\' device')
+    if frames_bgr.device.type == 'cpu':
+        return adaptive_masks_from_bgr_plain(
+            frames_bgr, frame_valid, mode, c_offset, double_delta,
+            white_on_dark, want_gray)
+    if frames_bgr.device.type != 'cuda':
+        raise ValueError('adaptive_masks_from_bgr: unsupported device '
+                         '{}'.format(frames_bgr.device))
+    dev = frames_bgr.device
+    mask = torch.empty((n, h, w), dtype=torch.bool, device=dev)
+    markers = torch.empty_like(mask) if mode == 'adaptive_double' else None
+    gray = torch.empty((n, h, w), dtype=_I32, device=dev) if want_gray \
+        else None
+    if n == 0:
+        return mask, markers, gray
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ysmr_adaptive_masks(
+        frames_bgr.data_ptr(), frame_valid.data_ptr(), mask.data_ptr(),
+        None if markers is None else markers.data_ptr(),
+        None if gray is None else gray.data_ptr(), _K11_C,
+        _kernel_bound(-c_offset, white_on_dark),
+        _kernel_bound(-(c_offset + double_delta), white_on_dark),
+        0 if white_on_dark else 1, n, h, w, dev.index, stream)
+    _build.check(lib, rc, 'adaptive masks kernel launch')
+    adaptive_masks_from_bgr.launches += 1
+    return mask, markers, gray
+
+
+#: kernel launches since the count was last set to 0
+adaptive_masks_from_bgr.launches = 0
 
 
 class MovingAverageThreshold:

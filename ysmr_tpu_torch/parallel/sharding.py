@@ -201,17 +201,18 @@ def make_multi_video_step(mesh, *, detect_kwargs, tracker_kwargs):
     tracker state threads through.
 
     Per device the step flattens its videos to one (v_loc * T, H, W, 3)
-    batch and runs ``detect.prepare_batch`` and ``detect_from_blurred``
-    once over it (each frames-mode kernel launches once per device step),
+    batch and runs ``detect.detect_adaptive`` once over it (each
+    frames-mode kernel launches once per device step),
     folds the tables back to (v_loc, T, ...), then runs
     ``run_tracker_scan`` once over them and the device's stacked state (a
     frame step, and one assign launch, per frame for all v_loc videos;
     each video's bits those of its own scan). Every device
-    is enqueued before the caller reads anything back. The thresholds are
-    zeros, as in the JAX step: mean-threshold mode does not batch (the
-    caller runs it solo). Memory: one detect call holds v_loc * T frames,
-    several int32 planes of (v_loc * T, H, W) each (290 MB per plane at
-    64 frames of 1228x922).
+    is enqueued before the caller reads anything back. The step runs the
+    adaptive modes only: mean-threshold mode does not batch (the caller
+    runs it solo). Memory: one detect call holds v_loc * T frames: the BGR
+    batch (217 MB at 64 frames of 1228x922), the mask and the markers (72
+    MB each, bool), with luminosity the int32 gray (290 MB), then the int32
+    labels (290 MB).
     """
     from ysmr_tpu_torch.pipeline import detect as det
     from ysmr_tpu_torch.pipeline import tracker as trk
@@ -226,11 +227,8 @@ def make_multi_video_step(mesh, *, detect_kwargs, tracker_kwargs):
     def per_device(frames, valid, state, tkw):
         v_loc, t = frames.shape[:2]
         flat = frames.reshape((v_loc * t,) + tuple(frames.shape[2:]))
-        gray, blurred = det.prepare_batch(flat)
-        thresholds = torch.zeros(v_loc * t, dtype=torch.int32,
-                                 device=frames.device)
-        tables = det.detect_from_blurred(gray, blurred, valid.reshape(-1),
-                                         thresholds, **detect_kwargs)
+        tables = det.detect_adaptive(flat, valid.reshape(-1),
+                                     **detect_kwargs)
         tables = {k: v.reshape((v_loc, t) + tuple(v.shape[1:]))
                   for k, v in tables.items()}
         # one scan over the device's videos: a frame step (and one assign

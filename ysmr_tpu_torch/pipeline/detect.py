@@ -9,6 +9,13 @@ frames. The labeling and the reconstruction are the kernels of
 CPU one; the hull and sweep kernels run inside the stats tail as on the
 run wire.
 
+In the adaptive modes ``detect_batch`` (and the multi-video step and
+``graft_entry``) goes from the BGR frames to the masks in one call,
+``preprocess.adaptive_masks_from_bgr`` (a single kernel launch on the
+card), then ``detect_from_masks``; ``detect_from_blurred``, the JAX
+function's counterpart, and mean-threshold mode keep the separate gray,
+blur and threshold passes.
+
 Differences from the JAX module:
 
 - Plain PyTorch runs eagerly, so there is no jit; ``detect_from_blurred``
@@ -75,9 +82,24 @@ def detect_from_blurred(gray, blurred, frame_valid, thresholds, *, mode,
     mask, markers = pp.detect_masks(blurred, mode, offset, double_delta,
                                     white_on_dark, global_thresholds=thresholds)
     fv = frame_valid[:, None, None]
-    mask = mask & fv
+    return detect_from_masks(
+        gray, mask & fv, None if markers is None else markers & fv,
+        max_det=max_det, max_bh=max_bh, cc_iters=cc_iters,
+        include_luminosity=include_luminosity, lum_win=lum_win)
+
+
+def detect_from_masks(gray, mask, markers, *, max_det, max_bh, cc_iters,
+                      include_luminosity=False, lum_win=48):
+    """Detection tables from the thresholded frames: marker reconstruction,
+    8-connected labels, compaction, row tables, hull and exact rect.
+
+    :param gray: (T, H, W) gray frames (read with ``include_luminosity``)
+    :param mask: (T, H, W) bool, padding frames already all False
+    :param markers: (T, H, W) bool or None (single threshold)
+    :return: as :func:`detect_from_blurred`
+    """
     if markers is not None:
-        mask = cc.binary_reconstruct(mask, markers & fv, max_iters=cc_iters)
+        mask = cc.binary_reconstruct(mask, markers, max_iters=cc_iters)
     labels8 = cc.label_components_whole_frame(mask, connectivity=8,
                                               max_iters=cc_iters)
     comp, n_components = lb.compact_labels(labels8, mask, max_det=max_det)
@@ -88,37 +110,55 @@ def detect_from_blurred(gray, blurred, frame_valid, thresholds, *, mode,
         gray_frames=gray if include_luminosity else None, lum_win=lum_win)
 
 
+def detect_adaptive(frames_bgr, frame_valid, *, mode, white_on_dark, offset,
+                    double_delta, max_det, max_bh, cc_iters,
+                    include_luminosity=False, lum_win=48):
+    """Detection tables from BGR frames in the adaptive modes: the masks
+    from ``preprocess.adaptive_masks_from_bgr`` (the gray frames too with
+    luminosity), then :func:`detect_from_masks`. The keywords are
+    :func:`detect_from_blurred`'s.
+
+    :param frames_bgr: (T, H, W, 3) uint8, contiguous
+    :param frame_valid: (T,) bool on the device of ``frames_bgr``
+    """
+    mask, markers, gray = pp.adaptive_masks_from_bgr(
+        frames_bgr, frame_valid, mode, offset, double_delta, white_on_dark,
+        want_gray=include_luminosity)
+    return detect_from_masks(gray, mask, markers, max_det=max_det,
+                             max_bh=max_bh, cc_iters=cc_iters,
+                             include_luminosity=include_luminosity,
+                             lum_win=lum_win)
+
+
 def detect_batch(frames_bgr, frame_valid, config, threshold_state=None):
     """Full host-coordinated detection for one frame batch.
 
     In mean-threshold mode this is the two-phase flow: device sums -> host
     moving-average thresholds -> device detection. ``threshold_state`` is a
     :class:`ysmr_tpu_torch.ops.preprocess.MovingAverageThreshold` carried
-    across batches.
+    across batches. The adaptive modes run :func:`detect_adaptive`.
 
     :param frames_bgr: (T, H, W, 3) uint8 tensor
     :param frame_valid: (T,) bool tensor on the device of ``frames_bgr``
     """
+    kwargs = dict(
+        mode=config.mode, white_on_dark=config.white_on_dark,
+        offset=config.offset, double_delta=config.double_delta,
+        max_det=config.max_det, max_bh=config.max_bh,
+        cc_iters=config.cc_iters,
+        include_luminosity=config.include_luminosity, lum_win=config.lum_win)
+    if config.mode != 'mean':
+        return detect_adaptive(frames_bgr, frame_valid, **kwargs)
     t = frames_bgr.shape[0]
-    if config.mode == 'mean':
-        gray, blurred, total, hi, lo = prepare_batch(frames_bgr,
-                                                     needs_sums=True)
-        n_pix = frames_bgr.shape[1] * frames_bgr.shape[2]
-        mean, std = pp.combine_mean_std(n_pix, total.cpu().numpy(),
-                                        hi.cpu().numpy(), lo.cpu().numpy())
-        valid_np = frame_valid.cpu().numpy()
-        thr = np.zeros((t,), np.int32)
-        for i in range(t):
-            if valid_np[i]:
-                thr[i] = threshold_state.update(mean[i], std[i])
-        thresholds = torch.from_numpy(thr).to(frames_bgr.device)
-    else:
-        gray, blurred = prepare_batch(frames_bgr)
-        thresholds = None
-    return detect_from_blurred(
-        gray, blurred, frame_valid, thresholds, mode=config.mode,
-        white_on_dark=config.white_on_dark, offset=config.offset,
-        double_delta=config.double_delta, max_det=config.max_det,
-        max_bh=config.max_bh, cc_iters=config.cc_iters,
-        include_luminosity=config.include_luminosity,
-        lum_win=config.lum_win)
+    gray, blurred, total, hi, lo = prepare_batch(frames_bgr, needs_sums=True)
+    n_pix = frames_bgr.shape[1] * frames_bgr.shape[2]
+    mean, std = pp.combine_mean_std(n_pix, total.cpu().numpy(),
+                                    hi.cpu().numpy(), lo.cpu().numpy())
+    valid_np = frame_valid.cpu().numpy()
+    thr = np.zeros((t,), np.int32)
+    for i in range(t):
+        if valid_np[i]:
+            thr[i] = threshold_state.update(mean[i], std[i])
+    thresholds = torch.from_numpy(thr).to(frames_bgr.device)
+    return detect_from_blurred(gray, blurred, frame_valid, thresholds,
+                               **kwargs)
