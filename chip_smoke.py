@@ -38,9 +38,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 7. the dense path at full width on ``cuda``: the dense scene (150 frames
    of 1228x922, 3000 rods, seed 125; bench.py ``measure_dense_e2e``) in
    memory through the stage-1 loop (stage split), then written as MJPG
-   through ``track_bacteria(path)``: every kernel launched (the GSFF,
-   frame-step and merge kernels once per frame step, as the assign
-   kernel), the track count
+   through ``track_bacteria(path)``: every kernel launched (the GSFF
+   and frame-step kernels once per frame step, as the assign kernel),
+   the track count
    within 2899 +- 10, no dropped registration, id agreement against
    ``bench_data/dense_clip_list.csv.gz`` printed;
 8. ``cuda`` against ``cpu`` on the dense scene's first batch (64 frames)
@@ -63,7 +63,8 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    the MJPG bench clip through ``track_bacteria(path)``; the MJPG dense
    clip through ``track_bacteria(path)`` (2899 +- 10 tracks, no dropped
    registration; the reference list is the clip's, so the gate is held on
-   the clip), with every kernel of the path launched in each clip run;
+   the clip), with every kernel of the path launched in each clip run
+   and the compaction (``csrc/compact.cu``) one call a detect batch;
 11. ``cuda`` against ``cpu`` in frames mode on the bench scene's first 16
    frames (a 64-frame batch takes over a minute on the cpu): TRACK_ID and
    POSITION_T identical, the other columns within the stated tolerance;
@@ -129,11 +130,12 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    (seeds 123, 126, 127, 128; 192, 160, 128 and 96 frames) and one
    640x480 clip (a second group): every ``_list.csv`` byte-identical to a
    solo ``track_bacteria(path)`` on ``cuda`` with the same settings,
-   kernels 2-6 and the fused preprocess launched (the counts per device
-   step printed), the assign kernel once per frame of a device step (the
-   tracker batched over the step's videos: 16 steps x 16 frames = 256),
-   the GSFF, frame-step and merge kernels as often, the fused preprocess
-   once per device step (16) and the int32 adaptive mean never,
+   kernels 2-6, the fused preprocess and the compaction launched (the
+   counts per device step printed), the assign kernel once per frame of
+   a device step (the tracker batched over the step's videos: 16 steps x
+   16 frames = 256), the GSFF and frame-step kernels as often, the fused
+   preprocess and the compaction once per device step (16) and the int32
+   adaptive mean never,
    the sharded run's wall time and frames/s beside the solo runs' sum;
 24. the program with ``shard videos across devices`` in its tracking.ini:
    ``python -m ysmr_tpu_torch <phase 23's four clips> --serial`` and once
@@ -193,8 +195,9 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    step's kernels (``torch.profiler``) and wall time at V = 1 and V = 4,
    and with luminosity's K = 3 at V = 1
    (``tracker_step_launches.measure``), with the kernel and with the
-   plain version swapped in, the device operations by name (at most 5
-   kernels, memsets and copies with the kernels; each scan profiled
+   plain version swapped in, the device operations by name (at most 4
+   kernels, memsets and copies with the kernels: the GSFF kernel writes
+   the live slots' positions itself; each scan profiled
    until two of its profiles list the same operations). The dense, frames,
    luminosity and multi-video phases (7, 10, 14-16, 23, 24) fail unless
    it was launched;
@@ -209,11 +212,10 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    shapes, three of them splitting the rank tiles and the update cluster
    unevenly, NaN row minima, ``max_disappeared`` compared in float32, no
    slots, and ``frame_step_cases``' key edges: signed zeros, NaN
-   payloads, ids at the int32 limits, keys equal but for the slot); the
-   GSFF merge against its plain version; median ms of each with the
-   bound, and the rank and update launches' device times apart, each
-   with its bound. Phases 7, 10, 14-16 and 23 fail unless both were
-   launched, 7 and 23 unless once a frame step;
+   payloads, ids at the int32 limits, keys equal but for the slot);
+   median ms of each with the bound, and the rank and update launches'
+   device times apart, each with its bound. Phases 7, 10, 14-16 and 23
+   fail unless both were launched, 7 and 23 unless once a frame step;
 31. the rect tail's kernels against their plain versions on the card, one
    launch a call: the cv2 centres (``csrc/cv2_centers.cu``; ``ok`` equal
    everywhere, the centres bit-equal where it holds), the hull-edge
@@ -234,14 +236,25 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    dense first batch's ``_list.csv`` with the plain blocks swapped in,
    byte-identical to the kernels'. Phases 7 and 10 fail unless the edge
    finish and rect select ran once a detect batch, the cv2 centres once a
-   batch on the dense clip and never in frames mode.
+   batch on the dense clip and never in frames mode;
+32. the compaction and row tables of frames mode (``csrc/compact.cu``,
+   ``labeling.compact_row_tables``) against their plain version
+   (``compact_labels`` then ``component_row_tables``) on the card, bit
+   for bit, one call a check: the bench batch, the dense scene's frames
+   batch and a 16-frame 640x480 batch as frames mode's detect hands them
+   over (the fused preprocess, the reconstruction and the labeling on the
+   card), timed with the bound, the device time by kernel and the
+   device span; and the seeded edge cases of ``compact_cases.py`` (more
+   components than max_det, a component taller than max_bh, empty
+   frames, frames of one row and of one column, components on every frame
+   edge and a full frame, frames under 32 pixels).
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (fifteen kernels:
 the seven TPU kernels' ports, the adaptive mean and the fused preprocess
-around it, the GSFF step, the frame
-step, the GSFF merge, the cv2 centres, the edge finish and the rect
-select, each with its bound and the library call where one exists),
+around it, the GSFF step, the frame step, the cv2 centres, the edge
+finish, the rect select and the compaction, each with its bound and the
+library call where one exists),
 ``nvidia-smi``'s card name and power limit, and the result JSON.
 """
 
@@ -261,6 +274,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+import compact_cases as cpc
 import frame_step_cases as fsc
 import rect_tail_cases as rtc
 import tracker_step_launches as tsl
@@ -1048,16 +1062,16 @@ class WarningCounter(logging.Handler):
 
 KERNELS = (propagate_min_fused, hull_edge_vectors, sweep_extents,
            row_min_argmin, gsff_ops.register_and_step,
-           fs.match_and_register, fs.gsff_merge,
-           cv2c.cv2_centers_from_tables, rect.edge_finish, rect.rect_select)
+           fs.match_and_register, cv2c.cv2_centers_from_tables,
+           rect.edge_finish, rect.rect_select)
 
 
 def tracker_gate(what, launches, per):
     """Raise unless each tracker kernel of ``launches`` ran ``per``
     times (the frame steps): the frame-step kernel and, with GSFF, the
-    GSFF kernel and the merge, once a frame step, as the assign kernel."""
-    for name in ('row_min_argmin', 'match_and_register', 'register_and_step',
-                 'gsff_merge'):
+    GSFF kernel, once a frame step, as the assign kernel."""
+    for name in ('row_min_argmin', 'match_and_register',
+                 'register_and_step'):
         if launches[name] != per:
             raise SystemExit('{}: {} {} launches, not one per frame step '
                              '({})'.format(what, launches[name], name, per))
@@ -1228,11 +1242,14 @@ CC_KERNELS = (cc.label_components_whole_frame, cc.binary_reconstruct)
 #: the fused preprocess, looked up so that trace_kernels.py --root can load
 #: this module over a checkout from before it (None there)
 ADAPTIVE_MASKS = getattr(pp, 'adaptive_masks_from_bgr', None)
-FRAMES_KERNELS = CC_KERNELS + (hull_edge_vectors, sweep_extents,
+#: the compaction kernel's wrapper, likewise (None before it)
+COMPACT = getattr(labeling, 'compact_row_tables', None)
+FRAMES_KERNELS = CC_KERNELS + (COMPACT,
+                               hull_edge_vectors, sweep_extents,
                                row_min_argmin, ADAPTIVE_MASKS,
                                gsff_ops.register_and_step,
-                               fs.match_and_register, fs.gsff_merge,
-                               rect.edge_finish, rect.rect_select)
+                               fs.match_and_register, rect.edge_finish,
+                               rect.rect_select)
 
 
 def bench_masks(scene, settings, dev, t=64):
@@ -1455,13 +1472,17 @@ def reset_frames_launches():
 
 def frames_launches(what):
     """The frames path's launches since ``reset_frames_launches``; raises
-    unless every kernel of the path ran and the adaptive modes' preprocess
-    was one fused launch a detect batch (as many as the hull's), with no
-    int32 adaptive-mean launch."""
+    unless every kernel of the path ran, the compaction one call a detect
+    batch and the adaptive modes' preprocess one fused launch a detect
+    batch (as many as the hull's), with no int32 adaptive-mean launch."""
     launches = {k.__name__: k.launches for k in FRAMES_KERNELS}
     if min(launches.values()) <= 0:
         raise SystemExit('{}: a kernel of the frames path was never '
                          'launched: {}'.format(what, launches))
+    if launches['compact_row_tables'] != launches['hull_edge_vectors']:
+        raise SystemExit('{}: {} compaction calls for {} detect batches'
+                         .format(what, launches['compact_row_tables'],
+                                 launches['hull_edge_vectors']))
     if pp.adaptive_gaussian_mean.launches or \
             launches['adaptive_masks_from_bgr'] != \
             launches['hull_edge_vectors']:
@@ -1940,7 +1961,7 @@ def phase_lum_bench(frames, settings):
     df, launches, fps = track_clip(
         'lum_clip', os.path.join(WORK, 'bench_clip.avi'), lset,
         (cc.cc_labels_at_pixels, row_min_argmin, gsff_ops.register_and_step,
-         fs.match_and_register, fs.gsff_merge))
+         fs.match_and_register))
     log('bench clip with luminosity and GSFF via track_bacteria(path) on '
         'cuda: rows {} tracks {} {:.2f} fps end to end (decode included), '
         'kernel launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(),
@@ -1987,8 +2008,7 @@ def phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev):
     df, launches, fps = track_clip(
         'lum_dense_clip', os.path.join(WORK, 'dense_clip.avi'), lset,
         (cc.cc_labels_at_pixels, hull_edge_vectors, sweep_extents,
-         row_min_argmin, gsff_ops.register_and_step, fs.match_and_register,
-         fs.gsff_merge))
+         row_min_argmin, gsff_ops.register_and_step, fs.match_and_register))
     log('dense clip with luminosity via track_bacteria(path) on cuda: rows '
         '{} tracks {} {:.2f} fps end to end (decode included), kernel '
         'launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(), fps,
@@ -2089,9 +2109,10 @@ if __name__ == '__main__':
     from ysmr_tpu_torch.ops.cc import (binary_reconstruct,
                                        cc_labels_at_pixels,
                                        label_components_whole_frame)
-    from ysmr_tpu_torch.ops.frame_step import gsff_merge, match_and_register
+    from ysmr_tpu_torch.ops.frame_step import match_and_register
     from ysmr_tpu_torch.ops.gsff import register_and_step
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+    from ysmr_tpu_torch.ops.labeling import compact_row_tables
     from ysmr_tpu_torch.ops.preprocess import (adaptive_gaussian_mean,
                                                adaptive_masks_from_bgr)
     from ysmr_tpu_torch.ops.rect import edge_finish, rect_select
@@ -2115,8 +2136,8 @@ if __name__ == '__main__':
                row_min_argmin, label_components_whole_frame,
                binary_reconstruct, cc_labels_at_pixels,
                adaptive_gaussian_mean, adaptive_masks_from_bgr,
-               register_and_step, match_and_register, gsff_merge, edge_finish,
-               rect_select)
+               compact_row_tables, register_and_step, match_and_register,
+               edge_finish, rect_select)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2601,9 +2622,8 @@ MV_SETTINGS = {'frame batch size': 16, 'transfer mode': 'frames',
                'minimal frame count': 32}
 MV_KERNELS = (row_min_argmin, hull_edge_vectors, sweep_extents,
               cc.label_components_whole_frame, cc.binary_reconstruct,
-              ADAPTIVE_MASKS, gsff_ops.register_and_step,
-              fs.match_and_register, fs.gsff_merge, rect.edge_finish,
-              rect.rect_select)
+              ADAPTIVE_MASKS, COMPACT, gsff_ops.register_and_step,
+              fs.match_and_register, rect.edge_finish, rect.rect_select)
 
 
 def list_bytes(path):
@@ -2676,14 +2696,16 @@ def phase_multi_video(settings):
     tracker_gate('multi-video ({} device steps)'.format(steps), launches,
                  steps * batch)
     # and one frames-mode detect per device step: one fused preprocess
-    # launch, no int32 adaptive mean
+    # launch and one compaction call, no int32 adaptive mean
     if launches['adaptive_masks_from_bgr'] != steps or \
+            launches['compact_row_tables'] != steps or \
             pp.adaptive_gaussian_mean.launches:
-        raise SystemExit('multi-video: {} fused preprocess launches, not one '
-                         'per device step ({}); {} int32 adaptive-mean '
-                         'launches'.format(launches['adaptive_masks_from_bgr'],
-                                           steps,
-                                           pp.adaptive_gaussian_mean.launches))
+        raise SystemExit('multi-video: {} fused preprocess launches and {} '
+                         'compaction calls, not one per device step ({}); {} '
+                         'int32 adaptive-mean launches'.format(
+                             launches['adaptive_masks_from_bgr'],
+                             launches['compact_row_tables'], steps,
+                             pp.adaptive_gaussian_mean.launches))
     log('multi-video (phase 23): track_videos_sharded on cuda, {} clips, {} '
         'frames, {} device step(s) over a {}-device mesh: wall {:.2f} s, '
         '{:.2f} frames/s; solo track_bacteria(path) one after another {:.2f} '
@@ -3413,21 +3435,6 @@ def check_gsff(name, args, timed=False):
         gsff_tensors(args), gsff_ops_count(args), reps=20)
 
 
-def plain_gsff_step(gains, n_i, n_f, n_i0, state, pos, active, register,
-                    coasting, *, out, frame):
-    """The scan's GSFF entry with the plain version on the card, into the
-    scan's buffers (``frame_step.write_plain``'s twin)."""
-    new_state = out['states'][frame % len(out['states'])]
-    got, corr, pred = gsff_ops.register_and_step_plain(
-        gains, n_i, n_f, n_i0, state, pos[:, :2], active, register,
-        coasting)
-    for key in gsff_ops.STATE_KEYS:
-        new_state[key].copy_(got[key])
-    out['corrected'].copy_(corr)
-    out['predicted'].copy_(pred)
-    return new_state, out['corrected'], out['predicted']
-
-
 def frame_step(v, params, dev, plain, k=2):
     """``tracker_step_launches.measure`` (the dense frame step: 4096
     slots, 4096 detections, 3000 live) at V videos and K coordinates with
@@ -3438,7 +3445,7 @@ def frame_step(v, params, dev, plain, k=2):
     third are None where no two profiles of a scan agreed."""
     kernel = gsff_ops._register_and_step
     if plain:
-        gsff_ops._register_and_step = plain_gsff_step
+        gsff_ops._register_and_step = gsff_ops._register_and_step_plain
     try:
         out = tsl.measure(trk, params, v, dev, k)
     finally:
@@ -3450,8 +3457,9 @@ def frame_step(v, params, dev, plain, k=2):
 
 
 #: device operations (kernels, memsets, copies) of a dense frame step:
-#: assign, the frame step's rank and update, GSFF, the merge
-MAX_STEP_OPS = 5
+#: assign, the frame step's rank and update, GSFF (which writes the live
+#: positions itself)
+MAX_STEP_OPS = 4
 
 
 def phase_gsff(dframes, dsettings, settings, dev):
@@ -3468,7 +3476,8 @@ def phase_gsff(dframes, dsettings, settings, dev):
     calls, scans = [], {}
     for name in ('kernel', 'plain'):
         def record(gains, n_i, n_f, n_i0, state, pos, *masks, out, frame,
-                   step=plain_gsff_step if name == 'plain' else kernel):
+                   emit_pos=None, step=gsff_ops._register_and_step_plain
+                   if name == 'plain' else kernel):
             # the public entry's arguments, copied: the scan's buffers
             # are rewritten by the frames that follow
             calls.append((gains, n_i, n_f, n_i0,
@@ -3476,7 +3485,7 @@ def phase_gsff(dframes, dsettings, settings, dev):
                           pos[:, :2].contiguous()) +
                          tuple(x.clone() for x in masks))
             return step(gains, n_i, n_f, n_i0, state, pos, *masks, out=out,
-                        frame=frame)
+                        frame=frame, emit_pos=emit_pos)
         gsff_ops._register_and_step = record
         try:
             scans[name] = trk.run_tracker_scan(
@@ -3746,49 +3755,14 @@ def step_split(name, state, frame, row_min, cand, md=float(FPS)):
     return out
 
 
-def check_merge(name, state_pos, active, dev, timed=False):
-    """The GSFF merge against its plain version on copies of the same
-    card tensors (the emitted positions a frame of a (V, 4, S, K)
-    buffer), bit-equal, one launch; with ``timed``, median ms of each
-    and the bound (the live flags read, two corrected and two predicted
-    floats read and written per live slot)."""
-    v, s, k = state_pos.shape
-    gen = torch.Generator(device=dev).manual_seed(30)
-    corr, pred = (torch.rand((v, s, 2), generator=gen, device=dev) * W
-                  for _ in range(2))
-    buf = torch.rand((v, 4, s, k), generator=gen, device=dev) * W
-
-    def run(step, sp, eb):
-        step(sp, eb[:, 2], active, corr, pred)
-        return [sp, eb]
-
-    fs.gsff_merge.launches = 0
-    got = run(fs.gsff_merge, state_pos.clone(), buf.clone())
-    want = run(fs.gsff_merge_plain, state_pos.clone(), buf.clone())
-    torch.cuda.synchronize()
-    if fs.gsff_merge.launches != 1 or \
-            not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise SystemExit('gsff merge {}: kernel != plain or {} launches'
-                         .format(name, fs.gsff_merge.launches))
-    if not timed:
-        return None
-    sp, eb = state_pos.clone(), buf.clone()
-    nbytes = v * s + 32 * int(active.sum())
-    return check_equal('gsff merge ' + name,
-                       lambda *_: run(fs.gsff_merge, sp, eb),
-                       lambda *_: run(fs.gsff_merge_plain, sp, eb),
-                       [state_pos, active, corr, pred], 0, reps=20,
-                       nbytes=nbytes)
-
-
 def phase_frame_step(dframes, dsettings, dev):
     """Phase 30: the frame-step kernel (``csrc/frame_step.cu``) against
     ``match_and_register_plain`` on the card, bit for bit: every frame
     step of the dense first batch (the plain version's state fed to both;
     the whole scan with the plain block swapped in too), random states at
     the dense size for V = 1 and 4 (timed, with the bound), and the edge
-    cases of tests/test_torch_frame_step.py; the GSFF merge against its
-    plain version. Returns the timed checks of the two kernels."""
+    cases of tests/test_torch_frame_step.py. Returns the timed dense-batch
+    check."""
     t = 64
     tables, params, tkw = dense_tracker_inputs(dframes, dsettings, dev, t)
     slots = dsettings['max track slots']
@@ -3843,17 +3817,12 @@ def phase_frame_step(dframes, dsettings, dev):
             time.perf_counter() - t0))
     step_split('dense first batch, frame {}'.format(t // 2), state, frame,
                row_min, cand, md)
-    merge = check_merge('dense first batch, frame {}'.format(t // 2),
-                        calls[t // 2][0]['pos'], calls[t // 2][0]['active'],
-                        dev, timed=True)
     rng = np.random.default_rng(SEED + 30)
     for v in (1, 4):
         args = step_inputs(rng, 'dense', (v, slots, slots, 2), dev)
         check_step('random dense state, V = {}'.format(v), *args,
                    timed=True)
         step_split('random dense state, V = {}'.format(v), *args)
-        check_merge('random dense state, V = {}'.format(v), args[0]['pos'],
-                    args[0]['active'], dev, timed=v == 4)
     t0 = time.perf_counter()
     n = 0
     for case in STEP_CASES:
@@ -3883,15 +3852,12 @@ def phase_frame_step(dframes, dsettings, dev):
             check_step('key edge {} {}'.format(edge, shape), state, frame,
                        row_min, cand, md=5.0,
                        cpu_plain=edge == 'nan_payloads')
-    check_merge('3 x 48 slots, K = 3', step_inputs(
-        rng, 'more_dets', (3, 48, 40, 3), dev)[0]['pos'],
-        torch.rand((3, 48), device=dev) < 0.5, dev)
     log('frame step edge cases ({} seeded at shapes {}, NaN row minima, '
         'the float32 max_disappeared, no slots, the key edges {}): kernel '
         'bit-equal to the plain version, one call a check, inputs untouched '
         '({:.1f} s)'.format(n, list(STEP_SHAPES), list(fsc.KEY_EDGES),
                             time.perf_counter() - t0))
-    return dense, merge
+    return dense
 
 
 # ---- phase 31: the rect tail's kernels (csrc/cv2_centers.cu, rect.cu) ----
@@ -4183,6 +4149,110 @@ def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
     return out
 
 
+# ---- phase 32: frames mode's compaction and row tables (csrc/compact.cu) --
+
+def compact_inputs(frames, settings, dev):
+    """The labels and mask frames mode's detect hands the compaction, from
+    gray frames: the fused preprocess, the reconstruction and the
+    8-connected labeling on the card."""
+    cfg = detect.DetectorConfig(settings)
+    bgr = bgr_batch(frames, dev)
+    valid = torch.ones(bgr.shape[0], dtype=torch.bool, device=dev)
+    mask, markers, _ = pp.adaptive_masks_from_bgr(
+        bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
+        cfg.white_on_dark)
+    if markers is not None:
+        mask = cc.binary_reconstruct(mask, markers)
+    return cc.label_components_whole_frame(mask, 8), mask
+
+
+def check_compact(name, labels, mask, max_det, max_bh, timed=False):
+    """The compaction kernel against its plain version on the same card
+    tensors, every output bit-equal, one call; with ``timed``, median ms
+    of each, the device time by kernel and the call's device span, and the
+    bound (the mask read once, the labels at its foreground pixels, the
+    outputs written once)."""
+    def kernel(*_):
+        return COMPACT(labels, mask, max_det=max_det, max_bh=max_bh)
+
+    def plain(*_):
+        return labeling.compact_row_tables_plain(labels, mask,
+                                                 max_det=max_det,
+                                                 max_bh=max_bh)
+
+    n = COMPACT.launches
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if COMPACT.launches != n + 1 or \
+            not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit('compact {}: kernel != plain (max |diff| {}) or {} '
+                         'calls'.format(name, max_abs_err(got, want),
+                                        COMPACT.launches - n))
+    if not timed:
+        return None
+    nbytes = mask.numel() + 4 * int(mask.sum()) + sum(
+        int(o.numel()) * o.element_size() for o in got)
+    check = check_equal('compact ' + name, kernel, plain, [labels, mask], 0,
+                        reps=20, plain_reps=3, nbytes=nbytes)
+    per, span = device_ms(kernel)
+    log('compact {}: device {:.4f} ms ({}), event span {:.4f} ms, bound '
+        '{:.4f} ms ({:.1f}% of the device time); components {}, foreground '
+        'pixels {}'.format(
+            name, span, json.dumps({k[:40]: round(v, 4)
+                                    for k, v in per.items()}),
+            check[1], check[3][0], 100 * check[3][0] / max(span, 1e-9),
+            int(got[4].sum()), int(mask.sum())))
+    return check
+
+
+def phase_compaction(frames, settings, dframes, dsettings, dev):
+    """Phase 32: the compaction kernel (``csrc/compact.cu``) against its
+    plain version on the card, bit for bit: the bench batch (timed, with
+    the bound), the dense scene's frames batch and a 16-frame 640x480
+    batch (a device step of phase 23's second group), each as frames
+    mode's detect gives it, and the seeded edge cases of
+    ``compact_cases.py`` (more components than max_det, a component
+    taller than max_bh, empty frames, frames of one row and one column,
+    components on every frame edge, frames under 32 pixels). Returns the
+    bench check."""
+    seed, _, (ow, oh) = MV_OTHER
+    other = BenchScene(seed=seed)
+    checks, bench = [], None
+    for name, frs, sets in (
+            ('bench 64x922x1228', frames[:64], settings),
+            ('dense 64x922x1228', dframes[:64], dsettings),
+            ('640x480 16 frames', [other.frame(t)[:oh, :ow]
+                                   for t in range(16)], settings)):
+        labels, mask = compact_inputs(frs, sets, dev)
+        bench = bench or (labels, mask, sets)
+        checks.append(check_compact(
+            name, labels, mask, sets['max detections per frame'],
+            sets['max bounding box height'], timed=True))
+    for case in cpc.CASES:
+        mask, max_det, max_bh = cpc.compact_case(case)
+        check_compact(case, torch.from_numpy(cpc.min_index_labels(mask)).to(
+            dev), torch.from_numpy(mask).to(dev), max_det, max_bh)
+    log('compact edge cases {}: kernel bit-equal to the plain version, one '
+        'call each'.format(list(cpc.CASES)))
+    # each kernel's resources at the bench batch
+    labels, mask, sets = bench
+    lib = _build.load_kernels()
+    for kernel, threads in (('roots_kernel', 256), ('scan_kernel', 1024),
+                            ('tables_kernel', 256)):
+        ptx = ptxas_of(lib.build_log, 'compact.cu', kernel)
+        rec = {'kernel': kernel, 'source': 'compact.cu'}
+        if ptx is not None:
+            regs, spill, smem = ptx
+            rec.update(registers=regs, spill_stores=spill, shared_bytes=smem,
+                       occupancy_allowed=resident_share(regs, smem, threads))
+        rec['achieved_occupancy_pct'] = achieved_occupancy(
+            lambda: COMPACT(labels, mask,
+                            max_det=sets['max detections per frame'],
+                            max_bh=sets['max bounding box height']), kernel)
+        log('compact resources ' + json.dumps(rec))
+    return checks[0]
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -4231,9 +4301,11 @@ def main():
         (mean_check, mean_conv_ms), masks_check = \
             phase_adaptive_mean(scene, settings, dscene, dev)
         gsff_check = phase_gsff(dframes, dsettings, settings, dev)
-        step_check, merge_check = phase_frame_step(dframes, dsettings, dev)
+        step_check = phase_frame_step(dframes, dsettings, dev)
         tail_checks = phase_rect_tail(scene, settings, dscene, dsettings,
                                       dframes, dev)
+        compact_check = phase_compaction(frames, settings, dframes,
+                                         dsettings, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -4279,10 +4351,6 @@ def main():
         'match_and_register', 'ysmr_tpu_torch/csrc/frame_step.cu',
         'ysmr_tpu/pipeline/tracker.py:129 _tracker_frame_update (plain XLA)',
         dense_launches['match_and_register'], step_check))
-    records.append(kernel_record(
-        'gsff_merge', 'ysmr_tpu_torch/csrc/frame_step.cu',
-        'ysmr_tpu/pipeline/tracker.py:253 emit_pos / stored_pos (plain XLA)',
-        dense_launches['gsff_merge'], merge_check))
     for name, src, rep in (
             ('cv2_centers_from_tables', 'cv2_centers.cu',
              'ysmr_tpu/ops/cv2_centers.py:157 cv2_centers_from_tables '
@@ -4295,6 +4363,11 @@ def main():
         records.append(kernel_record(
             name, 'ysmr_tpu_torch/csrc/' + src, rep, dense_launches[name],
             tail_checks[name]))
+    records.append(kernel_record(
+        'compact_row_tables', 'ysmr_tpu_torch/csrc/compact.cu',
+        'ysmr_tpu/ops/labeling.py:211 compact_labels, :588 '
+        'component_tables (plain XLA)',
+        frames_runs['bench']['compact_row_tables'], compact_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -36,11 +36,11 @@ start inside its window (median of three passes), with the three longest
 kernels of each step; the steps' outputs are held to ``detect_batch``'s.
 The steps are ``detect_batch``'s: the fused preprocess ("adaptive
 masks": gray, blur, adaptive mean, both rules and ``& frame_valid`` in
-one launch), reconstruction, labeling, compaction, row tables + hull,
-rect. A checkout before the fused preprocess splits its own detect with
-its own copy of this script (gray, blur, adaptive mean and threshold
-comparisons in its place): ``cd <checkout> && python3
-frames_mode_times.py --split --roots .``.
+one launch), reconstruction, labeling, "compaction + row tables + hull"
+(the compaction kernel and the stats tail), rect. A checkout from before
+the compaction kernel or the fused preprocess splits its own detect with
+its own copy of this script (its steps in place of these): ``cd
+<checkout> && python3 frames_mode_times.py --split --roots .``.
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
 
@@ -158,14 +158,10 @@ def split(root):
             bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
             cfg.white_on_dark)
 
-    def compaction():
-        st['comp'], st['n'] = lb.compact_labels(st['labels'], st['rec'],
-                                                max_det=cfg.max_det)
-
-    def tables():
-        st['tables'] = lb.component_tables(st['comp'], st['rec'],
-                                           max_det=cfg.max_det,
-                                           max_bh=cfg.max_bh)
+    def compact_tables():
+        *rows, st['n'] = lb.compact_row_tables(
+            st['labels'], st['rec'], max_det=cfg.max_det, max_bh=cfg.max_bh)
+        st['tables'] = lb._stats_tail_from_tables(*rows, max_bh=cfg.max_bh)
 
     steps = (
         ('adaptive masks', masks),
@@ -174,8 +170,7 @@ def split(root):
         ('labeling', lambda: st.update(
             labels=cc.label_components_whole_frame(
                 st['rec'], connectivity=8, max_iters=cfg.cc_iters))),
-        ('compaction', compaction),
-        ('row tables + hull', tables),
+        ('compaction + row tables + hull', compact_tables),
         ('rect (sweep) + output', lambda: st.update(out=detections_from_tables(
             st['tables'], 64, max_det=cfg.max_det, max_bh=cfg.max_bh,
             n_components=st['n']))),

@@ -541,35 +541,107 @@ def test_frame_update_composes_the_plain_blocks(use_gsff, k):
             assert torch.equal(got_state['gsff'][key], want_state['gsff'][key])
 
 
-def test_gsff_merge_on_the_cpu_and_its_refusals():
-    """The merge writes the corrected and predicted positions over the
-    first two coordinates of the live slots only, in place, the emitted
-    positions a frame of a (V, T, S, K) buffer; wrong shapes raise."""
-    rng = np.random.default_rng(8)
-    v, s, k = 3, 40, 3
-    state_pos = torch.from_numpy(rng.normal(size=(v, s, k)).astype(
-        np.float32))
-    buf = torch.from_numpy(rng.normal(size=(v, 4, s, k)).astype(np.float32))
-    live = torch.from_numpy(rng.random((v, s)) < 0.6)
-    corr, pred = (torch.from_numpy(rng.normal(size=(v, s, 2)).astype(
-        np.float32)) for _ in range(2))
-    old_state, old_buf = state_pos.clone(), buf.clone()
-    fs.gsff_merge.launches = 0
-    fs.gsff_merge(state_pos, buf[:, 2], live, corr, pred)
-    assert fs.gsff_merge.launches == 0
-    on = live[..., None]
-    assert torch.equal(state_pos, torch.where(
-        on, torch.cat([pred, old_state[..., 2:]], 2), old_state))
-    assert torch.equal(buf[:, 2], torch.where(
-        on, torch.cat([corr, old_buf[:, 2, :, 2:]], 2), old_buf[:, 2]))
-    assert torch.equal(buf[:, [0, 1, 3]], old_buf[:, [0, 1, 3]])
-    for args in ((state_pos[..., :1], buf[:, 2], live, corr, pred),
-                 (state_pos, buf[:, 2], live.to(torch.uint8), corr, pred),
-                 (state_pos, buf[:, 2], live, corr.double(), pred),
-                 (state_pos, buf[:, 2, 1:], live, corr, pred),
-                 (state_pos.to('meta'), buf[:, 2], live, corr, pred)):
-        with pytest.raises(ValueError):
-            fs.gsff_merge(*args)
+def _gsff_step_case(v, k, device='cpu', seed=8):
+    """The scan's GSFF entry's arguments at V videos of 40 slots and K
+    coordinates: a random mid-run filter state, the new state's (V S, K)
+    positions, matched, coasting, newly registered and free slots, and a
+    (V, 4, S, K) emission buffer whose frame 2 the step writes."""
+    rng = np.random.default_rng(seed)
+    s = 40
+    jp = jgsff.GSFFParams(fps=30.0)
+    st = _random_gsff_state(rng, v * s, jp, width=60)
+    st['pred_lo'] = (rng.uniform(-1, 1, (v * s, 2)) * 1e-6).astype(
+        np.float32)
+    kind = rng.integers(0, 4, v * s)   # matched, coasting, registered, free
+    masks = [kind != 3, kind == 2, kind == 1]
+    pos = rng.uniform(0, 60, (v, s, k)).astype(np.float32)
+    buf = rng.normal(size=(v, 4, s, k)).astype(np.float32)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    gkw = trk.gsff_kwargs(gsff.GSFFParams(fps=30.0), device)
+    return (gkw, {key: put(x) for key, x in st.items()}, put(pos),
+            [put(m) for m in masks], put(buf))
+
+
+def _gsff_step_reference(gkw, gstate, pos, masks, buf):
+    """What the tracker's step wrote before the fold: the plain GSFF step
+    on the positions' first two columns, then ``where(live, ...)`` of the
+    corrected positions over the emitted ones (frame 2 of ``buf``) and of
+    the predicted ones over the new state's."""
+    v, s, _ = pos.shape
+    got, corr, pred = gsff.register_and_step_plain(
+        gkw['gsff_gains'], gkw['gsff_n_i'], gkw['gsff_n_f'],
+        gkw['gsff_n_i0'], gstate, pos.flatten(0, 1)[:, :2], *masks)
+    on = masks[0].view(v, s, 1)
+    want_pos, want_buf = pos.clone(), buf.clone()
+    want_pos[..., :2] = torch.where(on, pred.view(v, s, 2), pos[..., :2])
+    want_buf[:, 2, :, :2] = torch.where(on, corr.view(v, s, 2),
+                                        buf[:, 2, :, :2])
+    return got, corr, pred, want_pos, want_buf
+
+
+def _check_gsff_destinations(v, k, device):
+    on_card = torch.device(device).type == 'cuda'
+    gkw, gstate, pos, masks, buf = _gsff_step_case(v, k, device)
+    got_st, corr, pred, want_pos, want_buf = _gsff_step_reference(
+        gkw, gstate, pos, masks, buf)
+    live = masks[0]
+    assert live.any() and masks[1].any() and masks[2].any()
+    assert (~live).any()
+    n = gsff.register_and_step.launches
+    new_state, got_corr, got_pred = gsff._register_and_step(
+        gkw['gsff_gains'], gkw['gsff_n_i'], gkw['gsff_n_f'],
+        gkw['gsff_n_i0'], gstate, pos.view(v * pos.shape[1], k), *masks,
+        out=gsff.allocate(gstate), frame=0, emit_pos=buf[:, 2])
+    if on_card:
+        torch.cuda.synchronize()
+    assert gsff.register_and_step.launches == n + on_card
+    assert torch.equal(pos, want_pos)
+    assert torch.equal(buf, want_buf)
+    assert torch.equal(got_corr, corr) and torch.equal(got_pred, pred)
+    for key in gsff.STATE_KEYS:
+        assert torch.equal(new_state[key], got_st[key]), key
+
+
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('v', [1, 4])
+def test_gsff_step_writes_the_live_positions(v, k):
+    """The scan's GSFF entry with the frame's emitted positions writes
+    what the tracker's former merge wrote: on the live slots (matched,
+    coasting and newly registered) the corrected position over the first
+    two emitted coordinates and the prediction over the new state's, the
+    free slots and the other coordinates and frames untouched; its state
+    and (N, 2) outputs are the plain step's."""
+    _check_gsff_destinations(v, k, 'cpu')
+
+
+def test_gsff_step_without_destinations_leaves_the_positions():
+    """The public ``register_and_step`` returns new (N, 2) corrected and
+    predicted positions and writes none of its inputs, and the scan's
+    entry without ``emit_pos`` leaves the positions it reads as they
+    are."""
+    gkw, gstate, pos, masks, _ = _gsff_step_case(4, 3, seed=9)
+    bank = (gkw['gsff_gains'], gkw['gsff_n_i'], gkw['gsff_n_f'],
+            gkw['gsff_n_i0'])
+    m = pos.flatten(0, 1)[:, :2].contiguous()
+    before = [m.clone()] + [x.clone() for x in gstate.values()]
+    got, corr, pred = gsff.register_and_step(*bank, gstate, m, *masks)
+    want, wcorr, wpred = gsff.register_and_step_plain(*bank, gstate, m,
+                                                      *masks)
+    assert corr.shape == pred.shape == (m.shape[0], 2)
+    assert torch.equal(corr, wcorr) and torch.equal(pred, wpred)
+    for key in gsff.STATE_KEYS:
+        assert torch.equal(got[key], want[key])
+    after = [m] + list(gstate.values())
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+    flat = pos.flatten(0, 1)
+    old = flat.clone()
+    _, corr2, pred2 = gsff._register_and_step(
+        *bank, gstate, flat, *masks, out=gsff.allocate(gstate), frame=0)
+    assert torch.equal(flat, old)
+    assert torch.equal(corr2, wcorr) and torch.equal(pred2, wpred)
 
 
 def test_scan_checks_once_and_returns_fresh_buffers(monkeypatch):
@@ -633,7 +705,8 @@ def test_scan_checks_gsff_once_and_returns_fresh_buffers(monkeypatch):
     at stride K, and returns a GSFF state that aliases neither the
     caller's nor another call's; frame by frame it equals the public
     entries' steps (``match_and_register_plain``, ``register_and_step``
-    on a contiguous copy of the measurement, the merge)."""
+    on a contiguous copy of the measurement, the former merge's
+    ``where``)."""
     v, s, c, k, t_len = 3, 48, 40, 3, 5
     videos = _case('more_dets', (v, s, c, k))
     state, _, _, _ = _torch_inputs(videos)
@@ -806,9 +879,9 @@ def test_kernel_at_the_dense_size_on_cuda():
 @pytest.mark.parametrize('k', [2, 3])
 @pytest.mark.parametrize('use_gsff', [False, True])
 def test_frame_update_on_cuda_equals_plain(use_gsff, k):
-    """The tracker's frame update on the card (assign, frame-step, GSFF
-    and merge kernels) against the same update with the plain blocks on
-    the card, bit for bit."""
+    """The tracker's frame update on the card (assign, frame-step and
+    GSFF kernels, the last writing the live positions) against the same
+    update with the plain blocks on the card, bit for bit."""
     dev = _cuda()
     videos = _case('more_dets', (3, 48, 40, k))
     state, frame, _, _ = _torch_inputs(videos, dev)
@@ -820,12 +893,12 @@ def test_frame_update_on_cuda_equals_plain(use_gsff, k):
                        for k, x in gkw.items()})
         state = dict(state, gsff={k: x.to(dev) for k, x in gstate.items()})
     kwargs.update(frame=0)
-    n = fs.match_and_register.launches, fs.gsff_merge.launches
+    n = fs.match_and_register.launches, gsff.register_and_step.launches
     got = trk._tracker_frame_update(state, *frame, out=fs.allocate(state, 40),
                                     **kwargs)
-    assert (fs.match_and_register.launches, fs.gsff_merge.launches) == \
-        (n[0] + 1, n[1] + use_gsff)
-    plain = fs._match_and_register, fs.gsff_merge
+    assert (fs.match_and_register.launches,
+            gsff.register_and_step.launches) == (n[0] + 1, n[1] + use_gsff)
+    plain = fs._match_and_register, gsff._register_and_step
 
     def plain_block(st, row_min, cand, *tables, max_disappeared, out, frame):
         return fs.write_plain(out, frame, fs.match_and_register_plain(
@@ -833,10 +906,20 @@ def test_frame_update_on_cuda_equals_plain(use_gsff, k):
 
     try:
         fs._match_and_register = plain_block
-        fs.gsff_merge = fs.gsff_merge_plain
+        gsff._register_and_step = gsff._register_and_step_plain
         want = trk._tracker_frame_update(
             state, *frame, out=fs.allocate(state, 40), **kwargs)
     finally:
-        fs._match_and_register, fs.gsff_merge = plain
+        fs._match_and_register, gsff._register_and_step = plain
     torch.cuda.synchronize()
     _assert_same(_numpy(got), _numpy(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('v', [1, 4])
+def test_gsff_step_writes_the_live_positions_on_cuda(v, k):
+    """The GSFF kernel with the frame's emitted positions: one launch
+    writes the live slots' corrected and predicted positions where the
+    former merge did, bit-equal to the plain step and ``where``."""
+    _check_gsff_destinations(v, k, _cuda())

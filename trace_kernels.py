@@ -34,9 +34,14 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   the fused entry traces the int32 one alone);
 - ``frame_step``: ``match_and_register`` (the tracker's match, ageing,
   registration and emissions: the rank and update launches of
-  ``csrc/frame_step.cu``) and ``gsff_merge`` on random states at the
-  dense size (4096 slots, 3000 live, 3000 detections near them), V = 1
-  and 4 (phase 30's).
+  ``csrc/frame_step.cu``) on random states at the dense size (4096
+  slots, 3000 live, 3000 detections near them), V = 1 and 4 (phase
+  30's);
+- ``compact``: frames mode's compaction and row tables on the bench
+  scene's first 64 frames as its detect hands them over (preprocess,
+  reconstruction, 8-connected labeling): ``compact_row_tables``
+  (``csrc/compact.cu``) or, in a checkout from before it, its
+  ``compact_labels`` followed by ``component_row_tables``.
 
 With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
 3000 rods) in memory through the stage-1 loop N times, the device path
@@ -64,7 +69,7 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign', 'gsff',
-          'frame_step', 'preprocess')
+          'frame_step', 'preprocess', 'compact')
 
 
 def parse_args():
@@ -279,7 +284,6 @@ def trace_gsff(smoke, args, dev):
 
 def trace_frame_step(smoke, args, dev):
     import numpy as np
-    import torch
     from ysmr_tpu_torch.ops import frame_step as fs
     rng = np.random.default_rng(smoke.SEED + 30)
     for v in (1, 4):
@@ -290,12 +294,6 @@ def trace_frame_step(smoke, args, dev):
             lambda: fs.match_and_register(state, row_min, cand, *frame,
                                           max_disappeared=float(smoke.FPS)),
             args.reps, smoke)
-        corr, pred = (torch.rand((v, 4096, 2), device=dev) * smoke.W
-                      for _ in range(2))
-        pos = state['pos'].clone()
-        trace('gsff_merge V={} S=4096'.format(v),
-              lambda: fs.gsff_merge(pos, pos, state['active'], corr, pred),
-              args.reps, smoke)
 
 
 def trace_preprocess(smoke, args, dev):
@@ -318,6 +316,31 @@ def trace_preprocess(smoke, args, dev):
             lambda: pp.adaptive_masks_from_bgr(
                 bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
                 cfg.white_on_dark, gray), args.reps, smoke)
+
+
+def trace_compact(smoke, args, dev):
+    from ysmr_tpu_torch.ops import cc
+    from ysmr_tpu_torch.ops import labeling as lb
+    settings = smoke.bench_settings()
+    max_det = settings['max detections per frame']
+    max_bh = settings['max bounding box height']
+    mask, marker = smoke.bench_masks(smoke.BenchScene(), settings, dev)
+    mask = cc.binary_reconstruct(mask, marker & mask)
+    labels = cc.label_components_whole_frame(mask, 8)
+    shape = 'x'.join(str(n) for n in mask.shape)
+    if hasattr(lb, 'compact_row_tables'):
+        trace('compact_row_tables bench {}'.format(shape),
+              lambda: lb.compact_row_tables(labels, mask, max_det=max_det,
+                                            max_bh=max_bh),
+              args.reps, smoke)
+        return
+
+    def steps():
+        comp, _ = lb.compact_labels(labels, mask, max_det=max_det)
+        return lb.component_row_tables(comp, mask, max_det=max_det,
+                                       max_bh=max_bh)
+    trace('compact_labels + component_row_tables bench {}'.format(shape),
+          steps, args.reps, smoke)
 
 
 def end_to_end(smoke, args):
@@ -374,7 +397,7 @@ def main():
                'rects': trace_rects, 'pixels': trace_pixels,
                'assign': trace_assign, 'gsff': trace_gsff,
                'frame_step': trace_frame_step,
-               'preprocess': trace_preprocess}
+               'preprocess': trace_preprocess, 'compact': trace_compact}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

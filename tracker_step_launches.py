@@ -17,7 +17,9 @@ and one of two frames, each until two of its profiles list the same
 device operations (the profiler now and then drops or adds some); their
 difference is one frame step, the rest the scan's own work (its checks
 and buffers), and the step's device operations (kernels, memsets,
-copies) are listed by name. Then five
+copies) are listed by name: 4 on the card with GSFF (assign, the frame
+step's rank and update, GSFF, whose kernel writes the live slots'
+positions itself; 5 in a checkout with the separate merge). Then five
 16-frame scans are timed on the host clock with the card synchronised
 (median and each).
 ``--videos 4`` also runs the step over four videos at once (a tree whose

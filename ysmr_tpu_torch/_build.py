@@ -164,6 +164,8 @@ def load_kernels():
     lib.ysmr_cc_label.argtypes = [vp] * 3 + [ci] * 5 + [vp]
     lib.ysmr_cc_reconstruct.restype = ci
     lib.ysmr_cc_reconstruct.argtypes = [vp] * 5 + [ci, ci, ci, ci, vp]
+    lib.ysmr_compact_row_tables.restype = ci
+    lib.ysmr_compact_row_tables.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.ysmr_cc_pixels.restype = ci
     lib.ysmr_cc_pixels.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.ysmr_adaptive_mean.restype = ci
@@ -173,13 +175,11 @@ def load_kernels():
     lib.ysmr_adaptive_masks.argtypes = [vp] * 5 + [ctypes.POINTER(
         ctypes.c_float)] + [ci] * 7 + [vp]
     lib.ysmr_gsff_step.restype = ci
-    lib.ysmr_gsff_step.argtypes = [vp] * 20 + [ci] * 6 + [vp]
+    lib.ysmr_gsff_step.argtypes = [vp] * 21 + [ci] * 6 + \
+        [ctypes.c_longlong, ci, vp]
     lib.ysmr_frame_step.restype = ci
     lib.ysmr_frame_step.argtypes = [vp] * 27 + [ctypes.c_float] + \
         [ci] * 6 + [vp]
-    lib.ysmr_gsff_merge.restype = ci
-    lib.ysmr_gsff_merge.argtypes = [vp] * 5 + [ci] * 3 + \
-        [ctypes.c_longlong, ci, vp]
     ll = ctypes.c_longlong
     lib.ysmr_cv2_centers.restype = ci
     lib.ysmr_cv2_centers.argtypes = [vp] * 9 + [ll] + [ci] * 4 + [vp]

@@ -2,14 +2,14 @@
 // first-come match of the slots' nearest detections, ageing and
 // deregistration, registration of the unmatched detections in ascending
 // column order, and the frame's emissions, for V videos' slot tables in
-// two launches; and the merge of the GSFF step's outputs in a third.
+// two launches.
 //
 // Replaces the plain-XLA body of ysmr_tpu/pipeline/tracker.py:129
 // _tracker_frame_update outside the distances and the GSFF step, with
 // ysmr_tpu/ops/assignment.py:67 greedy_assign_from_candidates (no Pallas
 // kernel: XLA fuses them inside the jitted scan). Same contract and the
-// same bits as ysmr_tpu_torch/ops/frame_step.py::match_and_register_plain
-// and ::gsff_merge_plain. The block is integer and selection logic; its
+// same bits as ysmr_tpu_torch/ops/frame_step.py::match_and_register_plain.
+// The block is integer and selection logic; its
 // one float operation is the comparison of the aged count, rounded to
 // float32 (__int2float_rn), with max_disappeared as a float32, which is
 // how torch compares a float32 tensor with a Python scalar.
@@ -65,10 +65,6 @@
 // cluster barriers (release / acquire at cluster scope). Signed int32
 // sums wrap as torch's do (unsigned arithmetic).
 //
-// The merge (one thread per slot): on a live slot the GSFF step's
-// predicted position over the first two coordinates of the new state's
-// position, its corrected position over the emitted one's.
-//
 // What bounds it on an H100: neither bytes nor operations. A dense frame
 // step (S = C = 4096) moves about 0.5 MB (0.15 us at 3.35 TB/s) and
 // compares 16.7 M key pairs (5.6 M of live slots). Measured at V = 1
@@ -100,7 +96,6 @@ constexpr int kRankOut = kRankTile / kRankSplit;  // ranks a block writes
 constexpr int kStage = 1024;    // keys staged at once
 constexpr int kUpdateThreads = 512;
 constexpr int kUpdateCluster = 8;  // the portable cluster size
-constexpr int kMergeThreads = 256;
 constexpr int kMaxVideos = 65535;  // the grids' y dimension
 constexpr uint64_t kFreeKey = ~0ull;
 
@@ -496,24 +491,6 @@ __global__ void __launch_bounds__(kUpdateThreads) update_kernel(UpdateArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kMergeThreads)
-merge_kernel(float* __restrict__ state_pos, float* __restrict__ emit_pos,
-             const uint8_t* __restrict__ active,
-             const float* __restrict__ corrected,
-             const float* __restrict__ predicted, int64_t n, int s, int k,
-             int64_t em_vstride) {
-  const int64_t at = static_cast<int64_t>(blockIdx.x) * kMergeThreads +
-                     threadIdx.x;
-  if (at >= n || !active[at]) return;
-  const int64_t video = at / s, i = at % s;
-  float* sp = state_pos + at * k;
-  float* ep = emit_pos + video * em_vstride + i * k;
-  for (int q = 0; q < 2; ++q) {
-    sp[q] = predicted[2 * at + q];
-    ep[q] = corrected[2 * at + q];
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -616,28 +593,6 @@ int ysmr_frame_step(const void* active, const void* ids, const void* pos,
     err = cudaLaunchKernelEx(&cfg, update_kernel, a);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// state_pos (V, S, K) float32, contiguous; emit_pos (V, S, K) float32 at
-// video stride em_vstride (elements), unit strides over S and K; active
-// (V, S) bool; corrected and predicted (V, S, 2) float32, contiguous.
-int ysmr_gsff_merge(void* state_pos, void* emit_pos, const void* active,
-                    const void* corrected, const void* predicted, int v,
-                    int s, int k, long long em_vstride, int device,
-                    void* stream) {
-  const int64_t n = static_cast<int64_t>(v) * s;
-  if (n <= 0) return 0;
-  if (k < 2) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks =
-      static_cast<unsigned>((n + kMergeThreads - 1) / kMergeThreads);
-  merge_kernel<<<blocks, kMergeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(state_pos), static_cast<float*>(emit_pos),
-      static_cast<const uint8_t*>(active),
-      static_cast<const float*>(corrected),
-      static_cast<const float*>(predicted), n, s, k, em_vstride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,6 +47,16 @@
 // K) positions). No allocation, no host synchronisation, no block
 // barrier: warps are independent.
 //
+// The tracker's scan also hands over two destinations (ysmr_tpu/pipeline/
+// tracker.py:253's emit_pos / stored_pos): on an active slot the kernel
+// writes `predicted` over the first two coordinates of the measurement's
+// own row (the new state's position, stride m_stride) and `corrected`
+// over those of the frame's emitted position (video stride em_vstride,
+// slot stride m_stride); the other slots keep what the frame step wrote.
+// A slot's lanes read the measurement at the start, and the two lanes
+// that overwrite it do so after the warp's last __syncwarp, so no lane
+// reads a prediction in place of the measurement.
+//
 // Cap: a warp needs 4 (17 n_f + 2 n_max stride) bytes of shared memory
 // (stride: the chunk, odd), the launch shrinks the chunk to fit 232,448
 // and takes any bank whose chunk of one fits: 4 (17 n_f + 2 n_max) bytes,
@@ -151,6 +161,8 @@ struct Args {
   const float* gains;    // (2, n_f, 2, 2 n_max): hi, lo
   const int* n_i;        // (n_f,)
   const float* m;        // (N, m_stride): the first two columns
+  float* st_pos;         // null, or m's rows: predicted written there
+  float* em_pos;         // null, or (V, S, m_stride) at em_vstride
   const uint8_t* active;
   const uint8_t* reg;
   const uint8_t* coast;
@@ -163,6 +175,8 @@ struct Args {
   float* corrected;
   float* predicted;
   int n, n_max, n_f, n_i0, m_stride;
+  int s;                // slots of a video (em_pos's S)
+  int64_t em_vstride;   // em_pos's video stride, in floats
   int warps;   // slots (warps) of a block
   int chunk;   // estimates the tree holds at once
   int stride;  // its row: chunk, or chunk + 1 if that is even
@@ -430,10 +444,15 @@ __global__ void __launch_bounds__(32 * kTargetWarps, MinBlocks)
     for (int f = 1; f < n_f; ++f)
       acc = ds_add(acc, {tmp[8 * f + q], tmp[8 * f + q + 1]});
     if (lane < 2) {
-      a.corrected[2 * slot + r] = __fadd_rn(acc.h, acc.l);
+      const float corr = __fadd_rn(acc.h, acc.l);
+      a.corrected[2 * slot + r] = corr;
+      if (a.em_pos)
+        a.em_pos[slot / a.s * a.em_vstride +
+                 slot % a.s * static_cast<int64_t>(a.m_stride) + r] = corr;
     } else {
       a.predicted[2 * slot + r] = acc.h;
       a.out_pred_lo[2 * slot + r] = acc.l;
+      if (a.st_pos) a.st_pos[slot * a.m_stride + r] = acc.h;
     }
   }
   if (lane == 0) {
@@ -452,19 +471,23 @@ extern "C" {
 // columns the measurement; active, reg, coast: (N,) bool; the outputs
 // shaped as their inputs, corrected and predicted (N, 2) float32; all
 // contiguous on CUDA device `device` (buffers 8-byte aligned), launched
-// on `stream`. Returns a cudaError_t (0 = launched; cudaErrorInvalidValue
-// past the cap).
+// on `stream`. With em_pos (else null) the N = V s slots' corrected
+// positions also go over the first two coordinates of em_pos (V, s,
+// m_stride) float32 at video stride em_vstride (floats), slot stride
+// m_stride, and their predicted ones over those of m's rows, on the
+// active slots. Returns a cudaError_t (0 = launched;
+// cudaErrorInvalidValue past the cap).
 int ysmr_gsff_step(const void* buf, const void* buf_lo, const void* len,
                    const void* mode, const void* log_w, const void* pred_lo,
                    const void* gains, const void* n_i, const void* m,
                    const void* active, const void* reg, const void* coast,
                    void* out_buf, void* out_buf_lo, void* out_len,
                    void* out_mode, void* out_log_w, void* out_pred_lo,
-                   void* corrected, void* predicted, int n, int n_max,
-                   int n_f, int n_i0, int m_stride, int device,
-                   void* stream) {
+                   void* corrected, void* predicted, void* em_pos, int n,
+                   int n_max, int n_f, int n_i0, int m_stride, int s,
+                   long long em_vstride, int device, void* stream) {
   if (n <= 0) return 0;
-  if (n_max < 1 || n_f < 1 || m_stride < 2)
+  if (n_max < 1 || n_f < 1 || m_stride < 2 || (em_pos && s < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   // the largest chunk of estimates (at most kChunk) whose tree lets a
   // block hold kTargetWarps warps (slots), or failing that one; then as
@@ -491,17 +514,21 @@ int ysmr_gsff_step(const void* buf, const void* buf_lo, const void* len,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  // with the destinations, the measurement's rows take the prediction
+  float* st_pos = em_pos ? static_cast<float*>(const_cast<void*>(m)) : nullptr;
   Args a{static_cast<const float*>(buf), static_cast<const float*>(buf_lo),
          static_cast<const int*>(len), static_cast<const int*>(mode),
          static_cast<const float*>(log_w), static_cast<const float*>(pred_lo),
          static_cast<const float*>(gains), static_cast<const int*>(n_i),
-         static_cast<const float*>(m), static_cast<const uint8_t*>(active),
+         static_cast<const float*>(m), st_pos, static_cast<float*>(em_pos),
+         static_cast<const uint8_t*>(active),
          static_cast<const uint8_t*>(reg), static_cast<const uint8_t*>(coast),
          static_cast<float*>(out_buf), static_cast<float*>(out_buf_lo),
          static_cast<int*>(out_len), static_cast<int*>(out_mode),
          static_cast<float*>(out_log_w), static_cast<float*>(out_pred_lo),
          static_cast<float*>(corrected), static_cast<float*>(predicted),
-         n, n_max, n_f, n_i0, m_stride, warps, chunk, chunk | 1};
+         n, n_max, n_f, n_i0, m_stride, em_pos ? s : 1,
+         static_cast<int64_t>(em_vstride), warps, chunk, chunk | 1};
   const unsigned blocks = static_cast<unsigned>((n + warps - 1) / warps);
   kernel<<<blocks, 32 * warps, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

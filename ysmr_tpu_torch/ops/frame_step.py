@@ -1,4 +1,4 @@
-"""The tracker frame step's match-and-register block, and the GSFF merge.
+"""The tracker frame step's match-and-register block.
 
 Counterpart of the plain-XLA body of ``ysmr_tpu/pipeline/tracker.py``'s
 ``_tracker_frame_update`` outside the assignment's distances and the GSFF
@@ -16,10 +16,11 @@ hand-written kernel ``csrc/frame_step.cu`` (two launches, counted as one
 call); on a CPU tensor ``match_and_register_plain``, the torch sequence:
 the slot argsort by id, ``greedy_assign_from_candidates`` on the gathered
 candidates, the scatter back to slots, ageing, registration and the
-emissions. ``gsff_merge`` writes the GSFF step's corrected and predicted
-positions over the first two coordinates of the live slots (one launch of
-the same source on a CUDA tensor, ``gsff_merge_plain`` on a CPU one).
-Nothing falls back from a kernel to its plain version.
+emissions. With GSFF, the filter step that follows it
+(``ops/gsff.py::_register_and_step``) writes its corrected and predicted
+positions over the first two coordinates of the live slots' emitted and
+new positions itself. Nothing falls back from the kernel to its plain
+version.
 
 The block does no float arithmetic besides one comparison (the aged
 count, rounded to float32, against ``max_disappeared``), so the kernel is
@@ -340,68 +341,3 @@ def match_and_register(state, row_min, cand, det_xy, det_info, det_valid, *,
 
 #: kernel calls since the count was last set to 0
 match_and_register.launches = 0
-
-
-def gsff_merge_plain(state_pos, emit_pos, active, corrected, predicted):
-    """Plain version of the merge of ``csrc/frame_step.cu``, in place:
-    ``where(active, cat([predicted, pos[..., 2:]]), pos)`` into the new
-    state's positions and the same with ``corrected`` into the frame's
-    emitted positions."""
-    on = active[..., None]
-    state_pos[..., :2] = torch.where(on, predicted, state_pos[..., :2])
-    emit_pos[..., :2] = torch.where(on, corrected, emit_pos[..., :2])
-
-
-def gsff_merge(state_pos, emit_pos, active, corrected, predicted):
-    """The GSFF step's outputs over the first two coordinates of the live
-    slots, in place (contract of ``gsff_merge_plain``): one launch of
-    ``csrc/frame_step.cu``'s merge on a CUDA tensor, the plain version on
-    a CPU one.
-
-    :param state_pos: (V, S, K) float32, contiguous: the new state's
-        positions, ``predicted`` written over them
-    :param emit_pos: (V, S, K) float32 with unit strides over S and K:
-        the frame's emitted positions (a frame of ``allocate``'s
-        emissions), ``corrected`` written over them
-    :param active: (V, S) bool, the new state's live slots
-    :param corrected, predicted: (V, S, 2) float32, contiguous
-    """
-    dev = state_pos.device
-    if state_pos.dim() != 3 or state_pos.shape[2] < 2:
-        raise ValueError('gsff_merge: state_pos must be (V, S, K), K >= 2')
-    v, s, k = state_pos.shape
-    for name, a, shape, dtype in (
-            ('state_pos', state_pos, (v, s, k), _F32),
-            ('emit_pos', emit_pos, (v, s, k), _F32),
-            ('active', active, (v, s), _B8),
-            ('corrected', corrected, (v, s, 2), _F32),
-            ('predicted', predicted, (v, s, 2), _F32)):
-        if not torch.is_tensor(a) or tuple(a.shape) != shape or \
-                a.dtype != dtype or a.device != dev:
-            raise ValueError('gsff_merge: {} must be a {} {} tensor on {}'
-                             .format(name, shape, dtype, dev))
-    if dev.type == 'cpu':
-        gsff_merge_plain(state_pos, emit_pos, active, corrected, predicted)
-        return
-    if dev.type != 'cuda':
-        raise ValueError('gsff_merge: unsupported device {}'.format(dev))
-    if not all(a.is_contiguous() for a in (state_pos, active, corrected,
-                                           predicted)) or \
-            emit_pos.stride()[1:] != (k, 1):
-        raise ValueError('gsff_merge: state_pos, active, corrected and '
-                         'predicted must be contiguous, emit_pos (V, S, K) '
-                         'with unit strides over S and K')
-    if v * s == 0:
-        return
-    lib = _build.load_kernels()
-    rc = lib.ysmr_gsff_merge(
-        state_pos.data_ptr(), emit_pos.data_ptr(), active.data_ptr(),
-        corrected.data_ptr(), predicted.data_ptr(), v, s, k,
-        emit_pos.stride(0), dev.index,
-        torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check(lib, rc, 'gsff merge kernel launch')
-    gsff_merge.launches += 1
-
-
-#: kernel launches since the count was last set to 0
-gsff_merge.launches = 0

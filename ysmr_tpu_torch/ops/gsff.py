@@ -16,8 +16,10 @@ kernel ``csrc/gsff.cu`` (bit-equal to ``register_and_step_plain``, the
 torch sequence ``register_slots`` + ``_step``), on a CPU tensor the plain
 sequence. Nothing falls back from the kernel to the plain version. The
 tracker's scan calls its private twin ``_register_and_step``, which trusts
-the checked tables and writes into buffers allocated once a scan
-(``allocate``).
+the checked tables, writes into buffers allocated once a scan
+(``allocate``) and writes the step's outputs over the live slots' new and
+emitted positions in the same launch (``_register_and_step_plain`` on a
+CPU tensor).
 
 Numerics: the few transcendentals (``exp``, ``log``) run in float64 and
 round to float32, so the CPU and CUDA give the same bits (library float32
@@ -336,37 +338,66 @@ def allocate(state, frames=1):
             'predicted': like(state['pred_lo'])}
 
 
+def _register_and_step_plain(gains, n_i, n_f, n_i0, state, pos, active,
+                             register, coasting, *, out, frame,
+                             emit_pos=None):
+    """``_register_and_step`` by the plain version, on any device:
+    ``register_and_step_plain`` copied into ``out``'s buffers and, with
+    ``emit_pos``, the live slots' outputs written where the kernel writes
+    them."""
+    new_state = out['states'][frame % len(out['states'])]
+    corrected, predicted = out['corrected'], out['predicted']
+    got, corr, pred = register_and_step_plain(
+        gains, n_i, n_f, n_i0, state, pos[:, :2], active, register, coasting)
+    for key in STATE_KEYS:
+        new_state[key].copy_(got[key])
+    corrected.copy_(corr)
+    predicted.copy_(pred)
+    if emit_pos is not None:
+        on = active[:, None]
+        pos[:, :2] = torch.where(on, pred, pos[:, :2])
+        v, s = emit_pos.shape[:2]
+        emit_pos[..., :2] = torch.where(on.view(v, s, 1), corr.view(v, s, 2),
+                                        emit_pos[..., :2])
+    return new_state, corrected, predicted
+
+
 def _register_and_step(gains, n_i, n_f, n_i0, state, pos, active, register,
-                       coasting, *, out, frame):
+                       coasting, *, out, frame, emit_pos=None):
     """``register_and_step`` on checked tensors into ``allocate``'s
     buffers ``out``, frame ``frame``: the private entry of the tracker's
     scan, which checks its tables once. The measurement is the first two
     columns of ``pos``, the new state's (N, K) positions (read at stride
     K; no copy of the slice). Returns (new_state, corrected, predicted),
-    views of ``out``."""
+    views of ``out``.
+
+    With ``emit_pos``, the frame's (V, S, K) emitted positions (a frame of
+    ``frame_step.allocate``'s emissions: unit strides over S and K, N = V
+    S), the step also writes its outputs over the first two coordinates of
+    the active slots: ``predicted`` over ``pos``, ``corrected`` over
+    ``emit_pos`` (ysmr_tpu's ``stored_pos`` and ``emit_pos``); the other
+    slots keep theirs. The kernel writes them in the same launch."""
+    if pos.device.type == 'cpu':
+        return _register_and_step_plain(
+            gains, n_i, n_f, n_i0, state, pos, active, register, coasting,
+            out=out, frame=frame, emit_pos=emit_pos)
     states = out['states']
     new_state = states[frame % len(states)]
     corrected, predicted = out['corrected'], out['predicted']
-    m = pos[:, :2]
-    if pos.device.type == 'cpu':
-        got, corr, pred = register_and_step_plain(
-            gains, n_i, n_f, n_i0, state, m, active, register, coasting)
-        for key in STATE_KEYS:
-            new_state[key].copy_(got[key])
-        corrected.copy_(corr)
-        predicted.copy_(pred)
-        return new_state, corrected, predicted
     n, n_max = state['buf'].shape[0], state['buf'].shape[1] - 1
     if n:
         dev = pos.device
+        # the emitted positions: a video's slots and its stride
+        em, s, vstride = (None, 1, 0) if emit_pos is None else (
+            emit_pos.data_ptr(), emit_pos.shape[1], emit_pos.stride(0))
         lib = _build.load_kernels()
         rc = lib.ysmr_gsff_step(
             *(state[k].data_ptr() for k in STATE_KEYS), gains.data_ptr(),
             n_i.data_ptr(), pos.data_ptr(), active.data_ptr(),
             register.data_ptr(), coasting.data_ptr(),
             *(new_state[k].data_ptr() for k in STATE_KEYS),
-            corrected.data_ptr(), predicted.data_ptr(), n, n_max, n_f,
-            n_i0, pos.stride(0), dev.index,
+            corrected.data_ptr(), predicted.data_ptr(), em, n, n_max, n_f,
+            n_i0, pos.stride(0), s, vstride, dev.index,
             torch._C._cuda_getCurrentRawStream(dev.index))
         _build.check(lib, rc, 'gsff kernel launch')
         register_and_step.launches += 1

@@ -31,10 +31,16 @@ Differences from the JAX module, all of representation:
   the kernels ``csrc/cc.cu`` (wrapper ``ops/cc.py``); ``label_components``
   also returns per-frame step counts.
 - ``component_tables`` reduces over the foreground pixels only
-  (``nonzero``, one host sync per batch); the background rows of the JAX
-  reduction go to a slot that is never read. Empty components and rows
-  hold +-2^30 where JAX's empty ``segment_min``/``segment_max`` give
-  2^31 - 1; nothing reads them.
+  (``nonzero``, one host sync per batch on the CPU route); the background
+  rows of the JAX reduction go to a slot that is never read. Empty
+  components and rows hold +-2^30 where JAX's empty
+  ``segment_min``/``segment_max`` give 2^31 - 1; nothing reads them.
+- Frames mode's detect takes the compaction and the row tables in one
+  call, ``compact_row_tables``: on a CUDA tensor the kernel
+  ``csrc/compact.cu`` (three launches, no (T, H, W) plane of ids, no
+  ``nonzero``, nothing read back), on a CPU tensor
+  ``compact_row_tables_plain``, ``compact_labels`` followed by
+  ``component_row_tables``.
 - ``.at[idx].min/max(mode='drop')`` onto deliberately out-of-range indices
   becomes ``scatter_reduce_`` into a buffer whose last slot is a dump
   that is never read.
@@ -64,6 +70,7 @@ import math
 import numpy as np
 import torch
 
+from ysmr_tpu_torch import _build
 from ysmr_tpu_torch.ops import ds
 
 _I32 = torch.int32
@@ -230,6 +237,85 @@ def component_row_tables(comp, mask, *, max_det, max_bh):
     xs = lin - ys * w
     seg = comp.reshape(-1)[fg].long()
     return _row_tables(frame, xs, ys, seg, t, max_det=max_det, max_bh=max_bh)
+
+
+def compact_row_tables_plain(labels, mask, *, max_det, max_bh):
+    """Plain version of ``compact_row_tables``: ``compact_labels``, then
+    ``component_row_tables`` over the dense ids."""
+    comp, n_components = compact_labels(labels, mask, max_det=max_det)
+    return component_row_tables(comp, mask, max_det=max_det,
+                                max_bh=max_bh) + (n_components,)
+
+
+#: 32-pixel words of a tile of ``csrc/compact.cu``'s root scan
+COMPACT_TILE_WORDS = 256
+
+
+def compact_row_tables(labels, mask, *, max_det, max_bh):
+    """Frames mode's compaction and row tables in one call: the row
+    tables ``component_row_tables`` gives for the dense ids of
+    ``compact_labels`` (reverse raster order of the components' roots,
+    ids from ``max_det`` on dropped), and each frame's component count.
+
+    On a CPU tensor ``compact_row_tables_plain``; on a CUDA tensor the
+    kernel ``csrc/compact.cu`` (three launches, counted as one call;
+    bit-equal), or the call raises. The kernel takes the labels as
+    ``label_components`` and the labeling kernel give them: each mask
+    pixel's label is its component's minimum in-frame linear index.
+
+    :param labels: (T, H, W) int32, contiguous
+    :param mask: (T, H, W) bool, contiguous
+    :return: (row_min_x, row_max_x, row_valid, min_y, n_components):
+        (T*max_det, max_bh) int32, int32 and bool, (T*max_det,) int32 and
+        (T,) int32
+    """
+    if labels.device.type == 'cpu':
+        return compact_row_tables_plain(labels, mask, max_det=max_det,
+                                        max_bh=max_bh)
+    name = 'compact_row_tables'
+    if labels.device.type != 'cuda':
+        raise ValueError('{}: unsupported device {}'.format(
+            name, labels.device))
+    if labels.dim() != 3:
+        raise ValueError('{}: labels must be (T, H, W)'.format(name))
+    for a, dtype in ((labels, _I32), (mask, torch.bool)):
+        if a.shape != labels.shape or a.dtype != dtype or \
+                a.device != labels.device or not a.is_contiguous():
+            raise ValueError('{}: expects contiguous (T, H, W) int32 labels '
+                             'and bool mask on {}'.format(name,
+                                                          labels.device))
+    t, h, w = labels.shape
+    if h * w >= 1 << 31 or min(h, w) < 1:
+        raise ValueError('{}: frames of 1 to 2^31 - 1 pixels'.format(name))
+    if max_det < 1 or max_bh < 1:
+        raise ValueError('{}: max_det and max_bh must be positive'.format(
+            name))
+    dev = labels.device
+    d = t * max_det
+    row_min_x = torch.empty((d, max_bh), dtype=_I32, device=dev)
+    row_max_x = torch.empty((d, max_bh), dtype=_I32, device=dev)
+    row_valid = torch.empty((d, max_bh), dtype=torch.bool, device=dev)
+    min_y = torch.empty((d,), dtype=_I32, device=dev)
+    n_components = torch.empty((t,), dtype=_I32, device=dev)
+    # the foreground words, root words and their prefixes within a tile,
+    # the tiles' counts and prefixes, and the frames' starts
+    nw = (t * h * w + 31) // 32
+    tiles = (nw + COMPACT_TILE_WORDS - 1) // COMPACT_TILE_WORDS
+    scratch = torch.empty(3 * nw + 2 * tiles + t + 2, dtype=_I32, device=dev)
+    if t:
+        lib = _build.load_kernels()
+        rc = lib.ysmr_compact_row_tables(
+            labels.data_ptr(), mask.data_ptr(), row_min_x.data_ptr(),
+            row_max_x.data_ptr(), row_valid.data_ptr(), min_y.data_ptr(),
+            n_components.data_ptr(), scratch.data_ptr(), t, h, w, max_det,
+            max_bh, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, 'compact kernel launch')
+        compact_row_tables.launches += 1
+    return row_min_x, row_max_x, row_valid, min_y, n_components
+
+
+#: kernel calls since the count was last set to 0
+compact_row_tables.launches = 0
 
 
 def _row_tables(frame, xs, ys, seg, t, *, max_det, max_bh):

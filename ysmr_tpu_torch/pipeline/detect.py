@@ -5,9 +5,10 @@ Counterpart of ``ysmr_tpu/pipeline/detect.py``: grayscale -> 3x3 blur ->
 threshold (one of three modes) -> marker reconstruction -> 8-connected
 labels -> compaction -> row tables -> hull -> exact rect, batched over T
 frames. The labeling and the reconstruction are the kernels of
-``csrc/cc.cu`` on a CUDA tensor (``ops/cc.py``), their plain versions on a
-CPU one; the hull and sweep kernels run inside the stats tail as on the
-run wire.
+``csrc/cc.cu`` on a CUDA tensor (``ops/cc.py``), the compaction and row
+tables one call of ``csrc/compact.cu`` (``labeling.compact_row_tables``),
+their plain versions on a CPU one; the hull and sweep kernels run inside
+the stats tail as on the run wire.
 
 In the adaptive modes ``detect_batch`` (and the multi-video step and
 ``graft_entry``) goes from the BGR frames to the masks in one call,
@@ -102,8 +103,10 @@ def detect_from_masks(gray, mask, markers, *, max_det, max_bh, cc_iters,
         mask = cc.binary_reconstruct(mask, markers, max_iters=cc_iters)
     labels8 = cc.label_components_whole_frame(mask, connectivity=8,
                                               max_iters=cc_iters)
-    comp, n_components = lb.compact_labels(labels8, mask, max_det=max_det)
-    tables = lb.component_tables(comp, mask, max_det=max_det, max_bh=max_bh)
+    *rows, n_components = lb.compact_row_tables(labels8, mask,
+                                                max_det=max_det,
+                                                max_bh=max_bh)
+    tables = lb._stats_tail_from_tables(*rows, max_bh=max_bh)
     return detections_from_tables(
         tables, mask.shape[0], max_det=max_det, max_bh=max_bh,
         n_components=n_components,

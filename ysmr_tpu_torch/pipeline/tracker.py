@@ -11,16 +11,16 @@ step's shapes are static. The frame step always works over a leading
 video axis V: one video is V = 1, and the multi-video step's ``jax.vmap``
 over a device's videos becomes one scan over its (V, T, ...) tables, so
 a frame step serves all V videos. On a CUDA tensor a frame step is three
-kernels, five with GSFF (luminosity's third coordinate too): the per-slot
+kernels, four with GSFF (luminosity's third coordinate too): the per-slot
 nearest detection
 (``ops/assign.py::row_min_argmin``, ``csrc/assign.cu``), the match,
 ageing, registration and emissions
 (``ops/frame_step.py::match_and_register``, ``csrc/frame_step.cu``, two
 launches), and with GSFF the filter step
-(``ops/gsff.py::register_and_step``, ``csrc/gsff.cu``) and the merge of
-its outputs (``frame_step.gsff_merge``); on a CPU tensor each is its
-plain torch version. The scan checks its tables once and calls the
-blocks' private entries (``frame_step._match_and_register``,
+(``ops/gsff.py::register_and_step``, ``csrc/gsff.cu``), which also writes
+its outputs over the live slots' new and emitted positions; on a CPU
+tensor each is its plain torch version. The scan checks its tables once
+and calls the blocks' private entries (``frame_step._match_and_register``,
 ``gsff._register_and_step``), which write into buffers allocated once a
 scan. With ``assign_mesh`` the per-slot nearest
 detection is computed with the slots sharded over a device mesh
@@ -181,10 +181,11 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
 
     On a CUDA tensor the step is the assign kernel on the slot table as it
     is (on each shard with ``assign_mesh``), the frame-step kernel
-    (``frame_step._match_and_register``) and, with GSFF, the GSFF kernel
-    and the merge."""
+    (``frame_step._match_and_register``) and, with GSFF, the GSFF kernel,
+    which writes the emitted (corrected) and stored (predicted) positions
+    of the live slots itself."""
     active = state['active']
-    v, s = active.shape
+    v = active.shape[0]
     # the candidates in slot order: a row's minimum and first minimal
     # column do not depend on the order of the rows
     if assign_mesh is None:
@@ -208,17 +209,14 @@ def _tracker_frame_update(state, det_xy, det_info, det_valid, *,
         # the measurement the first two of the K coordinates (no copy);
         # newly registered slots start with the ring filled with m, and a
         # coasting slot (active, unmatched, not newly registered) feeds its
-        # own stored prediction back, with the lo half re-attached
-        pos_new = new_state['pos']
-        active_new = new_state['active']
-        gstate, corrected, predicted = gsff_ops._register_and_step(
+        # own stored prediction back, with the lo half re-attached; on
+        # every live slot the emitted position becomes the corrected one
+        # and the stored one the prediction
+        gstate = gsff_ops._register_and_step(
             gsff_gains, gsff_n_i, gsff_n_f, gsff_n_i0, state['gsff'],
-            pos_new.flatten(0, 1), active_new.flatten(), reg_slot.flatten(),
-            coasting.flatten(), out=out['gsff'], frame=frame)
-        # the emitted position is the corrected one, the stored one the
-        # prediction, on every live slot
-        fs.gsff_merge(pos_new, emission['pos'], active_new,
-                      corrected.view(v, s, 2), predicted.view(v, s, 2))
+            new_state['pos'].flatten(0, 1), new_state['active'].flatten(),
+            reg_slot.flatten(), coasting.flatten(), out=out['gsff'],
+            frame=frame, emit_pos=emission['pos'])[0]
         new_state = dict(new_state, gsff=gstate)
     return new_state, emission
 
