@@ -244,21 +244,39 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    batch and a 16-frame 640x480 batch as frames mode's detect hands them
    over (the fused preprocess, the reconstruction and the labeling on the
    card), timed with the bound, the device time by kernel and the
-   device span; and the seeded edge cases of ``compact_cases.py`` (more
+   device span, reading the mask as the labeling packed it (as the detect
+   does) and, untimed, the mask's bytes; and the seeded edge cases of
+   ``compact_cases.py``, with the mask and packed (more
    components than max_det, a component taller than max_bh, empty
    frames, frames of one row and of one column, components on every frame
-   edge and a full frame, frames under 32 pixels).
+   edge and a full frame, frames under 32 pixels);
+33. run-CC's steps around the propagations (``csrc/run_cc.cu``:
+   ``run_cc.prepare_runs``, ``compact_kept_runs``, ``finish_components``)
+   against their plain versions on the card, bit for bit on every output,
+   one launch a call: prepare for both thresholds' dilations, compact on
+   the 4-connected labels, finish with and without the compaction and
+   the sorted runs, and ``run_cc_components`` through them against
+   ``run_cc_components_plain``, on the bench and dense first batches
+   (timed: event span against the plain version, device time by kernel,
+   device operations, the bound: the wire in and the outputs out once),
+   phase 3's random graphs and the seeded cases of ``run_cc_cases.py``
+   (stale padding and a padded frame, a full table, runs at both edges,
+   one row, no and all markers, one and two columns, runs of length 0);
+   each kernel's registers, spills and shared memory. Phases 3, 4, 7,
+   17, 18, 21 and 26 fail unless run-CC ran through these kernels
+   (prepare, compact and finish once a call, the propagation twice).
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (fifteen kernels:
+The last three lines are the ``kernels`` JSON record (sixteen kernels:
 the seven TPU kernels' ports, the adaptive mean and the fused preprocess
 around it, the GSFF step, the frame step, the cv2 centres, the edge
-finish, the rect select and the compaction, each with its bound and the
-library call where one exists),
+finish, the rect select, the compaction and run-CC's steps around the
+propagation, each with its bound and the library call where one exists),
 ``nvidia-smi``'s card name and power limit, and the result JSON.
 """
 
 import configparser
+import inspect
 import json
 import logging
 import os
@@ -277,6 +295,7 @@ import torch
 import compact_cases as cpc
 import frame_step_cases as fsc
 import rect_tail_cases as rtc
+import run_cc_cases as rcc_cases
 import tracker_step_launches as tsl
 
 from ysmr_tpu_torch import _build, graft_entry, native
@@ -299,6 +318,13 @@ from ysmr_tpu_torch.pipeline import tracker as trk
 from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
 from ysmr_tpu_torch.pipeline.track_bacteria import _track_loop, track_bacteria
 from ysmr_tpu_torch.utils.csv_io import save_list
+
+#: csrc/run_cc.cu's wrappers, the steps around the propagations (none in a
+#: checkout from before it, which trace_kernels.py may trace)
+RUN_CC = tuple(getattr(run_cc, n) for n in
+               ('prepare_runs', 'compact_kept_runs', 'finish_components')
+               if hasattr(run_cc, n))
+RUN_CC_NAMES = tuple(k.__name__ for k in RUN_CC)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, '.smoke')
@@ -453,9 +479,15 @@ def cuda_ms(fn, reps=10):
 def graph_inputs(runs, counts, w, connectivity, device):
     """(init, win, link) of one propagation at the shapes run_cc gives the
     kernel: 4-connected with the +R weak init, or 8-connected from iota."""
-    geo = run_cc._prepare(torch.from_numpy(runs.view(np.int32)).to(device),
-                          torch.from_numpy(counts).to(device), w=w)
-    win = run_cc.run_windows(geo, dilate=1 if connectivity == 8 else 0)
+    wire = (torch.from_numpy(runs.view(np.int32)).to(device),
+            torch.from_numpy(counts).to(device))
+    dil = 1 if connectivity == 8 else 0
+    if RUN_CC:
+        g = run_cc.prepare_runs(*wire, w=w, dilates=(dil,),
+                                weak_init=connectivity == 4)
+        return g['init'], g['wins'][0], g['link']
+    geo = run_cc._prepare(*wire, w=w)
+    win = run_cc.run_windows(geo, dilate=dil)
     link = run_cc.chain_mask(geo, win)
     t, r = runs.shape
     iota = torch.arange(r, dtype=torch.int32, device=device).expand(t, r)
@@ -610,9 +642,35 @@ def phase_kernel(scene, settings, dscene, dsettings, dev):
             results.append(compare_kernel(
                 'random {}x{} {}-conn'.format(h, w, conn), runs, rc, w, conn,
                 dev))
-    if propagate_min_fused.launches <= 0:
-        raise SystemExit('the kernel was never launched')
+    if propagate_min_fused.launches <= 0 or \
+            run_cc.prepare_runs.launches <= 0:
+        raise SystemExit('the propagation or prepare kernel was never '
+                         'launched')
     return (max(r[0] for r in results),) + results[0][1:]
+
+
+def run_cc_launches():
+    """The run-CC kernels' counts: the propagation's and those of
+    ``csrc/run_cc.cu``'s wrappers."""
+    return {k.__name__: k.launches for k in (propagate_min_fused,) + RUN_CC}
+
+
+def reset_run_cc():
+    for k in (propagate_min_fused,) + RUN_CC:
+        k.launches = 0
+
+
+def run_cc_gate(what, launches, double=True):
+    """Raise unless run-CC ran through its kernels: prepare and finish as
+    often as each other, the compaction as often with the double threshold
+    (never without), the propagation twice (once) a call."""
+    calls = launches['finish_components']
+    want = {'prepare_runs': calls, 'compact_kept_runs': calls if double
+            else 0, 'finish_components': calls,
+            'propagate_min_fused': calls * (2 if double else 1)}
+    if calls <= 0 or any(launches[k] != v for k, v in want.items()):
+        raise SystemExit('{}: run-CC launches {}, not {} for {} calls'
+                         .format(what, launches, want, calls))
 
 
 def run_loop(scene_frames, settings, device, name):
@@ -640,16 +698,15 @@ def phase_main_path(scene, settings):
     frames = [scene.frame(t) for t in range(N_FRAMES)]
     log('scene: {} frames of {}x{} drawn in {:.1f} s'.format(
         N_FRAMES, W, H, time.perf_counter() - t0))
-    propagate_min_fused.launches = 0
+    reset_run_cc()
     res, cuda_bytes, stats = run_loop(frames, settings, 'cuda', 'cuda')
-    launches = propagate_min_fused.launches
+    launches = run_cc_launches()
     torch.cuda.synchronize()
     cpu_res, cpu_bytes, cpu_stats = run_loop(frames, settings, 'cpu', 'cpu')
     rows = cuda_bytes.count(b'\n') - 1
     if cuda_bytes != cpu_bytes:
         raise SystemExit('_list.csv differs between cuda and cpu runs')
-    if launches <= 0:
-        raise SystemExit('the main path launched no kernel')
+    run_cc_gate('main path', launches)
     if stats['capped_frames'] or cpu_stats['capped_frames']:
         raise SystemExit('frames reached the run-CC iteration cap')
     df = res[0]
@@ -1063,7 +1120,7 @@ class WarningCounter(logging.Handler):
 KERNELS = (propagate_min_fused, hull_edge_vectors, sweep_extents,
            row_min_argmin, gsff_ops.register_and_step,
            fs.match_and_register, cv2c.cv2_centers_from_tables,
-           rect.edge_finish, rect.rect_select)
+           rect.edge_finish, rect.rect_select) + RUN_CC
 
 
 def tracker_gate(what, launches, per):
@@ -1168,6 +1225,7 @@ def phase_dense_path(scene, frames, settings):
             launches))
     tracker_gate('dense clip', launches, launches['row_min_argmin'])
     rect_tail_gate('dense clip', launches, launches['hull_edge_vectors'])
+    run_cc_gate('dense clip', launches)
     return launches, dense_bytes
 
 
@@ -1208,9 +1266,9 @@ def phase_dense_exact(frames, settings):
                          'reference has {} and {}'.format(
                              df.shape[0], tracks, DENSE_ROWS, DENSE_TRACKS))
     hold_to_reference('dense exact mode', df, 'dense_clip_list.csv.gz')
-    if launches['propagate_min_fused'] <= 0:
-        raise SystemExit('dense exact mode: run-CC kernel never launched')
-    if any(v for k, v in launches.items() if k != 'propagate_min_fused'):
+    run_cc_gate('dense exact mode', launches)
+    if any(v for k, v in launches.items()
+           if k not in ('propagate_min_fused',) + RUN_CC_NAMES):
         raise SystemExit('dense exact mode: the device rects or tracker ran: '
                          '{}'.format(launches))
     log('dense exact mode, dense clip via track_bacteria(path) on cuda: {} '
@@ -2116,6 +2174,8 @@ if __name__ == '__main__':
     from ysmr_tpu_torch.ops.preprocess import (adaptive_gaussian_mean,
                                                adaptive_masks_from_bgr)
     from ysmr_tpu_torch.ops.rect import edge_finish, rect_select
+    from ysmr_tpu_torch.ops.run_cc import (compact_kept_runs,
+                                           finish_components, prepare_runs)
     from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
     from ysmr_tpu_torch.ops.sweep import sweep_extents
 
@@ -2137,7 +2197,8 @@ if __name__ == '__main__':
                binary_reconstruct, cc_labels_at_pixels,
                adaptive_gaussian_mean, adaptive_masks_from_bgr,
                compact_row_tables, register_and_step, match_and_register,
-               edge_finish, rect_select)
+               edge_finish, rect_select, prepare_runs, compact_kept_runs,
+               finish_components)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2354,8 +2415,7 @@ def phase_program(settings):
                                json.dumps(launches),
                                sum('plot' in r for r in records),
                                ', '.join(plots)))
-    if launches['propagate_min_fused'] <= 0:
-        raise SystemExit('program: the run-CC kernel was never launched')
+    run_cc_gate('program', launches)
     if 'violin_plot' not in plots:
         raise SystemExit('program: the plot stub was not used')
     ours = pd.read_csv(os.path.join(folder, 'bench_clip_list.csv'))
@@ -2563,9 +2623,9 @@ def phase_det_px(scene, settings, dev):
                 torch.ones(len(counts), dtype=torch.bool, device=device))
         wire = dict(px_runs=torch.from_numpy(runs.view(np.int32)).to(device),
                     run_counts=torch.from_numpy(rc).to(device))
-        propagate_min_fused.launches = 0
+        reset_run_cc()
         got = detect_from_pixels(*args, **wire, **kw)
-        launches = propagate_min_fused.launches
+        launches = run_cc_launches()
         ms = cuda_ms(lambda: detect_from_pixels(*args, **wire, **kw), 5) \
             if device == 'cuda' else None
         out[device] = ({k: got[k].cpu() for k in
@@ -2581,8 +2641,7 @@ def phase_det_px(scene, settings, dev):
             out['cuda'][2]))
     if not same:
         raise SystemExit('det_px_from_runs: cuda differs from cpu')
-    if out['cuda'][1] <= 0:
-        raise SystemExit('det_px_from_runs: the run-CC kernel never ran')
+    run_cc_gate('det_px_from_runs', out['cuda'][1], double)
 
 
 def phase_pool(settings):
@@ -2896,11 +2955,13 @@ def phase_keep_and_entry(scene, settings, dev):
     ``entry('cpu')``; ``graft_entry.dryrun_multichip(4)`` on ``cuda``."""
     runs, rc = first_batch_runs(scene, settings)
     wire = [torch.from_numpy(runs.view(np.int32)), torch.from_numpy(rc)]
-    propagate_min_fused.launches = 0
+    reset_run_cc()
     got = run_cc.keep_marked_runs(*(a.to(dev) for a in wire), w=W)
-    launches = propagate_min_fused.launches
+    launches = run_cc_launches()
     want = run_cc.keep_marked_runs(*wire, w=W)
-    if launches != 1 or not torch.equal(got.cpu(), want):
+    if launches != {'propagate_min_fused': 1, 'prepare_runs': 1,
+                    'compact_kept_runs': 0, 'finish_components': 0} or \
+            not torch.equal(got.cpu(), want):
         raise SystemExit('keep_marked_runs: the kernel differs from the '
                          'plain version (launches {})'.format(launches))
     ms = cuda_ms(lambda: run_cc.keep_marked_runs(*(a.to(dev) for a in wire),
@@ -4166,14 +4227,32 @@ def compact_inputs(frames, settings, dev):
     return cc.label_components_whole_frame(mask, 8), mask
 
 
-def check_compact(name, labels, mask, max_det, max_bh, timed=False):
+def compact_bits(labels, mask):
+    """The packed mask the labeling hands frames mode's compaction (the
+    labeling run once more for its bits), or None in a checkout whose
+    labeling does not return it."""
+    if 'return_bits' not in inspect.signature(
+            cc.label_components_whole_frame).parameters:
+        return None
+    got, bits = cc.label_components_whole_frame(mask, 8, return_bits=True)
+    if not torch.equal(got, labels):
+        raise SystemExit('the labeling with its bits differs')
+    return bits
+
+
+def check_compact(name, labels, mask, max_det, max_bh, timed=False,
+                  bits=None):
     """The compaction kernel against its plain version on the same card
-    tensors, every output bit-equal, one call; with ``timed``, median ms
-    of each, the device time by kernel and the call's device span, and the
-    bound (the mask read once, the labels at its foreground pixels, the
-    outputs written once)."""
+    tensors, every output bit-equal, one call (reading ``bits``, the packed
+    mask, where given, as frames mode's detect does); with ``timed``,
+    median ms of each, the device time by kernel and the call's device
+    span, and the bound (the mask read once, the labels at its foreground
+    pixels, the outputs written once: the same count with the packed
+    mask)."""
+    kw = {} if bits is None else {'fg_bits': bits}
+
     def kernel(*_):
-        return COMPACT(labels, mask, max_det=max_det, max_bh=max_bh)
+        return COMPACT(labels, mask, max_det=max_det, max_bh=max_bh, **kw)
 
     def plain(*_):
         return labeling.compact_row_tables_plain(labels, mask,
@@ -4224,21 +4303,25 @@ def phase_compaction(frames, settings, dframes, dsettings, dev):
             ('640x480 16 frames', [other.frame(t)[:oh, :ow]
                                    for t in range(16)], settings)):
         labels, mask = compact_inputs(frs, sets, dev)
-        bench = bench or (labels, mask, sets)
-        checks.append(check_compact(
-            name, labels, mask, sets['max detections per frame'],
-            sets['max bounding box height'], timed=True))
+        bits = compact_bits(labels, mask)
+        bench = bench or (labels, mask, sets, bits)
+        md, mb = sets['max detections per frame'], \
+            sets['max bounding box height']
+        check_compact(name + ' (bytes)', labels, mask, md, mb)
+        checks.append(check_compact(name, labels, mask, md, mb, timed=True,
+                                    bits=bits))
     for case in cpc.CASES:
         mask, max_det, max_bh = cpc.compact_case(case)
-        check_compact(case, torch.from_numpy(cpc.min_index_labels(mask)).to(
-            dev), torch.from_numpy(mask).to(dev), max_det, max_bh)
-    log('compact edge cases {}: kernel bit-equal to the plain version, one '
-        'call each'.format(list(cpc.CASES)))
+        labels = torch.from_numpy(cpc.min_index_labels(mask)).to(dev)
+        for bits in (None, torch.from_numpy(cpc.packed_mask(mask)).to(dev)):
+            check_compact(case, labels, torch.from_numpy(mask).to(dev),
+                          max_det, max_bh, bits=bits)
+    log('compact edge cases {}: kernel bit-equal to the plain version with '
+        'the mask and with it packed, one call each'.format(list(cpc.CASES)))
     # each kernel's resources at the bench batch
-    labels, mask, sets = bench
+    labels, mask, sets, bits = bench
     lib = _build.load_kernels()
-    for kernel, threads in (('roots_kernel', 256), ('scan_kernel', 1024),
-                            ('tables_kernel', 256)):
+    for kernel, threads in (('roots_kernel', 256), ('tables_kernel', 256)):
         ptx = ptxas_of(lib.build_log, 'compact.cu', kernel)
         rec = {'kernel': kernel, 'source': 'compact.cu'}
         if ptx is not None:
@@ -4248,9 +4331,167 @@ def phase_compaction(frames, settings, dframes, dsettings, dev):
         rec['achieved_occupancy_pct'] = achieved_occupancy(
             lambda: COMPACT(labels, mask,
                             max_det=sets['max detections per frame'],
-                            max_bh=sets['max bounding box height']), kernel)
+                            max_bh=sets['max bounding box height'],
+                            fg_bits=bits), kernel)
         log('compact resources ' + json.dumps(rec))
     return checks[0]
+
+
+# ---- phase 33: run-CC around the propagations (csrc/run_cc.cu) ----
+
+def run_cc_bytes(runs, sorted_runs):
+    """The bytes a run-CC call must move: the wire and counts in; run_comp
+    and the three per-frame counts out, with the sorted runs three more
+    (T, R) tables."""
+    t, r = runs.shape
+    return 4 * (t * r + t) + 4 * (t * r + 3 * t) + \
+        (12 * t * r if sorted_runs else 0)
+
+
+def check_run_cc_steps(name, runs, rc, w, dev):
+    """Each launch of ``csrc/run_cc.cu`` against its plain version on the
+    same card tensors, every output bit-equal, one launch a call: prepare
+    for both thresholds' dilations, compact on the 4-connected labels,
+    finish with and without the compaction and the sorted runs."""
+    wire = (torch.from_numpy(runs.view(np.int32)).to(dev),
+            torch.from_numpy(rc).to(dev))
+
+    def same(got, want):
+        if isinstance(want, dict):
+            return all(same(got[k], want[k]) for k in want)
+        if isinstance(want, (list, tuple)):
+            return all(same(g, v) for g, v in zip(got, want))
+        return want is None and got is None or (
+            got.dtype == want.dtype and torch.equal(got, want))
+
+    checks = []
+    for dilates, weak in (((0, 1), True), ((1,), False), ((0,), True)):
+        n = run_cc.prepare_runs.launches
+        got = run_cc.prepare_runs(*wire, w=w, dilates=dilates,
+                                  weak_init=weak)
+        checks.append(run_cc.prepare_runs.launches == n + 1 and same(
+            got, run_cc.prepare_runs_plain(*wire, w=w, dilates=dilates,
+                                           weak_init=weak)))
+    g = run_cc.prepare_runs(*wire, w=w, dilates=(0, 1), weak_init=True)
+    lab4, steps4 = propagate_min_fused(g['init'], g['wins'][0], g['link'])
+    n = run_cc.compact_kept_runs.launches
+    c = run_cc.compact_kept_runs(*wire, lab4, g['wins'][1], w=w)
+    checks.append(run_cc.compact_kept_runs.launches == n + 1 and same(
+        c, run_cc.compact_kept_runs_plain(*wire, lab4, g['wins'][1], w=w)))
+    lab8, steps8 = propagate_min_fused(c['init'], c['win'], c['link'])
+    s1 = run_cc.prepare_runs(*wire, w=w, dilates=(1,))
+    lab1, steps1 = propagate_min_fused(s1['init'], s1['wins'][0],
+                                       s1['link'])
+    for sorted_runs in (False, True):
+        for args in ((lab8, c['c_orig'], c['n_kept'], steps4, steps8),
+                     (lab1, None, None, None, steps1)):
+            n = run_cc.finish_components.launches
+            got = run_cc.finish_components(*wire, *args, w=w,
+                                           sorted_runs=sorted_runs)
+            checks.append(run_cc.finish_components.launches == n + 1 and
+                          same(got, run_cc.finish_components_plain(
+                              *wire, *args, w=w, sorted_runs=sorted_runs)))
+    for double in (True, False):
+        for sorted_runs in (False, True):
+            kw = dict(w=w, double_threshold=double, sorted_runs=sorted_runs)
+            checks.append(same(run_cc.run_cc_components(*wire, **kw),
+                               run_cc.run_cc_components_plain(*wire, **kw)))
+    torch.cuda.synchronize()
+    if not all(checks):
+        raise SystemExit('run-CC {}: a kernel differs from its plain '
+                         'version (checks {})'.format(name, checks))
+    return wire
+
+
+def time_run_cc(name, wire, w, sorted_runs):
+    """``run_cc_components`` through the kernels against its plain
+    version on the card (double threshold): event spans, the device time
+    by kernel and the device span, the bound (the wire in and the outputs
+    out once)."""
+    kw = dict(w=w, double_threshold=True, sorted_runs=sorted_runs)
+
+    def kernel(*_):
+        out = run_cc.run_cc_components(*wire, **kw)
+        return [out[k] for k in sorted(out)]
+
+    def plain(*_):
+        out = run_cc.run_cc_components_plain(*wire, **kw)
+        return [out[k] for k in sorted(out)]
+
+    check = check_equal('run_cc_components ' + name, kernel, plain, [], 0,
+                        reps=20, plain_reps=5,
+                        nbytes=run_cc_bytes(wire[0], sorted_runs))
+    per, span = device_ms(kernel)
+    ops = device_ops(kernel)
+    log('run-CC {}: device {:.4f} ms in {} operations ({}), event span '
+        '{:.4f} ms vs plain {:.4f}, bound {:.4f} ms ({:.1f}% of the device '
+        'time)'.format(name, sum(per.values()), ops,
+                       json.dumps({k[:40]: round(v, 4)
+                                   for k, v in per.items()}),
+                       check[1], check[2], check[3][0],
+                       100 * check[3][0] / max(sum(per.values()), 1e-9)))
+    return check
+
+
+def device_ops(fn):
+    """Device operations a call of ``fn`` makes (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  for e in prof.events())
+        if ops:
+            return ops
+    return 0
+
+
+def phase_run_cc(scene, settings, dscene, dsettings, dev):
+    """Phase 33: run-CC's steps around the propagations
+    (``csrc/run_cc.cu``: prepare, compact, finish) against their plain
+    versions on the card, bit for bit on every output: the bench and dense
+    first batches (timed: event span, device time by kernel, the bound),
+    phase 3's random graphs and the seeded cases of ``run_cc_cases.py``
+    (stale padding, a padded frame, a full table, edges, one row, no and
+    all markers, one and two columns, runs of length 0); each kernel's
+    registers, spills and shared memory. Returns the dense batch's
+    check."""
+    checks = {}
+    for name, sc, sets, sorted_runs in (
+            ('bench', scene, settings, False),
+            ('dense', dscene, dsettings, True)):
+        runs, rc = first_batch_runs(sc, sets)
+        wire = check_run_cc_steps(name, runs, rc, W, dev)
+        checks[name] = time_run_cc('{} T={} R={}{}'.format(
+            name, runs.shape[0], runs.shape[1],
+            ' sorted runs' if sorted_runs else ''), wire, W, sorted_runs)
+    rng = np.random.default_rng(SEED)
+    for t, h, w, r, dens in RANDOM_GRAPHS:
+        runs, rc = random_runs(rng, t, h, w, r, dens)
+        check_run_cc_steps('random {}x{}'.format(h, w), runs, rc, w, dev)
+    for case in rcc_cases.CASES:
+        runs, rc, w = rcc_cases.run_case(case)
+        check_run_cc_steps(case, runs, rc, w, dev)
+    log('run-CC checks: bench, dense, random {}, cases {}: every launch '
+        'bit-equal to its plain version, one launch a call'.format(
+            [g[:4] for g in RANDOM_GRAPHS], list(rcc_cases.CASES)))
+    lib = _build.load_kernels()
+    for kernel, threads in (('keys_kernel', 256), ('prepare_kernelILi2', 256),
+                            ('prepare_kernelILi1', 256),
+                            ('compact_kernel', 1024),
+                            ('finish_kernel', 1024)):
+        ptx = ptxas_of(lib.build_log, 'run_cc.cu', kernel)
+        rec = {'kernel': kernel, 'source': 'run_cc.cu'}
+        if ptx is not None:
+            regs, spill, smem = ptx
+            rec.update(registers=regs, spill_stores=spill, shared_bytes=smem,
+                       occupancy_allowed=resident_share(regs, smem, threads))
+        log('run-CC resources ' + json.dumps(rec))
+    return checks['dense']
 
 
 def main():
@@ -4306,11 +4547,13 @@ def main():
                                       dframes, dev)
         compact_check = phase_compaction(frames, settings, dframes,
                                          dsettings, dev)
+        run_cc_check = phase_run_cc(scene, settings, dscene, dsettings, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
         'propagate_min_fused', 'ysmr_tpu_torch/csrc/run_prop.cu',
-        'ysmr_tpu/ops/pallas_run_prop.py:189', launches, run_prop_check)]
+        'ysmr_tpu/ops/pallas_run_prop.py:189',
+        launches['propagate_min_fused'], run_prop_check)]
     for name, src, rep in (
             ('hull_edge_vectors', 'hull.cu', 'pallas_hull.py:107'),
             ('sweep_extents', 'sweep.cu', 'pallas_sweep.py:63'),
@@ -4368,6 +4611,13 @@ def main():
         'ysmr_tpu/ops/labeling.py:211 compact_labels, :588 '
         'component_tables (plain XLA)',
         frames_runs['bench']['compact_row_tables'], compact_check))
+    # the main path's launches of csrc/run_cc.cu (prepare, compact and
+    # finish each once a batch); the times are the dense batch's call
+    records.append(kernel_record(
+        'run_cc_components', 'ysmr_tpu_torch/csrc/run_cc.cu',
+        'ysmr_tpu/ops/run_cc.py:291 run_cc_components outside '
+        'propagate_min (plain XLA)',
+        sum(launches[k] for k in RUN_CC_NAMES), run_cc_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

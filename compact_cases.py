@@ -33,6 +33,16 @@ def min_index_labels(mask):
     return out
 
 
+def packed_mask(mask):
+    """The mask packed as the labeling kernel packs it: 32 pixels of the
+    flattened batch a word, bit i of word g the pixel 32 g + i; (ceil(T H
+    W / 32),) int32."""
+    flat = mask.reshape(-1)
+    pad = np.zeros(-(-flat.size // 32) * 32, bool)
+    pad[:flat.size] = flat
+    return np.packbits(pad, bitorder='little').view('<u4').view(np.int32)
+
+
 def compact_case(name, seed=0):
     """(mask (T, H, W) bool, max_det, max_bh) of a seeded case."""
     rng = np.random.default_rng(seed)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Dense detect of the port on one NVIDIA card: its device operations and
-device time, split by step, for one or more checkouts in turns.
+device time, split by step (and run-CC by sub-step), for one or more
+checkouts in turns.
 
 Run from the root of a checkout::
 
     python3 dense_detect_times.py [--roots DIR,DIR,...] [--passes 3]
+        [--batches dense,bench]
 
 ``--roots`` lists checkouts in the order to run them (default: this one),
 e.g. ``.scratch/parent,.,.,.scratch/parent`` after unpacking the other
@@ -12,11 +14,14 @@ tree with ``git archive <commit> | tar -x -C .scratch/parent``. Each runs
 in a process of its own that imports that checkout's ``ysmr_tpu_torch``
 and ``chip_smoke.py`` and prints one JSON line.
 
-The batch is the dense scene's first 64 frames (1228x922, 3000 rods, seed
-125) as the pipeline's run wire, at ``bench.py:624-631``'s capacities
-(4096 detections, ``max_bh`` 48, 131072 foreground pixels): run-CC,
-device rects and cv2 centres, as ``track_bacteria`` calls
-``detect_from_pixels`` on the dense path. The record holds:
+The ``dense`` batch is the dense scene's first 64 frames (1228x922, 3000
+rods, seed 125) as the pipeline's run wire, at ``bench.py:624-631``'s
+capacities (4096 detections, ``max_bh`` 48, 131072 foreground pixels):
+run-CC, device rects and cv2 centres, as ``track_bacteria`` calls
+``detect_from_pixels`` on the dense path. The ``bench`` batch is the bench
+scene's first 64 frames (200 rods, seed 123) at ``bench_settings()``'s
+capacities on the host-rect path (``skip_rect``, ``det_px_as_runs``):
+run-CC and the per-run detection index only. Each batch's record holds:
 
 - ``detect_ms``: median host-clock ms (card synchronised; 10 calls after
   2 warm-ups) of the whole call, and ``device_ops`` / ``device_ms``: its
@@ -38,6 +43,16 @@ device rects and cv2 centres, as ``track_bacteria`` calls
   (``_cv2_center_override``), ``output`` (the rest of
   ``detections_from_tables``) and ``detect`` (the rest of the call). The
   split's outputs are held to the plain call's.
+- ``run_cc``: run-CC by sub-step, from the same passes: each call of the
+  propagation wrapper (``ops/run_prop.py::propagate_min_fused``) in a
+  window of its own, ``4-conn propagation`` and ``8-conn propagation``
+  (a single threshold has only the second), and the run-CC window's
+  other device operations by when they start: before the first
+  propagation ``prepare`` (decode, windows, links), between the two
+  ``compaction``, after the last ``ids, scatter, sorted runs``; the same
+  for a call of ``run_cc_components`` alone on the batch's wire with
+  ``sorted_runs`` off, whose last sub-step is ``ids and scatter``, so
+  that ``sorted runs`` is the difference of the two.
 
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
@@ -73,13 +88,19 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _setup(root, dev):
+def _setup(root, dev, batch):
     sys.path.insert(0, os.path.abspath(root))
     import chip_smoke as cs
     from ysmr_tpu_torch.pipeline import detect_pixels as dp
     os.makedirs(cs.WORK, exist_ok=True)
-    settings = cs.dense_settings()
-    scene = cs.BenchScene(seed=cs.DENSE_SEED, n_bugs=cs.DENSE_BUGS)
+    if batch == 'dense':
+        settings = cs.dense_settings()
+        scene = cs.BenchScene(seed=cs.DENSE_SEED, n_bugs=cs.DENSE_BUGS)
+        path = dict(cv2_centers=True)
+    else:
+        settings = cs.bench_settings()
+        scene = cs.BenchScene()
+        path = dict(return_det_px=True, skip_rect=True, det_px_as_runs=True)
     packed, counts = cs.packed_batch(scene, settings)
     runs, rc = cs.encode(packed, counts, cs.W, None)
     t = runs.shape[0]
@@ -88,12 +109,13 @@ def _setup(root, dev):
               px_counts=torch.from_numpy(counts).to(dev),
               px_runs=torch.from_numpy(runs.view(np.int32)).to(dev),
               run_counts=torch.from_numpy(rc).to(dev),
-              expanded_f=packed.shape[1], use_run_cc=True, cv2_centers=True,
+              expanded_f=packed.shape[1], use_run_cc=True,
               h=cs.H, w=cs.W, double_threshold=True,
               max_det=settings['max detections per frame'],
               max_bh=settings['max bounding box height'],
-              cc_iters=settings['connected components max iterations'])
-    return dp, lambda: dp.detect_from_pixels(**kw)
+              cc_iters=settings['connected components max iterations'],
+              **path)
+    return dp, lambda: dp.detect_from_pixels(**kw), kw
 
 
 def _host_ms(fn, reps=10):
@@ -130,9 +152,22 @@ def _wrap(fn, name):
     return wrapped
 
 
+PROP = 'run-CC propagation'
+
+
+def _run_cc_part(ev_start, props):
+    """The run-CC sub-step of a device operation that starts at
+    ``ev_start`` inside a run-CC window outside its propagations
+    (``props``: that window's propagation windows, in order)."""
+    done = sum(1 for p in props if p[2] <= ev_start)
+    if len(props) == 2:
+        return ('prepare', 'compaction', 'ids, scatter, sorted runs')[done]
+    return ('prepare', 'ids, scatter, sorted runs')[min(done, 1)]
+
+
 def _split(prof):
     """Per-step device operations, device ms, exclusive span ms and
-    kernels of one profiled pass."""
+    kernels of one profiled pass, and run-CC's by sub-step."""
     cpu = torch.autograd.DeviceType.CPU
     wins = [(e.name[len('step: '):], e.time_range.start, e.time_range.end)
             for e in prof.events() if e.device_type == cpu and
@@ -151,29 +186,69 @@ def _split(prof):
         return {'device_ops': 0, 'device_ms': 0.0, 'span_ms': 0.0,
                 'kernels': Counter()}
 
-    per = {}
+    per, sub = {}, {}
     for w in wins:
+        if w[0] == PROP:
+            continue
         per.setdefault(w[0], new())['span_ms'] += (w[2] - w[1]) / 1e3
         up = parent(w)
-        if up is not None:
+        if up is not None and up[0] != PROP:
             per.setdefault(up[0], new())['span_ms'] -= (w[2] - w[1]) / 1e3
     for ev in _device_events(prof):
-        w = innermost(ev.time_range.start)
-        name = w[0] if w else 'detect'
-        rec = per.setdefault(name, new())
+        start = ev.time_range.start
+        w = innermost(start)
         ms = ev.time_range.elapsed_us() / 1e3
-        rec['device_ops'] += 1
-        rec['device_ms'] += ms
-        rec['kernels'][ev.name] += ms
-    return per
+        if w and w[0] == PROP:
+            cc = parent(w)
+            props = sorted(p for p in wins if p[0] == PROP and
+                           cc[1] <= p[1] and p[2] <= cc[2])
+            part = ('4-conn propagation' if len(props) == 2 and
+                    props[0] == w else '8-conn propagation')
+            w = cc
+        elif w and w[0] == 'run-CC':
+            props = sorted(p for p in wins if p[0] == PROP and
+                           w[1] <= p[1] and p[2] <= w[2])
+            part = _run_cc_part(start, props)
+        else:
+            part = None
+        for name, table in ((w[0] if w else 'detect', per),
+                            (part, sub)):
+            if name is None:
+                continue
+            rec = table.setdefault(name, new())
+            rec['device_ops'] += 1
+            rec['device_ms'] += ms
+            rec['kernels'][ev.name] += ms
+    return per, sub
 
 
-def measure(root, passes, dev='cuda'):
-    """The JSON record of one checkout (see the module docstring)."""
+def _medians(runs, names, keys=('device_ops', 'device_ms', 'span_ms')):
+    """Each step's medians over the passes and its last pass's three
+    longest kernels."""
+    out = {}
+    for name in names:
+        recs = [r.get(name) for r in runs]
+        if any(r is None for r in recs):
+            continue
+        out[name] = {k: float(np.median([r[k] for r in recs])) for k in keys}
+        out[name]['device_ops'] = int(out[name]['device_ops'])
+        out[name]['top_kernels'] = {
+            k[:60]: round(v, 4) for k, v in
+            recs[-1]['kernels'].most_common(3)}
+    return out
+
+
+SUB_STEPS = ('prepare', '4-conn propagation', 'compaction',
+             '8-conn propagation', 'ids, scatter, sorted runs')
+
+
+def measure(root, passes, batch='dense', dev='cuda'):
+    """The JSON record of one checkout and batch (see the module
+    docstring)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    dp, call = _setup(root, torch.device(dev))
+    dp, call, kw = _setup(root, torch.device(dev), batch)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    rec = {'root': root, 'detect_ms': _host_ms(call)}
+    rec = {'root': root, 'batch': batch, 'detect_ms': _host_ms(call)}
     ops, dev_ms = [], []
     for _ in range(passes):
         _sync()
@@ -189,9 +264,11 @@ def measure(root, passes, dev='cuda'):
     from ysmr_tpu_torch.ops import hull, sweep
     from ysmr_tpu_torch.ops import labeling as lb
     from ysmr_tpu_torch.ops import run_cc as rcc
-    mods.update(lb=lb, rcc=rcc, hull=hull, sweep=sweep)
-    saved = [(mods[m], f, getattr(mods[m], f)) for _, m, f in STEPS]
-    for (name, m, f), (_, _, fn) in zip(STEPS, saved):
+    from ysmr_tpu_torch.ops import run_prop
+    mods.update(lb=lb, rcc=rcc, hull=hull, sweep=sweep, prop=run_prop)
+    steps = STEPS + ((PROP, 'prop', 'propagate_min_fused'),)
+    saved = [(mods[m], f, getattr(mods[m], f)) for _, m, f in steps]
+    for (name, m, f), (_, _, fn) in zip(steps, saved):
         setattr(mods[m], f, _wrap(fn, name))
     try:
         def wrapped_call():
@@ -205,26 +282,34 @@ def measure(root, passes, dev='cuda'):
             if not torch.equal(want[key], got[key]):
                 raise SystemExit('the split differs from the call in '
                                  '{}'.format(key))
-        runs = []
+        runs, subs = [], []
         for _ in range(passes):
             with profile(activities=acts) as prof:
                 wrapped_call()
-            runs.append(_split(prof))
+            per, sub = _split(prof)
+            runs.append(per)
+            subs.append(sub)
+        # run-CC alone on the same wire without the sorted runs
+        cc_kw = dict(w=kw['w'], double_threshold=kw['double_threshold'],
+                     max_iters=kw['cc_iters'], sorted_runs=False)
+        rc_eff = kw['run_counts'].to(torch.int32)
+        alone = []
+        for _ in range(passes):
+            with profile(activities=acts) as prof:
+                rcc.run_cc_components(kw['px_runs'], rc_eff, **cc_kw)
+                _sync()
+            alone.append(_split(prof)[1])
     finally:
         for mod, f, fn in saved:
             setattr(mod, f, fn)
-    split = {}
-    for name in ['detect'] + [s[0] for s in STEPS]:
-        recs = [r.get(name) for r in runs]
-        if any(r is None for r in recs):
-            continue
-        split[name] = {k: float(np.median([r[k] for r in recs]))
-                       for k in ('device_ops', 'device_ms', 'span_ms')}
-        split[name]['device_ops'] = int(split[name]['device_ops'])
-        split[name]['top_kernels'] = {
-            k[:60]: round(v, 4) for k, v in
-            recs[-1]['kernels'].most_common(3)}
-    rec['split'] = split
+    rec['split'] = _medians(runs, ['detect'] + [s[0] for s in STEPS])
+    keys = ('device_ops', 'device_ms')
+    rec['run_cc'] = _medians(subs, SUB_STEPS, keys)
+    unsorted = _medians(alone, SUB_STEPS, keys)
+    last = unsorted.pop('ids, scatter, sorted runs', None)
+    if last is not None:
+        unsorted['ids and scatter'] = last
+    rec['run_cc_unsorted'] = unsorted
     return rec
 
 
@@ -234,22 +319,29 @@ def main():
                     help='comma-separated checkouts, run in this order')
     ap.add_argument('--passes', type=int, default=3,
                     help='profiled passes per checkout (medians)')
+    ap.add_argument('--batches', default='dense,bench',
+                    help='comma-separated batches: dense, bench')
     ap.add_argument('--one', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('no CUDA device: this script measures the card')
     if args.one:
-        print(json.dumps(measure(args.one, args.passes)), flush=True)
+        for batch in args.batches.split(','):
+            print(json.dumps(measure(args.one, args.passes, batch)),
+                  flush=True)
         return
     for root in args.roots.split(','):
         root = os.path.abspath(root)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               '--one', root, '--passes', str(args.passes)],
+                               '--one', root, '--passes', str(args.passes),
+                               '--batches', args.batches],
                               cwd=root, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit('{} failed:\n{}'.format(root,
                                                      proc.stderr[-4000:]))
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+        for line in proc.stdout.strip().splitlines():
+            if line.startswith('{'):
+                print(line, flush=True)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -6,6 +6,7 @@ times of one or more checkouts in turns.
 Run from the root of a checkout::
 
     python3 frames_mode_times.py [--roots DIR,DIR,...] [--split]
+        [--split-root DIR]
 
 ``--roots`` lists checkouts in the order to run them (default: this one),
 e.g. ``.scratch/parent,.,.,.scratch/parent`` after unpacking the other
@@ -29,7 +30,8 @@ and ``chip_smoke.py`` and prints one JSON line:
   full-width clips of 192, 160, 128 and 96 frames and one 640x480 clip of
   64, frames mode, batch 16) after one solo run of the small clip, twice.
 
-``--split`` (this checkout) records ``torch.profiler`` (CPU and CUDA)
+``--split`` (this checkout, or the one ``--split-root`` names; ``--roots
+''`` then measures none) records ``torch.profiler`` (CPU and CUDA)
 over the steps of the same warm detect run one at a time, each ended by a
 synchronise, and gives each step the device time of the kernels that
 start inside its window (median of three passes), with the three longest
@@ -45,6 +47,7 @@ The last line is the card's name and power limit from ``nvidia-smi``.
 """
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -158,18 +161,27 @@ def split(root):
             bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
             cfg.white_on_dark)
 
+    # a checkout whose labeling hands the compaction its packed mask
+    packs = 'return_bits' in inspect.signature(
+        cc.label_components_whole_frame).parameters
+
+    def labeling():
+        out = cc.label_components_whole_frame(
+            st['rec'], connectivity=8, max_iters=cfg.cc_iters,
+            **({'return_bits': True} if packs else {}))
+        st['labels'], st['bits'] = out if packs else (out, None)
+
     def compact_tables():
         *rows, st['n'] = lb.compact_row_tables(
-            st['labels'], st['rec'], max_det=cfg.max_det, max_bh=cfg.max_bh)
+            st['labels'], st['rec'], max_det=cfg.max_det, max_bh=cfg.max_bh,
+            **({'fg_bits': st['bits']} if packs else {}))
         st['tables'] = lb._stats_tail_from_tables(*rows, max_bh=cfg.max_bh)
 
     steps = (
         ('adaptive masks', masks),
         ('reconstruction', lambda: st.update(rec=cc.binary_reconstruct(
             st['mask'], st['markers'], max_iters=cfg.cc_iters))),
-        ('labeling', lambda: st.update(
-            labels=cc.label_components_whole_frame(
-                st['rec'], connectivity=8, max_iters=cfg.cc_iters))),
+        ('labeling', labeling),
         ('compaction + row tables + hull', compact_tables),
         ('rect (sweep) + output', lambda: st.update(out=detections_from_tables(
             st['tables'], 64, max_det=cfg.max_det, max_bh=cfg.max_bh,
@@ -227,7 +239,9 @@ def main():
     ap.add_argument('--roots', default=HERE,
                     help='comma-separated checkouts, run in this order')
     ap.add_argument('--split', action='store_true',
-                    help='the per-step split of a warm detect (this checkout)')
+                    help='the per-step split of a warm detect')
+    ap.add_argument('--split-root', default=HERE,
+                    help='the checkout whose detect --split splits')
     ap.add_argument('--one', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -236,8 +250,9 @@ def main():
         print(json.dumps(measure(args.one)), flush=True)
         return
     if args.split:
-        print(json.dumps({'split': split(HERE)}), flush=True)
-    for root in args.roots.split(','):
+        root = os.path.abspath(args.split_root)
+        print(json.dumps({'root': root, 'split': split(root)}), flush=True)
+    for root in filter(None, args.roots.split(',')):
         root = os.path.abspath(root)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                '--one', root], cwd=root, capture_output=True,

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from compact_cases import CASES, compact_case, min_index_labels
+from compact_cases import CASES, compact_case, min_index_labels, packed_mask
 from ysmr_tpu.ops import labeling as jlb
 from ysmr_tpu_torch.ops import labeling as lb
 
@@ -25,6 +25,9 @@ torch.set_num_threads(1)
 
 BIG = lb.BIG_I
 M32 = 0xFFFFFFFF
+#: csrc/compact.cu's roots launch: threads a tile, 32-pixel words a
+#: thread, words a root prefix
+TILE_THREADS, THREAD_WORDS, GROUP_WORDS = 256, 4, 8
 
 
 def _plain(mask, max_det, max_bh):
@@ -95,6 +98,32 @@ def test_compact_row_tables_are_the_two_plain_steps():
             assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def test_packed_mask_and_cpu_route_ignore_bits():
+    """``packed_mask`` packs 32 pixels of the flattened batch a word (bit i
+    of word g: pixel 32 g + i); the CPU route ignores ``fg_bits`` and the
+    CPU labeling returns no bits."""
+    from ysmr_tpu_torch.ops import cc
+    mask, max_det, max_bh = compact_case('tiny')
+    bits = packed_mask(mask).view(np.uint32)
+    flat = mask.reshape(-1)
+    assert len(bits) == -(-flat.size // 32)
+    for p in range(flat.size):
+        assert bool(bits[p >> 5] >> (p & 31) & 1) == bool(flat[p])
+    if flat.size % 32:
+        assert bits[-1] >> (flat.size % 32) == 0
+    labels = torch.from_numpy(min_index_labels(mask))
+    tm = torch.from_numpy(mask)
+    got = lb.compact_row_tables(labels, tm, max_det=max_det, max_bh=max_bh,
+                                fg_bits=torch.from_numpy(packed_mask(mask)))
+    want = lb.compact_row_tables_plain(labels, tm, max_det=max_det,
+                                       max_bh=max_bh)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    lab, none = cc.label_components_whole_frame(tm, 8, return_bits=True)
+    assert none is None and torch.equal(lab, cc.label_components_whole_frame(
+        tm, 8))
+
+
 def test_compact_row_tables_refuses_other_devices():
     mask, max_det, max_bh = compact_case('tiny')
     labels = torch.from_numpy(min_index_labels(mask)).to('meta')
@@ -103,8 +132,8 @@ def test_compact_row_tables_refuses_other_devices():
                               max_det=max_det, max_bh=max_bh)
 
 
-# ---- the kernel's design (csrc/compact.cu: roots, scan, tables),
-# emulated in sequence ----
+# ---- the kernel's design (csrc/compact.cu: roots with a decoupled
+# look-back, tables by runs), emulated in sequence ----
 
 def _div_mod(q, d):
     """The kernel's q / d and q % d: the float64 quotient truncated, one
@@ -118,17 +147,35 @@ def _div_mod(q, d):
     return t, r
 
 
-def _emulate(labels, mask, max_det, max_bh, tile_words, rng):
-    """``compact_row_tables`` as the kernel computes it: foreground and
-    root words over the flattened batch, root counts within tiles of
-    ``tile_words`` words, the tiles' scan and the frames' starts (uint32),
-    then each non-empty word's pixels (in shuffled word order): the id
-    from the root word of the label's pixel, runs of one table slot
-    reduced to a minimum and a maximum before the atomics."""
+def _popc(v):
+    return bin(v & M32).count('1')
+
+
+def _run_starts(fg, g, w, left):
+    """The run starts of word g: foreground pixels whose left neighbour
+    (bit 31 of ``left`` for bit 0) is background, or at x = 0."""
+    x0 = _div_mod(32 * g, w)[1]
+    rows = 0
+    o = w - x0 if x0 else 0
+    while o < 32:
+        rows |= 1 << o
+        o += w
+    return fg & ((~(((fg << 1) | (left >> 31)) & M32) & M32) | rows)
+
+
+def _emulate(labels, mask, max_det, max_bh, tile_threads, rng):
+    """``compact_row_tables`` as the kernel computes it: foreground words
+    over the flattened batch, root bits at the run starts, tiles of
+    ``tile_threads`` x 4 words whose exclusive root counts come from a
+    look-back over the tiles' published counts and prefixes (a random mix
+    of both), the groups' prefixes and the frames' starts (uint32); then
+    each word's runs (in shuffled word order), one table update a run."""
     t, h, w = mask.shape
     n = h * w
     total = t * n
     nw = (total + 31) // 32
+    tile_words = tile_threads * THREAD_WORDS
+    group = GROUP_WORDS
     flat_m = np.zeros(nw * 32, bool)
     flat_m[:total] = mask.reshape(-1)
     flat_l = labels.reshape(-1)
@@ -137,82 +184,139 @@ def _emulate(labels, mask, max_det, max_bh, tile_words, rng):
           for g in range(nw)]
     root = []
     for g in range(nw):
+        left = (1 << 31) if g and flat_m[32 * g - 1] else 0
+        starts = _run_starts(fg[g], g, w, left)
         word = 0
-        for lane in range(32):
-            if fg[g] >> lane & 1:
-                q = 32 * g + lane
+        for i in range(32):
+            if starts >> i & 1:
+                q = 32 * g + i
                 if flat_l[q] == _div_mod(q, n)[1]:
-                    word |= 1 << lane
+                    word |= 1 << i
         root.append(word)
     tiles = (nw + tile_words - 1) // tile_words
-    pre, tile = [], []
+    agg = [sum(_popc(root[g]) for g in
+               range(k * tile_words, min(nw, (k + 1) * tile_words))) & M32
+           for k in range(tiles)]
+    incl = np.cumsum([0] + agg)[1:] & M32
+    published = rng.random(tiles) < 0.5     # prefix (else only the count)
+    excl_word = []
     for k in range(tiles):
-        run = 0
+        before = 0
+        for j in range(k - 1, -1, -1):
+            if published[j]:
+                before += int(incl[j])
+                break
+            before += agg[j]
+        run = before & M32
         for g in range(k * tile_words, min(nw, (k + 1) * tile_words)):
-            pre.append(run)
-            run = (run + bin(root[g]).count('1')) & M32
-        tile.append(run)
-    tile_pre = [0]
-    for v in tile:
-        tile_pre.append((tile_pre[-1] + v) & M32)
-
-    def roots_before(p):
-        g = p >> 5
-        if g >= nw:
-            return tile_pre[tiles]
-        below = (1 << (p & 31)) - 1
-        return (tile_pre[g // tile_words] + pre[g] +
-                bin(root[g] & below).count('1')) & M32
-
-    frame = [roots_before(i * n) for i in range(t + 1)]
+            excl_word.append(run)
+            run = (run + _popc(root[g])) & M32
+    gpre = [excl_word[g] for g in range(0, nw, group)]
+    frame = [0] * (t + 1)
+    for f in range(t + 1):
+        p = f * n
+        if p >= nw * 32:
+            frame[f] = int(incl[-1]) if tiles else 0
+        else:
+            g = p >> 5
+            frame[f] = (excl_word[g] +
+                        _popc(root[g] & ((1 << (p & 31)) - 1))) & M32
     n_comp = np.array([(frame[i + 1] - frame[i]) & M32 for i in range(t)],
                       np.int64).astype(np.int32)
+
+    def roots_before(r):
+        g = r >> 5
+        v = gpre[g // group]
+        for k in range(g - g % group, g):
+            v += _popc(root[k])
+        return (v + _popc(root[g] & ((1 << (r & 31)) - 1))) & M32
+
     row_min = np.full((t * max_det, max_bh), BIG, np.int32)
     row_max = np.full((t * max_det, max_bh), -BIG, np.int32)
     row_valid = np.zeros((t * max_det, max_bh), bool)
     min_y = np.full(t * max_det, BIG, np.int32)
     for g in rng.permutation(nw):
-        runs = {}
-        for lane in range(32):
-            if not fg[g] >> lane & 1:
+        left = fg[g - 1] if g else 0
+        starts = _run_starts(fg[g], g, w, left)
+        for i in range(32):
+            if not starts >> i & 1:
                 continue
-            q = 32 * g + lane
-            fr, local = _div_mod(q, n)
-            y, x = _div_mod(local, w)
-            lab = min(max(int(flat_l[q]), 0), n - 1)
+            q0 = 32 * g + i
+            fr, local = _div_mod(q0, n)
+            y, x0 = _div_mod(local, w)
+            row_end = q0 + (w - 1 - x0)
+            q1 = q0
+            while q1 + 1 <= row_end and q1 + 1 < nw * 32 and \
+                    fg[(q1 + 1) >> 5] >> ((q1 + 1) & 31) & 1:
+                q1 += 1
+            lab = min(max(int(flat_l[q0]), 0), n - 1)
             r = fr * n + lab
-            rw = root[r >> 5]
-            rbit = 1 << (r & 31)
-            p = (tile_pre[(r >> 5) // tile_words] + pre[r >> 5] +
-                 bin(rw & (rbit - 1)).count('1')) & M32
-            rank = (p - frame[fr]) & M32 if rw & rbit else 0
-            ident = int(n_comp[fr]) - 1 - rank
+            f0 = frame[fr]
+            nt = (frame[fr + 1] - f0) & M32
+            rank = (roots_before(r) - f0) & M32 \
+                if root[r >> 5] >> (r & 31) & 1 else 0
+            ident = int(np.int64(nt).astype(np.int32)) - 1 - rank
             if not 0 <= ident < max_det:
                 continue
             rel = min(max(y - _div_mod(lab, w)[0], 0), max_bh - 1)
             comp = fr * max_det + ident
-            runs.setdefault((comp, rel), []).append(x)
+            row_min[comp, rel] = min(row_min[comp, rel], x0)
+            row_max[comp, rel] = max(row_max[comp, rel], x0 + q1 - q0)
+            row_valid[comp, rel] = True
             if lab == local:
                 min_y[comp] = y
-        for (comp, rel), xs in runs.items():
-            row_min[comp, rel] = min(row_min[comp, rel], min(xs))
-            row_max[comp, rel] = max(row_max[comp, rel], max(xs))
-            row_valid[comp, rel] = True
     return row_min, row_max, row_valid, min_y, n_comp
 
 
-@pytest.mark.parametrize('tile_words', [lb.COMPACT_TILE_WORDS, 3])
+@pytest.mark.parametrize('tile_threads', [TILE_THREADS, 3])
 @pytest.mark.parametrize('case', CASES)
-def test_compact_kernel_design_matches_plain(case, tile_words):
+def test_compact_kernel_design_matches_plain(case, tile_threads):
     """The emulated kernel equals the plain version on every case, with
-    the kernel's tile of 256 words and with tiles of 3 words (many tiles,
-    crossing frames)."""
+    the kernel's tile of 256 threads (1024 words) and with tiles of 3
+    threads (12 words: many tiles, crossing frames)."""
     mask, max_det, max_bh = compact_case(case)
     labels, want = _plain(mask, max_det, max_bh)
-    got = _emulate(labels.numpy(), mask, max_det, max_bh, tile_words,
+    got = _emulate(labels.numpy(), mask, max_det, max_bh, tile_threads,
                    np.random.default_rng(1))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
+
+
+def _nth_bit(bits, k):
+    """The kernel's nth_bit: the lane and bit of the warp's k-th set bit
+    (lane order), or (-1, None) past the total: five halving steps over
+    the lanes' inclusive counts, then the owner's bits cleared from below."""
+    pops = [bin(b).count('1') for b in bits]
+    excl = [sum(pops[:lane]) for lane in range(32)]
+    incl = [e + p for e, p in zip(excl, pops)]
+    owner = 0
+    for b in (16, 8, 4, 2, 1):
+        if incl[owner + b - 1] <= k:
+            owner += b
+    if k >= incl[31]:
+        return -1, None
+    rest = bits[owner]
+    for _ in range(k - excl[owner]):
+        rest &= rest - 1
+    return owner, (rest & -rest).bit_length() - 1
+
+
+def test_nth_bit_design_visits_every_set_bit():
+    """The warp's spread of its run starts over its lanes (rounds of 32,
+    ``nth_bit``) visits every set bit once, in lane and bit order: random
+    words, empty lanes, full words, all lanes empty."""
+    rng = np.random.default_rng(5)
+    cases = [[0] * 32, [M32] * 32, [M32 if i % 7 == 0 else 0
+                                    for i in range(32)]]
+    for _ in range(200):
+        cases.append([int(rng.integers(0, 1 << 32)) if rng.random() < 0.3
+                      else 0 for _ in range(32)])
+    for bits in cases:
+        flat = [(lane, i) for lane in range(32) for i in range(32)
+                if bits[lane] >> i & 1]
+        for k in range(len(flat) + 40):
+            got = _nth_bit(bits, k)
+            assert got == (flat[k] if k < len(flat) else (-1, None))
 
 
 def test_div_mod_is_floor_division():

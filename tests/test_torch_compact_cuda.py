@@ -14,7 +14,7 @@ import pytest
 import torch
 from scipy import ndimage
 
-from compact_cases import CASES, compact_case, min_index_labels
+from compact_cases import CASES, compact_case, min_index_labels, packed_mask
 from ysmr_tpu_torch.ops import labeling as lb
 
 
@@ -63,3 +63,41 @@ def test_compact_kernel_on_a_labeled_batch_on_cuda():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[4].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', CASES)
+def test_compact_kernel_with_packed_mask_matches_plain_on_cuda(case):
+    """The kernel reading the packed mask (``fg_bits``, as frames mode's
+    detect hands it over) against the plain version, bit for bit, one
+    call; a packed mask of another length is refused."""
+    dev = _cuda()
+    mask, max_det, max_bh = compact_case(case)
+    labels = torch.from_numpy(min_index_labels(mask)).to(dev)
+    tm = torch.from_numpy(mask).to(dev)
+    bits = torch.from_numpy(packed_mask(mask)).to(dev)
+    n = lb.compact_row_tables.launches
+    got = lb.compact_row_tables(labels, tm, max_det=max_det, max_bh=max_bh,
+                                fg_bits=bits)
+    want = lb.compact_row_tables_plain(labels, tm, max_det=max_det,
+                                       max_bh=max_bh)
+    torch.cuda.synchronize()
+    assert lb.compact_row_tables.launches == n + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    with pytest.raises(ValueError):
+        lb.compact_row_tables(labels, tm, max_det=max_det, max_bh=max_bh,
+                              fg_bits=bits[:-1])
+
+
+@pytest.mark.cuda
+def test_labeling_packs_the_mask_on_cuda():
+    """``label_components_whole_frame(..., return_bits=True)``: the labels
+    of the call without it and the mask packed 32 pixels a word."""
+    dev = _cuda()
+    from ysmr_tpu_torch.ops import cc
+    mask, _, _ = compact_case('blobs')
+    tm = torch.from_numpy(mask).to(dev)
+    labels, bits = cc.label_components_whole_frame(tm, 8, return_bits=True)
+    assert torch.equal(labels, cc.label_components_whole_frame(tm, 8))
+    assert torch.equal(bits.cpu(), torch.from_numpy(packed_mask(mask)))

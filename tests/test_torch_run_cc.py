@@ -510,3 +510,543 @@ def test_keep_marked_runs_kernel_matches_cpu_on_cuda():
         got = trcc.keep_marked_runs(_t(runs).to(dev), _t(rcnt).to(dev), w=w)
         assert propagate_min_fused.launches == before + 1
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# ---- the launches of csrc/run_cc.cu (prepare, compact, finish),
+# emulated in sequence on the seeded wires of run_cc_cases.py ----
+
+import run_cc_cases  # noqa: E402
+
+BIG28 = 1 << 28
+M26 = 0x03FFFFFF
+PREPARE_CASES = (((0, 1), True), ((1,), False), ((0,), True), ((0,), False))
+
+
+def _popc(a):
+    a = np.asarray(a, np.uint64) & np.uint64(0xFFFFFFFF)
+    n = np.zeros(a.shape, np.int64)
+    for b in range(32):
+        n += ((a >> np.uint64(b)) & np.uint64(1)).astype(np.int64)
+    return n
+
+
+def _magic(w):
+    return (2 ** 64 - 1) // w + 1 if w >= 2 else 0
+
+
+def _row_of(start, w):
+    """The kernel's floor(start / w): the high word of start * ceil(2^64 /
+    w), in two 32-bit halves of the multiplier."""
+    mg = _magic(w)
+    if not mg:
+        return start.astype(np.int64)
+    s = start.astype(np.uint64)
+    lo = s * np.uint64(mg & 0xFFFFFFFF)
+    hi = s * np.uint64(mg >> 32)
+    return ((hi + (lo >> np.uint64(32))) >> np.uint64(32)).astype(np.int64)
+
+
+def _decode(words, idx, count, w):
+    """The kernel's decode of int32 words at run indices ``idx``."""
+    words = np.asarray(words, np.int32)
+    start = (words & M26).astype(np.int64)
+    lens = ((words >> 27) & 0x1F).astype(np.int64)
+    valid = (idx < count) & (lens > 0)
+    mark = valid & (((words >> 26) & 1) > 0)
+    row = _row_of(start, w)
+    xs = start - row * w
+    return {'row': row, 'xs': xs, 'xe': xs + lens - 1, 'lens': lens,
+            'valid': valid, 'mark': mark, 'start': start}
+
+
+def _bound(keys, lo, hi, q, upper):
+    """torch.searchsorted's loop over keys[lo, hi), every query at once
+    (``lo`` and ``hi`` arrays or scalars)."""
+    lo = np.broadcast_to(np.asarray(lo, np.int64), q.shape).copy()
+    hi = np.broadcast_to(np.asarray(hi, np.int64), q.shape).copy()
+    while True:
+        act = lo < hi
+        if not act.any():
+            return lo
+        mid = lo + ((hi - lo) >> 1)
+        key = keys[np.where(act, mid, 0)]
+        right = ~(key > q) if upper else ~(key >= q)
+        lo = np.where(act & right, mid + 1, lo)
+        hi = np.where(act & ~right, mid, hi)
+
+
+def _lower_below(keys, lo, i, q, steps=4):
+    """The kernel's lower bound of q given i, that of a query above q: down
+    while the key below is at least q, ``steps`` at most, then a search."""
+    for _ in range(steps):
+        if i <= lo or keys[i - 1] < q:
+            return i
+        i -= 1
+    return int(_bound(keys, lo, i, np.array([q]), False)[0])
+
+
+def _upper_above(keys, i, hi, q, steps=4):
+    """... and the upper bound of q given i, that of a query below q."""
+    for _ in range(steps):
+        if i >= hi or keys[i] > q:
+            return i
+        i += 1
+    return int(_bound(keys, i, hi, np.array([q]), True)[0])
+
+
+def _emulate_prepare(runs, counts, w, dilates, weak, nt=256):
+    """The prepare launches: the keys launch (every slot's key_e and
+    key_s, a flag a block of ``nt`` slots where a key exceeds the next
+    slot's), then blocks of ``nt`` threads covering ``nt - 1`` runs: on a
+    frame without flags each block searches for the answers to its least
+    and greatest queries and each run within them (with dilations d and
+    d + 1 the second's answers stepped from the first's), else each run
+    searches [0, R); the link from the next thread of the block."""
+    t, r = runs.shape
+    nd = len(dilates)
+    m = w + 2
+    ends = np.zeros((nd, 4, t, r), np.int64)
+    oks = np.zeros((nd, 2, t, r), bool)
+    link = np.zeros((t, r), bool)
+    init = np.zeros((t, r), np.int64)
+    valid = np.zeros((t, r), bool)
+    idx = np.arange(r)
+    for f in range(t):
+        me = _decode(runs[f].view(np.int32), idx, counts[f], w)
+        base = me['row'] * m
+        key_e = np.where(me['valid'], base + me['xe'], BIG28)
+        key_s = np.where(me['valid'], base + me['xs'], BIG28)
+        down = (key_e[:-1] > key_e[1:]) | (key_s[:-1] > key_s[1:])
+        in_order = not down.any()
+        q_lo = np.stack([base + off + me['xs'] - d for d in dilates
+                         for off in (-m, m)])
+        q_hi = np.stack([base + off + me['xe'] + d for d in dilates
+                         for off in (-m, m)])
+        lo_res = np.zeros_like(q_lo)
+        hi_res = np.zeros_like(q_hi)
+        for b0 in range(0, r, nt - 1):
+            blk = slice(b0, min(r, b0 + nt))   # the block's threads
+            rng_lo, rng_hi = (0, r), (0, r)
+            if in_order:
+                ql, qh = q_lo[:, blk], q_hi[:, blk]
+                rng_lo = tuple(int(_bound(key_e, 0, r, np.array([v]),
+                                          False)[0])
+                               for v in (ql.min(), ql.max()))
+                rng_hi = tuple(int(_bound(key_s, 0, r, np.array([v]),
+                                          True)[0])
+                               for v in (qh.min(), qh.max()))
+            own = slice(b0, min(r, b0 + nt - 1))
+            lo_res[:, own] = _bound(key_e, *rng_lo, q_lo[:, own], False)
+            hi_res[:, own] = _bound(key_s, *rng_hi, q_hi[:, own], True)
+            if in_order and nd == 2 and dilates[1] == dilates[0] + 1:
+                # the second dilation's answers stepped from the first's
+                for k in (2, 3):
+                    for j in range(own.start, own.stop):
+                        lo_res[k, j] = _lower_below(
+                            key_e, rng_lo[0], lo_res[k - 2, j], q_lo[k, j])
+                        hi_res[k, j] = _upper_above(
+                            key_s, hi_res[k - 2, j], rng_hi[1], q_hi[k, j])
+        for k in range(nd):
+            lo_up, lo_dn = lo_res[2 * k], lo_res[2 * k + 1]
+            hi_up, hi_dn = hi_res[2 * k] - 1, hi_res[2 * k + 1] - 1
+            ends[k, :, f] = lo_up, hi_up, lo_dn, hi_dn
+            oks[k, 0, f] = me['valid'] & (lo_up <= hi_up)
+            oks[k, 1, f] = me['valid'] & (lo_dn <= hi_dn)
+        for b0 in range(0, r, nt - 1):
+            for i in range(b0, min(r, b0 + nt - 1)):
+                j = i + 1    # the next thread's run, i + 1 < r
+                same = bool(me['valid'][i]) and j < r and \
+                    bool(me['valid'][j]) and me['row'][j] == me['row'][i]
+                e, o = ends[0, :, f], oks[0, :, f]
+                link[f, i] = same and (
+                    me['xs'][j] == me['xe'][i] + 1 or
+                    (o[0, i] and o[0, j] and e[1, i] >= e[0, j]) or
+                    (o[1, i] and o[1, j] and e[3, i] >= e[2, j]))
+        init[f] = np.where(weak & ~me['mark'], idx + r, idx)
+        valid[f] = me['valid']
+    return ends, oks, link, init, valid
+
+
+def _words(flags):
+    """One bit a run in 32-run words, and each word's count before it."""
+    r = len(flags)
+    nw = (r + 31) // 32
+    pad = np.zeros(nw * 32, bool)
+    pad[:r] = flags
+    bits = (pad.reshape(nw, 32).astype(np.uint64) <<
+            np.arange(32, dtype=np.uint64)).sum(1)
+    cnt = _popc(bits)
+    return bits, np.concatenate([[0], np.cumsum(cnt)[:-1]]), int(cnt.sum())
+
+
+def _before(bits, pre, j):
+    below = (np.uint64(1) << (np.asarray(j) & 31).astype(np.uint64)) - \
+        np.uint64(1)
+    return pre[j >> 5] + _popc(bits[j >> 5] & below)
+
+
+def _through(bits, pre, j):
+    return _before(bits, pre, j) + \
+        ((bits[j >> 5] >> (np.asarray(j) & 31).astype(np.uint64)) &
+         np.uint64(1)).astype(np.int64)
+
+
+def _emulate_compact(runs, counts, w, lab4, win8o):
+    """The compact launch, frame by frame: keep bits and word counts, each
+    wire run's compacted slot, its window remapped through the counts and
+    its link to the next kept run, found by scanning the words."""
+    t, r = runs.shape
+    out = {'init': np.tile(np.arange(r), (t, 1)),
+           'ends': np.zeros((4, t, r), np.int64),
+           'oks': np.zeros((2, t, r), bool),
+           'link': np.zeros((t, r), bool),
+           'c_orig': np.zeros((t, r), np.int64),
+           'n_kept': np.zeros(t, np.int64)}
+    idx = np.arange(r)
+    for f in range(t):
+        words = runs[f].view(np.int32)
+        geo = _decode(words, idx, counts[f], w)
+        keep = geo['valid'] & (lab4[f] < r)
+        bits, pre, kept = _words(keep)
+        before = _before(bits, pre, idx)
+        p = np.where(keep, before, kept + idx - before)
+        out['c_orig'][f, p] = idx
+        out['n_kept'][f] = kept
+
+        def remap(j, c_valid):
+            e = [np.clip(win8o[k][f, j], 0, r - 1)
+                 for k in ('lo_up', 'hi_up', 'lo_dn', 'hi_dn')]
+            lo_up, lo_dn = _before(bits, pre, e[0]), _before(bits, pre, e[2])
+            hi_up = _through(bits, pre, e[1]) - 1
+            hi_dn = _through(bits, pre, e[3]) - 1
+            return (lo_up, hi_up, lo_dn, hi_dn,
+                    c_valid & win8o['ok_up'][f, j] & (lo_up <= hi_up),
+                    c_valid & win8o['ok_dn'][f, j] & (lo_dn <= hi_dn))
+
+        o = remap(idx, p < kept)
+        out['ends'][:, f, p] = o[:4]
+        out['oks'][:, f, p] = o[4:]
+        for j in np.nonzero(keep)[0].tolist():
+            if p[j] + 1 >= kept:
+                continue
+            wd = j >> 5
+            rest = int(bits[wd]) & ~((2 << (j & 31)) - 1) & 0xFFFFFFFF
+            while not rest:
+                wd += 1
+                rest = int(bits[wd])
+            j2 = wd * 32 + (rest & -rest).bit_length() - 1
+            o2 = remap(np.array([j2]), True)
+            same = geo['row'][j2] == geo['row'][j]
+            out['link'][f, p[j]] = same and (
+                geo['xs'][j2] == geo['xe'][j] + 1 or
+                (o[4][j] and o2[4][0] and o[1][j] >= o2[0][0]) or
+                (o[5][j] and o2[5][0] and o[3][j] >= o2[2][0]))
+    return out
+
+
+def _radix(keys, pay, shift, nt):
+    """One stable 4-bit pass: threads count and place contiguous chunks
+    of ``pay`` in order, offsets digit-major."""
+    r = len(pay)
+    per = -(-r // nt)
+    digit = (keys[pay] >> shift) & 15
+    cnt = np.zeros((16, nt), np.int64)
+    for k in range(nt):
+        for e in range(min(r, k * per), min(r, (k + 1) * per)):
+            cnt[digit[e], k] += 1
+    off = (np.cumsum(cnt.reshape(-1)) - cnt.reshape(-1)).reshape(16, nt)
+    out = np.empty_like(pay)
+    for k in range(nt):
+        for e in range(min(r, k * per), min(r, (k + 1) * per)):
+            out[off[digit[e], k]] = pay[e]
+            off[digit[e], k] += 1
+    return out
+
+
+def _emulate_finish(runs, counts, w, lab8, c_orig, n_kept, sorted_runs,
+                    nt=1024, max_segs=32, room=None):
+    """The finish launch, frame by frame: root bits and word counts, each
+    slot's rank at its clamped label, the scatter to wire order and the
+    pixel count; the sort: the valid slots split into as many segments
+    (up to 32) as count tables fit in ``room`` words (a table of n_comp +
+    2 a segment and one of the groups' totals), each segment's first
+    place in each group, then a warp a segment placing its slots 32 at a
+    time in slot order; the padding's starts cut into non-decreasing
+    segments and merged by rank (more than ``max_segs``: 4-bit radix
+    passes); where the valid slots are no prefix or their starts
+    decrease, radix passes by start, then by group, of every slot."""
+    t, r = runs.shape
+    idx = np.arange(r)
+    out = {'run_comp': np.zeros((t, r), np.int64),
+           'n_components': np.zeros(t, np.int64),
+           'n_px': np.zeros(t, np.int64)}
+    if sorted_runs:
+        for k in ('s_start', 's_len', 's_comp'):
+            out[k] = np.zeros((t, r), np.int64)
+    for f in range(t):
+        words = runs[f].view(np.int32)
+        orig = idx if c_orig is None else c_orig[f]
+        geo = _decode(words[orig], idx, counts[f], w)
+        valid = geo['valid'] if c_orig is None else idx < n_kept[f]
+        bits, pre, n_comp = _words(valid & (lab8[f] == idx))
+        asc = _through(bits, pre, np.clip(lab8[f], 0, r - 1)) - 1
+        out['run_comp'][f, orig] = np.where(valid, asc, -1)
+        lens = np.where(valid, geo['lens'], 0)
+        out['n_px'][f] = lens.sum()
+        out['n_components'][f] = n_comp
+        if not sorted_runs:
+            continue
+        grp = np.where(valid, asc + 1, n_comp + 1)
+        start = geo['start']
+        bound = int(n_kept[f]) if c_orig is not None else \
+            min(int(counts[f]), r)
+        stride = n_comp + 2
+        nseg = 32
+        while nseg > 1 and (nseg + 1) * stride > (room or 2 * r + 4):
+            nseg //= 2
+        seg_len = max(1, -(-bound // nseg))
+        table = np.zeros((nseg, stride), np.int64)
+        for p in np.nonzero(valid)[0]:
+            table[p // seg_len, grp[p]] += 1
+        tot = table.sum(0)
+        n_valid = int(tot.sum())
+        first = np.concatenate([[0], np.cumsum(tot)[:-1]])
+        table = first + np.cumsum(table, 0) - table
+        s_start = np.zeros(r, np.int64)
+        s_len = np.zeros(r, np.int64)
+        s_comp = np.full(r, -1, np.int64)
+        ordered = n_valid == bound and \
+            not (start[1:bound] < start[:max(bound - 1, 0)]).any()
+        if ordered:
+            for seg in range(nseg):
+                lo, hi = seg * seg_len, min(bound, (seg + 1) * seg_len)
+                for p0 in range(lo, hi, 32):
+                    groups = {}
+                    for p in range(p0, min(hi, p0 + 32)):
+                        groups.setdefault(grp[p], []).append(p)
+                    for g, members in groups.items():
+                        base = table[seg, g]
+                        table[seg, g] += len(members)
+                        for j, p in enumerate(members):
+                            s_start[base + j] = start[p]
+                            s_len[base + j] = lens[p]
+                            s_comp[base + j] = g - 1
+            pad = start[n_valid:]
+            cut = [k for k in range(len(pad))
+                   if k == 0 or pad[k] < pad[k - 1]]
+            if len(cut) <= max_segs:
+                ends = cut[1:] + [len(pad)]
+                for k, v in enumerate(pad):
+                    own = max(i for i, s0 in enumerate(cut) if s0 <= k)
+                    at = n_valid + k - cut[own]
+                    for b, (lo, hi) in enumerate(zip(cut, ends)):
+                        if b != own:
+                            seg = pad[lo:hi]
+                            at += int((seg <= v).sum() if b < own
+                                      else (seg < v).sum())
+                    s_start[at] = v
+            else:
+                pay = np.arange(len(pad))
+                for shift in range(0, 26, 4):
+                    pay = _radix(pad, pay, shift, nt)
+                s_start[n_valid:] = pad[pay]
+        else:
+            pay = idx.copy()
+            for shift in range(0, 26, 4):
+                pay = _radix(start, pay, shift, nt)
+            for shift in range(0, int(n_comp + 1).bit_length(), 4):
+                pay = _radix(grp, pay, shift, nt)
+            s_start, s_len = start[pay], lens[pay]
+            s_comp = np.where(grp[pay] <= n_comp, grp[pay] - 1, -1)
+        out['s_start'][f], out['s_len'][f] = s_start, s_len
+        out['s_comp'][f] = s_comp
+    return out
+
+
+def _case_wire(case):
+    runs, counts, w = run_cc_cases.run_case(case)
+    return runs, counts, w, _t(runs), _t(counts)
+
+
+@pytest.mark.parametrize('case', run_cc_cases.CASES)
+def test_prepare_design_matches_plain(case):
+    """The prepare launches' design (the keys and the blocks' order flags;
+    on a frame in order each block's searches within the answers to its
+    least and greatest queries, else torch's binary search over the
+    frame; blocks of 256 threads covering 255 runs for the link) gives the
+    plain version's planes, for one and two dilations and both inits."""
+    runs, counts, w, truns, tcounts = _case_wire(case)
+    for dilates, weak in PREPARE_CASES:
+        want = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=dilates,
+                                       weak_init=weak)
+        ends, oks, link, init, valid = _emulate_prepare(runs, counts, w,
+                                                        dilates, weak)
+        for k, win in enumerate(want['wins']):
+            for j, key in enumerate(('lo_up', 'hi_up', 'lo_dn', 'hi_dn')):
+                np.testing.assert_array_equal(ends[k, j], _np(win[key]),
+                                              err_msg=key)
+            for j, key in enumerate(('ok_up', 'ok_dn')):
+                np.testing.assert_array_equal(oks[k, j], _np(win[key]))
+        np.testing.assert_array_equal(link, _np(want['link']))
+        np.testing.assert_array_equal(init, _np(want['init']))
+        np.testing.assert_array_equal(valid, _np(want['valid']))
+
+
+@pytest.mark.parametrize('case', run_cc_cases.CASES)
+def test_compact_design_matches_plain(case):
+    """The compact launch's design (keep bits and word counts, the slot of
+    each wire run, windows remapped through the counts, the link to the
+    next kept run) gives the plain compaction."""
+    runs, counts, w, truns, tcounts = _case_wire(case)
+    g = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=(0, 1),
+                                weak_init=True)
+    lab4, _ = trcc.propagate_min(g['init'], g['wins'][0], g['link'],
+                                 max_iters=256)
+    want = trcc.compact_kept_runs_plain(truns, tcounts, lab4, g['wins'][1],
+                                        w=w)
+    got = _emulate_compact(runs, counts, w, _np(lab4),
+                           {k: _np(v) for k, v in g['wins'][1].items()})
+    for j, key in enumerate(('lo_up', 'hi_up', 'lo_dn', 'hi_dn')):
+        np.testing.assert_array_equal(got['ends'][j], _np(want['win'][key]))
+    for j, key in enumerate(('ok_up', 'ok_dn')):
+        np.testing.assert_array_equal(got['oks'][j], _np(want['win'][key]))
+    for key in ('init', 'link', 'c_orig', 'n_kept'):
+        np.testing.assert_array_equal(got[key], _np(want[key]), err_msg=key)
+
+
+@pytest.mark.parametrize('nt', [1024, 7])
+@pytest.mark.parametrize('case', run_cc_cases.CASES)
+def test_finish_design_matches_plain(case, nt):
+    """The finish launch's design (root bits and counts, the scatter; the
+    sort: the segments' places in each group, a warp's pass a segment in
+    slot order, the padding's segments merged by rank, the 4-bit radix
+    passes over thread chunks where the starts are out of order or the
+    segments many) gives the plain ids, counts and sorted runs, after the
+    compaction and on the wire's table, with the kernel's 1024 threads and
+    with 7 (many chunks), with up to 32 segments and with one, and with
+    every padding sorted by the radix passes."""
+    runs, counts, w, truns, tcounts = _case_wire(case)
+    g = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=(0, 1),
+                                weak_init=True)
+    lab4, steps4 = trcc.propagate_min(g['init'], g['wins'][0], g['link'],
+                                      max_iters=256)
+    c = trcc.compact_kept_runs_plain(truns, tcounts, lab4, g['wins'][1],
+                                     w=w)
+    lab8, steps8 = trcc.propagate_min(c['init'], c['win'], c['link'],
+                                      max_iters=256)
+    s = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=(1,))
+    lab1, steps1 = trcc.propagate_min(s['init'], s['wins'][0], s['link'],
+                                      max_iters=256)
+    for lab, c_orig, n_kept, st4, st8 in (
+            (lab8, c['c_orig'], c['n_kept'], steps4, steps8),
+            (lab1, None, None, None, steps1)):
+        for sorted_runs in (False, True):
+            want = trcc.finish_components_plain(
+                truns, tcounts, lab, c_orig, n_kept, st4, st8, w=w,
+                sorted_runs=sorted_runs)
+            # the kernel's segment cap and tables in shared memory; every
+            # padding by the radix passes and one segment
+            for max_segs, room in ((32, None), (0, 1)):
+                got = _emulate_finish(
+                    runs, counts, w, _np(lab),
+                    None if c_orig is None else _np(c_orig),
+                    None if n_kept is None else _np(n_kept), sorted_runs,
+                    nt, max_segs, room)
+                for key in got:
+                    np.testing.assert_array_equal(got[key], _np(want[key]),
+                                                  err_msg=key)
+
+
+def test_stepped_bounds_equal_searches():
+    """The prepare launch's step from one dilation's answer to the next
+    dilation's (down from the lower bound of q + 1, up from the upper
+    bound of q - 1) gives the search's answer on keys that do not
+    decrease, runs of equal keys included, within 0, 1 and 4 steps."""
+    rng = np.random.default_rng(9)
+    for _ in range(200):
+        keys = np.sort(rng.integers(0, 40, int(rng.integers(1, 60))))
+        lo, hi = sorted(rng.integers(0, len(keys) + 1, 2))
+        for q in range(-2, 43):
+            want_lo = int(_bound(keys, lo, hi, np.array([q]), False)[0])
+            want_hi = int(_bound(keys, lo, hi, np.array([q]), True)[0])
+            i_lo = int(_bound(keys, lo, hi, np.array([q + 1]), False)[0])
+            i_hi = int(_bound(keys, lo, hi, np.array([q - 1]), True)[0])
+            for steps in (0, 1, 4):
+                assert _lower_below(keys, lo, i_lo, q, steps) == want_lo
+                assert _upper_above(keys, i_hi, hi, q, steps) == want_hi
+
+
+def test_magic_division_is_floor_division():
+    """The kernels' row: the high word of start * ceil(2^64 / w), against
+    floor division for starts up to 2^26 - 1 and widths 1 to 2^26."""
+    rng = np.random.default_rng(3)
+    starts = np.concatenate([rng.integers(0, 1 << 26, 4000),
+                             [0, 1, (1 << 26) - 1]])
+    for w in [1, 2, 3, 7, 31, 32, 33, 922, 1228, 4095, 65537,
+              (1 << 26) - 1, 1 << 26]:
+        s = np.concatenate([starts, np.arange(1, 40) * w - 1,
+                            np.arange(1, 40) * w]) % (1 << 26)
+        np.testing.assert_array_equal(_row_of(s, w), s // w)
+
+
+@pytest.mark.parametrize('double_threshold', [True, False])
+def test_run_cc_components_match_jax_on_cases(double_threshold):
+    """``run_cc_components`` against ysmr_tpu's on every seeded wire of
+    run_cc_cases.py that the encoder can write (stale padding, a padded
+    frame, a full table, edges, one row, no markers, all markers, one and
+    two columns), the sorted run tables included. On runs of length 0
+    below a count or out of raster order (``zero_length``,
+    ``unordered``) the packages' window searches differ: ysmr_tpu merges
+    the key rows as if sorted, the port bisects them as
+    ``torch.searchsorted`` does; the kernels follow the port's plain
+    version there too (the design tests above)."""
+    for case in run_cc_cases.WIRE_CASES:
+        runs, counts, w, truns, tcounts = _case_wire(case)
+        ref = jrcc.run_cc_components(runs, counts, w=w,
+                                     double_threshold=double_threshold)
+        got = trcc.run_cc_components(truns, tcounts, w=w,
+                                     double_threshold=double_threshold,
+                                     sorted_runs=True)
+        for k in ('run_comp', 'n_components', 'n_px', 's_start', 's_len',
+                  's_comp'):
+            np.testing.assert_array_equal(_np(got[k]), np.asarray(ref[k]),
+                                          err_msg='{} {}'.format(case, k))
+
+
+def test_run_cc_wrappers_take_plain_versions_on_cpu():
+    """On a CPU tensor each wrapper is its plain version and counts no
+    launch; ``run_cc_components`` is ``run_cc_components_plain``."""
+    names = ('prepare_runs', 'compact_kept_runs', 'finish_components')
+    before = [getattr(trcc, n).launches for n in names]
+    runs, counts, w, truns, tcounts = _case_wire('blobs')
+    for double in (True, False):
+        kw = dict(w=w, double_threshold=double, sorted_runs=True)
+        got = trcc.run_cc_components(truns, tcounts, **kw)
+        want = trcc.run_cc_components_plain(truns, tcounts, **kw)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(_np(got[k]), _np(want[k]))
+    g = trcc.prepare_runs(truns, tcounts, w=w, dilates=(0, 1),
+                          weak_init=True)
+    want = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=(0, 1),
+                                   weak_init=True)
+    for k in ('init', 'valid', 'link'):
+        np.testing.assert_array_equal(_np(g[k]), _np(want[k]))
+    assert [getattr(trcc, n).launches for n in names] == before
+
+
+def test_run_cc_wrappers_refuse_other_devices():
+    """No silent fallback: a wire neither on the CPU nor on a CUDA device
+    is refused by each wrapper."""
+    runs = torch.zeros((2, 8), dtype=torch.int32, device='meta')
+    counts = torch.zeros((2,), dtype=torch.int32, device='meta')
+    plane = torch.zeros((2, 8), dtype=torch.int32, device='meta')
+    win = {k: plane if k[:2] in ('lo', 'hi') else plane.bool()
+           for k in ('lo_up', 'hi_up', 'lo_dn', 'hi_dn', 'ok_up', 'ok_dn')}
+    with pytest.raises(ValueError):
+        trcc.prepare_runs(runs, counts, w=8, dilates=(1,))
+    with pytest.raises(ValueError):
+        trcc.compact_kept_runs(runs, counts, plane, win, w=8)
+    with pytest.raises(ValueError):
+        trcc.finish_components(runs, counts, plane, None, None, None,
+                               counts, w=8)

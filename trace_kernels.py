@@ -37,11 +37,17 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   ``csrc/frame_step.cu``) on random states at the dense size (4096
   slots, 3000 live, 3000 detections near them), V = 1 and 4 (phase
   30's);
-- ``compact``: frames mode's compaction and row tables on the bench
-  scene's first 64 frames as its detect hands them over (preprocess,
-  reconstruction, 8-connected labeling): ``compact_row_tables``
+- ``compact``: frames mode's compaction and row tables on the bench and
+  dense scenes' first 64 frames as its detect hands them over
+  (preprocess, reconstruction, 8-connected labeling; the packed mask
+  where the labeling returns it): ``compact_row_tables``
   (``csrc/compact.cu``) or, in a checkout from before it, its
-  ``compact_labels`` followed by ``component_row_tables``.
+  ``compact_labels`` followed by ``component_row_tables``;
+- ``run_cc``: ``run_cc_components`` (double threshold) on the bench
+  scene's first 64 frames as the host-rect path calls it (no sorted
+  runs) and on the dense scene's with the sorted runs, the run wire's R
+  bucket: in a checkout with ``csrc/run_cc.cu`` its four launches around
+  ``csrc/run_prop.cu``'s, in one from before it the torch sequence.
 
 With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
 3000 rods) in memory through the stage-1 loop N times, the device path
@@ -69,7 +75,7 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign', 'gsff',
-          'frame_step', 'preprocess', 'compact')
+          'frame_step', 'preprocess', 'compact', 'run_cc')
 
 
 def parse_args():
@@ -321,26 +327,56 @@ def trace_preprocess(smoke, args, dev):
 def trace_compact(smoke, args, dev):
     from ysmr_tpu_torch.ops import cc
     from ysmr_tpu_torch.ops import labeling as lb
-    settings = smoke.bench_settings()
-    max_det = settings['max detections per frame']
-    max_bh = settings['max bounding box height']
-    mask, marker = smoke.bench_masks(smoke.BenchScene(), settings, dev)
-    mask = cc.binary_reconstruct(mask, marker & mask)
-    labels = cc.label_components_whole_frame(mask, 8)
-    shape = 'x'.join(str(n) for n in mask.shape)
-    if hasattr(lb, 'compact_row_tables'):
-        trace('compact_row_tables bench {}'.format(shape),
-              lambda: lb.compact_row_tables(labels, mask, max_det=max_det,
-                                            max_bh=max_bh),
-              args.reps, smoke)
-        return
+    for name, scene, settings in (
+            ('bench', smoke.BenchScene(), smoke.bench_settings()),
+            ('dense', smoke.BenchScene(seed=smoke.DENSE_SEED,
+                                       n_bugs=smoke.DENSE_BUGS),
+             smoke.dense_settings())):
+        max_det = settings['max detections per frame']
+        max_bh = settings['max bounding box height']
+        mask, marker = smoke.bench_masks(scene, settings, dev)
+        mask = cc.binary_reconstruct(mask, marker & mask)
+        labels = cc.label_components_whole_frame(mask, 8)
+        shape = 'x'.join(str(n) for n in mask.shape)
+        if hasattr(lb, 'compact_row_tables'):
+            # the packed mask, where the labeling hands it over
+            bits = smoke.compact_bits(labels, mask) \
+                if hasattr(smoke, 'compact_bits') else None
+            kw = {} if bits is None else {'fg_bits': bits}
+            trace('compact_row_tables {} {}{}'.format(
+                name, shape, '' if bits is None else ' (packed mask)'),
+                lambda: lb.compact_row_tables(labels, mask, max_det=max_det,
+                                              max_bh=max_bh, **kw),
+                args.reps, smoke)
+            continue
 
-    def steps():
-        comp, _ = lb.compact_labels(labels, mask, max_det=max_det)
-        return lb.component_row_tables(comp, mask, max_det=max_det,
-                                       max_bh=max_bh)
-    trace('compact_labels + component_row_tables bench {}'.format(shape),
-          steps, args.reps, smoke)
+        def steps():
+            comp, _ = lb.compact_labels(labels, mask, max_det=max_det)
+            return lb.component_row_tables(comp, mask, max_det=max_det,
+                                           max_bh=max_bh)
+        trace('compact_labels + component_row_tables {} {}'.format(
+            name, shape), steps, args.reps, smoke)
+
+
+def trace_run_cc(smoke, args, dev):
+    import numpy as np
+    import torch
+    from ysmr_tpu_torch.ops import run_cc
+    for name, scene, settings, sorted_runs in (
+            ('bench', smoke.BenchScene(), smoke.bench_settings(), False),
+            ('dense', smoke.BenchScene(seed=smoke.DENSE_SEED,
+                                       n_bugs=smoke.DENSE_BUGS),
+             smoke.dense_settings(), True)):
+        runs, rc = smoke.first_batch_runs(scene, settings)
+        wire = (torch.from_numpy(runs.view(np.int32)).to(dev),
+                torch.from_numpy(rc).to(dev))
+        trace('run_cc_components {} T={} R={}{}'.format(
+            name, runs.shape[0], runs.shape[1],
+            ' sorted runs' if sorted_runs else ''),
+            lambda: run_cc.run_cc_components(
+                *wire, w=smoke.W, double_threshold=True,
+                max_iters=smoke.MAX_ITERS, sorted_runs=sorted_runs),
+            args.reps, smoke)
 
 
 def end_to_end(smoke, args):
@@ -397,7 +433,8 @@ def main():
                'rects': trace_rects, 'pixels': trace_pixels,
                'assign': trace_assign, 'gsff': trace_gsff,
                'frame_step': trace_frame_step,
-               'preprocess': trace_preprocess, 'compact': trace_compact}
+               'preprocess': trace_preprocess, 'compact': trace_compact,
+               'run_cc': trace_run_cc}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

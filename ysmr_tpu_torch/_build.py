@@ -154,6 +154,18 @@ def load_kernels():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ysmr_run_prop.restype = ci
     lib.ysmr_run_prop.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+    lib.ysmr_run_prepare.restype = ci
+    lib.ysmr_run_prepare.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+    lib.ysmr_run_compact.restype = ci
+    lib.ysmr_run_compact.argtypes = [vp, vp, vp, ctypes.POINTER(vp),
+                                     ctypes.POINTER(vp)] + [vp] * 6 + \
+        [ci] * 4 + [vp]
+    lib.ysmr_run_finish.restype = ci
+    lib.ysmr_run_finish.argtypes = [vp] * 15 + [ci] * 4 + [vp]
+    lib.ysmr_run_scratch_words.restype = ctypes.c_int64
+    lib.ysmr_run_scratch_words.argtypes = [ci] * 3
+    lib.ysmr_compact_scratch_words.restype = ctypes.c_int64
+    lib.ysmr_compact_scratch_words.argtypes = [ci] * 3
     lib.ysmr_hull_edges.restype = ci
     lib.ysmr_hull_edges.argtypes = [vp] * 13 + [ci, ci, ci, vp]
     lib.ysmr_sweep_extents.restype = ci
@@ -165,7 +177,7 @@ def load_kernels():
     lib.ysmr_cc_reconstruct.restype = ci
     lib.ysmr_cc_reconstruct.argtypes = [vp] * 5 + [ci, ci, ci, ci, vp]
     lib.ysmr_compact_row_tables.restype = ci
-    lib.ysmr_compact_row_tables.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+    lib.ysmr_compact_row_tables.argtypes = [vp] * 9 + [ci] * 6 + [vp]
     lib.ysmr_cc_pixels.restype = ci
     lib.ysmr_cc_pixels.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.ysmr_adaptive_mean.restype = ci

@@ -49,7 +49,8 @@ LABEL_MAX_PIXELS = (1 << 31) - 1
 RECONSTRUCT_MAX_PIXELS = (1 << 31) - 64
 
 
-def label_components_whole_frame(mask, connectivity=8, max_iters=64):
+def label_components_whole_frame(mask, connectivity=8, max_iters=64,
+                                 return_bits=False):
     """Connected-component labels of each frame: the minimum linear index
     ``y*w + x`` of the pixel's component, ``h*w`` on the background.
 
@@ -58,11 +59,16 @@ def label_components_whole_frame(mask, connectivity=8, max_iters=64):
 
     :param mask: (T, H, W) bool
     :param connectivity: 4 or 8
-    :return: (T, H, W) int32 labels
+    :param return_bits: also return the mask as the kernel packs it, 32
+        pixels of the flattened batch a word (bit i of word g: pixel 32 g +
+        i; ``compact_row_tables``' ``fg_bits``), or None (on the CPU, and
+        where the batch took several launches)
+    :return: (T, H, W) int32 labels, or (labels, bits)
     """
     if mask.device.type == 'cpu':
-        return label_components(mask, connectivity=connectivity,
-                                max_iters=max_iters)[0]
+        labels = label_components(mask, connectivity=connectivity,
+                                  max_iters=max_iters)[0]
+        return (labels, None) if return_bits else labels
     t, h, w = _check_masks('label_components_whole_frame', mask)
     if connectivity not in (4, 8):
         raise ValueError('label_components_whole_frame: connectivity must be '
@@ -82,6 +88,8 @@ def label_components_whole_frame(mask, connectivity=8, max_iters=64):
                                connectivity, mask.device.index, stream)
         _build.check(lib, rc, 'cc label kernel launch')
     label_components_whole_frame.launches += 1
+    if return_bits:
+        return labels, bits if step >= t else None
     return labels
 
 

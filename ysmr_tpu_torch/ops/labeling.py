@@ -37,7 +37,7 @@ Differences from the JAX module, all of representation:
   ``segment_min``/``segment_max`` give 2^31 - 1; nothing reads them.
 - Frames mode's detect takes the compaction and the row tables in one
   call, ``compact_row_tables``: on a CUDA tensor the kernel
-  ``csrc/compact.cu`` (three launches, no (T, H, W) plane of ids, no
+  ``csrc/compact.cu`` (two launches, no (T, H, W) plane of ids, no
   ``nonzero``, nothing read back), on a CPU tensor
   ``compact_row_tables_plain``, ``compact_labels`` followed by
   ``component_row_tables``.
@@ -247,24 +247,25 @@ def compact_row_tables_plain(labels, mask, *, max_det, max_bh):
                                 max_bh=max_bh) + (n_components,)
 
 
-#: 32-pixel words of a tile of ``csrc/compact.cu``'s root scan
-COMPACT_TILE_WORDS = 256
-
-
-def compact_row_tables(labels, mask, *, max_det, max_bh):
+def compact_row_tables(labels, mask, *, max_det, max_bh, fg_bits=None):
     """Frames mode's compaction and row tables in one call: the row
     tables ``component_row_tables`` gives for the dense ids of
     ``compact_labels`` (reverse raster order of the components' roots,
     ids from ``max_det`` on dropped), and each frame's component count.
 
     On a CPU tensor ``compact_row_tables_plain``; on a CUDA tensor the
-    kernel ``csrc/compact.cu`` (three launches, counted as one call;
-    bit-equal), or the call raises. The kernel takes the labels as
+    kernel ``csrc/compact.cu`` (a memset and two launches, counted as one
+    call; bit-equal), or the call raises. The kernel takes the labels as
     ``label_components`` and the labeling kernel give them: each mask
     pixel's label is its component's minimum in-frame linear index.
 
     :param labels: (T, H, W) int32, contiguous
     :param mask: (T, H, W) bool, contiguous
+    :param fg_bits: optional, the mask as ``cc.label_components_whole_frame
+        (..., return_bits=True)`` packs it ((ceil(T H W / 32),) int32, bit
+        i of word g the pixel 32 g + i of the flattened batch): the kernel
+        reads it in place of the mask's bytes (the plain version ignores
+        it)
     :return: (row_min_x, row_max_x, row_valid, min_y, n_components):
         (T*max_det, max_bh) int32, int32 and bool, (T*max_det,) int32 and
         (T,) int32
@@ -287,6 +288,12 @@ def compact_row_tables(labels, mask, *, max_det, max_bh):
     t, h, w = labels.shape
     if h * w >= 1 << 31 or min(h, w) < 1:
         raise ValueError('{}: frames of 1 to 2^31 - 1 pixels'.format(name))
+    nw = (t * h * w + 31) // 32
+    if fg_bits is not None and (
+            fg_bits.shape != (nw,) or fg_bits.dtype != _I32 or
+            fg_bits.device != labels.device or not fg_bits.is_contiguous()):
+        raise ValueError('{}: fg_bits must be the ({},) int32 packed mask '
+                         'on {}'.format(name, nw, labels.device))
     if max_det < 1 or max_bh < 1:
         raise ValueError('{}: max_det and max_bh must be positive'.format(
             name))
@@ -297,17 +304,18 @@ def compact_row_tables(labels, mask, *, max_det, max_bh):
     row_valid = torch.empty((d, max_bh), dtype=torch.bool, device=dev)
     min_y = torch.empty((d,), dtype=_I32, device=dev)
     n_components = torch.empty((t,), dtype=_I32, device=dev)
-    # the foreground words, root words and their prefixes within a tile,
-    # the tiles' counts and prefixes, and the frames' starts
-    nw = (t * h * w + 31) // 32
-    tiles = (nw + COMPACT_TILE_WORDS - 1) // COMPACT_TILE_WORDS
-    scratch = torch.empty(3 * nw + 2 * tiles + t + 2, dtype=_I32, device=dev)
     if t:
         lib = _build.load_kernels()
+        # the tiles' status words and counter, the foreground and root
+        # words, the groups' root prefixes and the frames' starts
+        scratch = torch.empty(lib.ysmr_compact_scratch_words(t, h, w),
+                              dtype=_I32, device=dev)
         rc = lib.ysmr_compact_row_tables(
             labels.data_ptr(), mask.data_ptr(), row_min_x.data_ptr(),
             row_max_x.data_ptr(), row_valid.data_ptr(), min_y.data_ptr(),
-            n_components.data_ptr(), scratch.data_ptr(), t, h, w, max_det,
+            n_components.data_ptr(),
+            None if fg_bits is None else fg_bits.data_ptr(),
+            scratch.data_ptr(), t, h, w, max_det,
             max_bh, dev.index, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, rc, 'compact kernel launch')
         compact_row_tables.launches += 1

@@ -25,9 +25,20 @@ Differences from the JAX module, all of representation:
   is reached; converged <=> steps < max_iters).
 - ``det_px_from_runs``'s scatter of the run starts goes to one dump slot
   past the table instead of JAX's dropped out-of-bounds indices.
+- The steps around the two propagations are three wrappers, each with a
+  plain version made of the torch operations above: ``prepare_runs``
+  (decode, windows, links), ``compact_kept_runs`` (the compaction between
+  the propagations) and ``finish_components`` (ids, scatter, counts,
+  sorted runs). On a CUDA tensor each launches the hand-written kernels
+  of ``csrc/run_cc.cu`` (prepare two, the others one), bit-equal to its
+  plain version; a CPU tensor takes the plain version.
 """
 
+import ctypes
+
 import torch
+
+from ysmr_tpu_torch import _build
 
 #: sentinel larger than any real sort key (keys are < 2^22 after packing)
 _BIG = 1 << 28
@@ -185,17 +196,336 @@ def _make_prop():
     return propagate_min_fused
 
 
+def _iota(t, r, device):
+    return torch.arange(r, dtype=_I32, device=device).expand(t, r) \
+        .contiguous()
+
+
+# ---- the three steps around the propagations, each a plain version and a
+# wrapper that routes a CUDA tensor to its launch of csrc/run_cc.cu ----
+
+def prepare_runs_plain(px_runs, run_counts, *, w, dilates, weak_init=False):
+    """Plain version of ``prepare_runs``: ``decode_runs``,
+    ``run_windows_multi`` and ``chain_mask``."""
+    geo = _prepare(px_runs, run_counts, w=w)
+    t, r = geo['rows'].shape
+    iota = _iota(t, r, px_runs.device)
+    wins = run_windows_multi(geo, dilates=tuple(dilates))
+    init = torch.where(geo['rmark'], iota, iota + r) if weak_init else iota
+    return {'init': init, 'valid': geo['valid'], 'wins': wins,
+            'link': chain_mask(geo, wins[0])}
+
+
+def compact_kept_runs_plain(px_runs, run_counts, lab4, win8o, *, w):
+    """Plain version of ``compact_kept_runs``: the stable compaction of the
+    runs the 4-connected propagation kept (a stable sort, gathers and a
+    cumulative sum), the 8-connected windows remapped onto it and its
+    links."""
+    geo = _prepare(px_runs, run_counts, w=w)
+    t, r = geo['rows'].shape
+    iota = _iota(t, r, px_runs.device)
+    keep = geo['valid'] & (lab4 < r)
+
+    # stable compaction: surviving runs first, raster order preserved
+    ckey = torch.where(keep, iota, iota + r)
+    c_orig = torch.sort(ckey, dim=1, stable=True).indices
+    c_rows, c_xs, c_xe = (torch.gather(geo[k], 1, c_orig)
+                          for k in ('rows', 'xs', 'xe'))
+    keep_i = keep.to(_I32)
+    n_kept = keep_i.sum(dim=1, dtype=_I32)
+    c_valid = iota < n_kept[:, None]
+
+    # window remap: compaction is a stable subset, so kept runs with
+    # original index in [lo, hi] occupy the compacted range
+    # [#kept strictly before lo, #kept through hi - 1]
+    kc = torch.cumsum(keep_i, dim=1, dtype=_I32)
+    before = kc - keep_i
+    g = {k: torch.gather(win8o[k], 1, c_orig)
+         for k in ('lo_up', 'hi_up', 'lo_dn', 'hi_dn', 'ok_up', 'ok_dn')}
+
+    def remap(lo, hi):
+        lo2 = torch.gather(before, 1, lo.clamp(0, r - 1).long())
+        hi2 = torch.gather(kc, 1, hi.clamp(0, r - 1).long()) - 1
+        return lo2, hi2
+
+    lo_up, hi_up = remap(g['lo_up'], g['hi_up'])
+    lo_dn, hi_dn = remap(g['lo_dn'], g['hi_dn'])
+    win8 = {'lo_up': lo_up, 'hi_up': hi_up,
+            'ok_up': c_valid & g['ok_up'] & (lo_up <= hi_up),
+            'lo_dn': lo_dn, 'hi_dn': hi_dn,
+            'ok_dn': c_valid & g['ok_dn'] & (lo_dn <= hi_dn)}
+    geo8 = {'rows': c_rows, 'xs': c_xs, 'xe': c_xe, 'valid': c_valid,
+            'key_m': geo['key_m']}
+    return {'init': iota, 'win': win8, 'link': chain_mask(geo8, win8),
+            'c_orig': c_orig.to(_I32), 'n_kept': n_kept}
+
+
+def finish_components_plain(px_runs, run_counts, lab8, c_orig, n_kept,
+                            steps4, steps8, *, w, sorted_runs=False):
+    """Plain version of ``finish_components``: the roots' ascending rank
+    (a cumulative sum), the ids gathered and scattered to wire order, the
+    kept pixels and, with ``sorted_runs``, one stable sort of the combined
+    key (component rank, start < 2^26); the JAX version sorts by the two
+    keys."""
+    geo = _prepare(px_runs, run_counts, w=w)
+    t, r = geo['rows'].shape
+    iota = _iota(t, r, px_runs.device)
+    if c_orig is None:
+        # valid runs are a prefix, so the compaction is the identity
+        c_orig = iota.long()
+        c_rows, c_xs, c_len = geo['rows'], geo['xs'], geo['lens']
+        c_valid = geo['valid']
+    else:
+        c_orig = c_orig.long()
+        c_rows, c_xs, c_len = (torch.gather(geo[k], 1, c_orig)
+                               for k in ('rows', 'xs', 'lens'))
+        c_valid = iota < n_kept[:, None]
+
+    # component ids: ascending rank of roots in raster order (root = run of
+    # minimum index = the component's topmost-leftmost run)
+    roots = (c_valid & (lab8 == iota)).to(_I32)
+    rank = torch.cumsum(roots, dim=1, dtype=_I32) - 1
+    n_components = roots.sum(dim=1, dtype=_I32)
+    asc = torch.gather(rank, 1, lab8.clamp(0, r - 1).long())
+    comp_c = torch.where(c_valid, asc, torch.full_like(asc, -1))
+
+    # map ids back to original wire-run order (c_orig is a permutation of
+    # each row, so the scatter writes every slot exactly once)
+    run_comp = torch.empty_like(comp_c).scatter_(1, c_orig, comp_c)
+    c_len_v = torch.where(c_valid, c_len, torch.zeros_like(c_len))
+    n_px = c_len_v.sum(dim=1, dtype=_I32)
+    cc_steps = steps8 if steps4 is None else torch.maximum(steps4, steps8)
+    out = {'run_comp': run_comp, 'n_components': n_components,
+           'n_px': n_px, 'cc_steps': cc_steps}
+    if sorted_runs:
+        # components contiguous, linear start ascending within: one stable
+        # sort of the combined key (component rank, start < 2^26); the JAX
+        # version sorts by the two keys
+        c_start = c_xs + c_rows * w
+        skey = torch.where(c_valid, asc, torch.full_like(asc, 1 << 30))
+        order = torch.sort(skey.long() * (1 << 26) + c_start, dim=1,
+                           stable=True).indices
+        out.update(s_start=torch.gather(c_start, 1, order),
+                   s_len=torch.gather(c_len_v, 1, order),
+                   s_comp=torch.gather(comp_c, 1, order))
+    return out
+
+
+def _wire_args(name, px_runs, run_counts, w, max_runs=None):
+    """The wire on the card as the launches take it, or a ValueError."""
+    if px_runs.device.type != 'cuda':
+        raise ValueError('{}: unsupported device {}'.format(
+            name, px_runs.device))
+    if px_runs.dim() != 2 or run_counts.shape != px_runs.shape[:1] or \
+            run_counts.device != px_runs.device:
+        raise ValueError('{}: expects (T, R) runs and (T,) counts on one '
+                         'device'.format(name))
+    t, r = px_runs.shape
+    if not 1 <= w <= 1 << 26 or t > 65535 or \
+            (max_runs is not None and r > max_runs):
+        raise ValueError('{}: needs 1 <= w <= 2^26, T <= 65535 and R <= {} '
+                         '(got w {}, T {}, R {})'.format(
+                             name, max_runs, w, t, r))
+    return (px_runs.to(_I32).contiguous(), run_counts.to(_I32).contiguous(),
+            _build.load_kernels(),
+            torch.cuda.current_stream(px_runs.device).cuda_stream)
+
+
+def _plane(name, a, shape, dtype, device):
+    if a.shape != shape or a.dtype != dtype or a.device != device:
+        raise ValueError('{}: a {} plane of shape {} on {} expected'.format(
+            name, dtype, tuple(shape), device))
+    return a.contiguous()
+
+
+def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False):
+    """The run graph of a batch's wire: each run's initial label, validity,
+    windows into the rows above and below for each dilation, and the
+    same-row links of the first dilation's windows (``decode_runs``,
+    ``run_windows_multi``, ``chain_mask``).
+
+    On a CPU tensor ``prepare_runs_plain``; on a CUDA tensor two launches
+    of ``csrc/run_cc.cu`` (the keys, then the prepare kernel; bit-equal),
+    or the call raises.
+
+    :param px_runs: (T, R) int32 view of the run wire
+    :param run_counts: (T,) valid runs a frame
+    :param dilates: one or two dilations (1 for 8-connectivity, 0 for 4)
+    :param weak_init: the marker reconstruction's init (marked runs at
+        their own index, the others at index + R) instead of the index
+    :return: dict of (T, R) ``init`` int32, ``valid`` bool, ``link`` bool
+        and ``wins``, one ``run_windows`` dict a dilation
+    """
+    if px_runs.device.type == 'cpu':
+        return prepare_runs_plain(px_runs, run_counts, w=w, dilates=dilates,
+                                  weak_init=weak_init)
+    name = 'prepare_runs'
+    runs, counts, lib, stream = _wire_args(name, px_runs, run_counts, w)
+    dilates = tuple(int(d) for d in dilates)
+    if len(dilates) not in (1, 2):
+        raise ValueError('{}: one or two dilations'.format(name))
+    t, r = runs.shape
+    dev = runs.device
+    nd = len(dilates)
+    ends = torch.empty((nd, 4, t, r), dtype=_I32, device=dev)
+    oks = torch.empty((nd, 2, t, r), dtype=torch.bool, device=dev)
+    link = torch.empty((t, r), dtype=torch.bool, device=dev)
+    init = torch.empty((t, r), dtype=_I32, device=dev)
+    valid = torch.empty((t, r), dtype=torch.bool, device=dev)
+    if t and r:
+        # the keys of every slot, and a flag a block of slots
+        scratch = torch.empty(lib.ysmr_run_scratch_words(t, r, 0),
+                              dtype=_I32, device=dev)
+        rc = lib.ysmr_run_prepare(
+            runs.data_ptr(), counts.data_ptr(), ends.data_ptr(),
+            oks.data_ptr(), link.data_ptr(), init.data_ptr(),
+            valid.data_ptr(), scratch.data_ptr(), t, r, w, nd, dilates[0],
+            dilates[-1], int(bool(weak_init)), dev.index, stream)
+        _build.check(lib, rc, 'run prepare kernel launch')
+        prepare_runs.launches += 1
+    wins = [{'lo_up': ends[k, 0], 'hi_up': ends[k, 1], 'lo_dn': ends[k, 2],
+             'hi_dn': ends[k, 3], 'ok_up': oks[k, 0], 'ok_dn': oks[k, 1]}
+            for k in range(nd)]
+    return {'init': init, 'valid': valid, 'wins': wins, 'link': link}
+
+
+#: runs a frame that the one-block-a-frame launches of csrc/run_cc.cu take
+RUN_CC_MAX_RUNS = 1 << 19
+
+_WIN_KEYS = ('lo_up', 'hi_up', 'lo_dn', 'hi_dn', 'ok_up', 'ok_dn')
+
+
+def compact_kept_runs(px_runs, run_counts, lab4, win8o, *, w):
+    """The double threshold's step between the propagations: the runs the
+    4-connected propagation kept (valid, label below R) compacted in
+    raster order, and the 8-connected run graph on the compacted table.
+
+    On a CPU tensor ``compact_kept_runs_plain``; on a CUDA tensor one
+    launch of ``csrc/run_cc.cu``'s compact kernel (bit-equal; R at most
+    ``RUN_CC_MAX_RUNS``), or the call raises.
+
+    :param lab4: (T, R) int32 labels of the 4-connected propagation
+    :param win8o: the 8-connected ``run_windows`` dict of the wire's runs
+    :return: dict of ``init`` (the index), ``win`` and ``link`` of the
+        compacted table, ``c_orig`` (T, R) int32 (the wire index of each
+        compacted slot: kept runs first, then the others, each in order)
+        and ``n_kept`` (T,) int32
+    """
+    if px_runs.device.type == 'cpu':
+        return compact_kept_runs_plain(px_runs, run_counts, lab4, win8o,
+                                       w=w)
+    name = 'compact_kept_runs'
+    runs, counts, lib, stream = _wire_args(name, px_runs, run_counts, w,
+                                           RUN_CC_MAX_RUNS)
+    t, r = runs.shape
+    dev = runs.device
+    lab4 = _plane(name, lab4, runs.shape, _I32, dev)
+    planes = [_plane(name, win8o[k], runs.shape,
+                     _I32 if k.startswith(('lo', 'hi')) else torch.bool, dev)
+              for k in _WIN_KEYS]
+    init = torch.empty((t, r), dtype=_I32, device=dev)
+    ends = torch.empty((4, t, r), dtype=_I32, device=dev)
+    oks = torch.empty((2, t, r), dtype=torch.bool, device=dev)
+    link = torch.empty((t, r), dtype=torch.bool, device=dev)
+    c_orig = torch.empty((t, r), dtype=_I32, device=dev)
+    n_kept = torch.empty((t,), dtype=_I32, device=dev)
+    if t and r:
+        vp = ctypes.c_void_p
+        rc = lib.ysmr_run_compact(
+            runs.data_ptr(), counts.data_ptr(), lab4.data_ptr(),
+            (vp * 4)(*(p.data_ptr() for p in planes[:4])),
+            (vp * 2)(*(p.data_ptr() for p in planes[4:])),
+            init.data_ptr(), ends.data_ptr(), oks.data_ptr(),
+            link.data_ptr(), c_orig.data_ptr(), n_kept.data_ptr(), t, r, w,
+            dev.index, stream)
+        _build.check(lib, rc, 'run compact kernel launch')
+        compact_kept_runs.launches += 1
+    win = {'lo_up': ends[0], 'hi_up': ends[1], 'lo_dn': ends[2],
+           'hi_dn': ends[3], 'ok_up': oks[0], 'ok_dn': oks[1]}
+    return {'init': init, 'win': win, 'link': link, 'c_orig': c_orig,
+            'n_kept': n_kept}
+
+
+def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
+                      steps8, *, w, sorted_runs=False):
+    """The step after the 8-connected propagation: component ids (the
+    ascending raster rank of each component's root run), scattered back to
+    wire order, the component and kept-pixel counts, the larger step count
+    and, with ``sorted_runs``, the kept runs in (component, start) order.
+
+    On a CPU tensor ``finish_components_plain``; on a CUDA tensor one
+    launch of ``csrc/run_cc.cu``'s finish kernel (bit-equal; R at most
+    ``RUN_CC_MAX_RUNS``), or the call raises.
+
+    :param lab8: (T, R) int32 labels of the 8-connected propagation over
+        the compacted table
+    :param c_orig, n_kept: ``compact_kept_runs``' outputs, or both None
+        when the table is the wire's (a single threshold)
+    :param steps4: (T,) int32 steps of the 4-connected propagation, or
+        None; ``steps8``: those of the 8-connected one
+    :return: the ``run_cc_components`` dict
+    """
+    if px_runs.device.type == 'cpu':
+        return finish_components_plain(px_runs, run_counts, lab8, c_orig,
+                                       n_kept, steps4, steps8, w=w,
+                                       sorted_runs=sorted_runs)
+    name = 'finish_components'
+    runs, counts, lib, stream = _wire_args(name, px_runs, run_counts, w,
+                                           RUN_CC_MAX_RUNS)
+    t, r = runs.shape
+    dev = runs.device
+    lab8 = _plane(name, lab8, runs.shape, _I32, dev)
+    if (c_orig is None) != (n_kept is None):
+        raise ValueError('{}: c_orig and n_kept go together'.format(name))
+    if c_orig is not None:
+        c_orig = _plane(name, c_orig, runs.shape, _I32, dev)
+        n_kept = _plane(name, n_kept, runs.shape[:1], _I32, dev)
+    steps8 = _plane(name, steps8, runs.shape[:1], _I32, dev)
+    if steps4 is not None:
+        steps4 = _plane(name, steps4, runs.shape[:1], _I32, dev)
+    run_comp = torch.empty((t, r), dtype=_I32, device=dev)
+    counts_out = torch.empty((3, t), dtype=_I32, device=dev)
+    out = {'run_comp': run_comp, 'n_components': counts_out[0],
+           'n_px': counts_out[1], 'cc_steps': counts_out[2]}
+    sorted_out = scratch = None
+    if sorted_runs:
+        sorted_out = torch.empty((3, t, r), dtype=_I32, device=dev)
+        # the sort's slot tables (group, start and length, two orders),
+        # its count tables and the radix passes' digit counts
+        scratch = torch.empty(lib.ysmr_run_scratch_words(t, r, 1),
+                              dtype=_I32, device=dev)
+        out.update(s_start=sorted_out[0], s_len=sorted_out[1],
+                   s_comp=sorted_out[2])
+    if t and r:
+        def ptr(a, k=None):
+            return None if a is None else (a if k is None else a[k]) \
+                .data_ptr()
+        rc = lib.ysmr_run_finish(
+            runs.data_ptr(), counts.data_ptr(), lab8.data_ptr(),
+            ptr(c_orig), ptr(n_kept), ptr(steps4), steps8.data_ptr(),
+            run_comp.data_ptr(), ptr(counts_out, 0), ptr(counts_out, 1),
+            ptr(counts_out, 2), ptr(sorted_out, 0), ptr(sorted_out, 1),
+            ptr(sorted_out, 2), ptr(scratch), t, r, w, dev.index, stream)
+        _build.check(lib, rc, 'run finish kernel launch')
+        finish_components.launches += 1
+    return out
+
+
+#: kernel launches since the counts were last set to 0
+prepare_runs.launches = 0
+compact_kept_runs.launches = 0
+finish_components.launches = 0
+
+
 def label_runs(px_runs, run_counts, *, w, connectivity=8, max_iters=64):
     """Connected-component root (min run index) per run; invalid = self.
 
     :return: ((T, R) int32 roots, (T,) int32 propagation steps)
     """
-    geo = _prepare(px_runs, run_counts, w=w)
-    win = run_windows(geo, dilate=1 if connectivity == 8 else 0)
-    link = chain_mask(geo, win)
-    t, r = geo['rows'].shape
-    iota = torch.arange(r, dtype=_I32, device=px_runs.device).expand(t, r)
-    return _make_prop()(iota.contiguous(), win, link, max_iters=max_iters)
+    g = prepare_runs(px_runs, run_counts, w=w,
+                     dilates=(1 if connectivity == 8 else 0,))
+    return _make_prop()(g['init'], g['wins'][0], g['link'],
+                        max_iters=max_iters)
 
 
 def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64):
@@ -204,19 +534,38 @@ def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64):
     A run survives iff its 4-connected mask component contains at least
     one marker pixel (reference track_eval.py:211-214; the encoder splits
     runs at marker transitions, so marker membership is per-run). The
-    propagation is ``propagate_min_fused``: the CUDA kernel on a CUDA
-    tensor, the plain ``propagate_min`` on a CPU one.
+    run graph is ``prepare_runs`` and the propagation
+    ``propagate_min_fused``: the CUDA kernels on a CUDA tensor, the plain
+    versions on a CPU one.
 
     :return: (T, R) bool keep flags
     """
-    geo = _prepare(px_runs, run_counts, w=w)
-    win = run_windows(geo, dilate=0)
-    link = chain_mask(geo, win)
-    t, r = geo['rows'].shape
-    iota = torch.arange(r, dtype=_I32, device=px_runs.device).expand(t, r)
-    init = torch.where(geo['rmark'], iota, iota + r)
-    lab, _ = _make_prop()(init, win, link, max_iters=max_iters)
-    return geo['valid'] & (lab < r)
+    g = prepare_runs(px_runs, run_counts, w=w, dilates=(0,), weak_init=True)
+    lab, _ = _make_prop()(g['init'], g['wins'][0], g['link'],
+                          max_iters=max_iters)
+    return g['valid'] & (lab < px_runs.shape[1])
+
+
+def _components(px_runs, run_counts, w, double_threshold, max_iters,
+                sorted_runs, prepare, compact, finish):
+    prop = _make_prop()
+    steps4 = c_orig = n_kept = None
+    if double_threshold:
+        # both connectivities' windows in one pass; the 8-conn windows are
+        # remapped onto the compacted table
+        g = prepare(px_runs, run_counts, w=w, dilates=(0, 1),
+                    weak_init=True)
+        lab4, steps4 = prop(g['init'], g['wins'][0], g['link'],
+                            max_iters=max_iters)
+        c = compact(px_runs, run_counts, lab4, g['wins'][1], w=w)
+        init8, win8, link8 = c['init'], c['win'], c['link']
+        c_orig, n_kept = c['c_orig'], c['n_kept']
+    else:
+        g = prepare(px_runs, run_counts, w=w, dilates=(1,))
+        init8, win8, link8 = g['init'], g['wins'][0], g['link']
+    lab8, steps8 = prop(init8, win8, link8, max_iters=max_iters)
+    return finish(px_runs, run_counts, lab8, c_orig, n_kept, steps4, steps8,
+                  w=w, sorted_runs=sorted_runs)
 
 
 def run_cc_components(px_runs, run_counts, *, w, double_threshold,
@@ -225,7 +574,12 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
 
     Optional marker reconstruction (4-connected, keep mask components that
     contain a marker) -> stable compaction of surviving runs -> 8-connected
-    components -> ascending raster-rank component ids.
+    components -> ascending raster-rank component ids. Each step is a
+    wrapper that routes a CUDA tensor to its kernel (``prepare_runs``,
+    ``propagate_min_fused``, ``compact_kept_runs``, ``finish_components``:
+    on the card four launches of ``csrc/run_cc.cu`` around ``csrc/
+    run_prop.cu``'s, three with a single threshold); on a CPU tensor it is
+    ``run_cc_components_plain``.
 
     :param sorted_runs: also build the component-sorted run tables that
         only the device rect path reads (the host-rect path skips their
@@ -240,90 +594,19 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
         kept runs ordered by (component id, linear start), padding slots
         with len 0 and component -1 at the end.
     """
-    geo = _prepare(px_runs, run_counts, w=w)
-    t, r = geo['rows'].shape
-    dev = px_runs.device
-    iota = torch.arange(r, dtype=_I32, device=dev).expand(t, r).contiguous()
-    prop = _make_prop()
-    if double_threshold:
-        # both connectivities' windows in one searchsorted pair; the 8-conn
-        # windows are remapped onto the compacted table below
-        win4, win8o = run_windows_multi(geo, dilates=(0, 1))
-        link4 = chain_mask(geo, win4)
-        init = torch.where(geo['rmark'], iota, iota + r)
-        lab4, steps4 = prop(init, win4, link4, max_iters=max_iters)
-        keep = geo['valid'] & (lab4 < r)
+    return _components(px_runs, run_counts, w, double_threshold, max_iters,
+                       sorted_runs, prepare_runs, compact_kept_runs,
+                       finish_components)
 
-        # stable compaction: surviving runs first, raster order preserved
-        ckey = torch.where(keep, iota, iota + r)
-        c_orig = torch.sort(ckey, dim=1, stable=True).indices
-        c_rows, c_xs, c_xe, c_len = (torch.gather(geo[k], 1, c_orig)
-                                     for k in ('rows', 'xs', 'xe', 'lens'))
-        keep_i = keep.to(_I32)
-        n_kept = keep_i.sum(dim=1, dtype=_I32)
-        c_valid = iota < n_kept[:, None]
 
-        # window remap: compaction is a stable subset, so kept runs with
-        # original index in [lo, hi] occupy the compacted range
-        # [#kept strictly before lo, #kept through hi - 1]
-        kc = torch.cumsum(keep_i, dim=1, dtype=_I32)
-        before = kc - keep_i
-        g = {k: torch.gather(win8o[k], 1, c_orig)
-             for k in ('lo_up', 'hi_up', 'lo_dn', 'hi_dn', 'ok_up', 'ok_dn')}
-
-        def remap(lo, hi):
-            lo2 = torch.gather(before, 1, lo.clamp(0, r - 1).long())
-            hi2 = torch.gather(kc, 1, hi.clamp(0, r - 1).long()) - 1
-            return lo2, hi2
-
-        lo_up, hi_up = remap(g['lo_up'], g['hi_up'])
-        lo_dn, hi_dn = remap(g['lo_dn'], g['hi_dn'])
-        win8 = {'lo_up': lo_up, 'hi_up': hi_up,
-                'ok_up': c_valid & g['ok_up'] & (lo_up <= hi_up),
-                'lo_dn': lo_dn, 'hi_dn': hi_dn,
-                'ok_dn': c_valid & g['ok_dn'] & (lo_dn <= hi_dn)}
-        geo8 = {'rows': c_rows, 'xs': c_xs, 'xe': c_xe, 'valid': c_valid,
-                'key_m': geo['key_m']}
-    else:
-        # valid runs are a prefix, so the compaction is the identity
-        c_rows, c_xs = geo['rows'], geo['xs']
-        c_len, c_orig = geo['lens'], iota.long()
-        c_valid = geo['valid']
-        geo8 = geo
-        win8 = run_windows(geo8, dilate=1)
-        steps4 = None
-    link8 = chain_mask(geo8, win8)
-    lab8, steps8 = prop(iota, win8, link8, max_iters=max_iters)
-
-    # component ids: ascending rank of roots in raster order (root = run of
-    # minimum index = the component's topmost-leftmost run)
-    roots = (c_valid & (lab8 == iota)).to(_I32)
-    rank = torch.cumsum(roots, dim=1, dtype=_I32) - 1
-    n_components = roots.sum(dim=1, dtype=_I32)
-    asc = torch.gather(rank, 1, lab8.clamp(0, r - 1).long())
-    comp_c = torch.where(c_valid, asc, torch.full_like(asc, -1))
-
-    # map ids back to original wire-run order (c_orig is a permutation of
-    # each row, so the scatter writes every slot exactly once)
-    run_comp = torch.empty_like(comp_c).scatter_(1, c_orig, comp_c)
-    n_px = torch.where(c_valid, c_len, torch.zeros_like(c_len)).sum(
-        dim=1, dtype=_I32)
-    cc_steps = steps8 if steps4 is None else torch.maximum(steps4, steps8)
-    out = {'run_comp': run_comp, 'n_components': n_components,
-           'n_px': n_px, 'cc_steps': cc_steps}
-    if sorted_runs:
-        # components contiguous, linear start ascending within: one stable
-        # sort of the combined key (component rank, start < 2^26); the JAX
-        # version sorts by the two keys
-        c_start = c_xs + c_rows * w
-        skey = torch.where(c_valid, asc, torch.full_like(asc, 1 << 30))
-        order = torch.sort(skey.long() * (1 << 26) + c_start, dim=1,
-                           stable=True).indices
-        c_len_v = torch.where(c_valid, c_len, torch.zeros_like(c_len))
-        out.update(s_start=torch.gather(c_start, 1, order),
-                   s_len=torch.gather(c_len_v, 1, order),
-                   s_comp=torch.gather(comp_c, 1, order))
-    return out
+def run_cc_components_plain(px_runs, run_counts, *, w, double_threshold,
+                            max_iters=64, sorted_runs=False):
+    """Plain version of ``run_cc_components``: the plain steps around the
+    propagation wrapper (the kernel on a CUDA tensor, whose labels the
+    plain propagation gives at its fixpoint)."""
+    return _components(px_runs, run_counts, w, double_threshold, max_iters,
+                       sorted_runs, prepare_runs_plain,
+                       compact_kept_runs_plain, finish_components_plain)
 
 
 def det_px_from_runs(px_runs, run_counts, comp_rev_run, *, f, max_det):

@@ -101,11 +101,12 @@ def detect_from_masks(gray, mask, markers, *, max_det, max_bh, cc_iters,
     """
     if markers is not None:
         mask = cc.binary_reconstruct(mask, markers, max_iters=cc_iters)
-    labels8 = cc.label_components_whole_frame(mask, connectivity=8,
-                                              max_iters=cc_iters)
+    # the compaction reads the mask as the labeling packed it
+    labels8, bits = cc.label_components_whole_frame(
+        mask, connectivity=8, max_iters=cc_iters, return_bits=True)
     *rows, n_components = lb.compact_row_tables(labels8, mask,
                                                 max_det=max_det,
-                                                max_bh=max_bh)
+                                                max_bh=max_bh, fg_bits=bits)
     tables = lb._stats_tail_from_tables(*rows, max_bh=max_bh)
     return detections_from_tables(
         tables, mask.shape[0], max_det=max_det, max_bh=max_bh,
