@@ -39,12 +39,14 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    of 1228x922, 3000 rods, seed 125; bench.py ``measure_dense_e2e``) in
    memory through the stage-1 loop (stage split), then written as MJPG
    through ``track_bacteria(path)``: every kernel launched (the GSFF
-   and frame-step kernels once per frame step, as the assign kernel),
-   the track count
+   and frame-step kernels once per frame step, as the assign kernel;
+   every detect batch's row tables written by run-CC's finish, as often
+   as the hull ran), the track count
    within 2899 +- 10, no dropped registration, id agreement against
    ``bench_data/dense_clip_list.csv.gz`` printed;
 8. ``cuda`` against ``cpu`` on the dense scene's first batch (64 frames)
-   at dense capacities: TRACK_ID and POSITION_T identical, the other
+   at dense capacities: run-CC through its kernels, the batch's row
+   tables from its finish; TRACK_ID and POSITION_T identical, the other
    columns within the stated tolerance;
 9. the frames-mode kernels (whole-frame labeling, 4- and 8-connected, and
    the marker reconstruction) against their plain PyTorch versions on the
@@ -96,8 +98,8 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    card, the host rects and the float64 tracker: in memory (stage split),
    then the MJPG dense clip through ``track_bacteria(path)``, whose rows
    must be those of ``bench_data/dense_clip_list.csv.gz`` (378,751 rows,
-   2899 tracks), with the run-CC kernel launched and the device rects'
-   and tracker's kernels not;
+   2899 tracks), with the run-CC kernel launched (its finish without the
+   row tables) and the device rects' and tracker's kernels not;
 18. the user's program: ``python -m ysmr_tpu_torch <bench clip> --serial``
    in a subprocess on ``cuda`` (``bench_settings()`` as a tracking.ini,
    the live display on in a headless environment, plots on), through a
@@ -253,18 +255,23 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 33. run-CC's steps around the propagations (``csrc/run_cc.cu``:
    ``run_cc.prepare_runs``, ``compact_kept_runs``, ``finish_components``)
    against their plain versions on the card, bit for bit on every output,
-   one launch a call: prepare for both thresholds' dilations, compact on
-   the 4-connected labels, finish with and without the compaction and
-   the sorted runs, and ``run_cc_components`` through them against
+   one counted call each: prepare for both thresholds' dilations, compact
+   on the 4-connected labels, finish with and without the compaction, on
+   the propagation's labels and after one step of it, without and with
+   the row tables of the device rects (the path's capacities, one row,
+   ids past max_det), and ``run_cc_components`` through them against
    ``run_cc_components_plain``, on the bench and dense first batches
-   (timed: event span against the plain version, device time by kernel,
-   device operations, the bound: the wire in and the outputs out once),
-   phase 3's random graphs and the seeded cases of ``run_cc_cases.py``
-   (stale padding and a padded frame, a full table, runs at both edges,
-   one row, no and all markers, one and two columns, runs of length 0);
-   each kernel's registers, spills and shared memory. Phases 3, 4, 7,
-   17, 18, 21 and 26 fail unless run-CC ran through these kernels
-   (prepare, compact and finish once a call, the propagation twice).
+   (timed, the dense one with the dense path's row tables: event span
+   against the plain version, device time by kernel, device operations,
+   the bound: the wire in and the outputs out once), phase 3's random
+   graphs and the seeded cases of ``run_cc_cases.py`` (stale padding and
+   a padded frame, a full table, runs at both edges, one row, no and all
+   markers, one and two columns, runs of length 0 and out of raster
+   order); each kernel's registers, spills and shared memory. Phases 3,
+   4, 7, 8, 17, 18, 21 and 26 fail unless run-CC ran through these
+   kernels (prepare, compact and finish once a call, the propagation
+   twice), phases 7 and 8 unless the finish wrote every device-rect
+   batch's row tables, phase 17 if it wrote any.
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (sixteen kernels:
@@ -658,6 +665,20 @@ def run_cc_launches():
 def reset_run_cc():
     for k in (propagate_min_fused,) + RUN_CC:
         k.launches = 0
+    run_cc.finish_components.row_table_launches = 0
+
+
+def row_tables_gate(what, launches, detects):
+    """Raise unless run-CC's finish wrote the row tables of ``detects``
+    device-rect detect batches (its ``row_table_launches``), as often as
+    the hull ran on them."""
+    got = run_cc.finish_components.row_table_launches
+    if got != detects or launches.get('hull_edge_vectors', 0) != detects:
+        raise SystemExit('{}: run-CC wrote the row tables {} times and the '
+                         'hull ran {} times, not once for each of {} device '
+                         'rect batches'.format(
+                             what, got, launches.get('hull_edge_vectors'),
+                             detects))
 
 
 def run_cc_gate(what, launches, double=True):
@@ -870,17 +891,12 @@ def dense_tables(runs, rc, settings, dev):
     cc = run_cc.run_cc_components(
         torch.from_numpy(runs.view(np.int32)).to(dev),
         torch.from_numpy(rc).to(dev), w=W, double_threshold=True,
-        sorted_runs=True)
+        row_tables=dict(h=H, max_det=max_det, max_bh=max_bh))
     n = cc['n_components']
-    comp_rev = torch.where(cc['s_comp'] >= 0,
-                           n[:, None] - 1 - cc['s_comp'],
-                           torch.full_like(cc['s_comp'], -1))
-    tabs = labeling.component_stats_runs(
-        cc['s_start'], cc['s_len'], comp_rev, w=W, h=H, max_det=max_det,
-        max_bh=max_bh, cv2_centers=True)
-    hull_args, sweep_args = rect_inputs(
-        (tabs['row_min_x'], tabs['row_max_x'], tabs['row_valid'],
-         tabs['min_y']), tabs, max_bh)
+    rows = tuple(cc[k] for k in run_cc.TABLE_KEYS)
+    tabs = labeling._stats_tail_from_tables(*rows, max_bh=max_bh,
+                                            cv2_centers=True)
+    hull_args, sweep_args = rect_inputs(rows, tabs, max_bh)
     log('dense batch: T={} components {} of {} slots, rows/component {}, '
         'directions {}, points {}'.format(
             runs.shape[0], int(n.clamp(max=max_det).sum()),
@@ -1137,6 +1153,7 @@ def tracker_gate(what, launches, per):
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+    run_cc.finish_components.row_table_launches = 0
 
 
 def rect_tail_gate(what, launches, cv2_launches):
@@ -1226,6 +1243,7 @@ def phase_dense_path(scene, frames, settings):
     tracker_gate('dense clip', launches, launches['row_min_argmin'])
     rect_tail_gate('dense clip', launches, launches['hull_edge_vectors'])
     run_cc_gate('dense clip', launches)
+    row_tables_gate('dense clip', launches, launches['finish_components'])
     return launches, dense_bytes
 
 
@@ -1267,6 +1285,7 @@ def phase_dense_exact(frames, settings):
                              df.shape[0], tracks, DENSE_ROWS, DENSE_TRACKS))
     hold_to_reference('dense exact mode', df, 'dense_clip_list.csv.gz')
     run_cc_gate('dense exact mode', launches)
+    row_tables_gate('dense exact mode', launches, 0)
     if any(v for k, v in launches.items()
            if k not in ('propagate_min_fused',) + RUN_CC_NAMES):
         raise SystemExit('dense exact mode: the device rects or tracker ran: '
@@ -1282,7 +1301,11 @@ def phase_dense_cuda_vs_cpu(frames, settings):
     """The dense scene's first batch at dense capacities through the
     stage-1 loop on cuda and on cpu."""
     first = frames[:settings['frame batch size']]
+    reset_launches()
     (cres, _, cstats) = run_loop(first, settings, 'cuda', 'dense_cuda')
+    launches = {k.__name__: k.launches for k in KERNELS}
+    run_cc_gate('dense first batch', launches)
+    row_tables_gate('dense first batch', launches, 1)
     t0 = time.perf_counter()
     (pres, _, pstats) = run_loop(first, settings, 'cpu', 'dense_cpu')
     cpu_s = time.perf_counter() - t0
@@ -4339,20 +4362,32 @@ def phase_compaction(frames, settings, dframes, dsettings, dev):
 
 # ---- phase 33: run-CC around the propagations (csrc/run_cc.cu) ----
 
-def run_cc_bytes(runs, sorted_runs):
+def run_cc_bytes(runs, row_tables):
     """The bytes a run-CC call must move: the wire and counts in; run_comp
-    and the three per-frame counts out, with the sorted runs three more
-    (T, R) tables."""
+    and the three per-frame counts out, with the row tables those once
+    (two int32 and a bool table of T max_det max_bh entries, min_y)."""
     t, r = runs.shape
-    return 4 * (t * r + t) + 4 * (t * r + 3 * t) + \
-        (12 * t * r if sorted_runs else 0)
+    tables = 0
+    if row_tables:
+        comps = t * row_tables['max_det']
+        tables = 9 * comps * row_tables['max_bh'] + 4 * comps
+    return 4 * (t * r + t) + 4 * (t * r + 3 * t) + tables
 
 
-def check_run_cc_steps(name, runs, rc, w, dev):
-    """Each launch of ``csrc/run_cc.cu`` against its plain version on the
-    same card tensors, every output bit-equal, one launch a call: prepare
-    for both thresholds' dilations, compact on the 4-connected labels,
-    finish with and without the compaction and the sorted runs."""
+def case_tables(h):
+    """The row tables of the checks on small frames of height ``h``: 8
+    rows, 1 row, and ids past max_det."""
+    return [dict(h=h, max_det=64, max_bh=8), dict(h=h, max_det=64, max_bh=1),
+            dict(h=h, max_det=3, max_bh=8)]
+
+
+def check_run_cc_steps(name, runs, rc, w, dev, tables):
+    """Each call of ``csrc/run_cc.cu``'s wrappers against its plain version
+    on the same card tensors, every output bit-equal, one counted call
+    each: prepare for both thresholds' dilations, compact on the
+    4-connected labels, finish with and without the compaction, after
+    the propagation and after one step of it, without and with each of
+    ``tables``' row tables, and ``run_cc_components`` through them."""
     wire = (torch.from_numpy(runs.view(np.int32)).to(dev),
             torch.from_numpy(rc).to(dev))
 
@@ -4378,22 +4413,27 @@ def check_run_cc_steps(name, runs, rc, w, dev):
     c = run_cc.compact_kept_runs(*wire, lab4, g['wins'][1], w=w)
     checks.append(run_cc.compact_kept_runs.launches == n + 1 and same(
         c, run_cc.compact_kept_runs_plain(*wire, lab4, g['wins'][1], w=w)))
-    lab8, steps8 = propagate_min_fused(c['init'], c['win'], c['link'])
     s1 = run_cc.prepare_runs(*wire, w=w, dilates=(1,))
-    lab1, steps1 = propagate_min_fused(s1['init'], s1['wins'][0],
-                                       s1['link'])
-    for sorted_runs in (False, True):
-        for args in ((lab8, c['c_orig'], c['n_kept'], steps4, steps8),
-                     (lab1, None, None, None, steps1)):
+    inputs = []
+    for graph, c_orig, n_kept, st4 in (
+            ((c['init'], c['win'], c['link']), c['c_orig'], c['n_kept'],
+             steps4),
+            ((s1['init'], s1['wins'][0], s1['link']), None, None, None)):
+        lab, steps = propagate_min_fused(*graph)
+        inputs.append((lab, c_orig, n_kept, st4, steps))
+        # one step: labels that name no root
+        lab, steps = run_cc.propagate_min(*graph, max_iters=1)
+        inputs.append((lab, c_orig, n_kept, st4, steps))
+    for args in inputs:
+        for tab in [None] + list(tables):
             n = run_cc.finish_components.launches
-            got = run_cc.finish_components(*wire, *args, w=w,
-                                           sorted_runs=sorted_runs)
+            got = run_cc.finish_components(*wire, *args, w=w, row_tables=tab)
             checks.append(run_cc.finish_components.launches == n + 1 and
                           same(got, run_cc.finish_components_plain(
-                              *wire, *args, w=w, sorted_runs=sorted_runs)))
+                              *wire, *args, w=w, row_tables=tab)))
     for double in (True, False):
-        for sorted_runs in (False, True):
-            kw = dict(w=w, double_threshold=double, sorted_runs=sorted_runs)
+        for tab in [None] + list(tables):
+            kw = dict(w=w, double_threshold=double, row_tables=tab)
             checks.append(same(run_cc.run_cc_components(*wire, **kw),
                                run_cc.run_cc_components_plain(*wire, **kw)))
     torch.cuda.synchronize()
@@ -4403,12 +4443,12 @@ def check_run_cc_steps(name, runs, rc, w, dev):
     return wire
 
 
-def time_run_cc(name, wire, w, sorted_runs):
+def time_run_cc(name, wire, w, row_tables):
     """``run_cc_components`` through the kernels against its plain
-    version on the card (double threshold): event spans, the device time
-    by kernel and the device span, the bound (the wire in and the outputs
-    out once)."""
-    kw = dict(w=w, double_threshold=True, sorted_runs=sorted_runs)
+    version on the card (double threshold, with ``row_tables`` where the
+    path asks for them): event spans, the device time by kernel and the
+    device span, the bound (the wire in and the outputs out once)."""
+    kw = dict(w=w, double_threshold=True, row_tables=row_tables)
 
     def kernel(*_):
         out = run_cc.run_cc_components(*wire, **kw)
@@ -4420,7 +4460,7 @@ def time_run_cc(name, wire, w, sorted_runs):
 
     check = check_equal('run_cc_components ' + name, kernel, plain, [], 0,
                         reps=20, plain_reps=5,
-                        nbytes=run_cc_bytes(wire[0], sorted_runs))
+                        nbytes=run_cc_bytes(wire[0], row_tables))
     per, span = device_ms(kernel)
     ops = device_ops(kernel)
     log('run-CC {}: device {:.4f} ms in {} operations ({}), event span '
@@ -4452,38 +4492,45 @@ def device_ops(fn):
 
 def phase_run_cc(scene, settings, dscene, dsettings, dev):
     """Phase 33: run-CC's steps around the propagations
-    (``csrc/run_cc.cu``: prepare, compact, finish) against their plain
-    versions on the card, bit for bit on every output: the bench and dense
-    first batches (timed: event span, device time by kernel, the bound),
-    phase 3's random graphs and the seeded cases of ``run_cc_cases.py``
-    (stale padding, a padded frame, a full table, edges, one row, no and
-    all markers, one and two columns, runs of length 0); each kernel's
-    registers, spills and shared memory. Returns the dense batch's
-    check."""
+    (``csrc/run_cc.cu``: prepare, compact, finish with and without the
+    row tables) against their plain versions on the card, bit for bit on
+    every output: the bench and dense first batches (timed, the dense one
+    with the dense path's row tables: event span, device time by kernel,
+    the bound), phase 3's random graphs and the seeded cases of
+    ``run_cc_cases.py`` (stale padding, a padded frame, a full table,
+    edges, one row, no and all markers, one and two columns, runs of
+    length 0 and out of raster order); each kernel's registers, spills
+    and shared memory. Returns the dense batch's check."""
     checks = {}
-    for name, sc, sets, sorted_runs in (
+    for name, sc, sets, dense in (
             ('bench', scene, settings, False),
             ('dense', dscene, dsettings, True)):
         runs, rc = first_batch_runs(sc, sets)
-        wire = check_run_cc_steps(name, runs, rc, W, dev)
+        tables = dict(h=H, max_det=sets['max detections per frame'],
+                      max_bh=sets['max bounding box height'])
+        wire = check_run_cc_steps(name, runs, rc, W, dev,
+                                  [tables] + case_tables(H)[1:])
         checks[name] = time_run_cc('{} T={} R={}{}'.format(
             name, runs.shape[0], runs.shape[1],
-            ' sorted runs' if sorted_runs else ''), wire, W, sorted_runs)
+            ' row tables' if dense else ''), wire, W,
+            tables if dense else None)
     rng = np.random.default_rng(SEED)
     for t, h, w, r, dens in RANDOM_GRAPHS:
         runs, rc = random_runs(rng, t, h, w, r, dens)
-        check_run_cc_steps('random {}x{}'.format(h, w), runs, rc, w, dev)
+        check_run_cc_steps('random {}x{}'.format(h, w), runs, rc, w, dev,
+                           case_tables(h))
     for case in rcc_cases.CASES:
         runs, rc, w = rcc_cases.run_case(case)
-        check_run_cc_steps(case, runs, rc, w, dev)
-    log('run-CC checks: bench, dense, random {}, cases {}: every launch '
-        'bit-equal to its plain version, one launch a call'.format(
+        check_run_cc_steps(case, runs, rc, w, dev, case_tables(1 << 10))
+    log('run-CC checks: bench, dense, random {}, cases {}: every call '
+        'bit-equal to its plain version, the row tables included, one '
+        'counted call each'.format(
             [g[:4] for g in RANDOM_GRAPHS], list(rcc_cases.CASES)))
     lib = _build.load_kernels()
     for kernel, threads in (('keys_kernel', 256), ('prepare_kernelILi2', 256),
                             ('prepare_kernelILi1', 256),
-                            ('compact_kernel', 1024),
-                            ('finish_kernel', 1024)):
+                            ('keep_kernel', 256), ('compact_kernel', 256),
+                            ('roots_kernel', 256), ('ids_kernel', 256)):
         ptx = ptxas_of(lib.build_log, 'run_cc.cu', kernel)
         rec = {'kernel': kernel, 'source': 'run_cc.cu'}
         if ptx is not None:
@@ -4612,11 +4659,13 @@ def main():
         'component_tables (plain XLA)',
         frames_runs['bench']['compact_row_tables'], compact_check))
     # the main path's launches of csrc/run_cc.cu (prepare, compact and
-    # finish each once a batch); the times are the dense batch's call
+    # finish each once a batch); the times are the dense batch's call,
+    # with the row tables
     records.append(kernel_record(
         'run_cc_components', 'ysmr_tpu_torch/csrc/run_cc.cu',
         'ysmr_tpu/ops/run_cc.py:291 run_cc_components outside '
-        'propagate_min (plain XLA)',
+        'propagate_min, and the row tables of ysmr_tpu/ops/labeling.py:520 '
+        'component_stats_runs (plain XLA)',
         sum(launches[k] for k in RUN_CC_NAMES), run_cc_check))
     print(json.dumps({'kernels': records}))
     print(smi)

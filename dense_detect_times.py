@@ -35,24 +35,33 @@ run-CC and the per-run detection index only. Each batch's record holds:
   ``device_ops``, ``device_ms``, ``span_ms`` (host clock, the nested
   windows' spans taken out) and the three longest kernels. The steps are
   the package functions both layouts share: ``run-CC``
-  (``run_cc_components``), ``component_stats_runs`` (the row-table
-  scatters), ``stats tail`` (count and candidate points), ``hull``
+  (``run_cc_components``; since its finish writes the row tables, with
+  them), ``component_stats_runs`` (the row-table scatters over the
+  sorted runs; 0 operations where run-CC writes the tables),
+  ``stats tail`` (count and candidate points), ``hull``
   (``hull_edge_vectors``), ``edge finish`` (the rest of
   ``_hull_edge_data``), ``sweep`` (``sweep_extents``), ``rect select``
   (the rest of ``min_area_rect``), ``cv2 centres``
   (``_cv2_center_override``), ``output`` (the rest of
-  ``detections_from_tables``) and ``detect`` (the rest of the call). The
-  split's outputs are held to the plain call's.
+  ``detections_from_tables``) and ``detect`` (the rest of the call); a
+  step the call does not reach reports 0. The split's outputs are held
+  to the plain call's.
 - ``run_cc``: run-CC by sub-step, from the same passes: each call of the
   propagation wrapper (``ops/run_prop.py::propagate_min_fused``) in a
   window of its own, ``4-conn propagation`` and ``8-conn propagation``
   (a single threshold has only the second), and the run-CC window's
   other device operations by when they start: before the first
   propagation ``prepare`` (decode, windows, links), between the two
-  ``compaction``, after the last ``ids, scatter, sorted runs``; the same
-  for a call of ``run_cc_components`` alone on the batch's wire with
-  ``sorted_runs`` off, whose last sub-step is ``ids and scatter``, so
-  that ``sorted runs`` is the difference of the two.
+  ``compaction``, after the last ``finish`` (ids, scatter, counts and
+  what the dense path asks for: the sorted runs before the finish wrote
+  the row tables, the tables since); ``run_cc_kernels``: the run-CC
+  window's device ms by kernel name (each launch of ``csrc/run_cc.cu``:
+  ``keys_kernel``, ``prepare_kernel``, ``keep_kernel``,
+  ``compact_kernel``, ``roots_kernel``, ``ids_kernel``, and the
+  propagation's); and ``run_cc_alone``, the same sub-steps for a call
+  of ``run_cc_components`` alone on the batch's wire with neither, whose
+  ``finish`` is ids and scatter only, so that the difference is the
+  sorted runs' or the tables' cost.
 
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
@@ -161,13 +170,14 @@ def _run_cc_part(ev_start, props):
     (``props``: that window's propagation windows, in order)."""
     done = sum(1 for p in props if p[2] <= ev_start)
     if len(props) == 2:
-        return ('prepare', 'compaction', 'ids, scatter, sorted runs')[done]
-    return ('prepare', 'ids, scatter, sorted runs')[min(done, 1)]
+        return ('prepare', 'compaction', 'finish')[done]
+    return ('prepare', 'finish')[min(done, 1)]
 
 
 def _split(prof):
     """Per-step device operations, device ms, exclusive span ms and
-    kernels of one profiled pass, and run-CC's by sub-step."""
+    kernels of one profiled pass, run-CC's by sub-step, and the run-CC
+    window's device ms by kernel."""
     cpu = torch.autograd.DeviceType.CPU
     wins = [(e.name[len('step: '):], e.time_range.start, e.time_range.end)
             for e in prof.events() if e.device_type == cpu and
@@ -186,7 +196,7 @@ def _split(prof):
         return {'device_ops': 0, 'device_ms': 0.0, 'span_ms': 0.0,
                 'kernels': Counter()}
 
-    per, sub = {}, {}
+    per, sub, kernels = {}, {}, Counter()
     for w in wins:
         if w[0] == PROP:
             continue
@@ -211,6 +221,8 @@ def _split(prof):
             part = _run_cc_part(start, props)
         else:
             part = None
+        if part is not None:
+            kernels[ev.name] += ms
         for name, table in ((w[0] if w else 'detect', per),
                             (part, sub)):
             if name is None:
@@ -219,15 +231,18 @@ def _split(prof):
             rec['device_ops'] += 1
             rec['device_ms'] += ms
             rec['kernels'][ev.name] += ms
-    return per, sub
+    return per, sub, kernels
 
 
 def _medians(runs, names, keys=('device_ops', 'device_ms', 'span_ms')):
     """Each step's medians over the passes and its last pass's three
-    longest kernels."""
+    longest kernels; 0 for a step no pass reached."""
     out = {}
     for name in names:
         recs = [r.get(name) for r in runs]
+        if all(r is None for r in recs):
+            out[name] = dict({k: 0 for k in keys}, top_kernels={})
+            continue
         if any(r is None for r in recs):
             continue
         out[name] = {k: float(np.median([r[k] for r in recs])) for k in keys}
@@ -239,7 +254,7 @@ def _medians(runs, names, keys=('device_ops', 'device_ms', 'span_ms')):
 
 
 SUB_STEPS = ('prepare', '4-conn propagation', 'compaction',
-             '8-conn propagation', 'ids, scatter, sorted runs')
+             '8-conn propagation', 'finish')
 
 
 def measure(root, passes, batch='dense', dev='cuda'):
@@ -282,16 +297,17 @@ def measure(root, passes, batch='dense', dev='cuda'):
             if not torch.equal(want[key], got[key]):
                 raise SystemExit('the split differs from the call in '
                                  '{}'.format(key))
-        runs, subs = [], []
+        runs, subs, kerns = [], [], []
         for _ in range(passes):
             with profile(activities=acts) as prof:
                 wrapped_call()
-            per, sub = _split(prof)
+            per, sub, kernels = _split(prof)
             runs.append(per)
             subs.append(sub)
-        # run-CC alone on the same wire without the sorted runs
+            kerns.append(kernels)
+        # run-CC alone on the same wire, without the sorted runs or tables
         cc_kw = dict(w=kw['w'], double_threshold=kw['double_threshold'],
-                     max_iters=kw['cc_iters'], sorted_runs=False)
+                     max_iters=kw['cc_iters'])
         rc_eff = kw['run_counts'].to(torch.int32)
         alone = []
         for _ in range(passes):
@@ -305,11 +321,10 @@ def measure(root, passes, batch='dense', dev='cuda'):
     rec['split'] = _medians(runs, ['detect'] + [s[0] for s in STEPS])
     keys = ('device_ops', 'device_ms')
     rec['run_cc'] = _medians(subs, SUB_STEPS, keys)
-    unsorted = _medians(alone, SUB_STEPS, keys)
-    last = unsorted.pop('ids, scatter, sorted runs', None)
-    if last is not None:
-        unsorted['ids and scatter'] = last
-    rec['run_cc_unsorted'] = unsorted
+    rec['run_cc_kernels'] = {
+        k[:60]: round(float(np.median([c.get(k, 0.0) for c in kerns])), 4)
+        for k in sorted(set().union(*kerns))}
+    rec['run_cc_alone'] = _medians(alone, SUB_STEPS, keys)
     return rec
 
 

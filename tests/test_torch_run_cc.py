@@ -8,6 +8,7 @@ and every propagation must report convergence (before the fixpoint the
 labels depend on the schedule).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,8 +17,10 @@ from scipy import ndimage
 from test_run_cc import _encode, _partitions_equal
 from test_runs_wire import _random_wire
 from ysmr_tpu import native as jnative
+from ysmr_tpu.ops import labeling as jlb
 from ysmr_tpu.ops import run_cc as jrcc
 from ysmr_tpu.ops.pallas_run_prop import propagate_min_fused as jfused
+from ysmr_tpu_torch.ops import labeling as lb
 from ysmr_tpu_torch.ops import run_cc as trcc
 from ysmr_tpu_torch.ops.run_prop import propagate_min_fused
 
@@ -518,6 +521,7 @@ def test_keep_marked_runs_kernel_matches_cpu_on_cuda():
 import run_cc_cases  # noqa: E402
 
 BIG28 = 1 << 28
+BIG_I = 1 << 30
 M26 = 0x03FFFFFF
 PREPARE_CASES = (((0, 1), True), ((1,), False), ((0,), True), ((0,), False))
 
@@ -667,8 +671,10 @@ def _emulate_prepare(runs, counts, w, dilates, weak, nt=256):
     return ends, oks, link, init, valid
 
 
-def _words(flags):
-    """One bit a run in 32-run words, and each word's count before it."""
+def _tile_words(flags, tile):
+    """The bits launches' output for one frame: a bit a slot in 32-slot
+    words, each word's bits and the set bits of its tile before it, and
+    each tile's count (``tile`` slots a tile)."""
     r = len(flags)
     nw = (r + 31) // 32
     pad = np.zeros(nw * 32, bool)
@@ -676,25 +682,81 @@ def _words(flags):
     bits = (pad.reshape(nw, 32).astype(np.uint64) <<
             np.arange(32, dtype=np.uint64)).sum(1)
     cnt = _popc(bits)
-    return bits, np.concatenate([[0], np.cumsum(cnt)[:-1]]), int(cnt.sum())
+    per = tile // 32
+    lpre = np.zeros(nw, np.int64)
+    tcnt = np.zeros(-(-r // tile), np.int64)
+    for k in range(len(tcnt)):
+        seg = cnt[k * per:(k + 1) * per]
+        lpre[k * per:(k + 1) * per] = np.cumsum(seg) - seg
+        tcnt[k] = seg.sum()
+    return bits, lpre, tcnt
 
 
-def _before(bits, pre, j):
-    below = (np.uint64(1) << (np.asarray(j) & 31).astype(np.uint64)) - \
-        np.uint64(1)
-    return pre[j >> 5] + _popc(bits[j >> 5] & below)
+class _Frame:
+    """A second launch's view of a frame's bits: the tile counts scanned
+    (shared memory), a slot's count before it and through it from one
+    word, and the k-th set bit by two binary searches."""
+
+    def __init__(self, bits, lpre, tcnt, tile):
+        self.bits, self.lpre, self.tile = bits, lpre, tile
+        self.tpre = np.cumsum(tcnt) - tcnt
+        self.total = int(tcnt.sum())
+
+    def before(self, j):
+        j = np.asarray(j, np.int64)
+        below = (np.uint64(1) << (j & 31).astype(np.uint64)) - np.uint64(1)
+        return self.tpre[j // self.tile] + self.lpre[j >> 5] + \
+            _popc(self.bits[j >> 5] & below)
+
+    def bit(self, j):
+        j = np.asarray(j, np.int64)
+        return ((self.bits[j >> 5] >> (j & 31).astype(np.uint64)) &
+                np.uint64(1)).astype(bool)
+
+    def through(self, j):
+        return self.before(j) + self.bit(j)
+
+    def select(self, k):
+        lo, hi = 0, len(self.tpre) - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            if self.tpre[mid] <= k:
+                lo = mid
+            else:
+                hi = mid - 1
+        rest = k - int(self.tpre[lo])
+        per = self.tile // 32
+        a, b = lo * per, min(len(self.bits), lo * per + per) - 1
+        while a < b:
+            mid = (a + b + 1) >> 1
+            if self.lpre[mid] <= rest:
+                a = mid
+            else:
+                b = mid - 1
+        m = int(self.bits[a])
+        for _ in range(rest - int(self.lpre[a])):
+            m &= m - 1
+        return a * 32 + (m & -m).bit_length() - 1
 
 
-def _through(bits, pre, j):
-    return _before(bits, pre, j) + \
-        ((bits[j >> 5] >> (np.asarray(j) & 31).astype(np.uint64)) &
-         np.uint64(1)).astype(np.int64)
+def _slots(r, tile, threads):
+    """Each tile's slots in the launches' order: thread-major chunks of
+    ``threads`` (a thread's slots u * threads + thread)."""
+    for t0 in range(0, r, tile):
+        for u in range(tile // threads):
+            for th in range(threads):
+                j = t0 + u * threads + th
+                if j < r:
+                    yield t0 // tile, j
 
 
-def _emulate_compact(runs, counts, w, lab4, win8o):
-    """The compact launch, frame by frame: keep bits and word counts, each
-    wire run's compacted slot, its window remapped through the counts and
-    its link to the next kept run, found by scanning the words."""
+def _emulate_compact(runs, counts, w, lab4, win8o, tile=1024, threads=256):
+    """The compact launches, frame by frame: the keep bits in tile words
+    and counts; then, a tile at a time, each wire run's compacted slot,
+    its window remapped through the counts and, once the tile's kept runs
+    are placed, its link to the next kept run (the rest of its word, the
+    next word or a search of the counts; the tile's own runs' windows as
+    placed, a run past the tile's remapped anew)."""
     t, r = runs.shape
     out = {'init': np.tile(np.arange(r), (t, 1)),
            'ends': np.zeros((4, t, r), np.int64),
@@ -706,160 +768,172 @@ def _emulate_compact(runs, counts, w, lab4, win8o):
     for f in range(t):
         words = runs[f].view(np.int32)
         geo = _decode(words, idx, counts[f], w)
-        keep = geo['valid'] & (lab4[f] < r)
-        bits, pre, kept = _words(keep)
-        before = _before(bits, pre, idx)
-        p = np.where(keep, before, kept + idx - before)
-        out['c_orig'][f, p] = idx
-        out['n_kept'][f] = kept
+        fr = _Frame(*_tile_words(geo['valid'] & (lab4[f] < r), tile), tile)
+        kept = fr.total
 
         def remap(j, c_valid):
-            e = [np.clip(win8o[k][f, j], 0, r - 1)
+            e = [int(np.clip(win8o[k][f, j], 0, r - 1))
                  for k in ('lo_up', 'hi_up', 'lo_dn', 'hi_dn')]
-            lo_up, lo_dn = _before(bits, pre, e[0]), _before(bits, pre, e[2])
-            hi_up = _through(bits, pre, e[1]) - 1
-            hi_dn = _through(bits, pre, e[3]) - 1
+            lo_up, lo_dn = int(fr.before(e[0])), int(fr.before(e[2]))
+            hi_up = int(fr.through(e[1])) - 1
+            hi_dn = int(fr.through(e[3])) - 1
             return (lo_up, hi_up, lo_dn, hi_dn,
-                    c_valid & win8o['ok_up'][f, j] & (lo_up <= hi_up),
-                    c_valid & win8o['ok_dn'][f, j] & (lo_dn <= hi_dn))
+                    c_valid and bool(win8o['ok_up'][f, j]) and
+                    lo_up <= hi_up,
+                    c_valid and bool(win8o['ok_dn'][f, j]) and
+                    lo_dn <= hi_dn)
 
-        o = remap(idx, p < kept)
-        out['ends'][:, f, p] = o[:4]
-        out['oks'][:, f, p] = o[4:]
-        for j in np.nonzero(keep)[0].tolist():
-            if p[j] + 1 >= kept:
-                continue
-            wd = j >> 5
-            rest = int(bits[wd]) & ~((2 << (j & 31)) - 1) & 0xFFFFFFFF
-            while not rest:
-                wd += 1
-                rest = int(bits[wd])
-            j2 = wd * 32 + (rest & -rest).bit_length() - 1
-            o2 = remap(np.array([j2]), True)
-            same = geo['row'][j2] == geo['row'][j]
-            out['link'][f, p[j]] = same and (
-                geo['xs'][j2] == geo['xe'][j] + 1 or
-                (o[4][j] and o2[4][0] and o[1][j] >= o2[0][0]) or
-                (o[5][j] and o2[5][0] and o[3][j] >= o2[2][0]))
+        placed = {}
+        order = list(_slots(r, tile, threads))
+        for k0 in range(0, len(order), tile):
+            block = order[k0:k0 + tile]
+            shared = {}
+            for _, j in block:
+                keep = bool(fr.bit(j))
+                before = int(fr.before(j))
+                p = before if keep else kept + j - before
+                placed[j] = p
+                out['c_orig'][f, p] = j
+                o = remap(j, keep)
+                out['ends'][:, f, p] = o[:4]
+                out['oks'][:, f, p] = o[4:]
+                if keep:
+                    shared[j] = o
+            for tl, j in block:
+                p = placed[j]
+                if not fr.bit(j) or p + 1 >= kept:
+                    out['link'][f, p] = False
+                    continue
+                rest = int(fr.bits[j >> 5]) & ~((2 << (j & 31)) - 1) & \
+                    0xFFFFFFFF
+                if rest:
+                    j2 = (j & ~31) + (rest & -rest).bit_length() - 1
+                else:
+                    wd = (j >> 5) + 1
+                    m = int(fr.bits[wd]) if wd < len(fr.bits) else 0
+                    j2 = wd * 32 + (m & -m).bit_length() - 1 if m else \
+                        fr.select(p + 1)
+                o, o2 = shared[j], shared.get(j2)
+                if o2 is None:
+                    assert j2 >= (tl + 1) * tile
+                    o2 = remap(j2, True)
+                same = geo['row'][j2] == geo['row'][j]
+                out['link'][f, p] = same and (
+                    geo['xs'][j2] == geo['xe'][j] + 1 or
+                    (o[4] and o2[4] and o[1] >= o2[0]) or
+                    (o[5] and o2[5] and o[3] >= o2[2]))
+        out['n_kept'][f] = kept
     return out
 
 
-def _radix(keys, pay, shift, nt):
-    """One stable 4-bit pass: threads count and place contiguous chunks
-    of ``pay`` in order, offsets digit-major."""
-    r = len(pay)
-    per = -(-r // nt)
-    digit = (keys[pay] >> shift) & 15
-    cnt = np.zeros((16, nt), np.int64)
-    for k in range(nt):
-        for e in range(min(r, k * per), min(r, (k + 1) * per)):
-            cnt[digit[e], k] += 1
-    off = (np.cumsum(cnt.reshape(-1)) - cnt.reshape(-1)).reshape(16, nt)
-    out = np.empty_like(pay)
-    for k in range(nt):
-        for e in range(min(r, k * per), min(r, (k + 1) * per)):
-            out[off[digit[e], k]] = pay[e]
-            off[digit[e], k] += 1
-    return out
+#: a root row the roots launch never wrote (the scratch's garbage)
+_UNWRITTEN = -(1 << 20)
 
 
-def _emulate_finish(runs, counts, w, lab8, c_orig, n_kept, sorted_runs,
-                    nt=1024, max_segs=32, room=None):
-    """The finish launch, frame by frame: root bits and word counts, each
-    slot's rank at its clamped label, the scatter to wire order and the
-    pixel count; the sort: the valid slots split into as many segments
-    (up to 32) as count tables fit in ``room`` words (a table of n_comp +
-    2 a segment and one of the groups' totals), each segment's first
-    place in each group, then a warp a segment placing its slots 32 at a
-    time in slot order; the padding's starts cut into non-decreasing
-    segments and merged by rank (more than ``max_segs``: 4-bit radix
-    passes); where the valid slots are no prefix or their starts
-    decrease, radix passes by start, then by group, of every slot."""
+def _emulate_finish(runs, counts, w, lab8, c_orig, n_kept, tables=None,
+                    tile=1024, threads=256):
+    """The finish launches, frame by frame. Roots: root bits in tile
+    words and counts, each root's row, and the frame's flag (a valid wire
+    run after an invalid slot or a later row, a label past its slot).
+    Ids: each slot's rank at its clamped label, the scatter to wire order
+    and the pixel count; with ``tables`` (h, max_det, max_bh), for an id
+    below max_det, the x extremes at the row less the root's row (the
+    root at the label, else the rank's root by a search), merged within
+    a warp's 32 slots into the last lane of each stretch of one entry,
+    the root's row as min_y; in a flagged frame the components' least
+    rows first, then a run's updates against them. (The tables' fill,
+    a frame ahead of its updates, changes no bit.)"""
     t, r = runs.shape
     idx = np.arange(r)
     out = {'run_comp': np.zeros((t, r), np.int64),
            'n_components': np.zeros(t, np.int64),
            'n_px': np.zeros(t, np.int64)}
-    if sorted_runs:
-        for k in ('s_start', 's_len', 's_comp'):
-            out[k] = np.zeros((t, r), np.int64)
+    if tables is not None:
+        _, max_det, max_bh = tables
+        out.update(row_min_x=np.full((t, max_det, max_bh), BIG_I, np.int64),
+                   row_max_x=np.full((t, max_det, max_bh), -BIG_I, np.int64),
+                   row_valid=np.zeros((t, max_det, max_bh), bool),
+                   min_y=np.full((t, max_det), BIG_I, np.int64))
     for f in range(t):
         words = runs[f].view(np.int32)
+        wire = _decode(words, idx, counts[f], w)
         orig = idx if c_orig is None else c_orig[f]
-        geo = _decode(words[orig], idx, counts[f], w)
+        geo = _decode(words[orig], orig, counts[f], w)
         valid = geo['valid'] if c_orig is None else idx < n_kept[f]
-        bits, pre, n_comp = _words(valid & (lab8[f] == idx))
-        asc = _through(bits, pre, np.clip(lab8[f], 0, r - 1)) - 1
-        out['run_comp'][f, orig] = np.where(valid, asc, -1)
-        lens = np.where(valid, geo['lens'], 0)
-        out['n_px'][f] = lens.sum()
+        lab = lab8[f]
+        roots = valid & (lab == idx)
+        prev_ok = np.concatenate([[True], wire['valid'][:-1]])
+        prev_row = np.concatenate([[0], wire['row'][:-1]])
+        flag = bool((wire['valid'] & (idx > 0) &
+                     (~prev_ok | (prev_row > wire['row']))).any() or
+                    (valid & (lab > idx)).any())
+        root_row = np.full(r, _UNWRITTEN, np.int64)
+        root_row[roots] = geo['row'][roots]
+        fr = _Frame(*_tile_words(roots, tile), tile)
+        n_comp = fr.total
+        labc = np.clip(lab, 0, r - 1)
+        asc = fr.through(labc) - 1
+        at_root = fr.bit(labc)
+        for _, p in _slots(r, tile, threads):
+            out['run_comp'][f, orig[p]] = asc[p] if valid[p] else -1
+        out['n_px'][f] = np.where(valid, geo['lens'], 0).sum()
         out['n_components'][f] = n_comp
-        if not sorted_runs:
+        if tables is None:
             continue
-        grp = np.where(valid, asc + 1, n_comp + 1)
-        start = geo['start']
-        bound = int(n_kept[f]) if c_orig is not None else \
-            min(int(counts[f]), r)
-        stride = n_comp + 2
-        nseg = 32
-        while nseg > 1 and (nseg + 1) * stride > (room or 2 * r + 4):
-            nseg //= 2
-        seg_len = max(1, -(-bound // nseg))
-        table = np.zeros((nseg, stride), np.int64)
-        for p in np.nonzero(valid)[0]:
-            table[p // seg_len, grp[p]] += 1
-        tot = table.sum(0)
-        n_valid = int(tot.sum())
-        first = np.concatenate([[0], np.cumsum(tot)[:-1]])
-        table = first + np.cumsum(table, 0) - table
-        s_start = np.zeros(r, np.int64)
-        s_len = np.zeros(r, np.int64)
-        s_comp = np.full(r, -1, np.int64)
-        ordered = n_valid == bound and \
-            not (start[1:bound] < start[:max(bound - 1, 0)]).any()
-        if ordered:
-            for seg in range(nseg):
-                lo, hi = seg * seg_len, min(bound, (seg + 1) * seg_len)
-                for p0 in range(lo, hi, 32):
-                    groups = {}
-                    for p in range(p0, min(hi, p0 + 32)):
-                        groups.setdefault(grp[p], []).append(p)
-                    for g, members in groups.items():
-                        base = table[seg, g]
-                        table[seg, g] += len(members)
-                        for j, p in enumerate(members):
-                            s_start[base + j] = start[p]
-                            s_len[base + j] = lens[p]
-                            s_comp[base + j] = g - 1
-            pad = start[n_valid:]
-            cut = [k for k in range(len(pad))
-                   if k == 0 or pad[k] < pad[k - 1]]
-            if len(cut) <= max_segs:
-                ends = cut[1:] + [len(pad)]
-                for k, v in enumerate(pad):
-                    own = max(i for i, s0 in enumerate(cut) if s0 <= k)
-                    at = n_valid + k - cut[own]
-                    for b, (lo, hi) in enumerate(zip(cut, ends)):
-                        if b != own:
-                            seg = pad[lo:hi]
-                            at += int((seg <= v).sum() if b < own
-                                      else (seg < v).sum())
-                    s_start[at] = v
-            else:
-                pay = np.arange(len(pad))
-                for shift in range(0, 26, 4):
-                    pay = _radix(pad, pay, shift, nt)
-                s_start[n_valid:] = pad[pay]
-        else:
-            pay = idx.copy()
-            for shift in range(0, 26, 4):
-                pay = _radix(start, pay, shift, nt)
-            for shift in range(0, int(n_comp + 1).bit_length(), 4):
-                pay = _radix(grp, pay, shift, nt)
-            s_start, s_len = start[pay], lens[pay]
-            s_comp = np.where(grp[pay] <= n_comp, grp[pay] - 1, -1)
-        out['s_start'][f], out['s_len'][f] = s_start, s_len
-        out['s_comp'][f] = s_comp
+
+        def entry(p, y0):
+            i = n_comp - 1 - asc[p]
+            return i * max_bh + min(max(geo['row'][p] - y0, 0), max_bh - 1)
+
+        def update(e, lo, hi):
+            i, rel = divmod(e, max_bh)
+            out['row_min_x'][f, i, rel] = min(out['row_min_x'][f, i, rel], lo)
+            out['row_max_x'][f, i, rel] = max(out['row_max_x'][f, i, rel], hi)
+            out['row_valid'][f, i, rel] = True
+
+        order = [p for _, p in _slots(r, tile, threads)]
+        live = [p for p in order if valid[p] and asc[p] >= 0 and
+                n_comp - 1 - asc[p] < max_det]
+        if flag:
+            for p in live:
+                i = n_comp - 1 - asc[p]
+                out['min_y'][f, i] = min(out['min_y'][f, i], geo['row'][p])
+            for p in live:
+                update(entry(p, out['min_y'][f, n_comp - 1 - asc[p]]),
+                       geo['xs'][p], geo['xe'][p])
+            continue
+        live = set(live)
+        for w0 in range(0, len(order), 32):
+            # a warp's 32 slots: each run's entry, merged into the lanes
+            # after it with its entry, one update a stretch's last lane
+            lanes = order[w0:w0 + 32]
+            ent = []
+            for p in lanes:
+                e = -1
+                if p in live:
+                    y0 = root_row[labc[p]] if at_root[p] else \
+                        root_row[fr.select(int(asc[p]))]
+                    assert y0 != _UNWRITTEN
+                    e = entry(p, y0)
+                    if at_root[p] and labc[p] == p:
+                        out['min_y'][f, n_comp - 1 - asc[p]] = geo['row'][p]
+                ent.append(e)
+            lo = [geo['xs'][p] for p in lanes]
+            hi = [geo['xe'][p] for p in lanes]
+            for o in (1, 2, 4, 8, 16):
+                same = [k >= o and ent[k - o] == ent[k]
+                        for k in range(len(lanes))]
+                lo = [min(v, lo[k - o]) if same[k] else v
+                      for k, v in enumerate(lo)]
+                hi = [max(v, hi[k - o]) if same[k] else v
+                      for k, v in enumerate(hi)]
+            for k, e in enumerate(ent):
+                if e >= 0 and (k + 1 == len(ent) or ent[k + 1] != e):
+                    update(e, lo[k], hi[k])
+    if tables is not None:
+        for k in ('row_min_x', 'row_max_x', 'row_valid'):
+            out[k] = out[k].reshape(t * max_det, max_bh)
+        out['min_y'] = out['min_y'].reshape(-1)
     return out
 
 
@@ -892,11 +966,18 @@ def test_prepare_design_matches_plain(case):
         np.testing.assert_array_equal(valid, _np(want['valid']))
 
 
+#: tile sizes of the design tests: the kernels' (1024 slots, 256
+#: threads) and small tiles, so that the cases' frames span many tiles
+TILES = ((1024, 256), (64, 16))
+
+
+@pytest.mark.parametrize('tile', TILES)
 @pytest.mark.parametrize('case', run_cc_cases.CASES)
-def test_compact_design_matches_plain(case):
-    """The compact launch's design (keep bits and word counts, the slot of
-    each wire run, windows remapped through the counts, the link to the
-    next kept run) gives the plain compaction."""
+def test_compact_design_matches_plain(case, tile):
+    """The compact launches' design (keep bits in tile words and counts,
+    the scanned tile counts, the slot of each wire run, windows remapped
+    through the counts, the link to the next kept run from the tile's
+    placed runs or anew) gives the plain compaction."""
     runs, counts, w, truns, tcounts = _case_wire(case)
     g = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=(0, 1),
                                 weak_init=True)
@@ -905,7 +986,8 @@ def test_compact_design_matches_plain(case):
     want = trcc.compact_kept_runs_plain(truns, tcounts, lab4, g['wins'][1],
                                         w=w)
     got = _emulate_compact(runs, counts, w, _np(lab4),
-                           {k: _np(v) for k, v in g['wins'][1].items()})
+                           {k: _np(v) for k, v in g['wins'][1].items()},
+                           *tile)
     for j, key in enumerate(('lo_up', 'hi_up', 'lo_dn', 'hi_dn')):
         np.testing.assert_array_equal(got['ends'][j], _np(want['win'][key]))
     for j, key in enumerate(('ok_up', 'ok_dn')):
@@ -914,17 +996,20 @@ def test_compact_design_matches_plain(case):
         np.testing.assert_array_equal(got[key], _np(want[key]), err_msg=key)
 
 
-@pytest.mark.parametrize('nt', [1024, 7])
-@pytest.mark.parametrize('case', run_cc_cases.CASES)
-def test_finish_design_matches_plain(case, nt):
-    """The finish launch's design (root bits and counts, the scatter; the
-    sort: the segments' places in each group, a warp's pass a segment in
-    slot order, the padding's segments merged by rank, the 4-bit radix
-    passes over thread chunks where the starts are out of order or the
-    segments many) gives the plain ids, counts and sorted runs, after the
-    compaction and on the wire's table, with the kernel's 1024 threads and
-    with 7 (many chunks), with up to 32 segments and with one, and with
-    every padding sorted by the radix passes."""
+def _case_height(runs, counts, w):
+    """A frame height the case's valid runs lie in (the row tables'
+    ``h``): one past their greatest row."""
+    t, r = runs.shape
+    geo = _decode(runs.view(np.int32), np.arange(r)[None, :],
+                  counts[:, None], w)
+    return int(geo['row'][geo['valid']].max(initial=0)) + 1
+
+
+def _finish_inputs(case):
+    """The finish's inputs of a case: the double threshold's (8-connected
+    labels over the compaction) and the single threshold's, each with the
+    propagation's labels converged, after one step (labels that name no
+    root), and random labels (some past their slot)."""
     runs, counts, w, truns, tcounts = _case_wire(case)
     g = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=(0, 1),
                                 weak_init=True)
@@ -932,29 +1017,129 @@ def test_finish_design_matches_plain(case, nt):
                                       max_iters=256)
     c = trcc.compact_kept_runs_plain(truns, tcounts, lab4, g['wins'][1],
                                      w=w)
-    lab8, steps8 = trcc.propagate_min(c['init'], c['win'], c['link'],
-                                      max_iters=256)
     s = trcc.prepare_runs_plain(truns, tcounts, w=w, dilates=(1,))
-    lab1, steps1 = trcc.propagate_min(s['init'], s['wins'][0], s['link'],
-                                      max_iters=256)
-    for lab, c_orig, n_kept, st4, st8 in (
-            (lab8, c['c_orig'], c['n_kept'], steps4, steps8),
-            (lab1, None, None, None, steps1)):
-        for sorted_runs in (False, True):
+    rng = np.random.default_rng(5)
+    out = []
+    for init, win, link, c_orig, n_kept, st4 in (
+            (c['init'], c['win'], c['link'], c['c_orig'], c['n_kept'],
+             steps4),
+            (s['init'], s['wins'][0], s['link'], None, None, None)):
+        for iters in (256, 1, None):
+            if iters is None:
+                lab = torch.from_numpy(rng.integers(
+                    -2, runs.shape[1] + 2, runs.shape).astype(np.int32))
+                steps = torch.zeros(runs.shape[0], dtype=torch.int32)
+            else:
+                lab, steps = trcc.propagate_min(init, win, link,
+                                                max_iters=iters)
+            out.append((lab, c_orig, n_kept, st4, steps))
+    return runs, counts, w, truns, tcounts, out
+
+
+#: the row tables' capacities of the design tests: (max_det, max_bh), ids
+#: past max_det dropped where max_det is 3
+TABLE_SIZES = ((64, 8), (64, 1), (3, 8))
+
+
+@pytest.mark.parametrize('tile', TILES)
+@pytest.mark.parametrize('case', run_cc_cases.CASES)
+def test_finish_design_matches_plain(case, tile):
+    """The finish launches' design (root bits in tile words and counts,
+    the roots' rows and the frame's flag; the scanned tile counts, each
+    slot's rank at its label, the scatter; the row tables' updates at the
+    row less the root's row, or the components' least rows first in a
+    flagged frame) gives the plain ids, counts and row tables (the sorted
+    runs through ``labeling.run_row_tables``), after the compaction and
+    on the wire's table, with converged, one-step and random labels, with
+    a table of 8 rows and of 1 and with ids past max_det."""
+    runs, counts, w, truns, tcounts, inputs = _finish_inputs(case)
+    h = _case_height(runs, counts, w)
+    for lab, c_orig, n_kept, st4, st8 in inputs:
+        args = (None if c_orig is None else _np(c_orig),
+                None if n_kept is None else _np(n_kept))
+        for sizes in (None,) + TABLE_SIZES:
+            tables = None if sizes is None else \
+                dict(h=h, max_det=sizes[0], max_bh=sizes[1])
             want = trcc.finish_components_plain(
                 truns, tcounts, lab, c_orig, n_kept, st4, st8, w=w,
-                sorted_runs=sorted_runs)
-            # the kernel's segment cap and tables in shared memory; every
-            # padding by the radix passes and one segment
-            for max_segs, room in ((32, None), (0, 1)):
-                got = _emulate_finish(
-                    runs, counts, w, _np(lab),
-                    None if c_orig is None else _np(c_orig),
-                    None if n_kept is None else _np(n_kept), sorted_runs,
-                    nt, max_segs, room)
-                for key in got:
-                    np.testing.assert_array_equal(got[key], _np(want[key]),
-                                                  err_msg=key)
+                row_tables=tables)
+            got = _emulate_finish(runs, counts, w, _np(lab), *args,
+                                  None if sizes is None else (h,) + sizes,
+                                  *tile)
+            for key in got:
+                np.testing.assert_array_equal(
+                    got[key], _np(want[key]),
+                    err_msg='{} {}'.format(key, sizes))
+
+
+@pytest.mark.parametrize('case', run_cc_cases.CASES)
+def test_finish_row_tables_are_component_stats_runs(case):
+    """The plain finish's row tables are ``component_stats_runs``' over the
+    plain sorted runs with the ids reversed (the dense path's former
+    composition), on every case, with 8 rows and 1 and ids past max_det;
+    with the sorted runs asked for too, those are unchanged."""
+    runs, counts, w, truns, tcounts, inputs = _finish_inputs(case)
+    h = _case_height(runs, counts, w)
+    for lab, c_orig, n_kept, st4, st8 in inputs[:1] + inputs[3:4]:
+        srt = trcc.finish_components_plain(truns, tcounts, lab, c_orig,
+                                           n_kept, st4, st8, w=w,
+                                           sorted_runs=True)
+        n = srt['n_components']
+        comp_rev = torch.where(srt['s_comp'] >= 0,
+                               n[:, None] - 1 - srt['s_comp'],
+                               torch.full_like(srt['s_comp'], -1))
+        for max_det, max_bh in TABLE_SIZES:
+            tables = dict(h=h, max_det=max_det, max_bh=max_bh)
+            got = trcc.finish_components_plain(
+                truns, tcounts, lab, c_orig, n_kept, st4, st8, w=w,
+                sorted_runs=True, row_tables=tables)
+            want = lb.component_stats_runs(
+                srt['s_start'], srt['s_len'], comp_rev, w=w, h=h,
+                max_det=max_det, max_bh=max_bh, cv2_centers=True)
+            for key in trcc.TABLE_KEYS:
+                np.testing.assert_array_equal(_np(got[key]), _np(want[key]),
+                                              err_msg=key)
+            for key in srt:
+                np.testing.assert_array_equal(_np(got[key]), _np(srt[key]),
+                                              err_msg=key)
+
+
+def test_row_tables_need_rows_below_h():
+    """Pinned: the plain row tables decode a component's first row from
+    ``bit_length(h - 1)`` bits, so a valid run at or below row ``h`` (past
+    the encoder's contract, start < h w) makes them differ from the
+    kernel's design, which takes the root's row whole; with every row
+    below ``h`` they agree, at any larger ``h``."""
+    runs, counts, w, truns, tcounts, inputs = _finish_inputs('blobs')
+    lab, c_orig, n_kept, st4, st8 = inputs[0]
+    h = _case_height(runs, counts, w)
+    args = (_np(c_orig), _np(n_kept))
+    for hh, same in ((h, True), (4 * h, True), (h // 4, False)):
+        tables = dict(h=hh, max_det=64, max_bh=8)
+        want = trcc.finish_components_plain(
+            truns, tcounts, lab, c_orig, n_kept, st4, st8, w=w,
+            row_tables=tables)
+        got = _emulate_finish(runs, counts, w, _np(lab), *args,
+                              (hh, 64, 8))
+        assert all(np.array_equal(got[k], _np(want[k]))
+                   for k in trcc.TABLE_KEYS) == same, hh
+
+
+def test_select_bit_design_finds_each_set_bit():
+    """The search for a frame's k-th set bit (the last tile, then the last
+    word, whose count before it is at most k; then the bit in the word)
+    over random bits with empty words and tiles, at tile sizes 1024, 64
+    and 32."""
+    rng = np.random.default_rng(11)
+    for r, dens in ((1, 1.0), (31, 0.5), (700, 0.02), (2500, 0.3),
+                    (4096, 0.001)):
+        flags = rng.random(r) < dens
+        flags[r // 3:r // 2] = False
+        for tile in (1024, 64, 32):
+            fr = _Frame(*_tile_words(flags, tile), tile)
+            want = np.nonzero(flags)[0]
+            assert fr.total == len(want)
+            assert [fr.select(k) for k in range(len(want))] == want.tolist()
 
 
 def test_stepped_bounds_equal_searches():
@@ -1011,6 +1196,41 @@ def test_run_cc_components_match_jax_on_cases(double_threshold):
                   's_comp'):
             np.testing.assert_array_equal(_np(got[k]), np.asarray(ref[k]),
                                           err_msg='{} {}'.format(case, k))
+
+
+@pytest.mark.parametrize('double_threshold', [True, False])
+def test_run_cc_row_tables_match_jax_on_cases(double_threshold):
+    """``run_cc_components`` with ``row_tables`` (the dense path's call)
+    against ysmr_tpu's ``run_cc_components`` followed by its
+    ``component_stats_runs`` on each frame's sorted runs, ids reversed as
+    the JAX pipeline reverses them, on every wire the encoder can write,
+    with ids past max_det and a one-row table too. Exact: every table is
+    integer."""
+    for case in run_cc_cases.WIRE_CASES:
+        runs, counts, w, truns, tcounts = _case_wire(case)
+        h = _case_height(runs, counts, w)
+        ref = jrcc.run_cc_components(runs, counts, w=w,
+                                     double_threshold=double_threshold)
+        n = np.asarray(ref['n_components'])
+        s_comp = np.asarray(ref['s_comp'])
+        comp_rev = np.where(s_comp >= 0, n[:, None] - 1 - s_comp, -1)
+        for max_det, max_bh in TABLE_SIZES:
+            got = trcc.run_cc_components(
+                truns, tcounts, w=w, double_threshold=double_threshold,
+                row_tables=dict(h=h, max_det=max_det, max_bh=max_bh))
+            per = [jlb.component_stats_runs(
+                jnp.asarray(ref['s_start'][i]), jnp.asarray(ref['s_len'][i]),
+                jnp.asarray(comp_rev[i].astype(np.int32)), w=w, h=h,
+                max_det=max_det, max_bh=max_bh, cv2_centers=True)
+                for i in range(runs.shape[0])]
+            for key in trcc.TABLE_KEYS:
+                want = np.concatenate([np.asarray(p[key]) for p in per])
+                np.testing.assert_array_equal(
+                    _np(got[key]), want,
+                    err_msg='{} {} {}'.format(case, key, max_det))
+            for key in ('run_comp', 'n_components', 'n_px'):
+                np.testing.assert_array_equal(_np(got[key]),
+                                              np.asarray(ref[key]))
 
 
 def test_run_cc_wrappers_take_plain_versions_on_cpu():

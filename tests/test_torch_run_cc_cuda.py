@@ -3,9 +3,11 @@
 ``compact_kept_runs`` and ``finish_components`` on CUDA tensors) against
 their plain versions on the same card tensors, bit for bit, on the seeded
 wires of the root module ``run_cc_cases.py`` that
-``tests/test_torch_run_cc.py`` holds to the plain versions on the CPU; and
-``run_cc_components``, ``keep_marked_runs`` and ``label_runs`` through them
-against the CPU route. This file imports no JAX.
+``tests/test_torch_run_cc.py`` holds to the plain versions on the CPU (the
+finish with and without the row tables of the device rects, on converged,
+one-step and random labels); and ``run_cc_components``,
+``keep_marked_runs`` and ``label_runs`` through them against the CPU
+route. This file imports no JAX.
 
 Tolerance: none. Every output is an integer index, count or flag.
 """
@@ -46,13 +48,21 @@ def _same(got, want, what):
             torch.equal(got, want), what
 
 
+#: the row tables of the checks: a frame height past every case's rows,
+#: and capacities with 8 rows, 1 row and ids past max_det
+TABLES = (None, dict(h=1024, max_det=64, max_bh=8),
+          dict(h=1024, max_det=64, max_bh=1), dict(h=1024, max_det=3,
+                                                    max_bh=8))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('case', CASES)
 def test_run_cc_kernels_match_plain_on_cuda(case):
-    """Each launch against its plain version on the same card tensors:
+    """Each call against its plain version on the same card tensors:
     prepare for one and two dilations, both inits; compact on the
     4-connected labels; finish with and without the compaction and the
-    sorted runs. One launch a call, the inputs untouched."""
+    row tables, on the propagation's labels, after one step and random.
+    One call of each wrapper a check, the inputs untouched."""
     dev = _cuda()
     runs, counts, w = _wire(case, dev)
     before = runs.clone(), counts.clone()
@@ -73,19 +83,29 @@ def test_run_cc_kernels_match_plain_on_cuda(case):
     assert run_cc.compact_kept_runs.launches == n + 1
     _same(c, run_cc.compact_kept_runs_plain(runs, counts, lab4,
                                             g['wins'][1], w=w), 'compact')
-    lab8, steps8 = propagate_min_fused(c['init'], c['win'], c['link'])
     s = run_cc.prepare_runs_plain(runs, counts, w=w, dilates=(1,))
-    lab1, steps1 = propagate_min_fused(s['init'], s['wins'][0], s['link'])
-    for sorted_runs in (False, True):
-        for args in ((lab8, c['c_orig'], c['n_kept'], steps4, steps8),
-                     (lab1, None, None, None, steps1)):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    inputs = []
+    for init, win, link, c_orig, n_kept, st4 in (
+            (c['init'], c['win'], c['link'], c['c_orig'], c['n_kept'],
+             steps4),
+            (s['init'], s['wins'][0], s['link'], None, None, None)):
+        for iters in (64, 1):
+            lab, steps = run_cc.propagate_min(init, win, link,
+                                              max_iters=iters)
+            inputs.append((lab, c_orig, n_kept, st4, steps))
+        lab = torch.randint(-2, runs.shape[1] + 2, runs.shape, device=dev,
+                            generator=gen, dtype=torch.int32)
+        inputs.append((lab, c_orig, n_kept, st4, steps))
+    for args in inputs:
+        for tables in TABLES:
             n = run_cc.finish_components.launches
             got = run_cc.finish_components(runs, counts, *args, w=w,
-                                           sorted_runs=sorted_runs)
+                                           row_tables=tables)
             assert run_cc.finish_components.launches == n + 1
             want = run_cc.finish_components_plain(
-                runs, counts, *args, w=w, sorted_runs=sorted_runs)
-            _same(got, want, 'finish sorted={}'.format(sorted_runs))
+                runs, counts, *args, w=w, row_tables=tables)
+            _same(got, want, 'finish {}'.format(tables))
     torch.cuda.synchronize()
     assert torch.equal(runs, before[0]) and torch.equal(counts, before[1])
 
@@ -103,8 +123,8 @@ def test_run_cc_components_on_cuda_equal_plain_and_cpu(case):
     runs, counts, w = _wire(case, dev)
     cpu = (runs.cpu(), counts.cpu())
     for double in (True, False):
-        for sorted_runs in (False, True):
-            kw = dict(w=w, double_threshold=double, sorted_runs=sorted_runs)
+        for tables in TABLES:
+            kw = dict(w=w, double_threshold=double, row_tables=tables)
             got = run_cc.run_cc_components(runs, counts, **kw)
             _same(got, run_cc.run_cc_components_plain(runs, counts, **kw),
                   'plain')
@@ -122,8 +142,9 @@ def test_run_cc_components_on_cuda_equal_plain_and_cpu(case):
 
 @pytest.mark.cuda
 def test_run_cc_kernels_refuse_bad_inputs_on_cuda():
-    """A frame wider than the start field, R above the frame launches' cap
-    and mismatched planes raise before any launch."""
+    """A frame wider than the start field, R above the compact and finish
+    launches' cap, mismatched planes, the sorted runs (the plain
+    version's only) and empty row tables raise before any launch."""
     dev = _cuda()
     runs, counts, w = _wire('blobs', dev)
     with pytest.raises(ValueError):
@@ -138,3 +159,16 @@ def test_run_cc_kernels_refuse_bad_inputs_on_cuda():
     with pytest.raises(ValueError):
         run_cc.compact_kept_runs(runs, counts, g['init'].long(),
                                  g['wins'][0], w=w)
+    with pytest.raises(ValueError):
+        run_cc.finish_components(big, one, big, None, None, None, one, w=w)
+    lab, steps = propagate_min_fused(g['init'], g['wins'][0], g['link'])
+    n = run_cc.finish_components.launches
+    for kw in (dict(sorted_runs=True),
+               dict(row_tables=dict(h=64, max_det=0, max_bh=8))):
+        with pytest.raises(ValueError):
+            run_cc.finish_components(runs, counts, lab, None, None, None,
+                                     steps, w=w, **kw)
+    with pytest.raises(ValueError):
+        run_cc.run_cc_components(runs, counts, w=w, double_threshold=True,
+                                 sorted_runs=True)
+    assert run_cc.finish_components.launches == n

@@ -44,10 +44,11 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   (``csrc/compact.cu``) or, in a checkout from before it, its
   ``compact_labels`` followed by ``component_row_tables``;
 - ``run_cc``: ``run_cc_components`` (double threshold) on the bench
-  scene's first 64 frames as the host-rect path calls it (no sorted
-  runs) and on the dense scene's with the sorted runs, the run wire's R
-  bucket: in a checkout with ``csrc/run_cc.cu`` its four launches around
-  ``csrc/run_prop.cu``'s, in one from before it the torch sequence.
+  scene's first 64 frames as the host-rect path calls it (ids only) and
+  on the dense scene's with the device rects' stats tables, the run
+  wire's R bucket: in a checkout whose finish writes the row tables, its
+  six launches of ``csrc/run_cc.cu`` around ``csrc/run_prop.cu``'s and
+  the stats tail; before, the sorted runs and ``component_stats_runs``.
 
 With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
 3000 rods) in memory through the stage-1 loop N times, the device path
@@ -359,10 +360,19 @@ def trace_compact(smoke, args, dev):
 
 
 def trace_run_cc(smoke, args, dev):
+    """Run-CC at the bench batch (the host-rect path: ids only) and at the
+    dense batch with the device rects' stats tables after it: the finish's
+    row tables and the stats tail (in a checkout from before the finish
+    wrote them, the sorted runs and ``component_stats_runs``)."""
+    import inspect
+
     import numpy as np
     import torch
+    from ysmr_tpu_torch.ops import labeling as lb
     from ysmr_tpu_torch.ops import run_cc
-    for name, scene, settings, sorted_runs in (
+    tables = 'row_tables' in inspect.signature(
+        run_cc.run_cc_components).parameters
+    for name, scene, settings, dense in (
             ('bench', smoke.BenchScene(), smoke.bench_settings(), False),
             ('dense', smoke.BenchScene(seed=smoke.DENSE_SEED,
                                        n_bugs=smoke.DENSE_BUGS),
@@ -370,13 +380,34 @@ def trace_run_cc(smoke, args, dev):
         runs, rc = smoke.first_batch_runs(scene, settings)
         wire = (torch.from_numpy(runs.view(np.int32)).to(dev),
                 torch.from_numpy(rc).to(dev))
+        kw = dict(w=smoke.W, double_threshold=True,
+                  max_iters=smoke.MAX_ITERS)
+        sizes = dict(h=smoke.H, max_det=settings['max detections per frame'],
+                     max_bh=settings['max bounding box height'])
+
+        def call(dense=dense):
+            if not dense:
+                return run_cc.run_cc_components(*wire, **kw)
+            if tables:
+                out = run_cc.run_cc_components(*wire, **kw,
+                                               row_tables=sizes)
+                return lb._stats_tail_from_tables(
+                    *(out[k] for k in run_cc.TABLE_KEYS),
+                    max_bh=sizes['max_bh'], cv2_centers=True)
+            out = run_cc.run_cc_components(*wire, **kw, sorted_runs=True)
+            n = out['n_components']
+            rev = torch.where(out['s_comp'] >= 0,
+                              n[:, None] - 1 - out['s_comp'],
+                              torch.full_like(out['s_comp'], -1))
+            return lb.component_stats_runs(out['s_start'], out['s_len'], rev,
+                                           w=smoke.W, cv2_centers=True,
+                                           **sizes)
         trace('run_cc_components {} T={} R={}{}'.format(
             name, runs.shape[0], runs.shape[1],
-            ' sorted runs' if sorted_runs else ''),
-            lambda: run_cc.run_cc_components(
-                *wire, w=smoke.W, double_threshold=True,
-                max_iters=smoke.MAX_ITERS, sorted_runs=sorted_runs),
-            args.reps, smoke)
+            ' + stats tables ({})'.format(
+                'row tables, stats tail' if tables else
+                'sorted runs, component_stats_runs') if dense else ''),
+            call, args.reps, smoke)
 
 
 def end_to_end(smoke, args):

@@ -1,52 +1,76 @@
 // Run-graph connected components around csrc/run_prop.cu: the run wire's
 // decode, windows and links, the compaction of the runs the marker
 // reconstruction keeps, and the component ids, their scatter back to wire
-// order and the component-sorted run tables.
+// order and, for the device rects, each component's per-row x extremes.
 //
 // Replaces the plain-XLA part of ysmr_tpu/ops/run_cc.py:291
 // run_cc_components outside propagate_min (and the same steps of
-// keep_marked_runs and label_runs). Same contract and bits as the plain
+// keep_marked_runs and label_runs), and the row tables of
+// ysmr_tpu/ops/labeling.py:520 component_stats_runs (its three scatters
+// and the sort that feeds them). Same contract and bits as the plain
 // versions in ysmr_tpu_torch/ops/run_cc.py:
 // 1. prepare, two launches (prepare_runs_plain: decode_runs,
 //    run_windows_multi, chain_mask and the initial labels): the planes
 //    run_prop.cu reads, for each dilation asked for.
-// 2. compact, one launch (compact_kept_runs_plain): between the two
+// 2. compact, two launches (compact_kept_runs_plain): between the two
 //    propagations of the double threshold, the stable compaction of the
 //    kept runs, the 8-connected windows remapped onto the compacted table
 //    and its links.
-// 3. finish, one launch (finish_components_plain): after the 8-connected
+// 3. finish, two launches (finish_components_plain): after the 8-connected
 //    propagation, the roots and their ascending rank, the per-run ids and
 //    their scatter to wire order, the kept pixels, the larger step count
-//    and, when asked, the (component, start) order of the kept runs.
+//    and, when asked, the row tables (ops/labeling.py::run_row_tables of
+//    the component-sorted runs, ids reversed to cv2's order).
 //
 // Facts it uses. A window endpoint is torch.searchsorted over the frame's
 // key row. Where the row does not decrease (the wire in raster order)
 // each search has one answer, and it lies between the answers to the
 // least and the greatest query of a block of runs; otherwise the launch
 // runs torch's own probes over [0, R), so the same index on any input. The
-// compaction and the ranks are prefix counts over one bit a run: per
-// 32-run word a bit mask and the count before it, in shared memory. The
-// plain version sorts the kept runs stably by (component, start), every
-// padding slot after them ordered by its start. Where the valid slots are
-// a prefix in raster order, a group's slots are in start order already:
-// a group's place is a prefix sum of the groups' sizes and its slots go
-// there in slot order; the padding's starts are a few non-decreasing runs
-// (stale wire past the count), merged by rank. Anything else takes stable
-// 4-bit radix passes by start, then by group.
+// compaction and the ranks are prefix counts over one bit a run. The row
+// tables are integer minima and maxima, so the order of the atomics does
+// not change a bit and the runs need no sort. A run's table row is its row
+// less its component's least row (y0; the plain version's first run in
+// (component, start) order, start = row w + x). A run's id is the rank
+// of the root at or before its label, so where no label exceeds its slot
+// (the propagation's labels only fall from the index) a component's root
+// is its least slot, and where the rows of the valid runs do not decrease
+// in slot order the root's row is y0.
 //
 // Design. Prepare: a keys launch (each slot's two keys, and a flag for
 // each 256 slots where a key exceeds the next), then a thread a run,
 // blocks of 256 covering 255 runs of one frame (the last thread's run is
 // its neighbour's for the link); the second dilation's answers a step
-// from the first's. Compact and finish: one block of 1024 threads a
-// frame, the frame's bit masks and counts in shared memory (R / 4 bytes;
-// with the sort, count tables of n_comp + 2 words a segment, one segment
-// a warp, and the group totals), which bounds R at 2^19 runs; a thread
-// takes four slots at a time, their loads first.
+// from the first's. Compact and finish: tiles of 1024 slots, a block of
+// 256 threads a tile, four slots a thread, their loads first, in two
+// launches each: the bits launch writes a tile's 32 words (each word's bit
+// mask and the tile's count before it) and the tile's count; the second
+// launch reads the frame's tile counts (at most 512: R <= 2^19) into
+// shared memory, scans them, and answers any slot's count before it with
+// one 8-byte load. Compact's bits are the kept runs; its second launch
+// places every wire run, remaps its window and links each kept run to the
+// next (shared memory within the tile, else the next word or a search of
+// the counts). Finish's bits launch (roots) marks the roots, writes each
+// root's row and flags a frame whose valid rows decrease (or follow an
+// invalid slot) or whose labels exceed their slots. The ids launch ranks
+// each slot's label and scatters it; with the tables its blocks take
+// their tiles in order from a counter, and a tile's block fills the
+// tables of its roots' ids (a range: the roots' ranks are consecutive)
+// and a share of the ids past the frame's components with their empty
+// values (+-2^30, false), so those lines are in L2 when the updates come,
+// then sets its tile's flag. A run updates its component's entry at its
+// row less the root's row (a warp's runs of one entry merged first: one
+// atomicMin, one atomicMax and one byte store a stretch of lanes), after
+// the flags of its frame's tiles up to its own (its root's tile among
+// them), and the root writes min_y. In a flagged frame (outside the
+// encoder's or the propagation's contract) the frame's last tile's block
+// makes its updates alone, after every tile's flag: the components' least
+// rows by atomicMin into min_y, then the updates against them.
 //
-// What bounds it on an H100: latency. The frame launches run one block a
-// frame (64 of the 132 SMs at T = 64), each slot a chain of dependent
-// loads; the prepare launch's searches are dependent L1 loads.
+// What bounds it on an H100: latency, and at the dense batch the tables'
+// bytes (113 MB at T = 64, 4096 ids of 48 rows). Each slot is a chain of
+// dependent loads (label, word, root row); the tiles put 2048 blocks of 8
+// warps on the card at T = 64, R = 32768.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,9 +81,6 @@ namespace {
 
 constexpr int32_t kBig = 1 << 28;  // ops/run_cc.py's _BIG
 constexpr int kPrepThreads = 256;
-constexpr int kFrameThreads = 1024;
-constexpr int kFrameWarps = kFrameThreads / 32;
-constexpr int kDigits = 16;  // 4-bit radix digits
 
 struct Wire {
   const int32_t* runs;    // (T, R) int32 view of the uint32 wire
@@ -352,49 +373,145 @@ __global__ void __launch_bounds__(kPrepThreads) prepare_kernel(PrepArgs a) {
   a.valid[row0 + i] = me.valid;
 }
 
-// exclusive prefix sums of cnt[0..n) in place (shared memory, every
-// thread of a kFrameThreads block calls it); returns the total
-__device__ uint32_t block_exclusive_scan(uint32_t* cnt, int n) {
-  __shared__ uint32_t warp_tot[kFrameWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = (n + kFrameThreads - 1) / kFrameThreads;
-  const int lo = min(n, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(n, lo + per);
-  uint32_t sum = 0;
-  for (int i = lo; i < hi; ++i) sum += cnt[i];
-  uint32_t inc = sum;
+// ---- compact and finish: tiles of kTile slots, two launches each ----
+
+constexpr int kTile = 1024;                // slots a tile
+constexpr int kTileWords = kTile / 32;     // 32-slot words a tile
+constexpr int kThreads = 256;              // a tile's block
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = kTile / kThreads;     // slots a thread
+constexpr int kMaxTiles = 512;             // tiles a frame: R <= 2^19
+constexpr int kPerTiles = kMaxTiles / kThreads;
+constexpr int32_t kBigI = 1 << 30;         // ops/labeling.py's BIG_I
+constexpr uint32_t kFlag = 1u << 31;       // in a tile count: out of order
+
+// a bit a slot: per frame nw words (a word's bits, and the tile's set bits
+// before it) and ntiles tile counts (| kFlag where the bits launch flagged
+// the frame)
+struct Words {
+  uint2* wl;       // (T, nw)
+  uint32_t* tcnt;  // (T, ntiles)
+  int nw, ntiles;
+};
+
+// the warp's exclusive prefix of v (lane order) and its total
+__device__ __forceinline__ uint32_t warp_excl(uint32_t v, uint32_t* total) {
+  const int lane = threadIdx.x & 31;
+  uint32_t inc = v;
   for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t v = __shfl_up_sync(~0u, inc, o);
-    if (lane >= o) inc += v;
+    const uint32_t u = __shfl_up_sync(~0u, inc, o);
+    if (lane >= o) inc += u;
   }
-  if (lane == 31) warp_tot[warp] = inc;
-  __syncthreads();
-  uint32_t run = inc - sum, total = 0;
-  for (int k = 0; k < kFrameWarps; ++k) {
-    const uint32_t v = warp_tot[k];
-    run += k < warp ? v : 0u;
-    total += v;
-  }
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t v = cnt[i];
-    cnt[i] = run;
-    run += v;
-  }
-  __syncthreads();
-  return total;
+  *total = __shfl_sync(~0u, inc, 31);
+  return inc - v;
 }
 
-// set bits of words[0..) before bit j, and through bit j
-__device__ __forceinline__ int count_before(const uint32_t* bits,
-                                            const uint32_t* pre, int j) {
-  return static_cast<int>(pre[j >> 5]) +
-         __popc(bits[j >> 5] & ((1u << (j & 31)) - 1u));
+// slot u of this thread in tile `tile`
+__device__ __forceinline__ int tile_slot(int tile, int u) {
+  return tile * kTile + u * kThreads + static_cast<int>(threadIdx.x);
 }
 
-__device__ __forceinline__ int count_through(const uint32_t* bits,
-                                             const uint32_t* pre, int j) {
-  return count_before(bits, pre, j) +
-         static_cast<int>((bits[j >> 5] >> (j & 31)) & 1u);
+// The bits launches' end: each thread's kPer flags (its slots) as the
+// tile's words and count, kFlag where any thread's `flag` is set. Every
+// thread calls it.
+__device__ void write_tile(const bool (&b)[kPer], bool flag, const Words& s,
+                           int f, int tile) {
+  __shared__ uint32_t s_w[kTileWords];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const uint32_t m = __ballot_sync(~0u, b[u]);
+    if (lane == 0) s_w[u * kWarps + warp] = m;
+  }
+  flag = __syncthreads_or(flag);
+  if (warp == 0) {
+    const uint32_t m = s_w[lane];
+    uint32_t total;
+    const uint32_t excl = warp_excl(__popc(m), &total);
+    const int wd = tile * kTileWords + lane;
+    if (wd < s.nw) s.wl[static_cast<int64_t>(f) * s.nw + wd] = make_uint2(m, excl);
+    if (lane == 0)
+      s.tcnt[static_cast<int64_t>(f) * s.ntiles + tile] =
+          total | (flag ? kFlag : 0u);
+  }
+}
+
+// The second launches' start: the frame's set bits before each tile into
+// tpre (shared), their total and whether the frame was flagged. Every
+// thread calls it.
+__device__ void frame_prefix(const Words& s, int f, uint32_t* tpre,
+                             int* total, bool* flagged) {
+  __shared__ uint32_t s_warp[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t* tc = s.tcnt + static_cast<int64_t>(f) * s.ntiles;
+  uint32_t v[kPerTiles], sum = 0;
+  bool flag = false;
+#pragma unroll
+  for (int k = 0; k < kPerTiles; ++k) {
+    const int i = threadIdx.x * kPerTiles + k;
+    v[k] = i < s.ntiles ? tc[i] : 0u;
+    flag |= (v[k] & kFlag) != 0;
+    v[k] &= ~kFlag;
+    sum += v[k];
+  }
+  uint32_t wtot;
+  uint32_t run = warp_excl(sum, &wtot);
+  if (lane == 0) s_warp[warp] = wtot;
+  *flagged = __syncthreads_or(flag);
+  uint32_t all = 0;
+  for (int k = 0; k < kWarps; ++k) {
+    run += k < warp ? s_warp[k] : 0u;
+    all += s_warp[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kPerTiles; ++k) {
+    tpre[threadIdx.x * kPerTiles + k] = run;
+    run += v[k];
+  }
+  *total = static_cast<int>(all);
+  __syncthreads();
+}
+
+// set bits before slot j, and through it (wl: the frame's words)
+__device__ __forceinline__ int bits_before(const uint2* wl,
+                                           const uint32_t* tpre, int j) {
+  const uint2 w = wl[j >> 5];
+  return static_cast<int>(tpre[j / kTile] + w.y +
+                          __popc(w.x & ((1u << (j & 31)) - 1u)));
+}
+
+__device__ __forceinline__ int bits_through(const uint2* wl,
+                                            const uint32_t* tpre, int j) {
+  const uint2 w = wl[j >> 5];
+  return static_cast<int>(tpre[j / kTile] + w.y +
+                          __popc(w.x & ((2u << (j & 31)) - 1u)));
+}
+
+// the slot of the frame's k-th set bit (0 <= k < its count): the last tile
+// and then the last word whose count before it is at most k
+__device__ int select_bit(const Words& s, const uint2* wl,
+                          const uint32_t* tpre, int k) {
+  int lo = 0, hi = s.ntiles - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (static_cast<int>(tpre[mid]) <= k)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const int rest = k - static_cast<int>(tpre[lo]);
+  int a = lo * kTileWords, b = min(s.nw, a + kTileWords) - 1;
+  while (a < b) {
+    const int mid = (a + b + 1) >> 1;
+    if (static_cast<int>(wl[mid].y) <= rest)
+      a = mid;
+    else
+      b = mid - 1;
+  }
+  const uint2 w = wl[a];
+  uint32_t m = w.x;
+  for (int n = rest - static_cast<int>(w.y); n > 0; --n) m &= m - 1u;
+  return a * 32 + __ffs(m) - 1;
 }
 
 __device__ __forceinline__ int clamp_run(int32_t i, int r) {
@@ -413,91 +530,179 @@ struct CompactArgs {
   uint8_t* link;         // (T, R) out
   int32_t* c_orig;       // (T, R) out: wire index of each compacted slot
   int32_t* n_kept;       // (T,) out
+  Words s;               // the kept runs' bits
   int t;
 };
+
+// keep bits: valid wire runs the 4-connected propagation labelled below R
+__global__ void __launch_bounds__(kThreads) keep_kernel(CompactArgs a) {
+  const Wire& g = a.g;
+  const int tile = blockIdx.x, f = blockIdx.y, r = g.r;
+  const int64_t row0 = static_cast<int64_t>(f) * r;
+  const int count = g.counts[f];
+  int32_t word[kPer], lab[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int j = tile_slot(tile, u);
+    word[u] = j < r ? __ldg(g.runs + row0 + j) : 0;
+    lab[u] = j < r ? __ldg(a.lab4 + row0 + j) : r;
+  }
+  bool keep[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int j = tile_slot(tile, u);
+    keep[u] = j < r && decode(word[u], j, count, g).valid && lab[u] < r;
+  }
+  write_tile(keep, false, a.s, f, tile);
+}
 
 struct Remapped {
   int32_t lo_up, hi_up, lo_dn, hi_dn;
   bool ok_up, ok_dn;
 };
 
-// the 8-connected window of wire run j on the compacted table: kept runs
-// with wire index in [lo, hi] are the compacted [#kept before lo,
-// #kept through hi - 1]
-__device__ __forceinline__ Remapped remap(const CompactArgs& a, int64_t row0,
-                                          const uint32_t* bits,
-                                          const uint32_t* pre, int j,
-                                          bool c_valid) {
-  const int r = a.g.r;
-  const int64_t k = row0 + j;
+// the 8-connected window (e: lo_up, hi_up, lo_dn, hi_dn; ok: ok_up, ok_dn)
+// of a wire run on the compacted table: kept runs with wire index in
+// [lo, hi] are the compacted [#kept before lo, #kept through hi - 1]
+__device__ __forceinline__ Remapped remap(const uint2* wl,
+                                          const uint32_t* tpre, int r,
+                                          const int32_t (&e)[4],
+                                          const bool (&ok)[2], bool c_valid) {
   Remapped o;
-  o.lo_up = count_before(bits, pre, clamp_run(a.ends8[0][k], r));
-  o.hi_up = count_through(bits, pre, clamp_run(a.ends8[1][k], r)) - 1;
-  o.lo_dn = count_before(bits, pre, clamp_run(a.ends8[2][k], r));
-  o.hi_dn = count_through(bits, pre, clamp_run(a.ends8[3][k], r)) - 1;
-  o.ok_up = c_valid && a.oks8[0][k] && o.lo_up <= o.hi_up;
-  o.ok_dn = c_valid && a.oks8[1][k] && o.lo_dn <= o.hi_dn;
+  o.lo_up = bits_before(wl, tpre, clamp_run(e[0], r));
+  o.hi_up = bits_through(wl, tpre, clamp_run(e[1], r)) - 1;
+  o.lo_dn = bits_before(wl, tpre, clamp_run(e[2], r));
+  o.hi_dn = bits_through(wl, tpre, clamp_run(e[3], r)) - 1;
+  o.ok_up = c_valid && ok[0] && o.lo_up <= o.hi_up;
+  o.ok_dn = c_valid && ok[1] && o.lo_dn <= o.hi_dn;
   return o;
 }
 
-__global__ void __launch_bounds__(kFrameThreads)
+__device__ __forceinline__ void load_window(const CompactArgs& a, int64_t k,
+                                            int32_t (&e)[4], bool (&ok)[2]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) e[c] = __ldg(a.ends8[c] + k);
+  ok[0] = __ldg(a.oks8[0] + k) != 0;
+  ok[1] = __ldg(a.oks8[1] + k) != 0;
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
     compact_kernel(CompactArgs a) {
-  extern __shared__ uint32_t sh[];
+  __shared__ uint32_t s_tpre[kMaxTiles];
+  // the tile's kept runs: remapped window, ok bits, row and first x
+  __shared__ int32_t s_e[4][kTile];
+  __shared__ int32_t s_row[kTile], s_xs[kTile];
+  __shared__ uint8_t s_ok[kTile];
   const Wire& g = a.g;
-  const int f = blockIdx.x, r = g.r, nw = (r + 31) >> 5;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* bits = sh;
-  uint32_t* pre = sh + nw;
+  const int tile = blockIdx.x, f = blockIdx.y, r = g.r;
   const int64_t row0 = static_cast<int64_t>(f) * r;
   const int64_t plane = static_cast<int64_t>(a.t) * r;
-  const int32_t* wrow = g.runs + row0;
   const int count = g.counts[f];
-  for (int wd = warp; wd < nw; wd += kFrameWarps) {
-    const int j = wd * 32 + lane;
-    bool keep = false;
-    if (j < r)
-      keep = decode(wrow[j], j, count, g).valid && a.lab4[row0 + j] < r;
-    const uint32_t b = __ballot_sync(~0u, keep);
-    if (lane == 0) {
-      bits[wd] = b;
-      pre[wd] = __popc(b);
+  int kept;
+  bool unused;
+  frame_prefix(a.s, f, s_tpre, &kept, &unused);
+  const uint2* wl = a.s.wl + static_cast<int64_t>(f) * a.s.nw;
+  const int32_t* wrow = g.runs + row0;
+  int32_t word[kPer], e[kPer][4];
+  bool ok[kPer][2];
+  uint2 w[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int j = tile_slot(tile, u);
+    const bool in = j < r;
+    word[u] = in ? __ldg(wrow + j) : 0;
+    w[u] = in ? wl[j >> 5] : make_uint2(0, 0);
+    if (in) {
+      load_window(a, row0 + j, e[u], ok[u]);
+    } else {
+      e[u][0] = e[u][1] = e[u][2] = e[u][3] = 0;
+      ok[u][0] = ok[u][1] = false;
     }
   }
-  __syncthreads();
-  const int kept = static_cast<int>(block_exclusive_scan(pre, nw));
-  for (int j = threadIdx.x; j < r; j += kFrameThreads) {
-    const bool keep = (bits[j >> 5] >> (j & 31)) & 1u;
-    const int before = count_before(bits, pre, j);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int j = tile_slot(tile, u);
+    if (j >= r) break;
+    const bool keep = (w[u].x >> (j & 31)) & 1u;
+    const int before = static_cast<int>(s_tpre[tile] + w[u].y) +
+                       __popc(w[u].x & ((1u << (j & 31)) - 1u));
     const int p = keep ? before : kept + (j - before);
     const int64_t at = row0 + p;
     a.c_orig[at] = j;
     a.init[row0 + j] = j;
-    const Remapped o = remap(a, row0, bits, pre, j, p < kept);
+    const Remapped o = remap(wl, s_tpre, r, e[u], ok[u], keep);
     a.ends[at] = o.lo_up;
     a.ends[plane + at] = o.hi_up;
     a.ends[2 * plane + at] = o.lo_dn;
     a.ends[3 * plane + at] = o.hi_dn;
     a.oks[at] = o.ok_up;
     a.oks[plane + at] = o.ok_dn;
-    // the link to the next compacted slot: the next kept wire run
+    if (keep) {
+      const int loc = j - tile * kTile;
+      const Run q = decode(word[u], j, count, g);
+      s_e[0][loc] = o.lo_up;
+      s_e[1][loc] = o.hi_up;
+      s_e[2][loc] = o.lo_dn;
+      s_e[3][loc] = o.hi_dn;
+      s_ok[loc] = static_cast<uint8_t>(o.ok_up | (o.ok_dn << 1));
+      s_row[loc] = q.row;
+      s_xs[loc] = q.xs;
+    }
+  }
+  __syncthreads();
+  // each compacted slot's link to the next: the next kept wire run
+  const int end = min(r, (tile + 1) * kTile);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int j = tile_slot(tile, u);
+    if (j >= r) break;
+    const bool keep = (w[u].x >> (j & 31)) & 1u;
+    const int before = static_cast<int>(s_tpre[tile] + w[u].y) +
+                       __popc(w[u].x & ((1u << (j & 31)) - 1u));
+    const int p = keep ? before : kept + (j - before);
     bool link = false;
     if (keep && p + 1 < kept) {
-      int wd = j >> 5;
-      uint32_t rest = bits[wd] & ~((2u << (j & 31)) - 1u);
-      if ((j & 31) == 31) rest = 0;
-      while (!rest) rest = bits[++wd];
-      const int j2 = wd * 32 + __ffs(rest) - 1;
-      const Run q = decode(wrow[j], j, count, g);
-      const Run q2 = decode(wrow[j2], j2, count, g);
-      const Remapped o2 = remap(a, row0, bits, pre, j2, true);
-      const bool same_row = q2.row == q.row;
-      link = (same_row && q2.xs == q.xe + 1) ||
-             (same_row && o.ok_up && o2.ok_up && o.hi_up >= o2.lo_up) ||
-             (same_row && o.ok_dn && o2.ok_dn && o.hi_dn >= o2.lo_dn);
+      const uint32_t rest = w[u].x & ~((2u << (j & 31)) - 1u);
+      int j2;
+      if (rest) {
+        j2 = (j & ~31) + __ffs(rest) - 1;
+      } else {
+        const int wd = (j >> 5) + 1;
+        const uint32_t m = wd < a.s.nw ? wl[wd].x : 0u;
+        j2 = m ? wd * 32 + __ffs(m) - 1 : select_bit(a.s, wl, s_tpre, p + 1);
+      }
+      const int loc = j - tile * kTile;
+      const Run q = decode(word[u], j, count, g);
+      Remapped o2;
+      int32_t row2, xs2;
+      if (j2 < end) {
+        const int l2 = j2 - tile * kTile;
+        o2.lo_up = s_e[0][l2];
+        o2.hi_up = s_e[1][l2];
+        o2.lo_dn = s_e[2][l2];
+        o2.hi_dn = s_e[3][l2];
+        o2.ok_up = s_ok[l2] & 1;
+        o2.ok_dn = s_ok[l2] >> 1;
+        row2 = s_row[l2];
+        xs2 = s_xs[l2];
+      } else {
+        int32_t e2[4];
+        bool ok2[2];
+        load_window(a, row0 + j2, e2, ok2);
+        const Run q2 = decode(__ldg(wrow + j2), j2, count, g);
+        o2 = remap(wl, s_tpre, r, e2, ok2, true);
+        row2 = q2.row;
+        xs2 = q2.xs;
+      }
+      const bool ok_up = s_ok[loc] & 1, ok_dn = s_ok[loc] >> 1;
+      const bool same_row = row2 == q.row;
+      link = (same_row && xs2 == q.xe + 1) ||
+             (same_row && ok_up && o2.ok_up && s_e[1][loc] >= o2.lo_up) ||
+             (same_row && ok_dn && o2.ok_dn && s_e[3][loc] >= o2.lo_dn);
     }
-    a.link[at] = link;
+    a.link[row0 + p] = link;
   }
-  if (threadIdx.x == 0) a.n_kept[f] = kept;
+  if (tile == 0 && threadIdx.x == 0) a.n_kept[f] = kept;
 }
 
 struct FinishArgs {
@@ -511,313 +716,278 @@ struct FinishArgs {
   int32_t* n_comp;        // (T,) out
   int32_t* n_px;          // (T,) out
   int32_t* cc_steps;      // (T,) out
-  int32_t* s_start;       // (T, R) out, or null: no sorted runs
-  int32_t* s_len;
-  int32_t* s_comp;
-  int32_t* grp;           // (T, R) scratch: sort group of a slot
-  int32_t* cst;           // (T, R) scratch: start | kept length << 26
-  int32_t* pay_a;         // (T, R) scratch: slot order, two buffers
-  int32_t* pay_b;
-  uint32_t* gcnt;         // (T, 2 R + 4) scratch: the sort's count tables
-  uint32_t* rcnt;         // (T, kDigits kFrameThreads) scratch: digit counts
-  bool gcnt_shared;       // r + 2 words of shared memory for the tables
-  int t;
+  int32_t* row_min;       // (T max_det, max_bh) out, or null: no tables
+  int32_t* row_max;
+  uint8_t* row_valid;
+  int32_t* min_y;         // (T max_det,) out
+  int32_t* root_row;      // (T, R) scratch: each root's row
+  uint32_t* sync;         // (T ntiles + 1,) scratch: each tile's fill
+                          // done, then the ids launch's next block
+  Words s;                // the roots' bits
+  int t, max_det, max_bh;
 };
 
-// padding segments (non-decreasing runs of starts) merged by rank; more
-// take the radix passes
-constexpr int kMaxSegs = 32;
-// slots a thread takes at a time in the finish launch's first loop
-constexpr int kUnroll = 4;
-
-// one stable 4-bit pass of the sort of slots `in` by the digit at `shift`
-// of keys[slot] (masked to 26 bits with `start`), into `out`: each thread
-// counts and places a contiguous chunk in order
-__device__ void radix_pass(const int32_t* keys, bool start, int shift,
-                           const int32_t* in, int32_t* out, int r,
-                           uint32_t* cnt) {
-  const int tid = threadIdx.x;
-  const int per = (r + kFrameThreads - 1) / kFrameThreads;
-  const int lo = min(r, tid * per), hi = min(r, lo + per);
-  for (int d = 0; d < kDigits; ++d) cnt[d * kFrameThreads + tid] = 0;
-  for (int e = lo; e < hi; ++e) {
-    int32_t k = keys[in[e]];
-    if (start) k &= 0x03FFFFFF;
-    ++cnt[((k >> shift) & (kDigits - 1)) * kFrameThreads + tid];
-  }
-  __syncthreads();
-  block_exclusive_scan(cnt, kDigits * kFrameThreads);
-  for (int e = lo; e < hi; ++e) {
-    const int32_t s = in[e];
-    int32_t k = keys[s];
-    if (start) k &= 0x03FFFFFF;
-    out[cnt[((k >> shift) & (kDigits - 1)) * kFrameThreads + tid]++] = s;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kFrameThreads)
-    finish_kernel(FinishArgs a) {
-  extern __shared__ uint32_t sh[];
+// the roots launch: a block a tile (a 1-D grid, frame-major); with the
+// tables the blocks also clear the ids launch's flags and counter
+__global__ void __launch_bounds__(kThreads) roots_kernel(FinishArgs a) {
+  const int nt = a.s.ntiles;
+  if (a.row_min)
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i <= a.t * nt;
+         i += gridDim.x * kThreads)
+      a.sync[i] = 0;
   const Wire& g = a.g;
-  const int f = blockIdx.x, r = g.r, nw = (r + 31) >> 5;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* bits = sh;
-  uint32_t* pre = sh + nw;
+  const int f = blockIdx.x / nt, tile = blockIdx.x % nt;
+  const int r = g.r, lane = threadIdx.x & 31;
   const int64_t row0 = static_cast<int64_t>(f) * r;
   const int32_t* wrow = g.runs + row0;
   const int count = g.counts[f];
   const int kept = a.n_kept ? a.n_kept[f] : 0;
-  const int32_t* lab8 = a.lab8 + row0;
-  // roots: valid compacted slots labelled with their own index
-  for (int wd = warp; wd < nw; wd += kFrameWarps) {
-    const int p = wd * 32 + lane;
-    bool root = false;
-    if (p < r) {
-      const bool valid =
-          a.n_kept ? p < kept : decode(wrow[p], p, count, g).valid;
-      root = valid && lab8[p] == p;
-    }
-    const uint32_t b = __ballot_sync(~0u, root);
-    if (lane == 0) {
-      bits[wd] = b;
-      pre[wd] = __popc(b);
-    }
+  int32_t word[kPer], lab[kPer], prev[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int p = tile_slot(tile, u);
+    word[u] = p < r ? __ldg(wrow + p) : 0;
+    lab[u] = p < r ? __ldg(a.lab8 + row0 + p) : -1;
+    prev[u] = lane == 0 && p > 0 && p <= r ? __ldg(wrow + p - 1) : 0;
   }
-  __syncthreads();
-  const int n_comp = static_cast<int>(block_exclusive_scan(pre, nw));
-  // ids (the rank of the root at the clamped label), scatter, pixels;
-  // with the sort each group's size. kUnroll slots a thread at a time,
-  // their loads first.
-  const bool sorted = a.s_start != nullptr;
-  int32_t* grp = a.grp + row0;
-  int32_t* cst = a.cst + row0;
-  // the sort's valid slots lie below `bound`, in `nseg` segments of
-  // seg_len slots (as many as the count tables fit), one a warp: a count
-  // table a segment, of stride groups, and one of the groups' totals; in
-  // shared memory (r + 2 words) where two tables fit, else in the global
-  // scratch (2 r + 4 words a frame)
-  const int bound = a.n_kept ? kept : min(count, r);
-  const int stride = n_comp + 2;
-  const bool in_shared = a.gcnt_shared && 2 * stride <= r + 2;
-  uint32_t* gcnt =
-      !sorted     ? nullptr
-      : in_shared ? pre + nw
-                  : a.gcnt + static_cast<int64_t>(f) * (2 * r + 4);
-  const int64_t room = in_shared ? r + 2 : 2 * r + 4;
-  int nseg = kFrameWarps;
-  while (nseg > 1 && static_cast<int64_t>(nseg + 1) * stride > room)
-    nseg >>= 1;
-  const int seg_len = max(1, (bound + nseg - 1) / nseg);
-  if (sorted) {
-    for (int k = threadIdx.x; k < (nseg + 1) * stride; k += kFrameThreads)
-      gcnt[k] = 0;
-    __syncthreads();
+  bool root[kPer], flag = false;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int p = tile_slot(tile, u);
+    // the slot's wire run (the compacted slot's own with a single threshold)
+    const Run q = decode(word[u], p, count, g);
+    const int32_t pw = __shfl_up_sync(~0u, word[u], 1);
+    const Run qp = decode(lane ? pw : prev[u], p - 1, count, g);
+    // the valid wire runs' rows do not decrease, nor follow an invalid
+    // slot, and no valid slot's label exceeds its index
+    flag |= p < r && p > 0 && q.valid && (!qp.valid || qp.row > q.row);
+    const bool valid = a.n_kept ? p < kept : q.valid;
+    flag |= p < r && valid && lab[u] > p;
+    root[u] = p < r && valid && lab[u] == p;
   }
-  uint32_t px = 0;
-  for (int p0 = threadIdx.x; p0 < r; p0 += kUnroll * kFrameThreads) {
-    int32_t lab[kUnroll], orig[kUnroll], word[kUnroll];
+  if (a.row_min) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = p0 + u * kFrameThreads;
-      lab[u] = p < r ? lab8[p] : 0;
-      orig[u] = p < r && a.c_orig ? a.c_orig[row0 + p] : p;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      word[u] = p0 + u * kFrameThreads < r ? wrow[orig[u]] : 0;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = p0 + u * kFrameThreads;
-      if (p >= r) break;
-      const int asc = count_through(bits, pre, clamp_run(lab[u], r)) - 1;
-      const bool valid =
-          a.n_kept ? p < kept : decode(word[u], p, count, g).valid;
-      const int32_t len = valid ? (word[u] >> 27) & 0x1F : 0;
-      a.run_comp[row0 + orig[u]] = valid ? asc : -1;
-      px += static_cast<uint32_t>(len);
-      if (sorted) {
-        grp[p] = valid ? asc + 1 : n_comp + 1;
-        cst[p] = (word[u] & 0x03FFFFFF) | (len << 26);
-        if (valid) atomicAdd(gcnt + (p / seg_len) * stride + asc + 1, 1u);
+    for (int u = 0; u < kPer; ++u) {
+      if (!root[u]) continue;
+      const int p = tile_slot(tile, u);
+      int32_t row = decode(word[u], p, count, g).row;
+      if (a.c_orig) {
+        const int o = __ldg(a.c_orig + row0 + p);
+        row = decode(__ldg(wrow + o), o, count, g).row;
       }
+      a.root_row[row0 + p] = row;
     }
   }
-  __shared__ uint32_t px_warp[kFrameWarps];
-  for (int o = 16; o; o >>= 1) px += __shfl_xor_sync(~0u, px, o);
-  if (lane == 0) px_warp[warp] = px;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t total = 0;
-    for (int k = 0; k < kFrameWarps; ++k) total += px_warp[k];
-    a.n_px[f] = static_cast<int32_t>(total);
-    a.n_comp[f] = n_comp;
+  write_tile(root, flag, a.s, f, tile);
+  if (tile == 0 && threadIdx.x == 0) {
+    a.n_px[f] = 0;
     const int32_t s8 = a.steps8[f];
     a.cc_steps[f] = a.steps4 ? max(a.steps4[f], s8) : s8;
   }
-  if (!sorted) return;
-  // (component, start) order, the padding (group n_comp + 1) last. The
-  // groups' first places (a prefix sum of their totals), and each
-  // segment's first place in each group (the counts of the segments
-  // before it); then a warp a segment places its valid slots in slot
-  // order, a group's slots in order (their starts do not decrease where
-  // the wire is in raster order).
-  uint32_t* tot = gcnt + nseg * stride;
-  for (int gp = threadIdx.x; gp <= n_comp; gp += kFrameThreads) {
-    uint32_t t = 0;
-    for (int w = 0; w < nseg; ++w) t += gcnt[w * stride + gp];
-    tot[gp] = t;
-  }
-  __syncthreads();
-  const int n_valid = static_cast<int>(block_exclusive_scan(tot, n_comp + 1));
-  for (int gp = threadIdx.x; gp <= n_comp; gp += kFrameThreads) {
-    uint32_t run = tot[gp];
-    for (int w = 0; w < nseg; ++w) {
-      const uint32_t c = gcnt[w * stride + gp];
-      gcnt[w * stride + gp] = run;
-      run += c;
+}
+
+// a compacted slot's run as the ids launch sees it
+struct Slot {
+  int orig;      // its wire index
+  int asc;       // the rank of the root at its clamped label
+  int lab;       // that label
+  bool valid, root_at_lab;
+  Run q;         // its wire run
+};
+
+__device__ __forceinline__ Slot finish_slot(const FinishArgs& a, int f,
+                                            const uint2* wl,
+                                            const uint32_t* tpre, int p,
+                                            int kept) {
+  const Wire& g = a.g;
+  const int64_t row0 = static_cast<int64_t>(f) * g.r;
+  Slot s;
+  s.lab = clamp_run(__ldg(a.lab8 + row0 + p), g.r);
+  s.orig = a.c_orig ? __ldg(a.c_orig + row0 + p) : p;
+  const uint2 w = wl[s.lab >> 5];
+  s.q = decode(__ldg(g.runs + row0 + s.orig), s.orig, g.counts[f], g);
+  s.valid = a.n_kept ? p < kept : s.q.valid;
+  s.root_at_lab = (w.x >> (s.lab & 31)) & 1u;
+  s.asc = static_cast<int>(tpre[s.lab / kTile] + w.y +
+                           __popc(w.x & ((2u << (s.lab & 31)) - 1u))) - 1;
+  return s;
+}
+
+// a run's entry in its frame's tables: its row less y0 in its id's rows
+__device__ __forceinline__ int table_entry(const FinishArgs& a, int id,
+                                           const Run& q, int y0) {
+  return id * a.max_bh + min(max(q.row - y0, 0), a.max_bh - 1);
+}
+
+// x extremes lo, hi into entry e of frame f's tables
+__device__ __forceinline__ void table_update(const FinishArgs& a, int f,
+                                             int e, int lo, int hi) {
+  const int64_t slot = static_cast<int64_t>(f) * a.max_det * a.max_bh + e;
+  atomicMin(a.row_min + slot, lo);
+  atomicMax(a.row_max + slot, hi);
+  a.row_valid[slot] = 1;
+}
+
+// the warp's runs' table updates (entry e, or -1 for none): a run's
+// extremes merged into those of the lanes after it with its entry (a
+// component's runs of a row are mostly neighbours), then one update for
+// the last lane of each stretch of lanes with one entry. Every lane calls
+// it.
+__device__ __forceinline__ void warp_table_update(const FinishArgs& a, int f,
+                                                  int e, int lo, int hi) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int e2 = __shfl_up_sync(~0u, e, o);
+    const int lo2 = __shfl_up_sync(~0u, lo, o);
+    const int hi2 = __shfl_up_sync(~0u, hi, o);
+    if (lane >= o && e2 == e) {
+      lo = min(lo, lo2);
+      hi = max(hi, hi2);
     }
   }
-  // in order: the valid slots are [0, bound) and their starts do not
-  // decrease (else the general passes below)
-  bool ordered = n_valid == bound;
-  for (int p = threadIdx.x + 1; ordered && p < bound; p += kFrameThreads)
-    if ((cst[p] & 0x03FFFFFF) < (cst[p - 1] & 0x03FFFFFF)) ordered = false;
-  ordered = __syncthreads_and(ordered);
-  if (ordered && warp < nseg) {
-    uint32_t* place_of = gcnt + warp * stride;
-    const uint32_t lt = (1u << lane) - 1u;
-    const int lo = warp * seg_len, hi = min(bound, lo + seg_len);
-    // the next chunk's loads in flight while a chunk is placed
-    int32_t gp_next = lo + lane < hi ? grp[lo + lane] : 0;
-    int32_t c_next = lo + lane < hi ? cst[lo + lane] : 0;
-    for (int p0 = lo; p0 < hi; p0 += 32) {
-      const bool in = p0 + lane < hi;
-      const int32_t gp = gp_next, c = c_next;
-      const int pn = p0 + 32 + lane;
-      gp_next = pn < hi ? grp[pn] : 0;
-      c_next = pn < hi ? cst[pn] : 0;
-      const uint32_t peers = __match_any_sync(
-          ~0u, in ? static_cast<uint32_t>(gp) : 0x80000000u | lane);
-      const int leader = __ffs(peers) - 1;
-      uint32_t place = 0;
-      if (in && lane == leader) {
-        place = place_of[gp];
-        place_of[gp] = place + __popc(peers);
-      }
-      place = __shfl_sync(~0u, place, leader) + __popc(peers & lt);
-      if (in) {
-        a.s_start[row0 + place] = c & 0x03FFFFFF;
-        a.s_len[row0 + place] = c >> 26;
-        a.s_comp[row0 + place] = gp - 1;
-      }
-      __syncwarp();
+  const int next = __shfl_down_sync(~0u, e, 1);
+  if (e >= 0 && (lane == 31 || next != e)) table_update(a, f, e, lo, hi);
+}
+
+// frame f's table entries of ids [d0, d1) filled with their empty values
+// (+-2^30, false; with min_y, BIG_I there too) by the block's threads,
+// 16-byte stores where an id's rows are a multiple of 16
+__device__ void fill_ids(const FinishArgs& a, int f, int d0, int d1,
+                         bool with_min_y) {
+  const int64_t c0 = static_cast<int64_t>(f) * a.max_det + d0;
+  const int64_t e0 = c0 * a.max_bh;
+  const int64_t n = static_cast<int64_t>(max(d1 - d0, 0)) * a.max_bh;
+  if (a.max_bh % 16 == 0) {
+    int4* mn = reinterpret_cast<int4*>(a.row_min + e0);
+    int4* mx = reinterpret_cast<int4*>(a.row_max + e0);
+    uint4* v = reinterpret_cast<uint4*>(a.row_valid + e0);
+    for (int64_t i = threadIdx.x; i < n / 4; i += kThreads) {
+      mn[i] = make_int4(kBigI, kBigI, kBigI, kBigI);
+      mx[i] = make_int4(-kBigI, -kBigI, -kBigI, -kBigI);
+      if (i < n / 16) v[i] = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < n; i += kThreads) {
+      a.row_min[e0 + i] = kBigI;
+      a.row_max[e0 + i] = -kBigI;
+      a.row_valid[e0 + i] = 0;
     }
   }
-  __shared__ int s_seg[kMaxSegs + 1];
-  uint32_t* cnt = a.rcnt + static_cast<int64_t>(f) * kDigits * kFrameThreads;
-  int32_t* pay = a.pay_a + row0;
-  int32_t* alt = a.pay_b + row0;
-  if (!ordered) {
-    // the valid slots are no prefix or their starts decrease somewhere
-    // (the wire is not in raster order): a stable sort by start, then by
-    // group, of every slot
-    for (int p = threadIdx.x; p < r; p += kFrameThreads) pay[p] = p;
+  if (with_min_y)
+    for (int i = threadIdx.x; i < d1 - d0; i += kThreads)
+      a.min_y[c0 + i] = kBigI;
+}
+
+// the ids launch: a block a tile (a 1-D grid, frame-major). With the
+// tables the blocks take their tiles in order from a counter. A tile's
+// roots are a range of ids, and the block fills those ids' tables (and
+// its share of the ids past the frame's components) before any update,
+// so the lines are in L2 when the atomics come; then it sets its tile's
+// flag. A run's component has its root at or before the run's tile (in a
+// frame not flagged), so a block's updates wait for the flags of its
+// frame's tiles up to its own, all taken before it.
+__global__ void __launch_bounds__(kThreads) ids_kernel(FinishArgs a) {
+  __shared__ uint32_t s_tpre[kMaxTiles];
+  __shared__ uint32_t s_px[kWarps];
+  __shared__ int s_block;
+  const Wire& g = a.g;
+  const bool tables = a.row_min != nullptr;
+  const int nt = a.s.ntiles;
+  int b = blockIdx.x;
+  if (tables) {
+    if (threadIdx.x == 0) s_block = atomicAdd(a.sync + a.t * nt, 1u);
     __syncthreads();
-    for (int shift = 0; shift < 26; shift += 4) {
-      radix_pass(cst, true, shift, pay, alt, r, cnt);
-      int32_t* t = pay;
-      pay = alt;
-      alt = t;
-    }
-    for (int shift = 0; shift < 32 - __clz(n_comp + 1); shift += 4) {
-      radix_pass(grp, false, shift, pay, alt, r, cnt);
-      int32_t* t = pay;
-      pay = alt;
-      alt = t;
-    }
-    for (int p = threadIdx.x; p < r; p += kFrameThreads) {
-      const int sl = pay[p];
-      const int32_t c = cst[sl];
-      const int32_t gp = grp[sl];
-      a.s_start[row0 + p] = c & 0x03FFFFFF;
-      a.s_len[row0 + p] = c >> 26;
-      a.s_comp[row0 + p] = gp <= n_comp ? gp - 1 : -1;
-    }
-    return;
+    b = s_block;
   }
-  __syncthreads();
-  // the padding's starts in slot order: the rest of cst (the valid slots
-  // are a prefix; the padding's lengths are 0), cut into non-decreasing
-  // segments
-  const int n_pad = r - n_valid;
-  const int32_t* pad = cst + n_valid;
-  const int nwp = (n_pad + 31) >> 5;
-  for (int wd = warp; wd < nwp; wd += kFrameWarps) {
-    const int k = wd * 32 + lane;
-    const uint32_t b = __ballot_sync(
-        ~0u, k < n_pad && (k == 0 || pad[k] < pad[k - 1]));
-    if (lane == 0) {
-      bits[wd] = b;
-      pre[wd] = __popc(b);
-    }
+  const int tile = b % nt, f = b / nt, r = g.r;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row0 = static_cast<int64_t>(f) * r;
+  int n_comp;
+  bool flagged;
+  frame_prefix(a.s, f, s_tpre, &n_comp, &flagged);
+  const uint2* wl = a.s.wl + static_cast<int64_t>(f) * a.s.nw;
+  const int kept = a.n_kept ? a.n_kept[f] : 0;
+  Slot sl[kPer];
+  int32_t y_root[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int p = min(tile_slot(tile, u), r - 1);
+    sl[u] = finish_slot(a, f, wl, s_tpre, p, kept);
+    y_root[u] = tables && !flagged ? a.root_row[row0 + sl[u].lab] : 0;
   }
-  __syncthreads();
-  const int cuts = static_cast<int>(block_exclusive_scan(pre, nwp));
-  if (cuts <= kMaxSegs) {
-    for (int k = threadIdx.x; k < n_pad; k += kFrameThreads)
-      if ((bits[k >> 5] >> (k & 31)) & 1u)
-        s_seg[count_before(bits, pre, k)] = k;
-    if (threadIdx.x == 0) s_seg[cuts] = n_pad;
-    // the starts in shared memory where the group counts were
-    const int32_t* sp = pad;
-    if (in_shared) {
-      int32_t* copy = reinterpret_cast<int32_t*>(gcnt);
-      for (int k = threadIdx.x; k < n_pad; k += kFrameThreads)
-        copy[k] = pad[k];
-      sp = copy;
-    }
+  if (tables) {
+    // the ids of the tile's roots (ranks tpre[tile] on), in a flagged
+    // frame their min_y too, and a share of the ids past the components
+    const int rank_end =
+        tile + 1 < nt ? static_cast<int>(s_tpre[tile + 1]) : n_comp;
+    fill_ids(a, f, n_comp - rank_end,
+             min(n_comp - static_cast<int>(s_tpre[tile]), a.max_det),
+             flagged);
+    const int rest = max(a.max_det - n_comp, 0);
+    fill_ids(a, f, a.max_det - rest + rest * tile / nt,
+             a.max_det - rest + rest * (tile + 1) / nt, true);
+    __threadfence();
     __syncthreads();
-    // a start's place: its offset in its segment, the starts of the
-    // segments before it that are not above it and those of the segments
-    // after it that are below it
-    for (int k = threadIdx.x; k < n_pad; k += kFrameThreads) {
-      const int32_t v = sp[k];
-      int own = 0;
-      while (own + 1 < cuts && s_seg[own + 1] <= k) ++own;
-      int place = n_valid + k - s_seg[own];
-      for (int b = 0; b < cuts; ++b) {
-        if (b == own) continue;
-        int lo = s_seg[b], hi = s_seg[b + 1];
-        const int first = lo;
-        while (lo < hi) {
-          const int mid = lo + ((hi - lo) >> 1);
-          if (b < own ? sp[mid] <= v : sp[mid] < v)
-            lo = mid + 1;
-          else
-            hi = mid;
+    uint32_t* flags = a.sync + static_cast<int64_t>(f) * nt;
+    if (threadIdx.x == 0) atomicExch(flags + tile, 1u);
+    // the tiles' fills this block's updates need: those up to its own (in
+    // a flagged frame the last tile's block makes them all)
+    const int need = flagged ? (tile == nt - 1 ? nt : 0) : tile + 1;
+    if (warp == 0)
+      for (int j = lane; j < need; j += 32)
+        while (!*static_cast<volatile uint32_t*>(flags + j)) {
         }
-        place += lo - first;
-      }
-      a.s_start[row0 + place] = v;
-      a.s_len[row0 + place] = 0;
-      a.s_comp[row0 + place] = -1;
+    __syncthreads();
+  }
+  uint32_t px = 0;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int p = tile_slot(tile, u);
+    const Slot& s = sl[u];
+    const bool valid = p < r && s.valid;
+    if (p < r) a.run_comp[row0 + s.orig] = valid ? s.asc : -1;
+    px += valid ? static_cast<uint32_t>(s.q.lens) : 0u;
+    if (!tables || flagged) continue;  // the block's lanes alike
+    int e = -1;
+    const int id = n_comp - 1 - s.asc;  // cv2's order
+    if (valid && s.asc >= 0 && id < a.max_det) {
+      // the component's least row: its root's (a label that names no
+      // root ranks with the root before it, whose group this run joins)
+      const int y0 =
+          s.root_at_lab
+              ? y_root[u]
+              : a.root_row[row0 + select_bit(a.s, wl, s_tpre, s.asc)];
+      e = table_entry(a, id, s.q, y0);
+      if (s.root_at_lab && s.lab == p)
+        a.min_y[static_cast<int64_t>(f) * a.max_det + id] = s.q.row;
     }
-    return;
+    warp_table_update(a, f, e, s.q.xs, s.q.xe);
   }
-  // many segments: the padding's starts sorted in radix passes
-  for (int k = threadIdx.x; k < n_pad; k += kFrameThreads) pay[k] = k;
+  for (int o = 16; o; o >>= 1) px += __shfl_xor_sync(~0u, px, o);
+  if (lane == 0) s_px[warp] = px;
   __syncthreads();
-  for (int shift = 0; shift < 26; shift += 4) {
-    radix_pass(pad, false, shift, pay, alt, n_pad, cnt);
-    int32_t* t = pay;
-    pay = alt;
-    alt = t;
+  if (threadIdx.x == 0) {
+    uint32_t total = 0;
+    for (int k = 0; k < kWarps; ++k) total += s_px[k];
+    atomicAdd(a.n_px + f, static_cast<int32_t>(total));
+    if (tile == 0) a.n_comp[f] = n_comp;
   }
-  for (int k = threadIdx.x; k < n_pad; k += kFrameThreads) {
-    a.s_start[row0 + n_valid + k] = pad[pay[k]];
-    a.s_len[row0 + n_valid + k] = 0;
-    a.s_comp[row0 + n_valid + k] = -1;
+  if (!tables || !flagged || tile != nt - 1) return;
+  // a flagged frame: this block alone, the components' least rows first
+  int32_t* min_y = a.min_y + static_cast<int64_t>(f) * a.max_det;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int p = threadIdx.x; p < r; p += kThreads) {
+      const Slot s = finish_slot(a, f, wl, s_tpre, p, kept);
+      if (!s.valid || s.asc < 0) continue;
+      const int id = n_comp - 1 - s.asc;
+      if (id >= a.max_det) continue;
+      if (pass == 0)
+        atomicMin(min_y + id, s.q.row);
+      else
+        table_update(a, f, table_entry(a, id, s.q, __ldcg(min_y + id)),
+                     s.q.xs, s.q.xe);
+    }
+    __syncthreads();
   }
 }
 
@@ -831,34 +1001,36 @@ Wire make_wire(const void* runs, const void* counts, int r, int w) {
   return g;
 }
 
-template <typename K>
-cudaError_t frame_launch(K kernel, const void* args, size_t smem, int t,
-                         cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  void* params[] = {const_cast<void*>(args)};
-  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(t),
-                          dim3(kFrameThreads), params, smem, s);
+// the bits scratch of the compact and finish launches
+Words make_words(void* scratch, int t, int r) {
+  Words s;
+  s.nw = (r + 31) / 32;
+  s.ntiles = (r + kTile - 1) / kTile;
+  s.wl = static_cast<uint2*>(scratch);
+  s.tcnt = reinterpret_cast<uint32_t*>(s.wl + static_cast<int64_t>(t) * s.nw);
+  return s;
 }
 
 }  // namespace
 
 extern "C" {
 
-// the scratch of ysmr_run_prepare and, with the sorted runs, of
-// ysmr_run_finish, in int32 words
-int64_t ysmr_run_scratch_words(int t, int r, int finish) {
+// the scratch of ysmr_run_prepare (kind 0), of ysmr_run_compact and
+// ysmr_run_finish (kind 1: the tiles' words and counts) and of
+// ysmr_run_finish with the row tables (kind 2: and the roots' rows), in
+// int32 words
+int64_t ysmr_run_scratch_words(int t, int r, int kind) {
   const int64_t tr = static_cast<int64_t>(t) * r;
-  if (finish)
-    return 6 * tr + 4 * static_cast<int64_t>(t) +
-           static_cast<int64_t>(t) * kDigits * kFrameThreads;
-  const int64_t flags = static_cast<int64_t>(t) *
-                        ((r + kPrepThreads - 1) / kPrepThreads);
-  return 2 * tr + (flags + 3) / 4;
+  if (kind == 0) {
+    const int64_t flags = static_cast<int64_t>(t) *
+                          ((r + kPrepThreads - 1) / kPrepThreads);
+    return 2 * tr + (flags + 3) / 4;
+  }
+  const int64_t words = 2 * static_cast<int64_t>(t) * ((r + 31) / 32) +
+                        static_cast<int64_t>(t) * ((r + kTile - 1) / kTile);
+  return words + (kind == 2 ? tr + static_cast<int64_t>(t) *
+                                         ((r + kTile - 1) / kTile) + 1
+                           : 0);
 }
 
 // runs: (T, R) int32 wire, counts: (T,) int32; out: ends (nd, 4, T, R)
@@ -913,15 +1085,16 @@ int ysmr_run_prepare(const void* runs, const void* counts, void* ends,
 // planes and oks8 two (T, R) uint8 planes (host arrays of device
 // pointers): the 8-connected windows in wire order; out: init
 // (T, R) int32, ends (4, T, R), oks (2, T, R), link (T, R) uint8, c_orig
-// (T, R) int32, n_kept (T,) int32. R <= 2^19. Returns a cudaError_t.
+// (T, R) int32, n_kept (T,) int32; scratch: ysmr_run_scratch_words(t, r,
+// 1) int32, 8-byte aligned. R <= 2^19, T <= 65535. Two launches. Returns
+// a cudaError_t.
 int ysmr_run_compact(const void* runs, const void* counts, const void* lab4,
                      const void* const* ends8, const void* const* oks8,
-                     void* init,
-                     void* ends, void* oks, void* link, void* c_orig,
-                     void* n_kept, int t, int r, int w, int device,
-                     void* stream) {
+                     void* init, void* ends, void* oks, void* link,
+                     void* c_orig, void* n_kept, void* scratch, int t, int r,
+                     int w, int device, void* stream) {
   if (t <= 0 || r <= 0) return 0;
-  if (w < 1 || w > (1 << 26) || r > (1 << 19))
+  if (w < 1 || w > (1 << 26) || r > kMaxTiles * kTile || t > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -937,29 +1110,34 @@ int ysmr_run_compact(const void* runs, const void* counts, const void* lab4,
   a.link = static_cast<uint8_t*>(link);
   a.c_orig = static_cast<int32_t*>(c_orig);
   a.n_kept = static_cast<int32_t*>(n_kept);
+  a.s = make_words(scratch, t, r);
   a.t = t;
-  const size_t smem = 2 * sizeof(uint32_t) * ((r + 31) / 32);
-  err = frame_launch(compact_kernel, &a, smem, t,
-                     static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(a.s.ntiles, t);
+  keep_kernel<<<grid, kThreads, 0, s>>>(a);
+  compact_kernel<<<grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // runs, counts as above; lab8 (T, R) int32; c_orig (T, R) int32 and
 // n_kept (T,) int32, both null for the identity compaction; steps4 (T,)
 // (or null) and steps8 (T,) int32; out: run_comp (T, R), n_comp, n_px,
-// cc_steps (T,) int32; with sorted runs s_start, s_len, s_comp (T, R)
-// int32 (else null) and scratch of ysmr_run_scratch_words(t, r, 1) int32.
-// R <= 2^19.
-// Returns a cudaError_t.
+// cc_steps (T,) int32; with the row tables (else null) row_min, row_max
+// (T max_det, max_bh) int32, row_valid (T max_det, max_bh) uint8 and
+// min_y (T max_det,) int32, each 16-byte aligned; scratch:
+// ysmr_run_scratch_words(t, r, 2 with the tables, else 1) int32, 8-byte
+// aligned. R <= 2^19, T <= 65535. Two launches. Returns a cudaError_t.
 int ysmr_run_finish(const void* runs, const void* counts, const void* lab8,
                     const void* c_orig, const void* n_kept,
                     const void* steps4, const void* steps8, void* run_comp,
-                    void* n_comp, void* n_px, void* cc_steps, void* s_start,
-                    void* s_len, void* s_comp, void* scratch, int t, int r,
-                    int w, int device, void* stream) {
+                    void* n_comp, void* n_px, void* cc_steps, void* row_min,
+                    void* row_max, void* row_valid, void* min_y,
+                    void* scratch, int t, int r, int w, int max_det,
+                    int max_bh, int device, void* stream) {
   if (t <= 0 || r <= 0) return 0;
-  if (w < 1 || w > (1 << 26) || r > (1 << 19))
+  if (w < 1 || w > (1 << 26) || r > kMaxTiles * kTile || t > 65535 ||
+      (row_min && (max_det < 1 || max_bh < 1 ||
+                   static_cast<int64_t>(max_det) * max_bh > INT32_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -974,29 +1152,24 @@ int ysmr_run_finish(const void* runs, const void* counts, const void* lab8,
   a.n_comp = static_cast<int32_t*>(n_comp);
   a.n_px = static_cast<int32_t*>(n_px);
   a.cc_steps = static_cast<int32_t*>(cc_steps);
-  a.s_start = static_cast<int32_t*>(s_start);
-  a.s_len = static_cast<int32_t*>(s_len);
-  a.s_comp = static_cast<int32_t*>(s_comp);
-  const int64_t plane = static_cast<int64_t>(t) * r;
-  int32_t* sc = static_cast<int32_t*>(scratch);
-  if (sc) {
-    a.grp = sc;
-    a.cst = sc + plane;
-    a.pay_a = sc + 2 * plane;
-    a.pay_b = sc + 3 * plane;
-    a.gcnt = reinterpret_cast<uint32_t*>(sc + 4 * plane);
-    a.rcnt = a.gcnt + static_cast<int64_t>(t) * (2 * r + 4);
+  a.s = make_words(scratch, t, r);
+  if (row_min) {
+    a.row_min = static_cast<int32_t*>(row_min);
+    a.row_max = static_cast<int32_t*>(row_max);
+    a.row_valid = static_cast<uint8_t*>(row_valid);
+    a.min_y = static_cast<int32_t*>(min_y);
+    a.root_row = reinterpret_cast<int32_t*>(
+        a.s.tcnt + static_cast<int64_t>(t) * a.s.ntiles);
+    a.sync = reinterpret_cast<uint32_t*>(a.root_row +
+                                         static_cast<int64_t>(t) * r);
+    a.max_det = max_det;
+    a.max_bh = max_bh;
   }
   a.t = t;
-  size_t smem = 2 * sizeof(uint32_t) * ((r + 31) / 32);
-  if (s_start) {
-    // the group counts where they fit beside the masks
-    a.gcnt_shared = smem + sizeof(uint32_t) * (r + 2) <= 200 * 1024;
-    if (a.gcnt_shared) smem += sizeof(uint32_t) * (r + 2);
-  }
-  err = frame_launch(finish_kernel, &a, smem, t,
-                     static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned tiles = static_cast<unsigned>(t * a.s.ntiles);
+  roots_kernel<<<tiles, kThreads, 0, s>>>(a);
+  ids_kernel<<<tiles, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -418,6 +418,26 @@ def component_stats_runs(s_start, s_len, s_comp, *, w, h, max_det, max_bh,
         table order; -1 = none)
     :return: the ``_stats_tail_from_tables`` dict over (T*max_det, ...)
     """
+    return _stats_tail_from_tables(
+        *run_row_tables(s_start, s_len, s_comp, w=w, h=h, max_det=max_det,
+                        max_bh=max_bh),
+        max_bh=max_bh, cv2_centers=cv2_centers)
+
+
+def run_row_tables(s_start, s_len, s_comp, *, w, h, max_det, max_bh):
+    """The row tables of ``component_stats_runs`` (what
+    ``_stats_tail_from_tables`` reads): each component's x extremes per
+    row of its box, the box's first row being that of the component's
+    first run in table order (its least row: starts are ``y*w+x``), and
+    that row. Rows of valid runs must be below ``h`` (the encoder's
+    contract: the first row is decoded from ``bit_length(h - 1)`` bits).
+    ``ops/run_cc.py::finish_components`` writes the same tables from the
+    unsorted runs on the card.
+
+    :return: (row_min_x, row_max_x) (T*max_det, max_bh) int32 (+-BIG_I
+        where empty), row_valid (T*max_det, max_bh) bool and min_y
+        (T*max_det,) int32 (BIG_I where there is no component)
+    """
     t, r = s_start.shape
     dev = s_start.device
     valid = s_len > 0
@@ -455,8 +475,7 @@ def component_stats_runs(s_start, s_len, s_comp, *, w, h, max_det, max_bh,
     row_valid = row_min_x < BIG_I
     min_y = torch.where(row_valid[:, 0], y_tab[:, 0],
                         torch.full_like(y_tab[:, 0], BIG_I))
-    return _stats_tail_from_tables(row_min_x, row_max_x, row_valid, min_y,
-                                   max_bh=max_bh, cv2_centers=cv2_centers)
+    return row_min_x, row_max_x, row_valid, min_y
 
 
 def _stats_tail_from_tables(row_min_x, row_max_x, row_valid, min_y, *,

@@ -28,10 +28,13 @@ Differences from the JAX module, all of representation:
 - The steps around the two propagations are three wrappers, each with a
   plain version made of the torch operations above: ``prepare_runs``
   (decode, windows, links), ``compact_kept_runs`` (the compaction between
-  the propagations) and ``finish_components`` (ids, scatter, counts,
-  sorted runs). On a CUDA tensor each launches the hand-written kernels
-  of ``csrc/run_cc.cu`` (prepare two, the others one), bit-equal to its
-  plain version; a CPU tensor takes the plain version.
+  the propagations) and ``finish_components`` (ids, scatter, counts and,
+  for the device rects, the row tables of ``ops/labeling.py::
+  component_stats_runs``). On a CUDA tensor each launches two
+  hand-written kernels of ``csrc/run_cc.cu``, bit-equal to its plain
+  version; a CPU tensor takes the plain version. The component-sorted
+  runs (``sorted_runs``) are the plain version's only: the finish writes
+  the row tables from the unsorted runs.
 """
 
 import ctypes
@@ -39,6 +42,7 @@ import ctypes
 import torch
 
 from ysmr_tpu_torch import _build
+from ysmr_tpu_torch.ops import labeling
 
 #: sentinel larger than any real sort key (keys are < 2^22 after packing)
 _BIG = 1 << 28
@@ -261,12 +265,14 @@ def compact_kept_runs_plain(px_runs, run_counts, lab4, win8o, *, w):
 
 
 def finish_components_plain(px_runs, run_counts, lab8, c_orig, n_kept,
-                            steps4, steps8, *, w, sorted_runs=False):
+                            steps4, steps8, *, w, sorted_runs=False,
+                            row_tables=None):
     """Plain version of ``finish_components``: the roots' ascending rank
     (a cumulative sum), the ids gathered and scattered to wire order, the
-    kept pixels and, with ``sorted_runs``, one stable sort of the combined
-    key (component rank, start < 2^26); the JAX version sorts by the two
-    keys."""
+    kept pixels and, with ``sorted_runs`` or ``row_tables``, one stable
+    sort of the combined key (component rank, start < 2^26; the JAX
+    version sorts by the two keys); with ``row_tables`` the ids reversed
+    to cv2's order and ``labeling.run_row_tables`` of the sorted runs."""
     geo = _prepare(px_runs, run_counts, w=w)
     t, r = geo['rows'].shape
     iota = _iota(t, r, px_runs.device)
@@ -297,18 +303,36 @@ def finish_components_plain(px_runs, run_counts, lab8, c_orig, n_kept,
     cc_steps = steps8 if steps4 is None else torch.maximum(steps4, steps8)
     out = {'run_comp': run_comp, 'n_components': n_components,
            'n_px': n_px, 'cc_steps': cc_steps}
+    if not (sorted_runs or row_tables):
+        return out
+    # components contiguous, linear start ascending within: one stable
+    # sort of the combined key (component rank, start < 2^26); the JAX
+    # version sorts by the two keys
+    c_start = c_xs + c_rows * w
+    skey = torch.where(c_valid, asc, torch.full_like(asc, 1 << 30))
+    order = torch.sort(skey.long() * (1 << 26) + c_start, dim=1,
+                       stable=True).indices
+    s_start, s_len, s_comp = (torch.gather(a, 1, order)
+                              for a in (c_start, c_len_v, comp_c))
     if sorted_runs:
-        # components contiguous, linear start ascending within: one stable
-        # sort of the combined key (component rank, start < 2^26); the JAX
-        # version sorts by the two keys
-        c_start = c_xs + c_rows * w
-        skey = torch.where(c_valid, asc, torch.full_like(asc, 1 << 30))
-        order = torch.sort(skey.long() * (1 << 26) + c_start, dim=1,
-                           stable=True).indices
-        out.update(s_start=torch.gather(c_start, 1, order),
-                   s_len=torch.gather(c_len_v, 1, order),
-                   s_comp=torch.gather(comp_c, 1, order))
+        out.update(s_start=s_start, s_len=s_len, s_comp=s_comp)
+    if row_tables:
+        # cv2 enumerates contours in reverse raster order: reverse the ids
+        comp_rev = torch.where(s_comp >= 0,
+                               n_components[:, None] - 1 - s_comp,
+                               torch.full_like(s_comp, -1))
+        out.update(zip(TABLE_KEYS, labeling.run_row_tables(
+            s_start, s_len, comp_rev, w=w, **_table_sizes(row_tables))))
     return out
+
+
+#: the row tables' keys in ``finish_components``' output
+TABLE_KEYS = ('row_min_x', 'row_max_x', 'row_valid', 'min_y')
+
+
+def _table_sizes(row_tables):
+    """(h, max_det, max_bh) of a ``row_tables`` dict, as ints."""
+    return {k: int(row_tables[k]) for k in ('h', 'max_det', 'max_bh')}
 
 
 def _wire_args(name, px_runs, run_counts, w, max_runs=None):
@@ -389,7 +413,8 @@ def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False):
     return {'init': init, 'valid': valid, 'wins': wins, 'link': link}
 
 
-#: runs a frame that the one-block-a-frame launches of csrc/run_cc.cu take
+#: runs a frame that the compact and finish launches of csrc/run_cc.cu take
+#: (a frame's tile counts in a block's shared memory)
 RUN_CC_MAX_RUNS = 1 << 19
 
 _WIN_KEYS = ('lo_up', 'hi_up', 'lo_dn', 'hi_dn', 'ok_up', 'ok_dn')
@@ -400,9 +425,9 @@ def compact_kept_runs(px_runs, run_counts, lab4, win8o, *, w):
     4-connected propagation kept (valid, label below R) compacted in
     raster order, and the 8-connected run graph on the compacted table.
 
-    On a CPU tensor ``compact_kept_runs_plain``; on a CUDA tensor one
-    launch of ``csrc/run_cc.cu``'s compact kernel (bit-equal; R at most
-    ``RUN_CC_MAX_RUNS``), or the call raises.
+    On a CPU tensor ``compact_kept_runs_plain``; on a CUDA tensor two
+    launches of ``csrc/run_cc.cu`` (the keep bits, then the compaction;
+    bit-equal; R at most ``RUN_CC_MAX_RUNS``), or the call raises.
 
     :param lab4: (T, R) int32 labels of the 4-connected propagation
     :param win8o: the 8-connected ``run_windows`` dict of the wire's runs
@@ -430,14 +455,17 @@ def compact_kept_runs(px_runs, run_counts, lab4, win8o, *, w):
     c_orig = torch.empty((t, r), dtype=_I32, device=dev)
     n_kept = torch.empty((t,), dtype=_I32, device=dev)
     if t and r:
+        # each tile's words of keep bits and its count
+        scratch = torch.empty(lib.ysmr_run_scratch_words(t, r, 1),
+                              dtype=_I32, device=dev)
         vp = ctypes.c_void_p
         rc = lib.ysmr_run_compact(
             runs.data_ptr(), counts.data_ptr(), lab4.data_ptr(),
             (vp * 4)(*(p.data_ptr() for p in planes[:4])),
             (vp * 2)(*(p.data_ptr() for p in planes[4:])),
             init.data_ptr(), ends.data_ptr(), oks.data_ptr(),
-            link.data_ptr(), c_orig.data_ptr(), n_kept.data_ptr(), t, r, w,
-            dev.index, stream)
+            link.data_ptr(), c_orig.data_ptr(), n_kept.data_ptr(),
+            scratch.data_ptr(), t, r, w, dev.index, stream)
         _build.check(lib, rc, 'run compact kernel launch')
         compact_kept_runs.launches += 1
     win = {'lo_up': ends[0], 'hi_up': ends[1], 'lo_dn': ends[2],
@@ -447,15 +475,17 @@ def compact_kept_runs(px_runs, run_counts, lab4, win8o, *, w):
 
 
 def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
-                      steps8, *, w, sorted_runs=False):
+                      steps8, *, w, sorted_runs=False, row_tables=None):
     """The step after the 8-connected propagation: component ids (the
     ascending raster rank of each component's root run), scattered back to
     wire order, the component and kept-pixel counts, the larger step count
-    and, with ``sorted_runs``, the kept runs in (component, start) order.
+    and, with ``row_tables``, the row tables of the device rects.
 
-    On a CPU tensor ``finish_components_plain``; on a CUDA tensor one
-    launch of ``csrc/run_cc.cu``'s finish kernel (bit-equal; R at most
-    ``RUN_CC_MAX_RUNS``), or the call raises.
+    On a CPU tensor ``finish_components_plain``; on a CUDA tensor two
+    launches of ``csrc/run_cc.cu`` (the roots, then the ids with the
+    tables' fill and atomics; bit-equal; R at most ``RUN_CC_MAX_RUNS``),
+    or the call raises. ``sorted_runs`` has no kernel: on a CUDA tensor it
+    raises.
 
     :param lab8: (T, R) int32 labels of the 8-connected propagation over
         the compacted table
@@ -463,13 +493,20 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
         when the table is the wire's (a single threshold)
     :param steps4: (T,) int32 steps of the 4-connected propagation, or
         None; ``steps8``: those of the 8-connected one
+    :param row_tables: None, or a dict of the frame height ``h`` and the
+        capacities ``max_det`` and ``max_bh``
     :return: the ``run_cc_components`` dict
     """
     if px_runs.device.type == 'cpu':
         return finish_components_plain(px_runs, run_counts, lab8, c_orig,
                                        n_kept, steps4, steps8, w=w,
-                                       sorted_runs=sorted_runs)
+                                       sorted_runs=sorted_runs,
+                                       row_tables=row_tables)
     name = 'finish_components'
+    if sorted_runs:
+        raise ValueError('{}: the component-sorted runs have no kernel (the '
+                         'row tables take their place); they are '
+                         'finish_components_plain\'s'.format(name))
     runs, counts, lib, stream = _wire_args(name, px_runs, run_counts, w,
                                            RUN_CC_MAX_RUNS)
     t, r = runs.shape
@@ -487,16 +524,27 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
     counts_out = torch.empty((3, t), dtype=_I32, device=dev)
     out = {'run_comp': run_comp, 'n_components': counts_out[0],
            'n_px': counts_out[1], 'cc_steps': counts_out[2]}
-    sorted_out = scratch = None
-    if sorted_runs:
-        sorted_out = torch.empty((3, t, r), dtype=_I32, device=dev)
-        # the sort's slot tables (group, start and length, two orders),
-        # its count tables and the radix passes' digit counts
-        scratch = torch.empty(lib.ysmr_run_scratch_words(t, r, 1),
-                              dtype=_I32, device=dev)
-        out.update(s_start=sorted_out[0], s_len=sorted_out[1],
-                   s_comp=sorted_out[2])
+    tables = [None] * 4
+    max_det = max_bh = 0
+    if row_tables:
+        sizes = _table_sizes(row_tables)
+        max_det, max_bh = sizes['max_det'], sizes['max_bh']
+        if max_det < 1 or max_bh < 1:
+            raise ValueError('{}: row tables of {} detections and {} rows'
+                             .format(name, max_det, max_bh))
+        shape = (t * max_det, max_bh)
+        tables = [torch.empty(shape, dtype=_I32, device=dev),
+                  torch.empty(shape, dtype=_I32, device=dev),
+                  torch.empty(shape, dtype=torch.bool, device=dev),
+                  torch.empty((t * max_det,), dtype=_I32, device=dev)]
+        out.update(zip(TABLE_KEYS, tables))
     if t and r:
+        # each tile's words of root bits and its count; with the tables
+        # each root's row
+        scratch = torch.empty(
+            lib.ysmr_run_scratch_words(t, r, 2 if row_tables else 1),
+            dtype=_I32, device=dev)
+
         def ptr(a, k=None):
             return None if a is None else (a if k is None else a[k]) \
                 .data_ptr()
@@ -504,10 +552,12 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
             runs.data_ptr(), counts.data_ptr(), lab8.data_ptr(),
             ptr(c_orig), ptr(n_kept), ptr(steps4), steps8.data_ptr(),
             run_comp.data_ptr(), ptr(counts_out, 0), ptr(counts_out, 1),
-            ptr(counts_out, 2), ptr(sorted_out, 0), ptr(sorted_out, 1),
-            ptr(sorted_out, 2), ptr(scratch), t, r, w, dev.index, stream)
+            ptr(counts_out, 2), *(ptr(a) for a in tables),
+            scratch.data_ptr(), t, r, w, max_det, max_bh, dev.index, stream)
         _build.check(lib, rc, 'run finish kernel launch')
         finish_components.launches += 1
+        if row_tables:
+            finish_components.row_table_launches += 1
     return out
 
 
@@ -515,6 +565,8 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
 prepare_runs.launches = 0
 compact_kept_runs.launches = 0
 finish_components.launches = 0
+#: ... of them with the row tables
+finish_components.row_table_launches = 0
 
 
 def label_runs(px_runs, run_counts, *, w, connectivity=8, max_iters=64):
@@ -547,7 +599,7 @@ def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64):
 
 
 def _components(px_runs, run_counts, w, double_threshold, max_iters,
-                sorted_runs, prepare, compact, finish):
+                sorted_runs, row_tables, prepare, compact, finish):
     prop = _make_prop()
     steps4 = c_orig = n_kept = None
     if double_threshold:
@@ -565,11 +617,11 @@ def _components(px_runs, run_counts, w, double_threshold, max_iters,
         init8, win8, link8 = g['init'], g['wins'][0], g['link']
     lab8, steps8 = prop(init8, win8, link8, max_iters=max_iters)
     return finish(px_runs, run_counts, lab8, c_orig, n_kept, steps4, steps8,
-                  w=w, sorted_runs=sorted_runs)
+                  w=w, sorted_runs=sorted_runs, row_tables=row_tables)
 
 
 def run_cc_components(px_runs, run_counts, *, w, double_threshold,
-                      max_iters=64, sorted_runs=False):
+                      max_iters=64, sorted_runs=False, row_tables=None):
     """Full detect labeling on run tables: reconstruction + 8-conn CC.
 
     Optional marker reconstruction (4-connected, keep mask components that
@@ -577,13 +629,16 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
     components -> ascending raster-rank component ids. Each step is a
     wrapper that routes a CUDA tensor to its kernel (``prepare_runs``,
     ``propagate_min_fused``, ``compact_kept_runs``, ``finish_components``:
-    on the card four launches of ``csrc/run_cc.cu`` around ``csrc/
-    run_prop.cu``'s, three with a single threshold); on a CPU tensor it is
+    on the card six launches of ``csrc/run_cc.cu`` around ``csrc/
+    run_prop.cu``'s, four with a single threshold); on a CPU tensor it is
     ``run_cc_components_plain``.
 
-    :param sorted_runs: also build the component-sorted run tables that
-        only the device rect path reads (the host-rect path skips their
-        sort)
+    :param sorted_runs: also return the component-sorted run tables (the
+        plain route only: on a CUDA tensor the call raises)
+    :param row_tables: None, or a dict of the frame height ``h`` and the
+        capacities ``max_det`` and ``max_bh``: also return the row tables
+        of the device rects, ``labeling.run_row_tables`` of the sorted
+        runs with ids reversed to cv2's order (``TABLE_KEYS``)
     :return: dict with
         ``run_comp`` (T, R) int32 — ascending component id per ORIGINAL
         wire run (-1 = dropped by reconstruction / invalid),
@@ -592,20 +647,23 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
         two propagations (converged <=> cc_steps < max_iters); with
         ``sorted_runs`` also ``s_start, s_len, s_comp`` (T, R) int32, the
         kept runs ordered by (component id, linear start), padding slots
-        with len 0 and component -1 at the end.
+        with len 0 and component -1 at the end; with ``row_tables`` also
+        ``row_min_x, row_max_x`` (T*max_det, max_bh) int32, ``row_valid``
+        (T*max_det, max_bh) bool and ``min_y`` (T*max_det,) int32.
     """
     return _components(px_runs, run_counts, w, double_threshold, max_iters,
-                       sorted_runs, prepare_runs, compact_kept_runs,
-                       finish_components)
+                       sorted_runs, row_tables, prepare_runs,
+                       compact_kept_runs, finish_components)
 
 
 def run_cc_components_plain(px_runs, run_counts, *, w, double_threshold,
-                            max_iters=64, sorted_runs=False):
+                            max_iters=64, sorted_runs=False,
+                            row_tables=None):
     """Plain version of ``run_cc_components``: the plain steps around the
     propagation wrapper (the kernel on a CUDA tensor, whose labels the
     plain propagation gives at its fixpoint)."""
     return _components(px_runs, run_counts, w, double_threshold, max_iters,
-                       sorted_runs, prepare_runs_plain,
+                       sorted_runs, row_tables, prepare_runs_plain,
                        compact_kept_runs_plain, finish_components_plain)
 
 

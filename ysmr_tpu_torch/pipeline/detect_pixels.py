@@ -9,8 +9,9 @@ Counterpart of ``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels``:
   (``det_px_as_runs``; the host measures the cv2-exact rects from the wire
   pixels it holds) or per wire pixel (``run_cc.det_px_from_runs``), and
   without ``skip_rect`` measures on the device (``_stats_outputs_runs``:
-  row-extreme tables, hull edges, the exact minimum-area rect and, with
-  ``cv2_centers``, cv2's bit-exact f32 centers);
+  the row-extreme tables, which run-CC's finish writes, hull edges, the
+  exact minimum-area rect and, with ``cv2_centers``, cv2's bit-exact f32
+  centers);
 - the pixel-table branch (``run cc = off``, ``wire format = pixels``, and
   luminosity, which bypasses run CC): the wire is decoded to (T, F) pixel
   tables (the run wire expanded, the packed uint32 wire, or the split
@@ -218,10 +219,11 @@ def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
     """The run-CC branch: labels on the run tables (``ops/run_cc.py``)."""
     rc_eff = torch.where(frame_valid, run_counts.to(_I32),
                          torch.zeros_like(run_counts, dtype=_I32))
+    row_tables = None if skip_rect else dict(h=h, max_det=max_det,
+                                             max_bh=max_bh)
     cc_out = rcc.run_cc_components(px_runs, rc_eff, w=w,
                                    double_threshold=double_threshold,
-                                   max_iters=cc_iters,
-                                   sorted_runs=not skip_rect)
+                                   max_iters=cc_iters, row_tables=row_tables)
     n_components = cc_out['n_components']
     det_px = det_run = None
     if return_det_px:
@@ -242,14 +244,8 @@ def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
                                           f=expanded_f,
                                           max_det=max_det).to(torch.int16)
     if not skip_rect:
-        # cv2 enumerates contours in reverse raster order: reverse the ids
-        comp_rev_s = torch.where(cc_out['s_comp'] >= 0,
-                                 n_components[:, None] - 1 - cc_out['s_comp'],
-                                 torch.full_like(cc_out['s_comp'], -1))
-        out = _stats_outputs_runs(cc_out['s_start'], cc_out['s_len'],
-                                  comp_rev_s, n_components, h=h, w=w,
-                                  max_det=max_det, max_bh=max_bh,
-                                  cv2_centers=cv2_centers)
+        out = _stats_outputs_runs(cc_out, px_runs.shape[0], max_det=max_det,
+                                  max_bh=max_bh, cv2_centers=cv2_centers)
     else:
         t = px_runs.shape[0]
         dev = px_runs.device
@@ -288,17 +284,16 @@ def _cv2_center_override(rect, tables, *, max_bh):
                 cy=torch.where(cok, ccy, rect['cy']))
 
 
-def _stats_outputs_runs(s_start, s_len, s_comp, n_components, *, h, w,
-                        max_det, max_bh, cv2_centers=False):
-    """Detect tail over component-sorted run tables (no luminosity): the
-    stats, hull and exact rect of every component of the batch in one
-    pass over (T*max_det, ...) tables."""
-    tables = lb.component_stats_runs(s_start, s_len, s_comp, w=w, h=h,
-                                     max_det=max_det, max_bh=max_bh,
-                                     cv2_centers=cv2_centers)
-    out = detections_from_tables(tables, s_start.shape[0], max_det=max_det,
-                                 max_bh=max_bh, cv2_centers=cv2_centers)
-    out['n_components'] = n_components
+def _stats_outputs_runs(cc_out, t, *, max_det, max_bh, cv2_centers=False):
+    """Detect tail over run-CC's row tables (``run_cc_components`` with
+    ``row_tables``; no luminosity): the stats, hull and exact rect of every
+    component of the batch in one pass over (T*max_det, ...) tables."""
+    tables = lb._stats_tail_from_tables(
+        *(cc_out[k] for k in rcc.TABLE_KEYS), max_bh=max_bh,
+        cv2_centers=cv2_centers)
+    out = detections_from_tables(tables, t, max_det=max_det, max_bh=max_bh,
+                                 cv2_centers=cv2_centers)
+    out['n_components'] = cc_out['n_components']
     return out
 
 
