@@ -26,11 +26,16 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    written as MJPG (needs cv2), rows held against the committed reference
    list ``bench_data/bench_clip_list.csv.gz``;
 6. the dense path's kernels (hull, sweep, assign) against their plain
-   PyTorch versions on the card, outputs bit-equal: hull and sweep on the
-   tables of the dense scene's first batch and of the bench scene's first
-   frames-mode batch (32768 x 64), the hull on seeded random tables (also
-   with valid rows that are no prefix, and with R = 4000 and R above the
-   kernel's shared-memory cap),
+   PyTorch versions on the card, outputs bit-equal: hull (from min_y,
+   with count) and sweep (the row tables at the hull's strict corners,
+   the edge candidates, (1, 0) implicit) on the tables of the dense
+   scene's first batch and of the bench scene's first frames-mode batch
+   (32768 x 64), each batch's share of corners logged and the corners'
+   extents held to those of every valid point; the hull on seeded random
+   tables (also with valid rows that are no prefix, and with R = 4000 and
+   R above the kernel's shared-memory cap), the sweep on seeded random
+   tables at R = 1, 17, 48, 65 and 96 (one to four directions a lane, two
+   passes at K = 191),
    assign at 4096x4096 and 16384x16384 with K = 2 and 3 (invalid rows and
    columns, exact ties) and on the edge cases of its row tiles and column
    slices (4097x4095, 1x1, 700x63, ties across slices, all rows or all
@@ -41,12 +46,14 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    through ``track_bacteria(path)``: every kernel launched (the GSFF
    and frame-step kernels once per frame step, as the assign kernel;
    every detect batch's row tables written by run-CC's finish, as often
-   as the hull ran), the track count
+   as the hull ran, and the sweep as often; no candidate point built on
+   the card), the track count
    within 2899 +- 10, no dropped registration, id agreement against
    ``bench_data/dense_clip_list.csv.gz`` printed;
 8. ``cuda`` against ``cpu`` on the dense scene's first batch (64 frames)
    at dense capacities: run-CC through its kernels, the batch's row
-   tables from its finish; TRACK_ID and POSITION_T identical, the other
+   tables from its finish, no candidate point built on the card;
+   TRACK_ID and POSITION_T identical, the other
    columns within the stated tolerance;
 9. the frames-mode kernels (whole-frame labeling, 4- and 8-connected, and
    the marker reconstruction) against their plain PyTorch versions on the
@@ -221,7 +228,8 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 31. the rect tail's kernels against their plain versions on the card, one
    launch a call: the cv2 centres (``csrc/cv2_centers.cu``; ``ok`` equal
    everywhere, the centres bit-equal where it holds), the hull-edge
-   finish and the rect select (``csrc/rect.cu``, bit-equal), on the dense
+   finish and the rect select (``csrc/rect.cu``, bit-equal; the rect
+   select forms the (1, 0) candidate's direction), on the dense
    first batch's tables, the frames-mode bench batch and seeded edge
    cases (no valid row, a pixel, lines, more than 32 strict corners, more
    than 8 in-band candidates, bboxes past the inverse-sqrt table, equal
@@ -232,13 +240,15 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    past it, D no multiple of a block's components, tables too tall to
    stage at R = 1000; the rect select with every candidate valid, none,
    K = 1, 2, 127 and 191); median ms of each with the bound, and a
-   ``rect tail resources`` JSON line a kernel (ptxas' registers, spills
-   and shared memory, the occupancy they allow, the profiler's estimate
-   of achieved occupancy on the dense batch); then the
-   dense first batch's ``_list.csv`` with the plain blocks swapped in,
-   byte-identical to the kernels'. Phases 7 and 10 fail unless the edge
-   finish and rect select ran once a detect batch, the cv2 centres once a
-   batch on the dense clip and never in frames mode;
+   ``rect tail resources`` JSON line a kernel (the sweep's too: ptxas'
+   registers, spills and shared memory, the occupancy they allow, the
+   profiler's estimate of achieved occupancy on the dense batch); then
+   the dense first batch's ``_list.csv`` with the plain blocks (hull,
+   sweep, edge finish, rect select, cv2 centres) swapped in,
+   byte-identical to the kernels'. Phases 7 and 10 fail unless the sweep,
+   edge finish and rect select ran once a detect batch, the cv2 centres
+   once a batch on the dense clip and never in frames mode, and phases 7,
+   8 and 10 if candidate points were built on the card;
 32. the compaction and row tables of frames mode (``csrc/compact.cu``,
    ``labeling.compact_row_tables``) against their plain version
    (``compact_labels`` then ``component_row_tables``) on the card, bit
@@ -885,7 +895,8 @@ def first_batch_runs(scene, settings):
 
 def dense_tables(runs, rc, settings, dev):
     """Hull and sweep inputs at the shapes the dense path gives them:
-    (T * max_det, max_bh) row tables and (T * max_det, K) directions."""
+    (T * max_det, max_bh) row tables and min_y, and the stats tail's
+    corners and (T * max_det, K - 1) edge candidates."""
     max_det = settings['max detections per frame']
     max_bh = settings['max bounding box height']
     cc = run_cc.run_cc_components(
@@ -893,64 +904,57 @@ def dense_tables(runs, rc, settings, dev):
         torch.from_numpy(rc).to(dev), w=W, double_threshold=True,
         row_tables=dict(h=H, max_det=max_det, max_bh=max_bh))
     n = cc['n_components']
-    rows = tuple(cc[k] for k in run_cc.TABLE_KEYS)
-    tabs = labeling._stats_tail_from_tables(*rows, max_bh=max_bh,
-                                            cv2_centers=True)
-    hull_args, sweep_args = rect_inputs(rows, tabs, max_bh)
-    log('dense batch: T={} components {} of {} slots, rows/component {}, '
-        'directions {}, points {}'.format(
-            runs.shape[0], int(n.clamp(max=max_det).sum()),
-            hull_args[0].shape[0], max_bh, sweep_args[2].shape[1],
-            sweep_args[0].shape[1]))
+    hull_args, sweep_args = rect_inputs(
+        tuple(cc[k] for k in run_cc.TABLE_KEYS))
+    log_tables('dense batch: T={}'.format(runs.shape[0]),
+               int(n.clamp(max=max_det).sum()), sweep_args)
     return hull_args, sweep_args
 
 
-def rect_inputs(rows, tabs, max_bh):
+def rect_inputs(rows):
     """Hull and sweep inputs as the stats tail gives them, from the row
-    tables ``rows`` (row_min_x, row_max_x, row_valid, min_y) and the tail's
-    ``tabs``: abs_y = min_y + row; the sweep's directions are the edge
-    candidates and the axis (1, 0)."""
-    row_min_x, row_max_x, row_valid, min_y = rows
-    abs_y = (min_y[:, None] + torch.arange(
-        max_bh, dtype=torch.int32, device=min_y.device)[None, :]).contiguous()
-    d = tabs['edge_dx'].shape[0]
-    one = torch.ones((d, 1), dtype=torch.float32, device=min_y.device)
-    sweep_args = (tabs['points'].contiguous(),
-                  tabs['points_valid'].contiguous(),
-                  torch.cat([tabs['edge_dx'], one], 1).contiguous(),
-                  torch.cat([tabs['edge_dy'], one * 0], 1).contiguous())
-    return (row_min_x, row_max_x, row_valid, abs_y), sweep_args
+    tables ``rows`` (row_min_x, row_max_x, row_valid, min_y): the sweep
+    reads the tables, the hull's strict corners and the edge candidates
+    (``labeling.SWEEP_KEYS``)."""
+    tabs = labeling._stats_tail_from_tables(*rows)
+    return rows, tuple(tabs[k] for k in labeling.SWEEP_KEYS)
+
+
+def log_tables(what, components, sweep_args):
+    """A batch's shapes and the share of its valid row extremes that are
+    strict corners, the points the sweep folds."""
+    row_valid, corners = sweep_args[2], sweep_args[4:6]
+    n_corners = int(corners[0].sum() + corners[1].sum())
+    log('{}: components {} of {} slots, rows/component {}, directions {}, '
+        'valid row extremes {}, strict corners {} ({:.4f})'.format(
+            what, components, row_valid.shape[0], row_valid.shape[1],
+            sweep_args[6].shape[1] + 1, 2 * int(row_valid.sum()), n_corners,
+            n_corners / max(2 * int(row_valid.sum()), 1)))
 
 
 def frames_tables(scene, settings, dev):
     """Hull and sweep inputs at the shapes frames mode gives them: the
     scene's first 64 frames through the device preprocess, the
     reconstruction, the 8-connected labeling, the compaction, and the row
-    tables and stats tail of ``component_tables``, (T * max_det,
-    max_bh)."""
+    tables of ``component_tables`` and the stats tail over them, (T *
+    max_det, max_bh)."""
     max_det = settings['max detections per frame']
     max_bh = settings['max bounding box height']
     mask, marker = bench_masks(scene, settings, dev)
     mask = cc.binary_reconstruct(mask, marker & mask)
     comp, n = labeling.compact_labels(
         cc.label_components_whole_frame(mask, 8), mask, max_det=max_det)
-    t = mask.shape[0]
-    rows = labeling.component_row_tables(comp, mask, max_det=max_det,
-                                         max_bh=max_bh)
-    tabs = labeling.component_tables(comp, mask, max_det=max_det,
-                                     max_bh=max_bh)
-    hull_args, sweep_args = rect_inputs(rows, tabs, max_bh)
-    log('frames-mode bench batch: T={} components {} of {} slots, '
-        'rows/component {}, directions {}, points {}'.format(
-            t, int(n.clamp(max=max_det).sum()), hull_args[0].shape[0],
-            max_bh, sweep_args[2].shape[1], sweep_args[0].shape[1]))
+    hull_args, sweep_args = rect_inputs(labeling.component_row_tables(
+        comp, mask, max_det=max_det, max_bh=max_bh))
+    log_tables('frames-mode bench batch: T={}'.format(mask.shape[0]),
+               int(n.clamp(max=max_det).sum()), sweep_args)
     return hull_args, sweep_args
 
 
 def random_row_tables(rng, d, r, dev, holes=False):
-    """Seeded random row-extreme tables with empty components, short
-    components and padding rows; with ``holes`` the valid rows are no
-    prefix."""
+    """Seeded random row-extreme tables and min_y with empty components
+    (min_y 2^30), short components and padding rows; with ``holes`` the
+    valid rows are no prefix."""
     n_rows = rng.integers(1, r + 1, size=d)
     valid = np.arange(r)[None, :] < n_rows[:, None]
     if holes:
@@ -958,7 +962,6 @@ def random_row_tables(rng, d, r, dev, holes=False):
     empty = rng.random(d) < 0.15
     valid[empty] = False
     min_y = np.where(empty, 1 << 30, rng.integers(0, 900, size=d))
-    abs_y = (min_y[:, None] + np.arange(r)).astype(np.int32)
     cx = rng.integers(0, 1200, size=(d, 1))
     half = rng.integers(0, 30, size=(d, r))
     jitter = rng.integers(-5, 6, size=(d, r))
@@ -967,7 +970,8 @@ def random_row_tables(rng, d, r, dev, holes=False):
     big = 1 << 30
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         np.where(valid, lo, big).astype(np.int32),
-        np.where(valid, hi, -big).astype(np.int32), valid, abs_y))
+        np.where(valid, hi, -big).astype(np.int32), valid,
+        min_y.astype(np.int32)))
 
 
 def assign_inputs(rng, r, c, k, dev):
@@ -1016,25 +1020,60 @@ def hull_ops(row_valid):
 
 def hull_bytes(row_valid):
     """Bytes the hull call must move on this data: row_valid and the 20
-    output bytes (four float32, four flags) of every (component, row), and
-    the three int32 tables only at the valid rows (the outputs elsewhere
-    are zeros whatever the tables hold)."""
-    return row_valid.numel() * (1 + 20) + int(row_valid.sum()) * 12
+    output bytes (four float32, four flags) of every (component, row), the
+    two int32 x tables only at the valid rows (the outputs elsewhere are
+    zeros whatever the tables hold), min_y and count of every
+    component."""
+    return row_valid.numel() * (1 + 20) + int(row_valid.sum()) * 8 + \
+        row_valid.shape[0] * 8
 
 
 def check_hull(name, args, reps=10):
     """``check_equal`` of the hull kernel, with its bound from
     ``hull_ops`` and ``hull_bytes``."""
-    return check_equal(name, hull_edge_vectors,
-                       labeling.hull_edge_vectors_plain, args,
-                       hull_ops(args[2]), reps=reps,
+    return check_equal(name, hull_edge_vectors, labeling.hull_tables_plain,
+                       args, hull_ops(args[2]), reps=reps,
                        nbytes=hull_bytes(args[2]))
 
 
-def sweep_ops(valid, k):
-    """Projection operations of the sweep call: per non-empty component,
-    K directions x P points of two products, two sums, four min/max."""
-    return int(valid.any(dim=1).sum()) * k * valid.shape[1] * 8
+def sweep_cost(args):
+    """Operations and bytes of the sweep call on this data. Operations:
+    per corner point and direction (K, the implicit (1, 0) included) four
+    products, two sums, four min/max. Bytes: row_valid of every
+    (component, row) and the 4 K float32 extents of every component; the
+    two corner flags of a valid row, the x of a corner; min_y and the K -
+    1 directions (dx, dy) of a component with a valid row."""
+    row_valid, corner_l, corner_r = args[2], args[4], args[5]
+    d, r = row_valid.shape
+    k = args[6].shape[1] + 1
+    corners = int(corner_l.sum() + corner_r.sum())
+    occupied = int(row_valid.any(dim=1).sum())
+    ops = corners * k * 10
+    nbytes = d * r + d * k * 16 + int(row_valid.sum()) * 2 + corners * 4 + \
+        occupied * (4 + (k - 1) * 8)
+    return ops, nbytes
+
+
+def check_sweep(name, args, reps=10):
+    """``check_equal`` of the sweep kernel, with its bound from
+    ``sweep_cost``."""
+    ops, nbytes = sweep_cost(args)
+    return check_equal(name, sweep_extents, labeling.sweep_tables_plain,
+                       args, ops, reps=reps, nbytes=nbytes)
+
+
+def random_sweep_args(rng, d, r, dev, holes=False):
+    """The sweep's inputs of seeded random tables: the tables, the plain
+    hull's corners and random integer directions (dx >= 1, dy >= 0, as
+    the edge finish folds them), K - 1 = 2 (R - 1)."""
+    rows = random_row_tables(rng, d, r, dev, holes)
+    chains = labeling.hull_tables_plain(*rows)
+    k = 2 * (r - 1)
+    dx = torch.from_numpy(rng.integers(1, 90, (d, k)).astype(
+        np.float32)).to(dev)
+    dy = torch.from_numpy(rng.integers(0, 96, (d, k)).astype(
+        np.float32)).to(dev)
+    return rows + chains[6:8] + (dx, dy)
 
 
 def assign_ops(ov, dv, k):
@@ -1074,24 +1113,28 @@ def phase_dense_kernels(scene, settings, dev, frames_args):
         hull.append(check_hull('hull random D={} R={}{}'.format(
             d, r, ' (valid rows with holes)' if holes else ''), args))
     out['hull'] = (max(h[0] for h in hull),) + hull[0][1:]
-    sweep = [check_equal('sweep {} batch'.format(name), sweep_extents,
-                         labeling.sweep_extents_plain, args,
-                         sweep_ops(args[1], args[2].shape[1]), reps=20)
+    sweep = [check_sweep('sweep {} batch'.format(name), args, reps=20)
              for name, args in (('dense', sweep_args),
                                 ('frames-mode bench', frames_args[1]))]
-    for d, p, k in ((4096, 96, 95), (4096, 192, 191)):
-        pts = torch.from_numpy(rng.integers(0, 1228, (d, p, 2)).astype(
-            np.float32)).to(dev)
-        valid = torch.from_numpy(rng.random((d, p)) < 0.5).to(dev)
-        valid[:7] = False
-        dx = torch.from_numpy(rng.integers(1, 90, (d, k)).astype(
-            np.float32)).to(dev)
-        dy = torch.from_numpy(rng.integers(0, 96, (d, k)).astype(
-            np.float32)).to(dev)
-        sweep.append(check_equal(
-            'sweep random D={} P={} K={}'.format(d, p, k), sweep_extents,
-            labeling.sweep_extents_plain, (pts, valid, dx, dy),
-            sweep_ops(valid, k)))
+    # one to four directions a lane, two passes at K = 191; D no multiple
+    # of a block's eight warps
+    for d, r, holes in ((4096, 48, False), (4097, 96, True),
+                        (1001, 17, True), (333, 65, False), (77, 1, False)):
+        sweep.append(check_sweep('sweep random D={} R={} K={}{}'.format(
+            d, r, 2 * r - 1, ' (valid rows with holes)' if holes else ''),
+            random_sweep_args(rng, d, r, dev, holes), reps=3))
+    # the corners' extents are those of every valid point
+    for name, args in (('dense', sweep_args),
+                       ('frames-mode bench', frames_args[1])):
+        pts, valid = labeling.candidate_points(*args[:4])
+        full = labeling.sweep_extents_plain(
+            pts, valid, *labeling._with_axis(*args[6:]))
+        if not all(torch.equal(a, b) for a, b in zip(
+                full, labeling.sweep_tables_plain(*args))):
+            raise SystemExit('sweep {} batch: the corners\' extents differ '
+                             'from every valid point\'s'.format(name))
+    log('sweep: the corners\' extents equal every valid point\'s on the '
+        'dense and frames-mode batches')
     out['sweep'] = (max(x[0] for x in sweep),) + sweep[0][1:]
     assign = []
     for n in (4096, 16384):
@@ -1154,19 +1197,30 @@ def reset_launches():
     for k in KERNELS:
         k.launches = 0
     run_cc.finish_components.row_table_launches = 0
+    labeling.candidate_points.cuda_calls = 0
+
+
+def points_gate(what):
+    """Raise if candidate points were built on the card since
+    ``reset_launches``: the device-rect detect's stats tail and sweep read
+    the row tables."""
+    if labeling.candidate_points.cuda_calls:
+        raise SystemExit('{}: candidate points built on the card {} '
+                         'times'.format(
+                             what, labeling.candidate_points.cuda_calls))
 
 
 def rect_tail_gate(what, launches, cv2_launches):
-    """Raise unless the edge-finish and rect-select kernels ran once a
-    detect batch (as often as the hull kernel) and the cv2-centre kernel
-    ``cv2_launches`` times."""
+    """Raise unless the sweep, edge-finish and rect-select kernels ran
+    once a detect batch (as often as the hull kernel) and the cv2-centre
+    kernel ``cv2_launches`` times."""
     per = launches['hull_edge_vectors']
-    got = (launches['edge_finish'], launches['rect_select'],
-           cv2c.cv2_centers_from_tables.launches)
-    if per <= 0 or got != (per, per, cv2_launches):
-        raise SystemExit('{}: edge-finish, rect-select and cv2-centre '
+    got = (launches['sweep_extents'], launches['edge_finish'],
+           launches['rect_select'], cv2c.cv2_centers_from_tables.launches)
+    if per <= 0 or got != (per, per, per, cv2_launches):
+        raise SystemExit('{}: sweep, edge-finish, rect-select and cv2-centre '
                          'launches {}, not {} (one a detect batch)'.format(
-                             what, got, (per, per, cv2_launches)))
+                             what, got, (per, per, per, cv2_launches)))
 
 
 def phase_dense_path(scene, frames, settings):
@@ -1242,6 +1296,7 @@ def phase_dense_path(scene, frames, settings):
             launches))
     tracker_gate('dense clip', launches, launches['row_min_argmin'])
     rect_tail_gate('dense clip', launches, launches['hull_edge_vectors'])
+    points_gate('dense clip')
     run_cc_gate('dense clip', launches)
     row_tables_gate('dense clip', launches, launches['finish_components'])
     return launches, dense_bytes
@@ -1306,6 +1361,7 @@ def phase_dense_cuda_vs_cpu(frames, settings):
     launches = {k.__name__: k.launches for k in KERNELS}
     run_cc_gate('dense first batch', launches)
     row_tables_gate('dense first batch', launches, 1)
+    points_gate('dense first batch')
     t0 = time.perf_counter()
     (pres, _, pstats) = run_loop(first, settings, 'cpu', 'dense_cpu')
     cpu_s = time.perf_counter() - t0
@@ -1549,6 +1605,7 @@ def reset_frames_launches():
     for k in FRAMES_KERNELS + (cv2c.cv2_centers_from_tables,
                                pp.adaptive_gaussian_mean):
         k.launches = 0
+    labeling.candidate_points.cuda_calls = 0
 
 
 def frames_launches(what):
@@ -1573,6 +1630,7 @@ def frames_launches(what):
                              launches['hull_edge_vectors'],
                              pp.adaptive_gaussian_mean.launches))
     launches['adaptive_gaussian_mean'] = pp.adaptive_gaussian_mean.launches
+    points_gate(what)
     return launches
 
 
@@ -3950,17 +4008,15 @@ def rect_tail_inputs(hull_args, sweep_args):
     """The three rect-tail kernels' inputs from the hull and sweep inputs
     of a batch (``dense_tables``, ``frames_tables``): the cv2-centre
     tables with the hull's corners and the inverse-sqrt table, the hull's
-    chain outputs, and the sweep's extents with its directions and the
-    finished edges' angles and validity."""
-    row_min_x, row_max_x, row_valid, abs_y = hull_args
-    r = row_min_x.shape[1]
+    chain outputs, and the sweep's extents with the edge candidates (the
+    (1, 0) implicit) and the finished edges' angles and validity."""
+    r = hull_args[0].shape[1]
     chains = hull_edge_vectors(*hull_args)
     isq = cv2c.inv_sqrt_table(labeling._CV2_CENTER_MAX_EDGE_W, r,
-                              device=abs_y.device)
-    cv2_args = (row_min_x, row_max_x, row_valid, abs_y[:, 0].contiguous(),
-                chains[6], chains[7], isq)
+                              device=hull_args[0].device)
+    cv2_args = hull_args + (chains[6], chains[7], isq)
     _, _, ang, valid = rect.edge_finish(*chains[:6])
-    select_args = sweep_extents(*sweep_args) + sweep_args[2:] + (ang, valid)
+    select_args = sweep_extents(*sweep_args) + sweep_args[6:] + (ang, valid)
     return cv2_args, chains[:6], select_args
 
 
@@ -3968,10 +4024,8 @@ def rect_tail_edge_tables(dev):
     """The seeded edge cases of ``rect_tail_cases`` as row tables (R =
     160), then seeded random tables (also with holes)."""
     r = rtc.EDGE_CASE_ROWS
-    lo, hi, valid, min_y = rtc.row_tables(rtc.edge_case_blobs(), r)
-    abs_y = (min_y[:, None] + np.arange(r)).astype(np.int32)
     tabs = [(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                   for a in (lo, hi, valid, abs_y)), r)]
+                   for a in rtc.row_tables(rtc.edge_case_blobs(), r)), r)]
     rng = np.random.default_rng(SEED + 31)
     for dd, rr, holes in ((4097, 48, False), (3001, 96, True),
                           (33, 2, False)):
@@ -3980,14 +4034,9 @@ def rect_tail_edge_tables(dev):
 
 
 def sweep_of(hull_args):
-    """The sweep's inputs of row tables: the stats tail's points and its
-    edge candidates with the appended (1, 0)."""
-    row_min_x, row_max_x, row_valid, abs_y = hull_args
-    tabs = labeling._stats_tail_from_tables(
-        row_min_x, row_max_x, row_valid, abs_y[:, 0].contiguous(),
-        max_bh=row_min_x.shape[1])
-    return rect_inputs(hull_args[:3] + (abs_y[:, 0],), tabs,
-                       row_min_x.shape[1])[1]
+    """The sweep's inputs of row tables: the tables, the stats tail's
+    corners and edge candidates."""
+    return rect_inputs(hull_args)[1]
 
 
 def cv2_ok_view(outs):
@@ -4027,12 +4076,13 @@ def rect_select_cost(select_args):
     """Operations and bytes of the rect-select call on this data: about
     100 operations per valid candidate (the appended one included); the
     validity byte of every candidate, the 7 float32 values (extents,
-    direction, angle) of a valid one, the appended candidate's 6 (its
-    angle is 0) and the 20 output bytes of every component."""
+    direction, angle) of a valid one, the appended candidate's 4 extents
+    (its direction and angle are formed) and the 20 output bytes of every
+    component."""
     evalid = select_args[7]
     n_valid = int(evalid.sum())
     d = evalid.shape[0]
-    return (n_valid + d) * 100, evalid.numel() + n_valid * 28 + d * 44
+    return (n_valid + d) * 100, evalid.numel() + n_valid * 28 + d * 36
 
 
 def rect_tail_uneven(dev):
@@ -4048,17 +4098,15 @@ def rect_tail_uneven(dev):
                                 rtc.TABLE_EDGE)):
         for odd in (1, 3):
             pad = (odd - len(blobs)) % 4 + 4
-            lo, hi, valid, min_y = rtc.row_tables(blobs + [None] * pad, r)
-            abs_y = (min_y[:, None] + np.arange(r)).astype(np.int32)
             hull_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
-                dev) for a in (lo, hi, valid, abs_y))
+                dev) for a in rtc.row_tables(blobs + [None] * pad, r))
             cv2_args, _, select_args = rect_tail_inputs(hull_args,
                                                         sweep_of(hull_args))
             if table:
                 cv2_args = cv2_args[:6] + (cv2c.inv_sqrt_table(
                     *table, device=dev),)
-            out.append(('{} D={}'.format(name, lo.shape[0]), cv2_args, r,
-                        select_args))
+            out.append(('{} D={}'.format(name, hull_args[0].shape[0]),
+                        cv2_args, r, select_args))
     tall = random_row_tables(np.random.default_rng(SEED + 32), 301, 1000,
                              dev)
     cv2_args, _, select_args = rect_tail_inputs(tall, sweep_of(tall))
@@ -4112,12 +4160,12 @@ def achieved_occupancy(fn, kernel):
 
 def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
     """Phase 31: the cv2-centre kernel (``csrc/cv2_centers.cu``) and the
-    edge-finish and rect-select kernels (``csrc/rect.cu``) against their
-    plain versions on the card, one launch a call: on the dense first
-    batch's tables, the frames-mode bench batch and the seeded edge cases;
-    then the dense first batch's ``_list.csv`` with the plain blocks
-    swapped in, byte-identical to the kernels'. Returns the dense
-    batch's timed checks."""
+    edge-finish and rect-select kernels (``csrc/rect.cu``; the rect
+    select's (1, 0) implicit) against their plain versions on the card,
+    one launch a call: on the dense first batch's tables, the frames-mode
+    bench batch and the seeded edge cases; then the dense first batch's
+    ``_list.csv`` with the plain blocks swapped in, byte-identical to the
+    kernels'. Returns the dense batch's timed checks."""
     dense = dense_tables(*first_batch_runs(dscene, dsettings), dsettings,
                          dev)
     frames = frames_tables(scene, settings, dev)
@@ -4162,6 +4210,9 @@ def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
             # (wrapper, source, ptxas' and the profiler's kernel name,
             # threads a block, the call on this batch)
             dense_calls = (
+                (sweep_extents, 'sweep.cu',
+                 ('sweep_kernelILi3E', 'sweep_kernel<3>'), 256,
+                 lambda a=sweep_args: sweep_extents(*a)),
                 (cv2c.cv2_centers_from_tables, 'cv2_centers.cu',
                  ('cv2_centers_kernel',) * 2, 128,
                  lambda a=cv2_args, rr=r: cv2c.cv2_centers_from_tables(
@@ -4203,10 +4254,14 @@ def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
         log('rect tail resources ' + json.dumps(rec))
     # the dense first batch through the stage-1 loop, kernels against the
     # plain blocks swapped in
+    from ysmr_tpu_torch.ops import hull as hull_mod
+    from ysmr_tpu_torch.ops import sweep as sweep_mod
     swaps = ((cv2c, 'cv2_centers_from_tables',
               cv2c.cv2_centers_from_tables_plain),
              (rect, 'edge_finish', labeling.edge_finish_plain),
-             (rect, 'rect_select', labeling.rect_select_plain))
+             (rect, 'rect_select', labeling.rect_select_plain),
+             (hull_mod, 'hull_edge_vectors', labeling.hull_tables_plain),
+             (sweep_mod, 'sweep_extents', labeling.sweep_tables_plain))
     lists = {}
     for how in ('kernels', 'plain'):
         saved = [getattr(m, n) for m, n, _ in swaps]
@@ -4221,7 +4276,7 @@ def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
         finally:
             for (m, n, _), fn in zip(swaps, saved):
                 setattr(m, n, fn)
-        if launches != [int(how == 'kernels')] * 3:
+        if launches != [int(how == 'kernels')] * len(swaps):
             raise SystemExit('rect tail, {}: launches {}'.format(how,
                                                                   launches))
     if lists['kernels'] != lists['plain']:
@@ -4229,7 +4284,8 @@ def phase_rect_tail(scene, settings, dscene, dsettings, dframes, dev):
                          'plain blocks swapped in')
     log('rect tail: the dense first batch _list.csv ({} rows) byte-identical '
         'with the kernels (one launch each) and with the plain blocks '
-        'swapped in'.format(lists['plain'].count(b'\n') - 1))
+        '(hull, sweep, edge finish, rect select, cv2 centres) swapped '
+        'in'.format(lists['plain'].count(b'\n') - 1))
     return out
 
 

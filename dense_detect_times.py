@@ -38,10 +38,12 @@ run-CC and the per-run detection index only. Each batch's record holds:
   (``run_cc_components``; since its finish writes the row tables, with
   them), ``component_stats_runs`` (the row-table scatters over the
   sorted runs; 0 operations where run-CC writes the tables),
-  ``stats tail`` (count and candidate points), ``hull``
-  (``hull_edge_vectors``), ``edge finish`` (the rest of
-  ``_hull_edge_data``), ``sweep`` (``sweep_extents``), ``rect select``
-  (the rest of ``min_area_rect``), ``cv2 centres``
+  ``stats tail`` (the tail's own operations: count and the candidate
+  points in a checkout that builds them, none where the hull writes count
+  and the sweep reads the tables), ``hull`` (``hull_edge_vectors``),
+  ``edge finish`` (the rest of ``_hull_edge_data``), ``sweep``
+  (``sweep_extents``), ``rect select`` (the rest of ``min_area_rect``, or
+  of ``rect_from_tables`` where the checkout has it), ``cv2 centres``
   (``_cv2_center_override``), ``output`` (the rest of
   ``detections_from_tables``) and ``detect`` (the rest of the call); a
   step the call does not reach reports 0. The split's outputs are held
@@ -80,16 +82,17 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: (step name, module attribute, function name) of the wrapped steps
-STEPS = (('run-CC', 'rcc', 'run_cc_components'),
-         ('component_stats_runs', 'lb', 'component_stats_runs'),
-         ('stats tail', 'lb', '_stats_tail_from_tables'),
-         ('hull', 'hull', 'hull_edge_vectors'),
-         ('edge finish', 'lb', '_hull_edge_data'),
-         ('sweep', 'sweep', 'sweep_extents'),
-         ('rect select', 'lb', 'min_area_rect'),
-         ('cv2 centres', 'dp', '_cv2_center_override'),
-         ('output', 'dp', 'detections_from_tables'))
+#: (step name, module attribute, function names) of the wrapped steps;
+#: each name the checkout's module has is wrapped
+STEPS = (('run-CC', 'rcc', ('run_cc_components',)),
+         ('component_stats_runs', 'lb', ('component_stats_runs',)),
+         ('stats tail', 'lb', ('_stats_tail_from_tables',)),
+         ('hull', 'hull', ('hull_edge_vectors',)),
+         ('edge finish', 'lb', ('_hull_edge_data',)),
+         ('sweep', 'sweep', ('sweep_extents',)),
+         ('rect select', 'lb', ('min_area_rect', 'rect_from_tables')),
+         ('cv2 centres', 'dp', ('_cv2_center_override',)),
+         ('output', 'dp', ('detections_from_tables',)))
 
 
 def _sync():
@@ -281,10 +284,12 @@ def measure(root, passes, batch='dense', dev='cuda'):
     from ysmr_tpu_torch.ops import run_cc as rcc
     from ysmr_tpu_torch.ops import run_prop
     mods.update(lb=lb, rcc=rcc, hull=hull, sweep=sweep, prop=run_prop)
-    steps = STEPS + ((PROP, 'prop', 'propagate_min_fused'),)
-    saved = [(mods[m], f, getattr(mods[m], f)) for _, m, f in steps]
-    for (name, m, f), (_, _, fn) in zip(steps, saved):
-        setattr(mods[m], f, _wrap(fn, name))
+    steps = STEPS + ((PROP, 'prop', ('propagate_min_fused',)),)
+    wrapped = [(name, mods[m], f) for name, m, names in steps
+               for f in names if hasattr(mods[m], f)]
+    saved = [(mod, f, getattr(mod, f)) for _, mod, f in wrapped]
+    for (name, mod, f), (_, _, fn) in zip(wrapped, saved):
+        setattr(mod, f, _wrap(fn, name))
     try:
         def wrapped_call():
             _sync()

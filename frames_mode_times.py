@@ -33,20 +33,28 @@ and ``chip_smoke.py`` and prints one JSON line:
 ``--split`` (this checkout, or the one ``--split-root`` names; ``--roots
 ''`` then measures none) records ``torch.profiler`` (CPU and CUDA)
 over the steps of the same warm detect run one at a time, each ended by a
-synchronise, and gives each step the device time of the kernels that
-start inside its window (median of three passes), with the three longest
-kernels of each step; the steps' outputs are held to ``detect_batch``'s.
-The steps are ``detect_batch``'s: the fused preprocess ("adaptive
-masks": gray, blur, adaptive mean, both rules and ``& frame_valid`` in
-one launch), reconstruction, labeling, "compaction + row tables + hull"
-(the compaction kernel and the stats tail), rect. A checkout from before
-the compaction kernel or the fused preprocess splits its own detect with
-its own copy of this script (its steps in place of these): ``cd
-<checkout> && python3 frames_mode_times.py --split --roots .``.
+synchronise, and gives each step the device operations and device time
+of the kernels that start inside its window and inside no window nested
+in it (median of three passes), with the three longest kernels of each
+step; the steps' outputs are held to ``detect_batch``'s. The steps are
+``detect_batch``'s: the fused preprocess ("adaptive masks": gray, blur,
+adaptive mean, both rules and ``& frame_valid`` in one launch),
+reconstruction, labeling, "compaction + row tables"
+(``compact_row_tables``), "stats tail" (``_stats_tail_from_tables``'
+own operations: count and the candidate points in a checkout that builds
+them, none where the hull writes count), with "hull"
+(``hull_edge_vectors``) and "edge finish" (the rest of
+``_hull_edge_data``) nested in it, and "rect + output"
+(``detections_from_tables``) with "sweep" (``sweep_extents``) nested. A
+checkout from before the compaction kernel or the fused preprocess
+splits its own detect with its own copy of this script (its steps in
+place of these): ``cd <checkout> && python3 frames_mode_times.py
+--split --roots .``.
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
 
 import argparse
+import functools
 import inspect
 import json
 import os
@@ -143,11 +151,11 @@ def measure(root):
 
 
 def split(root):
-    """The per-step device times of a warm 64-frame detect (see the module
-    docstring)."""
+    """The per-step device operations and times of a warm 64-frame detect
+    (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     cs, detect, settings, _, bgr, valid = _setup(root)
-    from ysmr_tpu_torch.ops import cc
+    from ysmr_tpu_torch.ops import cc, hull, sweep
     from ysmr_tpu_torch.ops import labeling as lb
     from ysmr_tpu_torch.ops import preprocess as pp
     from ysmr_tpu_torch.pipeline.detect_pixels import detections_from_tables
@@ -164,6 +172,9 @@ def split(root):
     # a checkout whose labeling hands the compaction its packed mask
     packs = 'return_bits' in inspect.signature(
         cc.label_components_whole_frame).parameters
+    # a checkout whose stats tail still forms abs_y from max_bh
+    tail_kw = {'max_bh': cfg.max_bh} if 'max_bh' in inspect.signature(
+        lb._stats_tail_from_tables).parameters else {}
 
     def labeling():
         out = cc.label_components_whole_frame(
@@ -171,67 +182,102 @@ def split(root):
             **({'return_bits': True} if packs else {}))
         st['labels'], st['bits'] = out if packs else (out, None)
 
-    def compact_tables():
-        *rows, st['n'] = lb.compact_row_tables(
+    def compact():
+        *st['rows'], st['n'] = lb.compact_row_tables(
             st['labels'], st['rec'], max_det=cfg.max_det, max_bh=cfg.max_bh,
             **({'fg_bits': st['bits']} if packs else {}))
-        st['tables'] = lb._stats_tail_from_tables(*rows, max_bh=cfg.max_bh)
 
     steps = (
         ('adaptive masks', masks),
         ('reconstruction', lambda: st.update(rec=cc.binary_reconstruct(
             st['mask'], st['markers'], max_iters=cfg.cc_iters))),
         ('labeling', labeling),
-        ('compaction + row tables + hull', compact_tables),
-        ('rect (sweep) + output', lambda: st.update(out=detections_from_tables(
+        ('compaction + row tables', compact),
+        ('stats tail', lambda: st.update(tables=lb._stats_tail_from_tables(
+            *st['rows'], **tail_kw))),
+        ('rect + output', lambda: st.update(out=detections_from_tables(
             st['tables'], 64, max_det=cfg.max_det, max_bh=cfg.max_bh,
             n_components=st['n']))),
     )
+    nested = ((hull, 'hull_edge_vectors', 'hull'),
+              (lb, '_hull_edge_data', 'edge finish'),
+              (sweep, 'sweep_extents', 'sweep'))
+
+    def in_window(fn, name):
+        """``fn`` inside the step's window; its attributes (a kernel
+        wrapper's ``launches``) carried over."""
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            with record_function('step: ' + name):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            return out
+        return wrapped
 
     def run_steps():
         for name, fn in steps:
-            with record_function('step: ' + name):
-                fn()
-                torch.cuda.synchronize()
+            in_window(fn, name)()
 
-    for _ in range(2):
-        run_steps()
-    want = detect.detect_batch(bgr, valid, cfg)
-    for key in want:
-        if not torch.equal(want[key], st['out'][key]):
-            raise SystemExit('the split steps differ from detect_batch in '
-                             '{}'.format(key))
-    passes = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    saved = [(mod, f, getattr(mod, f)) for mod, f, _ in nested]
+    for (mod, f, fn), (_, _, name) in zip(saved, nested):
+        setattr(mod, f, in_window(fn, name))
+    try:
+        for _ in range(2):
             run_steps()
-        cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-        windows = [(e.name[len('step: '):], e.time_range) for e in
-                   prof.events() if e.device_type == cpu and
-                   e.name.startswith('step: ')]
-        per = {name: {'device_ms': 0.0, 'span_ms': rng.elapsed_us() / 1e3,
-                      'kernels': {}} for name, rng in windows}
-        for e in prof.events():
-            if e.device_type != gpu or e.name.startswith('step: '):
-                continue
-            for name, rng in windows:
-                if rng.start <= e.time_range.start < rng.end:
-                    ms = e.time_range.elapsed_us() / 1e3
-                    per[name]['device_ms'] += ms
-                    k = per[name]['kernels']
-                    k[e.name] = k.get(e.name, 0.0) + ms
-                    break
-        passes.append(per)
+        want = detect.detect_batch(bgr, valid, cfg)
+        for key in want:
+            if not torch.equal(want[key], st['out'][key]):
+                raise SystemExit('the split steps differ from detect_batch '
+                                 'in {}'.format(key))
+        passes = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_steps()
+            passes.append(_per_window(prof))
+    finally:
+        for mod, f, fn in saved:
+            setattr(mod, f, fn)
     out = {}
-    for name, _ in steps:
-        out[name] = {key: float(np.median([p[name][key] for p in passes]))
-                     for key in ('device_ms', 'span_ms')}
-        kern = passes[-1][name]['kernels']
+    names = [n for n, _ in steps] + [n for _, _, n in nested]
+    for name in names:
+        recs = [p.get(name, {'device_ops': 0, 'device_ms': 0.0,
+                             'span_ms': 0.0, 'kernels': {}})
+                for p in passes]
+        out[name] = {key: float(np.median([r[key] for r in recs]))
+                     for key in ('device_ops', 'device_ms', 'span_ms')}
+        out[name]['device_ops'] = int(out[name]['device_ops'])
         out[name]['top_kernels'] = {
             k[:60]: round(v, 4) for k, v in sorted(
-                kern.items(), key=lambda kv: -kv[1])[:3]}
+                recs[-1]['kernels'].items(), key=lambda kv: -kv[1])[:3]}
     return out
+
+
+def _per_window(prof):
+    """Each window's device operations, device ms (the operations that
+    start inside it and inside no window nested in it), span ms and
+    kernels, of one profiled pass."""
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    windows = [(e.name[len('step: '):], e.time_range) for e in
+               prof.events() if e.device_type == cpu and
+               e.name.startswith('step: ')]
+    per = {name: {'device_ops': 0, 'device_ms': 0.0,
+                  'span_ms': rng.elapsed_us() / 1e3, 'kernels': {}}
+           for name, rng in windows}
+    for e in prof.events():
+        if e.device_type != gpu or e.name.startswith('step: '):
+            continue
+        inside = [(rng.end - rng.start, name) for name, rng in windows
+                  if rng.start <= e.time_range.start < rng.end]
+        if not inside:
+            continue
+        rec = per[min(inside)[1]]
+        ms = e.time_range.elapsed_us() / 1e3
+        rec['device_ops'] += 1
+        rec['device_ms'] += ms
+        rec['kernels'][e.name] = rec['kernels'].get(e.name, 0.0) + ms
+    return per
 
 
 def main():

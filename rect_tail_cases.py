@@ -169,7 +169,8 @@ def select_arrays(rng, k, d, frac):
     angles, valid): small integer extents and directions (equal areas in
     many candidates), angles 0, -0, 0.25, 0.5 (equal angles), each hull
     candidate valid with probability ``frac``; the appended candidate
-    (1, 0) last; the first five components without a valid point."""
+    (1, 0) last, its direction implicit (dx, dy are the K - 1 hull
+    candidates'); the first five components without a valid point."""
     f32 = np.float32
     mnu = rng.integers(-40, 0, (d, k)).astype(f32)
     mxu = mnu + rng.integers(0, 6, (d, k)).astype(f32)
@@ -182,4 +183,4 @@ def select_arrays(rng, k, d, frac):
     valid = rng.random((d, k - 1)) < frac
     mnu[:5], mxu[:5] = 3e38, -3e38
     return [np.ascontiguousarray(a) for a in
-            (mnu, mxu, mnv, mxv, dx, dy, ang, valid)]
+            (mnu, mxu, mnv, mxv, dx[:, :k - 1], dy[:, :k - 1], ang, valid)]

@@ -154,6 +154,9 @@ def test_component_tables_match_jax(max_det, max_bh):
     comp, n = lb.compact_labels(lb.label_components(tm)[0], tm,
                                 max_det=max_det)
     ours = lb.component_tables(comp, tm, max_det=max_det, max_bh=max_bh)
+    # ysmr_tpu's candidate points, from the port's row tables
+    ours['points'], ours['points_valid'] = lb.candidate_points(
+        *(ours[k] for k in ('row_min_x', 'row_max_x', 'row_valid', 'min_y')))
     valid = ours['count'].numpy() > 0
     assert valid.any()
     row_min_x, row_max_x, row_valid, min_y = lb.component_row_tables(

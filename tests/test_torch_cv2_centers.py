@@ -41,9 +41,7 @@ def _port(rmin, rmax, rvalid, min_y):
     """Corners from the port's hull (the pipeline's source of them)."""
     t = [torch.from_numpy(np.ascontiguousarray(a))
          for a in (rmin, rmax, rvalid, min_y)]
-    abs_y = (t[3][:, None] + torch.arange(rmin.shape[1],
-                                          dtype=torch.int32)).contiguous()
-    *_, cl, cr = lb._hull_edge_data(t[0], t[1], t[2], abs_y)
+    *_, cl, cr, _ = lb._hull_edge_data(*t)
     isq = tcc.inv_sqrt_table(MAX_EDGE_W, rmin.shape[1])
     cx, cy, ok = tcc.cv2_centers_from_tables(t[0], t[1], t[2], t[3], cl, cr,
                                              isq, max_bh=rmin.shape[1])

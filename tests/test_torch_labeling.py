@@ -1,7 +1,9 @@
 """Device stats, hull edges and the exact rect of the PyTorch port
 (ysmr_tpu_torch/ops/labeling.py, the kernel wrappers ops/hull.py and
 ops/sweep.py, and the device-rect branch of pipeline/detect_pixels.py)
-against the JAX package on the same numpy inputs.
+against the JAX package on the same numpy inputs. The port's stats tail
+builds no candidate points; ``lb.candidate_points`` gives them from its
+tables, and those are held to ``ysmr_tpu``'s.
 
 Tolerances and why:
 - integer tables, hull edge vectors and flags, sweep extents: bit-equal
@@ -107,16 +109,23 @@ def _jax_stats(runs, rcnt, max_det):
             for k in per[0]}, comp_rev, ref
 
 
+def _with_points(tables):
+    """The stats tail's dict with ``ysmr_tpu``'s candidate points added
+    (``points``, ``points_valid``) from its row tables."""
+    pts = lb.candidate_points(*(tables[k] for k in trcc.TABLE_KEYS))
+    return dict(tables, points=pts[0], points_valid=pts[1])
+
+
 @pytest.mark.parametrize('max_det', [64, 8])
 def test_component_stats_runs_match_jax(max_det):
     """Row tables, counts, candidate points, hull edges and strict corners
     of every component (max_det 8 drops the components beyond it)."""
     runs, rcnt = blob_wire(2)
     ref, comp_rev, jcc = _jax_stats(runs, rcnt, max_det)
-    got = lb.component_stats_runs(
+    got = _with_points(lb.component_stats_runs(
         _t(np.asarray(jcc['s_start'])), _t(np.asarray(jcc['s_len'])),
         _t(comp_rev.astype(np.int32)), w=W, h=H, max_det=max_det,
-        max_bh=MAX_BH, cv2_centers=True)
+        max_bh=MAX_BH))
     for key in ('count', 'min_y', 'points', 'points_valid', 'edge_dx',
                 'edge_dy', 'edge_valid', 'row_min_x', 'row_max_x',
                 'row_valid', 'corner_l', 'corner_r'):
@@ -134,7 +143,8 @@ def test_hull_plain_bit_equal_to_xla_and_pallas(d, r, seed):
     candidates."""
     rng = np.random.default_rng(seed)
     row_min, row_max, valid, abs_y = _random_tables(rng, d, r)
-    got = hull_edge_vectors(_t(row_min), _t(row_max), _t(valid), _t(abs_y))
+    got = lb.hull_edge_vectors_plain(_t(row_min), _t(row_max), _t(valid),
+                                     _t(abs_y))
     got = [g.numpy() for g in got]
     pal = [np.asarray(a) for a in jhull_pallas(
         jnp.asarray(row_min), jnp.asarray(row_max), jnp.asarray(valid),
@@ -148,7 +158,7 @@ def test_hull_plain_bit_equal_to_xla_and_pallas(d, r, seed):
         jnp.asarray(row_min), jnp.asarray(row_max), jnp.asarray(valid),
         jnp.asarray(abs_y))]
     out = [o.numpy() for o in lb._hull_edge_data(
-        _t(row_min), _t(row_max), _t(valid), _t(abs_y))]
+        _t(row_min), _t(row_max), _t(valid), _t(abs_y[:, 0]))]
     for i in (0, 1, 3, 4, 5):
         np.testing.assert_array_equal(out[i], ref[i], err_msg=str(i))
     assert _ulps(out[2], ref[2]).max() == 0
@@ -169,7 +179,7 @@ def test_hull_collinear_runs_bit_equal():
         jnp.asarray(row_min), jnp.asarray(row_max), jnp.asarray(valid),
         jnp.asarray(abs_y))]
     out = [o.numpy() for o in lb._hull_edge_data(
-        _t(row_min), _t(row_max), _t(valid), _t(abs_y))]
+        _t(row_min), _t(row_max), _t(valid), _t(abs_y[:, 0]))]
     for i in (0, 1, 3, 4, 5):
         np.testing.assert_array_equal(out[i], ref[i], err_msg=str(i))
 
@@ -310,7 +320,7 @@ def test_sweep_plain_bit_equal_to_xla_and_pallas(d, p, k):
     valid[0] = False
     dx = rng.integers(1, 60, (d, k)).astype(np.float32)
     dy = rng.integers(0, 48, (d, k)).astype(np.float32)
-    got = sweep_extents(_t(pts), _t(valid), _t(dx), _t(dy))
+    got = lb.sweep_extents_plain(_t(pts), _t(valid), _t(dx), _t(dy))
     ref = _xla_sweep(jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(dx),
                      jnp.asarray(dy))
     pal = jsweep_pallas(jnp.asarray(pts), jnp.asarray(valid),
@@ -379,10 +389,11 @@ def test_detect_device_rects_match_jax(cv2_centers, max_det):
 @pytest.mark.cuda
 def test_hull_and_sweep_kernels_match_plain_on_cuda():
     """The hull and sweep kernels against their plain versions on the
-    card, bit for bit, one launch counted per call: the hull at R below,
-    at and above a warp, valid rows with holes, an all-empty table and D
-    no multiple of a block's eight warps. Runs on a machine with an NVIDIA
-    GPU (see README)."""
+    card, bit for bit, one launch counted per call: the hull (from min_y,
+    with count) at R below, at and above a warp, valid rows with holes, an
+    all-empty table and D no multiple of a block's eight warps; the sweep
+    on the same tables, their corners and finished edge candidates. Runs
+    on a machine with an NVIDIA GPU (see README)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
     dev = torch.device('cuda')
@@ -392,6 +403,7 @@ def test_hull_and_sweep_kernels_match_plain_on_cuda():
     cases += [(301, r, 1) for r in HULL_ROWS] + [(64, 48, 'empty')]
     for d, r, holes in cases:
         tabs = [_t(a) for a in _hull_tables(rng, d, r, holes == 1)]
+        tabs[3] = tabs[3][:, 0].contiguous()
         if holes == 'empty':
             tabs[2][:] = False
         plain = hull_edge_vectors(*tabs)
@@ -401,13 +413,23 @@ def test_hull_and_sweep_kernels_match_plain_on_cuda():
         assert hull_edge_vectors.launches == before + 1
         for g, p in zip(got, plain):
             np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
+        edges = lb.edge_finish_plain(*plain[:6])
+        args = tabs + list(plain[6:8]) + list(edges[:2])
+        want = sweep_extents(*args)
+        before = sweep_extents.launches
+        got = sweep_extents(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        assert sweep_extents.launches == before + 1
+        for g, q in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), q.numpy())
     # tall components: shared memory above 48 KB a block (R > 3072), and
     # the rows in global memory above the shared cap; the plain version
     # on the card (its R x R slope matrices)
     tall = np.random.default_rng(8)
     for d, r in ((5, 4000), (2, HULL_MAX_SHARED_ROWS + 1)):
         tabs = [_t(a).to(dev) for a in _hull_tables(tall, d, r, True)]
-        plain = lb.hull_edge_vectors_plain(*tabs)
+        tabs[3] = tabs[3][:, 0].contiguous()
+        plain = lb.hull_tables_plain(*tabs)
         before = hull_edge_vectors.launches
         got = hull_edge_vectors(*tabs)
         torch.cuda.synchronize()
@@ -415,20 +437,6 @@ def test_hull_and_sweep_kernels_match_plain_on_cuda():
         assert bool(plain[2].any()) and bool(plain[5].any())
         for g, p in zip(got, plain):
             assert torch.equal(g, p)
-    for d, p, k in ((300, 96, 95), (9, 2, 1), (500, 32, 31)):
-        pts = _t(rng.integers(0, 1228, (d, p, 2)).astype(np.float32))
-        valid = _t(rng.random((d, p)) < 0.6)
-        valid[0] = False
-        dx = _t(rng.integers(1, 60, (d, k)).astype(np.float32))
-        dy = _t(rng.integers(0, 48, (d, k)).astype(np.float32))
-        plain = sweep_extents(pts, valid, dx, dy)
-        before = sweep_extents.launches
-        got = sweep_extents(pts.to(dev), valid.to(dev), dx.to(dev),
-                            dy.to(dev))
-        torch.cuda.synchronize()
-        assert sweep_extents.launches == before + 1
-        for g, q in zip(got, plain):
-            np.testing.assert_array_equal(g.cpu().numpy(), q.numpy())
 
 
 def _pixel_tables(seed, t=3, f=3072, max_det=24):
@@ -472,10 +480,10 @@ def test_component_stats_matches_jax(with_gray, max_det):
     entries are 2^31 - 1 in JAX (an empty segment_min or segment_max) and
     +-2^30 here, and nothing reads them."""
     xs, ys, seg, active, gray = _pixel_tables(4, max_det=max_det)
-    got = lb.component_stats(_t(xs), _t(ys), _t(seg), _t(active),
-                             gray_vals=_t(gray) if with_gray else None,
-                             max_det=max_det, max_bh=MAX_BH,
-                             cv2_centers=True)
+    got = _with_points(lb.component_stats(
+        _t(xs), _t(ys), _t(seg), _t(active),
+        gray_vals=_t(gray) if with_gray else None, max_det=max_det,
+        max_bh=MAX_BH))
     jfn = jax.jit(jlb.component_stats,
                   static_argnames=('max_det', 'max_bh', 'cv2_centers'))
     per = [jfn(xs[i], ys[i], seg[i], active[i],

@@ -84,29 +84,31 @@ def cv2_inputs(blobs, r):
     the corner masks of the plain hull, the inverse-sqrt table."""
     rmin, rmax, rvalid, min_y = (torch.from_numpy(a) for a in
                                  cases.row_tables(blobs, r))
-    abs_y = (min_y[:, None] + torch.arange(r, dtype=torch.int32)
-             ).contiguous()
-    *_, cl, cr = lb._hull_edge_data(rmin, rmax, rvalid, abs_y)
+    *_, cl, cr, _ = lb._hull_edge_data(rmin, rmax, rvalid, min_y)
     isq = tcc.inv_sqrt_table(MAX_EDGE_W, r)
     return rmin, rmax, rvalid, min_y, cl, cr, isq
 
 
 def rect_inputs(blobs, r):
     """The edge-finish and rect-select inputs of the blobs' tables: the
-    hull's chain outputs, the sweep's extents and directions, the edge
-    angles and validity."""
+    hull's chain outputs, the sweep's extents (the appended (1, 0) last),
+    the edge candidates, their angles and validity."""
     rmin, rmax, rvalid, min_y = (torch.from_numpy(a) for a in
                                  cases.row_tables(blobs, r))
-    tabs = lb._stats_tail_from_tables(rmin, rmax, rvalid, min_y, max_bh=r)
-    abs_y = (min_y[:, None] + torch.arange(r, dtype=torch.int32)
-             ).contiguous()
-    chains = lb.hull_edge_vectors_plain(rmin, rmax, rvalid, abs_y)[:6]
-    d = rmin.shape[0]
-    one = torch.ones((d, 1))
-    dx = torch.cat([tabs['edge_dx'], one], 1).contiguous()
-    dy = torch.cat([tabs['edge_dy'], one * 0.0], 1).contiguous()
-    ext = lb.sweep_extents_plain(tabs['points'], tabs['points_valid'], dx, dy)
-    return chains, (*ext, dx, dy, tabs['edge_angles'], tabs['edge_valid'])
+    tabs = lb._stats_tail_from_tables(rmin, rmax, rvalid, min_y)
+    chains = lb.hull_tables_plain(rmin, rmax, rvalid, min_y)[:6]
+    ext = lb.sweep_tables_plain(*(tabs[k] for k in lb.SWEEP_KEYS))
+    return chains, (*ext, *(tabs[k] for k in ('edge_dx', 'edge_dy',
+                                              'edge_angles', 'edge_valid')))
+
+
+def with_axis(sel):
+    """The rect select's extents and its (D, K - 1) directions with the
+    appended (1, 0): the six (D, K) arrays of the candidates' areas."""
+    d = sel[0].shape[0]
+    return list(sel[:4]) + [
+        np.concatenate([sel[4], np.ones((d, 1), F32)], 1),
+        np.concatenate([sel[5], np.zeros((d, 1), F32)], 1)]
 
 
 # ------------------------------------------------- fdlibm in the C order
@@ -340,6 +342,8 @@ def rect_select_emulated(mnu, mxu, mnv, mxv, edx, edy, eang, evalid,
     its order, the butterflies over the group; returns the outputs and
     the group minimum (h, l) of the areas."""
     d, k = mnu.shape
+    # the appended candidate: (1, 0), angle 0, valid, formed by the kernel
+    edx, edy = with_axis((mnu, mxu, mnv, mxv, edx, edy))[4:]
     eang = np.concatenate([eang, np.zeros((d, 1), F32)], 1)
     evalid = np.concatenate([evalid, np.ones((d, 1), bool)], 1)
     ah, al, du, dv, l2 = _ds_area(mnu, mxu, mnv, mxv, edx, edy, evalid)
@@ -638,7 +642,7 @@ def test_rect_design_matches_plain(design_inputs):
     a = _np(sel_args)
     d = a[0].shape[0]
     ev = np.concatenate([a[7], np.ones((d, 1), bool)], 1)
-    ah, al, *_ = _ds_area(*a[:6], ev)
+    ah, al, *_ = _ds_area(*with_axis(a), ev)
     t_h, t_l = halving_tree_min(ah, al)
     np.testing.assert_array_equal(m_h.view(np.int32), t_h.view(np.int32))
     np.testing.assert_array_equal(m_l.view(np.int32), t_l.view(np.int32))
@@ -662,7 +666,7 @@ def test_rect_design_ties_and_odd_widths():
         valid = rng.random((d, k - 1)) < 0.7
         mnu[:5], mxu[:5] = 3e38, -3e38                  # no valid point
         args = [torch.from_numpy(np.ascontiguousarray(x)) for x in
-                (mnu, mxu, mnv, mxv, dx, dy, ang, valid)]
+                (mnu, mxu, mnv, mxv, dx[:, :-1], dy[:, :-1], ang, valid)]
         want = _np(lb.rect_select_plain(*args))
         got, (m_h, m_l) = rect_select_emulated(*_np(args))
         for g, w in zip(got, want):
@@ -695,7 +699,7 @@ def test_rect_design_uneven_splits(case, lanes):
         np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
     d = a[0].shape[0]
     ev = np.concatenate([a[7], np.ones((d, 1), bool)], 1)
-    t_h, t_l = halving_tree_min(*_ds_area(*a[:6], ev)[:2])
+    t_h, t_l = halving_tree_min(*_ds_area(*with_axis(a), ev)[:2])
     np.testing.assert_array_equal(m_h.view(np.int32), t_h.view(np.int32))
     np.testing.assert_array_equal(m_l.view(np.int32), t_l.view(np.int32))
 
@@ -754,12 +758,12 @@ def test_plain_versions_match_jax(seed):
         np.testing.assert_array_equal(g.view(np.uint8), want.view(np.uint8))
     rmin, rmax, rvalid, min_y = (torch.from_numpy(a) for a in
                                  cases.row_tables(blobs, r))
-    tabs = lb._stats_tail_from_tables(rmin, rmax, rvalid, min_y, max_bh=r)
-    port = lb.min_area_rect(tabs['points'], tabs['points_valid'],
-                            tabs['edge_angles'], tabs['edge_valid'],
+    tabs = lb._stats_tail_from_tables(rmin, rmax, rvalid, min_y)
+    pts = lb.candidate_points(rmin, rmax, rvalid, min_y)
+    port = lb.min_area_rect(*pts, tabs['edge_angles'], tabs['edge_valid'],
                             tabs['edge_dx'], tabs['edge_dy'])
     ref = jlb.min_area_rect(
-        *(jnp.asarray(tabs[k].numpy()) for k in ('points', 'points_valid')),
+        *(jnp.asarray(t.numpy()) for t in pts),
         **{k: jnp.asarray(tabs[k].numpy()) for k in
            ('edge_angles', 'edge_valid', 'edge_dx', 'edge_dy')},
         use_pallas_sweep=False)
@@ -887,7 +891,7 @@ def test_kernels_on_cuda_at_odd_sizes():
         ang = rng.choice(np.array([0.0, -0.0, 0.25], F32), (d, k - 1))
         valid = rng.random((d, k - 1)) < 0.7
         a = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
-             (mnu, mxu, mnv, mxv, dx, dy, ang, valid)]
+             (mnu, mxu, mnv, mxv, dx[:, :-1], dy[:, :-1], ang, valid)]
         for g, w in zip(rect.rect_select(*a), lb.rect_select_plain(*a)):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 

@@ -1095,7 +1095,7 @@ def test_finish_row_tables_are_component_stats_runs(case):
                 sorted_runs=True, row_tables=tables)
             want = lb.component_stats_runs(
                 srt['s_start'], srt['s_len'], comp_rev, w=w, h=h,
-                max_det=max_det, max_bh=max_bh, cv2_centers=True)
+                max_det=max_det, max_bh=max_bh)
             for key in trcc.TABLE_KEYS:
                 np.testing.assert_array_equal(_np(got[key]), _np(want[key]),
                                               err_msg=key)

@@ -20,6 +20,11 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   ``rect_select``; phase 31's inputs) on the dense batch's tables
   (262,144 x 48) and on the frames-mode bench batch's (32,768 x 64), and
   the hull on random tables (16384 x 96);
+- ``tail``: the stats tail's kernels on the tables alone, the hull (from
+  min_y, with count), the sweep (the tables at the hull's corners, (1, 0)
+  implicit) and the rect select, on the dense and frames-mode bench
+  batches, then the whole route from the row tables to the rect
+  (``_stats_tail_from_tables`` and ``rect_from_tables``) as one call;
 - ``pixels``: ``cc_labels_at_pixels`` on the pixel lists of the bench and
   dense batches (double and single threshold) and of the random blobs;
 - ``assign``: ``row_min_argmin`` at 4096x4096 (K = 2 and 3) and
@@ -75,7 +80,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GROUPS = ('run_prop', 'cc', 'rects', 'pixels', 'assign', 'gsff',
+GROUPS = ('run_prop', 'cc', 'rects', 'tail', 'pixels', 'assign', 'gsff',
           'frame_step', 'preprocess', 'compact', 'run_cc')
 
 
@@ -229,8 +234,8 @@ def trace_rects(smoke, args, dev):
             lambda: hull_edge_vectors(*hull_args), args.reps, smoke)
         if sweep_args is None:
             continue
-        trace('sweep_extents {} D={} P={} K={}'.format(
-            name, *sweep_args[0].shape[:2], sweep_args[2].shape[1]),
+        trace('sweep_extents {} D={} R={} K={}'.format(
+            name, *sweep_args[0].shape, sweep_args[6].shape[1] + 1),
             lambda: sweep_extents(*sweep_args), args.reps, smoke)
         cv2_args, chains, select_args = smoke.rect_tail_inputs(hull_args,
                                                                sweep_args)
@@ -243,6 +248,32 @@ def trace_rects(smoke, args, dev):
               lambda: rect.edge_finish(*chains), args.reps, smoke)
         trace('rect_select {} D={} K={}'.format(name, *select_args[0].shape),
               lambda: rect.rect_select(*select_args), args.reps, smoke)
+
+
+def trace_tail(smoke, args, dev):
+    from ysmr_tpu_torch.ops import labeling as lb
+    from ysmr_tpu_torch.ops import rect
+    from ysmr_tpu_torch.ops.hull import hull_edge_vectors
+    from ysmr_tpu_torch.ops.sweep import sweep_extents
+    dsettings = smoke.dense_settings()
+    dscene = smoke.BenchScene(seed=smoke.DENSE_SEED, n_bugs=smoke.DENSE_BUGS)
+    batches = [
+        ('dense', smoke.dense_tables(
+            *smoke.first_batch_runs(dscene, dsettings), dsettings, dev)),
+        ('frames-mode bench', smoke.frames_tables(
+            smoke.BenchScene(), smoke.bench_settings(), dev))]
+    for name, (rows, sweep_args) in batches:
+        d, r = rows[0].shape
+        trace('hull_edge_vectors {} D={} R={}'.format(name, d, r),
+              lambda: hull_edge_vectors(*rows), args.reps, smoke)
+        trace('sweep_extents {} D={} R={} K={}'.format(name, d, r, 2 * r - 1),
+              lambda: sweep_extents(*sweep_args), args.reps, smoke)
+        select_args = smoke.rect_tail_inputs(rows, sweep_args)[2]
+        trace('rect_select {} D={} K={}'.format(name, d, 2 * r - 1),
+              lambda: rect.rect_select(*select_args), args.reps, smoke)
+        trace('stats tail + rect from the tables {} D={} R={}'.format(
+            name, d, r), lambda: lb.rect_from_tables(
+                lb._stats_tail_from_tables(*rows)), args.reps, smoke)
 
 
 def trace_pixels(smoke, args, dev):
@@ -372,6 +403,9 @@ def trace_run_cc(smoke, args, dev):
     from ysmr_tpu_torch.ops import run_cc
     tables = 'row_tables' in inspect.signature(
         run_cc.run_cc_components).parameters
+    # a checkout whose stats tail forms abs_y from max_bh
+    old_tail = 'max_bh' in inspect.signature(
+        lb._stats_tail_from_tables).parameters
     for name, scene, settings, dense in (
             ('bench', smoke.BenchScene(), smoke.bench_settings(), False),
             ('dense', smoke.BenchScene(seed=smoke.DENSE_SEED,
@@ -393,7 +427,8 @@ def trace_run_cc(smoke, args, dev):
                                                row_tables=sizes)
                 return lb._stats_tail_from_tables(
                     *(out[k] for k in run_cc.TABLE_KEYS),
-                    max_bh=sizes['max_bh'], cv2_centers=True)
+                    **({'max_bh': sizes['max_bh'], 'cv2_centers': True}
+                       if old_tail else {}))
             out = run_cc.run_cc_components(*wire, **kw, sorted_runs=True)
             n = out['n_components']
             rev = torch.where(out['s_comp'] >= 0,
@@ -461,7 +496,8 @@ def main():
     os.makedirs(smoke.WORK, exist_ok=True)
     dev = torch.device('cuda', 0)
     tracers = {'run_prop': trace_run_prop, 'cc': trace_cc,
-               'rects': trace_rects, 'pixels': trace_pixels,
+               'rects': trace_rects, 'tail': trace_tail,
+               'pixels': trace_pixels,
                'assign': trace_assign, 'gsff': trace_gsff,
                'frame_step': trace_frame_step,
                'preprocess': trace_preprocess, 'compact': trace_compact,

@@ -167,9 +167,9 @@ def load_kernels():
     lib.ysmr_compact_scratch_words.restype = ctypes.c_int64
     lib.ysmr_compact_scratch_words.argtypes = [ci] * 3
     lib.ysmr_hull_edges.restype = ci
-    lib.ysmr_hull_edges.argtypes = [vp] * 13 + [ci, ci, ci, vp]
+    lib.ysmr_hull_edges.argtypes = [vp] * 14 + [ci, ci, ci, vp]
     lib.ysmr_sweep_extents.restype = ci
-    lib.ysmr_sweep_extents.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
+    lib.ysmr_sweep_extents.argtypes = [vp] * 12 + [ci, ci, ci, ci, vp]
     lib.ysmr_row_min_argmin.restype = ci
     lib.ysmr_row_min_argmin.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.ysmr_cc_label.restype = ci

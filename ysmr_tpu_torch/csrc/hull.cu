@@ -1,10 +1,16 @@
-// Hull-edge candidates of the per-row extreme points, both chains.
+// Hull-edge candidates of the per-row extreme points, both chains, and
+// each component's row-span count.
 //
 // Replaces ysmr_tpu/ops/pallas_hull.py::hull_edge_vectors (Pallas, kernel
-// _make_kernel). Same contract as the plain version
-// ysmr_tpu_torch/ops/labeling.py::hull_edge_vectors_plain, the slope-matrix
-// closed form of ysmr_tpu/ops/labeling.py::_hull_edge_data (:794-833) before
-// the angle finishing. For component c and bbox row i (a valid row):
+// _make_kernel) and the abs_y and count of the stats tail
+// (ysmr_tpu/ops/labeling.py::_stats_tail_from_tables, :459, plain XLA).
+// Same contract as the plain version
+// ysmr_tpu_torch/ops/labeling.py::hull_tables_plain: abs_y = min_y + row
+// formed, then hull_edge_vectors_plain, the slope-matrix closed form of
+// ysmr_tpu/ops/labeling.py::_hull_edge_data (:794-833) before the angle
+// finishing, and count = the sum over the valid rows of
+// row_max_x - row_min_x + 1 (int32). For component c and bbox row i (a
+// valid row):
 //   - left chain (row x minima): the minimum outgoing slope
 //     (x_k - x_i) / (y_k - y_i) over valid rows k below i, with the edge
 //     vector of the LARGEST k attaining it (the farthest collinear endpoint),
@@ -17,7 +23,8 @@
 // numerator formed apart) of exact integer differences, so the kernel
 // equals the plain version bit for bit.
 // Rows "below" and "above" row i are the valid rows after and before it in
-// the table, which is ascending y (abs_y = min_y + row in the pipeline).
+// the table, which is ascending y (abs_y = min_y + row, formed in
+// registers).
 // The TPU kernel's (R, D) lane layout and its fori_loop over rows existed
 // for Mosaic and are not carried over.
 //
@@ -25,8 +32,10 @@
 // once, 32 at a time, coalesced; a ballot on row_valid compacts the valid
 // rows, in ascending order, into the warp's slice of shared memory as
 // float4 (y, x_min, x_max, row), and the invalid rows get their zeros there
-// and then (an empty component touches row_valid only). With n valid rows,
-// s = 32 / n lanes share a row (one lane a row, 32 rows a pass, above 32):
+// and then (an empty component touches row_valid only); the valid rows'
+// spans are summed in the same pass and one warp reduction gives count.
+// With n valid rows, s = 32 / n lanes share a row (one lane a row, 32 rows
+// a pass, above 32):
 // lane k of a row loops over the rows q = k, k + s, ... in ascending order
 // with `<=`, one broadcast 16-byte shared load each, so the last minimal q
 // of its share wins; shuffles then combine the s lanes, the smaller
@@ -38,15 +47,17 @@
 // in a (D, R) scratch in global memory instead.
 //
 // What bounds it on an H100: the bytes the data needs, row_valid and the
-// 20 bytes out (four float32, four flags) of every (component, row) and
-// the 12 bytes of the x and y tables at the valid rows only: 0.083 ms for
-// the dense batch's 262,144 x 48 at 3.35 TB/s (0.124 ms if every table
-// byte is counted); then the divisions, two per ordered pair of valid rows
-// and chain, which grow with the square of a component's valid rows and
-// are kept on the division's fast path (quotient, below). Measured with
-// trace_kernels.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.178-0.183 ms on
-// the card at the dense batch, 45-47% of that bound; 0.023-0.024 ms at the
-// frames-mode bench batch (32,768 x 64; bound 0.0135 ms, 56-58%).
+// 20 bytes out (four float32, four flags) of every (component, row), the
+// 8 bytes of the x tables at the valid rows only, and min_y and count
+// (4 bytes each) of every component: about 0.08 ms for the dense batch's
+// 262,144 x 48 at 3.35 TB/s; then the divisions, two per ordered pair of
+// valid rows and chain, which grow with the square of a component's valid
+// rows and are kept on the division's fast path (quotient, below).
+// Measured with trace_kernels.py on an NVIDIA H100 80GB HBM3 at 700 W,
+// when it still read a (D, R) abs_y table and wrote no count: 0.178-0.183
+// ms on the card at the dense batch, 45-47% of its bound then (0.083 ms);
+// 0.023-0.024 ms at the frames-mode bench batch (32,768 x 64; bound
+// 0.0135 ms, 56-58%).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,11 +89,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 hull_kernel(const int32_t* __restrict__ row_min_x,
             const int32_t* __restrict__ row_max_x,
             const uint8_t* __restrict__ row_valid,
-            const int32_t* __restrict__ abs_y, float* __restrict__ dx_l,
+            const int32_t* __restrict__ min_y, float* __restrict__ dx_l,
             float* __restrict__ dy_l, uint8_t* __restrict__ edge_l,
             float* __restrict__ dx_r, float* __restrict__ dy_r,
             uint8_t* __restrict__ edge_r, uint8_t* __restrict__ corner_l,
-            uint8_t* __restrict__ corner_r, float4* scratch, int d, int r) {
+            uint8_t* __restrict__ corner_r, int32_t* __restrict__ count,
+            float4* scratch, int d, int r) {
   extern __shared__ float4 s_rows[];
   const unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31;
@@ -92,7 +104,7 @@ hull_kernel(const int32_t* __restrict__ row_min_x,
   if (c >= d) return;
   const int64_t base = c * r;
   float4* rows = kShared ? s_rows + warp * r : scratch + base;
-  int n = 0;
+  int n = 0, span = 0;
   for (int j0 = 0; j0 < r; j0 += 32) {
     const int j = j0 + lane;
     const int64_t g = base + j;
@@ -100,15 +112,21 @@ hull_kernel(const int32_t* __restrict__ row_min_x,
     const bool v = in && row_valid[g];
     const unsigned valid = __ballot_sync(kAll, v);
     if (v) {
+      const int x0 = row_min_x[g], x1 = row_max_x[g];
+      span += x1 - x0 + 1;
       rows[n + __popc(valid & ((1u << lane) - 1u))] = make_float4(
-          static_cast<float>(abs_y[g]), static_cast<float>(row_min_x[g]),
-          static_cast<float>(row_max_x[g]), __int_as_float(j));
+          static_cast<float>(min_y[c] + j), static_cast<float>(x0),
+          static_cast<float>(x1), __int_as_float(j));
     } else if (in) {
       dx_l[g] = dy_l[g] = dx_r[g] = dy_r[g] = 0.f;
       edge_l[g] = edge_r[g] = corner_l[g] = corner_r[g] = 0;
     }
     n += __popc(valid);
   }
+  // int32 sums wrap as the plain version's sum(dtype=int32) does
+  span = static_cast<int>(__reduce_add_sync(kAll,
+                                            static_cast<unsigned>(span)));
+  if (lane == 0) count[c] = span;
   __syncwarp();
   if (n == 0) return;
   // s lanes a row (consecutive lanes), each over every s-th row q of the
@@ -190,17 +208,19 @@ hull_kernel(const int32_t* __restrict__ row_min_x,
 
 extern "C" {
 
-// row_min_x, row_max_x, abs_y: (D, R) int32; row_valid: (D, R) uint8;
-// outputs (D, R): float32 dx/dy, uint8 flags; all contiguous on CUDA device
+// row_min_x, row_max_x: (D, R) int32; row_valid: (D, R) uint8; min_y: (D,)
+// int32; outputs (D, R): float32 dx/dy, uint8 flags, and count (D,) int32;
+// all contiguous on CUDA device
 // `device`, launched on `stream`. scratch: (D, R) float4, used (and needed)
 // only for R > 14,528, where a warp's R rows of 16 bytes exceed a block's
 // shared memory (cudaErrorInvalidValue if it is null then). Returns a
 // cudaError_t (0 = launched).
 int ysmr_hull_edges(const void* row_min_x, const void* row_max_x,
-                    const void* row_valid, const void* abs_y, void* dx_l,
+                    const void* row_valid, const void* min_y, void* dx_l,
                     void* dy_l, void* edge_l, void* dx_r, void* dy_r,
                     void* edge_r, void* corner_l, void* corner_r,
-                    void* scratch, int d, int r, int device, void* stream) {
+                    void* count, void* scratch, int d, int r, int device,
+                    void* stream) {
   if (d <= 0 || r <= 0) return 0;
   const int64_t row_bytes = static_cast<int64_t>(r) * sizeof(float4);
   const bool shared = row_bytes <= kMaxSmem;
@@ -228,11 +248,12 @@ int ysmr_hull_edges(const void* row_min_x, const void* row_max_x,
       static_cast<const int32_t*>(row_min_x),
       static_cast<const int32_t*>(row_max_x),
       static_cast<const uint8_t*>(row_valid),
-      static_cast<const int32_t*>(abs_y), static_cast<float*>(dx_l),
+      static_cast<const int32_t*>(min_y), static_cast<float*>(dx_l),
       static_cast<float*>(dy_l), static_cast<uint8_t*>(edge_l),
       static_cast<float*>(dx_r), static_cast<float*>(dy_r),
       static_cast<uint8_t*>(edge_r), static_cast<uint8_t*>(corner_l),
-      static_cast<uint8_t*>(corner_r), static_cast<float4*>(scratch), d, r);
+      static_cast<uint8_t*>(corner_r), static_cast<int32_t*>(count),
+      static_cast<float4*>(scratch), d, r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,8 @@
 //     the keep rule, the angle.
 //   - Rect select: a group of kLanes lanes per component over its K =
 //     2 (R - 1) + 1 candidates (the last is the appended horizontal
-//     (1, 0), angle 0, always valid), several components a warp. Few
+//     (1, 0), angle 0, always valid, which the kernel forms: only its
+//     extents are read), several components a warp. Few
 //     candidates are valid (about 7 of 94 a component at the dense
 //     batch), so the group first scans the validity flags: lane l loads
 //     those of candidates 16 l ... 16 l + 15 at once (two a 16-bit load
@@ -280,12 +281,17 @@ rect_select_kernel(const float* __restrict__ min_u,
   const int64_t base = c * kk;
   const int64_t vbase = c * (kk - 1);
   int* list = lists[grp];
-  // the appended candidate is valid; the hull candidates' flags
+  // the appended candidate (1, 0), angle 0, is valid and formed here; the
+  // hull candidates' flags
   auto valid = [&](int k) { return k == kk - 1 || evalid[vbase + k] != 0; };
   auto load = [&](int k) {
     const int64_t o = base + k;
-    return Cand{min_u[o], max_u[o], min_v[o], max_v[o], edx[o], edy[o],
-                k == kk - 1 ? 0.0f : eang[vbase + k]};
+    if (k == kk - 1) {
+      return Cand{min_u[o], max_u[o], min_v[o], max_v[o], 1.0f, 0.0f, 0.0f};
+    }
+    const int64_t q = vbase + k;
+    return Cand{min_u[o], max_u[o], min_v[o], max_v[o], edx[q], edy[q],
+                eang[q]};
   };
 
   // the scan, kLanes * 16 candidates at a time: lane gl loads the flags
@@ -500,9 +506,9 @@ int ysmr_edge_finish(const void* dxl, const void* dyl, const void* el,
   return static_cast<int>(cudaGetLastError());
 }
 
-// min_u, max_u, min_v, max_v, edx, edy: (D, K) float32 (the sweep's
-// extents and directions, the appended (1, 0) last); eang: (D, K - 1)
-// float32; evalid: (D, K - 1) uint8; the outputs (D,) float32: cx, cy, w,
+// min_u, max_u, min_v, max_v: (D, K) float32 (the sweep's extents, the
+// appended (1, 0) last); edx, edy, eang: (D, K - 1) float32 (the hull
+// candidates); evalid: (D, K - 1) uint8; the outputs (D,) float32: cx, cy, w,
 // h, angle in degrees; all contiguous on CUDA device `device`, launched on
 // `stream`. Returns a cudaError_t.
 int ysmr_rect_select(const void* min_u, const void* max_u, const void* min_v,

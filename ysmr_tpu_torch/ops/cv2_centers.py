@@ -30,13 +30,15 @@ version. The kernel computes the inverse square roots as
 that function's (the plain version reads it).
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ysmr_tpu_torch import _build
 
-__all__ = ['inv_sqrt_table', 'cv2_centers_from_tables',
-           'cv2_centers_from_tables_plain']
+__all__ = ['inv_sqrt_table', 'inv_sqrt_table_cached',
+           'cv2_centers_from_tables', 'cv2_centers_from_tables_plain']
 
 #: caliper candidates kept per component; more near-ties than this -> ok
 #: False (exact-center fallback)
@@ -60,6 +62,14 @@ def inv_sqrt_table(max_w, max_h, device=None):
     v = np.arange(n, dtype=np.float64)
     v[0] = 1.0
     return torch.from_numpy((1.0 / np.sqrt(v)).astype(np.float32)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def inv_sqrt_table_cached(max_w, max_h, device):
+    """:func:`inv_sqrt_table` on ``device``, built once per (max_w, max_h,
+    device) and shared: the detect reads it every batch. Callers must not
+    write to it."""
+    return inv_sqrt_table(max_w, max_h, device=device)
 
 
 def _dot2(x1, y1, x2, y2):

@@ -4,8 +4,9 @@ minimum-area rectangle.
 Counterpart of three paths of ``ysmr_tpu/ops/labeling.py``:
 
 - the run-table path: ``component_stats_runs`` ->
-  ``_stats_tail_from_tables`` -> ``_hull_edge_data`` -> ``min_area_rect``
-  (the integer edge-vector branch, ``_min_area_rect_exact``);
+  ``_stats_tail_from_tables`` -> ``_hull_edge_data`` -> the exact rect
+  (the integer edge-vector branch of ``min_area_rect``,
+  ``_min_area_rect_exact``; here ``rect_from_tables``);
 - the image path of frames mode: ``label_components`` (min-label
   propagation with pointer jumping), ``propagate_markers``,
   ``compact_labels`` and ``component_tables`` (the unsorted branch of
@@ -44,14 +45,20 @@ Differences from the JAX module, all of representation:
 - ``.at[idx].min/max(mode='drop')`` onto deliberately out-of-range indices
   becomes ``scatter_reduce_`` into a buffer whose last slot is a dump
   that is never read.
-- The slope matrix of ``_hull_edge_data`` and the projection sweep of
-  ``_min_area_rect_exact`` are the plain versions of the kernels
-  ``csrc/hull.cu`` and ``csrc/sweep.cu`` (wrappers ``ops/hull.py`` and
-  ``ops/sweep.py``); they run over chunks of the non-empty components so
-  the (D, R, R) and (D, K, P) tensors stay small at dense capacities.
-  The angle finishing of both chains (``edge_finish_plain``) and the
-  choice after the sweep (``rect_select_plain``) are the plain versions
-  of the two kernels of ``csrc/rect.cu`` (wrapper ``ops/rect.py``).
+- The stats tail builds no candidate points: the hull kernel
+  (``csrc/hull.cu``, wrapper ``ops/hull.py``) forms ``abs_y = min_y +
+  row`` and writes ``count``, and the sweep kernel (``csrc/sweep.cu``,
+  wrapper ``ops/sweep.py``) reads the row tables at the hull's strict
+  chain corners, which hold every hull vertex, so its extents are those
+  of ``ysmr_tpu``'s points (``candidate_points``, ``sweep_extents_plain``).
+  Their plain versions (``hull_tables_plain``, ``sweep_tables_plain``) run
+  over chunks of the non-empty components so the (D, R, R) and (D, K, P)
+  tensors stay small at dense capacities. The angle finishing of both
+  chains (``edge_finish_plain``) and the choice after the sweep
+  (``rect_select_plain``) are the plain versions of the two kernels of
+  ``csrc/rect.cu`` (wrapper ``ops/rect.py``). The sweep and the rect
+  select take the always-valid horizontal candidate (1, 0) as implicit:
+  no (D, K) copy of the edge vectors is made to append it.
 - The hull-edge ``arctan2`` is fdlibm's float32 ``atan2f``, spelt out in
   float32 tensor operations: XLA:CPU's float32 atan2 is the C library's
   ``atan2f``, and glibc's is fdlibm's (equal on 189,700 tested inputs). A
@@ -220,8 +227,7 @@ def component_tables(comp, mask, *, max_det, max_bh):
     :return: the ``_stats_tail_from_tables`` dict over (T*max_det, ...)
     """
     return _stats_tail_from_tables(
-        *component_row_tables(comp, mask, max_det=max_det, max_bh=max_bh),
-        max_bh=max_bh)
+        *component_row_tables(comp, mask, max_det=max_det, max_bh=max_bh))
 
 
 def component_row_tables(comp, mask, *, max_det, max_bh):
@@ -356,8 +362,8 @@ def _row_tables(frame, xs, ys, seg, t, *, max_det, max_bh):
     return row_min_x, row_max_x, row_valid, min_y
 
 
-def component_stats(xs, ys, seg, active, gray_vals=None, *, max_det, max_bh,
-                    cv2_centers=False):
+def component_stats(xs, ys, seg, active, gray_vals=None, *, max_det,
+                    max_bh):
     """Per-component stats of (T, F) foreground-pixel tables in any order
     (``ysmr_tpu/ops/labeling.py::component_stats``, its segment-reduction
     branch ``sorted_runs=False``; the sorted branch is a TPU layout with the
@@ -380,8 +386,7 @@ def component_stats(xs, ys, seg, active, gray_vals=None, *, max_det, max_bh,
     seg_a = seg_a.reshape(-1).long()
     out = _stats_tail_from_tables(
         *_row_tables(frame, xs.reshape(-1), ys.reshape(-1), seg_a, t,
-                     max_det=max_det, max_bh=max_bh),
-        max_bh=max_bh, cv2_centers=cv2_centers)
+                     max_det=max_det, max_bh=max_bh))
     if gray_vals is not None:
         out['count'], out['lum_sum'] = (
             a.reshape(-1) for a in component_sums(seg, active, gray_vals,
@@ -408,8 +413,7 @@ def component_sums(seg, active, gray_vals, *, max_det):
                                                 torch.zeros_like(gray_vals)))
 
 
-def component_stats_runs(s_start, s_len, s_comp, *, w, h, max_det, max_bh,
-                         cv2_centers=False):
+def component_stats_runs(s_start, s_len, s_comp, *, w, h, max_det, max_bh):
     """Component stats straight from component-sorted run tables.
 
     :param s_start, s_len: (T, R) int32 component-sorted run geometry
@@ -420,8 +424,7 @@ def component_stats_runs(s_start, s_len, s_comp, *, w, h, max_det, max_bh,
     """
     return _stats_tail_from_tables(
         *run_row_tables(s_start, s_len, s_comp, w=w, h=h, max_det=max_det,
-                        max_bh=max_bh),
-        max_bh=max_bh, cv2_centers=cv2_centers)
+                        max_bh=max_bh))
 
 
 def run_row_tables(s_start, s_len, s_comp, *, w, h, max_det, max_bh):
@@ -478,30 +481,58 @@ def run_row_tables(s_start, s_len, s_comp, *, w, h, max_det, max_bh):
     return row_min_x, row_max_x, row_valid, min_y
 
 
-def _stats_tail_from_tables(row_min_x, row_max_x, row_valid, min_y, *,
-                            max_bh, cv2_centers=False):
-    """Row-extreme tables (D, R) -> count, candidate points and the exact
-    hull-edge candidates; with ``cv2_centers`` also the raw tables that
-    ``ops/cv2_centers.py`` reads."""
-    abs_y = (min_y[:, None] + torch.arange(max_bh, dtype=_I32,
-                                           device=min_y.device)[None, :])
-    count = torch.where(row_valid, row_max_x - row_min_x + 1,
-                        torch.zeros_like(row_min_x)).sum(dim=1, dtype=_I32)
+def _stats_tail_from_tables(row_min_x, row_max_x, row_valid, min_y):
+    """Row-extreme tables (D, R) -> ``count`` and the exact hull-edge
+    candidates, with the tables and the hull's strict chain corners that
+    the exact rect (``rect_from_tables``) and ``ops/cv2_centers.py`` read.
+
+    Launches nothing of its own: the hull kernel forms ``abs_y = min_y +
+    row`` and writes ``count`` (the row-span sum; the pixel tables replace
+    it with the exact pixel count under luminosity), the edge finish the
+    candidates (their plain versions on a CPU tensor). No candidate
+    points are built (``candidate_points`` gives ``ysmr_tpu``'s).
+
+    :param row_min_x, row_max_x: (D, R) int32; row_valid (D, R) bool;
+        min_y (D,) int32
+    :return: dict of ``count`` (D,) int32, ``min_y``, ``edge_dx``,
+        ``edge_dy``, ``edge_angles``, ``edge_valid`` (D, 2 (R - 1)), the
+        four tables and ``corner_l``, ``corner_r`` (D, R) bool
+    """
+    edge_dx, edge_dy, edge_angles, edge_valid, corner_l, corner_r, count = \
+        _hull_edge_data(row_min_x, row_max_x, row_valid, min_y)
+    return {'count': count, 'min_y': min_y, 'edge_dx': edge_dx,
+            'edge_dy': edge_dy, 'edge_angles': edge_angles,
+            'edge_valid': edge_valid, 'row_min_x': row_min_x,
+            'row_max_x': row_max_x, 'row_valid': row_valid,
+            'corner_l': corner_l, 'corner_r': corner_r}
+
+
+def _abs_y(min_y, r):
+    """abs_y = min_y + row, (D, R) int32."""
+    return min_y[:, None] + torch.arange(r, dtype=_I32,
+                                         device=min_y.device)[None, :]
+
+
+def candidate_points(row_min_x, row_max_x, row_valid, min_y):
+    """``ysmr_tpu``'s candidate points of row tables
+    (``ysmr_tpu/ops/labeling.py::_stats_tail_from_tables``): every row's
+    left extreme, then every row's right extreme, at y = min_y + row.
+    Only plain versions build them; ``cuda_calls`` counts the calls on a
+    CUDA tensor (the card's detect makes none).
+
+    :return: pts (D, 2R, 2) float32, valid (D, 2R) bool
+    """
+    if min_y.is_cuda:
+        candidate_points.cuda_calls += 1
+    abs_y = _abs_y(min_y, row_min_x.shape[1])
     pts_x = torch.cat([row_min_x, row_max_x], dim=1).to(_F32)
     pts_y = torch.cat([abs_y, abs_y], dim=1).to(_F32)
-    pts = torch.stack([pts_x, pts_y], dim=-1)       # (D, 2*R, 2)
-    pts_valid = torch.cat([row_valid, row_valid], dim=1)
-    edge_dx, edge_dy, edge_angles, edge_valid, corner_l, corner_r = \
-        _hull_edge_data(row_min_x, row_max_x, row_valid, abs_y.contiguous())
-    out = {'count': count, 'min_y': min_y, 'points': pts,
-           'points_valid': pts_valid, 'edge_dx': edge_dx,
-           'edge_dy': edge_dy, 'edge_angles': edge_angles,
-           'edge_valid': edge_valid}
-    if cv2_centers:
-        out.update(row_min_x=row_min_x, row_max_x=row_max_x,
-                   row_valid=row_valid, corner_l=corner_l,
-                   corner_r=corner_r)
-    return out
+    return (torch.stack([pts_x, pts_y], dim=-1),
+            torch.cat([row_valid, row_valid], dim=1))
+
+
+#: calls on a CUDA tensor since the count was last set to 0
+candidate_points.cuda_calls = 0
 
 
 def _fold_edge_vector(dx, dy):
@@ -591,9 +622,11 @@ def _edge_vector_finish(dx_e, dy_e, has_edge, r):
 
 
 def hull_edge_vectors_plain(row_min_x, row_max_x, row_valid, abs_y):
-    """Plain version of the ``csrc/hull.cu`` kernel: the slope-matrix
-    closed form of ``ysmr_tpu/ops/labeling.py::_hull_edge_data``
-    (:794-833) before the angle finishing.
+    """The contract of ``ysmr_tpu/ops/pallas_hull.py::hull_edge_vectors``,
+    which ``hull_tables_plain`` (the ``csrc/hull.cu`` kernel's plain
+    version) calls with abs_y formed: the slope-matrix closed form of
+    ``ysmr_tpu/ops/labeling.py::_hull_edge_data`` (:794-833) before the
+    angle finishing.
 
     Point i of the left chain (x minima) is a chain vertex iff the maximum
     slope dx/dy into it from the rows above does not exceed the minimum
@@ -668,29 +701,85 @@ def edge_finish_plain(dx_l, dy_l, edge_l, dx_r, dy_r, edge_r):
             torch.cat([la, ra], dim=1), torch.cat([lv, rv], dim=1))
 
 
-def _hull_edge_data(row_min_x, row_max_x, row_valid, abs_y):
+def hull_tables_plain(row_min_x, row_max_x, row_valid, min_y):
+    """Plain version of the ``csrc/hull.cu`` kernel's entry: ``abs_y =
+    min_y + row`` formed, ``hull_edge_vectors_plain`` on it, and ``count``,
+    the sum over the valid rows of ``row_max_x - row_min_x + 1``.
+
+    :param row_min_x, row_max_x: (D, R) int32; row_valid (D, R) bool;
+        min_y (D,) int32
+    :return: ``hull_edge_vectors_plain``'s eight outputs, then count (D,)
+        int32
+    """
+    count = torch.where(row_valid, row_max_x - row_min_x + 1,
+                        torch.zeros_like(row_min_x)).sum(dim=1, dtype=_I32)
+    return hull_edge_vectors_plain(
+        row_min_x, row_max_x, row_valid,
+        _abs_y(min_y, row_min_x.shape[1])) + (count,)
+
+
+def _hull_edge_data(row_min_x, row_max_x, row_valid, min_y):
     """Exact hull-edge candidate vectors and angles of both chains.
 
-    The slopes come from ``ops/hull.py::hull_edge_vectors`` and the angle
-    finishing from ``ops/rect.py::edge_finish`` (the CUDA kernels on a CUDA
-    tensor, ``hull_edge_vectors_plain`` and ``edge_finish_plain`` on a CPU
-    one).
+    The slopes and ``count`` come from ``ops/hull.py::hull_edge_vectors``
+    and the angle finishing from ``ops/rect.py::edge_finish`` (the CUDA
+    kernels on a CUDA tensor, ``hull_tables_plain`` and
+    ``edge_finish_plain`` on a CPU one).
 
-    :return: (dx, dy, angles, valid, corner_l, corner_r): the first four
-        (D, 2*(R-1)) folded integer edge vectors, their float32 angles in
-        [0, pi/2) and validity; the corners (D, R) strict chain-corner
-        masks (consumed by ops/cv2_centers)
+    :return: (dx, dy, angles, valid, corner_l, corner_r, count): the first
+        four (D, 2*(R-1)) folded integer edge vectors, their float32
+        angles in [0, pi/2) and validity; the corners (D, R) strict
+        chain-corner masks (read by the sweep and ops/cv2_centers); count
+        (D,) int32
     """
     from ysmr_tpu_torch.ops import rect
     from ysmr_tpu_torch.ops.hull import hull_edge_vectors
-    dxl, dyl, el, dxr, dyr, er, cl, cr = hull_edge_vectors(
-        row_min_x, row_max_x, row_valid, abs_y)
-    return rect.edge_finish(dxl, dyl, el, dxr, dyr, er) + (cl, cr)
+    dxl, dyl, el, dxr, dyr, er, cl, cr, count = hull_edge_vectors(
+        row_min_x, row_max_x, row_valid, min_y)
+    return rect.edge_finish(dxl, dyl, el, dxr, dyr, er) + (cl, cr, count)
+
+
+def _with_axis(edge_dx, edge_dy):
+    """The (D, K - 1) edge candidates with the horizontal (1, 0) appended:
+    the hull's closing edges (top/bottom row) are horizontal and are not
+    emitted by the left/right chains."""
+    one = torch.ones((edge_dx.shape[0], 1), dtype=edge_dx.dtype,
+                     device=edge_dx.device)
+    return (torch.cat([edge_dx, one], dim=1),
+            torch.cat([edge_dy, one * 0.0], dim=1))
+
+
+def sweep_tables_plain(row_min_x, row_max_x, row_valid, min_y, corner_l,
+                       corner_r, edge_dx, edge_dy):
+    """Plain version of the ``csrc/sweep.cu`` kernel: ``sweep_extents_plain``
+    over the strict chain corners of the row tables (a left corner at
+    ``row_min_x``, a right one at ``row_max_x``, y = min_y + row) along the
+    K - 1 edge candidates and the appended (1, 0).
+
+    The extents of a point set along a direction are reached at vertices
+    of its convex hull, and every hull vertex of the row extremes is a
+    strict corner of its chain or a chain's end, which the hull flags as a
+    corner too. So these are the extents over every valid point
+    (``sweep_extents_plain`` on ``candidate_points``) whenever the hull's
+    float32 slopes keep distinct slopes apart: two slopes p/q and p'/q' of
+    integers with |p| < W, 0 < q, q' < R differ by at least 1 / (q q'),
+    more than an ulp of either while (W - 1) (R - 1) < 2^23 (1228 x 48 on
+    the dense path, 1228 x 64 in frames mode).
+
+    :param corner_l, corner_r: (D, R) bool strict-corner flags of the hull
+    :param edge_dx, edge_dy: (D, K - 1) float32 edge candidates
+    :return: (min_u, max_u, min_v, max_v), each (D, K) float32
+    """
+    pts, valid = candidate_points(row_min_x, row_max_x, row_valid, min_y)
+    valid = valid & torch.cat([corner_l, corner_r], dim=1)
+    return sweep_extents_plain(pts, valid, *_with_axis(edge_dx, edge_dy))
 
 
 def sweep_extents_plain(pts, valid, dx, dy):
-    """Plain version of the ``csrc/sweep.cu`` kernel
-    (``ysmr_tpu/ops/labeling.py:911-922``): per component and candidate
+    """The contract of ``ysmr_tpu/ops/pallas_sweep.py::sweep_extents`` (the
+    sweep of ``ysmr_tpu/ops/labeling.py:911-922``) on candidate points,
+    which ``sweep_tables_plain`` restricts to the hull's corners: per
+    component and candidate
     direction (dx, dy), the min and max of ``u = x*dx + y*dy`` and
     ``v = y*dx - x*dy`` over the valid points; (+big, -big) when a
     component has no valid point. With integer points and directions every
@@ -729,35 +818,49 @@ def _ds_less(ah, al, bh, bl):
 
 def min_area_rect(pts, valid, edge_angles, edge_valid, edge_dx, edge_dy):
     """Exact minimum-area rectangle over integer hull-edge candidates
-    (``ysmr_tpu/ops/labeling.py::_min_area_rect_exact``).
+    (``ysmr_tpu/ops/labeling.py::_min_area_rect_exact``), on candidate
+    points: ``sweep_extents_plain`` along the candidates and the appended
+    (1, 0), then ``rect_select_plain``. The pipeline takes the same rect
+    from the row tables (``rect_from_tables``).
 
     The minimal rectangle has a side collinear with a hull edge, and the
     projections onto integer edge vectors are exact float32 integers, so
     the scaled areas are exact double-single products compared exactly;
     equal areas resolve to the largest-angle candidate (cv2's calipers
-    visit edges in increasing rotation and replace on <=). The extents come
-    from ``ops/sweep.py::sweep_extents`` and the choice from
-    ``ops/rect.py::rect_select`` (kernels on a CUDA tensor, the plain
-    versions on a CPU one).
+    visit edges in increasing rotation and replace on <=).
 
     :param pts: (D, P, 2) float32 candidate points; valid (D, P) bool
-    :param edge_*: (D, K) candidate edge vectors, angles and validity
+    :param edge_*: (D, K - 1) candidate edge vectors, angles and validity
     :return: dict of (D,) float32 cx, cy, w, h, angle_deg (cv2's classic
         convention: degrees in [-90, 0), w along the reported angle)
     """
+    extents = sweep_extents_plain(pts, valid, *_with_axis(edge_dx, edge_dy))
+    cx, cy, w, h, angle_deg = rect_select_plain(
+        *extents, edge_dx, edge_dy, edge_angles, edge_valid)
+    return {'cx': cx, 'cy': cy, 'w': w, 'h': h, 'angle_deg': angle_deg}
+
+
+#: the ``_stats_tail_from_tables`` entries the sweep reads
+SWEEP_KEYS = ('row_min_x', 'row_max_x', 'row_valid', 'min_y', 'corner_l',
+              'corner_r', 'edge_dx', 'edge_dy')
+
+
+def rect_from_tables(tables):
+    """``min_area_rect`` of every component from the stats tail's dict
+    (``_stats_tail_from_tables``): the extents from the row tables at the
+    hull's strict corners (``ops/sweep.py::sweep_extents``) and the choice
+    (``ops/rect.py::rect_select``), the horizontal candidate (1, 0)
+    implicit in both (kernels on a CUDA tensor, ``sweep_tables_plain`` and
+    ``rect_select_plain`` on a CPU one).
+
+    :return: dict of (D,) float32 cx, cy, w, h, angle_deg
+    """
     from ysmr_tpu_torch.ops import rect
     from ysmr_tpu_torch.ops.sweep import sweep_extents
-    d = edge_dx.shape[0]
-    # the hull's closing edges (top/bottom row) are horizontal and are not
-    # emitted by the left/right chains: append an always-valid (1, 0)
-    one = torch.ones((d, 1), dtype=edge_dx.dtype, device=edge_dx.device)
-    edge_dx = torch.cat([edge_dx, one], dim=1)
-    edge_dy = torch.cat([edge_dy, one * 0.0], dim=1)
-    extents = sweep_extents(pts.contiguous(), valid.contiguous(), edge_dx,
-                            edge_dy)
+    extents = sweep_extents(*(tables[k] for k in SWEEP_KEYS))
     cx, cy, w, h, angle_deg = rect.rect_select(
-        *extents, edge_dx, edge_dy, edge_angles.contiguous(),
-        edge_valid.contiguous())
+        *extents, *(tables[k] for k in ('edge_dx', 'edge_dy', 'edge_angles',
+                                        'edge_valid')))
     return {'cx': cx, 'cy': cy, 'w': w, 'h': h, 'angle_deg': angle_deg}
 
 
@@ -766,14 +869,15 @@ def rect_select_plain(min_u, max_u, min_v, max_v, edge_dx, edge_dy,
     """Plain version of the ``csrc/rect.cu`` rect-select kernel:
     ``_min_area_rect_exact``'s choice after the sweep.
 
-    :param min_u, max_u, min_v, max_v: (D, K) float32 swept extents
-    :param edge_dx, edge_dy: (D, K) float32 swept directions, the appended
-        horizontal (1, 0) last
-    :param edge_angles, edge_valid: (D, K - 1) of the hull candidates
+    :param min_u, max_u, min_v, max_v: (D, K) float32 swept extents, the
+        horizontal candidate (1, 0) last
+    :param edge_dx, edge_dy, edge_angles, edge_valid: (D, K - 1) of the
+        hull candidates (the appended one is (1, 0), angle 0, valid)
     :return: (cx, cy, w, h, angle_deg), each (D,) float32
     """
     d, k = min_u.shape
     dev = min_u.device
+    edge_dx, edge_dy = _with_axis(edge_dx, edge_dy)
     edge_angles = torch.cat(
         [edge_angles, torch.zeros((d, 1), dtype=_F32, device=dev)], dim=1)
     edge_valid = torch.cat(

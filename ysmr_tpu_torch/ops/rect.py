@@ -78,11 +78,10 @@ def rect_select(min_u, max_u, min_v, max_v, edge_dx, edge_dy, edge_angles,
     ``labeling.rect_select_plain``).
 
     :param min_u, max_u, min_v, max_v: (D, K) float32 extents from
-        ``sweep_extents``
-    :param edge_dx, edge_dy: (D, K) float32 swept directions, the appended
-        horizontal (1, 0) last
-    :param edge_angles: (D, K - 1) float32; edge_valid (D, K - 1) bool, of
-        the hull candidates (the appended one has angle 0 and is valid)
+        ``sweep_extents``, the horizontal candidate (1, 0) last
+    :param edge_dx, edge_dy, edge_angles: (D, K - 1) float32; edge_valid
+        (D, K - 1) bool, of the hull candidates (the appended (1, 0) has
+        angle 0, is valid and is formed by the kernel)
     :return: (cx, cy, w, h, angle_deg), each (D,) float32
     """
     dev = min_u.device
@@ -95,12 +94,12 @@ def rect_select(min_u, max_u, min_v, max_v, edge_dx, edge_dy, edge_angles,
         raise ValueError('rect_select: the extents must be (D, K), K >= 1')
     d, k = min_u.shape
     _check('rect_select', (('min_u', min_u), ('max_u', max_u),
-                           ('min_v', min_v), ('max_v', max_v),
-                           ('edge_dx', edge_dx), ('edge_dy', edge_dy)),
-           (d, k), (_F32,) * 6, dev)
-    _check('rect_select', (('edge_angles', edge_angles),
+                           ('min_v', min_v), ('max_v', max_v)),
+           (d, k), (_F32,) * 4, dev)
+    _check('rect_select', (('edge_dx', edge_dx), ('edge_dy', edge_dy),
+                           ('edge_angles', edge_angles),
                            ('edge_valid', edge_valid)), (d, k - 1),
-           (_F32, torch.bool), dev)
+           (_F32, _F32, _F32, torch.bool), dev)
     outs = [torch.empty(d, dtype=_F32, device=dev) for _ in range(5)]
     if d:
         lib = _build.load_kernels()

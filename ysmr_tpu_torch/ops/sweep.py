@@ -1,9 +1,13 @@
 """Wrapper of the hand-written CUDA kernel for the rotated-extent sweep.
 
-Counterpart of ``ysmr_tpu/ops/pallas_sweep.py::sweep_extents``. The kernel
-(``csrc/sweep.cu``) runs one block per component; its source notes the
-design and what bounds it. The plain PyTorch version is
-``ops/labeling.py::sweep_extents_plain``.
+Counterpart of ``ysmr_tpu/ops/pallas_sweep.py::sweep_extents`` and of the
+candidate points it reads (``ysmr_tpu/ops/labeling.py::
+_stats_tail_from_tables``): the kernel (``csrc/sweep.cu``) reads the row
+tables at the hull's strict chain corners and takes the horizontal
+direction (1, 0) as implicit. It runs one warp per component; its source
+notes the design and what bounds it. The plain PyTorch version is
+``ops/labeling.py::sweep_tables_plain``, ``sweep_extents_plain`` (the
+Pallas kernel's contract) over the corners.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the call raises. Nothing falls back from the kernel to the plain
@@ -13,47 +17,54 @@ version.
 import torch
 
 from ysmr_tpu_torch import _build
-from ysmr_tpu_torch.ops.labeling import sweep_extents_plain
+from ysmr_tpu_torch.ops.labeling import sweep_tables_plain
 
 
-def sweep_extents(pts, valid, dx, dy):
-    """Extents of the candidate points along per-component directions
-    (contract of ``labeling.sweep_extents_plain``).
+def sweep_extents(row_min_x, row_max_x, row_valid, min_y, corner_l,
+                  corner_r, edge_dx, edge_dy):
+    """Extents of each component's strict corners along its edge
+    candidates and (1, 0) (contract of ``labeling.sweep_tables_plain``).
 
-    :param pts: (D, P, 2) float32; valid (D, P) bool; dx, dy (D, K)
-        float32; all contiguous
+    :param row_min_x, row_max_x: (D, R) int32; row_valid, corner_l,
+        corner_r (D, R) bool; min_y (D,) int32; all contiguous
+    :param edge_dx, edge_dy: (D, K - 1) float32, contiguous
     :return: (min_u, max_u, min_v, max_v), each (D, K) float32
     """
-    if pts.device.type == 'cpu':
-        return sweep_extents_plain(pts, valid, dx, dy)
-    if pts.device.type != 'cuda':
-        raise ValueError('sweep_extents: unsupported device {}'.format(
-            pts.device))
-    if pts.dim() != 3 or pts.shape[2] != 2 or pts.dtype != torch.float32 \
-            or not pts.is_contiguous():
-        raise ValueError('sweep_extents: pts must be a contiguous (D, P, 2) '
-                         'float32 tensor')
-    d, p = pts.shape[:2]
-    if valid.shape != (d, p) or valid.dtype != torch.bool or \
-            valid.device != pts.device or not valid.is_contiguous():
-        raise ValueError('sweep_extents: valid must be a contiguous (D, P) '
-                         'bool tensor on the device of pts')
-    if dx.dim() != 2 or dx.shape[0] != d:
-        raise ValueError('sweep_extents: dx must be (D, K)')
-    for name, a in (('dx', dx), ('dy', dy)):
-        if a.shape != dx.shape or a.dtype != torch.float32 or \
-                a.device != pts.device or not a.is_contiguous():
-            raise ValueError('sweep_extents: {} must be a contiguous (D, K) '
-                             'float32 tensor on the device of pts'.format(
-                                 name))
-    k = dx.shape[1]
-    outs = [torch.empty((d, k), dtype=torch.float32, device=pts.device)
+    dev = row_min_x.device
+    if dev.type == 'cpu':
+        return sweep_tables_plain(row_min_x, row_max_x, row_valid, min_y,
+                                  corner_l, corner_r, edge_dx, edge_dy)
+    if dev.type != 'cuda':
+        raise ValueError('sweep_extents: unsupported device {}'.format(dev))
+    if row_min_x.dim() != 2 or edge_dx.dim() != 2:
+        raise ValueError('sweep_extents: tables (D, R) and candidates '
+                         '(D, K - 1)')
+    d, r = row_min_x.shape
+    k = edge_dx.shape[1] + 1
+    for name, a, shape, dtype in (
+            ('row_min_x', row_min_x, (d, r), torch.int32),
+            ('row_max_x', row_max_x, (d, r), torch.int32),
+            ('row_valid', row_valid, (d, r), torch.bool),
+            ('min_y', min_y, (d,), torch.int32),
+            ('corner_l', corner_l, (d, r), torch.bool),
+            ('corner_r', corner_r, (d, r), torch.bool),
+            ('edge_dx', edge_dx, (d, k - 1), torch.float32),
+            ('edge_dy', edge_dy, (d, k - 1), torch.float32)):
+        if tuple(a.shape) != shape or a.dtype != dtype or \
+                a.device != dev or not a.is_contiguous():
+            raise ValueError('sweep_extents: {} must be a contiguous {} {} '
+                             'tensor on {}'.format(name, shape, dtype, dev))
+    if d * max(r, k) >= 1 << 31:
+        raise ValueError('sweep_extents: D * R or D * K too large')
+    outs = [torch.empty((d, k), dtype=torch.float32, device=dev)
             for _ in range(4)]
     lib = _build.load_kernels()
-    stream = torch.cuda.current_stream(pts.device).cuda_stream
     rc = lib.ysmr_sweep_extents(
-        pts.data_ptr(), valid.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        *(o.data_ptr() for o in outs), d, p, k, pts.device.index, stream)
+        row_min_x.data_ptr(), row_max_x.data_ptr(), row_valid.data_ptr(),
+        min_y.data_ptr(), corner_l.data_ptr(), corner_r.data_ptr(),
+        edge_dx.data_ptr(), edge_dy.data_ptr(),
+        *(o.data_ptr() for o in outs), d, r, k, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, 'sweep kernel launch')
     sweep_extents.launches += 1
     return tuple(outs)

@@ -107,7 +107,7 @@ def detect_from_masks(gray, mask, markers, *, max_det, max_bh, cc_iters,
     *rows, n_components = lb.compact_row_tables(labels8, mask,
                                                 max_det=max_det,
                                                 max_bh=max_bh, fg_bits=bits)
-    tables = lb._stats_tail_from_tables(*rows, max_bh=max_bh)
+    tables = lb._stats_tail_from_tables(*rows)
     return detections_from_tables(
         tables, mask.shape[0], max_det=max_det, max_bh=max_bh,
         n_components=n_components,

@@ -275,9 +275,9 @@ def _cv2_center_override(rect, tables, *, max_bh):
     and rect hold the batch's components flattened into one leading axis,
     so this runs once per batch."""
     from ysmr_tpu_torch.ops.cv2_centers import (cv2_centers_from_tables,
-                                                inv_sqrt_table)
-    isq = inv_sqrt_table(lb._CV2_CENTER_MAX_EDGE_W, max_bh,
-                         device=rect['cx'].device)
+                                                inv_sqrt_table_cached)
+    isq = inv_sqrt_table_cached(lb._CV2_CENTER_MAX_EDGE_W, max_bh,
+                                rect['cx'].device)
     ccx, ccy, cok = cv2_centers_from_tables(
         *(tables[k] for k in _CV2_TABLE_KEYS), isq, max_bh=max_bh)
     return dict(rect, cx=torch.where(cok, ccx, rect['cx']),
@@ -288,9 +288,7 @@ def _stats_outputs_runs(cc_out, t, *, max_det, max_bh, cv2_centers=False):
     """Detect tail over run-CC's row tables (``run_cc_components`` with
     ``row_tables``; no luminosity): the stats, hull and exact rect of every
     component of the batch in one pass over (T*max_det, ...) tables."""
-    tables = lb._stats_tail_from_tables(
-        *(cc_out[k] for k in rcc.TABLE_KEYS), max_bh=max_bh,
-        cv2_centers=cv2_centers)
+    tables = lb._stats_tail_from_tables(*(cc_out[k] for k in rcc.TABLE_KEYS))
     out = detections_from_tables(tables, t, max_det=max_det, max_bh=max_bh,
                                  cv2_centers=cv2_centers)
     out['n_components'] = cc_out['n_components']
@@ -308,7 +306,7 @@ def _stats_outputs(seg, keep, px_x, px_y, gray_in, gray_frames,
     tables = lb.component_stats(
         px_x, px_y, seg, keep,
         gray_vals=gray_in if include_luminosity and not exact_lum else None,
-        max_det=max_det, max_bh=max_bh, cv2_centers=cv2_centers)
+        max_det=max_det, max_bh=max_bh)
     lum = None
     if include_luminosity and not exact_lum:
         lum = (tables['lum_sum'].to(torch.float32) /
@@ -331,11 +329,7 @@ def detections_from_tables(tables, t, *, max_det, max_bh, cv2_centers=False,
     center before the cv2-center override, as in JAX; with ``lum``
     (T, max_det) it is that. Shared by the run wire, the pixel tables and
     frames mode."""
-    rect = lb.min_area_rect(tables['points'], tables['points_valid'],
-                            edge_angles=tables['edge_angles'],
-                            edge_valid=tables['edge_valid'],
-                            edge_dx=tables['edge_dx'],
-                            edge_dy=tables['edge_dy'])
+    rect = lb.rect_from_tables(tables)
     det_valid = (tables['count'] > 0).view(t, max_det)
     if gray_frames is not None:
         from ysmr_tpu_torch.ops.luminosity import rect_mean_luminosity
