@@ -281,14 +281,34 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    4, 7, 8, 17, 18, 21 and 26 fail unless run-CC ran through these
    kernels (prepare, compact and finish once a call, the propagation
    twice), phases 7 and 8 unless the finish wrote every device-rect
-   batch's row tables, phase 17 if it wrote any.
+   batch's row tables, phase 17 if it wrote any;
+34. mean-threshold mode (``adaptive double threshold = -1``): its two
+   kernels (``csrc/adaptive_mean.cu``: ``ysmr_mean_prepare``, the blurred
+   frames, the meanStdDev sums and the gray; ``ysmr_mean_masks``, the
+   global threshold and ``& frame_valid``) against their plain versions on
+   the card, bit for bit, one launch a call: the bench and dense frames
+   batches (timed with the bound, with and without the gray), a 16-frame
+   640x480 batch, a short padded batch, white and dark, the shapes of
+   ``mean_mode_cases.py`` (one row, one column, one pixel, W % 4 != 0,
+   frames under 16 pixels, a 1 x 40,000 frame of 255s whose row sums
+   wrap); each kernel's registers, shared memory and occupancy. Then frames
+   mode in mean mode on the bench scene in memory (track count, frames/s):
+   ``_list.csv`` byte-identical to the pixels-mode device path's without
+   cv2 centres, one prepare and one masks launch a detect batch, every
+   other kernel of the frames path launched but the reconstruction and the
+   adaptive preprocess, and no torch gray, blur, sums or threshold pass on
+   the card (their ``cuda_calls``); the default pixels path (host
+   threshold, run-CC, host rects, float64 tracker) on 16 frames, ``cuda``
+   byte-identical to ``cpu``; frames mode with luminosity on 16 frames,
+   ``cuda`` against ``cpu`` by ``compare_rows``.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (sixteen kernels:
+The last three lines are the ``kernels`` JSON record (eighteen kernels:
 the seven TPU kernels' ports, the adaptive mean and the fused preprocess
 around it, the GSFF step, the frame step, the cv2 centres, the edge
-finish, the rect select, the compaction and run-CC's steps around the
-propagation, each with its bound and the library call where one exists),
+finish, the rect select, the compaction, run-CC's steps around the
+propagation and mean mode's prepare and masks, each with its bound and
+the library call where one exists),
 ``nvidia-smi``'s card name and power limit, and the result JSON.
 """
 
@@ -311,6 +331,7 @@ import torch
 
 import compact_cases as cpc
 import frame_step_cases as fsc
+import mean_mode_cases as mmc
 import rect_tail_cases as rtc
 import run_cc_cases as rcc_cases
 import tracker_step_launches as tsl
@@ -4597,6 +4618,272 @@ def phase_run_cc(scene, settings, dscene, dsettings, dev):
     return checks['dense']
 
 
+# ---- mean-threshold mode ----
+
+MEAN = {'adaptive double threshold': -1.0}
+#: the pixel wire's capacity in mean mode's pixels-mode runs: the bench
+#: scene's mean threshold keeps about 11,300 pixels a frame, above the
+#: bench's 8192, and a pixel the wire drops is a pixel frames mode keeps
+MEAN_MAX_FG = {'max foreground pixels per frame': 16384}
+#: mean mode's wrappers, looked up so that trace_kernels.py --root can load
+#: this module over a checkout from before them (None there)
+MEAN_PREPARE = getattr(pp, 'mean_prepare_from_bgr', None)
+MEAN_MASKS = getattr(pp, 'mean_masks', None)
+#: the torch passes the kernels replace on the card
+MEAN_TORCH = (pp.bgr_to_gray, pp.blur3, pp.frame_mean_std_sums,
+              pp.global_threshold)
+
+
+def reset_mean_launches():
+    reset_frames_launches()
+    for k in (MEAN_PREPARE, MEAN_MASKS):
+        k.launches = 0
+    for k in MEAN_TORCH:
+        k.cuda_calls = 0
+
+
+def mean_launches(what):
+    """Mean mode's frames path since ``reset_mean_launches``: raises unless
+    the prepare and masks kernels ran once a detect batch (as often as the
+    hull) and no torch gray, blur, sums or threshold pass ran on the card;
+    returns the launches and counts."""
+    launches = {k.__name__: k.launches for k in FRAMES_KERNELS +
+                (MEAN_PREPARE, MEAN_MASKS)}
+    torch_calls = {k.__name__: k.cuda_calls for k in MEAN_TORCH}
+    idle = ('binary_reconstruct', 'adaptive_masks_from_bgr')
+    if min(v for k, v in launches.items() if k not in idle) <= 0:
+        raise SystemExit('{}: a kernel of the path was never launched: {}'
+                         .format(what, launches))
+    per = launches['hull_edge_vectors']
+    if per <= 0 or (launches['mean_prepare_from_bgr'],
+                    launches['mean_masks']) != (per, per):
+        raise SystemExit('{}: {} prepare and {} masks launches for {} detect '
+                         'batches'.format(what,
+                                          launches['mean_prepare_from_bgr'],
+                                          launches['mean_masks'], per))
+    if any(torch_calls.values()) or any(launches[k] for k in idle):
+        raise SystemExit('{}: torch passes on the card {}, adaptive masks '
+                         'and reconstructions {}'.format(
+                             what, torch_calls,
+                             [launches[k] for k in idle]))
+    points_gate(what)
+    return {**launches, **{k + ' on cuda': v for k, v in torch_calls.items()}}
+
+
+def check_mean_prepare(name, bgr, gray, timed=False):
+    """The prepare kernel against its plain version on the card, bit-equal,
+    one launch a call; with ``timed`` the ``check_equal`` record (the
+    bound: the BGR read once, the blurred frames, the sums and with the
+    gray the int32 gray written once; about 20 integer operations a pixel,
+    counted at the float32 rate)."""
+    n, h, w = bgr.shape[:3]
+    if timed:
+        return check_equal(
+            'mean prepare ' + name,
+            lambda *a: masks_outputs(MEAN_PREPARE(*a)),
+            lambda *a: masks_outputs(pp.mean_prepare_from_bgr_plain(*a)),
+            (bgr, gray), 20 * n * h * w, plain_reps=3,
+            nbytes=n * h * w * (4 + 4 * gray) + 12 * n)
+    before = MEAN_PREPARE.launches
+    got = MEAN_PREPARE(bgr, gray)
+    want = pp.mean_prepare_from_bgr_plain(bgr, gray)
+    torch.cuda.synchronize()
+    if MEAN_PREPARE.launches != before + 1 or any(
+            (g is None) != (v is None) or
+            (g is not None and not torch.equal(g, v))
+            for g, v in zip(got, want)):
+        raise SystemExit('mean prepare {} (gray {}): kernel != plain '
+                         '(launches {})'.format(
+                             name, gray, MEAN_PREPARE.launches - before))
+    return got
+
+
+def check_mean_masks(name, blurred, thr, valid, white, timed=False):
+    """The masks kernel against its plain version on the card, bit-equal,
+    one launch a call; with ``timed`` the ``check_equal`` record (the
+    bound: the blurred frames read and the mask written once, the
+    thresholds and frame_valid; two operations a pixel)."""
+    args = (blurred, thr, valid, white)
+    if timed:
+        return check_equal('mean masks ' + name,
+                           lambda *a: (MEAN_MASKS(*a),),
+                           lambda *a: (pp.mean_masks_plain(*a),), args,
+                           2 * blurred.numel(), plain_reps=3,
+                           nbytes=2 * blurred.numel() + 5 * thr.numel())
+    before = MEAN_MASKS.launches
+    got = MEAN_MASKS(*args)
+    want = pp.mean_masks_plain(*args)
+    torch.cuda.synchronize()
+    if MEAN_MASKS.launches != before + 1 or not torch.equal(got, want):
+        raise SystemExit('mean masks {} (white {}): kernel != plain '
+                         '(launches {})'.format(name, white,
+                                                MEAN_MASKS.launches - before))
+    return got
+
+
+def host_thresholds(sums, valid, n_pix, white, offset=5):
+    """The thresholds mean mode's detect sets from the sums: the 5 s
+    moving average of each valid frame's mean + std + offset (white) or
+    mean - std - offset (dark), 0 on padding frames."""
+    state = pp.MovingAverageThreshold(FPS, offset if white else -offset,
+                                      white)
+    mean, std = pp.combine_mean_std(n_pix, *sums.cpu().numpy().T)
+    thr = np.zeros(len(mean), np.int32)
+    for i in np.flatnonzero(valid.cpu().numpy()):
+        thr[i] = state.update(mean[i], std[i])
+    return torch.from_numpy(thr).to(sums.device)
+
+
+def phase_mean_mode(scene, settings, frames, dframes, dev):
+    """Phase 34: mean-threshold mode. Both kernels of the mode
+    (``csrc/adaptive_mean.cu``: ``ysmr_mean_prepare``, ``ysmr_mean_masks``)
+    against their plain versions on the card, bit for bit: the bench and
+    dense frames batches (timed, with and without the gray), a 16-frame
+    640x480 batch, a short padded batch, the one-pixel-axis and uneven
+    shapes of ``mean_mode_cases.py`` and its 1 x 40,000 frame of 255s,
+    white and dark. Then the mode's paths on cuda: frames mode on the bench
+    scene in memory, its ``_list.csv`` byte-identical to the pixels-mode
+    device path's without cv2 centres (the gate: one prepare and one masks
+    launch a detect batch, no torch gray, blur, sums or threshold pass on
+    the card); the default pixels path (host threshold, run-CC, host rects,
+    float64 tracker) on 16 frames, cuda byte-identical to cpu; frames mode
+    with luminosity on 16 frames, cuda against cpu by ``compare_rows``.
+    Returns the two kernels' bench checks and their launches on the
+    frames path."""
+    seed, _, (ow, oh) = MV_OTHER
+    other = BenchScene(seed=seed)
+    short = bgr_batch(frames[:40] + [np.zeros((H, W), np.uint8)] * 24, dev)
+    batches = (('bench 64x922x1228', bgr_batch(frames[:64], dev)),
+               ('dense 64x922x1228', bgr_batch(dframes[:64], dev)),
+               ('640x480 16 frames', bgr_batch(
+                   [other.frame(t)[:oh, :ow] for t in range(16)], dev)),
+               ('short 40 of 64', short))
+    checks = {}
+    for name, bgr in batches:
+        n = bgr.shape[0]
+        valid = torch.arange(n, device=dev) < (40 if name.startswith('short')
+                                               else n)
+        timed = not name.startswith('short')
+        for gray in (False, True):
+            if timed:
+                chk = check_mean_prepare(name, bgr, gray, timed=True)
+                log('mean prepare {}{}: kernel {:.4f} ms, {:.1f}% of the '
+                    'bound {:.4f} ms ({}); plain {:.4f} ms'.format(
+                        name, ' with the gray' if gray else '', chk[1],
+                        100 * chk[3][0] / chk[1], chk[3][0], chk[3][1],
+                        chk[2]))
+                checks.setdefault(('prepare', name), chk)
+            out = check_mean_prepare(name, bgr, gray)
+        blurred, sums = out[0], out[1]
+        for white in (True, False):
+            thr = host_thresholds(sums, valid, bgr.shape[1] * bgr.shape[2],
+                                  white)
+            if timed and white:
+                chk = check_mean_masks(name, blurred, thr, valid, white,
+                                       timed=True)
+                log('mean masks {}: kernel {:.4f} ms, {:.1f}% of the bound '
+                    '{:.4f} ms ({}); plain {:.4f} ms'.format(
+                        name, chk[1], 100 * chk[3][0] / chk[1], chk[3][0],
+                        chk[3][1], chk[2]))
+                checks[('masks', name)] = chk
+            check_mean_masks(name, blurred, thr, valid, white)
+    rng = np.random.default_rng(SEED + 41)
+    edges = [mmc.bgr_frames(rng, s) for s in mmc.SHAPES + mmc.EDGE_SHAPES]
+    for bgr_np in edges + [mmc.wrap_frames()]:
+        bgr = torch.from_numpy(bgr_np).to(dev)
+        name = 'x'.join(map(str, bgr_np.shape[:3]))
+        for gray in (False, True):
+            out = check_mean_prepare(name, bgr, gray)
+        n = bgr_np.shape[0]
+        thr = torch.from_numpy(mmc.frame_thresholds(rng, n)).to(dev)
+        valid = torch.from_numpy(mmc.padded_valid(n)).to(dev)
+        for white in (True, False):
+            check_mean_masks(name, out[0], thr, valid, white)
+    log('mean-mode kernels: bit-equal to their plain versions, one launch a '
+        'call, on the four batches (white and dark, with and without the '
+        'gray, a padded batch) and on {} and {}'.format(
+            [e.shape[:3] for e in edges], mmc.WRAP_SHAPE))
+    lib = _build.load_kernels()
+    bgr = batches[0][1]
+    blurred, sums, _ = MEAN_PREPARE(bgr)
+    valid = torch.ones(bgr.shape[0], dtype=torch.bool, device=dev)
+    thr = host_thresholds(sums, valid, H * W, True)
+    for kernel, call, threads in (
+            ('mean_prepare_kernel', lambda: MEAN_PREPARE(bgr), 128),
+            ('global_threshold_kernel',
+             lambda: MEAN_MASKS(blurred, thr, valid, True), 256)):
+        ptx = ptxas_of(lib.build_log, 'adaptive_mean.cu', kernel)
+        args = launch_args(call, kernel)
+        rec = {'kernel': kernel, 'source': 'adaptive_mean.cu'}
+        if ptx is not None:
+            regs, spill, smem = ptx
+            smem = int(args.get('shared memory') or smem)
+            rec.update(registers=regs, spill_stores=spill, shared_bytes=smem,
+                       occupancy_allowed=resident_share(regs, smem, threads))
+        rec['achieved_occupancy_pct'] = args.get('est. achieved occupancy %')
+        log('mean mode resources ' + json.dumps(rec))
+
+    # the frames path against the pixels-mode device path
+    fsettings = {**settings, **FRAMES, **MEAN}
+    torch.cuda.synchronize()
+    reset_mean_launches()
+    t0 = time.perf_counter()
+    res, fbytes, stats = run_loop(frames, fsettings, 'cuda', 'mean_frames')
+    torch.cuda.synchronize()
+    launches = mean_launches('mean-mode frames path')
+    log('mean-mode frames path, bench scene in memory (cuda): rows {} tracks '
+        '{} frames {} fps {:.2f} ({:.1f} s), launches {}; stage split '
+        '(ms/frame): {}'.format(
+            fbytes.count(b'\n') - 1, stats['tracks'], stats['frames'],
+            stats['fps'], time.perf_counter() - t0, json.dumps(launches),
+            per_frame(stats)))
+    if not np.isfinite(res[0][['POSITION_X', 'POSITION_Y', 'WIDTH', 'HEIGHT',
+                               'DEGREES_ANGLE']].to_numpy()).all() or \
+            stats['tracks'] <= 0:
+        raise SystemExit('mean-mode frames path: no tracks or non-finite '
+                         'values')
+    pixels = {**settings, **MEAN, **MEAN_MAX_FG, 'cv2 exact rects': False,
+              'cv2 exact centers': 'off'}
+    overflow = WarningCounter('foreground pixels; extra pixels dropped')
+    logging.getLogger('ysmr').addHandler(overflow)
+    try:
+        _, pbytes, pstats = run_loop(frames, pixels, 'cuda', 'mean_pixels')
+        # the default pixels path (host threshold, run-CC, host rects,
+        # float64 tracker), cuda against cpu
+        reset_run_cc()
+        cuda_vs_cpu('mean pixels', frames, {**settings, **MEAN, **MEAN_MAX_FG})
+        run_cc_gate('mean pixels', run_cc_launches(), double=False)
+    finally:
+        logging.getLogger('ysmr').removeHandler(overflow)
+    if overflow.count:
+        raise SystemExit('mean mode: the pixel wire dropped foreground pixels '
+                         '({} warnings)'.format(overflow.count))
+    if fbytes != pbytes:
+        raise SystemExit('mean mode: frames mode _list.csv differs from the '
+                         'pixels-mode device path without cv2 centers')
+    log('mean mode: frames _list.csv byte-identical to the pixels-mode '
+        'device path without cv2 centers ({} rows; pixels fps {:.2f})'
+        .format(fbytes.count(b'\n') - 1, pstats['fps']))
+    # frames mode with luminosity, cuda against cpu
+    lset = {**fsettings, **LUM, 'frame batch size': FRAMES_CPU_FRAMES}
+    reset_mean_launches()
+    cres, _, cstats = run_loop(frames[:FRAMES_CPU_FRAMES], lset, 'cuda',
+                               'mean_lum_cuda')
+    lum_launches = mean_launches('mean-mode frames path with luminosity')
+    pres, _, _ = run_loop(frames[:FRAMES_CPU_FRAMES], lset, 'cpu',
+                          'mean_lum_cpu')
+    same, worst = compare_rows('mean-mode frames luminosity', cres[0],
+                               pres[0])
+    if not np.isfinite(cres[0]['ILLUMINATION'].to_numpy()).all():
+        raise SystemExit('mean-mode frames luminosity: non-finite values')
+    log('mean-mode frames luminosity cuda vs cpu on {} frames: {} rows, {} '
+        'tracks, {} byte-identical rows, max |diff| {}; launches {}'.format(
+            FRAMES_CPU_FRAMES, cres[0].shape[0], cstats['tracks'], same,
+            json.dumps(worst), json.dumps(lum_launches)))
+    return (checks[('prepare', batches[0][0])],
+            checks[('masks', batches[0][0])], launches)
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -4651,6 +4938,8 @@ def main():
         compact_check = phase_compaction(frames, settings, dframes,
                                          dsettings, dev)
         run_cc_check = phase_run_cc(scene, settings, dscene, dsettings, dev)
+        mean_prepare_check, mean_masks_check, mean_runs = phase_mean_mode(
+            scene, settings, frames, dframes, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -4723,6 +5012,17 @@ def main():
         'propagate_min, and the row tables of ysmr_tpu/ops/labeling.py:520 '
         'component_stats_runs (plain XLA)',
         sum(launches[k] for k in RUN_CC_NAMES), run_cc_check))
+    # the mean-mode kernels' launches on their path (phase 34's frames run:
+    # one each a detect batch); the times are the bench batch's
+    records.append(kernel_record(
+        'mean_prepare_from_bgr', 'ysmr_tpu_torch/csrc/adaptive_mean.cu',
+        'ysmr_tpu/pipeline/detect.py:40 prepare_batch(needs_sums=True): '
+        'bgr_to_gray, blur3, frame_mean_std_sums (plain XLA)',
+        mean_runs['mean_prepare_from_bgr'], mean_prepare_check))
+    records.append(kernel_record(
+        'mean_masks', 'ysmr_tpu_torch/csrc/adaptive_mean.cu',
+        'ysmr_tpu/ops/preprocess.py:105 global_threshold and & frame_valid '
+        '(plain XLA)', mean_runs['mean_masks'], mean_masks_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

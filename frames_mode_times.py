@@ -6,7 +6,7 @@ times of one or more checkouts in turns.
 Run from the root of a checkout::
 
     python3 frames_mode_times.py [--roots DIR,DIR,...] [--split]
-        [--split-root DIR]
+        [--split-root DIR] [--mode adaptive|mean]
 
 ``--roots`` lists checkouts in the order to run them (default: this one),
 e.g. ``.scratch/parent,.,.,.scratch/parent`` after unpacking the other
@@ -17,7 +17,11 @@ and ``chip_smoke.py`` and prints one JSON line:
 - ``detect_ms``: median host-clock ms (card synchronised; 10 calls after
   2 warm-ups) of ``detect.detect_batch`` on the bench scene's first 64
   frames (1228x922, BGR on the card; the bench capacities in frames mode:
-  adaptive double threshold, 512 detections, max_bh 64), ``mean_ms``
+  adaptive double threshold, 512 detections, max_bh 64), with the
+  detect's device operations and device ms (``detect_ops``,
+  ``detect_device_ms``: ``torch.profiler``, median of three) and its host
+  synchronisations (``detect_syncs``: the warnings of
+  ``torch.cuda.set_sync_debug_mode``), ``mean_ms``
   of ``preprocess.adaptive_gaussian_mean`` on its blurred frames and,
   where the checkout has it, ``masks_ms`` of the fused preprocess
   ``preprocess.adaptive_masks_from_bgr`` on its BGR frames, each also as
@@ -50,6 +54,21 @@ checkout from before the compaction kernel or the fused preprocess
 splits its own detect with its own copy of this script (its steps in
 place of these): ``cd <checkout> && python3 frames_mode_times.py
 --split --roots .``.
+
+``--mode mean`` takes the same bench capacities with ``adaptive double
+threshold = -1.0`` (mean-threshold mode, a fresh 5 s window for each
+detect): the detect's numbers as above, the mean-mode entries'
+CUDA-event spans where the checkout has them
+(``prepare_event_ms``, ``prepare_gray_event_ms``, ``masks_event_ms``),
+``bench_fps`` and ``device_detect_ms`` in mean mode, and no multi-video
+call (mean mode runs each video solo). Its ``--split`` steps are "mean
+prepare" (``mean_prepare_from_bgr``), "host thresholds" (the copy of the
+sums and ``frame_valid`` and the moving average), "mean masks"
+(``mean_masks``), then labeling, compaction + row tables, stats tail and
+rect + output as above; a checkout from before the mean-mode kernels
+splits into "gray", "blur", "sums", "host thresholds" (its four copies)
+and "threshold" (``global_threshold`` and ``& frame_valid``) in their
+place, with this script.
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
 
@@ -70,12 +89,17 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _setup(root):
+#: the settings of ``--mode mean`` besides the bench capacities
+MEAN = {'adaptive double threshold': -1.0}
+
+
+def _setup(root, mode='adaptive'):
     sys.path.insert(0, os.path.abspath(root))
     import chip_smoke as cs
     from ysmr_tpu_torch.pipeline import detect
     os.makedirs(cs.WORK, exist_ok=True)
-    settings = {**cs.bench_settings(), **cs.FRAMES}
+    settings = {**cs.bench_settings(), **cs.FRAMES,
+                **(MEAN if mode == 'mean' else {})}
     scene = cs.BenchScene()
     bgr = np.stack([cv2.cvtColor(scene.frame(t), cv2.COLOR_GRAY2BGR)
                     for t in range(64)])
@@ -98,15 +122,80 @@ def _host_ms(fn, reps=10):
     return float(np.median(times))
 
 
-def measure(root):
+def _fresh_state(cfg, pp):
+    """A new 5 s moving-average window (mean mode), else None."""
+    if cfg.mode != 'mean':
+        return None
+    return pp.MovingAverageThreshold(30, cfg.offset, cfg.white_on_dark)
+
+
+def _device_profile(fn):
+    """(device operations, device ms) of one call of ``fn`` under
+    ``torch.profiler``, the median of three profiles after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    ops, ms = [], []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops.append(len(dev))
+        ms.append(sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+    return int(np.median(ops)), float(np.median(ms))
+
+
+def _syncs(fn):
+    """The host synchronisations of one call of ``fn``: the warnings
+    ``torch.cuda.set_sync_debug_mode('warn')`` raises in it."""
+    import warnings
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def measure(root, mode='adaptive'):
     """The JSON record of one checkout (see the module docstring)."""
-    cs, detect, settings, scene, bgr, valid = _setup(root)
+    cs, detect, settings, scene, bgr, valid = _setup(root, mode)
     from ysmr_tpu_torch.ops import preprocess as pp
     from ysmr_tpu_torch.parallel.multi_video import track_videos_sharded
     from ysmr_tpu_torch.pipeline.track_bacteria import track_bacteria
     cfg = detect.DetectorConfig(settings)
-    rec = {'root': root}
-    rec['detect_ms'] = _host_ms(lambda: detect.detect_batch(bgr, valid, cfg))
+    rec = {'root': root, 'mode': mode}
+
+    def run_detect():
+        return detect.detect_batch(bgr, valid, cfg,
+                                   threshold_state=_fresh_state(cfg, pp))
+
+    rec['detect_ms'] = _host_ms(run_detect)
+    rec['detect_ops'], rec['detect_device_ms'] = _device_profile(run_detect)
+    rec['detect_syncs'] = _syncs(run_detect)
+    if mode == 'mean':
+        if hasattr(pp, 'mean_prepare_from_bgr'):
+            blurred, sums, _ = pp.mean_prepare_from_bgr(bgr)
+            thr = torch.full((64,), 60, dtype=torch.int32, device=bgr.device)
+            rec['prepare_event_ms'] = cs.cuda_ms(
+                lambda: pp.mean_prepare_from_bgr(bgr), reps=30)
+            rec['prepare_gray_event_ms'] = cs.cuda_ms(
+                lambda: pp.mean_prepare_from_bgr(bgr, True), reps=30)
+            rec['masks_event_ms'] = cs.cuda_ms(
+                lambda: pp.mean_masks(blurred, thr, valid, True), reps=30)
+        frames = [scene.frame(t) for t in range(cs.N_FRAMES)]
+        _, _, stats = cs.run_loop(frames, settings, 'cuda', 'times_mean')
+        rec['bench_fps'] = stats['fps']
+        rec['device_detect_ms'] = stats['stage_s']['device_detect'] / \
+            stats['frames'] * 1e3
+        return rec
     blurred = detect.prepare_batch(bgr)[1]
     rec['mean_ms'] = _host_ms(lambda: pp.adaptive_gaussian_mean(blurred))
     rec['mean_event_ms'] = cs.cuda_ms(
@@ -150,18 +239,60 @@ def measure(root):
     return rec
 
 
-def split(root):
+def _mean_steps(cfg, pp, bgr, valid, st):
+    """Mean mode's steps up to the mask (see the module docstring): the
+    kernels' where the checkout has them, else the torch passes."""
+    n, h, w = bgr.shape[:3]
+
+    def thresholds(total, hi, lo, valid_np):
+        state = _fresh_state(cfg, pp)
+        mean, std = pp.combine_mean_std(h * w, total, hi, lo)
+        thr = np.zeros(n, np.int32)
+        for i in range(n):
+            if valid_np[i]:
+                thr[i] = state.update(mean[i], std[i])
+        st['thr'] = torch.from_numpy(thr).to(bgr.device)
+
+    if hasattr(pp, 'mean_prepare_from_bgr'):
+        def prepare():
+            st['blurred'], st['sums'], _ = pp.mean_prepare_from_bgr(bgr)
+
+        def host():
+            sv = torch.cat((st['sums'], valid[:, None].to(torch.int32)),
+                           dim=1).cpu().numpy()
+            thresholds(sv[:, 0], sv[:, 1], sv[:, 2], sv[:, 3])
+
+        return (('mean prepare', prepare), ('host thresholds', host),
+                ('mean masks', lambda: st.update(rec=pp.mean_masks(
+                    st['blurred'], st['thr'], valid, cfg.white_on_dark))))
+
+    def host():
+        thresholds(*(x.cpu().numpy() for x in st['sums']),
+                   valid.cpu().numpy())
+
+    return (
+        ('gray', lambda: st.update(gray=pp.bgr_to_gray(bgr))),
+        ('blur', lambda: st.update(blurred=pp.blur3(st['gray']))),
+        ('sums', lambda: st.update(sums=pp.frame_mean_std_sums(st['gray']))),
+        ('host thresholds', host),
+        ('threshold', lambda: st.update(rec=pp.global_threshold(
+            st['blurred'], st['thr'], cfg.white_on_dark) &
+            valid[:, None, None])))
+
+
+def split(root, mode='adaptive'):
     """The per-step device operations and times of a warm 64-frame detect
     (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    cs, detect, settings, _, bgr, valid = _setup(root)
+    cs, detect, settings, _, bgr, valid = _setup(root, mode)
     from ysmr_tpu_torch.ops import cc, hull, sweep
     from ysmr_tpu_torch.ops import labeling as lb
     from ysmr_tpu_torch.ops import preprocess as pp
     from ysmr_tpu_torch.pipeline.detect_pixels import detections_from_tables
     cfg = detect.DetectorConfig(settings)
-    if cfg.mode != 'adaptive_double':
-        raise SystemExit('the split follows the adaptive double threshold')
+    if cfg.mode not in ('adaptive_double', 'mean'):
+        raise SystemExit('the split follows the adaptive double threshold '
+                         'or mean mode')
     st = {}
 
     def masks():
@@ -187,10 +318,15 @@ def split(root):
             st['labels'], st['rec'], max_det=cfg.max_det, max_bh=cfg.max_bh,
             **({'fg_bits': st['bits']} if packs else {}))
 
-    steps = (
-        ('adaptive masks', masks),
-        ('reconstruction', lambda: st.update(rec=cc.binary_reconstruct(
-            st['mask'], st['markers'], max_iters=cfg.cc_iters))),
+    if cfg.mode == 'mean':
+        # the mask takes the reconstruction's place (st['rec'])
+        front = _mean_steps(cfg, pp, bgr, valid, st)
+    else:
+        front = (('adaptive masks', masks),
+                 ('reconstruction', lambda: st.update(
+                     rec=cc.binary_reconstruct(st['mask'], st['markers'],
+                                               max_iters=cfg.cc_iters))))
+    steps = front + (
         ('labeling', labeling),
         ('compaction + row tables', compact),
         ('stats tail', lambda: st.update(tables=lb._stats_tail_from_tables(
@@ -225,7 +361,8 @@ def split(root):
     try:
         for _ in range(2):
             run_steps()
-        want = detect.detect_batch(bgr, valid, cfg)
+        want = detect.detect_batch(bgr, valid, cfg,
+                                   threshold_state=_fresh_state(cfg, pp))
         for key in want:
             if not torch.equal(want[key], st['out'][key]):
                 raise SystemExit('the split steps differ from detect_batch '
@@ -288,21 +425,25 @@ def main():
                     help='the per-step split of a warm detect')
     ap.add_argument('--split-root', default=HERE,
                     help='the checkout whose detect --split splits')
+    ap.add_argument('--mode', choices=('adaptive', 'mean'),
+                    default='adaptive', help='the threshold mode: the '
+                    'adaptive double threshold or mean-threshold mode')
     ap.add_argument('--one', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('no CUDA device: this script measures the card')
     if args.one:
-        print(json.dumps(measure(args.one)), flush=True)
+        print(json.dumps(measure(args.one, args.mode)), flush=True)
         return
     if args.split:
         root = os.path.abspath(args.split_root)
-        print(json.dumps({'root': root, 'split': split(root)}), flush=True)
+        print(json.dumps({'root': root, 'mode': args.mode,
+                          'split': split(root, args.mode)}), flush=True)
     for root in filter(None, args.roots.split(',')):
         root = os.path.abspath(root)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               '--one', root], cwd=root, capture_output=True,
-                              text=True)
+                               '--one', root, '--mode', args.mode], cwd=root,
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit('{} failed:\n{}'.format(root, proc.stderr[-4000:]))
         print(proc.stdout.strip().splitlines()[-1], flush=True)

@@ -37,6 +37,12 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   frames and the fused ``adaptive_masks_from_bgr`` on their BGR (the
   bench configuration, with and without the gray; a checkout from before
   the fused entry traces the int32 one alone);
+- ``mean``: mean-threshold mode's entries of ``csrc/adaptive_mean.cu`` on
+  the bench scene's first 64 frames, ``mean_prepare_from_bgr`` on their
+  BGR (with and without the gray) and ``mean_masks`` on its blurred
+  frames with the thresholds the host sets from its sums; a checkout from
+  before them: ``prepare_batch(needs_sums=True)`` and ``global_threshold
+  & frame_valid``, the torch passes they replace;
 - ``frame_step``: ``match_and_register`` (the tracker's match, ageing,
   registration and emissions: the rank and update launches of
   ``csrc/frame_step.cu``) on random states at the dense size (4096
@@ -81,7 +87,7 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GROUPS = ('run_prop', 'cc', 'rects', 'tail', 'pixels', 'assign', 'gsff',
-          'frame_step', 'preprocess', 'compact', 'run_cc')
+          'frame_step', 'preprocess', 'mean', 'compact', 'run_cc')
 
 
 def parse_args():
@@ -356,6 +362,37 @@ def trace_preprocess(smoke, args, dev):
                 cfg.white_on_dark, gray), args.reps, smoke)
 
 
+def trace_mean(smoke, args, dev):
+    import torch
+    from ysmr_tpu_torch.ops import preprocess as pp
+    from ysmr_tpu_torch.pipeline import detect
+    scene = smoke.BenchScene()
+    bgr = smoke.bgr_batch([scene.frame(t) for t in range(64)], dev)
+    valid = torch.ones(bgr.shape[0], dtype=torch.bool, device=dev)
+    shape = 'x'.join(str(n) for n in bgr.shape[:3])
+    if not hasattr(pp, 'mean_prepare_from_bgr'):
+        # a checkout from before the mean-mode kernels: its torch passes
+        _, blurred, *sums = detect.prepare_batch(bgr, needs_sums=True)
+        thr = smoke.host_thresholds(torch.stack(sums, 1), valid,
+                                    bgr.shape[1] * bgr.shape[2], True)
+        trace('prepare_batch(needs_sums=True) bench {}'.format(shape),
+              lambda: detect.prepare_batch(bgr, needs_sums=True), args.reps,
+              smoke)
+        trace('global_threshold & frame_valid bench {}'.format(shape),
+              lambda: pp.global_threshold(blurred, thr, True) &
+              valid[:, None, None], args.reps, smoke)
+        return
+    blurred, sums, _ = pp.mean_prepare_from_bgr(bgr)
+    thr = smoke.host_thresholds(sums, valid, bgr.shape[1] * bgr.shape[2],
+                                True)
+    for gray in (False, True):
+        trace('mean_prepare_from_bgr bench {}{}'.format(
+            shape, ' with the gray' if gray else ''),
+            lambda: pp.mean_prepare_from_bgr(bgr, gray), args.reps, smoke)
+    trace('mean_masks bench {}'.format(shape),
+          lambda: pp.mean_masks(blurred, thr, valid, True), args.reps, smoke)
+
+
 def trace_compact(smoke, args, dev):
     from ysmr_tpu_torch.ops import cc
     from ysmr_tpu_torch.ops import labeling as lb
@@ -500,7 +537,8 @@ def main():
                'pixels': trace_pixels,
                'assign': trace_assign, 'gsff': trace_gsff,
                'frame_step': trace_frame_step,
-               'preprocess': trace_preprocess, 'compact': trace_compact,
+               'preprocess': trace_preprocess, 'mean': trace_mean,
+               'compact': trace_compact,
                'run_cc': trace_run_cc}
     for g in GROUPS:
         if g in groups:

@@ -186,6 +186,10 @@ def load_kernels():
     lib.ysmr_adaptive_masks.restype = ci
     lib.ysmr_adaptive_masks.argtypes = [vp] * 5 + [ctypes.POINTER(
         ctypes.c_float)] + [ci] * 7 + [vp]
+    lib.ysmr_mean_prepare.restype = ci
+    lib.ysmr_mean_prepare.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+    lib.ysmr_mean_masks.restype = ci
+    lib.ysmr_mean_masks.argtypes = [vp] * 4 + [ci] * 5 + [vp]
     lib.ysmr_gsff_step.restype = ci
     lib.ysmr_gsff_step.argtypes = [vp] * 21 + [ci] * 6 + \
         [ctypes.c_longlong, ci, vp]

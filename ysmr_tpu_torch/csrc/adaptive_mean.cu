@@ -1,10 +1,15 @@
 // The 11x11 Gaussian-weighted local mean of cv2.adaptiveThreshold, and
-// frames mode's whole preprocess around it in one pass.
+// frames mode's whole preprocess around it in one pass; and mean-threshold
+// mode's preprocess and masks.
 //
 // Replaces the plain-XLA ysmr_tpu/ops/preprocess.py::adaptive_gaussian_mean
 // (no Pallas kernel: XLA fuses it on the TPU) and, in the second entry, the
 // chain XLA fuses around it in ysmr_tpu/pipeline/detect.py (bgr_to_gray,
-// blur3, the mean, the two threshold rules, & frame_valid). Two entries on
+// blur3, the mean, the two threshold rules, & frame_valid); in the third
+// and fourth, ysmr_tpu/pipeline/detect.py::prepare_batch(needs_sums=True)
+// (bgr_to_gray, blur3, frame_mean_std_sums) and the mean branch of
+// detect_masks (global_threshold) with & frame_valid, plain XLA too; the
+// host sets each frame's threshold between the two. Four entries, three on
 // one tile core:
 //
 // - ysmr_adaptive_mean: int32 (T, H, W) in and out, any int32 value; the
@@ -14,6 +19,15 @@
 //   gray frames as int32; the bits of adaptive_masks_from_bgr_plain. An
 //   invalid frame writes zero masks and reads no BGR unless the gray is
 //   asked for (it is bgr_to_gray of every frame).
+// - ysmr_mean_prepare: BGR uint8 (N, H, W, 3) in; the blurred frames as
+//   uint8, the (N, 3) int32 sums [total, hi, lo] of frame_mean_std_sums
+//   and on request the int32 gray out, for every frame; the bits of
+//   mean_prepare_from_bgr_plain. The tile core's gray and blur phases, a
+//   block a band of 64 rows walking its tiles, so that each row's sum of
+//   squares is whole in the block before it is split into hi and lo.
+// - ysmr_mean_masks: the uint8 blurred frames, (N,) int32 thresholds and
+//   frame_valid in, the bool mask out; an elementwise pass, 16 bytes a
+//   thread; the bits of mean_masks_plain.
 //
 // Arithmetic, the same bits as the plain versions: gray is OpenCV's
 // fixed-point (b * 3735 + g * 19235 + r * 9798 + 2^14) >> 15; the 3x3 blur's
@@ -62,8 +76,11 @@
 //      blurred centre and stores 4 mask bytes (and 4 marker bytes) as one
 //      32-bit word when W % 4 == 0. The masks kernel is instantiated for
 //      white or dark and for one or two rules.
+// The mean-threshold entries (below the masks kernel) are plain: the
+// prepare kernel is the tile core's first two phases, 128 threads a block,
+// 21,304 bytes of shared memory, no mean; the masks kernel streams.
 // No allocation and no host synchronisation, so a launch can be captured in
-// a CUDA graph.
+// a CUDA graph (ysmr_mean_prepare's memset of the sums included).
 //
 // What bounds it on an H100. The data's bound is bytes: ysmr_adaptive_masks
 // moves 3 bytes in and 2 out a pixel (+ 4 with the gray), at 64 x 922 x
@@ -76,6 +93,12 @@
 // lasting as long with its loads and arithmetic taken out: the phases
 // compete for issue, and the kernel is bound by issue and latency, not by
 // bytes.
+// ysmr_mean_prepare moves 3 bytes in and 1 out a pixel (+ 4 with the
+// gray), 289.9 MB at the bench batch, 0.087 ms at 3.35 TB/s (0.173 ms with
+// the gray); ysmr_mean_masks 1 in and 1 out, 144.9 MB, 0.043 ms. Both are
+// bound by bytes; the prepare kernel re-reads its tiles' 6-row halo
+// (about a third more BGR rows, mostly from L2) and, like the fused entry,
+// runs phases that barriers serialise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -295,10 +318,10 @@ __device__ __noinline__ void store_gray(int* dst, const uint32_t* g2, int x,
 // pixel column x): `fast` groups from the words loaded into wd, the others
 // pixel by pixel through reflect-101; stored as 4 bytes, and as int32 gray
 // where it is a tile pixel and the gray is asked for.
-__device__ __forceinline__ void gray_group(const MaskArgs& a,
-                                           const uint8_t* bgr, uint8_t* g8,
-                                           int64_t frame, int y0, int gr,
-                                           int k, int x, bool fast,
+template <class Args>
+__device__ __forceinline__ void gray_group(const Args& a, const uint8_t* bgr,
+                                           uint8_t* g8, int64_t frame, int y0,
+                                           int gr, int k, int x, bool fast,
                                            const uint32_t* wd) {
   const int h = a.h, w = a.w;
   uint32_t g2[4];
@@ -353,89 +376,73 @@ __device__ __forceinline__ float lane_float(uint32_t v, uint32_t sel) {
                    8388608.0f);
 }
 
-template <bool kDark, bool kDouble>
-__global__ void __launch_bounds__(kThreads, 4)
-masks_kernel(MaskArgs a, Taps taps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* win = reinterpret_cast<float*>(smem);
-  uint8_t* g8 = smem + kMeanSmem;
+// Phase 1 of both BGR entries: the gray window of the tile at (y0, x0),
+// rows y0 - 6 .., columns x0 - 8 .., 36 groups of 4 pixels a row, into g8
+// (and the int32 gray of the tile's pixels where a.gray is set). A warp
+// takes rows warp, warp + 4, ..., a lane group lane of each, ten rows'
+// loads in flight; then groups 32-35. Args has bgr, gray, h, w and words.
+template <class Args>
+__device__ __forceinline__ void gray_window(const Args& a, const uint8_t* bgr,
+                                            uint8_t* g8, int64_t frame,
+                                            int y0, int x0) {
   const int h = a.h, w = a.w;
-  const int64_t plane = static_cast<int64_t>(h) * w;
-  const int64_t frame = static_cast<int64_t>(blockIdx.z) * plane;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
-  const bool valid = a.valid[blockIdx.z];
-  if (!valid && a.gray == nullptr) {
-    // a padding frame: zero masks, no BGR read
-    for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
-      const int y = y0 + i / kTileW, x = x0 + i % kTileW;
-      if (y < h && x < w) {
-        a.mask[frame + static_cast<int64_t>(y) * w + x] = 0;
-        if (kDouble) a.markers[frame + static_cast<int64_t>(y) * w + x] = 0;
-      }
-    }
-    return;
-  }
-
-  // 1. gray window: rows y0 - 6 .., columns x0 - 8 .., 36 groups of 4
-  // pixels a row. A warp takes rows warp, warp + 4, ..., a lane group
-  // lane of each, ten rows' loads in flight; then groups 32-35.
-  const uint8_t* bgr = a.bgr + frame * 3;
-  {
-    constexpr int kWarps = kThreads / 32;
-    constexpr int kRows = (kGH + kWarps - 1) / kWarps, kBatch = 10;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int x = x0 - 8 + 4 * lane;
-    const bool fast = a.words && x >= 0 && x + 4 <= w;
-    for (int n0 = 0; n0 < kRows; n0 += kBatch) {
-      uint32_t wd[kBatch][3];
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kRows = (kGH + kWarps - 1) / kWarps, kBatch = 10;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int x = x0 - 8 + 4 * lane;
+  const bool fast = a.words && x >= 0 && x + 4 <= w;
+  for (int n0 = 0; n0 < kRows; n0 += kBatch) {
+    uint32_t wd[kBatch][3];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int gr = min(warp + kWarps * (n0 + u), kGH - 1);
-        if (fast) {
-          const uint32_t* p = bgr_words(bgr, h, w, y0 - 6 + gr, x);
-          wd[u][0] = __ldg(p);
-          wd[u][1] = __ldg(p + 1);
-          wd[u][2] = __ldg(p + 2);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int gr = warp + kWarps * (n0 + u);
-        if (n0 + u < kRows && gr < kGH)
-          gray_group(a, bgr, g8, frame, y0, gr, lane, x, fast, wd[u]);
-      }
-    }
-    constexpr int kTail = kGW / 4 - 32, kTailItems = kGH * kTail;
-    constexpr int kTailRounds = (kTailItems + kThreads - 1) / kThreads;
-    uint32_t wd[kTailRounds][3];
-#pragma unroll
-    for (int u = 0; u < kTailRounds; ++u) {
-      const int item = threadIdx.x + u * kThreads;
-      const int xt = x0 - 8 + 4 * (32 + item % kTail);
-      if (item < kTailItems && a.words && xt >= 0 && xt + 4 <= w) {
-        const uint32_t* p = bgr_words(bgr, h, w, y0 - 6 + item / kTail, xt);
+    for (int u = 0; u < kBatch; ++u) {
+      const int gr = min(warp + kWarps * (n0 + u), kGH - 1);
+      if (fast) {
+        const uint32_t* p = bgr_words(bgr, h, w, y0 - 6 + gr, x);
         wd[u][0] = __ldg(p);
         wd[u][1] = __ldg(p + 1);
         wd[u][2] = __ldg(p + 2);
       }
     }
 #pragma unroll
-    for (int u = 0; u < kTailRounds; ++u) {
-      const int item = threadIdx.x + u * kThreads;
-      const int xt = x0 - 8 + 4 * (32 + item % kTail);
-      if (item < kTailItems)
-        gray_group(a, bgr, g8, frame, y0, item / kTail, 32 + item % kTail, xt,
-                   a.words && xt >= 0 && xt + 4 <= w, wd[u]);
+    for (int u = 0; u < kBatch; ++u) {
+      const int gr = warp + kWarps * (n0 + u);
+      if (n0 + u < kRows && gr < kGH)
+        gray_group(a, bgr, g8, frame, y0, gr, lane, x, fast, wd[u]);
     }
   }
-  __syncthreads();
+  constexpr int kTail = kGW / 4 - 32, kTailItems = kGH * kTail;
+  constexpr int kTailRounds = (kTailItems + kThreads - 1) / kThreads;
+  uint32_t wd[kTailRounds][3];
+#pragma unroll
+  for (int u = 0; u < kTailRounds; ++u) {
+    const int item = threadIdx.x + u * kThreads;
+    const int xt = x0 - 8 + 4 * (32 + item % kTail);
+    if (item < kTailItems && a.words && xt >= 0 && xt + 4 <= w) {
+      const uint32_t* p = bgr_words(bgr, h, w, y0 - 6 + item / kTail, xt);
+      wd[u][0] = __ldg(p);
+      wd[u][1] = __ldg(p + 1);
+      wd[u][2] = __ldg(p + 2);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kTailRounds; ++u) {
+    const int item = threadIdx.x + u * kThreads;
+    const int xt = x0 - 8 + 4 * (32 + item % kTail);
+    if (item < kTailItems)
+      gray_group(a, bgr, g8, frame, y0, item / kTail, 32 + item % kTail, xt,
+                 a.words && xt >= 0 && xt + 4 <= w, wd[u]);
+  }
+}
 
-  // 2. blurred window: window row r, column c is the blur at
-  // (y0 - 5 + r, x0 - 5 + c), from gray rows r .. r + 2, columns c + 2 ..
-  // c + 4. A thread takes a 4-column group down a third of the rows; its
-  // [1 2 1] sums run in 16-bit lanes (columns 0 and 2, 1 and 3), at most
-  // 4080, and come out as float32 through the exponent of 2^23.
+// Phase 2 of both BGR entries: the blurred window from the gray window.
+// Window row r, column c is the blur at (y0 - 5 + r, x0 - 5 + c), from
+// gray rows r .. r + 2, columns c + 2 .. c + 4. A thread takes a 4-column
+// group down a third of the rows; its [1 2 1] sums run in 16-bit lanes
+// (columns 0 and 2, 1 and 3), at most 4080, and each row's blur goes to
+// emit(r, c, even, odd): the blur of columns c and c + 2 in the 16-bit
+// lanes of even, of c + 1 and c + 3 in those of odd, each below 256.
+template <class Emit>
+__device__ __forceinline__ void blur_window(const uint8_t* g8, Emit emit) {
   if (threadIdx.x < (kBW / 4) * kBStrips) {
     const int c = 4 * (threadIdx.x % (kBW / 4));
     const int r0 = (threadIdx.x / (kBW / 4)) * kBRows;
@@ -462,15 +469,49 @@ masks_kernel(MaskArgs a, Taps taps) {
                           0x0FFF0FFFu;
       const uint32_t bo = ((o0 + 2 * o1 + o2 + 0x00080008u) >> 4) &
                           0x0FFF0FFFu;
-      *reinterpret_cast<float4*>(win + r * kBW + c) = make_float4(
-          lane_float(be, 0x7650), lane_float(bo, 0x7650),
-          lane_float(be, 0x7652), lane_float(bo, 0x7652));
+      emit(r, c, be, bo);
       e0 = e1;
       o0 = o1;
       e1 = e2;
       o1 = o2;
     }
   }
+}
+
+template <bool kDark, bool kDouble>
+__global__ void __launch_bounds__(kThreads, 4)
+masks_kernel(MaskArgs a, Taps taps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* win = reinterpret_cast<float*>(smem);
+  uint8_t* g8 = smem + kMeanSmem;
+  const int h = a.h, w = a.w;
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t frame = static_cast<int64_t>(blockIdx.z) * plane;
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+  const bool valid = a.valid[blockIdx.z];
+  if (!valid && a.gray == nullptr) {
+    // a padding frame: zero masks, no BGR read
+    for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
+      const int y = y0 + i / kTileW, x = x0 + i % kTileW;
+      if (y < h && x < w) {
+        a.mask[frame + static_cast<int64_t>(y) * w + x] = 0;
+        if (kDouble) a.markers[frame + static_cast<int64_t>(y) * w + x] = 0;
+      }
+    }
+    return;
+  }
+
+  // 1. gray window
+  gray_window(a, a.bgr + frame * 3, g8, frame, y0, x0);
+  __syncthreads();
+
+  // 2. blurred window, as float32 through the exponent of 2^23
+  blur_window(g8, [&](int r, int c, uint32_t be, uint32_t bo) {
+    *reinterpret_cast<float4*>(win + r * kBW + c) = make_float4(
+        lane_float(be, 0x7650), lane_float(bo, 0x7650),
+        lane_float(be, 0x7652), lane_float(bo, 0x7652));
+  });
   __syncthreads();
   // the clamp: window rows, then columns, outside the frame take the
   // frame's edge row or column (edge tiles only; block-uniform branches)
@@ -543,6 +584,149 @@ masks_kernel(MaskArgs a, Taps taps) {
                                   x, w);
                }
              });
+}
+
+struct PrepareArgs {
+  const uint8_t* bgr;
+  uint8_t* blurred;
+  unsigned* sums;  // (N, 3): total, hi, lo; zeroed before the launch
+  int* gray;       // null: not asked for
+  int h, w;
+  int words;  // 4-byte BGR loads and blurred stores (W % 4 == 0)
+};
+
+constexpr int kPrepareSmem = kGH * kGW + kBH * kBW;
+static_assert(kGroups == 32, "a warp's lanes cover a tile row");
+static_assert((kGH * kGW) % 16 == 0, "the blurred window is aligned");
+
+// The bytes of a blurred word at columns x .. x + 3 below w.
+__device__ __noinline__ void store_blur_bytes(uint8_t* dst, uint32_t v, int x,
+                                              int w) {
+  for (int q = 0; q < 4; ++q)
+    if (x + q < w) dst[q] = (v >> (8 * q)) & 0xFFu;
+}
+
+// Mean-threshold mode's preprocess: one block a (frame, band of 64 rows),
+// over the band's 128-column tiles from left to right, each the gray window
+// (phase 1) and its blur as bytes (phase 2). Then warp s, lane l takes the
+// tile's rows 16 s .. 16 s + 15, columns 4 l .. 4 l + 3: it writes their
+// blurred bytes and adds their gray to its sum and each row's squares to
+// its row's sum (__dp4a), all in uint32, which wraps as JAX's int32 sums
+// do. After the last tile the warp sums each row over its lanes, so each
+// row's sum of squares is whole before it is split into hi (>> 16, signed)
+// and lo (& 0xFFFF); the warp's total, hi and lo go to the frame's sums by
+// three atomics (integers: any order gives the same bits).
+__global__ void __launch_bounds__(kThreads)
+mean_prepare_kernel(PrepareArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint8_t* g8 = smem;
+  uint8_t* b8 = smem + kGH * kGW;
+  const int h = a.h, w = a.w;
+  const int64_t frame = static_cast<int64_t>(blockIdx.z) * h * w;
+  const int y0 = blockIdx.y * kTileH;
+  const uint8_t* bgr = a.bgr + frame * 3;
+  const int s = threadIdx.x / 32, c = 4 * (threadIdx.x % 32);
+  uint32_t total = 0, rsq[kStrip];
+#pragma unroll
+  for (int i = 0; i < kStrip; ++i) rsq[i] = 0;
+  for (int x0 = 0; x0 < w; x0 += kTileW) {
+    gray_window(a, bgr, g8, frame, y0, x0);
+    __syncthreads();
+    // blurred window byte (r, c) is the blur at (y0 - 5 + r, x0 - 5 + c)
+    blur_window(g8, [&](int r, int cw, uint32_t be, uint32_t bo) {
+      *reinterpret_cast<uint32_t*>(b8 + r * kBW + cw) =
+          __byte_perm(be, bo, 0x6240);
+    });
+    __syncthreads();
+    const int x = x0 + c;
+    // this thread's bytes inside the frame
+    const uint32_t cols = x >= w ? 0u
+                          : w - x >= 4 ? ~0u
+                                       : (1u << (8 * (w - x))) - 1u;
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i) {
+      const int r = s * kStrip + i, y = y0 + r;
+      if (cols && y < h) {
+        const uint32_t g =
+            *reinterpret_cast<const uint32_t*>(g8 + (6 + r) * kGW + 8 + c) &
+            cols;
+        total = __dp4a(g, 0x01010101u, total);
+        rsq[i] = __dp4a(g, g, rsq[i]);
+        const uint32_t* br =
+            reinterpret_cast<const uint32_t*>(b8 + (5 + r) * kBW + c);
+        const uint32_t blur = __funnelshift_r(br[1], br[2], 8);  // c+5 ..
+        uint8_t* dst = a.blurred + frame + static_cast<int64_t>(y) * w + x;
+        if (a.words)
+          *reinterpret_cast<uint32_t*>(dst) = blur;
+        else
+          store_blur_bytes(dst, blur, x, w);
+      }
+    }
+    __syncthreads();  // the next tile overwrites both windows
+  }
+  uint32_t hi = 0, lo = 0;
+#pragma unroll
+  for (int i = 0; i < kStrip; ++i) {
+    uint32_t v = rsq[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+    const int row = static_cast<int>(v);  // 0 for a row below the frame
+    hi += static_cast<uint32_t>(row >> 16);
+    lo += static_cast<uint32_t>(row & 0xFFFF);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(~0u, total, o);
+  if (threadIdx.x % 32 == 0 && y0 + s * kStrip < h) {
+    unsigned* out = a.sums + 3 * blockIdx.z;
+    atomicAdd(out, total);
+    atomicAdd(out + 1, hi);
+    atomicAdd(out + 2, lo);
+  }
+}
+
+// Mean-threshold mode's masks: blurred > t (white on dark) or blurred <= t
+// (dark), & frame_valid, t the frame's threshold. A thread takes 16
+// consecutive bytes of the flat (N, H, W) array, one 16-byte load and
+// store where the array allows (the frame can change inside the 16).
+__global__ void __launch_bounds__(256)
+global_threshold_kernel(const uint8_t* __restrict__ blurred,
+                  const int* __restrict__ thr,
+                  const bool* __restrict__ valid, uint8_t* __restrict__ mask,
+                  int64_t plane, int64_t total, int dark, int vec) {
+  union Bytes16 {
+    uint4 v;
+    uint8_t b[16];
+  };
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 16;
+  if (i0 >= total) return;
+  int64_t f = i0 / plane, next = (f + 1) * plane;
+  int t = thr[f];
+  bool keep = valid[f];
+  Bytes16 in, out;
+  if (vec) {
+    in.v = __ldg(reinterpret_cast<const uint4*>(blurred + i0));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) in.b[j] = i0 + j < total ? blurred[i0 + j] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (i0 + j < total) {
+      while (i0 + j >= next) {
+        ++f;
+        next += plane;
+        t = thr[f];
+        keep = valid[f];
+      }
+    }
+    out.b[j] = keep && ((static_cast<int>(in.b[j]) > t) != (dark != 0));
+  }
+  if (vec) {
+    *reinterpret_cast<uint4*>(mask + i0) = out.v;
+  } else {
+    for (int j = 0; j < 16 && i0 + j < total; ++j) mask[i0 + j] = out.b[j];
+  }
 }
 
 Taps taps_of(const float* taps) {
@@ -627,6 +811,64 @@ int ysmr_adaptive_masks(const void* bgr, const void* valid, void* mask,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// bgr: (N, H, W, 3) uint8; blurred: (N, H, W) uint8; sums: (N, 3) int32
+// (total, hi, lo); gray: (N, H, W) int32 or null; all contiguous on CUDA
+// device `device`. A memset of the sums and one launch on `stream`.
+// Returns a cudaError_t (0 = launched).
+int ysmr_mean_prepare(const void* bgr, void* blurred, void* sums, void* gray,
+                      int n, int h, int w, int device, void* stream) {
+  if (n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(sums, 0, static_cast<size_t>(n) * 3 * sizeof(int),
+                        st);
+  if (err != cudaSuccess || h <= 0 || w <= 0) return static_cast<int>(err);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  PrepareArgs a{};
+  a.h = h;
+  a.w = w;
+  a.words = w % 4 == 0 && reinterpret_cast<uintptr_t>(bgr) % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(blurred) % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(gray) % 16 == 0;
+  for (int z = 0; z < n; z += kMaxFrames) {
+    const int frames = n - z < kMaxFrames ? n - z : kMaxFrames;
+    a.bgr = static_cast<const uint8_t*>(bgr) + z * plane * 3;
+    a.blurred = static_cast<uint8_t*>(blurred) + z * plane;
+    a.sums = static_cast<unsigned*>(sums) + 3 * z;
+    a.gray = gray ? static_cast<int*>(gray) + z * plane : nullptr;
+    const dim3 grid(1, (h + kTileH - 1) / kTileH, frames);
+    mean_prepare_kernel<<<grid, kThreads, kPrepareSmem, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// blurred: (N, H, W) uint8; thresholds: (N,) int32; valid: (N,) bool;
+// mask: (N, H, W) bool; all contiguous on CUDA device `device`. dark: 1
+// keeps blurred <= t, 0 blurred > t. One launch on `stream`. Returns a
+// cudaError_t (0 = launched).
+int ysmr_mean_masks(const void* blurred, const void* thresholds,
+                    const void* valid, void* mask, int dark, int n, int h,
+                    int w, int device, void* stream) {
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t total = plane * n;
+  if (total <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = total % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(blurred) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  const int64_t blocks = (total + 16 * 256 - 1) / (16 * 256);
+  global_threshold_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(blurred),
+      static_cast<const int*>(thresholds), static_cast<const bool*>(valid),
+      static_cast<uint8_t*>(mask), plane, total, dark, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -18,8 +18,14 @@ markers (and, for luminosity, the gray frames) in one launch of
 ``adaptive_masks_from_bgr_plain`` (``bgr_to_gray``, ``blur3``,
 ``adaptive_gaussian_mean_plain``, the rules and ``& frame_valid``: the
 chain of ``ysmr_tpu/pipeline/detect.py``) on a CPU one, the same bits.
-Mean-threshold mode keeps the chain (its thresholds come from the host
-between the gray frames and the masks).
+Mean-threshold mode, whose thresholds come from the host between the gray
+frames and the masks, takes two calls: ``mean_prepare_from_bgr`` (the
+blurred frames as uint8, the meanStdDev sums of ``frame_mean_std_sums``
+and, for luminosity, the gray frames; ``csrc/adaptive_mean.cu``'s
+``ysmr_mean_prepare``) and, after the host's thresholds,
+``mean_masks`` (``global_threshold & frame_valid``; ``ysmr_mean_masks``),
+each one launch on a CUDA tensor and ``*_plain`` (the same torch passes)
+on a CPU one.
 
 Bits that differ by construction and what the port does about them:
 
@@ -78,10 +84,17 @@ def bgr_to_gray(frames_bgr):
     :param frames_bgr: (..., H, W, 3) uint8
     :return: (..., H, W) int32 grayscale in [0, 255]
     """
+    if frames_bgr.is_cuda:
+        bgr_to_gray.cuda_calls += 1
     acc = frames_bgr[..., 0].to(_I32) * _B2Y
     acc += frames_bgr[..., 1].to(_I32) * _G2Y
     acc += frames_bgr[..., 2].to(_I32) * _R2Y
     return (acc + (1 << 14)) >> 15
+
+
+#: calls on a CUDA tensor since the count was last set to 0 (frames mode's
+#: detect makes none: its preprocess is a kernel in every mode)
+bgr_to_gray.cuda_calls = 0
 
 
 def _pad_reflect1(x):
@@ -111,6 +124,8 @@ def blur3(gray):
     """OpenCV-exact 3x3 Gaussian blur (sigma 0) on integer grayscale:
     separable [64,128,64] fixed point, reflect-101 border,
     ``(acc + 2^15) >> 16``. int32 in and out, batched over leading axes."""
+    if gray.is_cuda:
+        blur3.cuda_calls += 1
     p = _pad_reflect1(gray.to(_I32))
     h, w = p.shape[-2:]
     tmp = p[..., :, 0:w - 2] * 64 + p[..., :, 1:w - 1] * 128 + \
@@ -118,6 +133,10 @@ def blur3(gray):
     acc = tmp[..., 0:h - 2, :] * 64 + tmp[..., 1:h - 1, :] * 128 + \
         tmp[..., 2:h, :] * 64
     return (acc + (1 << 15)) >> 16
+
+
+#: calls on a CUDA tensor since the count was last set to 0
+blur3.cuda_calls = 0
 
 
 def _taps11(p, dim, k):
@@ -207,12 +226,18 @@ def global_threshold(img, thresh, white_on_dark):
     :param thresh: a Python int or a (T,) int32 tensor of per-frame
         thresholds (broadcast over H, W)
     """
+    if img.is_cuda:
+        global_threshold.cuda_calls += 1
     t = torch.as_tensor(thresh, dtype=_I32, device=img.device)
     while t.dim() < img.dim():
         t = t[..., None]
     if white_on_dark:
         return img > t
     return img <= t
+
+
+#: calls on a CUDA tensor since the count was last set to 0
+global_threshold.cuda_calls = 0
 
 
 def frame_mean_std_sums(gray):
@@ -223,12 +248,18 @@ def frame_mean_std_sums(gray):
     :param gray: (T, H, W) int32 in [0, 255]
     :return: tuple of (T,) int32 tensors
     """
+    if gray.is_cuda:
+        frame_mean_std_sums.cuda_calls += 1
     g = gray.to(_I32)
     total = g.sum(dim=(-2, -1)).to(_I32)
     row_sums = (g * g).sum(dim=-1).to(_I32)   # <= W * 65025, fits int32
     hi = (row_sums >> 16).sum(dim=-1).to(_I32)
     lo = (row_sums & 0xFFFF).sum(dim=-1).to(_I32)
     return total, hi, lo
+
+
+#: calls on a CUDA tensor since the count was last set to 0
+frame_mean_std_sums.cuda_calls = 0
 
 
 def combine_mean_std(n_pixels, total, hi, lo):
@@ -296,6 +327,28 @@ def _kernel_bound(c_offset, white_on_dark):
                                   _rule_bound(c_offset, white_on_dark)))
 
 
+def _check_bgr(frames_bgr, what):
+    if frames_bgr.dim() != 4 or frames_bgr.shape[-1] != 3 or \
+            frames_bgr.dtype != torch.uint8 or \
+            not frames_bgr.is_contiguous():
+        raise ValueError('{}: frames_bgr must be a contiguous (N, H, W, 3) '
+                         'uint8 tensor'.format(what))
+
+
+def _check_frame_vector(vec, n, dtype, device, what, name):
+    if tuple(vec.shape) != (n,) or vec.dtype != dtype or \
+            vec.device != device or not vec.is_contiguous():
+        raise ValueError('{}: {} must be a contiguous ({},) {} tensor on the '
+                         'frames\' device'.format(what, name, n, dtype))
+
+
+def _kernel_device(device, what):
+    """True for a CUDA device, False for the CPU; raises for any other."""
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError('{}: unsupported device {}'.format(what, device))
+    return device.type == 'cuda'
+
+
 def adaptive_masks_from_bgr(frames_bgr, frame_valid, mode, c_offset,
                             double_delta, white_on_dark, want_gray=False):
     """Frames mode's preprocess in the adaptive modes in one pass: BGR
@@ -313,27 +366,18 @@ def adaptive_masks_from_bgr(frames_bgr, frame_valid, mode, c_offset,
     :return: (mask (N, H, W) bool, markers (N, H, W) bool or None,
         gray (N, H, W) int32 or None)
     """
+    what = 'adaptive_masks_from_bgr'
     if mode not in ('adaptive', 'adaptive_double'):
-        raise ValueError('adaptive_masks_from_bgr: mode must be adaptive or '
-                         'adaptive_double, not {!r}'.format(mode))
-    if frames_bgr.dim() != 4 or frames_bgr.shape[-1] != 3 or \
-            frames_bgr.dtype != torch.uint8 or \
-            not frames_bgr.is_contiguous():
-        raise ValueError('adaptive_masks_from_bgr: frames_bgr must be a '
-                         'contiguous (N, H, W, 3) uint8 tensor')
+        raise ValueError('{}: mode must be adaptive or adaptive_double, not '
+                         '{!r}'.format(what, mode))
+    _check_bgr(frames_bgr, what)
     n, h, w = frames_bgr.shape[:3]
-    if tuple(frame_valid.shape) != (n,) or frame_valid.dtype != torch.bool \
-            or frame_valid.device != frames_bgr.device or \
-            not frame_valid.is_contiguous():
-        raise ValueError('adaptive_masks_from_bgr: frame_valid must be a '
-                         'contiguous (N,) bool tensor on the frames\' device')
-    if frames_bgr.device.type == 'cpu':
+    _check_frame_vector(frame_valid, n, torch.bool, frames_bgr.device, what,
+                        'frame_valid')
+    if not _kernel_device(frames_bgr.device, what):
         return adaptive_masks_from_bgr_plain(
             frames_bgr, frame_valid, mode, c_offset, double_delta,
             white_on_dark, want_gray)
-    if frames_bgr.device.type != 'cuda':
-        raise ValueError('adaptive_masks_from_bgr: unsupported device '
-                         '{}'.format(frames_bgr.device))
     dev = frames_bgr.device
     mask = torch.empty((n, h, w), dtype=torch.bool, device=dev)
     markers = torch.empty_like(mask) if mode == 'adaptive_double' else None
@@ -357,6 +401,107 @@ def adaptive_masks_from_bgr(frames_bgr, frame_valid, mode, c_offset,
 
 #: kernel launches since the count was last set to 0
 adaptive_masks_from_bgr.launches = 0
+
+
+def mean_prepare_from_bgr_plain(frames_bgr, want_gray=False):
+    """The plain version of :func:`mean_prepare_from_bgr`: ``bgr_to_gray``,
+    ``blur3`` (as uint8: its values are 0-255) and ``frame_mean_std_sums``
+    as separate torch passes."""
+    gray = bgr_to_gray(frames_bgr)
+    blurred = blur3(gray).to(torch.uint8)
+    sums = torch.stack(frame_mean_std_sums(gray), dim=1)
+    return blurred, sums, gray if want_gray else None
+
+
+def mean_prepare_from_bgr(frames_bgr, want_gray=False):
+    """Mean-threshold mode's preprocess in one pass: the blurred frames and
+    the meanStdDev sums of every frame (``prepare_batch(needs_sums=True)``
+    of the JAX package, the blur as uint8). A CPU tensor goes to
+    :func:`mean_prepare_from_bgr_plain`, a CUDA tensor to
+    ``csrc/adaptive_mean.cu``'s ``ysmr_mean_prepare`` (a memset of the sums
+    and one launch); nothing falls back from one to the other.
+
+    :param frames_bgr: (N, H, W, 3) uint8, contiguous
+    :param want_gray: also return the gray frames (luminosity)
+    :return: (blurred (N, H, W) uint8, sums (N, 3) int32 [total, hi, lo],
+        gray (N, H, W) int32 or None)
+    """
+    what = 'mean_prepare_from_bgr'
+    _check_bgr(frames_bgr, what)
+    if not _kernel_device(frames_bgr.device, what):
+        return mean_prepare_from_bgr_plain(frames_bgr, want_gray)
+    n, h, w = frames_bgr.shape[:3]
+    dev = frames_bgr.device
+    blurred = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+    sums = torch.empty((n, 3), dtype=_I32, device=dev)
+    gray = torch.empty((n, h, w), dtype=_I32, device=dev) if want_gray \
+        else None
+    if n == 0:
+        return blurred, sums, gray
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ysmr_mean_prepare(
+        frames_bgr.data_ptr(), blurred.data_ptr(), sums.data_ptr(),
+        None if gray is None else gray.data_ptr(), n, h, w, dev.index,
+        stream)
+    _build.check(lib, rc, 'mean prepare kernel launch')
+    mean_prepare_from_bgr.launches += 1
+    return blurred, sums, gray
+
+
+#: kernel launches since the count was last set to 0
+mean_prepare_from_bgr.launches = 0
+
+
+def mean_masks_plain(blurred, thresholds, frame_valid, white_on_dark):
+    """The plain version of :func:`mean_masks`: ``global_threshold`` and
+    ``& frame_valid``."""
+    return global_threshold(blurred, thresholds, white_on_dark) & \
+        frame_valid[:, None, None]
+
+
+def mean_masks(blurred, thresholds, frame_valid, white_on_dark):
+    """Mean-threshold mode's masks: ``blurred > t`` for white bacteria,
+    ``blurred <= t`` for dark ones, t each frame's threshold, ``&
+    frame_valid``. A CPU tensor goes to :func:`mean_masks_plain`, a CUDA
+    tensor to one launch of ``csrc/adaptive_mean.cu``'s
+    ``ysmr_mean_masks``; nothing falls back from one to the other.
+
+    :param blurred: (N, H, W) uint8, contiguous
+    :param thresholds: (N,) int32, any value, contiguous, on its device
+    :param frame_valid: (N,) bool, contiguous, on its device
+    :return: (N, H, W) bool
+    """
+    what = 'mean_masks'
+    if blurred.dim() != 3 or blurred.dtype != torch.uint8 or \
+            not blurred.is_contiguous():
+        raise ValueError('mean_masks: blurred must be a contiguous (N, H, W) '
+                         'uint8 tensor')
+    n, h, w = blurred.shape
+    _check_frame_vector(thresholds, n, _I32, blurred.device, what,
+                        'thresholds')
+    _check_frame_vector(frame_valid, n, torch.bool, blurred.device, what,
+                        'frame_valid')
+    if not _kernel_device(blurred.device, what):
+        return mean_masks_plain(blurred, thresholds, frame_valid,
+                                white_on_dark)
+    dev = blurred.device
+    mask = torch.empty((n, h, w), dtype=torch.bool, device=dev)
+    if mask.numel() == 0:
+        return mask
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ysmr_mean_masks(
+        blurred.data_ptr(), thresholds.data_ptr(), frame_valid.data_ptr(),
+        mask.data_ptr(), 0 if white_on_dark else 1, n, h, w, dev.index,
+        stream)
+    _build.check(lib, rc, 'mean masks kernel launch')
+    mean_masks.launches += 1
+    return mask
+
+
+#: kernel launches since the count was last set to 0
+mean_masks.launches = 0
 
 
 class MovingAverageThreshold:

@@ -13,9 +13,13 @@ the stats tail as on the run wire.
 In the adaptive modes ``detect_batch`` (and the multi-video step and
 ``graft_entry``) goes from the BGR frames to the masks in one call,
 ``preprocess.adaptive_masks_from_bgr`` (a single kernel launch on the
-card), then ``detect_from_masks``; ``detect_from_blurred``, the JAX
-function's counterpart, and mean-threshold mode keep the separate gray,
-blur and threshold passes.
+card), then ``detect_from_masks``. In mean-threshold mode it takes
+``preprocess.mean_prepare_from_bgr`` (the blurred frames and the
+meanStdDev sums), one copy of the sums and ``frame_valid`` to the host for
+the moving-average thresholds, then ``preprocess.mean_masks`` and
+``detect_from_masks``: one launch each on the card. ``prepare_batch`` and
+``detect_from_blurred``, the JAX functions' counterparts, keep the
+separate gray, blur and threshold passes.
 
 Differences from the JAX module:
 
@@ -137,32 +141,47 @@ def detect_adaptive(frames_bgr, frame_valid, *, mode, white_on_dark, offset,
 def detect_batch(frames_bgr, frame_valid, config, threshold_state=None):
     """Full host-coordinated detection for one frame batch.
 
-    In mean-threshold mode this is the two-phase flow: device sums -> host
-    moving-average thresholds -> device detection. ``threshold_state`` is a
+    In mean-threshold mode this is the two-phase flow of
+    :func:`detect_mean`: device sums -> host moving-average thresholds ->
+    device detection. ``threshold_state`` is a
     :class:`ysmr_tpu_torch.ops.preprocess.MovingAverageThreshold` carried
     across batches. The adaptive modes run :func:`detect_adaptive`.
 
     :param frames_bgr: (T, H, W, 3) uint8 tensor
     :param frame_valid: (T,) bool tensor on the device of ``frames_bgr``
     """
-    kwargs = dict(
-        mode=config.mode, white_on_dark=config.white_on_dark,
-        offset=config.offset, double_delta=config.double_delta,
-        max_det=config.max_det, max_bh=config.max_bh,
-        cc_iters=config.cc_iters,
+    if config.mode == 'mean':
+        return detect_mean(frames_bgr, frame_valid, config, threshold_state)
+    return detect_adaptive(
+        frames_bgr, frame_valid, mode=config.mode,
+        white_on_dark=config.white_on_dark, offset=config.offset,
+        double_delta=config.double_delta, max_det=config.max_det,
+        max_bh=config.max_bh, cc_iters=config.cc_iters,
         include_luminosity=config.include_luminosity, lum_win=config.lum_win)
-    if config.mode != 'mean':
-        return detect_adaptive(frames_bgr, frame_valid, **kwargs)
+
+
+def detect_mean(frames_bgr, frame_valid, config, threshold_state):
+    """Mean-threshold mode's :func:`detect_batch`: the blurred frames and
+    meanStdDev sums from ``preprocess.mean_prepare_from_bgr``, one copy of
+    the sums and ``frame_valid`` to the host, where ``threshold_state``
+    sets each valid frame's threshold in order, then the masks from
+    ``preprocess.mean_masks`` and :func:`detect_from_masks`."""
     t = frames_bgr.shape[0]
-    gray, blurred, total, hi, lo = prepare_batch(frames_bgr, needs_sums=True)
+    blurred, sums, gray = pp.mean_prepare_from_bgr(
+        frames_bgr, want_gray=config.include_luminosity)
+    host = torch.cat((sums, frame_valid[:, None].to(torch.int32)),
+                     dim=1).cpu().numpy()
     n_pix = frames_bgr.shape[1] * frames_bgr.shape[2]
-    mean, std = pp.combine_mean_std(n_pix, total.cpu().numpy(),
-                                    hi.cpu().numpy(), lo.cpu().numpy())
-    valid_np = frame_valid.cpu().numpy()
+    mean, std = pp.combine_mean_std(n_pix, host[:, 0], host[:, 1],
+                                    host[:, 2])
     thr = np.zeros((t,), np.int32)
     for i in range(t):
-        if valid_np[i]:
+        if host[i, 3]:
             thr[i] = threshold_state.update(mean[i], std[i])
     thresholds = torch.from_numpy(thr).to(frames_bgr.device)
-    return detect_from_blurred(gray, blurred, frame_valid, thresholds,
-                               **kwargs)
+    mask = pp.mean_masks(blurred, thresholds, frame_valid,
+                         config.white_on_dark)
+    return detect_from_masks(gray, mask, None, max_det=config.max_det,
+                             max_bh=config.max_bh, cc_iters=config.cc_iters,
+                             include_luminosity=config.include_luminosity,
+                             lum_win=config.lum_win)
