@@ -288,10 +288,13 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    global threshold and ``& frame_valid``) against their plain versions on
    the card, bit for bit, one launch a call: the bench and dense frames
    batches (timed with the bound, with and without the gray), a 16-frame
-   640x480 batch, a short padded batch, white and dark, the shapes of
+   640x480 batch, a short padded batch, the bench batch with padding
+   frames between valid ones, white and dark, the shapes of
    ``mean_mode_cases.py`` (one row, one column, one pixel, W % 4 != 0,
-   frames under 16 pixels, a 1 x 40,000 frame of 255s whose row sums
-   wrap); each kernel's registers, shared memory and occupancy. Then frames
+   frames under 16 pixels, planes 8 and 1 mod 16, a height one row past a
+   band, the bench width, rows over 274 strips, a 1 x 40,000 frame of 255s
+   whose row sums wrap); each kernel's registers, shared memory and
+   occupancy. Then frames
    mode in mean mode on the bench scene in memory (track count, frames/s):
    ``_list.csv`` byte-identical to the pixels-mode device path's without
    cv2 centres, one prepare and one masks launch a detect batch, every
@@ -4796,23 +4799,35 @@ def phase_mean_mode(scene, settings, frames, dframes, dev):
             out = check_mean_prepare(name, bgr, gray)
         n = bgr_np.shape[0]
         thr = torch.from_numpy(mmc.frame_thresholds(rng, n)).to(dev)
-        valid = torch.from_numpy(mmc.padded_valid(n)).to(dev)
-        for white in (True, False):
-            check_mean_masks(name, out[0], thr, valid, white)
+        for valid in (mmc.padded_valid(n), mmc.gapped_valid(n)):
+            valid = torch.from_numpy(valid).to(dev)
+            for white in (True, False):
+                check_mean_masks(name, out[0], thr, valid, white)
+    # the bench batch with padding frames between valid ones
+    blurred = check_mean_prepare('bench', batches[0][1], False)[0]
+    valid = torch.from_numpy(mmc.gapped_valid(blurred.shape[0])).to(dev)
+    thr = torch.from_numpy(mmc.frame_thresholds(
+        rng, blurred.shape[0])).to(dev)
+    for white in (True, False):
+        check_mean_masks('bench gapped', blurred, thr, valid, white)
     log('mean-mode kernels: bit-equal to their plain versions, one launch a '
         'call, on the four batches (white and dark, with and without the '
-        'gray, a padded batch) and on {} and {}'.format(
-            [e.shape[:3] for e in edges], mmc.WRAP_SHAPE))
+        'gray, a padded batch, the bench batch with padding between valid '
+        'frames) and on {} and {} (padding at the end and between valid '
+        'frames)'.format([e.shape[:3] for e in edges], mmc.WRAP_SHAPE))
     lib = _build.load_kernels()
     bgr = batches[0][1]
     blurred, sums, _ = MEAN_PREPARE(bgr)
     valid = torch.ones(bgr.shape[0], dtype=torch.bool, device=dev)
     thr = host_thresholds(sums, valid, H * W, True)
-    for kernel, call, threads in (
-            ('mean_prepare_kernel', lambda: MEAN_PREPARE(bgr), 128),
-            ('global_threshold_kernel',
+    # the bench batch's instantiations: 4-byte words, 16-byte vectors
+    for kernel, mangled, call, threads in (
+            ('mean_prepare_kernel<true>', 'mean_prepare_kernelILb1E',
+             lambda: MEAN_PREPARE(bgr), 128),
+            ('global_threshold_kernel<true>',
+             'global_threshold_kernelILb1E',
              lambda: MEAN_MASKS(blurred, thr, valid, True), 256)):
-        ptx = ptxas_of(lib.build_log, 'adaptive_mean.cu', kernel)
+        ptx = ptxas_of(lib.build_log, 'adaptive_mean.cu', mangled)
         args = launch_args(call, kernel)
         rec = {'kernel': kernel, 'source': 'adaptive_mean.cu'}
         if ptx is not None:

@@ -8,10 +8,11 @@ Tolerance: bit equality everywhere. The plain versions against JAX's
 jitted ``prepare_batch(needs_sums=True)`` and ``detect_masks(..., 'mean')``
 with ``& frame_valid`` (the blurred frames, the sums [total, hi, lo], the
 gray frames, the masks); numpy models of the kernels' designs
-(``mean_mode_cases.py``: block partials of the row sums, the warp sums,
-the atomics in shuffled order, the hi/lo split of each whole row sum, the
-bytes of the blurred window, the masks kernel's 16-byte chunks across
-frame ends) against the plain versions; ``detect_batch`` in mean mode
+(``mean_mode_cases.py``: the warp tiles' row sums, the row table and the
+atomics in shuffled order, the hi/lo split of each whole row sum by the
+frame's last tile, the lanes' gray words, neighbour columns and blur in
+16-bit lanes, the masks kernel's head, 16-byte body and tail of each
+frame) against the plain versions; ``detect_batch`` in mean mode
 against JAX's over two batches, the second one short. The kernels
 themselves are held to the plain versions on the card by
 ``tests/test_torch_mean_mode_cuda.py`` and ``chip_smoke.py``.
@@ -99,10 +100,12 @@ def test_mean_masks_plain_matches_jitted_jax(rng, shape, white):
 
 @pytest.mark.parametrize('shape', mmc.SHAPES + mmc.EDGE_SHAPES)
 def test_prepare_sums_design_matches_plain(rng, shape):
-    """The prepare kernel's sums as its design forms them (bands of 64
-    rows, tiles of 128 columns, lane partials, warp butterflies, the hi/lo
-    split of each whole row, atomics in shuffled order) equal the plain
-    version's, also on gray values near 255 where row sums are large."""
+    """The prepare kernel's sums as its design forms them (warp tiles of
+    30 rows and 128 columns, lane partials, each row's warp sum, the row
+    table and totals by atomics as the tiles finish in shuffled order, the
+    hi/lo split of each whole row by the frame's last tile) equal the plain
+    version's, also on gray values near 255 where row sums are large (over
+    274 strips of 2 x 3 x 35000 they wrap in int32)."""
     for bgr in (mmc.bgr_frames(rng, shape),
                 np.full(tuple(shape) + (3,), 250, np.uint8)):
         _, sums, gray = pp.mean_prepare_from_bgr_plain(
@@ -112,29 +115,49 @@ def test_prepare_sums_design_matches_plain(rng, shape):
 
 
 def test_blur_window_bytes_design(rng):
-    """The prepare kernel's blurred window: packed a word per 4 columns
-    from the blur phase's 16-bit lanes and read back by each lane at its 4
-    tile columns, the window's columns 5 .. 132 come out in order."""
-    for row in (rng.integers(0, 256, 140), np.arange(140) % 256,
-                np.full(140, 255), np.zeros(140)):
-        row = row.astype(np.uint8)
-        np.testing.assert_array_equal(mmc.blur_row_design(row), row[5:133])
+    """The prepare kernel's gray and blur as its design forms them (lanes
+    of 4 columns, the neighbour columns from the next lanes or, at a
+    warp's edges, from one more BGR word dotted with that word's layout,
+    reflect-101 at the frame's edges, [1 2 1] in 16-bit lanes, a word of 4
+    blurred bytes a lane) equal the plain blur of the plain gray: frames of
+    random, ramp, white and black pixels, over several strips (the bench
+    width), W % 4 != 0, 4 columns, one row, one column."""
+    sizes = ((5, 261), (4, 260), (3, 1228), (1, 130), (3, 1), (33, 4),
+             (2, 8), (6, 23))
+    for kind in ('random', 'ramp', 'white', 'black'):
+        for h, w in sizes:
+            if kind == 'random':
+                bgr = mmc.bgr_frames(rng, (1, h, w))[0]
+            else:
+                fill = {'ramp': np.arange(h * w * 3) % 256, 'white': 255,
+                        'black': 0}[kind]
+                bgr = np.broadcast_to(fill, (h * w * 3,)).astype(
+                    np.uint8).reshape(h, w, 3)
+            want = pp.mean_prepare_from_bgr_plain(
+                torch.from_numpy(np.ascontiguousarray(bgr[None])))[0][0]
+            np.testing.assert_array_equal(mmc.blur_design(bgr),
+                                          want.numpy(), err_msg=(kind, h, w))
 
 
 @pytest.mark.parametrize('shape', mmc.SHAPES + mmc.EDGE_SHAPES)
 def test_masks_design_matches_plain(rng, shape):
-    """The masks kernel's design (16-byte chunks of the flat batch, the
-    frame advanced inside a chunk) equals the plain version in both
-    polarities, with padding frames and out-of-range thresholds."""
+    """The masks kernel's design (a block row a frame; the frame's head
+    and tail bytes alone, its 16-byte body a word at a time, or every byte
+    alone where the blurred frames and the mask differ in alignment)
+    equals the plain version in both polarities, with padding frames at
+    the end and between valid ones, out-of-range thresholds and the batch
+    at each offset mod 16 (frame starts 8 mod 16 and 1 mod 16 among them)."""
     blurred = rng.integers(0, 256, shape).astype(np.uint8)
     thr = mmc.frame_thresholds(rng, shape[0])
-    valid = mmc.padded_valid(shape[0])
-    for white in (True, False):
-        want = pp.mean_masks_plain(torch.from_numpy(blurred),
-                                   torch.from_numpy(thr),
-                                   torch.from_numpy(valid), white)
-        np.testing.assert_array_equal(
-            mmc.masks_design(blurred, thr, valid, white), want.numpy())
+    for valid in (mmc.padded_valid(shape[0]), mmc.gapped_valid(shape[0])):
+        for white in (True, False):
+            want = pp.mean_masks_plain(torch.from_numpy(blurred),
+                                       torch.from_numpy(thr),
+                                       torch.from_numpy(valid), white)
+            for base, vec in ((0, True), (8, True), (1, True), (0, False)):
+                np.testing.assert_array_equal(
+                    mmc.masks_design(blurred, thr, valid, white, base, vec),
+                    want.numpy(), err_msg=(base, vec))
 
 
 def test_wrappers_route_to_plain_on_cpu_and_refuse(rng):

@@ -84,34 +84,41 @@ def test_mean_prepare_kernel_off_alignment_on_cuda(rng):
 @pytest.mark.cuda
 def test_mean_masks_kernel_matches_plain_on_cuda(rng):
     """The masks kernel against its plain version and its design, bit for
-    bit, white and dark, thresholds of 0, 255 and beyond, padding frames,
-    one launch a call; the 16-byte path (the bench batch: its frames end
-    inside a 16-byte chunk) and the byte path (odd sizes, a view off a
-    16-byte boundary)."""
+    bit, white and dark, thresholds of 0, 255 and beyond, padding frames
+    at the end and between valid ones, one launch a call; the 16-byte
+    path with frames starting off 16-byte boundaries (the bench batch: 8
+    mod 16; the cases' planes 8 and 1 mod 16; a view 16 bytes in) and the
+    byte path (a view off the mask's alignment)."""
     dev = _cuda()
     shapes = mmc.SHAPES + mmc.EDGE_SHAPES + FULL_SHAPES
     for shape in shapes:
         blurred_np = rng.integers(0, 256, shape).astype(np.uint8)
-        buf = torch.empty(blurred_np.size + 1, dtype=torch.uint8, device=dev)
-        for blurred in (torch.from_numpy(blurred_np).to(dev),
-                        buf[1:].view(shape).copy_(
-                            torch.from_numpy(blurred_np))):
+        views = []
+        for off in (1, 16):
+            buf = torch.empty(blurred_np.size + off, dtype=torch.uint8,
+                              device=dev)
+            views.append(buf[off:].view(shape).copy_(
+                torch.from_numpy(blurred_np)))
+        for blurred in [torch.from_numpy(blurred_np).to(dev)] + views:
             thr = torch.from_numpy(mmc.frame_thresholds(rng, shape[0]))
-            valid = torch.from_numpy(mmc.padded_valid(shape[0]))
-            thr, valid = thr.to(dev), valid.to(dev)
-            for white in (True, False):
-                n = pp.mean_masks.launches
-                got = pp.mean_masks(blurred, thr, valid, white)
-                want = pp.mean_masks_plain(blurred, thr, valid, white)
-                torch.cuda.synchronize()
-                assert pp.mean_masks.launches == n + 1
-                assert got.dtype == torch.bool and torch.equal(got, want), \
-                    (shape, white)
-                if blurred_np.size <= 1 << 16:
-                    np.testing.assert_array_equal(
-                        got.cpu().numpy(),
-                        mmc.masks_design(blurred_np, thr.cpu().numpy(),
-                                         valid.cpu().numpy(), white))
+            for valid in (mmc.padded_valid(shape[0]),
+                          mmc.gapped_valid(shape[0])):
+                thr, valid = thr.to(dev), torch.from_numpy(valid).to(dev)
+                for white in (True, False):
+                    n = pp.mean_masks.launches
+                    got = pp.mean_masks(blurred, thr, valid, white)
+                    want = pp.mean_masks_plain(blurred, thr, valid, white)
+                    torch.cuda.synchronize()
+                    assert pp.mean_masks.launches == n + 1
+                    assert got.dtype == torch.bool and \
+                        torch.equal(got, want), (shape, white)
+                    if blurred_np.size <= 1 << 16:
+                        vec = (blurred.data_ptr() - got.data_ptr()) % 16 == 0
+                        np.testing.assert_array_equal(
+                            got.cpu().numpy(),
+                            mmc.masks_design(blurred_np, thr.cpu().numpy(),
+                                             valid.cpu().numpy(), white,
+                                             blurred.data_ptr() % 16, vec))
 
 
 @pytest.mark.cuda

@@ -38,7 +38,8 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   bench configuration, with and without the gray; a checkout from before
   the fused entry traces the int32 one alone);
 - ``mean``: mean-threshold mode's entries of ``csrc/adaptive_mean.cu`` on
-  the bench scene's first 64 frames, ``mean_prepare_from_bgr`` on their
+  the bench scene's first 64 frames and on smoke phase 34's 16-frame
+  640x480 batch, ``mean_prepare_from_bgr`` on their
   BGR (with and without the gray) and ``mean_masks`` on its blurred
   frames with the thresholds the host sets from its sums; a checkout from
   before them: ``prepare_batch(needs_sums=True)`` and ``global_threshold
@@ -382,15 +383,25 @@ def trace_mean(smoke, args, dev):
               lambda: pp.global_threshold(blurred, thr, True) &
               valid[:, None, None], args.reps, smoke)
         return
-    blurred, sums, _ = pp.mean_prepare_from_bgr(bgr)
-    thr = smoke.host_thresholds(sums, valid, bgr.shape[1] * bgr.shape[2],
-                                True)
-    for gray in (False, True):
-        trace('mean_prepare_from_bgr bench {}{}'.format(
-            shape, ' with the gray' if gray else ''),
-            lambda: pp.mean_prepare_from_bgr(bgr, gray), args.reps, smoke)
-    trace('mean_masks bench {}'.format(shape),
-          lambda: pp.mean_masks(blurred, thr, valid, True), args.reps, smoke)
+    # the bench batch and smoke phase 34's 16-frame 640x480 batch
+    seed, _, (ow, oh) = smoke.MV_OTHER
+    other = smoke.BenchScene(seed=seed)
+    small = smoke.bgr_batch([other.frame(t)[:oh, :ow] for t in range(16)],
+                            dev)
+    for name, bgr in (('bench', bgr), ('640x480', small)):
+        shape = 'x'.join(str(n) for n in bgr.shape[:3])
+        valid = torch.ones(bgr.shape[0], dtype=torch.bool, device=dev)
+        blurred, sums, _ = pp.mean_prepare_from_bgr(bgr)
+        thr = smoke.host_thresholds(sums, valid,
+                                    bgr.shape[1] * bgr.shape[2], True)
+        for gray in (False, True):
+            trace('mean_prepare_from_bgr {} {}{}'.format(
+                name, shape, ' with the gray' if gray else ''),
+                lambda: pp.mean_prepare_from_bgr(bgr, gray), args.reps,
+                smoke)
+        trace('mean_masks {} {}'.format(name, shape),
+              lambda: pp.mean_masks(blurred, thr, valid, True), args.reps,
+              smoke)
 
 
 def trace_compact(smoke, args, dev):

@@ -9,8 +9,8 @@
 // and fourth, ysmr_tpu/pipeline/detect.py::prepare_batch(needs_sums=True)
 // (bgr_to_gray, blur3, frame_mean_std_sums) and the mean branch of
 // detect_masks (global_threshold) with & frame_valid, plain XLA too; the
-// host sets each frame's threshold between the two. Four entries, three on
-// one tile core:
+// host sets each frame's threshold between the two. Four entries, the first
+// two on one tile core:
 //
 // - ysmr_adaptive_mean: int32 (T, H, W) in and out, any int32 value; the
 //   bits of ysmr_tpu_torch/ops/preprocess.py::adaptive_gaussian_mean_plain.
@@ -22,11 +22,12 @@
 // - ysmr_mean_prepare: BGR uint8 (N, H, W, 3) in; the blurred frames as
 //   uint8, the (N, 3) int32 sums [total, hi, lo] of frame_mean_std_sums
 //   and on request the int32 gray out, for every frame; the bits of
-//   mean_prepare_from_bgr_plain. The tile core's gray and blur phases, a
-//   block a band of 64 rows walking its tiles, so that each row's sum of
-//   squares is whole in the block before it is split into hi and lo.
+//   mean_prepare_from_bgr_plain. A warp a tile of 30 rows and 128 columns
+//   with a one-pixel halo, no shared memory; each row's sum of squares is
+//   made whole in a per-row table by atomics before the frame's last tile
+//   splits it into hi and lo.
 // - ysmr_mean_masks: the uint8 blurred frames, (N,) int32 thresholds and
-//   frame_valid in, the bool mask out; an elementwise pass, 16 bytes a
+//   frame_valid in, the bool mask out; a block row a frame, 4 x 16 bytes a
 //   thread; the bits of mean_masks_plain.
 //
 // Arithmetic, the same bits as the plain versions: gray is OpenCV's
@@ -76,11 +77,10 @@
 //      blurred centre and stores 4 mask bytes (and 4 marker bytes) as one
 //      32-bit word when W % 4 == 0. The masks kernel is instantiated for
 //      white or dark and for one or two rules.
-// The mean-threshold entries (below the masks kernel) are plain: the
-// prepare kernel is the tile core's first two phases, 128 threads a block,
-// 21,304 bytes of shared memory, no mean; the masks kernel streams.
-// No allocation and no host synchronisation, so a launch can be captured in
-// a CUDA graph (ysmr_mean_prepare's memset of the sums included).
+// The mean-threshold entries (below the masks kernel) have designs of their
+// own, at their kernels. No allocation and no host synchronisation, so a
+// launch can be captured in a CUDA graph (ysmr_mean_prepare's memset of its
+// sums and row table included).
 //
 // What bounds it on an H100. The data's bound is bytes: ysmr_adaptive_masks
 // moves 3 bytes in and 2 out a pixel (+ 4 with the gray), at 64 x 922 x
@@ -96,9 +96,17 @@
 // ysmr_mean_prepare moves 3 bytes in and 1 out a pixel (+ 4 with the
 // gray), 289.9 MB at the bench batch, 0.087 ms at 3.35 TB/s (0.173 ms with
 // the gray); ysmr_mean_masks 1 in and 1 out, 144.9 MB, 0.043 ms. Both are
-// bound by bytes; the prepare kernel re-reads its tiles' 6-row halo
-// (about a third more BGR rows, mostly from L2) and, like the fused entry,
-// runs phases that barriers serialise.
+// bound by bytes, and both designs keep bytes in flight with nothing that
+// serialises: the prepare kernel's warps are independent (no block
+// barrier, no shared memory, 64 registers or fewer for 8 blocks of 4 warps
+// an SM), each with 4 rows' loads ahead of its arithmetic, reading 32 BGR
+// rows for 30 output rows (the halo, mostly from L2) and one more word a
+// row at the warp's edges. Its integer work, about 75 instructions a lane
+// and row counted from the source, stays below the SMs' instruction rate.
+// The masks kernel has no division and no frame search: the frame is the
+// grid's y, and 4 x 16 bytes a thread are in flight. On an H100 at 700 W
+// the prepare kernel runs at 73-74% of its bound (65% with the gray) and
+// the masks kernel at 82%, at the bench batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,7 +124,6 @@ constexpr int kBH = kTileH + 2 * kRadius;       // rows of the mean's window
 constexpr int kBW = kTileW + 12;                // its 138 columns, padded to 4
 constexpr int kGH = kBH + 2;                    // gray rows (the blur's halo)
 constexpr int kGW = kBW + 4;                    // gray columns, origin x0 - 8
-constexpr int kGItems = kGH * (kGW / 4);        // gray groups of 4 pixels
 constexpr int kBStrips = 3;                     // row strips of the blur
 constexpr int kBRows = (kBH + kBStrips - 1) / kBStrips;
 constexpr int kMeanSmem = kBH * kBW * 4;
@@ -318,10 +325,10 @@ __device__ __noinline__ void store_gray(int* dst, const uint32_t* g2, int x,
 // pixel column x): `fast` groups from the words loaded into wd, the others
 // pixel by pixel through reflect-101; stored as 4 bytes, and as int32 gray
 // where it is a tile pixel and the gray is asked for.
-template <class Args>
-__device__ __forceinline__ void gray_group(const Args& a, const uint8_t* bgr,
-                                           uint8_t* g8, int64_t frame, int y0,
-                                           int gr, int k, int x, bool fast,
+__device__ __forceinline__ void gray_group(const MaskArgs& a,
+                                           const uint8_t* bgr, uint8_t* g8,
+                                           int64_t frame, int y0, int gr,
+                                           int k, int x, bool fast,
                                            const uint32_t* wd) {
   const int h = a.h, w = a.w;
   uint32_t g2[4];
@@ -376,15 +383,14 @@ __device__ __forceinline__ float lane_float(uint32_t v, uint32_t sel) {
                    8388608.0f);
 }
 
-// Phase 1 of both BGR entries: the gray window of the tile at (y0, x0),
+// Phase 1 of the masks kernel: the gray window of the tile at (y0, x0),
 // rows y0 - 6 .., columns x0 - 8 .., 36 groups of 4 pixels a row, into g8
 // (and the int32 gray of the tile's pixels where a.gray is set). A warp
 // takes rows warp, warp + 4, ..., a lane group lane of each, ten rows'
-// loads in flight; then groups 32-35. Args has bgr, gray, h, w and words.
-template <class Args>
-__device__ __forceinline__ void gray_window(const Args& a, const uint8_t* bgr,
-                                            uint8_t* g8, int64_t frame,
-                                            int y0, int x0) {
+// loads in flight; then groups 32-35.
+__device__ __forceinline__ void gray_window(const MaskArgs& a,
+                                            const uint8_t* bgr, uint8_t* g8,
+                                            int64_t frame, int y0, int x0) {
   const int h = a.h, w = a.w;
   constexpr int kWarps = kThreads / 32;
   constexpr int kRows = (kGH + kWarps - 1) / kWarps, kBatch = 10;
@@ -434,7 +440,7 @@ __device__ __forceinline__ void gray_window(const Args& a, const uint8_t* bgr,
   }
 }
 
-// Phase 2 of both BGR entries: the blurred window from the gray window.
+// Phase 2 of the masks kernel: the blurred window from the gray window.
 // Window row r, column c is the blur at (y0 - 5 + r, x0 - 5 + c), from
 // gray rows r .. r + 2, columns c + 2 .. c + 4. A thread takes a 4-column
 // group down a third of the rows; its [1 2 1] sums run in 16-bit lanes
@@ -589,15 +595,21 @@ masks_kernel(MaskArgs a, Taps taps) {
 struct PrepareArgs {
   const uint8_t* bgr;
   uint8_t* blurred;
-  unsigned* sums;  // (N, 3): total, hi, lo; zeroed before the launch
-  int* gray;       // null: not asked for
+  unsigned* sums;     // (N, 3): total, hi, lo; zeroed before the launch
+  unsigned* tickets;  // (N,): warp tiles of the frame done; zeroed
+  unsigned* rows;     // (N, H): each row's sum of squares; zeroed
+  int* gray;          // null: not asked for
   int h, w;
-  int words;  // 4-byte BGR loads and blurred stores (W % 4 == 0)
+  unsigned tiles;  // warp tiles a frame: column strips x bands
 };
 
-constexpr int kPrepareSmem = kGH * kGW + kBH * kBW;
-static_assert(kGroups == 32, "a warp's lanes cover a tile row");
-static_assert((kGH * kGW) % 16 == 0, "the blurred window is aligned");
+constexpr int kPrepWarps = 4;                   // bands a block, stacked
+constexpr int kPrepThreads = 32 * kPrepWarps;
+constexpr int kBand = 30;                       // output rows of a band
+constexpr int kBatch = 4;                       // window rows loaded ahead
+static_assert((kBand + 2) % kBatch == 0, "a full band is whole batches");
+static_assert(kTileW == 4 * 32, "a warp's lanes cover a strip");
+static_assert(kBand <= 32, "a lane keeps one row's sum of squares");
 
 // The bytes of a blurred word at columns x .. x + 3 below w.
 __device__ __noinline__ void store_blur_bytes(uint8_t* dst, uint32_t v, int x,
@@ -606,126 +618,271 @@ __device__ __noinline__ void store_blur_bytes(uint8_t* dst, uint32_t v, int x,
     if (x + q < w) dst[q] = (v >> (8 * q)) & 0xFFu;
 }
 
-// Mean-threshold mode's preprocess: one block a (frame, band of 64 rows),
-// over the band's 128-column tiles from left to right, each the gray window
-// (phase 1) and its blur as bytes (phase 2). Then warp s, lane l takes the
-// tile's rows 16 s .. 16 s + 15, columns 4 l .. 4 l + 3: it writes their
-// blurred bytes and adds their gray to its sum and each row's squares to
-// its row's sum (__dp4a), all in uint32, which wraps as JAX's int32 sums
-// do. After the last tile the warp sums each row over its lanes, so each
-// row's sum of squares is whole before it is split into hi (>> 16, signed)
-// and lo (& 0xFFFF); the warp's total, hi and lo go to the frame's sums by
-// three atomics (integers: any order gives the same bits).
-__global__ void __launch_bounds__(kThreads)
+// The 4-pixel gray word of columns x .. x + 3 and the gray of columns
+// x - 1 and x + 4 (reflect-101 at the frame's edges) of a BGR row read
+// byte by byte: the path of W % 4 != 0 and of misaligned frames. Returns
+// gray2_of of the 4 pixels in g2, the left gray in byte 3 of *lw and the
+// right one in byte 0 of *rw.
+__device__ __noinline__ void gray_row_pixels(const uint8_t* row, int x, int w,
+                                             uint32_t* g2, uint32_t* lw,
+                                             uint32_t* rw) {
+  uint32_t v[6];
+  for (int j = 0; j < 6; ++j) {
+    const uint8_t* px = row + 3 * reflect101(x - 1 + j, w);
+    v[j] = gray2_of(px[0], px[1], px[2]);
+  }
+  for (int j = 0; j < 4; ++j) g2[j] = v[j + 1];
+  *lw = (v[0] >> 16) << 24;
+  *rw = v[5] >> 16;
+}
+
+// Mean-threshold mode's preprocess. A warp takes a band of kBand rows of a
+// 128-column strip of one frame: lane l the columns x = x0 + 4 l .. + 3,
+// rows y0 - 1 .. y0 + kBand (reflect-101) slid down in batches of kBatch
+// rows whose words are loaded ahead. Of each row the lane forms the gray of
+// its 4 pixels (three 4-byte words, __dp2a), takes the gray of columns
+// x - 1 and x + 4 from its neighbour lanes (__shfl) or, at the warp's
+// edges, from one more word (lanes 0 and 31), reflects at the frame's
+// edges, and sums [1 2 1] in 16-bit lanes (columns x and x + 2, x + 1 and
+// x + 3); the vertical [1 2 1] of three rows' sums gives 4 blurred bytes,
+// one 32-bit store. The rows' gray adds to the lane's total (__dp4a), each
+// row's squares to the row's warp sum (__dp4a, __reduce_add_sync), kept by
+// lane (row - y0). All in uint32, which wraps as JAX's int32 sums do.
+// After the band each lane adds its row's sum to the frame's row table and
+// lane 0 the total to the frame's sums, by atomics (integers: any order
+// gives the same bits); the frame's last warp tile, found by a ticket
+// after __threadfence, splits each whole row sum into hi (>> 16, signed)
+// and lo (& 0xFFFF) and writes their sums. No shared memory and no block
+// barrier: the four warps of a block are independent bands.
+template <bool kWords>
+__global__ void __launch_bounds__(kPrepThreads, 8)
 mean_prepare_kernel(PrepareArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* g8 = smem;
-  uint8_t* b8 = smem + kGH * kGW;
+  constexpr uint32_t kBG = 7470u | 38470u << 16, kR = 19596u;
+  constexpr uint32_t kB = 7470u << 16, kGR = 38470u | 19596u << 16;
   const int h = a.h, w = a.w;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int y0 = (blockIdx.y * kPrepWarps + warp) * kBand;
+  if (y0 >= h) return;  // a band below the frame: no tile, no ticket
+  const int x = blockIdx.x * kTileW + 4 * lane;
   const int64_t frame = static_cast<int64_t>(blockIdx.z) * h * w;
-  const int y0 = blockIdx.y * kTileH;
   const uint8_t* bgr = a.bgr + frame * 3;
-  const int s = threadIdx.x / 32, c = 4 * (threadIdx.x % 32);
-  uint32_t total = 0, rsq[kStrip];
+  uint8_t* blurred = a.blurred + frame;
+  int* gray = a.gray ? a.gray + frame : nullptr;
+  const int rows_out = min(kBand, h - y0);
+  const int rows_in = rows_out + 2;
+  // this lane's bytes inside the frame
+  const uint32_t cols = x >= w ? 0u
+                        : w - x >= 4 ? ~0u
+                                     : (1u << (8 * (w - x))) - 1u;
+  // the warp's edge lanes: lane 0 reads the word ending with pixel x - 1,
+  // lane 31 the word starting with pixel x + 4, where those are in the
+  // frame; their gray by the coefficients of that word's byte layout
+  const bool edge = kWords && ((lane == 0 && x > 0 && x < w) ||
+                               (lane == 31 && x + 4 < w));
+  const int eoff = lane == 0 ? 3 * x - 4 : 3 * x + 12;
+  const uint32_t klo = lane == 0 ? kB : kBG, khi = lane == 0 ? kGR : kR;
+  uint32_t total = 0, mine = 0;
+  uint32_t e0 = 0, o0 = 0, e1 = 0, o1 = 0;
+  for (int r0 = 0; r0 < rows_in; r0 += kBatch) {
+    uint32_t wd[kBatch][4];
+    if constexpr (kWords) {
 #pragma unroll
-  for (int i = 0; i < kStrip; ++i) rsq[i] = 0;
-  for (int x0 = 0; x0 < w; x0 += kTileW) {
-    gray_window(a, bgr, g8, frame, y0, x0);
-    __syncthreads();
-    // blurred window byte (r, c) is the blur at (y0 - 5 + r, x0 - 5 + c)
-    blur_window(g8, [&](int r, int cw, uint32_t be, uint32_t bo) {
-      *reinterpret_cast<uint32_t*>(b8 + r * kBW + cw) =
-          __byte_perm(be, bo, 0x6240);
-    });
-    __syncthreads();
-    const int x = x0 + c;
-    // this thread's bytes inside the frame
-    const uint32_t cols = x >= w ? 0u
-                          : w - x >= 4 ? ~0u
-                                       : (1u << (8 * (w - x))) - 1u;
-#pragma unroll
-    for (int i = 0; i < kStrip; ++i) {
-      const int r = s * kStrip + i, y = y0 + r;
-      if (cols && y < h) {
-        const uint32_t g =
-            *reinterpret_cast<const uint32_t*>(g8 + (6 + r) * kGW + 8 + c) &
-            cols;
-        total = __dp4a(g, 0x01010101u, total);
-        rsq[i] = __dp4a(g, g, rsq[i]);
-        const uint32_t* br =
-            reinterpret_cast<const uint32_t*>(b8 + (5 + r) * kBW + c);
-        const uint32_t blur = __funnelshift_r(br[1], br[2], 8);  // c+5 ..
-        uint8_t* dst = a.blurred + frame + static_cast<int64_t>(y) * w + x;
-        if (a.words)
-          *reinterpret_cast<uint32_t*>(dst) = blur;
-        else
-          store_blur_bytes(dst, blur, x, w);
+      for (int u = 0; u < kBatch; ++u) {
+        const uint8_t* row =
+            bgr + static_cast<uint32_t>(reflect101(y0 - 1 + r0 + u, h)) *
+                      static_cast<uint32_t>(3 * w);
+        const uint32_t* p = reinterpret_cast<const uint32_t*>(row + 3 * x);
+        wd[u][0] = x < w ? __ldg(p) : 0u;
+        wd[u][1] = x < w ? __ldg(p + 1) : 0u;
+        wd[u][2] = x < w ? __ldg(p + 2) : 0u;
+        wd[u][3] = edge ? __ldg(reinterpret_cast<const uint32_t*>(row +
+                                                                  eoff))
+                        : 0u;
       }
     }
-    __syncthreads();  // the next tile overwrites both windows
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int r = r0 + u;  // window row: frame row y0 - 1 + r
+      if (r >= rows_in) break;
+      uint32_t g2[4], lw, rw;
+      if constexpr (kWords) {
+        gray2_words(wd[u], g2);
+      } else {
+        gray_row_pixels(
+            bgr + static_cast<uint32_t>(reflect101(y0 - 1 + r, h)) *
+                      static_cast<uint32_t>(3 * w),
+            x, w, g2, &lw, &rw);
+      }
+      const uint32_t g = __byte_perm(__byte_perm(g2[0], g2[1], 0x0062),
+                                     __byte_perm(g2[2], g2[3], 0x0062),
+                                     0x5410);
+      if constexpr (kWords) {
+        const uint32_t eg = __dp2a_hi(khi, wd[u][3],
+                                      __dp2a_lo(klo, wd[u][3], 32768u));
+        lw = __shfl_up_sync(~0u, g, 1);    // byte 3: column x - 1
+        rw = __shfl_down_sync(~0u, g, 1);  // byte 0: column x + 4
+        if (lane == 0) lw = eg << 8;
+        if (lane == 31) rw = eg >> 16;
+        if (x == 0) lw = g << 16;       // reflect-101: column 1
+        if (x + 4 >= w) rw = g >> 16;   // column w - 2
+      }
+      // [1 2 1] of columns x - 1 .. x + 4 in 16-bit lanes
+      const uint32_t left = __funnelshift_r(lw, g, 24);   // x - 1 .. x + 2
+      const uint32_t right = __funnelshift_r(g, rw, 8);   // x + 1 .. x + 4
+      const uint32_t e2 = lanes16(left, 0x4240) + 2 * lanes16(g, 0x4240) +
+                          lanes16(right, 0x4240);
+      const uint32_t o2 = lanes16(left, 0x4341) + 2 * lanes16(g, 0x4341) +
+                          lanes16(right, 0x4341);
+      if (r >= 1 && r <= rows_out) {
+        // frame row y0 + r - 1: its sums and, on request, its gray
+        const uint32_t gm = g & cols;
+        total = __dp4a(gm, 0x01010101u, total);
+        const uint32_t sq = __reduce_add_sync(~0u, __dp4a(gm, gm, 0u));
+        if (lane == r - 1) mine = sq;
+        if (gray && cols) {
+          int* dst = gray + static_cast<uint32_t>(y0 + r - 1) *
+                                static_cast<uint32_t>(w) + x;
+          const int gv[4] = {static_cast<int>(g2[0] >> 16),
+                             static_cast<int>(g2[1] >> 16),
+                             static_cast<int>(g2[2] >> 16),
+                             static_cast<int>(g2[3] >> 16)};
+          if constexpr (kWords) {
+            *reinterpret_cast<int4*>(dst) =
+                make_int4(gv[0], gv[1], gv[2], gv[3]);
+          } else {
+            for (int j = 0; j < 4 && x + j < w; ++j) dst[j] = gv[j];
+          }
+        }
+      }
+      if (r >= 2 && cols) {
+        // frame row y0 + r - 2 from window rows r - 2 .. r
+        const uint32_t be = ((e0 + 2 * e1 + e2 + 0x00080008u) >> 4) &
+                            0x0FFF0FFFu;
+        const uint32_t bo = ((o0 + 2 * o1 + o2 + 0x00080008u) >> 4) &
+                            0x0FFF0FFFu;
+        const uint32_t v = __byte_perm(be, bo, 0x6240);
+        uint8_t* dst = blurred + static_cast<uint32_t>(y0 + r - 2) *
+                                     static_cast<uint32_t>(w) + x;
+        if constexpr (kWords)
+          *reinterpret_cast<uint32_t*>(dst) = v;
+        else
+          store_blur_bytes(dst, v, x, w);
+      }
+      e0 = e1;
+      o0 = o1;
+      e1 = e2;
+      o1 = o2;
+    }
   }
+  unsigned* rows = a.rows + static_cast<int64_t>(blockIdx.z) * h;
+  unsigned* sums = a.sums + 3 * static_cast<int64_t>(blockIdx.z);
+  if (lane < rows_out) atomicAdd(rows + y0 + lane, mine);
+  total = __reduce_add_sync(~0u, total);
+  if (lane == 0) atomicAdd(sums, total);
+  __threadfence();
+  __syncwarp();
+  unsigned ticket = 0;
+  if (lane == 0) ticket = atomicAdd(a.tickets + blockIdx.z, 1u);
+  if (__shfl_sync(~0u, ticket, 0) != a.tiles - 1) return;
+  // the frame's last warp tile: every row sum is whole
+  __threadfence();
   uint32_t hi = 0, lo = 0;
-#pragma unroll
-  for (int i = 0; i < kStrip; ++i) {
-    uint32_t v = rsq[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
-    const int row = static_cast<int>(v);  // 0 for a row below the frame
+  for (int i = lane; i < h; i += 32) {
+    const int row = static_cast<int>(__ldcg(rows + i));
     hi += static_cast<uint32_t>(row >> 16);
     lo += static_cast<uint32_t>(row & 0xFFFF);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(~0u, total, o);
-  if (threadIdx.x % 32 == 0 && y0 + s * kStrip < h) {
-    unsigned* out = a.sums + 3 * blockIdx.z;
-    atomicAdd(out, total);
-    atomicAdd(out + 1, hi);
-    atomicAdd(out + 2, lo);
+  hi = __reduce_add_sync(~0u, hi);
+  lo = __reduce_add_sync(~0u, lo);
+  if (lane == 0) {
+    sums[1] = hi;
+    sums[2] = lo;
   }
 }
 
+constexpr int kMaskThreads = 256;
+constexpr int kMaskVecs = 4;  // 16-byte vectors a thread, all in flight
+
+// 4 mask bytes of the blurred bytes in v: byte i is 1 where byte i of v
+// exceeds the threshold t, with k = 255 - clamp(t, -1, 255) in both 16-bit
+// lanes (v's byte + k carries into bit 8 exactly where it exceeds t),
+// flipped by `flip` and kept by `keep`.
+__device__ __forceinline__ uint32_t mask_word(uint32_t v, uint32_t k,
+                                              uint32_t flip, uint32_t keep) {
+  const uint32_t even = v & 0x00FF00FFu, odd = (v >> 8) & 0x00FF00FFu;
+  const uint32_t gt = (((even + k) >> 8) & 0x00010001u) |
+                      ((odd + k) & 0x01000100u);
+  return (gt ^ flip) & keep;
+}
+
 // Mean-threshold mode's masks: blurred > t (white on dark) or blurred <= t
-// (dark), & frame_valid, t the frame's threshold. A thread takes 16
-// consecutive bytes of the flat (N, H, W) array, one 16-byte load and
-// store where the array allows (the frame can change inside the 16).
-__global__ void __launch_bounds__(256)
+// (dark), & frame_valid, t the frame's threshold. The grid is column
+// chunks x frames: a block reads its frame's threshold and valid flag once
+// (an invalid frame writes zeros and reads nothing). With kVec (blurred
+// and mask at the same offset mod 16) a thread takes kMaskVecs 16-byte
+// vectors of the frame's aligned body, all loads in flight before the
+// stores; the frame's head (up to its first 16-byte boundary) and tail
+// bytes are scalar lanes of block 0. Without kVec a thread takes 16 bytes,
+// one at a time.
+template <bool kVec>
+__global__ void __launch_bounds__(kMaskThreads)
 global_threshold_kernel(const uint8_t* __restrict__ blurred,
-                  const int* __restrict__ thr,
-                  const bool* __restrict__ valid, uint8_t* __restrict__ mask,
-                  int64_t plane, int64_t total, int dark, int vec) {
-  union Bytes16 {
-    uint4 v;
-    uint8_t b[16];
-  };
-  const int64_t i0 =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 16;
-  if (i0 >= total) return;
-  int64_t f = i0 / plane, next = (f + 1) * plane;
-  int t = thr[f];
-  bool keep = valid[f];
-  Bytes16 in, out;
-  if (vec) {
-    in.v = __ldg(reinterpret_cast<const uint4*>(blurred + i0));
-  } else {
+                        const int* __restrict__ thr,
+                        const bool* __restrict__ valid,
+                        uint8_t* __restrict__ mask, uint32_t plane,
+                        int dark) {
+  const int64_t frame = static_cast<int64_t>(blockIdx.y) * plane;
+  const uint8_t* src = blurred + frame;
+  uint8_t* dst = mask + frame;
+  const bool on = valid[blockIdx.y];
+  const int t = min(max(thr[blockIdx.y], -1), 255);
+  const uint32_t k = static_cast<uint32_t>(255 - t) * 0x00010001u;
+  const uint32_t keep = on ? 0x01010101u : 0u;
+  const uint32_t flip = dark ? 0x01010101u : 0u;
+  if constexpr (kVec) {
+    const uint32_t head =
+        min((16u - static_cast<uint32_t>(
+                       reinterpret_cast<uintptr_t>(src) % 16)) % 16,
+            plane);
+    const uint32_t nv = (plane - head) / 16;
+    const uint4* vs = reinterpret_cast<const uint4*>(src + head);
+    uint4* vd = reinterpret_cast<uint4*>(dst + head);
+    const uint32_t j0 = blockIdx.x * (kMaskThreads * kMaskVecs) + threadIdx.x;
+    uint4 v[kMaskVecs];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) in.b[j] = i0 + j < total ? blurred[i0 + j] : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (i0 + j < total) {
-      while (i0 + j >= next) {
-        ++f;
-        next += plane;
-        t = thr[f];
-        keep = valid[f];
-      }
+    for (int u = 0; u < kMaskVecs; ++u) {
+      const uint32_t j = j0 + u * kMaskThreads;
+      v[u] = on && j < nv ? __ldcs(vs + j) : make_uint4(0u, 0u, 0u, 0u);
     }
-    out.b[j] = keep && ((static_cast<int>(in.b[j]) > t) != (dark != 0));
-  }
-  if (vec) {
-    *reinterpret_cast<uint4*>(mask + i0) = out.v;
+#pragma unroll
+    for (int u = 0; u < kMaskVecs; ++u) {
+      const uint32_t j = j0 + u * kMaskThreads;
+      if (j < nv)
+        vd[j] = make_uint4(mask_word(v[u].x, k, flip, keep),
+                           mask_word(v[u].y, k, flip, keep),
+                           mask_word(v[u].z, k, flip, keep),
+                           mask_word(v[u].w, k, flip, keep));
+    }
+    if (blockIdx.x == 0 && threadIdx.x < 32) {
+      const uint32_t i = threadIdx.x < 16
+                             ? threadIdx.x
+                             : head + 16 * nv + (threadIdx.x - 16);
+      if (threadIdx.x < 16 ? i < head : i < plane)
+        dst[i] = mask_word(on ? src[i] : 0u, k, flip, keep) & 1u;
+    }
   } else {
-    for (int j = 0; j < 16 && i0 + j < total; ++j) mask[i0 + j] = out.b[j];
+    const uint32_t i0 = blockIdx.x * (kMaskThreads * 16) + threadIdx.x;
+    uint32_t v[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const uint32_t i = i0 + u * kMaskThreads;
+      v[u] = on && i < plane ? src[i] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const uint32_t i = i0 + u * kMaskThreads;
+      if (i < plane) dst[i] = mask_word(v[u], k, flip, keep) & 1u;
+    }
   }
 }
 
@@ -813,34 +970,48 @@ int ysmr_adaptive_masks(const void* bgr, const void* valid, void* mask,
   return 0;
 }
 
-// bgr: (N, H, W, 3) uint8; blurred: (N, H, W) uint8; sums: (N, 3) int32
-// (total, hi, lo); gray: (N, H, W) int32 or null; all contiguous on CUDA
-// device `device`. A memset of the sums and one launch on `stream`.
-// Returns a cudaError_t (0 = launched).
-int ysmr_mean_prepare(const void* bgr, void* blurred, void* sums, void* gray,
-                      int n, int h, int w, int device, void* stream) {
+// bgr: (N, H, W, 3) uint8; blurred: (N, H, W) uint8; gray: (N, H, W)
+// int32 or null; scratch: (N * (4 + H),) int32, the (N, 3) sums (total,
+// hi, lo) first, then the frames' tickets and row sums; all contiguous on
+// CUDA device `device`, H * W * 3 below 2^32. A memset of the scratch and
+// one launch on `stream`. Returns a cudaError_t (0 = launched).
+int ysmr_mean_prepare(const void* bgr, void* blurred, void* scratch,
+                      void* gray, int n, int h, int w, int device,
+                      void* stream) {
   if (n <= 0) return 0;
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  if (plane * 3 >= (int64_t{1} << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(sums, 0, static_cast<size_t>(n) * 3 * sizeof(int),
+  err = cudaMemsetAsync(scratch, 0,
+                        static_cast<size_t>(n) * (4 + (h > 0 ? h : 0)) *
+                            sizeof(int),
                         st);
   if (err != cudaSuccess || h <= 0 || w <= 0) return static_cast<int>(err);
-  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int words = w % 4 == 0 && reinterpret_cast<uintptr_t>(bgr) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(blurred) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(gray) % 16 == 0;
+  void (*kernel)(PrepareArgs) =
+      words ? mean_prepare_kernel<true> : mean_prepare_kernel<false>;
+  const int strips = (w + kTileW - 1) / kTileW;
+  const int bands = (h + kBand - 1) / kBand;
+  unsigned* base = static_cast<unsigned*>(scratch);
   PrepareArgs a{};
   a.h = h;
   a.w = w;
-  a.words = w % 4 == 0 && reinterpret_cast<uintptr_t>(bgr) % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(blurred) % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(gray) % 16 == 0;
+  a.tiles = static_cast<unsigned>(strips) * bands;
   for (int z = 0; z < n; z += kMaxFrames) {
     const int frames = n - z < kMaxFrames ? n - z : kMaxFrames;
     a.bgr = static_cast<const uint8_t*>(bgr) + z * plane * 3;
     a.blurred = static_cast<uint8_t*>(blurred) + z * plane;
-    a.sums = static_cast<unsigned*>(sums) + 3 * z;
+    a.sums = base + 3 * static_cast<int64_t>(z);
+    a.tickets = base + 3 * static_cast<int64_t>(n) + z;
+    a.rows = base + 4 * static_cast<int64_t>(n) + static_cast<int64_t>(z) * h;
     a.gray = gray ? static_cast<int*>(gray) + z * plane : nullptr;
-    const dim3 grid(1, (h + kTileH - 1) / kTileH, frames);
-    mean_prepare_kernel<<<grid, kThreads, kPrepareSmem, st>>>(a);
+    const dim3 grid(strips, (bands + kPrepWarps - 1) / kPrepWarps, frames);
+    kernel<<<grid, kPrepThreads, 0, st>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -848,27 +1019,40 @@ int ysmr_mean_prepare(const void* bgr, void* blurred, void* sums, void* gray,
 }
 
 // blurred: (N, H, W) uint8; thresholds: (N,) int32; valid: (N,) bool;
-// mask: (N, H, W) bool; all contiguous on CUDA device `device`. dark: 1
-// keeps blurred <= t, 0 blurred > t. One launch on `stream`. Returns a
-// cudaError_t (0 = launched).
+// mask: (N, H, W) bool; all contiguous on CUDA device `device`, H * W
+// below 2^32. dark: 1 keeps blurred <= t, 0 blurred > t. One launch on
+// `stream`. Returns a cudaError_t (0 = launched).
 int ysmr_mean_masks(const void* blurred, const void* thresholds,
                     const void* valid, void* mask, int dark, int n, int h,
                     int w, int device, void* stream) {
   const int64_t plane = static_cast<int64_t>(h) * w;
-  const int64_t total = plane * n;
-  if (total <= 0) return 0;
+  if (n <= 0 || plane <= 0) return 0;
+  if (plane >= (int64_t{1} << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = total % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(blurred) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(mask) % 16 == 0;
-  const int64_t blocks = (total + 16 * 256 - 1) / (16 * 256);
-  global_threshold_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(blurred),
-      static_cast<const int*>(thresholds), static_cast<const bool*>(valid),
-      static_cast<uint8_t*>(mask), plane, total, dark, vec);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = (reinterpret_cast<uintptr_t>(blurred) -
+                    reinterpret_cast<uintptr_t>(mask)) % 16 == 0;
+  void (*kernel)(const uint8_t*, const int*, const bool*, uint8_t*,
+                 uint32_t, int) = vec ? global_threshold_kernel<true>
+                                      : global_threshold_kernel<false>;
+  const int64_t per_block = vec ? 16 * kMaskThreads * kMaskVecs
+                                : 16 * kMaskThreads;
+  const unsigned blocks =
+      static_cast<unsigned>((plane + per_block - 1) / per_block);
+  for (int z = 0; z < n; z += kMaxFrames) {
+    const int frames = n - z < kMaxFrames ? n - z : kMaxFrames;
+    const dim3 grid(blocks, frames);
+    const uint8_t* src = static_cast<const uint8_t*>(blurred) + z * plane;
+    const int* thr = static_cast<const int*>(thresholds) + z;
+    const bool* ok = static_cast<const bool*>(valid) + z;
+    uint8_t* dst = static_cast<uint8_t*>(mask) + z * plane;
+    kernel<<<grid, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        src, thr, ok, dst, static_cast<uint32_t>(plane), dark);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -419,7 +419,8 @@ def mean_prepare_from_bgr(frames_bgr, want_gray=False):
     of the JAX package, the blur as uint8). A CPU tensor goes to
     :func:`mean_prepare_from_bgr_plain`, a CUDA tensor to
     ``csrc/adaptive_mean.cu``'s ``ysmr_mean_prepare`` (a memset of the sums
-    and one launch); nothing falls back from one to the other.
+    and the kernel's row table and one launch); nothing falls back from one
+    to the other.
 
     :param frames_bgr: (N, H, W, 3) uint8, contiguous
     :param want_gray: also return the gray frames (luminosity)
@@ -433,7 +434,9 @@ def mean_prepare_from_bgr(frames_bgr, want_gray=False):
     n, h, w = frames_bgr.shape[:3]
     dev = frames_bgr.device
     blurred = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
-    sums = torch.empty((n, 3), dtype=_I32, device=dev)
+    # the sums, then the frames' tickets and row sums of squares
+    scratch = torch.empty(n * (4 + h), dtype=_I32, device=dev)
+    sums = scratch[:3 * n].view(n, 3)
     gray = torch.empty((n, h, w), dtype=_I32, device=dev) if want_gray \
         else None
     if n == 0:
@@ -441,7 +444,7 @@ def mean_prepare_from_bgr(frames_bgr, want_gray=False):
     lib = _build.load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ysmr_mean_prepare(
-        frames_bgr.data_ptr(), blurred.data_ptr(), sums.data_ptr(),
+        frames_bgr.data_ptr(), blurred.data_ptr(), scratch.data_ptr(),
         None if gray is None else gray.data_ptr(), n, h, w, dev.index,
         stream)
     _build.check(lib, rc, 'mean prepare kernel launch')

@@ -164,8 +164,9 @@ def detect_mean(frames_bgr, frame_valid, config, threshold_state):
     """Mean-threshold mode's :func:`detect_batch`: the blurred frames and
     meanStdDev sums from ``preprocess.mean_prepare_from_bgr``, one copy of
     the sums and ``frame_valid`` to the host, where ``threshold_state``
-    sets each valid frame's threshold in order, then the masks from
-    ``preprocess.mean_masks`` and :func:`detect_from_masks`."""
+    sets each valid frame's threshold in order (uploaded from pinned
+    memory: the sums' copy is the one host synchronisation), then the
+    masks from ``preprocess.mean_masks`` and :func:`detect_from_masks`."""
     t = frames_bgr.shape[0]
     blurred, sums, gray = pp.mean_prepare_from_bgr(
         frames_bgr, want_gray=config.include_luminosity)
@@ -178,7 +179,11 @@ def detect_mean(frames_bgr, frame_valid, config, threshold_state):
     for i in range(t):
         if host[i, 3]:
             thr[i] = threshold_state.update(mean[i], std[i])
-    thresholds = torch.from_numpy(thr).to(frames_bgr.device)
+    thresholds = torch.from_numpy(thr)
+    if frames_bgr.is_cuda:
+        # from pinned memory the upload is queued without a host sync
+        thresholds = thresholds.pin_memory().to(frames_bgr.device,
+                                                non_blocking=True)
     mask = pp.mean_masks(blurred, thresholds, frame_valid,
                          config.white_on_dark)
     return detect_from_masks(gray, mask, None, max_det=config.max_det,
