@@ -21,7 +21,7 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    200 rods, seed 123, drawn in memory) through the port's stage-1 loop on
    ``cuda`` and then on ``cpu``; the two ``_list.csv`` files must be
    byte-identical, and the kernel must have been launched on the ``cuda``
-   run;
+   run, run-CC's finish writing the readback plane once a batch;
 5. the public entry point ``track_bacteria(path)`` on the bench clip
    written as MJPG (needs cv2), rows held against the committed reference
    list ``bench_data/bench_clip_list.csv.gz``;
@@ -265,19 +265,24 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
 33. run-CC's steps around the propagations (``csrc/run_cc.cu``:
    ``run_cc.prepare_runs``, ``compact_kept_runs``, ``finish_components``)
    against their plain versions on the card, bit for bit on every output,
-   one counted call each: prepare for both thresholds' dilations, compact
+   one counted call each: prepare for both thresholds' dilations, with
+   every frame valid and with frame 1 invalid (``frame_valid``), compact
    on the 4-connected labels, finish with and without the compaction, on
    the propagation's labels and after one step of it, without and with
    the row tables of the device rects (the path's capacities, one row,
-   ids past max_det), and ``run_cc_components`` through them against
+   ids past max_det) and the host-rect readback plane (``stage_detect``'s
+   width at the path's capacity, every run at 3 detections, one run), and
+   ``run_cc_components`` through them against
    ``run_cc_components_plain``, on the bench and dense first batches
-   (timed, the dense one with the dense path's row tables: event span
-   against the plain version, device time by kernel, device operations,
-   the bound: the wire in and the outputs out once), phase 3's random
-   graphs and the seeded cases of ``run_cc_cases.py`` (stale padding and
-   a padded frame, a full table, runs at both edges, one row, no and all
-   markers, one and two columns, runs of length 0 and out of raster
-   order); each kernel's registers, spills and shared memory. Phases 3,
+   (timed, the dense one with the dense path's row tables, the bench one
+   with the plane: event span against the plain version, device time by
+   kernel, device operations, the bound: the wire in and the outputs out
+   once), phase 3's random graphs, the seeded cases of
+   ``run_cc_cases.py`` (stale padding and a padded frame, a full table,
+   runs at both edges, one row, no and all markers, one and two columns,
+   runs of length 0 and out of raster order) and 40,960 components a
+   frame at 8 detections (the plane's count column 32767); each kernel's
+   registers, spills and shared memory. Phases 3,
    4, 7, 8, 17, 18, 21 and 26 fail unless run-CC ran through these
    kernels (prepare, compact and finish once a call, the propagation
    twice), phases 7 and 8 unless the finish wrote every device-rect
@@ -303,7 +308,20 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    the card (their ``cuda_calls``); the default pixels path (host
    threshold, run-CC, host rects, float64 tracker) on 16 frames, ``cuda``
    byte-identical to ``cpu``; frames mode with luminosity on 16 frames,
-   ``cuda`` against ``cpu`` by ``compare_rows``.
+   ``cuda`` against ``cpu`` by ``compare_rows``;
+35. the decode layer: phase 5's MJPG bench clip through
+   ``track_bacteria(path)`` on ``cuda`` with exact decode and ``host
+   decode threads`` 2 (striped), 1 and 0 (inline), and with ``decode mode
+   = fast`` and 2 threads, in turns (the four, then in reverse): for each
+   run the decoder that served (the exact fused decode, the demuxer, the
+   stripes, the first-party decoder's and the gray LUT's frames, whether
+   the native library has the libjpeg stage-1 decode), rows, tracks,
+   frames/s end to end and ``wait_batch`` ms/frame, beside the card's name
+   and power limit. Every exact run row-identical to
+   ``bench_data/bench_clip_list.csv.gz`` and byte-identical to the other
+   exact runs, the striped run on min(2, batches) stripes, the fast run on
+   the demuxer within 4 tracks and 1% of rows of the exact runs, run-CC
+   and its readback plane once a batch in every run.
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (eighteen kernels:
@@ -700,6 +718,18 @@ def reset_run_cc():
     for k in (propagate_min_fused,) + RUN_CC:
         k.launches = 0
     run_cc.finish_components.row_table_launches = 0
+    run_cc.finish_components.readback_launches = 0
+
+
+def readback_gate(what, launches):
+    """Raise unless run-CC's finish wrote the host-rect readback plane in
+    each of its calls since ``reset_run_cc`` (the host-rect path: one a
+    detect batch)."""
+    calls = launches['finish_components']
+    got = run_cc.finish_components.readback_launches
+    if calls <= 0 or got != calls:
+        raise SystemExit('{}: run-CC wrote the readback plane {} times in {} '
+                         'finish calls'.format(what, got, calls))
 
 
 def row_tables_gate(what, launches, detects):
@@ -762,6 +792,7 @@ def phase_main_path(scene, settings):
     if cuda_bytes != cpu_bytes:
         raise SystemExit('_list.csv differs between cuda and cpu runs')
     run_cc_gate('main path', launches)
+    readback_gate('main path', launches)
     if stats['capped_frames'] or cpu_stats['capped_frames']:
         raise SystemExit('frames reached the run-CC iteration cap')
     df = res[0]
@@ -4442,16 +4473,20 @@ def phase_compaction(frames, settings, dframes, dsettings, dev):
 
 # ---- phase 33: run-CC around the propagations (csrc/run_cc.cu) ----
 
-def run_cc_bytes(runs, row_tables):
+def run_cc_bytes(runs, row_tables, readback=None):
     """The bytes a run-CC call must move: the wire and counts in; run_comp
     and the three per-frame counts out, with the row tables those once
-    (two int32 and a bool table of T max_det max_bh entries, min_y)."""
+    (two int32 and a bool table of T max_det max_bh entries, min_y), with
+    the readback plane the frames' validity in and the int16 plane
+    out."""
     t, r = runs.shape
-    tables = 0
+    extra = 0
     if row_tables:
         comps = t * row_tables['max_det']
-        tables = 9 * comps * row_tables['max_bh'] + 4 * comps
-    return 4 * (t * r + t) + 4 * (t * r + 3 * t) + tables
+        extra = 9 * comps * row_tables['max_bh'] + 4 * comps
+    if readback:
+        extra += t + 2 * t * (readback['runs'] + 2)
+    return 4 * (t * r + t) + 4 * (t * r + 3 * t) + extra
 
 
 def case_tables(h):
@@ -4461,15 +4496,37 @@ def case_tables(h):
             dict(h=h, max_det=3, max_bh=8)]
 
 
-def check_run_cc_steps(name, runs, rc, w, dev, tables):
+def case_readbacks(r, max_det=64):
+    """The readback planes of the checks on a wire of R = ``r``: the
+    host's width (``stage_detect``'s, at least 64 runs) at ``max_det``,
+    every run at 3 detections (ids past max_det), one run."""
+    return [dict(runs=min(r, 64), max_det=max_det),
+            dict(runs=r, max_det=3), dict(runs=1, max_det=max_det)]
+
+
+def host_readback_runs(rc, r):
+    """``stage_detect``'s width of the readback plane: the next power of two
+    of the batch's most runs, at least 64, at most R."""
+    return min(r, max(64, 1 << max(int(rc.max()) - 1, 1).bit_length()))
+
+
+def check_run_cc_steps(name, runs, rc, w, dev, tables, readbacks=None):
     """Each call of ``csrc/run_cc.cu``'s wrappers against its plain version
     on the same card tensors, every output bit-equal, one counted call
-    each: prepare for both thresholds' dilations, compact on the
-    4-connected labels, finish with and without the compaction, after
+    each: prepare for both thresholds' dilations, with every frame valid
+    and with the second invalid (the keys launch's counts), compact on
+    the 4-connected labels, finish with and without the compaction, after
     the propagation and after one step of it, without and with each of
-    ``tables``' row tables, and ``run_cc_components`` through them."""
+    ``tables``' row tables and of ``readbacks``' readback planes (the
+    host-rect batch's int16 plane; ``case_readbacks`` by default), and
+    ``run_cc_components`` through them, the plane with the second frame
+    invalid."""
     wire = (torch.from_numpy(runs.view(np.int32)).to(dev),
             torch.from_numpy(rc).to(dev))
+    t, r = runs.shape
+    readbacks = readbacks or case_readbacks(r)
+    fv = torch.ones(t, dtype=torch.bool, device=dev)
+    fv[min(1, t - 1)] = False
 
     def same(got, want):
         if isinstance(want, dict):
@@ -4480,13 +4537,16 @@ def check_run_cc_steps(name, runs, rc, w, dev, tables):
             got.dtype == want.dtype and torch.equal(got, want))
 
     checks = []
-    for dilates, weak in (((0, 1), True), ((1,), False), ((0,), True)):
+    for dilates, weak, valid in (((0, 1), True, None), ((1,), False, None),
+                                 ((0,), True, None), ((0, 1), True, fv),
+                                 ((1,), False, fv)):
         n = run_cc.prepare_runs.launches
         got = run_cc.prepare_runs(*wire, w=w, dilates=dilates,
-                                  weak_init=weak)
+                                  weak_init=weak, frame_valid=valid)
         checks.append(run_cc.prepare_runs.launches == n + 1 and same(
             got, run_cc.prepare_runs_plain(*wire, w=w, dilates=dilates,
-                                           weak_init=weak)))
+                                           weak_init=weak,
+                                           frame_valid=valid)))
     g = run_cc.prepare_runs(*wire, w=w, dilates=(0, 1), weak_init=True)
     lab4, steps4 = propagate_min_fused(g['init'], g['wins'][0], g['link'])
     n = run_cc.compact_kept_runs.launches
@@ -4505,15 +4565,20 @@ def check_run_cc_steps(name, runs, rc, w, dev, tables):
         lab, steps = run_cc.propagate_min(*graph, max_iters=1)
         inputs.append((lab, c_orig, n_kept, st4, steps))
     for args in inputs:
-        for tab in [None] + list(tables):
+        for kw in [{}] + [dict(row_tables=tab) for tab in tables] + \
+                [dict(readback=rb) for rb in readbacks]:
             n = run_cc.finish_components.launches
-            got = run_cc.finish_components(*wire, *args, w=w, row_tables=tab)
+            n_rb = run_cc.finish_components.readback_launches
+            got = run_cc.finish_components(*wire, *args, w=w, **kw)
             checks.append(run_cc.finish_components.launches == n + 1 and
+                          run_cc.finish_components.readback_launches ==
+                          n_rb + ('readback' in kw) and
                           same(got, run_cc.finish_components_plain(
-                              *wire, *args, w=w, row_tables=tab)))
+                              *wire, *args, w=w, **kw)))
     for double in (True, False):
-        for tab in [None] + list(tables):
-            kw = dict(w=w, double_threshold=double, row_tables=tab)
+        for kw in [{}] + [dict(row_tables=tab) for tab in tables] + \
+                [dict(readback=rb, frame_valid=fv) for rb in readbacks]:
+            kw = dict(kw, w=w, double_threshold=double)
             checks.append(same(run_cc.run_cc_components(*wire, **kw),
                                run_cc.run_cc_components_plain(*wire, **kw)))
     torch.cuda.synchronize()
@@ -4523,12 +4588,16 @@ def check_run_cc_steps(name, runs, rc, w, dev, tables):
     return wire
 
 
-def time_run_cc(name, wire, w, row_tables):
+def time_run_cc(name, wire, w, row_tables, readback=None):
     """``run_cc_components`` through the kernels against its plain
-    version on the card (double threshold, with ``row_tables`` where the
-    path asks for them): event spans, the device time by kernel and the
+    version on the card (double threshold, with ``row_tables`` or, on the
+    host-rect path, ``readback`` and the frames' validity where the path
+    asks for them): event spans, the device time by kernel and the
     device span, the bound (the wire in and the outputs out once)."""
     kw = dict(w=w, double_threshold=True, row_tables=row_tables)
+    if readback:
+        kw.update(readback=readback, frame_valid=torch.ones(
+            wire[0].shape[0], dtype=torch.bool, device=wire[0].device))
 
     def kernel(*_):
         out = run_cc.run_cc_components(*wire, **kw)
@@ -4540,7 +4609,7 @@ def time_run_cc(name, wire, w, row_tables):
 
     check = check_equal('run_cc_components ' + name, kernel, plain, [], 0,
                         reps=20, plain_reps=5,
-                        nbytes=run_cc_bytes(wire[0], row_tables))
+                        nbytes=run_cc_bytes(wire[0], row_tables, readback))
     per, span = device_ms(kernel)
     ops = device_ops(kernel)
     log('run-CC {}: device {:.4f} ms in {} operations ({}), event span '
@@ -4586,14 +4655,21 @@ def phase_run_cc(scene, settings, dscene, dsettings, dev):
             ('bench', scene, settings, False),
             ('dense', dscene, dsettings, True)):
         runs, rc = first_batch_runs(sc, sets)
-        tables = dict(h=H, max_det=sets['max detections per frame'],
+        max_det = sets['max detections per frame']
+        tables = dict(h=H, max_det=max_det,
                       max_bh=sets['max bounding box height'])
-        wire = check_run_cc_steps(name, runs, rc, W, dev,
-                                  [tables] + case_tables(H)[1:])
+        # the host-rect path's plane: stage_detect's width at the path's
+        # capacity, then the edge cases
+        plane = dict(runs=host_readback_runs(rc, runs.shape[1]),
+                     max_det=max_det)
+        wire = check_run_cc_steps(
+            name, runs, rc, W, dev, [tables] + case_tables(H)[1:],
+            [plane] + case_readbacks(runs.shape[1])[1:])
         checks[name] = time_run_cc('{} T={} R={}{}'.format(
             name, runs.shape[0], runs.shape[1],
-            ' row tables' if dense else ''), wire, W,
-            tables if dense else None)
+            ' row tables' if dense else ' readback plane Rb={}'.format(
+                plane['runs'])), wire, W,
+            tables if dense else None, None if dense else plane)
     rng = np.random.default_rng(SEED)
     for t, h, w, r, dens in RANDOM_GRAPHS:
         runs, rc = random_runs(rng, t, h, w, r, dens)
@@ -4602,10 +4678,26 @@ def phase_run_cc(scene, settings, dscene, dsettings, dev):
     for case in rcc_cases.CASES:
         runs, rc, w = rcc_cases.run_case(case)
         check_run_cc_steps(case, runs, rc, w, dev, case_tables(1 << 10))
-    log('run-CC checks: bench, dense, random {}, cases {}: every call '
-        'bit-equal to its plain version, the row tables included, one '
-        'counted call each'.format(
-            [g[:4] for g in RANDOM_GRAPHS], list(rcc_cases.CASES)))
+    # a count above int16's range, max_det 8: the plane's count column
+    # holds 32767
+    runs, rc, w, h = rcc_cases.many_components()
+    wire = check_run_cc_steps('many components', runs, rc, w, dev,
+                              case_tables(h), [dict(runs=runs.shape[1],
+                                                    max_det=8)])
+    top = run_cc.run_cc_components(
+        *wire, w=w, double_threshold=True,
+        readback=dict(runs=runs.shape[1], max_det=8))['readback']
+    if int(top[0, -2]) != 32767 or int((top[0, :-2] >= 0).sum()) != 8:
+        raise SystemExit('run-CC: the readback plane of {} components '
+                         'holds count {} and {} ids'.format(
+                             rcc_cases.MANY_COMPONENTS, int(top[0, -2]),
+                             int((top[0, :-2] >= 0).sum())))
+    log('run-CC checks: bench, dense, random {}, cases {}, {} components '
+        'a frame: every call bit-equal to its plain version, the row '
+        'tables and the readback plane included (frame 1 invalid in the '
+        'prepare and the plane\'s calls), one counted call each'.format(
+            [g[:4] for g in RANDOM_GRAPHS], list(rcc_cases.CASES),
+            rcc_cases.MANY_COMPONENTS))
     lib = _build.load_kernels()
     for kernel, threads in (('keys_kernel', 256), ('prepare_kernelILi2', 256),
                             ('prepare_kernelILi1', 256),
@@ -4899,6 +4991,161 @@ def phase_mean_mode(scene, settings, frames, dframes, dev):
             checks[('masks', batches[0][0])], launches)
 
 
+# ---- phase 35: the decode layer on the bench clip ----
+
+#: phase 35's runs of the bench clip through track_bacteria(path): the
+#: decode mode and 'host decode threads' (2, the default, stripes the
+#: batches over two decode threads; 1 decodes on one thread; 0 inline)
+DECODE_RUNS = (('exact, 2 threads', 'exact', 2),
+               ('exact, 1 thread', 'exact', 1),
+               ('exact, inline', 'exact', 0), ('fast, 2 threads', 'fast', 2))
+#: the fast run's gates against the exact runs: tracks within this many,
+#: rows within this share
+FAST_TRACKS = 4
+FAST_ROWS = 0.01
+
+
+def avdec_state():
+    """Whether the exact fused decode's module (``native/libysmr_avdec.so``)
+    arms on this host, and what it found: the library's load, the ffmpeg
+    libraries of cv2's wheel (``native._cv2_bundled_ffmpeg`` looks in
+    ``opencv_python.libs``), the ``opencv*.libs`` folders beside cv2, and
+    ``avdec_init``'s answer (1: an avcodec and swscale pair loaded)."""
+    import ctypes
+    import glob
+    site = os.path.dirname(os.path.dirname(os.path.abspath(cv2.__file__)))
+    state = {'available': native.avdec_available(), 'cv2': cv2.__version__,
+             'bundled_ffmpeg': [p and os.path.basename(p.decode())
+                                for p in native._cv2_bundled_ffmpeg()],
+             'libs_folders': {
+                 os.path.basename(d): sorted(
+                     os.path.basename(f) for f in glob.glob(os.path.join(
+                         d, 'lib*')) if 'avcodec' in f or 'swscale' in f)
+                 for d in glob.glob(os.path.join(site, 'opencv*.libs'))}}
+    try:
+        lib = ctypes.CDLL(os.path.join(REPO, 'native', 'libysmr_avdec.so'))
+    except OSError as err:
+        state['library'] = str(err)[:300]
+        return state
+    state['library'] = 'loads'
+    lib.avdec_init.restype = ctypes.c_int
+    lib.avdec_init.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.avdec_loaded_version.restype = ctypes.c_uint
+    state['avdec_init'] = lib.avdec_init(*native._cv2_bundled_ffmpeg())
+    state['avcodec_version'] = lib.avdec_loaded_version()
+    return state
+
+
+def decode_run(clip, settings, mode, threads, folder):
+    """``track_bacteria(clip)`` on cuda in one decode mode: the reader it
+    made (its stage-1 reader, not the probe), the loop's stats, the
+    decoders' counts that moved, the list's bytes and the wall time."""
+    import ysmr_tpu_torch.pipeline.track_bacteria as tbm
+    readers, stats = [], {}
+
+    class RecordingReader(tbm.BatchedVideoReader):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            readers.append(self)
+
+    def loop_with_stats(*args, **kwargs):
+        return _track_loop(*args, **dict(kwargs, stats=stats))
+
+    lut0, _ = native.avdec_gray_fast_stats()
+    jdec0 = native.avdec_jdec_frames()
+    os.makedirs(folder, exist_ok=True)
+    saved = tbm.BatchedVideoReader, tbm._track_loop
+    tbm.BatchedVideoReader, tbm._track_loop = RecordingReader, \
+        loop_with_stats
+    reset_run_cc()
+    try:
+        t0 = time.perf_counter()
+        res = track_bacteria(clip, settings={
+            **settings, 'decode mode': mode, 'host decode threads': threads},
+            result_folder=folder)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tbm.BatchedVideoReader, tbm._track_loop = saved
+    if res is None:
+        raise SystemExit('decode {} x{}: track_bacteria returned None'
+                         .format(mode, threads))
+    what = 'decode {} x{}'.format(mode, threads)
+    launches = run_cc_launches()
+    run_cc_gate(what, launches)
+    readback_gate(what, launches)
+    lut1, status = native.avdec_gray_fast_stats()
+    reader = readers[-1]
+    with open(res[4], 'rb') as f:
+        data = f.read()
+    decoder = {'exact_fused': reader._exact_fused,
+               'demuxer': reader._demux is not None,
+               'n_stripes': reader._n_stripes, 'threaded': reader.threaded,
+               'jdec_frames': native.avdec_jdec_frames() - jdec0,
+               'lut_frames': lut1 - lut0, 'lut_status': status}
+    return res, stats, decoder, data, wall
+
+
+def phase_decode_modes(settings, smi):
+    """Phase 35: the decode layer on the card. Phase 5's bench clip
+    through ``track_bacteria(path)`` on cuda in each of ``DECODE_RUNS``,
+    in turns (the four, then the four in reverse): which decoder served
+    (the exact fused decode, the demuxer, the stripes, the first-party
+    decoder's and the gray LUT's frames, whether the native library has
+    the libjpeg stage-1 decode), rows, tracks, frames/s end to end and the
+    loop's ``wait_batch`` ms/frame. Gates: every exact run row-identical
+    to ``bench_data/bench_clip_list.csv.gz`` and its ``_list.csv``
+    byte-identical to the other exact runs'; the striped run's stripes
+    min(2, batches); the fast run's demuxer active, its tracks within
+    ``FAST_TRACKS`` and rows within ``FAST_ROWS`` of the exact runs';
+    run-CC's kernels and the readback plane once a batch in each run."""
+    clip = os.path.join(WORK, 'bench_clip.avi')
+    has_stage1 = hasattr(native._load(), 'decode_jpeg_gray_stage1')
+    log('decode layer: avdec {}, the native library\'s libjpeg stage-1 '
+        'decode {} ({})'.format(json.dumps(avdec_state()), has_stage1, smi))
+    order = list(DECODE_RUNS) + list(DECODE_RUNS[::-1])
+    exact_bytes, exact_rows, exact_tracks, summary = None, None, None, {}
+    for i, (name, mode, threads) in enumerate(order):
+        res, stats, decoder, data, wall = decode_run(
+            clip, settings, mode, threads,
+            os.path.join(WORK, 'decode_{}'.format(i)))
+        df = res[0]
+        rows, tracks = df.shape[0], int(df['TRACK_ID'].nunique())
+        batches = -(-N_FRAMES // settings['frame batch size'])
+        if mode == 'exact':
+            hold_to_reference(name, df, 'bench_clip_list.csv.gz')
+            if exact_bytes is None:
+                exact_bytes, exact_rows, exact_tracks = data, rows, tracks
+            elif data != exact_bytes:
+                raise SystemExit('{}: _list.csv differs from the first exact '
+                                 'run\'s'.format(name))
+            if threads == 2 and decoder['n_stripes'] != min(2, batches):
+                raise SystemExit('{}: {} stripes, not {}'.format(
+                    name, decoder['n_stripes'], min(2, batches)))
+        else:
+            if not decoder['demuxer']:
+                raise SystemExit('{}: the MJPG demuxer is not active'
+                                 .format(name))
+            if abs(tracks - exact_tracks) > FAST_TRACKS or \
+                    abs(rows - exact_rows) > FAST_ROWS * exact_rows:
+                raise SystemExit('{}: {} rows and {} tracks against the exact '
+                                 'runs\' {} and {}'.format(
+                                     name, rows, tracks, exact_rows,
+                                     exact_tracks))
+        wait = stats['stage_s']['wait_batch'] / stats['frames'] * 1e3
+        fps = N_FRAMES / wall
+        summary.setdefault(name, []).append((fps, wait))
+        log('decode run {} ({}): decoder {}, libjpeg stage-1 {}; rows {} '
+            'tracks {}; {:.2f} fps end to end (loop {:.2f}); wait_batch '
+            '{:.4f} ms/frame; stage split (ms/frame) {}; {}'.format(
+                i + 1, name, json.dumps(decoder), has_stage1, rows, tracks,
+                fps, stats['fps'], wait, per_frame(stats), smi))
+    log('decode modes in turns ({}): {}'.format(smi, json.dumps(
+        {k: {'fps': [round(a, 2) for a, _ in v],
+             'wait_batch_ms': [round(b, 4) for _, b in v]}
+         for k, v in summary.items()})))
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -4955,6 +5202,7 @@ def main():
         run_cc_check = phase_run_cc(scene, settings, dscene, dsettings, dev)
         mean_prepare_check, mean_masks_check, mean_runs = phase_mean_mode(
             scene, settings, frames, dframes, dev)
+        phase_decode_modes(settings, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(

@@ -20,8 +20,12 @@ capacities (4096 detections, ``max_bh`` 48, 131072 foreground pixels):
 run-CC, device rects and cv2 centres, as ``track_bacteria`` calls
 ``detect_from_pixels`` on the dense path. The ``bench`` batch is the bench
 scene's first 64 frames (200 rods, seed 123) at ``bench_settings()``'s
-capacities on the host-rect path (``skip_rect``, ``det_px_as_runs``):
-run-CC and the per-run detection index only. Each batch's record holds:
+capacities on the host-rect path: run-CC and the int16 plane that
+``stage_detect`` copies to the host (``readback_runs``: the first runs'
+detection index, the count and the steps, which run-CC's finish writes;
+in a checkout from before it, ``skip_rect`` and ``det_px_as_runs``
+followed by ``stage_detect``'s slice, casts and concatenation). Each
+batch's record holds:
 
 - ``detect_ms``: median host-clock ms (card synchronised; 10 calls after
   2 warm-ups) of the whole call, and ``device_ops`` / ``device_ms``: its
@@ -70,6 +74,7 @@ The last line is the card's name and power limit from ``nvidia-smi``.
 
 import argparse
 import functools
+import inspect
 import json
 import os
 import subprocess
@@ -116,6 +121,13 @@ def _setup(root, dev, batch):
     packed, counts = cs.packed_batch(scene, settings)
     runs, rc = cs.encode(packed, counts, cs.W, None)
     t = runs.shape[0]
+    # stage_detect's width of the plane it copies to the host
+    rb = min(runs.shape[1], max(64, 1 << max(int(rc.max()) - 1,
+                                             1).bit_length()))
+    readback = batch == 'bench' and 'readback_runs' in inspect.signature(
+        dp.detect_from_pixels).parameters
+    if readback:
+        path = dict(readback_runs=rb)
     kw = dict(px_x=None, px_y=None, px_marker=None,
               frame_valid=torch.ones(t, dtype=torch.bool, device=dev),
               px_counts=torch.from_numpy(counts).to(dev),
@@ -127,6 +139,18 @@ def _setup(root, dev, batch):
               max_bh=settings['max bounding box height'],
               cc_iters=settings['connected components max iterations'],
               **path)
+    if batch == 'bench' and not readback:
+        # a checkout from before the plane: stage_detect's slice, casts
+        # and concatenation after the detect
+
+        def call():
+            out = dp.detect_from_pixels(**kw)
+            return {'readback': torch.cat(
+                [out['det_run_idx'][:, :rb],
+                 out['n_components'].clamp(max=32767)[:, None].to(
+                     torch.int16),
+                 out['cc_steps'][:, None].to(torch.int16)], dim=1)}
+        return dp, call, kw
     return dp, lambda: dp.detect_from_pixels(**kw), kw
 
 

@@ -22,6 +22,9 @@ CASES = ('blobs', 'stale_padding', 'full_table', 'edges', 'one_row',
          'zero_length', 'unordered')
 #: the cases the encoder can write
 WIRE_CASES = CASES[:-2]
+#: the isolated pixels of a frame of ``many_components``: a count above
+#: int16's range
+MANY_COMPONENTS = 160 * 256
 
 
 def encode_frames(img, marker, r=None):
@@ -132,3 +135,13 @@ def run_case(name, seed=0):
         runs, counts = encode_frames(img, marker)
         return runs, counts, img.shape[2]
     raise ValueError(name)
+
+
+def many_components():
+    """(runs, counts, w, h): two 320 x 512 frames of ``MANY_COMPONENTS``
+    isolated marked pixels each (every other pixel of every other row),
+    R = 65536."""
+    img = np.zeros((2, 320, 512), bool)
+    img[:, ::2, ::2] = True
+    runs, counts = encode_frames(img, img)
+    return runs, counts, img.shape[2], img.shape[1]

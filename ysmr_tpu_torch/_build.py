@@ -155,13 +155,13 @@ def load_kernels():
     lib.ysmr_run_prop.restype = ci
     lib.ysmr_run_prop.argtypes = [vp] * 12 + [ci] * 4 + [vp]
     lib.ysmr_run_prepare.restype = ci
-    lib.ysmr_run_prepare.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+    lib.ysmr_run_prepare.argtypes = [vp] * 10 + [ci] * 8 + [vp]
     lib.ysmr_run_compact.restype = ci
     lib.ysmr_run_compact.argtypes = [vp, vp, vp, ctypes.POINTER(vp),
                                      ctypes.POINTER(vp)] + [vp] * 7 + \
         [ci] * 4 + [vp]
     lib.ysmr_run_finish.restype = ci
-    lib.ysmr_run_finish.argtypes = [vp] * 16 + [ci] * 6 + [vp]
+    lib.ysmr_run_finish.argtypes = [vp] * 17 + [ci] * 7 + [vp]
     lib.ysmr_run_scratch_words.restype = ctypes.c_int64
     lib.ysmr_run_scratch_words.argtypes = [ci] * 3
     lib.ysmr_compact_scratch_words.restype = ctypes.c_int64

@@ -5,10 +5,12 @@
 //
 // Replaces the plain-XLA part of ysmr_tpu/ops/run_cc.py:291
 // run_cc_components outside propagate_min (and the same steps of
-// keep_marked_runs and label_runs), and the row tables of
+// keep_marked_runs and label_runs), the row tables of
 // ysmr_tpu/ops/labeling.py:520 component_stats_runs (its three scatters
-// and the sort that feeds them). Same contract and bits as the plain
-// versions in ysmr_tpu_torch/ops/run_cc.py:
+// and the sort that feeds them), and on the host-rect path
+// ysmr_tpu/pipeline/detect_pixels.py:101-121 (rc_eff and det_run_idx).
+// Same contract and bits as the plain versions in
+// ysmr_tpu_torch/ops/run_cc.py:
 // 1. prepare, two launches (prepare_runs_plain: decode_runs,
 //    run_windows_multi, chain_mask and the initial labels): the planes
 //    run_prop.cu reads, for each dilation asked for.
@@ -20,7 +22,12 @@
 //    propagation, the roots and their ascending rank, the per-run ids and
 //    their scatter to wire order, the kept pixels, the larger step count
 //    and, when asked, the row tables (ops/labeling.py::run_row_tables of
-//    the component-sorted runs, ids reversed to cv2's order).
+//    the component-sorted runs, ids reversed to cv2's order) or the
+//    host-rect batch's readback plane (ysmr_tpu's det_run_idx of the
+//    wire's first runs, the clamped count and the steps, int16).
+// The keys launch also takes frame_valid and writes the counts with the
+// invalid frames' set to 0 (ysmr_tpu's rc_eff), which every launch after
+// it reads.
 //
 // Facts it uses. A window endpoint is torch.searchsorted over the frame's
 // key row. Where the row does not decrease (the wire in raster order)
@@ -166,6 +173,9 @@ struct KeyArgs {
   int32_t* key_e;     // (T, R)
   int32_t* key_s;     // (T, R)
   uint8_t* unsorted;  // (T, blocks a frame)
+  const uint8_t* fv;  // (T,) frame_valid, or null: every frame
+  int32_t* counts;    // (T,) out with fv: the counts of the valid frames,
+                      // 0 elsewhere (the launches after this one read it)
 };
 
 __global__ void __launch_bounds__(kPrepThreads) keys_kernel(KeyArgs a) {
@@ -175,7 +185,8 @@ __global__ void __launch_bounds__(kPrepThreads) keys_kernel(KeyArgs a) {
   const int r = g.r, m = g.w + 2;
   const int64_t row0 = static_cast<int64_t>(f) * r;
   const int32_t* wrow = g.runs + row0;
-  const int count = g.counts[f];
+  const int count = a.fv && !a.fv[f] ? 0 : g.counts[f];
+  if (a.fv && blockIdx.x == 0 && threadIdx.x == 0) a.counts[f] = count;
   bool down = false;
   if (i < r) {
     const Run me = decode(__ldg(wrow + i), i, count, g);
@@ -720,6 +731,10 @@ struct FinishArgs {
   int32_t* row_max;
   uint8_t* row_valid;
   int32_t* min_y;         // (T max_det,) out
+  int16_t* readback;      // (T, rb + 2) out, or null: the host-rect
+                          // batch's plane (each wire run's detection
+                          // index, then the count and the steps)
+  int rb;                 // its runs: the wire's first rb
   int32_t* root_row;      // (T, R) scratch: each root's row
   uint32_t* sync;         // (T ntiles + 1,) scratch: each tile's fill
                           // done, then the ids launch's next block
@@ -945,7 +960,16 @@ __global__ void __launch_bounds__(kThreads) ids_kernel(FinishArgs a) {
     const int p = tile_slot(tile, u);
     const Slot& s = sl[u];
     const bool valid = p < r && s.valid;
-    if (p < r) a.run_comp[row0 + s.orig] = valid ? s.asc : -1;
+    if (p < r) {
+      const int comp = valid ? s.asc : -1;
+      a.run_comp[row0 + s.orig] = comp;
+      if (a.readback && s.orig < a.rb) {
+        // cv2's order, -1 for none and past max_det (det_run_idx)
+        const int id = n_comp - 1 - comp;
+        a.readback[static_cast<int64_t>(f) * (a.rb + 2) + s.orig] =
+            static_cast<int16_t>(comp >= 0 && id < a.max_det ? id : -1);
+      }
+    }
     px += valid ? static_cast<uint32_t>(s.q.lens) : 0u;
     if (!tables || flagged) continue;  // the block's lanes alike
     int e = -1;
@@ -970,7 +994,16 @@ __global__ void __launch_bounds__(kThreads) ids_kernel(FinishArgs a) {
     uint32_t total = 0;
     for (int k = 0; k < kWarps; ++k) total += s_px[k];
     atomicAdd(a.n_px + f, static_cast<int32_t>(total));
-    if (tile == 0) a.n_comp[f] = n_comp;
+    if (tile == 0) {
+      a.n_comp[f] = n_comp;
+      if (a.readback) {
+        // the count clamped to int16, the steps (the roots launch's)
+        int16_t* tail = a.readback + static_cast<int64_t>(f) * (a.rb + 2) +
+                        a.rb;
+        tail[0] = static_cast<int16_t>(min(n_comp, 32767));
+        tail[1] = static_cast<int16_t>(a.cc_steps[f]);
+      }
+    }
   }
   if (!tables || !flagged || tile != nt - 1) return;
   // a flagged frame: this block alone, the components' least rows first
@@ -1033,20 +1066,24 @@ int64_t ysmr_run_scratch_words(int t, int r, int kind) {
                            : 0);
 }
 
-// runs: (T, R) int32 wire, counts: (T,) int32; out: ends (nd, 4, T, R)
-// int32, oks (nd, 2, T, R) uint8, link (T, R) uint8 (the first dilation's
-// chain), init (T, R) int32, valid (T, R) uint8; scratch:
+// runs: (T, R) int32 wire, counts: (T,) int32; frame_valid: (T,) uint8,
+// or null, and then counts_out (T,) int32 out: the counts with the
+// invalid frames' set to 0, which the launches use; out: ends (nd, 4, T,
+// R) int32, oks (nd, 2, T, R) uint8, link (T, R) uint8 (the first
+// dilation's chain), init (T, R) int32, valid (T, R) uint8; scratch:
 // ysmr_run_scratch_words(t, r, 0) int32; nd 1 or 2 dilations d0, d1;
 // weak: the marker
 // reconstruction's init. 1 <= w <= 2^26, T <= 65535. Two launches.
 // All on CUDA device `device`, launched on `stream`. Returns a
 // cudaError_t (0 = launched).
-int ysmr_run_prepare(const void* runs, const void* counts, void* ends,
+int ysmr_run_prepare(const void* runs, const void* counts,
+                     const void* frame_valid, void* counts_out, void* ends,
                      void* oks, void* link, void* init, void* valid,
                      void* scratch, int t, int r, int w, int nd, int d0,
                      int d1, int weak, int device, void* stream) {
   if (t <= 0 || r <= 0) return 0;
-  if (nd < 1 || nd > 2 || w < 1 || w > (1 << 26) || t > 65535)
+  if (nd < 1 || nd > 2 || w < 1 || w > (1 << 26) || t > 65535 ||
+      (frame_valid && !counts_out))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1064,6 +1101,9 @@ int ysmr_run_prepare(const void* runs, const void* counts, void* ends,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   KeyArgs k;
   k.g = a.g;
+  k.fv = static_cast<const uint8_t*>(frame_valid);
+  k.counts = static_cast<int32_t*>(counts_out);
+  if (frame_valid) a.g.counts = k.counts;
   k.key_e = static_cast<int32_t*>(scratch);
   k.key_s = k.key_e + static_cast<int64_t>(t) * r;
   k.unsorted =
@@ -1124,7 +1164,10 @@ int ysmr_run_compact(const void* runs, const void* counts, const void* lab4,
 // (or null) and steps8 (T,) int32; out: run_comp (T, R), n_comp, n_px,
 // cc_steps (T,) int32; with the row tables (else null) row_min, row_max
 // (T max_det, max_bh) int32, row_valid (T max_det, max_bh) uint8 and
-// min_y (T max_det,) int32, each 16-byte aligned; scratch:
+// min_y (T max_det,) int32, each 16-byte aligned; with the readback
+// plane (else null) readback (T, rb + 2) int16, 1 <= rb <= R: each of the
+// first rb wire runs' detection index (n_comp - 1 - its id, -1 for none
+// and from max_det), then min(n_comp, 32767) and the steps; scratch:
 // ysmr_run_scratch_words(t, r, 2 with the tables, else 1) int32, 8-byte
 // aligned. R <= 2^19, T <= 65535. Two launches. Returns a cudaError_t.
 int ysmr_run_finish(const void* runs, const void* counts, const void* lab8,
@@ -1132,12 +1175,14 @@ int ysmr_run_finish(const void* runs, const void* counts, const void* lab8,
                     const void* steps4, const void* steps8, void* run_comp,
                     void* n_comp, void* n_px, void* cc_steps, void* row_min,
                     void* row_max, void* row_valid, void* min_y,
-                    void* scratch, int t, int r, int w, int max_det,
-                    int max_bh, int device, void* stream) {
+                    void* readback, void* scratch, int t, int r, int w,
+                    int max_det, int max_bh, int rb, int device,
+                    void* stream) {
   if (t <= 0 || r <= 0) return 0;
   if (w < 1 || w > (1 << 26) || r > kMaxTiles * kTile || t > 65535 ||
       (row_min && (max_det < 1 || max_bh < 1 ||
-                   static_cast<int64_t>(max_det) * max_bh > INT32_MAX)))
+                   static_cast<int64_t>(max_det) * max_bh > INT32_MAX)) ||
+      (readback && (max_det < 1 || rb < 1 || rb > r)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1162,9 +1207,11 @@ int ysmr_run_finish(const void* runs, const void* counts, const void* lab8,
         a.s.tcnt + static_cast<int64_t>(t) * a.s.ntiles);
     a.sync = reinterpret_cast<uint32_t*>(a.root_row +
                                          static_cast<int64_t>(t) * r);
-    a.max_det = max_det;
     a.max_bh = max_bh;
   }
+  a.readback = static_cast<int16_t*>(readback);
+  a.rb = rb;
+  a.max_det = max_det;
   a.t = t;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned tiles = static_cast<unsigned>(t * a.s.ntiles);

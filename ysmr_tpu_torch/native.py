@@ -1,4 +1,7 @@
-# Copied from ysmr_tpu/native.py; the import lines and the library lookup (_open_library) differ.
+# Copied from ysmr_tpu/native.py; the import lines, the library lookup
+# (_open_library) and the search for cv2's ffmpeg (_cv2_bundled_ffmpeg, which
+# also looks in the folders of cv2's other wheels, such as the headless one)
+# differ.
 #!/usr/bin/env python3
 """ctypes bindings for the native C++ runtime components (native/).
 
@@ -221,24 +224,29 @@ def _load_avdec():
     return _AVDEC
 
 
-def _cv2_bundled_ffmpeg():
-    """Paths of the libavcodec/libswscale copies cv2 ships with itself
-    (opencv_python.libs/), or (None, None).
+def _cv2_bundled_ffmpeg(site=None):
+    """Paths of the libavcodec/libswscale copies cv2 ships with itself, or
+    (None, None): those of ``opencv_python.libs/`` beside cv2's package in
+    ``site`` (cv2's site-packages by default), else those of the first
+    other ``opencv*.libs/`` folder that holds both (the headless and
+    contrib wheels name their folders after themselves).
 
     Running cv2's own ffmpeg build guarantees the exact decoder arithmetic
-    the reference sees through cv2.VideoCapture, and wheels typically carry
-    a faster build than the distro (measured 3.7 vs 4.15 ms/frame here).
-    The first-frame byte-compare in io/video.py remains the authority.
+    the reference sees through cv2.VideoCapture. The first-frame
+    byte-compare in io/video.py remains the authority.
     """
     try:
         import glob
-        import cv2
-        libs_dir = os.path.join(os.path.dirname(os.path.abspath(cv2.__file__)),
-                                '..', 'opencv_python.libs')
-        avc = sorted(glob.glob(os.path.join(libs_dir, 'libavcodec*.so*')))
-        sws = sorted(glob.glob(os.path.join(libs_dir, 'libswscale*.so*')))
-        if avc and sws:
-            return avc[-1].encode(), sws[-1].encode()
+        if site is None:
+            import cv2
+            site = os.path.dirname(os.path.dirname(os.path.abspath(
+                cv2.__file__)))
+        for libs_dir in [os.path.join(site, 'opencv_python.libs')] + sorted(
+                glob.glob(os.path.join(site, 'opencv*.libs'))):
+            avc = sorted(glob.glob(os.path.join(libs_dir, 'libavcodec*.so*')))
+            sws = sorted(glob.glob(os.path.join(libs_dir, 'libswscale*.so*')))
+            if avc and sws:
+                return avc[-1].encode(), sws[-1].encode()
     except Exception:
         pass
     return None, None

@@ -27,14 +27,16 @@ Differences from the JAX module, all of representation:
   past the table instead of JAX's dropped out-of-bounds indices.
 - The steps around the two propagations are three wrappers, each with a
   plain version made of the torch operations above: ``prepare_runs``
-  (decode, windows, links), ``compact_kept_runs`` (the compaction between
-  the propagations) and ``finish_components`` (ids, scatter, counts and,
-  for the device rects, the row tables of ``ops/labeling.py::
-  component_stats_runs``). On a CUDA tensor each launches two
-  hand-written kernels of ``csrc/run_cc.cu``, bit-equal to its plain
-  version; a CPU tensor takes the plain version. The component-sorted
-  runs (``sorted_runs``) are the plain version's only: the finish writes
-  the row tables from the unsorted runs.
+  (decode, windows, links; with ``frame_valid``, JAX's ``rc_eff`` too),
+  ``compact_kept_runs`` (the compaction between the propagations) and
+  ``finish_components`` (ids, scatter, counts and, for the device rects,
+  the row tables of ``ops/labeling.py::component_stats_runs``, or for
+  the host rects the readback plane of ``readback_plane``: JAX's
+  ``det_run_idx``, the count and the steps). On a CUDA tensor each
+  launches two hand-written kernels of ``csrc/run_cc.cu``, bit-equal to
+  its plain version; a CPU tensor takes the plain version. The
+  component-sorted runs (``sorted_runs``) are the plain version's only:
+  the finish writes the row tables from the unsorted runs.
 """
 
 import ctypes
@@ -208,16 +210,21 @@ def _iota(t, r, device):
 # ---- the three steps around the propagations, each a plain version and a
 # wrapper that routes a CUDA tensor to its launch of csrc/run_cc.cu ----
 
-def prepare_runs_plain(px_runs, run_counts, *, w, dilates, weak_init=False):
-    """Plain version of ``prepare_runs``: ``decode_runs``,
+def prepare_runs_plain(px_runs, run_counts, *, w, dilates, weak_init=False,
+                       frame_valid=None):
+    """Plain version of ``prepare_runs``: the counts of the invalid frames
+    set to 0 (``ysmr_tpu``'s ``rc_eff``), ``decode_runs``,
     ``run_windows_multi`` and ``chain_mask``."""
-    geo = _prepare(px_runs, run_counts, w=w)
+    counts = run_counts.to(_I32)
+    if frame_valid is not None:
+        counts = torch.where(frame_valid, counts, torch.zeros_like(counts))
+    geo = _prepare(px_runs, counts, w=w)
     t, r = geo['rows'].shape
     iota = _iota(t, r, px_runs.device)
     wins = run_windows_multi(geo, dilates=tuple(dilates))
     init = torch.where(geo['rmark'], iota, iota + r) if weak_init else iota
     return {'init': init, 'valid': geo['valid'], 'wins': wins,
-            'link': chain_mask(geo, wins[0])}
+            'link': chain_mask(geo, wins[0]), 'counts': counts}
 
 
 def compact_kept_runs_plain(px_runs, run_counts, lab4, win8o, *, w):
@@ -266,13 +273,14 @@ def compact_kept_runs_plain(px_runs, run_counts, lab4, win8o, *, w):
 
 def finish_components_plain(px_runs, run_counts, lab8, c_orig, n_kept,
                             steps4, steps8, *, w, sorted_runs=False,
-                            row_tables=None):
+                            row_tables=None, readback=None):
     """Plain version of ``finish_components``: the roots' ascending rank
     (a cumulative sum), the ids gathered and scattered to wire order, the
     kept pixels and, with ``sorted_runs`` or ``row_tables``, one stable
     sort of the combined key (component rank, start < 2^26; the JAX
     version sorts by the two keys); with ``row_tables`` the ids reversed
-    to cv2's order and ``labeling.run_row_tables`` of the sorted runs."""
+    to cv2's order and ``labeling.run_row_tables`` of the sorted runs;
+    with ``readback`` the host-rect plane (``readback_plane``)."""
     geo = _prepare(px_runs, run_counts, w=w)
     t, r = geo['rows'].shape
     iota = _iota(t, r, px_runs.device)
@@ -303,6 +311,9 @@ def finish_components_plain(px_runs, run_counts, lab8, c_orig, n_kept,
     cc_steps = steps8 if steps4 is None else torch.maximum(steps4, steps8)
     out = {'run_comp': run_comp, 'n_components': n_components,
            'n_px': n_px, 'cc_steps': cc_steps}
+    if readback:
+        out['readback'] = readback_plane(run_comp, n_components, cc_steps,
+                                         **_readback_sizes(readback))
     if not (sorted_runs or row_tables):
         return out
     # components contiguous, linear start ascending within: one stable
@@ -335,6 +346,35 @@ def _table_sizes(row_tables):
     return {k: int(row_tables[k]) for k in ('h', 'max_det', 'max_bh')}
 
 
+def _readback_sizes(readback):
+    """(runs, max_det) of a ``readback`` dict, as ints."""
+    return {k: int(readback[k]) for k in ('runs', 'max_det')}
+
+
+def detection_index(run_comp, n_components, max_det):
+    """(T, R) int32: each run's detection index in cv2's order,
+    ``n_components - 1 - run_comp``, and -1 where the run has no component
+    or the index reaches ``max_det`` (``ysmr_tpu``'s ``det_run_idx``
+    before its cast)."""
+    comp_rev = torch.where(run_comp >= 0, n_components[:, None] - 1 -
+                           run_comp, torch.full_like(run_comp, -1))
+    return torch.where(comp_rev < max_det, comp_rev,
+                       torch.full_like(comp_rev, -1))
+
+
+def readback_plane(run_comp, n_components, cc_steps, *, runs, max_det):
+    """The host-rect batch's readback plane, (T, runs + 2) int16: the
+    ``detection_index`` of the wire's first ``runs`` runs, then the
+    component count clamped to 32767 and the step count."""
+    if not 1 <= runs <= run_comp.shape[1] or max_det < 1:
+        raise ValueError('readback_plane: {} of {} runs, {} detections'
+                         .format(runs, run_comp.shape[1], max_det))
+    det = detection_index(run_comp, n_components, max_det)[:, :runs]
+    return torch.cat([det.to(torch.int16),
+                      n_components.clamp(max=32767)[:, None].to(torch.int16),
+                      cc_steps[:, None].to(torch.int16)], dim=1)
+
+
 def _wire_args(name, px_runs, run_counts, w, max_runs=None):
     """The wire on the card as the launches take it, or a ValueError."""
     if px_runs.device.type != 'cuda':
@@ -362,7 +402,8 @@ def _plane(name, a, shape, dtype, device):
     return a.contiguous()
 
 
-def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False):
+def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False,
+                 frame_valid=None):
     """The run graph of a batch's wire: each run's initial label, validity,
     windows into the rows above and below for each dilation, and the
     same-row links of the first dilation's windows (``decode_runs``,
@@ -377,12 +418,16 @@ def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False):
     :param dilates: one or two dilations (1 for 8-connectivity, 0 for 4)
     :param weak_init: the marker reconstruction's init (marked runs at
         their own index, the others at index + R) instead of the index
-    :return: dict of (T, R) ``init`` int32, ``valid`` bool, ``link`` bool
-        and ``wins``, one ``run_windows`` dict a dilation
+    :param frame_valid: None, or (T,) bool: the frames whose runs count
+        (the others' counts are taken as 0; the keys launch writes them)
+    :return: dict of (T, R) ``init`` int32, ``valid`` bool, ``link`` bool,
+        ``wins``, one ``run_windows`` dict a dilation, and ``counts`` (T,)
+        int32, the counts the graph was made from (the later steps' input)
     """
     if px_runs.device.type == 'cpu':
         return prepare_runs_plain(px_runs, run_counts, w=w, dilates=dilates,
-                                  weak_init=weak_init)
+                                  weak_init=weak_init,
+                                  frame_valid=frame_valid)
     name = 'prepare_runs'
     runs, counts, lib, stream = _wire_args(name, px_runs, run_counts, w)
     dilates = tuple(int(d) for d in dilates)
@@ -391,6 +436,12 @@ def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False):
     t, r = runs.shape
     dev = runs.device
     nd = len(dilates)
+    fv = counts_out = None
+    if frame_valid is not None:
+        fv = _plane(name, frame_valid, runs.shape[:1], torch.bool, dev)
+        counts_out = torch.empty((t,), dtype=_I32, device=dev)
+        if not r:   # no launch: nothing else reads the counts
+            counts_out = torch.where(fv, counts, torch.zeros_like(counts))
     ends = torch.empty((nd, 4, t, r), dtype=_I32, device=dev)
     oks = torch.empty((nd, 2, t, r), dtype=torch.bool, device=dev)
     link = torch.empty((t, r), dtype=torch.bool, device=dev)
@@ -401,7 +452,9 @@ def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False):
         scratch = torch.empty(lib.ysmr_run_scratch_words(t, r, 0),
                               dtype=_I32, device=dev)
         rc = lib.ysmr_run_prepare(
-            runs.data_ptr(), counts.data_ptr(), ends.data_ptr(),
+            runs.data_ptr(), counts.data_ptr(),
+            None if fv is None else fv.data_ptr(),
+            None if fv is None else counts_out.data_ptr(), ends.data_ptr(),
             oks.data_ptr(), link.data_ptr(), init.data_ptr(),
             valid.data_ptr(), scratch.data_ptr(), t, r, w, nd, dilates[0],
             dilates[-1], int(bool(weak_init)), dev.index, stream)
@@ -410,7 +463,8 @@ def prepare_runs(px_runs, run_counts, *, w, dilates, weak_init=False):
     wins = [{'lo_up': ends[k, 0], 'hi_up': ends[k, 1], 'lo_dn': ends[k, 2],
              'hi_dn': ends[k, 3], 'ok_up': oks[k, 0], 'ok_dn': oks[k, 1]}
             for k in range(nd)]
-    return {'init': init, 'valid': valid, 'wins': wins, 'link': link}
+    return {'init': init, 'valid': valid, 'wins': wins, 'link': link,
+            'counts': counts if fv is None else counts_out}
 
 
 #: runs a frame that the compact and finish launches of csrc/run_cc.cu take
@@ -475,11 +529,13 @@ def compact_kept_runs(px_runs, run_counts, lab4, win8o, *, w):
 
 
 def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
-                      steps8, *, w, sorted_runs=False, row_tables=None):
+                      steps8, *, w, sorted_runs=False, row_tables=None,
+                      readback=None):
     """The step after the 8-connected propagation: component ids (the
     ascending raster rank of each component's root run), scattered back to
     wire order, the component and kept-pixel counts, the larger step count
-    and, with ``row_tables``, the row tables of the device rects.
+    and, with ``row_tables``, the row tables of the device rects; with
+    ``readback``, the host-rect batch's readback plane.
 
     On a CPU tensor ``finish_components_plain``; on a CUDA tensor two
     launches of ``csrc/run_cc.cu`` (the roots, then the ids with the
@@ -495,13 +551,17 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
         None; ``steps8``: those of the 8-connected one
     :param row_tables: None, or a dict of the frame height ``h`` and the
         capacities ``max_det`` and ``max_bh``
+    :param readback: None, or a dict of ``runs`` (1 to R: the wire's runs
+        the plane holds) and ``max_det`` (as ``row_tables``' where both
+        are asked for)
     :return: the ``run_cc_components`` dict
     """
     if px_runs.device.type == 'cpu':
         return finish_components_plain(px_runs, run_counts, lab8, c_orig,
                                        n_kept, steps4, steps8, w=w,
                                        sorted_runs=sorted_runs,
-                                       row_tables=row_tables)
+                                       row_tables=row_tables,
+                                       readback=readback)
     name = 'finish_components'
     if sorted_runs:
         raise ValueError('{}: the component-sorted runs have no kernel (the '
@@ -538,6 +598,19 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
                   torch.empty(shape, dtype=torch.bool, device=dev),
                   torch.empty((t * max_det,), dtype=_I32, device=dev)]
         out.update(zip(TABLE_KEYS, tables))
+    plane = None
+    rb = 0
+    if readback:
+        sizes = _readback_sizes(readback)
+        rb = sizes['runs']
+        if not 1 <= rb <= r or sizes['max_det'] < 1 or \
+                (row_tables and sizes['max_det'] != max_det):
+            raise ValueError('{}: a readback plane of {} of {} runs and {} '
+                             'detections (the row tables\' {})'.format(
+                                 name, rb, r, sizes['max_det'], max_det))
+        max_det = sizes['max_det']
+        plane = torch.empty((t, rb + 2), dtype=torch.int16, device=dev)
+        out['readback'] = plane
     if t and r:
         # each tile's words of root bits and its count; with the tables
         # each root's row
@@ -552,12 +625,15 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
             runs.data_ptr(), counts.data_ptr(), lab8.data_ptr(),
             ptr(c_orig), ptr(n_kept), ptr(steps4), steps8.data_ptr(),
             run_comp.data_ptr(), ptr(counts_out, 0), ptr(counts_out, 1),
-            ptr(counts_out, 2), *(ptr(a) for a in tables),
-            scratch.data_ptr(), t, r, w, max_det, max_bh, dev.index, stream)
+            ptr(counts_out, 2), *(ptr(a) for a in tables), ptr(plane),
+            scratch.data_ptr(), t, r, w, max_det, max_bh, rb, dev.index,
+            stream)
         _build.check(lib, rc, 'run finish kernel launch')
         finish_components.launches += 1
         if row_tables:
             finish_components.row_table_launches += 1
+        if readback:
+            finish_components.readback_launches += 1
     return out
 
 
@@ -565,8 +641,9 @@ def finish_components(px_runs, run_counts, lab8, c_orig, n_kept, steps4,
 prepare_runs.launches = 0
 compact_kept_runs.launches = 0
 finish_components.launches = 0
-#: ... of them with the row tables
+#: ... of them with the row tables, and with the readback plane
 finish_components.row_table_launches = 0
+finish_components.readback_launches = 0
 
 
 def label_runs(px_runs, run_counts, *, w, connectivity=8, max_iters=64):
@@ -599,29 +676,33 @@ def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64):
 
 
 def _components(px_runs, run_counts, w, double_threshold, max_iters,
-                sorted_runs, row_tables, prepare, compact, finish):
+                sorted_runs, row_tables, readback, frame_valid, prepare,
+                compact, finish):
     prop = _make_prop()
     steps4 = c_orig = n_kept = None
     if double_threshold:
         # both connectivities' windows in one pass; the 8-conn windows are
         # remapped onto the compacted table
         g = prepare(px_runs, run_counts, w=w, dilates=(0, 1),
-                    weak_init=True)
+                    weak_init=True, frame_valid=frame_valid)
         lab4, steps4 = prop(g['init'], g['wins'][0], g['link'],
                             max_iters=max_iters)
-        c = compact(px_runs, run_counts, lab4, g['wins'][1], w=w)
+        c = compact(px_runs, g['counts'], lab4, g['wins'][1], w=w)
         init8, win8, link8 = c['init'], c['win'], c['link']
         c_orig, n_kept = c['c_orig'], c['n_kept']
     else:
-        g = prepare(px_runs, run_counts, w=w, dilates=(1,))
+        g = prepare(px_runs, run_counts, w=w, dilates=(1,),
+                    frame_valid=frame_valid)
         init8, win8, link8 = g['init'], g['wins'][0], g['link']
     lab8, steps8 = prop(init8, win8, link8, max_iters=max_iters)
-    return finish(px_runs, run_counts, lab8, c_orig, n_kept, steps4, steps8,
-                  w=w, sorted_runs=sorted_runs, row_tables=row_tables)
+    return finish(px_runs, g['counts'], lab8, c_orig, n_kept, steps4, steps8,
+                  w=w, sorted_runs=sorted_runs, row_tables=row_tables,
+                  readback=readback)
 
 
 def run_cc_components(px_runs, run_counts, *, w, double_threshold,
-                      max_iters=64, sorted_runs=False, row_tables=None):
+                      max_iters=64, sorted_runs=False, row_tables=None,
+                      readback=None, frame_valid=None):
     """Full detect labeling on run tables: reconstruction + 8-conn CC.
 
     Optional marker reconstruction (4-connected, keep mask components that
@@ -639,6 +720,11 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
         capacities ``max_det`` and ``max_bh``: also return the row tables
         of the device rects, ``labeling.run_row_tables`` of the sorted
         runs with ids reversed to cv2's order (``TABLE_KEYS``)
+    :param readback: None, or a dict of ``runs`` and ``max_det``: also
+        return ``readback``, the host-rect batch's plane
+        (``readback_plane``), which the finish writes
+    :param frame_valid: None, or (T,) bool: the runs of the other frames
+        do not count (``ysmr_tpu``'s ``rc_eff``; the prepare takes it)
     :return: dict with
         ``run_comp`` (T, R) int32 — ascending component id per ORIGINAL
         wire run (-1 = dropped by reconstruction / invalid),
@@ -649,22 +735,25 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
         kept runs ordered by (component id, linear start), padding slots
         with len 0 and component -1 at the end; with ``row_tables`` also
         ``row_min_x, row_max_x`` (T*max_det, max_bh) int32, ``row_valid``
-        (T*max_det, max_bh) bool and ``min_y`` (T*max_det,) int32.
+        (T*max_det, max_bh) bool and ``min_y`` (T*max_det,) int32; with
+        ``readback`` also ``readback`` (T, runs + 2) int16.
     """
     return _components(px_runs, run_counts, w, double_threshold, max_iters,
-                       sorted_runs, row_tables, prepare_runs,
-                       compact_kept_runs, finish_components)
+                       sorted_runs, row_tables, readback, frame_valid,
+                       prepare_runs, compact_kept_runs, finish_components)
 
 
 def run_cc_components_plain(px_runs, run_counts, *, w, double_threshold,
                             max_iters=64, sorted_runs=False,
-                            row_tables=None):
+                            row_tables=None, readback=None,
+                            frame_valid=None):
     """Plain version of ``run_cc_components``: the plain steps around the
     propagation wrapper (the kernel on a CUDA tensor, whose labels the
     plain propagation gives at its fixpoint)."""
     return _components(px_runs, run_counts, w, double_threshold, max_iters,
-                       sorted_runs, row_tables, prepare_runs_plain,
-                       compact_kept_runs_plain, finish_components_plain)
+                       sorted_runs, row_tables, readback, frame_valid,
+                       prepare_runs_plain, compact_kept_runs_plain,
+                       finish_components_plain)
 
 
 def det_px_from_runs(px_runs, run_counts, comp_rev_run, *, f, max_det):

@@ -11,7 +11,10 @@ Counterpart of ``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels``:
   without ``skip_rect`` measures on the device (``_stats_outputs_runs``:
   the row-extreme tables, which run-CC's finish writes, hull edges, the
   exact minimum-area rect and, with ``cv2_centers``, cv2's bit-exact f32
-  centers);
+  centers); the host-rect path of ``track_bacteria`` passes
+  ``readback_runs`` instead and gets the one int16 plane it copies to the
+  host (the per-run indices, the count and the steps), which run-CC's
+  finish writes;
 - the pixel-table branch (``run cc = off``, ``wire format = pixels``, and
   luminosity, which bypasses run CC): the wire is decoded to (T, F) pixel
   tables (the run wire expanded, the packed uint32 wire, or the split
@@ -43,7 +46,8 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
                        gray_frames=None, use_table=False, px_packed=None,
                        return_det_px=False, skip_rect=False, px_runs=None,
                        run_counts=None, expanded_f=None, use_run_cc=False,
-                       det_px_as_runs=False, cv2_centers=False):
+                       det_px_as_runs=False, cv2_centers=False,
+                       readback_runs=None):
     """Detection tables from a batch's pixel wire (the JAX function's
     signature, without ``use_pallas``).
 
@@ -70,6 +74,12 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
     :param skip_rect: return no device rects (``det_xy``/``det_info``
         zeros; ``det_xy`` (T, max_det, 3) with the pixel-mean luminosity);
         ignored when the exact rect luminosity needs the device rect
+    :param readback_runs: None, or on the run-CC branch the host-rect
+        batch's read-back width: return only ``readback`` (T,
+        readback_runs + 2) int16 (``ops/run_cc.py::readback_plane``: the
+        first runs' ``det_run_idx``, the clamped count, the steps), which
+        run-CC's finish writes, with ``n_components`` and ``cc_steps``;
+        the other output flags are then ignored
     :return: dict with ``det_xy`` (T, max_det, K) (K = 3 with luminosity),
         ``det_info`` (T, max_det, 3) [w, h, angle], ``det_valid``
         (T, max_det), ``n_components`` (T,) int32 and ``cc_steps`` (T,)
@@ -89,7 +99,11 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
                               return_det_px=return_det_px,
                               skip_rect=skip_rect,
                               det_px_as_runs=det_px_as_runs,
-                              cv2_centers=cv2_centers)
+                              cv2_centers=cv2_centers,
+                              readback_runs=readback_runs)
+    if readback_runs is not None:
+        raise ValueError('detect_from_pixels: readback_runs needs the run '
+                         'wire with use_run_cc and no luminosity')
     n = h * w
     if px_runs is not None or px_packed is not None:
         if px_runs is not None:
@@ -215,32 +229,37 @@ def _compact_ids(lab_fg, keep, lin):
 
 def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
                    double_threshold, max_det, max_bh, cc_iters, expanded_f,
-                   return_det_px, skip_rect, det_px_as_runs, cv2_centers):
+                   return_det_px, skip_rect, det_px_as_runs, cv2_centers,
+                   readback_runs):
     """The run-CC branch: labels on the run tables (``ops/run_cc.py``)."""
-    rc_eff = torch.where(frame_valid, run_counts.to(_I32),
-                         torch.zeros_like(run_counts, dtype=_I32))
+    kw = dict(w=w, double_threshold=double_threshold, max_iters=cc_iters,
+              frame_valid=frame_valid)
+    if readback_runs is not None:
+        # the host-rect batch: run-CC's finish writes what the host reads
+        cc_out = rcc.run_cc_components(
+            px_runs, run_counts,
+            readback=dict(runs=readback_runs, max_det=max_det), **kw)
+        return {k: cc_out[k] for k in ('readback', 'n_components',
+                                       'cc_steps')}
     row_tables = None if skip_rect else dict(h=h, max_det=max_det,
                                              max_bh=max_bh)
-    cc_out = rcc.run_cc_components(px_runs, rc_eff, w=w,
-                                   double_threshold=double_threshold,
-                                   max_iters=cc_iters, row_tables=row_tables)
+    cc_out = rcc.run_cc_components(px_runs, run_counts,
+                                   row_tables=row_tables, **kw)
     n_components = cc_out['n_components']
     det_px = det_run = None
     if return_det_px:
-        run_comp = cc_out['run_comp']
-        comp_rev = torch.where(run_comp >= 0,
-                               n_components[:, None] - 1 - run_comp,
-                               torch.full_like(run_comp, -1))
+        det_idx = rcc.detection_index(cc_out['run_comp'], n_components,
+                                      max_det)
         if det_px_as_runs:
             # a run is horizontally contiguous foreground, so every pixel
             # of a run belongs to one component and the per-run index
             # carries the whole per-pixel assignment (the host expands it
             # against the run table it encoded)
-            det_run = torch.where(comp_rev < max_det, comp_rev,
-                                  torch.full_like(comp_rev, -1)).to(
-                                      torch.int16)
+            det_run = det_idx.to(torch.int16)
         else:
-            det_px = rcc.det_px_from_runs(px_runs, rc_eff, comp_rev,
+            rc_eff = torch.where(frame_valid, run_counts.to(_I32),
+                                 torch.zeros_like(run_counts, dtype=_I32))
+            det_px = rcc.det_px_from_runs(px_runs, rc_eff, det_idx,
                                           f=expanded_f,
                                           max_det=max_det).to(torch.int16)
     if not skip_rect:

@@ -567,25 +567,26 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         per pixel on the pixel table); returns the staged batch."""
         marks = [('start', event())] if on_cuda else []
         host, kw = upload(data, frame_valid)
-        tables = detect(kw, return_det_px=True, skip_rect=True,
-                        det_px_as_runs=use_run_cc)
-        if on_cuda:
-            marks.append(('detect', event()))
         f_bucket = min(host['fcap'], max(
             256, _next_pow2(int(host['counts'].max()) if count else 1)))
-        if use_run_cc:
-            det = tables['det_run_idx'][:, :min(
-                host['runs'].shape[1], max(64, _next_pow2(
-                    int(host['run_counts'].max()) if count else 1)))]
-        else:
-            det = tables['det_px_idx'][:, :f_bucket]
         # one int16 buffer per batch: the detection indices, then the
         # component count (clamped; only '> max_det' is read) and the
         # propagation step count as two extra columns
-        fused = torch.cat(
-            [det, tables['n_components'].clamp(max=32767)[:, None].to(
-                torch.int16),
-             tables['cc_steps'][:, None].to(torch.int16)], dim=1)
+        if use_run_cc:
+            # run-CC's finish writes it, for the runs the host encoded
+            fused = detect(kw, readback_runs=min(
+                host['runs'].shape[1], max(64, _next_pow2(
+                    int(host['run_counts'].max()) if count else 1))))[
+                        'readback']
+        else:
+            tables = detect(kw, return_det_px=True, skip_rect=True)
+            fused = torch.cat(
+                [tables['det_px_idx'][:, :f_bucket],
+                 tables['n_components'].clamp(max=32767)[:, None].to(
+                     torch.int16),
+                 tables['cc_steps'][:, None].to(torch.int16)], dim=1)
+        if on_cuda:
+            marks.append(('detect', event()))
         if 'px_packed' in data:
             packed = data['px_packed']
         else:       # the split wire: lin from the coordinates
