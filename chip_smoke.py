@@ -87,19 +87,24 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    list, F no multiple of the tile); median ms of each and the bound;
 13. the bench scene in memory with ``wire format = pixels`` and with ``run
    cc = off`` (the pixel-table branch): ``_list.csv`` byte-identical to
-   the run-wire path's of phase 4;
+   the run-wire path's of phase 4, the pixel finish once a batch;
 14. luminosity on the bench MJPG clip through ``track_bacteria(path)``
    with GSFF (host rects feeding the device tracker in 3-D), its first 64
    frames without GSFF (the float64 tracker): ILLUMINATION against cv2's
    recipe on 1500 sampled rows, the GSFF rows against the same
    detections' values; the scene in memory (stage split); ``cuda`` against
-   ``cpu`` on 16 frames, byte-identical;
+   ``cpu`` on 16 frames, byte-identical; in both clip runs the rect mean
+   (``csrc/luminosity.cu``) once a host-rect finish and the pixel finish
+   (``csrc/pixel_finish.cu``) once a batch;
 15. luminosity on the dense clip (device rects and tracker), the
    ILLUMINATION check on the first batch's detections, the scene in
    memory (stage split), ``cuda`` against ``cpu`` on 16 frames, and the
-   dense scene with the pixel wire byte-identical to the run wire's;
-16. frames-mode luminosity on the bench scene in memory, and ``cuda``
-   against ``cpu`` on 16 frames, byte-identical;
+   dense scene with the pixel wire byte-identical to the run wire's; the
+   rect mean and the pixel finish once a batch in the clip run, the finish
+   once a batch with the pixel wire;
+16. frames-mode luminosity on the bench scene in memory (the rect mean
+   once a batch, the pixel finish never), and ``cuda`` against ``cpu`` on
+   16 frames, byte-identical;
 17. dense exact mode: the dense capacities with ``cv2 exact rects max
    detections = 4096``, so the dense scene goes through run-CC on the
    card, the host rects and the float64 tracker: in memory (stage split),
@@ -321,19 +326,31 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    ``bench_data/bench_clip_list.csv.gz`` and byte-identical to the other
    exact runs, the striped run on min(2, batches) stripes, the fast run on
    the demuxer within 4 tracks and 1% of rows of the exact runs, run-CC
-   and its readback plane once a batch in every run.
+   and its readback plane once a batch in every run;
+36. the luminosity paths' two kernels against their plain versions on the
+   card, bit-equal: the rect mean (``csrc/luminosity.cu``) on the bench
+   batch's host rects (uint8 gray), the dense and frames-mode batches'
+   device rects (uint8 and int32 gray) and the edge cases of the root
+   module ``lum_cases.py`` (windows of 16 to 64, clipped windows, zero
+   sides, exact angles, int32 gray, a frame smaller than the window); the
+   pixel finish (``csrc/pixel_finish.cu``) on the bench luminosity wire's
+   labels (the host-rect plane) and the dense one's (the row tables) and
+   on the edge cases in every combination of outputs; ms, plain ms and
+   bound of each, and the kernels' registers, spills, shared memory and
+   occupancy (a ``lum kernels resources`` line).
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (eighteen kernels:
+The last three lines are the ``kernels`` JSON record (twenty kernels:
 the seven TPU kernels' ports, the adaptive mean and the fused preprocess
 around it, the GSFF step, the frame step, the cv2 centres, the edge
 finish, the rect select, the compaction, run-CC's steps around the
-propagation and mean mode's prepare and masks, each with its bound and
-the library call where one exists),
+propagation, mean mode's prepare and masks, the rect mean and the pixel
+finish, each with its bound and the library call where one exists),
 ``nvidia-smi``'s card name and power limit, and the result JSON.
 """
 
 import configparser
+import functools
 import inspect
 import json
 import logging
@@ -364,6 +381,7 @@ from ysmr_tpu_torch.ops import assignment, cc, labeling, rect, run_cc
 from ysmr_tpu_torch.ops import cv2_centers as cv2c
 from ysmr_tpu_torch.ops import frame_step as fs
 from ysmr_tpu_torch.ops import gsff as gsff_ops
+from ysmr_tpu_torch.ops import luminosity as lum_ops
 from ysmr_tpu_torch.ops import preprocess as pp
 from ysmr_tpu_torch.ops.assign import row_min_argmin
 from ysmr_tpu_torch.ops.gsff import GSFFParams
@@ -475,6 +493,9 @@ class MemoryReader:
         self.height, self.width = frames[0].shape
         self.fps = float(FPS)
         self.frame_count = len(frames)
+        #: the prefetch thread's wall and CPU seconds spent making batches
+        #: (not waiting for room in the queue)
+        self.produce_s = self.produce_cpu_s = 0.0
 
     def _batches(self):
         bs = self.batch_size
@@ -504,9 +525,15 @@ class MemoryReader:
         q = queue.Queue(maxsize=self.prefetch)
 
         def work():
-            for b in self._batches():
+            batches = self._batches()
+            while True:
+                t0, c0 = time.perf_counter(), time.thread_time()
+                b = next(batches, None)
+                self.produce_s += time.perf_counter() - t0
+                self.produce_cpu_s += time.thread_time() - c0
                 q.put(b)
-            q.put(None)
+                if b is None:
+                    break
 
         thread = threading.Thread(target=work, daemon=True)
         thread.start()
@@ -774,6 +801,8 @@ def run_loop(scene_frames, settings, device, name):
                       device=torch.device(device), stats=stats)
     if res is None:
         raise SystemExit('stage-1 loop on {} returned None'.format(device))
+    stats['reader_s'] = {'produce': reader.produce_s,
+                         'produce_cpu': reader.produce_cpu_s}
     with open(list_name, 'rb') as f:
         return res, f.read(), stats
 
@@ -2023,6 +2052,7 @@ def phase_pixel_wires(frames, settings, run_bytes):
                        ('runcc_off', {'run cc': 'off'})):
         torch.cuda.synchronize()
         cc.cc_labels_at_pixels.launches = 0
+        cc.pixel_finish.launches = 0
         _, got, stats = run_loop(frames, {**settings, **extra}, 'cuda',
                                  'wire_' + key)
         torch.cuda.synchronize()
@@ -2033,6 +2063,9 @@ def phase_pixel_wires(frames, settings, run_bytes):
         if launches <= 0:
             raise SystemExit('{}: the pixel kernel was never launched'.format(
                 extra))
+        if cc.pixel_finish.launches != n_batches(len(frames), settings):
+            raise SystemExit('{}: the pixel finish ran {} times, not once a '
+                             'batch'.format(extra, cc.pixel_finish.launches))
         log('bench scene in memory with {} (cuda): rows {} tracks {} fps '
             '{:.2f}, byte-identical to the run-wire path; pixel kernel '
             'launches {}; stage split (ms/frame): {}'.format(
@@ -2155,7 +2188,10 @@ def phase_lum_bench(frames, settings):
     df, launches, fps = track_clip(
         'lum_clip', os.path.join(WORK, 'bench_clip.avi'), lset,
         (cc.cc_labels_at_pixels, row_min_argmin, gsff_ops.register_and_step,
-         fs.match_and_register))
+         fs.match_and_register, lum_ops.rect_mean_luminosity,
+         cc.pixel_finish))
+    lum_gate('bench clip with luminosity and GSFF', launches,
+             n_batches(N_FRAMES, lset), n_batches(N_FRAMES, lset))
     log('bench clip with luminosity and GSFF via track_bacteria(path) on '
         'cuda: rows {} tracks {} {:.2f} fps end to end (decode included), '
         'kernel launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(),
@@ -2164,7 +2200,9 @@ def phase_lum_bench(frames, settings):
     off, off_launches, off_fps = track_clip(
         'lum_clip64', clip64, {**lset, 'disable gsff': True,
                                'minimal frame count': 32},
-        (cc.cc_labels_at_pixels,))
+        (cc.cc_labels_at_pixels, lum_ops.rect_mean_luminosity,
+         cc.pixel_finish))
+    lum_gate('bench clip64 without GSFF', off_launches, 1, 1)
     log('its first 64 frames without GSFF (float64 tracker, dims 3): rows '
         '{} tracks {} {:.2f} fps, kernel launches {}'.format(
             off.shape[0], off['TRACK_ID'].nunique(), off_fps,
@@ -2202,7 +2240,10 @@ def phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev):
     df, launches, fps = track_clip(
         'lum_dense_clip', os.path.join(WORK, 'dense_clip.avi'), lset,
         (cc.cc_labels_at_pixels, hull_edge_vectors, sweep_extents,
-         row_min_argmin, gsff_ops.register_and_step, fs.match_and_register))
+         row_min_argmin, gsff_ops.register_and_step, fs.match_and_register,
+         lum_ops.rect_mean_luminosity, cc.pixel_finish))
+    lum_gate('dense clip with luminosity', launches,
+             n_batches(DENSE_FRAMES, lset), n_batches(DENSE_FRAMES, lset))
     log('dense clip with luminosity via track_bacteria(path) on cuda: rows '
         '{} tracks {} {:.2f} fps end to end (decode included), kernel '
         'launches {}'.format(df.shape[0], df['TRACK_ID'].nunique(), fps,
@@ -2232,12 +2273,17 @@ def phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev):
     cuda_vs_cpu('dense luminosity', dframes, lset)
     torch.cuda.synchronize()
     cc.cc_labels_at_pixels.launches = 0
+    cc.pixel_finish.launches = 0
     _, got, stats = run_loop(dframes, {**dsettings, 'wire format': 'pixels'},
                              'cuda', 'dense_wire_pixels')
     torch.cuda.synchronize()
     if got != dense_bytes:
         raise SystemExit('dense scene: the pixel wire _list.csv differs from '
                          'the run wire')
+    if cc.pixel_finish.launches != n_batches(len(dframes), dsettings):
+        raise SystemExit('dense scene, pixel wire: the pixel finish ran {} '
+                         'times, not once a batch'.format(
+                             cc.pixel_finish.launches))
     log('dense scene in memory with the pixel wire (cuda): rows {} fps '
         '{:.2f}, byte-identical to the run-wire path; pixel kernel launches '
         '{}; stage split (ms/frame): {}'.format(
@@ -2252,9 +2298,15 @@ def phase_lum_frames(frames, settings):
     fset = {**settings, **FRAMES, **LUM}
     torch.cuda.synchronize()
     reset_frames_launches()
+    lum_ops.rect_mean_luminosity.launches = 0
+    cc.pixel_finish.launches = 0
     res, got, stats = run_loop(frames, fset, 'cuda', 'lum_frames')
     torch.cuda.synchronize()
     launches = frames_launches('frames mode with luminosity')
+    lum_gate('frames mode with luminosity', {
+        'rect_mean_luminosity': lum_ops.rect_mean_luminosity.launches,
+        'pixel_finish': cc.pixel_finish.launches},
+        n_batches(len(frames), fset), 0)
     if not np.isfinite(res[0]['ILLUMINATION'].to_numpy()).all():
         raise SystemExit('frames mode with luminosity: non-finite values')
     log('frames mode with luminosity, bench scene in memory (cuda): rows {} '
@@ -5146,6 +5198,324 @@ def phase_decode_modes(settings, smi):
          for k, v in summary.items()})))
 
 
+# ---- the luminosity paths' kernels: the rect mean and the pixel finish ----
+
+
+def lum_wire(scene, settings, t=64):
+    """The split pixel wire that luminosity takes (int16 x and y, uint8
+    marker; zero past each frame's count) and the uint8 gray frames of the
+    scene's first ``t`` frames, as the host threshold writes them; the
+    pixel counts; whether the rule is the double threshold."""
+    pre = HostPreprocessor({**settings, **LUM}, FPS,
+                           max_fg=settings['max foreground pixels per frame'])
+    wire = {k: [] for k in ('px_x', 'px_y', 'px_marker', 'gray')}
+    counts = np.zeros(t, np.int32)
+    for i in range(t):
+        tab = pre(scene.frame(i))
+        counts[i] = tab['count']
+        for k, rows in wire.items():
+            a = np.array(tab[k])
+            if k != 'gray':
+                a[counts[i]:] = 0
+            rows.append(a)
+    return ({k: np.stack(v) for k, v in wire.items()}, counts,
+            pre.mode == 'adaptive_double')
+
+
+def lum_detect_kw(wire, counts, double, settings, dev):
+    """``detect_from_pixels``' keywords for a split wire on the card."""
+    t = len(counts)
+    return dict({k: torch.from_numpy(wire[k]).to(dev)
+                 for k in ('px_x', 'px_y', 'px_marker')},
+                frame_valid=torch.ones(t, dtype=torch.bool, device=dev),
+                px_counts=torch.from_numpy(counts).to(dev), h=H, w=W,
+                double_threshold=double,
+                max_det=settings['max detections per frame'],
+                max_bh=settings['max bounding box height'],
+                cc_iters=MAX_ITERS)
+
+
+def pixel_bucket(counts, f):
+    """``stage_detect``'s width of the plane it copies: the next power of
+    two above the largest count, at least 256, at most F."""
+    return min(f, max(256, 1 << max(int(counts.max()) - 1, 1).bit_length()))
+
+
+def host_rects(wire, counts, kw):
+    """The host-rect path's rects of a batch: the detect's per-pixel
+    indices read back and measured by the native cv2 recipe, as
+    ``finish_detect`` measures them; (T, max_det, 5) float32 (0 where
+    invalid) and (T, max_det) bool."""
+    out = detect_from_pixels(**kw, return_det_px=True, skip_rect=True)
+    fb = pixel_bucket(counts, wire['px_x'].shape[1])
+    det = np.ascontiguousarray(out['det_px_idx'][:, :fb].cpu().numpy())
+    packed = wire['px_y'][:, :fb].astype(np.uint32) * np.uint32(W) + \
+        wire['px_x'][:, :fb].astype(np.uint32)
+    rects, rvalid = native.cv2_rects_batch(np.ascontiguousarray(packed),
+                                           counts, det, W, kw['max_det'])
+    return np.where(rvalid[..., None], rects, np.float32(0)), rvalid
+
+
+def captured_lum_call(fn):
+    """The arguments (gray, cx, cy, w, h, angle, valid) and ``win`` of the
+    first ``rect_mean_luminosity`` call inside ``fn()`` (not counted)."""
+    from ysmr_tpu_torch.ops import luminosity as lum_ops
+    real = lum_ops.rect_mean_luminosity
+    seen = []
+
+    @functools.wraps(real)
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+    lum_ops.rect_mean_luminosity = spy
+    try:
+        fn()
+    finally:
+        lum_ops.rect_mean_luminosity = real
+    args, kwargs = seen[0]
+    return args, kwargs.get('win', 48)
+
+
+def lum_batches(dev):
+    """The rect mean's inputs at the main path's shapes, as (name, args,
+    win), args = (gray, cx, cy, w, h, angle, valid): the bench batch's
+    host rects (uint8 gray, (64, 512) slots, the host-rect finish), the
+    dense batch's device rects (uint8, (64, 4096)) and the frames-mode
+    bench batch's device rects (int32 gray, (64, 512))."""
+    out = []
+    settings = bench_settings()
+    wire, counts, double = lum_wire(BenchScene(), settings)
+    kw = lum_detect_kw(wire, counts, double, settings, dev)
+    rects, rvalid = host_rects(wire, counts, kw)
+    r = torch.from_numpy(np.ascontiguousarray(np.moveaxis(rects, -1, 0)))
+    r = r.to(dev)
+    out.append(('bench host rects', (torch.from_numpy(wire['gray']).to(dev),
+                                     *r, torch.from_numpy(rvalid).to(dev)),
+                settings.get('luminosity window size', 48)))
+    dsettings = dense_settings()
+    dwire, dcounts, ddouble = lum_wire(
+        BenchScene(seed=DENSE_SEED, n_bugs=DENSE_BUGS), dsettings)
+    dkw = lum_detect_kw(dwire, dcounts, ddouble, dsettings, dev)
+    dgray = torch.from_numpy(dwire['gray']).to(dev)
+    out.append(('dense device rects', *captured_lum_call(
+        lambda: detect_from_pixels(**dkw, include_luminosity=True,
+                                   gray_frames=dgray, lum_win=48,
+                                   cv2_centers=True))))
+    cfg = detect.DetectorConfig({**settings, **FRAMES, **LUM})
+    scene = BenchScene()
+    bgr = bgr_batch([scene.frame(i) for i in range(64)], dev)
+    valid = torch.ones(64, dtype=torch.bool, device=dev)
+    out.append(('frames-mode bench device rects', *captured_lum_call(
+        lambda: detect.detect_batch(bgr, valid, cfg))))
+    return out
+
+
+def pixel_lists(kw):
+    """The pixel-table branch's lists of a split wire as
+    ``detect_from_pixels`` makes them: int32 x and y, the valid prefix
+    (count and frame validity) and the marker."""
+    px_x, px_y = kw['px_x'].to(torch.int32), kw['px_y'].to(torch.int32)
+    f = px_x.shape[1]
+    valid = (torch.arange(f, dtype=torch.int32, device=px_x.device)[None, :]
+             < kw['px_counts'].to(torch.int32)[:, None]) & \
+        kw['frame_valid'][:, None]
+    return px_x, px_y, valid, kw['px_marker'].to(torch.int32) > 0
+
+
+def finish_batches(dev):
+    """The pixel finish's inputs at the main path's shapes, as (name,
+    (lab_fg, keep, px_x, px_y, valid), keywords): the bench luminosity
+    batch's host-rect plane (its ``stage_detect`` width) and the dense
+    luminosity batch's row tables."""
+    out = []
+    for name, settings, scene, mode in (
+            ('bench host-rect plane', bench_settings(), BenchScene(),
+             'readback'),
+            ('dense row tables', dense_settings(),
+             BenchScene(seed=DENSE_SEED, n_bugs=DENSE_BUGS), 'row_tables')):
+        wire, counts, double = lum_wire(scene, settings)
+        kw = lum_detect_kw(wire, counts, double, settings, dev)
+        px_x, px_y, valid, marker = pixel_lists(kw)
+        lab_fg, keep = cc.cc_labels_at_pixels(
+            px_x, px_y, valid, marker, h=H, w=W, double_threshold=double,
+            max_iters=MAX_ITERS)
+        mode_kw = dict(h=H, w=W)
+        if mode == 'readback':
+            mode_kw['readback'] = dict(f=pixel_bucket(counts, px_x.shape[1]),
+                                       max_det=kw['max_det'])
+        else:
+            mode_kw['row_tables'] = dict(max_det=kw['max_det'],
+                                         max_bh=kw['max_bh'])
+        out.append((name, (lab_fg, keep, px_x, px_y, valid), mode_kw))
+    return out
+
+
+def finish_torch_passes(args, h, w, readback=None, row_tables=None):
+    """The torch sequence the pixel finish replaces, on its inputs and
+    with its keywords: the dense ids (``_compact_ids``), then the
+    host-rect plane (``stage_detect``'s slice, casts and concatenation)
+    or the row tables (``component_stats``' tables). Where the checkout
+    has the finish's plain version, that; else the sequence as
+    ``detect_pixels`` ran it."""
+    if hasattr(cc, 'pixel_finish_plain'):
+        return cc.pixel_finish_plain(*args, h=h, w=w, readback=readback,
+                                     row_tables=row_tables)
+    from ysmr_tpu_torch.pipeline import detect_pixels as dp
+    lab_fg, keep, px_x, px_y, valid = args
+    lin = torch.where(valid, px_y * w + px_x, torch.full_like(px_x, h * w))
+    comp, n_comp = dp._compact_ids(lab_fg, keep, lin)
+    out = {'n_components': n_comp}
+    if readback is not None:
+        det = torch.where(keep & (comp < readback['max_det']), comp,
+                          torch.full_like(comp, -1)).to(torch.int16)
+        out['readback'] = torch.cat(
+            [det[:, :readback['f']],
+             n_comp.clamp(max=32767)[:, None].to(torch.int16),
+             torch.zeros_like(n_comp)[:, None].to(torch.int16)], dim=1)
+    if row_tables is not None:
+        max_det = row_tables['max_det']
+        seg = torch.where(keep, torch.clamp(comp, max=max_det),
+                          torch.full_like(comp, max_det))
+        t, f = seg.shape
+        frame = torch.arange(t, device=seg.device)[:, None].expand(t, f)
+        rows = labeling._row_tables(
+            frame.reshape(-1), px_x.reshape(-1), px_y.reshape(-1),
+            seg.reshape(-1).long(), t, max_det=max_det,
+            max_bh=row_tables['max_bh'])
+        out.update(zip(('row_min_x', 'row_max_x', 'row_valid', 'min_y'),
+                       rows))
+    return out
+
+
+def lum_gate(what, launches, batches, finish_batches):
+    """The luminosity paths' two kernels were launched once a detect batch:
+    the rect mean ``batches`` times (one a host-rect finish or device-rect
+    detect), the pixel finish ``finish_batches`` times (one a pixel-table
+    batch)."""
+    want = {'rect_mean_luminosity': batches, 'pixel_finish': finish_batches}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise SystemExit('{}: launches {} of the luminosity kernels, not the '
+                         '{} of one a batch'.format(what, got, want))
+
+
+def n_batches(n_frames, settings):
+    return -(-n_frames // settings['frame batch size'])
+
+
+def rect_mean_bytes(args, win):
+    """The bytes a rect-mean call's data needs: each member pixel's gray
+    once, the slots' rect and flag in and their mean out."""
+    from ysmr_tpu_torch.ops import luminosity as lum_ops
+    members = int(lum_ops._window_sums(*args, win=win)[1].sum())
+    slots = args[1].numel()
+    return members * args[0].element_size() + slots * (5 * 4 + 1 + 4), \
+        members
+
+
+def finish_bytes(args, out):
+    """The bytes a pixel-finish call moves: the lists (labels, x, y int32,
+    keep and valid bytes) in once, its outputs out once."""
+    return args[0].numel() * 14 + sum(v.numel() * v.element_size()
+                                      for v in out.values())
+
+
+def phase_lum_kernels(dev):
+    """Phase 36: the luminosity paths' kernels against their plain
+    versions on the card. The rect mean (``csrc/luminosity.cu``) on the
+    bench batch's host rects, the dense and the frames-mode batches' device
+    rects and on ``lum_cases.py``'s edge cases; the pixel finish
+    (``csrc/pixel_finish.cu``) on the bench and dense luminosity wires'
+    labels (the host-rect plane, the row tables) and on the edge cases in
+    every combination of outputs; ms, bound, registers and occupancy of
+    each. Returns the (max_abs_err, ms, plain_ms, bound) checks of the
+    dense batch's rect mean and the dense tables' finish."""
+    import lum_cases
+    from ysmr_tpu_torch.ops import luminosity as lum_ops
+    t0 = time.perf_counter()
+    checks = {}
+    batches = lum_batches(dev)
+    finishes = finish_batches(dev)
+    for name, args, win in batches:
+        nbytes, members = rect_mean_bytes(args, win)
+        valid = int(args[6].sum())
+        check = check_equal(
+            'rect_mean_luminosity {} T={} D={} gray {} ({} valid, {} member '
+            'pixels)'.format(name, *args[1].shape,
+                             str(args[0].dtype).split('.')[-1], valid,
+                             members),
+            lambda *a: (lum_ops.rect_mean_luminosity(*a, win=win),),
+            lambda *a: (lum_ops.rect_mean_luminosity_plain(*a, win=win),),
+            args, ops=valid * 40, nbytes=nbytes, reps=20, plain_reps=3)
+        checks['rect ' + name] = check
+    for case in lum_cases.RECT_CASES:
+        gray, params, valid, win = lum_cases.rect_case(case)
+        args = [torch.from_numpy(gray).to(dev)] + \
+            [torch.from_numpy(p).to(dev) for p in params] + \
+            [torch.from_numpy(valid).to(dev)]
+        if not torch.equal(lum_ops.rect_mean_luminosity(*args, win=win),
+                           lum_ops.rect_mean_luminosity_plain(*args,
+                                                              win=win)):
+            raise SystemExit('rect mean kernel != plain on case ' + case)
+    log('rect mean kernel bit-equal to its plain version on the {} edge '
+        'cases of lum_cases.py'.format(len(lum_cases.RECT_CASES)))
+    for name, fargs, kw in finishes:
+        out = cc.pixel_finish(*fargs, **kw)
+        check = check_equal(
+            'pixel_finish {} T={} F={}'.format(name, *fargs[0].shape),
+            lambda *a: tuple(cc.pixel_finish(*a, **kw).values()),
+            lambda *a: tuple(cc.pixel_finish_plain(*a, **kw).values()),
+            fargs, ops=fargs[0].numel(), nbytes=finish_bytes(fargs, out),
+            reps=20, plain_reps=3)
+        checks['finish ' + name] = check
+    n_modes = 0
+    for case in lum_cases.FINISH_CASES:
+        c = lum_cases.finish_case(case)
+        t = {k: torch.from_numpy(c[k]).to(dev)
+             for k in ('px_x', 'px_y', 'valid', 'marker')}
+        lab, keep = cc.cc_labels_at_pixels(
+            t['px_x'], t['px_y'], t['valid'], t['marker'], h=c['h'],
+            w=c['w'], double_threshold=c['double_threshold'])
+        fargs = (lab, keep, t['px_x'], t['px_y'], t['valid'])
+        plane = dict(f=c['plane_f'], max_det=c['max_det'])
+        tables = dict(max_det=c['max_det'], max_bh=c['max_bh'])
+        for mode in (dict(ids=True, readback=plane, row_tables=tables),
+                     dict(readback=plane), dict(row_tables=tables), {}):
+            got = cc.pixel_finish(*fargs, h=c['h'], w=c['w'], **mode)
+            want = cc.pixel_finish_plain(*fargs, h=c['h'], w=c['w'], **mode)
+            if set(got) != set(want) or not all(
+                    torch.equal(got[k], want[k]) for k in want):
+                raise SystemExit('pixel finish kernel != plain on case {} '
+                                 '{}'.format(case, sorted(mode)))
+            n_modes += 1
+    log('pixel finish kernel bit-equal to its plain version on the {} edge '
+        'cases of lum_cases.py ({} calls)'.format(
+            len(lum_cases.FINISH_CASES), n_modes))
+    lib = _build.load_kernels()
+    resources = {}
+    _, dense_args, dense_win = batches[1]
+    dense_finish = finishes[1]
+    for source, kernel, threads, fn in (
+            ('luminosity.cu', 'rect_mean_kernel', 256,
+             lambda: lum_ops.rect_mean_luminosity(*dense_args,
+                                                  win=dense_win)),
+            ('pixel_finish.cu', 'finish_roots', 256,
+             lambda: cc.pixel_finish(*dense_finish[1], **dense_finish[2])),
+            ('pixel_finish.cu', 'finish_ids', 256,
+             lambda: cc.pixel_finish(*dense_finish[1], **dense_finish[2]))):
+        ptx = ptxas_of(lib.build_log, source, kernel)
+        regs, spill, smem = ptx if ptx else (None, None, None)
+        resources[kernel] = {
+            'registers': regs, 'spill_bytes': spill, 'smem_bytes': smem,
+            'resident_share': None if regs is None else
+            round(resident_share(regs, smem, threads), 4),
+            'achieved_occupancy': achieved_occupancy(fn, kernel)}
+    log('lum kernels resources {}'.format(json.dumps(resources)))
+    log('phase 36 (the rect mean and the pixel finish) took {:.1f} s'.format(
+        time.perf_counter() - t0))
+    return checks['rect dense device rects'], checks['finish dense row tables']
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -5203,6 +5573,7 @@ def main():
         mean_prepare_check, mean_masks_check, mean_runs = phase_mean_mode(
             scene, settings, frames, dframes, dev)
         phase_decode_modes(settings, smi)
+        lum_check, finish_check = phase_lum_kernels(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -5286,6 +5657,18 @@ def main():
         'mean_masks', 'ysmr_tpu_torch/csrc/adaptive_mean.cu',
         'ysmr_tpu/ops/preprocess.py:105 global_threshold and & frame_valid '
         '(plain XLA)', mean_runs['mean_masks'], mean_masks_check))
+    # the luminosity paths' kernels on the bench clip with luminosity and
+    # GSFF (phase 14: one each a batch); the times are phase 36's dense
+    # batch's
+    records.append(kernel_record(
+        'rect_mean_luminosity', 'ysmr_tpu_torch/csrc/luminosity.cu',
+        'ysmr_tpu/ops/luminosity.py:113 rect_mean_luminosity (plain XLA)',
+        lum_launches['rect_mean_luminosity'], lum_check))
+    records.append(kernel_record(
+        'pixel_finish', 'ysmr_tpu_torch/csrc/pixel_finish.cu',
+        'ysmr_tpu/pipeline/detect_pixels.py:273 compact_ids and the row '
+        'tables of ysmr_tpu/ops/labeling.py:381 component_stats (plain XLA)',
+        lum_launches['pixel_finish'], finish_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -6,7 +6,7 @@ checkouts in turns.
 Run from the root of a checkout::
 
     python3 dense_detect_times.py [--roots DIR,DIR,...] [--passes 3]
-        [--batches dense,bench]
+        [--batches dense,bench,lum_bench,lum_dense]
 
 ``--roots`` lists checkouts in the order to run them (default: this one),
 e.g. ``.scratch/parent,.,.,.scratch/parent`` after unpacking the other
@@ -24,8 +24,29 @@ capacities on the host-rect path: run-CC and the int16 plane that
 ``stage_detect`` copies to the host (``readback_runs``: the first runs'
 detection index, the count and the steps, which run-CC's finish writes;
 in a checkout from before it, ``skip_rect`` and ``det_px_as_runs``
-followed by ``stage_detect``'s slice, casts and concatenation). Each
-batch's record holds:
+followed by ``stage_detect``'s slice, casts and concatenation).
+
+The luminosity batches take the split pixel wire that luminosity uses
+(int16 x and y, uint8 marker, with the uint8 gray frames; it never enters
+run-CC) of the same first 64 frames (smoke ``lum_wire``). ``lum_bench``
+is the host-rect path at the bench capacities: the detect and the int16
+plane ``stage_detect`` copies (``readback_pixels``, which the pixel
+finish writes; in a checkout from before it, ``return_det_px`` and
+``skip_rect`` followed by ``stage_detect``'s slice, casts and
+concatenation), then ``det_xy_with_rect_lum`` on the batch's host rects
+(measured once beforehand by the native cv2 recipe, as ``finish_detect``
+measures them): their upload, the rect mean and the [cx, cy, lum]
+stack. ``lum_dense`` is the dense path with luminosity: device rects,
+cv2 centres and the exact rect mean of the gray frames. Both add the
+steps ``pixel labels`` (``cc_labels_at_pixels``), ``pixel finish``
+(``cc.pixel_finish``, or ``_compact_ids`` before it), ``component_stats``
+(the row tables' torch sequence before the finish wrote them) and
+``rect mean`` (``rect_mean_luminosity``), and a ``rect_mean`` record of
+the rect mean called alone on the arguments the batch gave it: device
+operations and ms, CUDA-event ms and host synchronisations. Every
+batch's record holds ``detect_syncs``, the host synchronisations of one
+call (the warnings of ``torch.cuda.set_sync_debug_mode``). Each batch's
+record holds:
 
 - ``detect_ms``: median host-clock ms (card synchronised; 10 calls after
   2 warm-ups) of the whole call, and ``device_ops`` / ``device_ms``: its
@@ -97,7 +118,13 @@ STEPS = (('run-CC', 'rcc', ('run_cc_components',)),
          ('sweep', 'sweep', ('sweep_extents',)),
          ('rect select', 'lb', ('min_area_rect', 'rect_from_tables')),
          ('cv2 centres', 'dp', ('_cv2_center_override',)),
-         ('output', 'dp', ('detections_from_tables',)))
+         ('output', 'dp', ('detections_from_tables',)),
+         ('pixel labels', 'cc', ('cc_labels_at_pixels',)),
+         ('pixel finish', 'dp', ('_compact_ids',)),
+         ('pixel finish', 'cc', ('pixel_finish',)),
+         ('component_stats', 'lb', ('component_stats',)),
+         ('rect mean', 'lum', ('rect_mean_luminosity',)))
+STEP_NAMES = tuple(dict.fromkeys(s[0] for s in STEPS))
 
 
 def _sync():
@@ -110,6 +137,8 @@ def _setup(root, dev, batch):
     import chip_smoke as cs
     from ysmr_tpu_torch.pipeline import detect_pixels as dp
     os.makedirs(cs.WORK, exist_ok=True)
+    if batch.startswith('lum_'):
+        return _setup_lum(cs, dp, dev, batch)
     if batch == 'dense':
         settings = cs.dense_settings()
         scene = cs.BenchScene(seed=cs.DENSE_SEED, n_bugs=cs.DENSE_BUGS)
@@ -152,6 +181,113 @@ def _setup(root, dev, batch):
                  out['cc_steps'][:, None].to(torch.int16)], dim=1)}
         return dp, call, kw
     return dp, lambda: dp.detect_from_pixels(**kw), kw
+
+
+def _setup_lum(cs, dp, dev, batch):
+    """The luminosity batches (see the module docstring)."""
+    from ysmr_tpu_torch import native
+    from ysmr_tpu_torch.ops import luminosity as lum
+    if batch == 'lum_dense':
+        settings = cs.dense_settings()
+        scene = cs.BenchScene(seed=cs.DENSE_SEED, n_bugs=cs.DENSE_BUGS)
+    else:
+        settings = cs.bench_settings()
+        scene = cs.BenchScene()
+    pre = cs.HostPreprocessor({**settings, **cs.LUM}, cs.FPS,
+                              max_fg=settings['max foreground pixels per '
+                                              'frame'])
+    tabs = [pre(scene.frame(i)) for i in range(64)]
+    counts = np.array([tb['count'] for tb in tabs], np.int32)
+    wire = {}
+    for k in ('px_x', 'px_y', 'px_marker'):
+        wire[k] = np.stack([tb[k] for tb in tabs])
+        wire[k][np.arange(wire[k].shape[1])[None, :] >= counts[:, None]] = 0
+    gray = torch.from_numpy(np.stack([tb['gray'] for tb in tabs])).to(dev)
+    t = len(counts)
+    kw = dict({k: torch.from_numpy(v).to(dev) for k, v in wire.items()},
+              frame_valid=torch.ones(t, dtype=torch.bool, device=dev),
+              px_counts=torch.from_numpy(counts).to(dev), h=cs.H, w=cs.W,
+              double_threshold=pre.mode == 'adaptive_double',
+              max_det=settings['max detections per frame'],
+              max_bh=settings['max bounding box height'],
+              cc_iters=settings['connected components max iterations'])
+    if batch == 'lum_dense':
+        kw.update(include_luminosity=True, gray_frames=gray, lum_win=48,
+                  cv2_centers=True)
+        return dp, lambda: dp.detect_from_pixels(**kw), kw
+    f = wire['px_x'].shape[1]
+    fb = min(f, max(256, 1 << max(int(counts.max()) - 1, 1).bit_length()))
+    plane = 'readback_pixels' in inspect.signature(
+        dp.detect_from_pixels).parameters
+
+    def detect():
+        if plane:
+            return dp.detect_from_pixels(**kw, readback_pixels=fb)['readback']
+        out = dp.detect_from_pixels(**kw, return_det_px=True, skip_rect=True)
+        return torch.cat(
+            [out['det_px_idx'][:, :fb],
+             out['n_components'].clamp(max=32767)[:, None].to(torch.int16),
+             out['cc_steps'][:, None].to(torch.int16)], dim=1)
+
+    det = np.ascontiguousarray(detect().cpu().numpy()[:, :-2])
+    packed = wire['px_y'][:, :fb].astype(np.uint32) * np.uint32(cs.W) + \
+        wire['px_x'][:, :fb].astype(np.uint32)
+    rects, rvalid = native.cv2_rects_batch(
+        np.ascontiguousarray(packed), counts, det, cs.W, kw['max_det'])
+    rects = np.where(rvalid[..., None], rects, np.float32(0))
+    # finish_detect's layout of the rects it uploads: the checkout's own
+    # (contiguous columns where its rect mean asks for them)
+    columns = hasattr(lum, 'rect_mean_luminosity_plain')
+    if columns:
+        rects = np.moveaxis(rects, -1, 0)
+
+    def call():
+        readback = detect()
+        r = torch.from_numpy(np.ascontiguousarray(rects)).to(
+            dev, non_blocking=True)
+        v = torch.from_numpy(rvalid).to(dev, non_blocking=True)
+        if columns:
+            lum_v = lum.rect_mean_luminosity(gray, *r, v, win=48)
+            xy = torch.stack([r[0], r[1], lum_v], dim=-1)
+        else:
+            lum_v = lum.rect_mean_luminosity(
+                gray, r[..., 0], r[..., 1], r[..., 2], r[..., 3], r[..., 4],
+                v, win=48)
+            xy = torch.cat([r[..., :2], lum_v[..., None]], dim=-1)
+        return {'readback': readback, 'det_xy': xy}
+    return dp, call, kw
+
+
+def _syncs(fn):
+    """The host synchronisations of one call of ``fn``: the warnings
+    ``torch.cuda.set_sync_debug_mode('warn')`` raises in it."""
+    import warnings
+    fn()
+    _sync()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def cs_ms(fn, reps=20):
+    """Median CUDA-event ms of ``fn()`` after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def _host_ms(fn, reps=10):
@@ -302,18 +438,22 @@ def measure(root, passes, batch='dense', dev='cuda'):
         dev_ms.append(sum(e.time_range.elapsed_us() for e in evs) / 1e3)
     rec['device_ops'] = int(np.median(ops))
     rec['device_ms'] = float(np.median(dev_ms))
+    rec['detect_syncs'] = _syncs(call)
     mods = {'dp': dp}
-    from ysmr_tpu_torch.ops import hull, sweep
+    from ysmr_tpu_torch.ops import cc, hull, sweep
     from ysmr_tpu_torch.ops import labeling as lb
+    from ysmr_tpu_torch.ops import luminosity as lum
     from ysmr_tpu_torch.ops import run_cc as rcc
     from ysmr_tpu_torch.ops import run_prop
-    mods.update(lb=lb, rcc=rcc, hull=hull, sweep=sweep, prop=run_prop)
+    mods.update(lb=lb, rcc=rcc, hull=hull, sweep=sweep, prop=run_prop, cc=cc,
+                lum=lum)
     steps = STEPS + ((PROP, 'prop', ('propagate_min_fused',)),)
     wrapped = [(name, mods[m], f) for name, m, names in steps
                for f in names if hasattr(mods[m], f)]
     saved = [(mod, f, getattr(mod, f)) for _, mod, f in wrapped]
     for (name, mod, f), (_, _, fn) in zip(wrapped, saved):
         setattr(mod, f, _wrap(fn, name))
+    lum_args = []
     try:
         def wrapped_call():
             _sync()
@@ -321,7 +461,15 @@ def measure(root, passes, batch='dense', dev='cuda'):
                 out = call()
                 _sync()
             return out
+        seen = lum.rect_mean_luminosity
+
+        @functools.wraps(seen)
+        def spy(*args, **kwargs):
+            lum_args.append((args, kwargs))
+            return seen(*args, **kwargs)
+        lum.rect_mean_luminosity = spy
         got = wrapped_call()
+        lum.rect_mean_luminosity = seen
         for key in want:
             if not torch.equal(want[key], got[key]):
                 raise SystemExit('the split differs from the call in '
@@ -335,25 +483,47 @@ def measure(root, passes, batch='dense', dev='cuda'):
             subs.append(sub)
             kerns.append(kernels)
         # run-CC alone on the same wire, without the sorted runs or tables
-        cc_kw = dict(w=kw['w'], double_threshold=kw['double_threshold'],
-                     max_iters=kw['cc_iters'])
-        rc_eff = kw['run_counts'].to(torch.int32)
         alone = []
-        for _ in range(passes):
-            with profile(activities=acts) as prof:
-                rcc.run_cc_components(kw['px_runs'], rc_eff, **cc_kw)
-                _sync()
-            alone.append(_split(prof)[1])
+        if 'px_runs' in kw:
+            cc_kw = dict(w=kw['w'], double_threshold=kw['double_threshold'],
+                         max_iters=kw['cc_iters'])
+            rc_eff = kw['run_counts'].to(torch.int32)
+            for _ in range(passes):
+                with profile(activities=acts) as prof:
+                    rcc.run_cc_components(kw['px_runs'], rc_eff, **cc_kw)
+                    _sync()
+                alone.append(_split(prof)[1])
     finally:
         for mod, f, fn in saved:
             setattr(mod, f, fn)
-    rec['split'] = _medians(runs, ['detect'] + [s[0] for s in STEPS])
+    if lum_args:
+        # the rect mean alone on the arguments the batch gave it
+        args, kwargs = lum_args[0]
+
+        def lum_call():
+            return lum.rect_mean_luminosity(*args, **kwargs)
+        ops, dev_ms = [], []
+        for _ in range(passes):
+            _sync()
+            with profile(activities=acts) as prof:
+                lum_call()
+                _sync()
+            evs = _device_events(prof)
+            ops.append(len(evs))
+            dev_ms.append(sum(e.time_range.elapsed_us() for e in evs) / 1e3)
+        rec['rect_mean'] = {
+            'slots': list(args[1].shape), 'valid': int(args[6].sum()),
+            'gray': str(args[0].dtype), 'device_ops': int(np.median(ops)),
+            'device_ms': float(np.median(dev_ms)),
+            'event_ms': cs_ms(lum_call), 'syncs': _syncs(lum_call)}
+    rec['split'] = _medians(runs, ('detect',) + STEP_NAMES)
     keys = ('device_ops', 'device_ms')
     rec['run_cc'] = _medians(subs, SUB_STEPS, keys)
     rec['run_cc_kernels'] = {
         k[:60]: round(float(np.median([c.get(k, 0.0) for c in kerns])), 4)
         for k in sorted(set().union(*kerns))}
-    rec['run_cc_alone'] = _medians(alone, SUB_STEPS, keys)
+    if alone:
+        rec['run_cc_alone'] = _medians(alone, SUB_STEPS, keys)
     return rec
 
 
@@ -364,7 +534,8 @@ def main():
     ap.add_argument('--passes', type=int, default=3,
                     help='profiled passes per checkout (medians)')
     ap.add_argument('--batches', default='dense,bench',
-                    help='comma-separated batches: dense, bench')
+                    help='comma-separated batches: dense, bench, lum_bench, '
+                    'lum_dense')
     ap.add_argument('--one', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -6,7 +6,7 @@ times of one or more checkouts in turns.
 Run from the root of a checkout::
 
     python3 frames_mode_times.py [--roots DIR,DIR,...] [--split]
-        [--split-root DIR] [--mode adaptive|mean]
+        [--split-root DIR] [--mode adaptive|mean] [--lum]
 
 ``--roots`` lists checkouts in the order to run them (default: this one),
 e.g. ``.scratch/parent,.,.,.scratch/parent`` after unpacking the other
@@ -69,6 +69,16 @@ rect + output as above; a checkout from before the mean-mode kernels
 splits into "gray", "blur", "sums", "host thresholds" (its four copies)
 and "threshold" (``global_threshold`` and ``& frame_valid``) in their
 place, with this script.
+
+``--lum`` adds ``include luminosity in tracking calculation`` (smoke
+phase 16's frames mode): the detect's numbers as above with the gray
+frames and the exact rect mean, a ``rect_mean`` record of the rect mean
+called alone on the arguments the detect gave it (its slots, device
+operations and ms, CUDA-event ms and host synchronisations),
+``bench_fps`` and ``device_detect_ms`` with luminosity, and no
+multi-video call; its ``--split`` takes the gray from the fused
+preprocess and nests "rect mean" (``rect_mean_luminosity``) in "rect +
+output".
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
 
@@ -93,13 +103,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MEAN = {'adaptive double threshold': -1.0}
 
 
-def _setup(root, mode='adaptive'):
+def _setup(root, mode='adaptive', lum=False):
     sys.path.insert(0, os.path.abspath(root))
     import chip_smoke as cs
     from ysmr_tpu_torch.pipeline import detect
     os.makedirs(cs.WORK, exist_ok=True)
     settings = {**cs.bench_settings(), **cs.FRAMES,
-                **(MEAN if mode == 'mean' else {})}
+                **(MEAN if mode == 'mean' else {}),
+                **(cs.LUM if lum else {})}
     scene = cs.BenchScene()
     bgr = np.stack([cv2.cvtColor(scene.frame(t), cv2.COLOR_GRAY2BGR)
                     for t in range(64)])
@@ -164,14 +175,42 @@ def _syncs(fn):
     return sum('synchroniz' in str(w.message) for w in caught)
 
 
-def measure(root, mode='adaptive'):
+def _rect_mean_alone(run_detect):
+    """The rect mean called alone on the arguments ``run_detect`` gave
+    it: its slots, device operations and ms, CUDA-event ms and host
+    synchronisations."""
+    from ysmr_tpu_torch.ops import luminosity as lum
+    real = lum.rect_mean_luminosity
+    seen = []
+
+    @functools.wraps(real)
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+    lum.rect_mean_luminosity = spy
+    try:
+        run_detect()
+    finally:
+        lum.rect_mean_luminosity = real
+    args, kwargs = seen[0]
+
+    def call():
+        return lum.rect_mean_luminosity(*args, **kwargs)
+    ops, ms = _device_profile(call)
+    import chip_smoke as cs
+    return {'slots': list(args[1].shape), 'valid': int(args[6].sum()),
+            'gray': str(args[0].dtype), 'device_ops': ops, 'device_ms': ms,
+            'event_ms': cs.cuda_ms(call, reps=20), 'syncs': _syncs(call)}
+
+
+def measure(root, mode='adaptive', lum=False):
     """The JSON record of one checkout (see the module docstring)."""
-    cs, detect, settings, scene, bgr, valid = _setup(root, mode)
+    cs, detect, settings, scene, bgr, valid = _setup(root, mode, lum)
     from ysmr_tpu_torch.ops import preprocess as pp
     from ysmr_tpu_torch.parallel.multi_video import track_videos_sharded
     from ysmr_tpu_torch.pipeline.track_bacteria import track_bacteria
     cfg = detect.DetectorConfig(settings)
-    rec = {'root': root, 'mode': mode}
+    rec = {'root': root, 'mode': mode, 'lum': lum}
 
     def run_detect():
         return detect.detect_batch(bgr, valid, cfg,
@@ -180,6 +219,14 @@ def measure(root, mode='adaptive'):
     rec['detect_ms'] = _host_ms(run_detect)
     rec['detect_ops'], rec['detect_device_ms'] = _device_profile(run_detect)
     rec['detect_syncs'] = _syncs(run_detect)
+    if lum:
+        rec['rect_mean'] = _rect_mean_alone(run_detect)
+        frames = [scene.frame(t) for t in range(cs.N_FRAMES)]
+        _, _, stats = cs.run_loop(frames, settings, 'cuda', 'times_lum')
+        rec['bench_fps'] = stats['fps']
+        rec['device_detect_ms'] = stats['stage_s']['device_detect'] / \
+            stats['frames'] * 1e3
+        return rec
     if mode == 'mean':
         if hasattr(pp, 'mean_prepare_from_bgr'):
             blurred, sums, _ = pp.mean_prepare_from_bgr(bgr)
@@ -280,12 +327,13 @@ def _mean_steps(cfg, pp, bgr, valid, st):
             valid[:, None, None])))
 
 
-def split(root, mode='adaptive'):
+def split(root, mode='adaptive', lum=False):
     """The per-step device operations and times of a warm 64-frame detect
     (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    cs, detect, settings, _, bgr, valid = _setup(root, mode)
+    cs, detect, settings, _, bgr, valid = _setup(root, mode, lum)
     from ysmr_tpu_torch.ops import cc, hull, sweep
+    from ysmr_tpu_torch.ops import luminosity as lum_ops
     from ysmr_tpu_torch.ops import labeling as lb
     from ysmr_tpu_torch.ops import preprocess as pp
     from ysmr_tpu_torch.pipeline.detect_pixels import detections_from_tables
@@ -293,12 +341,14 @@ def split(root, mode='adaptive'):
     if cfg.mode not in ('adaptive_double', 'mean'):
         raise SystemExit('the split follows the adaptive double threshold '
                          'or mean mode')
+    if lum and cfg.mode == 'mean':
+        raise SystemExit('the split takes luminosity in the adaptive modes')
     st = {}
 
     def masks():
-        st['mask'], st['markers'], _ = pp.adaptive_masks_from_bgr(
+        st['mask'], st['markers'], st['gray'] = pp.adaptive_masks_from_bgr(
             bgr, valid, cfg.mode, cfg.offset, cfg.double_delta,
-            cfg.white_on_dark)
+            cfg.white_on_dark, **({'want_gray': True} if lum else {}))
 
     # a checkout whose labeling hands the compaction its packed mask
     packs = 'return_bits' in inspect.signature(
@@ -333,11 +383,14 @@ def split(root, mode='adaptive'):
             *st['rows'], **tail_kw))),
         ('rect + output', lambda: st.update(out=detections_from_tables(
             st['tables'], 64, max_det=cfg.max_det, max_bh=cfg.max_bh,
-            n_components=st['n']))),
+            n_components=st['n'], **({'gray_frames': st['gray'],
+                                      'lum_win': cfg.lum_win} if lum
+                                     else {})))),
     )
     nested = ((hull, 'hull_edge_vectors', 'hull'),
               (lb, '_hull_edge_data', 'edge finish'),
-              (sweep, 'sweep_extents', 'sweep'))
+              (sweep, 'sweep_extents', 'sweep'),
+              (lum_ops, 'rect_mean_luminosity', 'rect mean'))
 
     def in_window(fn, name):
         """``fn`` inside the step's window; its attributes (a kernel
@@ -428,21 +481,26 @@ def main():
     ap.add_argument('--mode', choices=('adaptive', 'mean'),
                     default='adaptive', help='the threshold mode: the '
                     'adaptive double threshold or mean-threshold mode')
+    ap.add_argument('--lum', action='store_true',
+                    help='with luminosity (the gray frames and the exact '
+                    'rect mean)')
     ap.add_argument('--one', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('no CUDA device: this script measures the card')
     if args.one:
-        print(json.dumps(measure(args.one, args.mode)), flush=True)
+        print(json.dumps(measure(args.one, args.mode, args.lum)), flush=True)
         return
     if args.split:
         root = os.path.abspath(args.split_root)
-        print(json.dumps({'root': root, 'mode': args.mode,
-                          'split': split(root, args.mode)}), flush=True)
+        print(json.dumps({'root': root, 'mode': args.mode, 'lum': args.lum,
+                          'split': split(root, args.mode, args.lum)}),
+              flush=True)
     for root in filter(None, args.roots.split(',')):
         root = os.path.abspath(root)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               '--one', root, '--mode', args.mode], cwd=root,
+                               '--one', root, '--mode', args.mode] +
+                              (['--lum'] if args.lum else []), cwd=root,
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit('{} failed:\n{}'.format(root, proc.stderr[-4000:]))

@@ -60,12 +60,28 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   on the dense scene's with the device rects' stats tables, the run
   wire's R bucket: in a checkout whose finish writes the row tables, its
   six launches of ``csrc/run_cc.cu`` around ``csrc/run_prop.cu``'s and
-  the stats tail; before, the sorted runs and ``component_stats_runs``.
+  the stats tail; before, the sorted runs and ``component_stats_runs``;
+- ``lum``: the luminosity paths' two steps at the smoke's inputs (phase
+  36's): ``rect_mean_luminosity`` on the bench batch's host rects (uint8
+  gray, 64 x 512 slots), the dense batch's device rects (64 x 4096) and
+  the frames-mode bench batch's (int32 gray), and its plain version
+  where the checkout has one (the torch passes, which are the whole
+  function in a checkout from before the kernel); the pixel finish on
+  the luminosity wires' labels, the bench batch's host-rect plane and
+  the dense batch's row tables: ``cc.pixel_finish`` where the checkout
+  has it, and the torch sequence it replaces (``pixel_finish_plain``, or
+  before it ``_compact_ids`` and the plane's concatenation or
+  ``component_stats``' tables).
 
 With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
 3000 rods) in memory through the stage-1 loop N times, the device path
 whose tracker launches the assign kernel once per frame step, and N times
 in dense exact mode (host rects and the float64 tracker); with
+``--lum-e2e N`` the in-memory runs of smoke phases 14-16 (luminosity:
+the bench scene with GSFF, host rects feeding the device tracker; the
+dense scene, device rects; the bench scene in frames mode), N times
+each (every in-memory run also prints its reader's prefetch thread's
+wall and CPU time making batches, ms a frame); with
 ``--e2e N`` the bench scene on the run wire, the dense scene and the bench
 scene in frames mode, N times each (frames/s of each).
 
@@ -88,7 +104,7 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GROUPS = ('run_prop', 'cc', 'rects', 'tail', 'pixels', 'assign', 'gsff',
-          'frame_step', 'preprocess', 'mean', 'compact', 'run_cc')
+          'frame_step', 'preprocess', 'mean', 'compact', 'run_cc', 'lum')
 
 
 def parse_args():
@@ -103,6 +119,10 @@ def parse_args():
                     help='also run the bench scene (run wire), the dense '
                     'scene and the bench scene in frames mode in memory N '
                     'times each (frames/s)')
+    ap.add_argument('--lum-e2e', type=int, default=0, metavar='N',
+                    help='also run smoke phases 14-16\'s scenes in memory '
+                    '(luminosity: bench with GSFF, dense, frames mode) N '
+                    'times each (frames/s and stage split)')
     ap.add_argument('--dense-e2e', type=int, default=0, metavar='N',
                     help='also run the dense scene in memory through the '
                     'stage-1 loop N times, and N times in dense exact mode '
@@ -493,6 +513,29 @@ def trace_run_cc(smoke, args, dev):
             call, args.reps, smoke)
 
 
+def trace_lum(smoke, args, dev):
+    from ysmr_tpu_torch.ops import cc
+    from ysmr_tpu_torch.ops import luminosity as lum
+    for name, largs, win in smoke.lum_batches(dev):
+        label = '{} T={} D={} gray {} win {}'.format(
+            name, *largs[1].shape, str(largs[0].dtype).split('.')[-1], win)
+        trace('rect_mean_luminosity ' + label,
+              lambda: lum.rect_mean_luminosity(*largs, win=win), args.reps,
+              smoke)
+        if hasattr(lum, 'rect_mean_luminosity_plain'):
+            trace('rect_mean_luminosity_plain ' + label,
+                  lambda: lum.rect_mean_luminosity_plain(*largs, win=win),
+                  args.reps, smoke)
+    for name, fargs, kw in smoke.finish_batches(dev):
+        label = '{} T={} F={}'.format(name, *fargs[0].shape)
+        if hasattr(cc, 'pixel_finish'):
+            trace('pixel_finish ' + label,
+                  lambda: cc.pixel_finish(*fargs, **kw), args.reps, smoke)
+        trace('pixel finish torch passes ' + label,
+              lambda: smoke.finish_torch_passes(fargs, **kw), args.reps,
+              smoke)
+
+
 def end_to_end(smoke, args):
     """The smoke's scenes in memory through the stage-1 loop on cuda:
     frames/s and stage split of each run."""
@@ -504,6 +547,19 @@ def end_to_end(smoke, args):
         runs += [('bench scene, run wire', frames, settings, args.e2e),
                  ('bench scene, frames mode', frames,
                   {**settings, **smoke.FRAMES}, args.e2e)]
+    if args.lum_e2e:
+        scene = smoke.BenchScene()
+        frames = [scene.frame(t) for t in range(smoke.N_FRAMES)]
+        settings = {**smoke.bench_settings(), **smoke.LUM}
+        dscene = smoke.BenchScene(seed=smoke.DENSE_SEED,
+                                  n_bugs=smoke.DENSE_BUGS)
+        dframes = [dscene.frame(t) for t in range(smoke.DENSE_FRAMES)]
+        runs += [('bench scene with luminosity and GSFF (phase 14)', frames,
+                  settings, args.lum_e2e),
+                 ('dense scene with luminosity (phase 15)', dframes,
+                  {**smoke.dense_settings(), **smoke.LUM}, args.lum_e2e),
+                 ('bench scene, frames mode with luminosity (phase 16)',
+                  frames, {**settings, **smoke.FRAMES}, args.lum_e2e)]
     n_dense = max(args.e2e, args.dense_e2e)
     if n_dense:
         scene = smoke.BenchScene(seed=smoke.DENSE_SEED,
@@ -521,9 +577,15 @@ def end_to_end(smoke, args):
         for i in range(n):
             _, _, stats = smoke.run_loop(frames, settings, 'cuda',
                                          'trace_e2e')
+            reader = ''
+            if 'reader_s' in stats:
+                # the prefetch thread's time making batches (wall, CPU)
+                reader = '; reader (ms/frame): {}'.format(json.dumps({
+                    k: round(v / stats['frames'] * 1e3, 4)
+                    for k, v in stats['reader_s'].items()}))
             print('{} in memory run {}: {:.2f} frames/s, stage split '
-                  '(ms/frame): {}'.format(name, i, stats['fps'],
-                                          smoke.per_frame(stats)),
+                  '(ms/frame): {}{}'.format(name, i, stats['fps'],
+                                            smoke.per_frame(stats), reader),
                   flush=True)
 
 
@@ -550,7 +612,7 @@ def main():
                'frame_step': trace_frame_step,
                'preprocess': trace_preprocess, 'mean': trace_mean,
                'compact': trace_compact,
-               'run_cc': trace_run_cc}
+               'run_cc': trace_run_cc, 'lum': trace_lum}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

@@ -205,6 +205,14 @@ def load_kernels():
     lib.ysmr_edge_finish.argtypes = [vp] * 10 + [ll, ci, ci, vp]
     lib.ysmr_rect_select.restype = ci
     lib.ysmr_rect_select.argtypes = [vp] * 13 + [ll, ci, ci, vp]
+    lib.ysmr_rect_mean_lum.restype = ci
+    lib.ysmr_rect_mean_lum.argtypes = [vp, ci] + [vp] * 7 + [ci] * 6 + [vp]
+    lib.ysmr_pixel_finish.restype = ci
+    lib.ysmr_pixel_finish.argtypes = [vp] * 13 + [ci] * 8 + [vp]
+    lib.ysmr_pixel_finish_scratch_words.restype = ll
+    lib.ysmr_pixel_finish_scratch_words.argtypes = [ci, ci]
+    lib.ysmr_pixel_finish_max_f.restype = ci
+    lib.ysmr_pixel_finish_max_f.argtypes = []
     lib.ysmr_rect_sqrt_mismatches.restype = ci
     lib.ysmr_rect_sqrt_mismatches.argtypes = [vp, ci, vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p

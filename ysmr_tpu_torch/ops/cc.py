@@ -13,6 +13,13 @@ always reaches the fixpoint). The plain PyTorch versions are
 ``ops/labeling.py::label_components`` and ``::propagate_markers``, and
 ``cc_labels_at_pixels_plain`` here.
 
+After the pixel kernel, ``pixel_finish`` (``csrc/pixel_finish.cu``, two
+launches; plain version ``pixel_finish_plain``) turns its labels into the
+dense component ids and count, and on request the host-rect batch's int16
+readback plane or the device rects' row tables: the torch sequence of
+``ysmr_tpu``'s ``compact_ids`` and ``component_stats`` that the
+pixel-table branch ran after the labels.
+
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the call raises. Nothing falls back from the kernel to the plain
 version.
@@ -21,6 +28,7 @@ version.
 import torch
 
 from ysmr_tpu_torch import _build
+from ysmr_tpu_torch.ops import labeling as lb
 from ysmr_tpu_torch.ops.labeling import label_components, propagate_markers
 
 
@@ -237,7 +245,166 @@ def cc_labels_at_pixels(px_x, px_y, px_valid, px_marker, *, h, w,
     return labels, keep
 
 
+def compact_ids(lab_fg, keep, lin):
+    """Dense component ids at the kept pixels, in reverse raster order of
+    each component's first pixel (cv2's contour order), ``F`` elsewhere
+    (``ysmr_tpu/pipeline/detect_pixels.py::compact_ids``).
+
+    The JAX function ranks the roots (the pixels whose label is their own
+    linear index) and reads the rank back through a frame-sized table; the
+    lists are sorted by ``lin`` (``h*w`` past the valid prefix), so here
+    each pixel finds its root's slot by a binary search instead.
+
+    :return: (comp (T, F) int32, n_components (T,) int32)
+    """
+    f = lab_fg.shape[1]
+    roots = keep & (lab_fg == lin)
+    rank = torch.cumsum(roots.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    n_comp = roots.sum(dim=1, dtype=torch.int32)
+    slot = torch.searchsorted(lin, torch.where(keep, lab_fg,
+                                               torch.zeros_like(lab_fg)))
+    comp = torch.gather(rank, 1, torch.clamp(slot, max=f - 1))
+    comp = n_comp[:, None] - 1 - comp
+    return torch.where(keep, comp, torch.full_like(comp, f)), n_comp
+
+
+#: the row tables of ``pixel_finish`` (``run_cc.TABLE_KEYS``' order)
+TABLE_KEYS = ('row_min_x', 'row_max_x', 'row_valid', 'min_y')
+
+
+def _check_finish_modes(name, f, readback, row_tables):
+    if readback is not None and not (
+            1 <= int(readback['f']) <= f and int(readback['max_det']) >= 1):
+        raise ValueError('{}: readback needs 1 <= f <= F and max_det >= '
+                         '1'.format(name))
+    if row_tables is not None and (int(row_tables['max_det']) < 1 or
+                                   int(row_tables['max_bh']) < 1):
+        raise ValueError('{}: row_tables need positive max_det and '
+                         'max_bh'.format(name))
+
+
+def pixel_finish_plain(lab_fg, keep, px_x, px_y, valid, *, h, w, ids=False,
+                       readback=None, row_tables=None):
+    """Plain version of ``pixel_finish``: the torch sequence the
+    pixel-table branch ran after the labels (``compact_ids``, the
+    ``det_px_idx`` where and int16 cast with ``stage_detect``'s slice,
+    casts and concatenation, ``labeling.component_stats``' row tables)."""
+    _check_finish_modes('pixel_finish_plain', lab_fg.shape[1], readback,
+                        row_tables)
+    lin = torch.where(valid, px_y * w + px_x, torch.full_like(px_x, h * w))
+    comp, n_comp = compact_ids(lab_fg, keep, lin)
+    out = {'n_components': n_comp}
+    if ids:
+        out['comp'] = comp
+    if readback is not None:
+        md = int(readback['max_det'])
+        det = torch.where(keep & (comp < md), comp,
+                          torch.full_like(comp, -1)).to(torch.int16)
+        out['readback'] = torch.cat(
+            [det[:, :int(readback['f'])],
+             n_comp.clamp(max=32767)[:, None].to(torch.int16),
+             torch.zeros_like(n_comp)[:, None].to(torch.int16)], dim=1)
+    if row_tables is not None:
+        md = int(row_tables['max_det'])
+        t, f = comp.shape
+        seg = torch.where(keep, torch.clamp(comp, max=md),
+                          torch.full_like(comp, md))
+        frame = torch.arange(t, device=comp.device)[:, None].expand(t, f)
+        out.update(zip(TABLE_KEYS, lb._row_tables(
+            frame.reshape(-1), px_x.reshape(-1), px_y.reshape(-1),
+            seg.reshape(-1).long(), t, max_det=md,
+            max_bh=int(row_tables['max_bh']))))
+    return out
+
+
+def pixel_finish(lab_fg, keep, px_x, px_y, valid, *, h, w, ids=False,
+                 readback=None, row_tables=None):
+    """The pixel-table branch's finish after ``cc_labels_at_pixels``.
+
+    On a CUDA tensor the kernel ``csrc/pixel_finish.cu`` (a roots launch,
+    which also fills the row tables, and an ids launch; counted as one
+    call): no torch operation between the labels and what the host copies
+    or the hull reads. It needs ``cc_labels_at_pixels``' contract: each
+    frame's valid pixels a prefix of its list in strictly ascending
+    ``y*w + x``, inside the frame. On a CPU tensor ``pixel_finish_plain``.
+
+    :param lab_fg, keep: ``cc_labels_at_pixels``' outputs, (T, F) int32 and
+        bool
+    :param px_x, px_y: (T, F) int32 the pixels; valid: (T, F) bool
+    :param ids: also return ``comp``
+    :param readback: None, or dict(f=, max_det=): also return the
+        host-rect batch's plane
+    :param row_tables: None, or dict(max_det=, max_bh=): also return the
+        device rects' row tables
+    :return: dict with ``n_components`` (T,) int32; with ``ids`` ``comp``
+        (T, F) int32 the dense id at a kept pixel (``n_components - 1 -
+        rank`` of its root in raster order), F elsewhere; with
+        ``readback`` ``readback`` (T, f + 2) int16: the first f pixels'
+        ``comp`` where kept and below max_det, else -1, the count clamped
+        to 32767, 0 (the steps); with ``row_tables`` ``TABLE_KEYS`` over
+        (T * max_det, max_bh): each component's least and greatest x of
+        each bbox row (``labeling.BIG_I`` and ``-BIG_I`` where none), the
+        row's flag and its least y
+    """
+    if lab_fg.device.type == 'cpu':
+        return pixel_finish_plain(lab_fg, keep, px_x, px_y, valid, h=h, w=w,
+                                  ids=ids, readback=readback,
+                                  row_tables=row_tables)
+    name = 'pixel_finish'
+    if lab_fg.device.type != 'cuda':
+        raise ValueError('{}: unsupported device {}'.format(name,
+                                                           lab_fg.device))
+    if lab_fg.dim() != 2:
+        raise ValueError('{}: pixel lists must be (T, F)'.format(name))
+    for a, dt in ((lab_fg, torch.int32), (keep, torch.bool),
+                  (px_x, torch.int32), (px_y, torch.int32),
+                  (valid, torch.bool)):
+        if a.shape != lab_fg.shape or a.dtype != dt or \
+                a.device != lab_fg.device or not a.is_contiguous():
+            raise ValueError('{}: expects contiguous (T, F) int32 lab_fg, '
+                             'px_x, px_y and bool keep, valid on {}'.format(
+                                 name, lab_fg.device))
+    t, f = lab_fg.shape
+    _check_finish_modes(name, f, readback, row_tables)
+    dev = lab_fg.device
+    lib = _build.load_kernels()
+    if f > lib.ysmr_pixel_finish_max_f():
+        raise ValueError('{}: more than {} pixels a frame'.format(
+            name, lib.ysmr_pixel_finish_max_f()))
+    out = {'n_components': torch.empty((t,), dtype=torch.int32, device=dev)}
+    if ids:
+        out['comp'] = torch.empty((t, f), dtype=torch.int32, device=dev)
+    plane_f = plane_md = 0
+    if readback is not None:
+        plane_f, plane_md = int(readback['f']), int(readback['max_det'])
+        out['readback'] = torch.empty((t, plane_f + 2), dtype=torch.int16,
+                                      device=dev)
+    md = mbh = 0
+    if row_tables is not None:
+        md, mbh = int(row_tables['max_det']), int(row_tables['max_bh'])
+        for k, dt in zip(TABLE_KEYS, (torch.int32, torch.int32, torch.bool)):
+            out[k] = torch.empty((t * md, mbh), dtype=dt, device=dev)
+        out['min_y'] = torch.empty((t * md,), dtype=torch.int32, device=dev)
+
+    def ptr(key):
+        return out[key].data_ptr() if key in out else None
+
+    # the roots' in-tile ranks and the tiles' counts
+    scratch = torch.empty(lib.ysmr_pixel_finish_scratch_words(t, f),
+                          dtype=torch.int32, device=dev)
+    rc = lib.ysmr_pixel_finish(
+        lab_fg.data_ptr(), keep.data_ptr(), px_x.data_ptr(), px_y.data_ptr(),
+        valid.data_ptr(), scratch.data_ptr(), ptr('n_components'),
+        ptr('comp'), ptr('readback'), *(ptr(k) for k in TABLE_KEYS), t, f,
+        w, plane_f, plane_md, md, mbh, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, 'pixel finish kernel launch')
+    pixel_finish.launches += 1
+    return out
+
+
 #: kernel launches since the count was last set to 0
 label_components_whole_frame.launches = 0
 binary_reconstruct.launches = 0
 cc_labels_at_pixels.launches = 0
+pixel_finish.launches = 0

@@ -8,12 +8,20 @@ inclusive point-in-quad test united with the four edges drawn as LINE_8
 lines, all in exact integer arithmetic, evaluated over a ``win x win``
 window per detection.
 
+On a CUDA tensor ``rect_mean_luminosity`` is one launch of the
+hand-written kernel ``csrc/luminosity.cu`` over all T x D slots of a batch
+(a warp walks 32 slots one after another, each over its quad's bounding
+box clipped to the window; no host synchronisation); on a CPU tensor
+``rect_mean_luminosity_plain``, the torch sequence. The kernel and the
+plain version give the same bits.
+
 Differences from the JAX module:
 
 - Batched over all detections of a batch at once ((T, H, W) frames, (T, D)
-  rects) instead of ``vmap``; the (N, win, win) window tensors run in
-  chunks of the valid detections, so the temporaries stay small at dense
-  capacities (64 x 4096 windows of 48 x 48 int32 would be 2.4 GB each).
+  rects) instead of ``vmap``. The plain version runs the (N, win, win)
+  window tensors in chunks of the valid detections, so its temporaries
+  stay small at dense capacities (64 x 4096 windows of 48 x 48 int32 would
+  be 2.4 GB each); the kernel keeps no window.
 - The corners follow OpenCV 4's ``RotatedRect::points`` operation for
   operation: the angle in radians, ``cos`` and ``sin`` in float64, rounded
   to float32 and halved, the float32 corner sums unfused, corners 2 and 3
@@ -36,11 +44,13 @@ import math
 import numpy as np
 import torch
 
+from ysmr_tpu_torch import _build
+
 _I32 = torch.int32
 _F32 = torch.float32
 #: float32(0.01): XLA rewrites ``mean / 100.0`` as a product with it
 HUNDREDTH = float(np.float32(0.01))
-#: window pixels per chunk of detections
+#: window pixels per chunk of detections of the plain version
 _CHUNK_ELEMS = 1 << 24
 
 
@@ -126,18 +136,15 @@ def fill_poly_membership(quad, px, py):
     return member
 
 
-def rect_mean_luminosity(gray, cx, cy, w, h, angle_deg, valid, *, win=48):
-    """Mean gray over each detection's filled rotated rectangle, / 100.
-
-    :param gray: (T, H, W) integer grayscale frames
-    :param cx, cy, w, h, angle_deg: (T, D) float32 rect parameters
-    :param valid: (T, D) bool
-    :return: (T, D) float32 luminosity (0 for invalid detections)
-    """
+def _window_sums(gray, cx, cy, w, h, angle_deg, valid, *, win):
+    """The plain version's per-slot int32 gray sum and member count over
+    each valid detection's window, in chunks of the valid detections:
+    two flat (T*D,) int32 (0 for invalid slots)."""
     t, img_h, img_w = gray.shape
     d = cx.shape[1]
     dev = gray.device
-    out = torch.zeros((t * d,), dtype=_F32, device=dev)
+    total_out = torch.zeros((t * d,), dtype=_I32, device=dev)
+    count_out = torch.zeros((t * d,), dtype=_I32, device=dev)
     sel = torch.nonzero(valid.reshape(-1)).flatten()
     flat_gray = gray.reshape(-1)
     iota = torch.arange(win, dtype=_I32, device=dev)
@@ -157,9 +164,76 @@ def rect_mean_luminosity(gray, cx, cy, w, h, angle_deg, valid, *, win=48):
                torch.clamp(py, max=img_h - 1).long() * img_w +
                torch.clamp(px, max=img_w - 1).long())
         vals = flat_gray[pix].to(_I32)
-        total = torch.where(member, vals, 0).sum(dim=(1, 2), dtype=_I32)
-        count = member.sum(dim=(1, 2), dtype=_I32)
-        mean = total.to(_F32) / torch.clamp(count, min=1).to(_F32)
-        out[idx] = torch.where(count > 0, mean * HUNDREDTH,
-                               torch.zeros_like(mean))
-    return out.view(t, d)
+        total_out[idx] = torch.where(member, vals, 0).sum(dim=(1, 2),
+                                                          dtype=_I32)
+        count_out[idx] = member.sum(dim=(1, 2), dtype=_I32)
+    return total_out, count_out
+
+
+def rect_mean_luminosity_plain(gray, cx, cy, w, h, angle_deg, valid, *,
+                               win=48):
+    """Plain version of ``rect_mean_luminosity``: the torch sequence over
+    (n, win, win) windows in chunks of the valid detections (one
+    ``torch.nonzero`` of ``valid`` first)."""
+    t, d = cx.shape
+    total, count = _window_sums(gray, cx, cy, w, h, angle_deg, valid,
+                                win=win)
+    mean = total.to(_F32) / torch.clamp(count, min=1).to(_F32)
+    return torch.where(count > 0, mean * HUNDREDTH,
+                       torch.zeros_like(mean)).view(t, d)
+
+
+def rect_mean_luminosity(gray, cx, cy, w, h, angle_deg, valid, *, win=48):
+    """Mean gray over each detection's filled rotated rectangle, / 100.
+
+    On a CUDA tensor one launch of ``csrc/luminosity.cu`` over every slot
+    (an invalid one gives 0 at once; no host synchronisation); it takes
+    contiguous tensors, the gray frames as uint8 (the pixels-mode upload)
+    or int32 (frames mode's preprocess), and raises on anything else. On a
+    CPU tensor ``rect_mean_luminosity_plain``, which takes any integer
+    gray.
+
+    :param gray: (T, H, W) integer grayscale frames
+    :param cx, cy, w, h, angle_deg: (T, D) float32 rect parameters
+    :param valid: (T, D) bool
+    :param win: the window's side (``luminosity window size``), >= 1
+    :return: (T, D) float32 luminosity (0 for invalid detections)
+    """
+    if gray.device.type == 'cpu':
+        return rect_mean_luminosity_plain(gray, cx, cy, w, h, angle_deg,
+                                          valid, win=win)
+    name = 'rect_mean_luminosity'
+    if gray.device.type != 'cuda':
+        raise ValueError('{}: unsupported device {}'.format(name, gray.device))
+    if gray.dim() != 3 or gray.dtype not in (torch.uint8, _I32) or \
+            not gray.is_contiguous():
+        raise ValueError('{}: gray must be contiguous (T, H, W) uint8 or '
+                         'int32'.format(name))
+    t, img_h, img_w = gray.shape
+    if cx.dim() != 2 or cx.shape[0] != t:
+        raise ValueError('{}: rects must be (T, D) with the frames\' '
+                         'T'.format(name))
+    for a, dt in ((cx, _F32), (cy, _F32), (w, _F32), (h, _F32),
+                  (angle_deg, _F32), (valid, torch.bool)):
+        if a.shape != cx.shape or a.dtype != dt or a.device != gray.device \
+                or not a.is_contiguous():
+            raise ValueError('{}: expects contiguous (T, D) float32 cx, cy, '
+                             'w, h, angle_deg and bool valid on {}'.format(
+                                 name, gray.device))
+    if int(win) < 1:
+        raise ValueError('{}: win must be at least 1'.format(name))
+    d = cx.shape[1]
+    out = torch.empty((t, d), dtype=_F32, device=gray.device)
+    lib = _build.load_kernels()
+    rc = lib.ysmr_rect_mean_lum(
+        gray.data_ptr(), gray.element_size(), cx.data_ptr(), cy.data_ptr(),
+        w.data_ptr(), h.data_ptr(), angle_deg.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), t, d, img_h, img_w, int(win), gray.device.index,
+        torch.cuda.current_stream(gray.device).cuda_stream)
+    _build.check(lib, rc, 'rect mean kernel launch')
+    rect_mean_luminosity.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+rect_mean_luminosity.launches = 0

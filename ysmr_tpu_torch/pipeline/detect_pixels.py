@@ -20,10 +20,13 @@ Counterpart of ``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels``:
   tables (the run wire expanded, the packed uint32 wire, or the split
   int16/uint8 wire of luminosity), labelled by ``ops/cc.py::
   cc_labels_at_pixels`` (the CUDA kernel on the card; the JAX CPU path
-  computes the same function with two whole-frame labelings), compacted to
-  dense ids in wire order, and either returned per pixel (``det_px_idx``,
-  host rects) or measured on the device (``_stats_outputs``, with the
-  exact rect luminosity or the pixel-mean luminosity).
+  computes the same function with two whole-frame labelings), then
+  finished by ``ops/cc.py::pixel_finish`` (``csrc/pixel_finish.cu`` on the
+  card): the dense ids in wire order and, as asked, the int16 plane the
+  host-rect path copies (``readback_pixels``), the ids themselves (returned
+  per pixel as ``det_px_idx``) or the row tables of the device rects
+  (``_stats_outputs``, with the exact rect luminosity); the pixel-mean
+  luminosity takes the ids to ``labeling.component_stats``.
 
 Not ported: the sorted-run compaction of the TPU path (a layout for the
 TPU, same outputs) and ``use_table`` (ROADMAP's "do not port" list), which
@@ -47,7 +50,7 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
                        return_det_px=False, skip_rect=False, px_runs=None,
                        run_counts=None, expanded_f=None, use_run_cc=False,
                        det_px_as_runs=False, cv2_centers=False,
-                       readback_runs=None):
+                       readback_runs=None, readback_pixels=None):
     """Detection tables from a batch's pixel wire (the JAX function's
     signature, without ``use_pallas``).
 
@@ -80,6 +83,11 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
         first runs' ``det_run_idx``, the clamped count, the steps), which
         run-CC's finish writes, with ``n_components`` and ``cc_steps``;
         the other output flags are then ignored
+    :param readback_pixels: None, or on the pixel-table branch without
+        luminosity's device rects the host-rect batch's read-back width:
+        return only ``readback`` (T, readback_pixels + 2) int16
+        (``ops/cc.py::pixel_finish``: the first pixels' ``det_px_idx``,
+        the clamped count, 0), with ``n_components`` and ``cc_steps``
     :return: dict with ``det_xy`` (T, max_det, K) (K = 3 with luminosity),
         ``det_info`` (T, max_det, 3) [w, h, angle], ``det_valid``
         (T, max_det), ``n_components`` (T,) int32 and ``cc_steps`` (T,)
@@ -104,7 +112,7 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
     if readback_runs is not None:
         raise ValueError('detect_from_pixels: readback_runs needs the run '
                          'wire with use_run_cc and no luminosity')
-    n = h * w
+    exact_lum = include_luminosity and gray_frames is not None
     if px_runs is not None or px_packed is not None:
         if px_runs is not None:
             lin_raw, px_marker = _expand_runs(px_runs, run_counts,
@@ -119,33 +127,46 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
         px_x = px_x.to(_I32)
         px_y = px_y.to(_I32)
         px_marker = px_marker.to(_I32) > 0
-        lin_raw = px_y * w + px_x
-    t, f = lin_raw.shape
-    dev = lin_raw.device
+    px_x, px_y = px_x.contiguous(), px_y.contiguous()
+    t, f = px_x.shape
+    dev = px_x.device
     iota_f = torch.arange(f, dtype=_I32, device=dev)[None, :]
-    valid = (iota_f < px_counts.to(_I32)[:, None]) & frame_valid[:, None]
-    lin = torch.where(valid, lin_raw, torch.full_like(lin_raw, n))
+    valid = ((iota_f < px_counts.to(_I32)[:, None]) &
+             frame_valid[:, None]).contiguous()
+    # the pixel kernel has no step count; made here, so that nothing runs
+    # between the labels, the finish and what reads the finish
+    cc_steps = torch.zeros((t,), dtype=_I32, device=dev)
     lab_fg, keep = cc.cc_labels_at_pixels(
-        px_x.contiguous(), px_y.contiguous(), valid.contiguous(),
-        px_marker.contiguous(), h=h, w=w, double_threshold=double_threshold,
-        max_iters=cc_iters)
-    comp, n_components = _compact_ids(lab_fg, keep, lin)
-    seg = torch.where(keep, torch.clamp(comp, max=max_det),
-                      torch.full_like(comp, max_det))
-    det_px = torch.where(keep & (comp < max_det), comp,
-                         torch.full_like(comp, -1)).to(torch.int16) \
-        if return_det_px else None
-    gray_in = px_gray.to(_I32) if px_gray is not None else \
-        torch.zeros_like(px_x)
-    exact_lum = include_luminosity and gray_frames is not None
-    if skip_rect and not exact_lum:
+        px_x, px_y, valid, px_marker.contiguous(), h=h, w=w,
+        double_threshold=double_threshold, max_iters=cc_iters)
+    finish = dict(h=h, w=w)
+    if readback_pixels is not None:
+        # the host-rect batch: the finish writes what the host reads
+        out = cc.pixel_finish(
+            lab_fg, keep, px_x, px_y, valid,
+            readback=dict(f=readback_pixels, max_det=max_det), **finish)
+        out['cc_steps'] = cc_steps
+        return out
+    pixel_lum = include_luminosity and not exact_lum
+    tables = not pixel_lum and (exact_lum or not skip_rect)
+    fin = cc.pixel_finish(
+        lab_fg, keep, px_x, px_y, valid, ids=return_det_px or pixel_lum,
+        row_tables=dict(max_det=max_det, max_bh=max_bh) if tables else None,
+        **finish)
+    n_components = fin['n_components']
+    if tables:
+        out = _stats_outputs(fin, t, max_det=max_det, max_bh=max_bh,
+                             gray_frames=gray_frames if exact_lum else None,
+                             lum_win=lum_win, cv2_centers=cv2_centers)
+    elif not pixel_lum or skip_rect:
         # the host measures the rects; dense ids make slot validity an
         # iota compare
         det_valid = torch.arange(max_det, dtype=_I32, device=dev)[None, :] < \
             torch.clamp(n_components, max=max_det)[:, None]
-        if include_luminosity:
-            count, lum_sum = lb.component_sums(seg, keep, gray_in,
-                                               max_det=max_det)
+        if pixel_lum:
+            count, lum_sum = lb.component_sums(
+                _seg(fin['comp'], keep, max_det), keep,
+                _gray_in(px_gray, px_x), max_det=max_det)
             lum = lum_sum.to(torch.float32) / \
                 torch.clamp(count, min=1) * HUNDREDTH
             zero = torch.zeros_like(lum)
@@ -159,16 +180,31 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
                                        device=dev),
                'det_valid': det_valid, 'n_components': n_components}
     else:
-        out = _stats_outputs(seg, keep, px_x, px_y, gray_in,
-                             gray_frames if exact_lum else None,
-                             n_components, h=h, w=w, max_det=max_det,
-                             max_bh=max_bh,
-                             include_luminosity=include_luminosity,
-                             lum_win=lum_win, cv2_centers=cv2_centers)
-    out['cc_steps'] = torch.zeros_like(n_components)
-    if det_px is not None:
-        out['det_px_idx'] = det_px
+        out = _pixel_mean_outputs(_seg(fin['comp'], keep, max_det), keep,
+                                  px_x, px_y, _gray_in(px_gray, px_x),
+                                  max_det=max_det, max_bh=max_bh,
+                                  cv2_centers=cv2_centers)
+        out['n_components'] = n_components
+    out['cc_steps'] = cc_steps
+    if return_det_px:
+        comp = fin['comp']
+        out['det_px_idx'] = torch.where(keep & (comp < max_det), comp,
+                                        torch.full_like(comp, -1)).to(
+                                            torch.int16)
     return out
+
+
+def _seg(comp, keep, max_det):
+    """Dense ids as segment keys: ``max_det`` off the kept pixels and
+    beyond capacity."""
+    return torch.where(keep, torch.clamp(comp, max=max_det),
+                       torch.full_like(comp, max_det))
+
+
+def _gray_in(px_gray, px_x):
+    """The per-pixel gray of the pixel-mean luminosity (0 without it)."""
+    return px_gray.to(_I32) if px_gray is not None else \
+        torch.zeros_like(px_x)
 
 
 def _expand_runs(px_runs, run_counts, f, double_threshold):
@@ -203,28 +239,6 @@ def _expand_runs(px_runs, run_counts, f, double_threshold):
     rid[flat_idx] = iota_r.expand(t, r).reshape(-1).to(torch.int64)
     rid = torch.cummax(rid[:t * f].view(t, f), dim=1).values
     return lin_raw, torch.gather(rmark, 1, rid)
-
-
-def _compact_ids(lab_fg, keep, lin):
-    """Dense component ids at the kept pixels, in reverse raster order of
-    each component's first pixel (cv2's contour order), ``F`` elsewhere.
-
-    The JAX function ranks the roots (the pixels whose label is their own
-    linear index) and reads the rank back through a frame-sized table; the
-    lists are sorted by ``lin`` (``h*w`` past the valid prefix), so here
-    each pixel finds its root's slot by a binary search instead.
-
-    :return: (comp (T, F) int32, n_components (T,) int32)
-    """
-    f = lab_fg.shape[1]
-    roots = keep & (lab_fg == lin)
-    rank = torch.cumsum(roots.to(_I32), dim=1, dtype=_I32) - 1
-    n_comp = roots.sum(dim=1, dtype=_I32)
-    slot = torch.searchsorted(lin, torch.where(keep, lab_fg,
-                                               torch.zeros_like(lab_fg)))
-    comp = torch.gather(rank, 1, torch.clamp(slot, max=f - 1))
-    comp = n_comp[:, None] - 1 - comp
-    return torch.where(keep, comp, torch.full_like(comp, f)), n_comp
 
 
 def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,
@@ -314,27 +328,32 @@ def _stats_outputs_runs(cc_out, t, *, max_det, max_bh, cv2_centers=False):
     return out
 
 
-def _stats_outputs(seg, keep, px_x, px_y, gray_in, gray_frames,
-                   n_components, *, h, w, max_det, max_bh,
-                   include_luminosity, lum_win, cv2_centers=False):
-    """Detect tail over (T, F) pixel tables (``seg`` = dense id,
-    ``max_det`` on the background): stats, hull, exact rect and, with
-    luminosity, the exact rect mean of ``gray_frames`` or else the pixel
-    mean of ``gray_in``."""
-    exact_lum = gray_frames is not None
-    tables = lb.component_stats(
-        px_x, px_y, seg, keep,
-        gray_vals=gray_in if include_luminosity and not exact_lum else None,
-        max_det=max_det, max_bh=max_bh)
-    lum = None
-    if include_luminosity and not exact_lum:
-        lum = (tables['lum_sum'].to(torch.float32) /
-               torch.clamp(tables['count'], min=1) * HUNDREDTH).view(
-                   seg.shape[0], max_det)
+def _stats_outputs(fin, t, *, max_det, max_bh, gray_frames, lum_win,
+                   cv2_centers=False):
+    """Detect tail over the pixel finish's row tables (``pixel_finish``
+    with ``row_tables``): the stats, hull and exact rect of every
+    component of the batch and, with ``gray_frames``, the exact rect mean
+    of the gray frames."""
+    tables = lb._stats_tail_from_tables(*(fin[k] for k in cc.TABLE_KEYS))
     return detections_from_tables(
-        tables, seg.shape[0], max_det=max_det, max_bh=max_bh,
-        cv2_centers=cv2_centers, n_components=n_components,
-        gray_frames=gray_frames, lum=lum, lum_win=lum_win)
+        tables, t, max_det=max_det, max_bh=max_bh, cv2_centers=cv2_centers,
+        n_components=fin['n_components'], gray_frames=gray_frames,
+        lum_win=lum_win)
+
+
+def _pixel_mean_outputs(seg, keep, px_x, px_y, gray_in, *, max_det, max_bh,
+                        cv2_centers=False):
+    """Detect tail over (T, F) pixel tables (``seg`` = dense id,
+    ``max_det`` on the background) with the pixel-mean luminosity of
+    ``gray_in`` (no gray frames): stats, hull and exact rect."""
+    tables = lb.component_stats(px_x, px_y, seg, keep, gray_vals=gray_in,
+                                max_det=max_det, max_bh=max_bh)
+    lum = (tables['lum_sum'].to(torch.float32) /
+           torch.clamp(tables['count'], min=1) * HUNDREDTH).view(
+               seg.shape[0], max_det)
+    return detections_from_tables(tables, seg.shape[0], max_det=max_det,
+                                  max_bh=max_bh, cv2_centers=cv2_centers,
+                                  lum=lum)
 
 
 def detections_from_tables(tables, t, *, max_det, max_bh, cv2_centers=False,

@@ -579,12 +579,8 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
                     int(host['run_counts'].max()) if count else 1))))[
                         'readback']
         else:
-            tables = detect(kw, return_det_px=True, skip_rect=True)
-            fused = torch.cat(
-                [tables['det_px_idx'][:, :f_bucket],
-                 tables['n_components'].clamp(max=32767)[:, None].to(
-                     torch.int16),
-                 tables['cc_steps'][:, None].to(torch.int16)], dim=1)
+            # the pixel finish writes it, for the first f_bucket pixels
+            fused = detect(kw, readback_pixels=f_bucket)['readback']
         if on_cuda:
             marks.append(('detect', event()))
         if 'px_packed' in data:
@@ -648,12 +644,12 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     def det_xy_with_rect_lum(gray, rects, rvalid):
         """(T, D, 3) [cx, cy, ILLUMINATION] on the device: the exact rect
         mean of the gray frames at the host-measured rects, so the value
-        belongs to the row's own rect (JAX ``_det_xy_with_rect_lum``)."""
-        r = to_dev(rects)
-        lum = rect_mean_luminosity(gray, r[..., 0], r[..., 1], r[..., 2],
-                                   r[..., 3], r[..., 4], to_dev(rvalid),
-                                   win=lum_win)
-        return torch.cat([r[..., :2], lum[..., None]], dim=-1)
+        belongs to the row's own rect (JAX ``_det_xy_with_rect_lum``).
+        The rects go up as five contiguous (T, D) columns, in one copy;
+        the rect mean is one kernel launch with no host synchronisation."""
+        r = to_dev(np.moveaxis(rects, -1, 0))
+        lum = rect_mean_luminosity(gray, *r, to_dev(rvalid), win=lum_win)
+        return torch.stack([r[0], r[1], lum], dim=-1)
 
     def stage_track(data, count, start, frame_valid):
         """Device-tracker path: launch one batch's labeling and device
