@@ -334,10 +334,14 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    module ``lum_cases.py`` (windows of 16 to 64, clipped windows, zero
    sides, exact angles, int32 gray, a frame smaller than the window); the
    pixel finish (``csrc/pixel_finish.cu``) on the bench luminosity wire's
-   labels (the host-rect plane) and the dense one's (the row tables) and
-   on the edge cases in every combination of outputs; ms, plain ms and
-   bound of each, and the kernels' registers, spills, shared memory and
-   occupancy (a ``lum kernels resources`` line).
+   labels (the host-rect plane) and the dense one's (the row tables), on
+   the edge cases in every combination of outputs and on one frame's list
+   of 25,165,825 slots with its labels made directly (past the 25,165,824
+   the finish took before its tile offsets left shared memory); ms, plain
+   ms and bound of each, and the registers, spills, shared memory and
+   occupancy of each of the two kernels' launches (``rect_mean_tiles``;
+   ``finish_roots``, ``finish_offsets``, ``finish_ids``: a ``lum kernels
+   resources`` line).
 
 Any failure ends the script with a non-zero exit before the result line.
 The last three lines are the ``kernels`` JSON record (twenty kernels:
@@ -5420,15 +5424,47 @@ def finish_bytes(args, out):
                                       for v in out.values())
 
 
+#: one frame's list past the 25,165,824 slots the finish once took
+PAST_CAP_F = 25_165_825
+
+
+def phase_finish_past_cap(dev):
+    """The pixel finish on one frame's list of ``PAST_CAP_F`` slots (8192
+    pixels a row, every pixel its own root but a few components of several
+    pixels: ``lum_cases.own_root_lists``), every output asked, bit-equal to
+    its plain version on the card."""
+    import lum_cases
+    w = 8192
+    h = -(-PAST_CAP_F // w)
+    args = tuple(torch.from_numpy(a).to(dev) for a in
+                 lum_cases.own_root_lists(1, PAST_CAP_F, h, w))
+    kw = dict(h=h, w=w, ids=True,
+              readback=dict(f=PAST_CAP_F, max_det=1024),
+              row_tables=dict(max_det=64, max_bh=8))
+    got = cc.pixel_finish(*args, **kw)
+    want = cc.pixel_finish_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k])
+                                        for k in want):
+        raise SystemExit('pixel finish kernel != plain on one frame of {} '
+                         'slots'.format(PAST_CAP_F))
+    log('pixel finish kernel bit-equal to its plain version on one frame of '
+        '{} slots ({} components; ids, plane and row tables)'.format(
+            PAST_CAP_F, int(got['n_components'][0])))
+    del args, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_lum_kernels(dev):
     """Phase 36: the luminosity paths' kernels against their plain
     versions on the card. The rect mean (``csrc/luminosity.cu``) on the
     bench batch's host rects, the dense and the frames-mode batches' device
     rects and on ``lum_cases.py``'s edge cases; the pixel finish
     (``csrc/pixel_finish.cu``) on the bench and dense luminosity wires'
-    labels (the host-rect plane, the row tables) and on the edge cases in
-    every combination of outputs; ms, bound, registers and occupancy of
-    each. Returns the (max_abs_err, ms, plain_ms, bound) checks of the
+    labels (the host-rect plane, the row tables), on the edge cases in
+    every combination of outputs and on one frame past the old cap
+    (``phase_finish_past_cap``); ms, bound, registers and occupancy of each
+    launch. Returns the (max_abs_err, ms, plain_ms, bound) checks of the
     dense batch's rect mean and the dense tables' finish."""
     import lum_cases
     from ysmr_tpu_torch.ops import luminosity as lum_ops
@@ -5491,18 +5527,20 @@ def phase_lum_kernels(dev):
     log('pixel finish kernel bit-equal to its plain version on the {} edge '
         'cases of lum_cases.py ({} calls)'.format(
             len(lum_cases.FINISH_CASES), n_modes))
+    phase_finish_past_cap(dev)
     lib = _build.load_kernels()
     resources = {}
     _, dense_args, dense_win = batches[1]
     dense_finish = finishes[1]
+    finish_call = (lambda: cc.pixel_finish(*dense_finish[1],
+                                           **dense_finish[2]))
     for source, kernel, threads, fn in (
-            ('luminosity.cu', 'rect_mean_kernel', 256,
+            ('luminosity.cu', 'rect_mean_tiles', 256,
              lambda: lum_ops.rect_mean_luminosity(*dense_args,
                                                   win=dense_win)),
-            ('pixel_finish.cu', 'finish_roots', 256,
-             lambda: cc.pixel_finish(*dense_finish[1], **dense_finish[2])),
-            ('pixel_finish.cu', 'finish_ids', 256,
-             lambda: cc.pixel_finish(*dense_finish[1], **dense_finish[2]))):
+            ('pixel_finish.cu', 'finish_roots', 256, finish_call),
+            ('pixel_finish.cu', 'finish_offsets', 32, finish_call),
+            ('pixel_finish.cu', 'finish_ids', 256, finish_call)):
         ptx = ptxas_of(lib.build_log, source, kernel)
         regs, spill, smem = ptx if ptx else (None, None, None)
         resources[kernel] = {

@@ -13,22 +13,34 @@ phase 36.
   sides of 0; angles of 0, +-45, +-90, +-180; int32 gray (frames mode's)
   with values past a byte; a frame smaller than the window; few valid
   slots; uniform random rects and ``cv2.minAreaRect`` rects (the design
-  emulation's 10^4).
+  emulation's 10^4); for the kernel's tiles (``TILING_CASES``): boxes of
+  the window's full 64 x 64 that span several warps' pixel ranges, empty
+  boxes between full ones, a frame with no valid slot and valid slots
+  that are no prefix (``tiling``), and corners far past +-2^13, where the
+  int32 cross products wrap (``huge_corners``).
 - ``finish_case(name)``: (px_x, px_y, valid, marker (T, F), h, w,
   double_threshold, max_det, max_bh, plane_f) raster-order pixel lists of
   ``FINISH_CASES``: random blobs in lists of several 2048-slot tiles (F no
   multiple of the tile), frames with 0, 1 and max_det + 1 components, a
   component taller than max_bh, an invalid frame, a list filled to F, a
-  component whose pixels straddle tiles.
+  component whose pixels straddle tiles, warps whose lanes hold 32, 2 and
+  1 distinct labels (``distinct_labels``), and a root 31 lanes back in the
+  previous tile of 2048 slots (``root_back``).
+- ``own_root_lists(t, f, h, w)``: a list of F pixels a frame with its
+  labels made directly (every pixel its own root, and a few components of
+  several pixels), for lists past any tile count (the finish on lists of
+  more than 25,165,824 slots).
 """
 
 import numpy as np
 
 H, W = 120, 160
 
+#: the cases of the rect mean kernel's tiling and of its wrapping corners
+TILING_CASES = ('tiling', 'huge_corners')
 RECT_CASES = ('win16', 'win32', 'win64', 'larger_than_window', 'borders',
               'degenerate', 'angles', 'int32_gray', 'small_frame',
-              'sparse_valid', 'random', 'min_area')
+              'sparse_valid', 'random', 'min_area') + TILING_CASES
 
 
 def random_rects(rng, n, h=H, w=W, margin=25.0, max_side=16.0):
@@ -131,18 +143,42 @@ def rect_case(name):
     elif name == 'min_area':
         t, d = 4, 2500
         params = min_area_rects(7, t * d)
+    elif name == 'tiling':
+        t, d, win = 4, 300, 64
+        params = random_rects(rng, t * d, max_side=30.0)
+        # frame 0: every third slot a rect past the window: a 64 x 64 box
+        big = np.arange(0, d, 3)
+        params[2][big] = rng.uniform(100, 160, len(big))
+        params[3][big] = rng.uniform(100, 160, len(big))
+        params[4][big] = rng.uniform(-180, 180, len(big))
+        # frame 2: every other slot centered far outside: an empty box
+        far = 2 * d + np.arange(0, d, 2)
+        params[0][far] = -400.0
+        params[1][far] = 700.0
+    elif name == 'huge_corners':
+        params = random_rects(rng, t * d)
+        # sides up to 1.9e9: corners up to +-2^31, cross products wrap
+        n = t * d
+        params[2][: n // 2] = rng.uniform(3e4, 1.9e9, n // 2)
+        params[3][n // 4: 3 * n // 4] = rng.uniform(2e4, 1.9e9, n // 2)
     else:
         params = random_rects(rng, t * d)
     if gray is None:
         gray = _frames(rng, t, h, w)
     valid = rng.random((t, d)) < (0.1 if name == 'sparse_valid' else 0.95)
+    if name == 'tiling':
+        valid[0] = (np.arange(d) % 3) == 0
+        valid[1] = False
+        valid[2] = True
+        valid[3] = rng.random(d) < 0.5
     params = [np.ascontiguousarray(p.reshape(t, d), np.float32)
               for p in params]
     return gray, params, valid, win
 
 
 FINISH_CASES = ('blobs', 'counts_0_1_overflow', 'tall', 'invalid_frame',
-                'full_list', 'straddle', 'single_threshold')
+                'full_list', 'straddle', 'single_threshold',
+                'distinct_labels', 'root_back')
 
 
 def _blob_masks(rng, t, h, w, n_blobs):
@@ -205,6 +241,30 @@ def finish_case(name):
         masks[:, 30:50, :] |= rng.random((t, 20, w)) < 0.9
     elif name == 'single_threshold':
         double = False
+    elif name == 'distinct_labels':
+        double = False
+        masks[:] = False
+        # frame 0: isolated pixels, 32 labels a warp
+        masks[0, ::2, ::2] = True
+        # frame 1: two bars of 16 columns, a row of 32 pixels a warp
+        masks[1, 2:90, 8:24] = True
+        masks[1, 2:90, 60:76] = True
+        # frame 2: one block, one label a warp
+        masks[2, 10:80, 10:106] = True
+        masks[3] = masks[0] | masks[1]
+        masks[3, 40:60] = masks[2, 40:60]
+    elif name == 'root_back':
+        # row 0: 2017 isolated pixels, then a run of 40 from slot 2017:
+        # slot 2048 (lane 0 of its warp, tile 1) has its root at slot 2017
+        # (lane 1 of the previous warp, tile 0)
+        double = False
+        h, w, f = 6, 4200, 2600
+        masks = np.zeros((t, h, w), bool)
+        masks[:, 0, 0:4034:2] = True
+        masks[:, 0, 4034:4074] = True
+        masks[:, 1, 4070:4150] = True
+        masks[:, 3, 0:500:3] = True
+        masks[1:, 4, 100:300] = rng.random((t - 1, 200)) < 0.7
     markers = masks & (rng.random(masks.shape) < 0.4)
     px_x, px_y, valid, marker = lists_of(masks, markers, f)
     counts = valid.sum(1).astype(np.int32)
@@ -216,3 +276,30 @@ def finish_case(name):
                 frame_valid=frame_valid, valid=valid, h=h, w=w,
                 double_threshold=double, max_det=max_det, max_bh=max_bh,
                 plane_f=min(f, 300 if name == 'blobs' else f))
+
+
+def own_root_lists(t, f, h, w):
+    """F >= 1 pixels a frame in raster order from (0, 0), each its own
+    root, except a few components of several pixels: a run of 40 in row 0
+    from x = 3, a 3 x 3 block at (5, 2) and, in the last full row, a run
+    of 7 at its start. Returns (lab_fg, keep, px_x, px_y, valid) as numpy
+    arrays (int32, and bool keep and valid), every slot valid and kept;
+    needs h * w >= f and w >= 64."""
+    lin = np.arange(f, dtype=np.int64)
+    px_y = (lin // w).astype(np.int32)
+    px_x = (lin % w).astype(np.int32)
+    lab = lin.astype(np.int32)
+    lab[3:43] = 3                                # a run of row 0
+    for dy in range(3):                          # a 3 x 3 block
+        y = 2 + dy
+        if (y + 1) * w <= f:
+            lab[y * w + 5: y * w + 8] = 2 * w + 5
+    last = f // w - 1
+    if last > 4:
+        lab[last * w: last * w + 7] = last * w
+    shape = (t, f)
+    return (np.broadcast_to(lab, shape).copy(),
+            np.ones(shape, bool),
+            np.broadcast_to(px_x, shape).copy(),
+            np.broadcast_to(px_y, shape).copy(),
+            np.ones(shape, bool))

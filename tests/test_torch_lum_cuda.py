@@ -5,14 +5,15 @@ versions on the same card tensors, on the seeded cases of the root module
 file imports no JAX; every test needs a CUDA device and skips elsewhere.
 
 - ``csrc/luminosity.cu`` (``ops/luminosity.py::rect_mean_luminosity``):
-  uint8 and int32 gray, windows of 16 to 64, clipped windows, zero sides,
-  frames smaller than the window; one launch a call, no host
-  synchronisation; the refusals.
+  uint8 and int32 gray, windows of 16 to 64 and of 6000, clipped windows,
+  zero sides, frames smaller than the window, the tiling's cases and
+  wrapping corners; one launch a call, no host synchronisation; the
+  refusals.
 - ``csrc/pixel_finish.cu`` (``ops/cc.py::pixel_finish``) on the pixel
-  kernel's labels: every combination of its outputs; between the pixel
-  kernel and what the host copies (the plane) or the hull reads (the
-  tables), the luminosity detects launch the finish's two kernels and
-  nothing else.
+  kernel's labels: every combination of its outputs; one frame past the
+  25,165,824 slots it once took; between the pixel kernel and what the
+  host copies (the plane) or the hull reads (the tables), the luminosity
+  detects launch the finish's three kernels and nothing else.
 
 Tolerance: none. The rect mean's corners are rounded operation by
 operation as the plain version's torch operations round them, and the
@@ -24,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from lum_cases import FINISH_CASES, RECT_CASES, finish_case, rect_case
+from lum_cases import (FINISH_CASES, RECT_CASES, finish_case,
+                       own_root_lists, rect_case)
 from ysmr_tpu_torch.ops import cc
 from ysmr_tpu_torch.ops import luminosity as lum
 
@@ -179,11 +181,71 @@ def _kernels_between(fn, first, last):
 
 
 @pytest.mark.cuda
+def test_pixel_finish_past_the_old_cap_on_cuda():
+    """One frame's list of 25,165,825 slots, one past the 25,165,824 the
+    finish took while its tile offsets lived in shared memory, with its
+    labels made directly (every pixel its own root, and a few components
+    of several pixels): the ids, the plane, the count and the row tables
+    bit-equal to the plain version, one launch counted."""
+    dev = _cuda()
+    f, w = 25_165_825, 8192
+    h = -(-f // w)
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in own_root_lists(1, f, h, w))
+    kw = dict(h=h, w=w, ids=True, readback=dict(f=f, max_det=1024),
+              row_tables=dict(max_det=64, max_bh=8))
+    n = cc.pixel_finish.launches
+    got = cc.pixel_finish(*args, **kw)
+    want = cc.pixel_finish_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert cc.pixel_finish.launches == n + 1
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    assert int(got['n_components'][0]) == f - 39 - 8 - 6
+    # hand the lists' gigabytes back: later tests trace with the profiler
+    del args, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_rect_mean_large_windows_on_cuda():
+    """A window of 6000 x 6000 pixels (a tile of 16 slots: a tile's flat
+    list stays below 2^30 pixels) bit-equal to the plain version; a window
+    of 2^30 pixels inside the frame raises before the card."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    gray = torch.from_numpy(rng.integers(0, 256, (1, 6000, 6000),
+                                         dtype=np.uint8)).to(dev)
+    # cx, cy, w, h, angle of three rects: two of thousands of pixels a
+    # side, one of ten
+    rects = [torch.tensor([v], dtype=torch.float32, device=dev)
+             for v in ([3000.0, 2990.0, 100.5], [2000.5, 3000.0, 80.0],
+                       [5900.0, 300.0, 10.0], [4000.0, 5500.0, 4.0],
+                       [10.0, -30.0, 45.0])]
+    valid = torch.ones((1, 3), dtype=torch.bool, device=dev)
+    got = lum.rect_mean_luminosity(gray, *rects, valid, win=6000)
+    want = lum.rect_mean_luminosity_plain(gray, *rects, valid, win=6000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got, want)
+    # the big boxes' int32 sums wrap, as the plain version's do
+    assert (got != 0).all(), got
+    big = torch.empty((1, 1 << 15, 1 << 15), dtype=torch.uint8, device=dev)
+    n = lum.rect_mean_luminosity.launches
+    with pytest.raises(ValueError, match='2\\^30'):
+        lum.rect_mean_luminosity(big, *rects, valid, win=1 << 15)
+    assert lum.rect_mean_luminosity.launches == n
+    del gray, big, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
 def test_luminosity_detects_launch_only_the_finish_on_cuda():
     """With luminosity in pixels mode, the host-rect detect (the plane)
-    and the device-rect detect (the tables) launch the finish's two
-    kernels and nothing else between the pixel kernel's last launch and
-    the host copy or the hull kernel."""
+    and the device-rect detect (the tables) launch the finish's three
+    kernels (roots, offsets, ids) and nothing else between the pixel
+    kernel's last launch and the host copy or the hull kernel."""
     from ysmr_tpu_torch.pipeline.detect_pixels import detect_from_pixels
     dev = _cuda()
     case = finish_case('blobs')
@@ -200,10 +262,11 @@ def test_luminosity_detects_launch_only_the_finish_on_cuda():
     plane = _kernels_between(
         lambda: detect_from_pixels(**kw, readback_pixels=case['plane_f']),
         'px_final', None)
-    assert len(plane) == 2 and 'finish_roots' in plane[0] and \
-        'finish_ids' in plane[1], plane
+    finish = ('finish_roots', 'finish_offsets', 'finish_ids')
+    assert len(plane) == 3 and all(
+        k in nm for k, nm in zip(finish, plane)), plane
     tables = _kernels_between(
         lambda: detect_from_pixels(**kw, include_luminosity=True,
                                    gray_frames=gray), 'px_final', 'hull')
-    assert len(tables) == 2 and 'finish_roots' in tables[0] and \
-        'finish_ids' in tables[1], tables
+    assert len(tables) == 3 and all(
+        k in nm for k, nm in zip(finish, tables)), tables

@@ -171,73 +171,90 @@ def test_plain_finish_matches_jax_on_clip_wires(tmp_path, clip):
 def finish_emulation(lab, keep, px_x, px_y, valid, *, h, w, ids, readback,
                      row_tables, tile=2048, threads=256):
     """``csrc/pixel_finish.cu``'s design: a roots launch over tiles (the
-    root flags ranked in slot order, each root's in-tile rank at its slot,
-    the tile's count; the tables filled) and an ids launch (the frame's
-    tile offsets, a binary search between i - (lin(i) - label) and i for
-    each kept pixel's root, the warp's runs of equal component and y
+    root flags ranked in slot order, each root's lin at its in-tile rank in
+    the tile's list, the tile's count and first lin; the tables filled),
+    an offsets launch (each frame's tile counts to exclusive offsets in
+    place, the count) and an ids launch of a thread a slot: the root's tile
+    the last between those of slots i - (lin(i) - label) and i whose first
+    lin is at most the label, its rank the tile's offset + the label's
+    place in the tile's list (both binary searches, the list's entry
+    checked to be the label); the warp's runs of equal component and y
     taking one minimum at their first lane and one maximum at their
-    last)."""
+    last."""
     lab, keep, px_x, px_y, valid = (a.numpy() for a in
                                     (lab, keep, px_x, px_y, valid))
     t, f = lab.shape
     tiles = -(-f // tile)
     lin = (px_y.astype(np.int64) * w + px_x).astype(np.int32)
-    rank = np.full((t, f), -12345, np.int64)        # written at roots only
+    tile_roots = np.full((t, f), -12345, np.int64)   # written at ranks only
     counts = np.zeros((t, tiles), np.int64)
+    firsts = np.full((t, tiles), np.iinfo(np.int32).max, np.int64)
     for fr in range(t):
         for k in range(tiles):
             t0 = k * tile
             if not valid[fr, t0]:
                 continue
             sl = slice(t0, min(t0 + tile, f))
-            root = keep[fr, sl] & (lab[fr, sl] == lin[fr, sl])
-            before = np.cumsum(root) - root
-            rank[fr, sl] = np.where(root, before, rank[fr, sl])
-            counts[fr, k] = root.sum()
-    out = {'n_components': np.zeros(t, np.int32)}
+            root = valid[fr, sl] & keep[fr, sl] & (lab[fr, sl] == lin[fr, sl])
+            roots = lin[fr, sl][root]
+            tile_roots[fr, t0:t0 + len(roots)] = roots
+            counts[fr, k] = len(roots)
+            firsts[fr, k] = lin[fr, t0]
+    # offsets, in place
+    n_comp = counts.sum(1)
+    offsets = np.cumsum(counts, 1) - counts
+    out = {'n_components': n_comp.astype(np.int32)}
     comp = np.full((t, f), f, np.int64)
+    for fr in range(t):
+        for i in np.nonzero(keep[fr])[0]:
+            label = int(lab[fr, i])
+            hi = i // tile
+            lo = min(max(i - int(lin[fr, i]) + label, 0) // tile, hi)
+            while lo < hi:
+                mid = (lo + hi + 1) >> 1
+                if firsts[fr, mid] <= label:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            o = offsets[fr, lo]
+            a = 0
+            b = (offsets[fr, lo + 1] if lo + 1 < tiles else n_comp[fr]) - o - 1
+            lst = tile_roots[fr, lo * tile:]
+            while a < b:
+                mid = (a + b) >> 1
+                if lst[mid] < label:
+                    a = mid + 1
+                else:
+                    b = mid
+            assert lst[a] == label, (fr, i, label)
+            comp[fr, i] = n_comp[fr] - 1 - (o + a)
     if row_tables is not None:
         md, mbh = row_tables['max_det'], row_tables['max_bh']
         rmin = np.full((t * md, mbh), lb.BIG_I, np.int64)
         rmax = np.full((t * md, mbh), -lb.BIG_I, np.int64)
         rval = np.zeros((t * md, mbh), bool)
         min_y = np.full(t * md, lb.BIG_I, np.int64)
-    for fr in range(t):
-        off = np.cumsum(counts[fr]) - counts[fr]
-        n_comp = int(counts[fr].sum())
-        out['n_components'][fr] = n_comp
-        for i in np.nonzero(keep[fr])[0]:
-            label = int(lab[fr, i])
-            lo, hi = max(0, i - (int(lin[fr, i]) - label)), i
-            while lo < hi:
-                mid = (lo + hi) >> 1
-                if lin[fr, mid] < label:
-                    lo = mid + 1
-                else:
-                    hi = mid
-            c = n_comp - 1 - (off[lo // tile] + rank[fr, lo])
-            comp[fr, i] = c
-            if row_tables is not None and lo == i and c < md:
-                min_y[fr * md + c] = px_y[fr, i]
-        if row_tables is None:
-            continue
-        for s0 in range(0, f, 32):              # a warp's 32 lanes
-            for i in range(s0, min(s0 + 32, f)):
-                c = comp[fr, i]
-                if not keep[fr, i] or c >= md:
-                    continue
-                y, x = px_y[fr, i], px_x[fr, i]
+        for fr in range(t):
+            for i in np.nonzero(keep[fr] & (lab[fr] == lin[fr]))[0]:
+                if comp[fr, i] < md:
+                    min_y[fr * md + comp[fr, i]] = px_y[fr, i]
+            for s0 in range(0, f, 32):              # a warp's 32 lanes
+                for i in range(s0, min(s0 + 32, f)):
+                    c = comp[fr, i]
+                    if not keep[fr, i] or c >= md:
+                        continue
+                    y, x = px_y[fr, i], px_x[fr, i]
 
-                def same(j):
-                    return (s0 <= j < min(s0 + 32, f) and keep[fr, j] and
-                            comp[fr, j] == c and px_y[fr, j] == y)
-                r = min(max(y - lab[fr, i] // w, 0), mbh - 1)
-                e = (fr * md + c, r)
-                if not same(i - 1):
-                    rmin[e] = min(rmin[e], x)
-                    rval[e] = True
-                if not same(i + 1):
-                    rmax[e] = max(rmax[e], x)
+                    def same(j):
+                        return (s0 <= j < min(s0 + 32, f) and keep[fr, j]
+                                and comp[fr, j] == c and px_y[fr, j] == y)
+                    r = min(max(y - lab[fr, i] // w, 0), mbh - 1)
+                    e = (fr * md + c, r)
+                    if not same(i - 1):
+                        rmin[e] = min(rmin[e], x)
+                        rval[e] = True
+                    if not same(i + 1):
+                        rmax[e] = max(rmax[e], x)
     if ids:
         out['comp'] = comp.astype(np.int32)
     if readback is not None:
@@ -253,12 +270,13 @@ def finish_emulation(lab, keep, px_x, px_y, valid, *, h, w, ids, readback,
     return out
 
 
-@pytest.mark.parametrize('tile', [2048, 64])
+@pytest.mark.parametrize('tile', [2048, 64, 32])
 @pytest.mark.parametrize('name', FINISH_CASES)
 def test_finish_design_matches_plain(name, tile):
     """The kernel's design, emulated at its tile of 2048 slots and at 64
-    (many tiles, roots ranked across them), equal to the plain version
-    for the plane, the ids, the count and every table entry."""
+    and 32 (many tiles, roots ranked across them, offsets in global
+    memory), equal to the plain version for the plane, the ids, the count
+    and every table entry; every root found by its group's one search."""
     case = finish_case(name)
     args = _labels(case)
     kw = _finish_kw(case)

@@ -211,8 +211,6 @@ def load_kernels():
     lib.ysmr_pixel_finish.argtypes = [vp] * 13 + [ci] * 8 + [vp]
     lib.ysmr_pixel_finish_scratch_words.restype = ll
     lib.ysmr_pixel_finish_scratch_words.argtypes = [ci, ci]
-    lib.ysmr_pixel_finish_max_f.restype = ci
-    lib.ysmr_pixel_finish_max_f.argtypes = []
     lib.ysmr_rect_sqrt_mismatches.restype = ci
     lib.ysmr_rect_sqrt_mismatches.argtypes = [vp, ci, vp]
     lib.ysmr_cuda_error_string.restype = ctypes.c_char_p

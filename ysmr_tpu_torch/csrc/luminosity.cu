@@ -33,32 +33,58 @@
 // Design. The build flags allow fma contraction, so the corner arithmetic
 // is written with __dmul_rn, __ddiv_rn, __fmul_rn, __fadd_rn and __fsub_rn,
 // each operation rounded on its own as the plain version's separate torch
-// operations round them. A warp takes 32 consecutive slots: lane k
-// computes slot k's corners, window and walk box (the float64 cos and sin
-// once a slot, not once a lane), then the warp walks the slots one at a
-// time, the slot's corners and box broadcast by shuffles. Only the quad's
-// bounding box clipped to the window and the frame is visited: every
-// member lies in it (the edges run between the corners), so a bacterium
-// costs its box, about 150-400 pixels, not the win x win = 2,304 of the
-// window. The box's pixels are numbered in raster order and dealt to the
-// lanes, 32 consecutive pixels a pass (consecutive bytes of a row, a row
-// and the next where the box is narrow), the lane's (x, y) advanced by the
-// pass's 32 / bw rows and 32 % bw columns. A pixel that passes the cross
-// products skips the edge tests; the edge tests replace each floor
-// division q = floor(n / d) == m by 0 <= n - m * d < d in int64 (exact for
-// the int32 operands of the x-major edges; for the int64 ones of the
-// y-major edges wherever n stays below 2^62, else the division itself).
-// The sum and count are reduced with one __reduce_add_sync each, kept by
-// the slot's lane, which writes the slot's mean at the end. An invalid slot
-// has an empty box; a warp with no valid slot returns at once. No host
-// synchronisation: one launch over all T x D slots.
+// operations round them. One launch over tiles of S consecutive slots (S
+// <= 256; 64 on the dense batch, 32 on the bench batches: 16 blocks an SM
+// or more), a block of 256 threads a tile:
+//   - corners: thread j takes slot j of the tile: its corners (the float64
+//     cos and sin once a slot), window and walk box, the quad's bounding
+//     box clipped to the window and the frame (every member lies in it:
+//     the edges run between the corners), and the box's pixel count (0 for
+//     an invalid slot or an empty box). One block scan of (pixels, boxes)
+//     packed in 64 bits gives each non-empty box its place in the tile's
+//     compact list and its first pixel in the tile's flat list of box
+//     pixels; the box's parameters go to shared memory at that place.
+//   - walk: the flat list is dealt to the 8 warps in contiguous ranges of
+//     32-pixel passes, pixel p to lane p % 32, across box boundaries (no
+//     lane idles at a box's end, and a tile of empty slots walks nothing).
+//     A lane finds its box once (a binary search of the starts) and then
+//     steps forward: the next box where its pixel passes the box's end,
+//     else (x, y) advanced by 32 / bw rows and 32 % bw columns. Its int32
+//     sum and count go to the box's shared totals by two atomics when it
+//     leaves the box (integer sums: the order does not change the bits);
+//     a member's gray is added a pass after its load, which stays in
+//     flight meanwhile. The box's terms (the cross products'
+//     coefficients, 1 / bw, its frame) are computed once by the corners'
+//     thread and read from shared memory.
+//   - membership: the four edge cross products as ex * y + (-ey) * x + k,
+//     two wrapping products each: modulo 2^32 this is the plain version's
+//     int32 (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1), bit for bit,
+//     for any corners. A pixel that fails the orientation's signs takes
+//     the LINE_8 edge tests. Where every corner lies within +-2^13 nothing
+//     of the plain version's int32 arithmetic wraps, and each floor
+//     division's test is a closed form in the cross product c already
+//     computed: for an x-major edge (endpoints ordered as the plain
+//     version orders them, ax0 <= x <= ax0 + |dx|) the pixel is on it iff
+//     2 t lies in [1 - |dx|, |dx|] with t = -sy * c (c of the ordered
+//     endpoints), for a y-major edge likewise with |dy| and t = sy * c,
+//     over the edge's range of the major coordinate; a point edge adds
+//     nothing (its pixel is an endpoint of a neighbouring edge, or every
+//     corner is that pixel and the sign tests hold). Other corners take
+//     the plain version's floor divisions as remainder tests in int64
+//     (exact for the int32 operands of the x-major edges; for the int64
+//     ones of the y-major edges wherever n stays below 2^62, else the
+//     division itself).
+//   - means: thread j writes slot j's mean from its box's totals, 0 for
+//     an invalid slot or an empty box.
+// No host synchronisation, no scratch, nothing the host reads.
 //
 // What bounds it on an H100: the bytes the data needs, the member pixels'
 // gray (a byte each on the pixels-mode upload, four on frames mode's int32
 // gray) and the slots' 21 bytes of rect and flag in and 4 bytes out; about
-// 0.005 ms for the dense batch's 64 x 4096 slots (~180,000 valid, ~150
-// member pixels each). The walk's integer tests and the reductions make it
-// issue-bound well above that.
+// 0.005 ms for the dense batch's 64 x 4096 slots (148,362 valid, ~60
+// member pixels each). The walk's instructions and their latency keep it
+// well above that: a pixel outside the quad takes the edge tests, and a
+// lane entering a new box reloads its terms from shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,9 +92,15 @@
 
 namespace {
 
-constexpr int kWarps = 8;                    // warps a block
+constexpr int kThreads = 256;                // threads a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTile = 256;                // slots a block, at most
 constexpr unsigned kAll = 0xffffffffu;
 constexpr double kPi = 3.141592653589793;    // math.pi
+constexpr int32_t kSane = 1 << 13;           // corner bound of the closed form
+constexpr int kPositive = 1;                 // flags: orientation sign >= 0
+constexpr int kSaneFlag = 2;                 // every corner within +-kSane
+// flags bit 2 + i: edge i is x-major; bit 6 + i: edge i's t is -c
 
 // int32 arithmetic that wraps as torch's int32 tensors do
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
@@ -188,24 +220,45 @@ __device__ __forceinline__ void box_points(float cx, float cy, float w,
   qy[3] = __float2int_rz(__fsub_rn(cy2, y1));
 }
 
+// A non-empty box's terms, in 16-byte groups (one shared load each)
+struct __align__(16) Box {
+  uint4 ex, ney, k;   // edge i's cross product: ex y + ney x + k, mod 2^32
+  int4 lo, len;       // the closed form's ranges
+  int4 geo;           // xlo, ylo, bw, (32 / bw) << 8 | 32 % bw
+  int32_t flags, frame;
+  float inv_bw;       // 1 / bw, rounded
+  int32_t pad;        // to 16 bytes
+};
+
+// A tile's non-empty boxes in shared memory, at their places in the tile's
+// compact list
+struct Boxes {
+  Box box[kMaxTile];
+  int32_t start[kMaxTile + 1];   // first pixel in the tile's flat list
+  int32_t qx[4][kMaxTile], qy[4][kMaxTile];
+  uint32_t sum[kMaxTile], count[kMaxTile];
+  unsigned long long warp_scan[kWarps];
+  int32_t n, pixels;
+};
+
 template <typename Gray>
-__global__ void __launch_bounds__(kWarps * 32)
-rect_mean_kernel(const Gray* __restrict__ gray, const float* __restrict__ p_cx,
-                 const float* __restrict__ p_cy, const float* __restrict__ p_w,
-                 const float* __restrict__ p_h,
-                 const float* __restrict__ p_angle,
-                 const uint8_t* __restrict__ valid, float* __restrict__ out,
-                 int64_t total, int d, int img_h, int img_w, int win) {
-  const int lane = threadIdx.x & 31;
-  const int64_t base =
-      (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * 32;
-  if (base >= total) return;
-  const int64_t slot = base + lane;
-  const bool mine = slot < total && valid[slot];
-  // lane k: its slot's corners and walk box (empty where invalid)
+__global__ void __launch_bounds__(kThreads, 4)
+rect_mean_tiles(const Gray* __restrict__ gray, const float* __restrict__ p_cx,
+                const float* __restrict__ p_cy, const float* __restrict__ p_w,
+                const float* __restrict__ p_h,
+                const float* __restrict__ p_angle,
+                const uint8_t* __restrict__ valid, float* __restrict__ out,
+                int64_t total, int tile, int d, int img_h, int img_w,
+                int win) {
+  __shared__ Boxes s;
+  const int j = threadIdx.x, lane = j & 31, warp = j >> 5;
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int64_t slot = tile0 + j;
+  const bool in = j < tile && slot < total;
+  // corners: thread j, slot j of the tile
   int32_t qx[4] = {0, 0, 0, 0}, qy[4] = {0, 0, 0, 0};
-  int32_t xlo = 0, xhi = -1, ylo = 0, yhi = -1;
-  if (mine) {
+  int32_t xlo = 0, ylo = 0, bw = 0, n = 0;
+  if (in && valid[slot]) {
     box_points(p_cx[slot], p_cy[slot], p_w[slot], p_h[slot], p_angle[slot],
                qx, qy);
     const int32_t mnx = min(min(qx[0], qx[1]), min(qx[2], qx[3]));
@@ -217,89 +270,252 @@ rect_mean_kernel(const Gray* __restrict__ gray, const float* __restrict__ p_cx,
     // the window holds x_org .. x_org + win - 1 (int64: no wrap for any win)
     xlo = max(mnx, x_org);
     ylo = max(mny, y_org);
-    xhi = static_cast<int32_t>(min3(mxx, int64_t(x_org) + win - 1,
-                                    int64_t(img_w) - 1));
-    yhi = static_cast<int32_t>(min3(mxy, int64_t(y_org) + win - 1,
-                                    int64_t(img_h) - 1));
-  }
-  const unsigned busy = __ballot_sync(kAll, mine && xlo <= xhi && ylo <= yhi);
-  uint32_t my_sum = 0;
-  int32_t my_count = 0;
-  for (unsigned left = busy; left != 0; left &= left - 1) {
-    const int j = __ffs(left) - 1;
-    int32_t x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[i] = __shfl_sync(kAll, qx[i], j);
-      y[i] = __shfl_sync(kAll, qy[i], j);
+    const int32_t xhi = static_cast<int32_t>(
+        min3(mxx, int64_t(x_org) + win - 1, int64_t(img_w) - 1));
+    const int32_t yhi = static_cast<int32_t>(
+        min3(mxy, int64_t(y_org) + win - 1, int64_t(img_h) - 1));
+    if (xlo <= xhi && ylo <= yhi) {
+      bw = xhi - xlo + 1;
+      n = bw * (yhi - ylo + 1);  // below 2^30: the entry bounds the window
     }
-    const int32_t bx0 = __shfl_sync(kAll, xlo, j);
-    const int32_t bx1 = __shfl_sync(kAll, xhi, j);
-    const int32_t by0 = __shfl_sync(kAll, ylo, j);
-    const int32_t by1 = __shfl_sync(kAll, yhi, j);
+  }
+  // each box's place in the compact list and first pixel: one block scan
+  // of (pixels << 9 | box)
+  const unsigned long long mine =
+      (static_cast<unsigned long long>(n) << 9) | (n > 0 ? 1u : 0u);
+  unsigned long long inc = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long u = __shfl_up_sync(kAll, inc, o);
+    if (lane >= o) inc += u;
+  }
+  if (lane == 31) s.warp_scan[warp] = inc;
+  __syncthreads();
+  unsigned long long before = 0;
+  for (int k = 0; k < warp; ++k) before += s.warp_scan[k];
+  const unsigned long long excl = before + inc - mine;
+  const int q = static_cast<int>(excl & 511u);
+  if (j == kThreads - 1) {
+    const unsigned long long all = before + inc;
+    s.n = static_cast<int32_t>(all & 511u);
+    s.pixels = static_cast<int32_t>(all >> 9);
+    s.start[s.n] = s.pixels;
+  }
+  if (n > 0) {
+    s.start[q] = static_cast<int32_t>(excl >> 9);
+    Box& bx = s.box[q];
+    bx.geo = make_int4(xlo, ylo, bw, ((32 / bw) << 8) | (32 % bw));
+    bx.frame = static_cast<int32_t>(slot / d);
+    bx.inv_bw = __frcp_rn(static_cast<float>(bw));
     // orientation: the int64 sum of the int32 (wrapping) edge terms
     int64_t area2 = 0;
+    bool sane = true;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int k = (i + 1) & 3;
-      area2 += wsub(wmul(x[i], y[k]), wmul(x[k], y[i]));
+      area2 += wsub(wmul(qx[i], qy[k]), wmul(qx[k], qy[i]));
+      sane = sane && qx[i] >= -kSane && qx[i] <= kSane && qy[i] >= -kSane &&
+             qy[i] <= kSane;
     }
-    const bool positive = area2 >= 0;
-    int32_t ex[4], ey[4];
-    Edge edge[4];
+    int flags = (area2 >= 0 ? kPositive : 0) | (sane ? kSaneFlag : 0);
+    uint32_t ex[4], ney[4], kk[4];
+    int32_t lo[4], len[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int k = (i + 1) & 3;
-      ex[i] = wsub(x[k], x[i]);
-      ey[i] = wsub(y[k], y[i]);
-      edge[i] = make_edge(x[i], y[i], x[k], y[k]);
+      s.qx[i][q] = qx[i];
+      s.qy[i][q] = qy[i];
+      // the cross product's terms: c = ex * y + (-ey) * x + (ey * x_i -
+      // ex * y_i), modulo 2^32
+      const uint32_t ey = static_cast<uint32_t>(qy[k]) - qy[i];
+      ex[i] = static_cast<uint32_t>(qx[k]) - qx[i];
+      ney[i] = 0u - ey;
+      kk[i] = ey * static_cast<uint32_t>(qx[i]) -
+              ex[i] * static_cast<uint32_t>(qy[i]);
+      // the closed form's range and sign (read only where sane)
+      const Edge e = make_edge(qx[i], qy[i], qx[k], qy[k]);
+      const bool swap =
+          (qx[k] < qx[i]) || ((qx[k] == qx[i]) && (qy[k] < qy[i]));
+      lo[i] = INT32_MIN;               // a point edge: no pixel
+      len[i] = 0;
+      bool neg = false;
+      if (!e.point) {
+        if (e.x_major) {
+          lo[i] = e.ax0;
+          len[i] = e.adx;
+          neg = e.sy > 0;              // t = -sy * c
+          flags |= 4 << i;
+        } else {
+          lo[i] = e.sy > 0 ? e.ay0 : wsub(e.ay0, e.ady);
+          len[i] = e.ady;
+          neg = e.sy < 0;              // t = sy * c
+        }
+        if (swap) neg = !neg;          // c of the ordered endpoints is -c
+      }
+      if (neg) flags |= 64 << i;
     }
-    const int32_t bw = bx1 - bx0 + 1;
-    const int32_t n = bw * (by1 - by0 + 1);
-    const int32_t step_y = 32 / bw, step_x = 32 % bw;
-    int32_t px = bx0 + lane % bw, py = by0 + lane / bw;
-    const int64_t frame = (base + j) / d;
-    const Gray* g = gray + frame * img_h * static_cast<int64_t>(img_w);
-    uint32_t sum = 0;
-    uint32_t count = 0;
-    for (int32_t idx = lane; idx < n; idx += 32) {
-      bool member = true;
+    bx.ex = make_uint4(ex[0], ex[1], ex[2], ex[3]);
+    bx.ney = make_uint4(ney[0], ney[1], ney[2], ney[3]);
+    bx.k = make_uint4(kk[0], kk[1], kk[2], kk[3]);
+    bx.lo = make_int4(lo[0], lo[1], lo[2], lo[3]);
+    bx.len = make_int4(len[0], len[1], len[2], len[3]);
+    bx.flags = flags;
+    s.sum[q] = 0;
+    s.count[q] = 0;
+  }
+  __syncthreads();
+  const int32_t pixels = s.pixels;
+  if (pixels > 0) {
+    // walk: the warp's contiguous range of 32-pixel passes
+    const int passes = (pixels + 31) >> 5;
+    const int pass0 = static_cast<int>(static_cast<int64_t>(warp) * passes /
+                                       kWarps);
+    const int pass1 = static_cast<int>(
+        static_cast<int64_t>(warp + 1) * passes / kWarps);
+    const int64_t frame_px = static_cast<int64_t>(img_h) * img_w;
+    const Gray* g = gray;
+    int b = -1;                        // the lane's box
+    int32_t end = 0, px = 0, py = 0, x_end = 0, wb = 1, sx = 0, sy = 0;
+    int flags = 0;
+    uint32_t ex[4], ney[4], kk[4];
+    uint32_t sum = 0, count = 0;
+    uint32_t held = 0;  // the last pass's gray, added a pass late: its load
+                        // stays in flight through this pass
+    for (int pass = pass0; pass < pass1; ++pass) {
+      const int32_t p = pass * 32 + lane;
+      if (p >= pixels) break;
+      sum += held;
+      held = 0;
+      if (p >= end) {
+        // the next box: its totals out, its parameters in
+        if (b >= 0) {
+          atomicAdd(&s.sum[b], sum);
+          atomicAdd(&s.count[b], count);
+        }
+        if (b < 0) {
+          int lo = 0, hi = s.n - 1;    // the last box starting at or before p
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (s.start[mid] <= p) {
+              lo = mid;
+            } else {
+              hi = mid - 1;
+            }
+          }
+          b = lo;
+        } else {
+          do {
+            ++b;
+          } while (s.start[b + 1] <= p);
+        }
+        end = s.start[b + 1];
+        const Box& bx = s.box[b];
+        const int4 geo = bx.geo;
+        wb = geo.z;
+        const int32_t r = p - s.start[b];
+        // r / wb: below 2^21 the rounded 1 / wb times r + 1/2 lies within
+        // 2^-22 relative of the quotient, which sits at least 1 / (2 wb)
+        // from an integer
+        const int32_t row =
+            r < (1 << 21)
+                ? __float2int_rz(__fmul_rn(__int2float_rn(r) + 0.5f,
+                                           bx.inv_bw))
+                : r / wb;
+        px = geo.x + (r - row * wb);
+        py = geo.y + row;
+        x_end = geo.x + wb;
+        sy = geo.w >> 8;
+        sx = geo.w & 255;
+        flags = bx.flags;
+        const uint4 e4 = bx.ex, n4 = bx.ney, k4 = bx.k;
+        ex[0] = e4.x;
+        ex[1] = e4.y;
+        ex[2] = e4.z;
+        ex[3] = e4.w;
+        ney[0] = n4.x;
+        ney[1] = n4.y;
+        ney[2] = n4.z;
+        ney[3] = n4.w;
+        kk[0] = k4.x;
+        kk[1] = k4.y;
+        kk[2] = k4.z;
+        kk[3] = k4.w;
+        g = gray + bx.frame * frame_px;
+        sum = 0;
+        count = 0;
+      } else {
+        px += sx;
+        py += sy;
+        if (px >= x_end) {
+          px -= wb;
+          ++py;
+        }
+      }
+      // the cross products, modulo 2^32 the plain version's int32 ones
+      int32_t c[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int32_t cross = wsub(wmul(ex[i], wsub(py, y[i])),
-                                   wmul(ey[i], wsub(px, x[i])));
-        member = member && (positive ? cross >= 0 : cross <= 0);
+        c[i] = static_cast<int32_t>(ex[i] * static_cast<uint32_t>(py) +
+                                    ney[i] * static_cast<uint32_t>(px) +
+                                    kk[i]);
       }
+      bool member = (flags & kPositive)
+                        ? min(min(c[0], c[1]), min(c[2], c[3])) >= 0
+                        : max(max(c[0], c[1]), max(c[2], c[3])) <= 0;
       if (!member) {
-        member = on_edge(edge[0], px, py) || on_edge(edge[1], px, py) ||
-                 on_edge(edge[2], px, py) || on_edge(edge[3], px, py);
+        if (flags & kSaneFlag) {
+          const int4 lo4 = s.box[b].lo, len4 = s.box[b].len;
+          const int32_t los[4] = {lo4.x, lo4.y, lo4.z, lo4.w};
+          const int32_t lens[4] = {len4.x, len4.y, len4.z, len4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t u =
+                static_cast<uint32_t>(((flags >> (2 + i)) & 1) ? px : py) -
+                static_cast<uint32_t>(los[i]);
+            const uint32_t len = static_cast<uint32_t>(lens[i]);
+            const int32_t t = ((flags >> (6 + i)) & 1) ? -c[i] : c[i];
+            member = member ||
+                     (u <= len && static_cast<uint32_t>(2 * t) + len - 1u <=
+                                      2u * len - 1u);
+          }
+        } else {
+          int32_t x[4], y[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            x[i] = s.qx[i][b];
+            y[i] = s.qy[i][b];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = (i + 1) & 3;
+            member = member || on_edge(make_edge(x[i], y[i], x[k], y[k]),
+                                       px, py);
+          }
+        }
       }
       if (member) {
-        sum += static_cast<uint32_t>(
+        held = static_cast<uint32_t>(
             static_cast<int32_t>(g[static_cast<int64_t>(py) * img_w + px]));
         ++count;
       }
-      px += step_x;
-      py += step_y;
-      if (px > bx1) {
-        px -= bw;
-        ++py;
-      }
     }
-    sum = __reduce_add_sync(kAll, sum);
-    count = __reduce_add_sync(kAll, count);
-    if (lane == j) {
-      my_sum = sum;
-      my_count = static_cast<int32_t>(count);
+    sum += held;
+    if (b >= 0) {
+      atomicAdd(&s.sum[b], sum);
+      atomicAdd(&s.count[b], count);
     }
   }
-  if (slot < total) {
-    out[slot] = my_count > 0
-                    ? __fmul_rn(__fdiv_rn(__int2float_rn(
-                                              static_cast<int32_t>(my_sum)),
-                                          __int2float_rn(my_count)),
-                                0.01f)
-                    : 0.0f;
+  __syncthreads();
+  if (in) {
+    float m = 0.0f;
+    if (n > 0) {
+      const int32_t c = static_cast<int32_t>(s.count[q]);
+      if (c > 0) {
+        const float sum = __int2float_rn(static_cast<int32_t>(s.sum[q]));
+        m = __fmul_rn(__fdiv_rn(sum, __int2float_rn(c)), 0.01f);
+      }
+    }
+    out[slot] = m;
   }
 }
 
@@ -309,23 +525,34 @@ extern "C" {
 
 // gray: (T, H, W) uint8 (gray_bytes 1) or int32 (gray_bytes 4); cx, cy, w,
 // h, angle: (T, D) float32; valid: (T, D) uint8 (0/1); out: (T, D) float32.
-// Returns a cudaError_t (cudaErrorInvalidValue for another gray type or a
-// window below 1).
+// Returns a cudaError_t (cudaErrorInvalidValue for another gray type, a
+// window below 1, or a window of 2^30 pixels or more inside the frame).
 int ysmr_rect_mean_lum(const void* gray, int gray_bytes, const void* cx,
                        const void* cy, const void* w, const void* h,
                        const void* angle, const void* valid, void* out, int t,
                        int d, int img_h, int img_w, int win, int device,
                        void* stream) {
-  if (win < 1 || (gray_bytes != 1 && gray_bytes != 4)) {
+  const int64_t box = static_cast<int64_t>(min(win, max(img_w, 0))) *
+                      min(win, max(img_h, 0));
+  if (win < 1 || (gray_bytes != 1 && gray_bytes != 4) ||
+      box >= (int64_t(1) << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t total = static_cast<int64_t>(t) * d;
   if (total <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t per_block = static_cast<int64_t>(kWarps) * 32;
-  const unsigned blocks =
-      static_cast<unsigned>((total + per_block - 1) / per_block);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a tile's flat list stays below 2^30 pixels; smaller tiles, down to 32
+  // slots, until the batch gives 16 blocks an SM (short walks a warp, and
+  // the blocks' uneven work spread finely over the SMs)
+  int tile = kMaxTile;
+  while (tile > 1 && tile * box >= (int64_t(1) << 30)) tile >>= 1;
+  while (tile > 32 && (total + tile - 1) / tile < 16LL * sms) tile >>= 1;
+  const int64_t blocks = (total + tile - 1) / tile;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fcx = static_cast<const float*>(cx);
   const float* fcy = static_cast<const float*>(cy);
@@ -335,13 +562,15 @@ int ysmr_rect_mean_lum(const void* gray, int gray_bytes, const void* cx,
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   float* o = static_cast<float*>(out);
   if (gray_bytes == 1) {
-    rect_mean_kernel<uint8_t><<<blocks, kWarps * 32, 0, s>>>(
-        static_cast<const uint8_t*>(gray), fcx, fcy, fw, fh, fa, v, o, total,
-        d, img_h, img_w, win);
+    rect_mean_tiles<uint8_t><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               s>>>(static_cast<const uint8_t*>(gray), fcx,
+                                    fcy, fw, fh, fa, v, o, total, tile, d,
+                                    img_h, img_w, win);
   } else {
-    rect_mean_kernel<int32_t><<<blocks, kWarps * 32, 0, s>>>(
-        static_cast<const int32_t*>(gray), fcx, fcy, fw, fh, fa, v, o, total,
-        d, img_h, img_w, win);
+    rect_mean_tiles<int32_t><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               s>>>(static_cast<const int32_t*>(gray), fcx,
+                                    fcy, fw, fh, fa, v, o, total, tile, d,
+                                    img_h, img_w, win);
   }
   return static_cast<int>(cudaGetLastError());
 }

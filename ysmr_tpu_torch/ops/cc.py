@@ -13,7 +13,7 @@ always reaches the fixpoint). The plain PyTorch versions are
 ``ops/labeling.py::label_components`` and ``::propagate_markers``, and
 ``cc_labels_at_pixels_plain`` here.
 
-After the pixel kernel, ``pixel_finish`` (``csrc/pixel_finish.cu``, two
+After the pixel kernel, ``pixel_finish`` (``csrc/pixel_finish.cu``, three
 launches; plain version ``pixel_finish_plain``) turns its labels into the
 dense component ids and count, and on request the host-rect batch's int16
 readback plane or the device rects' row tables: the torch sequence of
@@ -322,11 +322,12 @@ def pixel_finish(lab_fg, keep, px_x, px_y, valid, *, h, w, ids=False,
     """The pixel-table branch's finish after ``cc_labels_at_pixels``.
 
     On a CUDA tensor the kernel ``csrc/pixel_finish.cu`` (a roots launch,
-    which also fills the row tables, and an ids launch; counted as one
-    call): no torch operation between the labels and what the host copies
-    or the hull reads. It needs ``cc_labels_at_pixels``' contract: each
-    frame's valid pixels a prefix of its list in strictly ascending
-    ``y*w + x``, inside the frame. On a CPU tensor ``pixel_finish_plain``.
+    which also fills the row tables, an offsets launch and an ids launch;
+    counted as one call): no torch operation between the labels and what
+    the host copies or the hull reads, and any F. It needs
+    ``cc_labels_at_pixels``' contract: each frame's valid pixels a prefix
+    of its list in strictly ascending ``y*w + x``, inside the frame. On a
+    CPU tensor ``pixel_finish_plain``.
 
     :param lab_fg, keep: ``cc_labels_at_pixels``' outputs, (T, F) int32 and
         bool
@@ -368,9 +369,6 @@ def pixel_finish(lab_fg, keep, px_x, px_y, valid, *, h, w, ids=False,
     _check_finish_modes(name, f, readback, row_tables)
     dev = lab_fg.device
     lib = _build.load_kernels()
-    if f > lib.ysmr_pixel_finish_max_f():
-        raise ValueError('{}: more than {} pixels a frame'.format(
-            name, lib.ysmr_pixel_finish_max_f()))
     out = {'n_components': torch.empty((t,), dtype=torch.int32, device=dev)}
     if ids:
         out['comp'] = torch.empty((t, f), dtype=torch.int32, device=dev)
@@ -389,7 +387,7 @@ def pixel_finish(lab_fg, keep, px_x, px_y, valid, *, h, w, ids=False,
     def ptr(key):
         return out[key].data_ptr() if key in out else None
 
-    # the roots' in-tile ranks and the tiles' counts
+    # the tiles' lists of root lins, counts (then offsets) and first lins
     scratch = torch.empty(lib.ysmr_pixel_finish_scratch_words(t, f),
                           dtype=torch.int32, device=dev)
     rc = lib.ysmr_pixel_finish(

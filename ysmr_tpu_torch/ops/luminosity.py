@@ -10,8 +10,9 @@ window per detection.
 
 On a CUDA tensor ``rect_mean_luminosity`` is one launch of the
 hand-written kernel ``csrc/luminosity.cu`` over all T x D slots of a batch
-(a warp walks 32 slots one after another, each over its quad's bounding
-box clipped to the window; no host synchronisation); on a CPU tensor
+(a block a tile of slots: their corners, then the tile's box pixels, each
+quad's bounding box clipped to the window, walked as one flat list by all
+its warps; no host synchronisation); on a CPU tensor
 ``rect_mean_luminosity_plain``, the torch sequence. The kernel and the
 plain version give the same bits.
 
@@ -187,11 +188,12 @@ def rect_mean_luminosity(gray, cx, cy, w, h, angle_deg, valid, *, win=48):
     """Mean gray over each detection's filled rotated rectangle, / 100.
 
     On a CUDA tensor one launch of ``csrc/luminosity.cu`` over every slot
-    (an invalid one gives 0 at once; no host synchronisation); it takes
-    contiguous tensors, the gray frames as uint8 (the pixels-mode upload)
-    or int32 (frames mode's preprocess), and raises on anything else. On a
-    CPU tensor ``rect_mean_luminosity_plain``, which takes any integer
-    gray.
+    (an invalid one gives 0; no host synchronisation); it takes contiguous
+    tensors, the gray frames as uint8 (the pixels-mode upload) or int32
+    (frames mode's preprocess), and a window of fewer than 2^30 pixels
+    inside the frame, and raises on anything else. On a CPU tensor
+    ``rect_mean_luminosity_plain``, which takes any integer gray and
+    window.
 
     :param gray: (T, H, W) integer grayscale frames
     :param cx, cy, w, h, angle_deg: (T, D) float32 rect parameters
@@ -222,6 +224,9 @@ def rect_mean_luminosity(gray, cx, cy, w, h, angle_deg, valid, *, win=48):
                                  name, gray.device))
     if int(win) < 1:
         raise ValueError('{}: win must be at least 1'.format(name))
+    if min(int(win), img_w) * min(int(win), img_h) >= 1 << 30:
+        raise ValueError('{}: a window of 2^30 pixels or more inside the '
+                         'frame'.format(name))
     d = cx.shape[1]
     out = torch.empty((t, d), dtype=_F32, device=gray.device)
     lib = _build.load_kernels()
