@@ -3358,10 +3358,15 @@ def conv_mean(img):
 
 #: phase 28's frames for the fused pass besides the scenes'
 #: (tests/test_torch_preprocess.py's MASK_SHAPES and its W % 4 != 0 batch):
-#: the 64 x 128 tiles crossed, 2 rows, 2 columns, one row, one column, one
-#: pixel, byte-wise loads and stores
+#: bands and 112-column strips crossed, 2 rows, 2 columns, one row, one
+#: column, one pixel, byte-wise loads and stores; one row past a band with
+#: one lane group past a strip (words), two bands and a row with one
+#: column past a strip (bytes), one band of two strips and 2 columns; at
+#: full width one row past a band and the bench width plus one column
 MASK_EDGES = ((3, 70, 133), (3, 2, 130), (3, 67, 2), (2, 130, 260),
-              (3, 1, 130), (3, 67, 1), (3, 1, 1), (2, 921, 1227))
+              (3, 1, 130), (3, 67, 1), (3, 1, 1), (2, 921, 1227),
+              (2, 65, 116), (2, 129, 113), (2, 64, 226), (2, 65, 1228),
+              (2, 922, 1229))
 #: (mode, white on dark, offset, double delta, gray) of the fused checks
 #: besides the bench configuration: both rules, white and dark, offsets on
 #: both sides of the ceil and floor edges, with and without the gray
@@ -3560,18 +3565,26 @@ def phase_adaptive_mean(scene, settings, dscene, dev):
         'launch), bit for bit')
     lib = _build.load_kernels()
     img = detect.prepare_batch(bgr)[1]
-    for kernel, call in (
-            ('masks_kernel', lambda: pp.adaptive_masks_from_bgr(
-                bgr, valid, *(bench_rule[i] for i in (0, 2, 3, 1)))),
-            ('mean_kernel', lambda: pp.adaptive_gaussian_mean(img))):
-        ptx = ptxas_of(lib.build_log, 'adaptive_mean.cu', kernel)
-        args = launch_args(call, kernel)
-        rec = {'kernel': kernel, 'source': 'adaptive_mean.cu'}
+    # (name, ptxas' entry, threads a block, call): the fused entry's bench
+    # instantiation (words, two rules) without and with the gray
+    for name, entry, threads, call in (
+            ('masks_kernel', 'masks_kernelILb1ELb1ELb0E', 32,
+             lambda: pp.adaptive_masks_from_bgr(
+                 bgr, valid, *(bench_rule[i] for i in (0, 2, 3, 1)))),
+            ('masks_kernel with the gray', 'masks_kernelILb1ELb1ELb1E', 32,
+             lambda: pp.adaptive_masks_from_bgr(
+                 bgr, valid, *(bench_rule[i] for i in (0, 2, 3, 1)),
+                 want_gray=True)),
+            ('mean_kernel', 'mean_kernel', 128,
+             lambda: pp.adaptive_gaussian_mean(img))):
+        ptx = ptxas_of(lib.build_log, 'adaptive_mean.cu', entry)
+        args = launch_args(call, name.split()[0])
+        rec = {'kernel': name, 'source': 'adaptive_mean.cu'}
         if ptx is not None:
             regs, spill, _ = ptx
             smem = int(args.get('shared memory') or 0)
             rec.update(registers=regs, spill_stores=spill, shared_bytes=smem,
-                       occupancy_allowed=resident_share(regs, smem, 128))
+                       occupancy_allowed=resident_share(regs, smem, threads))
         rec['achieved_occupancy_pct'] = args.get(
             'est. achieved occupancy %')
         log('adaptive mean resources ' + json.dumps(rec))

@@ -127,51 +127,110 @@ def _reflect101_clamped(v, n):
     return np.clip(v, 0, n - 1)
 
 
-def _tiled_masks(bgr, valid, mode, c_offset, double_delta, white):
-    """csrc/adaptive_mean.cu's ysmr_adaptive_masks, tile by tile, in numpy
-    and the plain version's float32 chains (``ds.fma_f32``): the gray
-    window (rows from y0 - 6, columns from x0 - 8, both mapped by
-    reflect-101 then clamped), the blur as (S + 8) >> 4 over it, the
-    window's rows and then columns outside the frame copied from the
-    frame's edge row and column, the strips' mean chains, the rules as
-    (acc + 0.5 < blur - bound) != dark (white keeps blur - floor(acc +
-    0.5) > bound), zeros for an invalid frame."""
+#: csrc/adaptive_mean.cu's fused pass: a warp's output columns (lanes 2-29
+#: of 4 columns), the halo columns left of them (lanes 0 and 1), the output
+#: rows of a band at most
+STRIP_W, STRIP_HALO, BAND_MAX = 112, 8, 64
+
+
+def _lane_gray(gray, rows, x0, w, words):
+    """The gray of frame rows ``rows`` (mapped by reflect-101) as a warp's
+    lanes form it: lane l's 4 columns x0 + 4 l .. + 3 (the word path reads
+    the groups inside the frame and has zeros elsewhere; the byte path
+    reads every column at its reflect-101 column), then columns x - 1 and
+    x + 4 from lanes l - 1 and l + 1 (``__shfl_up`` / ``__shfl_down``:
+    lanes 0 and 31 get their own word), on the word path column 1 for x =
+    0 and column w - 2 for x + 4 = w. Returns (n, rows, 32, 6): each
+    lane's columns x - 1 .. x + 4."""
+    cols = x0 + np.arange(4 * 32)
+    g = gray[:, rows]
+    if words:
+        inside = (cols >= 0) & (cols < w)
+        g = np.where(inside, g[:, :, np.clip(cols, 0, w - 1)], 0)
+    else:
+        g = g[:, :, _reflect101_clamped(cols, w)]
+    g = g.reshape(g.shape[:2] + (32, 4))
+    lw = np.concatenate([g[:, :, :1, 3], g[:, :, :-1, 3]], axis=2)
+    rw = np.concatenate([g[:, :, 1:, 0], g[:, :, -1:, 0]], axis=2)
+    if words:
+        x = x0 + 4 * np.arange(32)
+        lw = np.where(x == 0, g[..., 1], lw)
+        rw = np.where(x + 4 == w, g[..., 2], rw)
+    return np.concatenate([lw[..., None], g, rw[..., None]], axis=-1)
+
+
+def _tiled_masks(bgr, valid, mode, c_offset, double_delta, white,
+                 words=None):
+    """csrc/adaptive_mean.cu's ysmr_adaptive_masks, warp by warp, in numpy
+    and the plain version's float32 chains (``ds.fma_f32``). A warp takes
+    a band of output rows (the frame's rows in ceil(H / 64) bands of equal
+    height, the last shorter) of a 112-column strip whose lanes hold the
+    columns from 8 left of it: the window rows y0 - 5 .. y0 + rows + 4,
+    each the blurred row clamp(y), from gray rows reflect-101(b - 1), b,
+    reflect-101(b + 1) formed as the lanes form them (``_lane_gray``), the
+    [1 2 1] sums by lane, (S + 8) >> 4; columns left of the frame take
+    column 0 and columns from W on column W - 1 (the edge strips'
+    ``__shfl``); the horizontal chains of lanes 2-29 over columns x - 5 ..
+    x + 8, the vertical chains over the band's window rows; the rules in
+    16-bit lanes, bit 15 of blur + 0x8100 - T - mean with T = 257 + bound
+    clamped to 0 .. 512 and mean = floor(acc + 0.5) as the low byte of
+    (acc + 0.5) + 2^23 rounded down, != dark (white keeps blur - mean >
+    bound), zeros for an invalid frame; the gray as the lanes formed it.
+    ``words``: the word path (default W % 4 == 0), else the byte path."""
     n, h, w, _ = bgr.shape
+    words = w % 4 == 0 if words is None else words
     k = [torch.tensor(v, dtype=torch.float32) for v in pp._K11_F32]
     dark = not white
     bounds = [pp._rule_bound(-c_offset, white)]
     if mode == 'adaptive_double':
         bounds.append(pp._rule_bound(-(c_offset + double_delta), white))
     outs = [np.zeros((n, h, w), bool) for _ in bounds]
+    gray_out = np.zeros((n, h, w), np.int32)
     b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
     gray = (b * 3735 + g * 19235 + r * 9798 + 16384) >> 15
-    for y0 in range(0, h, TILE_H):
-        for x0 in range(0, w, TILE_W):
-            gy = _reflect101_clamped(np.arange(y0 - 6, y0 + TILE_H + 6), h)
-            gx = _reflect101_clamped(np.arange(x0 - 8, x0 + TILE_W + 8), w)
-            gw = gray[:, gy][:, :, gx]
-            hs = gw[..., 2:-2] + 2 * gw[..., 3:-1] + gw[..., 4:]
-            s = hs[:, :-2] + 2 * hs[:, 1:-1] + hs[:, 2:]
-            win = (s + 8) >> 4                 # (n, TILE_H + 10, TILE_W + 12)
-            top, bottom = 5 - y0, h - 1 - y0 + 5
-            if top > 0:
-                win[:, :top] = win[:, top:top + 1]
-            if bottom < win.shape[1] - 1:
-                win[:, bottom + 1:] = win[:, bottom:bottom + 1]
-            left, right = 5 - x0, w - 1 - x0 + 5
-            if left > 0:
-                win[:, :, :left] = win[:, :, left:left + 1]
-            if right < win.shape[2] - 1:
-                win[:, :, right + 1:] = win[:, :, right:right + 1]
-            winf = torch.from_numpy(win.astype(np.float32))
-            half = (_strip_means(winf[..., :TILE_W + 10], k) + 0.5).numpy()
-            blur = win[:, 5:TILE_H + 5, 5:TILE_W + 5].astype(np.float32)
-            th, tw = min(TILE_H, h - y0), min(TILE_W, w - x0)
+    bands = -(-h // BAND_MAX)
+    band = -(-h // bands)
+    for y0 in range(0, h, band):
+        rows = min(band, h - y0)
+        for s0 in range(0, w, STRIP_W):
+            x0 = s0 - STRIP_HALO
+            # gray rows b - 1 .. b + 1 of every blurred row b of the window
+            first = max(y0 - 5, 0)
+            last = min(y0 + rows + 4, h - 1)
+            gi = np.arange(first - 1, last + 2)
+            ext = _lane_gray(gray, _reflect101_clamped(gi, h), x0, w, words)
+            hs = (ext[..., :4] + 2 * ext[..., 1:5] + ext[..., 2:6]).reshape(
+                n, len(gi), 4 * 32)
+            blur_rows = (hs[:, :-2] + 2 * hs[:, 1:-1] + hs[:, 2:] + 8) >> 4
+            ys = np.clip(np.arange(y0 - 5, y0 + rows + 5), 0, h - 1)
+            win = blur_rows[:, ys - first]           # (n, rows + 10, 128)
+            v = win.copy()
+            if x0 < 0:
+                v[..., :-x0] = v[..., -x0:1 - x0]
+            if x0 + 4 * 32 > w:
+                v[..., w - x0:] = v[..., w - 1 - x0:w - x0]
+            acc = pp._taps11(pp._taps11(
+                torch.from_numpy(v.astype(np.float32)), -1, k), -2, k)
+            cols = slice(STRIP_HALO - 5, STRIP_HALO - 5 + STRIP_W)
+            half = acc[..., cols].numpy() + np.float32(0.5)
+            # the low byte of half + 2^23 rounded down (to the float32 grid
+            # of spacing 1 there)
+            mean = np.floor(half.astype(np.float64) + 2 ** 23).astype(
+                np.int64) - 2 ** 23
+            blur = win[:, 5:rows + 5, STRIP_HALO:STRIP_HALO + STRIP_W]
+            tw = min(STRIP_W, w - s0)
             for out, bound in zip(outs, bounds):
-                keep = ((half < blur - np.float32(bound)) != dark) & \
-                    valid[:, None, None]
-                out[:, y0:y0 + th, x0:x0 + tw] = keep[:, :th, :tw]
-    return outs[0], outs[1] if len(outs) > 1 else None, gray.astype(np.int32)
+                # a 16-bit lane of blur + rule - mean: bit 15 set where
+                # blur - mean > bound
+                lane = blur + (0x8100 - min(max(257 + bound, 0), 512)) - mean
+                assert lane.min() >= 0x7E01 and lane.max() <= 0x81FF
+                keep = (((lane >> 15) & 1) == 1) != dark
+                out[:, y0:y0 + rows, s0:s0 + tw] = \
+                    (keep & valid[:, None, None])[:, :, :tw]
+            lanes = ext[:, y0 - first + 1:y0 - first + 1 + rows, :, 1:5]
+            gray_out[:, y0:y0 + rows, s0:s0 + tw] = lanes.reshape(
+                n, rows, 4 * 32)[:, :, STRIP_HALO:STRIP_HALO + tw]
+    return outs[0], outs[1] if len(outs) > 1 else None, gray_out
 
 
 @pytest.mark.parametrize('shape', [(1, 1, 1), (3, 7, 5), (2, 70, 150)])
@@ -221,11 +280,15 @@ def test_adaptive_mean_kernel_matches_plain_on_cuda(rng):
         assert torch.equal(got, want), (shape, span)
 
 
-#: frames of the fused pass: crossing the kernel's 64 x 128 tiles, 2 rows,
-#: 2 columns, one row, one column, one pixel, W % 4 != 0 (its byte-wise
-#: loads and stores)
+#: frames of the fused pass: crossing the kernel's bands and strips, 2
+#: rows, 2 columns, one row, one column, one pixel, W % 4 != 0 (its
+#: byte-wise loads and stores); one row past a band (BAND_MAX + 1) with a
+#: strip and one 4-column lane group (the word path), two bands and a row
+#: with one column past a strip (the byte path at the strip's edge), one
+#: band of two strips and 2 columns
 MASK_SHAPES = [(3, 70, 133), (3, 2, 130), (3, 67, 2), (2, 130, 260),
-               (3, 1, 130), (3, 67, 1), (3, 1, 1)]
+               (3, 1, 130), (3, 67, 1), (3, 1, 1), (2, 65, 116),
+               (2, 129, 113), (2, 64, 226)]
 #: (offset, double threshold delta): fractional offsets on both sides of
 #: the ceil and floor edges
 MASK_OFFSETS = [(2.5, 1.25), (-1.5, 2.0), (5, 0.5)]
@@ -276,21 +339,25 @@ def test_adaptive_masks_plain_matches_jitted_jax(rng, shape, mode, white):
 
 @pytest.mark.parametrize('shape', MASK_SHAPES)
 def test_adaptive_masks_tiled_design_matches_plain(rng, shape):
-    """The fused kernel's tiles, halo maps, edge copies and strips give the
-    plain version's bits, both rules, white and dark, a padding frame."""
+    """The fused kernel's bands and strips, its lanes' gray words and
+    neighbour columns, the clamped window rows and edge columns and its
+    chains give the plain version's bits, both rules, white and dark, a
+    padding frame; W % 4 == 0 frames on the byte path too."""
     bgr = _bgr(rng, shape)
     valid = MASK_VALID[:shape[0]]
     for mode, white in (('adaptive_double', True), ('adaptive_double', False),
                         ('adaptive', True)):
         for c_offset, delta in MASK_OFFSETS:
-            got = _tiled_masks(bgr, valid, mode, c_offset, delta, white)
             want = pp.adaptive_masks_from_bgr_plain(
                 torch.from_numpy(bgr), torch.from_numpy(valid), mode,
                 c_offset, delta, white, want_gray=True)
-            for g, w in zip(got, want):
-                assert (g is None) == (w is None)
-                if g is not None:
-                    np.testing.assert_array_equal(g, _np(w))
+            for words in {shape[2] % 4 == 0, False}:
+                got = _tiled_masks(bgr, valid, mode, c_offset, delta, white,
+                                   words)
+                for g, w in zip(got, want):
+                    assert (g is None) == (w is None)
+                    if g is not None:
+                        np.testing.assert_array_equal(g, _np(w))
 
 
 def _byte(x, i):
@@ -322,7 +389,11 @@ def test_adaptive_masks_packed_arithmetic():
     for floor(fl(acc + 0.5)) < blur - bound at every float32 acc within
     2^11 ulps of each half-integer in [0, 256) and at seeded ones. The
     shortcut acc < blur - (bound + 0.5) is not the same: at acc =
-    0.49999997, acc + 0.5 rounds to 1."""
+    0.49999997, acc + 0.5 rounds to 1. The fused pass's own steps: the
+    gray's [1 2 1] in 16-bit lanes from a lane's word and its neighbours'
+    edge bytes (funnel shifts), the reflect-101 words at the frame's
+    edges, the mean as the low byte of (acc + 0.5) + 2^23 rounded down,
+    and the rules in 16-bit lanes for every blur, mean and bound."""
     rng = np.random.default_rng(7)
     corners = np.stack(np.meshgrid(*[[0, 1, 254, 255]] * 3, indexing='ij'),
                        -1).reshape(-1, 3)
@@ -383,6 +454,76 @@ def test_adaptive_masks_packed_arithmetic():
             np.testing.assert_array_equal(got, want)
     tie = np.float32(0.49999997)
     assert np.floor(tie + np.float32(0.5)) == 1 and tie < np.float32(0.5)
+    # the fused pass's gray row: a lane's 4 columns in g, column x - 1 in
+    # byte 3 of lw and x + 4 in byte 0 of rw (the neighbour lanes' words,
+    # their other bytes whatever they hold), by two funnel shifts, [1 2 1]
+    # in 16-bit lanes; at the frame's edges g << 16 puts column 1 in byte 3
+    # and g >> 16 column w - 2 in byte 0
+    g6 = rng.integers(0, 256, (1 << 16, 6)).astype(np.uint32)
+    g6[:1000] = 255
+    junk = rng.integers(0, 1 << 24, (2, len(g6))).astype(np.uint32)
+    g = sum(g6[:, 1 + j] << np.uint32(8 * j) for j in range(4)).astype(
+        np.uint32)
+    lw = (g6[:, 0] << np.uint32(24)) | junk[0]
+    rw = g6[:, 5] | (junk[1] << np.uint32(8))
+    zero = np.zeros_like(g)
+
+    def sums121(lw, g, rw):
+        left = ((lw.astype(np.uint64) | g.astype(np.uint64) << np.uint64(32))
+                >> np.uint64(24)).astype(np.uint32)
+        right = ((g.astype(np.uint64) | rw.astype(np.uint64) << np.uint64(32))
+                 >> np.uint64(8)).astype(np.uint32)
+        return [(_byte_perm(left, zero, sel) + 2 * _byte_perm(g, zero, sel) +
+                 _byte_perm(right, zero, sel)).astype(np.uint32)
+                for sel in (0x4240, 0x4341)]
+
+    def lanes_of(e, o):
+        lo, hi = np.uint32(0xFFFF), np.uint32(16)
+        return np.stack([e & lo, o & lo, e >> hi, o >> hi], 1)
+
+    np.testing.assert_array_equal(
+        lanes_of(*sums121(lw, g, rw)),
+        g6[:, :4] + 2 * g6[:, 1:5] + g6[:, 2:6])
+    edge = g6.copy()
+    edge[:, 0], edge[:, 5] = g6[:, 2], g6[:, 3]
+    np.testing.assert_array_equal(
+        lanes_of(*sums121(g << np.uint32(16), g, g >> np.uint32(16))),
+        edge[:, :4] + 2 * edge[:, 1:5] + edge[:, 2:6])
+    # the fused pass's rules: mean = floor(acc + 0.5) as the low byte of
+    # (acc + 0.5) + 2^23 rounded down, at the accs near half-integers above
+    # (a mean of bytes: acc + 0.5 < 256)
+    half = half[half < 256]
+    exact = half.astype(np.float64) + 2 ** 23
+    down = exact.astype(np.float32)
+    down = np.where(down.astype(np.float64) > exact,
+                    np.nextafter(down, np.float32(-np.inf)), down)
+    bits = down.view(np.uint32)
+    assert np.all(bits >> np.uint32(8) == np.uint32(0x4B0000))
+    np.testing.assert_array_equal(bits & np.uint32(255), np.floor(half))
+    # then per 16-bit lane (columns x and x + 2 in the even word, x + 1 and
+    # x + 3 in the odd one) blur + (0x8100 - T) - mean, T = 257 + bound
+    # clamped to 0 .. 512, has bit 15 set where blur - mean > bound, for
+    # every blur, mean and bound; __byte_perm(even, odd, 0x7351) >> 7
+    # puts column x + q's bit in byte q
+    blur, mean = (v.ravel().astype(np.uint32) for v in np.meshgrid(
+        np.arange(256), np.arange(256), indexing='ij'))
+    n4 = len(blur) // 4
+    b4, m4 = blur.reshape(n4, 4), mean.reshape(n4, 4)
+    for bound in (-pp._BOUND_LIMIT, -258, -257, -256, -7, -1, 0, 3, 254, 255,
+                  256, pp._BOUND_LIMIT):
+        k = np.uint32((0x8100 - min(max(257 + bound, 0), 512)) * 0x00010001)
+        even = (b4[:, 0] | b4[:, 2] << np.uint32(16)) + k - \
+            (m4[:, 0] | m4[:, 2] << np.uint32(16))
+        odd = (b4[:, 1] | b4[:, 3] << np.uint32(16)) + k - \
+            (m4[:, 1] | m4[:, 3] << np.uint32(16))
+        for v in (even & np.uint32(0xFFFF), even >> np.uint32(16),
+                  odd & np.uint32(0xFFFF), odd >> np.uint32(16)):
+            assert v.min() >= 0x7E01 and v.max() <= 0x81FF
+        word = (_byte_perm(even, odd, 0x7351) >> np.uint32(7)) & \
+            np.uint32(0x01010101)
+        want = b4.astype(np.int64) - m4 > bound
+        np.testing.assert_array_equal(
+            np.stack([_byte(word, q) for q in range(4)], 1), want)
 
 
 def test_adaptive_masks_wrapper_on_cpu(rng):

@@ -45,54 +45,44 @@
 // which products are rounded. The rules compare blur - mean with integer
 // bounds the host computes (-ceil(C) for white on dark, -floor(C) for
 // dark): white keeps diff > bound, dark diff <= bound, i.e. (diff > bound)
-// xor dark; both sides are small integers, exact in float32.
+// xor dark. The masks kernel takes floor(acc + 0.5) as the low byte of
+// (acc + 0.5) + 2^23 rounded down and compares in 16-bit integer lanes.
 //
-// Design: one block of 128 threads per (frame, 64-row x 128-column output
-// tile), frames on the grid's z axis (in launches of at most 65,535).
-//   1. (masks) The gray window of the tile, 76 x 144 bytes in shared memory
-//      (origin 6 rows up and 8 columns left, so a thread's 4 pixels are 12
-//      aligned bytes of a BGR row: three 4-byte loads; 16-byte vectors do
-//      not fit a 3W-byte row). A warp takes every fourth window row, a lane
-//      one 4-pixel group of it, ten rows' loads in flight; groups 32-35 of
-//      each row follow. The gray of a group is eight 16 x 8-bit dot
-//      products (__dp2a_lo/hi) and three byte permutes. Rows and columns
-//      outside the frame map by reflect-101; a group that crosses the
-//      frame's edge, and every group when W % 4 != 0, is read pixel by
-//      pixel.
-//      (mean) The int32 input at the clamped window positions, as float32,
-//      a warp a row, four rows' loads in flight.
-//   2. (masks) The blurred window, 74 x 140 float32: each thread slides a
-//      4-column group down a third of the rows, its [1 2 1] sums in 16-bit
-//      lanes of a word (columns 0 and 2, 1 and 3), the blur turned to
-//      float32 under the exponent of 2^23. Window rows and columns outside
-//      the frame are then copied from the frame's edge row and column (the
-//      clamp), in the edge tiles only.
-//   3. The mean: each thread owns 4 output columns of a 16-row strip and
+// Design of ysmr_adaptive_mean: one block of 128 threads per (frame,
+// 64-row x 128-column output tile), frames on the grid's z axis (in
+// launches of at most 65,535).
+//   1. The int32 input at the clamped window positions, as float32, into
+//      a 74 x 140 window in shared memory, a warp a row, four rows' loads
+//      in flight.
+//   2. The mean: each thread owns 4 output columns of a 16-row strip and
 //      slides down the strip's 26 window rows: per row three 16-byte and
 //      one 8-byte shared load give the 14 values of its 4 horizontal
 //      chains, whose sums go into an 11-row ring in registers (the loop is
 //      unrolled 11 times so the ring's slots are fixed registers); from the
-//      11th row on, the vertical chain of each column reads the ring. The
-//      epilogue writes the int32 mean (16 bytes a row) or compares with the
-//      blurred centre and stores 4 mask bytes (and 4 marker bytes) as one
-//      32-bit word when W % 4 == 0. The masks kernel is instantiated for
-//      white or dark and for one or two rules.
-// The mean-threshold entries (below the masks kernel) have designs of their
-// own, at their kernels. No allocation and no host synchronisation, so a
-// launch can be captured in a CUDA graph (ysmr_mean_prepare's memset of its
-// sums and row table included).
+//      11th row on, the vertical chain of each column reads the ring and
+//      the int32 mean is written, 16 bytes a row.
+// ysmr_adaptive_masks (at masks_kernel) is one warp a band of a 112-column
+// strip that forms gray, blur and the mean in registers as it slides down
+// the band, no shared memory and no barrier; the mean-threshold entries
+// (below it) have designs of their own, at their kernels. No allocation
+// and no host synchronisation, so a launch can be captured in a CUDA graph
+// (ysmr_mean_prepare's memset of its sums and row table included).
 //
 // What bounds it on an H100. The data's bound is bytes: ysmr_adaptive_masks
 // moves 3 bytes in and 2 out a pixel (+ 4 with the gray), at 64 x 922 x
 // 1228 362.4 MB, 0.108 ms at 3.35 TB/s (652 MB, 0.195 ms with the gray);
 // ysmr_adaptive_mean 4 + 4 bytes a pixel, 579.7 MB, 0.173 ms. Neither
-// kernel reaches it: the mean's 22 fmas a pixel and each phase's integer
-// work run in phases that a block's barriers serialise, with 4 blocks of
-// 4 warps an SM (shared memory and about 90 registers a thread allow no
-// more). Timing each phase inside the kernel showed the gray phase
-// lasting as long with its loads and arithmetic taken out: the phases
-// compete for issue, and the kernel is bound by issue and latency, not by
-// bytes.
+// kernel reaches it: both issue more instructions than the SMs retire in
+// the bytes' time. ysmr_adaptive_masks' 22 fmas a pixel (11 of them 1.16
+// times for the band's halo rows) and its integer gray, blur and rules,
+// all 1.14 times for the halo lanes, come to about 275 executed
+// instructions a lane and window row, counted from its SASS: 209 M warp
+// instructions at the bench batch, 0.20 ms at the SMs' issue rate at 1.98
+// GHz. It is bound by issue: 0.257 ms on an H100 at 700 W (88 registers,
+// 23 warps an SM; 24 warps at 80 registers were 1% faster without the
+// gray and 4% slower with it). The former design, blocks of 128 threads
+// over 64 x 128 tiles in three phases between barriers, 4 blocks an SM,
+// issued about as many and left the SMs idle at its barriers (0.465 ms).
 // ysmr_mean_prepare moves 3 bytes in and 1 out a pixel (+ 4 with the
 // gray), 289.9 MB at the bench batch, 0.087 ms at 3.35 TB/s (0.173 ms with
 // the gray); ysmr_mean_masks 1 in and 1 out, 144.9 MB, 0.043 ms. Both are
@@ -122,16 +112,10 @@ constexpr int kGroups = kTileW / 4;             // 4-column groups of a row
 constexpr int kThreads = kGroups * (kTileH / kStrip);
 constexpr int kBH = kTileH + 2 * kRadius;       // rows of the mean's window
 constexpr int kBW = kTileW + 12;                // its 138 columns, padded to 4
-constexpr int kGH = kBH + 2;                    // gray rows (the blur's halo)
-constexpr int kGW = kBW + 4;                    // gray columns, origin x0 - 8
-constexpr int kBStrips = 3;                     // row strips of the blur
-constexpr int kBRows = (kBH + kBStrips - 1) / kBStrips;
 constexpr int kMeanSmem = kBH * kBW * 4;
-constexpr int kMasksSmem = kMeanSmem + kGH * kGW;
 constexpr int kMaxFrames = 65535;
 
-static_assert(kThreads == 128, "phase 3 gives every thread one strip");
-static_assert((kBW / 4) * kBStrips <= kThreads, "phase 2 is one pass");
+static_assert(kThreads == 128, "the mean gives every thread one strip");
 
 struct Taps {
   float k[kTaps];
@@ -163,8 +147,9 @@ __device__ __forceinline__ uint32_t gray2_of(uint32_t b, uint32_t g,
   return b * 7470u + g * 38470u + r * 19596u + 32768u;
 }
 
-// Phase 3: this thread's 4 columns (window column c) down the strip whose
-// first window row is row0, rows_out output rows; emit(i, acc) per row.
+// The int32 mean's second phase: this thread's 4 columns (window column c)
+// down the strip whose first window row is row0, rows_out output rows;
+// emit(i, acc) per row.
 template <class Emit>
 __device__ __forceinline__ void mean_strip(const float* win, int row0,
                                            int rows_out, int c,
@@ -272,10 +257,20 @@ struct MaskArgs {
   uint8_t* mask;
   uint8_t* markers;  // null: single threshold
   int* gray;         // null: not asked for
-  float bound_mask, bound_marker;
+  // each rule's 0x8100 - T in both 16-bit lanes, T = 257 + bound clamped
+  // to 0 .. 512: blur + this - mean has bit 15 set where blur - mean > bound
+  uint32_t rule_mask, rule_marker;
   int h, w;
-  int words;  // 4-byte BGR loads and 32-bit mask stores (W % 4 == 0)
+  int dark;          // 1 keeps diff <= bound, 0 diff > bound
+  int band;          // output rows of a band (the last may hold fewer)
+  int strips;        // 112-column strips of a frame
 };
+
+constexpr int kStripW = 112;                    // output columns of a warp
+constexpr int kStripHalo = 8;                   // columns left of them
+constexpr int kBandMax = 64;                    // output rows of a band
+static_assert(kStripW + 2 * kStripHalo == 4 * 32,
+              "a warp's lanes cover a strip and its halo");
 
 // gray2_of of 4 pixels from their 12 BGR bytes (little-endian words
 // B0 G0 R0 B1 | G1 R1 B2 G2 | R2 B3 G3 R3), two 16 x 8-bit dot products a
@@ -290,73 +285,6 @@ __device__ __forceinline__ void gray2_words(const uint32_t* wd,
   g2[1] = __dp2a_lo(kGR, q, __dp2a_hi(kB, p, 32768u));
   g2[2] = __dp2a_lo(kR, r, __dp2a_hi(kBG, q, 32768u));
   g2[3] = __dp2a_hi(kGR, r, __dp2a_lo(kB, r, 32768u));
-}
-
-// gray2_of of the 4 pixels from column x of a BGR row, each column mapped
-// by reflect-101: the groups at the frame's edges and every group when
-// W % 4 != 0. Out of line, as are the other rare paths below: the unrolled
-// loops hold the common path only.
-__device__ __noinline__ uint4 gray2_pixels(const uint8_t* row, int x, int w) {
-  uint32_t g2[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint8_t* px = row + 3 * reflect101(x + j, w);
-    g2[j] = gray2_of(px[0], px[1], px[2]);
-  }
-  return make_uint4(g2[0], g2[1], g2[2], g2[3]);
-}
-
-__device__ __noinline__ void store_gray(int* dst, const uint32_t* g2, int x,
-                                        int w, int words) {
-  const int gv[4] = {static_cast<int>(g2[0] >> 16),
-                     static_cast<int>(g2[1] >> 16),
-                     static_cast<int>(g2[2] >> 16),
-                     static_cast<int>(g2[3] >> 16)};
-  if (words) {
-    *reinterpret_cast<int4*>(dst) = make_int4(gv[0], gv[1], gv[2], gv[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (x + j < w) dst[j] = gv[j];
-  }
-}
-
-// One 4-pixel group of the gray window (window row gr, group k, first
-// pixel column x): `fast` groups from the words loaded into wd, the others
-// pixel by pixel through reflect-101; stored as 4 bytes, and as int32 gray
-// where it is a tile pixel and the gray is asked for.
-__device__ __forceinline__ void gray_group(const MaskArgs& a,
-                                           const uint8_t* bgr, uint8_t* g8,
-                                           int64_t frame, int y0, int gr,
-                                           int k, int x, bool fast,
-                                           const uint32_t* wd) {
-  const int h = a.h, w = a.w;
-  uint32_t g2[4];
-  if (fast) {
-    gray2_words(wd, g2);
-  } else {
-    const uint4 v = gray2_pixels(
-        bgr + static_cast<int64_t>(reflect101(y0 - 6 + gr, h)) * w * 3, x, w);
-    g2[0] = v.x;
-    g2[1] = v.y;
-    g2[2] = v.z;
-    g2[3] = v.w;
-  }
-  reinterpret_cast<uint32_t*>(g8)[gr * (kGW / 4) + k] =
-      __byte_perm(__byte_perm(g2[0], g2[1], 0x0062),
-                  __byte_perm(g2[2], g2[3], 0x0062), 0x5410);
-  const int y = y0 - 6 + gr;
-  if (a.gray && gr >= 6 && gr < 6 + kTileH && k >= 2 && k < 2 + kGroups &&
-      y < h && x < w)
-    store_gray(a.gray + frame + static_cast<int64_t>(y) * w + x, g2, x, w,
-               a.words);
-}
-
-__device__ __forceinline__ const uint32_t* bgr_words(const uint8_t* bgr,
-                                                     int h, int w, int y,
-                                                     int x) {
-  return reinterpret_cast<const uint32_t*>(
-      bgr + (static_cast<int64_t>(reflect101(y, h)) * w + x) * 3);
 }
 
 // The bytes of mask (and markers) words at columns x .. x + 3 below w.
@@ -383,213 +311,280 @@ __device__ __forceinline__ float lane_float(uint32_t v, uint32_t sel) {
                    8388608.0f);
 }
 
-// Phase 1 of the masks kernel: the gray window of the tile at (y0, x0),
-// rows y0 - 6 .., columns x0 - 8 .., 36 groups of 4 pixels a row, into g8
-// (and the int32 gray of the tile's pixels where a.gray is set). A warp
-// takes rows warp, warp + 4, ..., a lane group lane of each, ten rows'
-// loads in flight; then groups 32-35.
-__device__ __forceinline__ void gray_window(const MaskArgs& a,
-                                            const uint8_t* bgr, uint8_t* g8,
-                                            int64_t frame, int y0, int x0) {
-  const int h = a.h, w = a.w;
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kRows = (kGH + kWarps - 1) / kWarps, kBatch = 10;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int x = x0 - 8 + 4 * lane;
-  const bool fast = a.words && x >= 0 && x + 4 <= w;
-  for (int n0 = 0; n0 < kRows; n0 += kBatch) {
-    uint32_t wd[kBatch][3];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int gr = min(warp + kWarps * (n0 + u), kGH - 1);
-      if (fast) {
-        const uint32_t* p = bgr_words(bgr, h, w, y0 - 6 + gr, x);
-        wd[u][0] = __ldg(p);
-        wd[u][1] = __ldg(p + 1);
-        wd[u][2] = __ldg(p + 2);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int gr = warp + kWarps * (n0 + u);
-      if (n0 + u < kRows && gr < kGH)
-        gray_group(a, bgr, g8, frame, y0, gr, lane, x, fast, wd[u]);
-    }
+// gray2_of of the 4 pixels at the byte offsets col3 of a BGR row: the path
+// of W % 4 != 0 and of misaligned frames, each column already mapped by
+// reflect-101 (and clamped) where it lies outside the frame.
+__device__ __noinline__ uint4 gray2_at(const uint8_t* row, const int* col3) {
+  uint32_t g2[4];
+  for (int j = 0; j < 4; ++j) {
+    const uint8_t* px = row + col3[j];
+    g2[j] = gray2_of(px[0], px[1], px[2]);
   }
-  constexpr int kTail = kGW / 4 - 32, kTailItems = kGH * kTail;
-  constexpr int kTailRounds = (kTailItems + kThreads - 1) / kThreads;
-  uint32_t wd[kTailRounds][3];
-#pragma unroll
-  for (int u = 0; u < kTailRounds; ++u) {
-    const int item = threadIdx.x + u * kThreads;
-    const int xt = x0 - 8 + 4 * (32 + item % kTail);
-    if (item < kTailItems && a.words && xt >= 0 && xt + 4 <= w) {
-      const uint32_t* p = bgr_words(bgr, h, w, y0 - 6 + item / kTail, xt);
-      wd[u][0] = __ldg(p);
-      wd[u][1] = __ldg(p + 1);
-      wd[u][2] = __ldg(p + 2);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kTailRounds; ++u) {
-    const int item = threadIdx.x + u * kThreads;
-    const int xt = x0 - 8 + 4 * (32 + item % kTail);
-    if (item < kTailItems)
-      gray_group(a, bgr, g8, frame, y0, item / kTail, 32 + item % kTail, xt,
-                 a.words && xt >= 0 && xt + 4 <= w, wd[u]);
-  }
+  return make_uint4(g2[0], g2[1], g2[2], g2[3]);
 }
 
-// Phase 2 of the masks kernel: the blurred window from the gray window.
-// Window row r, column c is the blur at (y0 - 5 + r, x0 - 5 + c), from
-// gray rows r .. r + 2, columns c + 2 .. c + 4. A thread takes a 4-column
-// group down a third of the rows; its [1 2 1] sums run in 16-bit lanes
-// (columns 0 and 2, 1 and 3), at most 4080, and each row's blur goes to
-// emit(r, c, even, odd): the blur of columns c and c + 2 in the 16-bit
-// lanes of even, of c + 1 and c + 3 in those of odd, each below 256.
-template <class Emit>
-__device__ __forceinline__ void blur_window(const uint8_t* g8, Emit emit) {
-  if (threadIdx.x < (kBW / 4) * kBStrips) {
-    const int c = 4 * (threadIdx.x % (kBW / 4));
-    const int r0 = (threadIdx.x / (kBW / 4)) * kBRows;
-    const int r1 = min(r0 + kBRows, kBH);
-    auto hsum = [&](int gr, uint32_t& even, uint32_t& odd) {
-      const uint32_t lo =
-          *reinterpret_cast<const uint32_t*>(g8 + gr * kGW + c);
-      const uint32_t hi =
-          *reinterpret_cast<const uint32_t*>(g8 + gr * kGW + c + 4);
-      const uint32_t p = __funnelshift_r(lo, hi, 16);  // gray c+2 .. c+5
-      const uint32_t q = __funnelshift_r(lo, hi, 24);  // gray c+3 .. c+6
-      even = lanes16(p, 0x4240) + 2 * lanes16(q, 0x4240) +
-             lanes16(hi, 0x4240);
-      odd = lanes16(p, 0x4341) + 2 * lanes16(q, 0x4341) + lanes16(hi, 0x4341);
-    };
-    uint32_t e0, o0, e1, o1;
-    hsum(r0, e0, o0);
-    hsum(r0 + 1, e1, o1);
-#pragma unroll 5
-    for (int r = r0; r < r1; ++r) {
-      uint32_t e2, o2;
-      hsum(r + 2, e2, o2);
-      const uint32_t be = ((e0 + 2 * e1 + e2 + 0x00080008u) >> 4) &
-                          0x0FFF0FFFu;
-      const uint32_t bo = ((o0 + 2 * o1 + o2 + 0x00080008u) >> 4) &
-                          0x0FFF0FFFu;
-      emit(r, c, be, bo);
-      e0 = e1;
-      o0 = o1;
-      e1 = e2;
-      o1 = o2;
-    }
-  }
+__device__ __noinline__ void store_gray_bytes(int* dst, uint32_t g, int x,
+                                              int w) {
+  for (int j = 0; j < 4 && x + j < w; ++j)
+    dst[j] = static_cast<int>((g >> (8 * j)) & 0xFFu);
 }
 
-template <bool kDark, bool kDouble>
-__global__ void __launch_bounds__(kThreads, 4)
-masks_kernel(MaskArgs a, Taps taps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* win = reinterpret_cast<float*>(smem);
-  uint8_t* g8 = smem + kMeanSmem;
+// Frames mode's fused preprocess. A block is one warp; it takes a band of
+// up to kBandMax output rows of a 112-column strip of one frame (the
+// frame's rows in equal bands; a block's index names the band and strip,
+// so every branch on them is uniform, with no convergence barrier around
+// the shuffles in it). Lane l holds the 4
+// columns x = x0 - 8 + 4 l .. + 3, so lanes 2-29 own the strip's output
+// columns and lanes 0, 1, 30, 31 form the mean's 5-column halo (lane 0's
+// last and lane 31's first column). The warp slides down the window rows
+// y0 - 5 .. y0 + rows + 4, each the blurred row clamp(y) (the mean's
+// replicated border), and for each new one:
+//   - takes the gray row below it, loaded a step ahead: the gray of the
+//     lane's 4 pixels from three 4-byte BGR words (__dp2a), the columns
+//     x - 1 and x + 4 from the neighbour lanes (__shfl), reflect-101 at the
+//     frame's edges, their [1 2 1] sums in 16-bit lanes;
+//   - forms the blurred row from three such sums (columns x and x + 2,
+//     x + 1 and x + 3 in the lanes of two words), keeps its 4 bytes in an
+//     11-word ring and turns them to float32 under the exponent of 2^23;
+//   - in the strips at the frame's left or right edge, gives columns
+//     outside the frame the blur of the edge column (one __shfl);
+//   - takes columns x - 5 .. x - 1 and x + 4 .. x + 8 from lanes l - 2 ..
+//     l + 2 (ten __shfl) and runs the 4 horizontal chains into an 11-row
+//     ring in registers (the loop is unrolled 11 times so the ring's slots
+//     are fixed registers).
+// From the 11th window row on, each lane runs the vertical chain of its 4
+// columns over the ring, compares the mean with the centre row's blur (its
+// bytes from the word ring) in 16-bit lanes and stores 4 mask bytes (and
+// 4 marker bytes) as one 32-bit word. Window rows past the frame's top or
+// bottom repeat the previous row's sums and bytes. No shared memory and no
+// barrier. kWords: W % 4 == 0 and aligned pointers; otherwise every lane
+// reads its pixels byte by byte at reflect-101 columns and stores bytes.
+// kGray: the int32 gray of the band's rows is stored as they are read.
+template <bool kWords, bool kDouble, bool kGray>
+__global__ void __launch_bounds__(32, 20)
+masks_kernel(MaskArgs a, Taps t) {
   const int h = a.h, w = a.w;
+  const int lane = threadIdx.x;
+  const int band = blockIdx.x / a.strips;
+  const int y0 = band * a.band;
+  const int rows_out = min(a.band, h - y0);
+  const int x0 = (blockIdx.x - band * a.strips) * kStripW - kStripHalo;
+  const int x = x0 + 4 * lane;
   const int64_t plane = static_cast<int64_t>(h) * w;
   const int64_t frame = static_cast<int64_t>(blockIdx.z) * plane;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
+  uint8_t* mask = a.mask + frame;
+  uint8_t* markers = kDouble ? a.markers + frame : nullptr;
+  const bool out = lane >= 2 && lane < 30 && x < w;
   const bool valid = a.valid[blockIdx.z];
-  if (!valid && a.gray == nullptr) {
+  if (!valid && !kGray) {
     // a padding frame: zero masks, no BGR read
-    for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
-      const int y = y0 + i / kTileW, x = x0 + i % kTileW;
-      if (y < h && x < w) {
-        a.mask[frame + static_cast<int64_t>(y) * w + x] = 0;
-        if (kDouble) a.markers[frame + static_cast<int64_t>(y) * w + x] = 0;
+    if (out) {
+      for (int r = 0; r < rows_out; ++r) {
+        const int64_t at = static_cast<int64_t>(y0 + r) * w + x;
+        if constexpr (kWords) {
+          *reinterpret_cast<uint32_t*>(mask + at) = 0u;
+          if (kDouble) *reinterpret_cast<uint32_t*>(markers + at) = 0u;
+        } else {
+          store_mask_bytes(mask + at, markers ? markers + at : nullptr, 0u,
+                           0u, x, w);
+        }
       }
     }
     return;
   }
-
-  // 1. gray window
-  gray_window(a, a.bgr + frame * 3, g8, frame, y0, x0);
-  __syncthreads();
-
-  // 2. blurred window, as float32 through the exponent of 2^23
-  blur_window(g8, [&](int r, int c, uint32_t be, uint32_t bo) {
-    *reinterpret_cast<float4*>(win + r * kBW + c) = make_float4(
-        lane_float(be, 0x7650), lane_float(bo, 0x7650),
-        lane_float(be, 0x7652), lane_float(bo, 0x7652));
-  });
-  __syncthreads();
-  // the clamp: window rows, then columns, outside the frame take the
-  // frame's edge row or column (edge tiles only; block-uniform branches)
-  const int top = kRadius - y0, bottom = h - 1 - y0 + kRadius;
-  if (top > 0 || bottom < kBH - 1) {
-    for (int i = threadIdx.x; i < kBH * kBW; i += kThreads) {
-      const int r = i / kBW;
-      if (r < top) win[i] = win[top * kBW + i % kBW];
-      if (r > bottom) win[i] = win[bottom * kBW + i % kBW];
-    }
-    __syncthreads();
-  }
-  const int left = kRadius - x0, right = w - 1 - x0 + kRadius;
-  if (left > 0 || right < kBW - 1) {
-    for (int i = threadIdx.x; i < kBH * kBW; i += kThreads) {
-      const int r = i / kBW, c = i % kBW;
-      if (c < left) win[i] = win[r * kBW + left];
-      if (c > right) win[i] = win[r * kBW + right];
-    }
-    __syncthreads();
-  }
-
-  // 3. the mean, the rules and & frame_valid. White keeps diff > bound,
-  // i.e. floor(acc + 0.5) < blur - bound, i.e. acc + 0.5 < blur - bound
-  // (blur - bound is an integer; acc + 0.5 rounded first, as the plain
-  // version rounds it); dark keeps the rest. Each comparison's all-ones or
-  // zero word gives one byte of the 4-pixel word.
-  const int s = threadIdx.x / kGroups, c = 4 * (threadIdx.x % kGroups);
-  const int ys = y0 + s * kStrip, x = x0 + c;
-  const int rows_out = min(kStrip, h - ys);
-  if (rows_out <= 0 || x >= w) return;
-  const float bound_mask = a.bound_mask, bound_marker = a.bound_marker;
-  const uint32_t keep = valid ? 0x01010101u : 0u;
-  const uint32_t flip = valid && kDark ? 0x01010101u : 0u;
-  const int64_t first = frame + static_cast<int64_t>(ys) * w + x;
-  mean_strip(win, s * kStrip, rows_out, c, taps,
-             [&](int i, const float* acc) {
-               const float* ctr = win + (s * kStrip + i + kRadius) * kBW + c;
-               const float4 m = *reinterpret_cast<const float4*>(ctr + 4);
-               const float blur[4] = {m.y, m.z, m.w, ctr[8]};
-               uint32_t lt[4], lr[4];
+  const uint8_t* bgr = a.bgr + frame * 3;
+  // the next int32 gray row's (rows y0 .. y0 + rows_out - 1 in order)
+  int* gray = kGray ? a.gray + frame + static_cast<int64_t>(y0) * w + x
+                    : nullptr;
+  const int64_t pitch = static_cast<int64_t>(w) * 3;
+  const bool in = x >= 0 && x < w;  // the word path's loads
+  int col3[4];                      // the byte path's pixel offsets
 #pragma unroll
-               for (int q = 0; q < 4; ++q) {
-                 const float half = __fadd_rn(acc[q], 0.5f);
-                 lt[q] = half < __fsub_rn(blur[q], bound_mask) ? ~0u : 0u;
-                 if (kDouble)
-                   lr[q] = half < __fsub_rn(blur[q], bound_marker) ? ~0u : 0u;
-               }
-               // byte q of the word from lt[q]; then keep or flip its bit
-               const uint32_t mk =
-                   (__byte_perm(__byte_perm(lt[0], lt[1], 0x3250),
-                                __byte_perm(lt[2], lt[3], 0x3250), 0x5410) &
+  for (int j = 0; j < 4; ++j) col3[j] = 3 * reflect101(x + j, w);
+
+  // the words of a BGR row, loaded ahead of their use on the word path
+  uint32_t wd[3] = {0u, 0u, 0u};
+  auto load_row = [&](const uint8_t* row) {
+    if constexpr (kWords) {
+      if (in) {
+        const uint32_t* p = reinterpret_cast<const uint32_t*>(row + 3 * x);
+        wd[0] = __ldg(p);
+        wd[1] = __ldg(p + 1);
+        wd[2] = __ldg(p + 2);
+      }
+    }
+  };
+  // gray row i (at `row`: reflect-101) from the loaded words: its [1 2 1]
+  // sums (columns x and x + 2 in e, x + 1 and x + 3 in o), and the int32
+  // gray where row i is one of the band's
+  auto gray_row = [&](const uint8_t* row, int i, uint32_t& e, uint32_t& o) {
+    uint32_t g2[4];
+    if constexpr (kWords) {
+      gray2_words(wd, g2);
+    } else {
+      const uint4 v = gray2_at(row, col3);
+      g2[0] = v.x;
+      g2[1] = v.y;
+      g2[2] = v.z;
+      g2[3] = v.w;
+    }
+    const uint32_t g = __byte_perm(__byte_perm(g2[0], g2[1], 0x0062),
+                                   __byte_perm(g2[2], g2[3], 0x0062), 0x5410);
+    uint32_t lw = __shfl_up_sync(~0u, g, 1);    // byte 3: column x - 1
+    uint32_t rw = __shfl_down_sync(~0u, g, 1);  // byte 0: column x + 4
+    if constexpr (kWords) {
+      if (x == 0) lw = g << 16;      // reflect-101: column 1
+      if (x + 4 == w) rw = g >> 16;  // column w - 2
+    }
+    const uint32_t left = __funnelshift_r(lw, g, 24);  // x - 1 .. x + 2
+    const uint32_t right = __funnelshift_r(g, rw, 8);  // x + 1 .. x + 4
+    e = lanes16(left, 0x4240) + 2 * lanes16(g, 0x4240) +
+        lanes16(right, 0x4240);
+    o = lanes16(left, 0x4341) + 2 * lanes16(g, 0x4341) +
+        lanes16(right, 0x4341);
+    if (kGray && i >= y0 && i < y0 + rows_out) {
+      if (out) {
+        if constexpr (kWords)
+          *reinterpret_cast<int4*>(gray) = make_int4(
+              g & 0xFF, (g >> 8) & 0xFF, (g >> 16) & 0xFF, g >> 24);
+        else
+          store_gray_bytes(gray, g, x, w);
+      }
+      gray += w;
+    }
+  };
+
+  // the edge strips: columns left of 0 take column 0 (lane 2's first),
+  // columns from w on take column w - 1 (lane er's column ec)
+  const bool left_edge = x0 < 0;
+  const bool right_edge = x0 + 4 * 32 > w;
+  const int er = (w - 1 - x0) >> 2, ec = (w - 1 - x0) & 3;
+
+  const int b_first = max(y0 - kRadius, 0);
+  const int b_last = min(y0 + rows_out - 1 + kRadius, h - 1);
+  uint32_t e0, o0, e1, o1;
+  const uint8_t* row = bgr + reflect101(b_first - 1, h) * pitch;
+  load_row(row);
+  gray_row(row, b_first - 1, e0, o0);
+  row = bgr + b_first * pitch;
+  load_row(row);
+  gray_row(row, b_first, e1, o1);
+  // the row below the next new blurred row
+  row = bgr + reflect101(b_first + 1, h) * pitch;
+  load_row(row);
+
+  const uint32_t rule_mask = a.rule_mask, rule_marker = a.rule_marker;
+  const uint32_t keep = valid ? 0x01010101u : 0u;
+  const uint32_t flip = valid && a.dark ? 0x01010101u : 0u;
+  float ring[kTaps][4];
+  uint32_t bw[kTaps];  // the window rows' blurred bytes
+  const int n = rows_out + 2 * kRadius;
+  int b = b_first;  // the blurred row of the next new window row
+  int64_t at = static_cast<int64_t>(y0) * w + x;  // the next output row's
+  for (int w0 = 0; w0 < n; w0 += kTaps) {
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j) {
+      const int s = w0 + j;  // window row y0 - 5 + s
+      if (s < n) {
+        const int y = y0 - kRadius + s;
+        if (s == 0 || (y >= 1 && y < h)) {
+          // a new blurred row b, from gray rows b - 1 .. b + 1
+          uint32_t e2, o2;
+          gray_row(row, b + 1, e2, o2);
+          if (b + 1 <= b_last) {
+            // row b + 2: below the frame only at b + 2 = h, which
+            // reflect-101 maps to h - 2
+            row += b + 2 < h ? pitch : -pitch;
+            load_row(row);
+          }
+          const uint32_t be = ((e0 + 2 * e1 + e2 + 0x00080008u) >> 4) &
+                              0x0FFF0FFFu;
+          const uint32_t bo = ((o0 + 2 * o1 + o2 + 0x00080008u) >> 4) &
+                              0x0FFF0FFFu;
+          e0 = e1;
+          o0 = o1;
+          e1 = e2;
+          o1 = o2;
+          ++b;
+          bw[j] = __byte_perm(be, bo, 0x6240);
+          float v[4] = {lane_float(be, 0x7650), lane_float(bo, 0x7650),
+                        lane_float(be, 0x7652), lane_float(bo, 0x7652)};
+          if (left_edge) {
+            const float c0 = __shfl_sync(~0u, v[0], 2);
+            if (lane < 2) v[0] = v[1] = v[2] = v[3] = c0;
+          }
+          if (right_edge) {
+            const float sel = ec == 0 ? v[0] : ec == 1 ? v[1]
+                            : ec == 2 ? v[2] : v[3];
+            const float cw = __shfl_sync(~0u, sel, er);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (x + q >= w) v[q] = cw;
+          }
+          // columns x - 5 .. x + 8
+          float u[14];
+          u[0] = __shfl_up_sync(~0u, v[3], 2);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            u[1 + q] = __shfl_up_sync(~0u, v[q], 1);
+            u[5 + q] = v[q];
+            u[9 + q] = __shfl_down_sync(~0u, v[q], 1);
+          }
+          u[13] = __shfl_down_sync(~0u, v[0], 2);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ring[j][q] = chain11(u + q, t);
+        } else {
+          // past the frame's top or bottom: the clamped row again
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ring[j][q] = ring[(j + 10) % kTaps][q];
+          bw[j] = bw[(j + 10) % kTaps];
+        }
+        if (s >= 2 * kRadius) {
+          // output row y0 + s - 10: the ring holds window rows s - 10 .. s,
+          // row s - 10 + i in slot (j + 1 + i) % 11; its centre, row s - 5,
+          // in slot (j + 6) % 11. The mean floor(acc + 0.5) (acc + 0.5
+          // rounded first, as the plain version rounds it) is the low byte
+          // of (acc + 0.5) + 2^23 rounded down. In 16-bit lanes (columns x
+          // and x + 2, x + 1 and x + 3), blur + rule - mean lies in 0x7E01
+          // .. 0x81FF and has bit 15 set where blur - mean > bound: white
+          // keeps those pixels, dark the rest.
+          uint32_t f[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float acc = __fmaf_rn(ring[(j + 1) % kTaps][q], t.k[0],
+                                  __fmul_rn(ring[(j + 2) % kTaps][q], t.k[1]));
+#pragma unroll
+            for (int i = 2; i < kTaps; ++i)
+              acc = __fmaf_rn(ring[(j + 1 + i) % kTaps][q], t.k[i], acc);
+            f[q] = __float_as_uint(
+                __fadd_rd(__fadd_rn(acc, 0.5f), 8388608.0f));
+          }
+          const uint32_t cb = bw[(j + 6) % kTaps];
+          const uint32_t me = __byte_perm(f[0], f[2], 0x5410);
+          const uint32_t mo = __byte_perm(f[1], f[3], 0x5410);
+          const uint32_t ce = lanes16(cb, 0x4240), co = lanes16(cb, 0x4341);
+          // bit 7 of byte q: column x + q; then keep or flip it
+          auto rule = [&](uint32_t k) {
+            return ((__byte_perm(ce + k - me, co + k - mo, 0x7351) >> 7) &
                     keep) ^
                    flip;
-               const uint32_t mr =
-                   kDouble ? (__byte_perm(__byte_perm(lr[0], lr[1], 0x3250),
-                                          __byte_perm(lr[2], lr[3], 0x3250),
-                                          0x5410) &
-                              keep) ^
-                                 flip
-                           : 0u;
-               const int64_t at = first + static_cast<int64_t>(i) * w;
-               if (a.words) {
-                 *reinterpret_cast<uint32_t*>(a.mask + at) = mk;
-                 if (kDouble)
-                   *reinterpret_cast<uint32_t*>(a.markers + at) = mr;
-               } else {
-                 store_mask_bytes(a.mask + at,
-                                  kDouble ? a.markers + at : nullptr, mk, mr,
-                                  x, w);
-               }
-             });
+          };
+          const uint32_t mk = rule(rule_mask);
+          const uint32_t mr = kDouble ? rule(rule_marker) : 0u;
+          if (out) {
+            if constexpr (kWords) {
+              *reinterpret_cast<uint32_t*>(mask + at) = mk;
+              if (kDouble) *reinterpret_cast<uint32_t*>(markers + at) = mr;
+            } else {
+              store_mask_bytes(mask + at, markers ? markers + at : nullptr,
+                               mk, mr, x, w);
+            }
+          }
+          at += w;
+        }
+      }
+    }
+  }
 }
 
 struct PrepareArgs {
@@ -886,6 +881,12 @@ global_threshold_kernel(const uint8_t* __restrict__ blurred,
   }
 }
 
+// The rule's constant of MaskArgs for an integer bound.
+uint32_t rule_lanes(int bound) {
+  const int t = bound < -257 ? 0 : bound > 255 ? 512 : 257 + bound;
+  return static_cast<uint32_t>(0x8100 - t) * 0x00010001u;
+}
+
 Taps taps_of(const float* taps) {
   Taps k;
   for (int i = 0; i < kTaps; ++i) k.k[i] = taps[i];
@@ -924,34 +925,40 @@ int ysmr_adaptive_mean(const void* img, void* out, const float* taps, int t,
 // bgr: (N, H, W, 3) uint8; valid: (N,) bool; mask: (N, H, W) bool;
 // markers: (N, H, W) bool or null (single threshold); gray: (N, H, W) int32
 // or null; all contiguous on CUDA device `device`.
-// taps: as above; bound_mask, bound_marker: the rules' integer bounds;
-// dark: 1 keeps diff <= bound, 0 diff > bound. Launched on `stream`.
-// Returns a cudaError_t (0 = launched).
+// taps: as above; bound_mask, bound_marker: the rules' integer bounds
+// (|bound| <= 2^20); dark: 1 keeps diff <= bound, 0 diff > bound. One
+// launch on `stream` (one per 65,535 frames). Returns a cudaError_t (0 =
+// launched).
 int ysmr_adaptive_masks(const void* bgr, const void* valid, void* mask,
                         void* markers, void* gray, const float* taps,
                         int bound_mask, int bound_marker, int dark, int n,
                         int h, int w, int device, void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0 || h <= 0 || w <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const bool words = w % 4 == 0 && reinterpret_cast<uintptr_t>(bgr) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(mask) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(markers) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(gray) % 16 == 0;
+  void (*const kernels[2][2][2])(MaskArgs, Taps) = {
+      {{masks_kernel<false, false, false>, masks_kernel<false, false, true>},
+       {masks_kernel<false, true, false>, masks_kernel<false, true, true>}},
+      {{masks_kernel<true, false, false>, masks_kernel<true, false, true>},
+       {masks_kernel<true, true, false>, masks_kernel<true, true, true>}}};
   void (*kernel)(MaskArgs, Taps) =
-      dark ? (markers ? masks_kernel<true, true> : masks_kernel<true, false>)
-           : (markers ? masks_kernel<false, true> : masks_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMasksSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+      kernels[words][markers != nullptr][gray != nullptr];
   const Taps k = taps_of(taps);
   const int64_t plane = static_cast<int64_t>(h) * w;
   MaskArgs a{};
-  a.bound_mask = static_cast<float>(bound_mask);
-  a.bound_marker = static_cast<float>(bound_marker);
+  a.rule_mask = rule_lanes(bound_mask);
+  a.rule_marker = rule_lanes(bound_marker);
   a.h = h;
   a.w = w;
-  a.words = w % 4 == 0 && reinterpret_cast<uintptr_t>(bgr) % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(mask) % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(markers) % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(gray) % 16 == 0;
+  a.dark = dark;
+  const int bands = (h + kBandMax - 1) / kBandMax;
+  a.band = (h + bands - 1) / bands;
+  a.strips = (w + kStripW - 1) / kStripW;
+  const unsigned blocks = static_cast<unsigned>(bands) * a.strips;
   for (int z = 0; z < n; z += kMaxFrames) {
     const int frames = n - z < kMaxFrames ? n - z : kMaxFrames;
     a.bgr = static_cast<const uint8_t*>(bgr) + z * plane * 3;
@@ -960,10 +967,8 @@ int ysmr_adaptive_masks(const void* bgr, const void* valid, void* mask,
     a.markers = markers ? static_cast<uint8_t*>(markers) + z * plane
                         : nullptr;
     a.gray = gray ? static_cast<int*>(gray) + z * plane : nullptr;
-    const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH,
-                    frames);
-    kernel<<<grid, kThreads, kMasksSmem, static_cast<cudaStream_t>(stream)>>>(
-        a, k);
+    kernel<<<dim3(blocks, 1, frames), 32, 0,
+             static_cast<cudaStream_t>(stream)>>>(a, k);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
