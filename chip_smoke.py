@@ -341,15 +341,39 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    ms and bound of each, and the registers, spills, shared memory and
    occupancy of each of the two kernels' launches (``rect_mean_tiles``;
    ``finish_roots``, ``finish_offsets``, ``finish_ids``: a ``lum kernels
-   resources`` line).
+   resources`` line);
+37. ``use table cc``: the table CC kernel (``csrc/table_cc.cu``,
+   ``cc.cc_labels_table``) against its plain version
+   (``cc_labels_table_plain``, ``ysmr_tpu``'s table route) on the card,
+   bit-equal on every frame where the plain version converged: the bench
+   and dense pixel tables (64 x 8192, 64 x 131072; double and single
+   threshold) on the raster-prefix route the pipeline takes and sorted
+   first (the two routes bit-equal, and equal to ``ysmr_cc_pixels``), the
+   bench table shuffled among as many invalid slots, and two frames of 64
+   x 50,000 with random rods, wider than ``ysmr_cc_pixels`` takes (it
+   refuses them); ms of the kernel (each route), the plain version and
+   ``ysmr_cc_pixels`` on the same tables, and the bound. The run wire's
+   expansion to the pixel table (``csrc/expand_runs.cu``,
+   ``run_cc.expand_runs``) against its plain version, every slot
+   bit-equal, on the bench and dense run wires (timed, with the bound) and
+   on the seeded wires of ``run_cc_cases.py`` at tables as wide as their
+   pixels, wider and narrower. Then the bench
+   scene in memory with ``use table cc`` on the run wire (run-CC, which
+   ignores the flag: no table launch), with ``run cc = off``, the pixel
+   wire and luminosity (one table launch a batch, no ``ysmr_cc_pixels``
+   launch; one expansion a batch with ``run cc = off``, none otherwise),
+   byte-identical to phase 4's list and phase 14's in-memory luminosity
+   list, and the dense scene with ``run cc = off`` and the flag,
+   byte-identical to phase 7's in-memory list.
 
 Any failure ends the script with a non-zero exit before the result line.
-The last three lines are the ``kernels`` JSON record (twenty kernels:
-the seven TPU kernels' ports, the adaptive mean and the fused preprocess
-around it, the GSFF step, the frame step, the cv2 centres, the edge
-finish, the rect select, the compaction, run-CC's steps around the
-propagation, mean mode's prepare and masks, the rect mean and the pixel
-finish, each with its bound and the library call where one exists),
+The last three lines are the ``kernels`` JSON record (twenty-two
+kernels: the seven TPU kernels' ports, the adaptive mean and the fused
+preprocess around it, the GSFF step, the frame step, the cv2 centres, the
+edge finish, the rect select, the compaction, run-CC's steps around the
+propagation, mean mode's prepare and masks, the rect mean, the pixel
+finish, the table CC and the run wire's expansion, each with its bound
+and the library call where one exists),
 ``nvidia-smi``'s card name and power limit, and the result JSON.
 """
 
@@ -1943,12 +1967,13 @@ def compose_5_6(lists, double):
                                   device=dev)), keep
 
 
-def pixel_ops(lists):
-    """Operations of the pixel function, a fixed count per valid slot and
-    pass: finding the upper neighbours among the about w + 2 slots before
-    it (log2(w + 2) comparisons) and a few neighbour tests. The bound is
-    the lists' bytes either way."""
-    return int(lists[2].sum()) * 2 * (int(np.log2(W + 2)) + 8)
+def pixel_ops(valid, w=W):
+    """Operations of the pixel function (``ysmr_cc_pixels``, the table
+    CC), a fixed count per valid slot and pass: finding the upper
+    neighbours among the about w + 2 slots before it (log2(w + 2)
+    comparisons) and a few neighbour tests. The bound is the lists' bytes
+    either way."""
+    return int(valid.sum()) * 2 * (int(np.log2(w + 2)) + 8)
 
 
 def check_pixels(name, lists, double):
@@ -1978,7 +2003,7 @@ def check_pixels(name, lists, double):
     plain_ms = cuda_ms(lambda: cc.cc_labels_at_pixels_plain(*lists, **kw),
                        reps=3)
     comp_ms = cuda_ms(lambda: compose_5_6(lists, double), reps=5)
-    bnd = bound(lists, (lab, keep), pixel_ops(lists))
+    bnd = bound(lists, (lab, keep), pixel_ops(lists[2]))
     log('kernel check {}: T={} F={} pixels {} kept {}, equal to scipy on '
         'every frame, to kernels 5 + 6, and bit-equal to plain on {} of {} '
         'frames (plain steps max {}); ms kernel {:.4f} plain {:.4f} '
@@ -2233,7 +2258,7 @@ def phase_lum_bench(frames, settings):
             got.count(b'\n') - 1, stats['tracks'], stats['fps'],
             per_frame(stats)))
     cuda_vs_cpu('bench luminosity', frames, lset)
-    return launches
+    return launches, got
 
 
 def phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev):
@@ -5567,6 +5592,259 @@ def phase_lum_kernels(dev):
     return checks['rect dense device rects'], checks['finish dense row tables']
 
 
+def table_bytes(valid, double):
+    """The bytes the table CC needs: the valid flags at every slot, the
+    lin (and, with the double threshold, the marker) at the valid slots
+    only, and the two outputs (int32 labels, bool keep) at every slot.
+    Returns (bytes, valid slots)."""
+    n_valid = int(valid.sum())
+    return (valid.numel() * (1 + 4 + 1) + n_valid * (4 + int(bool(double))),
+            n_valid)
+
+
+def check_table(name, lin, valid, marker, h, w, double, lists=None):
+    """The table kernel against its plain version, bit-equal on every frame
+    where the plain labelings converged, on the sorted route and, where the
+    valid entries are a raster prefix (``lists``, the pixel lists of the
+    same table), on the raster-prefix route, the two routes bit-equal on
+    every frame and equal to ``ysmr_cc_pixels`` where the frame is narrow
+    enough for it; median ms of each and the bound. Returns (err, ms,
+    plain_ms, bound, sorted_ms, pixels_ms)."""
+    kw = dict(h=h, w=w, double_threshold=double, max_iters=MAX_ITERS)
+    p_lab, p_keep, steps = cc.cc_labels_table_plain(lin, valid, marker, **kw)
+    prefix = lists is not None
+    got = {}
+    for route in ((True, False) if prefix else (False,)):
+        got[route] = cc.cc_labels_table(lin, valid, marker,
+                                        raster_prefix=route, **kw)
+    torch.cuda.synchronize()
+    conv = steps < MAX_ITERS
+    lab, keep = got[prefix]
+    if not bool(conv.any()):
+        raise SystemExit('{}: the plain version converged on no '
+                         'frame'.format(name))
+    for route, (g_lab, g_keep) in got.items():
+        if not (torch.equal(g_lab[conv], p_lab[conv]) and
+                torch.equal(g_keep[conv], p_keep[conv])):
+            raise SystemExit('{}: table kernel != plain ({})'.format(
+                name, 'raster prefix' if route else 'sorted'))
+        if not (torch.equal(g_lab, lab) and torch.equal(g_keep, keep)):
+            raise SystemExit('{}: the sorted and raster-prefix routes '
+                             'differ'.format(name))
+    pixels_ms = None
+    if prefix and w <= cc.PIXEL_MAX_WIDTH:
+        x_lab, x_keep = cc.cc_labels_at_pixels(*lists, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(x_lab, lab) and torch.equal(x_keep, keep)):
+            raise SystemExit('{}: table kernel != ysmr_cc_pixels'.format(name))
+        pixels_ms = cuda_ms(lambda: cc.cc_labels_at_pixels(*lists, **kw))
+    err = max_abs_err((lab[conv], keep[conv]), (p_lab[conv], p_keep[conv]))
+    ms = cuda_ms(lambda: cc.cc_labels_table(lin, valid, marker,
+                                            raster_prefix=prefix, **kw))
+    sorted_ms = cuda_ms(lambda: cc.cc_labels_table(lin, valid, marker, **kw))
+    plain_ms = cuda_ms(lambda: cc.cc_labels_table_plain(lin, valid, marker,
+                                                        **kw), reps=3)
+    nbytes, n_valid = table_bytes(valid, double)
+    bnd = bound((), (), pixel_ops(valid, w), nbytes)
+    log('kernel check {}: T={} F={} w={} valid {} kept {}, bit-equal to '
+        'plain on {} of {} frames (plain steps max {}){}; ms kernel {:.4f} '
+        '({}) sorted {:.4f} plain {:.4f} ysmr_cc_pixels {} bound {:.4f} '
+        '({}, {} bytes)'.format(
+            name, lin.shape[0], lin.shape[1], w, n_valid, int(keep.sum()), int(conv.sum()), lin.shape[0], int(steps.max()),
+            ', routes equal, equal to ysmr_cc_pixels' if pixels_ms else '',
+            ms, 'raster prefix' if prefix else 'sorted', sorted_ms, plain_ms,
+            'n/a' if pixels_ms is None else '{:.4f}'.format(pixels_ms),
+            *bnd, nbytes))
+    return err, ms, plain_ms, bnd, sorted_ms, pixels_ms
+
+
+def shuffled_with_gaps(lin, valid, marker, seed):
+    """The same tables at random slots of rows twice as long, in random
+    order, the other slots invalid with stale lins."""
+    t, f = lin.shape
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.stack([torch.randperm(2 * f, generator=g)[:f]
+                        for _ in range(t)]).to(lin.device)
+    out = (torch.full((t, 2 * f), 7, dtype=torch.int32, device=lin.device),
+           torch.zeros((t, 2 * f), dtype=torch.bool, device=lin.device),
+           torch.zeros((t, 2 * f), dtype=torch.bool, device=lin.device))
+    for dst, src in zip(out, (lin, valid, marker)):
+        dst.scatter_(1, perm, src)
+    return out
+
+
+#: the wide frames of phase 37: wider than ysmr_cc_pixels takes
+WIDE_H, WIDE_W = 64, 50000
+
+
+def wide_rod_lists(rng, t, dev):
+    """Pixel lists of ``t`` frames of WIDE_H x WIDE_W with seeded rods
+    (markers on a twentieth of their pixels)."""
+    masks = np.zeros((t, WIDE_H, WIDE_W), np.uint8)
+    for i in range(t):
+        for _ in range(2000):
+            cv2.ellipse(masks[i], (int(rng.integers(0, WIDE_W)),
+                                   int(rng.integers(0, WIDE_H))),
+                        (int(rng.integers(2, 12)), int(rng.integers(1, 4))),
+                        float(rng.uniform(0, 180)), 0, 360, 1, -1)
+    masks = masks > 0
+    return lists_from_masks(masks, masks & (rng.random(masks.shape) < 0.05),
+                            dev)
+
+
+def table_run(frames, settings, extra, name):
+    """The scene in memory on cuda with ``use table cc`` and ``extra``:
+    (list bytes, stats, the launches by name of the pixel-table branch's
+    kernels that phase 37 counts)."""
+    kernels = (cc.cc_labels_table, cc.cc_labels_at_pixels,
+               run_cc.expand_runs)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    _, got, stats = run_loop(frames, {**settings, 'use table cc': True,
+                                      **extra}, 'cuda', name)
+    torch.cuda.synchronize()
+    return got, stats, {k.__name__: k.launches for k in kernels}
+
+
+def expand_bytes(runs, rc, f):
+    """The bytes the expansion needs: the run counts, the wire words below
+    them (not the rest of the (T, R) bucket) and the two (T, F) outputs
+    (int32 lin, bool marker). Returns (bytes, runs)."""
+    t, r = runs.shape
+    n_runs = int(np.clip(rc, 0, r).sum())
+    return t * 4 + n_runs * 4 + t * f * (4 + 1), n_runs
+
+
+def check_expand(name, runs, rc, f, double, dev):
+    """The expansion kernel against its plain version on the card, every
+    slot bit-equal (the slots past the pixels too); median ms of each and
+    the bound."""
+    args = (torch.from_numpy(runs.view(np.int32)).to(dev),
+            torch.from_numpy(rc).to(dev))
+    nbytes, n_runs = expand_bytes(runs, rc, f)
+    log('{}: T={} R={} F={} runs {} ({} bytes for the bound)'.format(
+        name, runs.shape[0], runs.shape[1], f, n_runs, nbytes))
+    return check_equal(name, lambda *a: run_cc.expand_runs(*a, f, double),
+                       lambda *a: run_cc.expand_runs_plain(*a, f, double),
+                       args, 0, nbytes=nbytes)
+
+
+def phase_table_cc(scene, settings, dscene, dsettings, frames, dframes,
+                   run_bytes, dense_bytes, lum_bytes, dev):
+    """Phase 37: ``use table cc``. The table kernel (``csrc/table_cc.cu``)
+    against its plain version on the bench and dense tables (both
+    thresholds, both routes), on the bench table shuffled among invalid
+    slots and on frames wider than ``ysmr_cc_pixels`` takes; then the
+    bench scene in memory with ``use table cc`` on the run wire (run-CC:
+    no table launch), with 'run cc = off', with the pixel wire and with
+    luminosity (a table launch a batch, no ``ysmr_cc_pixels``), and the
+    dense scene with 'run cc = off', each list byte-identical to its
+    counterpart without the flag. Returns (the bench table's check, the
+    'run cc = off' run's launches)."""
+    t0 = time.perf_counter()
+    tables, packs = {}, {}
+    for name, sc, st in (('bench', scene, settings),
+                         ('dense', dscene, dsettings)):
+        packs[name] = packed_batch(sc, st)
+        lists = lists_from_packed(*packs[name], dev)
+        tables[name] = ((lists[1] * W + lists[0]).contiguous(), lists[2],
+                        lists[3], lists)
+    main = check_table('table bench double', *tables['bench'][:3], H, W,
+                       True, tables['bench'][3])
+    check_table('table bench single', *tables['bench'][:3], H, W, False,
+                tables['bench'][3])
+    for double in (True, False):
+        check_table('table dense {}'.format('double' if double else
+                                            'single'),
+                    *tables['dense'][:3], H, W, double, tables['dense'][3])
+    check_table('table bench shuffled with gaps double',
+                *shuffled_with_gaps(*tables['bench'][:3], SEED + 37), H, W,
+                True)
+    wide = wide_rod_lists(np.random.default_rng(SEED + 37), 2, dev)
+    wlin = (wide[1] * WIDE_W + wide[0]).contiguous()
+    for double in (True, False):
+        check_table('table wide {}x{} {}'.format(
+            WIDE_H, WIDE_W, 'double' if double else 'single'),
+            wlin, wide[2], wide[3], WIDE_H, WIDE_W, double, wide)
+    try:
+        cc.cc_labels_at_pixels(*wide, h=WIDE_H, w=WIDE_W,
+                               double_threshold=True)
+    except ValueError as err:
+        log('wide frames: ysmr_cc_pixels refuses them ({}); the table route '
+            'runs'.format(err))
+    else:
+        raise SystemExit('wide frames: ysmr_cc_pixels did not refuse them')
+    # the expansion of 'run cc = off' on the two batches' run wires, and
+    # on the seeded wires at tables as wide as the pixels, wider and
+    # narrower
+    wires = {name: encode(*packed, W, None) + (packed[0].shape[1],)
+             for name, packed in packs.items()}
+    expand_main = check_expand('expand runs bench', *wires['bench'], True,
+                               dev)
+    check_expand('expand runs bench single', *wires['bench'], False, dev)
+    check_expand('expand runs dense', *wires['dense'], True, dev)
+    for case in rcc_cases.WIRE_CASES:
+        runs, rc, _ = rcc_cases.run_case(case)
+        total = max(int((runs[i, :rc[i]] >> 27).astype(np.int64).sum())
+                    for i in range(len(rc)))
+        for f in sorted({max(total, 1), total + 37, max(total // 2, 1)}):
+            for double in (True, False):
+                args = (torch.from_numpy(runs.view(np.int32)).to(dev),
+                        torch.from_numpy(rc).to(dev))
+                got = run_cc.expand_runs(*args, f, double)
+                want = run_cc.expand_runs_plain(*args, f, double)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit('expand runs {} F={}: kernel != '
+                                     'plain'.format(case, f))
+    log('expand runs: kernel bit-equal to plain on the {} seeded wires, '
+        'tables as wide as the pixels, wider and narrower, both '
+        'thresholds'.format(len(rcc_cases.WIRE_CASES)))
+    n_bench = n_batches(N_FRAMES, settings)
+    off_launches = None
+    for key, extra, want in (
+            ('run wire', {}, run_bytes),
+            ('run cc = off', {'run cc': 'off'}, run_bytes),
+            ('pixel wire', {'wire format': 'pixels'}, run_bytes),
+            ('luminosity', LUM, lum_bytes)):
+        got, stats, launches = table_run(frames, settings, extra,
+                                         'table_' + key.replace(' ', '_'))
+        expect = {'cc_labels_table': 0 if key == 'run wire' else n_bench,
+                  'cc_labels_at_pixels': 0,
+                  'expand_runs': n_bench if key == 'run cc = off' else 0}
+        if got != want:
+            raise SystemExit('use table cc, {}: _list.csv differs from the '
+                             'same run without it'.format(key))
+        if launches != expect:
+            raise SystemExit('use table cc, {}: launches {} (want '
+                             '{})'.format(key, launches, expect))
+        if key == 'run cc = off':
+            off_launches = launches
+        log('bench scene in memory with use table cc, {} (cuda): rows {} '
+            'tracks {} fps {:.2f}, byte-identical to the run without it; '
+            'launches {}; stage split (ms/frame): {}'.format(
+                key, got.count(b'\n') - 1, stats['tracks'], stats['fps'],
+                json.dumps(launches), per_frame(stats)))
+    got, stats, launches = table_run(dframes, dsettings, {'run cc': 'off'},
+                                     'table_dense')
+    n_dense = n_batches(DENSE_FRAMES, dsettings)
+    if got != dense_bytes:
+        raise SystemExit("use table cc, dense 'run cc = off': _list.csv "
+                         'differs from the dense device path')
+    if launches != {'cc_labels_table': n_dense, 'cc_labels_at_pixels': 0,
+                    'expand_runs': n_dense}:
+        raise SystemExit("use table cc, dense 'run cc = off': launches "
+                         '{}'.format(launches))
+    log("dense scene in memory with use table cc, 'run cc = off' (cuda): "
+        'rows {} tracks {} fps {:.2f}, byte-identical to the dense device '
+        'path; launches {}; stage split (ms/frame): {}'.format(
+            got.count(b'\n') - 1, stats['tracks'], stats['fps'],
+            json.dumps(launches), per_frame(stats)))
+    log('phase 37 took {:.1f} s'.format(time.perf_counter() - t0))
+    return main, expand_main, off_launches
+
+
 def main():
     smi = phase_environment()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -5598,7 +5876,7 @@ def main():
         pixel_check = phase_pixel_kernel(scene, settings, dscene, dsettings,
                                          dev)
         phase_pixel_wires(frames, settings, run_bytes)
-        lum_launches = phase_lum_bench(frames, settings)
+        lum_launches, lum_bytes = phase_lum_bench(frames, settings)
         phase_lum_dense(dscene, dframes, dsettings, dense_bytes, dev)
         phase_lum_frames(frames, settings)
         phase_dense_exact(dframes, dsettings)
@@ -5625,6 +5903,9 @@ def main():
             scene, settings, frames, dframes, dev)
         phase_decode_modes(settings, smi)
         lum_check, finish_check = phase_lum_kernels(dev)
+        table_check, expand_check, table_launches = phase_table_cc(
+            scene, settings, dscene, dsettings, frames, dframes, run_bytes,
+            dense_bytes, lum_bytes, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     records = [kernel_record(
@@ -5720,6 +6001,19 @@ def main():
         'ysmr_tpu/pipeline/detect_pixels.py:273 compact_ids and the row '
         'tables of ysmr_tpu/ops/labeling.py:381 component_stats (plain XLA)',
         lum_launches['pixel_finish'], finish_check))
+    # use table cc's kernel on its path ('run cc = off' on the bench
+    # scene, phase 37: one a batch); the times are the bench table's
+    records.append(kernel_record(
+        'label_components_table', 'ysmr_tpu_torch/csrc/table_cc.cu',
+        'ysmr_tpu/ops/labeling.py:108 label_components_table (plain XLA), '
+        'with :180 compact_labels_table and the marker segment max of '
+        'ysmr_tpu/pipeline/detect_pixels.py:300-323',
+        table_launches['cc_labels_table'], table_check))
+    records.append(kernel_record(
+        'expand_runs', 'ysmr_tpu_torch/csrc/expand_runs.cu',
+        'ysmr_tpu/pipeline/detect_pixels.py:149-198 the run wire expanded '
+        'to the pixel table and _marker_from_runs (plain XLA)',
+        table_launches['expand_runs'], expand_check))
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

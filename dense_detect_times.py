@@ -6,7 +6,8 @@ checkouts in turns.
 Run from the root of a checkout::
 
     python3 dense_detect_times.py [--roots DIR,DIR,...] [--passes 3]
-        [--batches dense,bench,lum_bench,lum_dense]
+        [--batches dense,bench,lum_bench,lum_dense,off_bench,off_dense,
+                   table_bench,table_dense]
 
 ``--roots`` lists checkouts in the order to run them (default: this one),
 e.g. ``.scratch/parent,.,.,.scratch/parent`` after unpacking the other
@@ -90,6 +91,16 @@ record holds:
   ``finish`` is ids and scatter only, so that the difference is the
   sorted runs' or the tables' cost.
 
+The ``off_bench`` and ``off_dense`` batches are the same first 64
+frames' run wires with ``run cc = off`` (the pixel-table branch: the run
+wire expanded, the step ``expand runs``: ``run_cc.expand_runs``, or
+``detect_pixels._expand_runs`` in a checkout from before it; then the
+pixel labels and the finish; the bench batch with the plane the host-rect
+path copies, ``readback_pixels``, the dense batch with the device rects
+and cv2 centres); ``table_bench`` and ``table_dense`` add ``use table
+cc`` (``use_table``: the pixel labels by ``cc.cc_labels_table``; a
+checkout from before it refuses them).
+
 The last line is the card's name and power limit from ``nvidia-smi``.
 """
 
@@ -119,7 +130,9 @@ STEPS = (('run-CC', 'rcc', ('run_cc_components',)),
          ('rect select', 'lb', ('min_area_rect', 'rect_from_tables')),
          ('cv2 centres', 'dp', ('_cv2_center_override',)),
          ('output', 'dp', ('detections_from_tables',)),
-         ('pixel labels', 'cc', ('cc_labels_at_pixels',)),
+         ('expand runs', 'dp', ('_expand_runs',)),
+         ('expand runs', 'rcc', ('expand_runs',)),
+         ('pixel labels', 'cc', ('cc_labels_at_pixels', 'cc_labels_table')),
          ('pixel finish', 'dp', ('_compact_ids',)),
          ('pixel finish', 'cc', ('pixel_finish',)),
          ('component_stats', 'lb', ('component_stats',)),
@@ -139,7 +152,9 @@ def _setup(root, dev, batch):
     os.makedirs(cs.WORK, exist_ok=True)
     if batch.startswith('lum_'):
         return _setup_lum(cs, dp, dev, batch)
-    if batch == 'dense':
+    # 'run cc = off' and, for the table batches, use_table
+    off = batch.startswith(('off_', 'table_'))
+    if batch.endswith('dense'):
         settings = cs.dense_settings()
         scene = cs.BenchScene(seed=cs.DENSE_SEED, n_bugs=cs.DENSE_BUGS)
         path = dict(cv2_centers=True)
@@ -157,12 +172,16 @@ def _setup(root, dev, batch):
         dp.detect_from_pixels).parameters
     if readback:
         path = dict(readback_runs=rb)
+    elif off and not batch.endswith('dense'):
+        path = dict(readback_pixels=cs.pixel_bucket(counts, packed.shape[1]))
+    if batch.startswith('table_'):
+        path['use_table'] = True
     kw = dict(px_x=None, px_y=None, px_marker=None,
               frame_valid=torch.ones(t, dtype=torch.bool, device=dev),
               px_counts=torch.from_numpy(counts).to(dev),
               px_runs=torch.from_numpy(runs.view(np.int32)).to(dev),
               run_counts=torch.from_numpy(rc).to(dev),
-              expanded_f=packed.shape[1], use_run_cc=True,
+              expanded_f=packed.shape[1], use_run_cc=not off,
               h=cs.H, w=cs.W, double_threshold=True,
               max_det=settings['max detections per frame'],
               max_bh=settings['max bounding box height'],
@@ -484,7 +503,7 @@ def measure(root, passes, batch='dense', dev='cuda'):
             kerns.append(kernels)
         # run-CC alone on the same wire, without the sorted runs or tables
         alone = []
-        if 'px_runs' in kw:
+        if 'px_runs' in kw and kw['use_run_cc']:
             cc_kw = dict(w=kw['w'], double_threshold=kw['double_threshold'],
                          max_iters=kw['cc_iters'])
             rc_eff = kw['run_counts'].to(torch.int32)
@@ -535,7 +554,8 @@ def main():
                     help='profiled passes per checkout (medians)')
     ap.add_argument('--batches', default='dense,bench',
                     help='comma-separated batches: dense, bench, lum_bench, '
-                    'lum_dense')
+                    'lum_dense, off_bench, off_dense, table_bench, '
+                    'table_dense')
     ap.add_argument('--one', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -205,24 +205,6 @@ def test_det_px_from_runs_matches_jax(double_threshold, max_det, skip_rect,
         assert (det[:-1] >= 0).sum() > 100 and (det[-1] == -1).all()
 
 
-@pytest.mark.parametrize('kwargs', [
-    {}, {'use_run_cc': False}, {'include_luminosity': True},
-    {'skip_rect': False}])
-def test_unported_branches_raise(kwargs):
-    """``use_table`` (label_components_table) is on ROADMAP's do-not-port
-    list and raises on every branch."""
-    args = dict(KW, use_table=True)
-    args.update(kwargs)
-    runs = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        detect_from_pixels(None, None, torch.zeros(1, dtype=torch.int32),
-                           None, torch.ones(1, dtype=torch.bool),
-                           px_runs=runs,
-                           run_counts=torch.zeros(1, dtype=torch.int32),
-                           expanded_f=8, h=4, w=4, double_threshold=True,
-                           max_det=4, **args)
-
-
 @pytest.mark.cuda
 def test_detect_on_cuda_equals_cpu():
     """The CUDA path (kernel + PyTorch ops on the card) gives the CPU

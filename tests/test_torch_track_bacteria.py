@@ -172,33 +172,25 @@ def test_pixel_table_wires_equal_run_cc(tmp_path, clip):
 def test_slice_gate_and_unported_settings(tmp_path):
     """The capacity gate picks the path; luminosity (both transfer modes),
     the pixel wire, 'run cc = off', the live display and the compact
-    emissions readback are ported; settings outside the port raise and
-    say why ('use table cc' is on the do-not-port list)."""
-    from ysmr_tpu_torch.pipeline.track_bacteria import (check_slice_settings,
-                                                        use_host_rects)
+    emissions readback are ported, and so is 'use table cc', the last
+    setting the port refused: it runs, and on the run wire, whose run-CC
+    branch ignores it as ``ysmr_tpu``'s does, gives the same bytes."""
+    from ysmr_tpu_torch.pipeline.track_bacteria import use_host_rects
     settings = _make_settings(tmp_path)
     assert use_host_rects(settings)
     assert not use_host_rects({**settings, 'cv2 exact rects': False})
     assert not use_host_rects({**settings,
                                'max detections per frame': 4096})
-    check_slice_settings({**settings, 'max detections per frame': 4096,
-                          'cv2 exact rects': False})
     # frames mode is ported and always takes the device tracker
-    check_slice_settings({**settings, **FRAMES})
     assert not use_host_rects({**settings, **FRAMES})
-    for extra in (LUM, {**FRAMES, **LUM}, {'wire format': 'pixels'},
-                  {'run cc': 'off'}, {'compact emissions readback': True},
-                  {'display video analysis': True}):
-        check_slice_settings({**settings, **extra})
     assert use_host_rects({**settings, **LUM})
     # an open display shuts the host-rect gate
     assert not use_host_rects(settings, has_display=True)
-    # the sharded assignment engages only with several devices, so it
-    # passes on this host; 'use table cc' raises everywhere
-    check_slice_settings({**settings,
-                          'shard dense assignment across devices': True})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        check_slice_settings({**settings, 'use table cc': True})
+    out = _run_both(tmp_path, 'adaptive_double', runs=(
+        ('torch', track_bacteria, {}),
+        ('torch_table', track_bacteria, {'use table cc': True})))
+    assert out['torch'][1].count(b'\n') > 100
+    assert out['torch_table'][1] == out['torch'][1]
 
 
 def test_track_loop_with_in_memory_reader(tmp_path):

@@ -71,7 +71,26 @@ imports). The inputs are ``chip_smoke.py``'s, in these groups:
   the dense batch's row tables: ``cc.pixel_finish`` where the checkout
   has it, and the torch sequence it replaces (``pixel_finish_plain``, or
   before it ``_compact_ids`` and the plane's concatenation or
-  ``component_stats``' tables).
+  ``component_stats``' tables);
+- ``table_cc``: the sparse table CC of ``use table cc`` on the bench and
+  dense batches' pixel lists (double and single threshold):
+  ``cc.cc_labels_table`` on the wire's raster prefix (the pipeline's
+  route) and sorted first, its plain version (``cc_labels_table_plain``),
+  and ``cc_labels_at_pixels`` on the same lists (the yardstick; the only
+  call of a checkout from before the table route), with the host
+  synchronisations of each table call; then the 'run cc =
+  off' detect of both batches (the bench one with the host-rect plane,
+  the dense one with the device rects and cv2 centres) without and, where
+  the checkout has it, with ``use_table``;
+- ``torch_blocks``: the device blocks that were in torch off the default
+  path: the run wire expanded to the pixel table for 'run cc = off'
+  (``run_cc.expand_runs``, ``csrc/expand_runs.cu``, and its plain
+  version; in a checkout from before the kernel
+  ``detect_pixels._expand_runs``) on the bench and dense batches' run
+  wires, and ``tracker.compact_emissions_device`` (the compact readback)
+  on the emissions of the dense scene's first 64 frames (frames-mode
+  detect, dense tracker with GSFF) at buckets 1024 and 4096, each with
+  the least bytes it must move and their time at 3.35 TB/s.
 
 With ``--dense-e2e N`` it also runs the smoke's dense scene (150 frames,
 3000 rods) in memory through the stage-1 loop N times, the device path
@@ -96,6 +115,7 @@ frame step's update overlaps its rank launch).
 """
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -104,7 +124,8 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GROUPS = ('run_prop', 'cc', 'rects', 'tail', 'pixels', 'assign', 'gsff',
-          'frame_step', 'preprocess', 'mean', 'compact', 'run_cc', 'lum')
+          'frame_step', 'preprocess', 'mean', 'compact', 'run_cc', 'lum',
+          'table_cc', 'torch_blocks')
 
 
 def parse_args():
@@ -185,6 +206,10 @@ def trace(name, fn, reps, smoke):
                   k['registers'], k['smem'], k['occupancy'], kname[:90]),
               flush=True)
     print('  kernels sum {:.4f} ms per call'.format(total), flush=True)
+    ops = sum(1 for ev in events if ev.get('cat') in (
+        'kernel', 'gpu_memset', 'gpu_memcpy'))
+    print('  device operations {:.1f} per call (kernels, memsets and '
+          'copies)'.format(ops / reps), flush=True)
     per = len(launches) // reps
     if per > 1 and per * reps == len(launches):
         # a call's launches may overlap (a programmatic launch) or leave
@@ -536,6 +561,146 @@ def trace_lum(smoke, args, dev):
               smoke)
 
 
+def trace_table_cc(smoke, args, dev):
+    import torch
+    from ysmr_tpu_torch.ops import cc
+    from ysmr_tpu_torch.pipeline import detect_pixels as dp
+    scenes = (('bench', smoke.BenchScene(), smoke.bench_settings()),
+              ('dense', smoke.BenchScene(seed=smoke.DENSE_SEED,
+                                         n_bugs=smoke.DENSE_BUGS),
+               smoke.dense_settings()))
+    table = hasattr(cc, 'cc_labels_table')
+    for name, scene, settings in scenes:
+        packed, counts = smoke.packed_batch(scene, settings)
+        lists = smoke.lists_from_packed(packed, counts, dev)
+        lin = (lists[1] * smoke.W + lists[0]).contiguous()
+        label = '{} T={} F={}'.format(name, *lin.shape)
+        for double in (True, False):
+            kw = dict(h=smoke.H, w=smoke.W, double_threshold=double,
+                      max_iters=smoke.MAX_ITERS)
+            tag = '{} {}'.format(label, 'double' if double else 'single')
+            if table:
+                for prefix in (True, False):
+                    call = functools.partial(
+                        cc.cc_labels_table, lin, lists[2], lists[3],
+                        raster_prefix=prefix, **kw)
+                    name_c = 'cc_labels_table {} ({})'.format(
+                        tag, 'raster prefix' if prefix else 'sorted')
+                    trace(name_c, call, args.reps, smoke)
+                    print('  host syncs {} per call'.format(
+                        host_syncs(call)), flush=True)
+                call = functools.partial(cc.cc_labels_table_plain, lin,
+                                         lists[2], lists[3], **kw)
+                trace('cc_labels_table_plain ' + tag, call, 3, smoke)
+                print('  host syncs {} per call'.format(host_syncs(call)),
+                      flush=True)
+            trace('cc_labels_at_pixels ' + tag,
+                  lambda: cc.cc_labels_at_pixels(*lists, **kw), args.reps,
+                  smoke)
+        runs, rc = smoke.encode(packed, counts, smoke.W, None)
+        t = runs.shape[0]
+        dkw = dict(px_x=None, px_y=None, px_marker=None,
+                   frame_valid=torch.ones(t, dtype=torch.bool, device=dev),
+                   px_counts=to_dev(counts, dev),
+                   px_runs=to_dev(runs.view('int32'), dev),
+                   run_counts=to_dev(rc, dev), expanded_f=packed.shape[1],
+                   use_run_cc=False, h=smoke.H, w=smoke.W,
+                   double_threshold=True,
+                   max_det=settings['max detections per frame'],
+                   max_bh=settings['max bounding box height'],
+                   cc_iters=settings['connected components max iterations'])
+        if name == 'dense':
+            dkw['cv2_centers'] = True
+        else:
+            dkw['readback_pixels'] = smoke.pixel_bucket(counts,
+                                                        packed.shape[1])
+        for use_table in ((False, True) if table else (False,)):
+            trace("detect_from_pixels 'run cc = off' {}{}".format(
+                label, ' use_table' if use_table else ''),
+                lambda: dp.detect_from_pixels(
+                    **dkw, **({'use_table': True} if use_table else {})),
+                args.reps, smoke)
+
+
+def host_syncs(fn):
+    """The host synchronisations of one call of ``fn``: the warnings
+    ``torch.cuda.set_sync_debug_mode('warn')`` raises in it."""
+    import warnings
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def to_dev(arr, dev):
+    import torch
+    return torch.from_numpy(arr).to(dev)
+
+
+def trace_torch_blocks(smoke, args, dev):
+    import torch
+    from ysmr_tpu_torch.ops import run_cc as rcc
+    from ysmr_tpu_torch.pipeline import detect_pixels as dp
+    from ysmr_tpu_torch.pipeline import tracker as trk
+    dscene = smoke.BenchScene(seed=smoke.DENSE_SEED, n_bugs=smoke.DENSE_BUGS)
+    dsettings = smoke.dense_settings()
+    for name, scene, settings in (
+            ('bench', smoke.BenchScene(), smoke.bench_settings()),
+            ('dense', dscene, dsettings)):
+        packed, counts = smoke.packed_batch(scene, settings)
+        runs, rc = smoke.encode(packed, counts, smoke.W, None)
+        wire = to_dev(runs.view('int32'), dev)
+        rcount = to_dev(rc, dev)
+        f = packed.shape[1]
+        nbytes, n_runs = smoke.expand_bytes(runs, rc, f)
+        print('the run wire expanded, {} T={} R={} F={} runs {}: bound '
+              '{:.4f} ms (bytes, {:.2f} MB)'.format(
+                  name, runs.shape[0], runs.shape[1], f, n_runs,
+                  nbytes / smoke.PEAK_BYTES * 1e3, nbytes / 1e6), flush=True)
+        label = '{} T={} R={} F={}'.format(name, runs.shape[0],
+                                           runs.shape[1], f)
+        if hasattr(rcc, 'expand_runs'):
+            trace('expand_runs ' + label,
+                  lambda: rcc.expand_runs(wire, rcount, f, True), args.reps,
+                  smoke)
+            trace('expand_runs_plain ' + label,
+                  lambda: rcc.expand_runs_plain(wire, rcount, f, True),
+                  args.reps, smoke)
+        else:
+            trace('_expand_runs ' + label,
+                  lambda: dp._expand_runs(wire, rcount, f, True), args.reps,
+                  smoke)
+    dframes = [dscene.frame(t) for t in range(64)]
+    tables, params, tkw = smoke.dense_tracker_inputs(dframes, dsettings, dev)
+    state = trk.init_tracker_state(dsettings['max track slots'], dev,
+                                   use_gsff=True, gsff_params=params)
+    _, emissions = trk.run_tracker_scan(state, *tables, **tkw)
+    n_comp = tables[2].sum(dim=1, dtype=torch.int32)
+    torch.cuda.synchronize()
+    t, s = emissions['mask'].shape
+    k = emissions['pos'].shape[2]
+    live = int(emissions['mask'].sum())
+    for bucket in (1024, 4096):
+        # the mask and the live slots' payload (5 + K words) in, the
+        # buffer out
+        nbytes = t * s + live * (5 + k) * 4 + t * (bucket + 1) * (5 + k) * 4
+        print('compact_emissions_device dense T={} S={} live {} bucket {}: '
+              'bound {:.4f} ms (bytes, {:.1f} MB)'.format(
+                  t, s, live, bucket, nbytes / smoke.PEAK_BYTES * 1e3,
+                  nbytes / 1e6), flush=True)
+        trace('compact_emissions_device dense bucket {}'.format(bucket),
+              lambda: trk.compact_emissions_device(emissions, n_comp,
+                                                   bucket=bucket),
+              args.reps, smoke)
+
+
 def end_to_end(smoke, args):
     """The smoke's scenes in memory through the stage-1 loop on cuda:
     frames/s and stage split of each run."""
@@ -612,7 +777,8 @@ def main():
                'frame_step': trace_frame_step,
                'preprocess': trace_preprocess, 'mean': trace_mean,
                'compact': trace_compact,
-               'run_cc': trace_run_cc, 'lum': trace_lum}
+               'run_cc': trace_run_cc, 'lum': trace_lum,
+               'table_cc': trace_table_cc, 'torch_blocks': trace_torch_blocks}
     for g in GROUPS:
         if g in groups:
             tracers[g](smoke, args, dev)

@@ -180,6 +180,10 @@ def load_kernels():
     lib.ysmr_compact_row_tables.argtypes = [vp] * 9 + [ci] * 6 + [vp]
     lib.ysmr_cc_pixels.restype = ci
     lib.ysmr_cc_pixels.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ysmr_table_cc.restype = ci
+    lib.ysmr_table_cc.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.ysmr_expand_runs.restype = ci
+    lib.ysmr_expand_runs.argtypes = [vp] * 4 + [ci] * 5 + [vp]
     lib.ysmr_adaptive_mean.restype = ci
     lib.ysmr_adaptive_mean.argtypes = [vp, vp, ctypes.POINTER(
         ctypes.c_float)] + [ci] * 4 + [vp]

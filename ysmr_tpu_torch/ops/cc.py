@@ -13,6 +13,12 @@ always reaches the fixpoint). The plain PyTorch versions are
 ``ops/labeling.py::label_components`` and ``::propagate_markers``, and
 ``cc_labels_at_pixels_plain`` here.
 
+With ``use table cc``, ``cc_labels_table`` (``csrc/table_cc.cu``; plain
+version ``cc_labels_table_plain``, ``ysmr_tpu``'s table route) gives the
+pixel kernel's function from ``ysmr_tpu/ops/labeling.py::
+label_components_table``, which has no Pallas kernel: a union-find over
+each frame's lin-sorted table with no width cap.
+
 After the pixel kernel, ``pixel_finish`` (``csrc/pixel_finish.cu``, three
 launches; plain version ``pixel_finish_plain``) turns its labels into the
 dense component ids and count, and on request the host-rect batch's int16
@@ -245,6 +251,115 @@ def cc_labels_at_pixels(px_x, px_y, px_valid, px_marker, *, h, w,
     return labels, keep
 
 
+def cc_labels_table_plain(lin, valid, px_marker, *, h, w, double_threshold,
+                          max_iters=64):
+    """Plain version of ``cc_labels_table``: the route of ``ysmr_tpu``'s
+    pixel-table branch with ``use_table`` (``ysmr_tpu/pipeline/
+    detect_pixels.py:300-323``): with the double threshold, 4-connected
+    table labels of the valid entries, their ascending dense ids
+    (``compact_labels_table(reverse=False)``), the marker's segment
+    maximum over F + 1 segments and ``keep``; then 8-connected table
+    labels of the kept entries. Each labeling stops after ``max_iters``
+    steps, as ``ysmr_tpu``'s does. ``h`` is the kernel's only.
+
+    :return: (lab_fg, keep, steps): as ``cc_labels_table``, and (T,) int32
+        the larger step count of the two labelings (the frame converged
+        iff steps < max_iters)
+    """
+    t, f = lin.shape
+    big = torch.full((), lb.TABLE_BIG, dtype=torch.int32, device=lin.device)
+    lin_t = torch.where(valid, lin.to(torch.int32), big)
+    steps = torch.zeros(t, dtype=torch.int32, device=lin.device)
+    if double_threshold:
+        lab4, steps = lb.label_components_table(
+            lin_t, valid, w=w, connectivity=4, max_iters=max_iters)
+        comp4, _ = lb.compact_labels_table(lab4, valid, lin_t, reverse=False)
+        seg = torch.clamp(comp4, max=f).long()
+        marked = torch.zeros((t, f + 1), dtype=torch.int32,
+                             device=lin.device)
+        marked.scatter_reduce_(1, seg, (px_marker & valid).to(torch.int32),
+                               'amax')
+        keep = valid & (torch.gather(marked, 1, seg) > 0)
+    else:
+        keep = valid
+    lab8, steps8 = lb.label_components_table(
+        torch.where(keep, lin.to(torch.int32), big), keep, w=w,
+        connectivity=8, max_iters=max_iters)
+    lab = torch.where(keep, lab8, torch.full_like(lab8, -1))
+    return lab, keep, torch.maximum(steps, steps8)
+
+
+def cc_labels_table(lin, valid, px_marker, *, h, w, double_threshold,
+                    max_iters=64, raster_prefix=False):
+    """``cc_labels_at_pixels``' function from the sparse table CC of
+    ``use table cc`` (``ysmr_tpu/ops/labeling.py::label_components_table``
+    and ``compact_labels_table`` on ``ysmr_tpu``'s pixel-table branch).
+
+    On a CUDA tensor the kernel ``ysmr_table_cc`` (``csrc/table_cc.cu``):
+    a union-find over each frame's lin-sorted table, neighbours found by
+    binary search, no frame-sized array and no width cap; it reaches the
+    fixpoint (``max_iters`` is the plain version's). The valid entries
+    may sit anywhere in a row and in any order: each row is sorted first
+    (``torch.sort``, stable), unless ``raster_prefix`` says that the
+    valid entries of each row are already a prefix in strictly ascending
+    lin, as every wire of the pipeline gives them. On a CPU tensor
+    ``cc_labels_table_plain``.
+
+    :param lin: (T, F) int32 linear indices y*w + x, unique among the
+        valid entries of a row
+    :param valid, px_marker: (T, F) bool
+    :return: (lab_fg, keep): (T, F) int32 the minimum lin of the entry's
+        8-connected component among the kept entries, -1 for the others;
+        (T, F) bool the entry is valid and, with ``double_threshold``, its
+        4-connected component of the valid entries holds a marker
+    """
+    if lin.device.type == 'cpu':
+        return cc_labels_table_plain(
+            lin, valid, px_marker, h=h, w=w,
+            double_threshold=double_threshold, max_iters=max_iters)[:2]
+    name = 'cc_labels_table'
+    if lin.device.type != 'cuda':
+        raise ValueError('{}: unsupported device {}'.format(name, lin.device))
+    if lin.dim() != 2:
+        raise ValueError('{}: tables must be (T, F)'.format(name))
+    for a, dt in ((lin, torch.int32), (valid, torch.bool),
+                  (px_marker, torch.bool)):
+        if a.shape != lin.shape or a.dtype != dt or \
+                a.device != lin.device or not a.is_contiguous():
+            raise ValueError('{}: expects contiguous (T, F) int32 lin and '
+                             'bool valid/px_marker on {}'.format(
+                                 name, lin.device))
+    if h * w >= lb.TABLE_BIG:
+        raise ValueError('{}: frames of 2^30 pixels or more (the invalid '
+                         "entries' value)".format(name))
+    t, f = lin.shape
+    dev = lin.device
+    if raster_prefix:
+        keys, order, vptr = lin, None, valid.data_ptr()
+    else:
+        keys, order = torch.sort(
+            torch.where(valid, lin, torch.full((), lb.TABLE_BIG,
+                                               dtype=torch.int32,
+                                               device=dev)),
+            dim=1, stable=True)
+        keys, vptr = keys.contiguous(), None
+    # the forests over the sorted slots: 4-connected (double threshold
+    # only) and 8-connected
+    forest = torch.empty((2 if double_threshold else 1, t, f),
+                         dtype=torch.int32, device=dev)
+    labels = torch.empty((t, f), dtype=torch.int32, device=dev)
+    keep = torch.empty((t, f), dtype=torch.bool, device=dev)
+    lib = _build.load_kernels()
+    rc = lib.ysmr_table_cc(
+        keys.data_ptr(), vptr, None if order is None else order.data_ptr(),
+        px_marker.data_ptr(), forest.data_ptr(), labels.data_ptr(),
+        keep.data_ptr(), t, f, w, int(bool(double_threshold)), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, 'table cc kernel launch')
+    cc_labels_table.launches += 1
+    return labels, keep
+
+
 def compact_ids(lab_fg, keep, lin):
     """Dense component ids at the kept pixels, in reverse raster order of
     each component's first pixel (cv2's contour order), ``F`` elsewhere
@@ -405,4 +520,5 @@ def pixel_finish(lab_fg, keep, px_x, px_y, valid, *, h, w, ids=False,
 label_components_whole_frame.launches = 0
 binary_reconstruct.launches = 0
 cc_labels_at_pixels.launches = 0
+cc_labels_table.launches = 0
 pixel_finish.launches = 0

@@ -66,10 +66,13 @@ Differences from the JAX module, all of representation:
   after ``degrees(a) - 90`` still in a few rect angles. The spelt-out
   version gives the same bits on the CPU and CUDA.
 
+The sparse table labeling of ``use table cc``, ``label_components_table``
+and ``compact_labels_table`` over (T, F) tables, is the plain version of
+``csrc/table_cc.cu`` (wrapper ``ops/cc.py::cc_labels_table``).
+
 Not ported: the float angle sweep of ``min_area_rect`` (every production
-caller passes integer edge vectors), the sorted-run row tables of
-``component_stats`` (a TPU layout with the same output) and
-``label_components_table``.
+caller passes integer edge vectors) and the sorted-run row tables of
+``component_stats`` (a TPU layout with the same output).
 """
 
 import math
@@ -211,6 +214,116 @@ def compact_labels(labels, mask, max_det, reverse=True):
     comp = torch.where(m, torch.clamp(comp, max=max_det),
                        torch.full_like(comp, max_det))
     return comp.view(t, h, w), n_components
+
+
+#: the table labeling's value of an invalid entry (``ysmr_tpu``'s 2**30)
+TABLE_BIG = 1 << 30
+
+
+def _table_sort(lin, valid):
+    """Each frame's table sorted by lin, invalid entries (``TABLE_BIG``)
+    last: (lin_v, sorted_lin, order), ``jnp.argsort``'s stable order."""
+    lin_v = torch.where(valid, lin.to(_I32),
+                        torch.full((), TABLE_BIG, dtype=_I32,
+                                   device=lin.device))
+    sorted_lin, order = torch.sort(lin_v, dim=1, stable=True)
+    return lin_v, sorted_lin.contiguous(), order
+
+
+def _table_lookup(sorted_lin, values):
+    """The sorted slot holding each value (the left insertion point,
+    clipped) and whether it holds it."""
+    pos = torch.clamp(torch.searchsorted(sorted_lin, values.contiguous()), 0,
+                      sorted_lin.shape[1] - 1)
+    return pos, torch.gather(sorted_lin, 1, pos) == values
+
+
+def label_components_table(lin, valid, *, w, connectivity=8, max_iters=32):
+    """Component labels of a sparse pixel table, no whole-frame array
+    (``ysmr_tpu/ops/labeling.py::label_components_table``): neighbours by
+    binary search in the lin-sorted table, then synchronous min-label
+    steps, each with one pointer jump (``lab[index_of(label)]``), at most
+    ``max_iters`` of them. Plain version of ``csrc/table_cc.cu``, which
+    reaches the fixpoint.
+
+    The JAX function is one frame under ``vmap``, whose ``while_loop``
+    runs until every frame converged or the cap; a converged frame is a
+    fixed point, so the batch steps until no frame changes (a host sync
+    a step on the card), which gives the same bits, the cap included.
+
+    :param lin: (T, F) int32 linear indices y*w + x, unique among each
+        frame's valid entries
+    :param valid: (T, F) bool
+    :param w: frame width (masks the x-edge wrap)
+    :return: (labels, steps): (T, F) int32 the minimum lin of the entry's
+        component (``TABLE_BIG`` for invalid entries); (T,) int32 the steps
+        that changed a frame's labels (the frame converged iff steps <
+        max_iters)
+    """
+    lin_v, sorted_lin, order = _table_sort(lin, valid)
+    t, f = lin_v.shape
+    dev = lin_v.device
+    big = torch.full((), TABLE_BIG, dtype=_I32, device=dev)
+    iota = torch.arange(f, device=dev)[None, :].expand(t, f)
+    x = lin_v - torch.div(lin_v, w, rounding_mode='floor') * w
+    if connectivity == 8:
+        offsets = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
+                   (0, 1), (1, -1), (1, 0), (1, 1))
+    else:
+        offsets = ((-1, 0), (0, -1), (0, 1), (1, 0))
+    nbrs = []
+    for dy, dx in offsets:
+        ok = valid
+        if dx == -1:
+            ok = ok & (x > 0)
+        elif dx == 1:
+            ok = ok & (x < w - 1)
+        nlin = torch.where(ok, lin_v + (dy * w + dx),
+                           torch.full_like(lin_v, -1))
+        pos, found = _table_lookup(sorted_lin, nlin)
+        nbrs.append(torch.where(found, torch.gather(order, 1, pos), iota))
+    lab = lin_v
+    steps = torch.zeros(t, dtype=_I32, device=dev)
+    for _ in range(max_iters):
+        m = lab
+        for nb in nbrs:
+            m = torch.minimum(m, torch.gather(lab, 1, nb))
+        pos, found = _table_lookup(sorted_lin, m)
+        hop = torch.where(found, torch.gather(
+            lab, 1, torch.gather(order, 1, pos)), m)
+        new = torch.where(valid, torch.minimum(m, hop), big)
+        changed = (new != lab).any(dim=1)
+        if not bool(changed.any()):
+            break
+        steps += changed.to(_I32)
+        lab = new
+    return lab, steps
+
+
+def compact_labels_table(labels, valid, lin, reverse=True):
+    """Dense component ids of table labels in raster order of each
+    component's minimum-lin entry, reversed with ``reverse`` (cv2's
+    contour order) (``ysmr_tpu/ops/labeling.py::compact_labels_table``).
+
+    :param labels: (T, F) int32 from ``label_components_table``
+    :param valid: (T, F) bool
+    :param lin: (T, F) int32 linear indices
+    :return: (comp (T, F) int32 the dense id, F for an invalid entry;
+        n_comp (T,) int32)
+    """
+    _, sorted_lin, order = _table_sort(lin, valid)
+    f = labels.shape[1]
+    roots = valid & (labels == lin)
+    n_comp = roots.sum(dim=1, dtype=_I32)
+    rank_sorted = torch.cumsum(torch.gather(roots, 1, order).to(_I32),
+                               dim=1, dtype=_I32) - 1
+    rank = torch.zeros_like(rank_sorted).scatter_(1, order, rank_sorted)
+    pos = torch.clamp(torch.searchsorted(sorted_lin, labels.contiguous()), 0,
+                      f - 1)
+    comp = torch.gather(rank, 1, torch.gather(order, 1, pos))
+    if reverse:
+        comp = n_comp[:, None] - 1 - comp
+    return torch.where(valid, comp, torch.full_like(comp, f)), n_comp
 
 
 def component_tables(comp, mask, *, max_det, max_bh):

@@ -37,6 +37,10 @@ Differences from the JAX module, all of representation:
   its plain version; a CPU tensor takes the plain version. The
   component-sorted runs (``sorted_runs``) are the plain version's only:
   the finish writes the row tables from the unsorted runs.
+- ``expand_runs``, the run wire expanded to the pixel table for the
+  pixel-table branch (``ysmr_tpu``'s inline expansion in
+  ``detect_from_pixels``), is one launch of ``csrc/expand_runs.cu`` on a
+  CUDA tensor and ``expand_runs_plain`` on a CPU tensor.
 """
 
 import ctypes
@@ -754,6 +758,88 @@ def run_cc_components_plain(px_runs, run_counts, *, w, double_threshold,
                        sorted_runs, row_tables, readback, frame_valid,
                        prepare_runs_plain, compact_kept_runs_plain,
                        finish_components_plain)
+
+
+def expand_runs_plain(px_runs, run_counts, f, double_threshold):
+    """Plain version of ``expand_runs``: ``ysmr_tpu``'s expansion, ``lin``
+    with no per-pixel gather (one scatter of each run's jump delta, then a
+    cumsum over the slots) and, with the double threshold, each pixel's
+    marker (run id by a start-offset scatter and cummax, then one
+    gather)."""
+    t, r = px_runs.shape
+    dev = px_runs.device
+    runs = px_runs.to(_I32)
+    starts = runs & 0x03FFFFFF
+    rmark = ((runs >> 26) & 1) > 0
+    lens = (runs >> 27) & 0x1F
+    iota_r = torch.arange(r, dtype=_I32, device=dev)[None, :]
+    lens = torch.where(iota_r < run_counts.to(_I32)[:, None], lens,
+                       torch.zeros_like(lens))
+    offs = torch.cumsum(lens, dim=1, dtype=_I32) - lens
+    t_off = torch.arange(t, dtype=torch.int64, device=dev)[:, None] * f
+    # runs that start past the table go to the dump slot t * f
+    flat_idx = torch.where((lens > 0) & (offs < f), offs + t_off,
+                           torch.full_like(t_off, t * f)).reshape(-1)
+    prev_end = torch.cat([torch.ones((t, 1), dtype=_I32, device=dev),
+                          (starts + lens)[:, :-1]], dim=1)
+    d = torch.ones(t * f + 1, dtype=_I32, device=dev)
+    d.index_add_(0, flat_idx, (starts - prev_end).reshape(-1))
+    lin_raw = torch.cumsum(d[:t * f].view(t, f), dim=1, dtype=_I32)
+    if not double_threshold:
+        return lin_raw, torch.zeros((t, f), dtype=torch.bool, device=dev)
+    rid = torch.zeros(t * f + 1, dtype=torch.int64, device=dev)
+    rid[flat_idx] = iota_r.expand(t, r).reshape(-1).to(torch.int64)
+    rid = torch.cummax(rid[:t * f].view(t, f), dim=1).values
+    return lin_raw, torch.gather(rmark, 1, rid)
+
+
+def expand_runs(px_runs, run_counts, f, double_threshold):
+    """The run wire expanded to the (T, F) pixel table in raster order, for
+    the pixel-table branch (``run cc = off``): each slot's ``lin`` (y*w +
+    x) and, with the double threshold, its run's marker bit
+    (``ysmr_tpu/pipeline/detect_pixels.py:149-198``). Slots past a frame's
+    pixels hold what the plain version's scans leave there (the last run's
+    lin continued, its marker); the pixel count masks them.
+
+    On a CUDA tensor one launch of ``csrc/expand_runs.cu`` (a block a
+    frame, no host sync), for the encoder's wires: runs below the count
+    of lengths 1-31. On a CPU tensor ``expand_runs_plain``.
+
+    :param px_runs: (T, R) int32 view of the uint32 run wire
+    :param run_counts: (T,) int32 runs per frame
+    :param f: the pixel-table width
+    :return: (lin (T, f) int32, marker (T, f) bool, all False without the
+        double threshold)
+    """
+    if px_runs.device.type == 'cpu':
+        return expand_runs_plain(px_runs, run_counts, f, double_threshold)
+    name = 'expand_runs'
+    if px_runs.device.type != 'cuda':
+        raise ValueError('{}: unsupported device {}'.format(
+            name, px_runs.device))
+    if px_runs.dim() != 2 or px_runs.dtype != _I32 or \
+            not px_runs.is_contiguous() or run_counts.dtype != _I32 or \
+            run_counts.shape != px_runs.shape[:1] or \
+            run_counts.device != px_runs.device or \
+            not run_counts.is_contiguous():
+        raise ValueError('{}: expects contiguous (T, R) int32 runs and (T,) '
+                         'int32 counts on one device'.format(name))
+    t, r = px_runs.shape
+    dev = px_runs.device
+    lin = torch.empty((t, f), dtype=_I32, device=dev)
+    marker = torch.empty((t, f), dtype=torch.bool, device=dev)
+    lib = _build.load_kernels()
+    rc = lib.ysmr_expand_runs(px_runs.data_ptr(), run_counts.data_ptr(),
+                              lin.data_ptr(), marker.data_ptr(), t, r, f,
+                              int(bool(double_threshold)), dev.index,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, 'expand runs kernel launch')
+    expand_runs.launches += 1
+    return lin, marker
+
+
+#: kernel launches since the count was last set to 0
+expand_runs.launches = 0
 
 
 def det_px_from_runs(px_runs, run_counts, comp_rev_run, *, f, max_det):

@@ -17,10 +17,14 @@ Counterpart of ``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels``:
   finish writes;
 - the pixel-table branch (``run cc = off``, ``wire format = pixels``, and
   luminosity, which bypasses run CC): the wire is decoded to (T, F) pixel
-  tables (the run wire expanded, the packed uint32 wire, or the split
-  int16/uint8 wire of luminosity), labelled by ``ops/cc.py::
+  tables (the run wire expanded by ``ops/run_cc.py::expand_runs``,
+  ``csrc/expand_runs.cu`` on the card; the packed uint32 wire; or the
+  split int16/uint8 wire of luminosity), labelled by ``ops/cc.py::
   cc_labels_at_pixels`` (the CUDA kernel on the card; the JAX CPU path
-  computes the same function with two whole-frame labelings), then
+  computes the same function with two whole-frame labelings) or, with
+  ``use_table`` (``use table cc``), by ``ops/cc.py::cc_labels_table``
+  (the sparse table CC, ``csrc/table_cc.cu`` on the card: the wire's
+  valid prefix is in raster order, so it skips the sort), then
   finished by ``ops/cc.py::pixel_finish`` (``csrc/pixel_finish.cu`` on the
   card): the dense ids in wire order and, as asked, the int16 plane the
   host-rect path copies (``readback_pixels``), the ids themselves (returned
@@ -28,9 +32,10 @@ Counterpart of ``ysmr_tpu/pipeline/detect_pixels.py::detect_from_pixels``:
   (``_stats_outputs``, with the exact rect luminosity); the pixel-mean
   luminosity takes the ids to ``labeling.component_stats``.
 
-Not ported: the sorted-run compaction of the TPU path (a layout for the
-TPU, same outputs) and ``use_table`` (ROADMAP's "do not port" list), which
-raises.
+``use_table`` takes effect on the pixel-table branch only: the run-CC
+branch ignores it, as ``ysmr_tpu``'s returns before it. Not ported: the
+sorted-run compaction of the TPU path (a layout for the TPU, same
+outputs).
 """
 
 import torch
@@ -65,6 +70,10 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
     :param gray_frames: optional (T, H, W) uint8 gray frames; with
         ``include_luminosity`` the ILLUMINATION value is the exact
         filled-rotated-rect mean (``ops/luminosity.py``)
+    :param use_table: label the pixel-table branch with the sparse table
+        CC (``use table cc``; ``cc.cc_labels_table``) in place of
+        ``cc.cc_labels_at_pixels``: the same labels wherever ``ysmr_tpu``'s
+        table labeling converges; the run-CC branch ignores it
     :param px_packed: optional (T, F) int32 view of the uint32 packed wire
         (bits 0..30 ``y*w+x``, bit 31 marker)
     :param px_runs: optional (T, R) int32 view of the uint32 run wire (bits
@@ -95,10 +104,6 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
         whose kernel has no cap), plus ``det_px_idx`` or ``det_run_idx`` as
         asked
     """
-    if use_table:
-        raise NotImplementedError(
-            'detect_from_pixels: use_table (label_components_table) is on '
-            "ROADMAP's do-not-port list")
     if px_runs is not None and use_run_cc and not include_luminosity:
         return _detect_run_cc(px_runs, run_counts, frame_valid, h=h, w=w,
                               double_threshold=double_threshold,
@@ -113,10 +118,12 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
         raise ValueError('detect_from_pixels: readback_runs needs the run '
                          'wire with use_run_cc and no luminosity')
     exact_lum = include_luminosity and gray_frames is not None
+    lin_raw = None
     if px_runs is not None or px_packed is not None:
         if px_runs is not None:
-            lin_raw, px_marker = _expand_runs(px_runs, run_counts,
-                                              expanded_f, double_threshold)
+            lin_raw, px_marker = rcc.expand_runs(
+                px_runs.to(_I32), run_counts.to(_I32), expanded_f,
+                double_threshold)
         else:
             packed = px_packed.to(_I32)
             lin_raw = packed & 0x7FFFFFFF
@@ -136,9 +143,16 @@ def detect_from_pixels(px_x, px_y, px_counts, px_marker, frame_valid, *, h,
     # the pixel kernel has no step count; made here, so that nothing runs
     # between the labels, the finish and what reads the finish
     cc_steps = torch.zeros((t,), dtype=_I32, device=dev)
-    lab_fg, keep = cc.cc_labels_at_pixels(
-        px_x, px_y, valid, px_marker.contiguous(), h=h, w=w,
-        double_threshold=double_threshold, max_iters=cc_iters)
+    if use_table:
+        lin = lin_raw if lin_raw is not None else px_y * w + px_x
+        lab_fg, keep = cc.cc_labels_table(
+            lin.contiguous(), valid, px_marker.contiguous(), h=h, w=w,
+            double_threshold=double_threshold, max_iters=cc_iters,
+            raster_prefix=True)
+    else:
+        lab_fg, keep = cc.cc_labels_at_pixels(
+            px_x, px_y, valid, px_marker.contiguous(), h=h, w=w,
+            double_threshold=double_threshold, max_iters=cc_iters)
     finish = dict(h=h, w=w)
     if readback_pixels is not None:
         # the host-rect batch: the finish writes what the host reads
@@ -205,40 +219,6 @@ def _gray_in(px_gray, px_x):
     """The per-pixel gray of the pixel-mean luminosity (0 without it)."""
     return px_gray.to(_I32) if px_gray is not None else \
         torch.zeros_like(px_x)
-
-
-def _expand_runs(px_runs, run_counts, f, double_threshold):
-    """The run wire expanded to the (T, F) pixel table in raster order:
-    ``lin`` with no per-pixel gather (one scatter of each run's jump delta,
-    then a cumsum over the slots) and, with the double threshold, each
-    pixel's marker (run id by a start-offset scatter and cummax, then one
-    gather). Slots past a frame's pixels hold garbage, as in JAX; the
-    pixel count masks them."""
-    t, r = px_runs.shape
-    dev = px_runs.device
-    runs = px_runs.to(_I32)
-    starts = runs & 0x03FFFFFF
-    rmark = ((runs >> 26) & 1) > 0
-    lens = (runs >> 27) & 0x1F
-    iota_r = torch.arange(r, dtype=_I32, device=dev)[None, :]
-    lens = torch.where(iota_r < run_counts.to(_I32)[:, None], lens,
-                       torch.zeros_like(lens))
-    offs = torch.cumsum(lens, dim=1, dtype=_I32) - lens
-    t_off = torch.arange(t, dtype=torch.int64, device=dev)[:, None] * f
-    # runs that start past the table go to the dump slot t * f
-    flat_idx = torch.where((lens > 0) & (offs < f), offs + t_off,
-                           torch.full_like(t_off, t * f)).reshape(-1)
-    prev_end = torch.cat([torch.ones((t, 1), dtype=_I32, device=dev),
-                          (starts + lens)[:, :-1]], dim=1)
-    d = torch.ones(t * f + 1, dtype=_I32, device=dev)
-    d.index_add_(0, flat_idx, (starts - prev_end).reshape(-1))
-    lin_raw = torch.cumsum(d[:t * f].view(t, f), dim=1, dtype=_I32)
-    if not double_threshold:
-        return lin_raw, torch.zeros((t, f), dtype=torch.bool, device=dev)
-    rid = torch.zeros(t * f + 1, dtype=torch.int64, device=dev)
-    rid[flat_idx] = iota_r.expand(t, r).reshape(-1).to(torch.int64)
-    rid = torch.cummax(rid[:t * f].view(t, f), dim=1).values
-    return lin_raw, torch.gather(rmark, 1, rid)
 
 
 def _detect_run_cc(px_runs, run_counts, frame_valid, *, h, w,

@@ -58,8 +58,10 @@ Same contract as the JAX entry point: writes ``_list.csv`` and returns
 ``(df, fps, frame_height, frame_width, csv_path)``, or None on the errors
 the reference reports that way. The device defaults to ``cuda`` and the
 call raises without one; CPU runs happen only when a caller passes
-``device='cpu'``. ``use table cc`` (on ROADMAP's do-not-port list) raises
-``NotImplementedError``; a missing native library raises (there is no
+``device='cpu'``. ``use table cc`` labels the pixel-table branch (``run
+cc = off``, the pixel wire, luminosity) with the sparse table CC, as
+``ysmr_tpu`` does; the run-CC branch, frames mode and the multi-video
+step ignore it, as there. A missing native library raises (there is no
 slower fallback path to take). ``shard dense assignment across devices``
 row-shards the device tracker's assignment over the visible devices where
 the JAX loop's gate would (``parallel/sharding.py``). ``jax profiler dir``
@@ -216,14 +218,6 @@ def resolve_transfer_mode(settings):
     return 'frames' if mode == 'frames' else 'pixels'
 
 
-def check_slice_settings(settings):
-    """Raise NotImplementedError for settings the port does not take."""
-    if bool(settings.get('use table cc', False)):
-        raise NotImplementedError(
-            "'use table cc = True' is on ROADMAP's do-not-port list (it "
-            'loses end to end on both backends).')
-
-
 def use_host_rects(settings, has_display=False):
     """The JAX loop's gate (``track_bacteria.py:398-406``): in pixels mode
     without an open live display, host rects and the float64 host tracker
@@ -263,7 +257,6 @@ def track_bacteria(video_path, settings=None, result_folder=None,
         logger.critical('No settings provided / could not get settings.')
         return None
     device = resolve_device(device)
-    check_slice_settings(settings)
     _require_native()
     get_loggers(log_level=settings['log_level'],
                 logfile_name=settings['log file path'],
@@ -367,7 +360,6 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     logger = logging.getLogger('ysmr').getChild(__name__)
     device = resolve_device(device)
     frame_height, frame_width = reader.height, reader.width
-    check_slice_settings(settings)
     _require_native()
     double_threshold = pp.resolve_detection_rule(settings)[0] == \
         'adaptive_double'
@@ -396,6 +388,8 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
     # exist on every device of the port, so 'auto' is on)
     use_run_cc = use_runs_wire and \
         str(settings.get('run cc', 'auto')).lower() != 'off'
+    # the sparse table CC on the pixel-table branch (ignored on run-CC's)
+    use_table_cc = bool(settings.get('use table cc', False))
     # the float64 host tracker runs GSFF only in 2-D: luminosity with GSFF
     # takes the device tracker, on the host rects
     native_tracker = host_rects and not (include_lum and use_gsff)
@@ -509,7 +503,7 @@ def _track_loop(reader, settings, fps_of_file, list_name, *, device,
         return detect_from_pixels(
             **kw, **more, h=frame_height, w=frame_width,
             double_threshold=double_threshold, max_det=max_det,
-            max_bh=max_bh, cc_iters=cc_iters)
+            max_bh=max_bh, cc_iters=cc_iters, use_table=use_table_cc)
 
     def event():
         ev = torch.cuda.Event(enable_timing=True)
