@@ -355,9 +355,19 @@ sources in the checkout (into ``ysmr_tpu_torch/.build/``). Phases:
    ``ysmr_cc_pixels`` on the same tables, and the bound. The run wire's
    expansion to the pixel table (``csrc/expand_runs.cu``,
    ``run_cc.expand_runs``) against its plain version, every slot
-   bit-equal, on the bench and dense run wires (timed, with the bound) and
-   on the seeded wires of ``run_cc_cases.py`` at tables as wide as their
-   pixels, wider and narrower. Then the bench
+   bit-equal, on the bench and dense run wires (timed, with the bound), on
+   the wide frames' wire and on the seeded wires of ``run_cc_cases.py`` at
+   tables as wide as their pixels, wider and narrower. Both kernels also
+   on the edge cases of the
+   root module ``table_cc_cases.py`` at their own tiling (a run across a
+   tile's and a warp's edge, a window wider than the table kernel stages in
+   shared memory, a checkerboard, a prefix ending mid-tile, a full frame, a
+   component of many marker runs, both thresholds, both routes; F not a
+   multiple of the tile, runs across tiles, a run cut at F, no tail, a
+   frame with no run, counts below 0 and above R), the tiles whose window
+   is read from global memory counted (the wide frames and the
+   ``wide_halo`` case), and a ``table cc resources`` line (registers,
+   spills, shared memory and occupancy of each launch). Then the bench
    scene in memory with ``use table cc`` on the run wire (run-CC, which
    ignores the flag: no table launch), with ``run cc = off``, the pixel
    wire and luminosity (one table launch a batch, no ``ysmr_cc_pixels``
@@ -400,6 +410,7 @@ import frame_step_cases as fsc
 import mean_mode_cases as mmc
 import rect_tail_cases as rtc
 import run_cc_cases as rcc_cases
+import table_cc_cases as tcc_cases
 import tracker_step_launches as tsl
 
 from ysmr_tpu_torch import _build, graft_entry, native
@@ -5730,12 +5741,125 @@ def check_expand(name, runs, rc, f, double, dev):
                        args, 0, nbytes=nbytes)
 
 
+def global_halo_tiles(lin, valid, w):
+    """The tiles of the table CC whose window (the valid slots within two
+    rows before the tile's first lin, and the tile's slots less than a row
+    and a pixel past it) exceeds the slots its cross launch stages in
+    shared memory, so that it reads them from global memory: (such tiles,
+    tiles with a valid first slot), on the raster-prefix table."""
+    lin, valid = (a.cpu().numpy() if torch.is_tensor(a) else a
+                  for a in (lin, valid))
+    n_global = n_tiles = 0
+    tile = cc.TABLE_TILE
+    for keys, ok in zip(lin, valid):
+        for t0 in range(0, keys.shape[0], tile):
+            if not ok[t0]:
+                break
+            lo = max(t0 - 2 * w, 0)
+            ws = lo + int(np.searchsorted(keys[lo:t0], keys[t0] - 2 * w))
+            hi = min(t0 + w + 1, t0 + tile, len(keys))
+            cross = keys[t0:hi][ok[t0:hi]]
+            te = t0 + int(np.searchsorted(cross, keys[t0] + w + 1))
+            n_tiles += 1
+            n_global += te - ws > cc.TABLE_WINDOW
+    return n_global, n_tiles
+
+
+def check_table_cases(dev):
+    """The table kernel and the expansion against their plain versions on
+    the edge cases of ``table_cc_cases.py`` at the kernels' tiling, bit
+    for bit, one launch a call: the table's both thresholds on the raster
+    prefix and sorted on the rows shuffled, the wire's both thresholds."""
+    rng = np.random.default_rng(SEED + 38)
+    for name in tcc_cases.TABLE_CASES:
+        lin, valid, marker, h, w = tcc_cases.table_case(
+            name, cc.TABLE_TILE, cc.TABLE_WINDOW)
+        perm = np.stack([rng.permutation(lin.shape[1])
+                         for _ in range(lin.shape[0])])
+        routes = ((True, (lin, valid, marker)),
+                  (False, tuple(np.take_along_axis(a, perm, 1)
+                                for a in (lin, valid, marker))))
+        for prefix, arrays in routes:
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            for double in (True, False):
+                kw = dict(h=h, w=w, double_threshold=double,
+                          max_iters=10 ** 4)
+                want = cc.cc_labels_table_plain(*args, **kw)
+                if not bool((want[2] < 10 ** 4).all()):
+                    raise SystemExit('table case {}: the plain version did '
+                                     'not converge'.format(name))
+                cc.cc_labels_table.launches = 0
+                got = cc.cc_labels_table(*args, raster_prefix=prefix, **kw)
+                torch.cuda.synchronize()
+                if cc.cc_labels_table.launches != 1 or not (
+                        torch.equal(got[0], want[0]) and
+                        torch.equal(got[1], want[1])):
+                    raise SystemExit('table case {} ({}, {}): kernel != '
+                                     'plain'.format(
+                                         name, 'raster prefix' if prefix
+                                         else 'sorted',
+                                         'double' if double else 'single'))
+        n_global, n_tiles = global_halo_tiles(*routes[0][1][:2], w)
+        log('table case {}: {}x{} F={}, kernel bit-equal to plain (both '
+            'thresholds, both routes); tiles with the window in global '
+            'memory: {} of {}'.format(name, h, w, lin.shape[1], n_global,
+                                      n_tiles))
+    for name in tcc_cases.EXPAND_CASES:
+        runs, rc, f = tcc_cases.expand_case(name, run_cc.EXPAND_TILE,
+                                            run_cc.EXPAND_CHUNK)
+        args = (torch.from_numpy(runs.view(np.int32)).to(dev),
+                torch.from_numpy(rc).to(dev))
+        for double in (True, False):
+            want = run_cc.expand_runs_plain(*args, f, double)
+            run_cc.expand_runs.launches = 0
+            got = run_cc.expand_runs(*args, f, double)
+            torch.cuda.synchronize()
+            if run_cc.expand_runs.launches != 1 or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit('expand case {} F={}: kernel != '
+                                 'plain'.format(name, f))
+    log('expand cases: kernel bit-equal to plain on {} (both '
+        'thresholds)'.format(', '.join(tcc_cases.EXPAND_CASES)))
+
+
+def table_resources(table_call, expand_call):
+    """ptxas' registers, spills and shared memory of each launch of the
+    table CC and the expansion, the occupancy they allow and the
+    profiler's achieved occupancy on the given calls (the dense batch)."""
+    lib = _build.load_kernels()
+    out = {}
+    for source, ptx_name, prof_name, fn in (
+            ('table_cc.cu', 'tcc_localILi4', 'tcc_local<4', table_call[0]),
+            ('table_cc.cu', 'tcc_crossILi4', 'tcc_cross<4', table_call[0]),
+            ('table_cc.cu', 'tcc_localILi8', 'tcc_local<8', table_call[1]),
+            ('table_cc.cu', 'tcc_crossILi8', 'tcc_cross<8', table_call[1]),
+            ('table_cc.cu', 'tcc_compress_mark', 'tcc_compress_mark',
+             table_call[0]),
+            ('table_cc.cu', 'tcc_diagonals', 'tcc_diagonals', table_call[0]),
+            ('table_cc.cu', 'tcc_final', 'tcc_final', table_call[0]),
+            ('expand_runs.cu', 'expand_sums', 'expand_sums', expand_call),
+            ('expand_runs.cu', 'expand_tiles', 'expand_tiles',
+             expand_call)):
+        ptx = ptxas_of(lib.build_log, source, ptx_name)
+        regs, spill, smem = ptx if ptx else (None, None, None)
+        threads = 128 if 'cross' in prof_name else 256
+        out[prof_name] = {
+            'registers': regs, 'spill_bytes': spill, 'smem_bytes': smem,
+            'resident_share': None if regs is None else
+            round(resident_share(regs, smem, threads), 4),
+            'achieved_occupancy': achieved_occupancy(fn, prof_name)}
+    log('table cc resources {}'.format(json.dumps(out)))
+
+
 def phase_table_cc(scene, settings, dscene, dsettings, frames, dframes,
                    run_bytes, dense_bytes, lum_bytes, dev):
     """Phase 37: ``use table cc``. The table kernel (``csrc/table_cc.cu``)
     against its plain version on the bench and dense tables (both
     thresholds, both routes), on the bench table shuffled among invalid
-    slots and on frames wider than ``ysmr_cc_pixels`` takes; then the
+    slots, on frames wider than ``ysmr_cc_pixels`` takes and on the edge
+    cases of ``table_cc_cases.py``; the expansion (``csrc/expand_runs.cu``)
+    on the bench, dense and wide wires, the seeded wires and the edge
+    cases; both kernels' resources; then the
     bench scene in memory with ``use table cc`` on the run wire (run-CC:
     no table launch), with 'run cc = off', with the pixel wire and with
     luminosity (a table launch a batch, no ``ysmr_cc_pixels``), and the
@@ -5767,6 +5891,8 @@ def phase_table_cc(scene, settings, dscene, dsettings, frames, dframes,
         check_table('table wide {}x{} {}'.format(
             WIDE_H, WIDE_W, 'double' if double else 'single'),
             wlin, wide[2], wide[3], WIDE_H, WIDE_W, double, wide)
+    log('wide frames: tiles with the window in global memory: {} of '
+        '{}'.format(*global_halo_tiles(wlin, wide[2], WIDE_W)))
     try:
         cc.cc_labels_at_pixels(*wide, h=WIDE_H, w=WIDE_W,
                                double_threshold=True)
@@ -5784,6 +5910,16 @@ def phase_table_cc(scene, settings, dscene, dsettings, frames, dframes,
                                dev)
     check_expand('expand runs bench single', *wires['bench'], False, dev)
     check_expand('expand runs dense', *wires['dense'], True, dev)
+    # the wide frames' run wire (chunks of runs and tiles of a wide row)
+    ok = wide[2].cpu().numpy()
+    wpacked = np.where(ok, wlin.cpu().numpy().astype(np.uint32) |
+                       (wide[3].cpu().numpy().astype(np.uint32) << 31),
+                       0).astype(np.uint32)
+    for double in (True, False):
+        check_expand('expand runs wide {}x{} {}'.format(
+            WIDE_H, WIDE_W, 'double' if double else 'single'),
+            *encode(wpacked, ok.sum(1).astype(np.int32), WIDE_W, None),
+            wpacked.shape[1], double, dev)
     for case in rcc_cases.WIRE_CASES:
         runs, rc, _ = rcc_cases.run_case(case)
         total = max(int((runs[i, :rc[i]] >> 27).astype(np.int64).sum())
@@ -5801,6 +5937,15 @@ def phase_table_cc(scene, settings, dscene, dsettings, frames, dframes,
     log('expand runs: kernel bit-equal to plain on the {} seeded wires, '
         'tables as wide as the pixels, wider and narrower, both '
         'thresholds'.format(len(rcc_cases.WIRE_CASES)))
+    check_table_cases(dev)
+    dlin, dvalid, dmarker = tables['dense'][:3]
+    dwire = tuple(torch.from_numpy(a).to(dev) for a in
+                  (wires['dense'][0].view(np.int32), wires['dense'][1]))
+    table_resources(
+        [functools.partial(cc.cc_labels_table, dlin, dvalid, dmarker, h=H,
+                           w=W, double_threshold=double, raster_prefix=True)
+         for double in (True, False)],
+        lambda: run_cc.expand_runs(*dwire, wires['dense'][2], True))
     n_bench = n_batches(N_FRAMES, settings)
     off_launches = None
     for key, extra, want in (

@@ -183,7 +183,7 @@ def load_kernels():
     lib.ysmr_table_cc.restype = ci
     lib.ysmr_table_cc.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.ysmr_expand_runs.restype = ci
-    lib.ysmr_expand_runs.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+    lib.ysmr_expand_runs.argtypes = [vp] * 5 + [ci] * 5 + [vp]
     lib.ysmr_adaptive_mean.restype = ci
     lib.ysmr_adaptive_mean.argtypes = [vp, vp, ctypes.POINTER(
         ctypes.c_float)] + [ci] * 4 + [vp]

@@ -13,100 +13,155 @@
 // the entry's 4-connected component of the valid entries holds a marker;
 // without it: valid) and the label of every kept entry, the minimum lin
 // of its 8-connected component among the kept entries (-1 for the
-// others). No frame-sized array and no width cap. Design, a memset and
-// four launches with the double threshold (a memset and two without):
-//   - the wrapper hands over each frame's sorted keys: the lins sorted
-//     ascending by torch.sort with 2^30 at the invalid entries, and the
-//     sort's order (sorted slot -> table index), or the table itself with
-//     its valid flags where the caller knows the valid entries are a
-//     prefix in strictly ascending lin (every wire of the pipeline); in
-//     both cases a valid slot's predecessors are all valid;
-//   - a forest over a frame's sorted slots is stored as distances
-//     (parent(x) = x - d[x], d = 0 at a root; the zeroed array is the
-//     forest of singletons), as ysmr_cc_pixels in cc.cu keeps it; a union
-//     hooks the larger root under the smaller by an atomicMax on the
-//     distance (an atomicMin on the parent), so each root is its
-//     component's first slot, whose lin is the minimum, and the labels do
-//     not depend on the schedule;
-//   - tcc_merge (4-connected with the double threshold, 8-connected
-//     without it): a thread a slot; each edge is taken at its later end
-//     (left, and the row above). The lanes of a warp split into segments,
-//     the lanes of one horizontal run (a slot continues its left lane when
-//     its lin is one more); a segment's lanes hook under its first slot,
-//     and its first lane, alone, finds the run's upper neighbours: a binary
-//     search for the first lin >= lin_s - w (- 1 with 8-connectivity)
-//     among the w + 1 slots before it (the lins in between are distinct
-//     integers of one row's span). The candidate slots up to lin_e - w
-//     (+ 1) are shared out over its lanes; only the first of each run
-//     above is united with the lane's slot (that run's own threads unite
-//     the rest). A find of more than one hop points its slot straight at
-//     the root;
-//   - tcc_compress_mark: each valid slot points straight at its
-//     4-connected root, in the 4-connected forest and in the 8-connected
-//     one, which starts as it; a marker entry sets the root's mark bit
-//     (a kept slot: its root's mark, two loads);
-//   - tcc_diagonals: a kept run's first pixel unites with its kept
-//     up-left pixel, its last with its up-right one (one lower bound
-//     each), in the 8-connected forest: the only edges that can join two
-//     4-connected components, whose pixels are all kept or all dropped;
-//   - tcc_final: the lin of the 8-connected root, or -1, and keep,
-//     written at the slot's table index.
+// others). No frame-sized array and no width cap.
+//
+// The wrapper hands over each frame's sorted keys: the lins sorted
+// ascending by torch.sort with 2^30 at the invalid entries, and the sort's
+// order (sorted slot -> table index), or the table itself with its valid
+// flags where the caller knows the valid entries are a prefix in strictly
+// ascending lin (every wire of the pipeline). Either way the valid slots
+// are a prefix, and a run (slots whose lins follow one another in one
+// image row) is a range of slots.
+//
+// Design: a union-find over the slots in tiles of 2048. A forest over a
+// frame's slots is stored as distances (parent(x) = x - d[x], d = 0 at a
+// root), as ysmr_cc_pixels in cc.cu keeps it; a union hooks the larger
+// root under the smaller by an atomicMax on the distance, so each root is
+// its component's first slot, whose lin is the minimum, and the labels do
+// not depend on the schedule. The run is the unit of the searches and the
+// unions: a thread a run in the tiles, and in the edges between tiles a
+// warp's lanes split into segments (the lanes of one run) whose first lane
+// alone searches. Five launches with the double threshold, three without
+// (no memset):
+//   - tcc_local (4-connected with the double threshold, 8-connected
+//     without it): a block a tile, all in shared memory: its keys, its
+//     runs (ballotted and compacted; the tile's first slot starts one),
+//     each slot's run and a forest over the runs' first slots. A thread a
+//     run finds its first upper candidate in the tile (a binary search of
+//     the staged keys) and unites its first slot with that of the
+//     candidate's run and of each run after it that starts in the range.
+//     Every valid slot then points at its tile root in d (coalesced
+//     stores), and a flag byte a slot (in the keep output until the last
+//     launch) marks the tile roots, those whose tile component holds a
+//     marker (double threshold) and the slots with diagonal records. The
+//     runs whose row above lies in the tile record their partners: the
+//     up-left one of a run's first pixel (the slot just before the first
+//     upper candidate) in the forest's second plane, the up-right one of
+//     its last pixel (the first slot past the candidate runs) in the
+//     labels output, each where the pixel right above is not valid (else
+//     the partner is 4-connected through it): only diagonals at a run's
+//     ends can join two 4-connected components. Columns (lin mod w) by a
+//     multiply and a shift;
+//   - tcc_cross: the edges that leave a tile, in global memory: the
+//     tile's first slots (those whose row above can reach before the tile)
+//     unite with their upper candidates before it, found in a window of
+//     keys staged in shared memory (the slots within two rows of the
+//     tile's first lin, at most 2w, found by one warp's 32-way search;
+//     where the window is longer than kWindow slots, wide dense rows, the
+//     same launch reads the keys from global memory), and record their
+//     partners; the tile's first slot unites with the slot before it where
+//     a run goes on across the tile's start;
+//   - tcc_compress_mark: each tile root walks to its 4-connected root,
+//     points straight at it and, where its tile component holds a marker,
+//     sets the root's mark bit (one atomicOr a tile component, none where
+//     the root already has it); a thread reads four slots' flags;
+//   - tcc_diagonals (the same threads): each slot with a record, where its
+//     run is kept, unites with its partner where that is kept, in the same
+//     forest: the
+//     8-connected components of the kept slots are unions of kept
+//     4-connected components, so the forest grows in place and a kept
+//     component's root keeps a mark bit (a dropped component is never
+//     touched);
+//   - tcc_final: every slot walks to its root (two hops: its tile root,
+//     then the root, addresses a warp mostly shares; four slots a thread,
+//     the walks interleaved) and writes the root's lin, or -1, and keep, at
+//     its table index.
 // ysmr_tpu stops after max_iters rounds; this kernel always reaches the
 // fixpoint (ROADMAP's "Differences from ysmr_tpu"). It needs H * W < 2^30,
 // where the invalid entries' 2^30 would collide with a lin.
-// Bound: the tables, 6 bytes a slot in (lin int32, valid and marker
-// bytes) and 5 out (int32 label, keep byte), ~5.8 MB per 64 x 8192 batch
-// (~1.7 us) and ~92 MB at F = 131072 (~28 us); the sorted route adds the
-// sort and 8 bytes a slot of its order. The kernels read more: the
-// forests (8 bytes a slot), about log2(w + 2) dependent loads of a lower
-// bound a run segment and a run end, and the root walks: dependent loads,
-// so latency, not bytes, sets the time (0.70 ms dense, PERF.md section 6).
+// Bound: the tables, the valid flags and both outputs at every slot (int32
+// label, keep byte) and the lin (and marker) at the valid slots, ~5.4 MB
+// per 64 x 8192 bench batch (~1.6 us) and ~83 MB at F = 131072 (~25 us);
+// the sorted route adds the sort and 8 bytes a slot of its order. The
+// kernels also move the forest (4 bytes a valid slot, written and read,
+// and the walks), the flags and the keys again, and spend most of their
+// time issuing the tiles' searches and unions (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                    // the per-slot launches
+constexpr int kLocalThreads = 512;
+constexpr int kCrossThreads = 128;
+constexpr int kTile = 2048;                      // slots a tile
+constexpr int kWindow = 2048;                    // tcc_cross: staged slots
+constexpr int kFlagSlots = 4;                    // compress, diagonals
+constexpr int kFinalSlots = 4;
 constexpr int32_t kSentinel = 1 << 30;           // an invalid entry's key
+constexpr int32_t kFar = -(1 << 30);             // a slot before the window
 constexpr int32_t kDist = 0x7fffffff;            // d[x] without the mark bit
 constexpr int32_t kMark = static_cast<int32_t>(0x80000000u);
+constexpr unsigned kFull = 0xffffffffu;
+// a slot's flag byte in the keep output until tcc_final: a tile root, its
+// tile component holds a marker, an up-left record, an up-right record
+constexpr uint8_t kRootFlag = 1, kMarkFlag = 2, kUlFlag = 4, kUrFlag = 8;
 
-// root of slot x in a distance forest (parent(x) = x - (d[x] & kDist))
+// n / w and n % w for 0 <= n < 2^31 by a multiply and a shift: q =
+// n * m >> (31 + l) with l = ceil(log2 w), m = ceil(2^(31 + l) / w) <
+// 2^32 (the error n * (m - 2^(31 + l) / w) / 2^(31 + l) < 1 / w)
+struct Div {
+  int32_t w;
+  uint32_t m;
+  int l;
+};
+
+__device__ __forceinline__ int32_t col(const Div& D, int32_t n) {
+  const int32_t q = static_cast<int32_t>(
+      (static_cast<uint64_t>(static_cast<uint32_t>(n)) * D.m) >> (31 + D.l));
+  return n - q * D.w;
+}
+
+// the root of slot x in a distance forest; *raw is the root's entry (its
+// mark bit). Only roots carry a mark bit, and a marked root that is hooked
+// loses it, so the walk ends at a current root.
 __device__ __forceinline__ int32_t root_of(const volatile int32_t* d,
-                                           int32_t x) {
-  int32_t s = d[x] & kDist;
-  while (s != 0) {
-    x -= s;
-    s = d[x] & kDist;
+                                           int32_t x, int32_t* raw) {
+  int32_t v = d[x];
+  while ((v & kDist) != 0) {
+    x -= v & kDist;
+    v = d[x];
   }
+  *raw = v;
   return x;
 }
 
-// the root of slot x in a forest without marks; a walk of more than one
-// hop points x straight at the root it found (an atomicMax: a parent only
-// ever moves to a smaller ancestor, so a concurrent hook is kept)
+// the root of slot x; a walk of more than one hop points x straight at the
+// root it found (an atomicMax: a parent only ever moves to a smaller
+// ancestor, so a concurrent hook is kept)
 __device__ __forceinline__ int32_t find(int32_t* d, int32_t x) {
   const volatile int32_t* v = d;
-  const int32_t s0 = v[x];
-  if (s0 == 0) return x;
-  int32_t r = x - s0;
-  int32_t s = v[r];
+  int32_t s = v[x] & kDist;
+  if (s == 0) return x;
+  int32_t r = x - s;
+  s = v[r] & kDist;
   if (s == 0) return r;
   while (s != 0) {
     r -= s;
-    s = v[r];
+    s = v[r] & kDist;
   }
   atomicMax(d + x, x - r);
   return r;
 }
 
-// unites the trees of slots a and b of one frame's forest d (no marks):
-// link the larger root a under b by raising d[a] to a - b; if a stopped
-// being a root meanwhile, its new parent still has to join b. Parents are
-// read through a volatile pointer (no stale L1 line survives another
-// block's atomic); a stale read still names an ancestor, because parents
-// only decrease within one tree.
+// unites the trees of slots a and b of one frame's forest d: link the
+// larger root a under b by raising d[a] to a - b (a marked root's entry is
+// negative, so the link replaces it); if a stopped being a root meanwhile,
+// its new parent still has to join b. Parents are read through a volatile
+// pointer (no stale L1 line survives another block's atomic); a stale
+// read still names an ancestor, because parents only decrease within one
+// tree. The same code unites in a tile's forest in shared memory.
 __device__ void unite(int32_t* d, int32_t a, int32_t b) {
   while (true) {
     a = find(d, a);
@@ -118,7 +173,7 @@ __device__ void unite(int32_t* d, int32_t a, int32_t b) {
       b = t;
     }
     const int32_t old = atomicMax(d + a, a - b);
-    if (old == 0) return;
+    if ((old & kDist) == 0) return;
     a -= old;
   }
 }
@@ -129,20 +184,39 @@ __device__ __forceinline__ bool slot_valid(const int32_t* __restrict__ keys,
   return valid != nullptr ? valid[i] != 0 : keys[i] < kSentinel;
 }
 
-// a slot is kept when its 4-connected root carries the mark bit; after
-// tcc_compress_mark every valid slot points straight at its root
-__device__ __forceinline__ bool kept4(const int32_t* __restrict__ d4,
-                                      int32_t j) {
-  const int32_t r = j - (d4[j] & kDist);
-  return (d4[r] & kMark) != 0;
-}
+// a frame's keys as tcc_cross reads them: slots [ws, we) from the staged
+// window (all valid), the others from global memory (kSentinel at an
+// invalid slot); with the halo staged, a slot before the window lies more
+// than two rows before the tile and reads as kFar
+struct Window {
+  const int32_t* k;
+  const uint8_t* v;
+  const int32_t* s;
+  int32_t ws, we;
+  bool staged;
+  __device__ __forceinline__ int32_t operator()(int32_t j) const {
+    if (j >= ws && j < we) return s[j - ws];
+    if (j < ws && staged) return kFar;
+    return slot_valid(k, v, j) ? k[j] : kSentinel;
+  }
+};
+
+// the keys of a tile in shared memory (slots t0 - 1 .. t1)
+struct TileKeys {
+  const int32_t* s;
+  int32_t t0;
+  __device__ __forceinline__ int32_t operator()(int32_t j) const {
+    return s[j - t0 + 1];
+  }
+};
 
 // first slot in [lo, hi) whose key is >= v, hi if none
-__device__ __forceinline__ int32_t lower_bound(
-    const int32_t* __restrict__ keys, int32_t lo, int32_t hi, int32_t v) {
+template <typename Key>
+__device__ __forceinline__ int32_t lower_bound(const Key& key, int32_t lo,
+                                               int32_t hi, int32_t v) {
   while (lo < hi) {
     const int32_t mid = lo + ((hi - lo) >> 1);
-    if (keys[mid] < v) {
+    if (key(mid) < v) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -151,154 +225,488 @@ __device__ __forceinline__ int32_t lower_bound(
   return lo;
 }
 
-// frame-major grid: x the slot tiles of a frame, y the frames (strided
-// past 65535). Every lane of a warp reaches the ballots and shuffles: the
-// lanes past F and the invalid slots take part as non-members.
+// the first slot in [lo, hi) whose key is >= v (hi if none; an invalid
+// slot counts as past v), by the 32 lanes of a warp, 32 probes a round
+__device__ __forceinline__ int32_t warp_lower_bound(
+    const int32_t* __restrict__ k, const uint8_t* __restrict__ valid,
+    int32_t lo, int32_t hi, int32_t v, int lane) {
+  while (lo < hi) {
+    const int32_t step = (hi - lo + 31) / 32;
+    const int32_t q = lo + step * (lane + 1) - 1;
+    const unsigned below = __ballot_sync(
+        kFull, q < hi && slot_valid(k, valid, q) && k[q] < v);
+    const int32_t c = __popc(below);
+    const int32_t nlo = min(lo + step * c, hi);
+    hi = min(hi, lo + step * (c + 1) - 1);
+    lo = nlo;
+  }
+  return lo;
+}
+
+// the segments of a warp: the lanes of one run (a lane continues its left
+// lane when its slot does). s: the first lane of this lane's segment, e:
+// the last; members are a prefix of the lanes.
+__device__ __forceinline__ void segments(bool member, bool left, int lane,
+                                         int* s, int* e) {
+  const unsigned members = __ballot_sync(kFull, member);
+  const unsigned cont = __ballot_sync(kFull, left && lane > 0);
+  const unsigned upto = lane == 31 ? kFull : (2u << lane) - 1u;
+  *s = max(31 - __clz(members & ~cont & upto), 0);
+  const unsigned after = ~cont & ~upto;
+  *e = (after != 0u ? __ffs(after) - 1 : 32) - 1;
+}
+
+// One warp segment of a run in tcc_cross (first slot i_s, key lin_s, column
+// x_s; last key lin_e): its first upper candidate from slot lo_slot on,
+// found by the segment's first lane and shared, and its diagonal records. The
+// 4-connected candidates start past the up-left partner. ul: the up-left
+// partner of the run's first slot (the slot just before the first upper
+// candidate), ur: the up-right one of its last slot (the slot just after
+// the last candidate), each kept only where the pixel right above is not
+// valid (else it is 4-connected through it), -1 otherwise.
+struct Segment {
+  int32_t p4, hi, row_up;
+};
+
+template <int kConn, typename Key>
+__device__ __forceinline__ Segment upper(const Key& key, bool lead,
+                                         bool run_start, int32_t i_s,
+                                         int32_t lin_s, int32_t x_s,
+                                         int32_t lin_e, int32_t lo_slot,
+                                         int s, int w, int32_t* ul) {
+  const int32_t x_e = x_s + (lin_e - lin_s);
+  const bool up_left = x_s > 0 && (kConn == 8 || run_start);
+  int32_t p = i_s;
+  if (lead && lin_s >= w) {
+    p = lower_bound(key, max(i_s - w - 1, lo_slot), i_s,
+                    lin_s - w - (up_left ? 1 : 0));
+  }
+  p = __shfl_sync(kFull, p, s);
+  Segment g{p, lin_e - w + ((kConn == 8 && x_e < w - 1) ? 1 : 0),
+            lin_s - x_s - w};
+  *ul = -1;
+  if (kConn == 4 && up_left && lin_s >= w && p < i_s &&
+      key(p) == lin_s - w - 1) {
+    g.p4 = p + 1;
+    if (!(g.p4 < i_s && key(g.p4) == lin_s - w)) *ul = p;
+  }
+  return g;
+}
+
+template <typename Key>
+__device__ __forceinline__ int32_t up_right(const Key& key, int32_t p4,
+                                            int32_t i_s, int32_t lin_e,
+                                            int w) {
+  const int32_t want = lin_e - w + 1;
+  const int32_t q = lower_bound(key, p4, i_s, want);
+  if (q < i_s && key(q) == want && (q == 0 || key(q - 1) != want - 1)) {
+    return q;
+  }
+  return -1;
+}
+
+// tcc_local: a block a tile of kTile slots, all in shared memory:
+// the tile's keys (and the slots just before and after it), its runs (the
+// first slot of each, in order; the tile's first slot starts one), each
+// slot's run and a forest over the runs' first slots. Step 1: the slots
+// that start a run are ballotted and compacted. Step 2: a thread a run
+// writes its slots' run. Step 3: a thread a run finds its first upper
+// candidate in the tile (a binary search of the staged keys) and unites
+// its first slot with that of each run above that holds a candidate (the
+// candidate's run, then the runs that follow while they start in the
+// range); the runs whose row above lies in the tile record their diagonal
+// partners (rec_ul at the run's first slot, rec_ur at its last; only
+// where there is one). Step 4: every valid slot of the tile points at its
+// tile root in d, and its flag byte says whether it is a root (with the
+// double threshold: whether its tile component holds a marker) and has
+// records. The edges to the slots before the tile are tcc_cross's.
 template <int kConn>
-__global__ void __launch_bounds__(kThreads)
-tcc_merge(const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-          int32_t* d, int t, int f, int w) {
-  constexpr unsigned kFull = 0xffffffffu;
-  const int32_t i = static_cast<int32_t>(blockIdx.x) * kThreads +
-                    static_cast<int32_t>(threadIdx.x);
+__global__ void __launch_bounds__(kLocalThreads)
+tcc_local(const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
+          const int64_t* __restrict__ order,
+          const uint8_t* __restrict__ marker, int32_t* __restrict__ d,
+          int32_t* __restrict__ rec_ul, int32_t* __restrict__ rec_ur,
+          uint8_t* __restrict__ flags, int t, int f, Div D) {
+  constexpr bool kRecord = kConn == 4;    // the double threshold's records
+  constexpr int kWarpsL = kLocalThreads / 32;
+  constexpr int kPasses = kTile / kLocalThreads;
+  constexpr int kCounts = kPasses * kWarpsL;
+  static_assert(kCounts <= 64, "one warp scans the counts, two a lane");
+  __shared__ int32_t s_key[kTile + 2];     // slots t0 - 1 .. t1
+  __shared__ int32_t s_par[kTile];         // the forest, at the runs' first
+  __shared__ int16_t s_rid[kTile];         // each slot's run
+  __shared__ int16_t s_run[kTile + 1];     // each run's first slot - t0
+  __shared__ uint8_t s_bits[kTile];
+  __shared__ int32_t s_cnt[kCounts];
+  __shared__ int32_t s_nrun, s_nvalid;
   const int lane = static_cast<int>(threadIdx.x) & 31;
-  for (int frame = blockIdx.y; frame < t; frame += gridDim.y) {
-    const int64_t base = static_cast<int64_t>(frame) * f;
-    const int32_t* k = keys + base;
-    int32_t* df = d + base;
-    const bool member = i < f && slot_valid(
-        k, valid != nullptr ? valid + base : nullptr, i);
-    const int32_t lin = member ? k[i] : 0;
-    const int32_t x = lin % w;
-    // the left neighbour is the previous slot when its lin is lin - 1
-    const bool left = member && x > 0 && i > 0 && k[i - 1] == lin - 1;
-    // segments: the lanes of one horizontal run inside the warp
-    const unsigned members = __ballot_sync(kFull, member);
-    const unsigned cont = __ballot_sync(kFull, left && lane > 0);
-    const unsigned upto = lane == 31 ? kFull : (2u << lane) - 1u;
-    const int s = 31 - __clz(members & ~cont & upto);
-    const unsigned after = ~cont & ~upto;
-    const int e = (after != 0u ? __ffs(after) - 1 : 32) - 1;
-    const int32_t lin_s = __shfl_sync(kFull, lin, s < 0 ? 0 : s);
-    const int32_t lin_e = __shfl_sync(kFull, lin, e);
-    // the run above: lins lo..hi of one row (the diagonals only with
-    // 8-connectivity, where the segment's ends are off the frame's
-    // edges); the segment's first lane finds lo among the w + 1 slots
-    // before its own (the lins in between are distinct integers of one
-    // row's span)
-    const int32_t i_s = i - (lane - s);
-    const int32_t lo = lin_s - w - ((kConn == 8 && lin_s % w > 0) ? 1 : 0);
-    const int32_t hi = lin_e - w + ((kConn == 8 && lin_e % w < w - 1) ? 1
-                                                                      : 0);
-    int32_t p0 = 0;
-    if (member && lane == s && lin_s >= w) {
-      p0 = lower_bound(k, i_s > w + 1 ? i_s - w - 1 : 0, i_s, lo);
-    }
-    p0 = __shfl_sync(kFull, p0, s < 0 ? 0 : s);
-    if (!member) continue;
-    if (lane > s) {
-      unite(df, i, i_s);
-    } else if (left) {
-      unite(df, i, i - 1);                 // the run goes on before the warp
-    }
-    if (lin_s < w) continue;               // the frame's first row
-    // the segment's lanes take the candidate slots in turn; the candidates
-    // of one run above are united by that run's own threads, so only the
-    // first of each joins the segment
-    const int len = e - s + 1;
-    for (int32_t j = p0 + (lane - s); j < i_s && k[j] <= hi; j += len) {
-      if (j == p0 || k[j - 1] != k[j] - 1) unite(df, i, j);
-    }
-  }
-}
-
-// every valid slot points straight at its 4-connected root in d4 and, as
-// the start of the 8-connected forest of the kept slots, in d8; a marker
-// entry sets the root's mark bit (roots change only by the atomics; a
-// walk that reads a slot before or after its rewrite meets an ancestor
-// either way)
-__global__ void __launch_bounds__(kThreads)
-tcc_compress_mark(const int32_t* __restrict__ keys,
-                  const uint8_t* __restrict__ valid,
-                  const int64_t* __restrict__ order,
-                  const uint8_t* __restrict__ marker, int32_t* d4,
-                  int32_t* __restrict__ d8, int t, int f) {
-  const int32_t i = static_cast<int32_t>(blockIdx.x) * kThreads +
-                    static_cast<int32_t>(threadIdx.x);
-  if (i >= f) return;
-  for (int frame = blockIdx.y; frame < t; frame += gridDim.y) {
-    const int64_t base = static_cast<int64_t>(frame) * f;
-    if (!slot_valid(keys + base, valid != nullptr ? valid + base : nullptr,
-                    i)) {
-      continue;
-    }
-    int32_t* df = d4 + base;
-    const int32_t r = root_of(df, i);
-    if (r != i) df[i] = i - r;
-    d8[base + i] = i - r;
-    const int64_t ti = order != nullptr ? order[base + i] : i;
-    if (marker[base + ti]) atomicOr(df + r, kMark);
-  }
-}
-
-// the 8-connected forest of the kept slots, which starts as their
-// 4-connected components: only a diagonal edge can join two of those, and
-// only at a run's ends (up-left of its first pixel, up-right of its last;
-// the other diagonals of a run touch a pixel above or beside one of its
-// pixels); a thread a slot
-__global__ void __launch_bounds__(kThreads)
-tcc_diagonals(const int32_t* __restrict__ keys,
-              const uint8_t* __restrict__ valid, const int32_t* __restrict__ d4,
-              int32_t* d8, int t, int f, int w) {
-  const int32_t i = static_cast<int32_t>(blockIdx.x) * kThreads +
-                    static_cast<int32_t>(threadIdx.x);
-  if (i >= f) return;
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int w = D.w;
+  const int32_t t0 = static_cast<int32_t>(blockIdx.x) * kTile;
+  const int32_t t1 = min(t0 + kTile, f);
+  const TileKeys key{s_key, t0};
   for (int frame = blockIdx.y; frame < t; frame += gridDim.y) {
     const int64_t base = static_cast<int64_t>(frame) * f;
     const int32_t* k = keys + base;
     const uint8_t* v = valid != nullptr ? valid + base : nullptr;
-    if (!slot_valid(k, v, i)) continue;
-    const int32_t lin = k[i];
-    if (lin < w) continue;                 // the frame's first row
-    const int32_t x = lin % w;
-    const bool up_left = x > 0 && !(i > 0 && k[i - 1] == lin - 1);
-    const bool up_right = x < w - 1 &&
-                          !(i + 1 < f && slot_valid(k, v, i + 1) &&
-                            k[i + 1] == lin + 1);
-    if (!(up_left || up_right) || !kept4(d4 + base, i)) continue;
-    const int32_t first = i > w + 1 ? i - w - 1 : 0;
-    for (int side = 0; side < 2; ++side) {
-      if (!(side == 0 ? up_left : up_right)) continue;
-      const int32_t want = lin - w + (side == 0 ? -1 : 1);
-      const int32_t j = lower_bound(k, first, i, want);
-      if (j < i && k[j] == want && kept4(d4 + base, j)) {
-        unite(d8 + base, i, j);
+    if (!slot_valid(k, v, t0)) continue;   // past the valid prefix
+    __syncthreads();                       // the last frame's tile is read
+    for (int32_t j = threadIdx.x; j < t1 - t0 + 2; j += kLocalThreads) {
+      const int32_t g = t0 - 1 + j;
+      s_key[j] = g < 0 ? kFar
+                       : (g < f && slot_valid(k, v, g) ? k[g] : kSentinel);
+      if (j < t1 - t0) {
+        s_par[j] = 0;
+        s_bits[j] = 0;
+      }
+    }
+    __syncthreads();
+    const int32_t kt = key(t0);
+    // step 1: the runs' first slots, compacted in slot order
+    unsigned starts[kPasses];
+    int32_t n_valid = 0;
+#pragma unroll
+    for (int q = 0; q < kPasses; ++q) {
+      const int32_t i =
+          t0 + q * kLocalThreads + static_cast<int32_t>(threadIdx.x);
+      const int32_t lin = i < t1 ? key(i) : kSentinel;
+      const bool member = lin < kSentinel;
+      const bool start = member && (i == t0 || col(D, lin) == 0 ||
+                                    key(i - 1) != lin - 1);
+      starts[q] = __ballot_sync(kFull, start);
+      n_valid += __popc(__ballot_sync(kFull, member));
+      if (lane == 0) s_cnt[q * kWarpsL + warp] = __popc(starts[q]);
+    }
+    if (threadIdx.x == 0) s_nvalid = 0;
+    __syncthreads();
+    if (lane == 0) atomicAdd(&s_nvalid, n_valid);
+    if (warp == 0) {
+      // exclusive scan of the counts in (pass, warp) order, 2 a lane
+      const int32_t a = 2 * lane < kCounts ? s_cnt[2 * lane] : 0;
+      const int32_t b = 2 * lane + 1 < kCounts ? s_cnt[2 * lane + 1] : 0;
+      int32_t x = a + b;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int32_t y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (2 * lane < kCounts) s_cnt[2 * lane] = x - a - b;
+      if (2 * lane + 1 < kCounts) s_cnt[2 * lane + 1] = x - b;
+      if (lane == 31) s_nrun = x;
+    }
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int q = 0; q < kPasses; ++q) {
+      if ((starts[q] >> lane) & 1u) {
+        s_run[s_cnt[q * kWarpsL + warp] + __popc(starts[q] & below)] =
+            static_cast<int16_t>(q * kLocalThreads + threadIdx.x);
+      }
+    }
+    __syncthreads();
+    const int n_run = s_nrun;
+    const int32_t nv = s_nvalid;           // the tile's valid slots
+    if (threadIdx.x == 0) s_run[n_run] = static_cast<int16_t>(nv);
+    // step 2: each slot's run
+    for (int r = threadIdx.x; r < n_run; r += kLocalThreads) {
+      const int a = s_run[r];
+      const int b = r + 1 < n_run ? s_run[r + 1] : nv;
+      for (int j = a; j < b; ++j) s_rid[j] = static_cast<int16_t>(r);
+    }
+    __syncthreads();
+    // step 3: a thread a run
+    for (int r = threadIdx.x; r < n_run; r += kLocalThreads) {
+      const int32_t i_s = t0 + s_run[r];
+      const int32_t i_e = t0 + (r + 1 < n_run ? s_run[r + 1] : nv) - 1;
+      const int32_t lin_s = key(i_s), lin_e = key(i_e);
+      if (lin_s < w) continue;             // the frame's first row
+      const int32_t x_s = col(D, lin_s);
+      const int32_t x_e = x_s + (lin_e - lin_s);
+      // the run goes on from the tile before: its first slot is not here
+      const bool run_start = !(r == 0 && x_s > 0 && key(i_s - 1) == lin_s - 1);
+      const bool up_left = x_s > 0 && (kConn == 8 || run_start);
+      const int32_t lo_lin = lin_s - w - (up_left ? 1 : 0);
+      int32_t p = lower_bound(key, max(i_s - w - 1, t0), i_s, lo_lin);
+      if (kConn == 4 && up_left && p < i_s && key(p) == lin_s - w - 1) {
+        // the up-left partner, 4-connected where the pixel above is valid
+        if (kRecord && run_start && lin_s - w - 1 >= kt &&
+            !(p + 1 < i_s && key(p + 1) == lin_s - w)) {
+          rec_ul[base + i_s] = p;
+          s_bits[i_s - t0] |= kUlFlag;
+        }
+        ++p;
+      }
+      const int32_t hi = lin_e - w + ((kConn == 8 && x_e < w - 1) ? 1 : 0);
+      // the runs above that hold a candidate: p's run and those after it
+      // that start at most at hi; q: the first slot past the candidates
+      int32_t q = p;
+      if (p < i_s && key(p) <= hi) {
+        int rr = s_rid[p - t0];
+        unite(s_par, s_run[rr], s_run[r]);
+        int32_t next = t0 + s_run[rr + 1];
+        while (next < i_s && key(next) <= hi) {
+          ++rr;
+          unite(s_par, s_run[rr], s_run[r]);
+          next = t0 + s_run[rr + 1];
+        }
+        // past the last candidate run, unless it goes on past hi (then the
+        // pixel above the run's last one is valid: no up-right record)
+        q = key(next - 1) > hi ? i_s : next;
+      }
+      if (kRecord && x_e < w - 1 && lin_e - w - 1 >= kt &&
+          key(i_e + 1) != lin_e + 1 && q < i_s && key(q) == lin_e - w + 1 &&
+          key(q - 1) != lin_e - w) {
+        rec_ur[base + i_e] = q;
+        s_bits[i_e - t0] |= kUrFlag;
+      }
+    }
+    __syncthreads();
+    // step 4: the tile roots, the marks of the tile components, then the
+    // forest and the flags
+    for (int32_t j = threadIdx.x; j < nv; j += kLocalThreads) {
+      int32_t x = s_run[s_rid[j]], sx = s_par[x];
+      while (sx != 0) {
+        x -= sx;
+        sx = s_par[x];
+      }
+      s_key[j + 1] = x;                    // the keys are read no more
+      if (kRecord && marker[base + (order != nullptr ? order[base + t0 + j]
+                                                     : t0 + j)]) {
+        s_bits[x] |= kMarkFlag;            // the same value from any thread
+      }
+    }
+    __syncthreads();
+    for (int32_t j = threadIdx.x; j < t1 - t0; j += kLocalThreads) {
+      uint8_t fl = 0;
+      if (j < nv) {
+        const int32_t x = s_key[j + 1];
+        d[base + t0 + j] = j - x;
+        fl = (s_bits[j] & (kUlFlag | kUrFlag)) |
+             (x == j ? kRootFlag | (s_bits[j] & kMarkFlag) : 0);
+      }
+      flags[base + t0 + j] = fl;
+    }
+  }
+}
+
+// tcc_cross: the edges from a tile's first slots to the slots before it,
+// in global memory, after tcc_local (every valid slot points into its
+// tile's forest). A block a tile: one warp finds the window's first slot
+// (the first within two rows of the tile's first lin, among the 2w slots
+// before it), another the end of the tile's cross slots (the slots whose
+// row above can reach before the tile: lin < the tile's first lin + w +
+// 1); the window between them is staged in shared memory where it fits
+// (kWindow slots; else every key is read from global memory). The
+// segments of the cross slots unite with their upper candidates before
+// the tile, and record the diagonal partners of the runs that start or
+// end there; the tile's first slot unites with the slot before it where
+// a run goes on across the tile's start.
+template <int kConn>
+__global__ void __launch_bounds__(kCrossThreads)
+tcc_cross(const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
+          int32_t* d, int32_t* __restrict__ rec_ul,
+          int32_t* __restrict__ rec_ur, uint8_t* __restrict__ flags, int t,
+          int f, Div D) {
+  constexpr bool kRecord = kConn == 4;
+  __shared__ int32_t win[kWindow];
+  __shared__ int32_t s_ws, s_te;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int w = D.w;
+  const int32_t t0 = static_cast<int32_t>(blockIdx.x) * kTile;
+  const int32_t t1 = min(t0 + kTile, f);
+  for (int frame = blockIdx.y; frame < t; frame += gridDim.y) {
+    const int64_t base = static_cast<int64_t>(frame) * f;
+    const int32_t* k = keys + base;
+    const uint8_t* v = valid != nullptr ? valid + base : nullptr;
+    int32_t* df = d + base;
+    if (!slot_valid(k, v, t0)) continue;   // past the valid prefix
+    __syncthreads();                       // the last frame's window is read
+    const int32_t kt = k[t0];
+    if (warp == 0) {
+      const int32_t ws = warp_lower_bound(k, v, max(t0 - 2 * w, 0), t0,
+                                          kt - 2 * w, lane);
+      if (lane == 0) s_ws = ws;
+    } else if (warp == 1) {
+      const int32_t te = warp_lower_bound(k, v, t0, min(t0 + w + 1, t1),
+                                          kt + w + 1, lane);
+      if (lane == 0) s_te = te;
+    }
+    __syncthreads();
+    const int32_t te = s_te;
+    const bool staged = te - s_ws <= kWindow;
+    const int32_t ws = staged ? s_ws : te;
+    for (int32_t j = threadIdx.x; j < te - ws; j += kCrossThreads) {
+      win[j] = k[ws + j];                  // slots below te are valid
+    }
+    __syncthreads();
+    const Window key{k, v, win, ws, te, staged};
+    const int32_t floor_slot = staged ? ws : 0;
+    if (threadIdx.x == 0 && t0 > 0 && col(D, kt) > 0 && k[t0 - 1] == kt - 1) {
+      unite(df, t0, t0 - 1);               // a run across the tile's start
+    }
+    for (int32_t i0 = t0; i0 < te; i0 += kCrossThreads) {
+      const int32_t wi = i0 + (static_cast<int32_t>(threadIdx.x) & ~31);
+      if (wi >= te) break;
+      const int32_t i = wi + lane;
+      const bool member = i < te;
+      const int32_t lin = member ? key(i) : 0;
+      const int32_t x = member ? col(D, lin) : 0;
+      const bool left = member && x > 0 && i > 0 && key(i - 1) == lin - 1;
+      int s, e;
+      segments(member, left, lane, &s, &e);
+      const int32_t i_s = i - (lane - s);
+      const int32_t lin_s = __shfl_sync(kFull, lin, s);
+      const int32_t x_s = __shfl_sync(kFull, x, s);
+      const int32_t lin_e = __shfl_sync(kFull, lin, e);
+      const bool left_s = __shfl_sync(kFull, left, s);
+      int32_t ul;
+      const Segment g = upper<kConn>(
+          key, member && lane == s, !left_s, i_s, lin_s, x_s, lin_e,
+          floor_slot, s, w, &ul);
+      if (!member) continue;
+      if (kRecord && lane == s && !left_s && ul >= 0) {
+        rec_ul[base + i_s] = ul;
+        flags[base + i_s] |= kUlFlag;
+      }
+      if (kRecord && lane == e && lin_s >= w &&
+          x_s + (lin_e - lin_s) < w - 1 &&
+          (i + 1 >= f || key(i + 1) != lin_e + 1)) {
+        const int32_t ur = up_right(key, g.p4, i_s, lin_e, w);
+        if (ur >= 0) {
+          rec_ur[base + i] = ur;
+          flags[base + i] |= kUrFlag;
+        }
+      }
+      if (lin_s < w) continue;             // the frame's first row
+      const int len = e - s + 1;
+      for (int32_t j = g.p4 + (lane - s); j < min(i_s, t0); j += len) {
+        const int32_t kj = key(j);
+        if (kj > g.hi) break;
+        if (j == g.p4 || kj == g.row_up || key(j - 1) != kj - 1) {
+          unite(df, i_s, j);
+        }
       }
     }
   }
 }
 
-// the label (the 8-connected root's lin) and keep of each slot, at its
-// table index; d4 is null without the double threshold
+// each tile root points straight at its 4-connected root, and sets the
+// root's mark bit where its tile component holds a marker (one atomicOr
+// a tile component, none where the root already has it; roots change only
+// by the atomics, and a walk that reads a slot before or after its
+// rewrite meets an ancestor either way). A thread kFlagSlots slots' flags.
+__global__ void __launch_bounds__(kThreads)
+tcc_compress_mark(const uint8_t* __restrict__ flags, int32_t* d,
+                  const int32_t* __restrict__ keys,
+                  const uint8_t* __restrict__ valid, int t, int f) {
+  const int32_t i0 = (static_cast<int32_t>(blockIdx.x) * kThreads +
+                      static_cast<int32_t>(threadIdx.x)) * kFlagSlots;
+  if (i0 >= f) return;
+  for (int frame = blockIdx.y; frame < t; frame += gridDim.y) {
+    const int64_t base = static_cast<int64_t>(frame) * f;
+    // the flags of a tile past the valid prefix were never written
+    if (!slot_valid(keys + base, valid != nullptr ? valid + base : nullptr,
+                    i0 - i0 % kTile)) {
+      continue;
+    }
+    int32_t* df = d + base;
+    for (int32_t i = i0; i < min(i0 + kFlagSlots, f); ++i) {
+      const uint8_t fl = flags[base + i];
+      if ((fl & kRootFlag) == 0) continue;
+      int32_t raw;
+      const int32_t r = root_of(df, i, &raw);
+      if (r != i) df[i] = i - r;
+      if ((fl & kMarkFlag) != 0 && (raw & kMark) == 0) {
+        atomicOr(df + r, kMark);
+      }
+    }
+  }
+}
+
+// each kept run end unites with its recorded diagonal partner where that
+// is kept (rec_ul in the forest's second plane, rec_ur in the labels
+// output), in the same forest; a thread kFlagSlots slots' flags
+__global__ void __launch_bounds__(kThreads)
+tcc_diagonals(const uint8_t* __restrict__ flags,
+              const int32_t* __restrict__ rec_ul,
+              const int32_t* __restrict__ rec_ur, int32_t* d,
+              const int32_t* __restrict__ keys,
+              const uint8_t* __restrict__ valid, int t, int f) {
+  const int32_t i0 = (static_cast<int32_t>(blockIdx.x) * kThreads +
+                      static_cast<int32_t>(threadIdx.x)) * kFlagSlots;
+  if (i0 >= f) return;
+  for (int frame = blockIdx.y; frame < t; frame += gridDim.y) {
+    const int64_t base = static_cast<int64_t>(frame) * f;
+    if (!slot_valid(keys + base, valid != nullptr ? valid + base : nullptr,
+                    i0 - i0 % kTile)) {
+      continue;
+    }
+    int32_t* df = d + base;
+    for (int32_t i = i0; i < min(i0 + kFlagSlots, f); ++i) {
+      const uint8_t fl = flags[base + i];
+      if ((fl & (kUlFlag | kUrFlag)) == 0) continue;
+      int32_t raw;
+      root_of(df, i, &raw);
+      if ((raw & kMark) == 0) continue;    // the run is dropped
+      for (int side = 0; side < 2; ++side) {
+        if ((fl & (side == 0 ? kUlFlag : kUrFlag)) == 0) continue;
+        const int32_t p = side == 0 ? rec_ul[base + i] : rec_ur[base + i];
+        const int32_t r = root_of(df, p, &raw);
+        if ((raw & kMark) != 0) unite(df, i, r);
+      }
+    }
+  }
+}
+
+// the label (the root's lin) and keep of each slot, at its table index;
+// marks: the double threshold (keep = the root's mark). A thread
+// kFinalSlots slots kThreads apart, their walks interleaved (a warp's
+// walks mostly share their addresses).
 __global__ void __launch_bounds__(kThreads)
 tcc_final(const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-          const int64_t* __restrict__ order, const int32_t* __restrict__ d4,
-          const int32_t* __restrict__ d8, int32_t* __restrict__ labels,
-          uint8_t* __restrict__ keep, int t, int f) {
-  const int32_t i = static_cast<int32_t>(blockIdx.x) * kThreads +
-                    static_cast<int32_t>(threadIdx.x);
-  if (i >= f) return;
+          const int64_t* __restrict__ order, const int32_t* __restrict__ d,
+          int32_t* __restrict__ labels, uint8_t* __restrict__ keep, int t,
+          int f, int marks) {
+  const int32_t i0 = static_cast<int32_t>(blockIdx.x) * kThreads *
+                         kFinalSlots + static_cast<int32_t>(threadIdx.x);
+  if (i0 >= f) return;
   for (int frame = blockIdx.y; frame < t; frame += gridDim.y) {
     const int64_t base = static_cast<int64_t>(frame) * f;
     const int32_t* k = keys + base;
-    const bool ok = slot_valid(k, valid != nullptr ? valid + base : nullptr,
-                               i) &&
-                    (d4 == nullptr || kept4(d4 + base, i));
-    int32_t lab = -1;
-    if (ok) lab = k[root_of(d8 + base, i)];
-    const int64_t ti = base + (order != nullptr ? order[base + i] : i);
-    labels[ti] = lab;
-    keep[ti] = ok ? 1 : 0;
+    const uint8_t* v = valid != nullptr ? valid + base : nullptr;
+    const volatile int32_t* df = d + base;
+    int32_t x[kFinalSlots], val[kFinalSlots];
+    bool ok[kFinalSlots];
+#pragma unroll
+    for (int q = 0; q < kFinalSlots; ++q) {
+      const int32_t i = i0 + q * kThreads;
+      ok[q] = i < f && slot_valid(k, v, i);
+      x[q] = i;
+      val[q] = ok[q] ? df[i] : 0;
+    }
+    // one hop a round for every slot still walking
+    bool walking = true;
+    while (walking) {
+      walking = false;
+#pragma unroll
+      for (int q = 0; q < kFinalSlots; ++q) {
+        if ((val[q] & kDist) != 0) {
+          x[q] -= val[q] & kDist;
+          val[q] = df[x[q]];
+          walking = true;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kFinalSlots; ++q) {
+      const int32_t i = i0 + q * kThreads;
+      if (i >= f) continue;
+      const bool kept = ok[q] && (!marks || (val[q] & kMark) != 0);
+      const int64_t ti = base + (order != nullptr ? order[base + i] : i);
+      labels[ti] = kept ? k[x[q]] : -1;
+      keep[ti] = kept ? 1 : 0;
+    }
   }
 }
 
@@ -312,15 +720,19 @@ extern "C" {
 // (valid (T, F) uint8 flags whose set entries are a prefix in strictly
 // ascending lin; order null); marker: (T, F) uint8 in table order (read
 // with the double threshold only); forest: (2, T, F) int32 scratch with
-// the double threshold, (1, T, F) without; labels: (T, F) int32 out and
-// keep: (T, F) uint8 out, in table order. H * W < 2^30 (the wrapper
-// checks). Returns a cudaError_t (0 = launched).
+// the double threshold (the forest and the up-left records), (1, T, F)
+// without; labels: (T, F) int32 out (the up-right records until the last
+// launch) and keep: (T, F) uint8 out (the slots' flags until the last
+// launch), in table order. H * W < 2^30 (the wrapper checks). Returns a
+// cudaError_t (0 = launched).
 int ysmr_table_cc(const void* keys, const void* valid, const void* order,
                   const void* marker, void* forest, void* labels, void* keep,
                   int t, int f, int w, int double_threshold, int device,
                   void* stream) {
   if (t <= 0 || f <= 0) return 0;
-  if (w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (w <= 0 || w >= (1 << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -329,24 +741,37 @@ int ysmr_table_cc(const void* keys, const void* valid, const void* order,
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   const int64_t* o = static_cast<const int64_t*>(order);
   const uint8_t* mk = static_cast<const uint8_t*>(marker);
-  int32_t* d4 = static_cast<int32_t*>(forest);
-  int32_t* d8 = double_threshold ? d4 + total : d4;
-  // the forest merged first starts as singletons; tcc_compress_mark writes
-  // d8 at every valid slot
-  err = cudaMemsetAsync(d4, 0, static_cast<size_t>(total) * 4, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((f + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(t < 65535 ? t : 65535));
+  int32_t* d = static_cast<int32_t*>(forest);
+  int32_t* lab = static_cast<int32_t*>(labels);
+  uint8_t* fl = static_cast<uint8_t*>(keep);
+  Div D{w, 0, 0};
+  while ((1 << D.l) < w) ++D.l;
+  D.m = static_cast<uint32_t>(((uint64_t{1} << (31 + D.l)) + w - 1) / w);
+  const unsigned ty = static_cast<unsigned>(t < 65535 ? t : 65535);
+  const dim3 tiles(static_cast<unsigned>((f + kTile - 1) / kTile), ty);
+  const int per_flags = kThreads * kFlagSlots;
+  const int per_final = kThreads * kFinalSlots;
+  const dim3 flag_slots(static_cast<unsigned>((f + per_flags - 1) / per_flags),
+                        ty);
+  const dim3 final_slots(
+      static_cast<unsigned>((f + per_final - 1) / per_final), ty);
   if (double_threshold) {
-    tcc_merge<4><<<grid, kThreads, 0, s>>>(k, v, d4, t, f, w);
-    tcc_compress_mark<<<grid, kThreads, 0, s>>>(k, v, o, mk, d4, d8, t, f);
-    tcc_diagonals<<<grid, kThreads, 0, s>>>(k, v, d4, d8, t, f, w);
+    int32_t* rec_ul = d + total;
+    tcc_local<4><<<tiles, kLocalThreads, 0, s>>>(k, v, o, mk, d, rec_ul, lab,
+                                                 fl, t, f, D);
+    tcc_cross<4><<<tiles, kCrossThreads, 0, s>>>(k, v, d, rec_ul, lab, fl, t,
+                                                 f, D);
+    tcc_compress_mark<<<flag_slots, kThreads, 0, s>>>(fl, d, k, v, t, f);
+    tcc_diagonals<<<flag_slots, kThreads, 0, s>>>(fl, rec_ul, lab, d, k, v, t,
+                                                  f);
   } else {
-    tcc_merge<8><<<grid, kThreads, 0, s>>>(k, v, d8, t, f, w);
+    tcc_local<8><<<tiles, kLocalThreads, 0, s>>>(
+        k, v, o, mk, d, nullptr, nullptr, fl, t, f, D);
+    tcc_cross<8><<<tiles, kCrossThreads, 0, s>>>(
+        k, v, d, nullptr, nullptr, fl, t, f, D);
   }
-  tcc_final<<<grid, kThreads, 0, s>>>(
-      k, v, o, double_threshold ? d4 : nullptr, d8,
-      static_cast<int32_t*>(labels), static_cast<uint8_t*>(keep), t, f);
+  tcc_final<<<final_slots, kThreads, 0, s>>>(k, v, o, d, lab, fl, t, f,
+                                             double_threshold);
   return static_cast<int>(cudaGetLastError());
 }
 

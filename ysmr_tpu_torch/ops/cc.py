@@ -17,7 +17,7 @@ With ``use table cc``, ``cc_labels_table`` (``csrc/table_cc.cu``; plain
 version ``cc_labels_table_plain``, ``ysmr_tpu``'s table route) gives the
 pixel kernel's function from ``ysmr_tpu/ops/labeling.py::
 label_components_table``, which has no Pallas kernel: a union-find over
-each frame's lin-sorted table with no width cap.
+the runs of each frame's lin-sorted table with no width cap.
 
 After the pixel kernel, ``pixel_finish`` (``csrc/pixel_finish.cu``, three
 launches; plain version ``pixel_finish_plain``) turns its labels into the
@@ -251,6 +251,14 @@ def cc_labels_at_pixels(px_x, px_y, px_valid, px_marker, *, h, w,
     return labels, keep
 
 
+#: ``csrc/table_cc.cu``: slots a tile, and the most slots of a tile's
+#: window (the slots within two image rows before its first lin, and its
+#: own slots whose row above can reach before it) staged in shared memory
+#: for the edges that leave the tile
+TABLE_TILE = 2048
+TABLE_WINDOW = 2048
+
+
 def cc_labels_table_plain(lin, valid, px_marker, *, h, w, double_threshold,
                           max_iters=64):
     """Plain version of ``cc_labels_table``: the route of ``ysmr_tpu``'s
@@ -296,9 +304,14 @@ def cc_labels_table(lin, valid, px_marker, *, h, w, double_threshold,
     and ``compact_labels_table`` on ``ysmr_tpu``'s pixel-table branch).
 
     On a CUDA tensor the kernel ``ysmr_table_cc`` (``csrc/table_cc.cu``):
-    a union-find over each frame's lin-sorted table, neighbours found by
-    binary search, no frame-sized array and no width cap; it reaches the
-    fixpoint (``max_iters`` is the plain version's). The valid entries
+    a union-find over each frame's lin-sorted table in tiles of
+    ``TABLE_TILE`` slots, each tile's edges in shared memory, the edges
+    that leave a tile found in a window of keys in shared memory (at most
+    ``TABLE_WINDOW`` slots; a longer one is read from global memory), the
+    runs the unit of the searches, walks and marks; no frame-sized array
+    and no width cap; it reaches the fixpoint (``max_iters`` is the plain
+    version's).
+    The valid entries
     may sit anywhere in a row and in any order: each row is sorted first
     (``torch.sort``, stable), unless ``raster_prefix`` says that the
     valid entries of each row are already a prefix in strictly ascending
@@ -343,8 +356,8 @@ def cc_labels_table(lin, valid, px_marker, *, h, w, double_threshold,
                                                device=dev)),
             dim=1, stable=True)
         keys, vptr = keys.contiguous(), None
-    # the forests over the sorted slots: 4-connected (double threshold
-    # only) and 8-connected
+    # the forest over the sorted slots and, with the double threshold, the
+    # up-left diagonal partners of the run heads
     forest = torch.empty((2 if double_threshold else 1, t, f),
                          dtype=torch.int32, device=dev)
     labels = torch.empty((t, f), dtype=torch.int32, device=dev)

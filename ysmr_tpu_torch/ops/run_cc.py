@@ -760,6 +760,11 @@ def run_cc_components_plain(px_runs, run_counts, *, w, double_threshold,
                        finish_components_plain)
 
 
+#: ``csrc/expand_runs.cu``'s runs a chunk and output slots a tile
+EXPAND_CHUNK = 2048
+EXPAND_TILE = 2048
+
+
 def expand_runs_plain(px_runs, run_counts, f, double_threshold):
     """Plain version of ``expand_runs``: ``ysmr_tpu``'s expansion, ``lin``
     with no per-pixel gather (one scatter of each run's jump delta, then a
@@ -801,9 +806,11 @@ def expand_runs(px_runs, run_counts, f, double_threshold):
     pixels hold what the plain version's scans leave there (the last run's
     lin continued, its marker); the pixel count masks them.
 
-    On a CUDA tensor one launch of ``csrc/expand_runs.cu`` (a block a
-    frame, no host sync), for the encoder's wires: runs below the count
-    of lengths 1-31. On a CPU tensor ``expand_runs_plain``.
+    On a CUDA tensor ``csrc/expand_runs.cu`` (one call: each chunk of
+    EXPAND_CHUNK runs' length sum, a launch skipped where the wire is one
+    chunk, then a block a tile of EXPAND_TILE slots; no host sync), for
+    the encoder's wires: runs below the count of lengths 1-31. On a CPU
+    tensor ``expand_runs_plain``.
 
     :param px_runs: (T, R) int32 view of the uint32 run wire
     :param run_counts: (T,) int32 runs per frame
@@ -828,9 +835,13 @@ def expand_runs(px_runs, run_counts, f, double_threshold):
     dev = px_runs.device
     lin = torch.empty((t, f), dtype=_I32, device=dev)
     marker = torch.empty((t, f), dtype=torch.bool, device=dev)
+    # each chunk's length sum (4 bytes a chunk of EXPAND_CHUNK runs)
+    sums = torch.empty((t, max(-(-r // EXPAND_CHUNK), 1)), dtype=_I32,
+                       device=dev)
     lib = _build.load_kernels()
     rc = lib.ysmr_expand_runs(px_runs.data_ptr(), run_counts.data_ptr(),
-                              lin.data_ptr(), marker.data_ptr(), t, r, f,
+                              sums.data_ptr(), lin.data_ptr(),
+                              marker.data_ptr(), t, r, f,
                               int(bool(double_threshold)), dev.index,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, 'expand runs kernel launch')
